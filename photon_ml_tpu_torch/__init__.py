@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of photon-ml-tpu.
+
+GLMix training (a dense fixed effect plus per-entity random effects, by
+cyclic coordinate descent) with the fused dense GLM objective written as
+hand-made CUDA kernels for Hopper (`csrc/glm_fused.cu`). The layout mirrors
+the JAX package `photon_ml_tpu`, which stays the reference and is never
+imported from here.
+"""
+
+from photon_ml_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

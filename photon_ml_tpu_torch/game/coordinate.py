@@ -1,0 +1,165 @@
+"""GAME coordinates: per-coordinate training and scoring.
+
+Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
+
+  * FixedEffectCoordinate: one GLM solve over the whole sample axis. A CUDA
+    float32 design matrix is stored bf16 once (the JAX package's
+    PHOTON_DENSE_BF16X default) and that copy is used for both training and
+    scoring, so the coordinate-descent residuals stay consistent; the
+    objective then runs the fused CUDA kernels on it (half the bytes of X
+    per pass).
+  * RandomEffectCoordinate: the per-bucket loop. Each bucket of entities is
+    one batched L-BFGS/TRON call over its (E, S, D) block, warm-started from
+    the previous coefficient matrix rows, on the plain batched objective
+    (the JAX package runs these vmapped solves on XLA, not on its kernels).
+
+Not ported yet: the scan-dispatched sweep, the entity-sharded mesh, the
+planner's fusion chunks, fault/retry sites, down-sampling and variances.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from photon_ml_tpu_torch.data.containers import LabeledData
+from photon_ml_tpu_torch.data.game_dataset import (
+    GameDataset,
+    RandomEffectDataset,
+    gather_block_data,
+)
+from photon_ml_tpu_torch.game.model import (
+    Coefficients,
+    FixedEffectModel,
+    RandomEffectModel,
+    random_effect_margins,
+)
+from photon_ml_tpu_torch.ops.losses import PointwiseLoss, loss_for_task
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.optimize import problem
+from photon_ml_tpu_torch.optimize.common import OptResult
+from photon_ml_tpu_torch.optimize.config import CoordinateOptimizationConfig
+from photon_ml_tpu_torch.transformers.game_transformer import dense_margins
+from photon_ml_tpu_torch.types import TaskType
+
+Tensor = torch.Tensor
+
+
+def _check_config(config: CoordinateOptimizationConfig) -> CoordinateOptimizationConfig:
+    if config.down_sampling_rate < 1.0:
+        raise NotImplementedError("down-sampling is not ported yet")
+    return config
+
+
+def _norm_on(norm: Optional[NormalizationContext], device) -> Optional[NormalizationContext]:
+    return None if norm is None else norm.to(device)
+
+
+class FixedEffectCoordinate:
+    def __init__(
+        self,
+        dataset: GameDataset,
+        config_data_shard: str,
+        opt_config: CoordinateOptimizationConfig,
+        task: TaskType,
+        norm: Optional[NormalizationContext] = None,
+    ):
+        self.dataset = dataset
+        self.shard = config_data_shard
+        self.config = opt_config
+        self.task = task
+        self.loss: PointwiseLoss = loss_for_task(task)
+        self.norm = _norm_on(norm, dataset.device)
+        feats = dataset.shards[config_data_shard]
+        if feats.is_cuda and feats.dtype == torch.float32:
+            key = ("bf16x", config_data_shard)
+            if key not in dataset.cache:
+                dataset.cache[key] = feats.to(torch.bfloat16)
+            feats = dataset.cache[key]
+        self._features = feats
+
+    @property
+    def training_features(self) -> Tensor:
+        """The matrix training and scoring run on (the bf16 copy on CUDA)."""
+        return self._features
+
+    def train(
+        self,
+        offsets: Tensor,
+        initial_model: Optional[FixedEffectModel] = None,
+    ) -> Tuple[FixedEffectModel, OptResult]:
+        ds = self.dataset
+        cfg = _check_config(self.config)
+        w0 = (
+            initial_model.coefficients.means.to(ds.device)
+            if initial_model is not None
+            else torch.zeros(self._features.shape[-1], dtype=ds.labels.dtype, device=ds.device)
+        )
+        data = LabeledData(self._features, ds.labels, offsets, ds.weights)
+        res = problem.solve(self.loss, data, cfg, w0, self.norm)
+        return FixedEffectModel(Coefficients(res.coefficients), self.task), res
+
+    def score(self, model: FixedEffectModel) -> Tensor:
+        """Raw per-sample margins x.w (no offsets)."""
+        return dense_margins(self._features, model.coefficients.means, self.norm)
+
+
+class RandomEffectCoordinate:
+    def __init__(
+        self,
+        dataset: GameDataset,
+        re_dataset: RandomEffectDataset,
+        opt_config: CoordinateOptimizationConfig,
+        task: TaskType,
+        norm: Optional[NormalizationContext] = None,
+    ):
+        self.dataset = dataset
+        self.re_dataset = re_dataset
+        self.config = opt_config
+        self.task = task
+        self.loss = loss_for_task(task)
+        self.norm = _norm_on(norm, dataset.device)
+        self.dim = dataset.shards[re_dataset.feature_shard].shape[-1]
+
+    def train(
+        self,
+        offsets: Tensor,
+        initial_model: Optional[RandomEffectModel] = None,
+    ) -> Tuple[RandomEffectModel, dict]:
+        """Train every entity bucket; per-entity warm start from the
+        previous matrix's rows."""
+        ds, red = self.dataset, self.re_dataset
+        cfg = _check_config(self.config)
+        e_total = red.num_entities
+        if initial_model is not None:
+            matrix = initial_model.coefficients_matrix.to(ds.device).clone()
+        else:
+            matrix = torch.zeros((e_total + 1, self.dim), dtype=ds.labels.dtype, device=ds.device)
+        bucket_iters = []
+        for blocks in red.buckets:
+            block = gather_block_data(ds, red.feature_shard, blocks, offsets)
+            w0 = matrix[blocks.entity_rows]
+            res = problem.solve(self.loss, block, cfg, w0, self.norm, use_kernel=False)
+            # Dummy (padding) entities all write the unseen row, re-zeroed below.
+            matrix[blocks.entity_rows] = res.coefficients
+            bucket_iters.append(res.iterations)
+        matrix[e_total] = 0.0
+        stats = {
+            "buckets": [
+                dict(capacity=b.capacity, entities=b.num_entities,
+                     mean_iterations=float(its.float().mean()))
+                for b, its in zip(red.buckets, bucket_iters)
+            ],
+            "total_iterations": int(sum(int(its.sum()) for its in bucket_iters)),
+        }
+        return RandomEffectModel(matrix, None, self.task), stats
+
+    def score(self, model: RandomEffectModel) -> Tensor:
+        red = self.re_dataset
+        return random_effect_margins(
+            self.dataset.shards[red.feature_shard],
+            red.sample_entity_rows,
+            model.coefficients_matrix,
+            self.norm,
+        )

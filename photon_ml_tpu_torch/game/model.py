@@ -1,0 +1,80 @@
+"""GAME model containers.
+
+Port of the single-device part of `photon_ml_tpu/game/model.py`: a fixed
+effect is one coefficient vector; a random effect is one dense
+(num_entities + 1, D) coefficient matrix whose last row is pinned to zero
+and scores entities unseen at training time; a GameModel maps coordinate ids
+to models. Scoring sums per-coordinate margins over one shared sample axis.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.types import TaskType
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Coefficients:
+    means: Tensor
+    variances: Optional[Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedEffectModel:
+    coefficients: Coefficients
+    task: TaskType
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomEffectModel:
+    """Row e holds entity e's coefficients; row `num_entities` is the pinned
+    zero row."""
+
+    coefficients_matrix: Tensor  # (E + 1, D)
+    variances_matrix: Optional[Tensor]
+    task: TaskType
+
+
+def random_effect_margins(
+    features: Tensor,
+    entity_rows: Tensor,
+    matrix: Tensor,
+    norm: Optional[NormalizationContext],
+) -> Tensor:
+    """Per-sample margins: gather each sample's coefficient row and reduce
+    per row (batch-size invariant, unlike a batched matmul), with
+    normalization folded into the rows once."""
+    shift = None
+    if norm is not None and not norm.is_identity:
+        matrix = norm.effective_coefficients(matrix)
+        if norm.shifts is not None:
+            shift = -torch.sum(matrix * norm.shifts, dim=-1)  # (E + 1,)
+    X = features if features.dtype == matrix.dtype else features.to(matrix.dtype)
+    out = torch.sum(X * matrix[entity_rows], dim=-1)
+    if shift is not None:
+        out = out + shift[entity_rows]
+    return out
+
+
+@dataclasses.dataclass
+class GameModel:
+    """coordinate id -> model."""
+
+    models: Dict[str, object]
+
+    def __getitem__(self, cid: str):
+        return self.models[cid]
+
+    def __contains__(self, cid: str) -> bool:
+        return cid in self.models
+
+    @property
+    def coordinate_ids(self):
+        return list(self.models.keys())

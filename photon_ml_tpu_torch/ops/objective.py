@@ -1,0 +1,185 @@
+"""GLM objective: weighted loss value, gradient and Hessian products.
+
+Port of the dense path of `photon_ml_tpu/ops/objective.py`:
+
+    z  = X (w*factor) - shifts.(w*factor) + offset
+    f  = sum_i weight_i l(z_i, y_i) + l2/2 ||w||^2
+    g  = factor * (X^T u - (sum u) shifts) + l2 w,   u = weight l'(z)
+    Hv = factor * (X^T r - (sum r) shifts) + l2 v,
+         r = weight l''(z) (X (v*factor) - shifts.(v*factor))
+
+Every function is rank-generic: `w` may carry leading batch axes (B, D)
+against features (B, N, D), which is how a random-effect bucket runs all
+its entity problems at once. The 2-D single-problem case can take the fused
+CUDA kernels (ops/glm_kernels.py), which return the raw sums; normalization
+and L2 are applied here, outside the kernel, exactly as in the JAX package.
+
+`use_kernel`: None = the kernel when the features are a 2-D float32/bf16
+CUDA tensor, else the plain path; False = the plain path.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from photon_ml_tpu_torch.data.containers import LabeledData
+from photon_ml_tpu_torch.ops import glm_kernels
+from photon_ml_tpu_torch.ops.losses import PointwiseLoss
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+
+Tensor = torch.Tensor
+L2 = Union[float, Tensor]
+
+
+def _eff(w: Tensor, norm: Optional[NormalizationContext]) -> Tuple[Tensor, Tensor]:
+    """(effective coefficients, margin shift per problem)."""
+    if norm is None or norm.is_identity:
+        return w, torch.zeros(w.shape[:-1], dtype=w.dtype, device=w.device)
+    return norm.effective_coefficients(w), norm.margin_shift(w)
+
+
+def margin_params(w: Tensor, norm: Optional[NormalizationContext]) -> Tuple[Tensor, Tensor]:
+    """Public view of the (effective coefficients, margin shift) pair for
+    scoring-side consumers (the transformer's row-stable dense margins)."""
+    return _eff(w, norm)
+
+
+def _kernel_eligible(features: Tensor, w: Tensor) -> bool:
+    return (
+        features.ndim == 2
+        and w.ndim == 1
+        and features.is_cuda
+        and features.dtype in (torch.float32, torch.bfloat16)
+    )
+
+
+def _use_kernel(use_kernel: Optional[bool], features: Tensor, w: Tensor) -> bool:
+    return use_kernel is not False and _kernel_eligible(features, w)
+
+
+def _matvec(features: Tensor, w: Tensor) -> Tensor:
+    """X w per problem: (N, D) @ (D,) or (B, N, D) x (B, D) -> (B, N)."""
+    X = features if features.dtype == w.dtype else features.to(w.dtype)
+    if X.ndim == 2:
+        return X @ w
+    return torch.einsum("...nd,...d->...n", X, w)
+
+
+def _rmatvec(features: Tensor, u: Tensor) -> Tensor:
+    """X^T u per problem."""
+    X = features if features.dtype == u.dtype else features.to(u.dtype)
+    if X.ndim == 2:
+        return u @ X
+    return torch.einsum("...n,...nd->...d", u, X)
+
+
+def _sq_rmatvec(features: Tensor, u: Tensor) -> Tensor:
+    X = features if features.dtype == u.dtype else features.to(u.dtype)
+    return torch.einsum("...n,...nd->...d", u, X * X)
+
+
+def _l2_value(w: Tensor, l2: L2) -> Tensor:
+    return 0.5 * l2 * torch.sum(w * w, dim=-1)
+
+
+def compute_margins(
+    w: Tensor, data: LabeledData, norm: Optional[NormalizationContext] = None
+) -> Tensor:
+    w_eff, shift = _eff(w, norm)
+    return _matvec(data.features, w_eff) + shift[..., None] + data.offsets
+
+
+def value(
+    loss: PointwiseLoss,
+    w: Tensor,
+    data: LabeledData,
+    norm: Optional[NormalizationContext] = None,
+    l2: L2 = 0.0,
+) -> Tensor:
+    z = compute_margins(w, data, norm)
+    return torch.sum(data.weights * loss.loss(z, data.labels), dim=-1) + _l2_value(w, l2)
+
+
+def value_and_gradient(
+    loss: PointwiseLoss,
+    w: Tensor,
+    data: LabeledData,
+    norm: Optional[NormalizationContext] = None,
+    l2: L2 = 0.0,
+    use_kernel: Optional[bool] = None,
+) -> Tuple[Tensor, Tensor]:
+    """One pass: margins computed once, shared by value and gradient. On the
+    kernel path X is read once for both."""
+    w_eff, shift = _eff(w, norm)
+    if _use_kernel(use_kernel, data.features, w):
+        val, g, sum_u = glm_kernels.value_gradient_sums(
+            loss, w_eff, shift, data.features, data.labels, data.offsets, data.weights
+        )
+    else:
+        z = _matvec(data.features, w_eff) + shift[..., None] + data.offsets
+        val = torch.sum(data.weights * loss.loss(z, data.labels), dim=-1)
+        u = data.weights * loss.d1(z, data.labels)
+        g = _rmatvec(data.features, u)
+        sum_u = torch.sum(u, dim=-1)
+    if norm is not None and not norm.is_identity:
+        if norm.shifts is not None:
+            g = g - sum_u[..., None] * norm.shifts
+        if norm.factors is not None:
+            g = g * norm.factors
+    return val + _l2_value(w, l2), g + l2 * w
+
+
+def hessian_vector(
+    loss: PointwiseLoss,
+    w: Tensor,
+    v: Tensor,
+    data: LabeledData,
+    norm: Optional[NormalizationContext] = None,
+    l2: L2 = 0.0,
+    use_kernel: Optional[bool] = None,
+) -> Tensor:
+    """H(w) v for the GLM losses (X^T diag(weight l'') X in normalized space).
+    On the kernel path one read of X computes both X w and X v."""
+    w_eff, shift = _eff(w, norm)
+    v_eff, v_shift = _eff(v, norm)
+    if _use_kernel(use_kernel, data.features, w):
+        hv, sum_r = glm_kernels.hessian_vector_sums(
+            loss, w_eff, shift, v_eff, v_shift, data.features, data.labels,
+            data.offsets, data.weights,
+        )
+    else:
+        z = _matvec(data.features, w_eff) + shift[..., None] + data.offsets
+        q = _matvec(data.features, v_eff) + v_shift[..., None]
+        r = data.weights * loss.d2(z, data.labels) * q
+        hv = _rmatvec(data.features, r)
+        sum_r = torch.sum(r, dim=-1)
+    if norm is not None and not norm.is_identity:
+        if norm.shifts is not None:
+            hv = hv - sum_r[..., None] * norm.shifts
+        if norm.factors is not None:
+            hv = hv * norm.factors
+    return hv + l2 * v
+
+
+def hessian_diagonal(
+    loss: PointwiseLoss,
+    w: Tensor,
+    data: LabeledData,
+    norm: Optional[NormalizationContext] = None,
+    l2: L2 = 0.0,
+) -> Tensor:
+    """diag H = factor^2 sum_i c_i (x_ij - s_j)^2 + l2, c = weight l'',
+    expanded as sum c x^2 - 2 s (sum c x) + s^2 (sum c)."""
+    w_eff, shift = _eff(w, norm)
+    z = _matvec(data.features, w_eff) + shift[..., None] + data.offsets
+    c = data.weights * loss.d2(z, data.labels)
+    diag = _sq_rmatvec(data.features, c)
+    if norm is not None and norm.shifts is not None:
+        s = norm.shifts
+        lin = _rmatvec(data.features, c)
+        diag = diag - 2.0 * s * lin + s * s * torch.sum(c, dim=-1)[..., None]
+    if norm is not None and norm.factors is not None:
+        diag = diag * norm.factors * norm.factors
+    return diag + l2
