@@ -5,9 +5,9 @@
 
 Phases (any failure exits non-zero; there is no fallback anywhere):
 
-1. Build the CUDA kernels (`photon_ml_tpu_torch/csrc/glm_fused.cu`) from the
-   sources in this checkout with nvcc; print the build time and ptxas'
-   register/spill lines.
+1. Build the CUDA kernels (`photon_ml_tpu_torch/csrc/glm_fused.cu` and
+   `csrc/sparse_glm.cu`, one nvcc each, started together) from the sources
+   in this checkout; print the build times and ptxas' register/spill lines.
 2. Kernel vs plain version on the card at the fixed effect's full width
    (1,048,576 x 512): `value_grad` for the four losses with f32 and bf16 X,
    and `hvp` for the logistic loss. Each result is held against the plain
@@ -32,10 +32,29 @@ Phases (any failure exits non-zero; there is no fallback anywhere):
    its optimum (with the reading of a lane left at its cold start beside
    it, which the limit must stay below).
 
-The kernels' launch counts are set to 0 just before phases 3-4 (the main
-path) and read just after. The last three lines of standard output are the
-`kernels` JSON line, the card's name and power limit from nvidia-smi, and
-`{"ok": true, "device": {...}}`. Data comes from numpy with --seed;
+The sparse fixed effect (bench.py's sparse shape: 1,048,576 rows x 64
+uniform feature ids, dim 16,384, normal values), its CSR/CSC layout built on
+the card and timed, then:
+
+2s. Each sparse kernel (ops/sparse_kernels.py) against its plain version on
+   the main path's layout under PORT_TOLERANCES["sparse_kernel_vs_plain"],
+   called twice (bit-identical), timed beside its plain version, one
+   cuSPARSE call (torch.sparse_csr_tensor; the port never calls it) and its
+   bound; then two untimed shapes off the main path: a skewed one (~30% of
+   entries on 16 columns, empty rows) and a wide one (dim 200,003, empty
+   columns), where empty rows and columns must give exact zeros.
+3s. GLMix with the sparse fixed effect (L-BFGS, 20 iterations, tol 1e-7,
+   L2 1.0; bench.py:2717-2726) and phase 3's random effect: one sweep,
+   scoring, training AUC.
+4s. The sparse fixed effect with TRON (15 iterations, tol 1e-6, L2 1.0) and
+   SIMPLE coefficient variances, which must be finite and positive; then
+   one profiled sweep of 3s.
+5s. Phase 5's card-vs-CPU check with a small sparse fixed effect.
+
+The kernels' launch counts are set to 0 just before each path (phases 3-4,
+3s, 4s) and read just after. The last three lines of standard output are
+the `kernels` JSON line, the card's name and power limit from nvidia-smi,
+and `{"ok": true, "device": {...}}`. Data comes from numpy with --seed;
 weights start at zero.
 """
 
@@ -46,6 +65,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -54,6 +74,13 @@ N_ROWS = 1 << 20
 D_FIXED = 512
 D_RE = 16
 N_ENTITIES = 8192
+# The sparse fixed effect (bench.py:2656-2659): 64 entries per row, dim 16,384.
+K_SPARSE = 64
+D_SPARSE = 16384
+SPARSE_SOURCE = "photon_ml_tpu_torch/csrc/sparse_glm.cu"
+SPARSE_REPLACES = {"sparse_fused": "photon_ml_tpu/ops/pallas_sparse.py:690",
+                   "sparse_matvec": "photon_ml_tpu/ops/pallas_sparse.py:216",
+                   "sparse_rmatvec": "photon_ml_tpu/ops/pallas_sparse.py:255"}
 
 # Data-sheet rates (memory bytes/s, float32 FMA-pipe operations/s) by card,
 # matched on the name nvidia-smi and torch report. SXM is the H100 default.
@@ -92,6 +119,20 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def compare(got, ref):
+    """(max abs error, worst scale-relative error) of tensors against references."""
+    max_abs, worst_rel = 0.0, 0.0
+    for g, r in zip(got, ref):
+        g64, r64 = g.double(), r.double()
+        err = float((g64 - r64).abs().max())
+        scale = float(r64.abs().max())
+        if r64.ndim == 0:  # a sum that may sit near zero: relative to max(|ref|, 1)
+            scale = max(scale, 1.0)
+        max_abs = max(max_abs, err)
+        worst_rel = max(worst_rel, err / max(scale, 1e-30))
+    return max_abs, worst_rel
+
+
 def glmix_arrays(seed: int, n: int, d_fixed: int, d_re: int, n_entities: int):
     """bench.py's GLMix generator, in numpy."""
     rng = np.random.default_rng(seed)
@@ -103,6 +144,22 @@ def glmix_arrays(seed: int, n: int, d_fixed: int, d_re: int, n_entities: int):
     margin = Xf @ w + np.einsum("nd,nd->n", Xe, u[entity])
     y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margin))).astype(np.float32)
     return Xf, Xe, entity, y
+
+
+def sparse_glmix_arrays(seed: int, n: int, k: int, dim: int, d_re: int, n_entities: int):
+    """bench.py's sparse shard (bench.py:2656-2659: k uniform feature ids per
+    row, duplicates kept, normal values) and a per-entity random effect as in
+    `glmix_arrays`; labels from both, in numpy."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, dim, size=(n, k), dtype=np.int32)
+    val = rng.standard_normal((n, k), dtype=np.float32)
+    Xe = rng.standard_normal((n, d_re), dtype=np.float32)
+    entity = rng.integers(0, n_entities, size=n)
+    w = (rng.standard_normal(dim, dtype=np.float32) * 0.1).astype(np.float32)
+    u = (rng.standard_normal((n_entities, d_re), dtype=np.float32) * 0.5).astype(np.float32)
+    margin = np.einsum("nk,nk->n", val, w[idx]) + np.einsum("nd,nd->n", Xe, u[entity])
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-margin))).astype(np.float32)
+    return idx, val, Xe, entity, y
 
 
 def re_objective_readings(ds, red, offsets, loss, l2: float, matrices):
@@ -151,6 +208,377 @@ def re_objective_readings(ds, red, offsets, loss, l2: float, matrices):
     return dict(excess=excess, coef_dist=dist, fault=fault)
 
 
+def profile_sweep(coords, wall_s: float) -> dict:
+    """Device busy time per kernel name of one coordinate-descent sweep under
+    torch.profiler, and the idle share against the unprofiled wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_coordinate_descent(coords, 1)
+        torch.cuda.synchronize()
+    # Device-side events only (kernels, copies): a CPU op's device time
+    # repeats that of the kernels it launched.
+    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                        for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                       key=lambda t: -t[1])
+    busy_ms = sum(t for _, t, _ in by_kernel)
+    return dict(
+        device_busy_ms=busy_ms, glmix_wall_ms=wall_s * 1e3,
+        device_idle_share=1.0 - busy_ms / (wall_s * 1e3), device_ops=sum(c for _, _, c in by_kernel),
+        top=[dict(name=k[:60], ms=t, calls=c) for k, t, c in by_kernel[:8]],
+    )
+
+
+def small_glmix_card_vs_cpu(seed: int, shards: dict, fe_shard: str, sy, sent):
+    """A small GLMix (fixed effect on `fe_shard`, per-entity random effect on
+    "per_entity") fit by two sweeps on the card (kernel path) and on the CPU
+    (plain path) from the same host arrays; returns (log row, failures)
+    under PORT_TOLERANCES["card_vs_cpu_glmix"]."""
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.game_dataset import (
+        GameDataset,
+        RandomEffectDataConfig,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
+    from photon_ml_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    ref_tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    re_l2 = 10.0
+    small_fe = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=40, tolerance=1e-6), regularization=L2, reg_weight=1.0)
+    small_re = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-5), regularization=L2, reg_weight=re_l2)
+    fits = {}
+    for where in ("cuda", "cpu"):
+        sds = GameDataset.build(shards, sy, id_tags={"entityId": sent}, device=where)
+        sred = build_random_effect_dataset(
+            sds, RandomEffectDataConfig("entityId", "per_entity", active_upper_bound=96, min_bucket=16))
+        sc = {"fixed": FixedEffectCoordinate(sds, fe_shard, small_fe, task),
+              "per-entity": RandomEffectCoordinate(sds, sred, small_re, task)}
+        r = run_coordinate_descent(sc, 2)
+        s = sum(sc[c].score(r.model[c]) for c in sc)
+        fits[where] = dict(
+            fe=r.model["fixed"].coefficients.means.cpu(),
+            re=r.model["per-entity"].coefficients_matrix.cpu(),
+            auc=float(area_under_roc_curve(s, sds.labels)),
+            # The offsets the random effect's last solve ran on.
+            re_offsets=sds.offsets + sc["fixed"].score(r.model["fixed"]),
+            ds=sds, red=sred,
+        )
+    cpu = fits["cpu"]
+    re = re_objective_readings(cpu["ds"], cpu["red"], cpu["re_offsets"], LOGISTIC, re_l2,
+                               {"card": fits["cuda"]["re"], "cpu": cpu["re"]})
+    fe_err = float((fits["cuda"]["fe"] - cpu["fe"]).abs().max())
+    auc_err = abs(fits["cuda"]["auc"] - cpu["auc"])
+    limit = ref_tol["re_objective_rtol"]
+    ok = (fe_err <= ref_tol["fe_coef_atol"] and re["excess"]["card"] <= limit
+          and auc_err <= ref_tol["auc_atol"])
+    row = dict(
+        seed=seed, fe_coef_err=fe_err, re_objective_excess=re["excess"],
+        re_coef_dist_from_f64=re["coef_dist"], re_fault_excess=re["fault"],
+        re_coef_card_vs_cpu=float((fits["cuda"]["re"] - cpu["re"]).abs().max()),
+        auc_card=fits["cuda"]["auc"], auc_cpu=cpu["auc"], tol=ref_tol, ok=ok)
+    failures = []
+    if not ok:
+        failures.append(f"seed {seed}: the card's small GLMix disagrees with the CPU's")
+    if not (re["excess"]["cpu"] <= limit < re["fault"]):
+        failures.append(f"seed {seed}: re_objective_rtol {limit} does not separate the CPU fit "
+                        f"({re['excess']['cpu']:.3e}) from a cold-start lane ({re['fault']:.3e})")
+    return row, failures
+
+
+def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
+    """Phase 2s: each sparse kernel against its plain version on `layout` (the
+    main path's), twice (bit-identical), timed beside its plain version, a
+    cuSPARSE call (torch.sparse_csr_tensor; the port never calls it) and its
+    bound; then two untimed shapes off the main path. Returns (rows by
+    kernel name for the record line, failures)."""
+    import torch
+
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.data import sparse_layout
+    from photon_ml_tpu_torch.data.containers import SparseFeatures
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC, POISSON, SMOOTHED_HINGE, SQUARED
+
+    tol = PORT_TOLERANCES["sparse_kernel_vs_plain"]["scale_rel"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    failures = []
+
+    def vectors(L):
+        n, d = L.shape
+        return dict(
+            w=0.05 * torch.randn(d, generator=gen, device=dev),
+            u=torch.randn(n, generator=gen, device=dev),
+            y=(torch.rand(n, generator=gen, device=dev) < 0.5).float(),
+            off=0.1 * torch.randn(n, generator=gen, device=dev),
+            wt=0.5 + torch.rand(n, generator=gen, device=dev),
+            shift=torch.tensor(0.01, device=dev),
+        )
+
+    def variants(L, v):
+        """(name, loss, kernel call, plain call, bytes, operations) per check."""
+        nnz, (n, d) = L.nnz, L.shape
+        entry_bytes = nnz * 8  # a 4-byte index and a 4-byte value per entry, read once
+        out = [
+            ("sparse_matvec", None, lambda: (sk.matvec(L, v["w"]),),
+             lambda: (sk.matvec_plain(L, v["w"]),), entry_bytes + 4 * (d + n), 2 * nnz),
+            ("sparse_rmatvec", None, lambda: (sk.rmatvec(L, v["u"]),),
+             lambda: (sk.rmatvec_plain(L, v["u"]),), entry_bytes + 4 * (n + d), 2 * nnz),
+            ("sparse_rmatvec_square", None, lambda: (sk.rmatvec(L, v["u"], square=True),),
+             lambda: (sk.rmatvec_plain(L, v["u"], True),), entry_bytes + 4 * (n + d), 3 * nnz),
+        ]
+        for loss in (LOGISTIC, SQUARED, POISSON, SMOOTHED_HINGE):
+            args = (loss, v["w"], v["shift"], L, v["y"], v["off"], v["wt"])
+            out.append(("sparse_fused", loss, lambda a=args: sk.fused_value_gradient_sums(*a),
+                        lambda a=args: sk.fused_value_gradient_sums_plain(*a),
+                        entry_bytes + 4 * (3 * n + 2 * d + 2), 4 * nnz))
+        return out
+
+    def check(tag, L, v, got, again, ref):
+        max_abs, rel = compare(got, ref)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not rel <= tol:
+            failures.append(f"{tag}: rel err {rel:.3e} > {tol}")
+        if not same:
+            failures.append(f"{tag}: two calls on the same inputs differ")
+        return dict(max_abs_err=max_abs, scale_rel_err=rel, tol_scale_rel=tol, bit_identical=same,
+                    ok=rel <= tol and same)
+
+    # The main path's layout, timed.
+    v = vectors(layout)
+    n, d = layout.shape
+    X = torch.sparse_csr_tensor(layout.row_ptr.int(), layout.col_idx, layout.row_val, size=(n, d))
+    XT = torch.sparse_csr_tensor(layout.col_ptr.int(), layout.row_idx, layout.col_val, size=(d, n))
+    XT2 = torch.sparse_csr_tensor(layout.col_ptr.int(), layout.row_idx, layout.col_val ** 2, size=(d, n))
+    library = {"sparse_matvec": lambda: torch.mv(X, v["w"]),
+               "sparse_rmatvec": lambda: torch.mv(XT, v["u"]),
+               "sparse_rmatvec_square": lambda: torch.mv(XT2, v["u"]),
+               "sparse_fused": lambda: (torch.mv(X, v["w"]), torch.mv(XT, v["u"]))}
+    rows = {}
+    for name, loss, run_k, run_p, nbytes, ops in variants(layout, v):
+        tag = name if loss is None else f"{name}/{loss.name}"
+        got, again, ref = run_k(), run_k(), run_p()
+        torch.cuda.synchronize()
+        row = dict(phase="2s", kernel=name, loss=None if loss is None else loss.name, n=n, d=d,
+                   nnz=layout.nnz, **check(tag, layout, v, got, again, ref))
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_rate * 1e3
+        row.update(kernel_ms=time_ms(torch, run_k), plain_ms=time_ms(torch, run_p),
+                   library_ms=time_ms(torch, library[name]), bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(json.dumps(row))
+        if loss in (None, LOGISTIC):  # the main path runs the logistic loss
+            rows.setdefault(name, row)
+    del X, XT, XT2
+
+    # Off the main path, untimed: a skewed shape (about 30% of entries on 16
+    # columns, every 97th row empty) and a wide one (dim 200,003, beyond the
+    # shared-memory staging of w, columns below 1,000 empty; n not a multiple
+    # of the 16 rows a block takes).
+    for tag, n_x, d_x, skew, empty_cols in (("skewed", 262144, D_SPARSE, True, 0),
+                                            ("wide", 100003, 200003, False, 1000)):
+        idx = torch.randint(empty_cols, d_x, (n_x, K_SPARSE), generator=gen, device=dev,
+                            dtype=torch.int32)
+        val = torch.randn(n_x, K_SPARSE, generator=gen, device=dev)
+        if skew:
+            hot = torch.rand(n_x, K_SPARSE, generator=gen, device=dev) < 0.3
+            idx = torch.where(hot, torch.randint(0, 16, (n_x, K_SPARSE), generator=gen, device=dev,
+                                                 dtype=torch.int32), idx)
+            val[::97] = 0.0
+        L = sparse_layout.from_ell(SparseFeatures(idx, val, d_x))
+        vx = vectors(L)
+        for name, loss, run_k, run_p, _, _ in variants(L, vx):
+            vtag = f"{tag}/{name}" + ("" if loss is None else f"/{loss.name}")
+            got, again, ref = run_k(), run_k(), run_p()
+            torch.cuda.synchronize()
+            row = dict(phase="2s", shape=tag, kernel=name, loss=None if loss is None else loss.name,
+                       n=n_x, d=d_x, nnz=L.nnz, **check(vtag, L, vx, got, again, ref))
+            if skew and name == "sparse_matvec":
+                row["empty_rows_exact_zero"] = bool((got[0][::97] == 0).all())
+                if not row["empty_rows_exact_zero"]:
+                    failures.append(f"{vtag}: an empty row is not an exact zero")
+            if empty_cols and name != "sparse_matvec":
+                g = got[0] if loss is None else got[1]
+                row["empty_cols_exact_zero"] = bool((g[:empty_cols] == 0).all())
+                if not row["empty_cols_exact_zero"]:
+                    failures.append(f"{vtag}: an empty column is not an exact zero")
+            log(json.dumps(row))
+        del idx, val, L, vx
+    return rows, failures
+
+
+def sparse_phases(seed: int, dev, bw: float, f32_rate: float):
+    """Phases 2s-5s: the sparse fixed effect. Returns (phase 2s rows by
+    kernel, launches by kernel over the main path's phases 3s and 4s)."""
+    import torch
+
+    from photon_ml_tpu_torch.data.containers import SparseFeatures
+    from photon_ml_tpu_torch.data.game_dataset import (
+        GameDataset,
+        RandomEffectDataConfig,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.data.sparse_layout import SparseLayout, from_ell
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
+
+    # ---- data, upload and layout ---------------------------------------------------
+    t0 = time.perf_counter()
+    idx, val, Xe, entity, y = sparse_glmix_arrays(seed, N_ROWS, K_SPARSE, D_SPARSE, D_RE, N_ENTITIES)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = GameDataset.build(
+        {"sparse": SparseFeatures(torch.from_numpy(idx), torch.from_numpy(val), D_SPARSE),
+         "per_entity": Xe}, y, id_tags={"entityId": entity}, device=dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layout = ds.sparse_layout("sparse")  # first build: what the coordinates below reuse
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = from_ell(ds.shards["sparse"])  # a second build, past first-use costs
+    torch.cuda.synchronize()
+    layout_again_s = time.perf_counter() - t0
+    same_layout = all(torch.equal(getattr(layout, f), getattr(again, f))
+                      for f in ("row_ptr", "col_idx", "row_val", "col_ptr", "row_idx", "col_val",
+                                "chunk_ptr", "chunk_start"))
+    del again
+    log(json.dumps(dict(
+        phase="2s-setup", data_host_s=data_s, upload_s=upload_s, layout_build_s=layout_s,
+        layout_rebuild_s=layout_again_s, layout_rebuild_identical=same_layout,
+        ell_entries=N_ROWS * K_SPARSE, nnz=layout.nnz, chunks=layout.n_chunks,
+        layout_mib=sum(t.numel() * t.element_size() for t in (
+            layout.row_ptr, layout.col_idx, layout.row_val, layout.col_ptr, layout.row_idx,
+            layout.col_val, layout.chunk_ptr, layout.chunk_start)) / 2**20)))
+    if not same_layout:
+        raise SystemExit("phase 2s: two builds of the layout differ")
+
+    # ---- phase 2s: kernels vs plain versions ----------------------------------------
+    rows, failures = sparse_kernel_checks(layout, dev, seed, bw, f32_rate)
+    if failures:
+        raise SystemExit("phase 2s failed: " + "; ".join(failures))
+    torch.cuda.empty_cache()
+
+    # ---- phase 3s: sparse FE + dense RE GLMix at full width ----------------------------
+    task = TaskType.LOGISTIC_REGRESSION
+    red = build_random_effect_dataset(
+        ds, RandomEffectDataConfig("entityId", "per_entity", active_upper_bound=128, min_bucket=32))
+    cfg_f = CoordinateOptimizationConfig(  # bench.py:2717-2726
+        optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-7), regularization=L2, reg_weight=1.0)
+    cfg_r = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-7), regularization=L2, reg_weight=10.0)
+    fixed = FixedEffectCoordinate(ds, "sparse", cfg_f, task)
+    if fixed.training_features is not layout or not isinstance(layout, SparseLayout):
+        raise SystemExit("phase 3s: the fixed effect does not train on the cached sparse layout")
+    coords = {"fixed": fixed, "per-entity": RandomEffectCoordinate(ds, red, cfg_r, task)}
+    t0 = time.perf_counter()
+    run_coordinate_descent(coords, 1)  # warm-up: first-use costs
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    glm_kernels.reset_launch_counts()  # phase 3s starts here
+    t0 = time.perf_counter()
+    result = run_coordinate_descent(coords, 1)
+    torch.cuda.synchronize()
+    glmix_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = sum(coords[c].score(result.model[c]) for c in coords) + ds.offsets
+    auc = float(area_under_roc_curve(scores, ds.labels))
+    score_auc_s = time.perf_counter() - t0
+    launches3 = dict(sk.LAUNCHES)  # phase 3s ends here
+    fe_res = result.train_stats["fixed"]
+    re_stats = result.train_stats["per-entity"]
+    log(json.dumps(dict(
+        phase="3s", glmix_wall_s=glmix_s, score_auc_s=score_auc_s, warmup_wall_s=warm_s,
+        fixed_s=result.timing["fixed/iter0"], random_s=result.timing["per-entity/iter0"],
+        fe_iterations=int(fe_res.iterations), fe_fn_evals=int(fe_res.fn_evals),
+        fe_reason=int(fe_res.reason), re_buckets=len(re_stats["buckets"]),
+        re_total_iterations=re_stats["total_iterations"], train_auc=auc, launches=launches3,
+        dense_launches=dict(glm_kernels.LAUNCHES),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+    )))
+    if not bool(torch.isfinite(scores).all()) or scores.shape != (N_ROWS,):
+        raise SystemExit("phase 3s: scores are not finite (N,) values")
+    if launches3["sparse_fused"] != int(fe_res.fn_evals) or launches3["sparse_fused"] == 0:
+        raise SystemExit(f"phase 3s: {launches3['sparse_fused']} sparse_fused launches for "
+                         f"{int(fe_res.fn_evals)} fixed-effect objective evaluations")
+    if launches3["sparse_matvec"] == 0 or any(glm_kernels.LAUNCHES.values()):
+        raise SystemExit(f"phase 3s: scoring launched no sparse_matvec, or a dense kernel ran "
+                         f"({launches3}, {glm_kernels.LAUNCHES})")
+    if not auc > 0.5:
+        raise SystemExit(f"phase 3s: training AUC {auc} is not above 0.5")
+
+    # ---- phase 4s: sparse FE TRON + SIMPLE variances ------------------------------------
+    cfg_t = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(OptimizerType.TRON, 15, 1e-6), regularization=L2, reg_weight=1.0,
+        variance_computation=VarianceComputationType.SIMPLE)
+    tron = FixedEffectCoordinate(ds, "sparse", cfg_t, task)
+    sk.reset_launch_counts()  # phase 4s starts here
+    t0 = time.perf_counter()
+    tron_model, tron_res = tron.train(ds.offsets)
+    torch.cuda.synchronize()
+    tron_s = time.perf_counter() - t0
+    launches4 = dict(sk.LAUNCHES)  # phase 4s ends here
+    var = tron_model.coefficients.variances
+    var_ok = (var is not None and var.shape == (D_SPARSE,) and bool(torch.isfinite(var).all())
+              and bool((var > 0).all()))
+    log(json.dumps(dict(
+        phase="4s", tron_wall_s=tron_s, iterations=int(tron_res.iterations),
+        fn_evals=int(tron_res.fn_evals), reason=int(tron_res.reason), loss=float(tron_res.loss),
+        launches=launches4, variances_finite_positive=var_ok,
+        variance_min=None if var is None else float(var.min()),
+        variance_max=None if var is None else float(var.max()),
+    )))
+    if not var_ok:
+        raise SystemExit("phase 4s: SIMPLE variances are not finite positive (D,) values")
+    # Each Hessian-vector product is two matvecs and one rmatvec; the
+    # variances add one matvec and one squared rmatvec. TRON counts value/
+    # gradient and Hessian-vector passes together in fn_evals.
+    hv = launches4["sparse_rmatvec"] - 1
+    if (min(launches4.values()) == 0 or launches4["sparse_fused"] + hv != int(tron_res.fn_evals)
+            or launches4["sparse_matvec"] != 2 * hv + 1):
+        raise SystemExit(f"phase 4s: launches {launches4} do not match {int(tron_res.fn_evals)} "
+                         f"objective passes with {hv} Hessian-vector products")
+    launches = {k: launches3[k] + launches4[k] for k in launches3}
+
+    # Where one sparse GLMix sweep's device time goes (after the main path).
+    log(json.dumps(dict(phase="4s-b", **profile_sweep(coords, glmix_s))))
+    del ds, red, fixed, tron, coords, result, scores, layout
+    torch.cuda.empty_cache()
+
+    # ---- phase 5s: small sparse GLMix, card vs CPU --------------------------------------
+    failures = []
+    for s in (seed + 17, seed + 18, seed + 19):
+        sidx, sval, sXe, sent, sy = sparse_glmix_arrays(s, 8192, 16, 700, 4, 64)
+        shards = {"sparse": SparseFeatures(torch.from_numpy(sidx), torch.from_numpy(sval), 700),
+                  "per_entity": sXe}
+        row, bad = small_glmix_card_vs_cpu(s, shards, "sparse", sy, sent)
+        log(json.dumps(dict(phase="5s", **row)))
+        failures += bad
+    if failures:
+        raise SystemExit("phase 5s failed: " + "; ".join(failures))
+    return rows, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -175,7 +603,7 @@ def main(argv=None) -> int:
         RandomEffectCoordinate,
     )
     from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
-    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
     from photon_ml_tpu_torch.ops.losses import LOGISTIC, POISSON, SMOOTHED_HINGE, SQUARED
     from photon_ml_tpu_torch.optimize.config import (
         L2,
@@ -193,13 +621,29 @@ def main(argv=None) -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     # ---- phase 1: build ------------------------------------------------------
+    # One nvcc per source, all started together.
+    builds = {}
+
+    def build(src):
+        t = time.perf_counter()
+        path, build_log = cuda_build.build_library(src, verbose=True)
+        builds[src.name] = (path, time.perf_counter() - t, build_log)
+
+    threads = [threading.Thread(target=build, args=(src,))
+               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE)]
     t0 = time.perf_counter()
-    lib_path, build_log = glm_kernels.build_library(verbose=True)
-    build_s = time.perf_counter() - t0
-    ptx = [l.strip() for l in build_log.splitlines() if "registers" in l or "spill" in l]
-    log(f"phase 1 build: {build_s:.2f} s -> {lib_path.name}")
-    for line in sorted(set(ptx)):
-        log(f"  ptxas: {line}")
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if len(builds) != len(threads):
+        raise SystemExit("phase 1: a kernel source did not build (see the error above)")
+    log(f"phase 1 build: {time.perf_counter() - t0:.2f} s for {len(builds)} sources in parallel")
+    for name, (lib_path, build_s, build_log) in sorted(builds.items()):
+        log(f"  {name}: {build_s:.2f} s -> {lib_path.name}")
+        ptx = [l.strip() for l in build_log.splitlines() if "registers" in l or "spill" in l]
+        for line in sorted(set(ptx)):
+            log(f"    ptxas: {line}")
 
     # ---- data -----------------------------------------------------------------
     t0 = time.perf_counter()
@@ -228,18 +672,6 @@ def main(argv=None) -> int:
         t_bytes = nbytes / bw * 1e3
         t_ops = flops_per_elem * n * d / f32_rate * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    def compare(got, ref):
-        max_abs, worst_rel = 0.0, 0.0
-        for g, r in zip(got, ref):
-            g64, r64 = g.double(), r.double()
-            err = float((g64 - r64).abs().max())
-            scale = float(r64.abs().max())
-            if r64.ndim == 0:  # a sum that may sit near zero: relative to max(|ref|, 1)
-                scale = max(scale, 1.0)
-            max_abs = max(max_abs, err)
-            worst_rel = max(worst_rel, err / max(scale, 1e-30))
-        return max_abs, worst_rel
 
     glm_kernels.reset_launch_counts()
     kernel_rows = {}
@@ -391,79 +823,25 @@ def main(argv=None) -> int:
                          f"{int(tron_res.fn_evals)} TRON objective passes")
 
     # Where one GLMix sweep's device time goes (after the main path, so its
-    # launches are not counted): device busy time per kernel name under
-    # torch.profiler, and the idle share against the unprofiled wall time.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_coordinate_descent(coords, 1)
-        torch.cuda.synchronize()
-    # Device-side events only (kernels, copies): a CPU op's device time
-    # repeats that of the kernels it launched.
-    by_kernel = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                       key=lambda t: -t[1])
-    busy_ms = sum(t for _, t, _ in by_kernel)
-    log(json.dumps(dict(
-        phase="4b", device_busy_ms=busy_ms, glmix_wall_ms=glmix_s * 1e3,
-        device_idle_share=1.0 - busy_ms / (glmix_s * 1e3), device_ops=sum(c for _, _, c in by_kernel),
-        top=[dict(name=k[:60], ms=t, calls=c) for k, t, c in by_kernel[:8]],
-    )))
+    # launches are not counted).
+    log(json.dumps(dict(phase="4b", **profile_sweep(coords, glmix_s))))
     del ds, red, fixed, rand, tron, coords, result, scores
     torch.cuda.empty_cache()
 
     # ---- phase 5: small GLMix, card vs CPU ----------------------------------------
-    ref_tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
-    re_l2 = 10.0
-    small_fe = CoordinateOptimizationConfig(
-        optimizer=OptimizerConfig(max_iterations=40, tolerance=1e-6), regularization=L2, reg_weight=1.0)
-    small_re = CoordinateOptimizationConfig(
-        optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-5), regularization=L2, reg_weight=re_l2)
     failures = []
     for seed in (args.seed + 7, args.seed + 8, args.seed + 9):
         sXf, sXe, sent, sy = glmix_arrays(seed, 8192, 32, 4, 64)
         # bf16-exact fixed-effect data, so the card's bf16 storage loses nothing.
         sXf = torch.from_numpy(sXf).to(torch.bfloat16).float().numpy()
-        fits = {}
-        for where in ("cuda", "cpu"):
-            sds = GameDataset.build({"global": sXf, "per_entity": sXe}, sy,
-                                    id_tags={"entityId": sent}, device=where)
-            sred = build_random_effect_dataset(
-                sds, RandomEffectDataConfig("entityId", "per_entity", active_upper_bound=96, min_bucket=16))
-            sc = {"fixed": FixedEffectCoordinate(sds, "global", small_fe, task),
-                  "per-entity": RandomEffectCoordinate(sds, sred, small_re, task)}
-            r = run_coordinate_descent(sc, 2)
-            s = sum(sc[c].score(r.model[c]) for c in sc)
-            fits[where] = dict(
-                fe=r.model["fixed"].coefficients.means.cpu(),
-                re=r.model["per-entity"].coefficients_matrix.cpu(),
-                auc=float(area_under_roc_curve(s, sds.labels)),
-                # The offsets the random effect's last solve ran on.
-                re_offsets=sds.offsets + sc["fixed"].score(r.model["fixed"]),
-                ds=sds, red=sred,
-            )
-        cpu = fits["cpu"]
-        re = re_objective_readings(cpu["ds"], cpu["red"], cpu["re_offsets"], LOGISTIC, re_l2,
-                                   {"card": fits["cuda"]["re"], "cpu": cpu["re"]})
-        fe_err = float((fits["cuda"]["fe"] - cpu["fe"]).abs().max())
-        auc_err = abs(fits["cuda"]["auc"] - cpu["auc"])
-        limit = ref_tol["re_objective_rtol"]
-        ok5 = (fe_err <= ref_tol["fe_coef_atol"] and re["excess"]["card"] <= limit
-               and auc_err <= ref_tol["auc_atol"])
-        log(json.dumps(dict(
-            phase=5, seed=seed, fe_coef_err=fe_err, re_objective_excess=re["excess"],
-            re_coef_dist_from_f64=re["coef_dist"], re_fault_excess=re["fault"],
-            re_coef_card_vs_cpu=float((fits["cuda"]["re"] - cpu["re"]).abs().max()),
-            auc_card=fits["cuda"]["auc"], auc_cpu=cpu["auc"], tol=ref_tol, ok=ok5)))
-        if not ok5:
-            failures.append(f"seed {seed}: the card's small GLMix disagrees with the CPU's")
-        if not (re["excess"]["cpu"] <= limit < re["fault"]):
-            failures.append(f"seed {seed}: re_objective_rtol {limit} does not separate the CPU fit "
-                            f"({re['excess']['cpu']:.3e}) from a cold-start lane ({re['fault']:.3e})")
+        row, bad = small_glmix_card_vs_cpu(seed, {"global": sXf, "per_entity": sXe}, "global", sy, sent)
+        log(json.dumps(dict(phase=5, **row)))
+        failures += bad
     if failures:
         raise SystemExit("phase 5 failed: " + "; ".join(failures))
+
+    # ---- phases 2s-5s: the sparse fixed effect ------------------------------------
+    sparse_rows, sparse_launches = sparse_phases(args.seed, dev, bw, f32_rate)
 
     # ---- the record lines -------------------------------------------------------
     source = "photon_ml_tpu_torch/csrc/glm_fused.cu"
@@ -475,6 +853,14 @@ def main(argv=None) -> int:
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
         for k in ("value_grad", "hvp")
+    ]
+    kernels += [
+        dict(name=k, route="cuda", source=SPARSE_SOURCE, replaces=SPARSE_REPLACES[k],
+             launches=sparse_launches[k], max_abs_err=sparse_rows[k]["max_abs_err"],
+             ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
+             bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
+             library_ms=sparse_rows[k]["library_ms"])
+        for k in SPARSE_REPLACES
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

@@ -1,11 +1,13 @@
-"""Carry a trained GAME model across from numpy arrays.
+"""Carry a trained GAME model and sparse features across from numpy arrays.
 
 `game_model_from_numpy` builds the port's `GameModel` and its scoring specs
 from plain numpy arrays: a model trained by the JAX package, exported with
 `np.asarray` on its fields by the caller (this module imports nothing of
-that package). Per coordinate it carries the fixed-effect means, or the
-random-effect coefficient matrix with its pinned zero row and the entity
-index, plus the normalization factors and shifts.
+that package). Per coordinate it carries the fixed-effect means and
+variances, or the random-effect coefficient matrix with its pinned zero row
+and the entity index, plus the normalization factors and shifts.
+`sparse_features_from_numpy` takes the JAX package's `SparseFeatures` as its
+numpy planes into the port's.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.data.containers import optional_tensor
+from photon_ml_tpu_torch.data.containers import SparseFeatures, optional_tensor
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
 from photon_ml_tpu_torch.game.model import (
     Coefficients,
@@ -33,6 +35,7 @@ from photon_ml_tpu_torch.types import TaskType
 class FixedEffectArrays:
     shard: str
     means: np.ndarray  # (D,)
+    variances: Optional[np.ndarray] = None  # (D,)
     factors: Optional[np.ndarray] = None
     shifts: Optional[np.ndarray] = None
     intercept_index: Optional[int] = None
@@ -87,7 +90,13 @@ def game_model_from_numpy(
         norm = _norm(arrays, dev)
         if isinstance(arrays, FixedEffectArrays):
             means = torch.tensor(np.asarray(arrays.means, np.float32), device=dev)
-            models[cid] = FixedEffectModel(Coefficients(means), task)
+            variances = None
+            if arrays.variances is not None:
+                variances = torch.tensor(np.asarray(arrays.variances, np.float32), device=dev)
+                if variances.shape != means.shape:
+                    raise ValueError(f"{cid}: variances {tuple(variances.shape)} do not match "
+                                     f"means {tuple(means.shape)}")
+            models[cid] = FixedEffectModel(Coefficients(means, variances), task)
             specs[cid] = CoordinateScoringSpec(arrays.shard, norm)
         elif isinstance(arrays, RandomEffectArrays):
             _check_random_effect(cid, arrays)
@@ -99,3 +108,23 @@ def game_model_from_numpy(
         else:
             raise TypeError(f"{cid}: unsupported coordinate arrays {type(arrays).__name__}")
     return GameModel(models), specs
+
+
+def sparse_features_from_numpy(
+    indices: np.ndarray,
+    values: np.ndarray,
+    dim: int,
+    *,
+    device: DeviceLike = "cuda",
+) -> SparseFeatures:
+    """The port's ELL features from the (N, K) numpy planes of the JAX
+    package's standard layout (`ell_axis=-1`)."""
+    idx, val = np.asarray(indices), np.asarray(values)
+    if idx.ndim != 2 or idx.shape != val.shape:
+        raise ValueError(f"indices {idx.shape} and values {val.shape} must be one (N, K) shape")
+    dev = resolve_device(device)
+    return SparseFeatures(
+        torch.tensor(np.ascontiguousarray(idx, np.int32), device=dev),
+        torch.tensor(np.ascontiguousarray(val, np.float32), device=dev),
+        int(dim),
+    )

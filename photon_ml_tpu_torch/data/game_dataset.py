@@ -11,8 +11,13 @@ Rows past an entity's `active_upper_bound` are left out of training by a
 deterministic splitmix64 reservoir and still scored. The layout is the JAX
 package's exactly: same entities per bucket, same gather rows.
 
-Not ported yet: Pearson feature masks, projectors, sparse shards, the
-device-side assembly and the async packing of the JAX data plane.
+A shard is a dense (N, D) tensor or an ELL `SparseFeatures`; a sparse
+shard's CSR/CSC layout (data/sparse_layout.py) is built on the device once,
+at first use, and cached on the dataset.
+
+Not ported yet: random effects over sparse shards, Pearson feature masks,
+projectors, the device-side assembly and the async packing of the JAX data
+plane.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.data.containers import LabeledData
+from photon_ml_tpu_torch.data.containers import Features, LabeledData, SparseFeatures
+from photon_ml_tpu_torch.data.sparse_layout import SparseLayout, from_ell
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -49,14 +55,15 @@ class GameDataset:
     """Columnar GAME data in fixed sample order. `id_tags` are host-side
     per-sample entity keys (numpy); everything else lives on `device`."""
 
-    shards: Dict[str, Tensor]
+    shards: Dict[str, Features]
     labels: Tensor
     offsets: Tensor
     weights: Tensor
     id_tags: Dict[str, np.ndarray]
     # Per-dataset derived representations (a coordinate's bf16 copy of a
-    # shard), built once and shared by coordinates rebuilt over it.
-    cache: Dict[object, Tensor] = dataclasses.field(default_factory=dict)
+    # shard, a sparse shard's layout), built once and shared by the
+    # coordinates and scorers over it.
+    cache: Dict[object, object] = dataclasses.field(default_factory=dict)
 
     @property
     def num_samples(self) -> int:
@@ -65,6 +72,16 @@ class GameDataset:
     @property
     def device(self) -> torch.device:
         return self.labels.device
+
+    def sparse_layout(self, shard: str) -> SparseLayout:
+        """The CSR/CSC layout of a sparse shard, built on first use."""
+        key = ("sparse_layout", shard)
+        if key not in self.cache:
+            feats = self.shards[shard]
+            if not isinstance(feats, SparseFeatures):
+                raise TypeError(f"shard {shard!r} is not sparse")
+            self.cache[key] = from_ell(feats)
+        return self.cache[key]
 
     @classmethod
     def build(
@@ -78,8 +95,8 @@ class GameDataset:
         dtype: torch.dtype = torch.float32,
         device: DeviceLike = "cuda",
     ) -> "GameDataset":
-        """From host arrays (numpy or tensors); everything is moved to
-        `device` once here."""
+        """From host arrays (numpy or tensors; a sparse shard is a
+        `SparseFeatures`); everything is moved to `device` once here."""
         dev = resolve_device(device)
         as_t = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(a, Tensor) else a)
         labels_t = as_t(labels).to(dtype=dtype, device=dev)
@@ -90,6 +107,9 @@ class GameDataset:
               else as_t(weights).to(dtype=dtype, device=dev))
         feats = {}
         for name, X in shards.items():
+            if isinstance(X, SparseFeatures):
+                feats[name] = _sparse_shard(name, X, n, dev)
+                continue
             Xt = as_t(X).to(device=dev)
             if Xt.ndim != 2 or Xt.shape[0] != n:
                 raise ValueError(f"shard {name!r} must be ({n}, d), got {tuple(Xt.shape)}")
@@ -101,6 +121,18 @@ class GameDataset:
             if len(v) != n:
                 raise ValueError(f"id tag {k!r} has {len(v)} values for {n} samples")
         return cls(feats, labels_t, off, wt, tags)
+
+
+def _sparse_shard(name: str, X: SparseFeatures, n: int, dev: torch.device) -> SparseFeatures:
+    idx, val = torch.as_tensor(X.indices), torch.as_tensor(X.values)
+    if idx.ndim != 2 or idx.shape != val.shape or idx.shape[0] != n:
+        raise ValueError(f"sparse shard {name!r} must be ({n}, K) ELL planes, "
+                         f"got {tuple(idx.shape)} and {tuple(val.shape)}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"sparse shard {name!r} indices must be int32/int64, got {idx.dtype}")
+    if val.dtype != torch.float32:
+        raise TypeError(f"sparse shard {name!r} values must be float32, got {val.dtype}")
+    return SparseFeatures(idx.to(dev).contiguous(), val.to(dev).contiguous(), int(X.dim))
 
 
 def _row_priorities(codes: np.ndarray, n: int) -> np.ndarray:
@@ -164,6 +196,8 @@ def build_random_effect_dataset(
 ) -> RandomEffectDataset:
     """Host-side one-time construction of the entity-blocked layout."""
     tag = config.random_effect_type
+    if isinstance(dataset.shards[config.feature_shard], SparseFeatures):
+        raise NotImplementedError("random effects over sparse shards are not ported yet")
     if tag not in dataset.id_tags:
         raise ValueError(f"id tag {tag!r} not present in dataset")
     keys = dataset.id_tags[tag]

@@ -7,14 +7,19 @@ Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
     PHOTON_DENSE_BF16X default) and that copy is used for both training and
     scoring, so the coordinate-descent residuals stay consistent; the
     objective then runs the fused CUDA kernels on it (half the bytes of X
-    per pass).
+    per pass). A sparse shard trains and scores on its CSR/CSC layout
+    (data/sparse_layout.py), built once per dataset and cached there; on
+    the card that is the sparse CUDA kernels, with no size or padding gate.
+    SIMPLE coefficient variances are computed after the solve when the
+    config asks for them.
   * RandomEffectCoordinate: the per-bucket loop. Each bucket of entities is
     one batched L-BFGS/TRON call over its (E, S, D) block, warm-started from
     the previous coefficient matrix rows, on the plain batched objective
     (the JAX package runs these vmapped solves on XLA, not on its kernels).
 
 Not ported yet: the scan-dispatched sweep, the entity-sharded mesh, the
-planner's fusion chunks, fault/retry sites, down-sampling and variances.
+planner's fusion chunks, fault/retry sites, down-sampling, FULL variances
+and random-effect variances.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from photon_ml_tpu_torch.data.containers import LabeledData
+from photon_ml_tpu_torch.data.containers import Features, LabeledData, SparseFeatures
 from photon_ml_tpu_torch.data.game_dataset import (
     GameDataset,
     RandomEffectDataset,
@@ -40,8 +45,8 @@ from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.optimize import problem
 from photon_ml_tpu_torch.optimize.common import OptResult
 from photon_ml_tpu_torch.optimize.config import CoordinateOptimizationConfig
-from photon_ml_tpu_torch.transformers.game_transformer import dense_margins
-from photon_ml_tpu_torch.types import TaskType
+from photon_ml_tpu_torch.transformers.game_transformer import fixed_effect_margins
+from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 
 Tensor = torch.Tensor
 
@@ -72,7 +77,9 @@ class FixedEffectCoordinate:
         self.loss: PointwiseLoss = loss_for_task(task)
         self.norm = _norm_on(norm, dataset.device)
         feats = dataset.shards[config_data_shard]
-        if feats.is_cuda and feats.dtype == torch.float32:
+        if isinstance(feats, SparseFeatures):
+            feats = dataset.sparse_layout(config_data_shard)
+        elif feats.is_cuda and feats.dtype == torch.float32:
             key = ("bf16x", config_data_shard)
             if key not in dataset.cache:
                 dataset.cache[key] = feats.to(torch.bfloat16)
@@ -80,8 +87,9 @@ class FixedEffectCoordinate:
         self._features = feats
 
     @property
-    def training_features(self) -> Tensor:
-        """The matrix training and scoring run on (the bf16 copy on CUDA)."""
+    def training_features(self) -> Features:
+        """What training and scoring run on: the dense matrix (its bf16 copy
+        on CUDA) or a sparse shard's layout."""
         return self._features
 
     def train(
@@ -98,11 +106,12 @@ class FixedEffectCoordinate:
         )
         data = LabeledData(self._features, ds.labels, offsets, ds.weights)
         res = problem.solve(self.loss, data, cfg, w0, self.norm)
-        return FixedEffectModel(Coefficients(res.coefficients), self.task), res
+        variances = problem.compute_variances(self.loss, data, cfg, res.coefficients, self.norm)
+        return FixedEffectModel(Coefficients(res.coefficients, variances), self.task), res
 
     def score(self, model: FixedEffectModel) -> Tensor:
         """Raw per-sample margins x.w (no offsets)."""
-        return dense_margins(self._features, model.coefficients.means, self.norm)
+        return fixed_effect_margins(self._features, model.coefficients.means, self.norm)
 
 
 class RandomEffectCoordinate:
@@ -131,6 +140,8 @@ class RandomEffectCoordinate:
         previous matrix's rows."""
         ds, red = self.dataset, self.re_dataset
         cfg = _check_config(self.config)
+        if cfg.variance_computation != VarianceComputationType.NONE:
+            raise NotImplementedError("random-effect variances are not ported yet")
         e_total = red.num_entities
         if initial_model is not None:
             matrix = initial_model.coefficients_matrix.to(ds.device).clone()

@@ -3,10 +3,9 @@
 Port of `photon_ml_tpu/ops/pallas_glm.py`'s two kernels (`_value_grad_kernel`
 and `_hvp_kernel`). The kernels are hand-written CUDA for Hopper in
 `photon_ml_tpu_torch/csrc/glm_fused.cu`; its header says what bounds them on
-the card and how the design answers that. They are built with `nvcc` into a
-shared library with a plain C interface at first use (into
-`photon_ml_tpu_torch/_build/`, named by the source's hash) and bound here
-with ctypes.
+the card and how the design answers that. `ops/cuda_build.py` builds it with
+`nvcc` into a shared library with a plain C interface at first use; it is
+bound here with ctypes.
 
 Contract (the TPU kernels' raw sums; normalization and L2 stay with the
 caller in ops/objective.py):
@@ -28,27 +27,17 @@ build or launch. `LAUNCHES` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Tuple, Union
 
 import torch
 
+from photon_ml_tpu_torch.ops import cuda_build
 from photon_ml_tpu_torch.ops.losses import LOSS_IDS, PointwiseLoss
 
 Tensor = torch.Tensor
 Scalar = Union[Tensor, float]
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "glm_fused.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = cuda_build.CSRC_DIR / "glm_fused.cu"
 
 # Kernel launches per wrapper, counted where the kernel is launched and
 # nowhere else (the CPU path does not count).
@@ -56,7 +45,6 @@ LAUNCHES: Dict[str, int] = {"value_grad": 0, "hvp": 0}
 
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib: Optional[ctypes.CDLL] = None
 _max_blocks: Dict[Tuple[int, int, int, int], int] = {}
 
 
@@ -68,71 +56,26 @@ def reset_launch_counts() -> None:
 # ------------------------------------------------------------------ build
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
-
-
-def library_path() -> Path:
-    """Where the library for the current source lives (built or not)."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libglm_fused-{tag}.so"
-
-
-def build_library(verbose: bool = False) -> Tuple[Path, str]:
-    """Compile `csrc/glm_fused.cu` if this source has not been built yet.
-
-    Returns (library path, compiler log); `verbose` adds `-Xptxas -v`, whose
-    per-kernel register, shared-memory and spill lines land in the log."""
-    out = library_path()
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
-    return out, proc.stdout + proc.stderr
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.glm_tile_rows.argtypes = []
+    lib.glm_tile_rows.restype = i
+    lib.glm_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.glm_max_blocks.restype = i
+    lib.glm_value_grad.argtypes = [i, i, p, ll, i, p, p, p, p, p, p, i, p, p]
+    lib.glm_value_grad.restype = i
+    lib.glm_hvp.argtypes = [i, i, p, ll, i, p, p, p, p, p, p, p, p, i, p, p]
+    lib.glm_hvp.restype = i
+    lib.glm_error_string.argtypes = [i]
+    lib.glm_error_string.restype = ctypes.c_char_p
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build_library()
-        lib = ctypes.CDLL(str(path))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.glm_tile_rows.argtypes = []
-        lib.glm_tile_rows.restype = i
-        lib.glm_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
-        lib.glm_max_blocks.restype = i
-        lib.glm_value_grad.argtypes = [i, i, p, ll, i, p, p, p, p, p, p, i, p, p]
-        lib.glm_value_grad.restype = i
-        lib.glm_hvp.argtypes = [i, i, p, ll, i, p, p, p, p, p, p, p, p, i, p, p]
-        lib.glm_hvp.restype = i
-        lib.glm_error_string.argtypes = [i]
-        lib.glm_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return cuda_build.load_library(SOURCE, _bind)
 
 
 def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.glm_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+    cuda_build.check_rc(rc, what, lib.glm_error_string)
 
 
 def _grid_blocks(lib: ctypes.CDLL, dtype_id: int, loss_id: int, hvp: int, n: int,
@@ -154,7 +97,7 @@ def _grid_blocks(lib: ctypes.CDLL, dtype_id: int, loss_id: int, hvp: int, n: int
 # -------------------------------------------------------------- validation
 
 
-def _as_scalar(x: Scalar, like: Tensor) -> Tensor:
+def as_scalar(x: Scalar, like: Tensor) -> Tensor:
     """A 0-d float32 tensor on `like`'s device (device scalars stay there,
     so the kernels read them without a host sync)."""
     if isinstance(x, Tensor):
@@ -197,7 +140,7 @@ def value_gradient_sums_plain(
     """The value/gradient raw sums with ordinary tensor ops (X read twice);
     bf16 X is widened to f32 first, so both read the same values."""
     X = features.float()
-    z = X @ w_eff + (offsets + _as_scalar(shift, X))
+    z = X @ w_eff + (offsets + as_scalar(shift, X))
     value = torch.sum(weights * loss.loss(z, labels))
     u = weights * loss.d1(z, labels)
     return value, u @ X, torch.sum(u)
@@ -208,8 +151,8 @@ def hessian_vector_sums_plain(
     features: Tensor, labels: Tensor, offsets: Tensor, weights: Tensor,
 ) -> Tuple[Tensor, Tensor]:
     X = features.float()
-    z = X @ w_eff + (offsets + _as_scalar(shift, X))
-    q = X @ v_eff + _as_scalar(v_shift, X)
+    z = X @ w_eff + (offsets + as_scalar(shift, X))
+    q = X @ v_eff + as_scalar(v_shift, X)
     r = weights * loss.d2(z, labels) * q
     return r @ X, torch.sum(r)
 
@@ -230,7 +173,7 @@ def value_gradient_sums(
     lib = _library()
     n, d = features.shape
     dtype_id, loss_id = _DTYPE_IDS[features.dtype], LOSS_IDS[loss.name]
-    shift_t = _as_scalar(shift, features)
+    shift_t = as_scalar(shift, features)
     blocks = _grid_blocks(lib, dtype_id, loss_id, 0, n, features.device)
     partial = torch.empty((blocks, d + 2), dtype=torch.float32, device=features.device)
     out = torch.empty((d + 2,), dtype=torch.float32, device=features.device)
@@ -261,8 +204,8 @@ def hessian_vector_sums(
     lib = _library()
     n, d = features.shape
     dtype_id, loss_id = _DTYPE_IDS[features.dtype], LOSS_IDS[loss.name]
-    shift_t = _as_scalar(shift, features)
-    v_shift_t = _as_scalar(v_shift, features)
+    shift_t = as_scalar(shift, features)
+    v_shift_t = as_scalar(v_shift, features)
     blocks = _grid_blocks(lib, dtype_id, loss_id, 1, n, features.device)
     partial = torch.empty((blocks, d + 1), dtype=torch.float32, device=features.device)
     out = torch.empty((d + 1,), dtype=torch.float32, device=features.device)

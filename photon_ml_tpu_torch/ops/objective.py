@@ -1,6 +1,6 @@
 """GLM objective: weighted loss value, gradient and Hessian products.
 
-Port of the dense path of `photon_ml_tpu/ops/objective.py`:
+Port of `photon_ml_tpu/ops/objective.py`:
 
     z  = X (w*factor) - shifts.(w*factor) + offset
     f  = sum_i weight_i l(z_i, y_i) + l2/2 ||w||^2
@@ -8,14 +8,20 @@ Port of the dense path of `photon_ml_tpu/ops/objective.py`:
     Hv = factor * (X^T r - (sum r) shifts) + l2 v,
          r = weight l''(z) (X (v*factor) - shifts.(v*factor))
 
-Every function is rank-generic: `w` may carry leading batch axes (B, D)
-against features (B, N, D), which is how a random-effect bucket runs all
-its entity problems at once. The 2-D single-problem case can take the fused
-CUDA kernels (ops/glm_kernels.py), which return the raw sums; normalization
-and L2 are applied here, outside the kernel, exactly as in the JAX package.
+Features are a dense tensor, an ELL `SparseFeatures` (its plain CPU
+products) or a `SparseLayout` (ops/sparse_kernels.py: the CUDA kernels on
+the card, their plain versions on the CPU). Dense functions are
+rank-generic: `w` may carry leading batch axes (B, D) against features
+(B, N, D), which is how a random-effect bucket runs all its entity problems
+at once. The 2-D single-problem case can take the fused CUDA kernels
+(ops/glm_kernels.py for dense X, ops/sparse_kernels.py for a sparse
+layout), which return the raw sums; normalization and L2 are applied here,
+outside the kernel, exactly as in the JAX package.
 
-`use_kernel`: None = the kernel when the features are a 2-D float32/bf16
-CUDA tensor, else the plain path; False = the plain path.
+`use_kernel`: None = the fused kernel when the features are a sparse layout
+or a 2-D float32/bf16 CUDA tensor, else the composed path; False = the
+composed path (X w and X^T u one by one, which on a CUDA sparse layout are
+its matvec and rmatvec kernels).
 """
 
 from __future__ import annotations
@@ -24,8 +30,9 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from photon_ml_tpu_torch.data.containers import LabeledData
-from photon_ml_tpu_torch.ops import glm_kernels
+from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures
+from photon_ml_tpu_torch.data.sparse_layout import SparseLayout
+from photon_ml_tpu_torch.ops import glm_kernels, sparse_kernels
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 
@@ -46,36 +53,50 @@ def margin_params(w: Tensor, norm: Optional[NormalizationContext]) -> Tuple[Tens
     return _eff(w, norm)
 
 
-def _kernel_eligible(features: Tensor, w: Tensor) -> bool:
+def _kernel_eligible(features, w: Tensor) -> bool:
     return (
-        features.ndim == 2
+        isinstance(features, Tensor)
+        and features.ndim == 2
         and w.ndim == 1
         and features.is_cuda
         and features.dtype in (torch.float32, torch.bfloat16)
     )
 
 
-def _use_kernel(use_kernel: Optional[bool], features: Tensor, w: Tensor) -> bool:
+def _use_kernel(use_kernel: Optional[bool], features, w: Tensor) -> bool:
     return use_kernel is not False and _kernel_eligible(features, w)
 
 
-def _matvec(features: Tensor, w: Tensor) -> Tensor:
+def _matvec(features, w: Tensor) -> Tensor:
     """X w per problem: (N, D) @ (D,) or (B, N, D) x (B, D) -> (B, N)."""
+    if isinstance(features, SparseLayout):
+        return sparse_kernels.matvec(features, w)
+    if isinstance(features, SparseFeatures):
+        return features.matvec(w)
     X = features if features.dtype == w.dtype else features.to(w.dtype)
     if X.ndim == 2:
         return X @ w
     return torch.einsum("...nd,...d->...n", X, w)
 
 
-def _rmatvec(features: Tensor, u: Tensor) -> Tensor:
+def _rmatvec(features, u: Tensor) -> Tensor:
     """X^T u per problem."""
+    if isinstance(features, SparseLayout):
+        return sparse_kernels.rmatvec(features, u)
+    if isinstance(features, SparseFeatures):
+        return features.rmatvec(u)
     X = features if features.dtype == u.dtype else features.to(u.dtype)
     if X.ndim == 2:
         return u @ X
     return torch.einsum("...n,...nd->...d", u, X)
 
 
-def _sq_rmatvec(features: Tensor, u: Tensor) -> Tensor:
+def _sq_rmatvec(features, u: Tensor) -> Tensor:
+    """sum_i u_i x_i^2 per feature (Hessian diagonals)."""
+    if isinstance(features, SparseLayout):
+        return sparse_kernels.rmatvec(features, u, square=True)
+    if isinstance(features, SparseFeatures):
+        return features.sq_rmatvec(u)
     X = features if features.dtype == u.dtype else features.to(u.dtype)
     return torch.einsum("...n,...nd->...d", u, X * X)
 
@@ -111,9 +132,13 @@ def value_and_gradient(
     use_kernel: Optional[bool] = None,
 ) -> Tuple[Tensor, Tensor]:
     """One pass: margins computed once, shared by value and gradient. On the
-    kernel path X is read once for both."""
+    dense kernel path X is read once for both."""
     w_eff, shift = _eff(w, norm)
-    if _use_kernel(use_kernel, data.features, w):
+    if isinstance(data.features, SparseLayout) and use_kernel is not False:
+        val, g, sum_u = sparse_kernels.fused_value_gradient_sums(
+            loss, w_eff, shift, data.features, data.labels, data.offsets, data.weights
+        )
+    elif _use_kernel(use_kernel, data.features, w):
         val, g, sum_u = glm_kernels.value_gradient_sums(
             loss, w_eff, shift, data.features, data.labels, data.offsets, data.weights
         )
@@ -141,7 +166,9 @@ def hessian_vector(
     use_kernel: Optional[bool] = None,
 ) -> Tensor:
     """H(w) v for the GLM losses (X^T diag(weight l'') X in normalized space).
-    On the kernel path one read of X computes both X w and X v."""
+    On the dense kernel path one read of X computes both X w and X v; a
+    sparse layout composes two matvecs and one rmatvec, as the JAX package
+    does."""
     w_eff, shift = _eff(w, norm)
     v_eff, v_shift = _eff(v, norm)
     if _use_kernel(use_kernel, data.features, w):

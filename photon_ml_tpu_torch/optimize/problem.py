@@ -1,11 +1,11 @@
 """Optimization problems: configuration + objective + optimizer.
 
-Port of `solve` from `photon_ml_tpu/optimize/problem.py`. One function
-serves both coordinate kinds: a fixed effect passes a single coefficient
-vector (D,) over (N, D) data and gets an unbatched result; a random-effect
-bucket passes (E, D) over (E, S, D) blocks and gets one lane per entity.
-OWLQN (L1, elastic net), box constraints and the SIMPLE/FULL variances are
-not ported yet and raise.
+Port of `solve` and `compute_variances` from `photon_ml_tpu/optimize/
+problem.py`. One solve serves both coordinate kinds: a fixed effect passes a
+single coefficient vector (D,) over (N, D) or sparse data and gets an
+unbatched result; a random-effect bucket passes (E, D) over (E, S, D)
+blocks and gets one lane per entity. OWLQN (L1, elastic net), box
+constraints and FULL variances are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -40,8 +40,8 @@ def _check_supported(config: CoordinateOptimizationConfig) -> None:
         raise NotImplementedError("OWLQN / L1 / elastic net is not ported yet")
     if opt.box_constraints is not None:
         raise NotImplementedError("box-constrained L-BFGS is not ported yet")
-    if config.variance_computation != VarianceComputationType.NONE:
-        raise NotImplementedError("coefficient variances are not ported yet")
+    if config.variance_computation == VarianceComputationType.FULL:
+        raise NotImplementedError("FULL coefficient variances are not ported yet")
 
 
 def solve(
@@ -86,3 +86,23 @@ def solve(
             vg, W0, max_iterations=opt.max_iterations, tolerance=opt.tolerance
         )
     return res.lane(0) if single else res
+
+
+def compute_variances(
+    loss: PointwiseLoss,
+    data: LabeledData,
+    config: CoordinateOptimizationConfig,
+    w: Tensor,
+    norm: Optional[NormalizationContext] = None,
+) -> Optional[Tensor]:
+    """Coefficient variances at the optimum; None for NONE.
+
+    SIMPLE: 1 / diag(H), with inf where the diagonal is 0. FULL (diag of
+    H^-1 by a Cholesky solve of the full Hessian) is not ported yet."""
+    vc = config.variance_computation
+    if vc == VarianceComputationType.NONE:
+        return None
+    if vc == VarianceComputationType.FULL:
+        raise NotImplementedError("FULL coefficient variances are not ported yet")
+    diag = objective.hessian_diagonal(loss, w, data, norm, config.l2_weight)
+    return torch.where(diag.abs() > 0.0, 1.0 / diag, torch.full_like(diag, float("inf")))

@@ -1,11 +1,13 @@
 """Batch scoring of a GAME model over a GameDataset.
 
-Port of the dense scoring path of `photon_ml_tpu/transformers/
-game_transformer.py`: fixed effects score with `dense_margins` (a per-row
-reduction, not a matvec, so a row's score does not depend on how many rows
-ride along); random effects map each sample's entity key through the
-training-time entity index (unseen entities -> the pinned zero row) and
-gather coefficient rows. Projectors and sparse shards are not ported yet.
+Port of the scoring path of `photon_ml_tpu/transformers/game_transformer.py`:
+dense fixed effects score with `dense_margins` (a per-row reduction, not a
+matvec, so a row's score does not depend on how many rows ride along);
+sparse fixed effects score through the sparse layout's matvec (its CUDA
+kernel on the card; a row's sum is over its own entries only, so it is
+batch-invariant too); random effects map each sample's entity key through
+the training-time entity index (unseen entities -> the pinned zero row) and
+gather coefficient rows. Projectors are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,14 +18,16 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.data.containers import SparseFeatures
 from photon_ml_tpu_torch.data.game_dataset import GameDataset
+from photon_ml_tpu_torch.data.sparse_layout import SparseLayout
 from photon_ml_tpu_torch.game.model import (
     FixedEffectModel,
     GameModel,
     RandomEffectModel,
     random_effect_margins,
 )
-from photon_ml_tpu_torch.ops import objective
+from photon_ml_tpu_torch.ops import objective, sparse_kernels
 from photon_ml_tpu_torch.ops.losses import mean_for_task
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.types import TaskType
@@ -55,6 +59,14 @@ def dense_margins(features: Tensor, w: Tensor, norm: Optional[NormalizationConte
     return torch.sum(X * w_eff, dim=-1) + shift
 
 
+def fixed_effect_margins(features, w: Tensor, norm: Optional[NormalizationContext]) -> Tensor:
+    """A fixed effect's margins over a dense matrix or a sparse layout."""
+    if isinstance(features, SparseLayout):
+        w_eff, shift = objective.margin_params(w, norm)
+        return sparse_kernels.matvec(features, w_eff) + shift
+    return dense_margins(features, w, norm)
+
+
 def entity_rows_for_dataset(dataset: GameDataset, spec: CoordinateScoringSpec) -> np.ndarray:
     """Per-sample coefficient rows through the training entity index;
     unseen entities get the pinned zero row. Entity keys that are strings in
@@ -81,7 +93,7 @@ def coordinate_margins(
         return random_effect_margins(features, entity_rows, model.coefficients_matrix, spec.norm)
     if not isinstance(model, FixedEffectModel):
         raise TypeError(f"fixed-effect spec needs a FixedEffectModel, got {type(model)}")
-    return dense_margins(features, model.coefficients.means, spec.norm)
+    return fixed_effect_margins(features, model.coefficients.means, spec.norm)
 
 
 @dataclasses.dataclass
@@ -111,9 +123,10 @@ class GameTransformer:
             rows = None
             if spec.is_random_effect:
                 rows = torch.as_tensor(entity_rows_for_dataset(dataset, spec)).to(dataset.device)
-            per_coordinate[cid] = coordinate_margins(
-                spec, self.model[cid], dataset.shards[spec.shard], rows
-            )
+            features = dataset.shards[spec.shard]
+            if isinstance(features, SparseFeatures):
+                features = dataset.sparse_layout(spec.shard)
+            per_coordinate[cid] = coordinate_margins(spec, self.model[cid], features, rows)
         total = dataset.offsets
         for s in per_coordinate.values():
             total = total + s

@@ -13,7 +13,7 @@ import torch
 from photon_ml_tpu.ops import losses as jax_losses
 from photon_ml_tpu.ops import pallas_glm
 from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
-from photon_ml_tpu_torch.ops import glm_kernels, losses
+from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, losses
 
 PAIRS = [
     (losses.LOGISTIC, jax_losses.LOGISTIC),
@@ -138,8 +138,9 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 
 def test_library_is_named_by_its_source_and_built_under_the_package():
-    path = glm_kernels.library_path()
-    assert path.parent == glm_kernels.BUILD_DIR
+    path = cuda_build.library_path(glm_kernels.SOURCE)
+    assert path.parent == cuda_build.BUILD_DIR
     assert path.parent.name == "_build" and path.parent.parent.name == "photon_ml_tpu_torch"
+    assert path.name.startswith("libglm_fused-")
     assert glm_kernels.SOURCE.exists()
-    assert "arch=compute_90a,code=sm_90a" in glm_kernels.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS

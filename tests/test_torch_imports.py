@@ -30,8 +30,9 @@ def _port_modules():
 
 def test_every_port_module_imports_with_jax_blocked():
     modules = _port_modules()
-    assert "photon_ml_tpu_torch.ops.glm_kernels" in modules
-    assert "photon_ml_tpu_torch.game.coordinate_descent" in modules
+    for name in ("ops.glm_kernels", "game.coordinate_descent", "ops.cuda_build", "ops.sparse_kernels",
+                 "data.sparse_layout"):
+        assert f"photon_ml_tpu_torch.{name}" in modules
     script = textwrap.dedent(
         """
         import importlib, importlib.abc, sys
