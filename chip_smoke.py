@@ -51,8 +51,40 @@ the card and timed, then:
    one profiled sweep of 3s.
 5s. Phase 5's card-vs-CPU check with a small sparse fixed effect.
 
+Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
+parallel/), each rank a process started by parallel/launch.py that loads
+phase 1's library and never builds: 4 ranks share the card over gloo (the
+rows of phase 3's data, handed over as shared memory, owned by the random
+effect's entities); NCCL runs with a card a rank (phases 2d-4d) where the
+machine has 2 or more, and with world size 1 in this process. The phases
+print which backend each used.
+
+2d. Kernel #3, the sharded sums (ops/glm_kernels.py: #1/#2 on each rank's
+   rows, one exact cross-rank sum): value_grad (logistic) and hvp on bf16 X
+   over each rank's quarter of phase 2's data, held against their plain
+   version (the plain sums per rank, the same exact sum) under
+   PORT_TOLERANCES["kernel_vs_plain"] and against the single-process kernel
+   on all rows; every rank must hold the same bits. Per rank, CUDA-event
+   medians behind a barrier of the kernel alone, the cross-rank sum, the
+   whole call, the plain call and one all_reduce of the sums' size. The
+   world-size-1 NCCL result must be the single-process kernel's bits.
+3d. Phase 3's GLMix on the 4 ranks: a warm-up sweep, then one sweep; rows
+   and lanes per rank, value_grad launches (= fn_evals) and cross-rank sums
+   (= objective passes + one finiteness vote per update) per rank, sweep
+   wall, AUC over all rows beside phase 3's, peak memory per rank. The fixed
+   effect must be bit-identical on every rank, each rank's random-effect
+   store must hold its own entities' rows alone, and every entity row of the
+   assembled matrix must have one owner. Then the same sweep with world
+   size 1 over NCCL here, which must give phase 3's bits.
+4d. Phase 4's TRON fixed effect on the 4 ranks with SIMPLE variances:
+   coefficients and variances bit-identical across ranks, variances finite
+   and positive, one cross-rank sum per pass (+1 for the variances).
+5d. Phase 5's small GLMix on three seeds: 4 ranks on the card against one
+   CPU process, under PORT_TOLERANCES["card_vs_cpu_glmix"].
+
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
-3s, 4s) and read just after. The last three lines of standard output are
+3s, 4s, and 3d and 4d in each rank) and read just after. The last three
+lines of standard output are
 the `kernels` JSON line, the card's name and power limit from nvidia-smi,
 and `{"ok": true, "device": {...}}`. Data comes from numpy with --seed;
 weights start at zero.
@@ -81,6 +113,9 @@ SPARSE_SOURCE = "photon_ml_tpu_torch/csrc/sparse_glm.cu"
 SPARSE_REPLACES = {"sparse_fused": "photon_ml_tpu/ops/pallas_sparse.py:690",
                    "sparse_matvec": "photon_ml_tpu/ops/pallas_sparse.py:216",
                    "sparse_rmatvec": "photon_ml_tpu/ops/pallas_sparse.py:255"}
+# Kernel #3: #1/#2 on each rank's rows and one exact cross-rank sum.
+DIST_REPLACES = {"sharded_value_grad": "photon_ml_tpu/ops/pallas_glm.py:705",
+                 "sharded_hvp": "photon_ml_tpu/ops/pallas_glm.py:746"}
 
 # Data-sheet rates (memory bytes/s, float32 FMA-pipe operations/s) by card,
 # matched on the name nvidia-smi and torch report. SXM is the H100 default.
@@ -234,61 +269,67 @@ def profile_sweep(coords, wall_s: float) -> dict:
     )
 
 
-def small_glmix_card_vs_cpu(seed: int, shards: dict, fe_shard: str, sy, sent):
-    """A small GLMix (fixed effect on `fe_shard`, per-entity random effect on
-    "per_entity") fit by two sweeps on the card (kernel path) and on the CPU
-    (plain path) from the same host arrays; returns (log row, failures)
-    under PORT_TOLERANCES["card_vs_cpu_glmix"]."""
-    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
-    from photon_ml_tpu_torch.data.game_dataset import (
-        GameDataset,
-        RandomEffectDataConfig,
-        build_random_effect_dataset,
+SMALL_RE_LAYOUT = dict(active_upper_bound=96, min_bucket=16)
+SMALL_RE_L2 = 10.0
+
+
+def small_glmix_fit(ds, fe_shard: str) -> dict:
+    """Phase 5's small GLMix (fixed effect on `fe_shard`, per-entity random
+    effect on "per_entity") fit by two sweeps on `ds`: one process, or one
+    rank's share of the rows (then the model and AUC are of all ranks)."""
+    from photon_ml_tpu_torch.data.game_dataset import RandomEffectDataConfig, build_random_effect_dataset
+    from photon_ml_tpu_torch.evaluation.metrics import (
+        area_under_roc_curve,
+        area_under_roc_curve_over_ranks,
     )
-    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
     from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
-    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
-    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.game.coordinate_descent import gather_game_model, run_coordinate_descent
     from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
     from photon_ml_tpu_torch.types import TaskType
 
     task = TaskType.LOGISTIC_REGRESSION
-    ref_tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
-    re_l2 = 10.0
     small_fe = CoordinateOptimizationConfig(
         optimizer=OptimizerConfig(max_iterations=40, tolerance=1e-6), regularization=L2, reg_weight=1.0)
     small_re = CoordinateOptimizationConfig(
-        optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-5), regularization=L2, reg_weight=re_l2)
-    fits = {}
-    for where in ("cuda", "cpu"):
-        sds = GameDataset.build(shards, sy, id_tags={"entityId": sent}, device=where)
-        sred = build_random_effect_dataset(
-            sds, RandomEffectDataConfig("entityId", "per_entity", active_upper_bound=96, min_bucket=16))
-        sc = {"fixed": FixedEffectCoordinate(sds, fe_shard, small_fe, task),
-              "per-entity": RandomEffectCoordinate(sds, sred, small_re, task)}
-        r = run_coordinate_descent(sc, 2)
-        s = sum(sc[c].score(r.model[c]) for c in sc)
-        fits[where] = dict(
-            fe=r.model["fixed"].coefficients.means.cpu(),
-            re=r.model["per-entity"].coefficients_matrix.cpu(),
-            auc=float(area_under_roc_curve(s, sds.labels)),
-            # The offsets the random effect's last solve ran on.
-            re_offsets=sds.offsets + sc["fixed"].score(r.model["fixed"]),
-            ds=sds, red=sred,
-        )
-    cpu = fits["cpu"]
-    re = re_objective_readings(cpu["ds"], cpu["red"], cpu["re_offsets"], LOGISTIC, re_l2,
-                               {"card": fits["cuda"]["re"], "cpu": cpu["re"]})
-    fe_err = float((fits["cuda"]["fe"] - cpu["fe"]).abs().max())
-    auc_err = abs(fits["cuda"]["auc"] - cpu["auc"])
+        optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-5), regularization=L2,
+        reg_weight=SMALL_RE_L2)
+    red = build_random_effect_dataset(
+        ds, RandomEffectDataConfig("entityId", "per_entity", **SMALL_RE_LAYOUT))
+    sc = {"fixed": FixedEffectCoordinate(ds, fe_shard, small_fe, task),
+          "per-entity": RandomEffectCoordinate(ds, red, small_re, task)}
+    r = run_coordinate_descent(sc, 2)
+    s = sum(sc[c].score(r.model[c]) for c in sc)
+    auc = (area_under_roc_curve(s, ds.labels) if ds.sharding is None
+           else area_under_roc_curve_over_ranks(ds.sharding, s, ds.labels))
+    model = gather_game_model(sc, r.model)
+    return dict(
+        fe=model["fixed"].coefficients.means.cpu(), re=model["per-entity"].coefficients_matrix.cpu(),
+        auc=float(auc),
+        # The offsets the random effect's last solve ran on.
+        re_offsets=ds.offsets + sc["fixed"].score(r.model["fixed"]), ds=ds, red=red,
+    )
+
+
+def small_glmix_compare(seed: int, card: dict, cpu: dict):
+    """A small GLMix fit on the card against the CPU fit from the same host
+    arrays; returns (log row, failures) under PORT_TOLERANCES
+    ["card_vs_cpu_glmix"]."""
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+
+    ref_tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    re = re_objective_readings(cpu["ds"], cpu["red"], cpu["re_offsets"], LOGISTIC, SMALL_RE_L2,
+                               {"card": card["re"], "cpu": cpu["re"]})
+    fe_err = float((card["fe"] - cpu["fe"]).abs().max())
+    auc_err = abs(card["auc"] - cpu["auc"])
     limit = ref_tol["re_objective_rtol"]
     ok = (fe_err <= ref_tol["fe_coef_atol"] and re["excess"]["card"] <= limit
           and auc_err <= ref_tol["auc_atol"])
     row = dict(
         seed=seed, fe_coef_err=fe_err, re_objective_excess=re["excess"],
         re_coef_dist_from_f64=re["coef_dist"], re_fault_excess=re["fault"],
-        re_coef_card_vs_cpu=float((fits["cuda"]["re"] - cpu["re"]).abs().max()),
-        auc_card=fits["cuda"]["auc"], auc_cpu=cpu["auc"], tol=ref_tol, ok=ok)
+        re_coef_card_vs_cpu=float((card["re"] - cpu["re"]).abs().max()),
+        auc_card=card["auc"], auc_cpu=cpu["auc"], tol=ref_tol, ok=ok)
     failures = []
     if not ok:
         failures.append(f"seed {seed}: the card's small GLMix disagrees with the CPU's")
@@ -296,6 +337,17 @@ def small_glmix_card_vs_cpu(seed: int, shards: dict, fe_shard: str, sy, sent):
         failures.append(f"seed {seed}: re_objective_rtol {limit} does not separate the CPU fit "
                         f"({re['excess']['cpu']:.3e}) from a cold-start lane ({re['fault']:.3e})")
     return row, failures
+
+
+def small_glmix_card_vs_cpu(seed: int, shards: dict, fe_shard: str, sy, sent):
+    """Phase 5's small GLMix on the card (kernel path) and on the CPU (plain
+    path) from the same host arrays, compared."""
+    from photon_ml_tpu_torch.data.game_dataset import GameDataset
+
+    fits = {where: small_glmix_fit(
+        GameDataset.build(shards, sy, id_tags={"entityId": sent}, device=where), fe_shard)
+        for where in ("cuda", "cpu")}
+    return small_glmix_compare(seed, fits["cuda"], fits["cpu"])
 
 
 def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
@@ -579,6 +631,485 @@ def sparse_phases(seed: int, dev, bw: float, f32_rate: float):
     return rows, launches
 
 
+# ---------------------------------------------------------------- phases 2d-5d
+#
+# Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
+# parallel/): each rank is a process started by parallel/launch.py, with the
+# host arrays handed over as shared-memory CPU tensors. On one card, 4 ranks
+# share it over gloo, which all-reduces CUDA tensors through host memory;
+# NCCL runs where each rank has a card of its own, and with world size 1 in
+# this process. The rank_* functions run in the ranks and return host values.
+
+RANKS_SHARED = 4
+RANK_DEADLINE_S = 600.0
+RE_LAYOUT = dict(active_upper_bound=128, min_bucket=32)  # phase 3's random effect
+
+
+def glmix_configs(variances: bool = False):
+    """Phase 3's fixed effect (L-BFGS) and random effect, phase 4's TRON
+    fixed effect (with SIMPLE variances if asked)."""
+    from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
+    from photon_ml_tpu_torch.types import OptimizerType, VarianceComputationType
+
+    cfg_f = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=40, tolerance=1e-8), regularization=L2, reg_weight=1.0)
+    cfg_r = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-7), regularization=L2, reg_weight=10.0)
+    cfg_t = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(OptimizerType.TRON, 15, 1e-6), regularization=L2, reg_weight=1.0,
+        variance_computation=(VarianceComputationType.SIMPLE if variances
+                              else VarianceComputationType.NONE))
+    return cfg_f, cfg_r, cfg_t
+
+
+def rank_time_ms(torch, dist, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of `fn` on this rank, each call started behind
+    a barrier of all ranks."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def rank_kernel_checks(mesh, data) -> dict:
+    """Phase 2d on one rank: kernel #3 (the sharded sums) on this rank's
+    contiguous share of the rows, bf16 X, logistic, against its plain
+    version (the plain sums per rank, then the same exact sum); whether every
+    rank holds the same bits; per-rank kernel, collective and whole-call
+    times, the plain call's and one all_reduce of the sums' size."""
+    import torch
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.parallel.mesh import over_ranks
+
+    dev = mesh.device
+    n = int(data["y"].shape[0])
+    lo, hi = n * mesh.rank // mesh.world_size, n * (mesh.rank + 1) // mesh.world_size
+    Xl = data["X"][lo:hi].to(dev).to(torch.bfloat16)
+    yl, offl, wtl = (data[k][lo:hi].to(dev) for k in ("y", "off", "wt"))
+    wv, vv = data["w"].to(dev), data["v"].to(dev)
+    shift = torch.tensor(0.01, device=dev)
+    vg_args = (LOGISTIC, wv, shift, Xl, yl, offl, wtl)
+    hv_args = (LOGISTIC, wv, shift, vv, 0.02, Xl, yl, offl, wtl)
+
+    checks = {
+        "sharded_value_grad": (
+            lambda: glm_kernels.sharded_value_gradient_sums(*vg_args, mesh=mesh),
+            lambda: over_ranks(mesh, *glm_kernels.value_gradient_sums_plain(*vg_args)),
+            lambda: glm_kernels.value_gradient_sums(*vg_args)),
+        "sharded_hvp": (
+            lambda: glm_kernels.sharded_hessian_vector_sums(*hv_args, mesh=mesh),
+            lambda: over_ranks(mesh, *glm_kernels.hessian_vector_sums_plain(*hv_args)),
+            lambda: glm_kernels.hessian_vector_sums(*hv_args)),
+    }
+    tol = PORT_TOLERANCES["kernel_vs_plain"]["scale_rel"]
+    rows = {}
+    for name, (run_k, run_p, run_local) in checks.items():
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        max_abs, rel = compare(got, ref)
+        flat = torch.cat([t.reshape(-1) for t in got])
+        every = mesh.owned_to_global(flat[None], torch.tensor([mesh.rank], device=dev), mesh.world_size)
+        local = [t.reshape(-1) for t in run_local()]
+        buf = torch.zeros(flat.numel(), device=dev)
+        rows[name] = dict(
+            rows=hi - lo, max_abs_err=max_abs, scale_rel_err=rel, tol_scale_rel=tol, ok=rel <= tol,
+            ranks_bit_identical=bool((every == every[0]).all()),
+            kernel_ms=rank_time_ms(torch, dist, run_local),
+            collective_ms=rank_time_ms(torch, dist, lambda: mesh.exact_sum(local)),
+            call_ms=rank_time_ms(torch, dist, run_k),
+            plain_ms=rank_time_ms(torch, dist, run_p),
+            all_reduce_ms=rank_time_ms(torch, dist, lambda: dist.all_reduce(buf)),
+            result=[t.cpu() for t in got],
+        )
+    return rows
+
+
+def rank_glmix(mesh, data):
+    """Phases 3d and 4d on one rank: phase 3's GLMix on this rank's rows (a
+    warm-up sweep, then one sweep with the counts set to 0 just before it
+    and read just after), the model assembled over ranks, the AUC over all
+    rows; then phase 4's TRON fixed effect with SIMPLE variances."""
+    import torch
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.data.game_dataset import RandomEffectDataConfig, build_random_effect_dataset
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve_over_ranks
+    from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.coordinate_descent import gather_game_model, run_coordinate_descent
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.parallel.mesh import shard_game_dataset
+    from photon_ml_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    cfg_f, cfg_r, _ = glmix_configs()
+    _, _, cfg_t = glmix_configs(variances=True)
+    t0 = time.perf_counter()
+    re_cfg = RandomEffectDataConfig("entityId", "per_entity", **RE_LAYOUT)
+    ds = shard_game_dataset(mesh, {"global": data["X"], "per_entity": data["Xe"]}, data["y"],
+                            id_tags={"entityId": data["entity"]}, owner=re_cfg)
+    red = build_random_effect_dataset(ds, re_cfg)
+    fixed = FixedEffectCoordinate(ds, "global", cfg_f, task)
+    coords = {"fixed": fixed, "per-entity": RandomEffectCoordinate(ds, red, cfg_r, task)}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_coordinate_descent(coords, 1)  # warm-up: first-use costs
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    glm_kernels.reset_launch_counts()
+    mesh.reset_counts()  # phase 3d starts here
+    t0 = time.perf_counter()
+    result = run_coordinate_descent(coords, 1)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches, sums = dict(glm_kernels.LAUNCHES), dict(mesh.counts)  # phase 3d ends here
+    collective_s = sum(mesh.seconds.values())
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    scores = sum(coords[c].score(result.model[c]) for c in coords) + ds.offsets
+    auc = float(area_under_roc_curve_over_ranks(ds.sharding, scores, ds.labels))
+    model = gather_game_model(coords, result.model)
+    owned = red.owned_entities
+    owners = mesh.owned_to_global(torch.ones((len(owned), 1), device=mesh.device), owned,
+                                  red.num_entities + 1)
+    fe_res = result.train_stats["fixed"]
+    out3 = dict(
+        rows=ds.num_samples, entities=int(len(owned)),
+        store_shape=list(result.model["per-entity"].coefficients_matrix.shape),
+        lanes=[(b.capacity, b.num_entities) for b in red.buckets],
+        active=red.num_active_samples, passive=red.num_passive_samples,
+        fe_stored=str(fixed.training_features.dtype).replace("torch.", ""),
+        setup_s=setup_s, warmup_wall_s=warm_s, glmix_wall_s=wall_s, collective_s=collective_s,
+        collective_share=collective_s / wall_s,
+        fixed_s=result.timing["fixed/iter0"], random_s=result.timing["per-entity/iter0"],
+        fe_iterations=int(fe_res.iterations), fe_fn_evals=int(fe_res.fn_evals),
+        fe_reason=int(fe_res.reason), launches=launches, collectives=sums,
+        scores_finite=bool(torch.isfinite(scores).all()), train_auc=auc, peak_mem_gib=peak_gib,
+        one_owner_per_entity=bool((owners[:-1] == 1).all() and (owners[-1] == 0).all()),
+        fe=result.model["fixed"].coefficients.means.cpu(),
+        re=model["per-entity"].coefficients_matrix.cpu(),
+    )
+
+    tron = FixedEffectCoordinate(ds, "global", cfg_t, task)
+    dist.barrier()
+    glm_kernels.reset_launch_counts()
+    mesh.reset_counts()  # phase 4d starts here
+    t0 = time.perf_counter()
+    tron_model, tron_res = tron.train(ds.offsets)
+    torch.cuda.synchronize()
+    tron_s = time.perf_counter() - t0
+    launches4, sums4 = dict(glm_kernels.LAUNCHES), dict(mesh.counts)  # phase 4d ends here
+    var = tron_model.coefficients.variances
+    out4 = dict(
+        tron_wall_s=tron_s, iterations=int(tron_res.iterations), fn_evals=int(tron_res.fn_evals),
+        reason=int(tron_res.reason), loss=float(tron_res.loss), launches=launches4,
+        collectives=sums4, coef=tron_model.coefficients.means.cpu(), variances=var.cpu(),
+    )
+    return out3, out4
+
+
+def rank_small_glmix(mesh, seed: int) -> dict:
+    """Phase 5d on one rank: phase 5's small GLMix on this rank's rows."""
+    import torch
+
+    from photon_ml_tpu_torch.data.game_dataset import RandomEffectDataConfig
+    from photon_ml_tpu_torch.parallel.mesh import shard_game_dataset
+
+    sXf, sXe, sent, sy = glmix_arrays(seed, 8192, 32, 4, 64)
+    sXf = torch.from_numpy(sXf).to(torch.bfloat16).float().numpy()  # as phase 5: bf16-exact
+    ds = shard_game_dataset(mesh, {"global": sXf, "per_entity": sXe}, sy, id_tags={"entityId": sent},
+                            owner=RandomEffectDataConfig("entityId", "per_entity", **SMALL_RE_LAYOUT))
+    fit = small_glmix_fit(ds, "global")
+    return dict(fe=fit["fe"], re=fit["re"], auc=fit["auc"])
+
+
+def rank_phases(mesh, phases, data, seed: int) -> dict:
+    """The distributed phases named in `phases`, on one rank. The kernels
+    come from phase 1's library; a rank never builds."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import cuda_build, glm_kernels
+
+    if not cuda_build.library_path(glm_kernels.SOURCE).exists():
+        raise RuntimeError("phase 1's glm_fused library is missing; ranks do not build")
+    out = dict(rank=mesh.rank, world_size=mesh.world_size, backend=mesh.backend,
+               device=str(mesh.device))
+    if "2d" in phases:
+        out["2d"] = rank_kernel_checks(mesh, data)
+        torch.cuda.empty_cache()
+    if "3d" in phases:
+        out["3d"], out["4d"] = rank_glmix(mesh, data)
+        torch.cuda.empty_cache()
+    if "5d" in phases:
+        out["5d"] = [rank_small_glmix(mesh, s) for s in (seed + 7, seed + 8, seed + 9)]
+    return out
+
+
+def shared_tensor(torch, a):
+    """A CPU tensor in shared memory holding numpy array `a`: the ranks map
+    it; no rank copies the host arrays."""
+    t = torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype).share_memory_()
+    t.copy_(torch.from_numpy(a))
+    return t
+
+
+def single_process_sums(arrays: dict, dev):
+    """Phase 2's logistic value_grad and hvp sums over all rows, bf16 X, from
+    the single-process kernels: what kernel #3 is held against; and the
+    arguments they were called with."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+
+    X = torch.from_numpy(arrays["X"]).to(dev).to(torch.bfloat16)
+    y, off, wt, w, v = (torch.from_numpy(arrays[k]).to(dev) for k in ("y", "off", "wt", "w", "v"))
+    shift = torch.tensor(0.01, device=dev)
+    args = {"sharded_value_grad": (LOGISTIC, w, shift, X, y, off, wt),
+            "sharded_hvp": (LOGISTIC, w, shift, v, 0.02, X, y, off, wt)}
+    single = {"sharded_value_grad": glm_kernels.value_gradient_sums(*args["sharded_value_grad"]),
+              "sharded_hvp": glm_kernels.hessian_vector_sums(*args["sharded_hvp"])}
+    return args, single
+
+
+def check_2d(backend: str, outs, single: dict, dev, failures: list) -> None:
+    """Log each rank's phase 2d rows and hold them to the single-process kernel."""
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+
+    tol = PORT_TOLERANCES["kernel_vs_plain"]["scale_rel"]
+    for o in outs:
+        for name, r in o["2d"].items():
+            vs_single = compare([t.to(dev) for t in r["result"]], single[name])
+            row = {k: v for k, v in r.items() if k != "result"}
+            log(json.dumps(dict(phase="2d", backend=backend, world_size=o["world_size"],
+                                device=o["device"], rank=o["rank"], kernel=name, d=D_FIXED,
+                                x_dtype="bfloat16",
+                                vs_single_process_kernel=dict(max_abs_err=vs_single[0],
+                                                              scale_rel_err=vs_single[1]),
+                                **row)))
+            if not (r["ok"] and r["ranks_bit_identical"] and vs_single[1] <= tol):
+                failures.append(f"2d {backend} rank {o['rank']} {name}: {row} "
+                                f"(vs single process {vs_single})")
+
+
+def check_3d_4d(backend: str, outs, failures: list) -> dict:
+    """Log each rank's phase 3d and 4d rows and check them: launches and
+    collectives against the objective passes, one owner per entity, the
+    same fixed-effect bits (and TRON coefficients and variances) on every
+    rank, AUC above 0.5. Returns the 3d summary row."""
+    import torch
+
+    r3, r4 = [o["3d"] for o in outs], [o["4d"] for o in outs]
+    world = outs[0]["world_size"]
+    for o, r in zip(outs, r3):
+        log(json.dumps(dict(phase="3d", backend=backend, world_size=world, device=o["device"],
+                            rank=o["rank"], **{k: v for k, v in r.items() if k not in ("fe", "re")})))
+    row = dict(
+        phase="3d", backend=backend, world_size=world,
+        glmix_wall_s=max(r["glmix_wall_s"] for r in r3),
+        collective_share=max(r["collective_share"] for r in r3),
+        fixed_s=max(r["fixed_s"] for r in r3), random_s=max(r["random_s"] for r in r3),
+        train_auc=r3[0]["train_auc"],
+        fe_bit_identical_on_every_rank=all(torch.equal(r["fe"], r3[0]["fe"]) for r in r3),
+        re_matrix_identical_on_every_rank=all(torch.equal(r["re"], r3[0]["re"]) for r in r3),
+    )
+    for o, r in zip(outs, r3):
+        passes = r["fe_fn_evals"]
+        if not (r["launches"]["value_grad"] == r["launches"]["sharded_value_grad"] == passes > 0):
+            failures.append(f"3d rank {o['rank']}: launches {r['launches']} for {passes} passes")
+        # One cross-rank sum per objective pass, one finiteness vote per update.
+        if r["collectives"] != {"exact_sum": passes + 2, "owned_to_global": 0}:
+            failures.append(f"3d rank {o['rank']}: collectives {r['collectives']} for {passes} "
+                            f"objective passes and 2 updates")
+        if not (r["one_owner_per_entity"] and r["scores_finite"] and r["fe_stored"] == "bfloat16"
+                and r["store_shape"] == [r["entities"] + 1, D_RE]):
+            failures.append(f"3d rank {o['rank']}: ownership, store, scores or storage wrong")
+    if not (row["fe_bit_identical_on_every_rank"] and row["re_matrix_identical_on_every_rank"]):
+        failures.append("3d: the ranks' fixed-effect coefficients or assembled matrices differ")
+    if not row["train_auc"] > 0.5:
+        failures.append(f"3d: training AUC {row['train_auc']} is not above 0.5")
+
+    for o, r in zip(outs, r4):
+        var = r["variances"]
+        log(json.dumps(dict(phase="4d", backend=backend, world_size=world, rank=o["rank"],
+                            variance_min=float(var.min()), variance_max=float(var.max()),
+                            **{k: v for k, v in r.items() if k not in ("coef", "variances")})))
+        ln, passes = r["launches"], r["fn_evals"]
+        # TRON counts value/gradient and Hessian-vector passes together; the
+        # variances' Hessian diagonal adds one cross-rank sum.
+        if not (ln["sharded_hvp"] == ln["hvp"] > 0 and ln["sharded_value_grad"] == ln["value_grad"]
+                and ln["sharded_value_grad"] + ln["sharded_hvp"] == passes
+                and r["collectives"] == {"exact_sum": passes + 1, "owned_to_global": 0}):
+            failures.append(f"4d rank {o['rank']}: launches {ln}, collectives {r['collectives']} "
+                            f"for {passes} TRON passes")
+    same4 = all(torch.equal(r["coef"], r4[0]["coef"]) and torch.equal(r["variances"], r4[0]["variances"])
+                for r in r4)
+    var = r4[0]["variances"]
+    var_ok = var.shape == (D_FIXED,) and bool(torch.isfinite(var).all()) and bool((var > 0).all())
+    log(json.dumps(dict(phase="4d", backend=backend, world_size=world,
+                        coef_and_variances_bit_identical_on_every_rank=same4,
+                        variances_finite_positive=var_ok)))
+    if not (same4 and var_ok):
+        failures.append("4d: coefficients or variances differ across ranks, or are not finite positive")
+    return row
+
+
+def across_cards(seed: int, data: dict, single: dict, dev) -> None:
+    """Phases 2d-4d over NCCL with one rank per card (up to 4 cards)."""
+    import torch
+
+    from photon_ml_tpu_torch.parallel.launch import launch
+
+    world = min(4, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    outs = launch(rank_phases, world, backend="nccl", devices=[f"cuda:{r}" for r in range(world)],
+                  deadline_s=RANK_DEADLINE_S, args=(("2d", "3d"), data, seed))
+    log(f"phases 2d-4d: {world} ranks, one card each, over NCCL, "
+        f"{time.perf_counter() - t0:.2f} s from spawn to the last rank's return")
+    failures = []
+    check_2d("nccl", outs, single, dev, failures)
+    log(json.dumps(check_3d_4d("nccl", outs, failures)))
+    if failures:
+        raise SystemExit("phases 2d-4d over NCCL failed: " + "; ".join(failures))
+
+
+def distributed_phases(seed: int, dev, arrays: dict, kernel_rows: dict, phase3: dict):
+    """Phases 2d-5d. Returns (record rows of kernel #3 by name, its launches
+    on the main path: phases 3d and 4d, rank 0's count)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.data.game_dataset import (
+        GameDataset,
+        RandomEffectDataConfig,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.coordinate_descent import gather_game_model, run_coordinate_descent
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.parallel.launch import launch
+    from photon_ml_tpu_torch.parallel.mesh import init_rank_mesh, shard_game_dataset
+    from photon_ml_tpu_torch.types import TaskType
+
+    t0 = time.perf_counter()
+    data = {k: (v if k == "entity" else shared_tensor(torch, v)) for k, v in arrays.items()}
+    log(f"phase 2d setup: {time.perf_counter() - t0:.2f} s to place the host arrays in shared memory")
+    t0 = time.perf_counter()
+    outs = launch(rank_phases, RANKS_SHARED, backend="gloo", devices=["cuda:0"] * RANKS_SHARED,
+                  deadline_s=RANK_DEADLINE_S, args=(("2d", "3d", "5d"), data, seed))
+    log(f"phases 2d-5d: {RANKS_SHARED} ranks sharing cuda:0 over gloo, "
+        f"{time.perf_counter() - t0:.2f} s from spawn to the last rank's return")
+    failures = []
+
+    # ---- phase 2d: kernel #3 ------------------------------------------------------------
+    args, single = single_process_sums(arrays, dev)
+    check_2d("gloo", outs, single, dev, failures)
+    if torch.cuda.device_count() >= 2:
+        across_cards(seed, data, single, dev)
+    else:
+        log("phase 2d: this machine has 1 card, so NCCL runs with world size 1 only (below)")
+
+    with tempfile.TemporaryDirectory(prefix="photon-nccl-") as tmp:
+        mesh1 = init_rank_mesh(backend="nccl", rank=0, world_size=1, device="cuda:0",
+                               store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                               timeout_s=RANK_DEADLINE_S)
+        one = {"sharded_value_grad": glm_kernels.sharded_value_gradient_sums(
+                   *args["sharded_value_grad"], mesh=mesh1),
+               "sharded_hvp": glm_kernels.sharded_hessian_vector_sums(*args["sharded_hvp"], mesh=mesh1)}
+        same = {k: all(torch.equal(a, b) for a, b in zip(one[k], single[k])) for k in one}
+        log(json.dumps(dict(phase="2d", backend="nccl", world_size=1, device="cuda:0",
+                            bit_identical_to_single_process_kernel=same)))
+        if not all(same.values()):
+            failures.append(f"2d: NCCL world size 1 is not the single-process kernel's bits: {same}")
+        if failures:
+            raise SystemExit("phase 2d failed: " + "; ".join(failures))
+        del args, single, one
+        torch.cuda.empty_cache()
+
+        # ---- phases 3d and 4d on 4 ranks, then the 3d sweep with world size 1 over NCCL ----
+        row = check_3d_4d("gloo", outs, failures)
+        r3 = outs[0]["3d"]
+        row.update(phase3_train_auc=phase3["auc"],
+                   fe_vs_phase3_max_abs=float((r3["fe"] - phase3["fe"]).abs().max()),
+                   re_vs_phase3_max_abs=float((r3["re"] - phase3["re"]).abs().max()))
+        log(json.dumps(row))
+
+        t0 = time.perf_counter()
+        task = TaskType.LOGISTIC_REGRESSION
+        cfg_f, cfg_r, _ = glmix_configs()
+        re_cfg = RandomEffectDataConfig("entityId", "per_entity", **RE_LAYOUT)
+        ds1 = shard_game_dataset(mesh1, {"global": arrays["X"], "per_entity": arrays["Xe"]},
+                                 arrays["y"], id_tags={"entityId": arrays["entity"]}, owner=re_cfg)
+        coords1 = {"fixed": FixedEffectCoordinate(ds1, "global", cfg_f, task),
+                   "per-entity": RandomEffectCoordinate(
+                       ds1, build_random_effect_dataset(ds1, re_cfg), cfg_r, task)}
+        res1 = run_coordinate_descent(coords1, 1)
+        model1 = gather_game_model(coords1, res1.model)
+        torch.cuda.synchronize()
+        same3 = dict(fe=torch.equal(model1["fixed"].coefficients.means.cpu(), phase3["fe"]),
+                     re=torch.equal(model1["per-entity"].coefficients_matrix.cpu(), phase3["re"]))
+        log(json.dumps(dict(phase="3d", backend="nccl", world_size=1, device="cuda:0",
+                            setup_and_sweep_s=time.perf_counter() - t0,
+                            bit_identical_to_phase3=same3)))
+        if not all(same3.values()):
+            failures.append(f"3d: the world-size-1 NCCL sweep is not phase 3's bits: {same3}")
+        mesh1.close()
+        del ds1, coords1, res1, model1
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("phases 3d-4d failed: " + "; ".join(failures))
+
+    # ---- phase 5d: small GLMix on 4 ranks (card) vs one CPU process ------------------------
+    for i, s in enumerate((seed + 7, seed + 8, seed + 9)):
+        fits = [o["5d"][i] for o in outs]
+        sXf, sXe, sent, sy = glmix_arrays(s, 8192, 32, 4, 64)
+        sXf = torch.from_numpy(sXf).to(torch.bfloat16).float().numpy()
+        cpu = small_glmix_fit(GameDataset.build({"global": sXf, "per_entity": sXe}, sy,
+                                                id_tags={"entityId": sent}, device="cpu"), "global")
+        row, bad = small_glmix_compare(s, fits[0], cpu)
+        row["ranks_identical"] = all(torch.equal(f["fe"], fits[0]["fe"]) and torch.equal(f["re"], fits[0]["re"])
+                                     and f["auc"] == fits[0]["auc"] for f in fits)
+        log(json.dumps(dict(phase="5d", backend="gloo", world_size=RANKS_SHARED, **row)))
+        failures += bad + ([] if row["ranks_identical"] else [f"5d seed {s}: ranks differ"])
+    if failures:
+        raise SystemExit("phase 5d failed: " + "; ".join(failures))
+
+    # The record rows of kernel #3: the whole call's time (the slowest rank's
+    # median) beside the plain call's; the bound and the library yardstick of
+    # #1/#2 on all rows (the shared card reads all of X once), the latter plus
+    # one all_reduce of the sums.
+    rows = {}
+    for name, base in (("sharded_value_grad", "value_grad"), ("sharded_hvp", "hvp")):
+        r2 = [o["2d"][name] for o in outs]
+        rows[name] = dict(
+            max_abs_err=max(r["max_abs_err"] for r in r2), ms=max(r["call_ms"] for r in r2),
+            plain_ms=max(r["plain_ms"] for r in r2), bound_ms=kernel_rows[base]["bound_ms"],
+            bound_by=kernel_rows[base]["bound_by"],
+            library_ms=kernel_rows[base]["library_ms"] + max(r["all_reduce_ms"] for r in r2))
+    launches = {k: outs[0]["3d"]["launches"][k] + outs[0]["4d"]["launches"][k]
+                for k in ("sharded_value_grad", "sharded_hvp")}
+    return rows, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -605,12 +1136,7 @@ def main(argv=None) -> int:
     from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
     from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
     from photon_ml_tpu_torch.ops.losses import LOGISTIC, POISSON, SMOOTHED_HINGE, SQUARED
-    from photon_ml_tpu_torch.optimize.config import (
-        L2,
-        CoordinateOptimizationConfig,
-        OptimizerConfig,
-    )
-    from photon_ml_tpu_torch.types import OptimizerType, TaskType
+    from photon_ml_tpu_torch.types import TaskType
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -654,6 +1180,7 @@ def main(argv=None) -> int:
     w_np = (rng.standard_normal(D_FIXED, dtype=np.float32) * 0.05).astype(np.float32)
     v_np = rng.standard_normal(D_FIXED, dtype=np.float32)
     log(f"data: {time.perf_counter() - t0:.2f} s on the host (numpy, seed {args.seed})")
+    arrays = dict(X=Xf, Xe=Xe, entity=entity, y=y, off=off_np, wt=wt_np, w=w_np, v=v_np)
 
     # ---- phase 2: kernels vs plain versions -----------------------------------
     tol = PORT_TOLERANCES["kernel_vs_plain"]
@@ -748,15 +1275,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ds = GameDataset.build({"global": Xf, "per_entity": Xe}, y,
                            id_tags={"entityId": entity}, device=dev)
-    red = build_random_effect_dataset(
-        ds, RandomEffectDataConfig("entityId", "per_entity", active_upper_bound=128, min_bucket=32)
-    )
-    cfg_f = CoordinateOptimizationConfig(
-        optimizer=OptimizerConfig(max_iterations=40, tolerance=1e-8), regularization=L2, reg_weight=1.0)
-    cfg_r = CoordinateOptimizationConfig(
-        optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-7), regularization=L2, reg_weight=10.0)
-    cfg_t = CoordinateOptimizationConfig(
-        optimizer=OptimizerConfig(OptimizerType.TRON, 15, 1e-6), regularization=L2, reg_weight=1.0)
+    red = build_random_effect_dataset(ds, RandomEffectDataConfig("entityId", "per_entity", **RE_LAYOUT))
+    cfg_f, cfg_r, cfg_t = glmix_configs()
     fixed = FixedEffectCoordinate(ds, "global", cfg_f, task)
     rand = RandomEffectCoordinate(ds, red, cfg_r, task)
     tron = FixedEffectCoordinate(ds, "global", cfg_t, task)
@@ -788,6 +1308,8 @@ def main(argv=None) -> int:
     fe_res = result.train_stats["fixed"]
     re_stats = result.train_stats["per-entity"]
     vg_after_glmix = glm_kernels.LAUNCHES["value_grad"]
+    phase3 = dict(fe=result.model["fixed"].coefficients.means.cpu(),
+                  re=result.model["per-entity"].coefficients_matrix.cpu(), auc=auc)
     log(json.dumps(dict(
         phase=3, glmix_wall_s=glmix_s, score_auc_s=score_auc_s, warmup_wall_s=warm_s,
         fixed_s=result.timing["fixed/iter0"], random_s=result.timing["per-entity/iter0"],
@@ -843,6 +1365,9 @@ def main(argv=None) -> int:
     # ---- phases 2s-5s: the sparse fixed effect ------------------------------------
     sparse_rows, sparse_launches = sparse_phases(args.seed, dev, bw, f32_rate)
 
+    # ---- phases 2d-5d: data-parallel GLMix on ranks --------------------------------
+    dist_rows, dist_launches = distributed_phases(args.seed, dev, arrays, kernel_rows, phase3)
+
     # ---- the record lines -------------------------------------------------------
     source = "photon_ml_tpu_torch/csrc/glm_fused.cu"
     replaces = {"value_grad": "photon_ml_tpu/ops/pallas_glm.py:506",
@@ -861,6 +1386,11 @@ def main(argv=None) -> int:
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
              library_ms=sparse_rows[k]["library_ms"])
         for k in SPARSE_REPLACES
+    ]
+    kernels += [
+        dict(name=k, route="cuda+collective", source="photon_ml_tpu_torch/ops/glm_kernels.py",
+             replaces=DIST_REPLACES[k], launches=dist_launches[k], **dist_rows[k])
+        for k in DIST_REPLACES
     ]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

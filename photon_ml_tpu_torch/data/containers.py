@@ -18,12 +18,15 @@ objective on the card runs on the CSR/CSC layout built from it
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import TYPE_CHECKING, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
+
+if TYPE_CHECKING:
+    from photon_ml_tpu_torch.parallel.mesh import RankMesh
 
 Tensor = torch.Tensor
 
@@ -88,6 +91,9 @@ class LabeledData:
     labels: Tensor  # (..., N)
     offsets: Tensor  # (..., N)
     weights: Tensor  # (..., N)
+    # Set when the rows are one rank's share: every sum over rows in
+    # ops/objective.py then crosses the ranks.
+    mesh: Optional["RankMesh"] = None
 
 
 def dense_data(

@@ -15,6 +15,12 @@ A shard is a dense (N, D) tensor or an ELL `SparseFeatures`; a sparse
 shard's CSR/CSC layout (data/sparse_layout.py) is built on the device once,
 at first use, and cached on the dataset.
 
+A dataset sharded over torch.distributed ranks (`parallel/mesh.py
+shard_game_dataset`) holds only this rank's rows, in global order, and
+carries a `sharding` that maps them to their global positions; its
+random-effect layout is this rank's part of the layout built from the
+global id tag.
+
 Not ported yet: random effects over sparse shards, Pearson feature masks,
 projectors, the device-side assembly and the async packing of the JAX data
 plane.
@@ -23,7 +29,7 @@ plane.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +37,9 @@ import torch
 from photon_ml_tpu_torch.data.containers import Features, LabeledData, SparseFeatures
 from photon_ml_tpu_torch.data.sparse_layout import SparseLayout, from_ell
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
+
+if TYPE_CHECKING:
+    from photon_ml_tpu_torch.parallel.mesh import RankMesh, RowSharding
 
 Tensor = torch.Tensor
 
@@ -64,10 +73,16 @@ class GameDataset:
     # shard, a sparse shard's layout), built once and shared by the
     # coordinates and scorers over it.
     cache: Dict[object, object] = dataclasses.field(default_factory=dict)
+    # Set on a dataset that holds one rank's rows (parallel/mesh.py).
+    sharding: Optional["RowSharding"] = None
 
     @property
     def num_samples(self) -> int:
         return int(self.labels.shape[0])
+
+    @property
+    def mesh(self) -> Optional["RankMesh"]:
+        return None if self.sharding is None else self.sharding.mesh
 
     @property
     def device(self) -> torch.device:
@@ -173,7 +188,11 @@ class RandomEffectDataset:
 
     `entity_index`: entity key -> row of the coefficient matrix.
     `buckets`: padded gather blocks for training (active rows only).
-    `sample_entity_rows`: each sample's coefficient row for scoring."""
+    `sample_entity_rows`: each sample's coefficient row for scoring.
+    `owned_entities`: on a rank, the entities (rows of the global matrix)
+    it owns and trains, increasing; its coefficient store holds their rows
+    alone, row i for `owned_entities[i]`, and the bucket and sample rows
+    index that store (None: every entity, one process)."""
 
     config: RandomEffectDataConfig
     entity_index: Dict[object, int]
@@ -181,26 +200,45 @@ class RandomEffectDataset:
     sample_entity_rows: Tensor  # (N,) int64
     num_active_samples: int
     num_passive_samples: int
+    owned_entities: Optional[Tensor] = None
 
     @property
     def num_entities(self) -> int:
         return len(self.entity_index)
 
     @property
+    def num_store_rows(self) -> int:
+        """Entity rows of the coefficient store this dataset trains (its
+        pinned zero row comes after them)."""
+        return self.num_entities if self.owned_entities is None else len(self.owned_entities)
+
+    @property
     def feature_shard(self) -> str:
         return self.config.feature_shard
 
 
-def build_random_effect_dataset(
-    dataset: GameDataset, config: RandomEffectDataConfig
-) -> RandomEffectDataset:
-    """Host-side one-time construction of the entity-blocked layout."""
-    tag = config.random_effect_type
-    if isinstance(dataset.shards[config.feature_shard], SparseFeatures):
-        raise NotImplementedError("random effects over sparse shards are not ported yet")
-    if tag not in dataset.id_tags:
-        raise ValueError(f"id tag {tag!r} not present in dataset")
-    keys = dataset.id_tags[tag]
+@dataclasses.dataclass
+class EntityLayout:
+    """The entity-blocked layout on the host, before any device copy.
+
+    `codes` is each sample's entity code (its coefficient row); `blocks`
+    holds one (gather (E, S), mask (E, S), entity_rows (E,)) numpy triple
+    per padded bucket chunk, gathers indexing the sample axis the layout
+    was built from."""
+
+    entity_index: Dict[object, int]
+    codes: np.ndarray
+    blocks: List[Tuple[np.ndarray, np.ndarray, np.ndarray]]
+    num_active: int
+
+    @property
+    def num_entities(self) -> int:
+        return len(self.entity_index)
+
+
+def entity_layout(keys: np.ndarray, config: RandomEffectDataConfig) -> EntityLayout:
+    """Host-side construction of the entity-blocked layout from the id tag
+    of every sample."""
     n = len(keys)
     uniq, codes = np.unique(keys, return_inverse=True)
     codes = codes.reshape(-1)
@@ -249,8 +287,7 @@ def build_random_effect_dataset(
     row_kept_ord = np.repeat(np.arange(len(kept), dtype=np.int64), kept_sizes)
     row_pos = np.arange(num_active, dtype=np.int64) - a_starts[row_kept_ord]
 
-    dev = dataset.device
-    buckets: List[EntityBlocks] = []
+    blocks: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
     for capacity in np.unique(cap_of_kept) if len(kept) else []:
         members = np.nonzero(cap_of_kept == capacity)[0]
         e = len(members)
@@ -281,15 +318,32 @@ def build_random_effect_dataset(
             ent_rows = np.concatenate([ent_rows, np.full(pad_e, num_entities, np.int64)])
         for c in range(n_chunks):
             sl = slice(c * target, (c + 1) * target)
-            buckets.append(EntityBlocks(gather[sl], mask[sl], ent_rows[sl], dev))
+            blocks.append((gather[sl], mask[sl], ent_rows[sl]))
+    return EntityLayout(entity_index, codes.astype(np.int64), blocks, num_active)
 
+
+def build_random_effect_dataset(
+    dataset: GameDataset, config: RandomEffectDataConfig
+) -> RandomEffectDataset:
+    """One-time construction of the entity-blocked layout: on the host from
+    the dataset's id tag, or, for a dataset sharded over ranks, this rank's
+    part of the layout built from the global id tag (parallel/mesh.py)."""
+    tag = config.random_effect_type
+    if isinstance(dataset.shards[config.feature_shard], SparseFeatures):
+        raise NotImplementedError("random effects over sparse shards are not ported yet")
+    if tag not in dataset.id_tags:
+        raise ValueError(f"id tag {tag!r} not present in dataset")
+    if dataset.sharding is not None:
+        return dataset.sharding.random_effect_dataset(dataset, config)
+    layout = entity_layout(dataset.id_tags[tag], config)
+    dev = dataset.device
     return RandomEffectDataset(
         config=config,
-        entity_index=entity_index,
-        buckets=buckets,
-        sample_entity_rows=torch.as_tensor(codes.astype(np.int64)).to(dev),
-        num_active_samples=num_active,
-        num_passive_samples=n - num_active,
+        entity_index=layout.entity_index,
+        buckets=[EntityBlocks(g, m, e, dev) for g, m, e in layout.blocks],
+        sample_entity_rows=torch.as_tensor(layout.codes).to(dev),
+        num_active_samples=layout.num_active,
+        num_passive_samples=dataset.num_samples - layout.num_active,
     )
 
 

@@ -3,15 +3,21 @@
 Port of the global metrics of `photon_ml_tpu/evaluation/metrics.py`: AUC as
 a tie-corrected rank statistic from one sort (equal to the weighted
 trapezoid AUC), and the mean pointwise losses. A weight of 0 masks a row.
+On ranks, `area_under_roc_curve_over_ranks` takes every rank's rows: AUC is
+not a sum, so scores, labels and weights are first assembled exactly
+(`RowSharding.gather`, parallel/mesh.py) and the AUC taken over all rows.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
 from photon_ml_tpu_torch.ops import losses
+
+if TYPE_CHECKING:
+    from photon_ml_tpu_torch.parallel.mesh import RowSharding
 
 Tensor = torch.Tensor
 
@@ -44,6 +50,18 @@ def area_under_roc_curve(
     num = torch.sum(p * (below + 0.5 * tied))
     denom = torch.sum(pos) * torch.sum(neg)
     return torch.where(denom > 0.0, num / denom, torch.full_like(num, 0.5))
+
+
+def area_under_roc_curve_over_ranks(
+    sharding: "RowSharding", scores: Tensor, labels: Tensor, weights: Optional[Tensor] = None
+) -> Tensor:
+    """The AUC over every rank's rows, from this rank's (one collective;
+    every rank calls it and gets the same value)."""
+    cols = [scores, labels.to(scores.dtype)]
+    if weights is not None:
+        cols.append(weights.to(scores.dtype))
+    g = sharding.gather(torch.stack(cols, dim=1))
+    return area_under_roc_curve(g[:, 0], g[:, 1], None if weights is None else g[:, 2])
 
 
 def _mean_pointwise(loss_fn, scores, labels, weights):

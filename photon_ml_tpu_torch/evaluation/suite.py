@@ -5,16 +5,23 @@ descent uses: plain (ungrouped) evaluators, an `EvaluationSuite` that
 computes every metric for a score vector with one device-to-host copy, and
 `EvaluationResults` with the primary evaluator's better-than. Grouped
 evaluators (AUC:<tag>, PRECISION@k:<tag>) are not ported yet.
+
+A suite over a dataset sharded over ranks takes its `sharding`: it then
+holds the labels and weights of all rows, assembled once, and evaluates the
+scores of all rows, assembled from every rank's own by one collective.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence
 
 import torch
 
 from photon_ml_tpu_torch.evaluation import metrics
+
+if TYPE_CHECKING:
+    from photon_ml_tpu_torch.parallel.mesh import RowSharding
 
 Tensor = torch.Tensor
 
@@ -67,7 +74,8 @@ class EvaluationResults:
 
 class EvaluationSuite:
     """Validation labels and weights plus evaluators; `evaluate(scores)`
-    computes every metric."""
+    computes every metric. With a `sharding`, labels, weights and scores
+    are this rank's rows and the metrics are over all ranks' rows."""
 
     def __init__(
         self,
@@ -76,15 +84,22 @@ class EvaluationSuite:
         weights: Optional[Tensor] = None,
         *,
         primary: Optional[EvaluatorType] = None,
+        sharding: Optional["RowSharding"] = None,
     ):
         if not evaluator_types:
             raise ValueError("EvaluationSuite requires at least one evaluator")
         self.evaluator_types = list(evaluator_types)
         self.primary = primary or self.evaluator_types[0]
+        self.sharding = sharding
+        weights = weights if weights is not None else torch.ones_like(labels)
+        if sharding is not None:
+            labels, weights = sharding.gather(torch.stack([labels, weights.to(labels.dtype)], 1)).T
         self.labels = labels
-        self.weights = weights if weights is not None else torch.ones_like(labels)
+        self.weights = weights
 
     def evaluate(self, scores: Tensor) -> EvaluationResults:
+        if self.sharding is not None:
+            scores = self.sharding.gather(scores)
         vals = torch.stack([
             _METRIC_FNS[et.name](scores, self.labels, self.weights).to(torch.float32)
             for et in self.evaluator_types

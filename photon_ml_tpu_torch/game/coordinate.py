@@ -17,9 +17,19 @@ Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
     the previous coefficient matrix rows, on the plain batched objective
     (the JAX package runs these vmapped solves on XLA, not on its kernels).
 
-Not ported yet: the scan-dispatched sweep, the entity-sharded mesh, the
-planner's fusion chunks, fault/retry sites, down-sampling, FULL variances
-and random-effect variances.
+On a dataset sharded over ranks (parallel/mesh.py), both coordinates work
+on this rank's rows. The fixed effect's coefficients are replicated: its
+objective sums cross the ranks (ops/objective.py), and every rank takes the
+same optimizer steps. The random effect solves the lanes of its own
+entities; the solve has no collective inside. Its model is this rank's
+store, (entities owned + 1, D), the owned entities' rows and the pinned
+zero row (the counterpart of the row-sharded store of the JAX package's
+coordinate.py:752-790); `gather_model` assembles the global (E + 1, D)
+matrix.
+
+Not ported yet: the scan-dispatched sweep, the planner's fusion chunks,
+fault/retry sites, down-sampling, FULL variances and random-effect
+variances.
 """
 
 from __future__ import annotations
@@ -104,7 +114,7 @@ class FixedEffectCoordinate:
             if initial_model is not None
             else torch.zeros(self._features.shape[-1], dtype=ds.labels.dtype, device=ds.device)
         )
-        data = LabeledData(self._features, ds.labels, offsets, ds.weights)
+        data = LabeledData(self._features, ds.labels, offsets, ds.weights, ds.mesh)
         res = problem.solve(self.loss, data, cfg, w0, self.norm)
         variances = problem.compute_variances(self.loss, data, cfg, res.coefficients, self.norm)
         return FixedEffectModel(Coefficients(res.coefficients, variances), self.task), res
@@ -112,6 +122,10 @@ class FixedEffectCoordinate:
     def score(self, model: FixedEffectModel) -> Tensor:
         """Raw per-sample margins x.w (no offsets)."""
         return fixed_effect_margins(self._features, model.coefficients.means, self.norm)
+
+    def gather_model(self, model: FixedEffectModel) -> FixedEffectModel:
+        """The model of all ranks: the replicated coefficients themselves."""
+        return model
 
 
 class RandomEffectCoordinate:
@@ -137,14 +151,18 @@ class RandomEffectCoordinate:
         initial_model: Optional[RandomEffectModel] = None,
     ) -> Tuple[RandomEffectModel, dict]:
         """Train every entity bucket; per-entity warm start from the
-        previous matrix's rows."""
+        previous matrix's rows (on a rank, a model of this rank's store, as
+        `train` returns it)."""
         ds, red = self.dataset, self.re_dataset
         cfg = _check_config(self.config)
         if cfg.variance_computation != VarianceComputationType.NONE:
             raise NotImplementedError("random-effect variances are not ported yet")
-        e_total = red.num_entities
+        e_total = red.num_store_rows
         if initial_model is not None:
             matrix = initial_model.coefficients_matrix.to(ds.device).clone()
+            if matrix.shape[0] != e_total + 1:
+                raise ValueError(f"the initial matrix has {matrix.shape[0]} rows; this "
+                                 f"coordinate's store has {e_total} entities and the pinned row")
         else:
             matrix = torch.zeros((e_total + 1, self.dim), dtype=ds.labels.dtype, device=ds.device)
         bucket_iters = []
@@ -165,6 +183,17 @@ class RandomEffectCoordinate:
             "total_iterations": int(sum(int(its.sum()) for its in bucket_iters)),
         }
         return RandomEffectModel(matrix, None, self.task), stats
+
+    def gather_model(self, model: RandomEffectModel) -> RandomEffectModel:
+        """The model of all ranks: every rank's store rows placed at its
+        entities' rows of one (E + 1, D) matrix (each row has one owner, so
+        the assembly is exact). Without a mesh, the model itself."""
+        mesh, red = self.dataset.mesh, self.re_dataset
+        if mesh is None:
+            return model
+        placed = mesh.owned_to_global(model.coefficients_matrix[:-1], red.owned_entities,
+                                      red.num_entities + 1)
+        return RandomEffectModel(placed, None, model.task)
 
     def score(self, model: RandomEffectModel) -> Tensor:
         red = self.re_dataset

@@ -9,7 +9,9 @@ coordinate c is (summed scores - c's previous scores), three elementwise ops:
     scores;
   * divergence guard: an update whose model or scores hold a non-finite
     value is rejected and the coordinate keeps its last good model (the
-    port has no fault injection, so a rejected solve is not retried);
+    port has no fault injection, so a rejected solve is not retried). On
+    ranks (parallel/mesh.py) the verdict is a cross-rank AND, so one rank's
+    NaN rejects the update on every rank and the ranks cannot diverge;
   * optional validation after each update, with best-model selection on
     full passes by the primary evaluator.
 
@@ -44,7 +46,7 @@ class CoordinateDescentResult:
     train_stats: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
-def _all_finite(model, scores: torch.Tensor) -> bool:
+def _all_finite(model, scores: torch.Tensor, mesh) -> bool:
     arrays = [scores]
     coeffs = getattr(model, "coefficients", None)
     if coeffs is not None:
@@ -55,7 +57,14 @@ def _all_finite(model, scores: torch.Tensor) -> bool:
     ok = torch.ones((), dtype=torch.bool, device=scores.device)
     for a in arrays:
         ok = ok & torch.isfinite(a).all()
-    return bool(ok)
+    return bool(ok) if mesh is None else mesh.all_true(bool(ok))
+
+
+def gather_game_model(coordinates: Mapping[str, object], model: GameModel) -> GameModel:
+    """The GameModel of all ranks from each rank's own (`gather_model` of
+    every coordinate, in order; a collective on ranks, so every rank calls
+    it). Without a mesh, the model itself."""
+    return GameModel({cid: coordinates[cid].gather_model(m) for cid, m in model.models.items()})
 
 
 def run_coordinate_descent(
@@ -81,6 +90,9 @@ def run_coordinate_descent(
             raise ValueError(f"Locked coordinate {c!r} needs an initial model")
 
     first = next(iter(coordinates.values()))
+    mesh = first.dataset.mesh
+    if any(c.dataset.sharding is not first.dataset.sharding for c in coordinates.values()):
+        raise ValueError("every coordinate must train on the same rows (one dataset's sharding)")
     base_offsets = first.dataset.offsets
     n = first.dataset.num_samples
     zeros = lambda: torch.zeros(n, dtype=base_offsets.dtype, device=base_offsets.device)
@@ -118,7 +130,7 @@ def run_coordinate_descent(
             offsets = base_offsets + residual
             model, stats = coord.train(offsets, models.get(cid))
             new_scores = coord.score(model)
-            accepted = _all_finite(model, new_scores)
+            accepted = _all_finite(model, new_scores, mesh)
             if accepted:
                 summed = residual + new_scores
                 scores[cid] = new_scores

@@ -5,6 +5,10 @@ effect is one coefficient vector; a random effect is one dense
 (num_entities + 1, D) coefficient matrix whose last row is pinned to zero
 and scores entities unseen at training time; a GameModel maps coordinate ids
 to models. Scoring sums per-coordinate margins over one shared sample axis.
+On a rank (parallel/mesh.py) that axis is the rank's own rows, and a random
+effect's model is the rank's store, its own entities' rows and the pinned
+row: the counterpart of the JAX package's `random_effect_margins_sharded`
+(:99) needs no collective, because no rank scores another rank's entities.
 """
 
 from __future__ import annotations
@@ -34,10 +38,11 @@ class FixedEffectModel:
 
 @dataclasses.dataclass(frozen=True)
 class RandomEffectModel:
-    """Row e holds entity e's coefficients; row `num_entities` is the pinned
-    zero row."""
+    """Row e holds entity e's coefficients; the last row is the pinned zero
+    row. On a rank, the rows are those of its store (RandomEffectDataset.
+    owned_entities)."""
 
-    coefficients_matrix: Tensor  # (E + 1, D)
+    coefficients_matrix: Tensor  # (E + 1, D); on a rank (entities owned + 1, D)
     variances_matrix: Optional[Tensor]
     task: TaskType
 

@@ -22,17 +22,27 @@ beside each kernel (`value_gradient_sums_plain`, `hessian_vector_sums_plain`),
 which the CPU tests hold against the JAX package and which `chip_smoke.py`
 holds the kernels against on the card. There is no fallback from a failed
 build or launch. `LAUNCHES` counts kernel launches per wrapper.
+
+The sharded wrappers port `pallas_glm.py:705 sharded_value_gradient_sums`
+and `:746 sharded_hessian_vector_sums`, the TPU form of the reference's
+treeAggregate: there, the per-device kernel under `shard_map` and a `psum`
+of the raw sums; here, the same kernel on this rank's rows and one exact
+cross-rank sum (`over_ranks`, parallel/mesh.py) in its place. They
+return the single-device contract's raw sums over all ranks' rows, in
+float32; with one rank, the same bits as the single-device kernel (the
+float32 -> float64 -> float32 round trip is exact).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from photon_ml_tpu_torch.ops import cuda_build
 from photon_ml_tpu_torch.ops.losses import LOSS_IDS, PointwiseLoss
+from photon_ml_tpu_torch.parallel.mesh import RankMesh, over_ranks
 
 Tensor = torch.Tensor
 Scalar = Union[Tensor, float]
@@ -40,8 +50,9 @@ Scalar = Union[Tensor, float]
 SOURCE = cuda_build.CSRC_DIR / "glm_fused.cu"
 
 # Kernel launches per wrapper, counted where the kernel is launched and
-# nowhere else (the CPU path does not count).
-LAUNCHES: Dict[str, int] = {"value_grad": 0, "hvp": 0}
+# nowhere else (the CPU path does not count). A sharded wrapper counts one
+# launch of the kernel and its cross-rank sum.
+LAUNCHES: Dict[str, int] = {"value_grad": 0, "hvp": 0, "sharded_value_grad": 0, "sharded_hvp": 0}
 
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -219,3 +230,36 @@ def hessian_vector_sums(
     _check_rc(lib, rc, "glm_hvp launch")
     LAUNCHES["hvp"] += 1
     return out[:d], out[d]
+
+
+# ------------------------------------------------------------- across ranks
+
+
+def sharded_value_gradient_sums(
+    loss: PointwiseLoss, w_eff: Tensor, shift: Scalar, features: Tensor,
+    labels: Tensor, offsets: Tensor, weights: Tensor, *, mesh: Optional[RankMesh],
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(value, grad_raw, sum_u) over every rank's rows: this rank's sums
+    (the CUDA kernel on CUDA tensors, the plain version on CPU ones), then
+    one exact cross-rank sum (`parallel.mesh.over_ranks`). Without a mesh,
+    `value_gradient_sums` itself."""
+    sums = value_gradient_sums(loss, w_eff, shift, features, labels, offsets, weights)
+    if mesh is None:
+        return sums
+    if features.is_cuda:
+        LAUNCHES["sharded_value_grad"] += 1
+    return over_ranks(mesh, *sums)
+
+
+def sharded_hessian_vector_sums(
+    loss: PointwiseLoss, w_eff: Tensor, shift: Scalar, v_eff: Tensor, v_shift: Scalar,
+    features: Tensor, labels: Tensor, offsets: Tensor, weights: Tensor, *,
+    mesh: Optional[RankMesh],
+) -> Tuple[Tensor, Tensor]:
+    """(hv_raw, sum_r) over every rank's rows, as `sharded_value_gradient_sums`."""
+    sums = hessian_vector_sums(loss, w_eff, shift, v_eff, v_shift, features, labels, offsets, weights)
+    if mesh is None:
+        return sums
+    if features.is_cuda:
+        LAUNCHES["sharded_hvp"] += 1
+    return over_ranks(mesh, *sums)

@@ -22,6 +22,15 @@ outside the kernel, exactly as in the JAX package.
 or a 2-D float32/bf16 CUDA tensor, else the composed path; False = the
 composed path (X w and X^T u one by one, which on a CUDA sparse layout are
 its matvec and rmatvec kernels).
+
+Data whose rows are one rank's share carries a `mesh` (LabeledData.mesh).
+Then every sum over rows crosses the ranks: the raw sums of this rank's
+rows, whatever produced them, go through one exact cross-rank sum
+(`over_ranks`, parallel/mesh.py) before normalization and L2, which is
+where the JAX package's sharded kernels psum them (pallas_glm.py:705-779).
+The dense kernel path calls the sharded wrappers of ops/glm_kernels.py,
+which are the single-device kernels when there is no mesh and make the
+same call to `over_ranks` when there is. Margins stay local.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from photon_ml_tpu_torch.data.sparse_layout import SparseLayout
 from photon_ml_tpu_torch.ops import glm_kernels, sparse_kernels
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.parallel.mesh import over_ranks
 
 Tensor = torch.Tensor
 L2 = Union[float, Tensor]
@@ -120,7 +130,8 @@ def value(
     l2: L2 = 0.0,
 ) -> Tensor:
     z = compute_margins(w, data, norm)
-    return torch.sum(data.weights * loss.loss(z, data.labels), dim=-1) + _l2_value(w, l2)
+    (val,) = over_ranks(data.mesh, torch.sum(data.weights * loss.loss(z, data.labels), dim=-1))
+    return val + _l2_value(w, l2)
 
 
 def value_and_gradient(
@@ -134,20 +145,20 @@ def value_and_gradient(
     """One pass: margins computed once, shared by value and gradient. On the
     dense kernel path X is read once for both."""
     w_eff, shift = _eff(w, norm)
-    if isinstance(data.features, SparseLayout) and use_kernel is not False:
-        val, g, sum_u = sparse_kernels.fused_value_gradient_sums(
-            loss, w_eff, shift, data.features, data.labels, data.offsets, data.weights
-        )
-    elif _use_kernel(use_kernel, data.features, w):
-        val, g, sum_u = glm_kernels.value_gradient_sums(
-            loss, w_eff, shift, data.features, data.labels, data.offsets, data.weights
-        )
+    args = (data.features, data.labels, data.offsets, data.weights)
+    if _use_kernel(use_kernel, data.features, w):
+        val, g, sum_u = glm_kernels.sharded_value_gradient_sums(
+            loss, w_eff, shift, *args, mesh=data.mesh)
     else:
-        z = _matvec(data.features, w_eff) + shift[..., None] + data.offsets
-        val = torch.sum(data.weights * loss.loss(z, data.labels), dim=-1)
-        u = data.weights * loss.d1(z, data.labels)
-        g = _rmatvec(data.features, u)
-        sum_u = torch.sum(u, dim=-1)
+        if isinstance(data.features, SparseLayout) and use_kernel is not False:
+            val, g, sum_u = sparse_kernels.fused_value_gradient_sums(loss, w_eff, shift, *args)
+        else:
+            z = _matvec(data.features, w_eff) + shift[..., None] + data.offsets
+            val = torch.sum(data.weights * loss.loss(z, data.labels), dim=-1)
+            u = data.weights * loss.d1(z, data.labels)
+            g = _rmatvec(data.features, u)
+            sum_u = torch.sum(u, dim=-1)
+        val, g, sum_u = over_ranks(data.mesh, val, g, sum_u)
     if norm is not None and not norm.is_identity:
         if norm.shifts is not None:
             g = g - sum_u[..., None] * norm.shifts
@@ -171,17 +182,15 @@ def hessian_vector(
     does."""
     w_eff, shift = _eff(w, norm)
     v_eff, v_shift = _eff(v, norm)
+    args = (data.features, data.labels, data.offsets, data.weights)
     if _use_kernel(use_kernel, data.features, w):
-        hv, sum_r = glm_kernels.hessian_vector_sums(
-            loss, w_eff, shift, v_eff, v_shift, data.features, data.labels,
-            data.offsets, data.weights,
-        )
+        hv, sum_r = glm_kernels.sharded_hessian_vector_sums(
+            loss, w_eff, shift, v_eff, v_shift, *args, mesh=data.mesh)
     else:
         z = _matvec(data.features, w_eff) + shift[..., None] + data.offsets
         q = _matvec(data.features, v_eff) + v_shift[..., None]
         r = data.weights * loss.d2(z, data.labels) * q
-        hv = _rmatvec(data.features, r)
-        sum_r = torch.sum(r, dim=-1)
+        hv, sum_r = over_ranks(data.mesh, _rmatvec(data.features, r), torch.sum(r, dim=-1))
     if norm is not None and not norm.is_identity:
         if norm.shifts is not None:
             hv = hv - sum_r[..., None] * norm.shifts
@@ -205,8 +214,11 @@ def hessian_diagonal(
     diag = _sq_rmatvec(data.features, c)
     if norm is not None and norm.shifts is not None:
         s = norm.shifts
-        lin = _rmatvec(data.features, c)
-        diag = diag - 2.0 * s * lin + s * s * torch.sum(c, dim=-1)[..., None]
+        diag, lin, sum_c = over_ranks(
+            data.mesh, diag, _rmatvec(data.features, c), torch.sum(c, dim=-1))
+        diag = diag - 2.0 * s * lin + s * s * sum_c[..., None]
+    else:
+        (diag,) = over_ranks(data.mesh, diag)
     if norm is not None and norm.factors is not None:
         diag = diag * norm.factors * norm.factors
     return diag + l2

@@ -1,0 +1,324 @@
+"""Ranks of torch.distributed: the mesh, its exact collectives, and who owns which rows.
+
+Port of `photon_ml_tpu/parallel/mesh.py`: `make_mesh` (:61), the sample
+sharding of `shard_game_dataset` (:143) and the entity-lane sharding of
+`shard_random_effect_dataset` (:547). A rank is one process with one
+explicit device. The JAX package carries its mesh on the arrays' sharding
+and lets XLA place the collectives; the port carries a `RankMesh` on the
+data and calls two collectives of its own, through which every cross-rank
+reduction of the port goes:
+
+  * `exact_sum`: each rank writes its float64 partial sums into its own
+    row of a zeroed (W, k) buffer; one all_reduce(SUM) follows, and every
+    rank then adds the rows in rank order. Each element of the all-reduce
+    has one non-zero contributor (x + 0 + ... = x), so every rank holds the
+    same bits whatever the backend's reduction tree, and the replicated
+    optimizer iterates, whose line-search and stop decisions are taken on
+    the host from these sums, never drift apart. It moves W x k x 8 bytes
+    for k sums (16 KiB for a 512-wide gradient on 4 ranks).
+  * `owned_to_global`: each rank places the values it owns at their global
+    positions in a zero buffer, and one all_reduce(SUM) follows; every
+    position has one owner, so the sum is exact. Scores, labels and
+    weights reach the AUC this way, and random-effect coefficient rows the
+    assembled model.
+
+Both need only all_reduce, which gloo and NCCL take on CUDA tensors (gloo
+moves them through host memory itself). The caller names the backend: gloo
+where ranks share a card or run on the CPU, NCCL where each rank has a card
+of its own. Nothing here picks one.
+
+Row ownership follows the random effect (`shard_game_dataset`): its layout
+is built on every rank from the global id tag, each padded bucket's lanes
+are split into W contiguous parts (mesh.py:580-590, so every rank gets as
+many lanes of each capacity), and a rank owns the entities of its lanes and
+every row of those entities, active and passive, in global row order. Its
+random-effect coefficient store holds those entities' rows alone (the
+counterpart of the JAX package's row-sharded store, game/coordinate.py:
+752-790). The fixed effect trains on the same local rows, and the residual
+offsets stay local: no rows move between ranks after setup, so the JAX package's ring
+gather and scatter (mesh.py:358-477) have no counterpart here. Shards may be
+uneven; the weight-0 padding of `pad_game_dataset` (:90) is not needed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from photon_ml_tpu_torch.data.containers import SparseFeatures
+from photon_ml_tpu_torch.data.game_dataset import (
+    EntityBlocks,
+    EntityLayout,
+    GameDataset,
+    RandomEffectDataConfig,
+    RandomEffectDataset,
+    entity_layout,
+)
+from photon_ml_tpu_torch.device import DeviceLike, resolve_device
+
+Tensor = torch.Tensor
+
+BACKENDS = ("gloo", "nccl")
+
+
+class RankMesh:
+    """This process's place among the ranks: rank, world size, backend and
+    device. `counts` tallies the collectives this rank has run, `seconds`
+    the host time spent in their all_reduce calls, which includes waiting
+    for the device work queued before them."""
+
+    def __init__(self, rank: int, world_size: int, backend: str, device: torch.device):
+        self.rank = rank
+        self.world_size = world_size
+        self.backend = backend
+        self.device = device
+        self.counts: Dict[str, int] = {"exact_sum": 0, "owned_to_global": 0}
+        self.seconds: Dict[str, float] = {"exact_sum": 0.0, "owned_to_global": 0.0}
+
+    def __repr__(self) -> str:
+        return (f"RankMesh(rank={self.rank}, world_size={self.world_size}, "
+                f"backend={self.backend!r}, device={str(self.device)!r})")
+
+    def reset_counts(self) -> None:
+        for k in self.counts:
+            self.counts[k] = 0
+            self.seconds[k] = 0.0
+
+    def _all_reduce(self, buf: Tensor, what: str) -> None:
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        self.seconds[what] += time.perf_counter() - t0
+        self.counts[what] += 1
+
+    def exact_sum(self, parts: Sequence[Tensor]) -> List[Tensor]:
+        """The float64 sum over ranks of each part (any shapes, any float
+        dtype), the same bits on every rank; see the module docstring."""
+        flat = [p.reshape(-1).to(device=self.device, dtype=torch.float64) for p in parts]
+        sizes = [f.numel() for f in flat]
+        buf = torch.zeros((self.world_size, sum(sizes)), dtype=torch.float64, device=self.device)
+        buf[self.rank] = torch.cat(flat)
+        self._all_reduce(buf, "exact_sum")
+        total = buf[0].clone()
+        for r in range(1, self.world_size):
+            total += buf[r]
+        return [t.reshape(p.shape) for t, p in zip(total.split(sizes), parts)]
+
+    def owned_to_global(self, values: Tensor, global_rows: Tensor, n: int) -> Tensor:
+        """(n, ...) with this rank's `values` (m, ...) at `global_rows` (m,)
+        and every other rank's at theirs; each position must have exactly
+        one owner over all ranks (positions without one come out zero)."""
+        buf = torch.zeros((n,) + tuple(values.shape[1:]), dtype=values.dtype, device=self.device)
+        buf[global_rows.to(self.device)] = values.to(self.device)
+        self._all_reduce(buf, "owned_to_global")
+        return buf
+
+    def all_true(self, flag: bool) -> bool:
+        """Whether `flag` holds on every rank (an exact sum of 0/1 votes)."""
+        (votes,) = self.exact_sum([torch.tensor(float(flag), device=self.device)])
+        return int(votes) == self.world_size
+
+    def close(self) -> None:
+        dist.destroy_process_group()
+
+
+def over_ranks(mesh: Optional[RankMesh], *sums: Tensor) -> Tuple[Tensor, ...]:
+    """Raw sums over every rank's rows, through one `exact_sum`, cast back
+    to the dtype each came in (float32 sums round-trip exactly); unchanged
+    without a mesh. Every cross-rank sum of the objective goes through
+    here, whatever produced the per-rank sums."""
+    if mesh is None:
+        return sums
+    return tuple(t.to(s.dtype) for t, s in zip(mesh.exact_sum(sums), sums))
+
+
+def init_rank_mesh(
+    *,
+    backend: str,
+    rank: int,
+    world_size: int,
+    device: DeviceLike,
+    store: Optional[dist.Store] = None,
+    init_method: Optional[str] = None,
+    timeout_s: float = 600.0,
+) -> RankMesh:
+    """Join the process group and return this rank's mesh.
+
+    The caller names the backend (gloo or NCCL) and this rank's device, and
+    gives either a `store` or an `init_method`; `timeout_s` bounds every
+    collective, so a rank stuck in one fails instead of hanging."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    if (store is None) == (init_method is None):
+        raise ValueError("give exactly one of store and init_method")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            raise ValueError(f"name the card of this rank (cuda:<index>), got {str(dev)!r}")
+        torch.cuda.set_device(dev)
+    elif backend == "nccl":
+        raise ValueError("the NCCL backend needs a CUDA device on every rank")
+    dist.init_process_group(
+        backend, init_method=init_method, store=store, rank=rank, world_size=world_size,
+        timeout=datetime.timedelta(seconds=timeout_s),
+    )
+    return RankMesh(rank, world_size, backend, dev)
+
+
+def rank_mesh_from_env(*, backend: str, device: DeviceLike, timeout_s: float = 600.0) -> RankMesh:
+    """The mesh of a rank started by `torchrun`, from the RANK, WORLD_SIZE,
+    MASTER_ADDR and MASTER_PORT it sets; the device is the caller's choice
+    (typically f"cuda:{os.environ['LOCAL_RANK']}")."""
+    return init_rank_mesh(
+        backend=backend, rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]),
+        device=device, init_method="env://", timeout_s=timeout_s,
+    )
+
+
+# ------------------------------------------------------------ row ownership
+
+
+def _layout_key(config: RandomEffectDataConfig) -> RandomEffectDataConfig:
+    """What decides a layout: everything but the feature shard."""
+    return dataclasses.replace(config, feature_shard="")
+
+
+def entity_owners(layout: EntityLayout, world_size: int) -> np.ndarray:
+    """Owning rank of every entity code: a bucket chunk's lanes, padded to a
+    multiple of W, split into W contiguous parts; entities in no bucket by
+    contiguous ranges of entity code."""
+    num_e = layout.num_entities
+    owner = np.full(num_e, -1, np.int64)
+    for _, _, ent_rows in layout.blocks:
+        part = -(-len(ent_rows) // world_size)
+        lanes = np.nonzero(ent_rows < num_e)[0]
+        owner[ent_rows[lanes]] = lanes // part
+    rest = np.nonzero(owner < 0)[0]
+    owner[rest] = np.arange(len(rest), dtype=np.int64) * world_size // max(len(rest), 1)
+    return owner
+
+
+@dataclasses.dataclass
+class RowSharding:
+    """Which of the global rows a rank holds, and the random-effect layout
+    (built from the global id tag) that decided it."""
+
+    mesh: RankMesh
+    global_rows: Tensor  # (n_local,) int64 on the mesh's device, increasing
+    num_global: int
+    owner_config: Optional[RandomEffectDataConfig] = None
+    layout: Optional[EntityLayout] = None
+    entity_owner: Optional[np.ndarray] = None
+
+    def gather(self, values: Tensor) -> Tensor:
+        """The global (N, ...) tensor of per-row values every rank holds for
+        its own rows."""
+        return self.mesh.owned_to_global(values, self.global_rows, self.num_global)
+
+    def random_effect_dataset(self, dataset: GameDataset,
+                              config: RandomEffectDataConfig) -> RandomEffectDataset:
+        """This rank's part of the layout: its lanes of every bucket chunk
+        (a chunk where they hold no entity is skipped), gathers remapped to
+        local rows, and coefficient rows remapped to this rank's store: row
+        i is entity `owned_entities[i]`, row len(owned_entities) the pinned
+        zero row. The entity index stays global."""
+        if self.layout is None or _layout_key(config) != _layout_key(self.owner_config):
+            raise NotImplementedError(
+                "a random effect other than the one the rows were sharded by needs an "
+                "exchange of residual offsets between ranks; not ported yet")
+        mesh, layout = self.mesh, self.layout
+        num_e, world = layout.num_entities, mesh.world_size
+        rows = self.global_rows.cpu().numpy()
+        local_pos = np.full(self.num_global, -1, np.int64)
+        local_pos[rows] = np.arange(len(rows), dtype=np.int64)
+        owned = np.nonzero(self.entity_owner == mesh.rank)[0]
+        store_row = np.full(num_e + 1, -1, np.int64)
+        store_row[owned] = np.arange(len(owned), dtype=np.int64)
+        store_row[num_e] = len(owned)
+        sample_rows = store_row[layout.codes[rows]]
+        if (sample_rows < 0).any():
+            raise RuntimeError("a row of another rank's entity is on this rank")
+        buckets = []
+        for gather, mask, ent_rows in layout.blocks:
+            pad = (-len(ent_rows)) % world
+            if pad:
+                gather = np.concatenate([gather, np.zeros((pad, gather.shape[1]), np.int64)])
+                mask = np.concatenate([mask, np.zeros((pad, mask.shape[1]), np.float32)])
+                ent_rows = np.concatenate([ent_rows, np.full(pad, num_e, np.int64)])
+            part = len(ent_rows) // world
+            sl = slice(mesh.rank * part, (mesh.rank + 1) * part)
+            g, m, e = gather[sl], mask[sl], ent_rows[sl]
+            if not (e < num_e).any():
+                continue
+            lg = np.where(m > 0, local_pos[g], 0)
+            if (lg < 0).any() or (store_row[e] < 0).any():
+                raise RuntimeError("an entity's lane or active row is not on its owning rank")
+            buckets.append(EntityBlocks(lg, m, store_row[e], dataset.device))
+        num_active = int(sum(float(b.mask.sum()) for b in buckets))
+        return RandomEffectDataset(
+            config=config,
+            entity_index=layout.entity_index,
+            buckets=buckets,
+            sample_entity_rows=torch.as_tensor(sample_rows).to(dataset.device),
+            num_active_samples=num_active,
+            num_passive_samples=dataset.num_samples - num_active,
+            owned_entities=torch.as_tensor(owned).to(dataset.device),
+        )
+
+
+def _take_rows(x, rows: np.ndarray):
+    """Rows of a host array, CPU tensor or ELL SparseFeatures."""
+    if isinstance(x, SparseFeatures):
+        idx = torch.from_numpy(rows)
+        return SparseFeatures(torch.as_tensor(x.indices)[idx], torch.as_tensor(x.values)[idx], x.dim)
+    if isinstance(x, Tensor):
+        return x[torch.from_numpy(rows)]
+    return np.asarray(x)[rows]
+
+
+def shard_game_dataset(
+    mesh: RankMesh,
+    shards: Mapping[str, object],
+    labels,
+    *,
+    offsets=None,
+    weights=None,
+    id_tags: Optional[Mapping[str, Sequence]] = None,
+    owner: Optional[RandomEffectDataConfig] = None,
+) -> GameDataset:
+    """This rank's GameDataset, on its device, from the host arrays of ALL
+    rows (numpy, CPU tensors or `SparseFeatures`), which every rank passes
+    alike.
+
+    With `owner`, a rank holds the rows of the entities it owns in that
+    random effect (see the module docstring), and `build_random_effect_
+    dataset` with that config gives its part of the layout. Without one,
+    the rows are split into W contiguous ranges (a fixed effect alone)."""
+    n = len(labels)
+    tags = {k: np.asarray(v) for k, v in (id_tags or {}).items()}
+    layout = entity_owner = None
+    if owner is not None:
+        if owner.random_effect_type not in tags:
+            raise ValueError(f"id tag {owner.random_effect_type!r} not present")
+        layout = entity_layout(tags[owner.random_effect_type], owner)
+        entity_owner = entity_owners(layout, mesh.world_size)
+        rows = np.nonzero(entity_owner[layout.codes] == mesh.rank)[0]
+    else:
+        rows = np.array_split(np.arange(n, dtype=np.int64), mesh.world_size)[mesh.rank]
+    ds = GameDataset.build(
+        {k: _take_rows(v, rows) for k, v in shards.items()},
+        _take_rows(labels, rows),
+        offsets=None if offsets is None else _take_rows(offsets, rows),
+        weights=None if weights is None else _take_rows(weights, rows),
+        id_tags={k: v[rows] for k, v in tags.items()},
+        device=mesh.device,
+    )
+    ds.sharding = RowSharding(mesh, torch.as_tensor(rows).to(mesh.device), n, owner, layout,
+                              entity_owner)
+    return ds

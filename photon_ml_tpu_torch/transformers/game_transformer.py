@@ -7,7 +7,10 @@ sparse fixed effects score through the sparse layout's matvec (its CUDA
 kernel on the card; a row's sum is over its own entries only, so it is
 batch-invariant too); random effects map each sample's entity key through
 the training-time entity index (unseen entities -> the pinned zero row) and
-gather coefficient rows. Projectors are not ported yet.
+gather coefficient rows. Projectors are not ported yet. On a dataset
+sharded over ranks, `transform` scores this rank's rows with the (replicated
+or assembled) model; `dataset.sharding.gather` brings the scores of all rows
+together where they are needed.
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ def _port_modules():
 def test_every_port_module_imports_with_jax_blocked():
     modules = _port_modules()
     for name in ("ops.glm_kernels", "game.coordinate_descent", "ops.cuda_build", "ops.sparse_kernels",
-                 "data.sparse_layout"):
+                 "data.sparse_layout", "parallel.mesh", "parallel.launch"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = textwrap.dedent(
         """
