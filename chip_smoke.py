@@ -33,16 +33,22 @@ Phases (any failure exits non-zero; there is no fallback anywhere):
    it, which the limit must stay below).
 
 The sparse fixed effect (bench.py's sparse shape: 1,048,576 rows x 64
-uniform feature ids, dim 16,384, normal values), its CSR/CSC layout built on
-the card and timed, then:
+uniform feature ids, dim 16,384, normal values), its layout (CSR in row
+tiles with each tile's column order and slabs, and CSC) built on the card
+and timed, then:
 
 2s. Each sparse kernel (ops/sparse_kernels.py) against its plain version on
    the main path's layout under PORT_TOLERANCES["sparse_kernel_vs_plain"],
    called twice (bit-identical), timed beside its plain version, one
    cuSPARSE call (torch.sparse_csr_tensor; the port never calls it) and its
-   bound; then two untimed shapes off the main path: a skewed one (~30% of
-   entries on 16 columns, empty rows) and a wide one (dim 200,003, empty
-   columns), where empty rows and columns must give exact zeros.
+   bound; each row names its route (single_stream or two_pass, chosen from
+   dim), and `sparse_fused` and `sparse_matvec` are also checked and timed
+   on the two-pass route (`two_pass_ms`), in turns with the chosen one. The
+   set-up line times the row tiles and the tile permutation apart. Then
+   three untimed shapes off the main path: a skewed one (~30% of entries on
+   16 columns, empty rows), a wide one (dim 200,003: the two-pass route;
+   empty columns) and one with rows longer than a row tile, empty rows and
+   empty columns, where empty rows and columns must give exact zeros.
 3s. GLMix with the sparse fixed effect (L-BFGS, 20 iterations, tol 1e-7,
    L2 1.0; bench.py:2717-2726) and phase 3's random effect: one sweep,
    scoring, training AUC.
@@ -93,6 +99,7 @@ weights start at zero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -350,12 +357,36 @@ def small_glmix_card_vs_cpu(seed: int, shards: dict, fe_shard: str, sy, sent):
     return small_glmix_compare(seed, fits["cuda"], fits["cpu"])
 
 
+def long_row_layout(gen, dev, n: int, dim: int, k: int, empty_cols: int, empty_every: int,
+                    long_rows: dict):
+    """An off-path shape for the single-stream route: k uniform ids a row
+    from columns at or above `empty_cols`, every `empty_every`-th row empty,
+    and the rows of `long_rows` (row -> length) longer than a row tile, with
+    distinct columns."""
+    import torch
+
+    from photon_ml_tpu_torch.data import sparse_layout
+
+    rows = torch.arange(n, device=dev).repeat_interleave(k)
+    cols = torch.randint(empty_cols, dim, (n * k,), generator=gen, device=dev)
+    vals = torch.randn(n * k, generator=gen, device=dev)
+    vals[(rows % empty_every) == 0] = 0.0
+    parts_r, parts_c, parts_v = [rows], [cols], [vals]
+    for r, length in long_rows.items():
+        perm = torch.randperm(dim - empty_cols, generator=gen, device=dev)[:length] + empty_cols
+        parts_r.append(torch.full((length,), r, device=dev))
+        parts_c.append(perm)
+        parts_v.append(torch.randn(length, generator=gen, device=dev))
+    return sparse_layout.from_coo(torch.cat(parts_r), torch.cat(parts_c), torch.cat(parts_v), n, dim)
+
+
 def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
     """Phase 2s: each sparse kernel against its plain version on `layout` (the
     main path's), twice (bit-identical), timed beside its plain version, a
-    cuSPARSE call (torch.sparse_csr_tensor; the port never calls it) and its
-    bound; then two untimed shapes off the main path. Returns (rows by
-    kernel name for the record line, failures)."""
+    cuSPARSE call (torch.sparse_csr_tensor; the port never calls it), its
+    bound and, for the kernels with two routes, the two-pass route's time;
+    then three untimed shapes off the main path. Returns (rows by kernel
+    name for the record line, failures)."""
     import torch
 
     from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
@@ -380,25 +411,29 @@ def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
         )
 
     def variants(L, v):
-        """(name, loss, kernel call, plain call, bytes, operations) per check."""
+        """(name, loss, route, kernel call, two-pass call or None, plain call,
+        bytes, operations) per check."""
         nnz, (n, d) = L.nnz, L.shape
         entry_bytes = nnz * 8  # a 4-byte index and a 4-byte value per entry, read once
         out = [
-            ("sparse_matvec", None, lambda: (sk.matvec(L, v["w"]),),
+            ("sparse_matvec", None, sk.matvec_route(d), lambda: (sk.matvec(L, v["w"]),),
+             lambda: (sk.matvec_two_pass(L, v["w"]),),
              lambda: (sk.matvec_plain(L, v["w"]),), entry_bytes + 4 * (d + n), 2 * nnz),
-            ("sparse_rmatvec", None, lambda: (sk.rmatvec(L, v["u"]),),
+            ("sparse_rmatvec", None, sk.TWO_PASS, lambda: (sk.rmatvec(L, v["u"]),), None,
              lambda: (sk.rmatvec_plain(L, v["u"]),), entry_bytes + 4 * (n + d), 2 * nnz),
-            ("sparse_rmatvec_square", None, lambda: (sk.rmatvec(L, v["u"], square=True),),
-             lambda: (sk.rmatvec_plain(L, v["u"], True),), entry_bytes + 4 * (n + d), 3 * nnz),
+            ("sparse_rmatvec_square", None, sk.TWO_PASS, lambda: (sk.rmatvec(L, v["u"], square=True),),
+             None, lambda: (sk.rmatvec_plain(L, v["u"], True),), entry_bytes + 4 * (n + d), 3 * nnz),
         ]
         for loss in (LOGISTIC, SQUARED, POISSON, SMOOTHED_HINGE):
             args = (loss, v["w"], v["shift"], L, v["y"], v["off"], v["wt"])
-            out.append(("sparse_fused", loss, lambda a=args: sk.fused_value_gradient_sums(*a),
+            out.append(("sparse_fused", loss, sk.fused_route(d),
+                        lambda a=args: sk.fused_value_gradient_sums(*a),
+                        lambda a=args: sk.fused_value_gradient_sums_two_pass(*a),
                         lambda a=args: sk.fused_value_gradient_sums_plain(*a),
                         entry_bytes + 4 * (3 * n + 2 * d + 2), 4 * nnz))
         return out
 
-    def check(tag, L, v, got, again, ref):
+    def check(tag, got, again, ref):
         max_abs, rel = compare(got, ref)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         if not rel <= tol:
@@ -419,27 +454,36 @@ def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
                "sparse_rmatvec_square": lambda: torch.mv(XT2, v["u"]),
                "sparse_fused": lambda: (torch.mv(X, v["w"]), torch.mv(XT, v["u"]))}
     rows = {}
-    for name, loss, run_k, run_p, nbytes, ops in variants(layout, v):
+    for name, loss, route, run_k, run_2p, run_p, nbytes, ops in variants(layout, v):
         tag = name if loss is None else f"{name}/{loss.name}"
         got, again, ref = run_k(), run_k(), run_p()
         torch.cuda.synchronize()
-        row = dict(phase="2s", kernel=name, loss=None if loss is None else loss.name, n=n, d=d,
-                   nnz=layout.nnz, **check(tag, layout, v, got, again, ref))
+        row = dict(phase="2s", kernel=name, loss=None if loss is None else loss.name, route=route,
+                   n=n, d=d, nnz=layout.nnz, **check(tag, got, again, ref))
         t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_rate * 1e3
-        row.update(kernel_ms=time_ms(torch, run_k), plain_ms=time_ms(torch, run_p),
-                   library_ms=time_ms(torch, library[name]), bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if run_2p is not None:  # the other route on the same inputs, checked and timed beside
+            row["two_pass"] = check(f"{tag}/two_pass", run_2p(), run_2p(), ref)
+        # Turns (kernel, two-pass, two-pass, kernel), each a median of 20 calls.
+        k_ms, p2_ms = [], []
+        for turn in (run_k, run_2p, run_2p, run_k):
+            if turn is not None:
+                (k_ms if turn is run_k else p2_ms).append(time_ms(torch, turn))
+        row.update(kernel_ms=min(k_ms), kernel_ms_turns=k_ms,
+                   two_pass_ms=min(p2_ms) if p2_ms else None, two_pass_ms_turns=p2_ms or None,
+                   plain_ms=time_ms(torch, run_p), library_ms=time_ms(torch, library[name]),
+                   bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
         log(json.dumps(row))
         if loss in (None, LOGISTIC):  # the main path runs the logistic loss
             rows.setdefault(name, row)
     del X, XT, XT2
 
     # Off the main path, untimed: a skewed shape (about 30% of entries on 16
-    # columns, every 97th row empty) and a wide one (dim 200,003, beyond the
-    # shared-memory staging of w, columns below 1,000 empty; n not a multiple
-    # of the 16 rows a block takes).
-    for tag, n_x, d_x, skew, empty_cols in (("skewed", 262144, D_SPARSE, True, 0),
-                                            ("wide", 100003, 200003, False, 1000)):
+    # columns, every 97th row empty); a wide one (dim 200,003, beyond both
+    # single-stream widths, so the two-pass route; columns below 1,000
+    # empty; n not a multiple of the 16 rows a block takes); and one with
+    # rows longer than a row tile (2,049 to 16,000 entries), every 41st row
+    # empty and columns below 300 empty, n not a multiple of anything.
+    def ell(n_x, d_x, skew, empty_cols):
         idx = torch.randint(empty_cols, d_x, (n_x, K_SPARSE), generator=gen, device=dev,
                             dtype=torch.int32)
         val = torch.randn(n_x, K_SPARSE, generator=gen, device=dev)
@@ -448,16 +492,28 @@ def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
             idx = torch.where(hot, torch.randint(0, 16, (n_x, K_SPARSE), generator=gen, device=dev,
                                                  dtype=torch.int32), idx)
             val[::97] = 0.0
-        L = sparse_layout.from_ell(SparseFeatures(idx, val, d_x))
+        return sparse_layout.from_ell(SparseFeatures(idx, val, d_x))
+
+    shapes = (
+        ("skewed", lambda: ell(262144, D_SPARSE, True, 0), 97, 0),
+        ("wide", lambda: ell(100003, 200003, False, 1000), 0, 1000),
+        ("long_rows", lambda: long_row_layout(gen, dev, 60001, D_SPARSE, 16, 300, 41,
+                                              {5: 2049, 777: 5000, 30000: 12000, 60000: 16000}),
+         41, 300),
+    )
+    for tag, build, empty_every, empty_cols in shapes:
+        L = build()
         vx = vectors(L)
-        for name, loss, run_k, run_p, _, _ in variants(L, vx):
+        for name, loss, route, run_k, _, run_p, _, _ in variants(L, vx):
             vtag = f"{tag}/{name}" + ("" if loss is None else f"/{loss.name}")
             got, again, ref = run_k(), run_k(), run_p()
             torch.cuda.synchronize()
             row = dict(phase="2s", shape=tag, kernel=name, loss=None if loss is None else loss.name,
-                       n=n_x, d=d_x, nnz=L.nnz, **check(vtag, L, vx, got, again, ref))
-            if skew and name == "sparse_matvec":
-                row["empty_rows_exact_zero"] = bool((got[0][::97] == 0).all())
+                       route=route, n=L.n_rows, d=L.dim, nnz=L.nnz, tiles=L.n_tiles,
+                       longest_tile=int((L.tile_ptr[1:] - L.tile_ptr[:-1]).max()),
+                       **check(vtag, got, again, ref))
+            if empty_every and name == "sparse_matvec":
+                row["empty_rows_exact_zero"] = bool((got[0][::empty_every] == 0).all())
                 if not row["empty_rows_exact_zero"]:
                     failures.append(f"{vtag}: an empty row is not an exact zero")
             if empty_cols and name != "sparse_matvec":
@@ -466,7 +522,7 @@ def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
                 if not row["empty_cols_exact_zero"]:
                     failures.append(f"{vtag}: an empty column is not an exact zero")
             log(json.dumps(row))
-        del idx, val, L, vx
+        del L, vx
     return rows, failures
 
 
@@ -481,6 +537,7 @@ def sparse_phases(seed: int, dev, bw: float, f32_rate: float):
         RandomEffectDataConfig,
         build_random_effect_dataset,
     )
+    from photon_ml_tpu_torch.data import sparse_layout
     from photon_ml_tpu_torch.data.sparse_layout import SparseLayout, from_ell
     from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
     from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
@@ -508,17 +565,33 @@ def sparse_phases(seed: int, dev, bw: float, f32_rate: float):
     again = from_ell(ds.shards["sparse"])  # a second build, past first-use costs
     torch.cuda.synchronize()
     layout_again_s = time.perf_counter() - t0
-    same_layout = all(torch.equal(getattr(layout, f), getattr(again, f))
-                      for f in ("row_ptr", "col_idx", "row_val", "col_ptr", "row_idx", "col_val",
-                                "chunk_ptr", "chunk_start"))
+    same_layout = all(torch.equal(getattr(layout, f.name), getattr(again, f.name))
+                      for f in dataclasses.fields(SparseLayout) if f.name not in ("n_rows", "dim"))
     del again
+    # The single-stream additions alone, rebuilt from the layout's CSR: row
+    # tiles and slabs, then the column order within each tile.
+    t0 = time.perf_counter()
+    tile_row = sparse_layout.row_tiles(layout.row_ptr)
+    tile_ptr = layout.row_ptr[tile_row]
+    slab_tile = sparse_layout.slab_table(tile_row, tile_ptr, layout.n_slabs)
+    torch.cuda.synchronize()
+    tiles_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perm = sparse_layout.tile_permutation(tile_ptr, layout.col_idx.long(), layout.dim)
+    torch.cuda.synchronize()
+    perm_s = time.perf_counter() - t0
+    same_layout = same_layout and all(torch.equal(a, b) for a, b in (
+        (tile_row, layout.tile_row), (slab_tile, layout.slab_tile), (perm, layout.tile_perm)))
+    del tile_row, tile_ptr, slab_tile, perm
     log(json.dumps(dict(
         phase="2s-setup", data_host_s=data_s, upload_s=upload_s, layout_build_s=layout_s,
-        layout_rebuild_s=layout_again_s, layout_rebuild_identical=same_layout,
-        ell_entries=N_ROWS * K_SPARSE, nnz=layout.nnz, chunks=layout.n_chunks,
-        layout_mib=sum(t.numel() * t.element_size() for t in (
-            layout.row_ptr, layout.col_idx, layout.row_val, layout.col_ptr, layout.row_idx,
-            layout.col_val, layout.chunk_ptr, layout.chunk_start)) / 2**20)))
+        layout_rebuild_s=layout_again_s, tiles_and_slabs_build_s=tiles_s, permutation_build_s=perm_s,
+        layout_rebuild_identical=same_layout, ell_entries=N_ROWS * K_SPARSE, nnz=layout.nnz,
+        chunks=layout.n_chunks, tiles=layout.n_tiles, slabs=layout.n_slabs,
+        tile_entries_mean=layout.nnz / max(layout.n_tiles, 1),
+        layout_mib=layout.nbytes() / 2**20,
+        permutation_mib=layout.tile_perm.numel() * layout.tile_perm.element_size() / 2**20,
+        fused_route=sk.fused_route(layout.dim), matvec_route=sk.matvec_route(layout.dim))))
     if not same_layout:
         raise SystemExit("phase 2s: two builds of the layout differ")
 
@@ -1164,6 +1237,11 @@ def main(argv=None) -> int:
         t.join()
     if len(builds) != len(threads):
         raise SystemExit("phase 1: a kernel source did not build (see the error above)")
+    lib = sparse_kernels._library()
+    widths = (lib.sparse_stream_max_dim(1), lib.sparse_stream_max_dim(0))
+    if widths != (sparse_kernels.FUSED_STREAM_MAX_DIM, sparse_kernels.MATVEC_STREAM_MAX_DIM):
+        raise SystemExit(f"phase 1: the library's single-stream widths {widths} are not the "
+                         f"wrapper's")
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s for {len(builds)} sources in parallel")
     for name, (lib_path, build_s, build_log) in sorted(builds.items()):
         log(f"  {name}: {build_s:.2f} s -> {lib_path.name}")

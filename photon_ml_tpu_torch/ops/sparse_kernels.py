@@ -2,8 +2,8 @@
 
 Port of `photon_ml_tpu/ops/pallas_sparse.py`'s three kernels
 (`_matvec_kernel`, `_rmatvec_kernel`, `_fused_kernel`) over the port's
-CSR/CSC layout (data/sparse_layout.py). The kernels are hand-written CUDA
-for Hopper in `photon_ml_tpu_torch/csrc/sparse_glm.cu`; its header says what
+layout (data/sparse_layout.py). The kernels are hand-written CUDA for
+Hopper in `photon_ml_tpu_torch/csrc/sparse_glm.cu`; its header says what
 bounds them on the card and how the design answers that.
 `ops/cuda_build.py` builds it with `nvcc` at first use; it is bound here
 with ctypes.
@@ -19,12 +19,21 @@ caller in ops/objective.py):
         u = wt l'(z, y), grad_raw = X^T u, sum_u = sum u
 
 The layout has no levels, so there is no `z_extra` and no COO tail.
+`matvec` and `fused_value_gradient_sums` run one of two routes, chosen from
+`dim` alone (`matvec_route`, `fused_route`): SINGLE_STREAM streams the row
+tiles once through shared memory, with w (and the fused gradient) held
+there, up to MATVEC_STREAM_MAX_DIM / FUSED_STREAM_MAX_DIM; TWO_PASS reads
+the CSR rows forward and the CSC chunks backward on any width. `rmatvec`
+is always the CSC kernel. `matvec_two_pass` and
+`fused_value_gradient_sums_two_pass` take the two-pass route on any width,
+so that the two can be timed side by side.
+
 Dispatch is by where the tensors lie, and nowhere else: a CUDA layout
 launches the kernel or raises; a CPU layout takes the plain PyTorch version
 beside each kernel (gather and `index_add_` over the CSR entries), which the
 CPU tests hold against the JAX package and which `chip_smoke.py` holds the
 kernels against on the card. `LAUNCHES` counts wrapper calls that launched
-their kernel.
+their kernel, on either route.
 """
 
 from __future__ import annotations
@@ -47,6 +56,14 @@ SOURCE = cuda_build.CSRC_DIR / "sparse_glm.cu"
 # nowhere else (the CPU path does not count).
 LAUNCHES: Dict[str, int] = {"sparse_fused": 0, "sparse_matvec": 0, "sparse_rmatvec": 0}
 
+SINGLE_STREAM = "single_stream"
+TWO_PASS = "two_pass"
+# Widest dim whose w (and, fused, gradient accumulator) fits one block's
+# shared memory beside the tile ring: csrc/sparse_glm.cu's Plan<true>::kMaxDim
+# and Plan<false>::kMaxDim, which `sparse_stream_max_dim` reports.
+FUSED_STREAM_MAX_DIM = 16384
+MATVEC_STREAM_MAX_DIM = 28672
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
@@ -60,12 +77,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sparse_max_forward_blocks.argtypes = []
     lib.sparse_max_forward_blocks.restype = i
-    lib.sparse_matvec.argtypes = [ll, i, p, p, p, p, p, p]
-    lib.sparse_matvec.restype = i
+    lib.sparse_stream_max_dim.argtypes = [i]
+    lib.sparse_stream_max_dim.restype = i
+    lib.sparse_matvec_tiles.argtypes = [ll, i, p, p, p, p, p, i, p, p, p, p]
+    lib.sparse_matvec_tiles.restype = i
+    lib.sparse_fused_tiles.argtypes = [i, i, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p, p, p]
+    lib.sparse_fused_tiles.restype = i
+    lib.sparse_matvec_rows.argtypes = [ll, i, p, p, p, p, p, p]
+    lib.sparse_matvec_rows.restype = i
     lib.sparse_rmatvec.argtypes = [i, i, ll, p, p, p, p, p, p, p, p]
     lib.sparse_rmatvec.restype = i
-    lib.sparse_fused.argtypes = [i, ll, i, p, p, p, p, p, p, p, p, p, p, ll, p, p, p, p, p, p, p]
-    lib.sparse_fused.restype = i
+    lib.sparse_fused_two_pass.argtypes = [i, ll, i, p, p, p, p, p, p, p, p, p, p, ll, p, p, p, p, p,
+                                          p, p]
+    lib.sparse_fused_two_pass.restype = i
     lib.sparse_error_string.argtypes = [i]
     lib.sparse_error_string.restype = ctypes.c_char_p
 
@@ -135,19 +159,47 @@ def fused_value_gradient_sums_plain(
 # ------------------------------------------------------------------ wrappers
 
 
+def matvec_route(dim: int) -> str:
+    """The route of `matvec` at this width."""
+    return SINGLE_STREAM if dim <= MATVEC_STREAM_MAX_DIM else TWO_PASS
+
+
+def fused_route(dim: int) -> str:
+    """The route of `fused_value_gradient_sums` at this width."""
+    return SINGLE_STREAM if dim <= FUSED_STREAM_MAX_DIM else TWO_PASS
+
+
 def matvec(layout: SparseLayout, w: Tensor) -> Tensor:
-    """z = X w: the CUDA kernel for a CUDA layout, the plain version on the CPU."""
+    """z = X w: the CUDA kernel of `matvec_route(dim)` for a CUDA layout,
+    the plain version on the CPU."""
+    return _matvec(layout, w, matvec_route(layout.dim))
+
+
+def matvec_two_pass(layout: SparseLayout, w: Tensor) -> Tensor:
+    """z = X w on the two-pass route's CSR forward, on any width."""
+    return _matvec(layout, w, TWO_PASS)
+
+
+def _matvec(layout: SparseLayout, w: Tensor, route: str) -> Tensor:
     _check_vectors(layout, {"w": w}, {})
     if layout.device.type == "cpu":
         return matvec_plain(layout, w)
     lib = _library()
     z = torch.empty(layout.n_rows, dtype=torch.float32, device=layout.device)
     with torch.cuda.device(layout.device):
-        rc = lib.sparse_matvec(
-            layout.n_rows, layout.dim, layout.row_ptr.data_ptr(), layout.col_idx.data_ptr(),
-            layout.row_val.data_ptr(), w.data_ptr(), z.data_ptr(), _stream(layout.device),
-        )
-    _check_rc(lib, rc, "sparse_matvec launch")
+        if route == SINGLE_STREAM:
+            rc = lib.sparse_matvec_tiles(
+                layout.n_rows, layout.dim, layout.row_ptr.data_ptr(), layout.col_idx.data_ptr(),
+                layout.row_val.data_ptr(), layout.tile_row.data_ptr(), layout.tile_ptr.data_ptr(),
+                layout.n_slabs, layout.slab_tile.data_ptr(), w.data_ptr(), z.data_ptr(),
+                _stream(layout.device),
+            )
+        else:
+            rc = lib.sparse_matvec_rows(
+                layout.n_rows, layout.dim, layout.row_ptr.data_ptr(), layout.col_idx.data_ptr(),
+                layout.row_val.data_ptr(), w.data_ptr(), z.data_ptr(), _stream(layout.device),
+            )
+    _check_rc(lib, rc, f"sparse_matvec launch ({route})")
     LAUNCHES["sparse_matvec"] += 1
     return z
 
@@ -176,8 +228,23 @@ def fused_value_gradient_sums(
     loss: PointwiseLoss, w_eff: Tensor, shift: Scalar, layout: SparseLayout,
     labels: Tensor, offsets: Tensor, weights: Tensor,
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """(value, grad_raw, sum_u): the CUDA kernels for a CUDA layout, the
-    plain version on the CPU."""
+    """(value, grad_raw, sum_u): the CUDA kernels of `fused_route(dim)` for a
+    CUDA layout, the plain version on the CPU."""
+    return _fused(loss, w_eff, shift, layout, labels, offsets, weights, fused_route(layout.dim))
+
+
+def fused_value_gradient_sums_two_pass(
+    loss: PointwiseLoss, w_eff: Tensor, shift: Scalar, layout: SparseLayout,
+    labels: Tensor, offsets: Tensor, weights: Tensor,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """(value, grad_raw, sum_u) on the two-pass route, on any width."""
+    return _fused(loss, w_eff, shift, layout, labels, offsets, weights, TWO_PASS)
+
+
+def _fused(
+    loss: PointwiseLoss, w_eff: Tensor, shift: Scalar, layout: SparseLayout,
+    labels: Tensor, offsets: Tensor, weights: Tensor, route: str,
+) -> Tuple[Tensor, Tensor, Tensor]:
     _check_vectors(layout, {"w_eff": w_eff},
                    {"labels": labels, "offsets": offsets, "weights": weights})
     if layout.device.type == "cpu":
@@ -186,20 +253,34 @@ def fused_value_gradient_sums(
     lib = _library()
     dev = layout.device
     shift_t = as_scalar(shift, w_eff)
-    u = torch.empty(layout.n_rows, dtype=torch.float32, device=dev)
-    partial = torch.empty(2 * lib.sparse_max_forward_blocks(), dtype=torch.float32, device=dev)
-    chunk_sum = torch.empty(layout.n_chunks, dtype=torch.float32, device=dev)
     out = torch.empty(layout.dim + 2, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.sparse_fused(
-            LOSS_IDS[loss.name], layout.n_rows, layout.dim, layout.row_ptr.data_ptr(),
-            layout.col_idx.data_ptr(), layout.row_val.data_ptr(), w_eff.data_ptr(),
-            labels.data_ptr(), offsets.data_ptr(), weights.data_ptr(), shift_t.data_ptr(),
-            u.data_ptr(), partial.data_ptr(), layout.n_chunks, layout.chunk_start.data_ptr(),
-            layout.chunk_ptr.data_ptr(), layout.row_idx.data_ptr(), layout.col_val.data_ptr(),
-            chunk_sum.data_ptr(), out.data_ptr(), _stream(dev),
-        )
-    _check_rc(lib, rc, "sparse_fused launch")
+        if route == SINGLE_STREAM:
+            # The row tiles only: no CSC array is passed, none is read.
+            partial = torch.empty(layout.n_slabs * layout.dim, dtype=torch.float32, device=dev)
+            stats = torch.empty(2 * layout.n_slabs, dtype=torch.float32, device=dev)
+            rc = lib.sparse_fused_tiles(
+                LOSS_IDS[loss.name], layout.dim, layout.row_ptr.data_ptr(),
+                layout.col_idx.data_ptr(), layout.row_val.data_ptr(), layout.tile_perm.data_ptr(),
+                layout.tile_row.data_ptr(), layout.tile_ptr.data_ptr(), layout.n_slabs,
+                layout.slab_tile.data_ptr(), w_eff.data_ptr(), labels.data_ptr(),
+                offsets.data_ptr(), weights.data_ptr(), shift_t.data_ptr(), partial.data_ptr(),
+                stats.data_ptr(), out.data_ptr(), _stream(dev),
+            )
+        else:
+            u = torch.empty(layout.n_rows, dtype=torch.float32, device=dev)
+            partial = torch.empty(2 * lib.sparse_max_forward_blocks(), dtype=torch.float32,
+                                  device=dev)
+            chunk_sum = torch.empty(layout.n_chunks, dtype=torch.float32, device=dev)
+            rc = lib.sparse_fused_two_pass(
+                LOSS_IDS[loss.name], layout.n_rows, layout.dim, layout.row_ptr.data_ptr(),
+                layout.col_idx.data_ptr(), layout.row_val.data_ptr(), w_eff.data_ptr(),
+                labels.data_ptr(), offsets.data_ptr(), weights.data_ptr(), shift_t.data_ptr(),
+                u.data_ptr(), partial.data_ptr(), layout.n_chunks, layout.chunk_start.data_ptr(),
+                layout.chunk_ptr.data_ptr(), layout.row_idx.data_ptr(), layout.col_val.data_ptr(),
+                chunk_sum.data_ptr(), out.data_ptr(), _stream(dev),
+            )
+    _check_rc(lib, rc, f"sparse_fused launch ({route})")
     LAUNCHES["sparse_fused"] += 1
     d = layout.dim
     return out[d], out[:d], out[d + 1]
