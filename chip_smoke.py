@@ -34,27 +34,33 @@ Phases (any failure exits non-zero; there is no fallback anywhere):
 
 The sparse fixed effect (bench.py's sparse shape: 1,048,576 rows x 64
 uniform feature ids, dim 16,384, normal values), its layout (CSR in row
-tiles with each tile's column order and slabs, and CSC) built on the card
-and timed, then:
+tiles with each tile's column order and slabs; no CSC copy at this width,
+which every kernel takes on its single stream) built on the card and
+timed, then a second layout of the same entries with the CSC copy, for the
+two-pass route and the cuSPARSE transposes of phase 2s alone:
 
 2s. Each sparse kernel (ops/sparse_kernels.py) against its plain version on
    the main path's layout under PORT_TOLERANCES["sparse_kernel_vs_plain"],
    called twice (bit-identical), timed beside its plain version, one
    cuSPARSE call (torch.sparse_csr_tensor; the port never calls it) and its
    bound; each row names its route (single_stream or two_pass, chosen from
-   dim), and `sparse_fused` and `sparse_matvec` are also checked and timed
-   on the two-pass route (`two_pass_ms`), in turns with the chosen one. The
-   set-up line times the row tiles and the tile permutation apart. Then
-   three untimed shapes off the main path: a skewed one (~30% of entries on
-   16 columns, empty rows), a wide one (dim 200,003: the two-pass route;
-   empty columns) and one with rows longer than a row tile, empty rows and
-   empty columns, where empty rows and columns must give exact zeros.
+   dim), and each kernel is also checked and timed on the two-pass route
+   (`two_pass_ms`, on the layout with the CSC copy), in turns with the
+   chosen one. The set-up line times the row tiles and the tile
+   permutation apart. Then four untimed shapes off the main path: a
+   skewed one (~30% of entries on 16 columns, empty rows), a wide one (dim
+   200,003: the two-pass route, whose layout carries the CSC copy; empty
+   columns), one at X^T u's widest single stream (dim 27,648; the fused
+   sums there take the two-pass route) and one with rows longer than a
+   row tile, empty rows and empty columns, where empty rows and columns
+   must give exact zeros.
 3s. GLMix with the sparse fixed effect (L-BFGS, 20 iterations, tol 1e-7,
    L2 1.0; bench.py:2717-2726) and phase 3's random effect: one sweep,
    scoring, training AUC.
 4s. The sparse fixed effect with TRON (15 iterations, tol 1e-6, L2 1.0) and
    SIMPLE coefficient variances, which must be finite and positive; then
-   one profiled sweep of 3s.
+   one profiled sweep of 3s (4s-b) and one profiled TRON + variances solve
+   (4s-c).
 5s. Phase 5's card-vs-CPU check with a small sparse fixed effect.
 
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
@@ -253,14 +259,20 @@ def re_objective_readings(ds, red, offsets, loss, l2: float, matrices):
 def profile_sweep(coords, wall_s: float) -> dict:
     """Device busy time per kernel name of one coordinate-descent sweep under
     torch.profiler, and the idle share against the unprofiled wall time."""
+    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+
+    return profile_call(lambda: run_coordinate_descent(coords, 1), wall_s)
+
+
+def profile_call(fn, wall_s: float) -> dict:
+    """Device busy time per kernel name of one call of `fn` under
+    torch.profiler, and the idle share against its unprofiled wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_coordinate_descent(coords, 1)
+        fn()
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies): a CPU op's device time
     # repeats that of the kernels it launched.
@@ -270,7 +282,7 @@ def profile_sweep(coords, wall_s: float) -> dict:
                        key=lambda t: -t[1])
     busy_ms = sum(t for _, t, _ in by_kernel)
     return dict(
-        device_busy_ms=busy_ms, glmix_wall_ms=wall_s * 1e3,
+        device_busy_ms=busy_ms, wall_ms=wall_s * 1e3,
         device_idle_share=1.0 - busy_ms / (wall_s * 1e3), device_ops=sum(c for _, _, c in by_kernel),
         top=[dict(name=k[:60], ms=t, calls=c) for k, t, c in by_kernel[:8]],
     )
@@ -380,13 +392,14 @@ def long_row_layout(gen, dev, n: int, dim: int, k: int, empty_cols: int, empty_e
     return sparse_layout.from_coo(torch.cat(parts_r), torch.cat(parts_c), torch.cat(parts_v), n, dim)
 
 
-def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
+def sparse_kernel_checks(layout, layout_csc, dev, seed: int, bw: float, f32_rate: float):
     """Phase 2s: each sparse kernel against its plain version on `layout` (the
     main path's), twice (bit-identical), timed beside its plain version, a
     cuSPARSE call (torch.sparse_csr_tensor; the port never calls it), its
-    bound and, for the kernels with two routes, the two-pass route's time;
-    then three untimed shapes off the main path. Returns (rows by kernel
-    name for the record line, failures)."""
+    bound and the two-pass route's time on `layout_csc` (the same entries
+    with the CSC copy, which the cuSPARSE transposes read too); then three
+    untimed shapes off the main path. Returns (rows by kernel name for the
+    record line, failures)."""
     import torch
 
     from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
@@ -410,25 +423,29 @@ def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
             shift=torch.tensor(0.01, device=dev),
         )
 
-    def variants(L, v):
-        """(name, loss, route, kernel call, two-pass call or None, plain call,
+    def variants(L, v, Lc=None):
+        """(name, loss, route, kernel call, two-pass call on Lc, plain call,
         bytes, operations) per check."""
         nnz, (n, d) = L.nnz, L.shape
         entry_bytes = nnz * 8  # a 4-byte index and a 4-byte value per entry, read once
         out = [
             ("sparse_matvec", None, sk.matvec_route(d), lambda: (sk.matvec(L, v["w"]),),
-             lambda: (sk.matvec_two_pass(L, v["w"]),),
+             lambda: (sk.matvec_two_pass(Lc, v["w"]),),
              lambda: (sk.matvec_plain(L, v["w"]),), entry_bytes + 4 * (d + n), 2 * nnz),
-            ("sparse_rmatvec", None, sk.TWO_PASS, lambda: (sk.rmatvec(L, v["u"]),), None,
+            ("sparse_rmatvec", None, sk.rmatvec_route(d), lambda: (sk.rmatvec(L, v["u"]),),
+             lambda: (sk.rmatvec_two_pass(Lc, v["u"]),),
              lambda: (sk.rmatvec_plain(L, v["u"]),), entry_bytes + 4 * (n + d), 2 * nnz),
-            ("sparse_rmatvec_square", None, sk.TWO_PASS, lambda: (sk.rmatvec(L, v["u"], square=True),),
-             None, lambda: (sk.rmatvec_plain(L, v["u"], True),), entry_bytes + 4 * (n + d), 3 * nnz),
+            ("sparse_rmatvec_square", None, sk.rmatvec_route(d),
+             lambda: (sk.rmatvec(L, v["u"], square=True),),
+             lambda: (sk.rmatvec_two_pass(Lc, v["u"], True),),
+             lambda: (sk.rmatvec_plain(L, v["u"], True),), entry_bytes + 4 * (n + d), 3 * nnz),
         ]
         for loss in (LOGISTIC, SQUARED, POISSON, SMOOTHED_HINGE):
             args = (loss, v["w"], v["shift"], L, v["y"], v["off"], v["wt"])
+            args_c = (loss, v["w"], v["shift"], Lc, v["y"], v["off"], v["wt"])
             out.append(("sparse_fused", loss, sk.fused_route(d),
                         lambda a=args: sk.fused_value_gradient_sums(*a),
-                        lambda a=args: sk.fused_value_gradient_sums_two_pass(*a),
+                        lambda a=args_c: sk.fused_value_gradient_sums_two_pass(*a),
                         lambda a=args: sk.fused_value_gradient_sums_plain(*a),
                         entry_bytes + 4 * (3 * n + 2 * d + 2), 4 * nnz))
         return out
@@ -446,41 +463,45 @@ def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
     # The main path's layout, timed.
     v = vectors(layout)
     n, d = layout.shape
+    Lc = layout_csc
     X = torch.sparse_csr_tensor(layout.row_ptr.int(), layout.col_idx, layout.row_val, size=(n, d))
-    XT = torch.sparse_csr_tensor(layout.col_ptr.int(), layout.row_idx, layout.col_val, size=(d, n))
-    XT2 = torch.sparse_csr_tensor(layout.col_ptr.int(), layout.row_idx, layout.col_val ** 2, size=(d, n))
+    XT = torch.sparse_csr_tensor(Lc.col_ptr.int(), Lc.row_idx, Lc.col_val, size=(d, n))
+    XT2 = torch.sparse_csr_tensor(Lc.col_ptr.int(), Lc.row_idx, Lc.col_val ** 2, size=(d, n))
     library = {"sparse_matvec": lambda: torch.mv(X, v["w"]),
                "sparse_rmatvec": lambda: torch.mv(XT, v["u"]),
                "sparse_rmatvec_square": lambda: torch.mv(XT2, v["u"]),
                "sparse_fused": lambda: (torch.mv(X, v["w"]), torch.mv(XT, v["u"]))}
     rows = {}
-    for name, loss, route, run_k, run_2p, run_p, nbytes, ops in variants(layout, v):
+    for name, loss, route, run_k, run_2p, run_p, nbytes, ops in variants(layout, v, Lc):
         tag = name if loss is None else f"{name}/{loss.name}"
         got, again, ref = run_k(), run_k(), run_p()
         torch.cuda.synchronize()
         row = dict(phase="2s", kernel=name, loss=None if loss is None else loss.name, route=route,
                    n=n, d=d, nnz=layout.nnz, **check(tag, got, again, ref))
         t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_rate * 1e3
-        if run_2p is not None:  # the other route on the same inputs, checked and timed beside
-            row["two_pass"] = check(f"{tag}/two_pass", run_2p(), run_2p(), ref)
+        # The two-pass route on the same inputs, checked and timed beside.
+        row["two_pass"] = check(f"{tag}/two_pass", run_2p(), run_2p(), ref)
         # Turns (kernel, two-pass, two-pass, kernel), each a median of 20 calls.
         k_ms, p2_ms = [], []
         for turn in (run_k, run_2p, run_2p, run_k):
-            if turn is not None:
-                (k_ms if turn is run_k else p2_ms).append(time_ms(torch, turn))
+            (k_ms if turn is run_k else p2_ms).append(time_ms(torch, turn))
         row.update(kernel_ms=min(k_ms), kernel_ms_turns=k_ms,
-                   two_pass_ms=min(p2_ms) if p2_ms else None, two_pass_ms_turns=p2_ms or None,
+                   two_pass_ms=min(p2_ms), two_pass_ms_turns=p2_ms,
                    plain_ms=time_ms(torch, run_p), library_ms=time_ms(torch, library[name]),
                    bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        row.update(bound_share=row["bound_ms"] / row["kernel_ms"],
+                   faster_than_library=row["kernel_ms"] < row["library_ms"],
+                   faster_than_two_pass=row["kernel_ms"] < row["two_pass_ms"])
         log(json.dumps(row))
         if loss in (None, LOGISTIC):  # the main path runs the logistic loss
             rows.setdefault(name, row)
-    del X, XT, XT2
+    del X, XT, XT2, Lc
 
     # Off the main path, untimed: a skewed shape (about 30% of entries on 16
-    # columns, every 97th row empty); a wide one (dim 200,003, beyond both
-    # single-stream widths, so the two-pass route; columns below 1,000
-    # empty; n not a multiple of the 16 rows a block takes); and one with
+    # columns, every 97th row empty); a wide one (dim 200,003, beyond every
+    # single-stream width, so the two-pass route; columns below 1,000
+    # empty; n not a multiple of the 16 rows a block takes); one at the
+    # widest single stream of X^T u (columns below 500 empty); and one with
     # rows longer than a row tile (2,049 to 16,000 entries), every 41st row
     # empty and columns below 300 empty, n not a multiple of anything.
     def ell(n_x, d_x, skew, empty_cols):
@@ -497,6 +518,7 @@ def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
     shapes = (
         ("skewed", lambda: ell(262144, D_SPARSE, True, 0), 97, 0),
         ("wide", lambda: ell(100003, 200003, False, 1000), 0, 1000),
+        ("rmatvec_widest", lambda: ell(100003, sk.RMATVEC_STREAM_MAX_DIM, False, 500), 0, 500),
         ("long_rows", lambda: long_row_layout(gen, dev, 60001, D_SPARSE, 16, 300, 41,
                                               {5: 2049, 777: 5000, 30000: 12000, 60000: 16000}),
          41, 300),
@@ -509,7 +531,8 @@ def sparse_kernel_checks(layout, dev, seed: int, bw: float, f32_rate: float):
             got, again, ref = run_k(), run_k(), run_p()
             torch.cuda.synchronize()
             row = dict(phase="2s", shape=tag, kernel=name, loss=None if loss is None else loss.name,
-                       route=route, n=L.n_rows, d=L.dim, nnz=L.nnz, tiles=L.n_tiles,
+                       route=route, layout_csc=L.has_csc, n=L.n_rows, d=L.dim, nnz=L.nnz,
+                       tiles=L.n_tiles,
                        longest_tile=int((L.tile_ptr[1:] - L.tile_ptr[:-1]).max()),
                        **check(vtag, got, again, ref))
             if empty_every and name == "sparse_matvec":
@@ -565,9 +588,22 @@ def sparse_phases(seed: int, dev, bw: float, f32_rate: float):
     again = from_ell(ds.shards["sparse"])  # a second build, past first-use costs
     torch.cuda.synchronize()
     layout_again_s = time.perf_counter() - t0
-    same_layout = all(torch.equal(getattr(layout, f.name), getattr(again, f.name))
+    def same(a, b):  # equal arrays, or both not built
+        return a is None and b is None if a is None or b is None else torch.equal(a, b)
+
+    same_layout = all(same(getattr(layout, f.name), getattr(again, f.name))
                       for f in dataclasses.fields(SparseLayout) if f.name not in ("n_rows", "dim"))
     del again
+    # The same entries with the CSC copy: phase 2s's two-pass route and
+    # cuSPARSE transposes read it; the main path does not.
+    t0 = time.perf_counter()
+    layout_csc = from_ell(ds.shards["sparse"], csc=True)
+    torch.cuda.synchronize()
+    layout_csc_s = time.perf_counter() - t0
+    same_layout = same_layout and layout_csc.has_csc and all(
+        torch.equal(getattr(layout, f.name), getattr(layout_csc, f.name))
+        for f in dataclasses.fields(SparseLayout)
+        if f.name not in ("n_rows", "dim") and getattr(layout, f.name) is not None)
     # The single-stream additions alone, rebuilt from the layout's CSR: row
     # tiles and slabs, then the column order within each tile.
     t0 = time.perf_counter()
@@ -586,19 +622,24 @@ def sparse_phases(seed: int, dev, bw: float, f32_rate: float):
     log(json.dumps(dict(
         phase="2s-setup", data_host_s=data_s, upload_s=upload_s, layout_build_s=layout_s,
         layout_rebuild_s=layout_again_s, tiles_and_slabs_build_s=tiles_s, permutation_build_s=perm_s,
+        layout_with_csc_build_s=layout_csc_s,
         layout_rebuild_identical=same_layout, ell_entries=N_ROWS * K_SPARSE, nnz=layout.nnz,
-        chunks=layout.n_chunks, tiles=layout.n_tiles, slabs=layout.n_slabs,
-        tile_entries_mean=layout.nnz / max(layout.n_tiles, 1),
-        layout_mib=layout.nbytes() / 2**20,
+        layout_has_csc=layout.has_csc, chunks=layout_csc.n_chunks, tiles=layout.n_tiles,
+        slabs=layout.n_slabs, tile_entries_mean=layout.nnz / max(layout.n_tiles, 1),
+        layout_mib=layout.nbytes() / 2**20, layout_with_csc_mib=layout_csc.nbytes() / 2**20,
         permutation_mib=layout.tile_perm.numel() * layout.tile_perm.element_size() / 2**20,
-        fused_route=sk.fused_route(layout.dim), matvec_route=sk.matvec_route(layout.dim))))
+        fused_route=sk.fused_route(layout.dim), matvec_route=sk.matvec_route(layout.dim),
+        rmatvec_route=sk.rmatvec_route(layout.dim))))
     if not same_layout:
         raise SystemExit("phase 2s: two builds of the layout differ")
+    if layout.has_csc:
+        raise SystemExit("phase 2s: the main path's layout carries a CSC copy it never reads")
 
     # ---- phase 2s: kernels vs plain versions ----------------------------------------
-    rows, failures = sparse_kernel_checks(layout, dev, seed, bw, f32_rate)
+    rows, failures = sparse_kernel_checks(layout, layout_csc, dev, seed, bw, f32_rate)
     if failures:
         raise SystemExit("phase 2s failed: " + "; ".join(failures))
+    del layout_csc
     torch.cuda.empty_cache()
 
     # ---- phase 3s: sparse FE + dense RE GLMix at full width ----------------------------
@@ -638,7 +679,7 @@ def sparse_phases(seed: int, dev, bw: float, f32_rate: float):
         fe_iterations=int(fe_res.iterations), fe_fn_evals=int(fe_res.fn_evals),
         fe_reason=int(fe_res.reason), re_buckets=len(re_stats["buckets"]),
         re_total_iterations=re_stats["total_iterations"], train_auc=auc, launches=launches3,
-        dense_launches=dict(glm_kernels.LAUNCHES),
+        dense_launches=dict(glm_kernels.LAUNCHES), fe_layout_has_csc=layout.has_csc,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
     )))
     if not bool(torch.isfinite(scores).all()) or scores.shape != (N_ROWS,):
@@ -685,8 +726,10 @@ def sparse_phases(seed: int, dev, bw: float, f32_rate: float):
                          f"objective passes with {hv} Hessian-vector products")
     launches = {k: launches3[k] + launches4[k] for k in launches3}
 
-    # Where one sparse GLMix sweep's device time goes (after the main path).
+    # Where one sparse GLMix sweep's device time goes, and one more TRON +
+    # variances solve's (after the main path, so not counted).
     log(json.dumps(dict(phase="4s-b", **profile_sweep(coords, glmix_s))))
+    log(json.dumps(dict(phase="4s-c", **profile_call(lambda: tron.train(ds.offsets), tron_s))))
     del ds, red, fixed, tron, coords, result, scores, layout
     torch.cuda.empty_cache()
 
@@ -1238,10 +1281,12 @@ def main(argv=None) -> int:
     if len(builds) != len(threads):
         raise SystemExit("phase 1: a kernel source did not build (see the error above)")
     lib = sparse_kernels._library()
-    widths = (lib.sparse_stream_max_dim(1), lib.sparse_stream_max_dim(0))
-    if widths != (sparse_kernels.FUSED_STREAM_MAX_DIM, sparse_kernels.MATVEC_STREAM_MAX_DIM):
+    widths = {k: lib.sparse_stream_max_dim(i) for k, i in sparse_kernels.STREAM_KERNELS.items()}
+    want = dict(matvec=sparse_kernels.MATVEC_STREAM_MAX_DIM, fused=sparse_kernels.FUSED_STREAM_MAX_DIM,
+                rmatvec=sparse_kernels.RMATVEC_STREAM_MAX_DIM)
+    if widths != want:
         raise SystemExit(f"phase 1: the library's single-stream widths {widths} are not the "
-                         f"wrapper's")
+                         f"wrapper's {want}")
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s for {len(builds)} sources in parallel")
     for name, (lib_path, build_s, build_log) in sorted(builds.items()):
         log(f"  {name}: {build_s:.2f} s -> {lib_path.name}")

@@ -23,14 +23,16 @@
 // once in row-major CSR (row_ptr, col_idx, row_val), cut into row tiles of
 // at most kTile entries and kTileRows rows (a longer row is a tile of its
 // own), with each entry's 16-bit position in its tile's stable sort by
-// column (tile_perm) and slabs of tiles of about equal work (slab_tile); and
+// column (tile_perm) and slabs of tiles of about equal work (slab_tile); and,
+// where a two-pass route may need it (dims above a single-stream width),
 // once in column-major CSC (col_ptr, row_idx, col_val), cut into chunks of
 // at most CHUNK entries that never straddle a column (chunk_start,
 // chunk_ptr).
 //
 // Two routes, chosen by the wrapper from dim alone before launch:
 //   * single stream (dim <= Plan<true>::kMaxDim for the fused sums,
-//     <= Plan<false>::kMaxDim for X w): one persistent block per slab (one
+//     <= Plan<false>::kMaxDim for X w, <= RmatvecPlan::kMaxDim for X^T u;
+//     X^T u is described apart below): one persistent block per slab (one
 //     per SM). The block stages w in shared memory once and, for the fused
 //     sums, zeroes a private float gradient accumulator there. A producer
 //     warp walks the slab's tiles and keeps a ring of tile copies in flight
@@ -64,13 +66,25 @@
 //     from device memory, forward then backward (its columns are distinct,
 //     so the backward adds to acc without conflicts); its entries are read
 //     twice, the second time mostly from L2.
+//     X^T u on the single stream is the fused kernel's backward alone: u is
+//     an input, so there is no loss to wait for and no lag. Shared memory
+//     holds the gradient accumulator and no w, and each stage carries a
+//     fifth copy, the tile's u[r0, r1). Per tile the consumers write each
+//     entry's term (val * u, or val * val * u with square) and its column
+//     to the entry's place in the tile's column order (a warp per row, two
+//     rows a warp at once), meet at one barrier, and sum each run of one
+//     column in order into the accumulator, as the fused backward does. The
+//     column order is double-buffered, so one thread's scatter of the next
+//     tile runs beside another's backward of this one. A row longer than
+//     kTile adds its terms straight from device memory, after a barrier.
+//     Slabs add in slab order, in double, as above.
 //   * two pass (wider dims): the forward is one warp per CSR row in a
 //     grid-stride loop, w staged in shared memory when dim <= kSmemWMaxDim
 //     and read through the read-only path (__ldg) above; the backward (and
-//     X^T u itself, on every dim) is one warp per CSC chunk writing the
-//     chunk's sum, then a kernel adding each column's chunks in order, in
-//     double. The fused sums write u (n floats) in the forward and read it
-//     in the backward: the entries are read twice, once in each order.
+//     X^T u itself) is one warp per CSC chunk writing the chunk's sum, then
+//     a kernel adding each column's chunks in order, in double. The fused
+//     sums write u (n floats) in the forward and read it in the backward:
+//     the entries are read twice, once in each order.
 // No float atomics anywhere: every sum is taken in an order fixed by the
 // layout and the grid, so two calls on the same inputs give bit-identical
 // results, which the L-BFGS line search and the coordinate-descent
@@ -113,6 +127,7 @@ constexpr int kSmemOptin = 232448;  // an H100 block's shared memory
 constexpr int kColBytes = (kTile + 8) * 4;         // col_idx or row_val: <= 3 extra each side
 constexpr int kRowPtrBytes = (kTileRows + 4) * 8;  // row_ptr[r0 .. r1]
 constexpr int kPermBytes = (kTile + 16) * 2;       // tile_perm: <= 7 extra each side
+constexpr int kUBytes = (kTileRows + 8) * 4;       // u[r0 .. r1): <= 3 extra each side
 
 // The plan of a single-stream kernel: its warps and its shared memory. Both
 // keep w; the fused one keeps the gradient accumulator too, so it has room
@@ -132,6 +147,9 @@ struct Plan {
   static constexpr int kRowPtr = kVal + kColBytes;
   static constexpr int kPerm = kRowPtr + kRowPtrBytes;
   static constexpr int kStageBytes = FUSED ? kPerm + kPermBytes : kPerm;
+  static constexpr bool kHasPerm = FUSED;
+  static constexpr bool kHasU = false;
+  static constexpr int kU = kStageBytes;
   static constexpr int kFull = 0;
   static constexpr int kEmpty = kFull + 8 * kStages;
   static constexpr int kZReady = kEmpty + 8 * kStages;
@@ -153,6 +171,40 @@ static_assert(kTile < 32768 && kTile % 4 == 0 && kTile <= 4 * Plan<true>::kConsu
               "int16 positions; one four-entry chunk a consumer thread");
 static_assert(Plan<true>::kMaxDim < (1 << 23), "column << 8 fits an int");
 
+// The plan of the single-stream X^T u: the gradient accumulator and no w;
+// each stage also carries the tile's u. Shared memory: barriers (full and
+// empty per stage), stage headers, the ring, two buffers of a tile's terms
+// in column order (8 bytes an entry: the column and val * u) and the
+// accumulator. Its consumers, not the bytes in flight, set its time (three,
+// four and six stages ran within a few percent of each other on the card),
+// so four stages, which leave the accumulator room for 27,648 columns (the
+// largest multiple of 1,024 that fits).
+struct RmatvecPlan {
+  static constexpr int kWarps = 16;  // consumer warps
+  static constexpr int kConsumers = 32 * kWarps;
+  static constexpr int kThreads = kConsumers + 32;  // + one producer warp
+  static constexpr int kStages = 4;
+  static constexpr int kCol = 0;
+  static constexpr int kVal = kCol + kColBytes;
+  static constexpr int kRowPtr = kVal + kColBytes;
+  static constexpr int kPerm = kRowPtr + kRowPtrBytes;
+  static constexpr int kU = kPerm + kPermBytes;
+  static constexpr int kStageBytes = kU + kUBytes;
+  static constexpr bool kHasPerm = true;
+  static constexpr bool kHasU = true;
+  static constexpr int kFull = 0;
+  static constexpr int kEmpty = kFull + 8 * kStages;
+  static constexpr int kHdr = kEmpty + 8 * kStages;
+  static constexpr int kRing = ((kHdr + 32 * kStages + 127) / 128) * 128;
+  static constexpr int kSorted = kRing + kStages * kStageBytes;
+  static constexpr int kAcc = kSorted + 2 * 8 * kTile;
+  static constexpr int kMaxDim = 27648;
+  static_assert(kStageBytes % 16 == 0 && kU % 16 == 0 && kAcc % 16 == 0, "TMA alignment");
+  static_assert(kAcc + 4 * kMaxDim <= kSmemOptin, "does not fit one block");
+  static_assert(kTile <= 4 * kConsumers, "one four-entry chunk a consumer thread");
+  static int smem_bytes(int dim) { return kAcc + ((dim + 3) & ~3) * 4; }
+};
+
 struct StreamHeader {
   long long r0, r1, e0, e1;  // the tile's rows [r0, r1) and entries [e0, e1)
 };
@@ -171,8 +223,9 @@ struct StreamArgs {
   const float* off;
   const float* wt;
   const float* shift;
-  float* out;    // z (n); fused: the slabs' gradient partials (n_slabs, dim)
+  float* out;    // z (n); fused and X^T u: the slabs' gradient partials (n_slabs, dim)
   float* stats;  // fused: the slabs' (value, sum_u) partials (n_slabs, 2)
+  const float* u;  // X^T u: u (n)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -285,12 +338,11 @@ struct TileBounds {
   }
 };
 
-// Lane 0 of the producer: writes tile h's header into stage s and starts its
-// copies. A tile longer than kTile gets a header only: the consumers read
-// its one row from device memory.
-template <bool FUSED>
+// Lane 0 of the producer: writes tile h's header into stage s of plan P and
+// starts its copies. A tile longer than kTile gets a header only: the
+// consumers read its one row from device memory.
+template <class P>
 __device__ void fill_stage(const StreamArgs& a, const StreamHeader& h, int s, unsigned char* smem) {
-  using P = Plan<FUSED>;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kFull) + s;
   reinterpret_cast<StreamHeader*>(smem + P::kHdr)[s] = h;
   if (h.e1 - h.e0 > kTile) {
@@ -301,29 +353,56 @@ __device__ void fill_stage(const StreamArgs& a, const StreamHeader& h, int s, un
   const Cover c_col = cover(a.col_idx, 4, h.e0, h.e1);
   const Cover c_val = cover(a.val, 4, h.e0, h.e1);
   const Cover c_rp = cover(a.row_ptr, 8, h.r0, h.r1 + 1);
-  const Cover c_perm = FUSED ? cover(a.perm, 2, h.e0, h.e1) : Cover{0, 0};
+  const Cover c_perm = P::kHasPerm ? cover(a.perm, 2, h.e0, h.e1) : Cover{0, 0};
+  const Cover c_u = P::kHasU ? cover(a.u, 4, h.r0, h.r1) : Cover{0, 0};
   // The last reads of this stage were released through its empty barrier;
   // order them before the async writes.
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  mbar_arrive_expect_tx(full, c_col.bytes + c_val.bytes + c_rp.bytes + c_perm.bytes);
+  mbar_arrive_expect_tx(full, c_col.bytes + c_val.bytes + c_rp.bytes + c_perm.bytes + c_u.bytes);
   bulk_copy(st + P::kCol, c_col, full);
   bulk_copy(st + P::kVal, c_val, full);
   bulk_copy(st + P::kRowPtr, c_rp, full);
   bulk_copy(st + P::kPerm, c_perm, full);
+  bulk_copy(st + P::kU, c_u, full);
 }
 
-// The producer warp. It fills the ring, then for each tile in turn:
-// refills the tile's stage with the tile kStages ahead as soon as the
-// consumers have read it; then (fused) waits until the consumers have the
-// tile's z, evaluates the loss and u of every row of the tile, empty rows
-// included, a lane a row, and hands u back; then loads the next tile's y,
-// offset and weight into registers, where they arrive while it waits. The
-// loss thus runs beside the consumers' next forward, off their path.
-// Returns this warp's (value, sum_u) partials in every lane (fused).
-template <int LOSS, bool FUSED>
-__device__ float2 stream_producer(const StreamArgs& a, long long t_begin, long long t_end,
-                                  unsigned char* smem) {
-  using P = Plan<FUSED>;
+// The producer warp of a plan without a loss (X w, X^T u): fills the ring,
+// then refills each tile's stage with the tile kStages ahead as soon as the
+// consumers have read it.
+template <class P>
+__device__ void ring_producer(const StreamArgs& a, long long t_begin, long long t_end,
+                              unsigned char* smem) {
+  uint64_t* empty = reinterpret_cast<uint64_t*>(smem + P::kEmpty);
+  const int lane = threadIdx.x & 31;
+  TileBounds bounds(a, t_begin, t_end);
+  const long long n_tiles = t_end - t_begin;
+  for (long long k = 0; k < n_tiles && k < P::kStages; ++k) {
+    const StreamHeader h = bounds.get(t_begin + k);
+    if (lane == 0) fill_stage<P>(a, h, static_cast<int>(k), smem);
+  }
+  for (long long k = 0; k + P::kStages < n_tiles; ++k) {
+    const int s = static_cast<int>(k % P::kStages);
+    const StreamHeader next = bounds.get(t_begin + k + P::kStages);
+    if (lane == 0) {
+      mbar_wait(&empty[s], static_cast<uint32_t>((k / P::kStages) & 1));
+      fill_stage<P>(a, next, s, smem);
+    }
+    __syncwarp();
+  }
+}
+
+// The producer warp of the fused sums. It fills the ring, then for each
+// tile in turn: refills the tile's stage with the tile kStages ahead as
+// soon as the consumers have read it; then waits until the consumers have
+// the tile's z, evaluates the loss and u of every row of the tile, empty
+// rows included, a lane a row, and hands u back; then loads the next tile's
+// y, offset and weight into registers, where they arrive while it waits.
+// The loss thus runs beside the consumers' next forward, off their path.
+// Returns this warp's (value, sum_u) partials in every lane.
+template <int LOSS>
+__device__ float2 fused_producer(const StreamArgs& a, long long t_begin, long long t_end,
+                                 unsigned char* smem) {
+  using P = Plan<true>;
   constexpr int kRowsPerLane = kTileRows / 32;
   uint64_t* empty = reinterpret_cast<uint64_t*>(smem + P::kEmpty);
   uint64_t* z_ready = reinterpret_cast<uint64_t*>(smem + P::kZReady);
@@ -331,7 +410,7 @@ __device__ float2 stream_producer(const StreamArgs& a, long long t_begin, long l
   const StreamHeader* hdr = reinterpret_cast<const StreamHeader*>(smem + P::kHdr);
   float* zu0 = reinterpret_cast<float*>(smem + P::kZu);
   const int lane = threadIdx.x & 31;
-  const float shift = FUSED ? *a.shift : 0.0f;
+  const float shift = *a.shift;
   float acc_value = 0.0f;  // lane l: row slots l, l + 32, ... of every tile, in tile order
   float acc_u = 0.0f;
   float y[kRowsPerLane], off[kRowsPerLane], wt[kRowsPerLane];  // this lane's rows of a tile
@@ -351,10 +430,10 @@ __device__ float2 stream_producer(const StreamArgs& a, long long t_begin, long l
   const long long n_tiles = t_end - t_begin;
   for (long long k = 0; k < n_tiles && k < P::kStages; ++k) {
     const StreamHeader h = bounds.get(t_begin + k);
-    if (lane == 0) fill_stage<FUSED>(a, h, static_cast<int>(k), smem);
+    if (lane == 0) fill_stage<P>(a, h, static_cast<int>(k), smem);
   }
   __syncwarp();  // the headers lane 0 wrote
-  if (FUSED && n_tiles > 0) prefetch(hdr[0]);
+  if (n_tiles > 0) prefetch(hdr[0]);
   long long nk = 0;  // tiles that went through the buffers
   for (long long k = 0; k < n_tiles; ++k) {
     const int s = static_cast<int>(k % P::kStages);
@@ -363,45 +442,47 @@ __device__ float2 stream_producer(const StreamArgs& a, long long t_begin, long l
       const StreamHeader next = bounds.get(t_begin + k + P::kStages);
       if (lane == 0) {
         mbar_wait(&empty[s], static_cast<uint32_t>((k / P::kStages) & 1));
-        fill_stage<FUSED>(a, next, s, smem);
+        fill_stage<P>(a, next, s, smem);
       }
       __syncwarp();
     }
-    if constexpr (FUSED) {
-      if (h.e1 - h.e0 <= kTile) {
-        const int b = static_cast<int>(nk & 1);
-        mbar_wait(&z_ready[b], static_cast<uint32_t>((nk >> 1) & 1));
-        float* zu = zu0 + b * kTileRows;
-        const int R = static_cast<int>(h.r1 - h.r0);
+    if (h.e1 - h.e0 <= kTile) {
+      const int b = static_cast<int>(nk & 1);
+      mbar_wait(&z_ready[b], static_cast<uint32_t>((nk >> 1) & 1));
+      float* zu = zu0 + b * kTileRows;
+      const int R = static_cast<int>(h.r1 - h.r0);
 #pragma unroll
-        for (int m = 0; m < kRowsPerLane; ++m) {
-          const int i = lane + 32 * m;
-          if (i < R) {
-            const float z = zu[i] + off[m] + shift;
-            const float u = wt[m] * loss_d1<LOSS>(z, y[m]);
-            acc_value += wt[m] * loss_l<LOSS>(z, y[m]);
-            acc_u += u;
-            zu[i] = u;
-          }
+      for (int m = 0; m < kRowsPerLane; ++m) {
+        const int i = lane + 32 * m;
+        if (i < R) {
+          const float z = zu[i] + off[m] + shift;
+          const float u = wt[m] * loss_d1<LOSS>(z, y[m]);
+          acc_value += wt[m] * loss_l<LOSS>(z, y[m]);
+          acc_u += u;
+          zu[i] = u;
         }
-        mbar_arrive(&u_ready[b]);  // every lane, after its own writes of u
-        ++nk;
       }
-      if (k + 1 < n_tiles) prefetch(hdr[(k + 1) % P::kStages]);
+      mbar_arrive(&u_ready[b]);  // every lane, after its own writes of u
+      ++nk;
     }
+    if (k + 1 < n_tiles) prefetch(hdr[(k + 1) % P::kStages]);
   }
   return make_float2(warp_sum(acc_value), warp_sum(acc_u));
 }
 
 // The backward of one tile: its E entries in column order (column << 8 |
-// local row, and the value), u by local row; four consecutive positions a
-// thread. Each run of one column is summed in order by the thread whose
-// chunk holds its first entry (reading on past its chunk if the run goes
-// on) and added to acc once; a column is one run of the tile, so no two
-// threads add to one column.
-template <int CONSUMERS>
+// local row, and the value), u by local row; or, with TERMS, (column, the
+// entry's term) and no u; four consecutive positions a thread. Each run of
+// one column is summed in order by the thread whose chunk holds its first
+// entry (reading on past its chunk if the run goes on) and added to acc
+// once; a column is one run of the tile, so no two threads add to one
+// column. With TERMS each u is 1: a term times 1 is the term, and
+// fmaf(term, 1, run) is the rounded run + term.
+template <int CONSUMERS, bool TERMS = false>
 __device__ __forceinline__ void tile_backward(const int2* sorted, const float* zu, int E,
                                               float* acc, int tid) {
+  auto column = [](int key) { return TERMS ? key : key >> 8; };
+  auto u_of = [&](int key) { return TERMS ? 1.0f : zu[key & 255]; };
   const int lane = tid & 31;
   const int i0 = 4 * tid;  // kTile <= 4 CONSUMERS: one chunk a thread
   int c[4];
@@ -418,14 +499,14 @@ __device__ __forceinline__ void tile_backward(const int2* sorted, const float* z
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const bool in = i0 + j < E;
-    c[j] = in ? key[j] >> 8 : -1;
+    c[j] = in ? column(key[j]) : -1;
     v[j] = __int_as_float(bits[j]);
-    u[j] = in ? zu[key[j] & 255] : 0.0f;
+    u[j] = in ? u_of(key[j]) : 0.0f;
   }
   int c_prev = __shfl_up_sync(0xffffffffu, c[3], 1);   // the position before the chunk
   int c_after = __shfl_down_sync(0xffffffffu, c[0], 1);  // the position after it
-  if (lane == 0) c_prev = i0 > 0 && i0 - 1 < E ? sorted[i0 - 1].x >> 8 : -2;
-  if (lane == 31) c_after = i0 + 4 < E ? sorted[i0 + 4].x >> 8 : -3;
+  if (lane == 0) c_prev = i0 > 0 && i0 - 1 < E ? column(sorted[i0 - 1].x) : -2;
+  if (lane == 31) c_after = i0 + 4 < E ? column(sorted[i0 + 4].x) : -3;
   float run = 0.0f;
   int rc = -1;  // the column of the run opened in this chunk, if any
   int prev = c_prev;
@@ -446,8 +527,8 @@ __device__ __forceinline__ void tile_backward(const int2* sorted, const float* z
     if (c_after == rc) {
       for (int q = i0 + 4; q < E; ++q) {
         const int2 e = sorted[q];
-        if ((e.x >> 8) != rc) break;
-        run = fmaf(__int_as_float(e.y), zu[e.x & 255], run);
+        if (column(e.x) != rc) break;
+        run = fmaf(__int_as_float(e.y), u_of(e.x), run);
       }
     }
     acc[rc] += run;
@@ -493,10 +574,12 @@ __global__ void __launch_bounds__(Plan<FUSED>::kThreads, 1) stream_kernel(const 
   }
   __syncthreads();
   if (tid >= P::kConsumers) {
-    const float2 part = stream_producer<LOSS, FUSED>(a, t_begin, t_end, smem);
     if constexpr (FUSED) {
+      const float2 part = fused_producer<LOSS>(a, t_begin, t_end, smem);
       if (tid == P::kConsumers) red[0] = part.x, red[1] = part.y;
       block_sync_end<P::kThreads>();
+    } else {
+      ring_producer<P>(a, t_begin, t_end, smem);
     }
     return;
   }
@@ -635,6 +718,108 @@ __global__ void __launch_bounds__(Plan<FUSED>::kThreads, 1) stream_kernel(const 
   }
 }
 
+// An entry's term of X^T u: val * u, or (val * val) * u with SQUARE, each
+// product rounded on its own (no contraction into an fma).
+template <bool SQUARE>
+__device__ __forceinline__ float rmatvec_term(float v, float u) {
+  return __fmul_rn(SQUARE ? __fmul_rn(v, v) : v, u);
+}
+
+// X^T u (or (X o X)^T u with SQUARE) over the row tiles: the slab's gradient
+// partial into out[slab * dim ...].
+template <bool SQUARE>
+__global__ void __launch_bounds__(RmatvecPlan::kThreads, 1)
+    rmatvec_stream_kernel(const StreamArgs a) {
+  using P = RmatvecPlan;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::kFull);
+  uint64_t* empty = reinterpret_cast<uint64_t*>(smem + P::kEmpty);
+  const StreamHeader* hdr = reinterpret_cast<const StreamHeader*>(smem + P::kHdr);
+  int2* sorted0 = reinterpret_cast<int2*>(smem + P::kSorted);
+  float* acc = reinterpret_cast<float*>(smem + P::kAcc);
+  const int dim = a.dim;
+  const int tid = threadIdx.x;
+  const long long t_begin = a.slab_tile[blockIdx.x];
+  const long long t_end = a.slab_tile[blockIdx.x + 1];
+
+  if (tid == 0) {
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], P::kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int c = tid; c < dim; c += P::kThreads) acc[c] = 0.0f;
+  __syncthreads();
+  if (tid >= P::kConsumers) {
+    ring_producer<P>(a, t_begin, t_end, smem);
+    return;
+  }
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  long long nk = 0;  // tiles that went through the column-order buffers
+  for (long long k = 0; k < t_end - t_begin; ++k) {
+    const int s = static_cast<int>(k % P::kStages);
+    mbar_wait(&full[s], static_cast<uint32_t>((k / P::kStages) & 1));
+    const StreamHeader h = hdr[s];
+    if (h.e1 - h.e0 > kTile) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // a header alone
+      consumer_sync<P::kConsumers>();  // the last tile's backward is done with acc
+      // One row longer than a stage, from device memory; its columns are
+      // distinct, so no two threads add to one column.
+      const float u = __ldg(a.u + h.r0);
+      for (long long q = h.e0 + tid; q < h.e1; q += P::kConsumers) {
+        const int c = __ldg(a.col_idx + q);
+        acc[c] = __fadd_rn(acc[c], rmatvec_term<SQUARE>(__ldg(a.val + q), u));
+      }
+      continue;
+    }
+    const unsigned char* st = smem + P::kRing + s * P::kStageBytes;
+    const int* col = reinterpret_cast<const int*>(st + P::kCol) + cover_skip(a.col_idx, 4, h.e0);
+    const float* val = reinterpret_cast<const float*>(st + P::kVal) + cover_skip(a.val, 4, h.e0);
+    const long long* rp =
+        reinterpret_cast<const long long*>(st + P::kRowPtr) + cover_skip(a.row_ptr, 8, h.r0);
+    const int16_t* pos =
+        reinterpret_cast<const int16_t*>(st + P::kPerm) + cover_skip(a.perm, 2, h.e0);
+    const float* uu = reinterpret_cast<const float*>(st + P::kU) + cover_skip(a.u, 4, h.r0);
+    int2* sorted = sorted0 + (nk & 1) * kTile;
+    const int R = static_cast<int>(h.r1 - h.r0);
+    // Each entry's term to its place in the tile's column order: a warp per
+    // row, two rows a warp at once, lanes striding each row's entries.
+    auto scatter = [&](int q, float u) {
+      sorted[pos[q]] = make_int2(col[q], __float_as_int(rmatvec_term<SQUARE>(val[q], u)));
+    };
+    for (int i = warp; i < R; i += 2 * P::kWarps) {
+      const int i2 = i + P::kWarps;
+      const bool two = i2 < R;
+      const float u0 = uu[i];
+      const float u1 = two ? uu[i2] : 0.0f;
+      const int b0 = static_cast<int>(rp[i + 1] - h.e0);
+      const int b1 = two ? static_cast<int>(rp[i2 + 1] - h.e0) : 0;
+      int q0 = static_cast<int>(rp[i] - h.e0) + lane;
+      int q1 = two ? static_cast<int>(rp[i2] - h.e0) + lane : 0;
+      while (q0 < b0 || q1 < b1) {
+        if (q0 < b0) scatter(q0, u0);
+        if (q1 < b1) scatter(q1, u1);
+        q0 += 32;
+        q1 += 32;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
+    // This tile's terms are all in place, and the last tile's backward (the
+    // other buffer) is done.
+    consumer_sync<P::kConsumers>();
+    tile_backward<P::kConsumers, true>(sorted, nullptr, static_cast<int>(h.e1 - h.e0), acc, tid);
+    ++nk;
+  }
+  consumer_sync<P::kConsumers>();  // every backward is done
+  float* g = a.out + static_cast<int64_t>(blockIdx.x) * dim;
+  for (int c = tid; c < dim; c += P::kConsumers) g[c] = acc[c];
+}
+
 // g[c] = sum over slabs b, in order, of partial[b * dim + c] (in double).
 __global__ void slab_sum_kernel(int dim, int slabs, const float* __restrict__ partial,
                                 float* __restrict__ g) {
@@ -768,6 +953,19 @@ int launch_stream(const StreamArgs& a, int slabs, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool SQUARE>
+int launch_rmatvec_stream(const StreamArgs& a, int slabs, cudaStream_t stream) {
+  using P = RmatvecPlan;
+  if (a.dim < 1 || a.dim > P::kMaxDim || slabs < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = rmatvec_stream_kernel<SQUARE>;
+  const int smem = P::smem_bytes(a.dim);
+  const cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kern<<<slabs, P::kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int stream_fused(int loss, const StreamArgs& a, int slabs, cudaStream_t stream) {
   switch (loss) {
     case kLogistic:
@@ -875,10 +1073,19 @@ extern "C" {
 
 int sparse_max_forward_blocks() { return kMaxForwardBlocks; }
 
-// Widest dim of the single-stream route: fused != 0 for the fused sums, 0
-// for X w. The wrapper mirrors both numbers.
-int sparse_stream_max_dim(int fused) {
-  return fused != 0 ? Plan<true>::kMaxDim : Plan<false>::kMaxDim;
+// Widest dim of the single-stream route: kernel 0 for X w, 1 for the fused
+// sums, 2 for X^T u (-1 for another number). The wrapper mirrors all three.
+int sparse_stream_max_dim(int kernel) {
+  switch (kernel) {
+    case 0:
+      return Plan<false>::kMaxDim;
+    case 1:
+      return Plan<true>::kMaxDim;
+    case 2:
+      return RmatvecPlan::kMaxDim;
+    default:
+      return -1;
+  }
 }
 
 // Single stream: z (n) = X w over the row tiles; one block per slab.
@@ -924,9 +1131,26 @@ int sparse_matvec_rows(long long n, int dim, const int64_t* row_ptr, const int* 
                                : launch_forward<kLogistic, false, false>(a, &blocks);
 }
 
-// g (dim) = X^T u, or (X o X)^T u when square, over the CSC copy;
+// Single stream: g (dim) = X^T u, or (X o X)^T u when square, over the row
+// tiles; partial (n_slabs * dim) is scratch. No CSC array is read.
+int sparse_rmatvec_tiles(int square, int dim, const int64_t* row_ptr, const int* col_idx,
+                         const float* row_val, const int16_t* tile_perm, const int64_t* tile_row,
+                         const int64_t* tile_ptr, int n_slabs, const int64_t* slab_tile,
+                         const float* u, float* partial, float* g, void* stream) {
+  if (dim == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const StreamArgs a{dim,     row_ptr, col_idx, row_val, tile_perm, tile_row, tile_ptr, slab_tile,
+                     nullptr, nullptr, nullptr, nullptr, nullptr,   partial,  nullptr,  u};
+  int rc = square != 0 ? launch_rmatvec_stream<true>(a, n_slabs, s)
+                       : launch_rmatvec_stream<false>(a, n_slabs, s);
+  if (rc != 0) return rc;
+  slab_sum_kernel<<<(dim + 255) / 256, 256, 0, s>>>(dim, n_slabs, partial, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two pass: g (dim) = X^T u, or (X o X)^T u when square, over the CSC copy;
 // chunk_sum is n_chunks floats of scratch.
-int sparse_rmatvec(int square, int dim, long long n_chunks, const int64_t* chunk_start,
+int sparse_rmatvec_chunks(int square, int dim, long long n_chunks, const int64_t* chunk_start,
                    const int64_t* chunk_ptr, const int* row_idx, const float* col_val,
                    const float* u, float* chunk_sum, float* g, void* stream) {
   return launch_backward(square != 0, dim, n_chunks, chunk_start, chunk_ptr, row_idx, col_val, u,

@@ -10,7 +10,7 @@ features and (E, S) vectors.
 Sparse features are `SparseFeatures`, the padded ELL layout (N, K): row r
 holds features indices[r, k] with values values[r, k]; padding entries have
 value 0 and index 0. It is how a sparse shard is handed in and stored; the
-objective on the card runs on the CSR/CSC layout built from it
+objective on the card runs on the sparse layout built from it
 (data/sparse_layout.py). Only the standard (N, K) plane layout is ported
 (`ell_axis=-1`).
 """

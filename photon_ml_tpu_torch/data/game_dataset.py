@@ -12,8 +12,9 @@ deterministic splitmix64 reservoir and still scored. The layout is the JAX
 package's exactly: same entities per bucket, same gather rows.
 
 A shard is a dense (N, D) tensor or an ELL `SparseFeatures`; a sparse
-shard's CSR/CSC layout (data/sparse_layout.py) is built on the device once,
-at first use, and cached on the dataset.
+shard's layout (data/sparse_layout.py: CSR in row tiles, and CSC only above
+a single-stream width) is built on the device once, at first use, and
+cached on the dataset.
 
 A dataset sharded over torch.distributed ranks (`parallel/mesh.py
 shard_game_dataset`) holds only this rank's rows, in global order, and
@@ -89,7 +90,8 @@ class GameDataset:
         return self.labels.device
 
     def sparse_layout(self, shard: str) -> SparseLayout:
-        """The CSR/CSC layout of a sparse shard, built on first use."""
+        """The layout of a sparse shard (CSC only where a route reads it), built
+        on first use."""
         key = ("sparse_layout", shard)
         if key not in self.cache:
             feats = self.shards[shard]

@@ -1,4 +1,4 @@
-"""Device layout of a sparse fixed-effect shard: CSR in row tiles, plus CSC.
+"""Device layout of a sparse fixed-effect shard: CSR in row tiles, and CSC where needed.
 
 Counterpart of `photon_ml_tpu/data/bucketed.py` (the two-level bucketed
 layout) and `photon_ml_tpu/data/device_pack.py` (its device-side pack).
@@ -8,19 +8,22 @@ value, not on the layout, so the port keeps the entries in the orders its
 CUDA kernels (csrc/sparse_glm.cu) read:
 
   * CSR, row-major, cut into row tiles for the single-stream kernels
-    (z = X w, and the fused value/gradient): each tile starts at a row
+    (z = X w, g = X^T u, and the fused value/gradient): each tile starts at a row
     boundary and holds at most TILE entries and TILE_ROWS rows, except a
     row longer than TILE, which is a tile of its own. Beside the CSR
     entries, `tile_perm` gives each entry's 16-bit position in its tile's
-    stable sort by column: the fused kernel's forward writes each entry
-    there, and its backward sums each run of equal columns once per tile.
-    Slabs are contiguous runs of tiles of about equal work, one per block.
-  * CSC, column-major, for the backward pass of the two-pass route (g =
-    X^T u, and the fused value/gradient when dim is too wide for the
-    single-stream kernel): the column's entries are cut into chunks of at
+    stable sort by column: the fused kernel's forward and the X^T u kernel
+    write each entry (or its term) there, and their backward sums each run
+    of equal columns once per tile. Slabs are contiguous runs of tiles of
+    about equal work, one per block.
+  * CSC, column-major, for the backward pass of the two-pass route (X^T u
+    and the fused value/gradient when dim is too wide for their
+    single-stream kernels): the column's entries are cut into chunks of at
     most CHUNK entries that never straddle a column, a warp per chunk, and
     the chunks of a column are added in order. A hot column is many
-    chunks, so it does not stall one warp.
+    chunks, so it does not stall one warp. It costs 8 bytes an entry and
+    is built only where a route may read it (`csc=None`: dim above the
+    narrowest single-stream width), or when asked for.
 
 Every order gives fixed-order reductions without float atomics. The layout
 is built once per shard on the shard's device with torch ops (a stable sort,
@@ -33,7 +36,7 @@ offsets are int64.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,13 +53,23 @@ TILE_ROWS = 128
 # Slabs (blocks of the single-stream kernels) where the device does not say
 # how many multiprocessors it has: the CPU, whose plain versions ignore them.
 DEFAULT_SLABS = 132
+# Widest dim of each single-stream kernel, whose shared memory holds w
+# and/or the gradient accumulator beside the tile ring: csrc/sparse_glm.cu's
+# Plan<false>, Plan<true> and RmatvecPlan kMaxDim, which its
+# `sparse_stream_max_dim` reports. ops/sparse_kernels.py routes by them.
+MATVEC_STREAM_MAX_DIM = 28672
+FUSED_STREAM_MAX_DIM = 16384
+RMATVEC_STREAM_MAX_DIM = 27648
+# Above this width some kernel takes its two-pass route, which reads the CSC.
+CSC_FROM_DIM = min(MATVEC_STREAM_MAX_DIM, FUSED_STREAM_MAX_DIM, RMATVEC_STREAM_MAX_DIM) + 1
 
 
 @dataclasses.dataclass(frozen=True)
 class SparseLayout:
-    """Every nonzero entry of an (n_rows, dim) matrix, once in CSR and once
-    in CSC, with the CSR row tiles, their column order and their slabs, and
-    the CSC chunk table. Index planes are int32 (int16 tile-local), offsets
+    """Every nonzero entry of an (n_rows, dim) matrix in CSR, with the row
+    tiles, their column order and their slabs; and, where it was built
+    (`has_csc`), once more in CSC with its chunk table (else the five CSC
+    fields are None). Index planes are int32 (int16 tile-local), offsets
     int64."""
 
     n_rows: int
@@ -64,11 +77,11 @@ class SparseLayout:
     row_ptr: Tensor  # (n_rows + 1,) int64
     col_idx: Tensor  # (nnz,) int32, CSR order
     row_val: Tensor  # (nnz,) float32, CSR order
-    col_ptr: Tensor  # (dim + 1,) int64
-    row_idx: Tensor  # (nnz,) int32, CSC order
-    col_val: Tensor  # (nnz,) float32, CSC order
-    chunk_ptr: Tensor  # (dim + 1,) int64: column c's chunks are chunk_ptr[c]..chunk_ptr[c+1]
-    chunk_start: Tensor  # (n_chunks + 1,) int64: chunk k is CSC entries [chunk_start[k], chunk_start[k+1])
+    col_ptr: Optional[Tensor]  # (dim + 1,) int64
+    row_idx: Optional[Tensor]  # (nnz,) int32, CSC order
+    col_val: Optional[Tensor]  # (nnz,) float32, CSC order
+    chunk_ptr: Optional[Tensor]  # (dim + 1,) int64: column c's chunks are chunk_ptr[c]..chunk_ptr[c+1]
+    chunk_start: Optional[Tensor]  # (n_chunks + 1,) int64: chunk k is CSC entries [chunk_start[k], chunk_start[k+1])
     tile_row: Tensor  # (n_tiles + 1,) int64: tile t is rows [tile_row[t], tile_row[t+1])
     tile_ptr: Tensor  # (n_tiles + 1,) int64: ... and CSR entries [tile_ptr[t], tile_ptr[t+1])
     # (nnz,) int16: CSR entry tile_ptr[t] + j of tile t sits at position
@@ -86,8 +99,12 @@ class SparseLayout:
         return int(self.col_idx.shape[0])
 
     @property
+    def has_csc(self) -> bool:
+        return self.col_ptr is not None
+
+    @property
     def n_chunks(self) -> int:
-        return int(self.chunk_start.shape[0]) - 1
+        return int(self.chunk_start.shape[0]) - 1 if self.has_csc else 0
 
     @property
     def n_tiles(self) -> int:
@@ -102,11 +119,11 @@ class SparseLayout:
         return self.row_val.device
 
     def nbytes(self) -> int:
-        """Device bytes of every array of the layout."""
+        """Device bytes of every array the layout holds."""
         return sum(t.numel() * t.element_size() for t in (
             self.row_ptr, self.col_idx, self.row_val, self.col_ptr, self.row_idx, self.col_val,
             self.chunk_ptr, self.chunk_start, self.tile_row, self.tile_ptr, self.tile_perm,
-            self.slab_tile))
+            self.slab_tile) if t is not None)
 
 
 def _ptr(counts: Tensor) -> Tensor:
@@ -191,9 +208,11 @@ def default_slabs(device: torch.device) -> int:
     return DEFAULT_SLABS
 
 
-def from_coo(rows: Tensor, cols: Tensor, vals: Tensor, n_rows: int, dim: int) -> SparseLayout:
+def from_coo(rows: Tensor, cols: Tensor, vals: Tensor, n_rows: int, dim: int,
+             csc: Optional[bool] = None) -> SparseLayout:
     """The layout of the COO triplets, built on their device, with one slab
-    per multiprocessor of a CUDA device (`default_slabs`)."""
+    per multiprocessor of a CUDA device (`default_slabs`). The CSC copy is
+    built if `csc`, or, with `csc=None`, if dim >= CSC_FROM_DIM."""
     if not (rows.shape == cols.shape == vals.shape and vals.ndim == 1):
         raise ValueError("rows, cols and vals must be 1-D of one length")
     if vals.dtype != torch.float32:
@@ -212,30 +231,38 @@ def from_coo(rows: Tensor, cols: Tensor, vals: Tensor, n_rows: int, dim: int) ->
     row_ptr = _ptr(torch.bincount(rows, minlength=n_rows))
     tile_row = row_tiles(row_ptr)
     tile_ptr = row_ptr[tile_row]
+    return SparseLayout(
+        n_rows=int(n_rows), dim=int(dim),
+        row_ptr=row_ptr, col_idx=cols.int(), row_val=vals,
+        **_csc(rows, cols, vals, dim, dim >= CSC_FROM_DIM if csc is None else csc),
+        tile_row=tile_row, tile_ptr=tile_ptr, tile_perm=tile_permutation(tile_ptr, cols, dim),
+        slab_tile=slab_table(tile_row, tile_ptr, default_slabs(rows.device)),
+    )
+
+
+def _csc(rows: Tensor, cols: Tensor, vals: Tensor, dim: int, build: bool) -> Dict[str, Optional[Tensor]]:
+    """The CSC fields of the layout of CSR-ordered entries: built, or None."""
+    if not build:
+        return dict.fromkeys(("col_ptr", "row_idx", "col_val", "chunk_ptr", "chunk_start"))
     # A stable sort by column keeps the rows of each column ascending.
     corder = torch.sort(cols, stable=True).indices
     col_counts = torch.bincount(cols, minlength=dim)
     col_ptr = _ptr(col_counts)
     n_per_col = (col_counts + CHUNK - 1) // CHUNK
     chunk_ptr = _ptr(n_per_col)
-    chunk_col = torch.repeat_interleave(torch.arange(dim, device=key.device), n_per_col)
-    within = torch.arange(chunk_col.shape[0], device=key.device) - chunk_ptr[chunk_col]
+    chunk_col = torch.repeat_interleave(torch.arange(dim, device=cols.device), n_per_col)
+    within = torch.arange(chunk_col.shape[0], device=cols.device) - chunk_ptr[chunk_col]
     chunk_start = torch.cat([col_ptr[chunk_col] + within * CHUNK, col_ptr[-1:]])
-    return SparseLayout(
-        n_rows=int(n_rows), dim=int(dim),
-        row_ptr=row_ptr, col_idx=cols.int(), row_val=vals,
-        col_ptr=col_ptr, row_idx=rows[corder].int(), col_val=vals[corder],
-        chunk_ptr=chunk_ptr, chunk_start=chunk_start,
-        tile_row=tile_row, tile_ptr=tile_ptr, tile_perm=tile_permutation(tile_ptr, cols, dim),
-        slab_tile=slab_table(tile_row, tile_ptr, default_slabs(key.device)),
-    )
+    return dict(col_ptr=col_ptr, row_idx=rows[corder].int(), col_val=vals[corder],
+                chunk_ptr=chunk_ptr, chunk_start=chunk_start)
 
 
-def from_ell(features: SparseFeatures) -> SparseLayout:
-    """The layout of a 2-D ELL matrix, built on its device."""
+def from_ell(features: SparseFeatures, csc: Optional[bool] = None) -> SparseLayout:
+    """The layout of a 2-D ELL matrix, built on its device (`csc` as in
+    `from_coo`)."""
     if features.indices.ndim != 2 or features.indices.shape != features.values.shape:
         raise ValueError("from_ell takes (N, K) ELL planes of one shape")
     n, k = features.indices.shape
     rows = torch.arange(n, device=features.device).repeat_interleave(k)
     return from_coo(rows, features.indices.reshape(-1), features.values.reshape(-1),
-                    n, features.dim)
+                    n, features.dim, csc)

@@ -7,7 +7,7 @@ Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
     PHOTON_DENSE_BF16X default) and that copy is used for both training and
     scoring, so the coordinate-descent residuals stay consistent; the
     objective then runs the fused CUDA kernels on it (half the bytes of X
-    per pass). A sparse shard trains and scores on its CSR/CSC layout
+    per pass). A sparse shard trains and scores on its sparse layout
     (data/sparse_layout.py), built once per dataset and cached there; on
     the card that is the sparse CUDA kernels, with no size or padding gate.
     SIMPLE coefficient variances are computed after the solve when the

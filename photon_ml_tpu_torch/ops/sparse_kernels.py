@@ -19,14 +19,16 @@ caller in ops/objective.py):
         u = wt l'(z, y), grad_raw = X^T u, sum_u = sum u
 
 The layout has no levels, so there is no `z_extra` and no COO tail.
-`matvec` and `fused_value_gradient_sums` run one of two routes, chosen from
-`dim` alone (`matvec_route`, `fused_route`): SINGLE_STREAM streams the row
-tiles once through shared memory, with w (and the fused gradient) held
-there, up to MATVEC_STREAM_MAX_DIM / FUSED_STREAM_MAX_DIM; TWO_PASS reads
-the CSR rows forward and the CSC chunks backward on any width. `rmatvec`
-is always the CSC kernel. `matvec_two_pass` and
+Each kernel runs one of two routes, chosen from `dim` alone (`matvec_route`,
+`rmatvec_route`, `fused_route`): SINGLE_STREAM streams the row tiles once
+through shared memory, with w and/or the gradient held there, up to
+MATVEC_STREAM_MAX_DIM / RMATVEC_STREAM_MAX_DIM / FUSED_STREAM_MAX_DIM (the
+widths live in data/sparse_layout.py, which builds the CSC copy only above
+the narrowest); TWO_PASS reads the CSR rows forward and the CSC chunks
+backward on any width. `matvec_two_pass`, `rmatvec_two_pass` and
 `fused_value_gradient_sums_two_pass` take the two-pass route on any width,
-so that the two can be timed side by side.
+so that the routes can be timed side by side; on a CUDA layout without
+the CSC copy, a route that reads it raises instead of building it.
 
 Dispatch is by where the tensors lie, and nowhere else: a CUDA layout
 launches the kernel or raises; a CPU layout takes the plain PyTorch version
@@ -43,7 +45,12 @@ from typing import Dict, Tuple
 
 import torch
 
-from photon_ml_tpu_torch.data.sparse_layout import SparseLayout
+from photon_ml_tpu_torch.data.sparse_layout import (
+    FUSED_STREAM_MAX_DIM,
+    MATVEC_STREAM_MAX_DIM,
+    RMATVEC_STREAM_MAX_DIM,
+    SparseLayout,
+)
 from photon_ml_tpu_torch.ops import cuda_build
 from photon_ml_tpu_torch.ops.glm_kernels import Scalar, as_scalar
 from photon_ml_tpu_torch.ops.losses import LOSS_IDS, PointwiseLoss
@@ -58,11 +65,8 @@ LAUNCHES: Dict[str, int] = {"sparse_fused": 0, "sparse_matvec": 0, "sparse_rmatv
 
 SINGLE_STREAM = "single_stream"
 TWO_PASS = "two_pass"
-# Widest dim whose w (and, fused, gradient accumulator) fits one block's
-# shared memory beside the tile ring: csrc/sparse_glm.cu's Plan<true>::kMaxDim
-# and Plan<false>::kMaxDim, which `sparse_stream_max_dim` reports.
-FUSED_STREAM_MAX_DIM = 16384
-MATVEC_STREAM_MAX_DIM = 28672
+# `sparse_stream_max_dim`'s kernel numbers.
+STREAM_KERNELS = {"matvec": 0, "fused": 1, "rmatvec": 2}
 
 
 def reset_launch_counts() -> None:
@@ -85,8 +89,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sparse_fused_tiles.restype = i
     lib.sparse_matvec_rows.argtypes = [ll, i, p, p, p, p, p, p]
     lib.sparse_matvec_rows.restype = i
-    lib.sparse_rmatvec.argtypes = [i, i, ll, p, p, p, p, p, p, p, p]
-    lib.sparse_rmatvec.restype = i
+    lib.sparse_rmatvec_tiles.argtypes = [i, i, p, p, p, p, p, p, i, p, p, p, p, p]
+    lib.sparse_rmatvec_tiles.restype = i
+    lib.sparse_rmatvec_chunks.argtypes = [i, i, ll, p, p, p, p, p, p, p, p]
+    lib.sparse_rmatvec_chunks.restype = i
     lib.sparse_fused_two_pass.argtypes = [i, ll, i, p, p, p, p, p, p, p, p, p, p, ll, p, p, p, p, p,
                                           p, p]
     lib.sparse_fused_two_pass.restype = i
@@ -104,6 +110,14 @@ def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _require_csc(layout: SparseLayout, what: str) -> None:
+    """Raise where a route that reads the CSC copy meets a layout without it."""
+    if not layout.has_csc:
+        raise ValueError(
+            f"{what} reads the CSC copy, which this layout was built without (dim {layout.dim}); "
+            f"build it with sparse_layout.from_coo/from_ell(..., csc=True)")
 
 
 # -------------------------------------------------------------- validation
@@ -164,6 +178,11 @@ def matvec_route(dim: int) -> str:
     return SINGLE_STREAM if dim <= MATVEC_STREAM_MAX_DIM else TWO_PASS
 
 
+def rmatvec_route(dim: int) -> str:
+    """The route of `rmatvec` at this width."""
+    return SINGLE_STREAM if dim <= RMATVEC_STREAM_MAX_DIM else TWO_PASS
+
+
 def fused_route(dim: int) -> str:
     """The route of `fused_value_gradient_sums` at this width."""
     return SINGLE_STREAM if dim <= FUSED_STREAM_MAX_DIM else TWO_PASS
@@ -205,21 +224,44 @@ def _matvec(layout: SparseLayout, w: Tensor, route: str) -> Tensor:
 
 
 def rmatvec(layout: SparseLayout, u: Tensor, *, square: bool = False) -> Tensor:
-    """g = X^T u, or (X o X)^T u with `square`: the CUDA kernel for a CUDA
-    layout, the plain version on the CPU."""
+    """g = X^T u, or (X o X)^T u with `square`: the CUDA kernel of
+    `rmatvec_route(dim)` for a CUDA layout, the plain version on the CPU."""
+    return _rmatvec(layout, u, square, rmatvec_route(layout.dim))
+
+
+def rmatvec_two_pass(layout: SparseLayout, u: Tensor, square: bool = False) -> Tensor:
+    """g = X^T u (or (X o X)^T u) on the two-pass route's CSC kernel, on any
+    width; a CUDA layout must carry the CSC copy."""
+    return _rmatvec(layout, u, square, TWO_PASS)
+
+
+def _rmatvec(layout: SparseLayout, u: Tensor, square: bool, route: str) -> Tensor:
     _check_vectors(layout, {}, {"u": u})
     if layout.device.type == "cpu":
         return rmatvec_plain(layout, u, square)
+    if route == TWO_PASS:
+        _require_csc(layout, "sparse_rmatvec (two_pass)")
     lib = _library()
-    g = torch.empty(layout.dim, dtype=torch.float32, device=layout.device)
-    chunk_sum = torch.empty(layout.n_chunks, dtype=torch.float32, device=layout.device)
-    with torch.cuda.device(layout.device):
-        rc = lib.sparse_rmatvec(
-            int(square), layout.dim, layout.n_chunks, layout.chunk_start.data_ptr(),
-            layout.chunk_ptr.data_ptr(), layout.row_idx.data_ptr(), layout.col_val.data_ptr(),
-            u.data_ptr(), chunk_sum.data_ptr(), g.data_ptr(), _stream(layout.device),
-        )
-    _check_rc(lib, rc, "sparse_rmatvec launch")
+    dev = layout.device
+    g = torch.empty(layout.dim, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        if route == SINGLE_STREAM:
+            # The row tiles only: no CSC array is passed, none is read.
+            partial = torch.empty(layout.n_slabs * layout.dim, dtype=torch.float32, device=dev)
+            rc = lib.sparse_rmatvec_tiles(
+                int(square), layout.dim, layout.row_ptr.data_ptr(), layout.col_idx.data_ptr(),
+                layout.row_val.data_ptr(), layout.tile_perm.data_ptr(), layout.tile_row.data_ptr(),
+                layout.tile_ptr.data_ptr(), layout.n_slabs, layout.slab_tile.data_ptr(),
+                u.data_ptr(), partial.data_ptr(), g.data_ptr(), _stream(dev),
+            )
+        else:
+            chunk_sum = torch.empty(layout.n_chunks, dtype=torch.float32, device=dev)
+            rc = lib.sparse_rmatvec_chunks(
+                int(square), layout.dim, layout.n_chunks, layout.chunk_start.data_ptr(),
+                layout.chunk_ptr.data_ptr(), layout.row_idx.data_ptr(), layout.col_val.data_ptr(),
+                u.data_ptr(), chunk_sum.data_ptr(), g.data_ptr(), _stream(dev),
+            )
+    _check_rc(lib, rc, f"sparse_rmatvec launch ({route})")
     LAUNCHES["sparse_rmatvec"] += 1
     return g
 
@@ -250,6 +292,8 @@ def _fused(
     if layout.device.type == "cpu":
         return fused_value_gradient_sums_plain(
             loss, w_eff, shift, layout, labels, offsets, weights)
+    if route == TWO_PASS:
+        _require_csc(layout, "sparse_fused (two_pass)")
     lib = _library()
     dev = layout.device
     shift_t = as_scalar(shift, w_eff)

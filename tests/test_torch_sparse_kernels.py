@@ -1,8 +1,11 @@
 """The sparse kernels' plain versions against the JAX package's Pallas
-kernels (interpret mode) on the same COO matrix; the CSR/CSC layout build;
-the ELL container and its host packer against the JAX package's."""
+kernels (interpret mode) on the same COO matrix; the CSR/CSC layout build,
+with the CSC copy only where it is asked for or a route may read it; the
+ELL container and its host packer against the JAX package's."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -153,7 +156,7 @@ def test_layout_drops_padding_sums_duplicates_and_keeps_empty_rows_and_columns_z
     val = np.array([[1.0, 2.0, 5.0, 0.5], [0, 0, 0, 0], [3.0, -1.0, 0, 0],
                     [4.0, 2.0, 1.0, -2.0], [0, 0, 0, 0]], np.float32)
     sf = SparseFeatures(torch.from_numpy(idx), torch.from_numpy(val), 7)
-    L = sparse_layout.from_ell(sf)
+    L = sparse_layout.from_ell(sf, csc=True)
     assert L.nnz == 2 + 2 + 4  # padding dropped, the three (0, 2) entries merged into one
     assert L.row_ptr.tolist() == [0, 2, 2, 4, 8, 8]
     assert L.col_idx[:2].tolist() == [2, 3] and L.row_val[:2].tolist() == [3.5, 5.0]
@@ -179,7 +182,7 @@ def test_layout_cuts_hot_columns_into_chunks_that_never_straddle_a_column():
     cols = np.where(np.arange(2 * n) % 2 == 0, 7, rng.integers(0, d, 2 * n))  # column 7 is hot
     vals = rng.normal(size=2 * n).astype(np.float32)
     L = sparse_layout.from_coo(torch.from_numpy(rows), torch.from_numpy(cols),
-                               torch.from_numpy(vals), n, d)
+                               torch.from_numpy(vals), n, d, csc=True)
     counts = (L.col_ptr[1:] - L.col_ptr[:-1]).numpy()
     per_col = (L.chunk_ptr[1:] - L.chunk_ptr[:-1]).numpy()
     assert counts[7] > 5 * sparse_layout.CHUNK
@@ -194,6 +197,52 @@ def test_layout_cuts_hot_columns_into_chunks_that_never_straddle_a_column():
     M = _dense(rows, cols, vals, n, d)
     np.testing.assert_allclose(sparse_kernels.rmatvec(L, torch.from_numpy(u)).numpy(), M.T @ u,
                                rtol=1e-5, atol=1e-4)
+
+
+CSC_FIELDS = ("col_ptr", "row_idx", "col_val", "chunk_ptr", "chunk_start")
+
+
+@pytest.mark.parametrize("csc", [None, True, False])
+@pytest.mark.parametrize("wide", [False, True])
+def test_layout_keeps_the_csc_copy_only_where_asked_or_needed(csc, wide):
+    rng = np.random.default_rng(13)
+    n = 500
+    d = sparse_layout.CSC_FROM_DIM if wide else sparse_layout.CSC_FROM_DIM - 1
+    rows, cols = rng.integers(0, n, 4000), rng.integers(0, d, 4000)
+    _, first = np.unique(rows * d + cols, return_index=True)
+    rows, cols = rows[first], cols[first]
+    vals = rng.normal(size=len(rows)).astype(np.float32)
+    coo = (torch.from_numpy(rows), torch.from_numpy(cols), torch.from_numpy(vals), n, d)
+    L = sparse_layout.from_coo(*coo, csc=csc)
+    full = sparse_layout.from_coo(*coo, csc=True)
+    want = wide if csc is None else csc  # None: only where a two-pass route may read it
+    assert L.has_csc == want
+    assert all((getattr(L, f) is not None) == want for f in CSC_FIELDS)
+    csc_bytes = sum(getattr(full, f).numel() * getattr(full, f).element_size() for f in CSC_FIELDS)
+    assert csc_bytes == 8 * L.nnz + 8 * (d + 1) * 2 + 8 * (full.n_chunks + 1)
+    assert L.nbytes() == full.nbytes() - (0 if want else csc_bytes)
+    assert L.n_chunks == (full.n_chunks if want else 0)
+    for f in dataclasses.fields(L):  # the CSR arrays and the tiles are the same either way
+        if f.name not in CSC_FIELDS and f.name not in ("n_rows", "dim"):
+            assert torch.equal(getattr(L, f.name), getattr(full, f.name)), f.name
+    w, u = torch.randn(d), torch.randn(n)
+    assert torch.equal(sparse_kernels.matvec(L, w), sparse_kernels.matvec_plain(full, w))
+    for square in (False, True):
+        assert torch.equal(sparse_kernels.rmatvec(L, u, square=square),
+                           sparse_kernels.rmatvec_plain(full, u, square))
+    args = (losses.LOGISTIC, 0.1 * w, 0.0, L, (u > 0).float(), u, torch.ones(n))
+    for g, r in zip(sparse_kernels.fused_value_gradient_sums(*args),
+                    sparse_kernels.fused_value_gradient_sums_plain(*args[:3], full, *args[4:])):
+        assert torch.equal(g, r)
+
+
+def test_a_route_that_reads_the_csc_copy_raises_without_it():
+    L = sparse_layout.from_coo(torch.tensor([0, 1]), torch.tensor([2, 3]),
+                               torch.tensor([1.0, 2.0]), 4, 5, csc=False)
+    with pytest.raises(ValueError, match="sparse_rmatvec \\(two_pass\\).*csc=True"):
+        sparse_kernels._require_csc(L, "sparse_rmatvec (two_pass)")
+    sparse_kernels._require_csc(sparse_layout.from_coo(
+        torch.tensor([0, 1]), torch.tensor([2, 3]), torch.tensor([1.0, 2.0]), 4, 5, csc=True), "any")
 
 
 def test_layout_rejects_entries_outside_the_matrix():

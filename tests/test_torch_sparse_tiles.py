@@ -8,7 +8,10 @@ the kernels do (slab by slab, tile by tile; a row's entries lane-strided
 over 32 lanes then summed by a butterfly; a row longer than a tile
 thread-strided over the 512 consumer threads; u by producer lane; each run
 of one column in the tile's column order summed in order and added to the
-slab's accumulator once; slabs added in order, in double), in float32."""
+slab's accumulator once; slabs added in order, in double), in float32.
+X^T u's kernel rounds each term (val * u, or (val * val) * u) on its own
+and adds the terms of a run in order; a row longer than a tile adds its
+terms to the accumulator one by one."""
 
 from __future__ import annotations
 
@@ -72,11 +75,11 @@ def _shape(name: str, seed: int = 31):
     return rows, cols, vals, n, d, empty_rows, empty_cols
 
 
-def _layout(rows, cols, vals, n, d, n_slabs=None):
+def _layout(rows, cols, vals, n, d, n_slabs=None, csc=None):
     """The layout, cut into `n_slabs` slabs where given (the kernels launch one
     block per slab; a CUDA layout has one per multiprocessor)."""
     L = sparse_layout.from_coo(torch.from_numpy(rows), torch.from_numpy(cols),
-                               torch.from_numpy(vals), n, d)
+                               torch.from_numpy(vals), n, d, csc=csc)
     if n_slabs is None:
         return L
     return dataclasses.replace(L, slab_tile=sparse_layout.slab_table(L.tile_row, L.tile_ptr, n_slabs))
@@ -94,7 +97,7 @@ def _scale_rel(got, ref) -> float:
 @pytest.mark.parametrize("name", SHAPES)
 def test_layout_tiles_permutation_and_slabs(name, n_slabs):
     rows, cols, vals, n, d, _, _ = _shape(name)
-    L = _layout(rows, cols, vals, n, d, n_slabs)
+    L = _layout(rows, cols, vals, n, d, n_slabs, csc=True)
     row_ptr, tile_row, tile_ptr = L.row_ptr.numpy(), L.tile_row.numpy(), L.tile_ptr.numpy()
     lens = np.diff(row_ptr)
     # Tiles start at row boundaries, cover every row once, in order.
@@ -129,7 +132,7 @@ def test_layout_tiles_permutation_and_slabs(name, n_slabs):
     per_slab = np.diff(work[slab_tile])
     assert per_slab.max() <= work[-1] / n_slabs + (t_entries + t_rows).max()
     # A rebuild is identical.
-    again = _layout(rows, cols, vals, n, d, n_slabs)
+    again = _layout(rows, cols, vals, n, d, n_slabs, csc=True)
     for f in ("row_ptr", "col_idx", "row_val", "tile_row", "tile_ptr", "tile_perm", "slab_tile",
               "col_ptr", "row_idx", "col_val", "chunk_ptr", "chunk_start"):
         assert torch.equal(getattr(L, f), getattr(again, f)), f
@@ -147,13 +150,20 @@ def test_routes_follow_dim_and_match_the_cuda_source():
         r"kMaxDim = FUSED \? (\d+) : (\d+);", src).groups())
     assert (fused_max, matvec_max) == (sparse_kernels.FUSED_STREAM_MAX_DIM,
                                        sparse_kernels.MATVEC_STREAM_MAX_DIM)
+    rmatvec_max = int(re.search(r"struct RmatvecPlan \{.*?kMaxDim = (\d+);", src, re.S).group(1))
+    assert rmatvec_max == sparse_kernels.RMATVEC_STREAM_MAX_DIM
+    # The layout holds the widths; it builds the CSC copy above the narrowest.
+    assert sparse_layout.CSC_FROM_DIM == min(fused_max, matvec_max, rmatvec_max) + 1
     assert int(re.search(r"constexpr int kTile = (\d+);", src).group(1)) == sparse_layout.TILE
     assert int(re.search(r"constexpr int kTileRows = (\d+);", src).group(1)) == sparse_layout.TILE_ROWS
     ss, tp = sparse_kernels.SINGLE_STREAM, sparse_kernels.TWO_PASS
     assert sparse_kernels.fused_route(fused_max) == ss and sparse_kernels.fused_route(fused_max + 1) == tp
     assert sparse_kernels.matvec_route(matvec_max) == ss and sparse_kernels.matvec_route(matvec_max + 1) == tp
-    assert sparse_kernels.fused_route(16384) == ss  # the main path's width
-    assert sparse_kernels.fused_route(200003) == tp
+    assert sparse_kernels.rmatvec_route(rmatvec_max) == ss
+    assert sparse_kernels.rmatvec_route(rmatvec_max + 1) == tp
+    for route in (sparse_kernels.fused_route, sparse_kernels.matvec_route, sparse_kernels.rmatvec_route):
+        assert route(16384) == ss  # the main path's width
+        assert route(200003) == tp
 
 
 def test_two_pass_entries_take_the_plain_version_on_cpu_without_counting():
@@ -166,6 +176,19 @@ def test_two_pass_entries_take_the_plain_version_on_cpu_without_counting():
     got = sparse_kernels.fused_value_gradient_sums_two_pass(*args)
     for g, r in zip(got, sparse_kernels.fused_value_gradient_sums_plain(*args)):
         assert torch.equal(g, r)
+    assert sparse_kernels.LAUNCHES == before
+
+
+@pytest.mark.parametrize("square", [False, True])
+def test_rmatvec_two_pass_takes_the_plain_version_on_cpu_without_counting(square):
+    rows, cols, vals, n, d, _, _ = _shape("hot_0.25")
+    u = torch.randn(n)
+    before = dict(sparse_kernels.LAUNCHES)
+    for csc in (False, True):  # the CPU needs no CSC copy
+        L = _layout(rows, cols, vals, n, d, csc=csc)
+        got = sparse_kernels.rmatvec_two_pass(L, u, square)
+        assert torch.equal(got, sparse_kernels.rmatvec_plain(L, u, square))
+        assert torch.equal(got, sparse_kernels.rmatvec(L, u, square=square))
     assert sparse_kernels.LAUNCHES == before
 
 
@@ -256,6 +279,37 @@ def _emulate(L, w, y=None, off=None, wt=None, shift=0.0, loss=None):
             float(lv[empty].astype(np.float64).sum()))
 
 
+def _emulate_rmatvec(L, u, square=False):
+    """g = X^T u (or (X o X)^T u) as the single-stream X^T u kernel computes it."""
+    row_ptr, col_idx, val = L.row_ptr.numpy(), L.col_idx.numpy(), L.row_val.numpy()
+    tile_ptr, slab_tile = L.tile_ptr.numpy(), L.slab_tile.numpy()
+    perm = L.tile_perm.numpy().astype(np.int64) & 0xFFFF
+    u = np.asarray(u, np.float32)
+    row_of = np.repeat(np.arange(L.n_rows), np.diff(row_ptr))
+    term = (val * val if square else val) * u[row_of]  # float32, each product rounded
+    g = np.zeros(L.dim)
+    for s in range(L.n_slabs):
+        acc = np.zeros(L.dim, np.float32)
+        for t in range(slab_tile[s], slab_tile[s + 1]):
+            e0, e1 = tile_ptr[t], tile_ptr[t + 1]
+            if e1 - e0 > sparse_layout.TILE:  # one row, its terms added one by one
+                acc[col_idx[e0:e1]] = acc[col_idx[e0:e1]] + term[e0:e1]
+                continue
+            at = np.empty(e1 - e0, np.int64)
+            at[perm[e0:e1]] = np.arange(e0, e1)  # column order
+            c, p = col_idx[at], term[at]
+            start = 0
+            while start < len(at):  # each run, in order, added once
+                end, run = start + 1, p[start]
+                while end < len(at) and c[end] == c[start]:
+                    run = np.float32(run + p[end])
+                    end += 1
+                acc[c[start]] = np.float32(acc[c[start]] + run)
+                start = end
+        g += acc.astype(np.float64)
+    return g.astype(np.float32)
+
+
 @pytest.fixture(scope="module", params=SHAPES)
 def case(request):
     rows, cols, vals, n, d, empty_rows, empty_cols = _shape(request.param)
@@ -299,3 +353,15 @@ def test_emulated_fused_sums_match_plain_and_pallas(case, loss):
     assert np.all(grad[:case["empty_cols"]] == 0.0)
     if len(case["empty_rows"]):  # empty rows count in the value: without them it misses
         assert _scale_rel(value - empty_value, plain[0]) > TOL
+
+
+@pytest.mark.parametrize("square", [False, True])
+def test_emulated_rmatvec_matches_plain_and_pallas(case, square):
+    L, n = case["layout"], case["n"]
+    u = case["rng"].normal(size=n).astype(np.float32)
+    g = _emulate_rmatvec(L, u, square)
+    assert _scale_rel(g, sparse_kernels.rmatvec_plain(L, torch.from_numpy(u), square)) <= TOL
+    ref = pallas_sparse.rmatvec(case["bf"], jnp.asarray(u), interpret=True, square=square)
+    assert _scale_rel(g, ref) <= TOL
+    assert np.all(g[:case["empty_cols"]] == 0.0)
+    assert np.all(g[np.bincount(L.col_idx.numpy(), minlength=L.dim) == 0] == 0.0)
