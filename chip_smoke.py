@@ -6,8 +6,10 @@
 Phases (any failure exits non-zero; there is no fallback anywhere):
 
 1. Build the CUDA kernels (`photon_ml_tpu_torch/csrc/glm_fused.cu` and
-   `csrc/sparse_glm.cu`, one nvcc each, started together) from the sources
-   in this checkout; print the build times and ptxas' register/spill lines.
+   `csrc/sparse_glm.cu`, one nvcc each) and the native Avro library
+   (`photon_ml_tpu_torch/native/*.cc`, one g++, with deflate where the host
+   has zlib), all started together, from the sources in this checkout;
+   print the build times and ptxas' register/spill lines.
 2. Kernel vs plain version on the card at the fixed effect's full width
    (1,048,576 x 512): `value_grad` for the four losses with f32 and bf16 X,
    and `hvp` for the logistic loss. Each result is held against the plain
@@ -39,8 +41,9 @@ which every kernel takes on its single stream) built on the card and
 timed, then a second layout of the same entries with the CSC copy, for the
 two-pass route and the cuSPARSE transposes of phase 2s alone:
 
-2s. Each sparse kernel (ops/sparse_kernels.py) against its plain version on
-   the main path's layout under PORT_TOLERANCES["sparse_kernel_vs_plain"],
+2s. Each sparse kernel (ops/sparse_kernels.py) against its plain version
+   (run on float64 copies of the vectors) on the main path's layout under
+   PORT_TOLERANCES["sparse_kernel_vs_plain"],
    called twice (bit-identical), timed beside its plain version, one
    cuSPARSE call (torch.sparse_csr_tensor; the port never calls it) and its
    bound; each row names its route (single_stream or two_pass, chosen from
@@ -62,6 +65,37 @@ two-pass route and the cuSPARSE transposes of phase 2s alone:
    one profiled sweep of 3s (4s-b) and one profiled TRON + variances solve
    (4s-c).
 5s. Phase 5's card-vs-CPU check with a small sparse fixed effect.
+
+bench.py's e2e_from_disk cell (bench.py:4657-4790) through the port, at
+4,000,000 rows (r08 ran 20,000,000): bench's generator (seed 23; 27,586
+users, 5,405 movies; 8 uniform ids a row over dim 200, normal values)
+written as two Avro files with integer userId/movieId tags by the port's
+native writer (photon_ml_tpu_torch/native/, built by g++), read by
+io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
+8 ids and the intercept column, dim 201):
+
+2e. The sparse kernels (fused, X w, X^T u plain and squared) on the layout
+   of the ingested shard, as in 2s (checked against the plain versions,
+   twice, timed beside the plain version, cuSPARSE and the bound): a narrow
+   shape with one hot column, the intercept, in every row. Then the same
+   on two control shapes: the 8 ids alone, and the 8 ids with a 9th
+   uniform id in place of the intercept.
+3e. Writing (seconds, MB), ingest (seconds and every INGEST_STAGES key,
+   `other`, `ingest_path`, `streaming`, `chunks`; the phase fails unless
+   the route is native, streamed or not, with 2 chunks), the layout (seconds,
+   MiB), then one coordinate-descent sweep of the bench's model with its
+   configs (bench.py:4757-4789): the fixed effect (L-BFGS, 10 iterations,
+   tol 1e-6, L2 1.0) and per-user and per-movie random effects on "g"
+   (5 iterations, tol 1e-5, L2 10.0, min_bucket 8, active_upper_bound
+   256/512; each bucket's ELL block made dense on the card for the batched
+   solve), after a warm-up sweep: per-coordinate seconds, bucket shapes,
+   the sparse launches (sparse_fused = the fixed effect's objective
+   passes, sparse_matvec nonzero, dense kernels 0), peak memory and the
+   training AUC (above 0.5); then one profiled sweep (3e-b).
+5e. A small fit from files (12,000 rows: 80 users, 16 movies) on the card
+   and on the CPU, two seeds, under PORT_TOLERANCES["card_vs_cpu_glmix"]:
+   fixed-effect coefficients, AUC, and each random effect held on its
+   objective as in phases 5 and 5s.
 
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
 parallel/), each rank a process started by parallel/launch.py that loads
@@ -95,7 +129,7 @@ print which backend each used.
    CPU process, under PORT_TOLERANCES["card_vs_cpu_glmix"].
 
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
-3s, 4s, and 3d and 4d in each rank) and read just after. The last three
+3s, 4s, 3e, and 3d and 4d in each rank) and read just after. The last three
 lines of standard output are
 the `kernels` JSON line, the card's name and power limit from nvidia-smi,
 and `{"ok": true, "device": {...}}`. Data comes from numpy with --seed;
@@ -222,7 +256,7 @@ def re_objective_readings(ds, red, offsets, loss, l2: float, matrices):
     its cold start (its row zeroed), which a sound limit must stay below."""
     import torch
 
-    from photon_ml_tpu_torch.data.containers import LabeledData
+    from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures, ell_block_to_dense
     from photon_ml_tpu_torch.data.game_dataset import gather_block_data
     from photon_ml_tpu_torch.ops import objective
     from photon_ml_tpu_torch.optimize import problem
@@ -241,6 +275,8 @@ def re_objective_readings(ds, red, offsets, loss, l2: float, matrices):
         real = b.mask.sum(dim=1) > 0  # padding lanes hold no rows
         rows = b.entity_rows[real]
         blk = gather_block_data(ds, red.feature_shard, b, offsets)
+        if isinstance(blk.features, SparseFeatures):  # a sparse shard's block, made dense
+            blk = dataclasses.replace(blk, features=ell_block_to_dense(blk.features))
         blk = LabeledData(*(t[real].double() for t in
                             (blk.features, blk.labels, blk.offsets, blk.weights)))
         f_of = lambda W: objective.value(loss, W, blk, None, l2)
@@ -392,14 +428,15 @@ def long_row_layout(gen, dev, n: int, dim: int, k: int, empty_cols: int, empty_e
     return sparse_layout.from_coo(torch.cat(parts_r), torch.cat(parts_c), torch.cat(parts_v), n, dim)
 
 
-def sparse_kernel_checks(layout, layout_csc, dev, seed: int, bw: float, f32_rate: float):
-    """Phase 2s: each sparse kernel against its plain version on `layout` (the
-    main path's), twice (bit-identical), timed beside its plain version, a
-    cuSPARSE call (torch.sparse_csr_tensor; the port never calls it), its
-    bound and the two-pass route's time on `layout_csc` (the same entries
-    with the CSC copy, which the cuSPARSE transposes read too); then three
-    untimed shapes off the main path. Returns (rows by kernel name for the
-    record line, failures)."""
+def sparse_kernel_checks(layout, layout_csc, dev, seed: int, bw: float, f32_rate: float,
+                         phase: str = "2s", off_path: bool = True, shape: str = "main"):
+    """Phase 2s (and 2e on the ingested shard): each sparse kernel against its
+    plain version on `layout` (the main path's), twice (bit-identical), timed
+    beside its plain version, a cuSPARSE call (torch.sparse_csr_tensor; the
+    port never calls it), its bound and the two-pass route's time on
+    `layout_csc` (the same entries with the CSC copy, which the cuSPARSE
+    transposes read too); then, with `off_path`, four untimed shapes off the
+    main path. Returns (rows by kernel name for the record line, failures)."""
     import torch
 
     from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
@@ -450,6 +487,15 @@ def sparse_kernel_checks(layout, layout_csc, dev, seed: int, bw: float, f32_rate
                         entry_bytes + 4 * (3 * n + 2 * d + 2), 4 * nnz))
         return out
 
+    def references(L, v):
+        """Each check's plain version on float64 copies of its vectors: what
+        the kernels are held to. (The float32 plain version adds X^T u with
+        index_add_ in atomic order, whose error on a hot column, the e2e
+        shape's intercept with 4M entries, reaches the tolerance by
+        itself and differs run to run; it is still what `plain_ms` times.)"""
+        v64 = {k: t.double() for k, t in v.items()}
+        return [run_p for _, _, _, _, _, run_p, _, _ in variants(L, v64)]
+
     def check(tag, got, again, ref):
         max_abs, rel = compare(got, ref)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -472,12 +518,13 @@ def sparse_kernel_checks(layout, layout_csc, dev, seed: int, bw: float, f32_rate
                "sparse_rmatvec_square": lambda: torch.mv(XT2, v["u"]),
                "sparse_fused": lambda: (torch.mv(X, v["w"]), torch.mv(XT, v["u"]))}
     rows = {}
-    for name, loss, route, run_k, run_2p, run_p, nbytes, ops in variants(layout, v, Lc):
+    for (name, loss, route, run_k, run_2p, run_p, nbytes, ops), run_ref in zip(
+            variants(layout, v, Lc), references(layout, v)):
         tag = name if loss is None else f"{name}/{loss.name}"
-        got, again, ref = run_k(), run_k(), run_p()
+        got, again, ref = run_k(), run_k(), run_ref()
         torch.cuda.synchronize()
-        row = dict(phase="2s", kernel=name, loss=None if loss is None else loss.name, route=route,
-                   n=n, d=d, nnz=layout.nnz, **check(tag, got, again, ref))
+        row = dict(phase=phase, shape=shape, kernel=name, loss=None if loss is None else loss.name,
+                   route=route, n=n, d=d, nnz=layout.nnz, **check(tag, got, again, ref))
         t_bytes, t_ops = nbytes / bw * 1e3, ops / f32_rate * 1e3
         # The two-pass route on the same inputs, checked and timed beside.
         row["two_pass"] = check(f"{tag}/two_pass", run_2p(), run_2p(), ref)
@@ -496,6 +543,8 @@ def sparse_kernel_checks(layout, layout_csc, dev, seed: int, bw: float, f32_rate
         if loss in (None, LOGISTIC):  # the main path runs the logistic loss
             rows.setdefault(name, row)
     del X, XT, XT2, Lc
+    if not off_path:
+        return rows, failures
 
     # Off the main path, untimed: a skewed shape (about 30% of entries on 16
     # columns, every 97th row empty); a wide one (dim 200,003, beyond every
@@ -526,9 +575,9 @@ def sparse_kernel_checks(layout, layout_csc, dev, seed: int, bw: float, f32_rate
     for tag, build, empty_every, empty_cols in shapes:
         L = build()
         vx = vectors(L)
-        for name, loss, route, run_k, _, run_p, _, _ in variants(L, vx):
+        for (name, loss, route, run_k, _, _, _, _), run_ref in zip(variants(L, vx), references(L, vx)):
             vtag = f"{tag}/{name}" + ("" if loss is None else f"/{loss.name}")
-            got, again, ref = run_k(), run_k(), run_p()
+            got, again, ref = run_k(), run_k(), run_ref()
             torch.cuda.synchronize()
             row = dict(phase="2s", shape=tag, kernel=name, loss=None if loss is None else loss.name,
                        route=route, layout_csc=L.has_csc, n=L.n_rows, d=L.dim, nnz=L.nnz,
@@ -745,6 +794,293 @@ def sparse_phases(seed: int, dev, bw: float, f32_rate: float):
     if failures:
         raise SystemExit("phase 5s failed: " + "; ".join(failures))
     return rows, launches
+
+
+# ---------------------------------------------------------------- phases 2e-5e
+#
+# bench.py's e2e_from_disk cell (bench.py:4657-4790) through the port: Avro
+# files written by the port's native writer, read by the port's ingest into a
+# GameDataset on the card, then a fixed effect plus per-user and per-movie
+# random effects, all on the one sparse shard "g" (8 ids + an intercept,
+# dim 201).
+
+E2E_ROWS = 4_000_000  # r08's cell has 20,000,000; cut for the run's time limit
+E2E_K, E2E_D = 8, 200
+E2E_TAGS = ["userId", "movieId"]
+E2E_RE = {"per-user": ("userId", 256), "per-movie": ("movieId", 512)}  # tag, active_upper_bound
+
+
+def e2e_arrays(rows: int, seed: int = 23, n_users=None, n_movies=None):
+    """bench.py's e2e generator (bench.py:4662-4685), in numpy: per-user and
+    per-movie structure in the labels, 8 uniform ids a row over dim 200.
+    The entity counts default to the bench's (rows // 145, rows // 740)."""
+    n_users = max(200, rows // 145) if n_users is None else n_users
+    n_movies = max(50, rows // 740) if n_movies is None else n_movies
+    rng = np.random.default_rng(seed)
+    users = rng.integers(0, n_users, size=rows)
+    movies = rng.integers(0, n_movies, size=rows)
+    indptr = np.arange(rows + 1, dtype=np.int64) * E2E_K
+    ids = rng.integers(0, E2E_D, size=rows * E2E_K).astype(np.int32)
+    vals = rng.normal(size=rows * E2E_K)
+    w_true = rng.normal(size=E2E_D) * 0.3
+    margin = ((vals * w_true[ids]).reshape(rows, E2E_K).sum(axis=1)
+              + rng.normal(size=n_users)[users] * 0.7 + rng.normal(size=n_movies)[movies] * 0.7)
+    labels = (rng.uniform(size=rows) < 1 / (1 + np.exp(-margin))).astype(np.float64)
+    return dict(users=users, movies=movies, indptr=indptr, ids=ids, vals=vals, labels=labels,
+                n_users=n_users, n_movies=n_movies)
+
+
+def write_e2e_files(root: str, a: dict) -> float:
+    """Two part files (the multi-file path) with integer userId/movieId tags,
+    by the port's native columnar writer, as bench.py writes them. Returns MB."""
+    import os
+
+    from photon_ml_tpu_torch.native.avro_writer import write_training_examples_columnar
+
+    rows, ip = len(a["labels"]), a["indptr"]
+    half = rows // 2
+    for fi, (lo, hi) in enumerate([(0, half), (half, rows)]):
+        write_training_examples_columnar(
+            os.path.join(root, f"part-{fi}.avro"), a["labels"][lo:hi], ip[lo:hi + 1] - ip[lo],
+            a["ids"][ip[lo]:ip[hi]], a["vals"][ip[lo]:ip[hi]], [f"f{i}" for i in range(E2E_D)],
+            int_tags={"userId": a["users"][lo:hi], "movieId": a["movies"][lo:hi]})
+    return sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e6
+
+
+def read_e2e(root: str, device):
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig, read_game_dataset
+
+    ds, _ = read_game_dataset(root, {"g": FeatureShardConfig(("features",), True)},
+                              id_tag_fields=E2E_TAGS, device=device)
+    return ds
+
+
+def e2e_coordinates(ds, fe_cfg, re_cfg):
+    """The bench's e2e coordinates: "global" on "g", then per-user and
+    per-movie random effects on "g" (min_bucket 8). Returns (coordinates,
+    seconds building each random effect's layout)."""
+    from photon_ml_tpu_torch.data.game_dataset import RandomEffectDataConfig, build_random_effect_dataset
+    from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
+    from photon_ml_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    coords = {"global": FixedEffectCoordinate(ds, "g", fe_cfg, task)}
+    build_s = {}
+    for cid, (tag, cap) in E2E_RE.items():
+        t0 = time.perf_counter()
+        red = build_random_effect_dataset(
+            ds, RandomEffectDataConfig(tag, "g", active_upper_bound=cap, min_bucket=8))
+        build_s[cid] = time.perf_counter() - t0
+        coords[cid] = RandomEffectCoordinate(ds, red, re_cfg, task)
+    return coords, build_s
+
+
+def e2e_configs():
+    """bench.py:4772-4788: FE L-BFGS 10 iterations, tol 1e-6, L2 1.0; each RE
+    5 iterations, tol 1e-5, L2 10.0."""
+    from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
+
+    fe = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=10, tolerance=1e-6), regularization=L2, reg_weight=1.0)
+    re = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=5, tolerance=1e-5), regularization=L2, reg_weight=10.0)
+    return fe, re
+
+
+def small_e2e_fit(ds) -> dict:
+    """Phase 5e's fit: the e2e coordinates with phase 5's converging solver
+    settings, one sweep; the model, AUC and each random effect's offsets."""
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+    from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
+
+    fe = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=40, tolerance=1e-6), regularization=L2, reg_weight=1.0)
+    re = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-5), regularization=L2,
+        reg_weight=SMALL_RE_L2)
+    coords, _ = e2e_coordinates(ds, fe, re)
+    r = run_coordinate_descent(coords, 1)
+    scores = {c: coords[c].score(r.model[c]) for c in coords}
+    # One sweep in order: each random effect solved on the base offsets plus
+    # the scores of the coordinates before it.
+    re_offsets = {"per-user": ds.offsets + scores["global"],
+                  "per-movie": ds.offsets + scores["global"] + scores["per-user"]}
+    return dict(fe=r.model["global"].coefficients.means.cpu(),
+                re={c: r.model[c].coefficients_matrix.cpu() for c in E2E_RE},
+                auc=float(area_under_roc_curve(sum(scores.values()) + ds.offsets, ds.labels)),
+                ds=ds, reds={c: coords[c].re_dataset for c in E2E_RE}, re_offsets=re_offsets)
+
+
+def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
+    """Phases 2e, 3e and 5e. Returns (phase 2e rows by kernel, phase 3e's
+    sparse launches by kernel)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from photon_ml_tpu_torch.contracts import INGEST_STAGES, INGEST_TIMING_REQUIRED_KEYS, PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.containers import SparseFeatures
+    from photon_ml_tpu_torch.data.sparse_layout import from_ell
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+
+    # ---- phase 3e set-up: write, ingest, layout -------------------------------------
+    t0 = time.perf_counter()
+    a = e2e_arrays(E2E_ROWS)
+    gen_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="photon-e2e-") as root:
+        t0 = time.perf_counter()
+        total_mb = write_e2e_files(root, a)
+        write_s = time.perf_counter() - t0
+        del a
+        t0 = time.perf_counter()
+        ds = read_e2e(root, dev)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+    timing = ds.ingest_timing
+    shard = ds.shards["g"]
+    missing = [k for k in INGEST_TIMING_REQUIRED_KEYS if k not in timing]
+    log(json.dumps(dict(
+        phase="3e-ingest", rows=E2E_ROWS, data_host_s=gen_s, write_s=write_s, write_mb=total_mb,
+        ingest_s=ingest_s, ingest_mb_per_s=total_mb / ingest_s, ingest_timing=timing,
+        stage_sum_s=sum(timing[k] for k in INGEST_STAGES), ell_shape=list(shard.indices.shape),
+        dim=shard.dim, users=len(np.unique(ds.tag_codes["userId"][0])),
+        movies=len(np.unique(ds.tag_codes["movieId"][0])))))
+    if missing or not str(timing["ingest_path"]).startswith("native") or timing["chunks"] != 2:
+        raise SystemExit(f"phase 3e: ingest took route {timing.get('ingest_path')} with "
+                         f"{timing.get('chunks')} chunks (want native, 2), missing keys {missing}")
+    if shard.dim != E2E_D + 1 or tuple(shard.indices.shape) != (E2E_ROWS, E2E_K + 1):
+        raise SystemExit(f"phase 3e: the shard is {tuple(shard.indices.shape)} over dim {shard.dim}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    layout = ds.sparse_layout("g")
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+
+    # ---- phase 2e: the sparse kernels on the ingested shard's layout -------------------
+    t0 = time.perf_counter()
+    layout_csc = from_ell(shard, csc=True)  # the two-pass route and cuSPARSE transposes only
+    torch.cuda.synchronize()
+    log(json.dumps(dict(
+        phase="2e-setup", layout_build_s=layout_s, layout_mib=layout.nbytes() / 2**20,
+        layout_has_csc=layout.has_csc, layout_with_csc_build_s=time.perf_counter() - t0,
+        nnz=layout.nnz, ell_entries=int(shard.indices.numel()), tiles=layout.n_tiles,
+        intercept_column_entries=int((shard.indices[:, E2E_K] == E2E_D).sum()),
+        fused_route=sk.fused_route(layout.dim), matvec_route=sk.matvec_route(layout.dim),
+        rmatvec_route=sk.rmatvec_route(layout.dim))))
+    rows2e, failures = sparse_kernel_checks(layout, layout_csc, dev, seed + 31, bw, f32_rate,
+                                            phase="2e", off_path=False)
+    del layout_csc
+    # Two control shapes, checked and timed the same way, to tell the hot
+    # intercept column from the narrow width: the 8 ids alone, and the 8 ids
+    # with a 9th uniform id in place of the intercept.
+    gen = torch.Generator(device=dev).manual_seed(seed + 32)
+    n_rows = shard.indices.shape[0]
+    controls = {
+        "no_intercept": SparseFeatures(shard.indices[:, :E2E_K].contiguous(),
+                                       shard.values[:, :E2E_K].contiguous(), shard.dim),
+        "uniform_9th_id": SparseFeatures(
+            torch.cat([shard.indices[:, :E2E_K], torch.randint(0, E2E_D, (n_rows, 1), generator=gen,
+                                                                device=dev, dtype=torch.int32)], 1),
+            torch.cat([shard.values[:, :E2E_K], torch.randn(n_rows, 1, generator=gen, device=dev)], 1),
+            shard.dim),
+    }
+    for tag, sf in controls.items():
+        _, bad = sparse_kernel_checks(from_ell(sf), from_ell(sf, csc=True), dev, seed + 33, bw,
+                                      f32_rate, phase="2e", off_path=False, shape=tag)
+        failures += bad
+    del controls, sf
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("phase 2e failed: " + "; ".join(failures))
+
+    # ---- phase 3e: FE + per-user + per-movie, one sweep ---------------------------------
+    fe_cfg, re_cfg = e2e_configs()
+    coords, re_build_s = e2e_coordinates(ds, fe_cfg, re_cfg)
+    t0 = time.perf_counter()
+    run_coordinate_descent(coords, 1)  # warm-up: first-use costs
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    glm_kernels.reset_launch_counts()  # phase 3e starts here
+    t0 = time.perf_counter()
+    result = run_coordinate_descent(coords, 1)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = sum(coords[c].score(result.model[c]) for c in coords) + ds.offsets
+    auc = float(area_under_roc_curve(scores, ds.labels))
+    score_auc_s = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)  # phase 3e ends here
+    dense_launches = dict(glm_kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    fe_res = result.train_stats["global"]
+    log(json.dumps(dict(
+        phase="3e", rows=E2E_ROWS, sweep_wall_s=sweep_s, warmup_wall_s=warm_s,
+        score_auc_s=score_auc_s, fixed_s=result.timing["global/iter0"],
+        per_user_s=result.timing["per-user/iter0"], per_movie_s=result.timing["per-movie/iter0"],
+        re_build_s=re_build_s, fe_iterations=int(fe_res.iterations),
+        fe_fn_evals=int(fe_res.fn_evals), fe_reason=int(fe_res.reason),
+        re_buckets={c: result.train_stats[c]["buckets"] for c in E2E_RE},
+        re_total_iterations={c: result.train_stats[c]["total_iterations"] for c in E2E_RE},
+        re_active_passive={c: (coords[c].re_dataset.num_active_samples,
+                               coords[c].re_dataset.num_passive_samples) for c in E2E_RE},
+        re_entities={c: coords[c].re_dataset.num_entities for c in E2E_RE},
+        train_auc=auc, launches=launches, dense_launches=dense_launches, peak_mem_gib=peak_gib,
+        layout_mib=layout.nbytes() / 2**20,
+        ell_mib=(shard.indices.numel() * 4 + shard.values.numel() * 4) / 2**20)))
+    if not bool(torch.isfinite(scores).all()) or scores.shape != (E2E_ROWS,):
+        raise SystemExit("phase 3e: scores are not finite (N,) values")
+    if launches["sparse_fused"] != int(fe_res.fn_evals) or launches["sparse_fused"] == 0:
+        raise SystemExit(f"phase 3e: {launches['sparse_fused']} sparse_fused launches for "
+                         f"{int(fe_res.fn_evals)} fixed-effect objective evaluations")
+    if launches["sparse_matvec"] == 0 or any(dense_launches.values()):
+        raise SystemExit(f"phase 3e: no sparse_matvec launch, or a dense kernel ran "
+                         f"({launches}, {dense_launches})")
+    if not auc > 0.5:
+        raise SystemExit(f"phase 3e: training AUC {auc} is not above 0.5")
+    # Where the sweep's device time goes (after the counted run).
+    log(json.dumps(dict(phase="3e-b", **profile_sweep(coords, sweep_s))))
+    del ds, coords, result, scores, layout, shard
+    torch.cuda.empty_cache()
+
+    # ---- phase 5e: a small fit from files, card vs CPU ----------------------------------
+    ref_tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    limit = ref_tol["re_objective_rtol"]
+    failures = []
+    for s in (seed + 41, seed + 42):
+        small = e2e_arrays(12000, seed=s, n_users=80, n_movies=16)  # ~150 and ~750 rows an entity
+        with tempfile.TemporaryDirectory(prefix="photon-e2e-small-") as root:
+            write_e2e_files(root, small)
+            fits = {where: small_e2e_fit(read_e2e(root, where)) for where in ("cuda", "cpu")}
+        card, cpu = fits["cuda"], fits["cpu"]
+        row = dict(phase="5e", seed=s, fe_coef_err=float((card["fe"] - cpu["fe"]).abs().max()),
+                   auc_card=card["auc"], auc_cpu=cpu["auc"], tol=ref_tol)
+        ok = row["fe_coef_err"] <= ref_tol["fe_coef_atol"] and abs(card["auc"] - cpu["auc"]) <= ref_tol["auc_atol"]
+        for cid in E2E_RE:
+            re = re_objective_readings(cpu["ds"], cpu["reds"][cid], cpu["re_offsets"][cid], LOGISTIC,
+                                       SMALL_RE_L2, {"card": card["re"][cid], "cpu": cpu["re"][cid]})
+            row[cid] = dict(re_objective_excess=re["excess"], re_coef_dist_from_f64=re["coef_dist"],
+                            re_fault_excess=re["fault"],
+                            re_coef_card_vs_cpu=float((card["re"][cid] - cpu["re"][cid]).abs().max()))
+            ok = ok and re["excess"]["card"] <= limit
+            if not (re["excess"]["cpu"] <= limit < re["fault"]):
+                failures.append(f"seed {s} {cid}: re_objective_rtol {limit} does not separate the "
+                                f"CPU fit ({re['excess']['cpu']:.3e}) from a cold-start lane "
+                                f"({re['fault']:.3e})")
+        row["ok"] = ok
+        log(json.dumps(row))
+        if not ok:
+            failures.append(f"seed {s}: the card's small e2e fit disagrees with the CPU's")
+    if failures:
+        raise SystemExit("phase 5e failed: " + "; ".join(failures))
+    return rows2e, launches
 
 
 # ---------------------------------------------------------------- phases 2d-5d
@@ -1250,6 +1586,7 @@ def main(argv=None) -> int:
         RandomEffectCoordinate,
     )
     from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+    from photon_ml_tpu_torch.native import build as native_build
     from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
     from photon_ml_tpu_torch.ops.losses import LOGISTIC, POISSON, SMOOTHED_HINGE, SQUARED
     from photon_ml_tpu_torch.types import TaskType
@@ -1271,8 +1608,14 @@ def main(argv=None) -> int:
         path, build_log = cuda_build.build_library(src, verbose=True)
         builds[src.name] = (path, time.perf_counter() - t, build_log)
 
+    def build_native():  # the Avro decoder and writer of phases 3e and 5e, by g++
+        t = time.perf_counter()
+        path = native_build.build_library()
+        builds[path.name] = (path, time.perf_counter() - t, "")
+
     threads = [threading.Thread(target=build, args=(src,))
                for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE)]
+    threads.append(threading.Thread(target=build_native))
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -1488,6 +1831,9 @@ def main(argv=None) -> int:
     # ---- phases 2s-5s: the sparse fixed effect ------------------------------------
     sparse_rows, sparse_launches = sparse_phases(args.seed, dev, bw, f32_rate)
 
+    # ---- phases 2e-5e: the e2e cell from Avro files ----------------------------------
+    e2e_rows, e2e_launches = e2e_phases(args.seed, dev, bw, f32_rate)
+
     # ---- phases 2d-5d: data-parallel GLMix on ranks --------------------------------
     dist_rows, dist_launches = distributed_phases(args.seed, dev, arrays, kernel_rows, phase3)
 
@@ -1502,12 +1848,19 @@ def main(argv=None) -> int:
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
         for k in ("value_grad", "hvp")
     ]
+    # A sparse kernel's launches are those of every path that runs it (phases
+    # 3s, 4s and 3e, each counted from 0); its times are phase 2s's, at the
+    # sparse fixed effect's shape, with phase 2e's on the ingested shard beside.
     kernels += [
         dict(name=k, route="cuda", source=SPARSE_SOURCE, replaces=SPARSE_REPLACES[k],
-             launches=sparse_launches[k], max_abs_err=sparse_rows[k]["max_abs_err"],
+             launches=sparse_launches[k] + e2e_launches[k],
+             launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches[k]},
+             max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
-             library_ms=sparse_rows[k]["library_ms"])
+             library_ms=sparse_rows[k]["library_ms"],
+             e2e_shape={f: e2e_rows[k][f] for f in ("n", "d", "nnz", "route", "max_abs_err", "kernel_ms",
+                                                     "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for k in SPARSE_REPLACES
     ]
     kernels += [

@@ -5,8 +5,11 @@ from plain numpy arrays: a model trained by the JAX package, exported with
 `np.asarray` on its fields by the caller (this module imports nothing of
 that package). Per coordinate it carries the fixed-effect means and
 variances, or the random-effect coefficient matrix with its pinned zero row
-and the entity index, plus the normalization factors and shifts.
-`sparse_features_from_numpy` takes the JAX package's `SparseFeatures` as its
+and the entity index, plus the normalization factors and shifts. A random
+effect trained over a sparse shard carries over the same way: its (E + 1,
+D) matrix over the shard's full width, rows in the JAX entity order (the
+sorted order of the id-tag strings), scored by the port from the ELL
+planes. `sparse_features_from_numpy` takes the JAX package's `SparseFeatures` as its
 numpy planes into the port's.
 """
 

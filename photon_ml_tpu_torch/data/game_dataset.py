@@ -14,7 +14,15 @@ package's exactly: same entities per bucket, same gather rows.
 A shard is a dense (N, D) tensor or an ELL `SparseFeatures`; a sparse
 shard's layout (data/sparse_layout.py: CSR in row tiles, and CSC only above
 a single-stream width) is built on the device once, at first use, and
-cached on the dataset.
+cached on the dataset. A random effect over a sparse shard gathers an
+(E, S, K) ELL block per bucket chunk; its coordinate makes the block dense
+on the device (game/coordinate.py).
+
+Every id tag is also held factorized, as `tag_codes` (per-sample codes into
+a sorted value table): a dataset read from Avro (io/avro_data.py) gets them
+from ingest, which sorts only the small value tables; `GameDataset.build`
+factorizes any other tag once. The entity layout works from them. A dataset
+read from Avro also carries `ingest_timing`, the stage times of that read.
 
 A dataset sharded over torch.distributed ranks (`parallel/mesh.py
 shard_game_dataset`) holds only this rank's rows, in global order, and
@@ -22,9 +30,8 @@ carries a `sharding` that maps them to their global positions; its
 random-effect layout is this rank's part of the layout built from the
 global id tag.
 
-Not ported yet: random effects over sparse shards, Pearson feature masks,
-projectors, the device-side assembly and the async packing of the JAX data
-plane.
+Not ported yet: Pearson feature masks, projectors, the device-side
+assembly and the async packing of the JAX data plane.
 """
 
 from __future__ import annotations
@@ -35,7 +42,12 @@ from typing import TYPE_CHECKING, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.data.containers import Features, LabeledData, SparseFeatures
+from photon_ml_tpu_torch.data.containers import (
+    Features,
+    LabeledData,
+    SparseFeatures,
+    ell_has_duplicates,
+)
 from photon_ml_tpu_torch.data.sparse_layout import SparseLayout, from_ell
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
 
@@ -76,6 +88,13 @@ class GameDataset:
     cache: Dict[object, object] = dataclasses.field(default_factory=dict)
     # Set on a dataset that holds one rank's rows (parallel/mesh.py).
     sharding: Optional["RowSharding"] = None
+    # Every id tag factorized: tag -> (codes (N,) int64, sorted value table)
+    # with table[codes] == id_tags[tag]; from ingest, or `factorize_tag`.
+    # Ingest's table may hold values no sample uses.
+    tag_codes: Dict[str, Tuple[np.ndarray, np.ndarray]] = dataclasses.field(default_factory=dict)
+    # The stage times of the Avro read that made this dataset
+    # (contracts.INGEST_TIMING_REQUIRED_KEYS); empty otherwise.
+    ingest_timing: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     @property
     def num_samples(self) -> int:
@@ -109,11 +128,14 @@ class GameDataset:
         offsets=None,
         weights=None,
         id_tags: Optional[Mapping[str, Sequence]] = None,
+        tag_codes: Optional[Mapping[str, Tuple[np.ndarray, np.ndarray]]] = None,
         dtype: torch.dtype = torch.float32,
         device: DeviceLike = "cuda",
     ) -> "GameDataset":
         """From host arrays (numpy or tensors; a sparse shard is a
-        `SparseFeatures`); everything is moved to `device` once here."""
+        `SparseFeatures`); everything is moved to `device` once here.
+        `tag_codes` are factorized id tags (see the field); a tag without
+        them is factorized here."""
         dev = resolve_device(device)
         as_t = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(a, Tensor) else a)
         labels_t = as_t(labels).to(dtype=dtype, device=dev)
@@ -137,7 +159,14 @@ class GameDataset:
         for k, v in tags.items():
             if len(v) != n:
                 raise ValueError(f"id tag {k!r} has {len(v)} values for {n} samples")
-        return cls(feats, labels_t, off, wt, tags)
+        codes = dict(tag_codes or {})
+        for k, (c, table) in codes.items():
+            if k not in tags or len(c) != n:
+                raise ValueError(f"tag codes {k!r} must factorize an id tag of {n} samples")
+        for k, v in tags.items():
+            if k not in codes:
+                codes[k] = factorize_tag(v)
+        return cls(feats, labels_t, off, wt, tags, tag_codes=codes)
 
 
 def _sparse_shard(name: str, X: SparseFeatures, n: int, dev: torch.device) -> SparseFeatures:
@@ -238,12 +267,24 @@ class EntityLayout:
         return len(self.entity_index)
 
 
-def entity_layout(keys: np.ndarray, config: RandomEffectDataConfig) -> EntityLayout:
-    """Host-side construction of the entity-blocked layout from the id tag
-    of every sample."""
-    n = len(keys)
-    uniq, codes = np.unique(keys, return_inverse=True)
-    codes = codes.reshape(-1)
+def factorize_tag(values) -> Tuple[np.ndarray, np.ndarray]:
+    """(codes (N,) int64, sorted value table) of one id tag."""
+    table, codes = np.unique(np.asarray(values), return_inverse=True)
+    return codes.reshape(-1).astype(np.int64), table
+
+
+def entity_layout(
+    tag_codes: Tuple[np.ndarray, np.ndarray],
+    config: RandomEffectDataConfig,
+) -> EntityLayout:
+    """Host-side construction of the entity-blocked layout from an id tag's
+    factorized form (codes into a sorted value table): the entities are the
+    table's values that some sample uses, in the table's (sorted) order."""
+    raw_codes, table = tag_codes
+    n = len(raw_codes)
+    used = np.zeros(len(table), bool)
+    used[raw_codes] = True
+    uniq, codes = table[used], (np.cumsum(used) - 1)[raw_codes]
     num_entities = len(uniq)
     counts = np.bincount(codes, minlength=num_entities)
     entity_index: Dict[object, int] = {
@@ -331,13 +372,18 @@ def build_random_effect_dataset(
     the dataset's id tag, or, for a dataset sharded over ranks, this rank's
     part of the layout built from the global id tag (parallel/mesh.py)."""
     tag = config.random_effect_type
-    if isinstance(dataset.shards[config.feature_shard], SparseFeatures):
-        raise NotImplementedError("random effects over sparse shards are not ported yet")
     if tag not in dataset.id_tags:
         raise ValueError(f"id tag {tag!r} not present in dataset")
     if dataset.sharding is not None:
+        if isinstance(dataset.shards[config.feature_shard], SparseFeatures):
+            raise NotImplementedError("random effects over a sparse shard on ranks are not ported yet")
         return dataset.sharding.random_effect_dataset(dataset, config)
-    layout = entity_layout(dataset.id_tags[tag], config)
+    feats = dataset.shards[config.feature_shard]
+    if isinstance(feats, SparseFeatures) and ell_has_duplicates(feats.indices, feats.values):
+        # The coordinate's dense blocks are exact only for distinct features.
+        raise ValueError(f"shard {config.feature_shard!r} names a feature twice within a row; "
+                         "merge duplicate entries first (pack_csr_to_ell)")
+    layout = entity_layout(dataset.tag_codes[tag], config)
     dev = dataset.device
     return RandomEffectDataset(
         config=config,
@@ -356,12 +402,18 @@ def gather_block_data(
     offsets: Optional[Tensor] = None,
 ) -> LabeledData:
     """The (E, S, ...) LabeledData of one bucket; padding slots get weight
-    0. Offsets default to the dataset's; coordinate descent passes the
-    residual-adjusted ones."""
+    0. A dense shard gives (E, S, D) features, a sparse one an (E, S, K) ELL
+    block (`SparseFeatures` with batch axes). Offsets default to the
+    dataset's; coordinate descent passes the residual-adjusted ones."""
     offs = dataset.offsets if offsets is None else offsets
     g = blocks.gather
+    feats = dataset.shards[shard]
+    if isinstance(feats, SparseFeatures):
+        feats = SparseFeatures(feats.indices[g], feats.values[g], feats.dim)
+    else:
+        feats = feats[g]
     return LabeledData(
-        features=dataset.shards[shard][g],
+        features=feats,
         labels=dataset.labels[g],
         offsets=offs[g],
         weights=dataset.weights[g] * blocks.mask,

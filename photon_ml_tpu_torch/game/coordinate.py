@@ -16,6 +16,9 @@ Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
     one batched L-BFGS/TRON call over its (E, S, D) block, warm-started from
     the previous coefficient matrix rows, on the plain batched objective
     (the JAX package runs these vmapped solves on XLA, not on its kernels).
+    Over a sparse shard the bucket's (E, S, K) ELL block is made dense on
+    the device first (containers.ell_block_to_dense: exact and the same bits
+    on every run), and the same dense batched solve runs on it.
 
 On a dataset sharded over ranks (parallel/mesh.py), both coordinates work
 on this rank's rows. The fixed effect's coefficients are replicated: its
@@ -34,11 +37,17 @@ variances.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
-from photon_ml_tpu_torch.data.containers import Features, LabeledData, SparseFeatures
+from photon_ml_tpu_torch.data.containers import (
+    Features,
+    LabeledData,
+    SparseFeatures,
+    ell_block_to_dense,
+)
 from photon_ml_tpu_torch.data.game_dataset import (
     GameDataset,
     RandomEffectDataset,
@@ -168,6 +177,8 @@ class RandomEffectCoordinate:
         bucket_iters = []
         for blocks in red.buckets:
             block = gather_block_data(ds, red.feature_shard, blocks, offsets)
+            if isinstance(block.features, SparseFeatures):
+                block = dataclasses.replace(block, features=ell_block_to_dense(block.features))
             w0 = matrix[blocks.entity_rows]
             res = problem.solve(self.loss, block, cfg, w0, self.norm, use_kernel=False)
             # Dummy (padding) entities all write the unseen row, re-zeroed below.

@@ -18,6 +18,7 @@ from typing import Dict, Optional
 
 import torch
 
+from photon_ml_tpu_torch.data.containers import Features, SparseFeatures
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 from photon_ml_tpu_torch.types import TaskType
 
@@ -48,21 +49,28 @@ class RandomEffectModel:
 
 
 def random_effect_margins(
-    features: Tensor,
+    features: Features,
     entity_rows: Tensor,
     matrix: Tensor,
     norm: Optional[NormalizationContext],
 ) -> Tensor:
     """Per-sample margins: gather each sample's coefficient row and reduce
     per row (batch-size invariant, unlike a batched matmul), with
-    normalization folded into the rows once."""
+    normalization folded into the rows once. Over an ELL shard the margin
+    of sample i is sum_k values[i, k] matrix[entity_rows[i], indices[i, k]]:
+    a gather of the coefficients the row names, with no scatter, so it is
+    deterministic on the card as on the CPU."""
     shift = None
     if norm is not None and not norm.is_identity:
         matrix = norm.effective_coefficients(matrix)
         if norm.shifts is not None:
             shift = -torch.sum(matrix * norm.shifts, dim=-1)  # (E + 1,)
-    X = features if features.dtype == matrix.dtype else features.to(matrix.dtype)
-    out = torch.sum(X * matrix[entity_rows], dim=-1)
+    if isinstance(features, SparseFeatures):
+        coef = matrix[entity_rows[:, None], features.indices.long()]
+        out = torch.sum(features.values.to(matrix.dtype) * coef, dim=-1)
+    else:
+        X = features if features.dtype == matrix.dtype else features.to(matrix.dtype)
+        out = torch.sum(X * matrix[entity_rows], dim=-1)
     if shift is not None:
         out = out + shift[entity_rows]
     return out

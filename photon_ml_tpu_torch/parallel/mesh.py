@@ -60,6 +60,7 @@ from photon_ml_tpu_torch.data.game_dataset import (
     RandomEffectDataConfig,
     RandomEffectDataset,
     entity_layout,
+    factorize_tag,
 )
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
 
@@ -306,7 +307,7 @@ def shard_game_dataset(
     if owner is not None:
         if owner.random_effect_type not in tags:
             raise ValueError(f"id tag {owner.random_effect_type!r} not present")
-        layout = entity_layout(tags[owner.random_effect_type], owner)
+        layout = entity_layout(factorize_tag(tags[owner.random_effect_type]), owner)
         entity_owner = entity_owners(layout, mesh.world_size)
         rows = np.nonzero(entity_owner[layout.codes] == mesh.rank)[0]
     else:

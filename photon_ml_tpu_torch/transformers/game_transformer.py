@@ -7,7 +7,9 @@ sparse fixed effects score through the sparse layout's matvec (its CUDA
 kernel on the card; a row's sum is over its own entries only, so it is
 batch-invariant too); random effects map each sample's entity key through
 the training-time entity index (unseen entities -> the pinned zero row) and
-gather coefficient rows. Projectors are not ported yet. On a dataset
+gather coefficient rows (over a sparse shard, the coefficients each row's
+ELL entries name, from the planes themselves). Projectors are not ported
+yet. On a dataset
 sharded over ranks, `transform` scores this rank's rows with the (replicated
 or assembled) model; `dataset.sharding.gather` brings the scores of all rows
 together where they are needed.
@@ -127,7 +129,7 @@ class GameTransformer:
             if spec.is_random_effect:
                 rows = torch.as_tensor(entity_rows_for_dataset(dataset, spec)).to(dataset.device)
             features = dataset.shards[spec.shard]
-            if isinstance(features, SparseFeatures):
+            if isinstance(features, SparseFeatures) and not spec.is_random_effect:
                 features = dataset.sparse_layout(spec.shard)
             per_coordinate[cid] = coordinate_margins(spec, self.model[cid], features, rows)
         total = dataset.offsets

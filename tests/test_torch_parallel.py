@@ -29,6 +29,7 @@ from photon_ml_tpu_torch.data.game_dataset import (
     RandomEffectDataConfig,
     build_random_effect_dataset,
     entity_layout,
+    factorize_tag,
 )
 from photon_ml_tpu_torch.evaluation import metrics, suite
 from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
@@ -558,7 +559,7 @@ def test_a_rank_store_refuses_an_assembled_matrix_as_warm_start():
     effect run no collective): it trains a store of its own entities, warm
     starts from that store, and refuses a global (E + 1, D) matrix."""
     Xf, Xe, entity, y = glmix_arrays()
-    layout = entity_layout(entity, RE_CONFIG)
+    layout = entity_layout(factorize_tag(entity), RE_CONFIG)
     owner = pmesh.entity_owners(layout, 2)
     rows = np.nonzero(owner[layout.codes] == 1)[0]
     ds = GameDataset.build({"per_entity": Xe[rows]}, y[rows], id_tags={"entityId": entity[rows]},
@@ -581,7 +582,7 @@ def test_lane_split_matches_the_jax_entity_sharding(jax_side):
     """The host lane split over 8 ranks gives each rank the entities the JAX
     package puts on that device, bucket by bucket."""
     entity = glmix_arrays()[2]
-    layout = entity_layout(entity, RE_CONFIG)
+    layout = entity_layout(factorize_tag(entity), RE_CONFIG)
     owner = pmesh.entity_owners(layout, 8)
     assert len(layout.blocks) == len(jax_side["lane_split"])
     for (_, _, ent_rows), devices in zip(layout.blocks, jax_side["lane_split"]):
@@ -709,7 +710,7 @@ def test_a_second_random_effect_key_is_refused_on_ranks():
     Xf, Xe, entity, y = glmix_arrays()
     ds = GameDataset.build({"per_entity": Xe, "other": Xe[:, :2]}, y,
                            id_tags={"entityId": entity, "itemId": entity % 7}, device="cpu")
-    layout = entity_layout(entity, RE_CONFIG)
+    layout = entity_layout(factorize_tag(entity), RE_CONFIG)
     ds.sharding = pmesh.RowSharding(
         pmesh.RankMesh(0, 1, "gloo", torch.device("cpu")), torch.arange(len(y)), len(y), RE_CONFIG,
         layout, pmesh.entity_owners(layout, 1))

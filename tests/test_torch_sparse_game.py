@@ -259,11 +259,15 @@ def test_sparse_features_convert_from_jax_planes():
 
 
 def test_random_effects_over_sparse_shards_and_their_variances_are_not_ported_yet():
+    """A random effect over a sparse shard now builds (tests/test_torch_sparse_re.py
+    holds it against the JAX package); random-effect variances, over a sparse
+    or a dense shard, are still not ported."""
     arrays = sparse_glmix_arrays(4, n=300)
     ds = _port_dataset(*arrays)
-    with pytest.raises(NotImplementedError):
-        gd.build_random_effect_dataset(ds, gd.RandomEffectDataConfig("entityId", "sparse"))
+    sparse_red = gd.build_random_effect_dataset(ds, gd.RandomEffectDataConfig("entityId", "sparse"))
+    assert sparse_red.num_entities == len(np.unique(arrays[3]))
     red = gd.build_random_effect_dataset(ds, gd.RandomEffectDataConfig("entityId", "per_entity"))
     cfg = config.CoordinateOptimizationConfig(variance_computation=VarianceComputationType.SIMPLE)
-    with pytest.raises(NotImplementedError):
-        RandomEffectCoordinate(ds, red, cfg, TaskType.LOGISTIC_REGRESSION).train(ds.offsets)
+    for r in (sparse_red, red):
+        with pytest.raises(NotImplementedError):
+            RandomEffectCoordinate(ds, r, cfg, TaskType.LOGISTIC_REGRESSION).train(ds.offsets)
