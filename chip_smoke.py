@@ -96,6 +96,31 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    and on the CPU, two seeds, under PORT_TOLERANCES["card_vs_cpu_glmix"]:
    fixed-effect coefficients, AUC, and each random effect held on its
    objective as in phases 5 and 5s.
+3f. Phase 3e's cell through the estimator, as bench.py trains it
+   (bench.py:4745-4790): `GameEstimator.fit(ds, None, [configs])` on 3e's
+   ingested dataset, with the default INDEX_MAP projector, so the random
+   effects' layouts and projections are built by torch ops on the card.
+   Prints `fit_timing` (every prepare stage, `re_path`), each random
+   effect's D_proj, entities, buckets and projected shard (MiB), the sweep
+   by coordinate, training AUC, peak memory and the launches. Fails unless
+   the fixed effect is bit-equal to 3e's, the AUC within 1e-4 of 3e's, the
+   sparse_fused launches equal 3e's (and no dense kernel runs), each
+   random effect's back-projected matrix within PORT_TOLERANCES["glmix"]
+   ["coef_atol"] of 3e's (or, where f32 stopping noise moves a lane past
+   it, each entity's objective within PORT_TOLERANCES["card_vs_cpu_glmix"]
+   ["re_objective_rtol"] of 3e's; the row says which held), and the card's
+   layouts and slot tables bit-equal to a CPU build from the same tag codes.
+5f. Two small estimator fits from arrays (12,000 training rows of the e2e
+   generator, 80 users and 16 movies, and 2,000 validation rows, a fifth
+   of them of users never seen), on the card and on the CPU: the e2e
+   coordinates with INDEX_MAP, STANDARDIZATION with the intercept, SIMPLE
+   variances on the fixed effect and per-user, Pearson masks on per-movie
+   and AUC and AUPR on the validation rows; then a dense fixed effect
+   trained by TRON beside per-user, so kernels #1 and #2 run through the
+   estimator (#4 and #5 run in the first fit, #6 in its variances). Under
+   PORT_TOLERANCES["card_vs_cpu_glmix"], each random effect on its
+   objective (with its projection, normalization and mask), the fixed
+   effect's and per-user's variances within its "variance_rtol".
 
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
 parallel/), each rank a process started by parallel/launch.py that loads
@@ -129,7 +154,8 @@ print which backend each used.
    CPU process, under PORT_TOLERANCES["card_vs_cpu_glmix"].
 
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
-3s, 4s, 3e, and 3d and 4d in each rank) and read just after. The last three
+3s, 4s, 3e, 3f, 5f's card fits, and 3d and 4d in each rank) and read just
+after. The last three
 lines of standard output are
 the `kernels` JSON line, the card's name and power limit from nvidia-smi,
 and `{"ok": true, "device": {...}}`. Data comes from numpy with --seed;
@@ -244,9 +270,27 @@ def sparse_glmix_arrays(seed: int, n: int, k: int, dim: int, d_re: int, n_entiti
     return idx, val, Xe, entity, y
 
 
-def re_objective_readings(ds, red, offsets, loss, l2: float, matrices):
+def re_lane_blocks(ds, red, offsets):
+    """Each bucket of a random effect at `offsets` (with the dataset's
+    Pearson mask) as (entity rows of its real lanes, their dense float64
+    LabeledData block); padding lanes hold no rows and are dropped."""
+    from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures, ell_block_to_dense
+    from photon_ml_tpu_torch.data.game_dataset import gather_block_data
+
+    for b in red.buckets:
+        real = b.mask.sum(dim=1) > 0
+        blk = gather_block_data(ds, red.feature_shard, b, offsets, red.feature_mask)
+        if isinstance(blk.features, SparseFeatures):  # a sparse shard's block, made dense
+            blk = dataclasses.replace(blk, features=ell_block_to_dense(blk.features))
+        yield b.entity_rows[real], LabeledData(*(t[real].double() for t in
+                                                 (blk.features, blk.labels, blk.offsets, blk.weights)))
+
+
+def re_objective_readings(ds, red, offsets, loss, l2: float, matrices, norm=None):
     """Hold random-effect coefficient matrices (name -> (E+1, D)) to the
-    per-entity objectives of the coordinate's last solve on `ds`, `offsets`.
+    per-entity objectives of the coordinate's last solve on `ds`, `offsets`
+    (with the dataset's Pearson mask, and `norm`: a NormalizationContext or
+    a per-entity one, as the coordinate trained).
 
     Each entity's objective is polished to the end of float64's resolution
     from matrices["cpu"] (L-BFGS, tolerance 0); every matrix is then read in
@@ -256,9 +300,8 @@ def re_objective_readings(ds, red, offsets, loss, l2: float, matrices):
     its cold start (its row zeroed), which a sound limit must stay below."""
     import torch
 
-    from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures, ell_block_to_dense
-    from photon_ml_tpu_torch.data.game_dataset import gather_block_data
     from photon_ml_tpu_torch.ops import objective
+    from photon_ml_tpu_torch.ops.normalization import NormalizationContext, PerEntityNormalization
     from photon_ml_tpu_torch.optimize import problem
     from photon_ml_tpu_torch.optimize.config import (
         L2,
@@ -271,16 +314,13 @@ def re_objective_readings(ds, red, offsets, loss, l2: float, matrices):
     excess = dict.fromkeys(matrices, -float("inf"))
     dist = dict.fromkeys(matrices, 0.0)
     fault = float("inf")
-    for b in red.buckets:
-        real = b.mask.sum(dim=1) > 0  # padding lanes hold no rows
-        rows = b.entity_rows[real]
-        blk = gather_block_data(ds, red.feature_shard, b, offsets)
-        if isinstance(blk.features, SparseFeatures):  # a sparse shard's block, made dense
-            blk = dataclasses.replace(blk, features=ell_block_to_dense(blk.features))
-        blk = LabeledData(*(t[real].double() for t in
-                            (blk.features, blk.labels, blk.offsets, blk.weights)))
-        f_of = lambda W: objective.value(loss, W, blk, None, l2)
-        w_star = problem.solve(loss, blk, polish, matrices["cpu"][rows].double(),
+    for rows, blk in re_lane_blocks(ds, red, offsets):
+        lane_norm = norm.rows_context(rows) if isinstance(norm, PerEntityNormalization) else norm
+        if lane_norm is not None:
+            f64 = lambda t: None if t is None else t.double()
+            lane_norm = NormalizationContext(f64(lane_norm.factors), f64(lane_norm.shifts), None)
+        f_of = lambda W: objective.value(loss, W, blk, lane_norm, l2)
+        w_star = problem.solve(loss, blk, polish, matrices["cpu"][rows].double(), lane_norm,
                                use_kernel=False).coefficients
         f_star = f_of(w_star)
         scale = f_star.abs().clamp_min(1.0)
@@ -290,6 +330,20 @@ def re_objective_readings(ds, red, offsets, loss, l2: float, matrices):
             dist[name] = max(dist[name], float((W - w_star).abs().max()))
         fault = min(fault, float(((f_of(torch.zeros_like(w_star)) - f_star) / scale).min()))
     return dict(excess=excess, coef_dist=dist, fault=fault)
+
+
+def re_objective_gap(ds, red, offsets, loss, l2: float, a, b) -> float:
+    """The largest relative gap, over entities, between the objectives of two
+    (E+1, D) coefficient matrices of one random effect at `offsets`, in
+    float64 (no normalization: the e2e cell has none)."""
+    from photon_ml_tpu_torch.ops import objective
+
+    gap = 0.0
+    for rows, blk in re_lane_blocks(ds, red, offsets):
+        fa = objective.value(loss, a[rows].double(), blk, None, l2)
+        fb = objective.value(loss, b[rows].double(), blk, None, l2)
+        gap = max(gap, float(((fa - fb).abs() / fb.abs().clamp_min(1.0)).max()))
+    return gap
 
 
 def profile_sweep(coords, wall_s: float) -> dict:
@@ -1047,7 +1101,13 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
         raise SystemExit(f"phase 3e: training AUC {auc} is not above 0.5")
     # Where the sweep's device time goes (after the counted run).
     log(json.dumps(dict(phase="3e-b", **profile_sweep(coords, sweep_s))))
-    del ds, coords, result, scores, layout, shard
+    phase3e = dict(fe=result.model["global"].coefficients.means,
+                   re={c: result.model[c].coefficients_matrix for c in E2E_RE},
+                   reds={c: coords[c].re_dataset for c in E2E_RE}, auc=auc, launches=launches)
+    del coords, result, scores, layout
+    torch.cuda.empty_cache()
+    launches3f = estimator_e2e_phase(ds, phase3e)
+    del ds, shard, phase3e
     torch.cuda.empty_cache()
 
     # ---- phase 5e: a small fit from files, card vs CPU ----------------------------------
@@ -1080,7 +1140,293 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
             failures.append(f"seed {s}: the card's small e2e fit disagrees with the CPU's")
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
-    return rows2e, launches
+    return rows2e, {"3e": launches, "3f": launches3f}
+
+
+def small_estimator_fits(where: str, a: dict, n_train: int) -> dict:
+    """Phase 5f's two estimator fits on `where` from the same host arrays:
+    the e2e coordinates on the sparse shard "g" (INDEX_MAP, STANDARDIZATION
+    with the intercept, SIMPLE variances on the fixed effect and per-user,
+    Pearson masks on per-movie, AUC and AUPR on the validation rows), then
+    a dense fixed effect on "d" with TRON beside per-user. Returns both
+    fits' models and readings, and the kernels' launches (card only)."""
+    import torch
+
+    from photon_ml_tpu_torch.data.containers import SparseFeatures, pack_csr_to_ell
+    from photon_ml_tpu_torch.data.game_dataset import (
+        FixedEffectDataConfig,
+        GameDataset,
+        RandomEffectDataConfig,
+    )
+    from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.evaluation.suite import EvaluatorType
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
+    from photon_ml_tpu_torch.transformers.game_transformer import GameTransformer
+    from photon_ml_tpu_torch.types import (
+        NormalizationType,
+        OptimizerType,
+        TaskType,
+        VarianceComputationType,
+    )
+
+    task = TaskType.LOGISTIC_REGRESSION
+    ell = pack_csr_to_ell(a["indptr"], a["ids"], a["vals"].astype(np.float32), E2E_D + 1,
+                          extra_col=(E2E_D, 1.0))
+    sets = {}
+    for name, rows in (("train", slice(0, n_train)), ("validation", slice(n_train, None))):
+        sf = SparseFeatures(ell.indices[rows], ell.values[rows], ell.dim)
+        sets[name] = GameDataset.build(
+            {"g": sf, "d": a["dense"][rows]}, a["labels"][rows],
+            id_tags={"userId": a["users"][rows], "movieId": a["movies"][rows]}, device=where)
+    train, val = sets["train"], sets["validation"]
+    simple = VarianceComputationType.SIMPLE
+    fe = CoordinateOptimizationConfig(optimizer=OptimizerConfig(max_iterations=40, tolerance=1e-6),
+                                      regularization=L2, reg_weight=1.0, variance_computation=simple)
+    re = CoordinateOptimizationConfig(optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-5),
+                                      regularization=L2, reg_weight=SMALL_RE_L2)
+    tron = CoordinateOptimizationConfig(
+        optimizer=OptimizerConfig(OptimizerType.TRON, max_iterations=15, tolerance=1e-6),
+        regularization=L2, reg_weight=1.0)
+    if where == "cuda":
+        sk.reset_launch_counts()
+        glm_kernels.reset_launch_counts()  # phase 5f's card fits start here
+    est = GameEstimator(
+        task,
+        {"global": FixedEffectDataConfig("g"),
+         "per-user": RandomEffectDataConfig("userId", "g", active_upper_bound=256, min_bucket=8),
+         "per-movie": RandomEffectDataConfig("movieId", "g", active_upper_bound=512, min_bucket=8,
+                                             num_features_to_samples_ratio_upper_bound=0.1)},
+        normalization=NormalizationType.STANDARDIZATION, intercept_indices={"g": E2E_D},
+        validation_evaluators=[EvaluatorType("AUC"), EvaluatorType("AUPR")])
+    res = est.fit(train, val, [{"global": fe, "per-user": dataclasses.replace(re, variance_computation=simple),
+                                "per-movie": re}])[0]
+    est2 = GameEstimator(task, {"global": FixedEffectDataConfig("d"),
+                                "per-user": RandomEffectDataConfig("userId", "g", active_upper_bound=256,
+                                                                   min_bucket=8)})
+    res2 = est2.fit(train, None, [{"global": tron, "per-user": re}])[0]
+    out = {}
+    for tag, e, r in (("sparse_fe", est, res), ("dense_fe", est2, res2)):
+        per = GameTransformer(r.model, e.scoring_specs(), task).transform(train, e.training_prepared())
+        out[tag] = dict(
+            est=e, model=r.model, ds=train, evaluation=None if r.evaluation is None else r.evaluation.results,
+            auc=float(area_under_roc_curve(per.scores, train.labels)),
+            # Each random effect's last solve ran on the offsets of the coordinates before it.
+            re_offsets={"per-user": train.offsets + per.per_coordinate["global"],
+                        "per-movie": train.offsets + per.per_coordinate["global"]
+                        + per.per_coordinate["per-user"]})
+    if where == "cuda":
+        torch.cuda.synchronize()
+        out["launches"] = {"sparse": dict(sk.LAUNCHES), "dense": dict(glm_kernels.LAUNCHES)}  # ends here
+    return out
+
+
+def estimator_small_phase(seed: int) -> dict:
+    """Phase 5f: small estimator fits on the card and on the CPU from the
+    same arrays, under PORT_TOLERANCES["card_vs_cpu_glmix"] (each random
+    effect on its objective, with its projection, normalization and mask;
+    variances within its "variance_rtol"). Returns the card fits' launches
+    by kernel."""
+    import torch
+
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+
+    tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    var_rtol = tol["variance_rtol"]
+    n_train = 12000
+    a = e2e_arrays(n_train + 2000, seed=seed, n_users=80, n_movies=16)
+    # A fifth of the validation rows belong to users the training rows never saw.
+    a["users"][n_train::5] = 80 + np.arange(len(a["users"][n_train::5])) % 20
+    rng = np.random.default_rng(seed + 1)
+    # bf16-exact dense features, so the card's bf16 storage loses nothing.
+    a["dense"] = torch.from_numpy(rng.standard_normal((n_train + 2000, 16), dtype=np.float32)).to(
+        torch.bfloat16).float().numpy()
+    card = small_estimator_fits("cuda", a, n_train)
+    cpu = small_estimator_fits("cpu", a, n_train)
+    launches = card.pop("launches")
+    failures = []
+    limit = tol["re_objective_rtol"]
+    for tag in ("sparse_fe", "dense_fe"):
+        c, p = card[tag], cpu[tag]
+        fe_c, fe_p = c["model"]["global"].coefficients, p["model"]["global"].coefficients
+        row = dict(phase="5f", fit=tag, seed=seed, fe_coef_err=float((fe_c.means.cpu() - fe_p.means).abs().max()),
+                   auc_card=c["auc"], auc_cpu=p["auc"], validation_card=c["evaluation"],
+                   validation_cpu=p["evaluation"], tol=tol,
+                   d_proj={cid: p["est"]._prepared[cid].projector.projected_dim
+                           for cid in p["est"]._prepared if cid != "global"},
+                   fit_timing_card={k: v for k, v in c["est"].fit_timing.items()})
+        ok = row["fe_coef_err"] <= tol["fe_coef_atol"] and abs(c["auc"] - p["auc"]) <= tol["auc_atol"]
+        if c["evaluation"] is not None:
+            ok = ok and all(abs(c["evaluation"][k] - v) <= tol["auc_atol"] for k, v in p["evaluation"].items())
+        if fe_p.variances is not None:
+            row["fe_variance_rel_err"] = float(((fe_c.variances.cpu() - fe_p.variances).abs()
+                                                / fe_p.variances.abs()).max())
+            ok = ok and row["fe_variance_rel_err"] <= var_rtol
+        for cid in [k for k in p["model"].models if k != "global"]:
+            prep = p["est"]._prepared[cid]
+            m_c, m_p = c["model"][cid], p["model"][cid]
+            re = re_objective_readings(p["ds"], prep.re_dataset, p["re_offsets"][cid], LOGISTIC, SMALL_RE_L2,
+                                       {"card": m_c.coefficients_matrix.cpu(), "cpu": m_p.coefficients_matrix},
+                                       norm=prep.norm)
+            row[cid] = dict(re_objective_excess=re["excess"], re_fault_excess=re["fault"],
+                            masked=prep.re_dataset.feature_mask is not None,
+                            normalized=prep.norm is not None)
+            ok = ok and re["excess"]["card"] <= limit
+            if not (re["excess"]["cpu"] <= limit < re["fault"]):
+                failures.append(f"{tag} {cid}: re_objective_rtol {limit} does not separate the CPU fit "
+                                f"({re['excess']['cpu']:.3e}) from a cold-start lane ({re['fault']:.3e})")
+            if m_p.variances_matrix is not None:
+                v_c, v_p = m_c.variances_matrix.cpu()[:-1], m_p.variances_matrix[:-1]
+                row[cid]["variances_finite_positive"] = bool(torch.all(v_c > 0) and torch.all(torch.isfinite(v_c)))
+                row[cid]["variance_rel_err"] = float(((v_c - v_p).abs() / v_p).max())
+                ok = ok and row[cid]["variances_finite_positive"] and row[cid]["variance_rel_err"] <= var_rtol
+        row["ok"] = ok
+        log(json.dumps(row))
+        if not ok:
+            failures.append(f"{tag}: the card's estimator fit disagrees with the CPU's")
+    log(json.dumps(dict(phase="5f", launches=launches)))
+    sparse, dense = launches["sparse"], launches["dense"]
+    if not (sparse["sparse_fused"] and sparse["sparse_rmatvec"] and dense["value_grad"] and dense["hvp"]):
+        failures.append(f"a kernel did not run through the estimator: {launches}")
+    if failures:
+        raise SystemExit("phase 5f failed: " + "; ".join(failures))
+    return launches
+
+
+def e2e_estimator(task):
+    """bench.py's e2e estimator (bench.py:4745-4771): "global" on "g", per-user
+    and per-movie on "g" with caps 256 and 512, min_bucket 8, the default
+    INDEX_MAP projector, one coordinate-descent iteration."""
+    from photon_ml_tpu_torch.data.game_dataset import FixedEffectDataConfig, RandomEffectDataConfig
+    from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
+
+    configs = {"global": FixedEffectDataConfig("g")}
+    for cid, (tag, cap) in E2E_RE.items():
+        configs[cid] = RandomEffectDataConfig(tag, "g", active_upper_bound=cap, min_bucket=8)
+    return GameEstimator(task, configs, coordinate_descent_iterations=1)
+
+
+def estimator_e2e_phase(ds, phase3e: dict) -> dict:
+    """Phase 3f: phase 3e's cell through GameEstimator.fit on the same
+    ingested dataset. Returns its launches by kernel."""
+    import torch
+
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES, PREPARE_STAGES
+    from photon_ml_tpu_torch.data.containers import SparseFeatures
+    from photon_ml_tpu_torch.data.game_dataset import entity_layout
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.game.projector import IndexMapProjector
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.transformers.game_transformer import GameTransformer
+    from photon_ml_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    fe_cfg, re_cfg = e2e_configs()
+    cfgs = {"global": fe_cfg, **{c: re_cfg for c in E2E_RE}}
+    shards_before = set(ds.shards)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    glm_kernels.reset_launch_counts()  # phase 3f starts here
+    t0 = time.perf_counter()
+    est = e2e_estimator(task)
+    res = est.fit(ds, None, [cfgs])[0]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scores = GameTransformer(res.model, est.scoring_specs(), task).transform(
+        ds, est.training_prepared()).scores
+    auc = float(area_under_roc_curve(scores, ds.labels))
+    score_auc_s = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES)  # phase 3f ends here
+    dense_launches = dict(glm_kernels.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ft = dict(est.fit_timing)
+    # The same fit again on the same estimator: prepare's views and the
+    # coordinates are reused, so this is the solve without first-use costs
+    # (allocator growth for the 208-wide blocks), as phase 3e's warm sweep.
+    t0 = time.perf_counter()
+    refit = est.fit(ds, None, [cfgs])[0]
+    torch.cuda.synchronize()
+    log(json.dumps(dict(phase="3f-refit", fit_wall_s=time.perf_counter() - t0,
+                        prepare_s=est.fit_timing["prepare_s"], solve_s=est.fit_timing["solve_s"],
+                        sweep_by_coordinate=refit.timing,
+                        fe_bit_equal=torch.equal(refit.model["global"].coefficients.means,
+                                                 res.model["global"].coefficients.means))))
+    coords = {}
+    for cid in E2E_RE:
+        prep = est._prepared[cid]
+        feats = ds.shards[prep.shard]
+        coords[cid] = dict(
+            d_proj=prep.projector.projected_dim, entities=prep.re_dataset.num_entities,
+            buckets=[[b.num_entities, b.capacity] for b in prep.re_dataset.buckets],
+            projected_shard=prep.shard,
+            projected_shard_mib=(feats.indices.numel() * feats.indices.element_size()
+                                 + feats.values.numel() * feats.values.element_size()) / 2**20)
+    log(json.dumps(dict(
+        phase="3f", rows=E2E_ROWS, fit_wall_s=fit_s, score_auc_s=score_auc_s,
+        fit_timing={k: v for k, v in ft.items()}, stage_sum_s=sum(ft[k] for k in PREPARE_STAGES),
+        sweep_by_coordinate=res.timing, coordinates=coords, train_auc=auc, auc_3e=phase3e["auc"],
+        launches=launches, launches_3e=phase3e["launches"], dense_launches=dense_launches,
+        peak_mem_gib=peak_gib, new_shards=sorted(set(ds.shards) - shards_before))))
+    failures = []
+    if ft["re_path"] != "device" or ft["re_host_s"] != 0.0 or not ft["re_device_s"] > 0:
+        failures.append(f"the RE assembly did not run on the card ({ft['re_path']})")
+    if not all(isinstance(est._prepared[c].projector, IndexMapProjector) for c in E2E_RE):
+        failures.append("a random effect was not projected by INDEX_MAP")
+    if not torch.equal(res.model["global"].coefficients.means, phase3e["fe"]):
+        d = float((res.model["global"].coefficients.means - phase3e["fe"]).abs().max())
+        failures.append(f"the fixed effect is not bit-equal to phase 3e's (max diff {d:.3e})")
+    if abs(auc - phase3e["auc"]) > 1e-4:
+        failures.append(f"training AUC {auc} is not within 1e-4 of phase 3e's {phase3e['auc']}")
+    if launches["sparse_fused"] != phase3e["launches"]["sparse_fused"] or any(dense_launches.values()):
+        failures.append(f"launches {launches} / dense {dense_launches} against phase 3e's "
+                        f"{phase3e['launches']}")
+    if not bool(torch.isfinite(scores).all()) or scores.shape != (E2E_ROWS,):
+        failures.append("scores are not finite (N,) values")
+    # The random effects against phase 3e's (identity projection, same data
+    # and layout): on their coefficients, or where f32 stopping noise moves
+    # a lane past that, on each entity's objective at phase 3e's offsets.
+    coef_atol = PORT_TOLERANCES["glmix"]["coef_atol"]
+    limit = PORT_TOLERANCES["card_vs_cpu_glmix"]["re_objective_rtol"]
+    fe_scores = GameTransformer(res.model, est.scoring_specs(), task).transform(
+        ds, est.training_prepared()).per_coordinate
+    offsets = {"per-user": ds.offsets + fe_scores["global"],
+               "per-movie": ds.offsets + fe_scores["global"] + fe_scores["per-user"]}
+    for cid in E2E_RE:
+        prep = est._prepared[cid]
+        back = prep.projector.back_project_matrix(res.model[cid].coefficients_matrix)
+        coef_err = float((back - phase3e["re"][cid]).abs().max())
+        # The card's assembly and projector against a CPU build of the same tag codes.
+        cfg = est.data_configs[cid]
+        host = entity_layout(ds.tag_codes[cfg.random_effect_type], cfg, torch.device("cpu"))
+        blocks_equal = len(host.blocks) == len(prep.re_dataset.buckets) and all(
+            torch.equal(g, b.gather.cpu()) and torch.equal(m, b.mask.cpu()) and torch.equal(e, b.entity_rows.cpu())
+            for (g, m, e), b in zip(host.blocks, prep.re_dataset.buckets))
+        g = ds.shards["g"]
+        cpu_proj = IndexMapProjector.build(SparseFeatures(g.indices.cpu(), g.values.cpu(), g.dim),
+                                           host.codes, host.num_entities)
+        tables_equal = torch.equal(cpu_proj.slot_tables, prep.projector.slot_tables.cpu())
+        row = dict(phase="3f-re", coordinate=cid, coef_err_vs_3e=coef_err, coef_atol=coef_atol,
+                   layout_bit_equal_to_cpu=blocks_equal, slot_tables_bit_equal_to_cpu=tables_equal)
+        gap = re_objective_gap(ds, phase3e["reds"][cid], offsets[cid], LOGISTIC, re_cfg.reg_weight,
+                               back, phase3e["re"][cid])
+        row.update(objective_gap_vs_3e=gap, objective_rtol=limit,
+                   held_on="coefficients" if coef_err <= coef_atol else "objective")
+        if coef_err > coef_atol and gap > limit:
+            failures.append(f"{cid}: {coef_err:.3e} from phase 3e's coefficients and {gap:.3e} "
+                            f"from its objective")
+        log(json.dumps(row))
+        if not (blocks_equal and tables_equal):
+            failures.append(f"{cid}: the card's layout or slot tables differ from the CPU build's")
+    if failures:
+        raise SystemExit("phase 3f failed: " + "; ".join(failures))
+    return {"sparse": launches, "dense": dense_launches}
 
 
 # ---------------------------------------------------------------- phases 2d-5d
@@ -1831,8 +2177,11 @@ def main(argv=None) -> int:
     # ---- phases 2s-5s: the sparse fixed effect ------------------------------------
     sparse_rows, sparse_launches = sparse_phases(args.seed, dev, bw, f32_rate)
 
-    # ---- phases 2e-5e: the e2e cell from Avro files ----------------------------------
+    # ---- phases 2e-5e and 3f: the e2e cell from Avro files ---------------------------
     e2e_rows, e2e_launches = e2e_phases(args.seed, dev, bw, f32_rate)
+
+    # ---- phase 5f: small estimator fits, card vs CPU --------------------------------
+    small_launches = estimator_small_phase(args.seed + 51)
 
     # ---- phases 2d-5d: data-parallel GLMix on ranks --------------------------------
     dist_rows, dist_launches = distributed_phases(args.seed, dev, arrays, kernel_rows, phase3)
@@ -1842,19 +2191,25 @@ def main(argv=None) -> int:
     replaces = {"value_grad": "photon_ml_tpu/ops/pallas_glm.py:506",
                 "hvp": "photon_ml_tpu/ops/pallas_glm.py:542"}
     kernels = [
-        dict(name=k, route="cuda", source=source, replaces=replaces[k], launches=launches[k],
+        dict(name=k, route="cuda", source=source, replaces=replaces[k],
+             launches=launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k],
+             launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
+                                "5f": small_launches["dense"][k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
         for k in ("value_grad", "hvp")
     ]
-    # A sparse kernel's launches are those of every path that runs it (phases
-    # 3s, 4s and 3e, each counted from 0); its times are phase 2s's, at the
-    # sparse fixed effect's shape, with phase 2e's on the ingested shard beside.
+    # A kernel's launches are those of every path that runs it (phases 3-4,
+    # 3s, 4s, 3e, 3f and 5f, each counted from 0); a sparse kernel's times are
+    # phase 2s's, at the sparse fixed effect's shape, with phase 2e's on the
+    # ingested shard beside.
     kernels += [
         dict(name=k, route="cuda", source=SPARSE_SOURCE, replaces=SPARSE_REPLACES[k],
-             launches=sparse_launches[k] + e2e_launches[k],
-             launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches[k]},
+             launches=(sparse_launches[k] + e2e_launches["3e"][k] + e2e_launches["3f"]["sparse"][k]
+                       + small_launches["sparse"][k]),
+             launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
+                                "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],

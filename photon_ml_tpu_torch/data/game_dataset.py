@@ -1,9 +1,9 @@
 """GAME datasets: columnar samples plus the entity-blocked random-effect layout.
 
-Port of the dense, host-assembled path of `photon_ml_tpu/data/game_dataset.py`.
-Every sample sits at a fixed slot of one sample axis on the device. A
-fixed-effect view is (shard features, labels, offsets, weights). A
-random-effect view is built once on the host as *entity blocks*: entities
+Port of `photon_ml_tpu/data/game_dataset.py`. Every sample sits at a fixed
+slot of one sample axis on the device. A fixed-effect view is (shard
+features, labels, offsets, weights). A random-effect view is built once, on
+the dataset's device (data/device_assemble.py), as *entity blocks*: entities
 bucketed by padded size (power-of-two capacities from `min_bucket`), each
 bucket a (E, S) gather matrix into the sample axis plus a validity mask, so
 training gathers dense (E, S, D) blocks and solves all E problems at once.
@@ -30,8 +30,10 @@ carries a `sharding` that maps them to their global positions; its
 random-effect layout is this rank's part of the layout built from the
 global id tag.
 
-Not ported yet: Pearson feature masks, projectors, the device-side
-assembly and the async packing of the JAX data plane.
+Pearson feature selection (`num_features_to_samples_ratio_upper_bound`)
+runs on the host, as in the reference. The estimator projects each random
+effect's shard (game/projector.py) after its layout is built.
+Not ported: the async packing and upload of the JAX data plane.
 """
 
 from __future__ import annotations
@@ -48,8 +50,11 @@ from photon_ml_tpu_torch.data.containers import (
     SparseFeatures,
     ell_has_duplicates,
 )
+from photon_ml_tpu_torch.data import device_assemble
 from photon_ml_tpu_torch.data.sparse_layout import SparseLayout, from_ell
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
+from photon_ml_tpu_torch.timing import StageTimes
+from photon_ml_tpu_torch.types import ProjectorType
 
 if TYPE_CHECKING:
     from photon_ml_tpu_torch.parallel.mesh import RankMesh, RowSharding
@@ -58,17 +63,29 @@ Tensor = torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
+class FixedEffectDataConfig:
+    feature_shard: str
+
+
+@dataclasses.dataclass(frozen=True)
 class RandomEffectDataConfig:
     """active_upper_bound caps the rows per entity used for training (the
     rest are scored only); active_lower_bound drops entities with fewer rows
-    from training; min_bucket is the smallest padded block size;
-    max_block_cells bounds entities x capacity per training block."""
+    from training; num_features_to_samples_ratio_upper_bound turns on the
+    per-entity Pearson feature selection (at most ceil(ratio * rows)
+    features an entity); min_bucket is the smallest padded block size;
+    projector_type is the estimator's projection of the entities' features
+    (projected_dim: RANDOM only); max_block_cells bounds entities x
+    capacity per training block."""
 
     random_effect_type: str
     feature_shard: str
     active_upper_bound: Optional[int] = None
     active_lower_bound: Optional[int] = None
+    num_features_to_samples_ratio_upper_bound: Optional[float] = None
     min_bucket: int = 8
+    projector_type: ProjectorType = ProjectorType.INDEX_MAP
+    projected_dim: Optional[int] = None
     max_block_cells: int = 1 << 21
 
 
@@ -181,28 +198,13 @@ def _sparse_shard(name: str, X: SparseFeatures, n: int, dev: torch.device) -> Sp
     return SparseFeatures(idx.to(dev).contiguous(), val.to(dev).contiguous(), int(X.dim))
 
 
-def _row_priorities(codes: np.ndarray, n: int) -> np.ndarray:
-    """Deterministic per-(entity, row) reservoir priorities: a splitmix64
-    mix of the entity code and the row index. Over-cap entities keep the
-    `cap` rows with the smallest priorities."""
-    x = codes.astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
-    x += np.arange(n, dtype=np.uint64) * np.uint64(0xBF58476D1CE4E5B9)
-    x ^= x >> np.uint64(30)
-    x *= np.uint64(0xBF58476D1CE4E5B9)
-    x ^= x >> np.uint64(27)
-    x *= np.uint64(0x94D049BB133111EB)
-    x ^= x >> np.uint64(31)
-    return x
-
-
 class EntityBlocks:
     """One padded bucket of entities with equal block capacity."""
 
-    def __init__(self, gather: np.ndarray, mask: np.ndarray, entity_rows: np.ndarray,
-                 device: torch.device):
-        self.gather = torch.as_tensor(gather, dtype=torch.int64).to(device)  # (E, S)
-        self.mask = torch.as_tensor(mask, dtype=torch.float32).to(device)  # (E, S)
-        self.entity_rows = torch.as_tensor(entity_rows, dtype=torch.int64).to(device)  # (E,)
+    def __init__(self, gather: Tensor, mask: Tensor, entity_rows: Tensor):
+        self.gather = gather  # (E, S) int64 sample rows
+        self.mask = mask  # (E, S) float32
+        self.entity_rows = entity_rows  # (E,) int64
 
     @property
     def num_entities(self) -> int:
@@ -220,6 +222,9 @@ class RandomEffectDataset:
     `entity_index`: entity key -> row of the coefficient matrix.
     `buckets`: padded gather blocks for training (active rows only).
     `sample_entity_rows`: each sample's coefficient row for scoring.
+    `feature_mask`: with Pearson feature selection, (E + 1, D) 0/1
+    multipliers of each entity's features (in the projected slots once the
+    estimator projects the shard; the unseen row is all ones), else None.
     `owned_entities`: on a rank, the entities (rows of the global matrix)
     it owns and trains, increasing; its coefficient store holds their rows
     alone, row i for `owned_entities[i]`, and the bucket and sample rows
@@ -231,6 +236,7 @@ class RandomEffectDataset:
     sample_entity_rows: Tensor  # (N,) int64
     num_active_samples: int
     num_passive_samples: int
+    feature_mask: Optional[Tensor] = None
     owned_entities: Optional[Tensor] = None
 
     @property
@@ -250,17 +256,21 @@ class RandomEffectDataset:
 
 @dataclasses.dataclass
 class EntityLayout:
-    """The entity-blocked layout on the host, before any device copy.
+    """The entity-blocked layout of one id tag, on the device it was built on.
 
     `codes` is each sample's entity code (its coefficient row); `blocks`
-    holds one (gather (E, S), mask (E, S), entity_rows (E,)) numpy triple
-    per padded bucket chunk, gathers indexing the sample axis the layout
-    was built from."""
+    holds one (gather (E, S), mask (E, S), entity_rows (E,)) triple per
+    padded bucket chunk, gathers indexing the sample axis the layout was
+    built from; `active_rows` are the active rows in (entity, row) order,
+    `kept` the entity codes that keep any, and `a_starts` their segments."""
 
     entity_index: Dict[object, int]
-    codes: np.ndarray
-    blocks: List[Tuple[np.ndarray, np.ndarray, np.ndarray]]
+    codes: Tensor
+    blocks: List[Tuple[Tensor, Tensor, Tensor]]
     num_active: int
+    active_rows: Tensor
+    kept: np.ndarray
+    a_starts: np.ndarray
 
     @property
     def num_entities(self) -> int:
@@ -276,17 +286,20 @@ def factorize_tag(values) -> Tuple[np.ndarray, np.ndarray]:
 def entity_layout(
     tag_codes: Tuple[np.ndarray, np.ndarray],
     config: RandomEffectDataConfig,
+    device: torch.device,
 ) -> EntityLayout:
-    """Host-side construction of the entity-blocked layout from an id tag's
-    factorized form (codes into a sorted value table): the entities are the
-    table's values that some sample uses, in the table's (sorted) order."""
+    """The entity-blocked layout from an id tag's factorized form (codes
+    into a sorted value table): the entities are the table's values that
+    some sample uses, in the table's (sorted) order. The sample-sized work
+    (sort, rank, scatter) runs as torch ops on `device`
+    (data/device_assemble.py); the entity-sized planning runs on the host."""
     raw_codes, table = tag_codes
-    n = len(raw_codes)
-    used = np.zeros(len(table), bool)
-    used[raw_codes] = True
-    uniq, codes = table[used], (np.cumsum(used) - 1)[raw_codes]
+    raw = torch.as_tensor(raw_codes).to(device)
+    used = (torch.bincount(raw, minlength=len(table)) > 0).cpu().numpy()
+    uniq = table[used]
+    codes = torch.as_tensor(np.cumsum(used) - 1).to(device)[raw]
     num_entities = len(uniq)
-    counts = np.bincount(codes, minlength=num_entities)
+    counts = torch.bincount(codes, minlength=num_entities).cpu().numpy()
     entity_index: Dict[object, int] = {
         (k.item() if hasattr(k, "item") else k): i for i, k in enumerate(uniq)
     }
@@ -299,38 +312,16 @@ def entity_layout(
     if cap is not None:
         np.minimum(a_counts, cap, out=a_counts)
     need_reservoir = cap is not None and bool((counts > cap).any())
-    num_active = int(a_counts.sum())
     kept = np.nonzero(a_counts > 0)[0]
-    kept_sizes = a_counts[kept]
-
-    # Active rows sorted by (entity, row); over-cap entities keep their
-    # smallest-priority rows, restored to row order.
-    if need_reservoir:
-        order = np.lexsort((_row_priorities(codes, n), codes))
-    else:
-        order = np.argsort(codes, kind="stable")
-    if need_reservoir or lower or cap is not None:
-        starts1 = np.zeros(num_entities + 1, np.int64)
-        np.cumsum(counts, out=starts1[1:])
-        rank = np.arange(n, dtype=np.int64) - starts1[codes[order]]
-        active_rows = order[rank < a_counts[codes[order]]]
-        if need_reservoir:
-            active_rows = active_rows[np.lexsort((active_rows, codes[active_rows]))]
-    else:
-        active_rows = order
+    assembler = device_assemble.BlockAssembler(codes, counts, a_counts, kept, need_reservoir)
 
     # Bucket by padded capacity: the power of two (times min_bucket) >= size.
     min_b = max(config.min_bucket, 1)
     pows = min_b * (1 << np.arange(0, 40, dtype=np.int64))
     pows = pows[pows < (1 << 40)]
-    cap_of_kept = pows[np.searchsorted(pows, kept_sizes)]
+    cap_of_kept = pows[np.searchsorted(pows, a_counts[kept])]
 
-    a_starts = np.zeros(len(kept) + 1, np.int64)
-    np.cumsum(kept_sizes, out=a_starts[1:])
-    row_kept_ord = np.repeat(np.arange(len(kept), dtype=np.int64), kept_sizes)
-    row_pos = np.arange(num_active, dtype=np.int64) - a_starts[row_kept_ord]
-
-    blocks: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    blocks: List[Tuple[Tensor, Tensor, Tensor]] = []
     for capacity in np.unique(cap_of_kept) if len(kept) else []:
         members = np.nonzero(cap_of_kept == capacity)[0]
         e = len(members)
@@ -350,49 +341,142 @@ def entity_layout(
         else:
             target = max_e
         pad_e = n_chunks * target - e
-        in_bucket = local[row_kept_ord] >= 0
-        gather = np.zeros((e + pad_e, int(capacity)), np.int64)
-        mask = np.zeros((e + pad_e, int(capacity)), np.float32)
-        li = local[row_kept_ord[in_bucket]]
-        pj = row_pos[in_bucket]
-        gather[li, pj] = active_rows[in_bucket]
-        mask[li, pj] = 1.0
-        if pad_e:
-            ent_rows = np.concatenate([ent_rows, np.full(pad_e, num_entities, np.int64)])
+        gather, mask = assembler.bucket_blocks(local, e + pad_e, int(capacity))
+        ent_rows = torch.as_tensor(np.concatenate([ent_rows, np.full(pad_e, num_entities, np.int64)])).to(device)
         for c in range(n_chunks):
             sl = slice(c * target, (c + 1) * target)
             blocks.append((gather[sl], mask[sl], ent_rows[sl]))
-    return EntityLayout(entity_index, codes.astype(np.int64), blocks, num_active)
+    return EntityLayout(entity_index, codes, blocks, int(a_counts.sum()), assembler.active, kept,
+                        assembler.a_starts)
 
 
 def build_random_effect_dataset(
-    dataset: GameDataset, config: RandomEffectDataConfig
+    dataset: GameDataset, config: RandomEffectDataConfig, times: Optional[StageTimes] = None
 ) -> RandomEffectDataset:
-    """One-time construction of the entity-blocked layout: on the host from
-    the dataset's id tag, or, for a dataset sharded over ranks, this rank's
-    part of the layout built from the global id tag (parallel/mesh.py)."""
+    """One-time construction of the entity-blocked layout on the dataset's
+    device, or, for a dataset sharded over ranks, this rank's part of the
+    layout built from the global id tag (parallel/mesh.py). `times`, when
+    given, gets the build's seconds as `re_build`, the assembly's as
+    `re_device` (each stops once the device has finished) and `re_path`."""
     tag = config.random_effect_type
     if tag not in dataset.id_tags:
         raise ValueError(f"id tag {tag!r} not present in dataset")
     if dataset.sharding is not None:
         if isinstance(dataset.shards[config.feature_shard], SparseFeatures):
             raise NotImplementedError("random effects over a sparse shard on ranks are not ported yet")
+        if config.num_features_to_samples_ratio_upper_bound is not None:
+            raise NotImplementedError("Pearson feature selection on ranks is not ported yet")
         return dataset.sharding.random_effect_dataset(dataset, config)
-    feats = dataset.shards[config.feature_shard]
-    if isinstance(feats, SparseFeatures) and ell_has_duplicates(feats.indices, feats.values):
-        # The coordinate's dense blocks are exact only for distinct features.
-        raise ValueError(f"shard {config.feature_shard!r} names a feature twice within a row; "
-                         "merge duplicate entries first (pack_csr_to_ell)")
-    layout = entity_layout(dataset.tag_codes[tag], config)
+    times = StageTimes() if times is None else times
     dev = dataset.device
-    return RandomEffectDataset(
-        config=config,
-        entity_index=layout.entity_index,
-        buckets=[EntityBlocks(g, m, e, dev) for g, m, e in layout.blocks],
-        sample_entity_rows=torch.as_tensor(layout.codes).to(dev),
-        num_active_samples=layout.num_active,
-        num_passive_samples=dataset.num_samples - layout.num_active,
-    )
+    with times.stage("re_build", dev):
+        feats = dataset.shards[config.feature_shard]
+        if isinstance(feats, SparseFeatures) and ell_has_duplicates(feats.indices, feats.values):
+            # The coordinate's dense blocks are exact only for distinct features.
+            raise ValueError(f"shard {config.feature_shard!r} names a feature twice within a row; "
+                             "merge duplicate entries first (pack_csr_to_ell)")
+        with times.stage("re_device", dev):
+            layout = entity_layout(dataset.tag_codes[tag], config, dev)
+        times.note("re_path", "device")
+        feature_mask = None
+        if config.num_features_to_samples_ratio_upper_bound is not None:
+            active_lists = np.split(layout.active_rows.cpu().numpy(), layout.a_starts[1:-1])
+            feature_mask = torch.as_tensor(_pearson_feature_masks(
+                dataset, config, active_lists, list(layout.kept), layout.num_entities)).to(dev)
+        return RandomEffectDataset(
+            config=config,
+            entity_index=layout.entity_index,
+            buckets=[EntityBlocks(g, m, e) for g, m, e in layout.blocks],
+            sample_entity_rows=layout.codes,
+            num_active_samples=layout.num_active,
+            num_passive_samples=dataset.num_samples - layout.num_active,
+            feature_mask=feature_mask,
+        )
+
+
+def _pearson_feature_masks(
+    dataset: GameDataset,
+    config: RandomEffectDataConfig,
+    active_lists: List[np.ndarray],
+    kept_entities: List[int],
+    num_entities: int,
+) -> np.ndarray:
+    """Per-entity 0/1 feature masks by |Pearson corr(feature, label)|, on
+    the host, as the reference computes them (its `_pearson_feature_masks`,
+    line for line: only the same numpy calls, `np.argpartition` among them,
+    pick the same features when |corr| ties). Keep ceil(ratio * n_rows)
+    features an entity, ranked by |Pearson|; a constant-one column (the
+    intercept) scores 1.0, so it is always kept."""
+    ratio = config.num_features_to_samples_ratio_upper_bound
+    features = dataset.shards[config.feature_shard]
+    labels_np = dataset.labels.cpu().numpy()
+    if isinstance(features, SparseFeatures):
+        # Moments straight from the ELL entries: absent entries are zeros.
+        dim = features.dim
+        ell_idx = features.indices.cpu().numpy()
+        ell_val = features.values.cpu().numpy().astype(np.float64)
+
+        def entity_corr(rows: np.ndarray, y: np.ndarray) -> np.ndarray:
+            n_rows = len(rows)
+            idx = ell_idx[rows].ravel()
+            val = ell_val[rows]
+            # Padding entries are (index 0, value 0): inert in the value sums;
+            # the nnz count masks them out of presence-based terms.
+            present = (val != 0).ravel().astype(np.float64)
+            sum_x = np.bincount(idx, weights=val.ravel(), minlength=dim)
+            cnt = np.bincount(idx, weights=present, minlength=dim)
+            mean_x = sum_x / n_rows
+            # Centered (two-pass) moments:
+            #   x_ss = sum_nz (x - mx)^2 + (n - nnz) * mx^2
+            #   cov  = sum_nz (x - mx) yc + mx * sum_nz yc
+            yc = y - y.mean()
+            y_ss = float(yc @ yc)
+            dev = (val.ravel() - mean_x[idx]) * present
+            x_ss = np.bincount(idx, weights=dev * dev, minlength=dim)
+            x_ss = x_ss + (n_rows - cnt) * mean_x * mean_x
+            ycb = np.broadcast_to(yc[:, None], val.shape).ravel()
+            cov = np.bincount(
+                idx, weights=dev * ycb, minlength=dim
+            ) + mean_x * np.bincount(idx, weights=ycb * present, minlength=dim)
+            denom = np.sqrt(x_ss * y_ss)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                corr = np.where(denom > 0, np.abs(cov) / np.where(denom > 0, denom, 1.0), 0.0)
+            # Intercept: constant-one column (value 1 in every row) scores 1.0.
+            is_ones = (cnt == n_rows) & (sum_x == n_rows)
+            return np.where(is_ones & (x_ss <= 1e-9 * n_rows), 1.0, corr)
+
+    else:
+        feats_np = features.cpu().numpy()
+        dim = feats_np.shape[-1]
+
+        def entity_corr(rows: np.ndarray, y: np.ndarray) -> np.ndarray:
+            X = feats_np[rows].astype(np.float64)
+            Xc = X - X.mean(axis=0)
+            yc = y - y.mean()
+            x_std = np.sqrt((Xc * Xc).sum(axis=0))
+            y_std = np.sqrt((yc * yc).sum())
+            denom = x_std * y_std
+            with np.errstate(invalid="ignore", divide="ignore"):
+                corr = np.where(
+                    denom > 0, np.abs(Xc.T @ yc) / np.where(denom > 0, denom, 1.0), 0.0
+                )
+            # Intercept: constant-one column scores 1.0 (always kept).
+            return np.where(
+                (x_std == 0) & (X[0] == 1.0) & (np.ptp(X, axis=0) == 0), 1.0, corr
+            )
+
+    masks = np.ones((num_entities + 1, dim), np.float32)
+    for rows, row_id in zip(active_lists, kept_entities):
+        n_rows = len(rows)
+        keep = int(np.ceil(ratio * n_rows))
+        if keep >= dim:
+            continue
+        corr = entity_corr(rows, labels_np[rows].astype(np.float64))
+        keep_idx = np.argpartition(corr, -keep)[-keep:]
+        row_mask = np.zeros(dim, np.float32)
+        row_mask[keep_idx] = 1.0
+        masks[row_id] = row_mask
+    return masks
 
 
 def gather_block_data(
@@ -400,18 +484,29 @@ def gather_block_data(
     shard: str,
     blocks: EntityBlocks,
     offsets: Optional[Tensor] = None,
+    feature_mask: Optional[Tensor] = None,
 ) -> LabeledData:
     """The (E, S, ...) LabeledData of one bucket; padding slots get weight
     0. A dense shard gives (E, S, D) features, a sparse one an (E, S, K) ELL
     block (`SparseFeatures` with batch axes). Offsets default to the
-    dataset's; coordinate descent passes the residual-adjusted ones."""
+    dataset's; coordinate descent passes the residual-adjusted ones.
+    `feature_mask` is the random effect's (E_total + 1, D) Pearson
+    selection: each lane's row multiplies its features, so deselected
+    features carry no signal (and, from a zero start under L2, keep a zero
+    coefficient)."""
     offs = dataset.offsets if offsets is None else offsets
     g = blocks.gather
     feats = dataset.shards[shard]
+    block_mask = None if feature_mask is None else feature_mask[blocks.entity_rows]  # (E, D)
     if isinstance(feats, SparseFeatures):
-        feats = SparseFeatures(feats.indices[g], feats.values[g], feats.dim)
+        idx, val = feats.indices[g], feats.values[g]
+        if block_mask is not None:
+            val = val * torch.gather(block_mask, 1, idx.long().flatten(1)).view_as(val)
+        feats = SparseFeatures(idx, val, feats.dim)
     else:
         feats = feats[g]
+        if block_mask is not None:
+            feats = feats * block_mask[:, None, :]
     return LabeledData(
         features=feats,
         labels=dataset.labels[g],

@@ -11,14 +11,20 @@ Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
     (data/sparse_layout.py), built once per dataset and cached there; on
     the card that is the sparse CUDA kernels, with no size or padding gate.
     SIMPLE coefficient variances are computed after the solve when the
-    config asks for them.
+    config asks for them. A `down_sampling_rate` below 1 solves on weights
+    down-sampled from the generator the caller passes (data/sampling.py);
+    the variances use the full weights, as in the reference.
   * RandomEffectCoordinate: the per-bucket loop. Each bucket of entities is
     one batched L-BFGS/TRON call over its (E, S, D) block, warm-started from
     the previous coefficient matrix rows, on the plain batched objective
     (the JAX package runs these vmapped solves on XLA, not on its kernels).
     Over a sparse shard the bucket's (E, S, K) ELL block is made dense on
     the device first (containers.ell_block_to_dense: exact and the same bits
-    on every run), and the same dense batched solve runs on it.
+    on every run), and the same dense batched solve runs on it. A Pearson
+    feature mask multiplies each lane's features in the gather; a
+    per-entity normalization (a projected shard's) gives each lane its own
+    (factors, shifts) row; SIMPLE variances are one more batched pass per
+    bucket, one lane per entity.
 
 On a dataset sharded over ranks (parallel/mesh.py), both coordinates work
 on this rank's rows. The fixed effect's coefficients are replicated: its
@@ -31,8 +37,8 @@ coordinate.py:752-790); `gather_model` assembles the global (E + 1, D)
 matrix.
 
 Not ported yet: the scan-dispatched sweep, the planner's fusion chunks,
-fault/retry sites, down-sampling, FULL variances and random-effect
-variances.
+fault/retry sites and FULL variances. A random effect does not down-sample
+(the reference's random-effect coordinate takes no sampling key).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from photon_ml_tpu_torch.data.game_dataset import (
     RandomEffectDataset,
     gather_block_data,
 )
+from photon_ml_tpu_torch.data.sampling import down_sample_weights, down_sampler_for_task
 from photon_ml_tpu_torch.game.model import (
     Coefficients,
     FixedEffectModel,
@@ -60,7 +67,7 @@ from photon_ml_tpu_torch.game.model import (
     random_effect_margins,
 )
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss, loss_for_task
-from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext, PerEntityNormalization
 from photon_ml_tpu_torch.optimize import problem
 from photon_ml_tpu_torch.optimize.common import OptResult
 from photon_ml_tpu_torch.optimize.config import CoordinateOptimizationConfig
@@ -70,13 +77,12 @@ from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 Tensor = torch.Tensor
 
 
-def _check_config(config: CoordinateOptimizationConfig) -> CoordinateOptimizationConfig:
-    if config.down_sampling_rate < 1.0:
-        raise NotImplementedError("down-sampling is not ported yet")
-    return config
+def _with_weight(config: CoordinateOptimizationConfig,
+                 reg_weight: Optional[float]) -> CoordinateOptimizationConfig:
+    return config if reg_weight is None else dataclasses.replace(config, reg_weight=reg_weight)
 
 
-def _norm_on(norm: Optional[NormalizationContext], device) -> Optional[NormalizationContext]:
+def _norm_on(norm, device):
     return None if norm is None else norm.to(device)
 
 
@@ -115,16 +121,29 @@ class FixedEffectCoordinate:
         self,
         offsets: Tensor,
         initial_model: Optional[FixedEffectModel] = None,
+        *,
+        reg_weight: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[FixedEffectModel, OptResult]:
+        """`reg_weight` overrides the config's; `generator` (on the dataset's
+        device) draws the down-sample, and is required when the config asks
+        for one."""
         ds = self.dataset
-        cfg = _check_config(self.config)
+        cfg = _with_weight(self.config, reg_weight)
         w0 = (
             initial_model.coefficients.means.to(ds.device)
             if initial_model is not None
             else torch.zeros(self._features.shape[-1], dtype=ds.labels.dtype, device=ds.device)
         )
         data = LabeledData(self._features, ds.labels, offsets, ds.weights, ds.mesh)
-        res = problem.solve(self.loss, data, cfg, w0, self.norm)
+        solve_data = data
+        if cfg.down_sampling_rate < 1.0:
+            if generator is None:
+                raise ValueError("down_sampling_rate < 1 needs a generator")
+            solve_data = dataclasses.replace(data, weights=down_sample_weights(
+                generator, ds.labels, ds.weights, cfg.down_sampling_rate,
+                negatives_only=down_sampler_for_task(self.task)))
+        res = problem.solve(self.loss, solve_data, cfg, w0, self.norm)
         variances = problem.compute_variances(self.loss, data, cfg, res.coefficients, self.norm)
         return FixedEffectModel(Coefficients(res.coefficients, variances), self.task), res
 
@@ -146,26 +165,36 @@ class RandomEffectCoordinate:
         task: TaskType,
         norm: Optional[NormalizationContext] = None,
     ):
+        if opt_config.down_sampling_rate < 1.0:
+            raise ValueError("down-sampling applies to fixed effects; a random effect trains on "
+                             "every active row")
         self.dataset = dataset
         self.re_dataset = re_dataset
         self.config = opt_config
         self.task = task
         self.loss = loss_for_task(task)
+        # A NormalizationContext (one for every lane) or, on a projected
+        # shard, a PerEntityNormalization (one row per entity).
         self.norm = _norm_on(norm, dataset.device)
         self.dim = dataset.shards[re_dataset.feature_shard].shape[-1]
+
+    def _lane_norm(self, entity_rows: Tensor) -> Optional[NormalizationContext]:
+        if isinstance(self.norm, PerEntityNormalization):
+            return self.norm.rows_context(entity_rows)
+        return self.norm
 
     def train(
         self,
         offsets: Tensor,
         initial_model: Optional[RandomEffectModel] = None,
+        *,
+        reg_weight: Optional[float] = None,
     ) -> Tuple[RandomEffectModel, dict]:
         """Train every entity bucket; per-entity warm start from the
         previous matrix's rows (on a rank, a model of this rank's store, as
-        `train` returns it)."""
+        `train` returns it). `reg_weight` overrides the config's."""
         ds, red = self.dataset, self.re_dataset
-        cfg = _check_config(self.config)
-        if cfg.variance_computation != VarianceComputationType.NONE:
-            raise NotImplementedError("random-effect variances are not ported yet")
+        cfg = _with_weight(self.config, reg_weight)
         e_total = red.num_store_rows
         if initial_model is not None:
             matrix = initial_model.coefficients_matrix.to(ds.device).clone()
@@ -174,17 +203,26 @@ class RandomEffectCoordinate:
                                  f"coordinate's store has {e_total} entities and the pinned row")
         else:
             matrix = torch.zeros((e_total + 1, self.dim), dtype=ds.labels.dtype, device=ds.device)
+        var_matrix = None
+        if cfg.variance_computation != VarianceComputationType.NONE:
+            var_matrix = torch.zeros_like(matrix)
         bucket_iters = []
         for blocks in red.buckets:
-            block = gather_block_data(ds, red.feature_shard, blocks, offsets)
+            block = gather_block_data(ds, red.feature_shard, blocks, offsets, red.feature_mask)
             if isinstance(block.features, SparseFeatures):
                 block = dataclasses.replace(block, features=ell_block_to_dense(block.features))
             w0 = matrix[blocks.entity_rows]
-            res = problem.solve(self.loss, block, cfg, w0, self.norm, use_kernel=False)
+            norm = self._lane_norm(blocks.entity_rows)
+            res = problem.solve(self.loss, block, cfg, w0, norm, use_kernel=False)
             # Dummy (padding) entities all write the unseen row, re-zeroed below.
             matrix[blocks.entity_rows] = res.coefficients
+            if var_matrix is not None:
+                var_matrix[blocks.entity_rows] = problem.compute_variances(
+                    self.loss, block, cfg, res.coefficients, norm)
             bucket_iters.append(res.iterations)
         matrix[e_total] = 0.0
+        if var_matrix is not None:
+            var_matrix[e_total] = 0.0
         stats = {
             "buckets": [
                 dict(capacity=b.capacity, entities=b.num_entities,
@@ -193,7 +231,7 @@ class RandomEffectCoordinate:
             ],
             "total_iterations": int(sum(int(its.sum()) for its in bucket_iters)),
         }
-        return RandomEffectModel(matrix, None, self.task), stats
+        return RandomEffectModel(matrix, var_matrix, self.task), stats
 
     def gather_model(self, model: RandomEffectModel) -> RandomEffectModel:
         """The model of all ranks: every rank's store rows placed at its

@@ -13,7 +13,11 @@ coordinate c is (summed scores - c's previous scores), three elementwise ops:
     ranks (parallel/mesh.py) the verdict is a cross-rank AND, so one rank's
     NaN rejects the update on every rank and the ranks cannot diverge;
   * optional validation after each update, with best-model selection on
-    full passes by the primary evaluator.
+    full passes by the primary evaluator;
+  * `reg_weights` overrides coordinates' regularization weights (the
+    estimator's configurations share coordinates); a down-sampled fixed
+    effect draws a fresh sample per update from a generator seeded by
+    (`seed`, update step), so a rerun draws the same samples.
 
 Checkpoint/resume, the mesh-loss recovery, prefetch and telemetry are not
 ported yet.
@@ -76,6 +80,8 @@ def run_coordinate_descent(
     validation_scorer=None,
     validation_suite: Optional[EvaluationSuite] = None,
     validation_offsets: Optional[torch.Tensor] = None,
+    reg_weights: Optional[Mapping[str, float]] = None,
+    seed: int = 0,
 ) -> CoordinateDescentResult:
     """`coordinates`: ordered id -> Fixed/RandomEffectCoordinate.
     `validation_scorer(cid, model) -> scores` scores one coordinate's model
@@ -121,14 +127,22 @@ def run_coordinate_descent(
     pass_results: Optional[EvaluationResults] = None
     last_unlocked = unlocked[-1]
     for it in range(num_iterations):
-        for cid in ids:
+        for ci, cid in enumerate(ids):
             if cid in locked:
                 continue
             coord = coordinates[cid]
             t0 = time.perf_counter()
             residual = summed - scores.get(cid, zeros())
             offsets = base_offsets + residual
-            model, stats = coord.train(offsets, models.get(cid))
+            kwargs = {}
+            if reg_weights and cid in reg_weights:
+                kwargs["reg_weight"] = reg_weights[cid]
+            if coord.config.down_sampling_rate < 1.0:
+                step = it * len(ids) + ci
+                # The CPU generator keeps 32 bits of its seed: mix (seed, step) into them.
+                kwargs["generator"] = torch.Generator(device=base_offsets.device).manual_seed(
+                    (int(seed) * 0x9E3779B1 + step) % (1 << 32))
+            model, stats = coord.train(offsets, models.get(cid), **kwargs)
             new_scores = coord.score(model)
             accepted = _all_finite(model, new_scores, mesh)
             if accepted:

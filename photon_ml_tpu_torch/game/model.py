@@ -56,7 +56,9 @@ def random_effect_margins(
 ) -> Tensor:
     """Per-sample margins: gather each sample's coefficient row and reduce
     per row (batch-size invariant, unlike a batched matmul), with
-    normalization folded into the rows once. Over an ELL shard the margin
+    normalization folded into the rows once (a global context, or a
+    projected shard's per-entity one: a row of factors and shifts per
+    coefficient row). Over an ELL shard the margin
     of sample i is sum_k values[i, k] matrix[entity_rows[i], indices[i, k]]:
     a gather of the coefficients the row names, with no scatter, so it is
     deterministic on the card as on the CPU."""

@@ -7,7 +7,9 @@ data. For x' = (x - shift) * factor, margins over the raw data are
     z = x . (w * factor) - shift . (w * factor)
 
 so normalization costs one elementwise product of the coefficients per
-objective evaluation. Per-entity (projected) contexts are not ported yet.
+objective evaluation. The batched objective takes a context whose factors
+and shifts are (E, D), one row per lane: a random-effect bucket in a
+projected space gets its entities' rows of a `PerEntityNormalization`.
 """
 
 from __future__ import annotations
@@ -100,3 +102,80 @@ def from_feature_stats(
 def _safe_inv(x: Tensor) -> Tensor:
     pos = x > 0.0
     return torch.where(pos, 1.0 / torch.where(pos, x, torch.ones_like(x)), torch.ones_like(x))
+
+
+class PerEntityNormalization(NamedTuple):
+    """The global context mapped into every entity's projected slots
+    (`project_normalization`): factors[e, j] = global_factors[slot_tables[e, j]]
+    and likewise shifts, as (E + 1, D_proj) matrices, with padding slots at
+    (factor 1, shift 0). `intercept_slots[e]` is entity e's local slot of the
+    global intercept (-1 where it has none)."""
+
+    factors: Optional[Tensor] = None
+    shifts: Optional[Tensor] = None
+    intercept_slots: Optional[Tensor] = None  # (E + 1,) int64
+
+    @property
+    def is_identity(self) -> bool:
+        return self.factors is None and self.shifts is None
+
+    def rows_context(self, entity_rows: Tensor) -> NormalizationContext:
+        """The context of a bucket's lanes: one (factors, shifts) row each.
+        The intercept index plays no part in the objective's algebra."""
+        take = lambda t: None if t is None else t[entity_rows]
+        return NormalizationContext(take(self.factors), take(self.shifts), None)
+
+    def effective_coefficients(self, matrix: Tensor) -> Tensor:
+        """(E + 1, D_proj) coefficients -> effective (factor-folded) ones."""
+        return matrix if self.factors is None else matrix * self.factors
+
+    def _fold_intercept(self, m: Tensor, fold: Tensor) -> Tensor:
+        if self.intercept_slots is None:
+            raise ValueError("Per-entity shifts require intercept slots")
+        rows = torch.arange(m.shape[0], device=m.device)
+        add = torch.where(self.intercept_slots >= 0, fold, torch.zeros_like(fold))
+        return m.index_put((rows, self.intercept_slots.clamp_min(0)), add, accumulate=True)
+
+    def matrix_to_original_space(self, matrix: Tensor, variances: Optional[Tensor] = None):
+        """Row-wise `model_to_original_space` over the entity axis; the
+        variances scale by factor^2."""
+        if self.is_identity:
+            return matrix, variances
+        m = self.effective_coefficients(matrix)
+        if self.shifts is not None:
+            m = self._fold_intercept(m, -torch.sum(self.shifts * m, dim=1))
+        if variances is not None and self.factors is not None:
+            variances = variances * self.factors * self.factors
+        return m, variances
+
+    def matrix_to_transformed_space(self, matrix: Tensor) -> Tensor:
+        """Row-wise inverse of `matrix_to_original_space` (the warm-start
+        direction)."""
+        if self.is_identity:
+            return matrix
+        m = matrix
+        if self.shifts is not None:
+            m = self._fold_intercept(m, torch.sum(self.shifts * matrix, dim=1))
+        return m / self.factors if self.factors is not None else m
+
+    def to(self, device) -> "PerEntityNormalization":
+        move = lambda t: None if t is None else t.to(device)
+        return PerEntityNormalization(move(self.factors), move(self.shifts), move(self.intercept_slots))
+
+
+def project_normalization(norm: NormalizationContext, slot_tables: Tensor) -> PerEntityNormalization:
+    """Map a global context through per-entity index tables ((E + 1, D_proj)
+    global indices, -1 = padding) into a `PerEntityNormalization`."""
+    cols = slot_tables.clamp_min(0)
+    pad = slot_tables < 0
+    factors = shifts = intercept_slots = None
+    if norm.factors is not None:
+        factors = norm.factors.to(slot_tables.device)[cols].masked_fill(pad, 1.0)
+    if norm.shifts is not None:
+        if norm.intercept_index is None:
+            raise ValueError("Normalization with shifts requires an intercept")
+        shifts = norm.shifts.to(slot_tables.device)[cols].masked_fill(pad, 0.0)
+        hits = slot_tables == norm.intercept_index
+        intercept_slots = torch.where(hits.any(dim=1), hits.long().argmax(dim=1),
+                                      torch.full_like(slot_tables[:, 0], -1))
+    return PerEntityNormalization(factors, shifts, intercept_slots)

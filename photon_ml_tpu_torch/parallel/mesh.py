@@ -197,6 +197,7 @@ def entity_owners(layout: EntityLayout, world_size: int) -> np.ndarray:
     num_e = layout.num_entities
     owner = np.full(num_e, -1, np.int64)
     for _, _, ent_rows in layout.blocks:
+        ent_rows = ent_rows.numpy()
         part = -(-len(ent_rows) // world_size)
         lanes = np.nonzero(ent_rows < num_e)[0]
         owner[ent_rows[lanes]] = lanes // part
@@ -242,11 +243,12 @@ class RowSharding:
         store_row = np.full(num_e + 1, -1, np.int64)
         store_row[owned] = np.arange(len(owned), dtype=np.int64)
         store_row[num_e] = len(owned)
-        sample_rows = store_row[layout.codes[rows]]
+        sample_rows = store_row[layout.codes.numpy()[rows]]
         if (sample_rows < 0).any():
             raise RuntimeError("a row of another rank's entity is on this rank")
         buckets = []
         for gather, mask, ent_rows in layout.blocks:
+            gather, mask, ent_rows = gather.numpy(), mask.numpy(), ent_rows.numpy()
             pad = (-len(ent_rows)) % world
             if pad:
                 gather = np.concatenate([gather, np.zeros((pad, gather.shape[1]), np.int64)])
@@ -260,7 +262,9 @@ class RowSharding:
             lg = np.where(m > 0, local_pos[g], 0)
             if (lg < 0).any() or (store_row[e] < 0).any():
                 raise RuntimeError("an entity's lane or active row is not on its owning rank")
-            buckets.append(EntityBlocks(lg, m, store_row[e], dataset.device))
+            dev = dataset.device
+            buckets.append(EntityBlocks(torch.as_tensor(lg).to(dev), torch.as_tensor(m).to(dev),
+                                        torch.as_tensor(store_row[e]).to(dev)))
         num_active = int(sum(float(b.mask.sum()) for b in buckets))
         return RandomEffectDataset(
             config=config,
@@ -307,9 +311,10 @@ def shard_game_dataset(
     if owner is not None:
         if owner.random_effect_type not in tags:
             raise ValueError(f"id tag {owner.random_effect_type!r} not present")
-        layout = entity_layout(factorize_tag(tags[owner.random_effect_type]), owner)
+        layout = entity_layout(factorize_tag(tags[owner.random_effect_type]), owner,
+                               torch.device("cpu"))
         entity_owner = entity_owners(layout, mesh.world_size)
-        rows = np.nonzero(entity_owner[layout.codes] == mesh.rank)[0]
+        rows = np.nonzero(entity_owner[layout.codes.numpy()] == mesh.rank)[0]
     else:
         rows = np.array_split(np.arange(n, dtype=np.int64), mesh.world_size)[mesh.rank]
     ds = GameDataset.build(

@@ -64,3 +64,11 @@ class VarianceComputationType(enum.Enum):
     @classmethod
     def parse(cls, name: str) -> "VarianceComputationType":
         return cls[name.strip().upper()]
+
+
+class ProjectorType(enum.Enum):
+    """A random effect's feature-space projection (game/projector.py)."""
+
+    INDEX_MAP = "INDEX_MAP"
+    RANDOM = "RANDOM"
+    IDENTITY = "IDENTITY"

@@ -33,7 +33,8 @@ def test_every_port_module_imports_with_jax_blocked():
     for name in ("ops.glm_kernels", "game.coordinate_descent", "ops.cuda_build", "ops.sparse_kernels",
                  "data.sparse_layout", "parallel.mesh", "parallel.launch", "io.avro", "io.avro_data",
                  "io.avro_fast", "io.schemas", "data.index_map", "native.build", "native.avro_reader",
-                 "native.avro_writer", "timing"):
+                 "native.avro_writer", "timing", "data.stats", "data.sampling", "data.device_assemble",
+                 "game.projector", "estimators.game_estimator", "evaluation.suite"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = textwrap.dedent(
         """

@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from photon_ml_tpu.cli import libsvm_to_avro
 from photon_ml_tpu.data.index_map import IndexMap as JaxIndexMap
@@ -231,9 +232,9 @@ def test_entity_layout_from_tag_codes_is_the_string_sorted_layout(tmp_path):
                                   _configs(pad, {"g": (("features",), True)}),
                                   id_tag_fields=["userId"], device="cpu")
     cfg = gd.RandomEffectDataConfig("userId", "g", active_upper_bound=64, min_bucket=8)
-    fast = gd.entity_layout(ds.tag_codes["userId"], cfg)
+    fast = gd.entity_layout(ds.tag_codes["userId"], cfg, torch.device("cpu"))
     built = gd.GameDataset.build({}, ds.labels, id_tags=ds.id_tags, device="cpu")
-    slow = gd.entity_layout(built.tag_codes["userId"], cfg)
+    slow = gd.entity_layout(built.tag_codes["userId"], cfg, torch.device("cpu"))
     assert fast.entity_index == slow.entity_index
     assert list(fast.entity_index)[:3] == ["0", "1", "10"]
     np.testing.assert_array_equal(fast.codes, slow.codes)

@@ -259,15 +259,27 @@ def test_sparse_features_convert_from_jax_planes():
 
 
 def test_random_effects_over_sparse_shards_and_their_variances_are_not_ported_yet():
-    """A random effect over a sparse shard now builds (tests/test_torch_sparse_re.py
-    holds it against the JAX package); random-effect variances, over a sparse
-    or a dense shard, are still not ported."""
-    arrays = sparse_glmix_arrays(4, n=300)
-    ds = _port_dataset(*arrays)
-    sparse_red = gd.build_random_effect_dataset(ds, gd.RandomEffectDataConfig("entityId", "sparse"))
-    assert sparse_red.num_entities == len(np.unique(arrays[3]))
-    red = gd.build_random_effect_dataset(ds, gd.RandomEffectDataConfig("entityId", "per_entity"))
-    cfg = config.CoordinateOptimizationConfig(variance_computation=VarianceComputationType.SIMPLE)
-    for r in (sparse_red, red):
-        with pytest.raises(NotImplementedError):
-            RandomEffectCoordinate(ds, r, cfg, TaskType.LOGISTIC_REGRESSION).train(ds.offsets)
+    """(The name predates the port of both.) A random effect over a sparse
+    shard builds (tests/test_torch_sparse_re.py holds it against the JAX
+    package), and SIMPLE random-effect variances, over a sparse and a dense
+    shard, match the JAX package's lane by lane; the pinned row stays 0."""
+    arrays = sparse_glmix_arrays(4, n=3000, n_entities=20)
+    ds, jds = _port_dataset(*arrays), _jax_dataset(*arrays)
+    tol = PORT_TOLERANCES["estimator"]["variance_rtol"]
+    for shard in ("sparse", "per_entity"):
+        red = gd.build_random_effect_dataset(ds, gd.RandomEffectDataConfig("entityId", shard))
+        jred = jax_gd.build_random_effect_dataset(jds, jax_gd.RandomEffectDataConfig("entityId", shard))
+        assert red.num_entities == len(np.unique(arrays[3]))
+        kw = dict(optimizer_type=OptimizerType.LBFGS, max_iterations=100, tolerance=1e-9)
+        cfg = config.CoordinateOptimizationConfig(
+            optimizer=config.OptimizerConfig(**kw), regularization=config.L2, reg_weight=10.0,
+            variance_computation=VarianceComputationType.SIMPLE)
+        jcfg = jax_config.CoordinateOptimizationConfig(
+            optimizer=jax_config.OptimizerConfig(max_iterations=100, tolerance=1e-9),
+            regularization=jax_config.L2, reg_weight=10.0, variance_computation=JaxVariance.SIMPLE)
+        model, _ = RandomEffectCoordinate(ds, red, cfg, TaskType.LOGISTIC_REGRESSION).train(ds.offsets)
+        jmodel, _ = jax_coordinate.RandomEffectCoordinate(
+            jds, jred, jcfg, JaxTaskType.LOGISTIC_REGRESSION).train(jds.offsets)
+        var = model.variances_matrix.numpy()
+        np.testing.assert_allclose(var, np.asarray(jmodel.variances_matrix), rtol=tol, err_msg=shard)
+        assert np.all(var[-1] == 0) and np.all(var[:-1] > 0)

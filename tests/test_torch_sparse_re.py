@@ -7,6 +7,7 @@ a JAX model trained over a sparse shard carried into the port."""
 
 from __future__ import annotations
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -30,7 +31,8 @@ from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEff
 from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
 from photon_ml_tpu_torch.io import avro_data as pad
 from photon_ml_tpu_torch.native.avro_writer import write_training_examples_columnar
-from photon_ml_tpu_torch.optimize import config
+from photon_ml_tpu_torch.ops import losses
+from photon_ml_tpu_torch.optimize import config, problem
 from photon_ml_tpu_torch.transformers.game_transformer import GameTransformer
 from photon_ml_tpu_torch.types import TaskType
 
@@ -244,3 +246,48 @@ def test_jax_sparse_random_effect_model_converts_and_scores_alike(e2e_pair):
     model, port_specs = convert.game_model_from_numpy(arrays, TASK, device="cpu")
     got = GameTransformer(model, port_specs, TASK).transform(e2e_pair["ds"])
     np.testing.assert_allclose(got.scores.numpy(), np.asarray(ref.scores), **PORT_TOLERANCES["convert_scores"])
+
+
+def test_re_solve_length_is_as_sensitive_in_the_reference():
+    """The random effect's solve length against the JAX package's, on the
+    same fixed-effect bits (the port's FE scores as both packages' offsets),
+    at phase 3's settings (20 iterations, tol 1e-7, below f32 resolution):
+    each lane's iteration count is within the solver tolerance of the
+    reference's. Flipping the last bit of half the offsets changes some
+    lanes' counts in both packages alike, so a batched solve's step count
+    (the slowest lane's) moving after a change to the FE's low bits is the
+    reference's behaviour too, not a fault of the port."""
+    ds, jds = _ell_pair(8000, 7)
+    fe, _ = _configs(config)
+    re = config.CoordinateOptimizationConfig(optimizer=config.OptimizerConfig(max_iterations=20, tolerance=1e-7),
+                                             regularization=config.L2, reg_weight=10.0)
+    jre = jax_config.CoordinateOptimizationConfig(
+        optimizer=jax_config.OptimizerConfig(max_iterations=20, tolerance=1e-7),
+        regularization=jax_config.L2, reg_weight=10.0)
+    fec = FixedEffectCoordinate(ds, "g", fe, TASK)
+    fe_scores = fec.score(fec.train(ds.offsets)[0]).numpy()
+    red = gd.build_random_effect_dataset(ds, gd.RandomEffectDataConfig("userId", "g", **RE_LAYOUT))
+    jred = jax_gd.build_random_effect_dataset(jds, jax_gd.RandomEffectDataConfig("userId", "g", **RE_LAYOUT))
+    jcoord = jax_coordinate.RandomEffectCoordinate(jds, jred, jre, JTASK)
+
+    def lane_iterations(offsets):
+        port, ref = [], []
+        for b, jb in zip(red.buckets, jred.buckets):
+            block = gd.gather_block_data(ds, "g", b, torch.from_numpy(offsets))
+            block = containers.LabeledData(containers.ell_block_to_dense(block.features), block.labels,
+                                           block.offsets, block.weights)
+            w0 = torch.zeros(b.num_entities, D_IDS + 1)
+            port.append(problem.solve(losses.LOGISTIC, block, re, w0, use_kernel=False).iterations.numpy())
+            jblock = jax_gd.gather_block_data(jds, "g", jb, jds.offsets + offsets)
+            jres = jcoord._train_bucket(jblock, jnp.zeros((jb.num_entities, D_IDS + 1)), jnp.float32(10.0))
+            ref.append(np.asarray(jres.iterations))
+        return np.concatenate(port), np.concatenate(ref)
+
+    port, ref = lane_iterations(fe_scores)
+    assert np.abs(port - ref).max() <= PORT_TOLERANCES["solver"]["iterations"]
+    flipped = fe_scores.copy()
+    bits = flipped.view(np.int32)
+    bits[np.random.default_rng(0).uniform(size=bits.shape) < 0.5] ^= 1
+    port2, ref2 = lane_iterations(flipped)
+    assert np.abs(port2 - ref2).max() <= PORT_TOLERANCES["solver"]["iterations"]
+    assert (port2 != port).any() and (ref2 != ref).any()
