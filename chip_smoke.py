@@ -121,6 +121,30 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    PORT_TOLERANCES["card_vs_cpu_glmix"], each random effect on its
    objective (with its projection, normalization and mask), the fixed
    effect's and per-user's variances within its "variance_rtol".
+3c. The drivers at full width on phase 3e's Avro files (kept until 3c
+   ends): `photon_ml_tpu_torch.cli.train.main` with the e2e cell's
+   coordinates as DSL strings (one sweep, output mode BEST), then
+   `cli.score.main` with AUC. The saved model (read back by the port's
+   `load_game_model`) must equal 3f's fit in the original space
+   (`model_bridge.artifact_from_game_model`): the fixed effect bit-equal,
+   each random effect within PORT_TOLERANCES["glmix"]["coef_atol"] (the row
+   says whether bit-equal); 3f's artifact saved and loaded back must be
+   exact; 4,000,000 rows scored, the AUC within "auc_atol" of 3f's and the
+   written scores (read back by `score_store.load_score_columns`) within
+   "score_atol" of 3f's. Launches are counted from 0 around each driver:
+   `sparse_fused` in train, `sparse_matvec` in score, no dense kernel.
+   Prints each driver's `timings_s`, the model's and scores' MiB, entity
+   counts, the store's save/load seconds, and device memory before and at
+   the peak of each driver.
+5c. examples/run_glmix.sh's data (its generator run as a script, then the
+   port's libsvm_to_avro) and its train step with SIMPLE variances, on
+   the card and on the CPU: the two saved models under
+   PORT_TOLERANCES["card_vs_cpu_glmix"] (fixed effect, variances, each
+   entity's random-effect objective at the CPU fixed effect's offsets) with
+   both validation AUCs; the test file scored by each (AUCs within
+   "auc_atol") and the CPU's model scored on the card within
+   PORT_TOLERANCES["convert_scores"] of the CPU's scores; `sparse_rmatvec`
+   nonzero in the card's train (the SIMPLE variances).
 
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
 parallel/), each rank a process started by parallel/launch.py that loads
@@ -154,8 +178,10 @@ print which backend each used.
    CPU process, under PORT_TOLERANCES["card_vs_cpu_glmix"].
 
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
-3s, 4s, 3e, 3f, 5f's card fits, and 3d and 4d in each rank) and read just
-after. The last three
+3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, and 3d
+and 4d in each rank) and read just after; the `kernels` line gives them by
+phase (`launches_by_phase`). "wall:" lines give each group of phases'
+seconds. The last three
 lines of standard output are
 the `kernels` JSON line, the card's name and power limit from nvidia-smi,
 and `{"ok": true, "device": {...}}`. Data comes from numpy with --seed;
@@ -166,6 +192,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -979,23 +1006,27 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
     from photon_ml_tpu_torch.data.sparse_layout import from_ell
     from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
     from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+    from photon_ml_tpu_torch.io import model_bridge
     from photon_ml_tpu_torch.ops import glm_kernels
     from photon_ml_tpu_torch.ops import sparse_kernels as sk
     from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.types import TaskType
 
     # ---- phase 3e set-up: write, ingest, layout -------------------------------------
     t0 = time.perf_counter()
     a = e2e_arrays(E2E_ROWS)
     gen_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory(prefix="photon-e2e-") as root:
-        t0 = time.perf_counter()
-        total_mb = write_e2e_files(root, a)
-        write_s = time.perf_counter() - t0
-        del a
-        t0 = time.perf_counter()
-        ds = read_e2e(root, dev)
-        torch.cuda.synchronize()
-        ingest_s = time.perf_counter() - t0
+    # Phase 3e's Avro directory stays until phase 3c has read it twice.
+    e2e_dir = tempfile.TemporaryDirectory(prefix="photon-e2e-")
+    root = e2e_dir.name
+    t0 = time.perf_counter()
+    total_mb = write_e2e_files(root, a)
+    write_s = time.perf_counter() - t0
+    del a
+    t0 = time.perf_counter()
+    ds = read_e2e(root, dev)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
     timing = ds.ingest_timing
     shard = ds.shards["g"]
     missing = [k for k in INGEST_TIMING_REQUIRED_KEYS if k not in timing]
@@ -1106,9 +1137,19 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
                    reds={c: coords[c].re_dataset for c in E2E_RE}, auc=auc, launches=launches)
     del coords, result, scores, layout
     torch.cuda.empty_cache()
-    launches3f = estimator_e2e_phase(ds, phase3e)
+    launches3f, fit3f = estimator_e2e_phase(ds, phase3e)
+    # 3f's model in the original space, as the train driver saves it.
+    t0 = time.perf_counter()
+    fit3f["artifact"] = model_bridge.artifact_from_game_model(
+        fit3f.pop("model"), fit3f.pop("specs"), TaskType.LOGISTIC_REGRESSION)
+    fit3f["bridge_s"] = time.perf_counter() - t0
     del ds, shard, phase3e
     torch.cuda.empty_cache()
+    try:
+        launches3c = driver_e2e_phase(root, fit3f)
+    finally:
+        e2e_dir.cleanup()
+    del fit3f
 
     # ---- phase 5e: a small fit from files, card vs CPU ----------------------------------
     ref_tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
@@ -1140,7 +1181,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
             failures.append(f"seed {s}: the card's small e2e fit disagrees with the CPU's")
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
-    return rows2e, {"3e": launches, "3f": launches3f}
+    return rows2e, {"3e": launches, "3f": launches3f, "3c": launches3c}
 
 
 def small_estimator_fits(where: str, a: dict, n_train: int) -> dict:
@@ -1309,9 +1350,10 @@ def e2e_estimator(task):
     return GameEstimator(task, configs, coordinate_descent_iterations=1)
 
 
-def estimator_e2e_phase(ds, phase3e: dict) -> dict:
+def estimator_e2e_phase(ds, phase3e: dict):
     """Phase 3f: phase 3e's cell through GameEstimator.fit on the same
-    ingested dataset. Returns its launches by kernel."""
+    ingested dataset. Returns its launches by kernel, and the fit (model,
+    scoring specs, host scores, AUC) for phase 3c."""
     import torch
 
     from photon_ml_tpu_torch.contracts import PORT_TOLERANCES, PREPARE_STAGES
@@ -1426,7 +1468,310 @@ def estimator_e2e_phase(ds, phase3e: dict) -> dict:
             failures.append(f"{cid}: the card's layout or slot tables differ from the CPU build's")
     if failures:
         raise SystemExit("phase 3f failed: " + "; ".join(failures))
-    return {"sparse": launches, "dense": dense_launches}
+    fit = dict(model=res.model, specs=est.scoring_specs(), scores=scores.cpu(), auc=auc)
+    return {"sparse": launches, "dense": dense_launches}, fit
+
+
+# ------------------------------------------------------------- phases 3c and 5c
+#
+# The drivers, as a user runs them: cli.train from Avro files to a model
+# directory, cli.score from the model directory to ScoringResultAvro files.
+
+E2E_SHARD = "name=g,feature.bags=features,intercept=true"
+E2E_COORDINATES = [
+    "name=global,feature.shard=g,optimizer=LBFGS,tolerance=1e-6,max.iter=10,regularization=L2,reg.weights=1",
+    "name=per-user,random.effect.type=userId,feature.shard=g,optimizer=LBFGS,tolerance=1e-5,max.iter=5,"
+    "regularization=L2,reg.weights=10,min.bucket=8,active.data.upper.bound=256",
+    "name=per-movie,random.effect.type=movieId,feature.shard=g,optimizer=LBFGS,tolerance=1e-5,max.iter=5,"
+    "regularization=L2,reg.weights=10,min.bucket=8,active.data.upper.bound=512",
+]
+
+
+def dir_mib(path: str) -> float:
+    import os
+
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs) / 2**20
+
+
+def counted(torch, fn):
+    """Run `fn` with the kernels' launch counts set to 0 just before it and
+    read just after; returns (fn's result, sparse launches, dense launches,
+    device GiB allocated before it and at its peak)."""
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+
+    gc.collect()  # what earlier phases left behind is not the driver's
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    glm_kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, dict(sk.LAUNCHES), dict(glm_kernels.LAUNCHES),
+            dict(base=base / 2**30, peak=torch.cuda.max_memory_allocated() / 2**30))
+
+
+def same_model(a, b) -> dict:
+    """Max |a - b| of two artifacts' coefficients by coordinate (random
+    effects aligned by entity id), and whether every one is bit-equal."""
+    out = {}
+    for cid, x in a.coordinates.items():
+        y = b.coordinates[cid]
+        if hasattr(x, "entity_ids"):
+            rows = {k: i for i, k in enumerate(y.entity_ids)}
+            if sorted(rows) != sorted(x.entity_ids):
+                out[cid] = dict(err=float("inf"), bit_equal=False, entities=len(x.entity_ids))
+                continue
+            ym = y.means[[rows[k] for k in x.entity_ids]]
+        else:
+            ym = y.means
+        xm = np.asarray(x.means, np.float64)
+        ym = np.asarray(ym, np.float64)
+        out[cid] = dict(err=float(np.abs(xm - ym).max()), bit_equal=bool(np.array_equal(xm, ym)))
+        if hasattr(x, "entity_ids"):
+            out[cid]["entities"] = len(x.entity_ids)
+    return out
+
+
+def driver_e2e_phase(root: str, fit3f: dict) -> dict:
+    """Phase 3c: phase 3e's Avro files through cli.train (the e2e cell's
+    coordinates as DSL strings) and cli.score, on the card. The saved model
+    is held against 3f's fit in the original space, 3f's model saved and
+    loaded back must be exact, and the written scores must decode to 3f's
+    scores. Returns the launches of both drivers by kernel."""
+    import os
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import score as score_cli
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.io import model_store, score_store
+
+    tol = PORT_TOLERANCES["glmix"]
+    work = os.path.join(root, "drivers")
+    out = os.path.join(work, "train")
+    t0 = time.perf_counter()
+    summary, sparse_t, dense_t, mem_t = counted(torch, lambda: train_cli.main([
+        "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+        "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
+        "--coordinate-configurations", *E2E_COORDINATES, "--coordinate-descent-iterations", "1",
+        "--output-mode", "BEST", "--logging-level", "WARNING"]))
+    train_wall = time.perf_counter() - t0
+    best = os.path.join(out, "models", "best")
+    imaps = {"g": IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))}
+    t0 = time.perf_counter()
+    saved = model_store.load_game_model(best, imaps)
+    load_s = time.perf_counter() - t0
+    vs_3f = same_model(saved, fit3f["artifact"])
+    # 3f's own artifact through the store: save, then load back.
+    again_dir = os.path.join(work, "model-3f")
+    t0 = time.perf_counter()
+    model_store.save_game_model(again_dir, fit3f["artifact"], imaps)
+    save_3f_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = model_store.load_game_model(again_dir, imaps)
+    load_3f_s = time.perf_counter() - t0
+    round_trip = same_model(again, fit3f["artifact"])
+
+    scored = os.path.join(work, "score")
+    t0 = time.perf_counter()
+    ssum, sparse_s, dense_s, mem_s = counted(torch, lambda: score_cli.main([
+        "--input-data-directories", root, "--model-input-directory", best,
+        "--root-output-directory", scored, "--feature-shard-configurations", E2E_SHARD,
+        "--evaluators", "AUC", "--logging-level", "WARNING"]))
+    score_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cols = score_store.load_score_columns(os.path.join(scored, "scores"))
+    read_scores_s = time.perf_counter() - t0
+    score_err = (float(np.abs(cols.scores - fit3f["scores"].double().numpy()).max())
+                 if len(cols) == E2E_ROWS else float("inf"))
+    auc = ssum["evaluation"]["AUC"]
+    row = dict(
+        phase="3c", rows=E2E_ROWS, train_wall_s=train_wall, train_timings_s=summary["timings_s"],
+        train_fit_timing=summary["fit_timing"], score_wall_s=score_wall, score_timings_s=ssum["timings_s"],
+        model_mib=dir_mib(best), model_entities={c: v.get("entities") for c, v in vs_3f.items()},
+        model_vs_3f=vs_3f, coef_atol=tol["coef_atol"], load_s=load_s, bridge_3f_s=fit3f["bridge_s"],
+        save_3f_s=save_3f_s, load_3f_s=load_3f_s, save_load_round_trip=round_trip,
+        num_scored=ssum["num_scored"], scores_mib=dir_mib(os.path.join(scored, "scores")),
+        read_scores_s=read_scores_s, score_err_vs_3f=score_err, score_atol=tol["score_atol"],
+        auc=auc, auc_3f=fit3f["auc"], auc_atol=tol["auc_atol"],
+        launches_train=sparse_t, dense_launches_train=dense_t, mem_gib_train=mem_t,
+        launches_score=sparse_s, dense_launches_score=dense_s, mem_gib_score=mem_s)
+    log(json.dumps(row))
+    failures = []
+    if not vs_3f["global"]["bit_equal"]:
+        failures.append(f"the saved fixed effect is not bit-equal to 3f's ({vs_3f['global']['err']:.3e})")
+    for cid in E2E_RE:
+        if vs_3f[cid]["err"] > tol["coef_atol"]:
+            failures.append(f"{cid}: {vs_3f[cid]['err']:.3e} from 3f's coefficients")
+    if not all(v["bit_equal"] for v in round_trip.values()):
+        failures.append(f"3f's model saved and loaded back is not exact: {round_trip}")
+    if ssum["num_scored"] != E2E_ROWS or not score_err <= tol["score_atol"]:
+        failures.append(f"{ssum['num_scored']} rows scored, {score_err:.3e} from 3f's scores")
+    if not abs(auc - fit3f["auc"]) <= tol["auc_atol"]:
+        failures.append(f"scoring AUC {auc} is not within {tol['auc_atol']} of 3f's {fit3f['auc']}")
+    if not sparse_t["sparse_fused"] or not sparse_s["sparse_matvec"] or any(dense_t.values()) \
+            or any(dense_s.values()):
+        failures.append(f"launches: train {sparse_t} / {dense_t}, score {sparse_s} / {dense_s}")
+    if failures:
+        raise SystemExit("phase 3c failed: " + "; ".join(failures))
+    return {"sparse": {k: sparse_t[k] + sparse_s[k] for k in sparse_t},
+            "dense": {k: dense_t[k] + dense_s[k] for k in dense_t}}
+
+
+GLMIX_SHARD = "name=globalShard,feature.bags=features,intercept=true"
+
+
+def glmix_train_args(data: str, out: str, device: str):
+    """examples/run_glmix.sh's train step, with SIMPLE variances."""
+    import os
+
+    return [
+        "--training-task", "LOGISTIC_REGRESSION",
+        "--input-data-directories", os.path.join(data, "train.avro"),
+        "--validation-data-directories", os.path.join(data, "test.avro"),
+        "--root-output-directory", out, "--override-output-directory",
+        "--feature-shard-configurations", GLMIX_SHARD,
+        "--coordinate-configurations",
+        "name=global,feature.shard=globalShard,optimizer=LBFGS,tolerance=1.0E-7,max.iter=50,"
+        "regularization=L2,reg.weights=1",
+        "name=per-member,random.effect.type=memberId,feature.shard=globalShard,optimizer=LBFGS,"
+        "max.iter=30,regularization=L2,reg.weights=10,min.bucket=8",
+        "--coordinate-descent-iterations", "2", "--validation-evaluators", "AUC", "--output-mode", "BEST",
+        "--variance-computation-type", "SIMPLE", "--logging-level", "WARNING", "--device", device]
+
+
+def re_objectives(data: str, artifact, fe_means: np.ndarray, l2: float) -> np.ndarray:
+    """Each entity's random-effect objective at the artifact's coefficients
+    (original space), in float64 on the host: the logistic loss of its
+    training rows at offsets from `fe_means`, plus (l2 / 2) |beta|^2."""
+    import os
+
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig, read_game_dataset
+
+    ds, imaps = read_game_dataset(os.path.join(data, "train.avro"),
+                                  {"globalShard": FeatureShardConfig(("features",), True)},
+                                  id_tag_fields=["memberId"], device="cpu")
+    g = ds.shards["globalShard"]
+    idx, val = g.indices.long().numpy(), g.values.double().numpy()
+    y = ds.labels.double().numpy()
+    re = artifact.coordinates["per-member"]
+    row_of = {k: i for i, k in enumerate(re.entity_ids)}
+    ent = np.asarray([row_of[str(k)] for k in ds.id_tags["memberId"]])
+    means = np.asarray(re.means, np.float64)
+    z = (val * fe_means[idx]).sum(1) + (val * means[ent[:, None], idx]).sum(1)
+    loss = np.logaddexp(0.0, z) - y * z
+    return np.bincount(ent, loss, minlength=len(re.entity_ids)) + 0.5 * l2 * (means ** 2).sum(1)
+
+
+def driver_small_phase(seed: int) -> dict:
+    """Phase 5c: examples/run_glmix.sh's data (its generator, run as a
+    script) through the port's libsvm_to_avro, then its train step with
+    SIMPLE variances on the card and on the CPU; the two saved models and
+    validation AUCs under PORT_TOLERANCES["card_vs_cpu_glmix"], and the
+    test file scored by each. Returns the card runs' launches by kernel."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import libsvm_to_avro
+    from photon_ml_tpu_torch.cli import score as score_cli
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.io import model_store, score_store
+
+    tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    conv = PORT_TOLERANCES["convert_scores"]
+    with tempfile.TemporaryDirectory(prefix="photon-glmix-") as root:
+        data = os.path.join(root, "data")
+        subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "examples" / "generate_dataset.py"),
+                        data, "--train", "2400", "--test", "800", "--entities", "24"],
+                       check=True, capture_output=True, timeout=300)
+        for split in ("train", "test"):
+            libsvm_to_avro.main(["--tag-comments", os.path.join(data, f"{split}.libsvm"),
+                                 os.path.join(data, f"{split}.avro")])
+        runs, launches = {}, {"sparse": {}, "dense": {}}
+
+        def add(sparse, dense):
+            for k, v in sparse.items():
+                launches["sparse"][k] = launches["sparse"].get(k, 0) + v
+            for k, v in dense.items():
+                launches["dense"][k] = launches["dense"].get(k, 0) + v
+
+        for device in ("cuda", "cpu"):
+            out = os.path.join(root, device)
+            t0 = time.perf_counter()
+            if device == "cuda":
+                summary, sparse, dense, _ = counted(torch, lambda: train_cli.main(glmix_train_args(data, out, device)))
+                add(sparse, dense)
+                runs["train_launches"] = sparse
+            else:
+                summary = train_cli.main(glmix_train_args(data, out, device))
+            runs[device] = dict(summary=summary, wall_s=time.perf_counter() - t0,
+                                best=os.path.join(out, "models", "best"))
+        imaps = {"globalShard": IndexMap.load(os.path.join(runs["cpu"]["best"], "feature-indexes",
+                                                           "globalShard.json"))}
+        card = model_store.load_game_model(runs["cuda"]["best"], imaps)
+        cpu = model_store.load_game_model(runs["cpu"]["best"], imaps)
+        fe_c, fe_p = card.coordinates["global"], cpu.coordinates["global"]
+        re_c, re_p = card.coordinates["per-member"], cpu.coordinates["per-member"]
+        obj = {k: re_objectives(data, a, fe_p.means, 10.0) for k, a in (("card", card), ("cpu", cpu))}
+        rel = lambda a, b: float((np.abs(np.asarray(a, np.float64) - b) / np.abs(b)).max())
+        row = dict(
+            phase="5c", seed=seed, fe_coef_err=float(np.abs(fe_c.means - fe_p.means).max()),
+            fe_variance_rel_err=rel(fe_c.variances, fe_p.variances),
+            re_variance_rel_err=rel(re_c.variances, re_p.variances),
+            re_coef_err=float(np.abs(re_c.means - re_p.means).max()),
+            re_objective_rel_gap=float((np.abs(obj["card"] - obj["cpu"]) / obj["cpu"]).max()),
+            auc_card=runs["cuda"]["summary"]["best_evaluation"]["AUC"],
+            auc_cpu=runs["cpu"]["summary"]["best_evaluation"]["AUC"],
+            train_wall_s={d: runs[d]["wall_s"] for d in ("cuda", "cpu")},
+            train_timings_s_card=runs["cuda"]["summary"]["timings_s"], tol=tol)
+        # The test file scored by each device: each one's own model, and the
+        # CPU model on the card (same weights, only the row sums' order differs).
+        scored = {}
+        for device, model in (("cuda", "cuda"), ("cpu", "cpu"), ("cuda", "cpu")):
+            out = os.path.join(root, f"score-{device}-{model}")
+            args = ["--input-data-directories", os.path.join(data, "test.avro"),
+                    "--model-input-directory", runs[model]["best"], "--root-output-directory", out,
+                    "--feature-shard-configurations", GLMIX_SHARD, "--evaluators", "AUC",
+                    "--logging-level", "WARNING", "--device", device]
+            if device == "cuda":
+                ssum, sparse, dense, _ = counted(torch, lambda: score_cli.main(args))
+                add(sparse, dense)
+            else:
+                ssum = score_cli.main(args)
+            scored[device, model] = (ssum, score_store.load_score_columns(os.path.join(out, "scores")))
+        own_c, own_p = scored["cuda", "cuda"], scored["cpu", "cpu"]
+        cross = np.abs(scored["cuda", "cpu"][1].scores - own_p[1].scores)
+        row.update(score_auc_card=own_c[0]["evaluation"]["AUC"], score_auc_cpu=own_p[0]["evaluation"]["AUC"],
+                   score_err_card_vs_cpu=float(np.abs(own_c[1].scores - own_p[1].scores).max()),
+                   score_err_same_model=float(cross.max()), convert_scores_tol=conv,
+                   launches=launches)
+    log(json.dumps(row))
+    failures = []
+    if not row["fe_coef_err"] <= tol["fe_coef_atol"]:
+        failures.append(f"fixed effect {row['fe_coef_err']:.3e} apart")
+    if not max(row["fe_variance_rel_err"], row["re_variance_rel_err"]) <= tol["variance_rtol"]:
+        failures.append(f"variances {row['fe_variance_rel_err']:.3e} / {row['re_variance_rel_err']:.3e} apart")
+    if not row["re_objective_rel_gap"] <= tol["re_objective_rtol"]:
+        failures.append(f"random-effect objectives {row['re_objective_rel_gap']:.3e} apart")
+    if not (abs(row["auc_card"] - row["auc_cpu"]) <= tol["auc_atol"]
+            and abs(row["score_auc_card"] - row["score_auc_cpu"]) <= tol["auc_atol"]):
+        failures.append("validation or scoring AUCs apart")
+    if not bool((cross <= conv["atol"] + conv["rtol"] * np.abs(own_p[1].scores)).all()):
+        failures.append(f"the card scores the CPU's model {row['score_err_same_model']:.3e} away")
+    if not runs["train_launches"]["sparse_rmatvec"] or any(launches["dense"].values()):
+        failures.append(f"launches {launches}")
+    if failures:
+        raise SystemExit("phase 5c failed: " + "; ".join(failures))
+    return launches
 
 
 # ---------------------------------------------------------------- phases 2d-5d
@@ -1937,6 +2282,7 @@ def main(argv=None) -> int:
     from photon_ml_tpu_torch.ops.losses import LOGISTIC, POISSON, SMOOTHED_HINGE, SQUARED
     from photon_ml_tpu_torch.types import TaskType
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2174,17 +2520,29 @@ def main(argv=None) -> int:
     if failures:
         raise SystemExit("phase 5 failed: " + "; ".join(failures))
 
-    # ---- phases 2s-5s: the sparse fixed effect ------------------------------------
-    sparse_rows, sparse_launches = sparse_phases(args.seed, dev, bw, f32_rate)
+    log(f"wall: phases 1-5 {time.perf_counter() - t_start:.1f} s")
 
-    # ---- phases 2e-5e and 3f: the e2e cell from Avro files ---------------------------
-    e2e_rows, e2e_launches = e2e_phases(args.seed, dev, bw, f32_rate)
+    def walled(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        log(f"wall: {name} {time.perf_counter() - t:.1f} s")
+        return out
+
+    # ---- phases 2s-5s: the sparse fixed effect ------------------------------------
+    sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
+
+    # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c", e2e_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phase 5f: small estimator fits, card vs CPU --------------------------------
-    small_launches = estimator_small_phase(args.seed + 51)
+    small_launches = walled("phase 5f", estimator_small_phase, args.seed + 51)
+
+    # ---- phase 5c: run_glmix.sh's driver runs, card vs CPU ---------------------------
+    driver_launches = walled("phase 5c", driver_small_phase, args.seed + 61)
 
     # ---- phases 2d-5d: data-parallel GLMix on ranks --------------------------------
-    dist_rows, dist_launches = distributed_phases(args.seed, dev, arrays, kernel_rows, phase3)
+    dist_rows, dist_launches = walled("phases 2d-5d", distributed_phases, args.seed, dev, arrays,
+                                      kernel_rows, phase3)
 
     # ---- the record lines -------------------------------------------------------
     source = "photon_ml_tpu_torch/csrc/glm_fused.cu"
@@ -2192,24 +2550,28 @@ def main(argv=None) -> int:
                 "hvp": "photon_ml_tpu/ops/pallas_glm.py:542"}
     kernels = [
         dict(name=k, route="cuda", source=source, replaces=replaces[k],
-             launches=launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k],
+             launches=(launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k]
+                       + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k]),
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
-                                "5f": small_launches["dense"][k]},
+                                "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
+                                "5c": driver_launches["dense"][k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
         for k in ("value_grad", "hvp")
     ]
     # A kernel's launches are those of every path that runs it (phases 3-4,
-    # 3s, 4s, 3e, 3f and 5f, each counted from 0); a sparse kernel's times are
+    # 3s, 4s, 3e, 3f, 5f, 3c and 5c, each counted from 0); a sparse kernel's times are
     # phase 2s's, at the sparse fixed effect's shape, with phase 2e's on the
     # ingested shard beside.
     kernels += [
         dict(name=k, route="cuda", source=SPARSE_SOURCE, replaces=SPARSE_REPLACES[k],
              launches=(sparse_launches[k] + e2e_launches["3e"][k] + e2e_launches["3f"]["sparse"][k]
-                       + small_launches["sparse"][k]),
+                       + small_launches["sparse"][k] + e2e_launches["3c"]["sparse"][k]
+                       + driver_launches["sparse"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
-                                "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k]},
+                                "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
+                                "3c": e2e_launches["3c"]["sparse"][k], "5c": driver_launches["sparse"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],

@@ -1,0 +1,389 @@
+"""GAME training driver: the end-to-end train CLI.
+
+Port of `photon_ml_tpu/cli/train.py` (photon-client cli/game/training/
+GameTrainingDriver.scala:55-855):
+
+    parse args -> read training/validation Avro data onto the device
+    -> validate rows -> (warm-start model) -> GameEstimator.fit over the
+    expanded reg-weight sweep -> model selection -> save models, their
+    feature index maps and training-summary.json under the output root.
+
+Output layout (ModelProcessingUtils.saveGameModelToHDFS):
+    <root>/models/best/...               (unless output mode NONE)
+    <root>/models/explicit-<i>/...       (EXPLICIT | ALL)
+    <root>/models/<dir>/feature-indexes/<shard>.json
+    <root>/training-summary.json         (with `timings_s` by section)
+    <root>/photon-ml-tpu.log
+
+The option names are the JAX driver's, so its command lines parse
+unchanged. `--device` (default cuda) picks the device; asking for cuda
+with no card raises. Options of parts not ported yet raise
+NotImplementedError, naming their ROADMAP item, before any work starts.
+
+Usage: python -m photon_ml_tpu_torch.cli.train --help
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import enum
+import json
+import logging
+import os
+import shutil
+import sys
+from typing import Dict, List, Optional
+
+from photon_ml_tpu_torch.cli.config import (
+    CoordinateConfiguration,
+    coordinate_config_to_string,
+    expand_game_opt_configs,
+    feature_shard_config_to_string,
+    parse_coordinate_config,
+    parse_feature_shard_config,
+)
+from photon_ml_tpu_torch.data.game_dataset import RandomEffectDataConfig
+from photon_ml_tpu_torch.data.stats import summarize
+from photon_ml_tpu_torch.data.validators import validate_game_dataset
+from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator, GameResult, select_best_result
+from photon_ml_tpu_torch.evaluation.suite import EvaluatorType
+from photon_ml_tpu_torch.io import avro_data, model_bridge, model_store
+from photon_ml_tpu_torch.types import (
+    DataValidationType,
+    NormalizationType,
+    OptimizerType,
+    RegularizationType,
+    TaskType,
+    VarianceComputationType,
+)
+from photon_ml_tpu_torch.utils.date_range import paths_for_date_range, resolve_range
+from photon_ml_tpu_torch.utils.observability import PhotonLogger, Timed, TimingRegistry
+
+logger = logging.getLogger("photon_ml_tpu_torch.cli.train")
+
+
+class ModelOutputMode(enum.Enum):
+    """Reference: io/ModelOutputMode.scala."""
+
+    NONE = "NONE"
+    BEST = "BEST"
+    EXPLICIT = "EXPLICIT"
+    TUNED = "TUNED"
+    ALL = "ALL"
+
+    @classmethod
+    def parse(cls, name: str) -> "ModelOutputMode":
+        return cls[name.strip().upper()]
+
+
+class HyperparameterTuningMode(enum.Enum):
+    """Reference: HyperparameterTuningMode.scala (NONE/RANDOM/BAYESIAN)."""
+
+    NONE = "NONE"
+    RANDOM = "RANDOM"
+    BAYESIAN = "BAYESIAN"
+
+    @classmethod
+    def parse(cls, name: str) -> "HyperparameterTuningMode":
+        return cls[name.strip().upper()]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="photon_ml_tpu_torch.cli.train",
+        description="Train GAME/GLMix models (Photon ML on PyTorch)",
+    )
+    p.add_argument("--training-task", required=True, type=TaskType.parse,
+                   help="LINEAR_REGRESSION | LOGISTIC_REGRESSION | POISSON_REGRESSION | "
+                        "SMOOTHED_HINGE_LOSS_LINEAR_SVM")
+    p.add_argument("--input-data-directories", required=True, nargs="+",
+                   help="training data dirs/files (Avro TrainingExample records)")
+    p.add_argument("--input-column-names", default=None,
+                   help="Rename record fields: 'response=the_label,weight=w,"
+                        "offset=o,uid=id,metadataMap=meta'")
+    p.add_argument("--input-data-date-range", default=None,
+                   help="Inclusive 'yyyyMMdd-yyyyMMdd' range of daily input "
+                        "subdirectories <dir>/yyyy/MM/dd")
+    p.add_argument("--input-data-days-range", default=None,
+                   help="Relative '<start days ago>-<end days ago>' range")
+    p.add_argument("--validation-data-date-range", default=None,
+                   help="Date range for validation dirs")
+    p.add_argument("--validation-data-days-range", default=None,
+                   help="Days range for validation dirs")
+    p.add_argument("--validation-data-directories", nargs="*", default=[],
+                   help="validation data dirs/files")
+    p.add_argument("--root-output-directory", required=True)
+    p.add_argument("--override-output-directory", action="store_true",
+                   help="overwrite an existing output directory")
+    p.add_argument("--feature-shard-configurations", required=True, nargs="+", metavar="DSL",
+                   help='e.g. "name=globalShard,feature.bags=features|context,intercept=true"')
+    p.add_argument("--coordinate-configurations", required=True, nargs="+", metavar="DSL",
+                   help='e.g. "name=global,feature.shard=globalShard,optimizer=LBFGS,'
+                        'tolerance=1.0E-6,max.iter=50,regularization=L2,reg.weights=0.1|1|10"')
+    p.add_argument("--coordinate-update-sequence", default=None,
+                   help="comma-separated coordinate ids (default: config order)")
+    p.add_argument("--coordinate-descent-iterations", type=int, default=1)
+    p.add_argument("--normalization", type=NormalizationType.parse, default=NormalizationType.NONE)
+    p.add_argument("--validation-evaluators", nargs="*", default=[],
+                   help="e.g. AUC RMSE PRECISION@5:queryId AUC:documentId")
+    p.add_argument("--offheap-indexmap-dir", default=None,
+                   help="not ported yet (ROADMAP Queue 1 item 1, the PalDB index store); raises")
+    p.add_argument("--model-input-directory", default=None,
+                   help="warm-start / partial-retrain model directory")
+    p.add_argument("--partial-retrain-locked-coordinates", default=None,
+                   help="comma-separated coordinate ids to lock (reuse from "
+                        "--model-input-directory)")
+    p.add_argument("--variance-computation-type", type=VarianceComputationType.parse,
+                   default=VarianceComputationType.NONE)
+    p.add_argument("--data-validation", type=lambda s: DataValidationType[s.strip().upper()],
+                   default=DataValidationType.VALIDATE_FULL)
+    p.add_argument("--checkpoint-directory", default=None,
+                   help="not ported yet (ROADMAP Queue 1 item 4); raises")
+    p.add_argument("--data-summary-directory", default=None,
+                   help="Write per-feature-shard summary statistics as "
+                        "FeatureSummarizationResultAvro under this directory")
+    p.add_argument("--output-mode", type=ModelOutputMode.parse, default=ModelOutputMode.BEST)
+    p.add_argument("--model-sparsity-threshold", type=float, default=0.0)
+    p.add_argument("--hyper-parameter-tuning", type=HyperparameterTuningMode.parse,
+                   default=HyperparameterTuningMode.NONE,
+                   help="only NONE is ported (ROADMAP Queue 1 item 8); others raise")
+    p.add_argument("--hyper-parameter-tuning-iter", type=int, default=20)
+    p.add_argument("--hyper-parameter-tuning-batch-size", type=int, default=1)
+    p.add_argument("--random-seed", type=int, default=0)
+    p.add_argument("--profile", default=None,
+                   help="not ported yet (ROADMAP Queue 1 item 10); raises")
+    p.add_argument("--logging-level", default="INFO")
+    p.add_argument("--application-name", default="photon-ml-tpu-training")
+    p.add_argument("--multihost", type=int, default=0, metavar="N",
+                   help="not ported yet (ROADMAP Queue 1 item 9); raises unless 0")
+    p.add_argument("--multihost-devices-per-host", type=int, default=None, metavar="M",
+                   help="not ported yet (ROADMAP Queue 1 item 9); raises")
+    # The JAX driver's internal multi-host worker flags: parsed so its
+    # command lines parse, and refused.
+    p.add_argument("--mh-worker", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--mh-attempt", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mh-coordinator", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mh-num-hosts", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mh-host-id", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mh-rendezvous", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; cuda with no card raises")
+    return p
+
+
+def _refuse_unported(args, coordinate_configs: Dict[str, CoordinateConfiguration]) -> None:
+    """Raise NotImplementedError, naming the ROADMAP item, for every option
+    of a part not ported yet; called before any work."""
+    def refuse(what: str, item: str) -> None:
+        raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+    if args.hyper_parameter_tuning != HyperparameterTuningMode.NONE:
+        refuse(f"--hyper-parameter-tuning {args.hyper_parameter_tuning.value}", "8")
+    if args.checkpoint_directory:
+        refuse("--checkpoint-directory", "4")
+    if args.offheap_indexmap_dir:
+        refuse("--offheap-indexmap-dir (the PalDB index store)", "1")
+    if (args.multihost or args.multihost_devices_per_host is not None or args.mh_worker
+            or any(v is not None for v in (args.mh_attempt, args.mh_coordinator,
+                                           args.mh_num_hosts, args.mh_host_id,
+                                           args.mh_rendezvous))):
+        refuse("multi-host training (--multihost, --mh-*)", "9")
+    if args.profile:
+        refuse("--profile", "10")
+    if args.variance_computation_type == VarianceComputationType.FULL:
+        refuse("--variance-computation-type FULL", "5")
+    for cfg in coordinate_configs.values():
+        if cfg.constraint_file:
+            refuse(f"coordinate {cfg.name!r}: constraints.file", "5")
+        oc = cfg.opt_config
+        if oc.optimizer.optimizer_type in (OptimizerType.OWLQN, OptimizerType.LBFGSB) or \
+                oc.regularization.reg_type in (RegularizationType.L1, RegularizationType.ELASTIC_NET):
+            refuse(f"coordinate {cfg.name!r}: OWLQN / L1 / elastic net", "5")
+
+
+def _read_data(args, coordinate_configs: Dict[str, CoordinateConfiguration], device):
+    """readTrainingData/readValidationData (GameTrainingDriver.scala:503-547):
+    index maps are built from the training data; validation rows read
+    through them."""
+    shard_configs = dict(parse_feature_shard_config(s) for s in args.feature_shard_configurations)
+    id_tags = [c.data_config.random_effect_type for c in coordinate_configs.values()
+               if isinstance(c.data_config, RandomEffectDataConfig)]
+    for ev in args.validation_evaluators:
+        et = EvaluatorType.parse(ev)
+        if et.is_grouped and et.id_tag not in id_tags:
+            id_tags.append(et.id_tag)
+    columns = (avro_data.InputColumnNames.parse(args.input_column_names)
+               if args.input_column_names else avro_data.InputColumnNames())
+    train_range = resolve_range(args.input_data_date_range, args.input_data_days_range)
+    train, index_maps = avro_data.read_game_dataset(
+        paths_for_date_range(args.input_data_directories, train_range), shard_configs,
+        id_tag_fields=id_tags, columns=columns, device=device)
+    validation = None
+    if args.validation_data_directories:
+        val_range = resolve_range(args.validation_data_date_range, args.validation_data_days_range)
+        validation, _ = avro_data.read_game_dataset(
+            paths_for_date_range(args.validation_data_directories, val_range), shard_configs,
+            index_maps=index_maps, id_tag_fields=id_tags, columns=columns, device=device)
+    return train, validation, index_maps
+
+
+def run(args) -> Dict[str, object]:
+    logging.basicConfig(
+        level=getattr(logging, args.logging_level.upper(), logging.INFO),
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+    )
+    coordinate_configs: Dict[str, CoordinateConfiguration] = {}
+    for s in args.coordinate_configurations:
+        cfg = parse_coordinate_config(s)
+        coordinate_configs[cfg.name] = cfg
+    _refuse_unported(args, coordinate_configs)
+    device = resolve_device(args.device)
+
+    out_root = args.root_output_directory
+    models_root = os.path.join(out_root, "models")
+    if os.path.exists(models_root):
+        if not args.override_output_directory:
+            raise FileExistsError(
+                f"{models_root} exists; pass --override-output-directory to replace")
+        # Never mix stale model subdirs into the new run (cleanOutputDirs,
+        # GameTrainingDriver.scala:487).
+        shutil.rmtree(models_root)
+    os.makedirs(out_root, exist_ok=True)
+    with PhotonLogger(os.path.join(out_root, "photon-ml-tpu.log"), level=args.logging_level):
+        try:
+            return _run_job(args, coordinate_configs, device, out_root, models_root)
+        except Exception:
+            logger.exception("training job failed")
+            raise
+
+
+def _run_job(args, coordinate_configs, device, out_root: str, models_root: str) -> Dict[str, object]:
+    timings = TimingRegistry()
+    update_sequence = ([c.strip() for c in args.coordinate_update_sequence.split(",")]
+                       if args.coordinate_update_sequence else list(coordinate_configs))
+    locked = ({c.strip() for c in args.partial_retrain_locked_coordinates.split(",")}
+              if args.partial_retrain_locked_coordinates else set())
+    if locked and not args.model_input_directory:
+        raise ValueError("--partial-retrain-locked-coordinates requires --model-input-directory")
+
+    # The effective configuration, printed back in the DSL.
+    logger.info("effective feature shard configurations:")
+    for s in args.feature_shard_configurations:
+        logger.info("  %s", feature_shard_config_to_string(*parse_feature_shard_config(s)))
+    logger.info("effective coordinate configurations:")
+    for cfg in coordinate_configs.values():
+        logger.info("  %s", coordinate_config_to_string(cfg))
+
+    with Timed("read data", registry=timings, device=device):
+        train, validation, index_maps = _read_data(args, coordinate_configs, device)
+    logger.info("training data: %d samples, shards %s", train.num_samples,
+                {k: v.size for k, v in index_maps.items()})
+    with Timed("validate data", registry=timings, device=device):
+        validate_game_dataset(train, args.training_task, args.data_validation)
+        if validation is not None:
+            validate_game_dataset(validation, args.training_task, args.data_validation)
+
+    # calculateAndSaveFeatureShardStats (GameTrainingDriver.scala:575-593).
+    if args.data_summary_directory:
+        with Timed("feature summarization", registry=timings, device=device):
+            for shard, imap in index_maps.items():
+                stats = summarize(train.shards[shard], intercept_index=imap.intercept_index)
+                n_written = model_store.write_basic_statistics(
+                    os.path.join(args.data_summary_directory, shard), stats, imap)
+                logger.info("feature summary: shard %s -> %d records", shard, n_written)
+
+    if args.variance_computation_type != VarianceComputationType.NONE:
+        for cfg in coordinate_configs.values():
+            cfg.opt_config = dataclasses.replace(
+                cfg.opt_config, variance_computation=args.variance_computation_type)
+
+    estimator = GameEstimator(
+        args.training_task,
+        {cid: c.data_config for cid, c in coordinate_configs.items()},
+        update_sequence=update_sequence,
+        coordinate_descent_iterations=args.coordinate_descent_iterations,
+        normalization=args.normalization,
+        validation_evaluators=[EvaluatorType.parse(e) for e in args.validation_evaluators],
+        locked_coordinates=locked or None,
+        intercept_indices={shard: imap.intercept_index for shard, imap in index_maps.items()
+                           if imap.intercept_index is not None},
+        seed=args.random_seed,
+    )
+
+    # Warm start / partial retrain (GameTrainingDriver.scala:370-409).
+    initial_model = None
+    if args.model_input_directory:
+        artifact = model_store.load_game_model(args.model_input_directory, index_maps)
+        estimator.prepare(train)
+        initial_model = model_bridge.warm_start_model_for_estimator(
+            artifact, estimator.scoring_specs(), device)
+        logger.info("warm start from %s", args.model_input_directory)
+
+    sweep = expand_game_opt_configs(
+        {cid: coordinate_configs[cid] for cid in update_sequence if cid not in locked})
+    logger.info("training %d explicit configuration(s)", len(sweep))
+    with Timed("train explicit configurations", registry=timings, device=device):
+        results: List[GameResult] = estimator.fit(train, validation, sweep,
+                                                  initial_model=initial_model)
+
+    # Model selection + save (GameTrainingDriver.scala:683-779).
+    best_i, best = select_best_result(results)
+    specs = estimator.scoring_specs()
+    summary: Dict[str, object] = {
+        "num_samples": int(train.num_samples),
+        "num_explicit": len(results),
+        "num_tuned": 0,
+        "best_index": best_i,
+        "best_evaluation": None if best.evaluation is None else best.evaluation.results,
+    }
+
+    def save(result: GameResult, subdir: str) -> None:
+        artifact = model_bridge.artifact_from_game_model(
+            result.model, specs, args.training_task,
+            opt_configs={cid: {"optimizer": c.optimizer.optimizer_type.value,
+                               "max_iterations": c.optimizer.max_iterations,
+                               "tolerance": c.optimizer.tolerance,
+                               "regularization": c.regularization.reg_type.value,
+                               "reg_weight": c.reg_weight}
+                         for cid, c in result.config.items()})
+        mdir = os.path.join(models_root, subdir)
+        model_store.save_game_model(mdir, artifact, index_maps,
+                                    sparsity_threshold=args.model_sparsity_threshold)
+        # The feature index maps ship with the model, so the scoring driver
+        # resolves names as training did.
+        idx_dir = os.path.join(mdir, "feature-indexes")
+        os.makedirs(idx_dir, exist_ok=True)
+        for shard, imap in index_maps.items():
+            imap.save(os.path.join(idx_dir, f"{shard}.json"))
+
+    if args.output_mode != ModelOutputMode.NONE:
+        with Timed("save models", registry=timings, device=device):
+            save(best, "best")
+            if args.output_mode in (ModelOutputMode.EXPLICIT, ModelOutputMode.ALL):
+                for i, r in enumerate(results):
+                    save(r, f"explicit-{i}")
+
+    for i, r in enumerate(results):
+        logger.info("config %d%s: %s", i, " (best)" if i == best_i else "",
+                    None if r.evaluation is None else r.evaluation.results)
+    for r in results:
+        for section, seconds in r.timing.items():
+            timings.record(f"coordinate {section}", seconds)
+    summary["timings_s"] = dict(timings.seconds)
+    summary["fit_timing"] = dict(estimator.fit_timing)
+    with open(os.path.join(out_root, "training-summary.json"), "w") as f:
+        json.dump(summary, f, indent=2, default=str)
+    logger.info("timing summary:\n%s", timings.summary())
+    return summary
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Parse `argv` (default: the process's) and run; returns the summary
+    written to training-summary.json."""
+    return run(build_parser().parse_args(sys.argv[1:] if argv is None else argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import os
 import struct
 import zlib
@@ -442,3 +443,17 @@ def iter_container(path: str):
             ) from exc
         for rec in records:
             yield schema, rec
+
+
+def part_file_sizes(n_records: int, records_per_file: int) -> List[int]:
+    """Records in each part file, split as the reference's
+    `write_part_files` splits them: ceil(n / records_per_file) files, each
+    but the last ceil(n / files) long. No records give one empty file."""
+    n_files = max(1, math.ceil(n_records / records_per_file))
+    per_file = math.ceil(n_records / n_files) if n_records else 0
+    sizes = [per_file] * (n_files - 1)
+    return sizes + [n_records - per_file * (n_files - 1)]
+
+
+def part_file_path(output_dir: str, k: int) -> str:
+    return os.path.join(output_dir, f"part-{k:05d}.avro")

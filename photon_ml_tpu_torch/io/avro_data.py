@@ -57,12 +57,33 @@ class InputColumnNames:
     uid: str = UID
     metadata_map: str = META_DATA_MAP
 
+    _KEYS = (RESPONSE, OFFSET, WEIGHT, UID, META_DATA_MAP)
+
     def __post_init__(self):
         # A collision like response='weight' would read labels from the
         # weight field.
         names = [self.response, self.offset, self.weight, self.uid, self.metadata_map]
         if len(set(names)) != len(names):
             raise ValueError(f"input column names must be unique, got {names}")
+
+    @classmethod
+    def parse(cls, spec: str) -> "InputColumnNames":
+        """Parse "response=the_label,weight=w,..." (unknown keys rejected)."""
+        kwargs = {}
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            key, _, value = part.partition("=")
+            key = key.strip()
+            if key not in cls._KEYS or not value:
+                raise ValueError(f"input column spec {part!r}: expected default=actual with "
+                                 f"default in {cls._KEYS}")
+            field = "metadata_map" if key == META_DATA_MAP else key
+            if field in kwargs:
+                raise ValueError(f"duplicate input column spec for {key!r}")
+            kwargs[field] = value.strip()
+        return cls(**kwargs)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1135,9 +1135,57 @@ void* photon_avro_decode_impl(const uint8_t* data, int64_t data_len,
   return c;
 }
 
+// One union(null, string) or union(null, double) branch index; false
+// (and r.ok false) on any other.
+bool read_null_branch(Reader& r, bool* present) {
+  int64_t br = r.read_long();
+  if (br != 0 && br != 1) r.ok = false;
+  *present = br == 1;
+  return r.ok;
+}
+
 }  // namespace
 
 extern "C" {
+
+// Decode `count` ScoringResultAvro records from one (inflated) block:
+// uid: union(null, string) | label: union(null, double) | modelId |
+// predictionScore | weight: union(null, double) | metadataMap:
+// union(null, map<string, string>). A uid comes back as a (start, length)
+// span into `data`; present[i] has bit 1 (uid), 2 (label), 4 (weight) set
+// where the record holds a value. modelId is skipped. Returns 0, -1 for a
+// block this layout cannot decode, or -2 at a record whose metadataMap is
+// not null (the port's score files carry none).
+int64_t photon_avro_decode_scores(const uint8_t* data, int64_t len,
+                                  int64_t count, double* scores,
+                                  double* labels, double* weights,
+                                  uint8_t* present, int64_t* uid_spans) {
+  Reader r{data, data + len};
+  for (int64_t i = 0; i < count && r.ok; ++i) {
+    uint8_t bits = 0;
+    bool has;
+    uid_spans[2 * i] = uid_spans[2 * i + 1] = 0;
+    if (!read_null_branch(r, &has)) break;
+    if (has) {
+      bits |= 1;
+      auto s = r.read_str();
+      uid_spans[2 * i] = r.ok ? (int64_t)((const uint8_t*)s.first - data) : 0;
+      uid_spans[2 * i + 1] = s.second;
+    }
+    if (!read_null_branch(r, &has)) break;
+    labels[i] = has ? r.read_double() : 0.0;
+    if (has) bits |= 2;
+    r.read_str();  // modelId
+    scores[i] = r.read_double();
+    if (!read_null_branch(r, &has)) break;
+    weights[i] = has ? r.read_double() : 0.0;
+    if (has) bits |= 4;
+    if (!read_null_branch(r, &has)) break;
+    if (has) return -2;
+    present[i] = bits;
+  }
+  return r.ok ? 0 : -1;
+}
 
 void photon_avro_free(void* ptr) {
   if (!ptr) return;

@@ -370,6 +370,12 @@ def _lib() -> ctypes.CDLL:
         lib.photon_avro_free.argtypes = [ctypes.c_void_p]
         lib.photon_avro_has_deflate.restype = ctypes.c_int32
         lib.photon_avro_has_deflate.argtypes = []
+        i64p, dp = ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_double)
+        lib.photon_avro_decode_scores.restype = ctypes.c_int64
+        lib.photon_avro_decode_scores.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, dp, dp, dp,
+            ctypes.POINTER(ctypes.c_uint8), i64p,
+        ]
         _CONFIGURED = True
     return lib
 
@@ -469,3 +475,36 @@ def decode_file_native(
     finally:
         lib.photon_avro_free(handle)
     return out
+
+
+@dataclasses.dataclass
+class ScoreBlock:
+    """One block of ScoringResultAvro records, decoded column-wise. Null
+    labels and weights read 0.0; `present` bits: 1 uid, 2 label, 4 weight."""
+
+    scores: np.ndarray
+    labels: np.ndarray
+    weights: np.ndarray
+    present: np.ndarray
+    uids: List[Optional[str]]
+
+
+def decode_scores_block(data: bytes, count: int, path: str = "<bytes>") -> ScoreBlock:
+    """Decode `count` ScoringResultAvro records from one inflated block;
+    raises ValueError on a block that does not hold them, or that holds a
+    metadataMap."""
+    scores, labels, weights = (np.zeros(count, np.float64) for _ in range(3))
+    present = np.zeros(count, np.uint8)
+    uid_spans = np.zeros((count, 2), np.int64)
+    dp = ctypes.POINTER(ctypes.c_double)
+    rc = _lib().photon_avro_decode_scores(
+        data, len(data), count, scores.ctypes.data_as(dp), labels.ctypes.data_as(dp),
+        weights.ctypes.data_as(dp), present.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        uid_spans.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    if rc == -2:
+        raise ValueError(f"{path}: a score record with a metadataMap, which the port does not read")
+    if rc < 0:
+        raise ValueError(f"{path}: a block that does not decode as ScoringResultAvro records")
+    uids = [data[a:a + n].decode("utf-8") if has else None
+            for (a, n), has in zip(uid_spans.tolist(), ((present & 1) > 0).tolist())]
+    return ScoreBlock(scores, labels, weights, present, uids)

@@ -1,12 +1,15 @@
-"""ctypes binding for the native columnar TrainingExampleAvro writer.
+"""ctypes bindings for the native columnar Avro writers.
 
 Port of `photon_ml_tpu/native/avro_writer.py`.
 `write_training_examples_columnar` writes one null-codec container file
 from columnar arrays (labels + CSR feature entries over an interned name
 table + optional per-record entity tags) at native speed: the
-export/generation counterpart of the block-level native reader. There is no
-Python fallback here; the Python record writer is the separate
-`io/avro_data.write_training_examples`.
+export/generation counterpart of the block-level native reader.
+`write_models_columnar` and `write_scores_columnar` write the model and
+score stores' large files (io/model_store.py, io/score_store.py) the same
+way, record for record what the reference's per-record writer writes, in
+deflate blocks compressed on the host's cores. They need the library built
+with zlib (`require_deflate`). There is no Python fallback here.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -51,8 +54,92 @@ def _lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int64),  # int_tag_vals (nullable)
             ctypes.c_int64,  # block_records
         ]
+        for name, ftype in (("photon_avro_write_models_f32", ctypes.c_float),
+                            ("photon_avro_write_models_f64", ctypes.c_double)):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [
+                ctypes.c_char_p,  # path
+                ctypes.c_char_p,  # sync
+                ctypes.c_int64,  # n
+                ctypes.c_int64,  # d
+                ctypes.POINTER(ftype),  # means
+                ctypes.POINTER(ftype),  # variances (nullable)
+                ctypes.c_double,  # threshold
+                ctypes.c_char_p,  # id_bytes
+                ctypes.POINTER(ctypes.c_int64),  # id_offs
+                ctypes.c_char_p,  # model_class (nullable)
+                ctypes.c_char_p,  # feat_blob
+                ctypes.POINTER(ctypes.c_int64),  # feat_offs
+                ctypes.c_int32,  # threads
+            ]
+        lib.photon_avro_write_scores.restype = ctypes.c_int64
+        lib.photon_avro_write_scores.argtypes = [
+            ctypes.c_char_p,  # path
+            ctypes.c_char_p,  # sync
+            ctypes.c_int64,  # n
+            ctypes.POINTER(ctypes.c_double),  # scores
+            ctypes.POINTER(ctypes.c_double),  # labels (nullable)
+            ctypes.POINTER(ctypes.c_double),  # weights (nullable)
+            ctypes.c_char_p,  # model_id
+            ctypes.c_int32,  # uid_kind
+            ctypes.POINTER(ctypes.c_int64),  # uid_vals (nullable)
+            ctypes.c_char_p,  # uid_tbl_bytes (nullable)
+            ctypes.POINTER(ctypes.c_int64),  # uid_tbl_offs (nullable)
+            ctypes.c_int32,  # threads
+        ]
+        lib.photon_avro_has_deflate.restype = ctypes.c_int32
+        lib.photon_avro_has_deflate.argtypes = []
         _CONFIGURED = True
     return lib
+
+
+def require_deflate() -> None:
+    """Raise unless the native library writes deflate blocks (built with
+    zlib): the model and score stores call this before any work."""
+    if not _lib().photon_avro_has_deflate():
+        raise ValueError("the model and score stores write deflate containers, and the native "
+                         "Avro library was built without zlib (no zlib headers or library on "
+                         "this host)")
+
+
+def _threads() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+def _write_header(path: str, schema, codec: str = "null") -> bytes:
+    """Write a container header for `schema` and `codec`; returns the sync
+    marker the native writer appends after every block."""
+    sync = os.urandom(16)
+    with open(path, "wb") as f:
+        f.write(avro_io.MAGIC)
+        head = avro_io.BinaryEncoder(f)
+        meta = {
+            "avro.schema": json.dumps(schema).encode(),
+            "avro.codec": codec.encode(),
+        }
+        head.write_long(len(meta))
+        for k, v in meta.items():
+            head.write_string(k)
+            head.write_bytes(v)
+        head.write_long(0)
+        f.write(sync)
+    return sync
+
+
+def _check(rc: int, path: str) -> None:
+    """Never leave a structurally-valid-but-truncated container behind: a
+    later reader would silently see only the flushed blocks."""
+    if rc < 0:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        raise OSError(f"native Avro writer failed for {path}")
+
+
+def _i64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
 def _pack_strings(strings: Sequence[str]):
@@ -117,21 +204,7 @@ def write_training_examples_columnar(
         raise OSError("feature_name_ids out of range for feature_names")
     lib = _lib()
 
-    sync = os.urandom(16)
-    with open(path, "wb") as f:
-        f.write(avro_io.MAGIC)
-        head = avro_io.BinaryEncoder(f)
-        meta = {
-            "avro.schema": json.dumps(schemas.TRAINING_EXAMPLE).encode(),
-            "avro.codec": b"null",
-        }
-        head.write_long(len(meta))
-        for k, v in meta.items():
-            head.write_string(k)
-            head.write_bytes(v)
-        head.write_long(0)
-        f.write(sync)
-
+    sync = _write_header(path, schemas.TRAINING_EXAMPLE)
     name_bytes, name_offs = _pack_strings(list(feature_names))
     dptr = ctypes.POINTER(ctypes.c_double)
     off_arr = (
@@ -178,13 +251,93 @@ def write_training_examples_columnar(
         int_vals_p,
         block_records,
     )
-    if rc < 0:
-        # Never leave a structurally-valid-but-truncated container behind:
-        # a later reader would silently see only the flushed blocks.
-        try:
-            os.unlink(path)
-        except OSError:
-            pass
-        raise OSError(f"native Avro writer failed for {path}")
+    _check(rc, path)
     return n
 
+
+def write_models_columnar(
+    path: str,
+    means: np.ndarray,
+    variances: Optional[np.ndarray],
+    threshold: float,
+    model_ids: Sequence[str],
+    model_class: Optional[str],
+    feature_blob: bytes,
+    feature_offs: np.ndarray,
+) -> int:
+    """Write one BayesianLinearModelAvro record per row of `means` ((n, d),
+    float32 or float64; `variances` the same shape or None) as a deflate
+    container. `feature_offs` (d + 1) delimits, in `feature_blob`, each
+    index's encoded (name, term) pair, empty where the index has no name.
+    Returns n."""
+    dtype = np.float32 if means.dtype == np.float32 else np.float64
+    means = np.ascontiguousarray(means, dtype)
+    n, d = means.shape
+    if variances is not None:
+        variances = np.ascontiguousarray(variances, dtype)
+        if variances.shape != means.shape:
+            raise ValueError(f"variances {variances.shape} do not match means {means.shape}")
+    feature_offs = np.ascontiguousarray(feature_offs, np.int64)
+    if len(model_ids) != n or len(feature_offs) != d + 1:
+        raise ValueError("model_ids must have one id a row and feature_offs d + 1 entries")
+    id_bytes, id_offs = _pack_strings([str(m) for m in model_ids])
+    lib = _lib()
+    fn = lib.photon_avro_write_models_f32 if dtype == np.float32 else lib.photon_avro_write_models_f64
+    ptr = ctypes.POINTER(ctypes.c_float if dtype == np.float32 else ctypes.c_double)
+    sync = _write_header(path, schemas.BAYESIAN_LINEAR_MODEL, "deflate")
+    rc = fn(path.encode(), sync, n, d, means.ctypes.data_as(ptr),
+            None if variances is None else variances.ctypes.data_as(ptr), float(threshold),
+            id_bytes, _i64p(id_offs), None if model_class is None else model_class.encode("utf-8"),
+            feature_blob, _i64p(feature_offs), _threads())
+    _check(rc, path)
+    return n
+
+
+def write_scores_columnar(
+    path: str,
+    scores: np.ndarray,
+    model_id: str,
+    *,
+    uid_ints: Optional[np.ndarray] = None,
+    uid_strings: Optional[Tuple[np.ndarray, Sequence[str]]] = None,
+    labels: Optional[np.ndarray] = None,
+    weights: Optional[np.ndarray] = None,
+) -> int:
+    """Write one ScoringResultAvro record per score, with a null
+    metadataMap, as a deflate container. A uid is an integer written in
+    decimal (`uid_ints`) or a string given as (codes, table)
+    (`uid_strings`), or null when neither is given. Returns n."""
+    dptr = ctypes.POINTER(ctypes.c_double)
+    scores = np.ascontiguousarray(scores, np.float64)
+    n = len(scores)
+
+    def col(a):
+        if a is None:
+            return None
+        a = np.ascontiguousarray(a, np.float64)
+        if len(a) != n:
+            raise ValueError("every column must have one value a score")
+        return a
+
+    labels, weights = col(labels), col(weights)
+    uid_kind, uid_vals, uid_tbl, uid_tbl_offs = 0, None, None, None
+    if uid_ints is not None:
+        uid_kind, uid_vals = 1, np.ascontiguousarray(uid_ints, np.int64)
+    elif uid_strings is not None:
+        codes, table = uid_strings
+        uid_kind, uid_vals = 2, np.ascontiguousarray(codes, np.int64)
+        uid_tbl, uid_tbl_offs = _pack_strings(list(table))
+        if len(uid_vals) and (uid_vals.min() < 0 or uid_vals.max() >= len(table)):
+            raise ValueError("uid codes out of range for their table")
+    if uid_vals is not None and len(uid_vals) != n:
+        raise ValueError("uids must have one value a score")
+    lib = _lib()
+    sync = _write_header(path, schemas.SCORING_RESULT, "deflate")
+    rc = lib.photon_avro_write_scores(
+        path.encode(), sync, n, scores.ctypes.data_as(dptr),
+        None if labels is None else labels.ctypes.data_as(dptr),
+        None if weights is None else weights.ctypes.data_as(dptr),
+        model_id.encode("utf-8"), uid_kind, None if uid_vals is None else _i64p(uid_vals),
+        uid_tbl, None if uid_tbl_offs is None else _i64p(uid_tbl_offs), _threads())
+    _check(rc, path)
+    return n

@@ -47,7 +47,8 @@ class NormalizationContext(NamedTuple):
 
     def model_to_original_space(self, w: Tensor) -> Tensor:
         """Coefficients trained in normalized space -> original space; the
-        shift contribution folds into the intercept."""
+        shift contribution folds into the intercept. Rank-generic: (..., D)
+        rows convert each on its own."""
         if self.is_identity:
             return w
         w_orig = self.effective_coefficients(w)
@@ -55,8 +56,31 @@ class NormalizationContext(NamedTuple):
             if self.intercept_index is None:
                 raise ValueError("Normalization with shifts requires an intercept")
             w_orig = w_orig.clone()
-            w_orig[self.intercept_index] -= torch.dot(self.shifts, w_orig)
+            w_orig[..., self.intercept_index] -= torch.sum(self.shifts * w_orig, dim=-1)
         return w_orig
+
+    def coefficients_to_original_space(self, means: Tensor, variances: Optional[Tensor] = None):
+        """(means, variances) trained in normalized space -> original space;
+        a variance scales by factor^2 as its coefficient scales by factor."""
+        if self.is_identity:
+            return means, variances
+        means = self.model_to_original_space(means)
+        if variances is not None and self.factors is not None:
+            variances = variances * self.factors * self.factors
+        return means, variances
+
+    def model_to_transformed_space(self, w: Tensor) -> Tensor:
+        """Inverse of `model_to_original_space` (the warm-start direction);
+        rank-generic like it."""
+        if self.is_identity:
+            return w
+        w_t = w
+        if self.shifts is not None:
+            if self.intercept_index is None:
+                raise ValueError("Normalization with shifts requires an intercept")
+            w_t = w_t.clone()
+            w_t[..., self.intercept_index] += torch.sum(self.shifts * w, dim=-1)
+        return w_t / self.factors if self.factors is not None else w_t
 
     def to(self, device) -> "NormalizationContext":
         move = lambda t: None if t is None else t.to(device)

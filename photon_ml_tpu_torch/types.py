@@ -66,6 +66,15 @@ class VarianceComputationType(enum.Enum):
         return cls[name.strip().upper()]
 
 
+class DataValidationType(enum.Enum):
+    """How much of a dataset the drivers' row checks examine
+    (data/validators.py)."""
+
+    VALIDATE_FULL = "VALIDATE_FULL"
+    VALIDATE_SAMPLE = "VALIDATE_SAMPLE"
+    VALIDATE_DISABLED = "VALIDATE_DISABLED"
+
+
 class ProjectorType(enum.Enum):
     """A random effect's feature-space projection (game/projector.py)."""
 

@@ -1,0 +1,126 @@
+"""The drivers' observability: timed sections and the job log file.
+
+Port of the part of `photon_ml_tpu/utils/observability.py` the drivers use:
+
+  * `TimingRegistry`: the job's (section -> seconds) totals and call
+    counts, a `timing.StageTimes` with a printable summary.
+  * `Timed`: `with Timed("read data", registry=r, device=dev):` logs the
+    section's wall clock and records it; on a CUDA device the clock stops
+    after `torch.cuda.synchronize`, so a section owns the device work it
+    queued (photon-lib util/Timed.scala:33-60).
+  * `PhotonLogger`: the job log file (photon-lib util/PhotonLogger.scala:
+    34-120), a handler on the package logger for the job's lifetime.
+
+The event emitter, run journal, tracer and run profile are not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from contextlib import ContextDecorator
+from typing import Dict, Optional
+
+import torch
+
+from photon_ml_tpu_torch.timing import StageTimes
+
+logger = logging.getLogger("photon_ml_tpu_torch")
+
+_LEVELS = {
+    "DEBUG": logging.DEBUG,
+    "INFO": logging.INFO,
+    "WARN": logging.WARNING,
+    "WARNING": logging.WARNING,
+    "ERROR": logging.ERROR,
+    "CRITICAL": logging.CRITICAL,
+    "FATAL": logging.CRITICAL,
+}
+
+
+class TimingRegistry(StageTimes):
+    """Accumulates (section -> seconds) and call counts across a job."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.counts: Dict[str, int] = {}
+
+    def record(self, name: str, seconds: float) -> None:
+        super().record(name, seconds)
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def summary(self) -> str:
+        if not self.seconds:
+            return "(no timed sections)"
+        width = max(len(k) for k in self.seconds)
+        return "\n".join(
+            f"{k.ljust(width)}  {self.seconds[k]:10.3f}s  x{self.counts[k]}"
+            for k in sorted(self.seconds, key=self.seconds.get, reverse=True))
+
+
+class Timed(ContextDecorator):
+    """`with Timed("read data"):` logs the elapsed wall clock on exit and
+    adds it to `registry`; with a CUDA `device` the clock stops once the
+    device has finished."""
+
+    def __init__(self, message: str, *, registry: Optional[TimingRegistry] = None,
+                 device: Optional[torch.device] = None):
+        self.message = message
+        self.registry = registry
+        self.device = device
+        self.elapsed: Optional[float] = None
+
+    def __enter__(self) -> "Timed":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is None and self.device is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.elapsed = time.perf_counter() - self._t0
+        status = "" if exc_type is None else f" (FAILED: {exc_type.__name__})"
+        logger.info("%s: %.3fs%s", self.message, self.elapsed, status)
+        if self.registry is not None:
+            self.registry.record(self.message, self.elapsed)
+        return False
+
+
+def _resolve_level(level: str) -> int:
+    """Unknown levels fall back to INFO with a warning: a typo in
+    --logging-level must not abort a training job."""
+    resolved = _LEVELS.get(level.upper())
+    if resolved is None:
+        logger.warning("unknown log level %r; falling back to INFO", level)
+        return logging.INFO
+    return resolved
+
+
+class PhotonLogger:
+    """Job-scoped file logger: attaches a file handler to the package
+    logger; `close()` (or leaving the `with` block) detaches it, flushes,
+    and restores the package logger's level."""
+
+    def __init__(self, log_path: str, level: str = "INFO"):
+        resolved = _resolve_level(level)
+        self.log_path = log_path
+        self.handler = logging.FileHandler(log_path)
+        self.handler.setFormatter(
+            logging.Formatter("%(asctime)s %(levelname)s %(name)s - %(message)s"))
+        self.handler.setLevel(resolved)
+        self._prev_logger_level = logger.level
+        logger.addHandler(self.handler)
+        if logger.level == logging.NOTSET or logger.level > resolved:
+            logger.setLevel(resolved)
+
+    def close(self) -> None:
+        logger.removeHandler(self.handler)
+        self.handler.close()
+        logger.setLevel(self._prev_logger_level)
+
+    def __enter__(self) -> "PhotonLogger":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False

@@ -21,6 +21,25 @@ from photon_ml_tpu_torch.data.game_dataset import GameDataset
 REPO = Path(__file__).resolve().parent.parent
 
 
+# Prepended to a script run in a fresh interpreter: importing jax, jaxlib or
+# the JAX package raises there.
+_BLOCK_JAX = textwrap.dedent(
+    """
+    import importlib, importlib.abc, runpy, sys
+
+    BLOCKED = ("jax", "jaxlib", "photon_ml_tpu")
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    """
+)
+
+
 def _port_modules():
     return sorted(
         m.name
@@ -34,21 +53,13 @@ def test_every_port_module_imports_with_jax_blocked():
                  "data.sparse_layout", "parallel.mesh", "parallel.launch", "io.avro", "io.avro_data",
                  "io.avro_fast", "io.schemas", "data.index_map", "native.build", "native.avro_reader",
                  "native.avro_writer", "timing", "data.stats", "data.sampling", "data.device_assemble",
-                 "game.projector", "estimators.game_estimator", "evaluation.suite"):
+                 "game.projector", "estimators.game_estimator", "evaluation.suite",
+                 "io.model_store", "io.model_bridge", "io.score_store", "cli.config", "cli.train",
+                 "cli.score", "cli.libsvm_to_avro", "data.libsvm", "data.validators",
+                 "utils.date_range", "utils.observability"):
         assert f"photon_ml_tpu_torch.{name}" in modules
-    script = textwrap.dedent(
+    script = _BLOCK_JAX + textwrap.dedent(
         """
-        import importlib, importlib.abc, sys
-
-        BLOCKED = ("jax", "jaxlib", "photon_ml_tpu")
-
-        class Block(importlib.abc.MetaPathFinder):
-            def find_spec(self, name, path=None, target=None):
-                if any(name == b or name.startswith(b + ".") for b in BLOCKED):
-                    raise ImportError(f"blocked import of {name}")
-                return None
-
-        sys.meta_path.insert(0, Block())
         for name in sys.argv[1:]:
             importlib.import_module(name)
         leaked = [m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
@@ -85,3 +96,22 @@ def test_cuda_is_the_default_and_is_never_swapped_for_the_cpu(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("driver", ["train", "score", "libsvm_to_avro"])
+def test_each_driver_prints_its_help_with_jax_blocked(driver):
+    script = _BLOCK_JAX + textwrap.dedent(
+        """
+        sys.argv = [sys.argv[1], "--help"]
+        runpy.run_module(sys.argv[0], run_name="__main__")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", script, f"photon_ml_tpu_torch.cli.{driver}"], capture_output=True,
+        text=True, cwd=str(REPO), env=env, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout
+    if driver != "libsvm_to_avro":
+        assert "--device" in proc.stdout
