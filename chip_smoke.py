@@ -5,20 +5,25 @@
 
 Phases (any failure exits non-zero; there is no fallback anywhere):
 
-1. Build the CUDA kernels (`photon_ml_tpu_torch/csrc/glm_fused.cu` and
-   `csrc/sparse_glm.cu`, one nvcc each) and the native Avro library
+1. Build the CUDA kernels (`photon_ml_tpu_torch/csrc/glm_fused.cu`,
+   `csrc/sparse_glm.cu` and `csrc/exact_sum.cu`, one nvcc each) and the
+   native Avro library
    (`photon_ml_tpu_torch/native/*.cc`, one g++, with deflate where the host
    has zlib), all started together, from the sources in this checkout;
    print the build times and ptxas' register/spill lines.
 2. Kernel vs plain version on the card at the fixed effect's full width
-   (1,048,576 x 512): `value_grad` for the four losses with f32 and bf16 X,
-   and `hvp` for the logistic loss. Each result is held against the plain
+   (1,048,576 x 512): `value_grad` and `hvp` for the four losses with f32
+   and bf16 X, each called twice (bit-identical) and held against the plain
    PyTorch version (ops/glm_kernels.py) under PORT_TOLERANCES
    ["kernel_vs_plain"]; times are CUDA-event medians of 20 calls after
    warm-up, beside the plain version, one torch yardstick call pair
-   (X @ w, then u @ X; the port never calls it) and the card's bound.
-   Two shapes off the main path (d = 1000 f32, d = 517 bf16) are checked
-   against the plain version too, untimed.
+   (X @ w, then u @ X; the port never calls it) and the card's bound; each
+   row names its route (rows or chunked, from d). Shapes off the main path
+   are checked the same way (twice, against the plain version), untimed:
+   on the rows route d = 1000 f32, d = 517 bf16 (rows not on 16 bytes) and
+   d = 124 bf16 and f32 (examples/run_glmix.sh's width), n = 70,001 (not a
+   multiple of a tile); on the wide route d = 1,536 bf16 and d = 2,100 f32;
+   on the chunked route d = 20,000 bf16 and d = 16,500 f32.
 3. GLMix training at the bench's full width: a 1,048,576 x 512 dense logistic
    fixed effect (L-BFGS, 40 iterations, tol 1e-8, L2 1.0) and a per-entity
    random effect of 8,192 entities x 16 features (active_upper_bound 128,
@@ -155,18 +160,24 @@ machine has 2 or more, and with world size 1 in this process. The phases
 print which backend each used.
 
 2d. Kernel #3, the sharded sums (ops/glm_kernels.py: #1/#2 on each rank's
-   rows, one exact cross-rank sum): value_grad (logistic) and hvp on bf16 X
-   over each rank's quarter of phase 2's data, held against their plain
-   version (the plain sums per rank, the same exact sum) under
-   PORT_TOLERANCES["kernel_vs_plain"] and against the single-process kernel
-   on all rows; every rank must hold the same bits. Per rank, CUDA-event
-   medians behind a barrier of the kernel alone, the cross-rank sum, the
-   whole call, the plain call and one all_reduce of the sums' size. The
-   world-size-1 NCCL result must be the single-process kernel's bits.
+   rows, one exact cross-rank sum: one all_gather of each rank's sums and
+   the rank-order kernel of csrc/exact_sum.cu, first held bit for bit
+   against its plain version at the sums' widths): value_grad (logistic)
+   and hvp on bf16 X over each rank's quarter of phase 2's data, held
+   against their plain version (the plain sums per rank, the same exact
+   sum) under PORT_TOLERANCES["kernel_vs_plain"] and against the
+   single-process kernel on all rows; every rank must hold the same bits.
+   Per rank, CUDA-event medians behind a barrier of the kernel alone, the
+   cross-rank sum, the whole call, the plain call, one all_reduce of the
+   sums' size, and the library yardstick timed as the call is (the torch
+   pair on the rank's rows, then one all_reduce of the float32 sums); the
+   record takes the slowest rank's. The world-size-1 NCCL result must be
+   the single-process kernel's bits.
 3d. Phase 3's GLMix on the 4 ranks: a warm-up sweep, then one sweep; rows
    and lanes per rank, value_grad launches (= fn_evals) and cross-rank sums
    (= objective passes + one finiteness vote per update) per rank, sweep
-   wall, AUC over all rows beside phase 3's, peak memory per rank. The fixed
+   wall, AUC over all rows beside phase 3's, peak memory per rank, and
+   rank-order kernel launches (= cross-rank sums) per rank. The fixed
    effect must be bit-identical on every rank, each rank's random-effect
    store must hold its own entities' rows alone, and every entity row of the
    assembled matrix must have one owner. Then the same sweep with world
@@ -1829,7 +1840,9 @@ def rank_kernel_checks(mesh, data) -> dict:
     contiguous share of the rows, bf16 X, logistic, against its plain
     version (the plain sums per rank, then the same exact sum); whether every
     rank holds the same bits; per-rank kernel, collective and whole-call
-    times, the plain call's and one all_reduce of the sums' size."""
+    times, the plain call's, one all_reduce of the sums' size, and the
+    library yardstick timed as the call is: the torch pair on this rank's
+    rows, then one all_reduce of the float32 sums."""
     import torch
     import torch.distributed as dist
 
@@ -1844,38 +1857,51 @@ def rank_kernel_checks(mesh, data) -> dict:
     Xl = data["X"][lo:hi].to(dev).to(torch.bfloat16)
     yl, offl, wtl = (data[k][lo:hi].to(dev) for k in ("y", "off", "wt"))
     wv, vv = data["w"].to(dev), data["v"].to(dev)
-    shift = torch.tensor(0.01, device=dev)
+    shift, v_shift = torch.tensor(0.01, device=dev), torch.tensor(0.02, device=dev)
     vg_args = (LOGISTIC, wv, shift, Xl, yl, offl, wtl)
-    hv_args = (LOGISTIC, wv, shift, vv, 0.02, Xl, yl, offl, wtl)
+    hv_args = (LOGISTIC, wv, shift, vv, v_shift, Xl, yl, offl, wtl)
+    w_l, u_l = wv.to(torch.bfloat16), wtl.to(torch.bfloat16)  # any (n,) vector serves as u
+    wv_l = torch.stack([wv, vv], dim=1).to(torch.bfloat16)
+    d = int(wv.shape[0])
+
+    def library(rhs, width):
+        sums = torch.empty(width, device=dev)
+
+        def run():
+            Xl @ rhs
+            sums[:d] = u_l @ Xl
+            dist.all_reduce(sums)
+        return run
 
     checks = {
         "sharded_value_grad": (
             lambda: glm_kernels.sharded_value_gradient_sums(*vg_args, mesh=mesh),
             lambda: over_ranks(mesh, *glm_kernels.value_gradient_sums_plain(*vg_args)),
-            lambda: glm_kernels.value_gradient_sums(*vg_args)),
+            lambda: glm_kernels.value_gradient_sums(*vg_args), library(w_l, d + 2)),
         "sharded_hvp": (
             lambda: glm_kernels.sharded_hessian_vector_sums(*hv_args, mesh=mesh),
             lambda: over_ranks(mesh, *glm_kernels.hessian_vector_sums_plain(*hv_args)),
-            lambda: glm_kernels.hessian_vector_sums(*hv_args)),
+            lambda: glm_kernels.hessian_vector_sums(*hv_args), library(wv_l, d + 1)),
     }
     tol = PORT_TOLERANCES["kernel_vs_plain"]["scale_rel"]
     rows = {}
-    for name, (run_k, run_p, run_local) in checks.items():
+    for name, (run_k, run_p, run_local, run_l) in checks.items():
         got, ref = run_k(), run_p()
         torch.cuda.synchronize()
         max_abs, rel = compare(got, ref)
         flat = torch.cat([t.reshape(-1) for t in got])
         every = mesh.owned_to_global(flat[None], torch.tensor([mesh.rank], device=dev), mesh.world_size)
-        local = [t.reshape(-1) for t in run_local()]
+        local = run_local()
         buf = torch.zeros(flat.numel(), device=dev)
         rows[name] = dict(
             rows=hi - lo, max_abs_err=max_abs, scale_rel_err=rel, tol_scale_rel=tol, ok=rel <= tol,
             ranks_bit_identical=bool((every == every[0]).all()),
             kernel_ms=rank_time_ms(torch, dist, run_local),
-            collective_ms=rank_time_ms(torch, dist, lambda: mesh.exact_sum(local)),
+            collective_ms=rank_time_ms(torch, dist, lambda: over_ranks(mesh, *local)),
             call_ms=rank_time_ms(torch, dist, run_k),
             plain_ms=rank_time_ms(torch, dist, run_p),
             all_reduce_ms=rank_time_ms(torch, dist, lambda: dist.all_reduce(buf)),
+            library_ms=rank_time_ms(torch, dist, run_l),
             result=[t.cpu() for t in got],
         )
     return rows
@@ -1894,6 +1920,7 @@ def rank_glmix(mesh, data):
     from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
     from photon_ml_tpu_torch.game.coordinate_descent import gather_game_model, run_coordinate_descent
     from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.parallel import mesh as pmesh
     from photon_ml_tpu_torch.parallel.mesh import shard_game_dataset
     from photon_ml_tpu_torch.types import TaskType
 
@@ -1917,12 +1944,15 @@ def rank_glmix(mesh, data):
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     glm_kernels.reset_launch_counts()
+    pmesh.reset_launch_counts()
     mesh.reset_counts()  # phase 3d starts here
     t0 = time.perf_counter()
     result = run_coordinate_descent(coords, 1)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches, sums = dict(glm_kernels.LAUNCHES), dict(mesh.counts)  # phase 3d ends here
+    launches.update(pmesh.LAUNCHES)
+    sum_elements = dict(mesh.elements)
     collective_s = sum(mesh.seconds.values())
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     scores = sum(coords[c].score(result.model[c]) for c in coords) + ds.offsets
@@ -1943,6 +1973,7 @@ def rank_glmix(mesh, data):
         fixed_s=result.timing["fixed/iter0"], random_s=result.timing["per-entity/iter0"],
         fe_iterations=int(fe_res.iterations), fe_fn_evals=int(fe_res.fn_evals),
         fe_reason=int(fe_res.reason), launches=launches, collectives=sums,
+        collective_elements=sum_elements,
         scores_finite=bool(torch.isfinite(scores).all()), train_auc=auc, peak_mem_gib=peak_gib,
         one_owner_per_entity=bool((owners[:-1] == 1).all() and (owners[-1] == 0).all()),
         fe=result.model["fixed"].coefficients.means.cpu(),
@@ -1952,12 +1983,14 @@ def rank_glmix(mesh, data):
     tron = FixedEffectCoordinate(ds, "global", cfg_t, task)
     dist.barrier()
     glm_kernels.reset_launch_counts()
+    pmesh.reset_launch_counts()
     mesh.reset_counts()  # phase 4d starts here
     t0 = time.perf_counter()
     tron_model, tron_res = tron.train(ds.offsets)
     torch.cuda.synchronize()
     tron_s = time.perf_counter() - t0
     launches4, sums4 = dict(glm_kernels.LAUNCHES), dict(mesh.counts)  # phase 4d ends here
+    launches4.update(pmesh.LAUNCHES)
     var = tron_model.coefficients.variances
     out4 = dict(
         tron_wall_s=tron_s, iterations=int(tron_res.iterations), fn_evals=int(tron_res.fn_evals),
@@ -1988,9 +2021,11 @@ def rank_phases(mesh, phases, data, seed: int) -> dict:
     import torch
 
     from photon_ml_tpu_torch.ops import cuda_build, glm_kernels
+    from photon_ml_tpu_torch.parallel import mesh as pmesh
 
-    if not cuda_build.library_path(glm_kernels.SOURCE).exists():
-        raise RuntimeError("phase 1's glm_fused library is missing; ranks do not build")
+    for src in (glm_kernels.SOURCE, pmesh.SOURCE):
+        if not cuda_build.library_path(src).exists():
+            raise RuntimeError(f"phase 1's {src.stem} library is missing; ranks do not build")
     out = dict(rank=mesh.rank, world_size=mesh.world_size, backend=mesh.backend,
                device=str(mesh.device))
     if "2d" in phases:
@@ -2023,9 +2058,9 @@ def single_process_sums(arrays: dict, dev):
 
     X = torch.from_numpy(arrays["X"]).to(dev).to(torch.bfloat16)
     y, off, wt, w, v = (torch.from_numpy(arrays[k]).to(dev) for k in ("y", "off", "wt", "w", "v"))
-    shift = torch.tensor(0.01, device=dev)
+    shift, v_shift = torch.tensor(0.01, device=dev), torch.tensor(0.02, device=dev)
     args = {"sharded_value_grad": (LOGISTIC, w, shift, X, y, off, wt),
-            "sharded_hvp": (LOGISTIC, w, shift, v, 0.02, X, y, off, wt)}
+            "sharded_hvp": (LOGISTIC, w, shift, v, v_shift, X, y, off, wt)}
     single = {"sharded_value_grad": glm_kernels.value_gradient_sums(*args["sharded_value_grad"]),
               "sharded_hvp": glm_kernels.hessian_vector_sums(*args["sharded_hvp"])}
     return args, single
@@ -2076,10 +2111,12 @@ def check_3d_4d(backend: str, outs, failures: list) -> dict:
         passes = r["fe_fn_evals"]
         if not (r["launches"]["value_grad"] == r["launches"]["sharded_value_grad"] == passes > 0):
             failures.append(f"3d rank {o['rank']}: launches {r['launches']} for {passes} passes")
-        # One cross-rank sum per objective pass, one finiteness vote per update.
-        if r["collectives"] != {"exact_sum": passes + 2, "owned_to_global": 0}:
-            failures.append(f"3d rank {o['rank']}: collectives {r['collectives']} for {passes} "
-                            f"objective passes and 2 updates")
+        # One cross-rank sum per objective pass, one finiteness vote per
+        # update; each a launch of the rank-order kernel.
+        if (r["collectives"] != {"exact_sum": passes + 2, "owned_to_global": 0}
+                or r["launches"]["rank_sum"] != passes + 2):
+            failures.append(f"3d rank {o['rank']}: collectives {r['collectives']}, launches "
+                            f"{r['launches']} for {passes} objective passes and 2 updates")
         if not (r["one_owner_per_entity"] and r["scores_finite"] and r["fe_stored"] == "bfloat16"
                 and r["store_shape"] == [r["entities"] + 1, D_RE]):
             failures.append(f"3d rank {o['rank']}: ownership, store, scores or storage wrong")
@@ -2098,7 +2135,8 @@ def check_3d_4d(backend: str, outs, failures: list) -> dict:
         # variances' Hessian diagonal adds one cross-rank sum.
         if not (ln["sharded_hvp"] == ln["hvp"] > 0 and ln["sharded_value_grad"] == ln["value_grad"]
                 and ln["sharded_value_grad"] + ln["sharded_hvp"] == passes
-                and r["collectives"] == {"exact_sum": passes + 1, "owned_to_global": 0}):
+                and r["collectives"] == {"exact_sum": passes + 1, "owned_to_global": 0}
+                and ln["rank_sum"] == passes + 1):
             failures.append(f"4d rank {o['rank']}: launches {ln}, collectives {r['collectives']} "
                             f"for {passes} TRON passes")
     same4 = all(torch.equal(r["coef"], r4[0]["coef"]) and torch.equal(r["variances"], r4[0]["variances"])
@@ -2149,6 +2187,7 @@ def distributed_phases(seed: int, dev, arrays: dict, kernel_rows: dict, phase3: 
     from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
     from photon_ml_tpu_torch.game.coordinate_descent import gather_game_model, run_coordinate_descent
     from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.parallel import mesh as pmesh
     from photon_ml_tpu_torch.parallel.launch import launch
     from photon_ml_tpu_torch.parallel.mesh import init_rank_mesh, shard_game_dataset
     from photon_ml_tpu_torch.types import TaskType
@@ -2164,6 +2203,19 @@ def distributed_phases(seed: int, dev, arrays: dict, kernel_rows: dict, phase3: 
     failures = []
 
     # ---- phase 2d: kernel #3 ------------------------------------------------------------
+    # The rank-order kernel against its plain version at the sums' widths:
+    # the same bits, in float32 and float64.
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for k in (D_FIXED + 2, D_FIXED + 1):
+        rows_t = torch.randn(RANKS_SHARED, k, generator=gen, device=dev, dtype=torch.float64) * 1e3
+        for dt in (torch.float32, torch.float64):
+            same = torch.equal(pmesh.rank_order_sum(rows_t, dt).cpu(),
+                               pmesh.rank_order_sum_plain(rows_t.cpu(), dt))
+            log(json.dumps(dict(phase="2d", kernel="rank_sum", world_size=RANKS_SHARED, k=k,
+                                dtype=str(dt).replace("torch.", ""), bit_equal_to_plain=same,
+                                kernel_ms=time_ms(torch, lambda: pmesh.rank_order_sum(rows_t, dt)))))
+            if not same:
+                failures.append(f"2d: the rank-order kernel is not its plain version's bits ({k}, {dt})")
     args, single = single_process_sums(arrays, dev)
     check_2d("gloo", outs, single, dev, failures)
     if torch.cuda.device_count() >= 2:
@@ -2236,20 +2288,19 @@ def distributed_phases(seed: int, dev, arrays: dict, kernel_rows: dict, phase3: 
     if failures:
         raise SystemExit("phase 5d failed: " + "; ".join(failures))
 
-    # The record rows of kernel #3: the whole call's time (the slowest rank's
-    # median) beside the plain call's; the bound and the library yardstick of
-    # #1/#2 on all rows (the shared card reads all of X once), the latter plus
-    # one all_reduce of the sums.
+    # The record rows of kernel #3: the whole call's time beside the plain
+    # call's and the library yardstick's, each the slowest rank's median; the
+    # bound of #1/#2 on all rows (the shared card reads all of X once).
     rows = {}
     for name, base in (("sharded_value_grad", "value_grad"), ("sharded_hvp", "hvp")):
         r2 = [o["2d"][name] for o in outs]
         rows[name] = dict(
             max_abs_err=max(r["max_abs_err"] for r in r2), ms=max(r["call_ms"] for r in r2),
             plain_ms=max(r["plain_ms"] for r in r2), bound_ms=kernel_rows[base]["bound_ms"],
-            bound_by=kernel_rows[base]["bound_by"],
-            library_ms=kernel_rows[base]["library_ms"] + max(r["all_reduce_ms"] for r in r2))
+            bound_by=kernel_rows[base]["bound_by"], library_ms=max(r["library_ms"] for r in r2),
+            kernel_ms=max(r["kernel_ms"] for r in r2), collective_ms=max(r["collective_ms"] for r in r2))
     launches = {k: outs[0]["3d"]["launches"][k] + outs[0]["4d"]["launches"][k]
-                for k in ("sharded_value_grad", "sharded_hvp")}
+                for k in ("sharded_value_grad", "sharded_hvp", "rank_sum")}
     return rows, launches
 
 
@@ -2280,6 +2331,7 @@ def main(argv=None) -> int:
     from photon_ml_tpu_torch.native import build as native_build
     from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
     from photon_ml_tpu_torch.ops.losses import LOGISTIC, POISSON, SMOOTHED_HINGE, SQUARED
+    from photon_ml_tpu_torch.parallel import mesh as pmesh
     from photon_ml_tpu_torch.types import TaskType
 
     t_start = time.perf_counter()
@@ -2306,7 +2358,7 @@ def main(argv=None) -> int:
         builds[path.name] = (path, time.perf_counter() - t, "")
 
     threads = [threading.Thread(target=build, args=(src,))
-               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE)]
+               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE)]
     threads.append(threading.Thread(target=build_native))
     t0 = time.perf_counter()
     for t in threads:
@@ -2349,7 +2401,9 @@ def main(argv=None) -> int:
     wtt = torch.from_numpy(wt_np).to(dev)
     wv = torch.from_numpy(w_np).to(dev)
     vv = torch.from_numpy(v_np).to(dev)
-    shift = torch.tensor(0.01, device=dev)
+    # The shifts are device scalars, as ops/objective.py passes them (a
+    # Python float costs each call a blocking host-to-device copy).
+    shift, v_shift = torch.tensor(0.01, device=dev), torch.tensor(0.02, device=dev)
     n, d = X32.shape
 
     def bound(X, extra_vectors, flops_per_elem):
@@ -2361,10 +2415,8 @@ def main(argv=None) -> int:
     glm_kernels.reset_launch_counts()
     kernel_rows = {}
     failures = []
-    variants = [("value_grad", l, X) for X in (X32, Xbf)
+    variants = [(k, l, X) for k in ("value_grad", "hvp") for X in (X32, Xbf)
                 for l in (LOGISTIC, SQUARED, POISSON, SMOOTHED_HINGE)]
-    variants.append(("hvp", LOGISTIC, X32))
-    variants.append(("hvp", LOGISTIC, Xbf))
     for kname, loss, X in variants:
         if kname == "value_grad":
             run_k = lambda: glm_kernels.value_gradient_sums(loss, wv, shift, X, yt, offt, wtt)
@@ -2373,56 +2425,68 @@ def main(argv=None) -> int:
             run_l = lambda: (X @ w_l, u_l @ X)
             b_ms, b_by = bound(X, 0, 4)
         else:
-            run_k = lambda: glm_kernels.hessian_vector_sums(loss, wv, shift, vv, 0.02, X, yt, offt, wtt)
-            run_p = lambda: glm_kernels.hessian_vector_sums_plain(loss, wv, shift, vv, 0.02, X, yt, offt, wtt)
+            run_k = lambda: glm_kernels.hessian_vector_sums(loss, wv, shift, vv, v_shift, X, yt, offt, wtt)
+            run_p = lambda: glm_kernels.hessian_vector_sums_plain(loss, wv, shift, vv, v_shift, X, yt, offt, wtt)
             wv_l, u_l = torch.stack([wv, vv], dim=1).to(X.dtype), wtt.to(X.dtype)
             run_l = lambda: (X @ wv_l, u_l @ X)
             b_ms, b_by = bound(X, 1, 6)
-        got = run_k()
+        got, again = run_k(), run_k()
         ref = run_p()
         torch.cuda.synchronize()
         max_abs, rel = compare(got, ref)
-        ok = rel <= tol["scale_rel"]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = rel <= tol["scale_rel"] and same
         k_ms = time_ms(torch, run_k)
         p_ms = time_ms(torch, run_p)
         l_ms = time_ms(torch, run_l)
         row = dict(phase=2, kernel=kname, loss=loss.name, x_dtype=str(X.dtype).replace("torch.", ""),
-                   n=n, d=d, max_abs_err=max_abs, scale_rel_err=rel, tol_scale_rel=tol["scale_rel"],
-                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, ok=ok)
+                   n=n, d=d, route=glm_kernels.route(X), max_abs_err=max_abs, scale_rel_err=rel,
+                   tol_scale_rel=tol["scale_rel"], bit_identical_twice=same, kernel_ms=k_ms,
+                   plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, ok=ok)
         log(json.dumps(row))
         if not ok:
-            failures.append(f"{kname}/{loss.name}/{X.dtype}: rel err {rel:.3e} > {tol['scale_rel']}")
+            failures.append(f"{kname}/{loss.name}/{X.dtype}: rel err {rel:.3e} > {tol['scale_rel']} "
+                            f"or two calls differ ({same})")
         # The main path's kernels run on bf16-stored X with the logistic loss.
         if loss is LOGISTIC and X.dtype == torch.bfloat16:
             kernel_rows[kname] = row
-    # Shapes off the main path, checked but not timed: d = 1000 f32 (several
-    # column chunks, the earlier ones read again for the gradient) and
-    # d = 517 bf16 (1,034-byte rows: the scalar load path), n not a multiple
-    # of the tile.
+    # Shapes off the main path, checked but not timed, n not a multiple of
+    # a tile: on the rows route d = 1000 f32 (eight vectors a lane), d = 517
+    # bf16 (1,034-byte rows: element loads) and d = 124 in both dtypes
+    # (examples/run_glmix.sh's width; 248-byte bf16 rows: element loads);
+    # on the wide route d = 1,536 bf16 and d = 2,100 f32; on the chunked
+    # route d = 20,000 bf16 and d = 16,500 f32.
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
-    for n_x, d_x, dt in ((70001, 1000, torch.float32), (70001, 517, torch.bfloat16)):
+    for n_x, d_x, dt in ((70001, 1000, torch.float32), (70001, 517, torch.bfloat16),
+                         (70001, 124, torch.bfloat16), (70001, 124, torch.float32),
+                         (30001, 1536, torch.bfloat16), (20001, 2100, torch.float32),
+                         (6001, 20000, torch.bfloat16), (6001, 16500, torch.float32)):
         X = rnd(n_x, d_x).to(dt)
         yx = (torch.rand(n_x, generator=gen, device=dev) < 0.5).float()
         ox, wtx = 0.1 * rnd(n_x), 0.5 + torch.rand(n_x, generator=gen, device=dev)
         wx, vx = 0.05 * rnd(d_x), rnd(d_x)
         pairs = (
             ("value_grad",
-             glm_kernels.value_gradient_sums(LOGISTIC, wx, shift, X, yx, ox, wtx),
+             lambda: glm_kernels.value_gradient_sums(LOGISTIC, wx, shift, X, yx, ox, wtx),
              glm_kernels.value_gradient_sums_plain(LOGISTIC, wx, shift, X, yx, ox, wtx)),
             ("hvp",
-             glm_kernels.hessian_vector_sums(LOGISTIC, wx, shift, vx, 0.02, X, yx, ox, wtx),
+             lambda: glm_kernels.hessian_vector_sums(LOGISTIC, wx, shift, vx, 0.02, X, yx, ox, wtx),
              glm_kernels.hessian_vector_sums_plain(LOGISTIC, wx, shift, vx, 0.02, X, yx, ox, wtx)),
         )
-        torch.cuda.synchronize()
-        for kname, got, ref in pairs:
+        for kname, run_k, ref in pairs:
+            got, again = run_k(), run_k()
+            torch.cuda.synchronize()
             max_abs, rel = compare(got, ref)
-            ok = rel <= tol["scale_rel"]
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            ok = rel <= tol["scale_rel"] and same
             log(json.dumps(dict(phase=2, kernel=kname, loss=LOGISTIC.name, x_dtype=str(dt).replace("torch.", ""),
-                                n=n_x, d=d_x, max_abs_err=max_abs, scale_rel_err=rel,
-                                tol_scale_rel=tol["scale_rel"], ok=ok)))
+                                n=n_x, d=d_x, route=glm_kernels.route(X), max_abs_err=max_abs,
+                                scale_rel_err=rel, tol_scale_rel=tol["scale_rel"],
+                                bit_identical_twice=same, ok=ok)))
             if not ok:
-                failures.append(f"{kname}/{n_x}x{d_x}/{dt}: rel err {rel:.3e} > {tol['scale_rel']}")
+                failures.append(f"{kname}/{n_x}x{d_x}/{dt}: rel err {rel:.3e} > {tol['scale_rel']} "
+                                f"or two calls differ ({same})")
     if failures:
         raise SystemExit("phase 2 failed: " + "; ".join(failures))
     del X32, Xbf, offt, wtt, wv, vv
@@ -2580,9 +2644,12 @@ def main(argv=None) -> int:
                                                      "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for k in SPARSE_REPLACES
     ]
+    # Kernel #3: #1/#2 on each rank's rows, one all_gather and the rank-order
+    # kernel (launched once per cross-rank sum: rank_sum_launches, 3d + 4d).
     kernels += [
-        dict(name=k, route="cuda+collective", source="photon_ml_tpu_torch/ops/glm_kernels.py",
-             replaces=DIST_REPLACES[k], launches=dist_launches[k], **dist_rows[k])
+        dict(name=k, route="cuda", source="photon_ml_tpu_torch/csrc/exact_sum.cu",
+             replaces=DIST_REPLACES[k], launches=dist_launches[k],
+             rank_sum_launches=dist_launches["rank_sum"], **dist_rows[k])
         for k in DIST_REPLACES
     ]
     print(json.dumps({"kernels": kernels}))

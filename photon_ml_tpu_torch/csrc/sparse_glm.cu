@@ -104,6 +104,7 @@
 #include <stdint.h>
 
 #include "glm_losses.cuh"
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -228,69 +229,6 @@ struct StreamArgs {
   const float* u;  // X^T u: u (n)
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Returns once the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// The 16-byte-aligned span of global memory around base[lo, hi) (elements of
-// es bytes), and how many elements into it base[lo] sits.
-struct Cover {
-  unsigned long long src;
-  uint32_t bytes;
-};
-
-__device__ __forceinline__ Cover cover(const void* base, int es, long long lo, long long hi) {
-  const unsigned long long a = reinterpret_cast<unsigned long long>(base) + lo * es;
-  const unsigned long long b = reinterpret_cast<unsigned long long>(base) + hi * es;
-  const unsigned long long a16 = a & ~15ull;
-  return {a16, hi > lo ? static_cast<uint32_t>(((b + 15ull) & ~15ull) - a16) : 0u};
-}
-
-__device__ __forceinline__ int cover_skip(const void* base, int es, long long lo) {
-  return static_cast<int>(((reinterpret_cast<unsigned long long>(base) + lo * es) & 15ull) / es);
-}
-
-__device__ __forceinline__ void bulk_copy(unsigned char* dst, const Cover& c, uint64_t* bar) {
-  if (c.bytes == 0) return;
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(c.src), "r"(c.bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // Named barriers after the warps part ways: 1 for the N consumer threads
 // alone, 2 for the whole block at the end.
 template <int N>
@@ -357,7 +295,7 @@ __device__ void fill_stage(const StreamArgs& a, const StreamHeader& h, int s, un
   const Cover c_u = P::kHasU ? cover(a.u, 4, h.r0, h.r1) : Cover{0, 0};
   // The last reads of this stage were released through its empty barrier;
   // order them before the async writes.
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  fence_proxy_async();
   mbar_arrive_expect_tx(full, c_col.bytes + c_val.bytes + c_rp.bytes + c_perm.bytes + c_u.bytes);
   bulk_copy(st + P::kCol, c_col, full);
   bulk_copy(st + P::kVal, c_val, full);
@@ -566,7 +504,7 @@ __global__ void __launch_bounds__(Plan<FUSED>::kThreads, 1) stream_kernel(const 
       mbar_init(&z_ready[b], P::kWarps);
       mbar_init(&u_ready[b], 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   for (int c = tid; c < dim; c += P::kThreads) {
     w_sh[c] = a.w[c];
@@ -747,7 +685,7 @@ __global__ void __launch_bounds__(RmatvecPlan::kThreads, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], P::kWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_mbarrier_init();
   }
   for (int c = tid; c < dim; c += P::kThreads) acc[c] = 0.0f;
   __syncthreads();

@@ -3,7 +3,8 @@
 Port of `photon_ml_tpu/ops/pallas_glm.py`'s two kernels (`_value_grad_kernel`
 and `_hvp_kernel`). The kernels are hand-written CUDA for Hopper in
 `photon_ml_tpu_torch/csrc/glm_fused.cu`; its header says what bounds them on
-the card and how the design answers that. `ops/cuda_build.py` builds it with
+the card and how the design answers that, and which route (`route`) a
+width takes. `ops/cuda_build.py` builds it with
 `nvcc` into a shared library with a plain C interface at first use; it is
 bound here with ctypes.
 
@@ -27,8 +28,9 @@ The sharded wrappers port `pallas_glm.py:705 sharded_value_gradient_sums`
 and `:746 sharded_hessian_vector_sums`, the TPU form of the reference's
 treeAggregate: there, the per-device kernel under `shard_map` and a `psum`
 of the raw sums; here, the same kernel on this rank's rows and one exact
-cross-rank sum (`over_ranks`, parallel/mesh.py) in its place. They
-return the single-device contract's raw sums over all ranks' rows, in
+cross-rank sum (`over_ranks`, parallel/mesh.py: one all_gather of each
+rank's sums and the rank-order kernel of csrc/exact_sum.cu) in its place.
+They return the single-device contract's raw sums over all ranks' rows, in
 float32; with one rank, the same bits as the single-device kernel (the
 float32 -> float64 -> float32 round trip is exact).
 """
@@ -56,7 +58,7 @@ LAUNCHES: Dict[str, int] = {"value_grad": 0, "hvp": 0, "sharded_value_grad": 0, 
 
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
-_max_blocks: Dict[Tuple[int, int, int, int], int] = {}
+_max_blocks: Dict[Tuple[int, int, int, int, int], int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -69,9 +71,11 @@ def reset_launch_counts() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.glm_tile_rows.argtypes = []
+    lib.glm_route.argtypes = [i, i]
+    lib.glm_route.restype = i
+    lib.glm_tile_rows.argtypes = [i, i]
     lib.glm_tile_rows.restype = i
-    lib.glm_max_blocks.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.glm_max_blocks.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.glm_max_blocks.restype = i
     lib.glm_value_grad.argtypes = [i, i, p, ll, i, p, p, p, p, p, p, i, p, p]
     lib.glm_value_grad.restype = i
@@ -89,20 +93,32 @@ def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
     cuda_build.check_rc(rc, what, lib.glm_error_string)
 
 
-def _grid_blocks(lib: ctypes.CDLL, dtype_id: int, loss_id: int, hvp: int, n: int,
+def _grid_blocks(lib: ctypes.CDLL, dtype_id: int, loss_id: int, hvp: int, n: int, d: int,
                  device: torch.device) -> int:
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (dtype_id, loss_id, hvp, index)
+    key = (dtype_id, loss_id, hvp, d, index)
     if key not in _max_blocks:
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
-            rc = lib.glm_max_blocks(dtype_id, loss_id, hvp, ctypes.byref(out))
+            rc = lib.glm_max_blocks(dtype_id, loss_id, hvp, d, ctypes.byref(out))
         _check_rc(lib, rc, "glm_max_blocks")
         if out.value < 1:
             raise RuntimeError("glm_fused kernel does not fit on this device")
         _max_blocks[key] = out.value
-    tiles = -(-n // lib.glm_tile_rows())
+    tiles = -(-n // lib.glm_tile_rows(dtype_id, d))
     return max(1, min(tiles, _max_blocks[key]))
+
+
+_ROUTES = {0: "chunked", 1: "rows", 2: "wide"}
+
+
+def route(features: Tensor) -> str:
+    """The kernels' route for this X (a CUDA tensor), from its width and
+    dtype: "rows" (up to 1,024 columns: a warp a row, each element read
+    from shared memory once), "wide" (up to 16,384: whole rows resident in
+    shared memory, read twice there) or "chunked" (wider: 512-column chunks,
+    all but a row's last read twice from device memory)."""
+    return _ROUTES[_library().glm_route(_DTYPE_IDS[features.dtype], features.shape[1])]
 
 
 # -------------------------------------------------------------- validation
@@ -185,7 +201,7 @@ def value_gradient_sums(
     n, d = features.shape
     dtype_id, loss_id = _DTYPE_IDS[features.dtype], LOSS_IDS[loss.name]
     shift_t = as_scalar(shift, features)
-    blocks = _grid_blocks(lib, dtype_id, loss_id, 0, n, features.device)
+    blocks = _grid_blocks(lib, dtype_id, loss_id, 0, n, d, features.device)
     partial = torch.empty((blocks, d + 2), dtype=torch.float32, device=features.device)
     out = torch.empty((d + 2,), dtype=torch.float32, device=features.device)
     with torch.cuda.device(features.device):
@@ -217,7 +233,7 @@ def hessian_vector_sums(
     dtype_id, loss_id = _DTYPE_IDS[features.dtype], LOSS_IDS[loss.name]
     shift_t = as_scalar(shift, features)
     v_shift_t = as_scalar(v_shift, features)
-    blocks = _grid_blocks(lib, dtype_id, loss_id, 1, n, features.device)
+    blocks = _grid_blocks(lib, dtype_id, loss_id, 1, n, d, features.device)
     partial = torch.empty((blocks, d + 1), dtype=torch.float32, device=features.device)
     out = torch.empty((d + 1,), dtype=torch.float32, device=features.device)
     with torch.cuda.device(features.device):

@@ -8,24 +8,27 @@ and lets XLA place the collectives; the port carries a `RankMesh` on the
 data and calls two collectives of its own, through which every cross-rank
 reduction of the port goes:
 
-  * `exact_sum`: each rank writes its float64 partial sums into its own
-    row of a zeroed (W, k) buffer; one all_reduce(SUM) follows, and every
-    rank then adds the rows in rank order. Each element of the all-reduce
-    has one non-zero contributor (x + 0 + ... = x), so every rank holds the
-    same bits whatever the backend's reduction tree, and the replicated
-    optimizer iterates, whose line-search and stop decisions are taken on
-    the host from these sums, never drift apart. It moves W x k x 8 bytes
-    for k sums (16 KiB for a 512-wide gradient on 4 ranks).
+  * `exact_sum`: each rank writes its k partial sums once, as float64,
+    into a (k,) buffer; one all_gather fills a (W, k) buffer with every
+    rank's, and every rank then adds the rows in rank order in float64
+    (`rank_order_sum`: one kernel launch on a CUDA tensor, csrc/
+    exact_sum.cu), rounded once to the dtype asked for. Every rank adds the
+    same gathered bits in the same order, so every rank holds the same
+    bits whatever the backend, and the replicated optimizer iterates, whose
+    line-search and stop decisions are taken on the host from these sums,
+    never drift apart. A rank sends k values (4 KiB for a 514-wide
+    gradient); the buffers are kept for the next call of the same k.
   * `owned_to_global`: each rank places the values it owns at their global
     positions in a zero buffer, and one all_reduce(SUM) follows; every
     position has one owner, so the sum is exact. Scores, labels and
     weights reach the AUC this way, and random-effect coefficient rows the
     assembled model.
 
-Both need only all_reduce, which gloo and NCCL take on CUDA tensors (gloo
-moves them through host memory itself). The caller names the backend: gloo
-where ranks share a card or run on the CPU, NCCL where each rank has a card
-of its own. Nothing here picks one.
+gloo and NCCL take both collectives on CUDA tensors (gloo moves them
+through host memory itself); the gather goes into the (W, k) buffer's row
+views on gloo and into the buffer itself on NCCL. The caller names the
+backend: gloo where ranks share a card or run on the CPU, NCCL where each
+rank has a card of its own. Nothing here picks one.
 
 Row ownership follows the random effect (`shard_game_dataset`): its layout
 is built on every rank from the global id tag, each padded bucket's lanes
@@ -42,6 +45,7 @@ uneven; the weight-0 padding of `pad_game_dataset` (:90) is not needed.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import datetime
 import os
@@ -63,17 +67,70 @@ from photon_ml_tpu_torch.data.game_dataset import (
     factorize_tag,
 )
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
+from photon_ml_tpu_torch.ops import cuda_build
 
 Tensor = torch.Tensor
 
 BACKENDS = ("gloo", "nccl")
 
+SOURCE = cuda_build.CSRC_DIR / "exact_sum.cu"
+
+# Launches of the rank-order kernel, counted where it is launched and
+# nowhere else (the CPU path does not count).
+LAUNCHES: Dict[str, int] = {"rank_sum": 0}
+
+_SUM_DTYPES = (torch.float32, torch.float64)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.exact_rank_sum.argtypes = [p, i, ctypes.c_longlong, p, i, p]
+    lib.exact_rank_sum.restype = i
+    lib.exact_sum_error_string.argtypes = [i]
+    lib.exact_sum_error_string.restype = ctypes.c_char_p
+
+
+def rank_order_sum_plain(rows: Tensor, dtype: torch.dtype) -> Tensor:
+    """The (k,) sum of the (W, k) float64 rows in rank order, rounded once
+    to `dtype`."""
+    total = rows[0].clone()
+    for r in range(1, rows.shape[0]):
+        total += rows[r]
+    return total.to(dtype)
+
+
+def rank_order_sum(rows: Tensor, dtype: torch.dtype) -> Tensor:
+    """`rank_order_sum_plain`: the CUDA kernel (csrc/exact_sum.cu) for a
+    CUDA tensor, the plain version for a CPU one; the same bits either way."""
+    if rows.dtype != torch.float64 or rows.ndim != 2 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous (W, k) float64 tensor")
+    if dtype not in _SUM_DTYPES:
+        raise TypeError(f"the sum is float32 or float64, not {dtype}")
+    if rows.device.type == "cpu":
+        return rank_order_sum_plain(rows, dtype)
+    lib = cuda_build.load_library(SOURCE, _bind)
+    world, k = rows.shape
+    out = torch.empty((k,), dtype=dtype, device=rows.device)
+    with torch.cuda.device(rows.device):
+        rc = lib.exact_rank_sum(rows.data_ptr(), world, k, out.data_ptr(),
+                                int(dtype == torch.float32),
+                                torch.cuda.current_stream(rows.device).cuda_stream)
+    cuda_build.check_rc(rc, "exact_rank_sum launch", lib.exact_sum_error_string)
+    LAUNCHES["rank_sum"] += 1
+    return out
+
 
 class RankMesh:
     """This process's place among the ranks: rank, world size, backend and
-    device. `counts` tallies the collectives this rank has run, `seconds`
-    the host time spent in their all_reduce calls, which includes waiting
-    for the device work queued before them."""
+    device. `counts` tallies the collectives this rank has run, `elements`
+    the values it sent in them, and `seconds` the host time spent in their
+    collective calls, which includes waiting for the device work queued
+    before them."""
 
     def __init__(self, rank: int, world_size: int, backend: str, device: torch.device):
         self.rank = rank
@@ -81,7 +138,9 @@ class RankMesh:
         self.backend = backend
         self.device = device
         self.counts: Dict[str, int] = {"exact_sum": 0, "owned_to_global": 0}
+        self.elements: Dict[str, int] = {"exact_sum": 0, "owned_to_global": 0}
         self.seconds: Dict[str, float] = {"exact_sum": 0.0, "owned_to_global": 0.0}
+        self._gathers: Dict[int, Tuple[Tensor, Tensor, List[Tensor]]] = {}
 
     def __repr__(self) -> str:
         return (f"RankMesh(rank={self.rank}, world_size={self.world_size}, "
@@ -90,25 +149,38 @@ class RankMesh:
     def reset_counts(self) -> None:
         for k in self.counts:
             self.counts[k] = 0
+            self.elements[k] = 0
             self.seconds[k] = 0.0
 
-    def _all_reduce(self, buf: Tensor, what: str) -> None:
+    def _collective(self, what: str, elements: int, run) -> None:
         t0 = time.perf_counter()
-        dist.all_reduce(buf)
+        run()
         self.seconds[what] += time.perf_counter() - t0
         self.counts[what] += 1
+        self.elements[what] += elements
 
-    def exact_sum(self, parts: Sequence[Tensor]) -> List[Tensor]:
+    def _gather_buffers(self, k: int) -> Tuple[Tensor, Tensor, List[Tensor]]:
+        """(send (k,), gathered (W, k), its row views), float64, kept per k."""
+        if k not in self._gathers:
+            send = torch.empty((k,), dtype=torch.float64, device=self.device)
+            rows = torch.empty((self.world_size, k), dtype=torch.float64, device=self.device)
+            self._gathers[k] = (send, rows, list(rows.unbind(0)))
+        return self._gathers[k]
+
+    def exact_sum(self, parts: Sequence[Tensor], dtype: torch.dtype = torch.float64) -> List[Tensor]:
         """The float64 sum over ranks of each part (any shapes, any float
-        dtype), the same bits on every rank; see the module docstring."""
-        flat = [p.reshape(-1).to(device=self.device, dtype=torch.float64) for p in parts]
-        sizes = [f.numel() for f in flat]
-        buf = torch.zeros((self.world_size, sum(sizes)), dtype=torch.float64, device=self.device)
-        buf[self.rank] = torch.cat(flat)
-        self._all_reduce(buf, "exact_sum")
-        total = buf[0].clone()
-        for r in range(1, self.world_size):
-            total += buf[r]
+        dtype), rounded once to `dtype` (float64 or float32), the same bits
+        on every rank; see the module docstring."""
+        sizes = [p.numel() for p in parts]
+        send, rows, row_views = self._gather_buffers(sum(sizes))
+        for dst, p in zip(send.split(sizes), parts):
+            dst.copy_(p.reshape(-1))
+        if self.backend == "nccl":
+            gather = lambda: dist.all_gather_into_tensor(rows, send)
+        else:
+            gather = lambda: dist.all_gather(row_views, send)
+        self._collective("exact_sum", send.numel(), gather)
+        total = rank_order_sum(rows, dtype)
         return [t.reshape(p.shape) for t, p in zip(total.split(sizes), parts)]
 
     def owned_to_global(self, values: Tensor, global_rows: Tensor, n: int) -> Tensor:
@@ -117,7 +189,7 @@ class RankMesh:
         one owner over all ranks (positions without one come out zero)."""
         buf = torch.zeros((n,) + tuple(values.shape[1:]), dtype=values.dtype, device=self.device)
         buf[global_rows.to(self.device)] = values.to(self.device)
-        self._all_reduce(buf, "owned_to_global")
+        self._collective("owned_to_global", buf.numel(), lambda: dist.all_reduce(buf))
         return buf
 
     def all_true(self, flag: bool) -> bool:
@@ -130,13 +202,15 @@ class RankMesh:
 
 
 def over_ranks(mesh: Optional[RankMesh], *sums: Tensor) -> Tuple[Tensor, ...]:
-    """Raw sums over every rank's rows, through one `exact_sum`, cast back
-    to the dtype each came in (float32 sums round-trip exactly); unchanged
-    without a mesh. Every cross-rank sum of the objective goes through
+    """Raw sums over every rank's rows, through one `exact_sum`, in the
+    dtype each came in (float32 sums are rounded once, by the rank-order
+    kernel); unchanged without a mesh. Every cross-rank sum of the objective goes through
     here, whatever produced the per-rank sums."""
     if mesh is None:
         return sums
-    return tuple(t.to(s.dtype) for t, s in zip(mesh.exact_sum(sums), sums))
+    f32 = all(s.dtype == torch.float32 for s in sums)
+    totals = mesh.exact_sum(sums, torch.float32 if f32 else torch.float64)
+    return tuple(t.to(s.dtype) for t, s in zip(totals, sums))
 
 
 def init_rank_mesh(

@@ -163,6 +163,44 @@ def part_collectives(mesh):
                 placed=placed.numpy())
 
 
+@contextlib.contextmanager
+def counted_collectives(calls):
+    """Count this rank's calls of each torch.distributed collective by name."""
+    names = ("all_gather", "all_gather_into_tensor", "all_reduce", "broadcast", "reduce_scatter")
+    saved = {n: getattr(torch.distributed, n) for n in names}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(torch.distributed, n, counting(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(torch.distributed, n, f)
+
+
+def part_gather_traffic(mesh):
+    """exact_sum of k values (one part, then three), twice each: the
+    collectives each call ran and the elements the mesh counted."""
+    rows = []
+    for sizes in ((1,), (7,), (512, 1, 1), (512, 1, 1)):
+        parts = [torch.full((s,), float(mesh.rank + 1)) for s in sizes]
+        calls = {}
+        before = (mesh.counts["exact_sum"], mesh.elements["exact_sum"])
+        with counted_collectives(calls):
+            sums = mesh.exact_sum(parts)
+        rows.append(dict(k=sum(sizes), calls=calls,
+                         counts=mesh.counts["exact_sum"] - before[0],
+                         elements=mesh.elements["exact_sum"] - before[1],
+                         sums=[t.numpy() for t in sums]))
+    return rows
+
+
 def part_sums(mesh):
     """The sharded sums (plain path) over this rank's uneven share of rows."""
     X, y, off, wt, w, v = sums_arrays()
@@ -278,7 +316,8 @@ def part_converted(mesh, arrays):
 def rank_program(mesh, converted_arrays):
     torch.set_num_threads(1)
     return dict(
-        rank=mesh.rank, collectives=part_collectives(mesh), sums=part_sums(mesh),
+        rank=mesh.rank, collectives=part_collectives(mesh), traffic=part_gather_traffic(mesh),
+        sums=part_sums(mesh),
         fixed=part_fixed_effect(mesh), glmix=part_glmix(mesh),
         nan=part_nan(mesh, bad_rank=min(1, mesh.world_size - 1)), sparse=part_sparse(mesh),
         converted=part_converted(mesh, converted_arrays),
@@ -435,6 +474,20 @@ def test_exact_sum_and_owned_to_global_are_bit_exact(ranks):
     if world == 1:  # one rank: the identity, in float64
         for got, p in zip(ranks[0]["collectives"]["sums"], parts[0]):
             assert np.array_equal(got, np.asarray(p, np.float64))
+
+
+def test_exact_sum_sends_k_values_through_one_gather(ranks):
+    """Each call is one all_gather of the rank's k float64 values (the mesh
+    counts k elements sent, not W x k), and nothing else crosses the ranks;
+    the rank-ordered sum of the ranks' 1, 2, ..., W is W (W + 1) / 2."""
+    world = len(ranks)
+    for r in ranks:
+        for row in r["traffic"]:
+            assert row["calls"] == {"all_gather": 1}, row["calls"]
+            assert row["counts"] == 1 and row["elements"] == row["k"]
+            for got in row["sums"]:
+                assert got.dtype == np.float64
+                assert np.all(got == world * (world + 1) / 2)
 
 
 def test_sharded_sums_match_jax_sharded_kernels(ranks, jax_side):
@@ -718,3 +771,48 @@ def test_a_second_random_effect_key_is_refused_on_ranks():
         build_random_effect_dataset(ds, RandomEffectDataConfig("itemId", "per_entity"))
     red = build_random_effect_dataset(ds, dataclasses.replace(RE_CONFIG, feature_shard="other"))
     assert red.num_active_samples == layout.num_active
+
+
+# ------------------------------------------------------- the rank-order sum
+
+
+def test_rank_order_sum_adds_the_rows_in_rank_order_on_cpu():
+    """The plain version (what the CUDA kernel is held to on the card): row 0,
+    then + row 1, + row 2, ... in float64, rounded once; CPU tensors take it
+    and count no launch."""
+    rows = torch.from_numpy(np.random.default_rng(3).normal(size=(4, 9)) * 1e8)
+    rows[:, 0] = torch.tensor([1.0, 1e-17, 1e-17, -1.0], dtype=torch.float64)  # order shows
+    before = dict(pmesh.LAUNCHES)
+    want = rows[0].clone()
+    for r in range(1, 4):
+        want = want + rows[r]
+    got64 = pmesh.rank_order_sum(rows, torch.float64)
+    got32 = pmesh.rank_order_sum(rows, torch.float32)
+    assert got64.dtype == torch.float64 and torch.equal(got64, want)
+    assert got32.dtype == torch.float32 and torch.equal(got32, want.float())
+    assert got64[0] == 0.0  # (1 + 1e-17) + 1e-17 - 1, not 2e-17
+    assert pmesh.LAUNCHES == before
+
+
+@pytest.mark.parametrize("bad", ["float32_rows", "one_d", "strided", "int_sum"])
+def test_rank_order_sum_rejects_what_the_kernel_does_not_take(bad):
+    rows = torch.zeros((3, 8), dtype=torch.float64)
+    dtype = torch.float32
+    if bad == "float32_rows":
+        rows = rows.float()
+    elif bad == "one_d":
+        rows = rows[0]
+    elif bad == "strided":
+        rows = rows.t()
+    else:
+        dtype = torch.int64
+    with pytest.raises((ValueError, TypeError)):
+        pmesh.rank_order_sum(rows, dtype)
+
+
+def test_exact_sum_library_is_named_by_its_source_and_built_under_the_package():
+    from photon_ml_tpu_torch.ops import cuda_build
+
+    path = cuda_build.library_path(pmesh.SOURCE)
+    assert path.parent == cuda_build.BUILD_DIR and path.name.startswith("libexact_sum-")
+    assert pmesh.SOURCE.exists() and pmesh.SOURCE.parent == cuda_build.CSRC_DIR
