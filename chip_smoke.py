@@ -151,6 +151,41 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    PORT_TOLERANCES["convert_scores"] of the CPU's scores; `sparse_rmatvec`
    nonzero in the card's train (the SIMPLE variances).
 
+The optimizers' other modes, checkpoint-restart and the legacy driver:
+
+3o. On phase 3's dense fixed effect (1,048,576 x 512, bf16 X; after phase
+   4): L1 through OWLQN (weight 1e4), and the box from the constraint string
+   [{"name": "*", "term": "*", "upperBound": 0.5}] resolved by
+   optimize/constraints.py (and at 0.05, which binds): iterations, fn evals,
+   zeros, the largest bound violation (exactly 0), value_grad launches
+   (= fn evals); FULL variances at D = 512 (margins on the plain route), and
+   on phase 3e's fixed effect at D = 201 (margins through X w): seconds and
+   peak memory, finite and positive.
+3k. On phase 3e's files: the three DSL coordinates through cli.train with
+   --checkpoint-directory, one sweep and then a resume to the second,
+   against an uninterrupted two-sweep run; then GameEstimator.fit with two
+   sweeps killed at the fixed effect of sweep 2 and resumed by a new
+   estimator on a new read of the files, against an uninterrupted fit. The
+   models must agree within rtol 1e-6, atol 1e-7 (the JAX package's bound;
+   the row says whether bit-equal); each checkpoint save's seconds, the
+   load's on resume and the checkpoint's MiB. Then the fixed effect alone
+   with ELASTIC_NET (alpha 0.5, weight E2E_ROWS / 200) through cli.train:
+   nonzeros and sparse_fused launches.
+5k. The card's estimator checkpoint loaded on the CPU (bit-equal to the
+   card's models), and the estimator resumed from it on the CPU on a CPU
+   read of the files (bit-equal).
+3g. cli.glm_driver (TRAINING_EXAMPLE) on phase 3e's files, validated on
+   1,000,000 rows labelled by 3e's model (another seed's rows): the
+   default L2 sweep 0.1,1,10,100 and L1 at weight 1, --max-iterations 50;
+   walls, stage seconds, iterations and validation AUC for each weight, the
+   best weight, sparse_fused and sparse_matvec launches; then the sweep by
+   TRON with SIMPLE variances on 3e's layout (#4, #5, #6 and #6 squared).
+5g. cli.glm_driver at a9a's size (examples/generate_dataset.py: 32,561 +
+   16,281 rows, 123 features), --format LIBSVM with a constraint string,
+   then ELASTIC_NET (alpha 0.5), card against CPU under
+   PORT_TOLERANCES["card_vs_cpu_glmix"]: each weight's model (coefficients,
+   or where stopping noise moves them, the objective), AUC, the best weight.
+
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
 parallel/), each rank a process started by parallel/launch.py that loads
 phase 1's library and never builds: 4 ranks share the card over gloo (the
@@ -189,8 +224,9 @@ print which backend each used.
    CPU process, under PORT_TOLERANCES["card_vs_cpu_glmix"].
 
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
-3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, and 3d
-and 4d in each rank) and read just after; the `kernels` line gives them by
+3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, each run
+of 3o, 3k, 3g and 5g's card runs, and 3d and 4d in each rank) and read
+just after; the `kernels` line gives them by
 phase (`launches_by_phase`). "wall:" lines give each group of phases'
 seconds. The last three
 lines of standard output are
@@ -235,6 +271,14 @@ CARD_RATES = (
     ("H100 NVL", 3.9e12, 60e12),
     ("H100", 3.35e12, 67e12),
 )
+
+
+def walled(name, fn, *a):
+    """fn(*a), with a "wall:" line of its seconds."""
+    t = time.perf_counter()
+    out = fn(*a)
+    log(f"wall: {name} {time.perf_counter() - t:.1f} s")
+    return out
 
 
 def log(msg: str) -> None:
@@ -902,10 +946,12 @@ E2E_TAGS = ["userId", "movieId"]
 E2E_RE = {"per-user": ("userId", 256), "per-movie": ("movieId", 512)}  # tag, active_upper_bound
 
 
-def e2e_arrays(rows: int, seed: int = 23, n_users=None, n_movies=None):
+def e2e_arrays(rows: int, seed: int = 23, n_users=None, n_movies=None, truth=None):
     """bench.py's e2e generator (bench.py:4662-4685), in numpy: per-user and
     per-movie structure in the labels, 8 uniform ids a row over dim 200.
-    The entity counts default to the bench's (rows // 145, rows // 740)."""
+    The entity counts default to the bench's (rows // 145, rows // 740).
+    `truth` (the `truth` of another draw: weights, user and movie effects)
+    labels new rows by that draw's model, for a validation file."""
     n_users = max(200, rows // 145) if n_users is None else n_users
     n_movies = max(50, rows // 740) if n_movies is None else n_movies
     rng = np.random.default_rng(seed)
@@ -914,12 +960,15 @@ def e2e_arrays(rows: int, seed: int = 23, n_users=None, n_movies=None):
     indptr = np.arange(rows + 1, dtype=np.int64) * E2E_K
     ids = rng.integers(0, E2E_D, size=rows * E2E_K).astype(np.int32)
     vals = rng.normal(size=rows * E2E_K)
-    w_true = rng.normal(size=E2E_D) * 0.3
+    if truth is None:
+        w_true = rng.normal(size=E2E_D) * 0.3
+        truth = (w_true, rng.normal(size=n_users), rng.normal(size=n_movies))
+    w_true, user_eff, movie_eff = truth
     margin = ((vals * w_true[ids]).reshape(rows, E2E_K).sum(axis=1)
-              + rng.normal(size=n_users)[users] * 0.7 + rng.normal(size=n_movies)[movies] * 0.7)
+              + user_eff[users] * 0.7 + movie_eff[movies] * 0.7)
     labels = (rng.uniform(size=rows) < 1 / (1 + np.exp(-margin))).astype(np.float64)
     return dict(users=users, movies=movies, indptr=indptr, ids=ids, vals=vals, labels=labels,
-                n_users=n_users, n_movies=n_movies)
+                n_users=n_users, n_movies=n_movies, truth=truth)
 
 
 def write_e2e_files(root: str, a: dict) -> float:
@@ -1005,8 +1054,8 @@ def small_e2e_fit(ds) -> dict:
 
 
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
-    """Phases 2e, 3e and 5e. Returns (phase 2e rows by kernel, phase 3e's
-    sparse launches by kernel)."""
+    """Phases 2e, 3e, 3f, 3c, 3k, 5k, 3o's e2e part, 3g and 5e. Returns
+    (phase 2e rows by kernel, the sparse launches by kernel of each path)."""
     import os
     import tempfile
 
@@ -1033,6 +1082,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
     t0 = time.perf_counter()
     total_mb = write_e2e_files(root, a)
     write_s = time.perf_counter() - t0
+    truth, n_users, n_movies = a["truth"], a["n_users"], a["n_movies"]
     del a
     t0 = time.perf_counter()
     ds = read_e2e(root, dev)
@@ -1158,9 +1208,14 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
     torch.cuda.empty_cache()
     try:
         launches3c = driver_e2e_phase(root, fit3f)
+        del fit3f
+        gc.collect()
+        torch.cuda.empty_cache()
+        work = os.path.join(root, "slice")
+        launches3k = walled("phases 3k, 5k, 3o (e2e)", checkpoint_phase, root, work)
+        launches3g = walled("phase 3g", legacy_driver_e2e_phase, root, work, truth, n_users, n_movies)
     finally:
         e2e_dir.cleanup()
-    del fit3f
 
     # ---- phase 5e: a small fit from files, card vs CPU ----------------------------------
     ref_tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
@@ -1192,7 +1247,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
             failures.append(f"seed {s}: the card's small e2e fit disagrees with the CPU's")
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
-    return rows2e, {"3e": launches, "3f": launches3f, "3c": launches3c}
+    return rows2e, {"3e": launches, "3f": launches3f, "3c": launches3c, "3k": launches3k, "3g": launches3g}
 
 
 def small_estimator_fits(where: str, a: dict, n_train: int) -> dict:
@@ -1782,6 +1837,505 @@ def driver_small_phase(seed: int) -> dict:
         failures.append(f"launches {launches}")
     if failures:
         raise SystemExit("phase 5c failed: " + "; ".join(failures))
+    return launches
+
+
+# ------------------------------------------------- phases 3o, 3k, 5k, 3g, 5g
+#
+# The optimizers' other modes (OWLQN, box, FULL variances), checkpoint and
+# resume, and the legacy single-GLM driver.
+
+def close_arrays(a, b) -> dict:
+    """Largest |a - b|, bit equality, and a within PORT_TOLERANCES
+    ["checkpoint_resume"] (the JAX package's kill-and-resume bound) of b."""
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return dict(err=float(np.abs(a - b).max()), bit_equal=bool(np.array_equal(a, b)),
+                within=bool(np.allclose(a, b, **PORT_TOLERANCES["checkpoint_resume"])))
+
+
+def close_game_models(a, b) -> dict:
+    """close_arrays of two GameModels' coefficients, by coordinate."""
+    out = {}
+    for cid, m in a.models.items():
+        x = m.coefficients_matrix if hasattr(m, "coefficients_matrix") else m.coefficients.means
+        o = b.models[cid]
+        y = o.coefficients_matrix if hasattr(o, "coefficients_matrix") else o.coefficients.means
+        out[cid] = close_arrays(x.cpu(), y.cpu())
+    return out
+
+
+def optimizer_modes_phase(ds, cfg_f) -> dict:
+    """Phase 3o on phase 3's dense fixed effect (1,048,576 x 512, stored
+    bf16): L1 through OWLQN, a wildcard box resolved from its JSON string
+    (upperBound 0.5 as written, and 0.05, which binds), and FULL variances
+    at D = 512 (margins on the plain route: a dense matrix has no margin
+    kernel). Returns the launches by kernel."""
+    import dataclasses
+
+    import torch
+
+    from photon_ml_tpu_torch.data.containers import LabeledData
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optimize import problem
+    from photon_ml_tpu_torch.optimize.config import L1, OptimizerConfig
+    from photon_ml_tpu_torch.optimize.constraints import bounds_arrays, create_constraint_feature_map
+    from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    d = ds.shards["global"].shape[-1]
+    imap = IndexMap.from_feature_names([f"f{j}" for j in range(d)])
+    runs, failures, launches = {}, [], {}
+
+    def add(dense):
+        for k, v in dense.items():
+            launches[k] = launches.get(k, 0) + v
+
+    modes = {"l1": dataclasses.replace(cfg_f, regularization=L1, reg_weight=1e4)}
+    for ub in (0.5, 0.05):
+        box = bounds_arrays(create_constraint_feature_map(
+            json.dumps([{"name": "*", "term": "*", "upperBound": ub}]), imap), imap.size)
+        modes[f"box_ub{ub}"] = dataclasses.replace(
+            cfg_f, optimizer=dataclasses.replace(cfg_f.optimizer, box_constraints=box))
+    for name, cfg in modes.items():
+        coord = FixedEffectCoordinate(ds, "global", cfg, task)
+        t0 = time.perf_counter()
+        (model, res), _, dense, mem = counted(torch, lambda: coord.train(ds.offsets))
+        wall = time.perf_counter() - t0
+        add(dense)
+        w = model.coefficients.means
+        row = dict(phase="3o", mode=name, n=int(ds.num_samples), d=d, wall_s=wall,
+                   iterations=int(res.iterations), fn_evals=int(res.fn_evals), reason=int(res.reason),
+                   loss=float(res.loss), zeros=int((w == 0).sum()), value_grad_launches=dense["value_grad"],
+                   peak_gib=mem["peak"])
+        if name.startswith("box"):
+            upper = torch.as_tensor(cfg.optimizer.box_constraints[1], device=w.device)
+            row["max_bound_violation"] = float(torch.clamp_min(w - upper, 0.0).max())
+            row["at_bound"] = int((w == upper).sum())
+            if row["max_bound_violation"] != 0.0:
+                failures.append(f"{name}: the bound is violated by {row['max_bound_violation']}")
+            if name == "box_ub0.05" and not row["at_bound"]:
+                failures.append(f"{name}: no coefficient at the bound")
+        elif not 0 < row["zeros"] < d:
+            failures.append(f"l1: {row['zeros']} zeros of {d}")
+        if not dense["value_grad"] or dense["value_grad"] != row["fn_evals"] \
+                or not bool(torch.isfinite(w).all()):
+            failures.append(f"{name}: {dense['value_grad']} value_grad launches for {row['fn_evals']} "
+                            f"objective passes, or non-finite coefficients")
+        log(json.dumps(row))
+        runs[name] = w
+    # FULL variances at D = 512 on the bf16-stored X, at the L1 solution.
+    coord = FixedEffectCoordinate(ds, "global", cfg_f, task)
+    data = LabeledData(coord.training_features, ds.labels, ds.offsets, ds.weights)
+    full = dataclasses.replace(cfg_f, variance_computation=VarianceComputationType.FULL)
+    t0 = time.perf_counter()
+    var, _, dense, mem = counted(torch, lambda: problem.compute_variances(LOGISTIC, data, full, runs["l1"]))
+    row = dict(phase="3o", mode="full_variance", d=d, seconds=time.perf_counter() - t0,
+               peak_gib=mem["peak"], base_gib=mem["base"], launches=dense,
+               finite_positive=bool(torch.isfinite(var).all() and (var > 0).all()))
+    log(json.dumps(row))
+    if not row["finite_positive"] or var.shape != (d,):
+        failures.append("FULL variances are not finite positive (D,) values")
+    if failures:
+        raise SystemExit("phase 3o failed: " + "; ".join(failures))
+    return launches
+
+
+def checkpoint_phase(root: str, work: str) -> dict:
+    """Phases 3k and 5k on phase 3e's files, and 3o's FULL variances of the
+    e2e fixed effect. Returns the sparse launches by kernel."""
+    import os
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.data.containers import LabeledData
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.game import checkpoint as ckpt_mod
+    from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate
+    from photon_ml_tpu_torch.io import model_store
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optimize import problem
+    from photon_ml_tpu_torch.optimize.config import CoordinateOptimizationConfig
+    from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    failures, launches = [], {}
+
+    def add(sparse):
+        for k, v in sparse.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # Every checkpoint save and load is timed (the class's methods wrapped).
+    saves, loads = [], []
+    save0, load0 = ckpt_mod.CoordinateDescentCheckpoint.save, ckpt_mod.CoordinateDescentCheckpoint.load
+
+    def timed_save(self, **kw):
+        t = time.perf_counter()
+        save0(self, **kw)
+        saves.append(time.perf_counter() - t)
+
+    def timed_load(self, *a, **kw):
+        t = time.perf_counter()
+        out = load0(self, *a, **kw)
+        loads.append(time.perf_counter() - t)
+        return out
+
+    ckpt_mod.CoordinateDescentCheckpoint.save = timed_save
+    ckpt_mod.CoordinateDescentCheckpoint.load = timed_load
+    try:
+        # ---- 3k through cli.train: one sweep checkpointed, a resume to the
+        # second, against an uninterrupted two-sweep run.
+        def train(out, iterations, extra=()):
+            return counted(torch, lambda: train_cli.main([
+                "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+                "--root-output-directory", out, "--override-output-directory",
+                "--feature-shard-configurations", E2E_SHARD, "--coordinate-configurations",
+                *E2E_COORDINATES, "--coordinate-descent-iterations", str(iterations),
+                "--output-mode", "BEST", "--logging-level", "WARNING", *extra]))
+
+        ck_driver = os.path.join(work, "ck-driver")
+        walls = {}
+        for name, its, extra in (("straight", 2, ()), ("sweep1", 1, ("--checkpoint-directory", ck_driver)),
+                                 ("resume", 2, ("--checkpoint-directory", ck_driver))):
+            n_saves = len(saves)
+            t0 = time.perf_counter()
+            summary, sparse, _, _ = train(os.path.join(work, f"k-{name}"), its, extra)
+            walls[name] = dict(wall_s=time.perf_counter() - t0, timings_s=summary["timings_s"],
+                               save_s=saves[n_saves:], fused=sparse["sparse_fused"])
+            add(sparse)
+        best = {k: os.path.join(work, f"k-{k}", "models", "best") for k in ("straight", "resume")}
+        imaps = {"g": IndexMap.load(os.path.join(best["straight"], "feature-indexes", "g.json"))}
+        arts = {k: model_store.load_game_model(v, imaps) for k, v in best.items()}
+        vs = {}
+        for cid in arts["straight"].coordinates:
+            a, b = arts["resume"].coordinates[cid], arts["straight"].coordinates[cid]
+            if hasattr(a, "entity_ids") and a.entity_ids != b.entity_ids:
+                vs[cid] = dict(err=float("inf"), bit_equal=False, within=False)
+            else:
+                vs[cid] = close_arrays(a.means, b.means)
+        row = dict(phase="3k", path="cli.train", rows=E2E_ROWS, runs=walls, resume_vs_straight=vs,
+                   load_s=loads[-1:], checkpoint_mib=dir_mib(ck_driver))
+        log(json.dumps(row))
+        if len(walls["sweep1"]["save_s"]) != 3 or len(walls["resume"]["save_s"]) != 3:
+            failures.append(f"driver: {len(walls['sweep1']['save_s'])} + {len(walls['resume']['save_s'])} "
+                            "checkpoint saves for 3 + 3 updates")
+        if not all(v["within"] for v in vs.values()):
+            failures.append(f"driver resume against the uninterrupted fit: {vs}")
+
+        # ---- 3k through GameEstimator.fit: killed in sweep 2 at the fixed
+        # effect, resumed by a new estimator on a new read of the files.
+        fe_cfg, re_cfg = e2e_configs()
+        cfgs = {"global": fe_cfg, **{c: re_cfg for c in E2E_RE}}
+        ck_est = os.path.join(work, "ck-estimator")
+
+        def estimator(ck=None):
+            est = e2e_estimator(task)
+            est.cd_iterations = 2
+            est.checkpoint_dir = ck
+            return est
+
+        train0 = FixedEffectCoordinate.train
+        calls = {"n": 0}
+
+        def dying(self, *a, **kw):
+            calls["n"] += 1
+            if calls["n"] == 2:
+                raise RuntimeError("simulated preemption")
+            return train0(self, *a, **kw)
+
+        ds = read_e2e(root, "cuda")
+        FixedEffectCoordinate.train = dying
+        n_saves = len(saves)
+        t0 = time.perf_counter()
+        try:
+            estimator(ck_est).fit(ds, None, [cfgs])
+            failures.append("the kill switch did not fire")
+        except RuntimeError as exc:
+            if "simulated preemption" not in str(exc):
+                raise
+        finally:
+            FixedEffectCoordinate.train = train0
+        killed = dict(wall_s=time.perf_counter() - t0, save_s=saves[n_saves:])
+        with open(os.path.join(ck_est, "config-0", "state.json")) as f:
+            killed["completed_steps"] = json.load(f)["completed_steps"]
+        del ds
+        gc.collect()
+        torch.cuda.empty_cache()
+        ds = read_e2e(root, "cuda")
+        n_saves, n_loads = len(saves), len(loads)
+        t0 = time.perf_counter()
+        resumed, sparse, _, mem = counted(torch, lambda: estimator(ck_est).fit(ds, None, [cfgs])[0])
+        add(sparse)
+        resumed_s = time.perf_counter() - t0
+        resumed_saves, resumed_loads = saves[n_saves:], loads[n_loads:]
+        straight = estimator().fit(ds, None, [cfgs])[0]
+        vs = close_game_models(resumed.model, straight.model)
+        row = dict(phase="3k", path="GameEstimator.fit", rows=E2E_ROWS, killed=killed,
+                   resume_wall_s=resumed_s, resume_save_s=resumed_saves, resume_load_s=resumed_loads,
+                   checkpoint_mib=dir_mib(ck_est), resumed_vs_straight=vs, launches_resume=sparse,
+                   peak_gib=mem["peak"])
+        log(json.dumps(row))
+        if killed["completed_steps"] != 3 or len(resumed_saves) != 3:
+            failures.append(f"estimator: killed at step {killed['completed_steps']} (want 3), "
+                            f"{len(resumed_saves)} saves on resume (want 3)")
+        if not all(v["within"] for v in vs.values()) or not sparse["sparse_fused"]:
+            failures.append(f"estimator resume against the uninterrupted fit: {vs}, launches {sparse}")
+
+        # ---- 3o on the e2e fixed effect: FULL variances at D = 201, the
+        # margins through the X w kernel.
+        layout = ds.sparse_layout("g")
+        data = LabeledData(layout, ds.labels, ds.offsets, ds.weights)
+        full = CoordinateOptimizationConfig(regularization=fe_cfg.regularization, reg_weight=fe_cfg.reg_weight,
+                                            variance_computation=VarianceComputationType.FULL)
+        w = resumed.model["global"].coefficients.means
+        t0 = time.perf_counter()
+        var, sparse, _, mem = counted(torch, lambda: problem.compute_variances(LOGISTIC, data, full, w))
+        add(sparse)
+        row = dict(phase="3o", mode="full_variance_e2e", rows=E2E_ROWS, d=int(w.shape[0]),
+                   seconds=time.perf_counter() - t0, peak_gib=mem["peak"], base_gib=mem["base"],
+                   launches=sparse, finite_positive=bool(torch.isfinite(var).all() and (var > 0).all()))
+        log(json.dumps(row))
+        if not row["finite_positive"] or not sparse["sparse_matvec"]:
+            failures.append(f"e2e FULL variances: finite positive {row['finite_positive']}, launches {sparse}")
+        del layout, data, var
+        card_models = resumed.model
+        del ds, straight
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 5k: the card's checkpoint through the port on the CPU.
+        t0 = time.perf_counter()
+        state = ckpt_mod.CoordinateDescentCheckpoint(os.path.join(ck_est, "config-0")).load(task, device="cpu")
+        load_cpu_s = time.perf_counter() - t0
+        from photon_ml_tpu_torch.game.model import GameModel
+
+        loaded = close_game_models(GameModel(state.models), card_models)
+        ds_cpu = read_e2e(root, "cpu")
+        t0 = time.perf_counter()
+        cpu_fit = estimator(ck_est).fit(ds_cpu, None, [cfgs])[0]
+        cpu_resume_s = time.perf_counter() - t0
+        on_cpu = close_game_models(cpu_fit.model, card_models)
+        row = dict(phase="5k", completed_steps=state.completed_steps, load_cpu_s=load_cpu_s,
+                   loaded_vs_card=loaded, cpu_resume_s=cpu_resume_s, cpu_resume_vs_card=on_cpu,
+                   cpu_model_device=str(cpu_fit.model["global"].coefficients.means.device))
+        log(json.dumps(row))
+        if not all(v["bit_equal"] for v in loaded.values()) or not all(v["bit_equal"] for v in on_cpu.values()) \
+                or row["cpu_model_device"] != "cpu" or state.completed_steps != 6:
+            failures.append(f"5k: the card's checkpoint on the CPU: {row}")
+        del ds_cpu, cpu_fit
+
+        # ---- 3k: the fixed effect alone with ELASTIC_NET through the driver.
+        out = os.path.join(work, "k-elastic-net")
+        t0 = time.perf_counter()
+        summary, sparse, dense, _ = counted(torch, lambda: train_cli.main([
+            "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+            "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
+            "--coordinate-configurations",
+            "name=global,feature.shard=g,optimizer=LBFGS,tolerance=1e-6,max.iter=10,"
+            f"regularization=ELASTIC_NET,reg.alpha=0.5,reg.weights={E2E_ROWS // 200}",
+            "--output-mode", "BEST", "--logging-level", "WARNING"]))
+        add(sparse)
+        art = model_store.load_game_model(os.path.join(out, "models", "best"), imaps)
+        means = art.coordinates["global"].means
+        row = dict(phase="3k", path="elastic_net", wall_s=time.perf_counter() - t0, reg_weight=E2E_ROWS // 200,
+                   alpha=0.5, nonzeros=int((means != 0).sum()), d=int(means.shape[0]),
+                   sparse_fused=sparse["sparse_fused"], timings_s=summary["timings_s"])
+        log(json.dumps(row))
+        if not sparse["sparse_fused"] or any(dense.values()) or not 0 < row["nonzeros"] < row["d"]:
+            failures.append(f"elastic net: {row['nonzeros']} nonzeros, launches {sparse} / {dense}")
+    finally:
+        ckpt_mod.CoordinateDescentCheckpoint.save = save0
+        ckpt_mod.CoordinateDescentCheckpoint.load = load0
+    if failures:
+        raise SystemExit("phase 3k/5k failed: " + "; ".join(failures))
+    return launches
+
+
+def legacy_driver_e2e_phase(root: str, work: str, truth, n_users: int, n_movies: int) -> dict:
+    """Phase 3g: cli.glm_driver on phase 3e's 4,000,000-row files, validated
+    on 1,000,000 rows (E2E_ROWS / 4) of the same model (another seed's rows, labelled by
+    3e's weights and effects), written by the port's columnar writer; the
+    default L2 sweep and an L1 fit. Then the sweep itself by TRON with
+    SIMPLE variances on the same layout. Returns the sparse launches."""
+    import os
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.data.containers import LabeledData
+    from photon_ml_tpu_torch.models.training import train_glm_sweep
+    from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
+    from photon_ml_tpu_torch.types import OptimizerType, TaskType, VarianceComputationType
+
+    val_dir = os.path.join(work, "validation")
+    os.makedirs(val_dir)
+    t0 = time.perf_counter()
+    val_rows = E2E_ROWS // 4
+    val_mb = write_e2e_files(val_dir, e2e_arrays(val_rows, seed=24, n_users=n_users, n_movies=n_movies,
+                                                 truth=truth))
+    val_write_s = time.perf_counter() - t0
+    failures, launches = [], {}
+
+    def add(sparse):
+        for k, v in sparse.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for name, extra in (("l2_sweep", []), ("l1", ["--regularization-type", "L1", "--regularization-weights", "1"])):
+        out = os.path.join(work, f"glm-{name}")
+        t0 = time.perf_counter()
+        summary, sparse, dense, mem = counted(torch, lambda: glm_driver.main([
+            "--training-data-directory", root, "--validate-data-directory", val_dir,
+            "--output-directory", out, "--format", "TRAINING_EXAMPLE", "--max-iterations", "50",
+            "--logging-level", "WARNING", *extra]))
+        add(sparse)
+        metrics = summary["validation_metrics"]
+        row = dict(phase="3g", run=name, rows=E2E_ROWS, validation_rows=val_rows,
+                   validation_write_s=val_write_s, validation_mb=val_mb, wall_s=time.perf_counter() - t0,
+                   timings_s=summary["timings_s"], iterations=summary["iterations"],
+                   auc={rw: m["Area under ROC"] for rw, m in metrics.items()},
+                   best_weight=summary["best_regularization_weight"], stages=summary["stages"],
+                   sparse_fused=sparse["sparse_fused"], sparse_matvec=sparse["sparse_matvec"],
+                   dense_launches=dense, peak_gib=mem["peak"])
+        log(json.dumps(row))
+        if not sparse["sparse_fused"] or not sparse["sparse_matvec"] or any(dense.values()) \
+                or summary["stages"][-1] != "VALIDATED" or not all(a > 0.5 for a in row["auc"].values()):
+            failures.append(f"{name}: {row}")
+
+    # The sweep by TRON with SIMPLE variances on the same layout: the
+    # Hessian-vector products compose X w and X^T u, the variances X^T u squared.
+    ds = read_e2e(root, "cuda")
+    data = LabeledData(ds.sparse_layout("g"), ds.labels, ds.offsets, ds.weights)
+    cfg = CoordinateOptimizationConfig(optimizer=OptimizerConfig(OptimizerType.TRON, 15, 1e-6),
+                                       regularization=L2, variance_computation=VarianceComputationType.SIMPLE)
+    t0 = time.perf_counter()
+    sweep, sparse, dense, _ = counted(torch, lambda: train_glm_sweep(
+        data, TaskType.LOGISTIC_REGRESSION, cfg, [10.0, 1.0]))
+    add(sparse)
+    variances = [m.coefficients.variances for m in sweep.models.values()]
+    row = dict(phase="3g", run="tron_simple_variances", wall_s=time.perf_counter() - t0, launches=sparse,
+               iterations={str(k): int(r.iterations) for k, r in sweep.results.items()},
+               fn_evals={str(k): int(r.fn_evals) for k, r in sweep.results.items()},
+               variances_finite_positive=all(bool(torch.isfinite(v).all() and (v > 0).all()) for v in variances))
+    log(json.dumps(row))
+    if not all(sparse[k] for k in ("sparse_fused", "sparse_matvec", "sparse_rmatvec")) \
+            or not row["variances_finite_positive"] or any(dense.values()):
+        failures.append(f"TRON sweep: {row}")
+    del ds, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("phase 3g failed: " + "; ".join(failures))
+    return launches
+
+
+A9A_TRAIN, A9A_TEST = 32561, 16281  # a9a's published split (123 features)
+A9A_CONSTRAINTS = [{"name": "1", "term": "", "lowerBound": -0.01, "upperBound": 0.01},
+                   {"name": "2", "term": "", "lowerBound": 0.0}]
+
+
+def glm_objective(csr, means: np.ndarray, l1: float, l2: float) -> float:
+    """The legacy model's objective in float64 on the host: logistic loss
+    of the rows, l1 |w|_1 and (l2 / 2) |w|^2."""
+    rows = np.repeat(np.arange(csr.num_rows), np.diff(csr.indptr))
+    z = np.bincount(rows, csr.values.astype(np.float64) * means[csr.indices], minlength=csr.num_rows)
+    y = csr.labels.astype(np.float64)
+    return float(np.sum(np.logaddexp(0.0, z) - y * z) + l1 * np.abs(means).sum()
+                 + 0.5 * l2 * (means ** 2).sum())
+
+
+def legacy_driver_small_phase(seed: int) -> dict:
+    """Phase 5g: cli.glm_driver at a9a's published size
+    (examples/generate_dataset.py, 32,561 + 16,281 rows, 123 features) with
+    --format LIBSVM, once with --coefficient-constraints and once with
+    ELASTIC_NET (alpha 0.5), each on the card and on the CPU, to tolerance
+    1e-10 (at the driver's 1e-7 the relative function-value test fires on
+    f32 noise, at iterations that differ with the summation order). The best
+    weight must be the same, each weight's AUC within "auc_atol", and each
+    model within "fe_coef_atol"; where the solver's stopping noise moves a
+    model past it, its objective (float64, host) within "re_objective_rtol"
+    of the CPU model's (the row says which held). The bound must hold
+    exactly. Returns the card runs' sparse launches."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import glm_driver
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.data.libsvm import read_libsvm
+    from photon_ml_tpu_torch.io import model_store
+
+    tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    failures, launches = [], {}
+    with tempfile.TemporaryDirectory(prefix="photon-a9a-") as root:
+        subprocess.run([sys.executable, str(Path(__file__).resolve().parent / "examples" / "generate_dataset.py"),
+                        root, "--train", str(A9A_TRAIN), "--test", str(A9A_TEST)],
+                       check=True, capture_output=True, timeout=300)
+        csr = read_libsvm(os.path.join(root, "train.libsvm"))
+        runs = {"constraints": ["--coefficient-constraints", json.dumps(A9A_CONSTRAINTS)],
+                "elastic_net": ["--regularization-type", "ELASTIC_NET", "--elastic-net-alpha", "0.5"]}
+        for name, extra in runs.items():
+            out, summaries = {}, {}
+            for device in ("cuda", "cpu"):
+                out[device] = os.path.join(root, f"{name}-{device}")
+                args = ["--training-data-directory", os.path.join(root, "train.libsvm"),
+                        "--validate-data-directory", os.path.join(root, "test.libsvm"),
+                        "--output-directory", out[device], "--format", "LIBSVM", "--device", device,
+                        "--tolerance", "1e-10", "--max-iterations", "500",
+                        "--logging-level", "WARNING", *extra]
+                t0 = time.perf_counter()
+                if device == "cuda":
+                    summaries[device], sparse, dense, _ = counted(torch, lambda: glm_driver.main(args))
+                    for k, v in sparse.items():
+                        launches[k] = launches.get(k, 0) + v
+                    if not sparse["sparse_fused"] or not sparse["sparse_matvec"] or any(dense.values()):
+                        failures.append(f"{name}: launches {sparse} / {dense}")
+                else:
+                    summaries[device] = glm_driver.main(args)
+                summaries[device]["wall_s"] = time.perf_counter() - t0
+            imap = IndexMap.load(os.path.join(out["cpu"], "feature-index.json"))
+            weights = summaries["cpu"]["regularization_weights"]
+            alpha = 0.5 if name == "elastic_net" else 0.0
+            per_weight = {}
+            for rw in weights:
+                m = {d: model_store.load_game_model(os.path.join(out[d], "models", str(rw)),
+                                                    {"global": imap}).coordinates["global"].means
+                     for d in ("cuda", "cpu")}
+                coef_err = float(np.abs(m["cuda"] - m["cpu"]).max())
+                f = {d: glm_objective(csr, np.asarray(m[d], np.float64), alpha * rw, (1 - alpha) * rw)
+                     for d in m}
+                gap = abs(f["cuda"] - f["cpu"]) / abs(f["cpu"])
+                auc = {d: summaries[d]["validation_metrics"][str(rw)]["Area under ROC"] for d in m}
+                held = "coefficients" if coef_err <= tol["fe_coef_atol"] else (
+                    "objective" if gap <= tol["re_objective_rtol"] else "neither")
+                per_weight[str(rw)] = dict(coef_err=coef_err, objective_rel_gap=gap, held=held,
+                                           auc_card=auc["cuda"], auc_cpu=auc["cpu"],
+                                           zeros_card=int((m["cuda"] == 0).sum()),
+                                           iterations_card=summaries["cuda"]["iterations"][str(rw)],
+                                           iterations_cpu=summaries["cpu"]["iterations"][str(rw)])
+                if held == "neither" or abs(auc["cuda"] - auc["cpu"]) > tol["auc_atol"]:
+                    failures.append(f"{name} weight {rw}: {per_weight[str(rw)]}")
+                if name == "constraints":
+                    w1 = m["cuda"][imap.get_index("1")]
+                    w2 = m["cuda"][imap.get_index("2")]
+                    if not (np.float32(-0.01) <= w1 <= np.float32(0.01) and w2 >= 0.0):
+                        failures.append(f"{name} weight {rw}: the box does not hold ({w1}, {w2})")
+            best = {d: summaries[d]["best_regularization_weight"] for d in ("cuda", "cpu")}
+            row = dict(phase="5g", run=name, seed=seed, rows=A9A_TRAIN, test_rows=A9A_TEST, best_weight=best,
+                       per_weight=per_weight, wall_s={d: summaries[d]["wall_s"] for d in best},
+                       timings_s_card=summaries["cuda"]["timings_s"], tol=tol)
+            log(json.dumps(row))
+            if best["cuda"] != best["cpu"]:
+                failures.append(f"{name}: best weight {best}")
+    if failures:
+        raise SystemExit("phase 5g failed: " + "; ".join(failures))
     return launches
 
 
@@ -2569,6 +3123,9 @@ def main(argv=None) -> int:
     # Where one GLMix sweep's device time goes (after the main path, so its
     # launches are not counted).
     log(json.dumps(dict(phase="4b", **profile_sweep(coords, glmix_s))))
+
+    # ---- phase 3o: OWLQN, the box and FULL variances on the dense fixed effect ----
+    launches3o = walled("phase 3o", optimizer_modes_phase, ds, cfg_f)
     del ds, red, fixed, rand, tron, coords, result, scores
     torch.cuda.empty_cache()
 
@@ -2586,23 +3143,20 @@ def main(argv=None) -> int:
 
     log(f"wall: phases 1-5 {time.perf_counter() - t_start:.1f} s")
 
-    def walled(name, fn, *a):
-        t = time.perf_counter()
-        out = fn(*a)
-        log(f"wall: {name} {time.perf_counter() - t:.1f} s")
-        return out
-
     # ---- phases 2s-5s: the sparse fixed effect ------------------------------------
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c", e2e_phases, args.seed, dev, bw, f32_rate)
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c, 3k, 5k, 3g", e2e_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phase 5f: small estimator fits, card vs CPU --------------------------------
     small_launches = walled("phase 5f", estimator_small_phase, args.seed + 51)
 
     # ---- phase 5c: run_glmix.sh's driver runs, card vs CPU ---------------------------
     driver_launches = walled("phase 5c", driver_small_phase, args.seed + 61)
+
+    # ---- phase 5g: the legacy driver at a9a's size, card vs CPU ----------------------
+    legacy_launches = walled("phase 5g", legacy_driver_small_phase, args.seed + 71)
 
     # ---- phases 2d-5d: data-parallel GLMix on ranks --------------------------------
     dist_rows, dist_launches = walled("phases 2d-5d", distributed_phases, args.seed, dev, arrays,
@@ -2615,10 +3169,10 @@ def main(argv=None) -> int:
     kernels = [
         dict(name=k, route="cuda", source=source, replaces=replaces[k],
              launches=(launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k]
-                       + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k]),
+                       + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k] + launches3o[k]),
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
                                 "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
-                                "5c": driver_launches["dense"][k]},
+                                "5c": driver_launches["dense"][k], "3o": launches3o[k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
@@ -2632,10 +3186,13 @@ def main(argv=None) -> int:
         dict(name=k, route="cuda", source=SPARSE_SOURCE, replaces=SPARSE_REPLACES[k],
              launches=(sparse_launches[k] + e2e_launches["3e"][k] + e2e_launches["3f"]["sparse"][k]
                        + small_launches["sparse"][k] + e2e_launches["3c"]["sparse"][k]
-                       + driver_launches["sparse"][k]),
+                       + driver_launches["sparse"][k] + e2e_launches["3k"][k] + e2e_launches["3g"][k]
+                       + legacy_launches[k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
                                 "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
-                                "3c": e2e_launches["3c"]["sparse"][k], "5c": driver_launches["sparse"][k]},
+                                "3c": e2e_launches["3c"]["sparse"][k], "5c": driver_launches["sparse"][k],
+                                "3k+5k+3o": e2e_launches["3k"][k], "3g": e2e_launches["3g"][k],
+                                "5g": legacy_launches[k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],

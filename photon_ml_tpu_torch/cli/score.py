@@ -48,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--root-output-directory", required=True)
     p.add_argument("--feature-shard-configurations", required=True, nargs="+", metavar="DSL")
     p.add_argument("--offheap-indexmap-dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 1, the PalDB index store); raises")
+                   help="not ported yet (ROADMAP Queue 1 item 4, the PalDB index store); raises")
     p.add_argument("--input-column-names", default=None,
                    help="Rename record fields (see the training driver)")
     p.add_argument("--input-data-date-range", default=None,
@@ -72,7 +72,7 @@ def run(args) -> Dict[str, object]:
     )
     if args.offheap_indexmap_dir:
         raise NotImplementedError("--offheap-indexmap-dir (the PalDB index store) is not ported "
-                                  "yet (ROADMAP Queue 1 item 1)")
+                                  "yet (ROADMAP Queue 1 item 4)")
     device = resolve_device(args.device)
     timings = TimingRegistry()
     shard_configs = dict(parse_feature_shard_config(s) for s in args.feature_shard_configurations)

@@ -50,11 +50,11 @@ from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator, GameResult, select_best_result
 from photon_ml_tpu_torch.evaluation.suite import EvaluatorType
 from photon_ml_tpu_torch.io import avro_data, model_bridge, model_store
+from photon_ml_tpu_torch.optimize.constraints import bounds_arrays, create_constraint_feature_map
 from photon_ml_tpu_torch.types import (
     DataValidationType,
     NormalizationType,
-    OptimizerType,
-    RegularizationType,
+    ProjectorType,
     TaskType,
     VarianceComputationType,
 )
@@ -129,7 +129,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--validation-evaluators", nargs="*", default=[],
                    help="e.g. AUC RMSE PRECISION@5:queryId AUC:documentId")
     p.add_argument("--offheap-indexmap-dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 1, the PalDB index store); raises")
+                   help="not ported yet (ROADMAP Queue 1 item 4, the PalDB index store); raises")
     p.add_argument("--model-input-directory", default=None,
                    help="warm-start / partial-retrain model directory")
     p.add_argument("--partial-retrain-locked-coordinates", default=None,
@@ -140,7 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-validation", type=lambda s: DataValidationType[s.strip().upper()],
                    default=DataValidationType.VALIDATE_FULL)
     p.add_argument("--checkpoint-directory", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 4); raises")
+                   help="checkpoint the coordinate descent after every update under "
+                        "<dir>/config-<i>/; a rerun resumes there")
     p.add_argument("--data-summary-directory", default=None,
                    help="Write per-feature-shard summary statistics as "
                         "FeatureSummarizationResultAvro under this directory")
@@ -181,10 +182,8 @@ def _refuse_unported(args, coordinate_configs: Dict[str, CoordinateConfiguration
 
     if args.hyper_parameter_tuning != HyperparameterTuningMode.NONE:
         refuse(f"--hyper-parameter-tuning {args.hyper_parameter_tuning.value}", "8")
-    if args.checkpoint_directory:
-        refuse("--checkpoint-directory", "4")
     if args.offheap_indexmap_dir:
-        refuse("--offheap-indexmap-dir (the PalDB index store)", "1")
+        refuse("--offheap-indexmap-dir (the PalDB index store)", "4")
     if (args.multihost or args.multihost_devices_per_host is not None or args.mh_worker
             or any(v is not None for v in (args.mh_attempt, args.mh_coordinator,
                                            args.mh_num_hosts, args.mh_host_id,
@@ -192,15 +191,6 @@ def _refuse_unported(args, coordinate_configs: Dict[str, CoordinateConfiguration
         refuse("multi-host training (--multihost, --mh-*)", "9")
     if args.profile:
         refuse("--profile", "10")
-    if args.variance_computation_type == VarianceComputationType.FULL:
-        refuse("--variance-computation-type FULL", "5")
-    for cfg in coordinate_configs.values():
-        if cfg.constraint_file:
-            refuse(f"coordinate {cfg.name!r}: constraints.file", "5")
-        oc = cfg.opt_config
-        if oc.optimizer.optimizer_type in (OptimizerType.OWLQN, OptimizerType.LBFGSB) or \
-                oc.regularization.reg_type in (RegularizationType.L1, RegularizationType.ELASTIC_NET):
-            refuse(f"coordinate {cfg.name!r}: OWLQN / L1 / elastic net", "5")
 
 
 def _read_data(args, coordinate_configs: Dict[str, CoordinateConfiguration], device):
@@ -227,6 +217,38 @@ def _read_data(args, coordinate_configs: Dict[str, CoordinateConfiguration], dev
             paths_for_date_range(args.validation_data_directories, val_range), shard_configs,
             index_maps=index_maps, id_tag_fields=id_tags, columns=columns, device=device)
     return train, validation, index_maps
+
+
+def _apply_constraints(args, coordinate_configs: Dict[str, CoordinateConfiguration],
+                       index_maps) -> None:
+    """constraints.file in the coordinate DSL: the JSON constraint string
+    resolved against the shard's index map (optimize/constraints.py) into
+    the (lower, upper) vectors of the coordinate's projected L-BFGS. The
+    bounds are per original feature, so normalization (the optimizer works
+    in normalized space) and a random effect whose projector is not
+    IDENTITY are refused, as the JAX driver refuses them."""
+    for cfg in coordinate_configs.values():
+        if not cfg.constraint_file:
+            continue
+        if args.normalization != NormalizationType.NONE:
+            raise ValueError(
+                f"coordinate {cfg.name!r}: box constraints cannot combine "
+                "with --normalization (bounds apply in original feature "
+                "space; the optimizer works in normalized space)")
+        dc_cfg = cfg.data_config
+        if isinstance(dc_cfg, RandomEffectDataConfig) and dc_cfg.projector_type != ProjectorType.IDENTITY:
+            raise ValueError(
+                f"coordinate {cfg.name!r}: box constraints require the "
+                "IDENTITY projector (bounds are per global feature index)")
+        imap = index_maps[dc_cfg.feature_shard]
+        with open(cfg.constraint_file) as f:
+            cmap = create_constraint_feature_map(f.read(), imap)
+        box = bounds_arrays(cmap, imap.size)
+        if box is not None:
+            cfg.opt_config = dataclasses.replace(
+                cfg.opt_config,
+                optimizer=dataclasses.replace(cfg.opt_config.optimizer, box_constraints=box))
+            logger.info("coordinate %s: box constraints on %d feature(s)", cfg.name, len(cmap))
 
 
 def run(args) -> Dict[str, object]:
@@ -299,6 +321,8 @@ def _run_job(args, coordinate_configs, device, out_root: str, models_root: str) 
             cfg.opt_config = dataclasses.replace(
                 cfg.opt_config, variance_computation=args.variance_computation_type)
 
+    _apply_constraints(args, coordinate_configs, index_maps)
+
     estimator = GameEstimator(
         args.training_task,
         {cid: c.data_config for cid, c in coordinate_configs.items()},
@@ -310,6 +334,7 @@ def _run_job(args, coordinate_configs, device, out_root: str, models_root: str) 
         intercept_indices={shard: imap.intercept_index for shard, imap in index_maps.items()
                            if imap.intercept_index is not None},
         seed=args.random_seed,
+        checkpoint_dir=args.checkpoint_directory,
     )
 
     # Warm start / partial retrain (GameTrainingDriver.scala:370-409).

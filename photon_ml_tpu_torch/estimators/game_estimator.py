@@ -21,14 +21,19 @@ Port of `photon_ml_tpu/estimators/game_estimator.py`:
     `re_path` (the assembly runs on the dataset's device, so `re_host_s`
     is 0.0), and `diverged_steps`.
 
-Coordinates are cached by (coordinate, configuration without its
-regularization weight) and take each configuration's weight at train time,
-so configurations that differ only in weights share coordinates.
+Coordinates are cached by (coordinate, `static_config_key` of the
+configuration: everything but its regularization weight, box constraints
+by their bytes) and take each configuration's weight at train time, so
+configurations that differ only in weights share coordinates.
+
+`checkpoint_dir` checkpoints each configuration's coordinate descent under
+`<checkpoint_dir>/config-<i>/` (game/checkpoint.py), as the JAX estimator
+does; a rerun of the same fit resumes there.
 
 Not ported yet: the sweep executor and its shard-group factory, the run
-profile with the planner, telemetry spans and the event emitter,
-checkpointing, the prepare thread pool (which moves only when host work
-runs) and the bucketed pack's placement keys (the port has no such pack).
+profile with the planner, telemetry spans and the event emitter, the
+prepare thread pool (which moves only when host work runs) and the
+bucketed pack's placement keys (the port has no such pack).
 """
 
 from __future__ import annotations
@@ -64,7 +69,7 @@ from photon_ml_tpu_torch.ops.normalization import (
     from_feature_stats,
     project_normalization,
 )
-from photon_ml_tpu_torch.optimize.config import CoordinateOptimizationConfig
+from photon_ml_tpu_torch.optimize.config import CoordinateOptimizationConfig, static_config_key
 from photon_ml_tpu_torch.timing import StageTimes
 from photon_ml_tpu_torch.transformers.game_transformer import (
     CoordinateScoringSpec,
@@ -120,6 +125,7 @@ class GameEstimator:
         locked_coordinates: Optional[Set[str]] = None,
         intercept_indices: Optional[Mapping[str, int]] = None,
         seed: int = 0,
+        checkpoint_dir: Optional[str] = None,
     ):
         self.task = task
         self.data_configs = dict(coordinate_data_configs)
@@ -136,6 +142,8 @@ class GameEstimator:
         self.locked = set(locked_coordinates or ())
         self.intercept_indices = dict(intercept_indices or {})
         self.seed = seed
+        # Each configuration checkpoints under <checkpoint_dir>/config-<i>/.
+        self.checkpoint_dir = checkpoint_dir
         # Prepare-stage walls, accumulated over prepare and coordinate builds.
         self.times = StageTimes()
         self._prepared: Optional[Dict[str, _PreparedCoordinate]] = None
@@ -226,10 +234,10 @@ class GameEstimator:
         """The coordinate of (cid, configuration without its weight), built
         once; its construction (a sparse shard's layout, a bf16 copy) is the
         `compile` stage."""
-        static_cfg = dataclasses.replace(opt_config, reg_weight=0.0)
-        key = (cid, static_cfg)
+        key = (cid, static_config_key(opt_config))
         coord = self._coordinate_cache.get(key)
         if coord is None:
+            static_cfg = dataclasses.replace(opt_config, reg_weight=0.0)
             with self.times.stage("compile", dataset.device):
                 if prep.re_dataset is not None:
                     coord = RandomEffectCoordinate(dataset, prep.re_dataset, static_cfg, self.task,
@@ -345,6 +353,8 @@ class GameEstimator:
                 validation_offsets=None if validation_data is None else validation_data.offsets,
                 reg_weights={cid: cfgs[cid].reg_weight for cid in cfgs},
                 seed=self.seed + ci,
+                checkpoint_dir=(None if self.checkpoint_dir is None
+                                else f"{self.checkpoint_dir}/config-{ci}"),
             )
             evaluation = None
             if suite is not None:

@@ -10,10 +10,13 @@ Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
     per pass). A sparse shard trains and scores on its sparse layout
     (data/sparse_layout.py), built once per dataset and cached there; on
     the card that is the sparse CUDA kernels, with no size or padding gate.
-    SIMPLE coefficient variances are computed after the solve when the
-    config asks for them. A `down_sampling_rate` below 1 solves on weights
-    down-sampled from the generator the caller passes (data/sampling.py);
-    the variances use the full weights, as in the reference.
+    SIMPLE or FULL coefficient variances are computed after the solve when
+    the config asks for them (FULL forms the D x D Hessian over row chunks).
+    The optimizer is the config's: L-BFGS, OWLQN (L1, elastic net), with a
+    box when the config carries one, or TRON (optimize/problem.py). A
+    `down_sampling_rate` below 1 solves on weights down-sampled from the
+    generator the caller passes (data/sampling.py); the variances use the
+    full weights, as in the reference.
   * RandomEffectCoordinate: the per-bucket loop. Each bucket of entities is
     one batched L-BFGS/TRON call over its (E, S, D) block, warm-started from
     the previous coefficient matrix rows, on the plain batched objective
@@ -24,7 +27,8 @@ Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
     feature mask multiplies each lane's features in the gather; a
     per-entity normalization (a projected shard's) gives each lane its own
     (factors, shifts) row; SIMPLE variances are one more batched pass per
-    bucket, one lane per entity.
+    bucket, one lane per entity, and FULL variances a batched Cholesky per
+    chunk of lanes.
 
 On a dataset sharded over ranks (parallel/mesh.py), both coordinates work
 on this rank's rows. The fixed effect's coefficients are replicated: its
@@ -36,8 +40,8 @@ zero row (the counterpart of the row-sharded store of the JAX package's
 coordinate.py:752-790); `gather_model` assembles the global (E + 1, D)
 matrix.
 
-Not ported yet: the scan-dispatched sweep, the planner's fusion chunks,
-fault/retry sites and FULL variances. A random effect does not down-sample
+Not ported yet: the scan-dispatched sweep, the planner's fusion chunks and
+the fault/retry sites. A random effect does not down-sample
 (the reference's random-effect coordinate takes no sampling key).
 """
 

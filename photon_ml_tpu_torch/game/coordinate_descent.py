@@ -17,23 +17,36 @@ coordinate c is (summed scores - c's previous scores), three elementwise ops:
   * `reg_weights` overrides coordinates' regularization weights (the
     estimator's configurations share coordinates); a down-sampled fixed
     effect draws a fresh sample per update from a generator seeded by
-    (`seed`, update step), so a rerun draws the same samples.
+    (`seed`, update step), so a rerun draws the same samples;
+  * `checkpoint_dir` checkpoints the loop after every update
+    (game/checkpoint.py) and a rerun resumes from it: it skips the
+    completed steps, recomputes the scores from the saved models and takes
+    the best models, best results and validation history from the
+    checkpoint. The run's fingerprint (`run_config_key`) is the JAX
+    package's, hashed the same way, so either package resumes the other's
+    checkpoint; a checkpoint of another configuration is refused
+    (`stale_checkpoint="error"`) or cleared (`"discard"`), and one written
+    with another seed is refused.
 
-Checkpoint/resume, the mesh-loss recovery, prefetch and telemetry are not
-ported yet.
+The mesh-loss recovery, prefetch, the background checkpoint write and
+telemetry are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import time
 from typing import Dict, List, Mapping, Optional, Set, Tuple
 
 import torch
 
+from photon_ml_tpu_torch.data.containers import SparseFeatures
 from photon_ml_tpu_torch.evaluation.suite import EvaluationResults, EvaluationSuite
+from photon_ml_tpu_torch.game.checkpoint import CoordinateDescentCheckpoint
 from photon_ml_tpu_torch.game.model import GameModel
+from photon_ml_tpu_torch.optimize.config import static_config_key
 
 logger = logging.getLogger(__name__)
 
@@ -71,6 +84,35 @@ def gather_game_model(coordinates: Mapping[str, object], model: GameModel) -> Ga
     return GameModel({cid: coordinates[cid].gather_model(m) for cid, m in model.models.items()})
 
 
+def _shard_identity(feats) -> tuple:
+    if isinstance(feats, SparseFeatures):
+        return ("sparse", tuple(int(s) for s in feats.indices.shape), feats.dim)
+    return ("dense", tuple(int(s) for s in feats.shape))
+
+
+def run_config_key(coordinates: Mapping[str, object], locked: Set[str],
+                   reg_weights: Optional[Mapping[str, float]]) -> str:
+    """The run's fingerprint, built as the JAX package builds it: the ids,
+    the locked ids, each config's static key, each effective weight, and
+    each dataset's sample count and shard shapes, as the sha256 of their
+    repr. A resume under another fingerprint is refused."""
+    ids = list(coordinates.keys())
+    fp = (
+        tuple(ids),
+        tuple(sorted(locked)),
+        tuple(static_config_key(coordinates[c].config) for c in ids),
+        tuple((c, float((reg_weights or {}).get(c, coordinates[c].config.reg_weight)))
+              for c in ids),
+        tuple(
+            (c, coordinates[c].dataset.num_samples,
+             tuple(sorted((name, _shard_identity(f))
+                          for name, f in coordinates[c].dataset.shards.items())))
+            for c in ids
+        ),
+    )
+    return hashlib.sha256(repr(fp).encode()).hexdigest()
+
+
 def run_coordinate_descent(
     coordinates: Mapping[str, object],
     num_iterations: int,
@@ -82,10 +124,17 @@ def run_coordinate_descent(
     validation_offsets: Optional[torch.Tensor] = None,
     reg_weights: Optional[Mapping[str, float]] = None,
     seed: int = 0,
+    checkpoint_dir: Optional[str] = None,
+    stale_checkpoint: str = "error",
 ) -> CoordinateDescentResult:
     """`coordinates`: ordered id -> Fixed/RandomEffectCoordinate.
     `validation_scorer(cid, model) -> scores` scores one coordinate's model
-    on the validation set; the suite evaluates the summed scores."""
+    on the validation set; the suite evaluates the summed scores.
+    `checkpoint_dir` saves after every update and resumes from what is
+    there; `stale_checkpoint` ("error" or "discard") is the policy for a
+    checkpoint of another configuration."""
+    if stale_checkpoint not in ("error", "discard"):
+        raise ValueError(f"stale_checkpoint must be 'error' or 'discard', got {stale_checkpoint!r}")
     locked = locked_coordinates or set()
     ids = list(coordinates.keys())
     unlocked = [c for c in ids if c not in locked]
@@ -110,6 +159,33 @@ def run_coordinate_descent(
     validation_history: List[Tuple[int, str, EvaluationResults]] = []
     best_results: Optional[EvaluationResults] = None
     best_models: Dict[str, object] = dict(models)
+    completed_steps = 0
+
+    ckpt = None
+    ckpt_config_key = None
+    if checkpoint_dir is not None:
+        if mesh is not None:
+            raise NotImplementedError("checkpoints of a fit on ranks (sharded checkpoints) are not "
+                                      "ported yet (ROADMAP Queue 1 item 9)")
+        ckpt_config_key = run_config_key(coordinates, locked, reg_weights)
+        ckpt = CoordinateDescentCheckpoint(checkpoint_dir)
+        if (stale_checkpoint == "discard" and ckpt.exists()
+                and ckpt.stored_config_key() != ckpt_config_key):
+            logger.info("checkpoint at %s was written for a different run configuration — "
+                        "discarding and starting fresh", checkpoint_dir)
+            ckpt.clear()
+        if ckpt.exists():
+            state = ckpt.load(first.task, config_key=ckpt_config_key, device=base_offsets.device)
+            if state.seed != seed:
+                raise ValueError(f"checkpoint at {checkpoint_dir} was written with seed "
+                                 f"{state.seed}, not {seed} — refusing to resume")
+            models = state.models
+            best_models = state.best_models or dict(models)
+            best_results = state.best_results
+            validation_history = list(state.validation_history)
+            completed_steps = state.completed_steps
+            logger.info("resuming coordinate descent from %s at step %d", checkpoint_dir,
+                        completed_steps)
 
     scores: Dict[str, torch.Tensor] = {}
     summed = zeros()
@@ -124,12 +200,18 @@ def run_coordinate_descent(
             if cid in models:
                 val_scores[cid] = validation_scorer(cid, models[cid])
 
-    pass_results: Optional[EvaluationResults] = None
+    # On resume, the last results of the history stand where the
+    # uninterrupted run's last evaluation stood.
+    pass_results: Optional[EvaluationResults] = (
+        validation_history[-1][2] if validation_history else None)
     last_unlocked = unlocked[-1]
     for it in range(num_iterations):
         for ci, cid in enumerate(ids):
             if cid in locked:
                 continue
+            step = it * len(ids) + ci
+            if step < completed_steps:
+                continue  # done before the checkpoint
             coord = coordinates[cid]
             t0 = time.perf_counter()
             residual = summed - scores.get(cid, zeros())
@@ -138,7 +220,6 @@ def run_coordinate_descent(
             if reg_weights and cid in reg_weights:
                 kwargs["reg_weight"] = reg_weights[cid]
             if coord.config.down_sampling_rate < 1.0:
-                step = it * len(ids) + ci
                 # The CPU generator keeps 32 bits of its seed: mix (seed, step) into them.
                 kwargs["generator"] = torch.Generator(device=base_offsets.device).manual_seed(
                     (int(seed) * 0x9E3779B1 + step) % (1 << 32))
@@ -166,6 +247,7 @@ def run_coordinate_descent(
                 results = validation_suite.evaluate(total)
                 validation_history.append((it, cid, results))
                 pass_results = results
+            best_updated = False
             if (
                 cid == last_unlocked
                 and pass_results is not None
@@ -173,6 +255,13 @@ def run_coordinate_descent(
             ):
                 best_results = pass_results
                 best_models = dict(models)
+                best_updated = True
+            if ckpt is not None:
+                # A rejected update advances the cursor but writes no model.
+                ckpt.save(completed_steps=step + 1, seed=seed, config_key=ckpt_config_key,
+                          models=models, trained_cid=cid if accepted else None,
+                          best_is_current=best_updated, best_results=best_results,
+                          validation_history=validation_history)
 
     final = GameModel(dict(models))
     best = GameModel(dict(best_models)) if best_results is not None else final

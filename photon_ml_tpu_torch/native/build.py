@@ -1,8 +1,9 @@
-"""Build and load the port's native Avro library with g++.
+"""Build and load the port's native library with g++.
 
-`avro_reader.cc` (the block decoder) and `avro_writer.cc` (the columnar
-TrainingExampleAvro writer) compile together, at first use, into one shared
-library in `photon_ml_tpu_torch/_build/`, named by a hash of the sources
+`avro_reader.cc` (the Avro block decoder), `avro_writer.cc` (the columnar
+TrainingExampleAvro writer) and `libsvm_parser.cc` (the LibSVM text parser)
+compile together, at first use, into one shared library in
+`photon_ml_tpu_torch/_build/`, named by a hash of the sources
 and of the build variant, so an edited source is rebuilt and a stale
 library is never loaded. Each process compiles into a temporary file of its
 own and moves it into place with `os.replace`, so concurrent first builds
@@ -28,7 +29,7 @@ from typing import List, Optional
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "_build"
-SOURCES = ("avro_reader.cc", "avro_writer.cc")
+SOURCES = ("avro_reader.cc", "avro_writer.cc", "libsvm_parser.cc")
 CXX_FLAGS = ("-O2", "-std=c++17", "-pthread", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
@@ -55,7 +56,7 @@ def library_path(with_zlib: bool) -> Path:
         digest.update((_DIR / name).read_bytes())
     digest.update(" ".join(CXX_FLAGS).encode())
     variant = "" if with_zlib else "-nozlib"
-    return BUILD_DIR / f"libphoton_avro-{digest.hexdigest()[:16]}{variant}.so"
+    return BUILD_DIR / f"libphoton_native-{digest.hexdigest()[:16]}{variant}.so"
 
 
 def build_library() -> Path:
@@ -79,7 +80,7 @@ def build_library() -> Path:
 
 
 def load_native() -> ctypes.CDLL:
-    """The process-wide handle of the native Avro library, built on demand.
+    """The process-wide handle of the native library, built on demand.
     Binding modules declare their own symbol signatures on it."""
     global _CDLL
     with _LOCK:

@@ -39,7 +39,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures
+from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures, ell_block_to_dense
 from photon_ml_tpu_torch.data.sparse_layout import SparseLayout
 from photon_ml_tpu_torch.ops import glm_kernels, sparse_kernels
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
@@ -222,3 +222,76 @@ def hessian_diagonal(
     if norm is not None and norm.factors is not None:
         diag = diag * norm.factors * norm.factors
     return diag + l2
+
+
+# The most bytes of densified rows `hessian_matrix` holds at a time (a row
+# chunk of a single problem, or a lane chunk's (lanes, S, D) block and its
+# (lanes, D, D) products in `optimize/problem.compute_variances`).
+HESSIAN_CHUNK_BYTES = 1 << 28
+
+
+def _dense_rows(features, r0: int, r1: int, dtype: torch.dtype) -> Tensor:
+    """Rows [r0, r1) of a single problem's features as a dense (r1 - r0, D)
+    matrix: a slice of a dense X, an ELL slice made dense, or a sparse
+    layout's CSR entries of those rows written into zeros (the layout holds
+    no (row, col) pair twice, so every cell is written at most once)."""
+    if isinstance(features, SparseLayout):
+        e0, e1 = int(features.row_ptr[r0]), int(features.row_ptr[r1])
+        lengths = features.row_ptr[r0 + 1:r1 + 1] - features.row_ptr[r0:r1]
+        rows = torch.repeat_interleave(torch.arange(r1 - r0, device=lengths.device), lengths)
+        dense = torch.zeros((r1 - r0, features.dim), dtype=dtype, device=features.device)
+        dense[rows, features.col_idx[e0:e1].long()] = features.row_val[e0:e1].to(dtype)
+        return dense
+    if isinstance(features, SparseFeatures):
+        block = SparseFeatures(features.indices[r0:r1], features.values[r0:r1], features.dim)
+        return ell_block_to_dense(block).to(dtype)
+    return features[r0:r1].to(dtype)
+
+
+def hessian_matrix(
+    loss: PointwiseLoss,
+    w: Tensor,
+    data: LabeledData,
+    norm: Optional[NormalizationContext] = None,
+    l2: L2 = 0.0,
+) -> Tensor:
+    """The full D x D Hessian (FULL variances), the JAX package's
+    `hessian_matrix`: H = F ((X - s) o c)^T (X - s) F + l2 I, c = weight l''.
+
+    A single problem (w (D,)) forms H over row chunks of at most
+    HESSIAN_CHUNK_BYTES densified at a time, summed in chunk order (the JAX
+    package densifies the whole shard); a sparse shard's margins go through
+    `_matvec` (on a layout on the card, the X w kernel), a dense matrix's
+    through each chunk as it is made (a bf16 X is never widened whole).
+    Batched lanes (w (B, D) over dense (B, S, D) blocks) form their
+    (B, D, D) products at once, so the caller bounds B."""
+    w_eff, shift = _eff(w, norm)
+    shifts = None if norm is None else norm.shifts
+
+    def curvature(z: Tensor, rows=slice(None)) -> Tensor:  # c = weight l''(z)
+        return data.weights[..., rows] * loss.d2(z + shift[..., None] + data.offsets[..., rows],
+                                                 data.labels[..., rows])
+
+    if w.ndim == 1:
+        n, dim = data.features.shape[-2], w.shape[-1]
+        dense = isinstance(data.features, Tensor)
+        c = None if dense else curvature(_matvec(data.features, w_eff))
+        step = max(1, HESSIAN_CHUNK_BYTES // (dim * w.element_size()))
+        H = torch.zeros((dim, dim), dtype=w.dtype, device=w.device)
+        for r0 in range(0, n, step):
+            r1 = min(n, r0 + step)
+            X = _dense_rows(data.features, r0, r1, w.dtype)
+            c_rows = curvature(X @ w_eff, slice(r0, r1)) if dense else c[r0:r1]
+            if shifts is not None:
+                X = X - shifts
+            H += (X * c_rows[:, None]).T @ X
+        (H,) = over_ranks(data.mesh, H)
+    else:
+        X = data.features.to(w.dtype)
+        c = curvature(torch.einsum("...nd,...d->...n", X, w_eff))
+        if shifts is not None:
+            X = X - shifts[..., None, :]
+        H = torch.einsum("...nd,...n,...ne->...de", X, c, X)
+    if norm is not None and norm.factors is not None:
+        H = H * norm.factors[..., :, None] * norm.factors[..., None, :]
+    return H + l2 * torch.eye(w.shape[-1], dtype=w.dtype, device=w.device)

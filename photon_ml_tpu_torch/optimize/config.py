@@ -7,6 +7,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
+
 from photon_ml_tpu_torch.types import (
     OptimizerType,
     RegularizationType,
@@ -52,11 +54,38 @@ L1 = RegularizationContext(RegularizationType.L1)
 NO_REG = RegularizationContext(RegularizationType.NONE)
 
 
+def static_config_key(cfg: "CoordinateOptimizationConfig") -> Tuple:
+    """Structural key over the parts of a coordinate config other than its
+    regularization weight, the JAX package's: box-constraint arrays key by
+    shape, dtype and bytes (their repr elides). The estimator's coordinate
+    cache and the checkpoint fingerprint use it."""
+    opt = cfg.optimizer
+    box_key = None
+    if opt.box_constraints is not None:
+        lo = np.asarray(opt.box_constraints[0])
+        up = np.asarray(opt.box_constraints[1])
+        box_key = (
+            lo.shape, str(lo.dtype), lo.tobytes(),
+            up.shape, str(up.dtype), up.tobytes(),
+        )
+    return (
+        opt.optimizer_type,
+        opt.max_iterations,
+        opt.tolerance,
+        box_key,
+        cfg.regularization.reg_type,
+        cfg.regularization.elastic_net_alpha,
+        cfg.down_sampling_rate,
+        cfg.variance_computation,
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     optimizer_type: OptimizerType = OptimizerType.LBFGS
     max_iterations: int = 100
     tolerance: float = 1e-7
+    # (lower, upper) per-feature host arrays (optimize/constraints.py).
     box_constraints: Optional[Tuple[object, object]] = None
 
     def validate(self, reg: RegularizationContext) -> None:
@@ -72,8 +101,8 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CoordinateOptimizationConfig:
-    """Per-coordinate optimization settings. `down_sampling_rate` < 1 is
-    accepted by the configuration but not ported yet (the coordinates raise)."""
+    """Per-coordinate optimization settings. `down_sampling_rate` < 1 applies
+    to fixed effects only (a random-effect coordinate refuses it)."""
 
     optimizer: OptimizerConfig = OptimizerConfig()
     regularization: RegularizationContext = NO_REG

@@ -56,7 +56,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "game.projector", "estimators.game_estimator", "evaluation.suite",
                  "io.model_store", "io.model_bridge", "io.score_store", "cli.config", "cli.train",
                  "cli.score", "cli.libsvm_to_avro", "data.libsvm", "data.validators",
-                 "utils.date_range", "utils.observability"):
+                 "utils.date_range", "utils.observability", "optimize.constraints",
+                 "game.checkpoint", "native.libsvm_parser", "models.glm", "models.training",
+                 "evaluation.legacy", "cli.glm_driver"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = _BLOCK_JAX + textwrap.dedent(
         """
@@ -74,6 +76,51 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(modules)}" in proc.stdout
+
+
+def test_the_legacy_driver_and_a_checkpointed_fit_run_with_jax_blocked(tmp_path):
+    """The new paths run, not just import, where jax cannot be imported: the
+    LibSVM reader through the native parser, the legacy driver with an
+    elastic-net sweep, and a coordinate descent that checkpoints and
+    resumes."""
+    (tmp_path / "train.libsvm").write_text("".join(
+        f"{1 if i % 3 else -1} {1 + i % 5}:1 {6 + i % 4}:0.5\n" for i in range(60)))
+    script = _BLOCK_JAX + textwrap.dedent(
+        """
+        import torch
+        from photon_ml_tpu_torch.cli import glm_driver
+        from photon_ml_tpu_torch.data.game_dataset import (
+            GameDataset, RandomEffectDataConfig, build_random_effect_dataset)
+        from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
+        from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+        from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig
+        from photon_ml_tpu_torch.types import TaskType
+
+        root = sys.argv[1]
+        s = glm_driver.main(["--training-data-directory", root + "/train.libsvm", "--format", "LIBSVM",
+                             "--output-directory", root + "/out", "--regularization-type", "ELASTIC_NET",
+                             "--elastic-net-alpha", "0.5", "--device", "cpu", "--logging-level", "ERROR"])
+        assert s["stages"] == ["INIT", "PREPROCESSED", "TRAINED"], s
+        g = torch.Generator().manual_seed(0)
+        ds = GameDataset.build({"x": torch.randn(64, 3, generator=g)}, (torch.rand(64, generator=g) > 0.5).float(),
+                               id_tags={"u": torch.arange(64) % 4}, device="cpu")
+        cfg = CoordinateOptimizationConfig(regularization=L2, reg_weight=1.0)
+        red = build_random_effect_dataset(ds, RandomEffectDataConfig("u", "x", min_bucket=4))
+        coords = lambda: {"f": FixedEffectCoordinate(ds, "x", cfg, TaskType.LOGISTIC_REGRESSION),
+                          "r": RandomEffectCoordinate(ds, red, cfg, TaskType.LOGISTIC_REGRESSION)}
+        run_coordinate_descent(coords(), 1, checkpoint_dir=root + "/ck")
+        resumed = run_coordinate_descent(coords(), 2, checkpoint_dir=root + "/ck")
+        straight = run_coordinate_descent(coords(), 2)
+        assert torch.allclose(resumed.model["f"].coefficients.means, straight.model["f"].coefficients.means,
+                              rtol=1e-6, atol=1e-7)
+        print("ran")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], capture_output=True, text=True,
+                          cwd=str(REPO), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "ran" in proc.stdout
 
 
 def test_port_sources_never_name_the_jax_package():
@@ -98,7 +145,7 @@ def test_cuda_is_the_default_and_is_never_swapped_for_the_cpu(monkeypatch):
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("driver", ["train", "score", "libsvm_to_avro"])
+@pytest.mark.parametrize("driver", ["train", "score", "libsvm_to_avro", "glm_driver"])
 def test_each_driver_prints_its_help_with_jax_blocked(driver):
     script = _BLOCK_JAX + textwrap.dedent(
         """

@@ -177,12 +177,19 @@ def test_problem_solve_matches_jax(opt):
 
 
 def test_solve_refuses_what_is_not_ported():
-    data = dense_data(np.ones((4, 2), np.float32), np.ones(4, np.float32), device="cpu")
-    for cfg in (
-        config.CoordinateOptimizationConfig(regularization=config.L1, reg_weight=1.0),
-        config.CoordinateOptimizationConfig(
-            optimizer=config.OptimizerConfig(box_constraints=(np.zeros(2), np.ones(2)))
-        ),
+    """L1 (OWLQN) and box-constrained L-BFGS were refused until they were
+    ported; both now solve as the JAX `solve` does."""
+    X, y = _logistic(5, n=200, d=4)
+    box = (np.full(4, -0.1, np.float32), np.full(4, 0.1, np.float32))
+    for kwargs, jkwargs in (
+        (dict(regularization=config.L1, reg_weight=1.0),
+         dict(regularization=jax_config.L1, reg_weight=1.0)),
+        (dict(optimizer=config.OptimizerConfig(box_constraints=box)),
+         dict(optimizer=jax_config.OptimizerConfig(box_constraints=box))),
     ):
-        with pytest.raises(NotImplementedError):
-            problem.solve(losses.LOGISTIC, data, cfg, torch.zeros(2))
+        ref = jax_problem.solve(jax_losses.LOGISTIC, jax_dense_data(X, y),
+                                jax_config.CoordinateOptimizationConfig(**jkwargs),
+                                jnp.zeros(4, jnp.float32), use_pallas=False)
+        res = problem.solve(losses.LOGISTIC, dense_data(X, y, device="cpu"),
+                            config.CoordinateOptimizationConfig(**kwargs), torch.zeros(4))
+        _assert_same_solve(res, ref)

@@ -217,9 +217,20 @@ def test_variances_are_inf_where_the_hessian_diagonal_is_zero():
     cfg = config.CoordinateOptimizationConfig(variance_computation=VarianceComputationType.SIMPLE)
     var = problem.compute_variances(losses.LOGISTIC, data, cfg, torch.zeros(3))
     assert torch.isinf(var[2]) and torch.all(torch.isfinite(var[:2]))
+    # FULL variances (ported since): the Hessian is singular there, and
+    # diag(H^-1) is NaN throughout, as the JAX package's Cholesky gives it.
+    from photon_ml_tpu.ops import losses as jax_losses
+    from photon_ml_tpu.optimize import problem as jax_problem
+
     full = config.CoordinateOptimizationConfig(variance_computation=VarianceComputationType.FULL)
-    with pytest.raises(NotImplementedError):
-        problem.compute_variances(losses.LOGISTIC, data, full, torch.zeros(3))
+    jdata = jax_containers.LabeledData(
+        jax_containers.SparseFeatures(jnp.asarray([[0, 1], [1, 0]], jnp.int32), jnp.ones((2, 2)), 3),
+        jnp.asarray([1.0, 0.0]), jnp.zeros(2), jnp.ones(2))
+    jvar = jax_problem.compute_variances(
+        jax_losses.LOGISTIC, jdata,
+        jax_config.CoordinateOptimizationConfig(variance_computation=JaxVariance.FULL), jnp.zeros(3))
+    full_var = problem.compute_variances(losses.LOGISTIC, data, full, torch.zeros(3))
+    assert torch.isnan(full_var).all() and np.isnan(np.asarray(jvar)).all()
     assert problem.compute_variances(losses.LOGISTIC, data, config.CoordinateOptimizationConfig(),
                                      torch.zeros(3)) is None
 
