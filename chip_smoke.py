@@ -186,6 +186,39 @@ The optimizers' other modes, checkpoint-restart and the legacy driver:
    PORT_TOLERANCES["card_vs_cpu_glmix"]: each weight's model (coefficients,
    or where stopping noise moves them, the objective), AUC, the best weight.
 
+The off-heap index stores and hyperparameter tuning, on phase 3e's files
+(after 3g, before they are deleted):
+
+3x. cli.build_index on the training files three times (PHIDX with 1 and 8
+   partitions, PalDB with 4; each through the port's own code), then phase
+   3c's cli.train and cli.score command lines with --offheap-indexmap-dir
+   for each store: build_index seconds, store MiB and both drivers'
+   `timings_s`. The store numbers the features in its own order
+   ((INTERCEPT) first, where 3c's in-memory map puts it last), so each
+   model must equal 3c's by feature name within
+   PORT_TOLERANCES["offheap_index"]: bit-equal where the ids are 3c's,
+   else on the coefficients or, for a random-effect lane that f32 rounding
+   moved past them (the cell's REs stop unconverged after 5 iterations),
+   on each entity's objective at 3c's offsets (float64, on the card, on a
+   new read of the files); the scoring AUC within its "auc_atol" (the row
+   prints the largest score difference beside it); sparse_fused in train
+   and sparse_matvec in score, no dense kernel.
+3x-scale. On the host: a PHIDX store of 4,194,304 synthetic name\x01term
+   keys in 8 partitions (build seconds, a get_index sweep of every key and
+   a get_feature_name sweep of every id, in keys a second, MiB on disk);
+   then PalDB at 262,144 keys in 4 partitions, the cut its pure-Python
+   writer and loader force. Every id must come back once, and names must
+   round-trip.
+3t. cli.train on the training files with 3g's 1,000,000-row validation
+   file, output mode ALL and --hyper-parameter-tuning RANDOM then
+   BAYESIAN, 4 trials each (--random-seed 0): each trial's weights,
+   validation AUC, fit seconds and launches, and the seconds of the
+   searcher's proposals with each GP fit's (the GP runs on the CPU). RANDOM's
+   weights must be the port's searcher's proposals for the seed, computed on
+   the CPU, and BAYESIAN's first two trials the same Sobol points; the best
+   model must be the argmax over the explicit and tuned results, and its
+   weights those of that result.
+
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
 parallel/), each rank a process started by parallel/launch.py that loads
 phase 1's library and never builds: 4 ranks share the card over gloo (the
@@ -225,7 +258,8 @@ print which backend each used.
 
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
 3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, each run
-of 3o, 3k, 3g and 5g's card runs, and 3d and 4d in each rank) and read
+of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, and 3d and 4d
+in each rank) and read
 just after; the `kernels` line gives them by
 phase (`launches_by_phase`). "wall:" lines give each group of phases'
 seconds. The last three
@@ -1054,8 +1088,9 @@ def small_e2e_fit(ds) -> dict:
 
 
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
-    """Phases 2e, 3e, 3f, 3c, 3k, 5k, 3o's e2e part, 3g and 5e. Returns
-    (phase 2e rows by kernel, the sparse launches by kernel of each path)."""
+    """Phases 2e, 3e, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x, 3x-scale, 3t and
+    5e. Returns (phase 2e rows by kernel, the sparse launches by kernel of
+    each path)."""
     import os
     import tempfile
 
@@ -1214,6 +1249,9 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
         work = os.path.join(root, "slice")
         launches3k = walled("phases 3k, 5k, 3o (e2e)", checkpoint_phase, root, work)
         launches3g = walled("phase 3g", legacy_driver_e2e_phase, root, work, truth, n_users, n_movies)
+        launches3x = walled("phase 3x", offheap_phase, root, work)
+        walled("phase 3x-scale", offheap_scale_phase, work)
+        launches3t = walled("phase 3t", tuning_phase, root, os.path.join(work, "validation"), work)
     finally:
         e2e_dir.cleanup()
 
@@ -1247,7 +1285,8 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
             failures.append(f"seed {s}: the card's small e2e fit disagrees with the CPU's")
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
-    return rows2e, {"3e": launches, "3f": launches3f, "3c": launches3c, "3k": launches3k, "3g": launches3g}
+    return rows2e, {"3e": launches, "3f": launches3f, "3c": launches3c, "3k": launches3k, "3g": launches3g,
+                    "3x": launches3x, "3t": launches3t}
 
 
 def small_estimator_fits(where: str, a: dict, n_train: int) -> dict:
@@ -2233,6 +2272,311 @@ def legacy_driver_e2e_phase(root: str, work: str, truth, n_users: int, n_movies:
     return launches
 
 
+# ---------------------------------------------------------- phases 3x, 3x-scale, 3t
+#
+# The off-heap index stores (cli.build_index, --offheap-indexmap-dir) and the
+# train driver's hyperparameter tuning, on phase 3e's files.
+
+OFFHEAP_STORES = (("phidx", 1), ("phidx", 8), ("paldb", 4))  # format, partitions
+SCALE_KEYS = 1 << 22  # 4,194,304 synthetic name\x01term keys (PHIDX)
+SCALE_PALDB_KEYS = 1 << 18  # PalDB's writer and reader are pure Python: cut to 262,144
+TUNING_TRIALS = 4
+EXPLICIT_WEIGHTS = {"global": 1.0, "per-user": 10.0, "per-movie": 10.0}  # E2E_COORDINATES' reg.weights
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def offheap_re_gaps(root: str, c3_map, c3_model, models: dict) -> dict:
+    """Each random effect of each model (artifacts read through 3c's map)
+    against 3c's, on each entity's objective at 3c's offsets, on the card
+    in float64 (phase 3e's unprojected random-effect datasets of a new read
+    of the files, in 3c's feature ids): {store: {cid: largest relative gap}}."""
+    import torch
+
+    from photon_ml_tpu_torch.data.game_dataset import RandomEffectDataConfig, build_random_effect_dataset
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+
+    ds = read_e2e(root, "cuda")
+    if sorted(ds.shards) != ["g"]:
+        raise SystemExit(f"phase 3x: the new read has shards {sorted(ds.shards)}")
+    g = ds.shards["g"]
+    dev = g.values.device
+    reds = {cid: build_random_effect_dataset(ds, RandomEffectDataConfig(tag, "g", active_upper_bound=cap,
+                                                                        min_bucket=8))
+            for cid, (tag, cap) in E2E_RE.items()}
+
+    def matrix(coord, red):
+        """An artifact's (E, D) means as the (E + 1, D) matrix of `red`'s rows."""
+        keys = sorted(red.entity_index, key=red.entity_index.get)
+        art = {k: i for i, k in enumerate(coord.entity_ids)}
+        src = np.fromiter((art.get(str(k), -1) for k in keys), np.int64, count=len(keys))
+        out = np.zeros((len(keys) + 1, g.dim), np.float32)
+        out[np.flatnonzero(src >= 0)] = np.asarray(coord.means, np.float32)[src[src >= 0]]
+        return torch.from_numpy(out).to(dev)
+
+    def scores(w_rows):  # (N, K) gathered coefficients times the values
+        return (g.values * w_rows).sum(dim=1)
+
+    idx = g.indices.long()
+    fe = torch.as_tensor(np.asarray(c3_model.coordinates["global"].means, np.float32), device=dev)
+    base = {cid: matrix(c3_model.coordinates[cid], red) for cid, red in reds.items()}
+    user_rows = reds["per-user"].sample_entity_rows.long()
+    offsets = {"per-user": ds.offsets + scores(fe[idx])}
+    offsets["per-movie"] = offsets["per-user"] + scores(base["per-user"][user_rows[:, None], idx])
+    gaps = {}
+    for name, model in models.items():
+        gaps[name] = {cid: re_objective_gap(ds, red, offsets[cid], LOGISTIC, 10.0,
+                                            matrix(model.coordinates[cid], red), base[cid])
+                      for cid, red in reds.items()}
+    del ds, reds, base, offsets
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gaps
+
+
+def offheap_phase(root: str, work: str) -> dict:
+    """Phase 3x: cli.build_index on phase 3e's training files three times
+    (PHIDX with 1 and 8 partitions, PalDB with 4), then phase 3c's cli.train
+    and cli.score command lines through each store. Each model must equal
+    3c's by feature name within PORT_TOLERANCES["offheap_index"]: bit-equal
+    where the store numbers the features as 3c's map does; else the fixed
+    effect and each random effect on its coefficients, or, where a lane
+    moved past them, on each entity's objective; the scoring AUC too.
+    Returns the sparse launches by kernel."""
+    import json as _json
+    import os
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import build_index
+    from photon_ml_tpu_torch.cli import score as score_cli
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.io import model_store, score_store
+
+    tol = PORT_TOLERANCES["offheap_index"]
+    c3 = os.path.join(root, "drivers")
+    c3_best = os.path.join(c3, "train", "models", "best")
+    c3_map = IndexMap.load(os.path.join(c3_best, "feature-indexes", "g.json"))
+    c3_model = model_store.load_game_model(c3_best, {"g": c3_map})
+    with open(os.path.join(c3, "score", "scoring-summary.json")) as f:
+        c3_auc = _json.load(f)["evaluation"]["AUC"]
+    c3_scores = score_store.load_score_columns(os.path.join(c3, "score", "scores")).scores
+    failures, launches, rows, models = [], {}, {}, {}
+    for fmt, parts in OFFHEAP_STORES:
+        name = f"{fmt}-{parts}"
+        idx = os.path.join(work, f"index-{name}")
+        t0 = time.perf_counter()
+        build_index.main(["--input-data-directories", root, "--feature-shard-configurations", E2E_SHARD,
+                          "--num-partitions", str(parts), "--output-dir", idx, "--output-format", fmt])
+        build_s = time.perf_counter() - t0
+        out = os.path.join(work, f"train-{name}")
+        summary, sparse_t, dense_t, mem_t = counted(torch, lambda: train_cli.main([
+            "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+            "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
+            "--coordinate-configurations", *E2E_COORDINATES, "--coordinate-descent-iterations", "1",
+            "--output-mode", "BEST", "--logging-level", "WARNING", "--offheap-indexmap-dir", idx]))
+        best = os.path.join(out, "models", "best")
+        scored = os.path.join(work, f"score-{name}")
+        ssum, sparse_s, dense_s, mem_s = counted(torch, lambda: score_cli.main([
+            "--input-data-directories", root, "--model-input-directory", best,
+            "--root-output-directory", scored, "--feature-shard-configurations", E2E_SHARD,
+            "--evaluators", "AUC", "--logging-level", "WARNING", "--offheap-indexmap-dir", idx]))
+        for k, v in sparse_t.items():
+            launches[k] = launches.get(k, 0) + v + sparse_s[k]
+        shipped = IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))
+        # Read back through 3c's map: both models in 3c's feature ids, by name.
+        models[name] = model_store.load_game_model(best, {"g": c3_map})
+        scores = score_store.load_score_columns(os.path.join(scored, "scores")).scores
+        rows[name] = dict(
+            phase="3x", store=fmt, partitions=parts, build_index_s=build_s, store_mib=dir_mib(idx),
+            intercept_id=shipped.intercept_index, intercept_id_3c=c3_map.intercept_index,
+            same_ids_as_3c=dict(shipped.items()) == dict(c3_map.items()), train_timings_s=summary["timings_s"],
+            score_timings_s=ssum["timings_s"], model_vs_3c=same_model(models[name], c3_model),
+            score_err_vs_3c=(float(np.abs(scores - c3_scores).max()) if len(scores) == len(c3_scores)
+                             else float("inf")),
+            auc=ssum["evaluation"]["AUC"], auc_3c=c3_auc, tol=tol, launches_train=sparse_t,
+            launches_score=sparse_s, dense_launches=[dense_t, dense_s], mem_gib_train=mem_t, card=card_line())
+        if not sparse_t["sparse_fused"] or not sparse_s["sparse_matvec"] or any(dense_t.values()) \
+                or any(dense_s.values()):
+            failures.append(f"{name}: launches train {sparse_t} / {dense_t}, score {sparse_s} / {dense_s}")
+    t0 = time.perf_counter()
+    gaps = offheap_re_gaps(root, c3_map, c3_model, models)
+    gaps_s = time.perf_counter() - t0
+    for name, row in rows.items():
+        vs = row["model_vs_3c"]
+        row.update(re_objective_gap_vs_3c=gaps[name], objective_check_s=gaps_s)
+        if row["same_ids_as_3c"]:
+            held = {cid: "bits" if v["bit_equal"] else "failed" for cid, v in vs.items()}
+        else:
+            held = {cid: "coefficients" if v["err"] <= tol["coef_atol"] else
+                    "objective" if cid in gaps[name] and gaps[name][cid] <= tol["re_objective_rtol"] else "failed"
+                    for cid, v in vs.items()}
+        row["held_on"] = held
+        log(json.dumps(row))
+        if "failed" in held.values():
+            failures.append(f"{name}: the model is not 3c's by feature name ({held}, {vs}, {gaps[name]})")
+        if not abs(row["auc"] - c3_auc) <= tol["auc_atol"]:
+            failures.append(f"{name}: scoring AUC {row['auc']} against 3c's {c3_auc}")
+    if failures:
+        raise SystemExit("phase 3x failed: " + "; ".join(failures))
+    return launches
+
+
+def offheap_scale_phase(work: str) -> None:
+    """Phase 3x-scale, on the host: a PHIDX store of SCALE_KEYS synthetic
+    name\\x01term keys in 8 partitions (build, a get_index sweep of every
+    key, a get_feature_name sweep of every id, MiB), then the same for
+    PalDB at SCALE_PALDB_KEYS keys in 4 partitions (its writer and reader
+    are pure Python, as the JAX package's)."""
+    import os
+
+    from photon_ml_tpu_torch.io import paldb
+    from photon_ml_tpu_torch.native import index_store
+
+    def sweep(lookup_index, lookup_name, keys):
+        t0 = time.perf_counter()
+        ids = np.fromiter((lookup_index(k) for k in keys), np.int64, count=len(keys))
+        index_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        names = [lookup_name(i) for i in range(len(keys))]
+        name_s = time.perf_counter() - t0
+        ok = bool(np.array_equal(np.sort(ids), np.arange(len(keys)))) and \
+            all(names[i] == k for i, k in zip(ids[:: 997].tolist(), keys[:: 997]))
+        return index_s, name_s, ok
+
+    failures = []
+    for fmt, n, parts in (("phidx", SCALE_KEYS, 8), ("paldb", SCALE_PALDB_KEYS, 4)):
+        t0 = time.perf_counter()
+        keys = [f"member.feature.{i}\x01term{i % 97}" for i in range(n)]
+        keys_s = time.perf_counter() - t0
+        d = os.path.join(work, f"scale-{fmt}")
+        t0 = time.perf_counter()
+        if fmt == "phidx":
+            index_store.build_partitioned_store(d, keys, parts, namespace="g")
+        else:
+            paldb.write_index_map(d, "g", keys, parts)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        store = (index_store.PartitionedIndexStore(d, "g") if fmt == "phidx"
+                 else paldb.load_index_map(d, "g"))
+        open_s = time.perf_counter() - t0
+        index_s, name_s, ok = sweep(store.get_index, store.get_feature_name, keys)
+        row = dict(phase="3x-scale", store=fmt, keys=n, partitions=parts, where="host (the card's machine)",
+                   keys_s=keys_s, build_s=build_s, open_s=open_s, store_mib=dir_mib(d),
+                   get_index_sweep_s=index_s, get_index_keys_per_s=n / index_s,
+                   get_feature_name_sweep_s=name_s, get_feature_name_ids_per_s=n / name_s, ok=ok,
+                   card=card_line())
+        if fmt == "paldb":
+            row["cut"] = f"{n:,} keys, not {SCALE_KEYS:,}: the pure-Python writer and loader"
+        log(json.dumps(row))
+        if not ok:
+            failures.append(f"{fmt}: a lookup sweep disagrees with the keys")
+        if fmt == "phidx":
+            store.close()
+        del keys, store
+    if failures:
+        raise SystemExit("phase 3x-scale failed: " + "; ".join(failures))
+
+
+def tuning_phase(root: str, val_dir: str, work: str) -> dict:
+    """Phase 3t: cli.train on phase 3e's files with phase 3g's validation
+    file, output mode ALL, --hyper-parameter-tuning RANDOM then BAYESIAN,
+    TUNING_TRIALS trials each: each trial's weights, validation AUC, fit
+    seconds and launches, and the seconds of the searcher's proposals (the
+    GP's fits among them). RANDOM's weights must be the port's searcher's
+    proposals for the seed computed on the CPU, BAYESIAN's first two its
+    Sobol points too, and the best model the argmax over explicit and tuned
+    results. Returns the sparse launches by kernel."""
+    import os
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_ml_tpu_torch.hyperparameter import search
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+
+    ids = ["global", "per-user", "per-movie"]
+    dims = [search.HyperparameterConfig(c, *train_cli.TUNING_REG_WEIGHT_RANGE, transform="LOG") for c in ids]
+    searcher = search.RandomSearch(dims, lambda p: 0.0, seed=1)  # --random-seed 0, plus 1
+    expected = [searcher.propose() for _ in range(TUNING_TRIALS)]
+    fit0, gp0 = GameEstimator.fit, search.fit_gp
+    fits, gp_fits = [], []
+
+    def fit(self, *a, **k):  # each estimator fit: its seconds and launches
+        before = dict(sk.LAUNCHES)
+        out = fit0(self, *a, **k)
+        fits.append({n: sk.LAUNCHES[n] - before[n] for n in before})
+        return out
+
+    def fit_gp(*a, **k):
+        t0 = time.perf_counter()
+        out = gp0(*a, **k)
+        gp_fits.append(time.perf_counter() - t0)
+        return out
+
+    failures, launches, weights = [], {}, {}
+    GameEstimator.fit, search.fit_gp = fit, fit_gp
+    try:
+        for mode in ("RANDOM", "BAYESIAN"):
+            fits.clear()
+            gp_fits.clear()
+            out = os.path.join(work, f"tuned-{mode.lower()}")
+            summary, sparse, dense, mem = counted(torch, lambda: train_cli.main([
+                "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+                "--validation-data-directories", val_dir, "--validation-evaluators", "AUC",
+                "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
+                "--coordinate-configurations", *E2E_COORDINATES, "--coordinate-descent-iterations", "1",
+                "--output-mode", "ALL", "--hyper-parameter-tuning", mode, "--hyper-parameter-tuning-iter",
+                str(TUNING_TRIALS), "--random-seed", "0", "--logging-level", "WARNING"]))
+            for k, v in sparse.items():
+                launches[k] = launches.get(k, 0) + v
+            trials = summary["tuning_trials"]
+            weights[mode] = [np.array([t["reg_weights"][c] for c in ids]) for t in trials]
+            aucs = [e["AUC"] for e in summary["evaluations"]]
+            tuning_s = summary["timings_s"]["hyperparameter tuning"]
+            with open(os.path.join(out, "models", "best", "model-metadata.json")) as f:
+                best_weights = {c: v["reg_weight"] for c, v in json.load(f)["optimizationConfigurations"].items()}
+            row = dict(phase="3t", mode=mode, trials=[dict(t, launches=l) for t, l in zip(trials, fits[1:])],
+                       explicit_auc=aucs[0], explicit_launches=fits[0], best_index=summary["best_index"],
+                       best_auc=summary["best_evaluation"]["AUC"], best_weights=best_weights,
+                       tuning_s=tuning_s, trial_fit_s=sum(t["fit_s"] for t in trials),
+                       proposal_s=tuning_s - sum(t["fit_s"] for t in trials), fit_gp_s=list(gp_fits),
+                       timings_s=summary["timings_s"], launches=sparse, dense_launches=dense, mem_gib=mem,
+                       models=sorted(os.listdir(os.path.join(out, "models"))), card=card_line())
+            log(json.dumps(row))
+            want = ["best", "explicit-0"] + [f"tuned-{i}" for i in range(TUNING_TRIALS)]
+            if summary["num_tuned"] != TUNING_TRIALS or row["models"] != want or len(fits) != TUNING_TRIALS + 1:
+                failures.append(f"{mode}: {summary['num_tuned']} trials, models {row['models']}")
+            if summary["best_index"] != int(np.argmax(aucs)) or row["best_auc"] != max(aucs):
+                failures.append(f"{mode}: best index {summary['best_index']} is not the argmax of {aucs}")
+            chosen = ({c: w for c, w in zip(ids, weights[mode][summary["best_index"] - 1])}
+                      if summary["best_index"] else EXPLICIT_WEIGHTS)
+            if best_weights != chosen:
+                failures.append(f"{mode}: the best model's weights {best_weights} are not result "
+                                f"{summary['best_index']}'s {chosen}")
+            if not all(f["sparse_fused"] and f["sparse_matvec"] for f in fits) or any(dense.values()):
+                failures.append(f"{mode}: a fit launched no sparse kernel, or a dense one ran: {fits}, {dense}")
+            if mode == "BAYESIAN" and len(gp_fits) != TUNING_TRIALS - 2:
+                failures.append(f"BAYESIAN: {len(gp_fits)} GP fits for {TUNING_TRIALS - 2} GP proposals")
+    finally:
+        GameEstimator.fit, search.fit_gp = fit0, gp0
+    if not all(np.array_equal(a, b) for a, b in zip(weights["RANDOM"], expected)):
+        failures.append(f"RANDOM's weights {weights['RANDOM']} are not the searcher's {expected}")
+    if not all(np.array_equal(a, b) for a, b in zip(weights["BAYESIAN"][:2], expected[:2])):
+        failures.append(f"BAYESIAN's Sobol trials {weights['BAYESIAN'][:2]} are not {expected[:2]}")
+    if failures:
+        raise SystemExit("phase 3t failed: " + "; ".join(failures))
+    return launches
+
+
 A9A_TRAIN, A9A_TEST = 32561, 16281  # a9a's published split (123 features)
 A9A_CONSTRAINTS = [{"name": "1", "term": "", "lowerBound": -0.01, "upperBound": 0.01},
                    {"name": "2", "term": "", "lowerBound": 0.0}]
@@ -3147,7 +3491,8 @@ def main(argv=None) -> int:
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c, 3k, 5k, 3g", e2e_phases, args.seed, dev, bw, f32_rate)
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c, 3k, 5k, 3g, 3x, 3t", e2e_phases, args.seed, dev, bw,
+                                    f32_rate)
 
     # ---- phase 5f: small estimator fits, card vs CPU --------------------------------
     small_launches = walled("phase 5f", estimator_small_phase, args.seed + 51)
@@ -3187,12 +3532,13 @@ def main(argv=None) -> int:
              launches=(sparse_launches[k] + e2e_launches["3e"][k] + e2e_launches["3f"]["sparse"][k]
                        + small_launches["sparse"][k] + e2e_launches["3c"]["sparse"][k]
                        + driver_launches["sparse"][k] + e2e_launches["3k"][k] + e2e_launches["3g"][k]
-                       + legacy_launches[k]),
+                       + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
                                 "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
                                 "3c": e2e_launches["3c"]["sparse"][k], "5c": driver_launches["sparse"][k],
                                 "3k+5k+3o": e2e_launches["3k"][k], "3g": e2e_launches["3g"][k],
-                                "5g": legacy_launches[k]},
+                                "5g": legacy_launches[k], "3x": e2e_launches["3x"][k],
+                                "3t": e2e_launches["3t"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],

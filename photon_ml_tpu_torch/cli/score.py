@@ -1,13 +1,15 @@
 """GAME scoring driver: load model -> score dataset -> write scores.
 
 Port of `photon_ml_tpu/cli/score.py` (photon-client cli/game/scoring/
-GameScoringDriver.scala:39-284): load the feature index maps saved beside
-the model (`feature-indexes/<shard>.json`), load the model directory (either
-package's), read the data onto the device through those maps, score it with
+GameScoringDriver.scala:39-284): load the feature index maps, from an
+off-heap store (`--offheap-indexmap-dir`: PalDB or PHIDX partitions, found
+per shard, prepareFeatureMaps GameDriver.scala:231-236) or, by default, the
+JSON maps saved beside the model (`feature-indexes/<shard>.json`), load the
+model directory (either package's), read the data onto the device through those maps, score it with
 `GameTransformer`, write ScoringResultAvro part files under
 `<root>/scores`, optionally evaluate, and write `scoring-summary.json` with
 `timings_s` by section. `--device` (default cuda) picks the device; cuda
-with no card raises. `--offheap-indexmap-dir` is not ported yet and raises.
+with no card raises.
 
 Usage: python -m photon_ml_tpu_torch.cli.score --help
 """
@@ -29,6 +31,7 @@ from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorType
 from photon_ml_tpu_torch.io import avro_data, model_bridge, model_store, score_store
 from photon_ml_tpu_torch.io.avro_data import UID
+from photon_ml_tpu_torch.io.paldb import resolve_offheap_index_maps
 from photon_ml_tpu_torch.transformers.game_transformer import GameTransformer
 from photon_ml_tpu_torch.utils.date_range import paths_for_date_range, resolve_range
 from photon_ml_tpu_torch.utils.observability import Timed, TimingRegistry
@@ -48,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--root-output-directory", required=True)
     p.add_argument("--feature-shard-configurations", required=True, nargs="+", metavar="DSL")
     p.add_argument("--offheap-indexmap-dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 4, the PalDB index store); raises")
+                   help="prebuilt feature-index partitions (PalDB or PHIDX); "
+                        "default: the JSON maps saved beside the model")
     p.add_argument("--input-column-names", default=None,
                    help="Rename record fields (see the training driver)")
     p.add_argument("--input-data-date-range", default=None,
@@ -70,17 +74,17 @@ def run(args) -> Dict[str, object]:
         level=getattr(logging, args.logging_level.upper(), logging.INFO),
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-    if args.offheap_indexmap_dir:
-        raise NotImplementedError("--offheap-indexmap-dir (the PalDB index store) is not ported "
-                                  "yet (ROADMAP Queue 1 item 4)")
     device = resolve_device(args.device)
     timings = TimingRegistry()
     shard_configs = dict(parse_feature_shard_config(s) for s in args.feature_shard_configurations)
 
     with Timed("load model", registry=timings, device=device):
-        index_dir = os.path.join(args.model_input_directory, "feature-indexes")
-        index_maps = {shard: IndexMap.load(os.path.join(index_dir, f"{shard}.json"))
-                      for shard in shard_configs}
+        if args.offheap_indexmap_dir:
+            index_maps = resolve_offheap_index_maps(args.offheap_indexmap_dir, shard_configs)
+        else:
+            index_dir = os.path.join(args.model_input_directory, "feature-indexes")
+            index_maps = {shard: IndexMap.load(os.path.join(index_dir, f"{shard}.json"))
+                          for shard in shard_configs}
         artifact = model_store.load_game_model(args.model_input_directory, index_maps)
         model, specs = model_bridge.game_model_from_artifact(artifact, device)
 

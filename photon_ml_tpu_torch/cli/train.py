@@ -4,21 +4,26 @@ Port of `photon_ml_tpu/cli/train.py` (photon-client cli/game/training/
 GameTrainingDriver.scala:55-855):
 
     parse args -> read training/validation Avro data onto the device
+    (index maps from the data, or from an off-heap PalDB/PHIDX store)
     -> validate rows -> (warm-start model) -> GameEstimator.fit over the
-    expanded reg-weight sweep -> model selection -> save models, their
-    feature index maps and training-summary.json under the output root.
+    expanded reg-weight sweep -> optional hyperparameter tuning (RANDOM |
+    BAYESIAN) -> model selection -> save models, their feature index maps
+    and training-summary.json under the output root.
 
 Output layout (ModelProcessingUtils.saveGameModelToHDFS):
     <root>/models/best/...               (unless output mode NONE)
     <root>/models/explicit-<i>/...       (EXPLICIT | ALL)
+    <root>/models/tuned-<i>/...          (TUNED | ALL)
     <root>/models/<dir>/feature-indexes/<shard>.json
     <root>/training-summary.json         (with `timings_s` by section)
     <root>/photon-ml-tpu.log
 
 The option names are the JAX driver's, so its command lines parse
 unchanged. `--device` (default cuda) picks the device; asking for cuda
-with no card raises. Options of parts not ported yet raise
-NotImplementedError, naming their ROADMAP item, before any work starts.
+with no card raises. Tuning trials are fits on the device; the Bayesian
+search's GP runs on the CPU (hyperparameter/gp.py). Options of parts not
+ported yet (multi-host, --profile) raise NotImplementedError, naming their
+ROADMAP item, before any work starts.
 
 Usage: python -m photon_ml_tpu_torch.cli.train --help
 """
@@ -33,7 +38,10 @@ import logging
 import os
 import shutil
 import sys
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from photon_ml_tpu_torch.cli.config import (
     CoordinateConfiguration,
@@ -48,13 +56,17 @@ from photon_ml_tpu_torch.data.stats import summarize
 from photon_ml_tpu_torch.data.validators import validate_game_dataset
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator, GameResult, select_best_result
-from photon_ml_tpu_torch.evaluation.suite import EvaluatorType
+from photon_ml_tpu_torch.evaluation.suite import EvaluatorType, better_than
+from photon_ml_tpu_torch.hyperparameter.search import HyperparameterConfig
+from photon_ml_tpu_torch.hyperparameter.tuner import HyperparameterTuningMode, get_tuner
 from photon_ml_tpu_torch.io import avro_data, model_bridge, model_store
+from photon_ml_tpu_torch.io.paldb import resolve_offheap_index_maps
 from photon_ml_tpu_torch.optimize.constraints import bounds_arrays, create_constraint_feature_map
 from photon_ml_tpu_torch.types import (
     DataValidationType,
     NormalizationType,
     ProjectorType,
+    RegularizationType,
     TaskType,
     VarianceComputationType,
 )
@@ -62,6 +74,10 @@ from photon_ml_tpu_torch.utils.date_range import paths_for_date_range, resolve_r
 from photon_ml_tpu_torch.utils.observability import PhotonLogger, Timed, TimingRegistry
 
 logger = logging.getLogger("photon_ml_tpu_torch.cli.train")
+
+# Default tuning range for regularization weights (the reference's tuning
+# JSON defaults, GameHyperparameterDefaults.scala:20: log-scale weights).
+TUNING_REG_WEIGHT_RANGE = (1e-4, 1e4)
 
 
 class ModelOutputMode(enum.Enum):
@@ -75,18 +91,6 @@ class ModelOutputMode(enum.Enum):
 
     @classmethod
     def parse(cls, name: str) -> "ModelOutputMode":
-        return cls[name.strip().upper()]
-
-
-class HyperparameterTuningMode(enum.Enum):
-    """Reference: HyperparameterTuningMode.scala (NONE/RANDOM/BAYESIAN)."""
-
-    NONE = "NONE"
-    RANDOM = "RANDOM"
-    BAYESIAN = "BAYESIAN"
-
-    @classmethod
-    def parse(cls, name: str) -> "HyperparameterTuningMode":
         return cls[name.strip().upper()]
 
 
@@ -129,7 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--validation-evaluators", nargs="*", default=[],
                    help="e.g. AUC RMSE PRECISION@5:queryId AUC:documentId")
     p.add_argument("--offheap-indexmap-dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 4, the PalDB index store); raises")
+                   help="directory of prebuilt persistent feature-index partitions "
+                        "(cli.build_index output, PHIDX or PalDB, found per shard); "
+                        "default: index maps built from the training data")
     p.add_argument("--model-input-directory", default=None,
                    help="warm-start / partial-retrain model directory")
     p.add_argument("--partial-retrain-locked-coordinates", default=None,
@@ -149,9 +155,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-sparsity-threshold", type=float, default=0.0)
     p.add_argument("--hyper-parameter-tuning", type=HyperparameterTuningMode.parse,
                    default=HyperparameterTuningMode.NONE,
-                   help="only NONE is ported (ROADMAP Queue 1 item 8); others raise")
-    p.add_argument("--hyper-parameter-tuning-iter", type=int, default=20)
-    p.add_argument("--hyper-parameter-tuning-batch-size", type=int, default=1)
+                   help="NONE | RANDOM | BAYESIAN: tune each regularized coordinate's "
+                        "weight on the validation data after the explicit sweep")
+    p.add_argument("--hyper-parameter-tuning-iter", type=int, default=20,
+                   help="tuning trials (one fit each)")
+    p.add_argument("--hyper-parameter-tuning-batch-size", type=int, default=1,
+                   help="proposals a round: Sobol batches (RANDOM), constant-liar "
+                        "EI (BAYESIAN); the trials of a round are fitted one by one")
     p.add_argument("--random-seed", type=int, default=0)
     p.add_argument("--profile", default=None,
                    help="not ported yet (ROADMAP Queue 1 item 10); raises")
@@ -180,10 +190,6 @@ def _refuse_unported(args, coordinate_configs: Dict[str, CoordinateConfiguration
     def refuse(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
-    if args.hyper_parameter_tuning != HyperparameterTuningMode.NONE:
-        refuse(f"--hyper-parameter-tuning {args.hyper_parameter_tuning.value}", "8")
-    if args.offheap_indexmap_dir:
-        refuse("--offheap-indexmap-dir (the PalDB index store)", "4")
     if (args.multihost or args.multihost_devices_per_host is not None or args.mh_worker
             or any(v is not None for v in (args.mh_attempt, args.mh_coordinator,
                                            args.mh_num_hosts, args.mh_host_id,
@@ -195,8 +201,9 @@ def _refuse_unported(args, coordinate_configs: Dict[str, CoordinateConfiguration
 
 def _read_data(args, coordinate_configs: Dict[str, CoordinateConfiguration], device):
     """readTrainingData/readValidationData (GameTrainingDriver.scala:503-547):
-    index maps are built from the training data; validation rows read
-    through them."""
+    index maps come from the off-heap store when one is given
+    (prepareFeatureMaps, GameDriver.scala:231-236), else from the training
+    data; validation rows read through them."""
     shard_configs = dict(parse_feature_shard_config(s) for s in args.feature_shard_configurations)
     id_tags = [c.data_config.random_effect_type for c in coordinate_configs.values()
                if isinstance(c.data_config, RandomEffectDataConfig)]
@@ -206,10 +213,12 @@ def _read_data(args, coordinate_configs: Dict[str, CoordinateConfiguration], dev
             id_tags.append(et.id_tag)
     columns = (avro_data.InputColumnNames.parse(args.input_column_names)
                if args.input_column_names else avro_data.InputColumnNames())
+    prebuilt = (resolve_offheap_index_maps(args.offheap_indexmap_dir, shard_configs)
+                if args.offheap_indexmap_dir else None)
     train_range = resolve_range(args.input_data_date_range, args.input_data_days_range)
     train, index_maps = avro_data.read_game_dataset(
         paths_for_date_range(args.input_data_directories, train_range), shard_configs,
-        id_tag_fields=id_tags, columns=columns, device=device)
+        index_maps=prebuilt, id_tag_fields=id_tags, columns=columns, device=device)
     validation = None
     if args.validation_data_directories:
         val_range = resolve_range(args.validation_data_date_range, args.validation_data_days_range)
@@ -249,6 +258,54 @@ def _apply_constraints(args, coordinate_configs: Dict[str, CoordinateConfigurati
                 cfg.opt_config,
                 optimizer=dataclasses.replace(cfg.opt_config.optimizer, box_constraints=box))
             logger.info("coordinate %s: box constraints on %d feature(s)", cfg.name, len(cmap))
+
+
+def _tuning_dimensions(coordinate_configs: Dict[str, CoordinateConfiguration],
+                       tunable_ids) -> List[HyperparameterConfig]:
+    """One LOG-scale dimension per regularized trainable coordinate
+    (GameEstimatorEvaluationFunction.configurationToVector:152); locked
+    coordinates have no config entry in the sweep and are not tuned."""
+    return [HyperparameterConfig(name=cid, min_value=TUNING_REG_WEIGHT_RANGE[0],
+                                 max_value=TUNING_REG_WEIGHT_RANGE[1], transform="LOG")
+            for cid, cfg in coordinate_configs.items()
+            if cid in tunable_ids and cfg.opt_config.regularization.reg_type != RegularizationType.NONE]
+
+
+def _tune(args, estimator, coordinate_configs, train, validation,
+          explicit: List[GameResult]) -> Tuple[List[GameResult], List[dict]]:
+    """runHyperparameterTuning (GameTrainingDriver.scala:643): a search over
+    the regularized coordinates' weights, each trial one fit on the device
+    warm-started from the best explicit model, scored on the validation
+    data. The searcher draws from `--random-seed` + 1. Returns the trials'
+    results in order and a record of each (its weights, metric and fit
+    seconds); none without validation data or a tunable weight."""
+    if validation is None:
+        return [], []
+    dims = _tuning_dimensions(coordinate_configs, set(explicit[0].config))
+    if not dims:
+        return [], []
+    _, base = select_best_result(explicit)
+    maximize = better_than(base.evaluation.primary, 1.0, 0.0)
+    tuned: List[GameResult] = []
+    trials: List[dict] = []
+
+    def evaluate(point: np.ndarray) -> float:
+        cfgs = dict(base.config)
+        for value, dim in zip(point, dims):
+            cfgs[dim.name] = dataclasses.replace(cfgs[dim.name], reg_weight=float(value))
+        t0 = time.perf_counter()
+        tuned.append(estimator.fit(train, validation, [cfgs], initial_model=base.model)[0])
+        value = tuned[-1].evaluation.primary_value
+        trials.append({"reg_weights": {d.name: float(v) for d, v in zip(dims, point)},
+                       "value": value, "fit_s": time.perf_counter() - t0})
+        return value
+
+    get_tuner(args.hyper_parameter_tuning).search(
+        args.hyper_parameter_tuning_iter, dims, args.hyper_parameter_tuning, evaluate,
+        maximize=maximize, seed=args.random_seed + 1,
+        batch_size=args.hyper_parameter_tuning_batch_size)
+    logger.info("hyperparameter tuning: %d trials", len(tuned))
+    return tuned, trials
 
 
 def run(args) -> Dict[str, object]:
@@ -350,19 +407,28 @@ def _run_job(args, coordinate_configs, device, out_root: str, models_root: str) 
         {cid: coordinate_configs[cid] for cid in update_sequence if cid not in locked})
     logger.info("training %d explicit configuration(s)", len(sweep))
     with Timed("train explicit configurations", registry=timings, device=device):
-        results: List[GameResult] = estimator.fit(train, validation, sweep,
-                                                  initial_model=initial_model)
+        explicit: List[GameResult] = estimator.fit(train, validation, sweep,
+                                                   initial_model=initial_model)
+    tuned, trials = [], []
+    if args.hyper_parameter_tuning != HyperparameterTuningMode.NONE:
+        with Timed("hyperparameter tuning", registry=timings, device=device):
+            tuned, trials = _tune(args, estimator, coordinate_configs, train, validation, explicit)
 
-    # Model selection + save (GameTrainingDriver.scala:683-779).
+    # Model selection over explicit and tuned results, then save
+    # (GameTrainingDriver.scala:683-779).
+    results = explicit + tuned
     best_i, best = select_best_result(results)
     specs = estimator.scoring_specs()
     summary: Dict[str, object] = {
         "num_samples": int(train.num_samples),
-        "num_explicit": len(results),
-        "num_tuned": 0,
+        "num_explicit": len(explicit),
+        "num_tuned": len(tuned),
         "best_index": best_i,
         "best_evaluation": None if best.evaluation is None else best.evaluation.results,
     }
+    if trials:
+        summary["tuning_trials"] = trials
+        summary["evaluations"] = [None if r.evaluation is None else r.evaluation.results for r in results]
 
     def save(result: GameResult, subdir: str) -> None:
         artifact = model_bridge.artifact_from_game_model(
@@ -387,8 +453,11 @@ def _run_job(args, coordinate_configs, device, out_root: str, models_root: str) 
         with Timed("save models", registry=timings, device=device):
             save(best, "best")
             if args.output_mode in (ModelOutputMode.EXPLICIT, ModelOutputMode.ALL):
-                for i, r in enumerate(results):
+                for i, r in enumerate(explicit):
                     save(r, f"explicit-{i}")
+            if args.output_mode in (ModelOutputMode.TUNED, ModelOutputMode.ALL):
+                for i, r in enumerate(tuned):
+                    save(r, f"tuned-{i}")
 
     for i, r in enumerate(results):
         logger.info("config %d%s: %s", i, " (best)" if i == best_i else "",

@@ -61,6 +61,19 @@ PORT_TOLERANCES = {
     # A resume recomputes scores from the saved models' exact bits, so in one package only the order of
     # the residual sums can differ.
     "checkpoint_resume": {"rtol": 1e-6, "atol": 1e-7},
+    # The GP of Bayesian tuning at fixed kernel vectors: the port runs it in float64, the JAX package
+    # in float32, whose Cholesky solves lose about cond(K) * 6e-8. tests/test_torch_hyperparameter.py
+    # reads up to 1.5e-4 of the log evidence and 6.6e-5 of a posterior mean on standardized draws with
+    # cond(K) up to 1e4 (20 points, noise 2e-3), 6.7x and 15x below.
+    "gp_float32": {"lml_rtol": 1e-3, "posterior_atol": 1e-3},
+    # One model trained through an off-heap index store and through the in-memory map (chip_smoke.py
+    # 3x): the store numbers the features in its own order ((INTERCEPT) first), so every sum over a
+    # row's columns rounds differently in f32. Same ids give the same bits. The e2e cell's random
+    # effects stop after 5 iterations, unconverged, and that rounding flips a line-search step in a
+    # few lanes: on an H100, 1 of 27,586 per-user lanes (0.0196, objective 69.790 against 69.800)
+    # and 30 of 5,405 per-movie lanes moved past coef_atol. Such a lane is held on its objective,
+    # as "card_vs_cpu_glmix" holds a lane; the fixed effect read 1.2e-7 and the AUC 1.2e-7.
+    "offheap_index": {"coef_atol": 5e-4, "re_objective_rtol": 1e-3, "auc_atol": 1e-4},
 }
 
 # The stages of one Avro ingest (io/avro_data.read_game_dataset), in seconds.

@@ -54,6 +54,10 @@ class SparseFeatures:
     indices: Tensor  # (N, K) int32 or int64
     values: Tensor  # (N, K) float32
     dim: int
+    # Set on the projected shard that game/projector.project_shard
+    # registers: the reference keeps such a shard's planes as (K, N), and
+    # the checkpoint fingerprint names its shape in that orientation.
+    projected: bool = False
 
     @property
     def shape(self) -> Tuple[int, int]:

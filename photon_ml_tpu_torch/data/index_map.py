@@ -10,8 +10,9 @@ AvroDataReader.readFeaturesFromRecord:274-352), with the special
 Two implementations:
   * IndexMap — in-memory dict (DefaultIndexMap equivalent), built from the
     distinct feature keys of a dataset shard.
-  * the persistent, memory-mapped store (PalDB equivalent) is not ported
-    yet.
+  * the persistent, memory-mapped stores answer the same protocol:
+    native/index_store.PartitionedIndexStore (PHIDX) and the PalDB loader
+    io/paldb.load_index_map.
 
 The port's own copy of `photon_ml_tpu/data/index_map.py`.
 """
@@ -88,7 +89,7 @@ class IndexMap:
         idx = self._fwd.get(INTERCEPT_KEY, -1)
         return idx if idx >= 0 else None
 
-    # -- persistence (JSON; the off-heap binary store is in native/) ---------
+    # -- persistence (JSON; the off-heap binary stores are in native/ and io/) -
 
     def save(self, path: str) -> None:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

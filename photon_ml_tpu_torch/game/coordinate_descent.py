@@ -86,7 +86,9 @@ def gather_game_model(coordinates: Mapping[str, object], model: GameModel) -> Ga
 
 def _shard_identity(feats) -> tuple:
     if isinstance(feats, SparseFeatures):
-        return ("sparse", tuple(int(s) for s in feats.indices.shape), feats.dim)
+        shape = tuple(int(s) for s in feats.indices.shape)
+        # The reference stores a projected shard's planes as (K, N).
+        return ("sparse", shape[::-1] if feats.projected else shape, feats.dim)
     return ("dense", tuple(int(s) for s in feats.shape))
 
 

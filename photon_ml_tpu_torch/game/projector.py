@@ -186,6 +186,9 @@ def project_shard(dataset, re_dataset, projector_type: ProjectorType, *,
     while name in dataset.shards:
         name = f"{shard}@{re_type}#{suffix}"
         suffix += 1
-    dataset.shards[name] = projector.project_features(feats, rows)
+    projected = projector.project_features(feats, rows)
+    if isinstance(projected, SparseFeatures):
+        projected = dataclasses.replace(projected, projected=True)
+    dataset.shards[name] = projected
     re_dataset.config = dataclasses.replace(re_dataset.config, feature_shard=name)
     return ProjectedShard(name, projector)

@@ -155,6 +155,32 @@ def ingest_timing(times: StageTimes, total_s: float) -> Dict[str, object]:
     return timing
 
 
+def distinct_feature_keys(paths: Sequence[str], bags: Sequence[str]) -> Dict[str, set]:
+    """The distinct feature keys (`feature_key(name, term)`) of each bag over
+    the Avro files under `paths`, for the indexing drivers. The records are
+    decoded by the native block decoder where every file's schema compiles
+    (the route `read_game_dataset` takes), else by the Python codec."""
+    files: List[str] = []
+    for p in paths:
+        files.extend(avro_io.list_container_files(p))
+    bag_list = list(dict.fromkeys(bags))
+    compiled = avro_fast.compile_native(
+        files, {"keys": FeatureShardConfig(tuple(bag_list), False)}, (), InputColumnNames(), LABEL)
+    if compiled is None:
+        out: Dict[str, set] = {b: set() for b in bag_list}
+        for path in files:
+            for _, record in avro_io.iter_container(path):
+                for bag in bag_list:
+                    for f in record.get(bag) or ():
+                        out[bag].add(feature_key(f["name"], f.get("term", "") or ""))
+        return out
+    asm = avro_fast._IngestAssembler(len(bag_list))
+    avro_fast._decode_all(compiled, asm, StageTimes())
+    bag_gkeys = asm.finalize()[4]
+    keys = np.asarray(asm.key_list, dtype=object)
+    return {b: set(keys[np.unique(bag_gkeys[i])].tolist()) for i, b in enumerate(bag_list)}
+
+
 def _read_python_chunked(
     files: Sequence[str],
     shard_configs: Mapping[str, FeatureShardConfig],

@@ -1,8 +1,8 @@
 """Build and load the port's native library with g++.
 
 `avro_reader.cc` (the Avro block decoder), `avro_writer.cc` (the columnar
-TrainingExampleAvro writer) and `libsvm_parser.cc` (the LibSVM text parser)
-compile together, at first use, into one shared library in
+TrainingExampleAvro writer), `libsvm_parser.cc` (the LibSVM text parser) and
+`index_store.cc` (the PHIDX off-heap feature-index store) compile together, at first use, into one shared library in
 `photon_ml_tpu_torch/_build/`, named by a hash of the sources
 and of the build variant, so an edited source is rebuilt and a stale
 library is never loaded. Each process compiles into a temporary file of its
@@ -29,7 +29,7 @@ from typing import List, Optional
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "_build"
-SOURCES = ("avro_reader.cc", "avro_writer.cc", "libsvm_parser.cc")
+SOURCES = ("avro_reader.cc", "avro_writer.cc", "libsvm_parser.cc", "index_store.cc")
 CXX_FLAGS = ("-O2", "-std=c++17", "-pthread", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()

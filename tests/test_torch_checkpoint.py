@@ -374,20 +374,107 @@ def test_the_estimator_checkpoints_each_configuration_and_resumes_after_a_kill(t
         _assert_resumed(_model_arrays(a.model.models), _model_arrays(b.model.models))
 
 
-def test_the_config_key_differs_across_packages_only_by_a_projected_sparse_shards_orientation(
-        tmp_path, monkeypatch):
-    """Through the estimators with INDEX_MAP over a sparse random-effect
-    shard, the fingerprints differ in one field: the projected shard's ELL
-    planes are (K, N) in the JAX package and (N, K) in the port. With that
-    shape transposed the port computes the JAX key, so the difference is
-    that field alone, and either package refuses the other's checkpoint of
-    such a fit rather than resuming it."""
+def _sparse_re_fits(tmp_path):
+    """The JAX and the port's estimators over one sparse random-effect
+    shard with the default INDEX_MAP projector (the main path's
+    configuration), two configurations of two sweeps each, as callables:
+    each takes a checkpoint directory (or None) and returns the results."""
     from photon_ml_tpu.data.containers import SparseFeatures as JaxSparse
     from photon_ml_tpu.estimators.game_estimator import GameEstimator as JaxEstimator
     from photon_ml_tpu_torch.data.containers import SparseFeatures
     from photon_ml_tpu_torch.data.game_dataset import FixedEffectDataConfig
     from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
-    from photon_ml_tpu_torch.game import coordinate_descent as cd
+    from photon_ml_tpu_torch.optimize import config as port_config
+
+    Xf, Xe, entity, y = _arrays(0)
+    idx = np.tile(np.arange(3, dtype=np.int32), (Xe.shape[0], 1))
+    jcf, jcr = _configs(jax_config)
+    pcf, pcr = _configs(port_config)
+    jax_configs = [{"fixed": jcf, "per-entity": jcr},
+                   {"fixed": dataclasses.replace(jcf, reg_weight=2.0), "per-entity": jcr}]
+    port_configs = [{"fixed": pcf, "per-entity": pcr},
+                    {"fixed": dataclasses.replace(pcf, reg_weight=2.0), "per-entity": pcr}]
+
+    def jax_fit(ck=None):
+        jds = jax_gd.GameDataset.build({"global": jnp.asarray(Xf), "per_entity": JaxSparse(
+            jnp.asarray(idx), jnp.asarray(Xe), 3)}, y, id_tags={"entityId": entity})
+        return JaxEstimator(JaxTask.LOGISTIC_REGRESSION, {
+            "fixed": jax_gd.FixedEffectDataConfig("global"),
+            "per-entity": jax_gd.RandomEffectDataConfig("entityId", "per_entity", min_bucket=4)},
+            coordinate_descent_iterations=2, seed=5, checkpoint_dir=ck).fit(jds, None, jax_configs)
+
+    def port_fit(ck=None):
+        ds = GameDataset.build({"global": Xf, "per_entity": SparseFeatures(
+            torch.from_numpy(idx), torch.from_numpy(Xe), 3)}, y, id_tags={"entityId": entity},
+            device="cpu")
+        return GameEstimator(TaskType.LOGISTIC_REGRESSION, {
+            "fixed": FixedEffectDataConfig("global"),
+            "per-entity": RandomEffectDataConfig("entityId", "per_entity", min_bucket=4)},
+            coordinate_descent_iterations=2, seed=5, checkpoint_dir=ck).fit(ds, None, port_configs)
+
+    return jax_fit, port_fit
+
+
+def _killed_in_the_second_configuration(monkeypatch, cls, fit, ck):
+    """`fit(ck)` preempted at the first fixed-effect update of the second
+    configuration: the first configuration's checkpoint is complete, the
+    second's has not started."""
+    calls = {"n": 0}
+    train = cls.train
+
+    def dying(self, *a, **k):
+        calls["n"] += 1
+        if calls["n"] == 3:
+            raise RuntimeError("simulated preemption")
+        return train(self, *a, **k)
+
+    monkeypatch.setattr(cls, "train", dying)
+    with pytest.raises(RuntimeError, match="simulated preemption"):
+        fit(ck)
+    monkeypatch.setattr(cls, "train", train)
+    with open(os.path.join(ck, "config-0", "state.json")) as f:
+        assert json.load(f)["completed_steps"] == 4
+    assert not os.path.exists(os.path.join(ck, "config-1", "state.json"))
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_a_projected_sparse_fit_resumes_across_the_packages(tmp_path, monkeypatch, writer):
+    """One package's checkpoint of an INDEX_MAP fit over a sparse random
+    effect, killed in the second configuration, resumed by the other. The
+    first configuration comes back from the checkpoint within
+    PORT_TOLERANCES["checkpoint_resume"] of the writer's uninterrupted fit;
+    the second, trained by the reader from that warm start, within
+    PORT_TOLERANCES["estimator"]["coef_atol"] of it (the packages' f32
+    solves round differently)."""
+    from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate as PortFE
+
+    jax_fit, port_fit = _sparse_re_fits(tmp_path)
+    write, read = (jax_fit, port_fit) if writer == "jax" else (port_fit, jax_fit)
+    straight = write()
+    ck = str(tmp_path / "ck")
+    _killed_in_the_second_configuration(monkeypatch, JaxFE if writer == "jax" else PortFE, write, ck)
+    resumed = read(ck)
+    with open(os.path.join(ck, "config-1", "state.json")) as f:
+        assert json.load(f)["completed_steps"] == 4
+    a0, b0 = _model_arrays(straight[0].model.models), _model_arrays(resumed[0].model.models)
+    assert a0["per-entity"].shape == b0["per-entity"].shape
+    _assert_resumed(a0, b0)
+    a1, b1 = _model_arrays(straight[1].model.models), _model_arrays(resumed[1].model.models)
+    for cid in a1:
+        np.testing.assert_allclose(b1[cid], a1[cid], atol=PORT_TOLERANCES["estimator"]["coef_atol"], rtol=0)
+
+
+def test_the_config_key_differs_across_packages_only_by_a_projected_sparse_shards_orientation(tmp_path):
+    """Through the estimators with INDEX_MAP over a sparse random-effect
+    shard: the projected shard's ELL planes are (K, N) in the JAX package
+    and (N, K) in the port, which was the one field their fingerprints
+    differed by. The port fingerprints such a shard in the JAX
+    orientation, so both packages compute one key."""
+    from photon_ml_tpu.data.containers import SparseFeatures as JaxSparse
+    from photon_ml_tpu.estimators.game_estimator import GameEstimator as JaxEstimator
+    from photon_ml_tpu_torch.data.containers import SparseFeatures
+    from photon_ml_tpu_torch.data.game_dataset import FixedEffectDataConfig
+    from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
 
     Xf, Xe, entity, y = _arrays(0)
     idx = np.tile(np.arange(3, dtype=np.int32), (Xe.shape[0], 1))
@@ -415,9 +502,5 @@ def test_the_config_key_differs_across_packages_only_by_a_projected_sparse_shard
     assert "per_entity@entityId" in jds.shards and "per_entity@entityId" in ds.shards
     assert tuple(jds.shards["per_entity@entityId"].indices.shape)[::-1] == \
         tuple(ds.shards["per_entity@entityId"].indices.shape)
-    assert run_config_key(coords, set(), weights) != jax_key
-    identity = cd._shard_identity
-    monkeypatch.setattr(cd, "_shard_identity", lambda f: (
-        ("sparse", identity(f)[1][::-1], f.dim) if f is ds.shards["per_entity@entityId"]
-        else identity(f)))
+    assert ds.shards["per_entity@entityId"].projected and not ds.shards["per_entity"].projected
     assert run_config_key(coords, set(), weights) == jax_key

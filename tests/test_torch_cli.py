@@ -12,8 +12,11 @@
   * Warm start and partial retrain, the row validators, daily input
     directories, and the options of parts not ported yet (each raises
     naming its ROADMAP item, before any work), as in tests/test_cli.py;
-    the options this slice ported (--checkpoint-directory, FULL variances,
-    constraints.file, OWLQN, L1, elastic net) run through both drivers.
+    the options ported since (--checkpoint-directory, FULL variances,
+    constraints.file, OWLQN, L1, elastic net, --offheap-indexmap-dir with
+    PHIDX and PalDB stores, --hyper-parameter-tuning RANDOM and BAYESIAN)
+    run through both drivers, and --offheap-indexmap-dir through both
+    scoring drivers.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from photon_ml_tpu.io import score_store as jax_scores
 from photon_ml_tpu.types import DataValidationType as JaxValidation
 from photon_ml_tpu.types import TaskType as JaxTaskType
 from photon_ml_tpu.utils import date_range as jax_date_range
-from photon_ml_tpu_torch.cli import config
+from photon_ml_tpu_torch.cli import build_index, config
 from photon_ml_tpu_torch.cli import libsvm_to_avro
 from photon_ml_tpu_torch.cli import score as score_cli
 from photon_ml_tpu_torch.cli import train as train_cli
@@ -447,13 +450,14 @@ def test_date_ranges_resolve_like_the_jax_module(tmp_path, date, days):
 # cases with no item were refused until they were ported, and now run
 # through the port's driver and are held against the JAX driver's result.
 UNPORTED = [
-    (["--hyper-parameter-tuning", "BAYESIAN"], "item 8"),
+    (["--hyper-parameter-tuning", "BAYESIAN"], None),
     (["--checkpoint-directory", "ckpt"], None),
-    (["--offheap-indexmap-dir", "idx"], "item 4"),
+    (["--offheap-indexmap-dir", "idx"], None),
     (["--multihost", "2"], "item 9"),
     (["--mh-worker"], "item 9"),
     (["--profile", "profile.json"], "item 10"),
     (["--variance-computation-type", "FULL"], None),
+    (["--hyper-parameter-tuning", "RANDOM"], None),
 ]
 
 UNPORTED_COORDINATES = [
@@ -499,9 +503,99 @@ def _assert_drivers_agree(models, summaries, variances: bool = False):
         <= TOL["metric_atol"]
 
 
+def _build_index(data: Path, out: Path, fmt: str, partitions: int = 2) -> Path:
+    assert build_index.main(["--input-data-directories", str(data / "train.avro"),
+                             "--feature-shard-configurations", SHARD, "--num-partitions", str(partitions),
+                             "--output-dir", str(out), "--output-format", fmt]) == 0
+    return out
+
+
+def _load_by_name(model_dir: Path, like: Path):
+    """A model directory loaded through another directory's feature map, so
+    two models whose feature ids differ compare by feature name."""
+    imaps = {"globalShard": IndexMap.load(str(like / "feature-indexes" / "globalShard.json"))}
+    return model_store.load_game_model(str(model_dir), imaps)
+
+
+def _offheap_option(glmix, tmp_path, store: str):
+    """Both drivers train through the port's PHIDX and PalDB stores of the
+    training data: the same models as each other, the store's map shipped
+    beside the model, and the in-memory map's model by feature name."""
+    data = glmix["data"]
+    for fmt in ("phidx", "paldb"):
+        idx = _build_index(data, tmp_path / f"{store}-{fmt}", fmt)
+        root = tmp_path / fmt
+        models, summaries = _both_drivers(_train_args(data, Path("@OUT@"), ["--offheap-indexmap-dir", str(idx)]),
+                                          root)
+        _assert_drivers_agree(models, summaries)
+        shipped = {k: json.loads((root / k / "models" / "best" / "feature-indexes" / "globalShard.json").read_text())
+                   for k in ("port", "jax")}
+        assert shipped["port"] == shipped["jax"]
+        assert shipped["port"]["(INTERCEPT)"] == 0  # the store sorts the intercept first
+        in_memory = _load_by_name(glmix["models"]["port"], glmix["models"]["port"])
+        offheap = _load_by_name(root / "port" / "models" / "best", glmix["models"]["port"])
+        for cid in ("global", "per-member"):
+            assert np.abs(offheap.coordinates[cid].means - in_memory.coordinates[cid].means).max() <= TOL["coef_atol"]
+        assert abs(summaries["port"]["best_evaluation"]["AUC"] - glmix["port_summary"]["best_evaluation"]["AUC"]) \
+            <= TOL["metric_atol"]
+
+
+def _tuning_option(glmix, tmp_path, mode: str):
+    """Three trials after the explicit sweep, every model saved (ALL): the
+    same trial weights as the JAX driver where the searchers propose the
+    same points (every RANDOM trial, and BAYESIAN's Sobol trials), each
+    trial's model within the estimator tolerance of the JAX driver's, and
+    the best model chosen over explicit and tuned results."""
+    args = _train_args(glmix["data"], Path("@OUT@"), ["--hyper-parameter-tuning", mode,
+                                                      "--hyper-parameter-tuning-iter", "3"])
+    args[args.index("--output-mode") + 1] = "ALL"
+    models, summaries = _both_drivers(args, tmp_path)
+    for k in ("port", "jax"):
+        assert summaries[k]["num_explicit"] == 1 and summaries[k]["num_tuned"] == 3
+        assert sorted(os.listdir(tmp_path / k / "models")) == ["best", "explicit-0", "tuned-0", "tuned-1",
+                                                               "tuned-2"]
+    like = tmp_path / "port" / "models" / "best"
+    runs = {k: [_load_by_name(tmp_path / k / "models" / d, like) for d in ("explicit-0", "tuned-0", "tuned-1",
+                                                                          "tuned-2")]
+            for k in ("port", "jax")}
+    weights = {k: [{c: m.opt_configs[c]["reg_weight"] for c in ("global", "per-member")} for m in runs[k]]
+               for k in ("port", "jax")}
+    trials = summaries["port"]["tuning_trials"]
+    assert [t["reg_weights"] for t in trials] == weights["port"][1:]
+    assert all(t["fit_s"] > 0 for t in trials)
+    same = 4 if mode == "RANDOM" else 1 + 2  # BAYESIAN: the explicit fit and the two Sobol trials
+    for i in range(4):
+        if i < same:
+            assert weights["port"][i] == weights["jax"][i]
+            fe = {k: runs[k][i].coordinates["global"].means for k in ("port", "jax")}
+            assert np.abs(fe["port"] - fe["jax"]).max() <= TOL["coef_atol"]
+            # A random effect at a weight near 0 sits anywhere within its f32
+            # stopping noise, ~sqrt(2 eps f / l2) (PORT_TOLERANCES["estimator"]),
+            # so the trials' random effects compare on the metric the search
+            # reads: each saved model scored on the validation file.
+            auc = {}
+            for k in ("port", "jax"):
+                model = tmp_path / k / "models" / ("explicit-0" if i == 0 else f"tuned-{i - 1}")
+                auc[k] = score_cli.main(_score_args(glmix["data"], model, tmp_path / f"scores-{k}-{i}")
+                                        + ["--device", "cpu"])["evaluation"]["AUC"]
+            assert abs(auc["port"] - auc["jax"]) <= TOL["metric_atol"]
+            if i:
+                assert abs(auc["port"] - trials[i - 1]["value"]) <= TOL["metric_atol"]
+    aucs = [glmix["port_summary"]["best_evaluation"]["AUC"]] + [t["value"] for t in trials]
+    assert summaries["port"]["best_index"] == int(np.argmax(aucs))
+    assert summaries["port"]["best_evaluation"]["AUC"] == max(aucs)
+    if mode == "RANDOM":
+        assert summaries["port"]["best_index"] == summaries["jax"]["best_index"]
+        _assert_drivers_agree(models, summaries)
+
+
 def _ported_train_option(glmix, tmp_path, extra):
     data = glmix["data"]
-    if extra[0] == "--checkpoint-directory":
+    if extra[0] == "--offheap-indexmap-dir":
+        _offheap_option(glmix, tmp_path, extra[1])
+    elif extra[0] == "--hyper-parameter-tuning":
+        _tuning_option(glmix, tmp_path, extra[1])
+    elif extra[0] == "--checkpoint-directory":
         # One run writes the checkpoint, a rerun resumes from its end; both
         # give the uninterrupted fit's model.
         ckpt = {"port": tmp_path / extra[1], "jax": tmp_path / f"jax-{extra[1]}"}
@@ -562,11 +656,22 @@ def test_each_unported_coordinate_setting_raises_before_any_work(glmix, tmp_path
         assert np.any(inner == np.float32(-0.05)) or np.any(inner == np.float32(0.2))
 
 
-def test_score_refuses_the_offheap_index_store(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4\\)"):
-        score_cli.main(["--input-data-directories", "x", "--model-input-directory", "m",
-                        "--root-output-directory", str(tmp_path / "out"), "--feature-shard-configurations",
-                        SHARD, "--offheap-indexmap-dir", "idx", "--device", "cpu"])
+def test_score_refuses_the_offheap_index_store(glmix, tmp_path):
+    """Ported since: a model trained through a PHIDX store scores through
+    that store in both packages' scoring drivers, per uid as through the
+    JSON map saved beside it."""
+    data = glmix["data"]
+    idx = _build_index(data, tmp_path / "idx", "phidx", partitions=3)
+    train_cli.main(_train_args(data, tmp_path / "train", ["--device", "cpu", "--offheap-indexmap-dir", str(idx)]))
+    model = tmp_path / "train" / "models" / "best"
+    per_uid = {}
+    for name, extra in (("port", ["--offheap-indexmap-dir", str(idx), "--device", "cpu"]),
+                        ("port-json", ["--device", "cpu"]), ("jax", ["--offheap-indexmap-dir", str(idx)])):
+        out = tmp_path / f"scores-{name}"
+        (jax_score_cli if name == "jax" else score_cli).main(_score_args(data, model, out) + extra)
+        per_uid[name] = {it.uid: it.prediction_score for it in jax_scores.load_scores(str(out / "scores"))}
+    assert len(per_uid["port"]) == 800 and per_uid["port"] == per_uid["port-json"]
+    assert max(abs(per_uid["port"][u] - per_uid["jax"][u]) for u in per_uid["port"]) <= TOL["score_atol"]
 
 
 def test_cuda_without_a_card_raises_in_both_drivers(tmp_path, monkeypatch):

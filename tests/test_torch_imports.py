@@ -58,7 +58,10 @@ def test_every_port_module_imports_with_jax_blocked():
                  "cli.score", "cli.libsvm_to_avro", "data.libsvm", "data.validators",
                  "utils.date_range", "utils.observability", "optimize.constraints",
                  "game.checkpoint", "native.libsvm_parser", "models.glm", "models.training",
-                 "evaluation.legacy", "cli.glm_driver"):
+                 "evaluation.legacy", "cli.glm_driver", "native.index_store", "io.paldb",
+                 "cli.build_index", "cli.name_and_term", "hyperparameter", "hyperparameter.kernels",
+                 "hyperparameter.gp", "hyperparameter.slice_sampler", "hyperparameter.search",
+                 "hyperparameter.tuner"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = _BLOCK_JAX + textwrap.dedent(
         """
@@ -123,6 +126,49 @@ def test_the_legacy_driver_and_a_checkpointed_fit_run_with_jax_blocked(tmp_path)
     assert "ran" in proc.stdout
 
 
+def test_the_index_store_and_tuning_run_with_jax_blocked(tmp_path):
+    """cli.name_and_term, cli.build_index (PHIDX and PalDB), and cli.train
+    through each store with RANDOM then BAYESIAN tuning, where jax cannot be
+    imported."""
+    script = _BLOCK_JAX + textwrap.dedent(
+        """
+        import numpy as np
+        from photon_ml_tpu_torch.cli import build_index, name_and_term, train
+        from photon_ml_tpu_torch.io.avro_data import write_training_examples
+
+        root = sys.argv[1]
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(300, 3))
+        y = (rng.uniform(size=300) < 1 / (1 + np.exp(-x @ [1.0, -1.0, 0.5]))).astype(float)
+        rows = [[(f"f{j}", float(x[i, j])) for j in range(3)] for i in range(300)]
+        write_training_examples(root + "/train.avro", rows[:200], y[:200].tolist())
+        write_training_examples(root + "/val.avro", rows[200:], y[200:].tolist())
+        shard = "name=s,feature.bags=features,intercept=true"
+        name_and_term.main(["--input-data-directories", root + "/train.avro", "--feature-bags-keys",
+                            "features", "--output-dir", root + "/nat"])
+        for fmt, mode in (("phidx", "RANDOM"), ("paldb", "BAYESIAN")):
+            build_index.main(["--name-and-term-directory", root + "/nat", "--feature-shard-configurations",
+                              shard, "--num-partitions", "2", "--output-dir", root + "/" + fmt,
+                              "--output-format", fmt])
+            s = train.main(["--training-task", "LOGISTIC_REGRESSION", "--input-data-directories",
+                            root + "/train.avro", "--validation-data-directories", root + "/val.avro",
+                            "--root-output-directory", root + "/out-" + fmt, "--feature-shard-configurations",
+                            shard, "--coordinate-configurations",
+                            "name=g,feature.shard=s,regularization=L2,reg.weights=1",
+                            "--validation-evaluators", "AUC", "--offheap-indexmap-dir", root + "/" + fmt,
+                            "--hyper-parameter-tuning", mode, "--hyper-parameter-tuning-iter", "3",
+                            "--device", "cpu", "--logging-level", "ERROR"])
+            assert s["num_tuned"] == 3 and s["best_evaluation"]["AUC"] > 0.6, s
+        print("ran")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], capture_output=True, text=True,
+                          cwd=str(REPO), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "ran" in proc.stdout
+
+
 def test_port_sources_never_name_the_jax_package():
     for path in (REPO / "photon_ml_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
@@ -145,7 +191,8 @@ def test_cuda_is_the_default_and_is_never_swapped_for_the_cpu(monkeypatch):
         resolve_device("meta")
 
 
-@pytest.mark.parametrize("driver", ["train", "score", "libsvm_to_avro", "glm_driver"])
+@pytest.mark.parametrize("driver", ["train", "score", "libsvm_to_avro", "glm_driver", "build_index",
+                                    "name_and_term"])
 def test_each_driver_prints_its_help_with_jax_blocked(driver):
     script = _BLOCK_JAX + textwrap.dedent(
         """
@@ -160,5 +207,5 @@ def test_each_driver_prints_its_help_with_jax_blocked(driver):
     )
     assert proc.returncode == 0, proc.stderr
     assert "usage:" in proc.stdout
-    if driver != "libsvm_to_avro":
+    if driver not in ("libsvm_to_avro", "build_index", "name_and_term"):  # the host-only drivers
         assert "--device" in proc.stdout
