@@ -218,6 +218,29 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    the CPU, and BAYESIAN's first two trials the same Sobol points; the best
    model must be the argmax over the explicit and tuned results, and its
    weights those of that result.
+3v. Online serving (photon_ml_tpu_torch/serving/, cli/serve.py) on phase
+   3c's model directory (after 3t, on 3g's validation rows). First the
+   offline references, their launches counted apart: GameTransformer on
+   the validation file (sparse_matvec), phase 3's dense model on 65,536 of
+   its rows, and the library row reduction's differing rows by bucket (the
+   bits before `game.model.row_sum`). Then, counted from 0: load_bundle
+   (bytes, seconds), warmup (9 CUDA graphs for max_batch 256, seconds),
+   each bucket's graph replay against the same program run eagerly
+   (CUDA-event medians of 20); 4,096 e2e rows scored singly, in pairs and
+   in odd triples and all 65,536 at bucket 256, bit-equal to each other and
+   within PORT_TOLERANCES["convert_scores"] of the offline scores; phase
+   3's model bit-equal to GameTransformer at every bucket; cli.serve on
+   100,000 rows of the validation file and 1,000 with unseen ids (0 failed,
+   health CLOSED, every clean-run counter 0, the journal valid); the
+   device's idle share over one replay window (torch.profiler); and the
+   drills: score:p0.05 (bit-equal answers, degraded batches counted), a
+   persistent score fault past the breaker's threshold (FE-only answers
+   bit-equal to the FE-only tier, then the probe closes the circuit), a
+   watchdog trip (FE-only answer, device_hang reason cleared by the next
+   guarded dispatch), shard loss and in-place restage (bit-equal, no
+   recapture) and a hot-swap to the same directory under live traffic (0
+   failed, bit-equal, 9 captures). The engine path must launch none of the
+   six kernels.
 
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
 parallel/), each rank a process started by parallel/launch.py that loads
@@ -258,8 +281,8 @@ print which backend each used.
 
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
 3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, each run
-of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, and 3d and 4d
-in each rank) and read
+of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3v's engine
+path, and 3d and 4d in each rank) and read
 just after; the `kernels` line gives them by
 phase (`launches_by_phase`). "wall:" lines give each group of phases'
 seconds. The last three
@@ -1087,10 +1110,10 @@ def small_e2e_fit(ds) -> dict:
                 ds=ds, reds={c: coords[c].re_dataset for c in E2E_RE}, re_offsets=re_offsets)
 
 
-def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
-    """Phases 2e, 3e, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x, 3x-scale, 3t and
-    5e. Returns (phase 2e rows by kernel, the sparse launches by kernel of
-    each path)."""
+def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
+    """Phases 2e, 3e, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x, 3x-scale, 3t, 3v
+    and 5e (`dense`: phase 3's arrays and model, for 3v). Returns (phase 2e
+    rows by kernel, the sparse launches by kernel of each path)."""
     import os
     import tempfile
 
@@ -1252,6 +1275,8 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
         launches3x = walled("phase 3x", offheap_phase, root, work)
         walled("phase 3x-scale", offheap_scale_phase, work)
         launches3t = walled("phase 3t", tuning_phase, root, os.path.join(work, "validation"), work)
+        launches3v = walled("phase 3v", serving_phase, root, work, truth, n_users, n_movies, dense,
+                            dev)
     finally:
         e2e_dir.cleanup()
 
@@ -1286,7 +1311,366 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float):
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
     return rows2e, {"3e": launches, "3f": launches3f, "3c": launches3c, "3k": launches3k, "3g": launches3g,
-                    "3x": launches3x, "3t": launches3t}
+                    "3x": launches3x, "3t": launches3t, "3v": launches3v}
+
+
+SERVE_REPLAY_ROWS = 100_000  # 3v: rows of 3g's validation file cli.serve replays
+SERVE_UNSEEN = 1_000  # and requests with ids no model row has
+SERVE_PARITY_ROWS = 65_536  # rows scored at bucket 256 and held against offline scoring
+SERVE_SMALL_ROWS = 4_096  # rows scored singly, in pairs and in odd triples
+
+
+def e2e_records(a: dict, lo: int, hi: int, user_shift: int = 0, movie_shift: int = 0):
+    """Rows [lo, hi) of an e2e draw as the records its Avro file holds
+    (write_e2e_files), for serving.bundle.request_from_record."""
+    ip = a["indptr"]
+    return [{"features": [{"name": f"f{i}", "term": "", "value": float(v)}
+                          for i, v in zip(a["ids"][ip[r]:ip[r + 1]].tolist(), a["vals"][ip[r]:ip[r + 1]].tolist())],
+             "metadataMap": {"userId": str(int(a["users"][r]) + user_shift),
+                             "movieId": str(int(a["movies"][r]) + movie_shift)},
+             "uid": None, "offset": None} for r in range(lo, hi)]
+
+
+def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dense: dict, dev) -> dict:
+    """Phase 3v: the online serving tier on phase 3c's model directory (FE
+    over "g", 201 wide; per-user and per-movie), then phase 3's dense model.
+    Offline references first (their launches counted apart); then, with the
+    launch counts at 0, the engine path: staging, the nine bucket graphs,
+    graph against eager per bucket, batch invariance and parity, the
+    cli.serve replay, the idle share of one replay window, and the drills.
+    Returns the engine path's launches (all zero) and the offline ones."""
+    import os
+    import threading as _threading
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import serve as serve_cli
+    from photon_ml_tpu_torch.contracts import (
+        PORT_TOLERANCES,
+        ROBUSTNESS_CLEAN_ZERO_KEYS,
+        SERVING_CLEAN_ZERO_KEYS,
+        SERVING_METRIC_KEYS,
+        SERVING_SUMMARY_KEYS,
+    )
+    from photon_ml_tpu_torch.data.game_dataset import GameDataset
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.game.model import Coefficients, FixedEffectModel, GameModel, RandomEffectModel
+    from photon_ml_tpu_torch.io import model_bridge, model_store
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig, read_game_dataset
+    from photon_ml_tpu_torch.native.avro_writer import write_training_examples_columnar
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.parallel import mesh as pmesh
+    from photon_ml_tpu_torch.serving import ScoreRequest, ServingBundle, ServingEngine, load_bundle
+    from photon_ml_tpu_torch.serving.bundle import request_from_record
+    from photon_ml_tpu_torch.transformers.game_transformer import CoordinateScoringSpec, GameTransformer
+    from photon_ml_tpu_torch.types import TaskType
+    from photon_ml_tpu_torch.utils import faults, telemetry
+
+    def launches():
+        return {**sk.LAUNCHES, **glm_kernels.LAUNCHES, "rank_sum": pmesh.LAUNCHES["rank_sum"]}
+
+    def reset():
+        sk.reset_launch_counts()
+        glm_kernels.reset_launch_counts()
+        pmesh.LAUNCHES["rank_sum"] = 0
+
+    tol = PORT_TOLERANCES["convert_scores"]
+    best = os.path.join(root, "drivers", "train", "models", "best")
+    shards = {"g": FeatureShardConfig(("features",), True)}
+    failures = []
+    t_phase = time.perf_counter()
+
+    # ---- offline references (counted apart) ------------------------------------------
+    reset()
+    val = e2e_arrays(E2E_ROWS // 4, seed=24, n_users=n_users, n_movies=n_movies, truth=truth)  # 3g's rows
+    imaps = {"g": IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))}
+    artifact = model_store.load_game_model(best, imaps)
+    ds, _ = read_game_dataset(os.path.join(work, "validation"), shards, index_maps=imaps,
+                              id_tag_fields=E2E_TAGS, device=dev)
+    model, specs = model_bridge.game_model_from_artifact(artifact, dev)
+    offline = GameTransformer(model, specs, artifact.task).transform(ds).scores[:SERVE_PARITY_ROWS].cpu().numpy()
+    del ds, model
+    X, Xe, entity = (dense["arrays"][k][:SERVE_PARITY_ROWS] for k in ("X", "Xe", "entity"))
+    p3 = dense["phase3"]
+    task = TaskType.LOGISTIC_REGRESSION
+    d_model = GameModel({"fixed": FixedEffectModel(Coefficients(p3["fe"].to(dev)), task),
+                         "per-entity": RandomEffectModel(p3["re"].to(dev), None, task)})
+    d_specs = {"fixed": CoordinateScoringSpec(shard="global"),
+               "per-entity": CoordinateScoringSpec(shard="per_entity", random_effect_type="entityId",
+                                                   entity_index={e: e for e in range(p3["re"].shape[0] - 1)})}
+    d_ds = GameDataset.build({"global": X, "per_entity": Xe}, np.zeros(len(X), np.float32),
+                             id_tags={"entityId": entity}, device=dev)
+    d_ref = GameTransformer(d_model, d_specs, task).transform(d_ds).scores.cpu().numpy()
+    # The library row reduction's bits by bucket, which `row_sum` replaced on
+    # the scoring path: each bucket's slices against one pass of all rows.
+    w_fe, M = p3["fe"].to(dev), p3["re"].to(dev)
+    Xt, Xet = d_ds.shards["global"], d_ds.shards["per_entity"]
+    rows_t = torch.as_tensor(entity.astype(np.int64), device=dev)
+    full_fe, full_re = torch.sum(Xt * w_fe, dim=-1), torch.sum(Xet * M[rows_t], dim=-1)
+    torch_sum_diff = {}
+    for b in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+        n_fe = n_re = 0
+        for lo in range(0, SERVE_SMALL_ROWS, b):
+            sl = slice(lo, lo + b)
+            n_fe += int((torch.sum(Xt[sl] * w_fe, dim=-1) != full_fe[sl]).sum())
+            n_re += int((torch.sum(Xet[sl] * M[rows_t[sl]], dim=-1) != full_re[sl]).sum())
+        torch_sum_diff[b] = dict(fe_512=n_fe, re_16=n_re)
+    del d_ds, Xt, Xet, full_fe, full_re
+    offline_launches = launches()
+    d_bundle = ServingBundle.from_model(d_model, d_specs, task, device=dev)
+    d_reqs = [ScoreRequest(features={"global": X[i], "per_entity": Xe[i]}, entity_ids={"entityId": int(entity[i])})
+              for i in range(len(X))]
+    e2e_reqs_recs = e2e_records(val, 0, SERVE_PARITY_ROWS)
+    torch.cuda.synchronize()
+    log(json.dumps(dict(phase="3v-setup", offline_s=time.perf_counter() - t_phase,
+                        offline_launches=offline_launches, torch_sum_rows_differing_of_4096=torch_sum_diff)))
+
+    # ---- the engine path: launch counts at 0 ---------------------------------------------
+    reset()
+    telemetry.METRICS.reset()
+    t0 = time.perf_counter()
+    bundle = load_bundle(best, device=dev)
+    load_s = time.perf_counter() - t0
+    engine = ServingEngine(bundle, circuit_probe_interval_s=0.05)
+    reqs = [request_from_record(bundle, r, shards) for r in e2e_reqs_recs]
+    t0 = time.perf_counter()
+    captures = engine.warmup()
+    warm_s = time.perf_counter() - t0
+    bucket_ms = {}
+    for b, prog in sorted(engine._state.programs.items()):
+        g_ms = time_ms(torch, lambda: prog.graph.replay())
+        e_ms = time_ms(torch, prog._program)
+        bucket_ms[b] = dict(graph_ms=g_ms, eager_ms=e_ms, eager_over_graph=e_ms / g_ms)
+    log(json.dumps(dict(phase="3v-staging", load_s=load_s, upload_bytes=bundle.upload_bytes,
+                        upload_mib=bundle.upload_bytes / 2**20, upload_s=bundle.upload_s,
+                        coordinates={c.cid: list(c.params.shape) for c in bundle.coordinates.values()},
+                        buckets=list(engine.buckets), captures=captures, warmup_s=warm_s,
+                        static_buffer_bytes=engine.warmup_buffer_bytes(), bucket_ms=bucket_ms)))
+    if captures != 9 or engine.buckets[-1] != 256:
+        failures.append(f"warmup captured {captures} graphs over buckets {engine.buckets}")
+
+    def scores(results):
+        return np.asarray([r.score for r in results], np.float32)
+
+    t0 = time.perf_counter()
+    small = reqs[:SERVE_SMALL_ROWS]
+    singles = np.concatenate([scores(engine.score_batch([r])) for r in small])
+    pairs = np.concatenate([scores(engine.score_batch(small[i:i + 2])) for i in range(0, len(small), 2)])
+    triples = np.concatenate([scores(engine.score_batch(small[i:i + 3])) for i in range(0, len(small), 3)])
+    full = np.concatenate([scores(engine.score_batch(reqs[i:i + 256])) for i in range(0, len(reqs), 256)])
+    e2e_s = time.perf_counter() - t0
+    e2e_bits = bool((singles == full[:SERVE_SMALL_ROWS]).all() and (pairs == singles).all()
+                    and (triples == singles).all())
+    e2e_err = float(np.abs(full.astype(np.float64) - offline).max())
+    e2e_ok = bool(np.allclose(full, offline, rtol=tol["rtol"], atol=tol["atol"]))
+    t0 = time.perf_counter()
+    with ServingEngine(d_bundle) as d_engine:
+        d_captures = d_engine.warmup()
+        d_by_bucket, d_rows = {}, {}
+        for b in d_engine.buckets:  # every row from buckets of 64 up, the first 4,096 below
+            n_rows = len(d_reqs) if b >= 64 else SERVE_SMALL_ROWS
+            got = np.concatenate([scores(d_engine.score_batch(d_reqs[i:i + b])) for i in range(0, n_rows, b)])
+            d_by_bucket[b], d_rows[b] = int((got != d_ref[:n_rows]).sum()), n_rows
+        d_recompiles = d_engine.recompiles_after_warmup
+    dense_s = time.perf_counter() - t0
+    log(json.dumps(dict(phase="3v-parity", e2e_rows=len(reqs), small_rows=SERVE_SMALL_ROWS,
+                        e2e_bit_equal_across_buckets=e2e_bits, e2e_max_abs_vs_offline=e2e_err, e2e_tol=tol,
+                        e2e_within_tol=e2e_ok, e2e_s=e2e_s, dense_rows_checked=d_rows,
+                        dense_rows_differing_by_bucket=d_by_bucket, dense_captures=d_captures,
+                        dense_recompiles=d_recompiles, dense_s=dense_s,
+                        recompiles_after_warmup=engine.recompiles_after_warmup)))
+    if not e2e_bits or not e2e_ok:
+        failures.append(f"e2e rows: bit-equal across buckets {e2e_bits}, {e2e_err:.3e} from offline scoring")
+    if any(d_by_bucket.values()) or d_recompiles != 0:
+        failures.append(f"phase 3's model is not bit-equal to GameTransformer at every bucket: {d_by_bucket}")
+    del d_bundle, d_reqs, d_model
+
+    # ---- the driver: cli.serve on 100,000 rows of 3g's validation file + unseen ids ---------
+    replay_dir = os.path.join(work, "serve-requests")
+    os.makedirs(replay_dir)
+    ip = val["indptr"]
+    n = SERVE_REPLAY_ROWS
+    names = [f"f{i}" for i in range(E2E_D)]
+    write_training_examples_columnar(os.path.join(replay_dir, "part-0.avro"), val["labels"][:n], ip[:n + 1],
+                                     val["ids"][:ip[n]], val["vals"][:ip[n]], names,
+                                     int_tags={"userId": val["users"][:n], "movieId": val["movies"][:n]})
+    m = SERVE_UNSEEN
+    write_training_examples_columnar(os.path.join(replay_dir, "part-1.avro"), val["labels"][n:n + m],
+                                     ip[n:n + m + 1] - ip[n], val["ids"][ip[n]:ip[n + m]],
+                                     val["vals"][ip[n]:ip[n + m]], names,
+                                     int_tags={"userId": val["users"][n:n + m] + 10_000_000,
+                                               "movieId": val["movies"][n:n + m] + 10_000_000})
+    out = os.path.join(work, "serve")
+    telemetry.METRICS.reset()
+    t0 = time.perf_counter()
+    summary = serve_cli.main(["--model-input-directory", best, "--requests", replay_dir,
+                              "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
+                              "--logging-level", "WARNING"])
+    serve_wall = time.perf_counter() - t0
+    sv = summary["serving"]
+    journal_ok, journal_errors = telemetry.validate_journal(os.path.join(out, "journal.jsonl"))
+    robust = {k: summary["robustness_counters"][k] for k in ROBUSTNESS_CLEAN_ZERO_KEYS}
+    log(json.dumps(dict(
+        phase="3v-serve", wall_s=serve_wall, num_requests=summary["num_requests"],
+        failed_requests=summary["failed_requests"], malformed_records=summary["malformed_records"],
+        serving={k: sv[k] for k in (*SERVING_METRIC_KEYS, *SERVING_CLEAN_ZERO_KEYS, "completed", "batches",
+                                     "batch_size_p50", "batch_size_p95", "padding_waste", "cold_start_lookups",
+                                     "compiles", "engine_qps", "upload_bytes", "upload_s", "stage_walls_s")},
+        health=summary["health"]["state"], robustness_counters=robust, journal_lines=journal_ok,
+        journal_errors=journal_errors, summary_keys_ok=sorted(summary) == sorted(SERVING_SUMMARY_KEYS))))
+    if summary["num_requests"] != n + m or summary["failed_requests"] or summary["health"]["state"] != "CLOSED" \
+            or any(robust.values()) or any(sv[k] for k in SERVING_CLEAN_ZERO_KEYS) \
+            or sv["recompiles_after_warmup"] != 0 or journal_errors or sorted(summary) != sorted(SERVING_SUMMARY_KEYS):
+        failures.append("the cli.serve replay is not clean (see the 3v-serve line)")
+
+    # ---- idle share over one replay window (8,192 requests through the batcher) -------------
+    window = reqs[:serve_cli.REPLAY_WINDOW]
+    with engine.batcher() as b:
+        t0 = time.perf_counter()
+        b.score_all(window)
+        wall = time.perf_counter() - t0
+        batches0 = engine.metrics()["batches"]
+        prof = profile_call(lambda: b.score_all(window), wall)
+        batches = engine.metrics()["batches"] - batches0
+    log(json.dumps(dict(phase="3v-idle", requests=len(window), batches=batches, **prof)))
+
+    # ---- drills on the served bundle's engine -------------------------------------------------
+    clean = scores(engine.score_batch(reqs[:1024]))
+    fe_only = scores(engine.score_batch_fe_only(reqs[:1024]))
+    drills = {}
+    telemetry.METRICS.reset()
+    import logging
+
+    port_log = logging.getLogger("photon_ml_tpu_torch")
+    log_level = port_log.level
+    port_log.setLevel(logging.ERROR)  # each injected fault and retry logs a warning
+    with faults.inject("score:p0.05", seed=3):
+        with engine.batcher(max_batch=16) as b:  # 256 batches or more: about 13 faults
+            got = scores(b.score_all(small))
+    drills["score_p0.05"] = dict(requests=len(small), bit_equal=bool((got == singles).all()),
+                                 degraded_batches=faults.COUNTERS.get("serving_degraded_batches"))
+    os.environ["PHOTON_RETRY_MAX_ATTEMPTS"] = "1"
+    try:
+        with faults.inject("score:1000"):
+            with engine.batcher(max_wait_ms=0.5) as b:
+                answers, errors = {}, 0
+                for i in range(32):
+                    try:
+                        answers[i] = b.submit(reqs[i]).result(timeout=60)
+                    except faults.InjectedFault:
+                        errors += 1
+        opened = engine.breaker.state.value
+        time.sleep(0.06)  # the probe interval
+        with engine.batcher() as b:
+            probe = b.submit(reqs[32]).result(timeout=60)
+            after = scores(b.score_all(reqs[33:64]))
+    finally:
+        del os.environ["PHOTON_RETRY_MAX_ATTEMPTS"]
+    drills["breaker"] = dict(errors_before_open=errors, state_under_faults=opened,
+                             fe_only_answers=sum(r.fe_only for r in answers.values()),
+                             fe_only_bit_equal=bool(all(r.fe_only and np.float32(r.score) == fe_only[i]
+                                                        for i, r in answers.items())),
+                             probe_full=bool(not probe.fe_only and np.float32(probe.score) == clean[32]),
+                             state_after_probe=engine.breaker.state.value,
+                             after_bit_equal=bool((after == clean[33:64]).all()))
+    trips0 = faults.COUNTERS.get("watchdog_trips")
+    engine._watchdog_ms = 0.001  # far below one dispatch
+    hung = None
+    with engine.batcher() as b:
+        for i in range(64):
+            res = b.submit(reqs[i]).result(timeout=60)
+            if faults.COUNTERS.get("watchdog_trips") > trips0:
+                hung = (i, res)
+                break
+        for _ in range(100):  # the monitor thread marks the engine just after the trip
+            if "device_hang" in engine.health.degraded_reasons:
+                break
+            time.sleep(0.01)
+        degraded_at_trip = list(engine.health.degraded_reasons)
+        engine._watchdog_ms = 60_000.0
+        cleared = b.submit(reqs[100]).result(timeout=60)
+    engine._watchdog_ms = 0.0
+    drills["watchdog"] = dict(trips=faults.COUNTERS.get("watchdog_trips") - trips0,
+                              answered_fe_only=bool(hung is not None and hung[1].fe_only
+                                                    and np.float32(hung[1].score) == fe_only[hung[0]]),
+                              degraded_at_trip=degraded_at_trip, cleared=engine.health.degraded_reasons == [],
+                              after_bit_equal=bool(np.float32(cleared.score) == clean[100]))
+    compiles0 = engine.compiles
+    coord = engine.bundle.coordinates["per-user"]
+    host_rows = coord.params.cpu().numpy().copy()
+    engine.mark_shard_lost("per-user", 0)
+    lost = engine.score_batch(reqs[:1024])
+    cold_user = [ScoreRequest(features=r.features, entity_ids={**r.entity_ids, "userId": "-1"}) for r in reqs[:1024]]
+    cold_ref = scores(engine.score_batch(cold_user))
+    with engine._device_mutex:
+        coord.params.zero_()  # the shard's rows are gone from the card
+    t0 = time.perf_counter()
+    nbytes = engine.restage_shard("per-user", 0, rows=host_rows)
+    restage_s = time.perf_counter() - t0
+    back = scores(engine.score_batch(reqs[:1024]))
+    drills["shard_loss"] = dict(lost_answers=sum(r.n_lost for r in lost),
+                                lost_bit_equal_to_cold_user=bool((scores(lost) == cold_ref).all()),
+                                restaged_bytes=nbytes, restage_s=restage_s,
+                                restaged_bit_equal=bool((back == clean).all()),
+                                recaptures=engine.compiles - compiles0, health=engine.health.state.value)
+    stop = _threading.Event()
+    traffic = dict(answered=0, failed=0, mismatched=0)
+    with engine.batcher() as b:
+        def flow():
+            i = 0
+            while not stop.is_set():
+                k = i % 1024
+                try:
+                    r = b.submit(reqs[k], block=True).result(timeout=60)
+                    traffic["answered"] += 1
+                    traffic["mismatched"] += int(np.float32(r.score) != clean[k])
+                except Exception:  # counted: the drill wants none
+                    traffic["failed"] += 1
+                i += 1
+
+        t = _threading.Thread(target=flow, name="chip-smoke-serving-traffic")
+        t.start()
+        try:
+            time.sleep(0.2)  # traffic on the old generation
+            info = engine.bundle_manager.swap(lambda: load_bundle(best, device=dev))
+            time.sleep(0.2)  # and on the new one
+        finally:
+            stop.set()
+            t.join(timeout=120)
+    drills["swap"] = dict(**traffic, version=info["version"], stage_s=info["stage_s"],
+                          staging_captures=info["staging_compiles"], old_released=info["old_released"],
+                          recompiles_after_warmup=engine.recompiles_after_warmup)
+    engine.close()
+    port_log.setLevel(log_level)
+    path_launches = launches()
+    log(json.dumps(dict(phase="3v-drills", **drills)))
+    d = drills
+    if not (d["score_p0.05"]["bit_equal"] and d["score_p0.05"]["degraded_batches"] > 0):
+        failures.append(f"score:p0.05 drill {d['score_p0.05']}")
+    if not (d["breaker"]["errors_before_open"] == 5 and d["breaker"]["state_under_faults"] == "OPEN"
+            and d["breaker"]["fe_only_answers"] == 32 - 5 and d["breaker"]["fe_only_bit_equal"]
+            and d["breaker"]["probe_full"] and d["breaker"]["state_after_probe"] == "CLOSED"
+            and d["breaker"]["after_bit_equal"]):
+        failures.append(f"breaker drill {d['breaker']}")
+    if not (d["watchdog"]["trips"] > 0 and d["watchdog"]["answered_fe_only"]
+            and "device_hang" in d["watchdog"]["degraded_at_trip"] and d["watchdog"]["cleared"]
+            and d["watchdog"]["after_bit_equal"]):
+        failures.append(f"watchdog drill {d['watchdog']}")
+    if not (d["shard_loss"]["lost_answers"] > 0 and d["shard_loss"]["lost_bit_equal_to_cold_user"]
+            and d["shard_loss"]["restaged_bit_equal"] and d["shard_loss"]["recaptures"] == 0):
+        failures.append(f"shard-loss drill {d['shard_loss']}")
+    if not (d["swap"]["answered"] > 0 and d["swap"]["failed"] == 0 and d["swap"]["mismatched"] == 0
+            and d["swap"]["version"] == 1 and d["swap"]["staging_captures"] == 9
+            and d["swap"]["recompiles_after_warmup"] == 0):
+        failures.append(f"swap drill {d['swap']}")
+    if any(path_launches.values()):
+        failures.append(f"the engine path launched a kernel: {path_launches}")
+    log(json.dumps(dict(phase="3v", wall_s=time.perf_counter() - t_phase, launches=path_launches,
+                        offline_launches=offline_launches, ok=not failures)))
+    if failures:
+        raise SystemExit("phase 3v failed: " + "; ".join(failures))
+    return dict(path=path_launches, offline=offline_launches)
 
 
 def small_estimator_fits(where: str, a: dict, n_train: int) -> dict:
@@ -3491,8 +3875,8 @@ def main(argv=None) -> int:
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c, 3k, 5k, 3g, 3x, 3t", e2e_phases, args.seed, dev, bw,
-                                    f32_rate)
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c, 3k, 5k, 3g, 3x, 3t, 3v", e2e_phases, args.seed, dev,
+                                    bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
     # ---- phase 5f: small estimator fits, card vs CPU --------------------------------
     small_launches = walled("phase 5f", estimator_small_phase, args.seed + 51)
@@ -3517,7 +3901,8 @@ def main(argv=None) -> int:
                        + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k] + launches3o[k]),
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
                                 "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
-                                "5c": driver_launches["dense"][k], "3o": launches3o[k]},
+                                "5c": driver_launches["dense"][k], "3o": launches3o[k],
+                                "3v": e2e_launches["3v"]["path"][k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
@@ -3538,7 +3923,7 @@ def main(argv=None) -> int:
                                 "3c": e2e_launches["3c"]["sparse"][k], "5c": driver_launches["sparse"][k],
                                 "3k+5k+3o": e2e_launches["3k"][k], "3g": e2e_launches["3g"][k],
                                 "5g": legacy_launches[k], "3x": e2e_launches["3x"][k],
-                                "3t": e2e_launches["3t"][k]},
+                                "3t": e2e_launches["3t"][k], "3v": e2e_launches["3v"]["path"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
@@ -3552,6 +3937,7 @@ def main(argv=None) -> int:
     kernels += [
         dict(name=k, route="cuda", source="photon_ml_tpu_torch/csrc/exact_sum.cu",
              replaces=DIST_REPLACES[k], launches=dist_launches[k],
+             launches_by_phase={"3d+4d": dist_launches[k], "3v": e2e_launches["3v"]["path"][k]},
              rank_sum_launches=dist_launches["rank_sum"], **dist_rows[k])
         for k in DIST_REPLACES
     ]

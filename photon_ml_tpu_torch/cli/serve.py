@@ -1,0 +1,303 @@
+"""Online serving driver: pin a model once, replay a request stream.
+
+Port of the single-tenant path of `photon_ml_tpu/cli/serve.py` (`run`,
+`_run_with_bundle`): load a model directory written by either package's
+`cli.train` onto the device (`--device`, default cuda; cuda with no card
+raises), build the engine's bucket programs (CUDA graphs on the card),
+stream the requests through the deadline micro-batcher in windows of
+REPLAY_WINDOW, and write one ScoringResultAvro part per window under
+`<root>/scores`, `serving-summary.json` (every SERVING_SUMMARY_KEYS key:
+`plan` is the reference's inactive block, the port has no planner;
+`tenants`, `shadow` and `autopilot` are empty), `journal.jsonl`,
+`profile.json`, and `trace.json` when PHOTON_TRACE is on.
+
+Requests are JSON lines (`.json`/`.jsonl`: {"uid", "offset", "ids":
+{re_type: id}, "features": {shard: {feature_key: value} | {"indices",
+"values"} | [dense]}}) or Avro records of the training data's shape (a file
+or a part-file directory; needs `--feature-shard-configurations`). A
+request that cannot be encoded or scored costs its own record, counted.
+The Avro reader is strict: a corrupt block raises.
+
+`--tenant`, `--shadow`, `--labels`, `--autopilot` and `--profile` (ROADMAP
+item 10) and `--reshard-to`, `--multihost` and `--mh-*` (item 9) raise
+before anything is staged.
+
+Usage: python -m photon_ml_tpu_torch.cli.serve --help
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import logging
+import os
+import sys
+import time
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.serving.bundle import ScoreRequest, ServingBundle, load_bundle, request_from_record
+from photon_ml_tpu_torch.serving.engine import ServingEngine
+
+logger = logging.getLogger("photon_ml_tpu_torch.cli.serve")
+
+# Requests go through the batcher a window at a time: memory stays
+# O(window), and each window's scores are one part file.
+REPLAY_WINDOW = 8192
+
+# Flags of parts the port has not got, and the ROADMAP item that brings each.
+UNPORTED = {
+    "tenant": "--tenant (multi-tenant serving) is ROADMAP item 10",
+    "shadow": "--shadow (shadow deployment) is ROADMAP item 10",
+    "labels": "--labels (online evaluation of a shadow) is ROADMAP item 10",
+    "autopilot": "--autopilot (closed-loop autoscaling) is ROADMAP item 10",
+    "profile": "--profile (the adaptive runtime planner) is ROADMAP item 10",
+    "reshard_to": "--reshard-to (live resharding of the serving store) is ROADMAP item 9",
+    "multihost": "--multihost (multi-host serving) is ROADMAP item 9",
+    "multihost_devices_per_host": "--multihost-devices-per-host (multi-host serving) is ROADMAP item 9",
+    "mh_serve_worker": "--mh-serve-worker (multi-host serving) is ROADMAP item 9",
+    "mh_host_id": "--mh-host-id (multi-host serving) is ROADMAP item 9",
+    "mh_num_hosts": "--mh-num-hosts (multi-host serving) is ROADMAP item 9",
+    "mh_attempt": "--mh-attempt (multi-host serving) is ROADMAP item 9",
+    "mh_resume_window": "--mh-resume-window (multi-host serving) is ROADMAP item 9",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="photon_ml_tpu_torch.cli.serve",
+        description="Replay scoring requests through the online serving engine "
+                    "(Photon ML on PyTorch)")
+    p.add_argument("--model-input-directory", default=None,
+                   help="a model directory written by either package's training driver")
+    p.add_argument("--requests", required=True,
+                   help="a .json/.jsonl file (one request a line) or an Avro file/part directory")
+    p.add_argument("--root-output-directory", required=True)
+    p.add_argument("--feature-shard-configurations", nargs="+", default=None, metavar="DSL",
+                   help="required for Avro requests: the shard DSL the scoring driver takes")
+    p.add_argument("--offheap-indexmap-dir", default=None,
+                   help="prebuilt feature-index partitions (PalDB or PHIDX); default: the JSON "
+                        "maps saved beside the model")
+    p.add_argument("--max-batch", type=int, default=None,
+                   help="largest micro-batch and bucket program (default 256)")
+    p.add_argument("--max-wait-ms", type=float, default=None,
+                   help="flush a partial batch once its oldest request has waited this long "
+                        "(default 2.0)")
+    p.add_argument("--max-pending", type=int, default=None,
+                   help="admission bound on the pending queue (default 4x max-batch)")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="per-request deadline budget (default: none)")
+    p.add_argument("--model-id", default=None, help="model id tag written into every score record")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu; cuda with no card raises")
+    p.add_argument("--logging-level", default="INFO")
+    for flag, kind in (("--tenant", "append"), ("--shadow", None), ("--labels", None),
+                       ("--autopilot", "store_true"), ("--profile", None), ("--reshard-to", int),
+                       ("--multihost", int), ("--multihost-devices-per-host", int),
+                       ("--mh-serve-worker", "store_true"), ("--mh-host-id", int),
+                       ("--mh-num-hosts", int), ("--mh-attempt", int), ("--mh-resume-window", int)):
+        if kind in ("append", "store_true"):
+            p.add_argument(flag, action=kind, default=None, help=argparse.SUPPRESS)
+        else:
+            p.add_argument(flag, type=kind, default=None, help=argparse.SUPPRESS)
+    return p
+
+
+def _encode_json_request(bundle: ServingBundle, doc: dict) -> ScoreRequest:
+    features = {}
+    for shard, payload in (doc.get("features") or {}).items():
+        if isinstance(payload, dict) and "indices" in payload:
+            features[shard] = (np.asarray(payload["indices"], np.int32),
+                               np.asarray(payload.get("values", []), np.float32))
+        elif isinstance(payload, dict):
+            features[shard] = payload  # named features, through the index maps
+        else:
+            features[shard] = np.asarray(payload, np.float32)
+    return bundle.encode_request(features, entity_ids=doc.get("ids") or {},
+                                 offset=float(doc.get("offset") or 0.0),
+                                 uid=None if doc.get("uid") is None else str(doc["uid"]))
+
+
+def _iter_json_requests(path: str, bundle: ServingBundle, malformed: List[int]) -> Iterator[ScoreRequest]:
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                req = _encode_json_request(bundle, json.loads(line))
+            except Exception as exc:  # one malformed line costs one record
+                malformed[0] += 1
+                logger.warning("skipping malformed request at %s:%d: %s", path, lineno, exc)
+                continue
+            yield req
+
+
+def _iter_avro_requests(path: str, bundle: ServingBundle, shard_configs,
+                        malformed: List[int]) -> Iterator[ScoreRequest]:
+    from photon_ml_tpu_torch.io import avro as avro_io
+
+    for p in avro_io.list_container_files(path):
+        for _, rec in avro_io.iter_container(p):
+            try:
+                req = request_from_record(bundle, rec, shard_configs)
+            except Exception as exc:  # one malformed record costs one record
+                malformed[0] += 1
+                logger.warning("skipping malformed replay record in %s: %s", p, exc)
+                continue
+            yield req
+
+
+def _write_score_part(scores_dir: str, k: int, results, model_id: str) -> str:
+    """One window's scores as a ScoringResultAvro part, written under a
+    dot-prefixed name (which readers skip) and renamed into place. `results`
+    holds (stream position, ScoreResult); a uid defaults to the position."""
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.native import avro_writer
+
+    part = avro_io.part_file_path(scores_dir, k)
+    tmp = os.path.join(scores_dir, f".part-{k:05d}.avro.tmp")
+    uids = np.asarray([r.uid if r.uid is not None else str(pos) for pos, r in results])
+    table, codes = np.unique(uids, return_inverse=True)
+    avro_writer.write_scores_columnar(tmp, np.asarray([r.score for _, r in results], np.float64),
+                                      model_id, uid_strings=(codes.reshape(-1), [str(u) for u in table]))
+    os.replace(tmp, part)
+    return part
+
+
+def run(args) -> Dict[str, object]:
+    logging.basicConfig(level=getattr(logging, args.logging_level.upper(), logging.INFO),
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    # Refusals and argument checks come before anything is staged.
+    for key, message in UNPORTED.items():
+        if getattr(args, key, None) not in (None, False):
+            raise NotImplementedError(message)
+    if not args.model_input_directory:
+        raise ValueError("--model-input-directory is required")
+    is_json = args.requests.endswith((".json", ".jsonl"))
+    if not is_json and not args.feature_shard_configurations:
+        raise ValueError("Avro request replay needs --feature-shard-configurations (the bag -> "
+                         "shard mapping offline ingest uses)")
+    device = resolve_device(args.device)
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.native import avro_writer
+    from photon_ml_tpu_torch.utils import telemetry
+
+    avro_writer.require_deflate()
+    shard_configs = dict(parse_feature_shard_config(s) for s in args.feature_shard_configurations or [])
+    index_maps = None
+    if args.offheap_indexmap_dir:
+        from photon_ml_tpu_torch.io.paldb import resolve_offheap_index_maps
+
+        index_maps = resolve_offheap_index_maps(args.offheap_indexmap_dir, shard_configs)
+
+    out_root = args.root_output_directory
+    os.makedirs(out_root, exist_ok=True)
+    journal = telemetry.RunJournal(os.path.join(out_root, "journal.jsonl"))
+    # Install only the slots this run owns: a caller's journal or tracer
+    # stays installed.
+    journal_owned = telemetry.current_journal() is None
+    if journal_owned:
+        telemetry.install_journal(journal)
+    tracer_owned = telemetry.current_tracer() is None
+    tracer = telemetry.start_tracing_if_enabled()
+    try:
+        bundle = load_bundle(args.model_input_directory, device=device, index_maps=index_maps)
+        logger.info("bundle pinned: %d coordinate(s), %.1f MB staged in %.3fs",
+                    len(bundle.coordinates), bundle.upload_bytes / 1e6, bundle.upload_s)
+        try:
+            return _run_with_bundle(args, bundle, shard_configs, is_json)
+        finally:
+            bundle.release()
+    finally:
+        if tracer is not None and tracer_owned:
+            tracer.export(os.path.join(out_root, "trace.json"))
+            telemetry.uninstall_tracer()
+        if journal_owned:
+            telemetry.uninstall_journal()
+        journal.close()
+
+
+def _run_with_bundle(args, bundle: ServingBundle, shard_configs, is_json: bool) -> Dict[str, object]:
+    from photon_ml_tpu_torch.contracts import PLAN_BLOCK_KEYS, ROBUSTNESS_CLEAN_ZERO_KEYS
+    from photon_ml_tpu_torch.utils import faults, telemetry
+
+    malformed = [0]  # records dropped before submission
+    stream = (_iter_json_requests(args.requests, bundle, malformed) if is_json
+              else _iter_avro_requests(args.requests, bundle, shard_configs, malformed))
+    out_root = args.root_output_directory
+    engine = ServingEngine(bundle, max_batch=args.max_batch)
+    t_warm = time.perf_counter()
+    with telemetry.span("serve_warmup"):
+        compiles = engine.warmup()
+    warmup_s = time.perf_counter() - t_warm
+    logger.info("engine warm: %d bucket program(s) built in %.3fs", compiles, warmup_s)
+
+    scores_dir = os.path.join(out_root, "scores")
+    os.makedirs(scores_dir, exist_ok=True)
+    model_id = args.model_id or "game-model"
+    n_requests = 0
+    n_failed = 0
+    t_replay = time.perf_counter()
+    with telemetry.span("serve_replay"), engine, engine.batcher(
+            max_wait_ms=args.max_wait_ms, max_pending=args.max_pending,
+            default_deadline_ms=args.deadline_ms) as batcher:
+        for k in itertools.count():
+            window = list(itertools.islice(stream, REPLAY_WINDOW))
+            if not window:
+                break
+            # A closed-loop client: block=True waits for room in the queue.
+            futures = [batcher.submit(r, block=True) for r in window]
+            results = []
+            for i, fut in enumerate(futures):
+                try:
+                    results.append((n_requests + i, fut.result()))
+                except Exception as exc:  # one failed request costs one record
+                    n_failed += 1
+                    logger.warning("request %r failed: %s",
+                                   window[i].uid if window[i].uid is not None else str(n_requests + i),
+                                   exc)
+            if results:
+                _write_score_part(scores_dir, k, results, model_id)
+            n_requests += len(window)
+        replay_s = time.perf_counter() - t_replay
+        metrics = batcher.metrics()
+        wait_ms = batcher.max_wait_s * 1e3
+    logger.info("replayed %d request(s), %d failed, %d malformed record(s) skipped; scores in %s",
+                n_requests, n_failed, malformed[0], scores_dir)
+    summary = {
+        "num_requests": n_requests,
+        "failed_requests": n_failed,
+        "malformed_records": malformed[0],
+        "serving": metrics,
+        "health": engine.health.snapshot(),
+        "robustness_counters": {**{k: 0 for k in ROBUSTNESS_CLEAN_ZERO_KEYS}, **faults.counters()},
+        "plan": dict(zip(PLAN_BLOCK_KEYS, (False, "off", None, []))),
+        "tenants": {},
+        "provenance": dict(engine.bundle.provenance),
+        "shadow": {},
+        "autopilot": {},
+    }
+    with open(os.path.join(out_root, "serving-summary.json"), "w") as f:
+        json.dump(summary, f, indent=2, default=str)
+    profile = telemetry.build_profile(
+        "serve", wall_s=warmup_s + replay_s, stages={"warmup_s": warmup_s, "replay_s": replay_s},
+        dispatch={"max_batch": engine.max_batch, "max_wait_ms": wait_ms,
+                  "sharding": metrics["sharding"]},
+        bucket_shapes={"engine_buckets": list(engine.buckets)}, serving=metrics,
+        topology=telemetry.device_topology(bundle.device))
+    profile["plan"] = summary["plan"]
+    telemetry.write_profile(os.path.join(out_root, "profile.json"), profile)
+    return summary
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Parse `argv` (default: the process's) and run; returns the summary
+    written to serving-summary.json."""
+    return run(build_parser().parse_args(sys.argv[1:] if argv is None else argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -111,3 +111,116 @@ FIT_TIMING_REQUIRED_KEYS = (
     "re_host_s",
     "re_path",
 )
+
+# ------------------------------------------------------------------- serving
+# Own copies of the reference's serving schemas (photon_ml_tpu/utils/
+# contracts.py); tests/test_torch_platform.py holds each equal to the
+# reference's tuple.
+
+# Latency/quality metrics a serving run reports (MicroBatcher.metrics()).
+SERVING_METRIC_KEYS = (
+    "p50_ms",
+    "p95_ms",
+    "p99_ms",
+    "qps",
+    "cold_start_fraction",
+    "recompiles_after_warmup",
+)
+
+# The sharding block inside serving metrics, in the order engine.metrics()
+# zips it; every key present on the port's single-tier replicated bundle.
+SERVING_SHARDING_KEYS = (
+    "entity_sharded",
+    "axis_size",
+    "rows_per_shard",
+    "hot_set_fraction",
+    "all_to_all_bytes_per_batch",
+    "shards_lost",
+    "shard_loss_fallbacks",
+)
+
+# Batcher events that must be zero on a clean serving run.
+SERVING_CLEAN_ZERO_KEYS = (
+    "shed",
+    "deadline_missed",
+    "circuit_opens",
+    "fe_only_answers",
+)
+
+# Process-wide robustness counters that must be zero on a clean run;
+# serving-summary.json's "robustness_counters" always carries every key.
+ROBUSTNESS_CLEAN_ZERO_KEYS = (
+    "collective_retries",
+    "shard_upload_retries",
+    "promote_failures",
+    "watchdog_trips",
+    "mesh_losses",
+    "reshard_retries",
+    "reshard_rollbacks",
+    "delta_rollbacks",
+    "host_losses",
+    "host_heartbeat_misses",
+    "shadow_mirror_failures",
+    "label_join_failures",
+    "shadow_rollbacks",
+    "autopilot_rollbacks",
+    "autopilot_quarantines",
+    "tier_demotions",
+    "tier_restores",
+    "tier_rollbacks",
+)
+
+# Top-level serving-summary.json keys written by cli/serve.py.
+SERVING_SUMMARY_KEYS = (
+    "num_requests",
+    "failed_requests",
+    "malformed_records",
+    "serving",
+    "health",
+    "robustness_counters",
+    "plan",
+    "tenants",
+    "provenance",
+    "shadow",
+    "autopilot",
+)
+
+# A served bundle's lineage block (ServingBundle.provenance).
+BUNDLE_PROVENANCE_KEYS = (
+    "origin",
+    "generation",
+    "deltas_applied",
+    "last_delta_source",
+    "last_delta_ts",
+)
+
+# The run journal (utils/telemetry.RunJournal): the keys of every line, and
+# the schema of each event type the serving path emits.
+JOURNAL_LINE_KEYS = ("ts", "type")
+JOURNAL_EVENT_SCHEMAS = {
+    "health_transition": ("from_state", "to_state", "reasons"),
+    "bundle_swap": ("version", "outcome"),
+    "fault_retry": ("label", "counter", "attempt", "error"),
+    "fault_injected": ("site", "invocation"),
+    "watchdog_trip": ("label",),
+    "shard_loss": ("coordinate", "shard_index"),
+    "shard_restage": ("coordinate", "shard_index", "bytes"),
+}
+
+# The persisted run profile (utils/telemetry.build_profile): the keys of
+# every profile, and of a serve run's.
+PROFILE_REQUIRED_KEYS = (
+    "kind",
+    "wall_s",
+    "stages",
+    "dispatch",
+    "bucket_shapes",
+    "device_topology",
+    "roofline",
+    "metrics",
+)
+PROFILE_SERVE_KEYS = (*PROFILE_REQUIRED_KEYS, "serving")
+
+# The runtime-plan block serving-summary.json and profile.json carry. The
+# port has no planner: every run records the reference's inactive block.
+PLAN_BLOCK_KEYS = ("active", "source", "profile", "decisions")

@@ -68,6 +68,7 @@ from photon_ml_tpu_torch.game.model import (
     Coefficients,
     FixedEffectModel,
     RandomEffectModel,
+    library_row_sum,
     random_effect_margins,
 )
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss, loss_for_task
@@ -153,7 +154,8 @@ class FixedEffectCoordinate:
 
     def score(self, model: FixedEffectModel) -> Tensor:
         """Raw per-sample margins x.w (no offsets)."""
-        return fixed_effect_margins(self._features, model.coefficients.means, self.norm)
+        return fixed_effect_margins(self._features, model.coefficients.means, self.norm,
+                                    library_row_sum)
 
     def gather_model(self, model: FixedEffectModel) -> FixedEffectModel:
         """The model of all ranks: the replicated coefficients themselves."""
@@ -255,4 +257,5 @@ class RandomEffectCoordinate:
             red.sample_entity_rows,
             model.coefficients_matrix,
             self.norm,
+            library_row_sum,
         )

@@ -14,7 +14,7 @@ row: the counterpart of the JAX package's `random_effect_margins_sharded`
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -48,14 +48,42 @@ class RandomEffectModel:
     task: TaskType
 
 
+def row_sum(P: Tensor) -> Tensor:
+    """Sum over the last dimension in an order set by its width alone:
+    zero-pad it to a power of two, then add the upper half onto the lower
+    half until one column is left. Each step is an elementwise add, so a
+    row's sum has the same bits however many rows ride along, on the card
+    as on the CPU (the library reduction, `library_row_sum`, picks its split
+    on the card from the number of rows too). Scoring (the transformer and
+    the serving engine) reduces with it."""
+    width = 1
+    while width < P.shape[-1]:
+        width <<= 1
+    if width != P.shape[-1]:
+        P = torch.nn.functional.pad(P, (0, width - P.shape[-1]))
+    while width > 1:
+        width >>= 1
+        P = P[..., :width] + P[..., width:]
+    return P[..., 0]
+
+
+def library_row_sum(P: Tensor) -> Tensor:
+    """The library's sum over the last dimension: the training path's row
+    reduction (the coordinates' residual scores), whose bits the solvers'
+    results and checkpoints were established on."""
+    return torch.sum(P, dim=-1)
+
+
 def random_effect_margins(
     features: Features,
     entity_rows: Tensor,
     matrix: Tensor,
     norm: Optional[NormalizationContext],
+    reduce: Callable[[Tensor], Tensor] = row_sum,
 ) -> Tensor:
     """Per-sample margins: gather each sample's coefficient row and reduce
-    per row (batch-size invariant, unlike a batched matmul), with
+    it with `reduce` (`row_sum`, batch-size invariant, unlike a batched
+    matmul; the training path passes `library_row_sum`), with
     normalization folded into the rows once (a global context, or a
     projected shard's per-entity one: a row of factors and shifts per
     coefficient row). Over an ELL shard the margin
@@ -66,13 +94,13 @@ def random_effect_margins(
     if norm is not None and not norm.is_identity:
         matrix = norm.effective_coefficients(matrix)
         if norm.shifts is not None:
-            shift = -torch.sum(matrix * norm.shifts, dim=-1)  # (E + 1,)
+            shift = -reduce(matrix * norm.shifts)  # (E + 1,)
     if isinstance(features, SparseFeatures):
         coef = matrix[entity_rows[:, None], features.indices.long()]
-        out = torch.sum(features.values.to(matrix.dtype) * coef, dim=-1)
+        out = reduce(features.values.to(matrix.dtype) * coef)
     else:
         X = features if features.dtype == matrix.dtype else features.to(matrix.dtype)
-        out = torch.sum(X * matrix[entity_rows], dim=-1)
+        out = reduce(X * matrix[entity_rows])
     if shift is not None:
         out = out + shift[entity_rows]
     return out

@@ -1,0 +1,59 @@
+"""Online serving: a GAME model pinned on one device, answering requests.
+
+Port of `photon_ml_tpu/serving/` for one device and one tenant:
+`bundle.py` stages a model directory (or an in-memory model) onto the
+device once, `engine.py` scores request batches through one bucket program
+per power-of-two batch size (a CUDA graph on the card), `batcher.py`
+coalesces single requests into deadline micro-batches, and `lifecycle.py`
+keeps it serving under faults: typed shedding and deadlines, the circuit
+breaker with fixed-effect-only answers, the health state machine and
+versioned hot-swap. `delta.py`, `tenancy.py`, `shadow.py` and `reshard.py`
+are not ported (ROADMAP items 9 and 10).
+"""
+
+from photon_ml_tpu_torch.serving.batcher import MicroBatcher
+from photon_ml_tpu_torch.serving.bundle import (
+    ScoreRequest,
+    ServingBundle,
+    ServingCoordinate,
+    ShardHealth,
+    load_bundle,
+    request_from_record,
+)
+from photon_ml_tpu_torch.serving.engine import ScoreResult, ServingEngine
+from photon_ml_tpu_torch.serving.lifecycle import (
+    BatcherUnhealthy,
+    BundleManager,
+    CircuitBreaker,
+    CircuitState,
+    DeadlineExceeded,
+    HbmBudgetExceeded,
+    HealthStateMachine,
+    Overloaded,
+    ServingState,
+    SwapIncompatible,
+)
+from photon_ml_tpu_torch.utils.faults import DeviceHang
+
+__all__ = [
+    "BatcherUnhealthy",
+    "BundleManager",
+    "CircuitBreaker",
+    "CircuitState",
+    "DeadlineExceeded",
+    "DeviceHang",
+    "HbmBudgetExceeded",
+    "HealthStateMachine",
+    "MicroBatcher",
+    "Overloaded",
+    "ScoreRequest",
+    "ScoreResult",
+    "ServingBundle",
+    "ServingCoordinate",
+    "ServingEngine",
+    "ServingState",
+    "ShardHealth",
+    "SwapIncompatible",
+    "load_bundle",
+    "request_from_record",
+]

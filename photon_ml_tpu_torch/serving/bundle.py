@@ -1,0 +1,434 @@
+"""Serving bundles: a GAME model staged into device memory once.
+
+Port of `photon_ml_tpu/serving/bundle.py`, single device and single tier.
+A `ServingBundle` is the state an online engine keeps pinned across
+requests:
+
+  * per fixed-effect coordinate: the weight vector, one tensor;
+  * per random-effect coordinate: the dense `(n_entities + 1, dim)`
+    coefficient matrix, whose last row is the pinned zero row (an unknown
+    entity scores with the fixed effects only: GLMix's cold start), and a
+    host-side entity-id -> row index;
+  * optionally the feature index maps, so a request may name its features
+    as (name, term) keys.
+
+`load_bundle` / `from_artifact` stage a saved model directory (either
+package's `cli.train` writes one; original feature space), `from_model`
+an in-memory (model, specs) pair. A projected random effect is refused:
+serving scores in the original space. Every plane is a private copy on the
+bundle's device, so `restage_shard` may write rows in place (the engine's
+captured programs read the planes at fixed addresses; call it through
+`ServingEngine.restage_shard`, which holds the device mutex).
+
+Not ported (ROADMAP item 9): the row-sharded store (`mesh=`,
+`PHOTON_SERVING_ENTITY_SHARD`, a matrix already row-sharded), the two-tier
+store (`hot_rows=`, `PHOTON_SERVING_HOT_ROWS`), host-tier demotion and the
+precision ladder's quantized planes; each raises where it is asked for.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import logging
+import os
+import threading
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.data.index_map import INTERCEPT_KEY, IndexMap, feature_key
+from photon_ml_tpu_torch.device import DeviceLike, resolve_device
+from photon_ml_tpu_torch.game.model import FixedEffectModel, GameModel, RandomEffectModel
+from photon_ml_tpu_torch.io.model_store import GameModelArtifact
+from photon_ml_tpu_torch.transformers.game_transformer import CoordinateScoringSpec
+from photon_ml_tpu_torch.types import TaskType
+from photon_ml_tpu_torch.utils import faults
+from photon_ml_tpu_torch.utils.knobs import get_knob
+
+logger = logging.getLogger(__name__)
+
+Tensor = torch.Tensor
+
+# Request features for one shard: a dense (dim,) row, or (indices, values).
+ShardFeatures = Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]
+
+_SHARDED_STORE = "the row-sharded serving store is ROADMAP item 9 (not ported)"
+_TWO_TIER_STORE = "the two-tier serving store is ROADMAP item 9 (not ported)"
+
+
+@dataclasses.dataclass
+class ScoreRequest:
+    """One scoring request: per-shard features and per-RE-type entity ids.
+
+    `features[shard]` is a dense (dim,) row or an (indices, values) pair
+    (duplicate indices add up). A shard absent from the mapping scores as an
+    all-zero row; an entity id missing for a random-effect type is a cold
+    start. `deadline_ms` is the latency budget from submission to the
+    micro-batcher (None: the batcher's default)."""
+
+    features: Dict[str, ShardFeatures] = dataclasses.field(default_factory=dict)
+    entity_ids: Dict[str, object] = dataclasses.field(default_factory=dict)
+    offset: float = 0.0
+    uid: Optional[str] = None
+    deadline_ms: Optional[float] = None
+
+
+def default_provenance(origin: str = "full_fit") -> Dict[str, object]:
+    """A new bundle's lineage block (contracts.BUNDLE_PROVENANCE_KEYS)."""
+    return {"origin": origin, "generation": 0, "deltas_applied": 0,
+            "last_delta_source": None, "last_delta_ts": None}
+
+
+def _stage_shard(label: str, fn):
+    """One staging step under the `shard_upload` fault site, retried
+    PHOTON_SHARD_UPLOAD_RETRIES times (counted in shard_upload_retries).
+    Exhausted retries propagate: a bundle build fails (a hot-swap rolls
+    back), a restage leaves its shard lost."""
+
+    def attempt():
+        faults.fault_point("shard_upload")
+        return fn()
+
+    return faults.retry(attempt, faults.bounded_policy(int(get_knob("PHOTON_SHARD_UPLOAD_RETRIES"))),
+                        label=f"shard staging {label}", counter="shard_upload_retries")
+
+
+def _upload(t: Tensor, device: torch.device) -> Tensor:
+    """A private float32 copy of `t` on `device`."""
+    out = torch.empty(tuple(t.shape), dtype=torch.float32, device=device)
+    out.copy_(t)
+    return out
+
+
+class ShardHealth:
+    """Per-shard health of one random-effect coordinate's resident rows.
+    The port's bundle holds each matrix whole on one device: one shard. A
+    LOST shard's entities answer from the pinned zero row (FE-only) until
+    it is restaged."""
+
+    def __init__(self, n_shards: int, rows_per_shard: int):
+        self.n_shards = int(n_shards)
+        self.rows_per_shard = int(rows_per_shard)
+        self._lock = threading.Lock()
+        self._lost: set = set()
+
+    def _check(self, idx: int) -> int:
+        idx = int(idx)
+        if not 0 <= idx < self.n_shards:
+            raise ValueError(f"shard index {idx} out of range (n_shards={self.n_shards})")
+        return idx
+
+    def row_range(self, idx: int) -> Tuple[int, int]:
+        lo = self._check(idx) * self.rows_per_shard
+        return lo, lo + self.rows_per_shard
+
+    def mark_lost(self, idx: int) -> None:
+        with self._lock:
+            self._lost.add(self._check(idx))
+
+    def mark_ok(self, idx: int) -> None:
+        with self._lock:
+            self._lost.discard(self._check(idx))
+
+    @property
+    def lost(self) -> Tuple[int, ...]:
+        with self._lock:
+            return tuple(sorted(self._lost))
+
+    @property
+    def any_lost(self) -> bool:
+        with self._lock:
+            return bool(self._lost)
+
+    def lost_mask(self, rows: np.ndarray) -> np.ndarray:
+        """Which of `rows` live in a LOST shard."""
+        with self._lock:
+            lost = tuple(self._lost)
+        shard_of = np.asarray(rows, np.int64) // self.rows_per_shard
+        mask = np.zeros(len(rows), bool)
+        for idx in lost:
+            mask |= shard_of == idx
+        return mask
+
+
+@dataclasses.dataclass
+class ServingCoordinate:
+    """One coordinate's device-resident serving state."""
+
+    cid: str
+    shard: str
+    params: Tensor  # (dim,) fixed-effect weights or (E + 1, dim) RE matrix
+    norm: Optional[object] = None
+    random_effect_type: Optional[str] = None
+    entity_index: Optional[Mapping[object, int]] = None
+    shard_health: Optional[ShardHealth] = None
+
+    @property
+    def is_random_effect(self) -> bool:
+        return self.random_effect_type is not None
+
+    @property
+    def dim(self) -> int:
+        return int(self.params.shape[-1])
+
+    @property
+    def unseen_row(self) -> int:
+        """The pinned zero row unknown entities gather."""
+        return int(self.params.shape[0]) - 1
+
+    def device_nbytes(self) -> int:
+        return int(self.params.numel()) * self.params.element_size()
+
+    def lookup_rows(self, entity_ids: Sequence[object]) -> Tuple[np.ndarray, int]:
+        """Entity ids -> coefficient rows (None or unknown -> the pinned
+        zero row), and the count of cold starts. A non-string id is looked
+        up by its string form when the index keys are strings, as offline
+        scoring does."""
+        index = self.entity_index or {}
+        unseen = self.unseen_row
+        coerce = bool(index) and isinstance(next(iter(index)), str)
+        rows = np.empty(len(entity_ids), np.int32)
+        cold = 0
+        for i, eid in enumerate(entity_ids):
+            if eid is None:
+                rows[i] = unseen
+                cold += 1
+                continue
+            if coerce and not isinstance(eid, str):
+                eid = str(eid)
+            row = index.get(eid, unseen)
+            rows[i] = row
+            cold += row == unseen
+        return rows, cold
+
+
+@dataclasses.dataclass
+class ServingBundle:
+    """A device-pinned GAME model and the host indexes serving needs."""
+
+    task: TaskType
+    coordinates: Dict[str, ServingCoordinate]
+    device: torch.device
+    index_maps: Optional[Mapping[str, IndexMap]] = None
+    # Bytes staged onto the device and the seconds it took, once at load.
+    upload_bytes: int = 0
+    upload_s: float = 0.0
+    released: bool = False
+    provenance: Dict[str, object] = dataclasses.field(default_factory=default_provenance)
+
+    @property
+    def coordinate_ids(self) -> List[str]:
+        return list(self.coordinates.keys())
+
+    def release(self) -> None:
+        """Drop this bundle's device state (a retired hot-swap generation);
+        the memory is freed when the last reference goes. Idempotent."""
+        self.coordinates = {}
+        self.index_maps = None
+        self.released = True
+
+    def device_bytes(self) -> int:
+        return sum(c.device_nbytes() for c in self.coordinates.values())
+
+    def mark_shard_lost(self, cid: str, shard_index: int) -> Tuple[int, int]:
+        """Mark one coefficient shard LOST: requests whose entity row falls
+        in the returned [lo, hi) range answer from the pinned zero row until
+        `restage_shard` recovers it."""
+        c = self.coordinates[cid]
+        if c.shard_health is None:
+            raise ValueError(f"coordinate {cid!r} has no device-resident shard tracking "
+                             "(a fixed-effect coordinate)")
+        c.shard_health.mark_lost(shard_index)
+        logger.warning("serving shard lost: %s shard %d (rows %s); its entities answer from the "
+                       "pinned zero row until restaged", cid, shard_index,
+                       c.shard_health.row_range(shard_index))
+        return c.shard_health.row_range(shard_index)
+
+    def restage_shard(self, cid: str, shard_index: int, rows: Optional[np.ndarray] = None) -> int:
+        """Recover one lost shard: write its rows IN PLACE (the engine's
+        captured programs keep reading the same addresses) under the
+        `shard_upload` fault site with bounded retry. `rows` is the host
+        source of the block; None re-reads the resident block. Returns the
+        bytes restaged; a final failure leaves the shard lost and
+        re-raises."""
+        c = self.coordinates[cid]
+        if c.shard_health is None:
+            raise ValueError(f"coordinate {cid!r} has no device-resident shard tracking")
+        lo, hi = c.shard_health.row_range(shard_index)
+        if rows is None:
+            rows = c.params[lo:hi].cpu().numpy()
+        rows = np.ascontiguousarray(rows, np.float32)
+        if rows.shape != (hi - lo, c.dim):
+            raise ValueError(f"restage rows shape {rows.shape} != shard shape {(hi - lo, c.dim)}")
+
+        def upload():
+            c.params[lo:hi].copy_(torch.from_numpy(rows))
+            if c.params.is_cuda:
+                torch.cuda.synchronize(c.params.device)
+
+        _stage_shard(f"{cid} shard {shard_index} restage", upload)
+        c.shard_health.mark_ok(shard_index)
+        logger.info("serving shard restaged: %s shard %d (%d bytes)", cid, shard_index, rows.nbytes)
+        return int(rows.nbytes)
+
+    def shard_dims(self) -> Dict[str, int]:
+        """Feature width per shard that any coordinate reads."""
+        return {c.shard: c.dim for c in self.coordinates.values()}
+
+    def encode_request(self, features: Mapping[str, Union[ShardFeatures, Mapping[str, float]]], *,
+                       entity_ids: Optional[Mapping[str, object]] = None, offset: float = 0.0,
+                       uid: Optional[str] = None) -> ScoreRequest:
+        """A ScoreRequest, with {feature_key: value} mappings resolved
+        through the bundle's index maps (features the map does not know are
+        dropped, as offline ingest drops them)."""
+        enc: Dict[str, ShardFeatures] = {}
+        for shard, payload in features.items():
+            if isinstance(payload, Mapping):
+                if self.index_maps is None or shard not in self.index_maps:
+                    raise ValueError(f"no index map for shard {shard!r}: named-feature requests "
+                                     "need a bundle loaded with index maps")
+                imap = self.index_maps[shard]
+                idx: List[int] = []
+                vals: List[float] = []
+                for key, v in payload.items():
+                    j = imap.get_index(key)
+                    if j >= 0:
+                        idx.append(j)
+                        vals.append(float(v))
+                enc[shard] = (np.asarray(idx, np.int32), np.asarray(vals, np.float32))
+            else:
+                enc[shard] = payload
+        return ScoreRequest(features=enc, entity_ids=dict(entity_ids or {}), offset=float(offset),
+                            uid=uid)
+
+    @classmethod
+    def from_model(cls, model: GameModel, specs: Mapping[str, CoordinateScoringSpec],
+                   task: TaskType, *, device: DeviceLike = "cuda",
+                   index_maps: Optional[Mapping[str, IndexMap]] = None, mesh=None,
+                   hot_rows: Optional[Union[int, Mapping[str, int]]] = None,
+                   origin: str = "full_fit") -> "ServingBundle":
+        """Stage an in-memory (model, specs) pair onto `device`. A projected
+        random effect is refused (serving scores in the original space:
+        export through `model_bridge.artifact_from_game_model`, which
+        back-projects, then `from_artifact`)."""
+        if mesh is not None:
+            raise NotImplementedError(f"mesh=: {_SHARDED_STORE}")
+        if hot_rows is not None:
+            raise NotImplementedError(f"hot_rows=: {_TWO_TIER_STORE}")
+        dev = resolve_device(device)
+        t0 = time.perf_counter()
+        coords: Dict[str, ServingCoordinate] = {}
+        for cid in model.coordinate_ids:
+            spec = specs[cid]
+            m = model[cid]
+            if isinstance(m, FixedEffectModel):
+                params = _stage_shard(f"{cid} (fixed-effect plane)",
+                                      lambda: _upload(m.coefficients.means, dev))
+                coords[cid] = ServingCoordinate(cid, spec.shard, params, norm=spec.norm)
+            elif isinstance(m, RandomEffectModel):
+                if spec.projector is not None:
+                    raise ValueError(
+                        f"coordinate {cid!r} is trained in projected space; serving bundles score "
+                        "in original space: export the artifact "
+                        "(model_bridge.artifact_from_game_model) and build the bundle from it")
+                matrix = m.coefficients_matrix
+                if type(matrix).__name__ == "DTensor" or \
+                        matrix.shape[0] != len(spec.entity_index or {}) + 1:
+                    raise NotImplementedError(
+                        f"coordinate {cid!r}: the matrix holds {matrix.shape[0]} rows for "
+                        f"{len(spec.entity_index or {})} entities (a rank's row shard); "
+                        f"{_SHARDED_STORE}")
+                params = _stage_shard(f"{cid} (replicated matrix)", lambda: _upload(matrix, dev))
+                coords[cid] = ServingCoordinate(
+                    cid, spec.shard, params, norm=spec.norm,
+                    random_effect_type=spec.random_effect_type,
+                    entity_index=dict(spec.entity_index or {}),
+                    shard_health=ShardHealth(1, int(params.shape[0])))
+            else:
+                raise TypeError(f"unknown model type {type(m)} for {cid!r}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return cls(task=task, coordinates=coords, device=dev, index_maps=index_maps,
+                   upload_bytes=sum(c.device_nbytes() for c in coords.values()),
+                   upload_s=time.perf_counter() - t0, provenance=default_provenance(origin))
+
+    @classmethod
+    def from_artifact(cls, artifact: GameModelArtifact, *, device: DeviceLike = "cuda",
+                      index_maps: Optional[Mapping[str, IndexMap]] = None, mesh=None,
+                      hot_rows: Optional[Union[int, Mapping[str, int]]] = None) -> "ServingBundle":
+        """The production path: a persisted artifact (original feature
+        space, string entity ids) -> a bundle on `device`. The model is
+        built on the host and staged once."""
+        from photon_ml_tpu_torch.io.model_bridge import game_model_from_artifact
+
+        model, specs = game_model_from_artifact(artifact, "cpu")
+        return cls.from_model(model, specs, artifact.task, device=device, index_maps=index_maps,
+                              mesh=mesh, hot_rows=hot_rows, origin="artifact")
+
+
+def load_bundle(model_dir: str, *, device: DeviceLike = "cuda",
+                index_maps: Optional[Mapping[str, IndexMap]] = None, mesh=None,
+                hot_rows: Optional[Union[int, Mapping[str, int]]] = None) -> ServingBundle:
+    """Load a model directory (the training driver's layout) into a bundle
+    on `device`. Index maps default to the JSON maps saved beside the model
+    (`<model_dir>/feature-indexes/<shard>.json`), as in cli.score.
+    PHOTON_SERVING_ENTITY_SHARD and PHOTON_SERVING_HOT_ROWS select stores
+    the port has not got, and raise when set."""
+    from photon_ml_tpu_torch.io import model_store
+
+    if get_knob("PHOTON_SERVING_ENTITY_SHARD"):
+        raise NotImplementedError(f"PHOTON_SERVING_ENTITY_SHARD is set: {_SHARDED_STORE}")
+    if int(get_knob("PHOTON_SERVING_HOT_ROWS")) > 0:
+        raise NotImplementedError(f"PHOTON_SERVING_HOT_ROWS is set: {_TWO_TIER_STORE}")
+    if index_maps is None:
+        index_dir = os.path.join(model_dir, "feature-indexes")
+        index_maps = {os.path.splitext(os.path.basename(p))[0]: IndexMap.load(p)
+                      for p in sorted(glob.glob(os.path.join(index_dir, "*.json")))}
+        if not index_maps:
+            raise FileNotFoundError(f"no feature index maps under {index_dir}; pass index_maps "
+                                    "explicitly (e.g. resolved from an off-heap store)")
+    artifact = model_store.load_game_model(model_dir, index_maps)
+    return ServingBundle.from_artifact(artifact, device=device, index_maps=index_maps, mesh=mesh,
+                                       hot_rows=hot_rows)
+
+
+def request_from_record(bundle: ServingBundle, record: Mapping[str, object],
+                        shard_configs: Mapping[str, object], *, uid_field: str = "uid",
+                        offset_field: str = "offset") -> ScoreRequest:
+    """A reference-shaped Avro record (name/term/value feature bags and id
+    fields) -> ScoreRequest, built as offline ingest builds the row: the
+    shard's bags, duplicate (name, term) entries added up, the intercept
+    where the shard has one; an id tag is the record field, a "map.key"
+    path, or the metadataMap entry, and a missing one the string ""."""
+    features: Dict[str, Dict[str, float]] = {}
+    for shard, cfg in shard_configs.items():
+        fmap: Dict[str, float] = {}
+        for bag in cfg.feature_bags:
+            for ntv in record.get(bag) or ():
+                key = feature_key(ntv.get("name", ""), ntv.get("term", "") or "")
+                fmap[key] = fmap.get(key, 0.0) + float(ntv["value"])
+        if getattr(cfg, "has_intercept", False):
+            fmap[INTERCEPT_KEY] = fmap.get(INTERCEPT_KEY, 0.0) + 1.0
+        features[shard] = fmap
+
+    def _tag(tag: str) -> str:
+        v = record.get(tag)
+        field, _, map_key = tag.partition(".")
+        if v is None and map_key:
+            inner = record.get(field)
+            if isinstance(inner, Mapping):
+                v = inner.get(map_key)
+        if v is None:
+            meta = record.get("metadataMap")
+            v = meta.get(tag, "") if isinstance(meta, Mapping) else ""
+        return str(v)
+
+    entity_ids = {c.random_effect_type: _tag(c.random_effect_type)
+                  for c in bundle.coordinates.values() if c.is_random_effect}
+    uid = record.get(uid_field)
+    return bundle.encode_request(features, entity_ids=entity_ids,
+                                 offset=float(record.get(offset_field) or 0.0),
+                                 uid=None if uid is None else str(uid))

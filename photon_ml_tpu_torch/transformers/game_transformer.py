@@ -21,7 +21,7 @@ together where they are needed.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,6 +35,7 @@ from photon_ml_tpu_torch.game.model import (
     GameModel,
     RandomEffectModel,
     random_effect_margins,
+    row_sum,
 )
 from photon_ml_tpu_torch.ops import objective, sparse_kernels
 from photon_ml_tpu_torch.ops.losses import mean_for_task
@@ -62,20 +63,25 @@ class CoordinateScoringSpec:
         return self.random_effect_type is not None
 
 
-def dense_margins(features: Tensor, w: Tensor, norm: Optional[NormalizationContext]) -> Tensor:
-    """Row-stable dense margins: multiply-broadcast and a per-row sum.
-    bf16 features are widened to f32 first."""
+def dense_margins(features: Tensor, w: Tensor, norm: Optional[NormalizationContext],
+                  reduce: Callable[[Tensor], Tensor] = row_sum) -> Tensor:
+    """Row-stable dense margins: multiply-broadcast and `reduce`: `row_sum`,
+    whose order depends on the width alone, so a row scores to the same bits
+    in a serving bucket of any size as in a whole dataset (the training
+    path passes `library_row_sum`). bf16 features are widened to f32 first."""
     w_eff, shift = objective.margin_params(w, norm)
     X = features if features.dtype == w_eff.dtype else features.to(w_eff.dtype)
-    return torch.sum(X * w_eff, dim=-1) + shift
+    return reduce(X * w_eff) + shift
 
 
-def fixed_effect_margins(features, w: Tensor, norm: Optional[NormalizationContext]) -> Tensor:
-    """A fixed effect's margins over a dense matrix or a sparse layout."""
+def fixed_effect_margins(features, w: Tensor, norm: Optional[NormalizationContext],
+                         reduce: Callable[[Tensor], Tensor] = row_sum) -> Tensor:
+    """A fixed effect's margins over a dense matrix (rows reduced by
+    `reduce`) or a sparse layout."""
     if isinstance(features, SparseLayout):
         w_eff, shift = objective.margin_params(w, norm)
         return sparse_kernels.matvec(features, w_eff) + shift
-    return dense_margins(features, w, norm)
+    return dense_margins(features, w, norm, reduce)
 
 
 @dataclasses.dataclass

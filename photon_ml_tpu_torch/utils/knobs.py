@@ -1,0 +1,115 @@
+"""The PHOTON_* environment knobs the port reads.
+
+Port of the part of `photon_ml_tpu/utils/knobs.py` that the serving tier
+and its platform layers read: the same names, types, defaults and lenient
+parsing (empty or unset means the default; a malformed value logs a
+warning and reads as the default). `get_knob` on a name not registered here
+raises, so a knob cannot be read without landing in this table.
+
+`PHOTON_SERVING_ENTITY_SHARD` and `PHOTON_SERVING_HOT_ROWS` are registered
+so that `serving.bundle.load_bundle` can refuse them: the row-sharded and
+two-tier stores they select are ROADMAP item 9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import Dict, Optional, Union
+
+logger = logging.getLogger(__name__)
+
+Value = Union[str, int, float, bool]
+
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+
+@dataclasses.dataclass(frozen=True)
+class Knob:
+    name: str
+    type: type
+    default: Value
+    doc: str
+
+    def parse(self, raw: str) -> Value:
+        raw = raw.strip()
+        if raw == "":
+            return self.default
+        if self.type is bool:
+            low = raw.lower()
+            if low in _TRUE:
+                return True
+            if low in _FALSE:
+                return False
+            logger.warning("%s=%r: expected one of %s; using default %r", self.name, raw,
+                           "/".join((*_TRUE, *_FALSE)), self.default)
+            return self.default
+        if self.type in (int, float):
+            try:
+                return self.type(raw)
+            except ValueError:
+                logger.warning("ignoring malformed %s=%r (default %r)", self.name, raw, self.default)
+                return self.default
+        return raw
+
+
+KNOBS: Dict[str, Knob] = {}
+
+
+def _register(name: str, type_: type, default: Value, doc: str) -> None:
+    if name in KNOBS:
+        raise ValueError(f"duplicate knob registration: {name!r}")
+    if not isinstance(default, type_):
+        raise TypeError(f"{name}: default {default!r} is not {type_.__name__}")
+    KNOBS[name] = Knob(name, type_, default, doc)
+
+
+_register("PHOTON_FAULTS", str, "",
+          'Deterministic fault-injection plan, e.g. "lookup:1,score@3,admit:p0.25" '
+          "(see utils/faults.py).")
+_register("PHOTON_FAULTS_SEED", int, 0,
+          "Seed for probabilistic fault sites (site:pX): reproducible chaos schedules.")
+_register("PHOTON_RETRY_MAX_ATTEMPTS", int, 3,
+          "Bounded-backoff retry attempts for transient failures (min 1).")
+_register("PHOTON_RETRY_BASE_DELAY_S", float, 0.05,
+          "Retry backoff base delay in seconds (doubles per attempt).")
+_register("PHOTON_RETRY_MAX_DELAY_S", float, 2.0, "Retry backoff delay cap in seconds.")
+_register("PHOTON_WATCHDOG_MS", int, 0,
+          "Hang-watchdog deadline (ms) armed around serving device dispatches; an "
+          "over-deadline dispatch raises a typed DeviceHang. 0 = off.")
+_register("PHOTON_SHARD_UPLOAD_RETRIES", int, 2,
+          "Extra attempts a failed per-shard serving staging/restage gets before the "
+          "failure surfaces (hot-swap rollback / shard stays degraded).")
+_register("PHOTON_SERVING_ENTITY_SHARD", bool, False,
+          "Stage serving RE matrices row-sharded over all local devices "
+          "(not ported: ROADMAP item 9; load_bundle raises when set).")
+_register("PHOTON_SERVING_HOT_ROWS", int, 0,
+          "Two-tier serving store hot-set size; 0 = single-tier "
+          "(not ported: ROADMAP item 9; load_bundle raises when set).")
+_register("PHOTON_SERVING_HBM_BUDGET_BYTES", int, 0,
+          "Device-memory budget a bundle hot-swap must fit in; 0 = the card's total "
+          "memory (no check on the CPU).")
+_register("PHOTON_TRACE", bool, False,
+          "Span tracing (utils/telemetry.py): 1 records spans and exports Chrome "
+          "trace-event JSON from cli.serve; 0 keeps span() a no-op.")
+
+
+def _knob(name: str) -> Knob:
+    knob = KNOBS.get(name)
+    if knob is None:
+        raise KeyError(f"unregistered knob {name!r} (the port reads {len(KNOBS)} knobs)")
+    return knob
+
+
+def get_knob(name: str, raw: Optional[str] = None) -> Value:
+    """Knob `name` from the environment (or parsed from `raw`), typed."""
+    knob = _knob(name)
+    return knob.parse(os.environ.get(name, "") if raw is None else raw)
+
+
+def knob_is_set(name: str) -> bool:
+    """True when the knob is set to a non-empty value in the environment."""
+    _knob(name)
+    return os.environ.get(name, "").strip() != ""

@@ -10,20 +10,26 @@ Port of the part of `photon_ml_tpu/utils/observability.py` the drivers use:
     queued (photon-lib util/Timed.scala:33-60).
   * `PhotonLogger`: the job log file (photon-lib util/PhotonLogger.scala:
     34-120), a handler on the package logger for the job's lifetime.
+  * `stage_scope` / `stage_timer`: a thread's ambient stage registry and
+    a timed block recorded into it (and opened as a trace span): the
+    serving engine's `serve_pack`, `serve_lookup` and `serve_score`.
 
-The event emitter, run journal, tracer and run profile are not ported.
+The event emitter is not ported; the run journal, tracer and run profile
+are in `utils/telemetry.py`.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
-from contextlib import ContextDecorator
-from typing import Dict, Optional
+from contextlib import ContextDecorator, contextmanager
+from typing import Dict, List, Optional
 
 import torch
 
 from photon_ml_tpu_torch.timing import StageTimes
+from photon_ml_tpu_torch.utils import telemetry
 
 logger = logging.getLogger("photon_ml_tpu_torch")
 
@@ -124,3 +130,39 @@ class PhotonLogger:
     def __exit__(self, *exc) -> bool:
         self.close()
         return False
+
+
+_STAGE_TLS = threading.local()
+
+
+def _stage_stack() -> List[StageTimes]:
+    stack = getattr(_STAGE_TLS, "stack", None)
+    if stack is None:
+        stack = _STAGE_TLS.stack = []
+    return stack
+
+
+@contextmanager
+def stage_scope(registry: StageTimes):
+    """Make `registry` this thread's ambient sink for `stage_timer`."""
+    stack = _stage_stack()
+    stack.append(registry)
+    try:
+        yield registry
+    finally:
+        stack.pop()
+
+
+@contextmanager
+def stage_timer(name: str):
+    """`with stage_timer("serve_pack"):` records the block's wall clock into
+    this thread's innermost `stage_scope` (nothing without one) and opens a
+    trace span of the same name."""
+    t0 = time.perf_counter()
+    with telemetry.span(name):
+        try:
+            yield
+        finally:
+            stack = _stage_stack()
+            if stack:
+                stack[-1].record(name, time.perf_counter() - t0)

@@ -61,7 +61,9 @@ def test_every_port_module_imports_with_jax_blocked():
                  "evaluation.legacy", "cli.glm_driver", "native.index_store", "io.paldb",
                  "cli.build_index", "cli.name_and_term", "hyperparameter", "hyperparameter.kernels",
                  "hyperparameter.gp", "hyperparameter.slice_sampler", "hyperparameter.search",
-                 "hyperparameter.tuner"):
+                 "hyperparameter.tuner", "utils.knobs", "utils.faults", "utils.watchdog",
+                 "utils.telemetry", "serving", "serving.bundle", "serving.engine", "serving.batcher",
+                 "serving.lifecycle", "cli.serve"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = _BLOCK_JAX + textwrap.dedent(
         """
