@@ -218,6 +218,31 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    the CPU, and BAYESIAN's first two trials the same Sobol points; the best
    model must be the argmax over the explicit and tuned results, and its
    weights those of that result.
+3w. Batched hyperparameter sweeps (hyperparameter/sweep.py, cli/tune.py),
+   after 3t. 3w-bench: bench.py's sweep section at its own shape (768
+   training and 256 validation rows, a 12-wide dense fixed effect stored
+   bf16, so every trial launches value_grad; a 4-wide random effect over
+   64 entities, min_bucket 16; estimator seed 7): the stacked executor
+   (max_stack 8) warmed by two throwaway rounds and reset, then
+   HyperparameterTuner.sweep (16 BAYESIAN trials in rounds of 8, seed 11)
+   against one estimator.fit per trial on the same points; every
+   SWEEP_SECTION_KEYS key, speedup_vs_serial beside the reference's 10x
+   bar (printed, not gated). Gates: the winner bit-equal to a standalone
+   fit, every robustness counter 0, a serial executor on the same rounds
+   giving == values and bit-equal models, value_grad launches a trial the
+   same in both modes. 3w-drills: `solve` armed once in serial mode (the
+   trial reads diverged_steps 1, its model bit-equal to the clean one's);
+   a NaN reg weight in serial, stacked and shard-group mode (the zeros
+   fixed effect and the same count everywhere); shard groups of one card
+   each (one group on a one-card machine; a group of several cards is
+   ROADMAP item 9) bit-equal to serial. 3w-e2e: cli.tune at full width (3e's training files, 3g's
+   validation file, 3c's coordinates; BAYESIAN, 8 trials in rounds of 4,
+   --random-seed 0): read seconds, each trial's seconds, value and
+   launches, stack_decisions, each GP proposal's seconds, winner_refit_s,
+   the save seconds and the summary's keys; then cli.train at the winner's
+   weights, whose saved model must be bit-equal to models/tuned-best once
+   both are loaded; then two cold points stacked and serial in process on
+   3f's estimator (== values, bit-equal models).
 3v. Online serving (photon_ml_tpu_torch/serving/, cli/serve.py) on phase
    3c's model directory (after 3t, on 3g's validation rows). First the
    offline references, their launches counted apart: GameTransformer on
@@ -281,8 +306,9 @@ print which backend each used.
 
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
 3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, each run
-of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3v's engine
-path, and 3d and 4d in each rank) and read
+of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
+sweep and its cli.tune run, 3v's engine path, and 3d and 4d in each rank)
+and read
 just after; the `kernels` line gives them by
 phase (`launches_by_phase`). "wall:" lines give each group of phases'
 seconds. The last three
@@ -1111,7 +1137,7 @@ def small_e2e_fit(ds) -> dict:
 
 
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
-    """Phases 2e, 3e, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x, 3x-scale, 3t, 3v
+    """Phases 2e, 3e, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x, 3x-scale, 3t, 3w, 3v
     and 5e (`dense`: phase 3's arrays and model, for 3v). Returns (phase 2e
     rows by kernel, the sparse launches by kernel of each path)."""
     import os
@@ -1275,6 +1301,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         launches3x = walled("phase 3x", offheap_phase, root, work)
         walled("phase 3x-scale", offheap_scale_phase, work)
         launches3t = walled("phase 3t", tuning_phase, root, os.path.join(work, "validation"), work)
+        launches3w = walled("phase 3w", sweep_phase, root, os.path.join(work, "validation"), work)
         launches3v = walled("phase 3v", serving_phase, root, work, truth, n_users, n_movies, dense,
                             dev)
     finally:
@@ -1311,7 +1338,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
     return rows2e, {"3e": launches, "3f": launches3f, "3c": launches3c, "3k": launches3k, "3g": launches3g,
-                    "3x": launches3x, "3t": launches3t, "3v": launches3v}
+                    "3x": launches3x, "3t": launches3t, "3w": launches3w, "3v": launches3v}
 
 
 SERVE_REPLAY_ROWS = 100_000  # 3v: rows of 3g's validation file cli.serve replays
@@ -1432,7 +1459,10 @@ def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dens
     t0 = time.perf_counter()
     bundle = load_bundle(best, device=dev)
     load_s = time.perf_counter() - t0
-    engine = ServingEngine(bundle, circuit_probe_interval_s=0.05)
+    # The breaker drill's probe interval: long beside a host stall (a
+    # collection pass), so the open circuit answers FE-only until the
+    # drill's own sleep lets the probe through.
+    engine = ServingEngine(bundle, circuit_probe_interval_s=0.5)
     reqs = [request_from_record(bundle, r, shards) for r in e2e_reqs_recs]
     t0 = time.perf_counter()
     captures = engine.warmup()
@@ -1561,7 +1591,7 @@ def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dens
                     except faults.InjectedFault:
                         errors += 1
         opened = engine.breaker.state.value
-        time.sleep(0.06)  # the probe interval
+        time.sleep(0.6)  # the probe interval
         with engine.batcher() as b:
             probe = b.submit(reqs[32]).result(timeout=60)
             after = scores(b.score_all(reqs[33:64]))
@@ -2961,6 +2991,373 @@ def tuning_phase(root: str, val_dir: str, work: str) -> dict:
     return launches
 
 
+# ---- phase 3w: batched hyperparameter sweeps ------------------------------------------
+SWEEP_N, SWEEP_N_VAL, SWEEP_ENTITIES, SWEEP_D_FIXED, SWEEP_D_RE = 768, 256, 64, 12, 4  # bench.py:2893
+SWEEP_TRIALS, SWEEP_BATCH = 16, 8  # bench.py's sweep: BAYESIAN, seed 11, batch 8, max_stack 8
+SWEEP_REFERENCE_BAR = 10.0  # bench.py's speedup target, a figure for one XLA dispatch a chunk
+TUNE_TRIALS, TUNE_BATCH = 8, 4  # 3w-e2e: cli.tune --tuning-iter 8 --tuning-batch-size 4
+
+
+def sweep_bench_data(n_rows: int, seed: int, dev):
+    """bench.py's sweep generator (bench.py:2893-2910) in numpy: a 12-wide
+    dense fixed effect, a 4-wide random effect over 64 entities."""
+    from photon_ml_tpu_torch.data.game_dataset import GameDataset
+
+    r = np.random.default_rng(seed)
+    ent = r.integers(0, SWEEP_ENTITIES, size=n_rows)
+    Xf = r.normal(size=(n_rows, SWEEP_D_FIXED)).astype(np.float32)
+    Xe = r.normal(size=(n_rows, SWEEP_D_RE)).astype(np.float32)
+    wt = r.normal(size=SWEEP_D_FIXED).astype(np.float32)
+    ut = r.normal(size=(SWEEP_ENTITIES, SWEEP_D_RE)).astype(np.float32)
+    mg = Xf @ wt + np.einsum("nd,nd->n", Xe, ut[ent])
+    ys = (r.uniform(size=n_rows) < 1 / (1 + np.exp(-mg))).astype(np.float32)
+    return GameDataset.build({"g": Xf, "e": Xe}, ys, id_tags={"entityId": ent}, device=dev)
+
+
+def sweep_bench_setup(dev):
+    """bench.py's sweep estimator (seed 7) and base configuration: FE L-BFGS
+    12 iterations, RE 8, tol 1e-7, L2 1.0; per-entity min_bucket 16."""
+    from photon_ml_tpu_torch.data.game_dataset import FixedEffectDataConfig, RandomEffectDataConfig
+    from photon_ml_tpu_torch.estimators.game_estimator import GameEstimator
+    from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
+    from photon_ml_tpu_torch.types import TaskType
+
+    base = {cid: CoordinateOptimizationConfig(optimizer=OptimizerConfig(max_iterations=it, tolerance=1e-7),
+                                              regularization=L2, reg_weight=1.0)
+            for cid, it in (("fixed", 12), ("per-entity", 8))}
+    est = GameEstimator(TaskType.LOGISTIC_REGRESSION,
+                        {"fixed": FixedEffectDataConfig("g"),
+                         "per-entity": RandomEffectDataConfig("entityId", "e", min_bucket=16)}, seed=7)
+    return est, sweep_bench_data(SWEEP_N, 31, dev), sweep_bench_data(SWEEP_N_VAL, 37, dev), base
+
+
+class trial_launches:
+    """Within the scope, the kernels' launches of each fit the sweep module
+    runs, in order: every trial (in every mode), then the winner's refit."""
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.hyperparameter import sweep
+        from photon_ml_tpu_torch.ops import glm_kernels
+        from photon_ml_tpu_torch.ops import sparse_kernels as sk
+
+        self.fits, self._mod = [], sweep
+        self._orig = sweep.run_coordinate_descent
+        tables = (glm_kernels.LAUNCHES, sk.LAUNCHES)
+        names = ("value_grad", "sparse_fused", "sparse_matvec")
+
+        def run(*a, **k):
+            before = {n: t[n] for t in tables for n in names if n in t}
+            out = self._orig(*a, **k)
+            self.fits.append({n: t[n] - before[n] for t in tables for n in names if n in t})
+            return out
+
+        sweep.run_coordinate_descent = run
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.run_coordinate_descent = self._orig
+        return False
+
+
+def sweep_models_equal(a, b) -> bool:
+    """Two lists of trial arrays ({cid: {name: tensor or None}}) bit for bit."""
+    import torch
+
+    return len(a) == len(b) and all(
+        x.keys() == z.keys() and all(
+            x[c].keys() == z[c].keys() and all(
+                (u is None and v is None) or (u is not None and v is not None and torch.equal(u, v))
+                for u, v in ((x[c][n], z[c][n]) for n in x[c]))
+            for c in x)
+        for x, z in zip(a, b))
+
+
+def sweep_bench_phase(dev) -> dict:
+    """Phase 3w-bench and the drills: bench.py's sweep section at its own
+    shape through the stacked executor, against one estimator.fit a trial
+    and a serial executor on the same points. Returns the launches of the
+    measured sweep (counted from 0)."""
+    import dataclasses as _dc
+
+    import torch
+
+    from photon_ml_tpu_torch.contracts import ROBUSTNESS_CLEAN_ZERO_KEYS, SWEEP_SECTION_KEYS, SWEEP_TRIAL_KEYS
+    from photon_ml_tpu_torch.hyperparameter import HyperparameterConfig, HyperparameterTuningMode, get_tuner
+    from photon_ml_tpu_torch.utils import faults
+
+    est, ds, val, base = sweep_bench_setup(dev)
+    failures = []
+    executor = est.sweep_executor(ds, val, base, mode="stacked", max_stack=8)
+    dims = [HyperparameterConfig("fixed", 1e-3, 1e3, transform="LOG"),
+            HyperparameterConfig("per-entity", 1e-3, 1e3, transform="LOG")]
+    # The reference's warm-up: two throwaway rounds (cold, then warm), reset.
+    warm_pts = 10 ** np.random.default_rng(41).uniform(-3, 3, size=(8, 2))
+    t0 = time.perf_counter()
+    executor.evaluate_batch(warm_pts)
+    executor.evaluate_batch(warm_pts)
+    executor.reset()
+    warmup_s = time.perf_counter() - t0
+
+    rounds = []  # each round's points, values and trial models, as evaluated
+    evaluate = executor.evaluate_batch
+
+    def kept(points):
+        values = evaluate(points)
+        rounds.append((np.array(points), list(values), executor.last_trial_models))
+        return values
+
+    executor.evaluate_batch = kept
+    rob_base = {k: faults.COUNTERS.get(k) for k in ROBUSTNESS_CLEAN_ZERO_KEYS}
+    tuner = get_tuner(HyperparameterTuningMode.BAYESIAN)
+    with trial_launches() as rec:
+        t0 = time.perf_counter()
+        (_, res), sparse, dense, mem = counted(torch, lambda: tuner.sweep(
+            SWEEP_TRIALS, dims, HyperparameterTuningMode.BAYESIAN, executor, seed=11,
+            batch_size=SWEEP_BATCH))
+        sweep_wall = time.perf_counter() - t0
+    stacked_launches = rec.fits[:SWEEP_TRIALS]  # the refit comes last
+    eval_wall = sum(t.seconds for t in res.trials)
+
+    def fit_trial(point):
+        cfgs = {cid: _dc.replace(base[cid], reg_weight=float(w)) for cid, w in zip(base, point)}
+        return est.fit(ds, val, [cfgs])[0]
+
+    fit_trial(warm_pts[0])  # warms the estimator's validation path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in res.trials:
+        fit_trial(t.point)
+    torch.cuda.synchronize()
+    serial_wall = time.perf_counter() - t0
+    standalone = fit_trial(res.best_point)
+    winner_bitwise = bool(
+        torch.equal(res.winner_model["fixed"].coefficients.means,
+                    standalone.model["fixed"].coefficients.means)
+        and torch.equal(res.winner_model["per-entity"].coefficients_matrix,
+                        standalone.model["per-entity"].coefficients_matrix))
+    rob = {k: faults.COUNTERS.get(k) - rob_base[k] for k in ROBUSTNESS_CLEAN_ZERO_KEYS}
+    rob["diverged_steps"] = sum(t.diverged_steps for t in res.trials)
+
+    # The same rounds through a serial executor (warm from the same incumbents).
+    serial = est.sweep_executor(ds, val, base, mode="serial")
+    with trial_launches() as rec_serial:
+        serial_rounds = [(serial.evaluate_batch(p), serial.last_trial_models) for p, _, _ in rounds]
+    serial_launches = rec_serial.fits
+    same_values = all(sv == v for (sv, _), (_, v, _) in zip(serial_rounds, rounds))
+    same_models = all(sweep_models_equal(sm, m) for (_, sm), (_, _, m) in zip(serial_rounds, rounds))
+
+    section = dict(
+        shape=dict(n_samples=SWEEP_N, n_validation=SWEEP_N_VAL, n_entities=SWEEP_ENTITIES,
+                   d_fixed=SWEEP_D_FIXED, d_re=SWEEP_D_RE),
+        trials=len(res.trials), rounds=executor.rounds, batch_size=SWEEP_BATCH,
+        modes=sorted({t.mode for t in res.trials}), stack_decisions=res.stack_decisions,
+        trial_timings=[t.timing_entry() for t in res.trials], sweep_wall_s=sweep_wall,
+        trial_eval_wall_s=eval_wall,
+        proposal_wall_s=max(0.0, sweep_wall - eval_wall - res.winner_refit_s),
+        winner_refit_s=res.winner_refit_s, serial_baseline_wall_s=serial_wall,
+        speedup_vs_serial=serial_wall / max(eval_wall, 1e-9), reference_bar=SWEEP_REFERENCE_BAR,
+        speedup_basis="trial-evaluation walls on the same 16 points: stacked executor rounds "
+                      "against one estimator.fit a point",
+        best_point=[float(v) for v in res.best_point], winner_value=float(res.winner_value),
+        winner_bitwise_vs_standalone=winner_bitwise, robustness=rob, warmup_s=warmup_s,
+        stacked_vs_serial_values_equal=same_values, stacked_vs_serial_models_bit_equal=same_models,
+        round_eval_wall_s={"stacked": [sum(t.seconds for t in res.trials if t.round == r)
+                                       for r in range(executor.rounds)],
+                           "serial_executor": [sum(t.seconds for t in serial.trials if t.round == r)
+                                               for r in range(serial.rounds)]},
+        value_grad_per_trial={"stacked": [c["value_grad"] for c in stacked_launches],
+                              "serial": [c["value_grad"] for c in serial_launches]},
+        launches=dense, sparse_launches=sparse, mem_gib=mem, card=card_line())
+    log(json.dumps(dict(phase="3w-bench", **section)))
+    missing = [k for k in SWEEP_SECTION_KEYS if section.get(k) is None]
+    missing += [f"trial:{k}" for k in SWEEP_TRIAL_KEYS for t in section["trial_timings"] if k not in t]
+    if missing:
+        failures.append(f"the sweep record lacks {missing}")
+    if not winner_bitwise:
+        failures.append("the winner's refit is not bit-equal to a standalone fit")
+    if any(v != 0 for v in rob.values()):
+        failures.append(f"robustness counters of a clean sweep are not 0: {rob}")
+    if not (same_values and same_models):
+        failures.append(f"serial trials differ from stacked ones (values {same_values}, "
+                        f"models {same_models})")
+    if section["value_grad_per_trial"]["stacked"] != section["value_grad_per_trial"]["serial"] \
+            or len(rec.fits) != SWEEP_TRIALS + 1 or not all(c["value_grad"] for c in stacked_launches):
+        failures.append(f"value_grad launches a trial differ by mode: {section['value_grad_per_trial']}")
+    if any(sparse.values()):
+        failures.append(f"a sparse kernel ran on the dense cell: {sparse}")
+
+    # ---- 3w-drills --------------------------------------------------------------------
+    pts = np.array([[0.3, 2.0]])
+    clean = est.sweep_executor(ds, val, base, mode="serial", warm_start=False)
+    struck = est.sweep_executor(ds, val, base, mode="serial", warm_start=False)
+    v_clean = clean.evaluate_batch(pts)
+    with faults.inject("solve@1") as inj:
+        v_struck = struck.evaluate_batch(pts)
+    solve_row = dict(drill="solve", fired=inj.injected.get("solve", 0),
+                     diverged_steps=struck.trials[0].diverged_steps, values_equal=v_clean == v_struck,
+                     models_bit_equal=sweep_models_equal(clean.last_trial_models, struck.last_trial_models))
+    if (solve_row["fired"], solve_row["diverged_steps"]) != (1, 1) or not solve_row["values_equal"] \
+            or not solve_row["models_bit_equal"]:
+        failures.append(f"the solve drill: {solve_row}")
+    bad = np.array([[np.nan, 1.0]])
+    nan_runs = {}
+    cards = torch.cuda.device_count()  # shard groups: one card a group
+    for mode, kw in (("serial", {}), ("stacked", {}), ("shard_group", {"shard_groups": cards})):
+        ex = est.sweep_executor(ds, val, base, mode=mode, warm_start=False, **kw)
+        nan_runs[mode] = (ex.evaluate_batch(bad), ex.trials[0].diverged_steps, ex.last_trial_models)
+    fe_zero = {m: bool((r[2][0]["fixed"]["w"] == 0).all()) for m, r in nan_runs.items()}
+    nan_row = dict(drill="nan_reg_weight", values={m: r[0] for m, r in nan_runs.items()},
+                   diverged_steps={m: r[1] for m, r in nan_runs.items()}, fe_zeros=fe_zero,
+                   models_bit_equal={m: sweep_models_equal(r[2], nan_runs["serial"][2])
+                                     for m, r in nan_runs.items()})
+    if not all(fe_zero.values()) or len({r[1] for r in nan_runs.values()}) != 1 \
+            or len({tuple(r[0]) for r in nan_runs.values()}) != 1 or not all(nan_row["models_bit_equal"].values()):
+        failures.append(f"the NaN-weight drill: {nan_row}")
+    ref = est.sweep_executor(ds, val, base, mode="serial")
+    grp = est.sweep_executor(ds, val, base, mode="shard_group", shard_groups=cards)
+    same = True
+    t0 = time.perf_counter()
+    for p, _, _ in rounds[:2]:
+        same = same and ref.evaluate_batch(p[:4]) == grp.evaluate_batch(p[:4]) \
+            and sweep_models_equal(ref.last_trial_models, grp.last_trial_models)
+    group_row = dict(shard_groups=cards, cards=[str(c["devices"][0]) for c in grp._groups()],
+                     bit_equal_to_serial=same, wall_s=time.perf_counter() - t0)
+    if not same:
+        failures.append(f"shard groups ({cards}) differ from serial trials")
+    log(json.dumps(dict(phase="3w-drills", solve=solve_row, nan_reg_weight=nan_row, shard_groups=group_row,
+                        multi_card_groups=f"run: {cards} groups, a card each" if cards >= 2 else
+                        "not run: 1 card", card=card_line())))
+    if failures:
+        raise SystemExit("phase 3w-bench failed: " + "; ".join(failures))
+    return dense
+
+
+def sweep_e2e_phase(root: str, val_dir: str, work: str, dev):
+    """Phase 3w-e2e: cli.tune at full width on phase 3e's training files and
+    3g's validation file with 3c's coordinates (BAYESIAN, 8 trials in rounds
+    of 4), then cli.train at the winner's weights (bit-equal to
+    models/tuned-best once both are loaded), then two cold points stacked
+    and serial in process on 3f's estimator and a new read of the data.
+    Returns the cli.tune run's (sparse, dense) launches, counted from 0."""
+    import os
+    import re
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.cli import tune as tune_cli
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.hyperparameter import search
+    from photon_ml_tpu_torch.io import model_store
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig, read_game_dataset
+    from photon_ml_tpu_torch.types import TaskType
+
+    failures = []
+    out = os.path.join(work, "tune")
+    propose0 = search.GaussianProcessSearch.propose_batch
+    proposals = []
+
+    def propose_batch(self, k):
+        t0 = time.perf_counter()
+        pts = propose0(self, k)
+        proposals.append(time.perf_counter() - t0)
+        return pts
+
+    search.GaussianProcessSearch.propose_batch = propose_batch
+    try:
+        with trial_launches() as rec:
+            summary, sparse, dense, mem = counted(torch, lambda: tune_cli.main([
+                "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+                "--validation-data-directories", val_dir, "--validation-evaluators", "AUC",
+                "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
+                "--coordinate-configurations", *E2E_COORDINATES, "--coordinate-descent-iterations", "1",
+                "--tuning-mode", "BAYESIAN", "--tuning-iter", str(TUNE_TRIALS), "--tuning-batch-size",
+                str(TUNE_BATCH), "--random-seed", "0", "--logging-level", "WARNING"]))
+    finally:
+        search.GaussianProcessSearch.propose_batch = propose0
+    per_trial = rec.fits[:TUNE_TRIALS]  # the refit comes last
+    with open(os.path.join(out, "tuning-summary.json")) as f:
+        on_disk = json.load(f)
+    log(json.dumps(dict(
+        phase="3w-e2e", read_s=summary["timings_s"]["read data"], timings_s=summary["timings_s"],
+        trials=[dict(t, launches=l) for t, l in zip(summary["trials"], per_trial)],
+        modes=summary["modes"], rounds=summary["rounds"], stack_decisions=summary["stack_decisions"],
+        proposal_s=proposals, sweep_wall_s=summary["sweep_wall_s"], winner_refit_s=summary["winner_refit_s"],
+        save_s=summary["timings_s"]["save model"], best_point=summary["best_point"],
+        best_value=summary["best_value"], winner_value=summary["winner_value"],
+        summary_keys=sorted(on_disk), launches=sparse, dense_launches=dense, mem_gib=mem, card=card_line())))
+    if len(rec.fits) != TUNE_TRIALS + 1 or not all(c["sparse_fused"] and c["sparse_matvec"] for c in per_trial) \
+            or any(dense.values()):
+        failures.append(f"cli.tune's trials: launches {per_trial}, dense {dense}")
+    if summary["modes"] != ["stacked"] or summary["rounds"] != TUNE_TRIALS // TUNE_BATCH:
+        failures.append(f"cli.tune ran {summary['modes']} in {summary['rounds']} rounds")
+
+    # cli.train at the winner's weights: the same model, bit for bit.
+    weights = dict(zip(summary["tuned_coordinates"], summary["best_point"]))
+    coords = [re.sub(r"reg\.weights=[^,]*", f"reg.weights={weights[s.split(',')[0][5:]]!r}", s)
+              for s in E2E_COORDINATES]
+    at_winner = os.path.join(work, "train-at-winner")
+    t0 = time.perf_counter()
+    train_cli.main(["--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+                    "--validation-data-directories", val_dir, "--validation-evaluators", "AUC",
+                    "--root-output-directory", at_winner, "--feature-shard-configurations", E2E_SHARD,
+                    "--coordinate-configurations", *coords, "--coordinate-descent-iterations", "1",
+                    "--random-seed", "0", "--output-mode", "BEST", "--logging-level", "WARNING"])
+    train_s = time.perf_counter() - t0
+
+    def load(d):
+        return model_store.load_game_model(d, {"g": IndexMap.load(os.path.join(d, "feature-indexes", "g.json"))})
+
+    vs_train = same_model(load(os.path.join(out, "models", "tuned-best")),
+                          load(os.path.join(at_winner, "models", "best")))
+
+    # Two cold points, stacked and serial, in process at full width.
+    shards = {"g": FeatureShardConfig(("features",), True)}
+    t0 = time.perf_counter()
+    ds, imaps = read_game_dataset(root, shards, id_tag_fields=E2E_TAGS, device=dev)
+    val, _ = read_game_dataset(val_dir, shards, index_maps=imaps, id_tag_fields=E2E_TAGS, device=dev)
+    read_s = time.perf_counter() - t0
+    est = e2e_estimator(TaskType.LOGISTIC_REGRESSION)
+    fe, re_cfg = e2e_configs()
+    base = {"global": fe, "per-user": re_cfg, "per-movie": re_cfg}
+    pts = np.array([[1.0, 10.0, 10.0], [0.3, 30.0, 3.0]])
+    runs = {}
+    for mode in ("stacked", "serial"):
+        ex = est.sweep_executor(ds, val, base, mode=mode, warm_start=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        values = ex.evaluate_batch(pts)
+        torch.cuda.synchronize()
+        runs[mode] = (values, ex.last_trial_models, time.perf_counter() - t0)
+    full_width = dict(values={m: r[0] for m, r in runs.items()}, wall_s={m: r[2] for m, r in runs.items()},
+                      values_equal=runs["stacked"][0] == runs["serial"][0],
+                      models_bit_equal=sweep_models_equal(runs["stacked"][1], runs["serial"][1]),
+                      read_s=read_s)
+    log(json.dumps(dict(phase="3w-e2e-check", train_at_winner_s=train_s, tuned_vs_train=vs_train,
+                        full_width_two_points=full_width, card=card_line())))
+    if not all(v["bit_equal"] for v in vs_train.values()):
+        failures.append(f"models/tuned-best is not cli.train's model at the winner's weights: {vs_train}")
+    if not (full_width["values_equal"] and full_width["models_bit_equal"]):
+        failures.append(f"full-width stacked trials differ from serial ones: {full_width}")
+    del ds, val, est, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("phase 3w-e2e failed: " + "; ".join(failures))
+    return sparse, dense
+
+
+def sweep_phase(root: str, val_dir: str, work: str) -> dict:
+    """Phase 3w: the bench-shape sweep with its drills, then the e2e sweep.
+    Returns each counted path's launches by kernel, summed: {"dense", "sparse"}."""
+    import torch
+
+    dev = torch.device("cuda")
+    bench_dense = sweep_bench_phase(dev)
+    e2e_sparse, e2e_dense = sweep_e2e_phase(root, val_dir, work, dev)
+    return {"dense": {k: bench_dense[k] + e2e_dense[k] for k in bench_dense}, "sparse": e2e_sparse}
+
+
 A9A_TRAIN, A9A_TEST = 32561, 16281  # a9a's published split (123 features)
 A9A_CONSTRAINTS = [{"name": "1", "term": "", "lowerBound": -0.01, "upperBound": 0.01},
                    {"name": "2", "term": "", "lowerBound": 0.0}]
@@ -3875,7 +4272,7 @@ def main(argv=None) -> int:
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c, 3k, 5k, 3g, 3x, 3t, 3v", e2e_phases, args.seed, dev,
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c, 3k, 5k, 3g, 3x, 3t, 3w, 3v", e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
     # ---- phase 5f: small estimator fits, card vs CPU --------------------------------
@@ -3898,11 +4295,12 @@ def main(argv=None) -> int:
     kernels = [
         dict(name=k, route="cuda", source=source, replaces=replaces[k],
              launches=(launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k]
-                       + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k] + launches3o[k]),
+                       + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k] + launches3o[k]
+                       + e2e_launches["3w"]["dense"][k]),
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
                                 "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
                                 "5c": driver_launches["dense"][k], "3o": launches3o[k],
-                                "3v": e2e_launches["3v"]["path"][k]},
+                                "3w": e2e_launches["3w"]["dense"][k], "3v": e2e_launches["3v"]["path"][k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
@@ -3917,13 +4315,15 @@ def main(argv=None) -> int:
              launches=(sparse_launches[k] + e2e_launches["3e"][k] + e2e_launches["3f"]["sparse"][k]
                        + small_launches["sparse"][k] + e2e_launches["3c"]["sparse"][k]
                        + driver_launches["sparse"][k] + e2e_launches["3k"][k] + e2e_launches["3g"][k]
-                       + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]),
+                       + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]
+                       + e2e_launches["3w"]["sparse"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
                                 "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
                                 "3c": e2e_launches["3c"]["sparse"][k], "5c": driver_launches["sparse"][k],
                                 "3k+5k+3o": e2e_launches["3k"][k], "3g": e2e_launches["3g"][k],
                                 "5g": legacy_launches[k], "3x": e2e_launches["3x"][k],
-                                "3t": e2e_launches["3t"][k], "3v": e2e_launches["3v"]["path"][k]},
+                                "3t": e2e_launches["3t"][k], "3w": e2e_launches["3w"]["sparse"][k],
+                                "3v": e2e_launches["3v"]["path"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
@@ -3937,7 +4337,8 @@ def main(argv=None) -> int:
     kernels += [
         dict(name=k, route="cuda", source="photon_ml_tpu_torch/csrc/exact_sum.cu",
              replaces=DIST_REPLACES[k], launches=dist_launches[k],
-             launches_by_phase={"3d+4d": dist_launches[k], "3v": e2e_launches["3v"]["path"][k]},
+             launches_by_phase={"3d+4d": dist_launches[k], "3w": e2e_launches["3w"]["dense"][k],
+                                "3v": e2e_launches["3v"]["path"][k]},
              rank_sum_launches=dist_launches["rank_sum"], **dist_rows[k])
         for k in DIST_REPLACES
     ]

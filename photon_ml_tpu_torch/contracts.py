@@ -205,7 +205,43 @@ JOURNAL_EVENT_SCHEMAS = {
     "watchdog_trip": ("label",),
     "shard_loss": ("coordinate", "shard_index"),
     "shard_restage": ("coordinate", "shard_index", "bytes"),
+    # The hyperparameter sweep's lifecycle (hyperparameter/sweep.py, cli/tune.py).
+    "trial_start": ("round", "trial", "mode"),
+    "trial_finish": ("round", "trial", "mode", "seconds", "value", "diverged_steps"),
 }
+
+# The sweep record chip_smoke.py's phase 3w prints (the reference bench's
+# `sweep` section): a BAYESIAN sweep through the batched trial executor
+# against one `estimator.fit` per trial on the same points, the winner's
+# cold refit bit-equal to a standalone fit, the clean-run counters zero.
+SWEEP_SECTION_KEYS = (
+    "trials",
+    "rounds",
+    "batch_size",
+    "modes",
+    "stack_decisions",
+    "trial_timings",
+    "sweep_wall_s",
+    "winner_refit_s",
+    "serial_baseline_wall_s",
+    "speedup_vs_serial",
+    "best_point",
+    "winner_value",
+    "winner_bitwise_vs_standalone",
+    "robustness",
+)
+
+# One evaluated trial (hyperparameter/sweep.TrialRecord.timing_entry): its
+# round, evaluation mode, wall seconds (a stacked chunk's wall split evenly
+# over its trials), value and divergence-guard count.
+SWEEP_TRIAL_KEYS = (
+    "trial",
+    "round",
+    "mode",
+    "seconds",
+    "value",
+    "diverged_steps",
+)
 
 # The persisted run profile (utils/telemetry.build_profile): the keys of
 # every profile, and of a serve run's.

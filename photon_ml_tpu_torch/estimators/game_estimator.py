@@ -30,7 +30,11 @@ configurations that differ only in weights share coordinates.
 `<checkpoint_dir>/config-<i>/` (game/checkpoint.py), as the JAX estimator
 does; a rerun of the same fit resumes there.
 
-Not ported yet: the sweep executor and its shard-group factory, the run
+`sweep_executor` wires the prepared coordinates, the validation scorers
+and a shard-group factory (`_sweep_group_builder`: the prepared data cloned
+onto one device) into a `hyperparameter.sweep.SweepExecutor`.
+
+Not ported yet: groups of more than one device (ROADMAP item 9), the run
 profile with the planner, telemetry spans and the event emitter, the
 prepare thread pool (which moves only when host work runs) and the
 bucketed pack's placement keys (the port has no such pack).
@@ -46,7 +50,9 @@ from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 import torch
 
 from photon_ml_tpu_torch.contracts import PREPARE_STAGES
+from photon_ml_tpu_torch.data.containers import SparseFeatures
 from photon_ml_tpu_torch.data.game_dataset import (
+    EntityBlocks,
     FixedEffectDataConfig,
     GameDataset,
     RandomEffectDataConfig,
@@ -58,11 +64,12 @@ from photon_ml_tpu_torch.evaluation.suite import (
     EvaluationResults,
     EvaluationSuite,
     EvaluatorType,
+    better_than,
     default_evaluator_for_task,
 )
 from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
 from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
-from photon_ml_tpu_torch.game.model import GameModel
+from photon_ml_tpu_torch.game.model import GameModel, random_effect_margins
 from photon_ml_tpu_torch.game.projector import IndexMapProjector, ProjectedShard, project_shard
 from photon_ml_tpu_torch.ops.normalization import (
     NormalizationContext,
@@ -76,6 +83,7 @@ from photon_ml_tpu_torch.transformers.game_transformer import (
     GameTransformer,
     PreparedCoordinateData,
     coordinate_margins,
+    fixed_effect_margins,
     prepare_coordinate_data,
 )
 from photon_ml_tpu_torch.types import NormalizationType, TaskType
@@ -237,15 +245,20 @@ class GameEstimator:
         key = (cid, static_config_key(opt_config))
         coord = self._coordinate_cache.get(key)
         if coord is None:
-            static_cfg = dataclasses.replace(opt_config, reg_weight=0.0)
             with self.times.stage("compile", dataset.device):
-                if prep.re_dataset is not None:
-                    coord = RandomEffectCoordinate(dataset, prep.re_dataset, static_cfg, self.task,
-                                                   prep.norm)
-                else:
-                    coord = FixedEffectCoordinate(dataset, prep.shard, static_cfg, self.task, prep.norm)
+                coord = self._new_coordinate(dataset, prep, opt_config)
             self._coordinate_cache[key] = coord
         return coord
+
+    def _new_coordinate(self, dataset: GameDataset, prep: _PreparedCoordinate,
+                        opt_config: CoordinateOptimizationConfig):
+        """A coordinate over `prep`'s views of `dataset`, its configuration
+        without its weight (the weight comes with each train call)."""
+        static_cfg = dataclasses.replace(opt_config, reg_weight=0.0)
+        if prep.re_dataset is not None:
+            return RandomEffectCoordinate(dataset, prep.re_dataset, static_cfg, self.task,
+                                          prep.norm)
+        return FixedEffectCoordinate(dataset, prep.shard, static_cfg, self.task, prep.norm)
 
     # ------------------------------------------------------------ validation
 
@@ -375,6 +388,133 @@ class GameEstimator:
         self.fit_timing["re_path"] = self.times.get_note("re_path") or "none"
         self.fit_timing["diverged_steps"] = diverged_steps
         return results
+
+    # -------------------------------------------------------------- sweeps
+
+    def sweep_executor(
+        self,
+        data: GameDataset,
+        validation_data: GameDataset,
+        base_config: GameOptimizationConfiguration,
+        tuned_ids: Optional[Sequence[str]] = None,
+        *,
+        mode: Optional[str] = None,
+        warm_start: bool = True,
+        max_stack: Optional[int] = None,
+        shard_groups: Optional[int] = None,
+        on_event=None,
+    ):
+        """The batched trial executor for hyperparameter sweeps: this
+        estimator's prepared coordinates, validation scorers and shard-group
+        builder wired into a `hyperparameter.sweep.SweepExecutor`.
+
+        `base_config` fixes every coordinate's optimizer settings (and the
+        reg weight of untuned coordinates); `tuned_ids` (default: every
+        coordinate) names the coordinates whose reg weight the candidate
+        columns set, in column order. The trial value is the validation
+        suite's primary metric of each trial's final model."""
+        from photon_ml_tpu_torch.hyperparameter.sweep import SweepExecutor
+
+        if validation_data is None:
+            raise ValueError("sweep_executor needs validation data: the trial value is the "
+                             "validation suite's primary metric")
+        if self.locked:
+            raise ValueError("hyperparameter sweeps retrain every coordinate; locked "
+                             "coordinates are not supported")
+        missing = [c for c in self.update_sequence if c not in base_config]
+        if missing:
+            raise ValueError(f"base configuration missing coordinates {missing}")
+        prepared = self.prepare(data)
+        coordinates = {cid: self._coordinate_for(data, cid, prepared[cid], base_config[cid])
+                       for cid in self.update_sequence}
+        suite = self._validation_suite(validation_data)
+        specs = self.scoring_specs()
+        with self.times.stage("projector", validation_data.device):
+            val_prep = {cid: prepare_coordinate_data(specs[cid], validation_data)
+                        for cid in self.update_sequence}
+        # Model arrays -> validation margins through the functions the
+        # validation path (coordinate_margins) runs.
+        trial_scorers = {}
+        for cid in self.update_sequence:
+            spec, vp = specs[cid], val_prep[cid]
+            if spec.is_random_effect:
+                def scorer(arrays, _f=vp.features, _r=vp.entity_rows, _n=spec.norm):
+                    return random_effect_margins(_f, _r, arrays["m"], _n)
+            else:
+                def scorer(arrays, _f=vp.features, _n=spec.norm):
+                    return fixed_effect_margins(_f, arrays["w"], _n)
+            trial_scorers[cid] = scorer
+        return SweepExecutor(
+            coordinates,
+            list(tuned_ids) if tuned_ids is not None else list(self.update_sequence),
+            self.cd_iterations,
+            task=self.task,
+            base_reg_weights={cid: base_config[cid].reg_weight for cid in self.update_sequence},
+            validation_suite=suite,
+            validation_offsets=validation_data.offsets,
+            num_validation_samples=validation_data.num_samples,
+            trial_scorers=trial_scorers,
+            maximize=better_than(suite.primary, 1.0, 0.0),
+            seed=self.seed,
+            mode=mode,
+            warm_start=warm_start,
+            max_stack=max_stack,
+            shard_groups=shard_groups,
+            group_builder=self._sweep_group_builder(data, base_config),
+            on_event=on_event,
+        )
+
+    def _sweep_group_builder(self, data: GameDataset, base_config: GameOptimizationConfiguration):
+        """Shard-group coordinate factory: `build(devices)` clones the
+        prepared dataset, the random effects' buckets and the normalization
+        onto a one-device group (each tensor moved to that device by name,
+        never to the current device), so a trial's serial fit runs there
+        with the same programs. A group of more than one device raises."""
+
+        def build(devices):
+            if len(devices) != 1:
+                raise NotImplementedError(
+                    "shard groups of more than one device (the entity-sharded sweep inside "
+                    "a group) are not ported yet (ROADMAP Queue 1 item 9)")
+            dev = torch.device(devices[0])
+            prepared = self._prepared
+            if prepared is None:
+                raise RuntimeError("prepare() must run before group builds")
+            put = lambda a: None if a is None else a.to(dev)
+
+            def put_feat(f):
+                if isinstance(f, SparseFeatures):
+                    return dataclasses.replace(f, indices=put(f.indices), values=put(f.values))
+                return put(f)
+
+            ds_g = GameDataset(
+                shards={name: put_feat(data.shards[name])
+                        for name in {p.shard for p in prepared.values()}},
+                labels=put(data.labels),
+                offsets=put(data.offsets),
+                weights=put(data.weights),
+                id_tags=data.id_tags,
+                tag_codes=data.tag_codes,
+            )
+            coords = {}
+            for cid in self.update_sequence:
+                prep = prepared[cid]
+                red = prep.re_dataset
+                if red is not None:
+                    red = dataclasses.replace(
+                        red,
+                        buckets=[EntityBlocks(put(b.gather), put(b.mask), put(b.entity_rows))
+                                 for b in red.buckets],
+                        sample_entity_rows=put(red.sample_entity_rows),
+                        feature_mask=put(red.feature_mask),
+                        owned_entities=put(red.owned_entities),
+                    )
+                norm = None if prep.norm is None else prep.norm.to(dev)
+                prep_g = dataclasses.replace(prep, norm=norm, re_dataset=red)
+                coords[cid] = self._new_coordinate(ds_g, prep_g, base_config[cid])
+            return coords
+
+        return build
 
 
 def select_best_result(results: Sequence[GameResult]) -> Tuple[int, GameResult]:

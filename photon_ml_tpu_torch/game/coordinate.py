@@ -40,9 +40,14 @@ zero row (the counterpart of the row-sharded store of the JAX package's
 coordinate.py:752-790); `gather_model` assembles the global (E + 1, D)
 matrix.
 
-Not ported yet: the scan-dispatched sweep, the planner's fusion chunks and
-the fault/retry sites. A random effect does not down-sample
-(the reference's random-effect coordinate takes no sampling key).
+The sweep executor (hyperparameter/sweep.py) fits its trials through
+`train`/`score` as coordinate descent does; the reference's stacked-trial
+hooks have no counterpart here. The `solve` fault site and its retry live
+in game/coordinate_descent.py.
+
+Not ported yet: the planner's fusion chunks. A random effect does not
+down-sample (the reference's random-effect coordinate takes no sampling
+key).
 """
 
 from __future__ import annotations
@@ -122,6 +127,10 @@ class FixedEffectCoordinate:
         on CUDA) or a sparse shard's layout."""
         return self._features
 
+    @property
+    def dim(self) -> int:
+        return int(self._features.shape[-1])
+
     def train(
         self,
         offsets: Tensor,
@@ -183,6 +192,11 @@ class RandomEffectCoordinate:
         # shard, a PerEntityNormalization (one row per entity).
         self.norm = _norm_on(norm, dataset.device)
         self.dim = dataset.shards[re_dataset.feature_shard].shape[-1]
+
+    @property
+    def entity_sharded(self) -> bool:
+        """True on ranks: the store holds this rank's entities alone."""
+        return self.dataset.mesh is not None
 
     def _lane_norm(self, entity_rows: Tensor) -> Optional[NormalizationContext]:
         if isinstance(self.norm, PerEntityNormalization):

@@ -7,11 +7,19 @@ coordinate c is (summed scores - c's previous scores), three elementwise ops:
   * update order is the insertion order of `coordinates`;
   * warm start from `initial_models`; locked coordinates only contribute
     scores;
-  * divergence guard: an update whose model or scores hold a non-finite
-    value is rejected and the coordinate keeps its last good model (the
-    port has no fault injection, so a rejected solve is not retried). On
-    ranks (parallel/mesh.py) the verdict is a cross-rank AND, so one rank's
-    NaN rejects the update on every rank and the ranks cannot diverge;
+  * divergence guard with a bounded retry: an update whose coefficients
+    or scores hold a non-finite value is rejected, and the update is
+    solved again up to `PHOTON_SOLVE_RETRIES` more times
+    (utils/faults.solve_retry_attempts, default 1); every rejected attempt
+    adds one to `diverged_steps`. A transient cause (an injected fault, a
+    flaky card) re-solves to the fault-free result bit for bit; a
+    deterministic divergence reproduces and the coordinate keeps its last
+    good model. Each attempt first fires the `solve` fault site, and an
+    `InjectedFault` there reads as a non-finite attempt. On ranks
+    (parallel/mesh.py) the verdict is a cross-rank AND, so one rank's NaN
+    rejects the update on every rank and the ranks cannot diverge; a rank
+    whose `solve` site fires still trains and scores like the others (the
+    fixed effect's solve sums across the ranks) and votes false;
   * optional validation after each update, with best-model selection on
     full passes by the primary evaluator;
   * `reg_weights` overrides coordinates' regularization weights (the
@@ -28,8 +36,10 @@ coordinate c is (summed scores - c's previous scores), three elementwise ops:
     (`stale_checkpoint="error"`) or cleared (`"discard"`), and one written
     with another seed is refused.
 
-The mesh-loss recovery, prefetch, the background checkpoint write and
-telemetry are not ported yet.
+Each update runs under a `coordinate_update` span (utils/telemetry.py,
+with `accepted` set) and records its wall in the `coordinate_update_s`
+histogram. The mesh-loss recovery, prefetch, the background checkpoint
+write and the event emitter are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from photon_ml_tpu_torch.evaluation.suite import EvaluationResults, EvaluationSu
 from photon_ml_tpu_torch.game.checkpoint import CoordinateDescentCheckpoint
 from photon_ml_tpu_torch.game.model import GameModel
 from photon_ml_tpu_torch.optimize.config import static_config_key
+from photon_ml_tpu_torch.utils import faults, telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -63,18 +74,18 @@ class CoordinateDescentResult:
     train_stats: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
-def _all_finite(model, scores: torch.Tensor, mesh) -> bool:
-    arrays = [scores]
+def _all_finite(model, scores: torch.Tensor, mesh, vote: bool = True) -> bool:
+    """The guard's verdict on an update's scores and coefficients; on
+    ranks, the AND of every rank's (`vote` False makes this rank's vote
+    false whatever its arrays hold). Variances are not vetted: SIMPLE
+    variances are inf by design where a column's Hessian diagonal is 0."""
     coeffs = getattr(model, "coefficients", None)
-    if coeffs is not None:
-        arrays.append(coeffs.means)
-    matrix = getattr(model, "coefficients_matrix", None)
-    if matrix is not None:
-        arrays.append(matrix)
+    arrays = (scores, coeffs.means if coeffs is not None else model.coefficients_matrix)
     ok = torch.ones((), dtype=torch.bool, device=scores.device)
     for a in arrays:
         ok = ok & torch.isfinite(a).all()
-    return bool(ok) if mesh is None else mesh.all_true(bool(ok))
+    ok = vote and bool(ok)
+    return ok if mesh is None else mesh.all_true(ok)
 
 
 def gather_game_model(coordinates: Mapping[str, object], model: GameModel) -> GameModel:
@@ -221,25 +232,53 @@ def run_coordinate_descent(
             kwargs = {}
             if reg_weights and cid in reg_weights:
                 kwargs["reg_weight"] = reg_weights[cid]
-            if coord.config.down_sampling_rate < 1.0:
-                # The CPU generator keeps 32 bits of its seed: mix (seed, step) into them.
-                kwargs["generator"] = torch.Generator(device=base_offsets.device).manual_seed(
-                    (int(seed) * 0x9E3779B1 + step) % (1 << 32))
-            model, stats = coord.train(offsets, models.get(cid), **kwargs)
-            new_scores = coord.score(model)
-            accepted = _all_finite(model, new_scores, mesh)
+            sampled = coord.config.down_sampling_rate < 1.0
+            model = None
+            with telemetry.span("coordinate_update", coordinate=cid, iteration=it) as span:
+                for attempt in range(1 + faults.solve_retry_attempts()):
+                    try:
+                        faults.fault_point("solve")
+                        vote = True
+                    except faults.InjectedFault:
+                        # Only the site's own injection reads as a divergence.
+                        # Without ranks the attempt ends here; on ranks this
+                        # rank still solves (the fixed effect's sums cross the
+                        # ranks) and votes false.
+                        vote = False
+                        if mesh is None:
+                            diverged_steps += 1
+                            logger.warning("iteration %d coordinate %s: injected solve fault "
+                                           "(attempt %d)", it, cid, attempt + 1)
+                            continue
+                    if sampled:
+                        # A fresh generator each attempt, so a retry draws the same
+                        # sample; the CPU generator keeps 32 bits of its seed, so
+                        # (seed, step) are mixed into them.
+                        kwargs["generator"] = torch.Generator(
+                            device=base_offsets.device).manual_seed(
+                                (int(seed) * 0x9E3779B1 + step) % (1 << 32))
+                    cand, cand_stats = coord.train(offsets, models.get(cid), **kwargs)
+                    cand_scores = coord.score(cand)
+                    if _all_finite(cand, cand_scores, mesh, vote):
+                        model, stats, new_scores = cand, cand_stats, cand_scores
+                        break
+                    diverged_steps += 1
+                    logger.warning("iteration %d coordinate %s: non-finite update rejected "
+                                   "(attempt %d)", it, cid, attempt + 1)
+                span.set(accepted=model is not None)
+            accepted = model is not None
             if accepted:
                 summed = residual + new_scores
                 scores[cid] = new_scores
                 models[cid] = model
                 train_stats[cid] = stats
             else:
-                diverged_steps += 1
                 logger.error(
-                    "iteration %d coordinate %s: non-finite update rejected; "
+                    "iteration %d coordinate %s diverged on every attempt; "
                     "keeping the last good model", it, cid,
                 )
             timing[f"{cid}/iter{it}"] = time.perf_counter() - t0
+            telemetry.METRICS.observe("coordinate_update_s", timing[f"{cid}/iter{it}"])
 
             if accepted and validation_scorer is not None and validation_suite is not None:
                 val_scores[cid] = validation_scorer(cid, model)

@@ -1,8 +1,9 @@
 """Hyperparameter auto-tuning: Sobol random and GP/EI Bayesian search.
 
-The port of `photon_ml_tpu/hyperparameter/` without `sweep.py` (the batched
-SweepExecutor, ROADMAP Queue 1 item 8). The GP runs on the CPU in float64
-(gp.py); the trials it proposes are fits on the card.
+The port of `photon_ml_tpu/hyperparameter/`. The GP runs on the CPU in
+float64 (gp.py); the trials it proposes are fits on the card, one at a time
+(`HyperparameterTuner.search`) or as batched rounds through the trial
+executor (sweep.py, `HyperparameterTuner.sweep`).
 """
 
 from photon_ml_tpu_torch.hyperparameter.gp import GaussianProcessModel, fit_gp
@@ -17,6 +18,11 @@ from photon_ml_tpu_torch.hyperparameter.search import (
     forward_scale,
     priors_from_json,
     shrink_search_range,
+)
+from photon_ml_tpu_torch.hyperparameter.sweep import (
+    SweepExecutor,
+    SweepResult,
+    TrialRecord,
 )
 from photon_ml_tpu_torch.hyperparameter.tuner import (
     HyperparameterTuner,

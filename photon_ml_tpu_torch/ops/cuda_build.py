@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, Dict, Tuple
 
@@ -88,3 +89,14 @@ def check_rc(rc: int, what: str, error_string: Callable[[int], bytes]) -> None:
     if rc != 0:
         msg = error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(table: Dict[str, int], name: str) -> None:
+    """Add one to a kernel's launch count under one process-wide lock, so
+    the counts stay exact when worker threads (a sweep's shard groups)
+    launch at once."""
+    with _LAUNCH_LOCK:
+        table[name] += 1

@@ -212,7 +212,7 @@ def value_gradient_sums(
             torch.cuda.current_stream(features.device).cuda_stream,
         )
     _check_rc(lib, rc, "glm_value_grad launch")
-    LAUNCHES["value_grad"] += 1
+    cuda_build.count_launch(LAUNCHES, "value_grad")
     return out[d], out[:d], out[d + 1]
 
 
@@ -244,7 +244,7 @@ def hessian_vector_sums(
             out.data_ptr(), torch.cuda.current_stream(features.device).cuda_stream,
         )
     _check_rc(lib, rc, "glm_hvp launch")
-    LAUNCHES["hvp"] += 1
+    cuda_build.count_launch(LAUNCHES, "hvp")
     return out[:d], out[d]
 
 
@@ -263,7 +263,7 @@ def sharded_value_gradient_sums(
     if mesh is None:
         return sums
     if features.is_cuda:
-        LAUNCHES["sharded_value_grad"] += 1
+        cuda_build.count_launch(LAUNCHES, "sharded_value_grad")
     return over_ranks(mesh, *sums)
 
 
@@ -277,5 +277,5 @@ def sharded_hessian_vector_sums(
     if mesh is None:
         return sums
     if features.is_cuda:
-        LAUNCHES["sharded_hvp"] += 1
+        cuda_build.count_launch(LAUNCHES, "sharded_hvp")
     return over_ranks(mesh, *sums)

@@ -219,7 +219,7 @@ def _matvec(layout: SparseLayout, w: Tensor, route: str) -> Tensor:
                 layout.row_val.data_ptr(), w.data_ptr(), z.data_ptr(), _stream(layout.device),
             )
     _check_rc(lib, rc, f"sparse_matvec launch ({route})")
-    LAUNCHES["sparse_matvec"] += 1
+    cuda_build.count_launch(LAUNCHES, "sparse_matvec")
     return z
 
 
@@ -262,7 +262,7 @@ def _rmatvec(layout: SparseLayout, u: Tensor, square: bool, route: str) -> Tenso
                 u.data_ptr(), chunk_sum.data_ptr(), g.data_ptr(), _stream(dev),
             )
     _check_rc(lib, rc, f"sparse_rmatvec launch ({route})")
-    LAUNCHES["sparse_rmatvec"] += 1
+    cuda_build.count_launch(LAUNCHES, "sparse_rmatvec")
     return g
 
 
@@ -325,6 +325,6 @@ def _fused(
                 chunk_sum.data_ptr(), out.data_ptr(), _stream(dev),
             )
     _check_rc(lib, rc, f"sparse_fused launch ({route})")
-    LAUNCHES["sparse_fused"] += 1
+    cuda_build.count_launch(LAUNCHES, "sparse_fused")
     d = layout.dim
     return out[d], out[:d], out[d + 1]

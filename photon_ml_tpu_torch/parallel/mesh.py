@@ -121,7 +121,7 @@ def rank_order_sum(rows: Tensor, dtype: torch.dtype) -> Tensor:
                                 int(dtype == torch.float32),
                                 torch.cuda.current_stream(rows.device).cuda_stream)
     cuda_build.check_rc(rc, "exact_rank_sum launch", lib.exact_sum_error_string)
-    LAUNCHES["rank_sum"] += 1
+    cuda_build.count_launch(LAUNCHES, "rank_sum")
     return out
 
 

@@ -11,7 +11,10 @@ Port of `photon_ml_tpu/utils/faults.py`:
   environment. An armed `fault_point` raises `InjectedFault`. The site
   registry is the reference's whole table, so a plan naming any of its
   sites parses here as there; the serving tier fires `lookup`, `score`,
-  `admit`, `swap_stage`, `swap_commit` and `shard_upload`.
+  `admit`, `swap_stage`, `swap_commit` and `shard_upload`, and coordinate
+  descent fires `solve` once per attempt of an update.
+* `solve_retry_attempts()`: the extra attempts the divergence guard grants
+  a rejected coordinate update (`PHOTON_SOLVE_RETRIES`).
 * `retry(fn, policy)`: bounded exponential backoff around transient
   failures (`PHOTON_RETRY_MAX_ATTEMPTS`, `PHOTON_RETRY_BASE_DELAY_S`,
   `PHOTON_RETRY_MAX_DELAY_S`). Transient: injected faults, watchdog hangs,
@@ -350,3 +353,13 @@ def is_device_error(exc: BaseException) -> bool:
     """True for failures of the device or transport, which the serving
     circuit breaker counts (a malformed request is the request's fault)."""
     return _default_transient(exc)
+
+
+def solve_retry_attempts() -> int:
+    """Extra solve attempts the divergence guard grants a rejected
+    (non-finite) coordinate update before keeping the last-good model
+    (PHOTON_SOLVE_RETRIES, default 1). One retry makes a transient
+    non-finite solve (an injected fault, a flaky card) converge back to the
+    fault-free result bit for bit; a deterministic divergence reproduces on
+    retry and falls through to last-good after one extra solve."""
+    return max(0, int(get_knob("PHOTON_SOLVE_RETRIES")))

@@ -8,7 +8,10 @@ raises, so a knob cannot be read without landing in this table.
 
 `PHOTON_SERVING_ENTITY_SHARD` and `PHOTON_SERVING_HOT_ROWS` are registered
 so that `serving.bundle.load_bundle` can refuse them: the row-sharded and
-two-tier stores they select are ROADMAP item 9.
+two-tier stores they select are ROADMAP item 9. The solver's and the sweep
+executor's knobs (`PHOTON_SOLVE_RETRIES`, `PHOTON_SWEEP_*`) are the
+reference's; `PHOTON_SWEEP_SCAN` is not registered, because the port has no
+scan-dispatched bucket sweep.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 logger = logging.getLogger(__name__)
 
@@ -32,6 +35,7 @@ class Knob:
     type: type
     default: Value
     doc: str
+    choices: Optional[Tuple[str, ...]] = None  # str knobs: the legal values
 
     def parse(self, raw: str) -> Value:
         raw = raw.strip()
@@ -52,18 +56,24 @@ class Knob:
             except ValueError:
                 logger.warning("ignoring malformed %s=%r (default %r)", self.name, raw, self.default)
                 return self.default
-        return raw
+        value = raw.lower() if self.choices is not None else raw
+        if self.choices is not None and value not in self.choices:
+            logger.warning("%s=%r: expected one of %s; using default %r", self.name, raw,
+                           sorted(self.choices), self.default)
+            return self.default
+        return value
 
 
 KNOBS: Dict[str, Knob] = {}
 
 
-def _register(name: str, type_: type, default: Value, doc: str) -> None:
+def _register(name: str, type_: type, default: Value, doc: str,
+              choices: Optional[Tuple[str, ...]] = None) -> None:
     if name in KNOBS:
         raise ValueError(f"duplicate knob registration: {name!r}")
     if not isinstance(default, type_):
         raise TypeError(f"{name}: default {default!r} is not {type_.__name__}")
-    KNOBS[name] = Knob(name, type_, default, doc)
+    KNOBS[name] = Knob(name, type_, default, doc, choices)
 
 
 _register("PHOTON_FAULTS", str, "",
@@ -91,6 +101,21 @@ _register("PHOTON_SERVING_HOT_ROWS", int, 0,
 _register("PHOTON_SERVING_HBM_BUDGET_BYTES", int, 0,
           "Device-memory budget a bundle hot-swap must fit in; 0 = the card's total "
           "memory (no check on the CPU).")
+_register("PHOTON_SWEEP_TRIAL_STACK", str, "",
+          "Trial-stacked hyperparameter sweep evaluation (hyperparameter/sweep.py: k "
+          "reg-weight trials in chunks over resident data, one host fetch a chunk): 1 "
+          "forces, 0 disables (shard-group or serial evaluation instead); empty = auto (on "
+          "when no coordinate's store is entity-sharded).",
+          choices=("", *_TRUE, *_FALSE))
+_register("PHOTON_SWEEP_MAX_STACK", int, 8,
+          "Trials per stacked sweep chunk; larger candidate batches split into chunks of at "
+          "most this many.")
+_register("PHOTON_SWEEP_SHARD_GROUPS", int, 0,
+          "Trial groups the cards partition into for shard-group sweep scheduling (one "
+          "concurrent trial per group); 0 = auto (one group per card).")
+_register("PHOTON_SOLVE_RETRIES", int, 1,
+          "Extra solve attempts the divergence guard grants a non-finite coordinate update "
+          "before keeping last-good.")
 _register("PHOTON_TRACE", bool, False,
           "Span tracing (utils/telemetry.py): 1 records spans and exports Chrome "
           "trace-event JSON from cli.serve; 0 keeps span() a no-op.")

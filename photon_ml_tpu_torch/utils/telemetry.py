@@ -49,7 +49,8 @@ from photon_ml_tpu_torch.utils.knobs import get_knob
 logger = logging.getLogger(__name__)
 
 # Every metric name the port records, each with the reference's one-line
-# doc (a subset of the reference's table: the names its serving tier uses).
+# doc (a subset of the reference's table: the names its serving tier and
+# coordinate descent use).
 METRIC_DESCRIPTIONS = {
     "retries": "bounded-backoff retries of transient failures (faults.retry)",
     "injected_faults": "faults fired by the deterministic injector",
@@ -69,6 +70,7 @@ METRIC_DESCRIPTIONS = {
     "serving_batch_size": "requests per dispatched micro-batch",
     "serving_pending_depth": "batcher queue depth observed at batch claim",
     "serving_bundle_generation": "live bundle generation after a hot-swap",
+    "coordinate_update_s": "wall seconds per coordinate-descent update",
 }
 
 _BUCKETS_PER_DECADE = 16

@@ -63,7 +63,7 @@ def test_every_port_module_imports_with_jax_blocked():
                  "hyperparameter.gp", "hyperparameter.slice_sampler", "hyperparameter.search",
                  "hyperparameter.tuner", "utils.knobs", "utils.faults", "utils.watchdog",
                  "utils.telemetry", "serving", "serving.bundle", "serving.engine", "serving.batcher",
-                 "serving.lifecycle", "cli.serve"):
+                 "serving.lifecycle", "cli.serve", "hyperparameter.sweep", "cli.tune"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = _BLOCK_JAX + textwrap.dedent(
         """
@@ -171,6 +171,43 @@ def test_the_index_store_and_tuning_run_with_jax_blocked(tmp_path):
     assert "ran" in proc.stdout
 
 
+def test_a_sweep_runs_with_jax_blocked(tmp_path):
+    """cli.tune (stacked RANDOM rounds, the cold refit, the saved winner and
+    its journal) where jax cannot be imported."""
+    script = _BLOCK_JAX + textwrap.dedent(
+        """
+        import numpy as np
+        from photon_ml_tpu_torch.cli import tune
+        from photon_ml_tpu_torch.io.avro_data import write_training_examples
+        from photon_ml_tpu_torch.utils import telemetry
+
+        root = sys.argv[1]
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(300, 3))
+        y = (rng.uniform(size=300) < 1 / (1 + np.exp(-x @ [1.0, -1.0, 0.5]))).astype(float)
+        rows = [[(f"f{j}", float(x[i, j])) for j in range(3)] for i in range(300)]
+        write_training_examples(root + "/train.avro", rows[:200], y[:200].tolist())
+        write_training_examples(root + "/val.avro", rows[200:], y[200:].tolist())
+        s = tune.main(["--training-task", "LOGISTIC_REGRESSION", "--input-data-directories",
+                       root + "/train.avro", "--validation-data-directories", root + "/val.avro",
+                       "--root-output-directory", root + "/out", "--feature-shard-configurations",
+                       "name=s,feature.bags=features,intercept=true", "--coordinate-configurations",
+                       "name=g,feature.shard=s,regularization=L2,reg.weights=1",
+                       "--tuning-mode", "RANDOM", "--tuning-iter", "4", "--tuning-batch-size", "2",
+                       "--device", "cpu",
+                       "--logging-level", "ERROR"])
+        assert s["modes"] == ["stacked"] and len(s["trials"]) == 4 and s["rounds"] == 2, s
+        assert telemetry.validate_journal(root + "/out/journal.jsonl")[1] == []
+        print("ran")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], capture_output=True, text=True,
+                          cwd=str(REPO), env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "ran" in proc.stdout
+
+
 def test_port_sources_never_name_the_jax_package():
     for path in (REPO / "photon_ml_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():
@@ -194,7 +231,7 @@ def test_cuda_is_the_default_and_is_never_swapped_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("driver", ["train", "score", "libsvm_to_avro", "glm_driver", "build_index",
-                                    "name_and_term"])
+                                    "name_and_term", "tune"])
 def test_each_driver_prints_its_help_with_jax_blocked(driver):
     script = _BLOCK_JAX + textwrap.dedent(
         """

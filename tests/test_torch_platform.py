@@ -311,13 +311,17 @@ def test_spans_parent_across_a_thread_handoff_and_export(tmp_path):
 
 
 def test_a_port_journal_passes_the_reference_validator(tmp_path):
-    """One line of each event type the serving path emits."""
+    """One line of each event type the port emits (the serving path and
+    the sweep executor)."""
     fields = {"health_transition": dict(from_state="READY", to_state="DEGRADED", reasons=["circuit_open"]),
               "bundle_swap": dict(version=1, outcome="committed"),
               "fault_retry": dict(label="x", counter="retries", attempt=1, error="InjectedFault()"),
               "fault_injected": dict(site="score", invocation=3), "watchdog_trip": dict(label="x"),
               "shard_loss": dict(coordinate="per-user", shard_index=0),
-              "shard_restage": dict(coordinate="per-user", shard_index=0, bytes=64)}
+              "shard_restage": dict(coordinate="per-user", shard_index=0, bytes=64),
+              "trial_start": dict(round=0, trial=0, mode="stacked"),
+              "trial_finish": dict(round=0, trial=0, mode="stacked", seconds=0.5, value=0.75,
+                                   diverged_steps=0)}
     assert set(fields) == set(contracts.JOURNAL_EVENT_SCHEMAS)
     for etype, schema in contracts.JOURNAL_EVENT_SCHEMAS.items():
         assert schema == jax_contracts.JOURNAL_EVENT_SCHEMAS[etype]
