@@ -97,6 +97,28 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    the sparse launches (sparse_fused = the fixed effect's objective
    passes, sparse_matvec nonzero, dense kernels 0), peak memory and the
    training AUC (above 0.5); then one profiled sweep (3e-b).
+3e-d. 3e's cell on ranks (parallel/): 3e's files read once by the port's
+   reader onto the host, handed to 4 gloo ranks sharing the card as shared
+   memory; rows follow the per-user entities, per-movie trains on a row
+   view (its owned movies' rows, exchanged once at set-up), so its update
+   exchanges the residual offsets to the view and its scores back. A
+   warm-up sweep, one counted sweep, one more under torch.profiler on rank
+   0 (its device idle share). Per rank: set-up, wall, seconds by
+   coordinate, counts, elements and seconds of exact_sum and exchange
+   (exact sums = objective passes + one vote per update; 2 exchanges, of
+   the planned rows; no all_reduce), launches (sparse_fused = passes,
+   rank_sum = exact sums), peak memory. Gates: the same fixed-effect bits
+   on every rank, one owner per entity of each random effect, the fixed
+   effect within card_vs_cpu_glmix's fe_coef_atol of 3e's, each random
+   effect on 3e's objective within re_objective_rtol, the AUC over ranks
+   within auc_atol. Then world size 1 over NCCL, which must give 3e's bits
+   (fixed effect, both matrices, scores), and one rank a card over NCCL
+   where the machine has 2 or more cards.
+5e-d. In 3e-d's ranks: a small e2e fit from files (12,000 rows) with
+   Pearson masks (ratio 0.2) against one CPU process under
+   card_vs_cpu_glmix: fixed effect, AUC and per-user AUC (a grouped
+   evaluator), each random effect on its objective, and every rank's masks
+   bit-equal to the CPU's rows of its entities.
 5e. A small fit from files (12,000 rows: 80 users, 16 movies) on the card
    and on the CPU, two seeds, under PORT_TOLERANCES["card_vs_cpu_glmix"]:
    fixed-effect coefficients, AUC, and each random effect held on its
@@ -307,7 +329,8 @@ print which backend each used.
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
 3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, each run
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
-sweep and its cli.tune run, 3v's engine path, and 3d and 4d in each rank)
+sweep and its cli.tune run, 3v's engine path, and 3d, 4d and 3e-d in each
+rank, whose counts are rank 0's)
 and read
 just after; the `kernels` line gives them by
 phase (`launches_by_phase`). "wall:" lines give each group of phases'
@@ -1079,21 +1102,30 @@ def read_e2e(root: str, device):
     return ds
 
 
-def e2e_coordinates(ds, fe_cfg, re_cfg):
+def e2e_re_config(cid: str, mask_ratio=None):
+    """The bench's e2e random effect `cid` on "g" (min_bucket 8), with
+    Pearson selection at `mask_ratio` if given."""
+    from photon_ml_tpu_torch.data.game_dataset import RandomEffectDataConfig
+
+    tag, cap = E2E_RE[cid]
+    return RandomEffectDataConfig(tag, "g", active_upper_bound=cap, min_bucket=8,
+                                  num_features_to_samples_ratio_upper_bound=mask_ratio)
+
+
+def e2e_coordinates(ds, fe_cfg, re_cfg, mask_ratio=None):
     """The bench's e2e coordinates: "global" on "g", then per-user and
-    per-movie random effects on "g" (min_bucket 8). Returns (coordinates,
-    seconds building each random effect's layout)."""
-    from photon_ml_tpu_torch.data.game_dataset import RandomEffectDataConfig, build_random_effect_dataset
+    per-movie random effects on "g" (`e2e_re_config`). Returns
+    (coordinates, seconds building each random effect's layout)."""
+    from photon_ml_tpu_torch.data.game_dataset import build_random_effect_dataset
     from photon_ml_tpu_torch.game.coordinate import FixedEffectCoordinate, RandomEffectCoordinate
     from photon_ml_tpu_torch.types import TaskType
 
     task = TaskType.LOGISTIC_REGRESSION
     coords = {"global": FixedEffectCoordinate(ds, "g", fe_cfg, task)}
     build_s = {}
-    for cid, (tag, cap) in E2E_RE.items():
+    for cid in E2E_RE:
         t0 = time.perf_counter()
-        red = build_random_effect_dataset(
-            ds, RandomEffectDataConfig(tag, "g", active_upper_bound=cap, min_bucket=8))
+        red = build_random_effect_dataset(ds, e2e_re_config(cid, mask_ratio))
         build_s[cid] = time.perf_counter() - t0
         coords[cid] = RandomEffectCoordinate(ds, red, re_cfg, task)
     return coords, build_s
@@ -1111,11 +1143,31 @@ def e2e_configs():
     return fe, re
 
 
-def small_e2e_fit(ds) -> dict:
-    """Phase 5e's fit: the e2e coordinates with phase 5's converging solver
-    settings, one sweep; the model, AUC and each random effect's offsets."""
+def e2e_result(ds, coords, result) -> dict:
+    """Phase 3e's record of one sweep (`result` of `coords` on `ds`): the
+    model, the scores with offsets and their AUC, the random effects'
+    datasets and the offsets each random effect's solve ran on."""
     from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
-    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+
+    coord_scores = {c: coords[c].score(result.model[c]) for c in coords}
+    scores = sum(coord_scores.values()) + ds.offsets
+    return dict(fe=result.model["global"].coefficients.means,
+                re={c: result.model[c].coefficients_matrix for c in E2E_RE},
+                reds={c: coords[c].re_dataset for c in E2E_RE},
+                auc=float(area_under_roc_curve(scores, ds.labels)), scores=scores,
+                re_offsets={"per-user": ds.offsets + coord_scores["global"],
+                            "per-movie": (ds.offsets + coord_scores["global"]
+                                          + coord_scores["per-user"])})
+
+
+def small_e2e_fit(ds, mask_ratio=None) -> dict:
+    """Phase 5e's fit: the e2e coordinates (with Pearson selection at
+    `mask_ratio`, if given) with phase 5's converging solver settings, one
+    sweep; the model, AUC, per-user AUC, each random effect's offsets and
+    mask. On ranks (5e-d) the model and metrics are of all ranks, and the
+    offsets and datasets this rank's."""
+    from photon_ml_tpu_torch.evaluation.suite import EvaluationSuite, EvaluatorType
+    from photon_ml_tpu_torch.game.coordinate_descent import gather_game_model, run_coordinate_descent
     from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
 
     fe = CoordinateOptimizationConfig(
@@ -1123,22 +1175,30 @@ def small_e2e_fit(ds) -> dict:
     re = CoordinateOptimizationConfig(
         optimizer=OptimizerConfig(max_iterations=20, tolerance=1e-5), regularization=L2,
         reg_weight=SMALL_RE_L2)
-    coords, _ = e2e_coordinates(ds, fe, re)
+    coords, _ = e2e_coordinates(ds, fe, re, mask_ratio)
     r = run_coordinate_descent(coords, 1)
     scores = {c: coords[c].score(r.model[c]) for c in coords}
     # One sweep in order: each random effect solved on the base offsets plus
     # the scores of the coordinates before it.
     re_offsets = {"per-user": ds.offsets + scores["global"],
                   "per-movie": ds.offsets + scores["global"] + scores["per-user"]}
-    return dict(fe=r.model["global"].coefficients.means.cpu(),
-                re={c: r.model[c].coefficients_matrix.cpu() for c in E2E_RE},
-                auc=float(area_under_roc_curve(sum(scores.values()) + ds.offsets, ds.labels)),
-                ds=ds, reds={c: coords[c].re_dataset for c in E2E_RE}, re_offsets=re_offsets)
+    evaluators = [EvaluatorType("AUC"), EvaluatorType.parse("AUC:userId")]
+    metrics = EvaluationSuite(evaluators, ds.labels, id_tag_values=ds.id_tags,
+                              sharding=ds.sharding).evaluate(sum(scores.values()) + ds.offsets)
+    model = gather_game_model(coords, r.model)
+    reds = {c: coords[c].re_dataset for c in E2E_RE}
+    return dict(fe=model["global"].coefficients.means.cpu(),
+                re={c: model[c].coefficients_matrix.cpu() for c in E2E_RE},
+                auc=metrics.results["AUC"], user_auc=metrics.results["AUC:userId"],
+                ds=ds, reds=reds, re_offsets=re_offsets,
+                masks={c: None if red.feature_mask is None else (
+                    red.feature_mask.cpu(), None if red.owned_entities is None
+                    else red.owned_entities.cpu()) for c, red in reds.items()})
 
 
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
-    """Phases 2e, 3e, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x, 3x-scale, 3t, 3w, 3v
-    and 5e (`dense`: phase 3's arrays and model, for 3v). Returns (phase 2e
+    """Phases 2e, 3e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x,
+    3x-scale, 3t, 3w, 3v and 5e (`dense`: phase 3's arrays and model, for 3v). Returns (phase 2e
     rows by kernel, the sparse launches by kernel of each path)."""
     import os
     import tempfile
@@ -1148,7 +1208,6 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     from photon_ml_tpu_torch.contracts import INGEST_STAGES, INGEST_TIMING_REQUIRED_KEYS, PORT_TOLERANCES
     from photon_ml_tpu_torch.data.containers import SparseFeatures
     from photon_ml_tpu_torch.data.sparse_layout import from_ell
-    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
     from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
     from photon_ml_tpu_torch.io import model_bridge
     from photon_ml_tpu_torch.ops import glm_kernels
@@ -1244,8 +1303,8 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    scores = sum(coords[c].score(result.model[c]) for c in coords) + ds.offsets
-    auc = float(area_under_roc_curve(scores, ds.labels))
+    phase3e = e2e_result(ds, coords, result)
+    scores, auc = phase3e["scores"], phase3e["auc"]
     score_auc_s = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)  # phase 3e ends here
     dense_launches = dict(glm_kernels.LAUNCHES)
@@ -1277,10 +1336,11 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         raise SystemExit(f"phase 3e: training AUC {auc} is not above 0.5")
     # Where the sweep's device time goes (after the counted run).
     log(json.dumps(dict(phase="3e-b", **profile_sweep(coords, sweep_s))))
-    phase3e = dict(fe=result.model["global"].coefficients.means,
-                   re={c: result.model[c].coefficients_matrix for c in E2E_RE},
-                   reds={c: coords[c].re_dataset for c in E2E_RE}, auc=auc, launches=launches)
+    phase3e["launches"] = launches
     del coords, result, scores, layout
+    torch.cuda.empty_cache()
+    launches3ed = walled("phases 3e-d, 5e-d", e2e_rank_phases, root, seed, ds, phase3e)
+    del phase3e["scores"], phase3e["re_offsets"]
     torch.cuda.empty_cache()
     launches3f, fit3f = estimator_e2e_phase(ds, phase3e)
     # 3f's model in the original space, as the train driver saves it.
@@ -1337,8 +1397,321 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
             failures.append(f"seed {s}: the card's small e2e fit disagrees with the CPU's")
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
-    return rows2e, {"3e": launches, "3f": launches3f, "3c": launches3c, "3k": launches3k, "3g": launches3g,
-                    "3x": launches3x, "3t": launches3t, "3w": launches3w, "3v": launches3v}
+    return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
+                    "3k": launches3k, "3g": launches3g, "3x": launches3x, "3t": launches3t,
+                    "3w": launches3w, "3v": launches3v}
+
+
+# ---------------------------------------------------------------- phases 3e-d and 5e-d
+# The e2e cell on ranks (parallel/): rows follow the per-user entities, and
+# per-movie trains on a row view, the rows of the movies a rank owns, so each
+# of its updates exchanges the residual offsets to the view and its scores
+# back (`RankMesh.exchange`). The host arrays are read once from the Avro
+# files by the port's reader, onto the CPU, and handed to the ranks as
+# shared memory; the rank_e2e* functions run in the ranks and return host
+# values.
+
+E2E_MASK_RATIO = 0.2  # 5e-d's Pearson selection: ~30 of a user's 201 features, ~103 of a movie's
+
+
+def e2e_host_arrays(ds) -> dict:
+    """A dataset read onto the CPU as the host arrays `rank_e2e_dataset`
+    takes, in shared memory."""
+    import torch
+
+    sf = ds.shards["g"]
+    out = dict(indices=sf.indices.share_memory_(), values=sf.values.share_memory_(), dim=sf.dim,
+               labels=ds.labels.share_memory_())
+    for tag in E2E_TAGS:  # factorized: codes into ingest's (string-sorted) value table
+        codes, table = ds.tag_codes[tag]
+        out[tag] = (shared_tensor(torch, np.asarray(codes, np.int64)), table)
+    return out
+
+
+def rank_e2e_dataset(mesh, data: dict, mask_ratio=None):
+    """This rank's rows of the e2e cell, which follow the per-user entities."""
+    from photon_ml_tpu_torch.data.containers import SparseFeatures
+    from photon_ml_tpu_torch.parallel.mesh import shard_game_dataset
+
+    return shard_game_dataset(
+        mesh, {"g": SparseFeatures(data["indices"], data["values"], data["dim"])}, data["labels"],
+        tag_codes={tag: (np.asarray(data[tag][0]), data[tag][1]) for tag in E2E_TAGS},
+        owner=e2e_re_config("per-user", mask_ratio))
+
+
+def rank_e2e_sweep(mesh, data: dict, warmup: bool) -> dict:
+    """Phase 3e-d on one rank: 3e's sweep on this rank's rows (with
+    `warmup`, one sweep first and one more under torch.profiler on rank 0
+    after), counted from 0 just before it and read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve_over_ranks
+    from photon_ml_tpu_torch.game.coordinate_descent import gather_game_model, run_coordinate_descent
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.parallel import mesh as pmesh
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    ds = rank_e2e_dataset(mesh, data)
+    fe_cfg, re_cfg = e2e_configs()
+    coords, re_build_s = e2e_coordinates(ds, fe_cfg, re_cfg)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    warm_s = None
+    if warmup:
+        t0 = time.perf_counter()
+        run_coordinate_descent(coords, 1)  # first-use costs
+        torch.cuda.synchronize(dev)
+        warm_s = time.perf_counter() - t0
+
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sk.reset_launch_counts()
+    glm_kernels.reset_launch_counts()
+    pmesh.reset_launch_counts()
+    mesh.reset_counts()  # phase 3e-d starts here
+    t0 = time.perf_counter()
+    result = run_coordinate_descent(coords, 1)
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    launches = dict(sk.LAUNCHES, **glm_kernels.LAUNCHES, **pmesh.LAUNCHES)
+    counts, elements = dict(mesh.counts), dict(mesh.elements)
+    seconds = dict(mesh.seconds)  # phase 3e-d ends here
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    scores = sum(coords[c].score(result.model[c]) for c in coords) + ds.offsets
+    auc = float(area_under_roc_curve_over_ranks(ds.sharding, scores, ds.labels))
+    all_scores = ds.sharding.gather(scores)
+    model = gather_game_model(coords, result.model)
+    one_owner = {}
+    for cid in E2E_RE:
+        red = coords[cid].re_dataset
+        owners = mesh.owned_to_global(torch.ones((len(red.owned_entities), 1), device=dev),
+                                      red.owned_entities, red.num_entities + 1)
+        one_owner[cid] = bool((owners[:-1] == 1).all() and (owners[-1] == 0).all())
+    profile = None
+    if warmup:  # every rank sweeps; rank 0 under the profiler
+        if mesh.rank == 0:
+            profile = profile_sweep(coords, wall_s)
+        else:
+            run_coordinate_descent(coords, 1)
+            torch.cuda.synchronize(dev)
+    fe_res = result.train_stats["global"]
+    movie = coords["per-movie"].re_dataset
+    row = dict(
+        rows=ds.num_samples, setup_s=setup_s, re_build_s=re_build_s, warmup_wall_s=warm_s,
+        sweep_wall_s=wall_s, fixed_s=result.timing["global/iter0"],
+        per_user_s=result.timing["per-user/iter0"], per_movie_s=result.timing["per-movie/iter0"],
+        fe_iterations=int(fe_res.iterations), fe_fn_evals=int(fe_res.fn_evals),
+        collectives=counts, collective_elements=elements, collective_s=seconds,
+        collective_share=sum(seconds.values()) / wall_s, exchange_share=seconds["exchange"] / wall_s,
+        launches=launches, peak_mem_gib=peak_gib, train_auc=auc, one_owner_per_entity=one_owner,
+        view_rows=movie.view.dataset.num_samples,
+        rows_sent=dict(to_view=movie.view.to_view.rows_sent,
+                       from_view=movie.view.from_view.rows_sent),
+        entities={c: len(coords[c].re_dataset.owned_entities) for c in E2E_RE},
+        lanes={c: [(b.capacity, b.num_entities) for b in coords[c].re_dataset.buckets]
+               for c in E2E_RE},
+        re_active_passive={c: (coords[c].re_dataset.num_active_samples,
+                               coords[c].re_dataset.num_passive_samples) for c in E2E_RE},
+        profile=profile, fe=model["global"].coefficients.means.cpu(),
+    )
+    if mesh.rank == 0:
+        row.update(re={c: model[c].coefficients_matrix.cpu() for c in E2E_RE},
+                   scores=all_scores.cpu())
+    return row
+
+
+def rank_e2e_phases(mesh, data: dict, small, warmup: bool) -> dict:
+    """Phases 3e-d and, given `small` host arrays, 5e-d on one rank. The
+    kernels come from phase 1's libraries; a rank never builds."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import cuda_build, sparse_kernels
+    from photon_ml_tpu_torch.parallel import mesh as pmesh
+
+    for src in (sparse_kernels.SOURCE, pmesh.SOURCE):
+        if not cuda_build.library_path(src).exists():
+            raise RuntimeError(f"phase 1's {src.stem} library is missing; ranks do not build")
+    out = dict(rank=mesh.rank, world_size=mesh.world_size, backend=mesh.backend,
+               device=str(mesh.device), **{"3e-d": rank_e2e_sweep(mesh, data, warmup)})
+    torch.cuda.empty_cache()
+    if small is not None:
+        fit = small_e2e_fit(rank_e2e_dataset(mesh, small, E2E_MASK_RATIO), E2E_MASK_RATIO)
+        out["5e-d"] = {k: fit[k] for k in ("fe", "re", "auc", "user_auc", "masks")}
+    return out
+
+
+def check_3e_d(outs, label: str, ds, phase3e: dict, failures: list) -> dict:
+    """Log each rank's 3e-d row and gate it: launches and collectives
+    against the objective passes and the updates, the exchange's elements
+    against its plan, one owner per entity, the same fixed-effect bits on
+    every rank; the model against 3e's: the fixed effect within
+    `fe_coef_atol`, each random effect on 3e's objective within
+    `re_objective_rtol`, the AUC within `auc_atol`. Returns the summary row."""
+    import torch
+
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+
+    tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    rows = [o["3e-d"] for o in outs]
+    for o, r in zip(outs, rows):
+        log(json.dumps(dict(phase="3e-d", ranks=label, rank=o["rank"], device=o["device"],
+                            **{k: v for k, v in r.items() if k not in ("fe", "re", "scores")})))
+        passes, ln, c = r["fe_fn_evals"], r["launches"], r["collectives"]
+        # One cross-rank sum per objective pass and one finiteness vote per
+        # update (each a rank-order launch); per-movie exchanges its offsets
+        # to the view and its scores back.
+        want = {"exact_sum": passes + 3, "owned_to_global": 0,
+                "exchange": 2 if o["world_size"] > 1 else 0}
+        sent = r["rows_sent"]["to_view"] + r["rows_sent"]["from_view"]
+        if (c != want or ln["rank_sum"] != passes + 3 or ln["sparse_fused"] != passes
+                or ln["sparse_matvec"] == 0 or ln["value_grad"] or ln["hvp"]
+                or r["collective_elements"]["exchange"] != (sent if o["world_size"] > 1 else 0)):
+            failures.append(f"3e-d {label} rank {o['rank']}: collectives {c} (want {want}), "
+                            f"elements {r['collective_elements']} ({sent} rows planned), launches "
+                            f"{ln} for {passes} objective passes")
+        if not all(r["one_owner_per_entity"].values()):
+            failures.append(f"3e-d {label} rank {o['rank']}: an entity has no owner or two")
+    r0 = rows[0]
+    re_gap = {cid: re_objective_gap(ds, phase3e["reds"][cid], phase3e["re_offsets"][cid], LOGISTIC,
+                                    10.0, r0["re"][cid].to(ds.device), phase3e["re"][cid])
+              for cid in E2E_RE}
+    summary = dict(
+        phase="3e-d", ranks=label, world_size=outs[0]["world_size"],
+        sweep_wall_s=max(r["sweep_wall_s"] for r in rows),
+        fixed_s=max(r["fixed_s"] for r in rows), per_user_s=max(r["per_user_s"] for r in rows),
+        per_movie_s=max(r["per_movie_s"] for r in rows),
+        setup_s=max(r["setup_s"] for r in rows), peak_mem_gib=max(r["peak_mem_gib"] for r in rows),
+        collective_share=max(r["collective_share"] for r in rows),
+        exchange_share=max(r["exchange_share"] for r in rows),
+        exchange_s=max(r["collective_s"]["exchange"] for r in rows),
+        exact_sum_s=max(r["collective_s"]["exact_sum"] for r in rows),
+        rank0_device_idle_share=None if r0["profile"] is None else r0["profile"]["device_idle_share"],
+        train_auc=r0["train_auc"], phase3e_train_auc=phase3e["auc"],
+        fe_vs_3e_max_abs=float((r0["fe"] - phase3e["fe"].cpu()).abs().max()),
+        re_objective_gap_vs_3e=re_gap,
+        fe_bit_identical_on_every_rank=all(torch.equal(r["fe"], r0["fe"]) for r in rows), tol=tol)
+    log(json.dumps(summary))
+    if not summary["fe_bit_identical_on_every_rank"]:
+        failures.append(f"3e-d {label}: the ranks' fixed-effect coefficients differ")
+    if (summary["fe_vs_3e_max_abs"] > tol["fe_coef_atol"]
+            or any(g > tol["re_objective_rtol"] for g in re_gap.values())
+            or abs(r0["train_auc"] - phase3e["auc"]) > tol["auc_atol"]):
+        failures.append(f"3e-d {label}: the model is not 3e's within card_vs_cpu_glmix: {summary}")
+    if not torch.isfinite(r0["scores"]).all():
+        failures.append(f"3e-d {label}: scores are not finite")
+    return summary
+
+
+def e2e_rank_phases(root: str, seed: int, ds, phase3e: dict) -> dict:
+    """Phases 3e-d and 5e-d: 3e's cell on 4 ranks sharing the card over gloo
+    (with 5e-d in the same ranks), then at world size 1 over NCCL, which
+    must give 3e's bits, and on up to 4 cards over NCCL where the machine
+    has them. Returns rank 0's launches of 3e-d on the shared card."""
+    import tempfile
+
+    import torch
+
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    data = e2e_host_arrays(read_e2e(root, "cpu"))
+    small_arrays = e2e_arrays(12000, seed=seed + 43, n_users=80, n_movies=16)
+    with tempfile.TemporaryDirectory(prefix="photon-e2e-small-") as small_root:
+        write_e2e_files(small_root, small_arrays)
+        small_cpu = read_e2e(small_root, "cpu")
+    small = e2e_host_arrays(small_cpu)
+    log(f"phase 3e-d setup: {time.perf_counter() - t0:.2f} s to read 3e's files onto the host "
+        f"(shared memory) and 5e-d's")
+    failures = []
+    t0 = time.perf_counter()
+    outs = launch(rank_e2e_phases, RANKS_SHARED, backend="gloo", devices=["cuda:0"] * RANKS_SHARED,
+                  deadline_s=RANK_DEADLINE_S, args=(data, small, True))
+    log(f"phases 3e-d, 5e-d: {RANKS_SHARED} ranks sharing cuda:0 over gloo, "
+        f"{time.perf_counter() - t0:.2f} s from spawn to the last rank's return")
+    check_3e_d(outs, "gloo, 4 ranks, one card", ds, phase3e, failures)
+    launches = dict(outs[0]["3e-d"]["launches"])
+
+    # ---- phase 5e-d: the small fit on the ranks against one CPU process ---------------
+    tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    cpu = small_e2e_fit(small_cpu, E2E_MASK_RATIO)
+    fits = [o["5e-d"] for o in outs]
+    card = fits[0]
+    row = dict(phase="5e-d", seed=seed + 43, world_size=RANKS_SHARED,
+               fe_coef_err=float((card["fe"] - cpu["fe"]).abs().max()), auc_card=card["auc"],
+               auc_cpu=cpu["auc"], user_auc_card=card["user_auc"], user_auc_cpu=cpu["user_auc"],
+               ranks_identical=all(torch.equal(f["fe"], card["fe"]) and f["auc"] == card["auc"]
+                                   and f["user_auc"] == card["user_auc"] for f in fits), tol=tol)
+    ok = (row["fe_coef_err"] <= tol["fe_coef_atol"] and row["ranks_identical"]
+          and abs(card["auc"] - cpu["auc"]) <= tol["auc_atol"]
+          and abs(card["user_auc"] - cpu["user_auc"]) <= tol["auc_atol"])
+    for cid in E2E_RE:
+        re = re_objective_readings(cpu["ds"], cpu["reds"][cid], cpu["re_offsets"][cid], LOGISTIC,
+                                   SMALL_RE_L2, {"card": card["re"][cid], "cpu": cpu["re"][cid]})
+        cpu_mask = cpu["masks"][cid][0]
+        # Each rank's mask rows are its owned entities' rows of one process's masks.
+        masks_equal = all(torch.equal(f["masks"][cid][0][:-1], cpu_mask[f["masks"][cid][1]])
+                          and bool((f["masks"][cid][0][-1] == 1).all()) for f in fits)
+        dropped = float((cpu_mask[:-1] == 0).float().mean())
+        row[cid] = dict(re_objective_excess=re["excess"], re_fault_excess=re["fault"],
+                        masks_bit_equal=masks_equal, mask_share_dropped=dropped)
+        ok = ok and re["excess"]["card"] <= tol["re_objective_rtol"] and masks_equal and dropped > 0
+        if not (re["excess"]["cpu"] <= tol["re_objective_rtol"] < re["fault"]):
+            failures.append(f"5e-d {cid}: re_objective_rtol does not separate the CPU fit "
+                            f"({re['excess']['cpu']:.3e}) from a cold-start lane ({re['fault']:.3e})")
+    row["ok"] = ok
+    log(json.dumps(row))
+    if not ok:
+        failures.append("5e-d: the small e2e fit on 4 ranks disagrees with one CPU process")
+    del outs, fits, cpu, small_cpu
+    torch.cuda.empty_cache()
+
+    # ---- 3e-d at world size 1 over NCCL: 3e's bits -------------------------------------
+    t0 = time.perf_counter()
+    (one,) = launch(rank_e2e_phases, 1, backend="nccl", devices=["cuda:0"],
+                    deadline_s=RANK_DEADLINE_S, args=(data, None, False))
+    r1 = one["3e-d"]
+    same = dict(fe=torch.equal(r1["fe"], phase3e["fe"].cpu()),
+                scores=torch.equal(r1["scores"], phase3e["scores"].cpu()),
+                **{cid: torch.equal(r1["re"][cid], phase3e["re"][cid].cpu()) for cid in E2E_RE})
+    log(json.dumps(dict(phase="3e-d", backend="nccl", world_size=1, device="cuda:0",
+                        spawn_to_return_s=time.perf_counter() - t0, setup_s=r1["setup_s"],
+                        sweep_wall_s=r1["sweep_wall_s"], collectives=r1["collectives"],
+                        bit_identical_to_3e=same)))
+    if not all(same.values()):
+        failures.append(f"3e-d: world size 1 over NCCL is not 3e's bits: {same}")
+    check_3e_d([one], "nccl, world size 1", ds, phase3e, failures)
+    del one, r1
+
+    if torch.cuda.device_count() >= 2:
+        e2e_across_cards(data, ds, phase3e, failures)
+    else:
+        log("phase 3e-d: this machine has 1 card, so NCCL runs with world size 1 only")
+    if failures:
+        raise SystemExit("phases 3e-d, 5e-d failed: " + "; ".join(failures))
+    return launches
+
+
+def e2e_across_cards(data: dict, ds, phase3e: dict, failures: list) -> None:
+    """Phase 3e-d over NCCL with one rank a card (up to 4 cards), gated as
+    on the shared card."""
+    import torch
+
+    from photon_ml_tpu_torch.parallel.launch import launch
+
+    world = min(4, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    outs = launch(rank_e2e_phases, world, backend="nccl", devices=[f"cuda:{r}" for r in range(world)],
+                  deadline_s=RANK_DEADLINE_S, args=(data, None, True))
+    log(f"phase 3e-d: {world} ranks, one card each, over NCCL, "
+        f"{time.perf_counter() - t0:.2f} s from spawn to the last rank's return")
+    check_3e_d(outs, f"nccl, {world} cards", ds, phase3e, failures)
 
 
 SERVE_REPLAY_ROWS = 100_000  # 3v: rows of 3g's validation file cli.serve replays
@@ -3792,7 +4165,7 @@ def check_3d_4d(backend: str, outs, failures: list) -> dict:
             failures.append(f"3d rank {o['rank']}: launches {r['launches']} for {passes} passes")
         # One cross-rank sum per objective pass, one finiteness vote per
         # update; each a launch of the rank-order kernel.
-        if (r["collectives"] != {"exact_sum": passes + 2, "owned_to_global": 0}
+        if (r["collectives"] != {"exact_sum": passes + 2, "owned_to_global": 0, "exchange": 0}
                 or r["launches"]["rank_sum"] != passes + 2):
             failures.append(f"3d rank {o['rank']}: collectives {r['collectives']}, launches "
                             f"{r['launches']} for {passes} objective passes and 2 updates")
@@ -3814,7 +4187,8 @@ def check_3d_4d(backend: str, outs, failures: list) -> dict:
         # variances' Hessian diagonal adds one cross-rank sum.
         if not (ln["sharded_hvp"] == ln["hvp"] > 0 and ln["sharded_value_grad"] == ln["value_grad"]
                 and ln["sharded_value_grad"] + ln["sharded_hvp"] == passes
-                and r["collectives"] == {"exact_sum": passes + 1, "owned_to_global": 0}
+                and r["collectives"] == {"exact_sum": passes + 1, "owned_to_global": 0,
+                                         "exchange": 0}
                 and ln["rank_sum"] == passes + 1):
             failures.append(f"4d rank {o['rank']}: launches {ln}, collectives {r['collectives']} "
                             f"for {passes} TRON passes")
@@ -4272,7 +4646,8 @@ def main(argv=None) -> int:
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3f, 3c, 3k, 5k, 3g, 3x, 3t, 3w, 3v", e2e_phases, args.seed, dev,
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3g, 3x, 3t, 3w, 3v",
+                                    e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
     # ---- phase 5f: small estimator fits, card vs CPU --------------------------------
@@ -4312,12 +4687,14 @@ def main(argv=None) -> int:
     # ingested shard beside.
     kernels += [
         dict(name=k, route="cuda", source=SPARSE_SOURCE, replaces=SPARSE_REPLACES[k],
-             launches=(sparse_launches[k] + e2e_launches["3e"][k] + e2e_launches["3f"]["sparse"][k]
+             launches=(sparse_launches[k] + e2e_launches["3e"][k] + e2e_launches["3e-d"][k]
+                       + e2e_launches["3f"]["sparse"][k]
                        + small_launches["sparse"][k] + e2e_launches["3c"]["sparse"][k]
                        + driver_launches["sparse"][k] + e2e_launches["3k"][k] + e2e_launches["3g"][k]
                        + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]
                        + e2e_launches["3w"]["sparse"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
+                                "3e-d": e2e_launches["3e-d"][k],
                                 "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
                                 "3c": e2e_launches["3c"]["sparse"][k], "5c": driver_launches["sparse"][k],
                                 "3k+5k+3o": e2e_launches["3k"][k], "3g": e2e_launches["3g"][k],
@@ -4333,13 +4710,17 @@ def main(argv=None) -> int:
         for k in SPARSE_REPLACES
     ]
     # Kernel #3: #1/#2 on each rank's rows, one all_gather and the rank-order
-    # kernel (launched once per cross-rank sum: rank_sum_launches, 3d + 4d).
+    # kernel (launched once per cross-rank sum: rank_sum_launches, 3d + 4d,
+    # and 3e-d, where it sums the sparse fixed effect's per-rank sums), rank 0's.
+    rank_sums = {"3d+4d": dist_launches["rank_sum"], "3e-d": e2e_launches["3e-d"]["rank_sum"]}
     kernels += [
         dict(name=k, route="cuda", source="photon_ml_tpu_torch/csrc/exact_sum.cu",
              replaces=DIST_REPLACES[k], launches=dist_launches[k],
-             launches_by_phase={"3d+4d": dist_launches[k], "3w": e2e_launches["3w"]["dense"][k],
+             launches_by_phase={"3d+4d": dist_launches[k], "3e-d": e2e_launches["3e-d"][k],
+                                "3w": e2e_launches["3w"]["dense"][k],
                                 "3v": e2e_launches["3v"]["path"][k]},
-             rank_sum_launches=dist_launches["rank_sum"], **dist_rows[k])
+             rank_sum_launches=sum(rank_sums.values()), rank_sum_launches_by_phase=rank_sums,
+             **dist_rows[k])
         for k in DIST_REPLACES
     ]
     print(json.dumps({"kernels": kernels}))

@@ -26,13 +26,16 @@ read from Avro also carries `ingest_timing`, the stage times of that read.
 
 A dataset sharded over torch.distributed ranks (`parallel/mesh.py
 shard_game_dataset`) holds only this rank's rows, in global order, and
-carries a `sharding` that maps them to their global positions; its
-random-effect layout is this rank's part of the layout built from the
-global id tag.
+carries a `sharding` that maps them to their global positions; a random
+effect's layout is this rank's part of the layout built from the global id
+tag, over this rank's rows or, for a random effect other than the one the
+rows follow, over a row view exchanged from the other ranks.
 
 Pearson feature selection (`num_features_to_samples_ratio_upper_bound`)
-runs on the host, as in the reference. The estimator projects each random
-effect's shard (game/projector.py) after its layout is built.
+runs on the host, as in the reference; on ranks, each rank computes the
+masks of the entities it owns, whose active rows it holds. The estimator
+projects each random effect's shard (game/projector.py) after its layout
+is built.
 Not ported: the async packing and upload of the JAX data plane.
 """
 
@@ -57,7 +60,7 @@ from photon_ml_tpu_torch.timing import StageTimes
 from photon_ml_tpu_torch.types import ProjectorType
 
 if TYPE_CHECKING:
-    from photon_ml_tpu_torch.parallel.mesh import RankMesh, RowSharding
+    from photon_ml_tpu_torch.parallel.mesh import RankMesh, RowSharding, RowView
 
 Tensor = torch.Tensor
 
@@ -228,7 +231,12 @@ class RandomEffectDataset:
     `owned_entities`: on a rank, the entities (rows of the global matrix)
     it owns and trains, increasing; its coefficient store holds their rows
     alone, row i for `owned_entities[i]`, and the bucket and sample rows
-    index that store (None: every entity, one process)."""
+    index that store (None: every entity, one process). The feature mask's
+    rows are then store rows too.
+    `view`: on a rank whose rows follow another random effect, the rows
+    this one trains and scores (parallel/mesh.py `RowView`); the bucket
+    gathers and `sample_entity_rows` index the view's rows. None: the
+    dataset's own rows."""
 
     config: RandomEffectDataConfig
     entity_index: Dict[object, int]
@@ -238,6 +246,7 @@ class RandomEffectDataset:
     num_passive_samples: int
     feature_mask: Optional[Tensor] = None
     owned_entities: Optional[Tensor] = None
+    view: Optional["RowView"] = None
 
     @property
     def num_entities(self) -> int:
@@ -355,33 +364,32 @@ def build_random_effect_dataset(
 ) -> RandomEffectDataset:
     """One-time construction of the entity-blocked layout on the dataset's
     device, or, for a dataset sharded over ranks, this rank's part of the
-    layout built from the global id tag (parallel/mesh.py). `times`, when
-    given, gets the build's seconds as `re_build`, the assembly's as
-    `re_device` (each stops once the device has finished) and `re_path`."""
+    layout built from the global id tag (parallel/mesh.py; a collective, so
+    every rank builds it). `times`, when given, gets the build's seconds as
+    `re_build`, the assembly's as `re_device` (each stops once the device
+    has finished) and `re_path`."""
     tag = config.random_effect_type
     if tag not in dataset.id_tags:
         raise ValueError(f"id tag {tag!r} not present in dataset")
+    feats = dataset.shards[config.feature_shard]
     if dataset.sharding is not None:
-        if isinstance(dataset.shards[config.feature_shard], SparseFeatures):
-            raise NotImplementedError("random effects over a sparse shard on ranks are not ported yet")
-        if config.num_features_to_samples_ratio_upper_bound is not None:
-            raise NotImplementedError("Pearson feature selection on ranks is not ported yet")
+        # Every rank checks its own rows, and every rank raises if one finds any.
+        if isinstance(feats, SparseFeatures) and not dataset.mesh.all_true(
+                not ell_has_duplicates(feats.indices, feats.values)):
+            _refuse_duplicates(config)
         return dataset.sharding.random_effect_dataset(dataset, config)
     times = StageTimes() if times is None else times
     dev = dataset.device
     with times.stage("re_build", dev):
-        feats = dataset.shards[config.feature_shard]
         if isinstance(feats, SparseFeatures) and ell_has_duplicates(feats.indices, feats.values):
-            # The coordinate's dense blocks are exact only for distinct features.
-            raise ValueError(f"shard {config.feature_shard!r} names a feature twice within a row; "
-                             "merge duplicate entries first (pack_csr_to_ell)")
+            _refuse_duplicates(config)
         with times.stage("re_device", dev):
             layout = entity_layout(dataset.tag_codes[tag], config, dev)
         times.note("re_path", "device")
         feature_mask = None
         if config.num_features_to_samples_ratio_upper_bound is not None:
             active_lists = np.split(layout.active_rows.cpu().numpy(), layout.a_starts[1:-1])
-            feature_mask = torch.as_tensor(_pearson_feature_masks(
+            feature_mask = torch.as_tensor(pearson_feature_masks(
                 dataset, config, active_lists, list(layout.kept), layout.num_entities)).to(dev)
         return RandomEffectDataset(
             config=config,
@@ -394,7 +402,13 @@ def build_random_effect_dataset(
         )
 
 
-def _pearson_feature_masks(
+def _refuse_duplicates(config: RandomEffectDataConfig) -> None:
+    # The coordinate's dense blocks are exact only for distinct features.
+    raise ValueError(f"shard {config.feature_shard!r} names a feature twice within a row; "
+                     "merge duplicate entries first (pack_csr_to_ell)")
+
+
+def pearson_feature_masks(
     dataset: GameDataset,
     config: RandomEffectDataConfig,
     active_lists: List[np.ndarray],
@@ -406,7 +420,10 @@ def _pearson_feature_masks(
     line for line: only the same numpy calls, `np.argpartition` among them,
     pick the same features when |corr| ties). Keep ceil(ratio * n_rows)
     features an entity, ranked by |Pearson|; a constant-one column (the
-    intercept) scores 1.0, so it is always kept."""
+    intercept) scores 1.0, so it is always kept. `active_lists[i]` are the
+    rows of `dataset` that mask row `kept_entities[i]` trains on; the
+    other rows, row `num_entities` (the unseen entity) among them, keep
+    every feature."""
     ratio = config.num_features_to_samples_ratio_upper_bound
     features = dataset.shards[config.feature_shard]
     labels_np = dataset.labels.cpu().numpy()

@@ -12,8 +12,10 @@ not ported yet.
 
 A suite over a dataset sharded over ranks takes its `sharding`: it then
 holds the labels and weights of all rows, assembled once, and evaluates the
-scores of all rows, assembled from every rank's own by one collective.
-Grouped evaluators on ranks are not ported yet.
+scores of all rows, assembled from every rank's own by one collective; a
+grouped evaluator's groups come from the sharding's global codes of its id
+tag, so every rank computes each metric over the same global arrays as one
+process.
 """
 
 from __future__ import annotations
@@ -159,7 +161,8 @@ class EvaluationSuite:
     """Validation labels and weights plus evaluators; `evaluate(scores)`
     computes every metric. `id_tag_values` (tag -> per-sample keys, host
     numpy) serve the grouped evaluators. With a `sharding`, labels, weights
-    and scores are this rank's rows and the metrics are over all ranks' rows."""
+    and scores are this rank's rows, the metrics are over all ranks' rows,
+    and the grouped evaluators' tags come from the sharding."""
 
     def __init__(
         self,
@@ -178,9 +181,9 @@ class EvaluationSuite:
         self.sharding = sharding
         weights = weights if weights is not None else torch.ones_like(labels)
         if sharding is not None:
-            if any(et.is_grouped for et in self.evaluator_types):
-                raise NotImplementedError("grouped evaluators on ranks are not ported yet")
             labels, weights = sharding.gather(torch.stack([labels, weights.to(labels.dtype)], 1)).T
+            # Codes order as the values do, so they group the rows alike.
+            id_tag_values = {k: codes for k, (codes, _) in sharding.tag_codes.items()}
         self.labels = labels
         self.weights = weights
         self._grouped: Dict[str, GroupedIndex] = {}

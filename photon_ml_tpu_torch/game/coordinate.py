@@ -30,13 +30,18 @@ Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
     bucket, one lane per entity, and FULL variances a batched Cholesky per
     chunk of lanes.
 
-On a dataset sharded over ranks (parallel/mesh.py), both coordinates work
-on this rank's rows. The fixed effect's coefficients are replicated: its
-objective sums cross the ranks (ops/objective.py), and every rank takes the
-same optimizer steps. The random effect solves the lanes of its own
-entities; the solve has no collective inside. Its model is this rank's
-store, (entities owned + 1, D), the owned entities' rows and the pinned
-zero row (the counterpart of the row-sharded store of the JAX package's
+On a dataset sharded over ranks (parallel/mesh.py), both coordinates take
+and return per-row values on this rank's rows. The fixed effect's
+coefficients are replicated: its objective sums cross the ranks
+(ops/objective.py), and every rank takes the same optimizer steps. A random
+effect solves the lanes of the entities this rank owns in its own layout;
+the solve has no collective inside. The random effect the rows follow
+trains on this rank's rows; any other trains on its row view (the rows of
+its owned entities), so `train` first exchanges the residual offsets to
+the view and `score` exchanges the view's margins back, one collective
+each (`RankMesh.exchange`). Its model is this rank's store, (entities
+owned + 1, D), the owned entities' rows and the pinned zero row (the
+counterpart of the row-sharded store of the JAX package's
 coordinate.py:752-790); `gather_model` assembles the global (E + 1, D)
 matrix.
 
@@ -212,8 +217,14 @@ class RandomEffectCoordinate:
     ) -> Tuple[RandomEffectModel, dict]:
         """Train every entity bucket; per-entity warm start from the
         previous matrix's rows (on a rank, a model of this rank's store, as
-        `train` returns it). `reg_weight` overrides the config's."""
+        `train` returns it). `offsets` are per row of the dataset; over a
+        row view they are exchanged to it first. `reg_weight` overrides the
+        config's."""
         ds, red = self.dataset, self.re_dataset
+        rows_ds = ds
+        if red.view is not None:
+            offsets = ds.mesh.exchange(offsets, red.view.to_view)
+            rows_ds = red.view.dataset
         cfg = _with_weight(self.config, reg_weight)
         e_total = red.num_store_rows
         if initial_model is not None:
@@ -228,7 +239,7 @@ class RandomEffectCoordinate:
             var_matrix = torch.zeros_like(matrix)
         bucket_iters = []
         for blocks in red.buckets:
-            block = gather_block_data(ds, red.feature_shard, blocks, offsets, red.feature_mask)
+            block = gather_block_data(rows_ds, red.feature_shard, blocks, offsets, red.feature_mask)
             if isinstance(block.features, SparseFeatures):
                 block = dataclasses.replace(block, features=ell_block_to_dense(block.features))
             w0 = matrix[blocks.entity_rows]
@@ -265,11 +276,17 @@ class RandomEffectCoordinate:
         return RandomEffectModel(placed, None, model.task)
 
     def score(self, model: RandomEffectModel) -> Tensor:
+        """Raw per-row margins of the dataset's rows (over a row view,
+        computed on the view and exchanged back)."""
         red = self.re_dataset
-        return random_effect_margins(
-            self.dataset.shards[red.feature_shard],
+        rows_ds = self.dataset if red.view is None else red.view.dataset
+        margins = random_effect_margins(
+            rows_ds.shards[red.feature_shard],
             red.sample_entity_rows,
             model.coefficients_matrix,
             self.norm,
             library_row_sum,
         )
+        if red.view is not None:
+            margins = self.dataset.mesh.exchange(margins, red.view.from_view)
+        return margins

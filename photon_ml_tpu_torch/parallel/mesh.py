@@ -5,8 +5,8 @@ sharding of `shard_game_dataset` (:143) and the entity-lane sharding of
 `shard_random_effect_dataset` (:547). A rank is one process with one
 explicit device. The JAX package carries its mesh on the arrays' sharding
 and lets XLA place the collectives; the port carries a `RankMesh` on the
-data and calls two collectives of its own, through which every cross-rank
-reduction of the port goes:
+data and calls three collectives of its own, through which every
+cross-rank move of the port goes:
 
   * `exact_sum`: each rank writes its k partial sums once, as float64,
     into a (k,) buffer; one all_gather fills a (W, k) buffer with every
@@ -23,23 +23,36 @@ reduction of the port goes:
     position has one owner, so the sum is exact. Scores, labels and
     weights reach the AUC this way, and random-effect coefficient rows the
     assembled model.
+  * `exchange`: per-row values move from the rows one rank holds to the
+    rows another needs, by an `ExchangePlan` built once from the global
+    row placement; one all_to_all_single sends each rank exactly the rows
+    it needs from each other rank, and rows that stay are copied. Values
+    are moved, never added, so the result is exact. With world size 1
+    nothing moves and no collective is called.
 
-gloo and NCCL take both collectives on CUDA tensors (gloo moves them
-through host memory itself); the gather goes into the (W, k) buffer's row
+gloo and NCCL take all three on CUDA tensors (gloo moves them through host
+memory itself; it takes all_to_all_single with uneven splits, though not
+the list form all_to_all); the gather goes into the (W, k) buffer's row
 views on gloo and into the buffer itself on NCCL. The caller names the
 backend: gloo where ranks share a card or run on the CPU, NCCL where each
 rank has a card of its own. Nothing here picks one.
 
-Row ownership follows the random effect (`shard_game_dataset`): its layout
-is built on every rank from the global id tag, each padded bucket's lanes
-are split into W contiguous parts (mesh.py:580-590, so every rank gets as
-many lanes of each capacity), and a rank owns the entities of its lanes and
-every row of those entities, active and passive, in global row order. Its
-random-effect coefficient store holds those entities' rows alone (the
-counterpart of the JAX package's row-sharded store, game/coordinate.py:
-752-790). The fixed effect trains on the same local rows, and the residual
-offsets stay local: no rows move between ranks after setup, so the JAX package's ring
-gather and scatter (mesh.py:358-477) have no counterpart here. Shards may be
+Row ownership follows one random effect, the owner (`shard_game_dataset`):
+its layout is built on every rank from the global id tag, each padded
+bucket's lanes are split into W contiguous parts (mesh.py:580-590, so every
+rank gets as many lanes of each capacity), and a rank holds the entities of
+its lanes and every row of those entities, active and passive, in global
+row order. Its random-effect coefficient store holds those entities' rows
+alone (the counterpart of the JAX package's row-sharded store, game/
+coordinate.py:752-790). The fixed effect trains on the same rows. The
+sharding keeps every id tag's global codes, so any other random effect's
+layout and owners are built on every rank exactly as one process builds
+them; such a random effect trains on a `RowView`, the rows of the entities
+it owns in that layout, whose features, labels and weights were exchanged
+to it once at build time. Each update of it exchanges the residual offsets
+to the view and its scores back, where the JAX package lets XLA move the
+rows its gathers need (and its ring gather and scatter, mesh.py:358-477,
+move coefficient rows, which here stay on their owner). Shards may be
 uneven; the weight-0 padding of `pad_game_dataset` (:90) is not needed.
 """
 
@@ -65,6 +78,7 @@ from photon_ml_tpu_torch.data.game_dataset import (
     RandomEffectDataset,
     entity_layout,
     factorize_tag,
+    pearson_feature_masks,
 )
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
 from photon_ml_tpu_torch.ops import cuda_build
@@ -80,6 +94,9 @@ SOURCE = cuda_build.CSRC_DIR / "exact_sum.cu"
 LAUNCHES: Dict[str, int] = {"rank_sum": 0}
 
 _SUM_DTYPES = (torch.float32, torch.float64)
+
+# The collectives a RankMesh runs, as its counts name them.
+COLLECTIVES = ("exact_sum", "owned_to_global", "exchange")
 
 
 def reset_launch_counts() -> None:
@@ -137,9 +154,9 @@ class RankMesh:
         self.world_size = world_size
         self.backend = backend
         self.device = device
-        self.counts: Dict[str, int] = {"exact_sum": 0, "owned_to_global": 0}
-        self.elements: Dict[str, int] = {"exact_sum": 0, "owned_to_global": 0}
-        self.seconds: Dict[str, float] = {"exact_sum": 0.0, "owned_to_global": 0.0}
+        self.counts: Dict[str, int] = {k: 0 for k in COLLECTIVES}
+        self.elements: Dict[str, int] = {k: 0 for k in COLLECTIVES}
+        self.seconds: Dict[str, float] = {k: 0.0 for k in COLLECTIVES}
         self._gathers: Dict[int, Tuple[Tensor, Tensor, List[Tensor]]] = {}
 
     def __repr__(self) -> str:
@@ -191,6 +208,27 @@ class RankMesh:
         buf[global_rows.to(self.device)] = values.to(self.device)
         self._collective("owned_to_global", buf.numel(), lambda: dist.all_reduce(buf))
         return buf
+
+    def exchange(self, values: Tensor, plan: "ExchangePlan") -> Tensor:
+        """The (plan.num_dst, ...) rows `plan` builds from this rank's
+        (plan.num_src, ...) `values` and every other rank's: rows that stay
+        are copied, the others arrive by one all_to_all_single (none at
+        world size 1). Every rank calls it with its own part of one plan."""
+        if values.shape[0] != plan.num_src:
+            raise ValueError(f"the plan moves {plan.num_src} source rows, got {values.shape[0]}")
+        values = values.to(self.device)
+        row_shape = tuple(values.shape[1:])
+        out = values.new_empty((plan.num_dst,) + row_shape)
+        out[plan.keep_dst] = values[plan.keep_src]
+        if self.world_size > 1:
+            width = int(np.prod(row_shape, dtype=np.int64))
+            send = values[plan.send_rows].reshape(-1)
+            recv = values.new_empty((len(plan.recv_rows) * width,))
+            self._collective("exchange", send.numel(), lambda: dist.all_to_all_single(
+                recv, send, [c * width for c in plan.recv_counts],
+                [c * width for c in plan.send_counts]))
+            out[plan.recv_rows] = recv.view((-1,) + row_shape)
+        return out
 
     def all_true(self, flag: bool) -> bool:
         """Whether `flag` holds on every rank (an exact sum of 0/1 votes)."""
@@ -280,10 +318,92 @@ def entity_owners(layout: EntityLayout, world_size: int) -> np.ndarray:
     return owner
 
 
+def rank_positions(row_rank: np.ndarray) -> np.ndarray:
+    """Each global row's position among the rows of its rank (a rank holds
+    its rows in global order)."""
+    order = np.argsort(row_rank, kind="stable")
+    starts = np.zeros(int(row_rank.max(initial=-1)) + 2, np.int64)
+    np.cumsum(np.bincount(row_rank, minlength=len(starts) - 1), out=starts[1:])
+    pos = np.empty(len(row_rank), np.int64)
+    pos[order] = np.arange(len(row_rank), dtype=np.int64) - starts[row_rank[order]]
+    return pos
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangePlan:
+    """This rank's part of one exchange (`RankMesh.exchange`): destination
+    row `keep_dst[i]` is source row `keep_src[i]` of this rank; the source
+    rows `send_rows` go to the other ranks, `send_counts[r]` of them to
+    rank r, and the rows arriving from rank r, `recv_counts[r]` of them, land
+    at destination rows `recv_rows`, grouped by rank in rank order and in
+    global row order within a rank (so both ends list the same rows in the
+    same order). Positions are rows of the rank's own source and
+    destination tensors, on the mesh's device."""
+
+    num_src: int
+    num_dst: int
+    keep_src: Tensor
+    keep_dst: Tensor
+    send_rows: Tensor
+    send_counts: Tuple[int, ...]
+    recv_rows: Tensor
+    recv_counts: Tuple[int, ...]
+
+    @property
+    def rows_sent(self) -> int:
+        return len(self.send_rows)
+
+    def inverse(self) -> "ExchangePlan":
+        """The plan that moves the destination rows back to the source rows."""
+        return ExchangePlan(self.num_dst, self.num_src, self.keep_dst, self.keep_src,
+                            self.recv_rows, self.recv_counts, self.send_rows, self.send_counts)
+
+
+def exchange_plan(src_rank: np.ndarray, dst_rank: np.ndarray, rank: int, world_size: int,
+                  device: torch.device) -> ExchangePlan:
+    """The plan that gives every rank the global rows `dst_rank` places on
+    it, from the ranks `src_rank` places them on; both (N,) arrays are the
+    same on every rank, and each rank holds its rows in global order."""
+    src_pos, dst_pos = rank_positions(src_rank), rank_positions(dst_rank)
+    mine_src, mine_dst = src_rank == rank, dst_rank == rank
+    keep = np.nonzero(mine_src & mine_dst)[0]
+
+    def grouped(rows: np.ndarray, by: np.ndarray, pos: np.ndarray):
+        order = np.argsort(by[rows], kind="stable")
+        counts = np.bincount(by[rows], minlength=world_size)
+        return torch.as_tensor(pos[rows[order]]).to(device), tuple(int(c) for c in counts)
+
+    send_rows, send_counts = grouped(np.nonzero(mine_src & ~mine_dst)[0], dst_rank, src_pos)
+    recv_rows, recv_counts = grouped(np.nonzero(mine_dst & ~mine_src)[0], src_rank, dst_pos)
+    return ExchangePlan(int(mine_src.sum()), int(mine_dst.sum()),
+                        torch.as_tensor(src_pos[keep]).to(device),
+                        torch.as_tensor(dst_pos[keep]).to(device),
+                        send_rows, send_counts, recv_rows, recv_counts)
+
+
+@dataclasses.dataclass
+class RowView:
+    """A random effect's rows on a rank whose rows follow another random
+    effect: the rows of the entities this rank owns in its layout, in
+    global row order (`global_rows`), as a dataset of that random effect's
+    feature shard, labels and weights, exchanged from the ranks holding
+    them once. `to_view` moves per-row values of the rank's own rows to the
+    view (residual offsets), `from_view` moves the view's back (scores)."""
+
+    dataset: GameDataset
+    global_rows: np.ndarray
+    to_view: ExchangePlan
+    from_view: ExchangePlan
+
+
 @dataclasses.dataclass
 class RowSharding:
-    """Which of the global rows a rank holds, and the random-effect layout
-    (built from the global id tag) that decided it."""
+    """Which of the global rows a rank holds, the random-effect layout
+    (built from the global id tag) that decided it, the rank that holds
+    every global row, and every id tag of all rows factorized (as
+    `factorize_tag` gives it), from which any random effect's global layout
+    and any grouped evaluator's groups are built as one process builds
+    them."""
 
     mesh: RankMesh
     global_rows: Tensor  # (n_local,) int64 on the mesh's device, increasing
@@ -291,29 +411,60 @@ class RowSharding:
     owner_config: Optional[RandomEffectDataConfig] = None
     layout: Optional[EntityLayout] = None
     entity_owner: Optional[np.ndarray] = None
+    row_rank: Optional[np.ndarray] = None  # (N,) int64
+    tag_codes: Dict[str, Tuple[np.ndarray, np.ndarray]] = dataclasses.field(default_factory=dict)
 
     def gather(self, values: Tensor) -> Tensor:
         """The global (N, ...) tensor of per-row values every rank holds for
         its own rows."""
         return self.mesh.owned_to_global(values, self.global_rows, self.num_global)
 
+    def _row_view(self, dataset: GameDataset, layout: EntityLayout,
+                  owner: np.ndarray, shard: str) -> RowView:
+        mesh = self.mesh
+        view_rank = owner[layout.codes.numpy()]
+        to_view = exchange_plan(self.row_rank, view_rank, mesh.rank, mesh.world_size, mesh.device)
+        feats = dataset.shards[shard]
+        if isinstance(feats, SparseFeatures):
+            feats = SparseFeatures(mesh.exchange(feats.indices, to_view),
+                                   mesh.exchange(feats.values, to_view), feats.dim)
+        else:
+            feats = mesh.exchange(feats, to_view)
+        labels, weights = mesh.exchange(torch.stack([dataset.labels, dataset.weights], 1),
+                                        to_view).T.contiguous()
+        view = GameDataset({shard: feats}, labels, torch.zeros_like(labels), weights, {})
+        return RowView(view, np.nonzero(view_rank == mesh.rank)[0], to_view, to_view.inverse())
+
     def random_effect_dataset(self, dataset: GameDataset,
                               config: RandomEffectDataConfig) -> RandomEffectDataset:
         """This rank's part of the layout: its lanes of every bucket chunk
         (a chunk where they hold no entity is skipped), gathers remapped to
-        local rows, and coefficient rows remapped to this rank's store: row
-        i is entity `owned_entities[i]`, row len(owned_entities) the pinned
-        zero row. The entity index stays global."""
-        if self.layout is None or _layout_key(config) != _layout_key(self.owner_config):
-            raise NotImplementedError(
-                "a random effect other than the one the rows were sharded by needs an "
-                "exchange of residual offsets between ranks; not ported yet")
-        mesh, layout = self.mesh, self.layout
-        num_e, world = layout.num_entities, mesh.world_size
-        rows = self.global_rows.cpu().numpy()
+        the rows the lanes train on, and coefficient rows remapped to this
+        rank's store: row i is entity `owned_entities[i]`, row
+        len(owned_entities) the pinned zero row. The entity index stays
+        global. The owner's random effect trains on this rank's rows; any
+        other on a `RowView` (built here: its exchanges are collectives, so
+        every rank builds it). Pearson masks are computed for the owned
+        entities from their active rows, all on this rank, in float64 on the
+        host as one process computes them; mask row i is store row i."""
+        mesh = self.mesh
+        world, dev = mesh.world_size, dataset.device
+        view = None
+        if self.layout is not None and _layout_key(config) == _layout_key(self.owner_config):
+            layout, owner = self.layout, self.entity_owner
+            rows, rows_ds = self.global_rows.cpu().numpy(), dataset
+        else:
+            tag = config.random_effect_type
+            if tag not in self.tag_codes:
+                raise ValueError(f"id tag {tag!r} not present")
+            layout = entity_layout(self.tag_codes[tag], config, torch.device("cpu"))
+            owner = entity_owners(layout, world)
+            view = self._row_view(dataset, layout, owner, config.feature_shard)
+            rows, rows_ds = view.global_rows, view.dataset
+        num_e = layout.num_entities
         local_pos = np.full(self.num_global, -1, np.int64)
         local_pos[rows] = np.arange(len(rows), dtype=np.int64)
-        owned = np.nonzero(self.entity_owner == mesh.rank)[0]
+        owned = np.nonzero(owner == mesh.rank)[0]
         store_row = np.full(num_e + 1, -1, np.int64)
         store_row[owned] = np.arange(len(owned), dtype=np.int64)
         store_row[num_e] = len(owned)
@@ -336,18 +487,27 @@ class RowSharding:
             lg = np.where(m > 0, local_pos[g], 0)
             if (lg < 0).any() or (store_row[e] < 0).any():
                 raise RuntimeError("an entity's lane or active row is not on its owning rank")
-            dev = dataset.device
             buckets.append(EntityBlocks(torch.as_tensor(lg).to(dev), torch.as_tensor(m).to(dev),
                                         torch.as_tensor(store_row[e]).to(dev)))
+        feature_mask = None
+        if config.num_features_to_samples_ratio_upper_bound is not None:
+            kept = layout.kept[owner[layout.kept] == mesh.rank]
+            seg = np.searchsorted(layout.kept, kept)
+            active, starts = layout.active_rows.numpy(), layout.a_starts
+            lists = [local_pos[active[starts[i]:starts[i + 1]]] for i in seg]
+            feature_mask = torch.as_tensor(pearson_feature_masks(
+                rows_ds, config, lists, list(store_row[kept]), len(owned))).to(dev)
         num_active = int(sum(float(b.mask.sum()) for b in buckets))
         return RandomEffectDataset(
             config=config,
             entity_index=layout.entity_index,
             buckets=buckets,
-            sample_entity_rows=torch.as_tensor(sample_rows).to(dataset.device),
+            sample_entity_rows=torch.as_tensor(sample_rows).to(dev),
             num_active_samples=num_active,
-            num_passive_samples=dataset.num_samples - num_active,
-            owned_entities=torch.as_tensor(owned).to(dataset.device),
+            num_passive_samples=rows_ds.num_samples - num_active,
+            feature_mask=feature_mask,
+            owned_entities=torch.as_tensor(owned).to(dev),
+            view=view,
         )
 
 
@@ -369,36 +529,46 @@ def shard_game_dataset(
     offsets=None,
     weights=None,
     id_tags: Optional[Mapping[str, Sequence]] = None,
+    tag_codes: Optional[Mapping[str, Tuple[np.ndarray, np.ndarray]]] = None,
     owner: Optional[RandomEffectDataConfig] = None,
 ) -> GameDataset:
     """This rank's GameDataset, on its device, from the host arrays of ALL
     rows (numpy, CPU tensors or `SparseFeatures`), which every rank passes
-    alike.
+    alike. An id tag comes as its values (`id_tags`) or factorized
+    (`tag_codes`: codes into a value table, as ingest gives them and as
+    `GameDataset.build` takes them; entities are then in the table's order).
 
     With `owner`, a rank holds the rows of the entities it owns in that
     random effect (see the module docstring), and `build_random_effect_
-    dataset` with that config gives its part of the layout. Without one,
-    the rows are split into W contiguous ranges (a fixed effect alone)."""
+    dataset` with that config gives its part of the layout; any other
+    random effect trains on a `RowView`. Without one, the rows are split
+    into W contiguous ranges."""
     n = len(labels)
-    tags = {k: np.asarray(v) for k, v in (id_tags or {}).items()}
+    codes = {k: (np.asarray(c, np.int64), np.asarray(t)) for k, (c, t) in (tag_codes or {}).items()}
+    for k, v in (id_tags or {}).items():
+        if k not in codes:
+            codes[k] = factorize_tag(np.asarray(v))
     layout = entity_owner = None
     if owner is not None:
-        if owner.random_effect_type not in tags:
+        if owner.random_effect_type not in codes:
             raise ValueError(f"id tag {owner.random_effect_type!r} not present")
-        layout = entity_layout(factorize_tag(tags[owner.random_effect_type]), owner,
-                               torch.device("cpu"))
+        layout = entity_layout(codes[owner.random_effect_type], owner, torch.device("cpu"))
         entity_owner = entity_owners(layout, mesh.world_size)
-        rows = np.nonzero(entity_owner[layout.codes.numpy()] == mesh.rank)[0]
+        row_rank = entity_owner[layout.codes.numpy()]
     else:
-        rows = np.array_split(np.arange(n, dtype=np.int64), mesh.world_size)[mesh.rank]
+        world = mesh.world_size  # np.array_split's ranges: the first n % W one longer
+        row_rank = np.repeat(np.arange(world, dtype=np.int64),
+                             n // world + (np.arange(world) < n % world))
+    rows = np.nonzero(row_rank == mesh.rank)[0]
     ds = GameDataset.build(
         {k: _take_rows(v, rows) for k, v in shards.items()},
         _take_rows(labels, rows),
         offsets=None if offsets is None else _take_rows(offsets, rows),
         weights=None if weights is None else _take_rows(weights, rows),
-        id_tags={k: v[rows] for k, v in tags.items()},
+        id_tags={k: table[c[rows]] for k, (c, table) in codes.items()},
+        tag_codes={k: (c[rows], table) for k, (c, table) in codes.items()},
         device=mesh.device,
     )
     ds.sharding = RowSharding(mesh, torch.as_tensor(rows).to(mesh.device), n, owner, layout,
-                              entity_owner)
+                              entity_owner, row_rank, codes)
     return ds

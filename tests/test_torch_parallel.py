@@ -760,19 +760,25 @@ def test_init_rank_mesh_refuses_without_joining(bad, tmp_path):
 
 def test_a_second_random_effect_key_is_refused_on_ranks():
     """Rows follow one random effect's entities; a coordinate keyed by
-    another id would need its residual offsets exchanged between ranks. The
-    same key over another feature shard is the same layout and is taken."""
+    another id is no longer refused: it builds a row view (the rows of the
+    entities it owns, here all of them on one rank) with one process's
+    active rows and owners. The same key over another feature shard is the
+    owner's layout, over the rank's own rows."""
     Xf, Xe, entity, y = glmix_arrays()
-    ds = GameDataset.build({"per_entity": Xe, "other": Xe[:, :2]}, y,
-                           id_tags={"entityId": entity, "itemId": entity % 7}, device="cpu")
+    shards = {"per_entity": Xe, "other": Xe[:, :2]}
+    tags = {"entityId": entity, "itemId": entity % 7}
+    ds = pmesh.shard_game_dataset(pmesh.RankMesh(0, 1, "gloo", torch.device("cpu")), shards, y,
+                                  id_tags=tags, owner=RE_CONFIG)
+    one = GameDataset.build(shards, y, id_tags=tags, device="cpu")
+    item_cfg = RandomEffectDataConfig("itemId", "per_entity", active_upper_bound=300, min_bucket=16)
+    red = build_random_effect_dataset(ds, item_cfg)
+    ref = build_random_effect_dataset(one, item_cfg)
+    assert red.view is not None and red.num_active_samples == ref.num_active_samples
+    assert np.array_equal(red.view.global_rows, np.arange(len(y)))
+    assert np.array_equal(red.owned_entities.numpy(), np.arange(ref.num_entities))
+    same = build_random_effect_dataset(ds, dataclasses.replace(RE_CONFIG, feature_shard="other"))
     layout = entity_layout(factorize_tag(entity), RE_CONFIG, torch.device("cpu"))
-    ds.sharding = pmesh.RowSharding(
-        pmesh.RankMesh(0, 1, "gloo", torch.device("cpu")), torch.arange(len(y)), len(y), RE_CONFIG,
-        layout, pmesh.entity_owners(layout, 1))
-    with pytest.raises(NotImplementedError):
-        build_random_effect_dataset(ds, RandomEffectDataConfig("itemId", "per_entity"))
-    red = build_random_effect_dataset(ds, dataclasses.replace(RE_CONFIG, feature_shard="other"))
-    assert red.num_active_samples == layout.num_active
+    assert same.view is None and same.num_active_samples == layout.num_active
 
 
 # ------------------------------------------------------- the rank-order sum
