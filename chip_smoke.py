@@ -231,6 +231,29 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    then PalDB at 262,144 keys in 4 partitions, the cut its pure-Python
    writer and loader force. Every id must come back once, and names must
    round-trip.
+3m. Multi-host training (cli/train_multihost.py, parallel/hostmesh.py,
+   the checkpoint on ranks): 3e's 4,000,000 rows regenerated and written
+   as 8 part files in row order, a PHIDX store of them (cli.build_index),
+   and 3c's coordinates with IDENTITY projectors, two sweeps,
+   checkpointed. One process's cli.train on the card first; then
+   `cli.train --multihost 4 --device cuda:0`, four worker processes
+   sharing the card over gloo (each decodes its 2 files, the row planes
+   are exchanged through the filesystem, rows follow the users); then the
+   same job with worker 2 SIGKILLed once state.json shows step 3 committed,
+   which the supervisor relaunches on 3 workers that resume from the
+   4-shard checkpoint. Each worker's row: its files and rows, ingest by
+   stage, set-up, each sweep's wall, each checkpoint save's exchange, write
+   and commit seconds, peak memory, launches (counted from 0 inside the
+   fit) and collectives; the drill's kill-to-exit and relaunch-to-first-
+   update seconds. Gates: both models against theirs (the uninterrupted
+   against one process, the drill against the uninterrupted) on the FE
+   within card_vs_cpu_glmix's fe_coef_atol, each RE on its objective
+   (re_objective_rtol) and the training AUC (auc_atol); the drill's
+   summary 2 attempts, 1 host loss, 1 repeated sweep, 3 final hosts;
+   every shard file written by the rank of its block, the blocks tiling
+   the rows; every worker launched sparse_fused, sparse_matvec and the
+   rank-order kernel, no dense kernel. `tools/chip_smoke_multihost.py`
+   runs 3m alone, `tools/chip_smoke_nccl.py` over NCCL on 4 cards.
 3t. cli.train on the training files with 3g's 1,000,000-row validation
    file, output mode ALL and --hyper-parameter-tuning RANDOM then
    BAYESIAN, 4 trials each (--random-seed 0): each trial's weights,
@@ -329,8 +352,8 @@ print which backend each used.
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
 3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, each run
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
-sweep and its cli.tune run, 3v's engine path, and 3d, 4d and 3e-d in each
-rank, whose counts are rank 0's)
+sweep and its cli.tune run, 3v's engine path, and 3d, 4d, 3e-d and 3m's
+uninterrupted fit in each rank, whose counts are rank 0's)
 and read
 just after; the `kernels` line gives them by
 phase (`launches_by_phase`). "wall:" lines give each group of phases'
@@ -1077,16 +1100,17 @@ def e2e_arrays(rows: int, seed: int = 23, n_users=None, n_movies=None, truth=Non
                 n_users=n_users, n_movies=n_movies, truth=truth)
 
 
-def write_e2e_files(root: str, a: dict) -> float:
-    """Two part files (the multi-file path) with integer userId/movieId tags,
-    by the port's native columnar writer, as bench.py writes them. Returns MB."""
+def write_e2e_files(root: str, a: dict, parts: int = 2) -> float:
+    """`parts` part files in row order (two: the multi-file path) with
+    integer userId/movieId tags, by the port's native columnar writer, as
+    bench.py writes them. Returns MB."""
     import os
 
     from photon_ml_tpu_torch.native.avro_writer import write_training_examples_columnar
 
     rows, ip = len(a["labels"]), a["indptr"]
-    half = rows // 2
-    for fi, (lo, hi) in enumerate([(0, half), (half, rows)]):
+    bounds = [rows * k // parts for k in range(parts + 1)]
+    for fi, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
         write_training_examples_columnar(
             os.path.join(root, f"part-{fi}.avro"), a["labels"][lo:hi], ip[lo:hi + 1] - ip[lo],
             a["ids"][ip[lo]:ip[hi]], a["vals"][ip[lo]:ip[hi]], [f"f{i}" for i in range(E2E_D)],
@@ -1198,7 +1222,7 @@ def small_e2e_fit(ds, mask_ratio=None) -> dict:
 
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     """Phases 2e, 3e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x,
-    3x-scale, 3t, 3w, 3v and 5e (`dense`: phase 3's arrays and model, for 3v). Returns (phase 2e
+    3x-scale, 3m, 3t, 3w, 3v and 5e (`dense`: phase 3's arrays and model, for 3v). Returns (phase 2e
     rows by kernel, the sparse launches by kernel of each path)."""
     import os
     import tempfile
@@ -1360,6 +1384,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         launches3g = walled("phase 3g", legacy_driver_e2e_phase, root, work, truth, n_users, n_movies)
         launches3x = walled("phase 3x", offheap_phase, root, work)
         walled("phase 3x-scale", offheap_scale_phase, work)
+        launches3m = walled("phase 3m", multihost_phase, work)
         launches3t = walled("phase 3t", tuning_phase, root, os.path.join(work, "validation"), work)
         launches3w = walled("phase 3w", sweep_phase, root, os.path.join(work, "validation"), work)
         launches3v = walled("phase 3v", serving_phase, root, work, truth, n_users, n_movies, dense,
@@ -1399,7 +1424,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
     return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
                     "3k": launches3k, "3g": launches3g, "3x": launches3x, "3t": launches3t,
-                    "3w": launches3w, "3v": launches3v}
+                    "3w": launches3w, "3v": launches3v, "3m": launches3m}
 
 
 # ---------------------------------------------------------------- phases 3e-d and 5e-d
@@ -3078,19 +3103,20 @@ def card_line() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def offheap_re_gaps(root: str, c3_map, c3_model, models: dict) -> dict:
-    """Each random effect of each model (artifacts read through 3c's map)
-    against 3c's, on each entity's objective at 3c's offsets, on the card
-    in float64 (phase 3e's unprojected random-effect datasets of a new read
-    of the files, in 3c's feature ids): {store: {cid: largest relative gap}}."""
+def e2e_readings(ds, pairs: dict) -> dict:
+    """Models of the e2e cell held to a base model on `ds` (a read of the
+    cell's files onto the card, in the artifacts' feature ids), on the card
+    in float64: for each name of `pairs` ({name: (base, model)} artifacts),
+    each random effect's largest relative gap on each entity's objective at
+    the base's offsets (`gaps`), and the model's and the base's training AUCs."""
     import torch
 
     from photon_ml_tpu_torch.data.game_dataset import RandomEffectDataConfig, build_random_effect_dataset
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
     from photon_ml_tpu_torch.ops.losses import LOGISTIC
 
-    ds = read_e2e(root, "cuda")
     if sorted(ds.shards) != ["g"]:
-        raise SystemExit(f"phase 3x: the new read has shards {sorted(ds.shards)}")
+        raise SystemExit(f"the e2e read has shards {sorted(ds.shards)}")
     g = ds.shards["g"]
     dev = g.values.device
     reds = {cid: build_random_effect_dataset(ds, RandomEffectDataConfig(tag, "g", active_upper_bound=cap,
@@ -3110,20 +3136,40 @@ def offheap_re_gaps(root: str, c3_map, c3_model, models: dict) -> dict:
         return (g.values * w_rows).sum(dim=1)
 
     idx = g.indices.long()
-    fe = torch.as_tensor(np.asarray(c3_model.coordinates["global"].means, np.float32), device=dev)
-    base = {cid: matrix(c3_model.coordinates[cid], red) for cid, red in reds.items()}
-    user_rows = reds["per-user"].sample_entity_rows.long()
-    offsets = {"per-user": ds.offsets + scores(fe[idx])}
-    offsets["per-movie"] = offsets["per-user"] + scores(base["per-user"][user_rows[:, None], idx])
-    gaps = {}
-    for name, model in models.items():
-        gaps[name] = {cid: re_objective_gap(ds, red, offsets[cid], LOGISTIC, 10.0,
-                                            matrix(model.coordinates[cid], red), base[cid])
-                      for cid, red in reds.items()}
-    del ds, reds, base, offsets
+    rows = {cid: red.sample_entity_rows.long()[:, None] for cid, red in reds.items()}
+
+    def parts(model):
+        fe = torch.as_tensor(np.asarray(model.coordinates["global"].means, np.float32), device=dev)
+        re = {cid: matrix(model.coordinates[cid], red) for cid, red in reds.items()}
+        return fe, re, {"global": scores(fe[idx]),
+                        **{cid: scores(re[cid][rows[cid], idx]) for cid in reds}}
+
+    def auc(s):
+        return float(area_under_roc_curve(ds.offsets + sum(s.values()), ds.labels))
+
+    out = {}
+    for name, (base, model) in pairs.items():
+        _, base_re, base_s = parts(base)
+        _, model_re, model_s = parts(model)
+        offsets = {"per-user": ds.offsets + base_s["global"]}
+        offsets["per-movie"] = offsets["per-user"] + base_s["per-user"]
+        out[name] = dict(gaps={cid: re_objective_gap(ds, red, offsets[cid], LOGISTIC, 10.0, model_re[cid],
+                                                     base_re[cid]) for cid, red in reds.items()},
+                         auc=auc(model_s), base_auc=auc(base_s))
+    del reds
     gc.collect()
     torch.cuda.empty_cache()
-    return gaps
+    return out
+
+
+def offheap_re_gaps(root: str, c3_map, c3_model, models: dict) -> dict:
+    """Each random effect of each model (artifacts read through 3c's map)
+    against 3c's, on each entity's objective at 3c's offsets (`e2e_readings`
+    on a new read of the files, in 3c's feature ids): {store: {cid: largest
+    relative gap}}."""
+    ds = read_e2e(root, "cuda")
+    readings = e2e_readings(ds, {name: (c3_model, m) for name, m in models.items()})
+    return {name: r["gaps"] for name, r in readings.items()}
 
 
 def offheap_phase(root: str, work: str) -> dict:
@@ -3270,6 +3316,226 @@ def offheap_scale_phase(work: str) -> None:
         del keys, store
     if failures:
         raise SystemExit("phase 3x-scale failed: " + "; ".join(failures))
+
+
+MH_RANKS = 4  # 3m: cli.train --multihost 4
+MH_PARTS = 8  # 3m: 3e's rows as 8 part files in row order (2 a rank)
+MH_KILL_AT_STEP = 3  # 3m's drill: a worker is killed once state.json shows this step committed
+MH_KILLED = 2  # the worker the drill kills
+# 3c's coordinates with the IDENTITY projector the multi-host scope requires.
+MH_COORDINATES = [c + ",projector=IDENTITY" if "random.effect" in c else c for c in E2E_COORDINATES]
+
+
+def multihost_args(data: str, index: str, out: str, *extra) -> list:
+    """3m's cli.train command line: 3c's coordinates (IDENTITY projectors),
+    two sweeps, through the PHIDX store, checkpointed under `out`/ckpt."""
+    import os
+
+    return ["--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", data,
+            "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
+            "--coordinate-configurations", *MH_COORDINATES, "--coordinate-descent-iterations", "2",
+            "--offheap-indexmap-dir", index, "--checkpoint-directory", os.path.join(out, "ckpt"),
+            "--output-mode", "BEST", "--logging-level", "WARNING", *extra]
+
+
+def shard_layout(ckpt: str) -> dict:
+    """Each random effect's shard files in a checkpoint: whether every file
+    was written by the rank of its block index, and whether the blocks tile
+    the (E + 1) rows in order."""
+    import os
+    import re
+
+    with open(os.path.join(ckpt, "state.json")) as f:
+        state = json.load(f)
+    writers = state["multihost"]["shard_hosts"]
+    out = {}
+    for cid in E2E_RE:
+        rels = state["model_files"][cid]
+        own = all(writers[r] == int(re.search(r"shard(\d+)of", r).group(1)) for r in rels)
+        row, tiled = 0, True
+        for rel in rels:
+            with np.load(os.path.join(ckpt, rel)) as z:
+                tiled &= int(z["row_start"]) == row
+                row += int(z["matrix"].shape[0])
+                n_entities = int(z["n_entities"])
+        out[cid] = dict(files=[os.path.basename(r) for r in rels], own_rank_wrote_each=own,
+                        blocks_tile_rows=tiled and row == n_entities + 1)
+    return out
+
+
+def rank_rows(summary: dict, run: str, card: str) -> list:
+    """One printed row a worker of a `--multihost` summary: its device,
+    files, rows, ingest stages, set-up, each sweep's wall, each checkpoint
+    save's exchange, write and commit seconds (the largest over the steps),
+    peak memory, launches and collectives."""
+    rows = []
+    for r in summary["ranks"]:
+        sweeps = {}
+        for key, sec in r["timings_s"].items():
+            it = key.rsplit("/iter", 1)[1]
+            sweeps[it] = sweeps.get(it, 0.0) + sec
+        saves = r["checkpoint_saves"]
+        rows.append(dict(
+            phase="3m", run=run, rank=r["rank"], attempt=r["attempt"], device=r["device"],
+            backend=r["backend"], files=r["files"], rows=r["rows"], bringup_s=r["bringup_s"],
+            ingest_s=r["ingest_s"], setup_s=r["setup_s"], fit_s=r["fit_s"], sweep_wall_s=sweeps,
+            checkpoint_steps=[s["step"] for s in saves],
+            checkpoint_max_s={k: max(s.get(k, 0.0) for s in saves)
+                              for k in ("exchange_s", "write_s", "commit_s")},
+            checkpoint_total_s=sum(sum(v for k, v in s.items() if k != "step") for s in saves),
+            peak_mem_gib=r["peak_mem_gib"], launches=r["launches"], collectives=r["collectives"],
+            card=card))
+    return rows
+
+
+def multihost_phase(work: str, device: str = "cuda:0") -> dict:
+    """Phase 3m: `cli.train --multihost 4` at the e2e cell's full width, the
+    four workers on `device` (cuda:0: sharing the card over gloo; cuda: a
+    card each over NCCL where there are four), uninterrupted, then the same
+    job with worker 2 SIGKILLed once step 3 is committed (the supervisor
+    relaunches three workers on the 4-shard checkpoint). Held against a
+    one-process cli.train of the same arguments on the card. Returns rank
+    0's launches of the uninterrupted run's fit."""
+    import os
+    import signal
+
+    from photon_ml_tpu_torch.cli import build_index
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.io import model_store
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig, read_game_dataset
+
+    import torch
+
+    tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    card = card_line()
+    data, index = os.path.join(work, "mh-parts"), os.path.join(work, "mh-index")
+    os.makedirs(data, exist_ok=True)
+    t0 = time.perf_counter()
+    mb = write_e2e_files(data, e2e_arrays(E2E_ROWS), MH_PARTS)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    build_index.main(["--input-data-directories", data, "--feature-shard-configurations", E2E_SHARD,
+                      "--num-partitions", "1", "--output-dir", index])
+    index_s = time.perf_counter() - t0
+
+    one_dir = os.path.join(work, "mh-one")
+    t0 = time.perf_counter()
+    one_device = "cpu" if device == "cpu" else "cuda"
+    one_summary, one_sparse, one_dense, one_mem = counted(
+        torch, lambda: train_cli.main(multihost_args(data, index, one_dir, "--device", one_device)))
+    one_s = time.perf_counter() - t0
+    full_dir = os.path.join(work, "mh-full")
+    t0 = time.perf_counter()
+    full = train_cli.main(multihost_args(data, index, full_dir, "--multihost", str(MH_RANKS),
+                                         "--device", device))
+    full_s = time.perf_counter() - t0
+
+    # The drill: the supervisor on a thread, worker 2 killed from here.
+    drill_dir = os.path.join(work, "mh-drill")
+    done, errors = [], []
+
+    def supervise():
+        try:
+            done.append(train_cli.main(multihost_args(data, index, drill_dir, "--multihost",
+                                                      str(MH_RANKS), "--device", device)))
+        except BaseException as exc:  # re-raised below
+            errors.append(exc)
+
+    sup = threading.Thread(target=supervise)
+    t0 = time.perf_counter()
+    sup.start()
+    state = os.path.join(drill_dir, "ckpt", "state.json")
+    pid_file = os.path.join(drill_dir, "hosts", f"attempt0-host{MH_KILLED}", "pid")
+    killed_at, killed_step = None, None
+    while sup.is_alive():
+        try:
+            with open(state) as f:
+                killed_step = json.load(f)["completed_steps"]
+        except (OSError, ValueError):
+            killed_step = None
+        if killed_step is not None and killed_step >= MH_KILL_AT_STEP:
+            with open(pid_file) as f:
+                os.kill(int(f.read()), signal.SIGKILL)
+            killed_at = time.time()
+            break
+        time.sleep(0.01)
+    sup.join()
+    drill_s = time.perf_counter() - t0
+    if errors:
+        raise SystemExit(f"phase 3m: the drill's supervisor failed: {errors[0]!r}")
+    if killed_at is None:
+        raise SystemExit("phase 3m: the drill's fit ended before a worker could be killed")
+    drill = done[0]
+
+    # The three models in the store's feature ids, on a read of the part
+    # files through the store.
+    best = lambda d: os.path.join(d, "models", "best")
+    imaps = {"g": IndexMap.load(os.path.join(best(one_dir), "feature-indexes", "g.json"))}
+    models = {name: model_store.load_game_model(best(d), imaps)
+              for name, d in (("one", one_dir), ("full", full_dir), ("drill", drill_dir))}
+    t0 = time.perf_counter()
+    ds = read_game_dataset(data, {"g": FeatureShardConfig(("features",), True)}, index_maps=imaps,
+                           id_tag_fields=E2E_TAGS, device=one_device)[0]
+    readings = e2e_readings(ds, {"full_vs_one": (models["one"], models["full"]),
+                                 "drill_vs_full": (models["full"], models["drill"])})
+    del ds
+    torch.cuda.empty_cache()
+    readings_s = time.perf_counter() - t0
+    fe = {k: np.asarray(m.coordinates["global"].means) for k, m in models.items()}
+    fe_gap = {"full_vs_one": float(np.abs(fe["full"] - fe["one"]).max()),
+              "drill_vs_full": float(np.abs(fe["drill"] - fe["full"]).max())}
+    layouts = {run: shard_layout(os.path.join(d, "ckpt")) for run, d in (("full", full_dir),
+                                                                       ("drill", drill_dir))}
+
+    rows = rank_rows(full, "uninterrupted", card) + rank_rows(drill, "drill, attempt 1", card)
+    for row in rows:
+        log(json.dumps(row))
+    log_mh = drill["multihost"]["attempt_log"]
+    with open(os.path.join(drill_dir, "hosts", "attempt1-host0", "journal.jsonl")) as f:
+        resumed = [json.loads(line) for line in f if '"checkpoint"' in line]
+    first = resumed[0] if resumed else None
+    summary = dict(
+        phase="3m", ranks=MH_RANKS, device=device, parts=MH_PARTS, rows=E2E_ROWS, write_s=write_s,
+        write_mb=mb, build_index_s=index_s, one_process_wall_s=one_s,
+        one_process_timings_s=one_summary["timings_s"], one_process_launches=one_sparse,
+        one_process_mem_gib=one_mem, uninterrupted_wall_s=full_s, drill_wall_s=drill_s,
+        uninterrupted_multihost=full["multihost"], drill_multihost=drill["multihost"],
+        killed_worker=MH_KILLED, killed_after_step=killed_step,
+        kill_to_survivors_exit_s=log_mh[0]["ended_at"] - killed_at,
+        relaunch_to_first_resumed_update_s=None if first is None else first["ts"] - log_mh[1]["started_at"],
+        first_resumed_step=None if first is None else first["step"],
+        fe_coef_gap=fe_gap, readings=readings, readings_s=readings_s, shard_layouts=layouts,
+        tol=tol, card=card)
+    log(json.dumps(summary))
+
+    failures = []
+    if any(one_dense.values()) or not one_sparse["sparse_fused"]:
+        failures.append(f"the one-process run's launches {one_sparse} / {one_dense}")
+    for row in rows:
+        ln = row["launches"]
+        if (not ln["sparse_fused"] or not ln["sparse_matvec"] or not ln["rank_sum"]
+                or ln["value_grad"] or ln["hvp"]):
+            failures.append(f"{row['run']} rank {row['rank']}: launches {ln}")
+    mh = full["multihost"]
+    if (mh["attempts"], mh["host_losses"], mh["final_hosts"]) != (1, 0, MH_RANKS):
+        failures.append(f"the uninterrupted run: {mh}")
+    mh = drill["multihost"]
+    if (mh["attempts"], mh["host_losses"], mh["repeated_sweeps"], mh["final_hosts"]) != (2, 1, 1, MH_RANKS - 1):
+        failures.append(f"the drill: {mh}")
+    for name, r in readings.items():
+        if (fe_gap[name] > tol["fe_coef_atol"] or any(g > tol["re_objective_rtol"] for g in r["gaps"].values())
+                or abs(r["auc"] - r["base_auc"]) > tol["auc_atol"] or not r["auc"] > 0.5):
+            failures.append(f"{name}: fe {fe_gap[name]:.3e}, {r} against {tol}")
+    for run, layout in layouts.items():
+        for cid, lay in layout.items():
+            if not (lay["own_rank_wrote_each"] and lay["blocks_tile_rows"]):
+                failures.append(f"{run} {cid}: shard files {lay}")
+    if failures:
+        raise SystemExit("phase 3m failed: " + "; ".join(failures))
+    ln = full["ranks"][0]["launches"]
+    return {"sparse": {k: ln[k] for k in SPARSE_REPLACES}, "rank_sum": ln["rank_sum"]}
 
 
 def tuning_phase(root: str, val_dir: str, work: str) -> dict:
@@ -4646,7 +4912,7 @@ def main(argv=None) -> int:
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3g, 3x, 3t, 3w, 3v",
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3g, 3x, 3m, 3t, 3w, 3v",
                                     e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
@@ -4692,7 +4958,7 @@ def main(argv=None) -> int:
                        + small_launches["sparse"][k] + e2e_launches["3c"]["sparse"][k]
                        + driver_launches["sparse"][k] + e2e_launches["3k"][k] + e2e_launches["3g"][k]
                        + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]
-                       + e2e_launches["3w"]["sparse"][k]),
+                       + e2e_launches["3w"]["sparse"][k] + e2e_launches["3m"]["sparse"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
                                 "3e-d": e2e_launches["3e-d"][k],
                                 "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
@@ -4700,7 +4966,7 @@ def main(argv=None) -> int:
                                 "3k+5k+3o": e2e_launches["3k"][k], "3g": e2e_launches["3g"][k],
                                 "5g": legacy_launches[k], "3x": e2e_launches["3x"][k],
                                 "3t": e2e_launches["3t"][k], "3w": e2e_launches["3w"]["sparse"][k],
-                                "3v": e2e_launches["3v"]["path"][k]},
+                                "3v": e2e_launches["3v"]["path"][k], "3m": e2e_launches["3m"]["sparse"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
@@ -4711,8 +4977,9 @@ def main(argv=None) -> int:
     ]
     # Kernel #3: #1/#2 on each rank's rows, one all_gather and the rank-order
     # kernel (launched once per cross-rank sum: rank_sum_launches, 3d + 4d,
-    # and 3e-d, where it sums the sparse fixed effect's per-rank sums), rank 0's.
-    rank_sums = {"3d+4d": dist_launches["rank_sum"], "3e-d": e2e_launches["3e-d"]["rank_sum"]}
+    # and 3e-d and 3m, where it sums the sparse fixed effect's per-rank sums), rank 0's.
+    rank_sums = {"3d+4d": dist_launches["rank_sum"], "3e-d": e2e_launches["3e-d"]["rank_sum"],
+                 "3m": e2e_launches["3m"]["rank_sum"]}
     kernels += [
         dict(name=k, route="cuda", source="photon_ml_tpu_torch/csrc/exact_sum.cu",
              replaces=DIST_REPLACES[k], launches=dist_launches[k],

@@ -21,9 +21,12 @@ Output layout (ModelProcessingUtils.saveGameModelToHDFS):
 The option names are the JAX driver's, so its command lines parse
 unchanged. `--device` (default cuda) picks the device; asking for cuda
 with no card raises. Tuning trials are fits on the device; the Bayesian
-search's GP runs on the CPU (hyperparameter/gp.py). Options of parts not
-ported yet (multi-host, --profile) raise NotImplementedError, naming their
-ROADMAP item, before any work starts.
+search's GP runs on the CPU (hyperparameter/gp.py). `--multihost N` runs
+the fit on N ranks, one worker process each, under a supervisor that
+relaunches the survivors of a rank loss (cli/train_multihost.py; its
+workers come back here with `--mh-worker`). `--profile` is not ported yet
+and raises NotImplementedError, naming its ROADMAP item, before any work
+starts.
 
 Usage: python -m photon_ml_tpu_torch.cli.train --help
 """
@@ -168,19 +171,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--logging-level", default="INFO")
     p.add_argument("--application-name", default="photon-ml-tpu-training")
     p.add_argument("--multihost", type=int, default=0, metavar="N",
-                   help="not ported yet (ROADMAP Queue 1 item 9); raises unless 0")
+                   help="train on N ranks, one worker process each, under a supervisor that "
+                        "relaunches the survivors of a rank loss (needs --checkpoint-directory "
+                        "and --offheap-indexmap-dir; cli/train_multihost.py)")
     p.add_argument("--multihost-devices-per-host", type=int, default=None, metavar="M",
-                   help="not ported yet (ROADMAP Queue 1 item 9); raises")
-    # The JAX driver's internal multi-host worker flags: parsed so its
-    # command lines parse, and refused.
+                   help="devices of one rank: 1 (a rank of the port drives one device)")
+    # The multi-host workers' internal flags (set by the supervisor).
     p.add_argument("--mh-worker", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--mh-attempt", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mh-attempt", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--mh-coordinator", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--mh-num-hosts", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--mh-host-id", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--mh-num-hosts", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--mh-host-id", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--mh-rendezvous", default=None, help=argparse.SUPPRESS)
     p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu; cuda with no card raises")
+                   help="cuda (default), cuda:<i> or cpu; cuda with no card raises. With "
+                        "--multihost: cpu, one card cuda:<i> shared by every rank, or cuda (a "
+                        "card each where there are enough, else all on cuda:0)")
     return p
 
 
@@ -190,11 +196,6 @@ def _refuse_unported(args, coordinate_configs: Dict[str, CoordinateConfiguration
     def refuse(what: str, item: str) -> None:
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
-    if (args.multihost or args.multihost_devices_per_host is not None or args.mh_worker
-            or any(v is not None for v in (args.mh_attempt, args.mh_coordinator,
-                                           args.mh_num_hosts, args.mh_host_id,
-                                           args.mh_rendezvous))):
-        refuse("multi-host training (--multihost, --mh-*)", "9")
     if args.profile:
         refuse("--profile", "10")
 
@@ -475,8 +476,19 @@ def _run_job(args, coordinate_configs, device, out_root: str, models_root: str) 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Parse `argv` (default: the process's) and run; returns the summary
-    written to training-summary.json."""
-    return run(build_parser().parse_args(sys.argv[1:] if argv is None else argv))
+    written to training-summary.json. `--multihost N` runs the supervisor,
+    and `--mh-worker` one of its workers, which exits with its code."""
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(raw_argv)
+    if args.mh_worker:
+        from photon_ml_tpu_torch.cli import train_multihost
+
+        raise SystemExit(train_multihost.run_worker(args))
+    if args.multihost:
+        from photon_ml_tpu_torch.cli import train_multihost
+
+        return train_multihost.run_supervisor(args, raw_argv)
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -195,7 +195,7 @@ BUNDLE_PROVENANCE_KEYS = (
 )
 
 # The run journal (utils/telemetry.RunJournal): the keys of every line, and
-# the schema of each event type the serving path emits.
+# the schema of each event type the port emits (the reference's schemas).
 JOURNAL_LINE_KEYS = ("ts", "type")
 JOURNAL_EVENT_SCHEMAS = {
     "health_transition": ("from_state", "to_state", "reasons"),
@@ -208,6 +208,12 @@ JOURNAL_EVENT_SCHEMAS = {
     # The hyperparameter sweep's lifecycle (hyperparameter/sweep.py, cli/tune.py).
     "trial_start": ("round", "trial", "mode"),
     "trial_finish": ("round", "trial", "mode", "seconds", "value", "diverged_steps"),
+    # Checkpoints, ranks and the multi-host supervisor (game/coordinate_descent.py,
+    # parallel/hostmesh.py).
+    "checkpoint": ("step", "coordinate"),
+    "mesh_loss": ("iteration", "coordinate", "surviving_devices", "source"),
+    "host_loss": ("host", "missed_beats", "num_hosts", "source"),
+    "multihost_barrier": ("name", "host", "num_hosts", "seconds"),
 }
 
 # The sweep record chip_smoke.py's phase 3w prints (the reference bench's

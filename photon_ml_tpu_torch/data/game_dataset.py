@@ -36,6 +36,9 @@ runs on the host, as in the reference; on ranks, each rank computes the
 masks of the entities it owns, whose active rows it holds. The estimator
 projects each random effect's shard (game/projector.py) after its layout
 is built.
+`concat_datasets` appends datasets' rows (the multi-host ingest assembles
+every rank's files with it), merging the id-tag tables, so the files read
+one by one and concatenated give one read of them all.
 Not ported: the async packing and upload of the JAX data plane.
 """
 
@@ -187,6 +190,71 @@ class GameDataset:
             if k not in codes:
                 codes[k] = factorize_tag(v)
         return cls(feats, labels_t, off, wt, tags, tag_codes=codes)
+
+
+def _pad_ell(x: SparseFeatures, k: int, keep_last: bool) -> Tuple[Tensor, Tensor]:
+    """(N, K0) ELL planes widened to K columns of inert padding (index 0,
+    value 0), inserted before the last column when `keep_last`."""
+    idx, val = torch.as_tensor(x.indices), torch.as_tensor(x.values)
+    pad = k - idx.shape[1]
+    if pad == 0:
+        return idx, val
+    zi = idx.new_zeros((idx.shape[0], pad))
+    zv = val.new_zeros((val.shape[0], pad))
+    if keep_last:
+        return (torch.cat([idx[:, :-1], zi, idx[:, -1:]], 1),
+                torch.cat([val[:, :-1], zv, val[:, -1:]], 1))
+    return torch.cat([idx, zi], 1), torch.cat([val, zv], 1)
+
+
+def concat_datasets(*parts: GameDataset, keep_last: Sequence[str] = ()) -> GameDataset:
+    """The rows of `parts` in order, as one dataset on the first part's
+    device. Port of the JAX package's `concat_datasets`, for any
+    number of parts: shard sets, feature dims and id tags must match; ELL
+    planes widen to the widest K with inert padding, before the last column
+    for the shards named in `keep_last` (a constant intercept column ingest
+    appends at position K of every row); each id tag's value table is the
+    union of the parts' tables, sorted, with every part's codes mapped into
+    it. So files read one by one (each with the same index maps) and
+    concatenated in order give one read of them all, bit for bit, when each
+    part's intercept column is the appended one."""
+    if not parts:
+        raise ValueError("nothing to concatenate")
+    first = parts[0]
+    for b in parts[1:]:
+        if set(b.shards) != set(first.shards):
+            raise ValueError(f"cannot concat datasets with different shard sets "
+                             f"{sorted(first.shards)} vs {sorted(b.shards)}")
+        if set(b.tag_codes) != set(first.tag_codes):
+            raise ValueError(f"cannot concat datasets with different id-tag columns "
+                             f"{sorted(first.tag_codes)} vs {sorted(b.tag_codes)}")
+    shards: Dict[str, object] = {}
+    for name, fa in first.shards.items():
+        feats = [p.shards[name] for p in parts]
+        if any(isinstance(f, SparseFeatures) != isinstance(fa, SparseFeatures) for f in feats):
+            raise ValueError(f"shard {name!r}: sparse/dense layouts differ")
+        dims = {f.dim if isinstance(f, SparseFeatures) else int(f.shape[-1]) for f in feats}
+        if len(dims) != 1:
+            raise ValueError(f"shard {name!r}: dims differ ({sorted(dims)})")
+        if isinstance(fa, SparseFeatures):
+            k = max(int(f.indices.shape[1]) for f in feats)
+            planes = [_pad_ell(f, k, name in keep_last) for f in feats]
+            shards[name] = SparseFeatures(torch.cat([i.cpu() for i, _ in planes]),
+                                          torch.cat([v.cpu() for _, v in planes]), fa.dim)
+        else:
+            shards[name] = torch.cat([torch.as_tensor(f).cpu() for f in feats])
+    tag_codes = {}
+    for tag in first.tag_codes:
+        table = np.unique(np.concatenate([p.tag_codes[tag][1] for p in parts]))
+        tag_codes[tag] = (np.concatenate([np.searchsorted(table, t)[c] for c, t in
+                                          (p.tag_codes[tag] for p in parts)]).astype(np.int64),
+                          table)
+    column = lambda get: torch.cat([get(p).cpu() for p in parts])
+    return GameDataset.build(
+        shards, column(lambda p: p.labels), offsets=column(lambda p: p.offsets),
+        weights=column(lambda p: p.weights),
+        id_tags={tag: table[codes] for tag, (codes, table) in tag_codes.items()},
+        tag_codes=tag_codes, dtype=first.labels.dtype, device=first.device)
 
 
 def _sparse_shard(name: str, X: SparseFeatures, n: int, dev: torch.device) -> SparseFeatures:

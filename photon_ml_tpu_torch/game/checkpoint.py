@@ -1,8 +1,8 @@
 """Checkpoint-restart of the coordinate-descent outer loop.
 
-The port's own copy of the one-process parts of
-`photon_ml_tpu/game/checkpoint.py`, with the same files, keys and commit
-protocol, so a checkpoint either package writes resumes in the other.
+The port's own copy of `photon_ml_tpu/game/checkpoint.py`, with the same
+files, keys and commit protocol, so a checkpoint either package writes
+resumes in the other.
 
 Durable state after each coordinate update:
   * every coordinate's current model, in the training representation
@@ -14,26 +14,45 @@ Durable state after each coordinate update:
     samples), the best-pass snapshot and the validation history.
 
 Write protocol:
-  * each step writes one model file, `steps/<step>/<cid>.npz` (only the
-    coordinate trained that step, plus any coordinate that has no file
-    yet), a single npz blob with the reference's keys;
-  * `state.json` maps every coordinate to its current file and is replaced
+  * each step writes the files of the coordinate trained that step (and
+    of any coordinate that has no file yet) through the `_write_model_files`
+    hook: in one process a single npz blob with the reference's keys,
+    `steps/<step>/<cid>.npz`;
+  * `state.json` maps every coordinate to its current files and is replaced
     atomically last: it is the commit point, so a crash before it leaves the
     previous state naming only whole files;
   * the best-pass snapshot holds file references (the pass-end models are
     the current models), so it writes nothing;
   * step directories no longer referenced are pruned after the commit.
 
+On ranks (`RankCheckpoint`) a random effect takes the reference's elastic
+row-sharded layout, `<cid>.shard<k>of<n>.npz` with the keys `kind`
+(`random_shard`), `matrix`, `variances` when present, `shard_index`,
+`n_shards`, `row_start` and `n_entities`: rank k first receives the rows of
+its contiguous block of the global (E + 1, D) matrices from their owners
+(one `RankMesh.exchange`) and writes that block alone; rank 0 alone writes a
+replicated (fixed-effect) model. The commit is a collective: the ranks
+agree every new file's checksum in one `owned_to_global` (each rank
+contributes after its files are durable, so the agreement is the barrier),
+rank 0 writes state.json (with the reference's `multihost` record of which
+rank wrote each file) and prunes, and a vote of the ranks (`all_true`) is
+rank 0's receipt, so no rank runs ahead of a step that did not commit.
+
+Reading: every file is read under the `resume_load` fault site and the
+bounded retry; a row-sharded random effect's blocks are reassembled in row
+order and cut to the logical entity count (`_model_from_row_blocks`), so a
+checkpoint of any world size resumes in one process or on any number of
+ranks, and the JAX package's mesh checkpoints load here.
+
 Integrity: every model file's crc32 is recorded in state.json at the commit
 and checked on load; a missing, unreadable, torn or foreign file raises
-`CheckpointIntegrityError`.
+`CheckpointIntegrityError` (on ranks, naming the rank that wrote a missing
+shard).
 
-The reader also takes the JAX package's row-sharded random-effect layout
-(`<cid>.shard<k>of<n>.npz`, a list of files in state.json, written by a
-mesh run), reassembled on the host in row order and cut to the logical
-entity count, so such a checkpoint resumes on one card. The writer writes
-the single blob only. The fault-injection sites and retry policy, the
-background model write and the delta records are not ported here.
+Faults: every atomic write fires the `checkpoint_write` site, and a model
+write or the state.json commit runs under the bounded `retry`
+(utils/faults.py); a read retries transient failures but not a missing
+file. The background model write and the delta records are not ported.
 """
 
 from __future__ import annotations
@@ -44,6 +63,7 @@ import json
 import os
 import shutil
 import tempfile
+import time
 import zlib
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -52,6 +72,7 @@ import torch
 
 from photon_ml_tpu_torch.evaluation.suite import EvaluationResults, EvaluatorType
 from photon_ml_tpu_torch.game.model import Coefficients, FixedEffectModel, RandomEffectModel
+from photon_ml_tpu_torch.utils import faults
 
 STATE_FILE = "state.json"
 STEPS_DIR = "steps"
@@ -67,6 +88,7 @@ def _checksum(data: bytes) -> str:
 
 
 def _atomic_write(path: str, data: bytes) -> None:
+    faults.fault_point("checkpoint_write")
     d = os.path.dirname(path)
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d)
@@ -92,8 +114,21 @@ def _host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
     return None if t is None else t.detach().cpu().numpy()
 
 
+def _npz_bytes(arrays: Dict[str, np.ndarray]) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _write_model_bytes(path: str, data: bytes) -> str:
+    """One model file written atomically under the bounded retry; returns
+    its content checksum."""
+    faults.retry(lambda: _atomic_write(path, data), label=f"checkpoint write {path}")
+    return _checksum(data)
+
+
 def _save_model_npz(path: str, model) -> str:
-    """Write the model npz atomically; returns its content checksum."""
+    """Write the model npz (one blob); returns its content checksum."""
     if isinstance(model, FixedEffectModel):
         arrays = {"kind": np.asarray("fixed"), "means": _host(model.coefficients.means)}
         if model.coefficients.variances is not None:
@@ -104,11 +139,19 @@ def _save_model_npz(path: str, model) -> str:
             arrays["variances"] = _host(model.variances_matrix)
     else:
         raise TypeError(f"unknown model type {type(model)}")
-    buf = io.BytesIO()
-    np.savez(buf, **arrays)
-    data = buf.getvalue()
-    _atomic_write(path, data)
-    return _checksum(data)
+    return _write_model_bytes(path, _npz_bytes(arrays))
+
+
+def _save_row_block(path: str, k: int, n: int, start: int, matrix: torch.Tensor,
+                    var: Optional[torch.Tensor], n_entities: int) -> str:
+    """One shard file of the elastic layout (the reference's keys); returns
+    its checksum."""
+    arrays = {"kind": np.asarray("random_shard"), "matrix": _host(matrix),
+              "shard_index": np.asarray(k), "n_shards": np.asarray(n),
+              "row_start": np.asarray(start), "n_entities": np.asarray(n_entities)}
+    if var is not None:
+        arrays["variances"] = _host(var)
+    return _write_model_bytes(path, _npz_bytes(arrays))
 
 
 def _flat_rels(values):
@@ -120,12 +163,31 @@ def _flat_rels(values):
             yield from v
 
 
+def _resume_read_policy() -> faults.RetryPolicy:
+    """The bounded retry of a read on resume: transient failures (and the
+    armed `resume_load` site) read again; a missing file is not transient."""
+    base = faults.default_policy()
+    return dataclasses.replace(
+        base, is_transient=lambda exc: not isinstance(exc, FileNotFoundError) and base.is_transient(exc))
+
+
+def _read_checkpoint_bytes(path: str) -> bytes:
+    def attempt() -> bytes:
+        faults.fault_point("resume_load")
+        with open(path, "rb") as f:
+            return f.read()
+
+    return faults.retry(attempt, _resume_read_policy(), label=f"checkpoint read {path}")
+
+
 def _read_verified(path: str, expected: Optional[str], what: str, remedy: str) -> Dict[str, np.ndarray]:
     """One npz read back: present, readable, matching its checksum, and a
-    valid npz; anything else is a CheckpointIntegrityError."""
+    valid npz; anything else is a CheckpointIntegrityError (an injected
+    fault whose retries ran out surfaces as itself)."""
     try:
-        with open(path, "rb") as f:
-            data = f.read()
+        data = _read_checkpoint_bytes(path)
+    except faults.InjectedFault:
+        raise
     except FileNotFoundError:
         raise CheckpointIntegrityError(
             f"checkpoint is missing {what} {path} (state.json references it, so the "
@@ -148,9 +210,16 @@ def _tensor(a: Optional[np.ndarray], device) -> Optional[torch.Tensor]:
     return None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _random_effect(matrix, var, task, n_entities: Optional[int], device) -> RandomEffectModel:
-    """A random effect cut to its logical rows: a mesh-padded matrix keeps
-    its first n_entities + 1 rows (the entities and the pinned zero row)."""
+def _model_from_row_blocks(blocks, task, n_entities: Optional[int], device) -> RandomEffectModel:
+    """One random effect from (row_start, matrix, variances or None) row
+    blocks, concatenated in row order and cut to its logical rows (a
+    mesh-padded matrix keeps its first n_entities + 1: the entities and
+    the pinned zero row). A single blob is one block."""
+    blocks = sorted(blocks, key=lambda b: b[0])
+    matrix = np.concatenate([m for _, m, _ in blocks], axis=0)
+    var = None
+    if all(v is not None for _, _, v in blocks):
+        var = np.concatenate([v for _, _, v in blocks], axis=0)
     if n_entities is not None and matrix.shape[0] > n_entities + 1:
         matrix = matrix[: n_entities + 1]
         var = None if var is None else var[: n_entities + 1]
@@ -167,15 +236,15 @@ def _load_model_npz(path: str, task, expected: Optional[str], device):
         return FixedEffectModel(Coefficients(_tensor(arrays["means"], device), _tensor(var, device)), task)
     if kind == "random" and "matrix" in arrays:
         n_ent = int(arrays["n_entities"]) if "n_entities" in arrays else None
-        return _random_effect(arrays["matrix"], var, task, n_ent, device)
+        return _model_from_row_blocks([(0, arrays["matrix"], var)], task, n_ent, device)
     raise CheckpointIntegrityError(
         f"{path}: unknown model kind {kind!r} (corrupted or foreign checkpoint file) {remedy}")
 
 
 def _load_sharded_model(directory: str, rels: List[str], task, checksums: Mapping[str, str], device):
-    """One random effect from the JAX package's per-shard files: each
-    verified, its recorded shard index and count matching its place in
-    state.json's list, the blocks concatenated in row order."""
+    """One random effect from its per-shard files: each verified, its
+    recorded shard index and count matching its place in state.json's
+    list, the blocks reassembled by `_model_from_row_blocks`."""
     remedy = f"— delete the checkpoint directory {directory or '.'} to start fresh"
     n = len(rels)
     blocks = []
@@ -193,12 +262,7 @@ def _load_sharded_model(directory: str, rels: List[str], task, checksums: Mappin
         if "n_entities" in arrays:
             n_entities = int(arrays["n_entities"])
         blocks.append((int(arrays["row_start"]), arrays["matrix"], arrays.get("variances")))
-    blocks.sort(key=lambda b: b[0])
-    matrix = np.concatenate([m for _, m, _ in blocks], axis=0)
-    var = None
-    if all(v is not None for _, _, v in blocks):
-        var = np.concatenate([v for _, _, v in blocks], axis=0)
-    return _random_effect(matrix, var, task, n_entities, device)
+    return _model_from_row_blocks(blocks, task, n_entities, device)
 
 
 def _results_to_json(res: EvaluationResults) -> dict:
@@ -280,9 +344,10 @@ class CoordinateDescentCheckpoint:
         step_rel = os.path.join(STEPS_DIR, str(completed_steps))
         for cid, model in models.items():
             if cid == trained_cid or cid not in self._model_files:
-                rel = os.path.join(step_rel, f"{cid}.npz")
-                self._checksums[rel] = _save_model_npz(os.path.join(self.directory, rel), model)
-                self._model_files[cid] = rel
+                rel_files, checksums = self._write_model_files(
+                    os.path.join(step_rel, f"{cid}.npz"), model)
+                self._checksums.update(checksums)
+                self._model_files[cid] = rel_files
         if best_is_current and best_results is not None:
             self._best_files = dict(self._model_files)
         live = set(_flat_rels(self._model_files.values())) | set(_flat_rels(self._best_files.values()))
@@ -300,10 +365,19 @@ class CoordinateDescentCheckpoint:
         }
         self._commit(state)
 
+    def _write_model_files(self, rel: str, model):
+        """Write one coordinate's model files under `rel`; returns (rel or
+        the list of shard paths, {rel: checksum} of the files written). The
+        hook `RankCheckpoint` overrides; the step bookkeeping and the commit
+        above it are shared."""
+        return rel, {rel: _save_model_npz(os.path.join(self.directory, rel), model)}
+
     def _commit(self, state: dict) -> None:
-        """Write state.json, the commit point for the whole step, then prune
-        unreferenced step directories."""
-        _atomic_write(os.path.join(self.directory, STATE_FILE), json.dumps(state, indent=2).encode())
+        """Write state.json, the commit point for the whole step (under the
+        bounded retry), then prune unreferenced step directories."""
+        data = json.dumps(state, indent=2).encode()
+        path = os.path.join(self.directory, STATE_FILE)
+        faults.retry(lambda: _atomic_write(path, data), label=f"checkpoint commit {path}")
         self._prune(state)
 
     def _prune(self, state: dict) -> None:
@@ -318,9 +392,25 @@ class CoordinateDescentCheckpoint:
                 shutil.rmtree(os.path.join(root, name), ignore_errors=True)
 
     def load(self, task, *, config_key: Optional[str] = None, device="cpu") -> CheckpointState:
-        """The committed state, every model on `device`."""
+        """The committed state, every model on `device` (a row-sharded one
+        reassembled). A checkpoint written on ranks records which rank wrote
+        each file: a file of it that state.json names and that is missing
+        raises `CheckpointIntegrityError` before any is read, naming that
+        rank."""
         with open(os.path.join(self.directory, STATE_FILE)) as f:
             state = json.load(f)
+        writers = (state.get("multihost") or {}).get("shard_hosts")
+        if writers is not None:
+            referenced = set(_flat_rels(state.get("model_files", {}).values())) | set(
+                _flat_rels(state.get("best_files", {}).values()))
+            missing = sorted(r for r in referenced
+                             if not os.path.exists(os.path.join(self.directory, r)))
+            if missing:
+                named = ", ".join(f"{r} (written by rank {writers[r]})" if r in writers else r
+                                  for r in missing)
+                raise CheckpointIntegrityError(
+                    f"torn checkpoint at {self.directory}: state.json references missing files — "
+                    f"{named}. Restore them or delete the checkpoint directory to start fresh.")
         if config_key is not None and state.get("config_key") != config_key:
             raise ValueError(
                 f"checkpoint at {self.directory} was written for a different run configuration "
@@ -347,3 +437,112 @@ class CoordinateDescentCheckpoint:
             return _load_model_npz(os.path.join(self.directory, rel), task,
                                    self._checksums.get(rel), device)
         return _load_sharded_model(self.directory, list(rel), task, self._checksums, device)
+
+
+class RankCheckpoint(CoordinateDescentCheckpoint):
+    """The checkpoint of a fit on ranks (parallel/mesh.py): every rank
+    constructs one over the same directory and takes every step of the
+    protocol with the others (see the module docstring). A random effect's
+    model is this rank's store; it is written as this rank's row block of
+    the elastic layout (`RandomEffectCoordinate.row_block`), a fixed effect
+    by rank 0 alone. `load` gives the models of all ranks, which the caller
+    cuts to each rank's store (`local_model`). `save_timings` holds each
+    save's seconds: the row-block exchange, the file writes, and the commit
+    (the checksum agreement, which waits for the slowest rank's writes,
+    rank 0's state.json, and the receipt vote)."""
+
+    def __init__(self, directory: str, coordinates: Mapping[str, object]):
+        super().__init__(directory)
+        self.coordinates = coordinates
+        self.mesh = next(iter(coordinates.values())).dataset.mesh
+        if self.mesh is None:
+            raise ValueError("a RankCheckpoint needs coordinates on ranks")
+        # rel -> the rank that wrote it (state.json's `multihost.shard_hosts`).
+        self._writers: Dict[str, int] = {}
+        self._new: List[Tuple[str, int]] = []  # this step's files, every rank's, in order
+        self._step_s: Dict[str, float] = {}
+        self.save_timings: List[Dict[str, float]] = []
+        # More keys of state.json's `multihost` record.
+        self.record: Dict[str, object] = {}
+
+    def _write_model_files(self, rel: str, model):
+        mesh, cid = self.mesh, os.path.basename(rel)[: -len(".npz")]
+        if isinstance(model, RandomEffectModel):
+            t0 = time.perf_counter()
+            k, n, start, matrix, var = self.coordinates[cid].row_block(model)
+            self._step_s["exchange_s"] = self._step_s.get("exchange_s", 0.0) + time.perf_counter() - t0
+            rels = [f"{rel[: -len('.npz')]}.shard{j}of{n}.npz" for j in range(n)]
+            self._new += [(r, j) for j, r in enumerate(rels)]
+            t0 = time.perf_counter()
+            n_entities = self.coordinates[cid].re_dataset.num_entities
+            ck = _save_row_block(os.path.join(self.directory, rels[k]), k, n, start, matrix, var,
+                                 n_entities)
+            self._step_s["write_s"] = self._step_s.get("write_s", 0.0) + time.perf_counter() - t0
+            return rels, {rels[k]: ck}
+        self._new.append((rel, 0))
+        if mesh.rank != 0:
+            return rel, {}
+        t0 = time.perf_counter()
+        out = super()._write_model_files(rel, model)
+        self._step_s["write_s"] = self._step_s.get("write_s", 0.0) + time.perf_counter() - t0
+        return out
+
+    def _agree_checksums(self) -> None:
+        """Every rank's checksums of this step's files, on every rank: each
+        file's crc32 at its position, contributed by the rank that wrote it
+        (exact in float64), in one `owned_to_global`."""
+        mesh, new = self.mesh, self._new
+        if not new:  # a rejected update writes nothing, on every rank
+            return
+        mine = [i for i, (_, writer) in enumerate(new) if writer == mesh.rank]
+        values = torch.tensor([float(int(self._checksums[new[i][0]].split(":")[1], 16)) for i in mine],
+                              dtype=torch.float64)
+        crcs = mesh.owned_to_global(values, torch.tensor(mine, dtype=torch.int64), len(new))
+        for (rel, writer), crc in zip(new, crcs.cpu().tolist()):
+            self._checksums[rel] = f"crc32:{int(crc):08x}"
+            self._writers[rel] = writer
+
+    def _commit(self, state: dict) -> None:
+        mesh = self.mesh
+        t0 = time.perf_counter()
+        self._agree_checksums()
+        live = set(_flat_rels(state["model_files"].values())) | set(_flat_rels(state["best_files"].values()))
+        self._checksums = {r: c for r, c in self._checksums.items() if r in live}
+        self._writers = {r: w for r, w in self._writers.items() if r in live}
+        state["checksums"] = dict(self._checksums)
+        state["multihost"] = {"num_hosts": mesh.world_size, "shard_hosts": dict(self._writers),
+                              **self.record}
+        error = None
+        if mesh.rank == 0:
+            try:
+                super()._commit(state)
+            except Exception as exc:  # every rank learns of it through the vote
+                error = exc
+        committed = mesh.all_true(error is None)
+        self._step_s["commit_s"] = time.perf_counter() - t0
+        self.save_timings.append(dict(step=int(state["completed_steps"]), **self._step_s))
+        self._new, self._step_s = [], {}
+        if error is not None:
+            raise error
+        if not committed:
+            raise RuntimeError(f"rank 0 failed to commit step {state['completed_steps']} of the "
+                               f"checkpoint at {self.directory}")
+
+    def clear(self) -> None:
+        """Rank 0 discards the on-disk checkpoint once every rank has read
+        it, and every rank returns after that."""
+        self.mesh.all_true(True)
+        if self.mesh.rank == 0:
+            super().clear()
+        else:
+            self._model_files, self._best_files, self._checksums = {}, {}, {}
+        self._writers = {}
+        self.mesh.all_true(True)
+
+    def load(self, task, *, config_key: Optional[str] = None, device="cpu") -> CheckpointState:
+        """The committed state, every model that of all ranks, on `device`."""
+        out = super().load(task, config_key=config_key, device=device)
+        with open(os.path.join(self.directory, STATE_FILE)) as f:
+            writers = (json.load(f).get("multihost") or {}).get("shard_hosts", {})
+        self._writers = {r: int(w) for r, w in writers.items()}
+        return out

@@ -43,7 +43,9 @@ each (`RankMesh.exchange`). Its model is this rank's store, (entities
 owned + 1, D), the owned entities' rows and the pinned zero row (the
 counterpart of the row-sharded store of the JAX package's
 coordinate.py:752-790); `gather_model` assembles the global (E + 1, D)
-matrix.
+coefficient and variance matrices, `local_model` cuts a rank's store out of
+them (a resume from a checkpoint), and `row_block` moves the store's rows
+to the contiguous row block this rank writes into the elastic checkpoint.
 
 The sweep executor (hyperparameter/sweep.py) fits its trials through
 `train`/`score` as coordinate descent does; the reference's stacked-trial
@@ -99,6 +101,22 @@ def _with_weight(config: CoordinateOptimizationConfig,
 
 def _norm_on(norm, device):
     return None if norm is None else norm.to(device)
+
+
+def _with_variances(model: RandomEffectModel) -> Tensor:
+    """The coefficient rows, with the variance rows beside them when the
+    model has them (so one collective moves both)."""
+    if model.variances_matrix is None:
+        return model.coefficients_matrix
+    return torch.cat([model.coefficients_matrix, model.variances_matrix], 1)
+
+
+def _split_variances(rows: Tensor, like: RandomEffectModel) -> RandomEffectModel:
+    """`_with_variances`'s rows back as a model of `like`'s kind."""
+    if like.variances_matrix is None:
+        return RandomEffectModel(rows, None, like.task)
+    d = like.coefficients_matrix.shape[1]
+    return RandomEffectModel(rows[:, :d].contiguous(), rows[:, d:].contiguous(), like.task)
 
 
 class FixedEffectCoordinate:
@@ -173,6 +191,10 @@ class FixedEffectCoordinate:
 
     def gather_model(self, model: FixedEffectModel) -> FixedEffectModel:
         """The model of all ranks: the replicated coefficients themselves."""
+        return model
+
+    def local_model(self, model: FixedEffectModel) -> FixedEffectModel:
+        """This rank's model of the model of all ranks: the same coefficients."""
         return model
 
 
@@ -265,15 +287,48 @@ class RandomEffectCoordinate:
         return RandomEffectModel(matrix, var_matrix, self.task), stats
 
     def gather_model(self, model: RandomEffectModel) -> RandomEffectModel:
-        """The model of all ranks: every rank's store rows placed at its
-        entities' rows of one (E + 1, D) matrix (each row has one owner, so
-        the assembly is exact). Without a mesh, the model itself."""
+        """The model of all ranks: every rank's store rows, coefficients and
+        variances, placed at its entities' rows of one (E + 1, D) matrix each
+        (each row has one owner, so the assembly is exact; one collective).
+        Without a mesh, the model itself."""
         mesh, red = self.dataset.mesh, self.re_dataset
         if mesh is None:
             return model
-        placed = mesh.owned_to_global(model.coefficients_matrix[:-1], red.owned_entities,
-                                      red.num_entities + 1)
-        return RandomEffectModel(placed, None, model.task)
+        rows = _with_variances(model)[:-1]
+        placed = mesh.owned_to_global(rows, red.owned_entities, red.num_entities + 1)
+        return _split_variances(placed, model)
+
+    def local_model(self, model: RandomEffectModel) -> RandomEffectModel:
+        """This rank's store of a model of all ranks ((E + 1, D) matrices,
+        as `gather_model` and the checkpoint give them): the rows of the
+        entities it owns and the pinned zero row, coefficients and
+        variances, on the dataset's device. Without a mesh, the model on
+        that device."""
+        red, dev = self.re_dataset, self.dataset.device
+        if model.coefficients_matrix.shape[0] != red.num_entities + 1:
+            raise ValueError(f"the model has {model.coefficients_matrix.shape[0]} rows; this "
+                             f"random effect has {red.num_entities} entities and the pinned row")
+        var = model.variances_matrix
+        if red.owned_entities is None:
+            return RandomEffectModel(model.coefficients_matrix.to(dev),
+                                     None if var is None else var.to(dev), model.task)
+        rows = torch.cat([red.owned_entities.to(dev),
+                          torch.tensor([red.num_entities], dtype=torch.int64, device=dev)])
+        return RandomEffectModel(model.coefficients_matrix.to(dev)[rows],
+                                 None if var is None else var.to(dev)[rows], model.task)
+
+    def row_block(self, model: RandomEffectModel):
+        """This rank's block of the model of all ranks, as the elastic
+        checkpoint writes it: (block index, block count, first global row,
+        coefficient rows, variance rows or None). Every rank's store rows move
+        to the rank that writes them in one exchange (a collective, so every
+        rank calls it; parallel/mesh.py `RowBlocks`)."""
+        blocks = self.dataset.sharding.row_blocks(self.re_dataset.config)
+        mesh = self.dataset.mesh
+        block = mesh.exchange(_with_variances(model)[:blocks.plan.num_src], blocks.plan)
+        placed = _split_variances(block, model)
+        return (mesh.rank, mesh.world_size, int(blocks.bounds[mesh.rank]),
+                placed.coefficients_matrix, placed.variances_matrix)
 
     def score(self, model: RandomEffectModel) -> Tensor:
         """Raw per-row margins of the dataset's rows (over a row view,

@@ -34,12 +34,26 @@ coordinate c is (summed scores - c's previous scores), three elementwise ops:
     package's, hashed the same way, so either package resumes the other's
     checkpoint; a checkpoint of another configuration is refused
     (`stale_checkpoint="error"`) or cleared (`"discard"`), and one written
-    with another seed is refused.
+    with another seed is refused. On ranks the checkpoint is a
+    `RankCheckpoint` (each rank writes its row block of every random
+    effect in the reference's elastic layout; `checkpoint_factory`
+    substitutes another, as the multi-host worker passes its
+    `MultihostCheckpoint`), the fingerprint is taken over all rows, the
+    same on every rank, at every world size and in one process, and a
+    resume loads the models of all ranks and cuts each rank's store out of
+    them (`local_model`): a checkpoint of any world size resumes on any;
+  * the `mesh_loss` fault site fires once per coordinate update and raises
+    `MeshLoss`, which propagates after counting `mesh_losses` (the
+    reference's `max_mesh_losses=0`): on ranks a lost device is a lost
+    process, and only the supervisor's relaunch of the survivors
+    (parallel/hostmesh.py) recovers, from the checkpoint.
 
 Each update runs under a `coordinate_update` span (utils/telemetry.py,
 with `accepted` set) and records its wall in the `coordinate_update_s`
-histogram. The mesh-loss recovery, prefetch, the background checkpoint
-write and the event emitter are not ported yet.
+histogram; each durable save journals a `checkpoint` event. The in-process
+mesh-loss recovery (the reference's `mesh_rebuilder`), prefetch and the
+background checkpoint write are not ported: a rank holds the only copy of
+its rows.
 """
 
 from __future__ import annotations
@@ -54,7 +68,7 @@ import torch
 
 from photon_ml_tpu_torch.data.containers import SparseFeatures
 from photon_ml_tpu_torch.evaluation.suite import EvaluationResults, EvaluationSuite
-from photon_ml_tpu_torch.game.checkpoint import CoordinateDescentCheckpoint
+from photon_ml_tpu_torch.game.checkpoint import CoordinateDescentCheckpoint, RankCheckpoint
 from photon_ml_tpu_torch.game.model import GameModel
 from photon_ml_tpu_torch.optimize.config import static_config_key
 from photon_ml_tpu_torch.utils import faults, telemetry
@@ -95,12 +109,19 @@ def gather_game_model(coordinates: Mapping[str, object], model: GameModel) -> Ga
     return GameModel({cid: coordinates[cid].gather_model(m) for cid, m in model.models.items()})
 
 
-def _shard_identity(feats) -> tuple:
+def _shard_identity(feats, num_rows: int) -> tuple:
+    """A shard's identity in the fingerprint, over `num_rows` rows (all
+    rows, where a rank holds part of them)."""
     if isinstance(feats, SparseFeatures):
-        shape = tuple(int(s) for s in feats.indices.shape)
+        shape = (num_rows,) + tuple(int(s) for s in feats.indices.shape[1:])
         # The reference stores a projected shard's planes as (K, N).
         return ("sparse", shape[::-1] if feats.projected else shape, feats.dim)
-    return ("dense", tuple(int(s) for s in feats.shape))
+    return ("dense", (num_rows,) + tuple(int(s) for s in feats.shape[1:]))
+
+
+def _num_rows(dataset) -> int:
+    """The dataset's rows over all ranks."""
+    return dataset.num_samples if dataset.sharding is None else dataset.sharding.num_global
 
 
 def run_config_key(coordinates: Mapping[str, object], locked: Set[str],
@@ -108,7 +129,10 @@ def run_config_key(coordinates: Mapping[str, object], locked: Set[str],
     """The run's fingerprint, built as the JAX package builds it: the ids,
     the locked ids, each config's static key, each effective weight, and
     each dataset's sample count and shard shapes, as the sha256 of their
-    repr. A resume under another fingerprint is refused."""
+    repr. On ranks the count and shapes are those of all rows (a rank's
+    ELL planes keep the width of all rows), so every rank, at every world
+    size, takes the key one process takes over the same data. A resume
+    under another fingerprint is refused."""
     ids = list(coordinates.keys())
     fp = (
         tuple(ids),
@@ -117,8 +141,8 @@ def run_config_key(coordinates: Mapping[str, object], locked: Set[str],
         tuple((c, float((reg_weights or {}).get(c, coordinates[c].config.reg_weight)))
               for c in ids),
         tuple(
-            (c, coordinates[c].dataset.num_samples,
-             tuple(sorted((name, _shard_identity(f))
+            (c, _num_rows(coordinates[c].dataset),
+             tuple(sorted((name, _shard_identity(f, _num_rows(coordinates[c].dataset)))
                           for name, f in coordinates[c].dataset.shards.items())))
             for c in ids
         ),
@@ -139,13 +163,16 @@ def run_coordinate_descent(
     seed: int = 0,
     checkpoint_dir: Optional[str] = None,
     stale_checkpoint: str = "error",
+    checkpoint_factory=None,
 ) -> CoordinateDescentResult:
     """`coordinates`: ordered id -> Fixed/RandomEffectCoordinate.
     `validation_scorer(cid, model) -> scores` scores one coordinate's model
     on the validation set; the suite evaluates the summed scores.
     `checkpoint_dir` saves after every update and resumes from what is
     there; `stale_checkpoint` ("error" or "discard") is the policy for a
-    checkpoint of another configuration."""
+    checkpoint of another configuration; `checkpoint_factory(checkpoint_dir)`
+    builds the checkpoint (default: `CoordinateDescentCheckpoint`, or a
+    `RankCheckpoint` on ranks)."""
     if stale_checkpoint not in ("error", "discard"):
         raise ValueError(f"stale_checkpoint must be 'error' or 'discard', got {stale_checkpoint!r}")
     locked = locked_coordinates or set()
@@ -177,11 +204,13 @@ def run_coordinate_descent(
     ckpt = None
     ckpt_config_key = None
     if checkpoint_dir is not None:
-        if mesh is not None:
-            raise NotImplementedError("checkpoints of a fit on ranks (sharded checkpoints) are not "
-                                      "ported yet (ROADMAP Queue 1 item 9)")
         ckpt_config_key = run_config_key(coordinates, locked, reg_weights)
-        ckpt = CoordinateDescentCheckpoint(checkpoint_dir)
+        if checkpoint_factory is not None:
+            ckpt = checkpoint_factory(checkpoint_dir)
+        elif mesh is not None:
+            ckpt = RankCheckpoint(checkpoint_dir, coordinates)
+        else:
+            ckpt = CoordinateDescentCheckpoint(checkpoint_dir)
         if (stale_checkpoint == "discard" and ckpt.exists()
                 and ckpt.stored_config_key() != ckpt_config_key):
             logger.info("checkpoint at %s was written for a different run configuration — "
@@ -192,8 +221,10 @@ def run_coordinate_descent(
             if state.seed != seed:
                 raise ValueError(f"checkpoint at {checkpoint_dir} was written with seed "
                                  f"{state.seed}, not {seed} — refusing to resume")
-            models = state.models
-            best_models = state.best_models or dict(models)
+            # The models of all ranks, each cut to this rank's store.
+            models = {cid: coordinates[cid].local_model(m) for cid, m in state.models.items()}
+            best_models = {cid: coordinates[cid].local_model(m)
+                           for cid, m in state.best_models.items()} or dict(models)
             best_results = state.best_results
             validation_history = list(state.validation_history)
             completed_steps = state.completed_steps
@@ -233,6 +264,14 @@ def run_coordinate_descent(
             if reg_weights and cid in reg_weights:
                 kwargs["reg_weight"] = reg_weights[cid]
             sampled = coord.config.down_sampling_rate < 1.0
+            try:
+                faults.fault_point("mesh_loss")
+            except faults.InjectedFault as exc:
+                faults.COUNTERS.increment("mesh_losses")
+                telemetry.emit_event("mesh_loss", iteration=it, coordinate=cid,
+                                     surviving_devices=None, source="raised")
+                raise faults.MeshLoss(f"injected mesh loss at iteration {it} coordinate "
+                                      f"{cid!r}") from exc
             model = None
             with telemetry.span("coordinate_update", coordinate=cid, iteration=it) as span:
                 for attempt in range(1 + faults.solve_retry_attempts()):
@@ -303,6 +342,7 @@ def run_coordinate_descent(
                           models=models, trained_cid=cid if accepted else None,
                           best_is_current=best_updated, best_results=best_results,
                           validation_history=validation_history)
+                telemetry.emit_event("checkpoint", step=step + 1, coordinate=cid)
 
     final = GameModel(dict(models))
     best = GameModel(dict(best_models)) if best_results is not None else final

@@ -27,7 +27,6 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from scipy.stats import norm
 
 from photon_ml_tpu_torch.hyperparameter import kernels as K
 from photon_ml_tpu_torch.hyperparameter.slice_sampler import slice_sample
@@ -94,6 +93,8 @@ class GaussianProcessModel:
         mean, var = self.predict(xt)
         std = np.sqrt(var)
         gamma = (best - mean) / std
+        from scipy.stats import norm  # here: scipy.stats takes seconds to import
+
         return std * (gamma * norm.cdf(gamma) + norm.pdf(gamma))
 
     def confidence_bound(self, xt: np.ndarray, beta: float = 2.0) -> np.ndarray:

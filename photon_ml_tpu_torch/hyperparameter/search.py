@@ -19,7 +19,6 @@ import json
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
-from scipy.stats import qmc
 
 from photon_ml_tpu_torch.hyperparameter.gp import fit_gp
 
@@ -102,6 +101,8 @@ class RandomSearch:
         self.evaluation_function = evaluation_function
         self.maximize = maximize
         self.dim = len(self.configs)
+        from scipy.stats import qmc  # here: scipy.stats takes seconds to import
+
         self._sobol = qmc.Sobol(d=self.dim, scramble=True, seed=seed)
         # Power-of-two draw buffer: scipy's Sobol.random warns on every
         # non-power-of-two draw (balance properties), and this searcher
@@ -328,6 +329,8 @@ def shrink_search_range(
     x = np.stack([forward_scale(np.asarray(p, np.float64), configs) for p, _ in priors])
     y = np.asarray([v for _, v in priors], np.float64)
     model = fit_gp(x, y, kernel=kernel, maximize=maximize, seed=seed)
+    from scipy.stats import qmc  # here: scipy.stats takes seconds to import
+
     pool = qmc.Sobol(d=len(configs), scramble=True, seed=seed).random(
         candidate_pool_size
     )

@@ -103,6 +103,28 @@ def _record_features(record: dict, bags: Sequence[str]) -> List[Tuple[str, float
     return out
 
 
+def _balanced_slice(files: List[str], process_index: int, process_count: int) -> List[str]:
+    """Process `process_index`'s files of `files`, balanced by bytes over
+    `process_count` processes (greedy largest-first onto the lightest
+    process, ties by path), as the JAX package's reader splits them. Every
+    process computes the same split from the same listing and sizes. Byte
+    balance is not row balance."""
+    import heapq
+    import os
+
+    sizes = [os.path.getsize(f) for f in files]
+    order = sorted(range(len(files)), key=lambda i: (-sizes[i], files[i]))
+    heap = [(0, p) for p in range(process_count)]
+    heapq.heapify(heap)
+    mine: List[str] = []
+    for i in order:
+        load, p = heapq.heappop(heap)
+        if p == process_index:
+            mine.append(files[i])
+        heapq.heappush(heap, (load + sizes[i], p))
+    return sorted(mine)
+
+
 def read_game_dataset(
     path: Union[str, Sequence[str]],
     shard_configs: Mapping[str, FeatureShardConfig],

@@ -28,7 +28,9 @@ cross-rank move of the port goes:
     row placement; one all_to_all_single sends each rank exactly the rows
     it needs from each other rank, and rows that stay are copied. Values
     are moved, never added, so the result is exact. With world size 1
-    nothing moves and no collective is called.
+    nothing moves and no collective is called. The checkpoint on ranks
+    plans a second kind (`RowBlocks`): random-effect coefficient rows from
+    their owners to the contiguous row block each rank writes.
 
 gloo and NCCL take all three on CUDA tensors (gloo moves them through host
 memory itself; it takes all_to_all_single with uneven splits, though not
@@ -381,6 +383,40 @@ def exchange_plan(src_rank: np.ndarray, dst_rank: np.ndarray, rank: int, world_s
                         send_rows, send_counts, recv_rows, recv_counts)
 
 
+def block_bounds(num_rows: int, world_size: int) -> np.ndarray:
+    """The W + 1 boundaries of W contiguous row blocks, np.array_split's
+    (the first num_rows % W blocks one row longer)."""
+    sizes = num_rows // world_size + (np.arange(world_size) < num_rows % world_size)
+    return np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class RowBlocks:
+    """A random effect's coefficient rows as the elastic checkpoint writes
+    them: rank k writes the global rows [bounds[k], bounds[k + 1]) of the
+    (E + 1)-row matrix (the pinned zero row is row E, in the last block),
+    and `plan` moves each owned row from its owner's store to the rank
+    that writes it, once (`RankMesh.exchange`; the pinned row is the last
+    rank's to send)."""
+
+    plan: ExchangePlan
+    bounds: np.ndarray
+
+    @property
+    def num_rows(self) -> int:
+        return int(self.bounds[-1])
+
+
+def row_blocks_plan(owner: np.ndarray, rank: int, world_size: int,
+                    device: torch.device) -> RowBlocks:
+    """The `RowBlocks` of a random effect whose entity e is owned by rank
+    `owner[e]` (the same (E,) array on every rank)."""
+    bounds = block_bounds(len(owner) + 1, world_size)
+    src = np.append(np.asarray(owner, np.int64), world_size - 1)
+    dst = np.repeat(np.arange(world_size, dtype=np.int64), np.diff(bounds))
+    return RowBlocks(exchange_plan(src, dst, rank, world_size, device), bounds)
+
+
 @dataclasses.dataclass
 class RowView:
     """A random effect's rows on a rank whose rows follow another random
@@ -413,6 +449,22 @@ class RowSharding:
     entity_owner: Optional[np.ndarray] = None
     row_rank: Optional[np.ndarray] = None  # (N,) int64
     tag_codes: Dict[str, Tuple[np.ndarray, np.ndarray]] = dataclasses.field(default_factory=dict)
+    # Each random effect's entity owners and its checkpoint row blocks, by
+    # layout (filled as the random effects are built).
+    _owners: Dict[RandomEffectDataConfig, np.ndarray] = dataclasses.field(default_factory=dict)
+    _row_blocks: Dict[RandomEffectDataConfig, RowBlocks] = dataclasses.field(default_factory=dict)
+
+    def row_blocks(self, config: RandomEffectDataConfig) -> RowBlocks:
+        """The checkpoint's row blocks of the random effect built from
+        `config` on this sharding, planned once and kept."""
+        key = _layout_key(config)
+        if key not in self._row_blocks:
+            if key not in self._owners:
+                raise ValueError(f"no random effect of {config.random_effect_type!r} was built "
+                                 "on this sharding")
+            self._row_blocks[key] = row_blocks_plan(self._owners[key], self.mesh.rank,
+                                                    self.mesh.world_size, self.mesh.device)
+        return self._row_blocks[key]
 
     def gather(self, values: Tensor) -> Tensor:
         """The global (N, ...) tensor of per-row values every rank holds for
@@ -461,6 +513,7 @@ class RowSharding:
             owner = entity_owners(layout, world)
             view = self._row_view(dataset, layout, owner, config.feature_shard)
             rows, rows_ds = view.global_rows, view.dataset
+        self._owners[_layout_key(config)] = owner
         num_e = layout.num_entities
         local_pos = np.full(self.num_global, -1, np.int64)
         local_pos[rows] = np.arange(len(rows), dtype=np.int64)

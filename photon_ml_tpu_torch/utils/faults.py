@@ -11,8 +11,12 @@ Port of `photon_ml_tpu/utils/faults.py`:
   environment. An armed `fault_point` raises `InjectedFault`. The site
   registry is the reference's whole table, so a plan naming any of its
   sites parses here as there; the serving tier fires `lookup`, `score`,
-  `admit`, `swap_stage`, `swap_commit` and `shard_upload`, and coordinate
-  descent fires `solve` once per attempt of an update.
+  `admit`, `swap_stage`, `swap_commit` and `shard_upload`; coordinate
+  descent fires `solve` once per attempt of an update and `mesh_loss` once
+  per update; the checkpoint fires `checkpoint_write` and `resume_load`;
+  the multi-host heartbeat fires `host_loss`.
+* `MeshLoss` and its `HostLoss`: the loss of part of the ranks, never
+  transient.
 * `solve_retry_attempts()`: the extra attempts the divergence guard grants
   a rejected coordinate update (`PHOTON_SOLVE_RETRIES`).
 * `retry(fn, policy)`: bounded exponential backoff around transient
@@ -102,6 +106,23 @@ class DeviceHang(RuntimeError):
     """A device dispatch exceeded its watchdog deadline (utils/watchdog.py).
     Classified transient and device-shaped: the serving breaker counts it
     toward opening."""
+
+
+class MeshLoss(RuntimeError):
+    """Part of the ranks is gone mid-fit: the fault no retry in place can
+    fix, because the same work would meet the same dead peer. Not transient:
+    `retry` never spins on it. Coordinate descent raises it from the armed
+    `mesh_loss` site, once per coordinate update, and lets it propagate: on
+    ranks a lost device is a lost process, so only a relaunch of the
+    survivors (parallel/hostmesh.supervise) recovers, from the checkpoint."""
+
+
+class HostLoss(MeshLoss):
+    """A whole rank of the multi-host process group is gone, detected by the
+    heartbeat (parallel/hostmesh.HostHeartbeat) or a barrier that a rank never
+    reached. The worker journals `host_loss` and exits `EXIT_HOST_LOSS`; the
+    supervisor relaunches the surviving ranks, which resume from the last
+    committed checkpoint step."""
 
 
 # --------------------------------------------------------------- fault plans

@@ -11,7 +11,9 @@ so that `serving.bundle.load_bundle` can refuse them: the row-sharded and
 two-tier stores they select are ROADMAP item 9. The solver's and the sweep
 executor's knobs (`PHOTON_SOLVE_RETRIES`, `PHOTON_SWEEP_*`) are the
 reference's; `PHOTON_SWEEP_SCAN` is not registered, because the port has no
-scan-dispatched bucket sweep.
+scan-dispatched bucket sweep. The multi-host supervisor's
+(`PHOTON_HOST_HEARTBEAT_MS`, `PHOTON_HOST_LOSS_RETRIES`) are the
+reference's too.
 """
 
 from __future__ import annotations
@@ -116,6 +118,14 @@ _register("PHOTON_SWEEP_SHARD_GROUPS", int, 0,
 _register("PHOTON_SOLVE_RETRIES", int, 1,
           "Extra solve attempts the divergence guard grants a non-finite coordinate update "
           "before keeping last-good.")
+_register("PHOTON_HOST_HEARTBEAT_MS", int, 500,
+          "Host-liveness heartbeat period (ms) in multi-host mode; a peer whose beat counter "
+          "stalls for hostmesh.MISS_THRESHOLD (20) consecutive periods is declared lost (typed "
+          "HostLoss, supervisor relaunch on the survivor set). Lower the period, not the "
+          "threshold, for faster detection.")
+_register("PHOTON_HOST_LOSS_RETRIES", int, 1,
+          "Whole-host losses a multi-host supervisor absorbs before giving up (each costs one "
+          "relaunch on the survivor set and one repeated sweep).")
 _register("PHOTON_TRACE", bool, False,
           "Span tracing (utils/telemetry.py): 1 records spans and exports Chrome "
           "trace-event JSON from cli.serve; 0 keeps span() a no-op.")

@@ -71,6 +71,11 @@ METRIC_DESCRIPTIONS = {
     "serving_pending_depth": "batcher queue depth observed at batch claim",
     "serving_bundle_generation": "live bundle generation after a hot-swap",
     "coordinate_update_s": "wall seconds per coordinate-descent update",
+    "mesh_losses": "mesh-loss faults recovered at a sweep boundary",
+    "host_losses": "whole-host losses detected in the multi-host process "
+    "group (heartbeat or wedged collective)",
+    "host_heartbeat_misses": "per-host heartbeat beats missed by a peer "
+    "before it was declared lost",
 }
 
 _BUCKETS_PER_DECADE = 16

@@ -449,6 +449,10 @@ def test_date_ranges_resolve_like_the_jax_module(tmp_path, date, days):
 # Options whose parts are not ported raise, naming their ROADMAP item; the
 # cases with no item were refused until they were ported, and now run
 # through the port's driver and are held against the JAX driver's result.
+# The multi-host options of item 9 are ported since: they run the
+# supervisor or a worker, which first refuse, as the JAX driver's do, a
+# command line outside the multi-host scope (here, one without a
+# checkpoint directory); tests/test_torch_multihost.py runs them.
 UNPORTED = [
     (["--hyper-parameter-tuning", "BAYESIAN"], None),
     (["--checkpoint-directory", "ckpt"], None),
@@ -620,6 +624,11 @@ def _ported_train_option(glmix, tmp_path, extra):
 def test_each_unported_train_option_raises_before_any_work(glmix, tmp_path, extra, item):
     if item is None:
         _ported_train_option(glmix, tmp_path, extra)
+        return
+    if item == "item 9":
+        with pytest.raises(ValueError, match="--checkpoint-directory is required"):
+            train_cli.main(_minimal_train(tmp_path) + extra)
+        assert not (tmp_path / "out").exists()
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}\\)"):
         train_cli.main(_minimal_train(tmp_path) + extra)

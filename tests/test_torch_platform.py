@@ -311,8 +311,8 @@ def test_spans_parent_across_a_thread_handoff_and_export(tmp_path):
 
 
 def test_a_port_journal_passes_the_reference_validator(tmp_path):
-    """One line of each event type the port emits (the serving path and
-    the sweep executor)."""
+    """One line of each event type the port emits (the serving path, the
+    sweep executor, the checkpoint and the multi-host layer)."""
     fields = {"health_transition": dict(from_state="READY", to_state="DEGRADED", reasons=["circuit_open"]),
               "bundle_swap": dict(version=1, outcome="committed"),
               "fault_retry": dict(label="x", counter="retries", attempt=1, error="InjectedFault()"),
@@ -321,7 +321,12 @@ def test_a_port_journal_passes_the_reference_validator(tmp_path):
               "shard_restage": dict(coordinate="per-user", shard_index=0, bytes=64),
               "trial_start": dict(round=0, trial=0, mode="stacked"),
               "trial_finish": dict(round=0, trial=0, mode="stacked", seconds=0.5, value=0.75,
-                                   diverged_steps=0)}
+                                   diverged_steps=0),
+              "checkpoint": dict(step=3, coordinate="per-user"),
+              "mesh_loss": dict(iteration=1, coordinate="per-user", surviving_devices=None,
+                                source="raised"),
+              "host_loss": dict(host=2, missed_beats=0, num_hosts=4, source="supervisor"),
+              "multihost_barrier": dict(name="fit-complete", host=0, num_hosts=4, seconds=0.25)}
     assert set(fields) == set(contracts.JOURNAL_EVENT_SCHEMAS)
     for etype, schema in contracts.JOURNAL_EVENT_SCHEMAS.items():
         assert schema == jax_contracts.JOURNAL_EVENT_SCHEMAS[etype]

@@ -11,8 +11,10 @@ held against, then `chip_smoke.across_cards` (up to 4 ranks); then 3e's
 Avro files, 3e's one-process sweep on card 0 as the reference, and
 `chip_smoke.e2e_across_cards`, the e2e cell with two random effects on up
 to 4 ranks (per-movie on a row view, its offsets and scores exchanged
-between the cards). It fails on any check either fails. Needs 2 or more
-CUDA cards.
+between the cards); then, where the machine has 4 cards, phase 3m over
+NCCL: `cli.train --multihost 4 --device cuda` (one worker a card) and its
+kill drill (`chip_smoke.multihost_phase`). It fails on any check any of
+them fails. Needs 2 or more CUDA cards.
 """
 
 from __future__ import annotations
@@ -67,6 +69,14 @@ def main() -> int:
     cs.e2e_across_cards(e2e_data, ds, phase3e, failures)
     if failures:
         raise SystemExit("phase 3e-d over NCCL failed: " + "; ".join(failures))
+    del ds, phase3e, e2e_data
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= cs.MH_RANKS:
+        with tempfile.TemporaryDirectory(prefix="photon-mh-") as work:
+            cs.walled("phase 3m over NCCL", cs.multihost_phase, work, "cuda")
+    else:
+        print(f"phase 3m over NCCL needs {cs.MH_RANKS} cards; this machine has "
+              f"{torch.cuda.device_count()}", flush=True)
     return 0
 
 
