@@ -311,6 +311,33 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    recapture) and a hot-swap to the same directory under live traffic (0
    failed, bit-equal, 9 captures). The engine path must launch none of the
    six kernels.
+3q. Quarantined ingest on the card: a copy of 3e's part-0.avro with its
+   third block broken (3e's files are null-codec: the block's last 40
+   bytes, so its records run off its end after some decode) read through
+   the native route onto the card, against a read of the clean file: the
+   clean rows less that block's, the same ELL planes and tags, and
+   `quarantined_blocks` 1.
+3mv. Multi-host serving (cli/serve_multihost.py) on 3c's model and 50,152
+   of 3v's requests (its first 12 blocks of 4,096 rows and its 1,000
+   unseen ids; cut from 101,000 for the run's time limit): `cli.serve
+   --multihost 2` (each worker cuts every
+   random-effect matrix into 4 row blocks and owns every other one), both
+   worker processes sharing the card; uninterrupted, then with worker 1
+   SIGKILLed once its first window is durable and no retry budget, then
+   the same kill with a budget of one (worker 1 rejoins from its progress
+   marker through `host_join`). Per run: the wall, each worker's load,
+   warm-up and replay seconds, p50/p99, owned rows, the FE-only answers and
+   the share answered with no lost row (with two random effects about half
+   the requests have no host owning both rows), kill-to-exit and
+   relaunch-to-first-window seconds. Gates: no failed request; every
+   merged answer with no lost row bit-equal to 3v's single-process scores;
+   the merged output bit-equal to an in-process emulation on the card (two
+   engines over bundles marked host-local for hosts 0 and 1, merged by the
+   same rule); the rejoin's scores the uninterrupted ones; one `host_loss`
+   line a drill, `host_join` once in the rejoin; no kernel launched by any
+   worker attempt (its summary's count, or a killed worker's last
+   progress marker's). `tools/
+   chip_smoke_serve_multihost.py` runs 3q and 3mv alone.
 
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
 parallel/), each rank a process started by parallel/launch.py that loads
@@ -352,11 +379,12 @@ print which backend each used.
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
 3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, each run
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
-sweep and its cli.tune run, 3v's engine path, and 3d, 4d, 3e-d and 3m's
-uninterrupted fit in each rank, whose counts are rank 0's)
-and read
-just after; the `kernels` line gives them by
-phase (`launches_by_phase`). "wall:" lines give each group of phases'
+sweep and its cli.tune run, 3v's engine path, 3q's reads and 3mv's
+emulation in this process, each worker of 3mv's runs from its start,
+and 3d, 4d, 3e-d and 3m's uninterrupted fit in each rank, whose counts
+are rank 0's) and read just after; the `kernels` line gives them by
+phase (`launches_by_phase`; "3mv" sums 3mv's workers over every attempt,
+"3mv-emulation" is the emulation's). "wall:" lines give each group of phases'
 seconds. The last three
 lines of standard output are
 the `kernels` JSON line, the card's name and power limit from nvidia-smi,
@@ -1222,8 +1250,8 @@ def small_e2e_fit(ds, mask_ratio=None) -> dict:
 
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     """Phases 2e, 3e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x,
-    3x-scale, 3m, 3t, 3w, 3v and 5e (`dense`: phase 3's arrays and model, for 3v). Returns (phase 2e
-    rows by kernel, the sparse launches by kernel of each path)."""
+    3x-scale, 3m, 3t, 3w, 3v, 3q, 3mv and 5e (`dense`: phase 3's arrays and model, for 3v). Returns
+    (phase 2e rows by kernel, the sparse launches by kernel of each path)."""
     import os
     import tempfile
 
@@ -1389,6 +1417,8 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         launches3w = walled("phase 3w", sweep_phase, root, os.path.join(work, "validation"), work)
         launches3v = walled("phase 3v", serving_phase, root, work, truth, n_users, n_movies, dense,
                             dev)
+        launches3q = walled("phase 3q", quarantine_phase, root, work, dev)
+        launches3mv = walled("phase 3mv", serve_multihost_phase, root, work, dev)
     finally:
         e2e_dir.cleanup()
 
@@ -1424,7 +1454,8 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
     return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
                     "3k": launches3k, "3g": launches3g, "3x": launches3x, "3t": launches3t,
-                    "3w": launches3w, "3v": launches3v, "3m": launches3m}
+                    "3w": launches3w, "3v": launches3v, "3m": launches3m, "3q": launches3q,
+                    "3mv": launches3mv}
 
 
 # ---------------------------------------------------------------- phases 3e-d and 5e-d
@@ -1756,6 +1787,34 @@ def e2e_records(a: dict, lo: int, hi: int, user_shift: int = 0, movie_shift: int
              "uid": None, "offset": None} for r in range(lo, hi)]
 
 
+def write_serve_requests(replay_dir: str, val: dict) -> None:
+    """3v's request stream: SERVE_REPLAY_ROWS rows of the validation draw
+    `val` (part-0.avro), then SERVE_UNSEEN rows whose ids no model row has
+    (part-1.avro)."""
+    import os
+
+    from photon_ml_tpu_torch.native.avro_writer import write_training_examples_columnar
+
+    os.makedirs(replay_dir)
+    ip = val["indptr"]
+    n, m = SERVE_REPLAY_ROWS, SERVE_UNSEEN
+    names = [f"f{i}" for i in range(E2E_D)]
+    write_training_examples_columnar(os.path.join(replay_dir, "part-0.avro"), val["labels"][:n], ip[:n + 1],
+                                     val["ids"][:ip[n]], val["vals"][:ip[n]], names,
+                                     int_tags={"userId": val["users"][:n], "movieId": val["movies"][:n]})
+    write_training_examples_columnar(os.path.join(replay_dir, "part-1.avro"), val["labels"][n:n + m],
+                                     ip[n:n + m + 1] - ip[n], val["ids"][ip[n]:ip[n + m]],
+                                     val["vals"][ip[n]:ip[n + m]], names,
+                                     int_tags={"userId": val["users"][n:n + m] + 10_000_000,
+                                               "movieId": val["movies"][n:n + m] + 10_000_000})
+
+
+def serve_args(best: str, replay_dir: str, out: str, *extra) -> list:
+    """3v's cli.serve command line (its defaults: max_batch 256, max_wait 2 ms)."""
+    return ["--model-input-directory", best, "--requests", replay_dir, "--root-output-directory", out,
+            "--feature-shard-configurations", E2E_SHARD, "--logging-level", "WARNING", *extra]
+
+
 def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dense: dict, dev) -> dict:
     """Phase 3v: the online serving tier on phase 3c's model directory (FE
     over "g", 201 wide; per-user and per-movie), then phase 3's dense model.
@@ -1782,24 +1841,13 @@ def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dens
     from photon_ml_tpu_torch.game.model import Coefficients, FixedEffectModel, GameModel, RandomEffectModel
     from photon_ml_tpu_torch.io import model_bridge, model_store
     from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig, read_game_dataset
-    from photon_ml_tpu_torch.native.avro_writer import write_training_examples_columnar
-    from photon_ml_tpu_torch.ops import glm_kernels
-    from photon_ml_tpu_torch.ops import sparse_kernels as sk
-    from photon_ml_tpu_torch.parallel import mesh as pmesh
     from photon_ml_tpu_torch.serving import ScoreRequest, ServingBundle, ServingEngine, load_bundle
     from photon_ml_tpu_torch.serving.bundle import request_from_record
     from photon_ml_tpu_torch.transformers.game_transformer import CoordinateScoringSpec, GameTransformer
     from photon_ml_tpu_torch.types import TaskType
     from photon_ml_tpu_torch.utils import faults, telemetry
 
-    def launches():
-        return {**sk.LAUNCHES, **glm_kernels.LAUNCHES, "rank_sum": pmesh.LAUNCHES["rank_sum"]}
-
-    def reset():
-        sk.reset_launch_counts()
-        glm_kernels.reset_launch_counts()
-        pmesh.LAUNCHES["rank_sum"] = 0
-
+    launches, reset = serving_launches, reset_serving_launches
     tol = PORT_TOLERANCES["convert_scores"]
     best = os.path.join(root, "drivers", "train", "models", "best")
     shards = {"g": FeatureShardConfig(("features",), True)}
@@ -1916,25 +1964,12 @@ def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dens
 
     # ---- the driver: cli.serve on 100,000 rows of 3g's validation file + unseen ids ---------
     replay_dir = os.path.join(work, "serve-requests")
-    os.makedirs(replay_dir)
-    ip = val["indptr"]
-    n = SERVE_REPLAY_ROWS
-    names = [f"f{i}" for i in range(E2E_D)]
-    write_training_examples_columnar(os.path.join(replay_dir, "part-0.avro"), val["labels"][:n], ip[:n + 1],
-                                     val["ids"][:ip[n]], val["vals"][:ip[n]], names,
-                                     int_tags={"userId": val["users"][:n], "movieId": val["movies"][:n]})
-    m = SERVE_UNSEEN
-    write_training_examples_columnar(os.path.join(replay_dir, "part-1.avro"), val["labels"][n:n + m],
-                                     ip[n:n + m + 1] - ip[n], val["ids"][ip[n]:ip[n + m]],
-                                     val["vals"][ip[n]:ip[n + m]], names,
-                                     int_tags={"userId": val["users"][n:n + m] + 10_000_000,
-                                               "movieId": val["movies"][n:n + m] + 10_000_000})
+    write_serve_requests(replay_dir, val)
+    n, m = SERVE_REPLAY_ROWS, SERVE_UNSEEN
     out = os.path.join(work, "serve")
     telemetry.METRICS.reset()
     t0 = time.perf_counter()
-    summary = serve_cli.main(["--model-input-directory", best, "--requests", replay_dir,
-                              "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
-                              "--logging-level", "WARNING"])
+    summary = serve_cli.main(serve_args(best, replay_dir, out))
     serve_wall = time.perf_counter() - t0
     sv = summary["serving"]
     journal_ok, journal_errors = telemetry.validate_journal(os.path.join(out, "journal.jsonl"))
@@ -2099,6 +2134,376 @@ def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dens
     if failures:
         raise SystemExit("phase 3v failed: " + "; ".join(failures))
     return dict(path=path_launches, offline=offline_launches)
+
+
+# ---------------------------------------------------------------- phases 3q and 3mv
+
+Q_BLOCK = 2  # 3q: the block of 3e's part-0.avro it breaks
+MHV_HOSTS = 2  # 3mv: cli.serve --multihost 2, both workers on the card
+MHV_BLOCKS = 4  # its --multihost-devices-per-host (the flag's default): row blocks a matrix
+MHV_KILLED = 1  # the worker each drill SIGKILLs once its first window is durable
+# 3mv's requests: the first 12 blocks of 3v's part-0.avro (49,152 of its
+# 100,000 rows, 6 windows) and all of its part-1.avro (the 1,000 unseen
+# ids). Cut from 3v's 101,000 for the script's time limit (the whole stream
+# took 3mv 128.8 s on the card).
+MHV_SEEN_BLOCKS = 12
+
+
+def copy_blocks(src: str, dst: str, n_blocks: int) -> int:
+    """The header and the first `n_blocks` blocks of Avro file `src`,
+    copied byte for byte to `dst` (a valid container). Returns the rows."""
+    from photon_ml_tpu_torch.io import avro as avro_io
+
+    with open(src, "rb") as f:
+        data = f.read()
+    _, _, _, pos = avro_io.read_header(data, src)
+    dec = avro_io.BinaryDecoder(data, pos)
+    rows = 0
+    for _ in range(n_blocks):
+        rows += dec.read_long()
+        size = dec.read_long()
+        dec.pos += size + avro_io.SYNC_SIZE
+    with open(dst, "wb") as f:
+        f.write(data[:dec.pos])
+    return rows
+
+
+def serving_launches() -> dict:
+    """The six kernels' launch counts in this process, as 3v reads them."""
+    from photon_ml_tpu_torch.cli import serve_multihost as smh
+
+    return smh.kernel_launches()
+
+
+def reset_serving_launches() -> None:
+    from photon_ml_tpu_torch.cli import serve_multihost as smh
+
+    smh.reset_kernel_launches()
+
+
+def quarantine_phase(root: str, work: str, dev) -> dict:
+    """Phase 3q: a copy of 3e's part-0.avro with block Q_BLOCK broken (a
+    deflate block of the reserved type, or a null-codec block whose records
+    run off its end) read onto the card through the native route, against a
+    read of the clean file: the clean rows less that block's, the same ELL
+    planes and tags, `quarantined_blocks` 1. Returns the launches (none)."""
+    import os
+
+    import torch
+
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig, read_game_dataset
+    from photon_ml_tpu_torch.utils import faults, telemetry
+
+    src = os.path.join(root, "part-0.avro")
+    qdir = os.path.join(work, "quarantine")
+    os.makedirs(qdir)
+    dst = os.path.join(qdir, "part-0.avro")
+    t0 = time.perf_counter()
+    with open(src, "rb") as f:
+        data = bytearray(f.read())
+    _, codec, _, pos = avro_io.read_header(bytes(data), src)
+    dec = avro_io.BinaryDecoder(data, pos)
+    first = 0
+    for _ in range(Q_BLOCK):
+        first += dec.read_long()
+        size = dec.read_long()
+        dec.pos += size + avro_io.SYNC_SIZE
+    count, size = dec.read_long(), dec.read_long()
+    if codec == "deflate":
+        data[dec.pos] = 0x07
+    else:
+        data[dec.pos + size - 40:dec.pos + size] = b"\xff" * 40
+    with open(dst, "wb") as f:
+        f.write(bytes(data))
+    del data
+    write_s = time.perf_counter() - t0
+
+    shards = {"g": FeatureShardConfig(("features",), True)}
+    reset_serving_launches()
+    telemetry.METRICS.reset()
+    t0 = time.perf_counter()
+    clean, _ = read_game_dataset(src, shards, id_tag_fields=E2E_TAGS, device=dev)
+    clean_s = time.perf_counter() - t0
+    clean_q = faults.COUNTERS.get("quarantined_blocks")
+    t0 = time.perf_counter()
+    got, _ = read_game_dataset(dst, shards, id_tag_fields=E2E_TAGS, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    got_s = time.perf_counter() - t0
+    quarantined = faults.COUNTERS.get("quarantined_blocks") - clean_q
+    launches = serving_launches()
+    keep = np.ones(clean.num_samples, bool)
+    keep[first:first + count] = False
+    keep_t = torch.from_numpy(keep).to(dev)
+    same = dict(
+        labels=bool(torch.equal(got.labels, clean.labels[keep_t])),
+        weights=bool(torch.equal(got.weights, clean.weights[keep_t])),
+        indices=bool(torch.equal(got.shards["g"].indices, clean.shards["g"].indices[keep_t])),
+        values=bool(torch.equal(got.shards["g"].values, clean.shards["g"].values[keep_t])),
+        tags=all(bool((np.asarray(got.id_tags[t]) == np.asarray(clean.id_tags[t])[keep]).all())
+                 for t in E2E_TAGS))
+    row = dict(phase="3q", file_rows=clean.num_samples, codec=codec, broken_block=Q_BLOCK,
+               block_rows=count, rows=got.num_samples, quarantined_blocks=quarantined,
+               clean_quarantined_blocks=clean_q, ingest_path=got.ingest_timing["ingest_path"],
+               write_s=write_s, clean_read_s=clean_s, read_s=got_s, same_as_clean_less_block=same,
+               launches=launches)
+    log(json.dumps(row))
+    if (quarantined != 1 or clean_q != 0 or got.num_samples != clean.num_samples - count
+            or not all(same.values()) or not str(row["ingest_path"]).startswith("native")
+            or any(launches.values())):
+        raise SystemExit(f"phase 3q failed: {row}")
+    return launches
+
+
+def windows_of(results, window: int) -> dict:
+    """(stream position, ScoreResult) pairs -> a worker's part lines, by window."""
+    out: dict = {}
+    for i, r in results:
+        out.setdefault(i // window, []).append(dict(i=i, score=r.score, n_lost=int(r.n_lost),
+                                                    n_cold=int(r.n_cold), cold=bool(r.cold_start)))
+    return out
+
+
+def merged_answers(per_host: dict) -> dict:
+    """Every window's answer of each stream position, by serve_multihost's rule."""
+    from photon_ml_tpu_torch.cli import serve_multihost as smh
+
+    best = {}
+    for k in sorted({k for w in per_host.values() for k in w}):
+        best.update(smh.best_answers(per_host, k))
+    return best
+
+
+def serve_multihost_phase(root: str, work: str, dev) -> dict:
+    """Phase 3mv: `cli.serve --multihost 2` (4 row blocks a matrix) on 3c's
+    model and 50,152 of 3v's requests (MHV_SEEN_BLOCKS), both workers
+    sharing the card:
+    uninterrupted, with worker 1 SIGKILLed once its first window is durable
+    and no retry budget, and the same kill with a budget of one (worker 1
+    rejoins from its progress marker through `host_join`). Gates: no failed
+    request in any run; every merged answer with no lost row bit-equal to
+    3v's single-process scores; the uninterrupted and the drill's merged
+    output bit-equal to an in-process emulation on the card (two engines
+    over bundles marked host-local for hosts 0 and 1, merged by the same
+    rule; the drill's host 1 limited to the windows it wrote); the rejoin's
+    scores the uninterrupted ones; one `host_loss` line a drill and
+    `host_join` once, in the rejoin. The path's launches are the workers'
+    (each counts from its start, in its progress marker and summary; the
+    supervisor runs none), summed over every attempt of the three runs;
+    the emulation's are this process's. Returns both ("workers",
+    "emulation"): none, the serving path runs no kernel."""
+    import os
+    import shutil
+    import signal
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import serve as serve_cli
+    from photon_ml_tpu_torch.cli import serve_multihost as smh
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.io import score_store
+    from photon_ml_tpu_torch.serving import ServingEngine, load_bundle
+    from photon_ml_tpu_torch.utils import telemetry
+
+    best = os.path.join(root, "drivers", "train", "models", "best")
+    replay_dir = os.path.join(work, "serve-mh-requests")
+    os.makedirs(replay_dir)
+    seen = copy_blocks(os.path.join(work, "serve-requests", "part-0.avro"),
+                       os.path.join(replay_dir, "part-0.avro"), MHV_SEEN_BLOCKS)
+    shutil.copyfile(os.path.join(work, "serve-requests", "part-1.avro"), os.path.join(replay_dir, "part-1.avro"))
+    single = score_store.load_score_columns(os.path.join(work, "serve", "scores"))
+    by_3v = dict(zip((int(u) for u in single.uids), single.scores.tolist()))
+    # 3v's score of each request of this stream, by stream position.
+    ref = {i: by_3v[i] for i in range(seen)}
+    ref.update({seen + j: by_3v[SERVE_REPLAY_ROWS + j] for j in range(SERVE_UNSEEN)})
+    n_req = len(ref)
+    card = card_line() if dev.type == "cuda" else "cpu"
+    failures = []
+    t_phase = time.perf_counter()
+    reset_serving_launches()
+    telemetry.METRICS.reset()
+
+    def journal(path):
+        try:
+            with open(path) as f:
+                return [json.loads(line) for line in f if line.strip()]
+        except OSError:
+            return []
+
+    def run(name: str, retries: int, kill: bool) -> dict:
+        out = os.path.join(work, f"serve-mh-{name}")
+        argv = serve_args(best, replay_dir, out, "--multihost", str(MHV_HOSTS),
+                          "--multihost-devices-per-host", str(MHV_BLOCKS),
+                          *(["--device", "cpu"] if dev.type == "cpu" else []))
+        before = os.environ.get("PHOTON_HOST_LOSS_RETRIES")
+        os.environ["PHOTON_HOST_LOSS_RETRIES"] = str(retries)
+        done, errors = [], []
+
+        def supervise():
+            try:
+                done.append(serve_cli.main(argv))
+            except BaseException as exc:  # re-raised below
+                errors.append(exc)
+
+        sup = threading.Thread(target=supervise)
+        killed_at = None
+        t0 = time.perf_counter()
+        try:
+            sup.start()
+            host_dir = os.path.join(out, "hosts", f"attempt0-host{MHV_KILLED}")
+            while kill and sup.is_alive():
+                if os.path.exists(os.path.join(host_dir, "progress")):
+                    with open(os.path.join(host_dir, "pid")) as f:
+                        os.kill(int(f.read()), signal.SIGKILL)
+                    killed_at = time.time()
+                    break
+                time.sleep(0.002)
+            sup.join()
+        finally:
+            if before is None:
+                os.environ.pop("PHOTON_HOST_LOSS_RETRIES", None)
+            else:
+                os.environ["PHOTON_HOST_LOSS_RETRIES"] = before
+        wall = time.perf_counter() - t0
+        if errors:
+            raise SystemExit(f"phase 3mv: the {name} run's supervisor failed: {errors[0]!r}")
+        if kill and killed_at is None:
+            raise SystemExit(f"phase 3mv: the {name} run ended before worker {MHV_KILLED} could be killed")
+        summary = done[0]
+        mh = summary["multihost"]
+        per_host = {h: smh._collect_parts(out, h, mh["attempts"][str(h)] - 1) for h in range(MHV_HOSTS)}
+        answers = merged_answers(per_host)
+        cols = score_store.load_score_columns(os.path.join(out, "scores"))
+        scores = dict(zip((int(u) for u in cols.uids), cols.scores.tolist()))
+        workers = []
+        # Each attempt's launches: its summary's, or, for a killed worker,
+        # those of its last progress marker (None if it wrote neither).
+        launches = {}
+        for entry in mh["attempt_log"]:
+            host_dir = smh._host_dir(out, entry["attempt"], entry["host"])
+            path = os.path.join(host_dir, "worker-summary.json")
+            key = f"attempt{entry['attempt']}-host{entry['host']}"
+            if not os.path.exists(path):
+                marker = os.path.join(host_dir, "progress")
+                if os.path.exists(marker):
+                    with open(marker) as f:
+                        launches[key] = json.load(f)["launches"]
+                else:
+                    launches[key] = None
+                continue
+            with open(path) as f:
+                w = json.load(f)
+            launches[key] = w["launches"]
+            workers.append(dict(host=w["host"], attempt=w["attempt"], device=w["device"], **w["timings_s"],
+                                p50_ms=w["serving"]["p50_ms"], p99_ms=w["serving"]["p99_ms"],
+                                qps=w["serving"]["qps"], owned_rows=w["owned_rows"],
+                                owned_shards=w["owned_shards"],
+                                first_window_s=w["first_window_at"] - entry["started_at"]))
+        killed = [e for e in mh["attempt_log"] if e["host"] == MHV_KILLED and e["attempt"] == 0]
+        rejoined = [e for e in mh["attempt_log"] if e["host"] == MHV_KILLED and e["attempt"] == 1]
+        events = journal(os.path.join(out, "journal.jsonl"))
+        joins = sum(e["type"] == "host_join" for p in range(1, 3)
+                    for e in journal(os.path.join(smh._host_dir(out, p, MHV_KILLED), "journal.jsonl")))
+        kept = [i for i, a in answers.items() if a["n_lost"] == 0]
+        return dict(
+            name=name, out=out, summary=summary, per_host=per_host, answers=answers, scores=scores,
+            launches=launches,
+            row=dict(
+                phase="3mv", run=name, retries=retries, wall_s=wall, num_requests=summary["num_requests"],
+                failed_requests=summary["failed_requests"], fe_only_answers=mh["fe_only_answers"],
+                degraded_cold_answers=mh["degraded_cold_answers"], no_loss_share=len(kept) / max(1, len(answers)),
+                host_losses=mh["host_losses"], rejoins=mh["rejoins"], attempts=mh["attempts"],
+                survivor_hosts=mh["survivor_hosts"], owned_rows=mh["owned_rows"],
+                killed_after_windows=len(per_host[MHV_KILLED]) if kill and not rejoined else None,
+                kill_to_exit_s=(killed[0]["ended_at"] - killed_at) if kill and killed else None,
+                relaunch_to_first_window_s=next((w["first_window_s"] for w in workers
+                                                 if w["host"] == MHV_KILLED and w["attempt"] == 1), None),
+                relaunch_resume_window=rejoined[0]["resume_window"] if rejoined else None,
+                host_loss_lines=sum(e["type"] == "host_loss" for e in events), host_join_lines=joins,
+                merged_equals_best_answers=all(scores.get(i) == float(a["score"]) for i, a in answers.items())
+                and len(scores) == len(answers),
+                no_loss_answers_differing_from_3v=sum(scores[i] != ref[i] for i in kept),
+                workers=workers, worker_launches=launches, card=card))
+
+    runs = {name: run(name, retries, kill) for name, retries, kill in
+            (("uninterrupted", 0, False), ("kill", 0, True), ("rejoin", 1, True))}
+
+    # ---- the in-process emulation on the card ----------------------------------------------
+    t0 = time.perf_counter()
+    shard_configs = dict([parse_feature_shard_config(E2E_SHARD)])
+    emulated = {}
+    for host in range(MHV_HOSTS):
+        bundle = load_bundle(best, device=dev, row_blocks=MHV_BLOCKS)
+        smh._mark_host_local(bundle, host, MHV_HOSTS)
+        if host == 0:
+            reqs = list(serve_cli._iter_avro_requests(replay_dir, bundle, shard_configs, [0]))
+        with ServingEngine(bundle) as engine:
+            engine.warmup()
+            results = []
+            for lo in range(0, len(reqs), engine.max_batch):
+                results.extend(enumerate(engine.score_batch(reqs[lo:lo + engine.max_batch]), lo))
+        emulated[host] = windows_of(results, serve_cli.REPLAY_WINDOW)
+        bundle.release()
+    emulation_s = time.perf_counter() - t0
+    whole = merged_answers(emulated)
+    drill_windows = set(runs["kill"]["per_host"][MHV_KILLED])
+    partial = merged_answers({0: emulated[0], MHV_KILLED: {k: v for k, v in emulated[MHV_KILLED].items()
+                                                         if k in drill_windows}})
+
+    def differing(run_, want):
+        got = run_["answers"]
+        return sum(i not in got or got[i]["score"] != a["score"] or got[i]["n_lost"] != a["n_lost"]
+                   for i, a in want.items()) + len(set(got) - set(want))
+
+    emulation_launches = serving_launches()
+    unread = [f"{name} {key}" for name, r in runs.items() for key, ln in r["launches"].items() if ln is None]
+    path_launches = {k: sum(ln[k] for r in runs.values() for ln in r["launches"].values() if ln is not None)
+                     for k in emulation_launches}
+    emulation = dict(phase="3mv-emulation", requests=len(reqs), emulation_s=emulation_s,
+                     uninterrupted_answers_differing=differing(runs["uninterrupted"], whole),
+                     kill_answers_differing=differing(runs["kill"], partial),
+                     rejoin_scores_differing_from_uninterrupted=sum(
+                         runs["rejoin"]["scores"][i] != s for i, s in runs["uninterrupted"]["scores"].items()),
+                     no_loss_share_emulated=sum(a["n_lost"] == 0 for a in whole.values()) / len(whole),
+                     launches=emulation_launches, card=card)
+    for r in runs.values():
+        log(json.dumps(r["row"]))
+    log(json.dumps(emulation))
+
+    for name, r in runs.items():
+        row = r["row"]
+        if (row["failed_requests"] or row["num_requests"] != n_req or not row["merged_equals_best_answers"]
+                or row["no_loss_answers_differing_from_3v"]):
+            failures.append(f"{name}: {row['failed_requests']} failed of {row['num_requests']}, merged = best "
+                            f"{row['merged_equals_best_answers']}, {row['no_loss_answers_differing_from_3v']} "
+                            "no-loss answers differ from 3v")
+    u, k, j = (runs[n]["row"] for n in ("uninterrupted", "kill", "rejoin"))
+    if (u["host_losses"], u["host_loss_lines"], u["survivor_hosts"]) != (0, 0, MHV_HOSTS):
+        failures.append(f"uninterrupted: {u['host_losses']} losses, {u['survivor_hosts']} survivors")
+    if (k["host_losses"], k["host_loss_lines"], k["host_join_lines"], k["survivor_hosts"], k["rejoins"]) \
+            != (1, 1, 0, MHV_HOSTS - 1, 0) or not k["fe_only_answers"] > u["fe_only_answers"]:
+        failures.append(f"kill drill: {k['host_losses']} losses, {k['host_loss_lines']} host_loss lines, "
+                        f"{k['host_join_lines']} host_join, FE-only {k['fe_only_answers']}")
+    if (j["host_losses"], j["host_loss_lines"], j["host_join_lines"], j["survivor_hosts"], j["rejoins"]) \
+            != (1, 1, 1, MHV_HOSTS, 1):
+        failures.append(f"rejoin drill: {j['host_losses']} losses, {j['host_loss_lines']} host_loss lines, "
+                        f"{j['host_join_lines']} host_join, {j['survivor_hosts']} survivors")
+    if emulation["uninterrupted_answers_differing"] or emulation["kill_answers_differing"] \
+            or emulation["rejoin_scores_differing_from_uninterrupted"]:
+        failures.append(f"against the emulation: {emulation}")
+    if unread:
+        failures.append(f"no launch count from worker attempt(s) {unread}")
+    if any(path_launches.values()) or any(emulation_launches.values()):
+        failures.append(f"the serving path launched a kernel: workers {path_launches}, "
+                        f"emulation {emulation_launches}")
+    log(json.dumps(dict(phase="3mv", wall_s=time.perf_counter() - t_phase, worker_launches=path_launches,
+                        ok=not failures)))
+    if failures:
+        raise SystemExit("phase 3mv failed: " + "; ".join(failures))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"workers": path_launches, "emulation": emulation_launches}
 
 
 def small_estimator_fits(where: str, a: dict, n_train: int) -> dict:
@@ -4912,7 +5317,7 @@ def main(argv=None) -> int:
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3g, 3x, 3m, 3t, 3w, 3v",
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3g, 3x, 3m, 3t, 3w, 3v, 3q, 3mv",
                                     e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
@@ -4941,7 +5346,9 @@ def main(argv=None) -> int:
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
                                 "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
                                 "5c": driver_launches["dense"][k], "3o": launches3o[k],
-                                "3w": e2e_launches["3w"]["dense"][k], "3v": e2e_launches["3v"]["path"][k]},
+                                "3w": e2e_launches["3w"]["dense"][k], "3v": e2e_launches["3v"]["path"][k],
+                                "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
+                                "3mv-emulation": e2e_launches["3mv"]["emulation"][k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
@@ -4966,7 +5373,9 @@ def main(argv=None) -> int:
                                 "3k+5k+3o": e2e_launches["3k"][k], "3g": e2e_launches["3g"][k],
                                 "5g": legacy_launches[k], "3x": e2e_launches["3x"][k],
                                 "3t": e2e_launches["3t"][k], "3w": e2e_launches["3w"]["sparse"][k],
-                                "3v": e2e_launches["3v"]["path"][k], "3m": e2e_launches["3m"]["sparse"][k]},
+                                "3v": e2e_launches["3v"]["path"][k], "3m": e2e_launches["3m"]["sparse"][k],
+                                "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
+                                "3mv-emulation": e2e_launches["3mv"]["emulation"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
@@ -4985,7 +5394,9 @@ def main(argv=None) -> int:
              replaces=DIST_REPLACES[k], launches=dist_launches[k],
              launches_by_phase={"3d+4d": dist_launches[k], "3e-d": e2e_launches["3e-d"][k],
                                 "3w": e2e_launches["3w"]["dense"][k],
-                                "3v": e2e_launches["3v"]["path"][k]},
+                                "3v": e2e_launches["3v"]["path"][k], "3q": e2e_launches["3q"][k],
+                                "3mv": e2e_launches["3mv"]["workers"][k],
+                                "3mv-emulation": e2e_launches["3mv"]["emulation"][k]},
              rank_sum_launches=sum(rank_sums.values()), rank_sum_launches_by_phase=rank_sums,
              **dist_rows[k])
         for k in DIST_REPLACES

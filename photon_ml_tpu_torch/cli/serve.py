@@ -16,11 +16,18 @@ Requests are JSON lines (`.json`/`.jsonl`: {"uid", "offset", "ids":
 "values"} | [dense]}}) or Avro records of the training data's shape (a file
 or a part-file directory; needs `--feature-shard-configurations`). A
 request that cannot be encoded or scored costs its own record, counted.
-The Avro reader is strict: a corrupt block raises.
+The Avro replay reads with quarantine, as the reference's does: a corrupt
+block costs its requests (counted in `quarantined_blocks`, which the
+summary's `robustness_counters` carries; under `--multihost`, a worker's
+count, since the supervisor reads no request), never the rest of the
+stream.
 
-`--tenant`, `--shadow`, `--labels`, `--autopilot` and `--profile` (ROADMAP
-item 10) and `--reshard-to`, `--multihost` and `--mh-*` (item 9) raise
-before anything is staged.
+`--multihost N` runs N share-nothing serving workers over the same model
+and request stream, each owning a partition of every random effect's rows,
+and merges their answers (cli/serve_multihost.py); `main` dispatches it,
+and `run` is the single-process path. `--tenant`, `--shadow`, `--labels`,
+`--autopilot` and `--profile` (ROADMAP item 10) and `--reshard-to` (item
+9) raise before anything is staged.
 
 Usage: python -m photon_ml_tpu_torch.cli.serve --help
 """
@@ -56,14 +63,14 @@ UNPORTED = {
     "autopilot": "--autopilot (closed-loop autoscaling) is ROADMAP item 10",
     "profile": "--profile (the adaptive runtime planner) is ROADMAP item 10",
     "reshard_to": "--reshard-to (live resharding of the serving store) is ROADMAP item 9",
-    "multihost": "--multihost (multi-host serving) is ROADMAP item 9",
-    "multihost_devices_per_host": "--multihost-devices-per-host (multi-host serving) is ROADMAP item 9",
-    "mh_serve_worker": "--mh-serve-worker (multi-host serving) is ROADMAP item 9",
-    "mh_host_id": "--mh-host-id (multi-host serving) is ROADMAP item 9",
-    "mh_num_hosts": "--mh-num-hosts (multi-host serving) is ROADMAP item 9",
-    "mh_attempt": "--mh-attempt (multi-host serving) is ROADMAP item 9",
-    "mh_resume_window": "--mh-resume-window (multi-host serving) is ROADMAP item 9",
 }
+
+
+def refuse_unported(args) -> None:
+    """Raise for the first flag of a part the port has not got."""
+    for key, message in UNPORTED.items():
+        if getattr(args, key, None) not in (None, False):
+            raise NotImplementedError(message)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,11 +100,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-id", default=None, help="model id tag written into every score record")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu; cuda with no card raises")
     p.add_argument("--logging-level", default="INFO")
+    p.add_argument("--multihost", type=int, default=0, metavar="N",
+                   help="multi-host production serving: N share-nothing OS-process hosts, each "
+                        "staging only its own partition of every random-effect coordinate's rows "
+                        "(host-local stores); a host killed mid-replay costs fidelity (its rows "
+                        "answer FE-only through the survivors), never a failed request, and "
+                        "rejoins by restaging its partition")
+    p.add_argument("--multihost-devices-per-host", type=int, default=4, metavar="M",
+                   help="the per-host shard count of each coordinate's store (a worker of the "
+                        "port drives one device and cuts each random-effect matrix into M row "
+                        "blocks on it); only meaningful with --multihost")
+    # Plumbing between the multi-host supervisor and its workers.
+    p.add_argument("--mh-serve-worker", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--mh-host-id", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--mh-num-hosts", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--mh-attempt", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--mh-resume-window", type=int, default=0, help=argparse.SUPPRESS)
     for flag, kind in (("--tenant", "append"), ("--shadow", None), ("--labels", None),
-                       ("--autopilot", "store_true"), ("--profile", None), ("--reshard-to", int),
-                       ("--multihost", int), ("--multihost-devices-per-host", int),
-                       ("--mh-serve-worker", "store_true"), ("--mh-host-id", int),
-                       ("--mh-num-hosts", int), ("--mh-attempt", int), ("--mh-resume-window", int)):
+                       ("--autopilot", "store_true"), ("--profile", None), ("--reshard-to", int)):
         if kind in ("append", "store_true"):
             p.add_argument(flag, action=kind, default=None, help=argparse.SUPPRESS)
         else:
@@ -139,15 +159,15 @@ def _iter_avro_requests(path: str, bundle: ServingBundle, shard_configs,
                         malformed: List[int]) -> Iterator[ScoreRequest]:
     from photon_ml_tpu_torch.io import avro as avro_io
 
-    for p in avro_io.list_container_files(path):
-        for _, rec in avro_io.iter_container(p):
-            try:
-                req = request_from_record(bundle, rec, shard_configs)
-            except Exception as exc:  # one malformed record costs one record
-                malformed[0] += 1
-                logger.warning("skipping malformed replay record in %s: %s", p, exc)
-                continue
-            yield req
+    # One corrupt block costs its requests (counted), not the stream.
+    for _, rec in avro_io.iter_directory(path, quarantine=True):
+        try:
+            req = request_from_record(bundle, rec, shard_configs)
+        except Exception as exc:  # one malformed record costs one record
+            malformed[0] += 1
+            logger.warning("skipping malformed replay record in %s: %s", path, exc)
+            continue
+        yield req
 
 
 def _write_score_part(scores_dir: str, k: int, results, model_id: str) -> str:
@@ -171,9 +191,10 @@ def run(args) -> Dict[str, object]:
     logging.basicConfig(level=getattr(logging, args.logging_level.upper(), logging.INFO),
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     # Refusals and argument checks come before anything is staged.
-    for key, message in UNPORTED.items():
-        if getattr(args, key, None) not in (None, False):
-            raise NotImplementedError(message)
+    if getattr(args, "multihost", 0) or getattr(args, "mh_serve_worker", False):
+        raise ValueError("--multihost serving dispatches in serve.main(); run() is the "
+                         "single-process path")
+    refuse_unported(args)
     if not args.model_input_directory:
         raise ValueError("--model-input-directory is required")
     is_json = args.requests.endswith((".json", ".jsonl"))
@@ -295,8 +316,20 @@ def _run_with_bundle(args, bundle: ServingBundle, shard_configs, is_json: bool) 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Parse `argv` (default: the process's) and run; returns the summary
-    written to serving-summary.json."""
-    return run(build_parser().parse_args(sys.argv[1:] if argv is None else argv))
+    written to serving-summary.json. `--multihost N` runs the multi-host
+    supervisor; `--mh-serve-worker` (the supervisor's workers) runs one
+    serving host and exits with its code."""
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(raw_argv)
+    if args.mh_serve_worker:
+        from photon_ml_tpu_torch.cli import serve_multihost
+
+        raise SystemExit(serve_multihost.run_worker(args))
+    if args.multihost:
+        from photon_ml_tpu_torch.cli import serve_multihost
+
+        return serve_multihost.run_supervisor(args, raw_argv)
+    return run(args)
 
 
 if __name__ == "__main__":

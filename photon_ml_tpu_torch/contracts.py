@@ -208,11 +208,12 @@ JOURNAL_EVENT_SCHEMAS = {
     # The hyperparameter sweep's lifecycle (hyperparameter/sweep.py, cli/tune.py).
     "trial_start": ("round", "trial", "mode"),
     "trial_finish": ("round", "trial", "mode", "seconds", "value", "diverged_steps"),
-    # Checkpoints, ranks and the multi-host supervisor (game/coordinate_descent.py,
-    # parallel/hostmesh.py).
+    # Checkpoints, ranks and the multi-host supervisors (game/coordinate_descent.py,
+    # parallel/hostmesh.py, cli/serve_multihost.py).
     "checkpoint": ("step", "coordinate"),
     "mesh_loss": ("iteration", "coordinate", "surviving_devices", "source"),
     "host_loss": ("host", "missed_beats", "num_hosts", "source"),
+    "host_join": ("host", "num_hosts", "restaged_rows"),
     "multihost_barrier": ("name", "host", "num_hosts", "seconds"),
 }
 

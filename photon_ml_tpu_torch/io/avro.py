@@ -11,18 +11,23 @@ bytes/strings, block-encoded arrays/maps, index-prefixed unions, and the
 Schemas are plain Python dicts in Avro JSON form (see
 photon_ml_tpu_torch.io.schemas); data values are plain dicts/lists/scalars.
 This is a host-side ETL path — device code never sees Avro. The port's own
-copy of `photon_ml_tpu/io/avro.py`, strict only: a corrupt block raises.
+copy of `photon_ml_tpu/io/avro.py`. Reads are strict by default (a corrupt
+block raises); row-shaped reads (training ingest, request replay) pass
+`quarantine=True`, which skips and counts a corrupt block.
 """
 
 from __future__ import annotations
 
 import io
 import json
+import logging
 import math
 import os
 import struct
 import zlib
 from typing import Any, BinaryIO, Dict, Iterable, List, Optional, Union
+
+logger = logging.getLogger(__name__)
 
 Schema = Union[str, dict, list]
 
@@ -390,11 +395,11 @@ def list_container_files(path: str) -> List[str]:
     ]
 
 
-def read_container(path: str) -> tuple[Schema, List[Any]]:
+def read_container(path: str, *, quarantine: bool = False) -> tuple[Schema, List[Any]]:
     """Read every record from an Avro object container file."""
     records: List[Any] = []
     schema = None
-    for schema, rec in iter_container(path):
+    for schema, rec in iter_container(path, quarantine=quarantine):
         records.append(rec)
     if schema is None:  # empty container: still surface the schema
         with open(path, "rb") as f:
@@ -403,13 +408,24 @@ def read_container(path: str) -> tuple[Schema, List[Any]]:
     return schema, records
 
 
-def iter_container(path: str):
+def iter_container(path: str, *, quarantine: bool = False):
     """Stream (schema, record) pairs from an Avro container, decoding one
     block at a time: only a single block's decoded records are ever live
     (the file BYTES are read whole, but those are compact; the decoded
-    Python dicts are the memory cost). A block that fails its sync-marker
-    check, inflate, or datum decode raises a ValueError naming the file and
-    the block's byte offset."""
+    Python dicts are the memory cost).
+
+    By default a block that fails its framing, sync-marker check, inflate,
+    or datum decode raises a ValueError naming the file and the block's
+    byte offset. With `quarantine=True` such a block is skipped whole: the
+    reader re-synchronizes at the next sync marker, counts the block in
+    COUNTERS["quarantined_blocks"] and streams on; a torn tail block is
+    skipped the same way. A file whose every block is bad still raises,
+    and so does an unknown codec (a file-level fault, never quarantined).
+    Quarantine is for row-shaped data, where a lost block costs rows
+    (request replay, training ingest); model, score and checkpoint reads
+    keep the strict default."""
+    from photon_ml_tpu_torch.utils.faults import COUNTERS
+
     with open(path, "rb") as f:
         data = f.read()
     schema, codec, sync, pos = read_header(data, path)
@@ -419,6 +435,8 @@ def iter_container(path: str):
     names = _Names()
     _collect_names(schema, names)
 
+    total_blocks = good_blocks = 0
+    first_error: Optional[Exception] = None
     while dec.remaining > 0:
         block_start = dec.pos
         try:
@@ -438,11 +456,50 @@ def iter_container(path: str):
             # through must not hand a consumer half its records first.
             records = [read_datum(bdec, schema, names) for _ in range(count)]
         except Exception as exc:
-            raise ValueError(
-                f"{path}: corrupt block at byte {block_start} ({exc})"
-            ) from exc
+            if not quarantine:
+                raise ValueError(
+                    f"{path}: corrupt block at byte {block_start} ({exc})"
+                ) from exc
+            total_blocks += 1
+            first_error = first_error or exc
+            COUNTERS.increment("quarantined_blocks")
+            logger.warning("%s: quarantined corrupt block at byte %d (%s)", path, block_start, exc)
+            # The next sync marker past the block's start is the next block
+            # boundary; none left means the tail is unreadable.
+            nxt = data.find(sync, block_start + 1)
+            if nxt < 0:
+                break
+            dec.pos = nxt + SYNC_SIZE
+            continue
+        total_blocks += 1
+        good_blocks += 1
         for rec in records:
             yield schema, rec
+    if total_blocks and good_blocks == 0:
+        raise ValueError(
+            f"{path}: all {total_blocks} block(s) are corrupt (first error: {first_error})"
+        )
+
+
+def read_directory(path: str, *, quarantine: bool = False) -> tuple[Optional[Schema], List[Any]]:
+    """Every record of the .avro part files under a directory (or of one
+    file), in `list_container_files` order, and the first file's schema."""
+    if os.path.isfile(path):
+        return read_container(path, quarantine=quarantine)
+    schema = None
+    records: List[Any] = []
+    for part in list_container_files(path):
+        s, recs = read_container(part, quarantine=quarantine)
+        schema = schema or s
+        records.extend(recs)
+    return schema, records
+
+
+def iter_directory(path: str, *, quarantine: bool = False):
+    """Stream (schema, record) pairs across every .avro part file under a
+    directory (or one file), in `list_container_files` order."""
+    for part in list_container_files(path):
+        yield from iter_container(part, quarantine=quarantine)
 
 
 def part_file_sizes(n_records: int, records_per_file: int) -> List[int]:

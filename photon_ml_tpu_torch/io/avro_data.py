@@ -10,10 +10,12 @@ data, or supplied (then unseen features are dropped).
 The route is decided before anything is decoded: when every file's schema
 compiles to a native op program, the native decoder reads them
 (io/avro_fast.py, `ingest_path` "native" or "native-stream"); otherwise the
-Python codec does, in chunks of `PYTHON_CHUNK_ROWS` records ("python"). A
-decode error raises on either route; nothing falls back. Every read records
-its stage times in `dataset.ingest_timing` (contracts.INGEST_TIMING_
-REQUIRED_KEYS).
+Python codec does, in chunks of `PYTHON_CHUNK_ROWS` records ("python").
+Both routes read with quarantine, as the reference's ingest does: a corrupt
+block costs its rows, is counted in `quarantined_blocks`, and the read goes
+on; a file with no good block raises. Nothing falls back to another route.
+Every read records its stage times in `dataset.ingest_timing`
+(contracts.INGEST_TIMING_REQUIRED_KEYS).
 """
 
 from __future__ import annotations
@@ -197,7 +199,7 @@ def distinct_feature_keys(paths: Sequence[str], bags: Sequence[str]) -> Dict[str
                         out[bag].add(feature_key(f["name"], f.get("term", "") or ""))
         return out
     asm = avro_fast._IngestAssembler(len(bag_list))
-    avro_fast._decode_all(compiled, asm, StageTimes())
+    avro_fast._decode_all(compiled, asm, StageTimes(), quarantine=False)
     bag_gkeys = asm.finalize()[4]
     keys = np.asarray(asm.key_list, dtype=object)
     return {b: set(keys[np.unique(bag_gkeys[i])].tolist()) for i, b in enumerate(bag_list)}
@@ -216,9 +218,11 @@ def _read_python_chunked(
     records are resident one chunk at a time."""
 
     def _records():
-        # A corrupt block raises, as on the native route.
+        # Training ingest is row-shaped: a corrupt block costs its rows
+        # (counted in quarantined_blocks), not the file, as on the native
+        # route.
         for p in files:
-            for _, rec in avro_io.iter_container(p):
+            for _, rec in avro_io.iter_container(p, quarantine=True):
                 yield rec
 
     def _get(rec: dict, field: str, default: float) -> float:

@@ -6,8 +6,14 @@ assembles columns: index maps, CSR merges, ELL packing. `compile_native`
 decides the route before anything is decoded: it compiles every file's
 schema into a native op program, or returns None when one cannot be
 expressed, and the caller then reads all files with the Python codec. Once
-the route is native, a file the decoder rejects raises; nothing is retried
-on another route.
+the route is native, nothing is retried on another route: training ingest
+decodes with quarantine, so the native decoder itself skips and counts a
+corrupt block (`quarantined_blocks`), as the Python codec's quarantined
+read does, and a file whose every block is bad raises. Each file's read
+and decode runs under the `decode` fault site with bounded retry of
+transient failures, the whole file re-read on each attempt; once the
+retries are spent the read raises, naming the file (the reference falls
+back to its Python codec there).
 
 Files decode on a thread pool (ctypes releases the GIL, and each file's
 decode threads over its blocks) and the assembler consumes them in file
@@ -22,6 +28,7 @@ ported: the port builds its sparse layout on the device from the ELL planes
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -34,6 +41,9 @@ from photon_ml_tpu_torch.data.index_map import DELIMITER, IndexMap
 from photon_ml_tpu_torch.io import avro as avro_io
 from photon_ml_tpu_torch.native import avro_reader
 from photon_ml_tpu_torch.timing import StageTimes
+from photon_ml_tpu_torch.utils import faults
+
+logger = logging.getLogger(__name__)
 
 _HEADER_PROBE = 1 << 20
 
@@ -193,7 +203,35 @@ class _IngestAssembler:
         return labels, offsets, weights, bag_indptr, bag_gkeys, bag_vals
 
 
-def _decode_all(compiled: Sequence[CompiledFile], asm: _IngestAssembler, times: StageTimes) -> bool:
+def decode_file(c: CompiledFile, n_threads: int, quarantine: bool) -> avro_reader.DecodedFile:
+    """One file's read and native decode under the `decode` fault site,
+    retried on transient failures (the whole file re-read each attempt, so
+    a torn read never leaks into a retry). A corrupt block raises at once,
+    or is quarantined and counted; spent retries raise, naming the file."""
+
+    def attempt() -> avro_reader.DecodedFile:
+        faults.fault_point("decode")
+        with open(c.path, "rb") as f:
+            data = f.read()
+        return avro_reader.decode_file_native(
+            data, c.body_start, c.codec, c.sync, c.program, DELIMITER,
+            n_threads=n_threads, path=c.path, quarantine=quarantine)
+
+    try:
+        out = faults.retry(attempt, label=f"avro decode {c.path}")
+    except ValueError:
+        raise  # a file the decoder rejects: it names the file already
+    except Exception as exc:
+        raise RuntimeError(f"{c.path}: Avro read and decode failed after its retries "
+                           f"({exc!r})") from exc
+    if out.quarantined_blocks:
+        faults.COUNTERS.increment("quarantined_blocks", out.quarantined_blocks)
+        logger.warning("%s: quarantined %d corrupt block(s)", c.path, out.quarantined_blocks)
+    return out
+
+
+def _decode_all(compiled: Sequence[CompiledFile], asm: _IngestAssembler, times: StageTimes, *,
+                quarantine: bool) -> bool:
     """Decode every file into the assembler, in file order; returns whether
     the decode was streamed (several files on a thread pool)."""
     budget = avro_reader.default_threads()
@@ -201,11 +239,7 @@ def _decode_all(compiled: Sequence[CompiledFile], asm: _IngestAssembler, times: 
     def decode(c: CompiledFile, n_threads: int) -> avro_reader.DecodedFile:
         t0 = time.perf_counter()
         try:
-            with open(c.path, "rb") as f:
-                data = f.read()
-            return avro_reader.decode_file_native(
-                data, c.body_start, c.codec, c.sync, c.program, DELIMITER,
-                n_threads=n_threads, path=c.path)
+            return decode_file(c, n_threads, quarantine)
         finally:
             times.record("decode", time.perf_counter() - t0)
 
@@ -244,11 +278,12 @@ def read_native(
     uid_tag: str,
     times: StageTimes,
 ):
-    """Decode and assemble: (shards as CPU ELL `SparseFeatures`, labels,
-    offsets, weights, id_tags, tag_codes, index maps)."""
+    """Decode (corrupt blocks quarantined) and assemble: (shards as CPU ELL
+    `SparseFeatures`, labels, offsets, weights, id_tags, tag_codes, index
+    maps)."""
     bag_names = bag_names_of(shard_configs)
     asm = _IngestAssembler(len(bag_names))
-    streaming = _decode_all(compiled, asm, times)
+    streaming = _decode_all(compiled, asm, times, quarantine=True)
     times.note("ingest_path", "native-stream" if streaming else "native")
     times.note("chunks", str(asm.n_files))
     times.note("streaming", "1" if streaming else "0")

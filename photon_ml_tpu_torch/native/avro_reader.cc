@@ -22,7 +22,9 @@
 // compiles it into a flat op program; this file never interprets schema
 // JSON. A schema the program cannot express is read by the Python codec,
 // a route the caller picks before decoding; a file this decoder rejects is
-// an error, never retried on another route.
+// an error, never retried on another route. In quarantine mode the decoder
+// itself skips a corrupt block whole and counts it, as the Python codec's
+// quarantined read does.
 //
 // Op stream (int32), each op self-delimiting:
 //   1 NUM_COL   target nb k...   union-typed numeric -> label/offset/weight
@@ -56,6 +58,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <memory>
 #include <string>
 #include <thread>
 #include <vector>
@@ -265,6 +268,16 @@ struct Interner {
     if (size() * 2 > mask) grow();
     return id;
   }
+  // Forget every id >= n (the keys a quarantined block interned). Ids are
+  // assigned in insertion order and grow() re-inserts in id order, so no
+  // probe chain of a kept id passes through a slot of a forgotten one.
+  void truncate(size_t n) {
+    if (n >= size()) return;
+    bytes.resize((size_t)offsets[n]);
+    offsets.resize(n + 1);
+    for (auto& s : slots)
+      if (s >= (int32_t)n) s = -1;
+  }
   void grow() {
     size_t nm = (mask + 1) * 2;
     std::vector<int32_t> ns(nm, -1);
@@ -293,6 +306,40 @@ struct Result {
   Interner keys;
   Interner tag_vals;
   std::vector<int32_t> tag_ids;  // n_records * n_tags, -1 = absent
+};
+
+// The sizes of a Result before a block, so that a quarantined block can be
+// dropped whole: no record, entry, key or tag value of it survives.
+struct ResultMark {
+  size_t n_records, n_tag_ids, n_keys, n_tag_vals;
+  std::vector<size_t> indptr, entries;
+  std::vector<bool> dups;
+
+  explicit ResultMark(const Result& r)
+      : n_records(r.labels.size()),
+        n_tag_ids(r.tag_ids.size()),
+        n_keys(r.keys.size()),
+        n_tag_vals(r.tag_vals.size()) {
+    for (const auto& b : r.bags) {
+      indptr.push_back(b.indptr.size());
+      entries.push_back(b.keys.size());
+      dups.push_back(b.has_row_dups);
+    }
+  }
+  void rollback(Result& r) const {
+    r.labels.resize(n_records);
+    r.offsets.resize(n_records);
+    r.weights.resize(n_records);
+    r.tag_ids.resize(n_tag_ids);
+    r.keys.truncate(n_keys);
+    r.tag_vals.truncate(n_tag_vals);
+    for (size_t b = 0; b < r.bags.size(); ++b) {
+      r.bags[b].indptr.resize(indptr[b]);
+      r.bags[b].keys.resize(entries[b]);
+      r.bags[b].vals.resize(entries[b]);
+      r.bags[b].has_row_dups = dups[b];
+    }
+  }
 };
 
 // One feature-array item; appends (key id, value) to the bag.
@@ -760,28 +807,53 @@ struct BlockInfo {
   int64_t count;
 };
 
+// The next occurrence of the 16-byte sync marker in [from, end), or nullptr.
+const uint8_t* find_sync(const uint8_t* from, const uint8_t* end,
+                         const uint8_t* sync) {
+  while (end - from >= 16) {
+    const void* hit = std::memchr(from, sync[0], (size_t)(end - from) - 15);
+    if (!hit) return nullptr;
+    const uint8_t* p = (const uint8_t*)hit;
+    if (std::memcmp(p, sync, 16) == 0) return p;
+    from = p + 1;
+  }
+  return nullptr;
+}
+
 // Serial structural walk: block boundaries + sync validation only (varint
 // reads and one memcmp per block — runs at GB/s, not worth threading).
-bool scan_blocks(Reader& file, const uint8_t* sync, int codec,
-                 std::vector<BlockInfo>& out) {
-  while (file.ok && file.p < file.end) {
+// Strict, a block with bad framing or a bad sync marker fails the walk.
+// With `quarantine`, it is counted in `*bad` and the walk re-synchronizes
+// at the next sync marker past the block's start, as the Python reader
+// does (io/avro.py iter_container); no marker left ends the walk.
+bool scan_blocks(Reader& file, const uint8_t* sync, int codec, bool quarantine,
+                 std::vector<BlockInfo>& out, int64_t* bad) {
+  while (file.p < file.end) {
+    const uint8_t* block_start = file.p;
     int64_t count = file.read_long();
     int64_t size = file.read_long();
-    if (!file.ok || size < 0 || count < 0 || !file.need((size_t)size + 16))
-      return false;
     // Structural record-count bound, to keep the downstream reserve()
     // calls from attempting absurd allocations on a corrupted header (size
     // is already bounded by the real file length here, so the multiply
     // cannot overflow). Uncompressed blocks: every record is >= 1 byte.
     // Deflate blocks: a record cannot compress below 1/1032 of a byte.
-    if (count > (codec == 1 ? size * 1032 + 64 : size + 64)) return false;
-    const uint8_t* block = file.p;
-    file.p += size;
-    if (std::memcmp(file.p, sync, 16) != 0) return false;
-    file.p += 16;
-    out.push_back({block, size, count});
+    bool framed = file.ok && size >= 0 && count >= 0 &&
+                  file.need((size_t)size + 16) &&
+                  count <= (codec == 1 ? size * 1032 + 64 : size + 64) &&
+                  std::memcmp(file.p + size, sync, 16) == 0;
+    if (framed) {
+      out.push_back({file.p, size, count});
+      file.p += size + 16;
+      continue;
+    }
+    if (!quarantine) return false;
+    ++*bad;
+    const uint8_t* next = find_sync(block_start + 1, file.end, sync);
+    if (!next) break;
+    file.p = next + 16;
+    file.ok = true;
   }
-  return file.ok;
+  return true;
 }
 
 struct DecodeJob {
@@ -796,7 +868,9 @@ struct DecodeJob {
   int n_meta_tags;
   const std::string* delim;
   int codec;
+  bool quarantine;
   Result res;
+  int64_t bad = 0;  // blocks quarantined by this job
   bool ok = false;
 };
 
@@ -832,20 +906,30 @@ void run_job_impl(DecodeJob* job, std::atomic<bool>* failed) {
   for (size_t i = job->begin; i < job->end; ++i) {
     if (failed->load(std::memory_order_relaxed)) return;
     const BlockInfo& b = (*job->blocks)[i];
+    // A block that fails its inflate or its decode, or leaves trailing
+    // bytes (a mis-decoded block), fails the file; with quarantine it is
+    // dropped whole and counted, and the job goes on with the next block.
+    std::unique_ptr<ResultMark> mark;
+    if (job->quarantine) mark.reset(new ResultMark(job->res));
     Reader r{b.p, b.p + b.size};
+    bool good = true;
     if (job->codec == 1) {
-      if (!inflate_raw(b.p, (size_t)b.size, scratch)) {
+      good = inflate_raw(b.p, (size_t)b.size, scratch);
+      if (good) r = Reader{scratch.data(), scratch.data() + scratch.size()};
+    }
+    good = good &&
+           decode_block(r, b.count, job->rops, job->n_rops, job->fops,
+                        job->n_fops, job->pattern, *job->tag_names,
+                        job->n_meta_tags, *job->delim, job->res) &&
+           r.p == r.end;
+    if (!good) {
+      if (!mark) {
         failed->store(true, std::memory_order_relaxed);
         return;
       }
-      r = Reader{scratch.data(), scratch.data() + scratch.size()};
-    }
-    if (!decode_block(r, b.count, job->rops, job->n_rops, job->fops,
-                      job->n_fops, job->pattern, *job->tag_names,
-                      job->n_meta_tags, *job->delim, job->res) ||
-        r.p != r.end) {  // trailing bytes = mis-decoded block
-      failed->store(true, std::memory_order_relaxed);
-      return;
+      mark->rollback(job->res);
+      ++job->bad;
+      continue;
     }
     if (i == job->begin && span_records > 0) {
       // Extrapolate bag nnz from the first block to size the entry arrays.
@@ -881,6 +965,8 @@ struct CResult {
   int64_t n_tag_vals;
   char* tag_val_bytes;
   int64_t* tag_val_offsets;
+  int64_t n_blocks;       // blocks found, good and quarantined
+  int64_t n_quarantined;  // blocks skipped (quarantine only)
 };
 
 // malloc can fail on huge malformed inputs (a corrupted count that survived
@@ -923,7 +1009,7 @@ void* photon_avro_decode_impl(const uint8_t* data, int64_t data_len,
                               int32_t n_fops, int32_t n_bags,
                               const char* tag_names_joined, int32_t n_tags,
                               int32_t n_meta_tags, const char* delim_c,
-                              int32_t n_threads);
+                              int32_t n_threads, int32_t quarantine);
 
 }  // namespace
 
@@ -942,20 +1028,23 @@ int32_t photon_avro_has_deflate() {
 
 // Decode `data` (a whole container file already read into memory).
 // codec: 0 = null, 1 = deflate. n_threads: 0 = hardware concurrency.
-// Returns a malloc'd CResult* or nullptr on any structural error (caller
-// raises).
+// quarantine: 0 = any bad block fails the file; 1 = a bad block is skipped
+// whole and counted in n_quarantined (the caller raises when no block was
+// good). Returns a malloc'd CResult* or nullptr on any structural error
+// (caller raises).
 void* photon_avro_decode(const uint8_t* data, int64_t data_len,
                          int64_t body_start, int32_t codec,
                          const uint8_t* sync, const int32_t* rops,
                          int32_t n_rops, const int32_t* fops, int32_t n_fops,
                          int32_t n_bags, const char* tag_names_joined,
                          int32_t n_tags, int32_t n_meta_tags,
-                         const char* delim_c, int32_t n_threads) {
+                         const char* delim_c, int32_t n_threads,
+                         int32_t quarantine) {
   try {
     return photon_avro_decode_impl(data, data_len, body_start, codec, sync,
                                    rops, n_rops, fops, n_fops, n_bags,
                                    tag_names_joined, n_tags, n_meta_tags,
-                                   delim_c, n_threads);
+                                   delim_c, n_threads, quarantine);
   } catch (...) {
     return nullptr;  // bad_alloc etc.: the caller raises
   }
@@ -972,7 +1061,7 @@ void* photon_avro_decode_impl(const uint8_t* data, int64_t data_len,
                               int32_t n_fops, int32_t n_bags,
                               const char* tag_names_joined, int32_t n_tags,
                               int32_t n_meta_tags, const char* delim_c,
-                              int32_t n_threads) {
+                              int32_t n_threads, int32_t quarantine) {
   std::vector<std::string> tag_names;
   {
     const char* s = tag_names_joined;
@@ -985,7 +1074,9 @@ void* photon_avro_decode_impl(const uint8_t* data, int64_t data_len,
   std::string delim(delim_c);
   Reader file{data + body_start, data + data_len};
   std::vector<BlockInfo> blocks;
-  if (!scan_blocks(file, sync, codec, blocks)) return nullptr;
+  int64_t bad_framing = 0;
+  if (!scan_blocks(file, sync, codec, quarantine != 0, blocks, &bad_framing))
+    return nullptr;
 
   int hw = (int)std::thread::hardware_concurrency();
   int W = n_threads > 0 ? n_threads : (hw > 0 ? hw : 1);
@@ -1017,6 +1108,7 @@ void* photon_avro_decode_impl(const uint8_t* data, int64_t data_len,
       j.n_meta_tags = n_meta_tags;
       j.delim = &delim;
       j.codec = codec;
+      j.quarantine = quarantine != 0;
       j.res.bags.resize(n_bags);
     }
   }
@@ -1050,6 +1142,9 @@ void* photon_avro_decode_impl(const uint8_t* data, int64_t data_len,
   CResult* c = (CResult*)std::calloc(1, sizeof(CResult));
   if (!c) return nullptr;
   bool ok = true;
+  c->n_blocks = (int64_t)blocks.size() + bad_framing;
+  c->n_quarantined = bad_framing;
+  for (const auto& j : jobs) c->n_quarantined += j.bad;
   c->n_records = n;
   c->labels = alloc_n<double>(n, ok);
   c->offsets = alloc_n<double>(n, ok);

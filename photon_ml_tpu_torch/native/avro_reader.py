@@ -5,7 +5,8 @@ parsed Avro record schema (Python owns the type system) and emits the flat
 op stream avro_reader.cc executes; a schema it cannot express compiles to
 None, and the caller reads those files with the Python codec instead (a
 route chosen before any decoding). `decode_file_native` raises on any file
-the decoder rejects: nothing is retried on another route.
+the decoder rejects, or with `quarantine=True` skips and counts its corrupt
+blocks itself: nothing is retried on another route.
 """
 
 from __future__ import annotations
@@ -316,6 +317,8 @@ class DecodedFile:
     # twice? Duplicates are ACCUMULATED at decode time (dedup_row), so the
     # returned bags are always per-record clean regardless of this flag.
     bag_has_dups: List[bool] = dataclasses.field(default_factory=list)
+    # Corrupt blocks skipped whole (a quarantined decode; 0 when strict).
+    quarantined_blocks: int = 0
 
 
 class _CResult(ctypes.Structure):
@@ -338,6 +341,8 @@ class _CResult(ctypes.Structure):
         ("n_tag_vals", ctypes.c_int64),
         ("tag_val_bytes", ctypes.POINTER(ctypes.c_char)),
         ("tag_val_offsets", ctypes.POINTER(ctypes.c_int64)),
+        ("n_blocks", ctypes.c_int64),
+        ("n_quarantined", ctypes.c_int64),
     ]
 
 
@@ -364,6 +369,7 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int32,
             ctypes.c_int32,
             ctypes.c_char_p,
+            ctypes.c_int32,
             ctypes.c_int32,
         ]
         lib.photon_avro_free.restype = None
@@ -408,10 +414,16 @@ def decode_file_native(
     delimiter: str,
     n_threads: Optional[int] = None,
     path: str = "<bytes>",
+    quarantine: bool = False,
 ) -> DecodedFile:
     """Decode one whole container file (`data`) with `program`; raises
-    ValueError on an unsupported codec, on a deflate file when the library
-    was built without zlib, and on any block the decoder rejects."""
+    ValueError on an unsupported codec and on a deflate file when the
+    library was built without zlib. Strict (the default), any block the
+    decoder rejects raises. With `quarantine`, a block that fails its
+    framing, sync marker, inflate or decode is skipped whole (the walk
+    re-synchronizes at the next sync marker, as io/avro.iter_container
+    does) and counted in `quarantined_blocks`; a file whose every block is
+    bad still raises. Counting into the process counters is the caller's."""
     lib = _lib()
     codec_id = {"null": 0, "deflate": 1}.get(codec)
     if codec_id is None:
@@ -438,6 +450,7 @@ def decode_file_native(
         program.n_meta_tags,
         delimiter.encode("utf-8"),
         default_threads() if n_threads is None else n_threads,
+        1 if quarantine else 0,
     )
     if not handle:
         raise ValueError(f"{path}: the native Avro decoder rejected the file (a corrupt or "
@@ -445,6 +458,9 @@ def decode_file_native(
     try:
         c = ctypes.cast(handle, ctypes.POINTER(_CResult)).contents
         n = int(c.n_records)
+        n_bad, n_blocks = int(c.n_quarantined), int(c.n_blocks)
+        if n_bad and n_bad == n_blocks:
+            raise ValueError(f"{path}: all {n_blocks} block(s) are corrupt")
         out = DecodedFile(
             labels=np.ctypeslib.as_array(c.labels, shape=(n,)).copy(),
             offsets=np.ctypeslib.as_array(c.offsets, shape=(n,)).copy(),
@@ -471,6 +487,7 @@ def decode_file_native(
             )[: n * int(c.n_tags)].copy().reshape(n, int(c.n_tags)),
             tag_values=_strings(c.tag_val_bytes, c.tag_val_offsets, int(c.n_tag_vals)),
             bag_has_dups=[bool(c.bag_has_dups[b]) for b in range(c.n_bags)],
+            quarantined_blocks=n_bad,
         )
     finally:
         lib.photon_avro_free(handle)

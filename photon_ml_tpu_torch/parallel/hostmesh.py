@@ -35,9 +35,12 @@ process group (`parallel/mesh.py`) over `tcp://`.
   `rendezvous/attempt<k>/`; only the checkpoint directory lasts across
   attempts. A loss costs one repeated sweep.
 
+- `restage_host_rows()` is the rejoin of a lost multi-host serving worker
+  (cli/serve_multihost.py): the `host_join` fault site gates it, and it
+  journals `host_join`.
+
 Not here: `replicate_dataset_global` and `shard_random_effect_global` (the
-port lays out its rows with `parallel/mesh.shard_game_dataset`) and
-`restage_host_rows` (multi-host serving).
+port lays out its rows with `parallel/mesh.shard_game_dataset`).
 """
 
 from __future__ import annotations
@@ -361,6 +364,20 @@ class HostHeartbeat:
                              num_hosts=self.hm.num_hosts, source=source)
         self.on_loss(HostLoss(f"host {host} lost ({source}: {missed} stalled heartbeat periods) "
                               f"out of {self.hm.num_hosts} hosts"))
+
+
+# ----------------------------------------------------------- serving rejoin
+
+
+def restage_host_rows(host_id: int, num_hosts: int, restaged_rows: int) -> int:
+    """A lost serving host rejoining the fleet restages its row partition
+    from the artifact. The `host_join` fault site gates the restage: an
+    injected failure raises, and the fleet stays as it was (the host's rows
+    keep answering FE-only through the survivors). Journals `host_join` on
+    success and returns the rows restaged."""
+    faults.fault_point("host_join")
+    telemetry.emit_event("host_join", host=host_id, num_hosts=num_hosts, restaged_rows=restaged_rows)
+    return restaged_rows
 
 
 # --------------------------------------------------------------- checkpoint

@@ -20,7 +20,14 @@ bundle's device, so `restage_shard` may write rows in place (the engine's
 captured programs read the planes at fixed addresses; call it through
 `ServingEngine.restage_shard`, which holds the device mutex).
 
-Not ported (ROADMAP item 9): the row-sharded store (`mesh=`,
+`row_blocks=S` (the port's own keyword) cuts each random-effect matrix
+into S row blocks on the one device, the reference's row-sharded layout
+without its devices: `rows_per_shard = ceil((E + 1) / S)`, the matrix
+zero-padded to S blocks, `unseen_row` still the logical pinned zero row.
+Each block is a shard of `ShardHealth`, which a multi-host serving worker
+marks lost where another host owns it (cli/serve_multihost.py).
+
+Not ported (ROADMAP item 9c): the row-sharded store over devices (`mesh=`,
 `PHOTON_SERVING_ENTITY_SHARD`, a matrix already row-sharded), the two-tier
 store (`hot_rows=`, `PHOTON_SERVING_HOT_ROWS`), host-tier demotion and the
 precision ladder's quantized planes; each raises where it is asked for.
@@ -104,10 +111,10 @@ def _upload(t: Tensor, device: torch.device) -> Tensor:
 
 
 class ShardHealth:
-    """Per-shard health of one random-effect coordinate's resident rows.
-    The port's bundle holds each matrix whole on one device: one shard. A
-    LOST shard's entities answer from the pinned zero row (FE-only) until
-    it is restaged."""
+    """Per-shard health of one random-effect coordinate's resident rows: the
+    whole matrix as one shard, or its row blocks (`row_blocks=`). A LOST
+    shard's entities answer from the pinned zero row (FE-only) until it is
+    restaged."""
 
     def __init__(self, n_shards: int, rows_per_shard: int):
         self.n_shards = int(n_shards)
@@ -165,6 +172,8 @@ class ServingCoordinate:
     random_effect_type: Optional[str] = None
     entity_index: Optional[Mapping[object, int]] = None
     shard_health: Optional[ShardHealth] = None
+    # E + 1 where the matrix is padded past it to whole row blocks.
+    logical_rows: Optional[int] = None
 
     @property
     def is_random_effect(self) -> bool:
@@ -176,8 +185,10 @@ class ServingCoordinate:
 
     @property
     def unseen_row(self) -> int:
-        """The pinned zero row unknown entities gather."""
-        return int(self.params.shape[0]) - 1
+        """The pinned zero row unknown entities gather (the logical last
+        row: padding rows past it are never gathered)."""
+        rows = self.logical_rows if self.logical_rows is not None else int(self.params.shape[0])
+        return rows - 1
 
     def device_nbytes(self) -> int:
         return int(self.params.numel()) * self.params.element_size()
@@ -309,15 +320,18 @@ class ServingBundle:
                    task: TaskType, *, device: DeviceLike = "cuda",
                    index_maps: Optional[Mapping[str, IndexMap]] = None, mesh=None,
                    hot_rows: Optional[Union[int, Mapping[str, int]]] = None,
-                   origin: str = "full_fit") -> "ServingBundle":
+                   origin: str = "full_fit", row_blocks: Optional[int] = None) -> "ServingBundle":
         """Stage an in-memory (model, specs) pair onto `device`. A projected
         random effect is refused (serving scores in the original space:
         export through `model_bridge.artifact_from_game_model`, which
-        back-projects, then `from_artifact`)."""
+        back-projects, then `from_artifact`). `row_blocks=S` stages each
+        random-effect matrix as S row blocks (the module docstring)."""
         if mesh is not None:
             raise NotImplementedError(f"mesh=: {_SHARDED_STORE}")
         if hot_rows is not None:
             raise NotImplementedError(f"hot_rows=: {_TWO_TIER_STORE}")
+        if row_blocks is not None and int(row_blocks) < 1:
+            raise ValueError(f"row_blocks must be at least 1, got {row_blocks}")
         dev = resolve_device(device)
         t0 = time.perf_counter()
         coords: Dict[str, ServingCoordinate] = {}
@@ -341,12 +355,24 @@ class ServingBundle:
                         f"coordinate {cid!r}: the matrix holds {matrix.shape[0]} rows for "
                         f"{len(spec.entity_index or {})} entities (a rank's row shard); "
                         f"{_SHARDED_STORE}")
+                logical = int(matrix.shape[0])
+                if row_blocks is None:
+                    health = ShardHealth(1, logical)
+                else:
+                    # The reference's blocks (parallel/mesh.pad_rows_for_mesh):
+                    # ceil(rows / S) rows each, zero rows past E + 1.
+                    rows_per = -(-logical // int(row_blocks))
+                    health = ShardHealth(int(row_blocks), rows_per)
+                    pad = rows_per * int(row_blocks) - logical
+                    if pad:
+                        matrix = torch.cat([matrix.float(),
+                                            matrix.new_zeros((pad, matrix.shape[1]), dtype=torch.float32)])
                 params = _stage_shard(f"{cid} (replicated matrix)", lambda: _upload(matrix, dev))
                 coords[cid] = ServingCoordinate(
                     cid, spec.shard, params, norm=spec.norm,
                     random_effect_type=spec.random_effect_type,
                     entity_index=dict(spec.entity_index or {}),
-                    shard_health=ShardHealth(1, int(params.shape[0])))
+                    shard_health=health, logical_rows=logical)
             else:
                 raise TypeError(f"unknown model type {type(m)} for {cid!r}")
         if dev.type == "cuda":
@@ -358,7 +384,8 @@ class ServingBundle:
     @classmethod
     def from_artifact(cls, artifact: GameModelArtifact, *, device: DeviceLike = "cuda",
                       index_maps: Optional[Mapping[str, IndexMap]] = None, mesh=None,
-                      hot_rows: Optional[Union[int, Mapping[str, int]]] = None) -> "ServingBundle":
+                      hot_rows: Optional[Union[int, Mapping[str, int]]] = None,
+                      row_blocks: Optional[int] = None) -> "ServingBundle":
         """The production path: a persisted artifact (original feature
         space, string entity ids) -> a bundle on `device`. The model is
         built on the host and staged once."""
@@ -366,17 +393,20 @@ class ServingBundle:
 
         model, specs = game_model_from_artifact(artifact, "cpu")
         return cls.from_model(model, specs, artifact.task, device=device, index_maps=index_maps,
-                              mesh=mesh, hot_rows=hot_rows, origin="artifact")
+                              mesh=mesh, hot_rows=hot_rows, origin="artifact",
+                              row_blocks=row_blocks)
 
 
 def load_bundle(model_dir: str, *, device: DeviceLike = "cuda",
                 index_maps: Optional[Mapping[str, IndexMap]] = None, mesh=None,
-                hot_rows: Optional[Union[int, Mapping[str, int]]] = None) -> ServingBundle:
+                hot_rows: Optional[Union[int, Mapping[str, int]]] = None,
+                row_blocks: Optional[int] = None) -> ServingBundle:
     """Load a model directory (the training driver's layout) into a bundle
     on `device`. Index maps default to the JSON maps saved beside the model
     (`<model_dir>/feature-indexes/<shard>.json`), as in cli.score.
-    PHOTON_SERVING_ENTITY_SHARD and PHOTON_SERVING_HOT_ROWS select stores
-    the port has not got, and raise when set."""
+    `row_blocks` as in `from_model`. PHOTON_SERVING_ENTITY_SHARD and
+    PHOTON_SERVING_HOT_ROWS select stores the port has not got, and raise
+    when set."""
     from photon_ml_tpu_torch.io import model_store
 
     if get_knob("PHOTON_SERVING_ENTITY_SHARD"):
@@ -392,7 +422,7 @@ def load_bundle(model_dir: str, *, device: DeviceLike = "cuda",
                                     "explicitly (e.g. resolved from an off-heap store)")
     artifact = model_store.load_game_model(model_dir, index_maps)
     return ServingBundle.from_artifact(artifact, device=device, index_maps=index_maps, mesh=mesh,
-                                       hot_rows=hot_rows)
+                                       hot_rows=hot_rows, row_blocks=row_blocks)
 
 
 def request_from_record(bundle: ServingBundle, record: Mapping[str, object],

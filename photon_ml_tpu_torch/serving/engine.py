@@ -542,16 +542,19 @@ class ServingEngine:
         return sum(4 * b + 4 * b * width + 8 * b * n_re + 8 * b for b in self.buckets)
 
     def _sharding_metrics(self, state: _EngineState) -> Dict[str, object]:
-        """The reference's sharding block for a single-tier replicated
-        bundle (contracts.SERVING_SHARDING_KEYS order)."""
+        """The reference's sharding block for a single-tier bundle on one
+        device (contracts.SERVING_SHARDING_KEYS order): row blocks count as
+        its shards, and nothing moves between devices."""
         from photon_ml_tpu_torch.contracts import SERVING_SHARDING_KEYS
 
-        rows_per_shard = max((int(c.params.shape[0]) for c in state.coords if c.is_random_effect),
-                             default=0)
-        shards_lost = sum(len(c.shard_health.lost) for c in state.coords if c.shard_health is not None)
+        health = [c.shard_health for c in state.coords if c.shard_health is not None]
+        axis = max((h.n_shards for h in health), default=1)
+        rows_per_shard = max((h.rows_per_shard for h in health), default=0)
+        shards_lost = sum(len(h.lost) for h in health)
         with self._lock:
             fallbacks = self._shard_loss_fallbacks
-        return dict(zip(SERVING_SHARDING_KEYS, (False, 1, rows_per_shard, 1.0, 0, shards_lost, fallbacks)))
+        return dict(zip(SERVING_SHARDING_KEYS,
+                        (False, axis, rows_per_shard, 1.0, 0, shards_lost, fallbacks)))
 
     @property
     def compiles(self) -> int:

@@ -14,7 +14,9 @@ Port of `photon_ml_tpu/utils/faults.py`:
   `admit`, `swap_stage`, `swap_commit` and `shard_upload`; coordinate
   descent fires `solve` once per attempt of an update and `mesh_loss` once
   per update; the checkpoint fires `checkpoint_write` and `resume_load`;
-  the multi-host heartbeat fires `host_loss`.
+  the native ingest fires `decode` once per attempt of a file's read; the
+  multi-host heartbeat fires `host_loss`, and a rejoining multi-host
+  serving worker `host_join`.
 * `MeshLoss` and its `HostLoss`: the loss of part of the ranks, never
   transient.
 * `solve_retry_attempts()`: the extra attempts the divergence guard grants

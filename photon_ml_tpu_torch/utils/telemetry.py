@@ -54,6 +54,7 @@ logger = logging.getLogger(__name__)
 METRIC_DESCRIPTIONS = {
     "retries": "bounded-backoff retries of transient failures (faults.retry)",
     "injected_faults": "faults fired by the deterministic injector",
+    "quarantined_blocks": "corrupt Avro blocks quarantined on read",
     "serving_degraded_batches": "batches degraded to per-request dispatch",
     "serving_shed_requests": "submits shed by admission control",
     "serving_deadline_misses": "requests failed past their deadline budget",

@@ -5,8 +5,9 @@ Python route. Cases: `examples/generate_dataset.py` data through the JAX
 package's `cli.libsvm_to_avro`; a two-file columnar write with integer
 tags; a multi-bag shard with a key repeated across bags and the intercept
 key in the data; supplied index maps that drop unseen features; and a
-schema the native compiler rejects. The port never falls back: a file the
-native route rejects raises."""
+schema the native compiler rejects. Both routes quarantine a corrupt block
+as the JAX ingest does, and nothing falls back to another route: a file
+with no good block raises."""
 
 from __future__ import annotations
 
@@ -220,8 +221,13 @@ def test_a_file_the_native_route_rejects_raises(tmp_path):
     data = bytearray(part.read_bytes())
     data[len(data) // 2:len(data) // 2 + 64] = b"\xff" * 64
     part.write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="rejected"):
+    # Each file is one block, so quarantine leaves part-1 nothing to read:
+    # the port's native route raises, and so does the JAX package's ingest
+    # (its Python codec, after the native decode fails).
+    with pytest.raises(ValueError, match="all 1 block"):
         pad.read_game_dataset(path, _configs(pad, {"g": (("features",), True)}), device="cpu")
+    with pytest.raises(ValueError, match="all 1 block"):
+        jad.read_game_dataset(path, _configs(jad, {"g": (("features",), True)}))
 
 
 def test_entity_layout_from_tag_codes_is_the_string_sorted_layout(tmp_path):
@@ -257,9 +263,17 @@ def test_a_corrupt_block_on_the_python_route_raises(tmp_path):
     data = bytearray(path.read_bytes())
     data[len(data) // 2:len(data) // 2 + 32] = b"\xff" * 32
     path.write_bytes(bytes(data))
-    with pytest.raises(ValueError, match="corrupt block"):
-        pad.read_game_dataset(str(tmp_path), _configs(pad, {"g": (("features",), True)}),
-                              id_tag_fields=["score"], device="cpu")
+    # Training ingest quarantines the block, as the reference's does: the
+    # same rows and the same count of quarantined blocks as the JAX read.
+    from photon_ml_tpu.utils import faults as jax_faults
+    from photon_ml_tpu_torch.utils import faults
+
+    ours0, theirs0 = (f.COUNTERS.get("quarantined_blocks") for f in (faults, jax_faults))
+    ds, built, jds, jbuilt = read_both(str(tmp_path), {"g": (("features",), True)}, tags=("score",))
+    assert_same_dataset(ds, built, jds, jbuilt)
+    assert ds.ingest_timing["ingest_path"] == "python" and 0 < ds.num_samples < 600
+    assert faults.COUNTERS.get("quarantined_blocks") - ours0 == 1
+    assert jax_faults.COUNTERS.get("quarantined_blocks") - theirs0 == 1
 
 
 @pytest.mark.parametrize("case", ["duplicates", "clean", "extra_col_clean", "extra_col_duplicates"])

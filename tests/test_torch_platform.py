@@ -312,7 +312,7 @@ def test_spans_parent_across_a_thread_handoff_and_export(tmp_path):
 
 def test_a_port_journal_passes_the_reference_validator(tmp_path):
     """One line of each event type the port emits (the serving path, the
-    sweep executor, the checkpoint and the multi-host layer)."""
+    sweep executor, the checkpoint and the multi-host layers)."""
     fields = {"health_transition": dict(from_state="READY", to_state="DEGRADED", reasons=["circuit_open"]),
               "bundle_swap": dict(version=1, outcome="committed"),
               "fault_retry": dict(label="x", counter="retries", attempt=1, error="InjectedFault()"),
@@ -326,6 +326,7 @@ def test_a_port_journal_passes_the_reference_validator(tmp_path):
               "mesh_loss": dict(iteration=1, coordinate="per-user", surviving_devices=None,
                                 source="raised"),
               "host_loss": dict(host=2, missed_beats=0, num_hosts=4, source="supervisor"),
+              "host_join": dict(host=2, num_hosts=4, restaged_rows=96),
               "multihost_barrier": dict(name="fit-complete", host=0, num_hosts=4, seconds=0.25)}
     assert set(fields) == set(contracts.JOURNAL_EVENT_SCHEMAS)
     for etype, schema in contracts.JOURNAL_EVENT_SCHEMAS.items():

@@ -14,8 +14,10 @@ JSON lines:
     PORT_TOLERANCES["convert_scores"], and the JAX cli.serve's on the same
     inputs; JSON and Avro requests give the same bits;
   * each package serves the model directory the other's cli.train wrote;
-  * a malformed request line costs one record; each refused flag raises
-    naming its ROADMAP item before anything is staged.
+  * a malformed request line costs one record, and a corrupt Avro block
+    its requests (quarantined and counted, as in the JAX cli.serve); each
+    refused flag raises naming its ROADMAP item, or the multi-host scope's
+    refusal, before anything is staged.
 """
 
 from __future__ import annotations
@@ -183,18 +185,79 @@ def test_a_malformed_request_costs_one_record_and_tracing_writes_a_trace(served,
     assert telemetry.current_tracer() is None and telemetry.current_journal() is None
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--tenant", "a=x"], "item 10"), (["--shadow", "b=x"], "item 10"), (["--labels", "l.jsonl"], "item 10"),
-    (["--autopilot"], "item 10"), (["--profile", "p.json"], "item 10"), (["--reshard-to", "2"], "item 9"),
-    (["--multihost", "2"], "item 9"), (["--multihost-devices-per-host", "4"], "item 9"),
-    (["--mh-serve-worker"], "item 9"), (["--mh-host-id", "1"], "item 9"), (["--mh-num-hosts", "2"], "item 9"),
-    (["--mh-attempt", "1"], "item 9"), (["--mh-resume-window", "3"], "item 9")])
-def test_each_refused_flag_raises_before_staging(tmp_path, extra, item):
+# The parts the port has not got raise, naming their ROADMAP item. The
+# multi-host flags of item 9 are ported since: under them the supervisor
+# or a worker first refuses, as the JAX driver's `_validate_scope` does, a
+# command line outside the multi-host scope, and `run()` refuses them (they
+# dispatch in `main()`); tests/test_torch_serve_multihost.py runs them.
+_SCOPE = "--multihost serve scope"
+
+
+@pytest.mark.parametrize("extra,error,match", [
+    (["--tenant", "a=x"], NotImplementedError, "item 10"), (["--shadow", "b=x"], NotImplementedError, "item 10"),
+    (["--labels", "l.jsonl"], NotImplementedError, "item 10"), (["--autopilot"], NotImplementedError, "item 10"),
+    (["--profile", "p.json"], NotImplementedError, "item 10"), (["--reshard-to", "2"], NotImplementedError, "item 9"),
+    (["--multihost", "2", "--tenant", "a=x"], ValueError, f"{_SCOPE}: --tenant .multi-tenant. has no multi-host"),
+    (["--multihost", "2", "--multihost-devices-per-host", "4", "--reshard-to", "2"], ValueError,
+     f"{_SCOPE}: --reshard-to is a single-process drill"),
+    (["--mh-serve-worker", "--tenant", "a=x"], ValueError, f"{_SCOPE}: --tenant"),
+    (["--mh-serve-worker", "--mh-host-id", "1", "--reshard-to", "2"], ValueError, f"{_SCOPE}: --reshard-to"),
+    (["--multihost", "2", "--mh-num-hosts", "2", "--shadow", "b=x"], NotImplementedError, "item 10"),
+    (["--mh-serve-worker", "--mh-attempt", "1", "--profile", "p.json"], NotImplementedError, "item 10"),
+    (["--multihost", "3", "--mh-resume-window", "3", "--multihost-devices-per-host", "0"], ValueError,
+     "--multihost-devices-per-host 0")])
+def test_each_refused_flag_raises_before_staging(tmp_path, extra, error, match):
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         serve_cli.main(["--model-input-directory", str(tmp_path / "no-model"), "--requests", "r.jsonl",
                         "--root-output-directory", str(out), "--device", "cpu", *extra])
     assert not out.exists()
+
+
+@pytest.mark.parametrize("extra", [["--multihost", "2"], ["--mh-serve-worker"]])
+def test_run_is_the_single_process_path(tmp_path, extra):
+    """`run()` refuses the multi-host flags (they dispatch in `main()`), as
+    the JAX driver's does, and a missing model directory is the
+    multi-host scope's first refusal."""
+    args = serve_cli.build_parser().parse_args([
+        "--model-input-directory", str(tmp_path / "m"), "--requests", "r.jsonl",
+        "--root-output-directory", str(tmp_path / "out"), "--device", "cpu", *extra])
+    with pytest.raises(ValueError, match="dispatches in serve.main"):
+        serve_cli.run(args)
+    with pytest.raises(ValueError, match=f"{_SCOPE}: --model-input-directory is required"):
+        serve_cli.main(["--requests", "r.jsonl", "--root-output-directory", str(tmp_path / "out"), *extra])
+    assert not (tmp_path / "out").exists()
+
+
+def test_a_corrupt_request_block_costs_its_requests_as_in_the_jax_serve(served, tmp_path):
+    """The test file rewritten in blocks of 50 records, one block broken:
+    both packages' drivers replay the other 350 requests to the same scores
+    and count the block in `quarantined_blocks`."""
+    from photon_ml_tpu.utils import faults as jax_faults
+
+    schema, records = avro.read_container(str(served["data"] / "test.avro"))
+    path = tmp_path / "requests.avro"
+    avro.write_container(str(path), schema, records, block_records=50)
+    data = bytearray(path.read_bytes())
+    _, _, sync, pos = avro.read_header(bytes(data), str(path))
+    marks = [i for i in range(pos, len(data)) if bytes(data[i:i + 16]) == sync]
+    dec = avro.BinaryDecoder(bytes(data), marks[2] + 16)  # the fourth block
+    dec.read_long()
+    dec.read_long()
+    data[dec.pos] = 0x07  # a deflate block of the reserved type: its inflate fails
+    path.write_bytes(bytes(data))
+    theirs0 = jax_faults.COUNTERS.get("quarantined_blocks")
+    ours = serve_cli.main(_serve_args(served["models"]["port"], path, tmp_path / "port") + ["--device", "cpu"])
+    jax_serve_cli.main(_serve_args(served["models"]["port"], path, tmp_path / "jax"))
+    theirs = json.loads((tmp_path / "jax" / "serving-summary.json").read_text())
+    assert ours["num_requests"] == 350 and ours["failed_requests"] == 0
+    assert ours["robustness_counters"]["quarantined_blocks"] == 1
+    assert jax_faults.COUNTERS.get("quarantined_blocks") - theirs0 == 1
+    a, b = _by_uid(tmp_path / "port" / "scores"), _by_uid(tmp_path / "jax" / "scores")
+    assert sorted(a) == sorted(b) and len(a) == 350
+    uids = sorted(a)
+    np.testing.assert_allclose([a[u] for u in uids], [b[u] for u in uids], rtol=TOL["rtol"], atol=TOL["atol"])
+    assert theirs["num_requests"] == 350 and theirs["failed_requests"] == 0
 
 
 def test_cuda_without_a_card_raises(served, tmp_path, monkeypatch):
