@@ -162,7 +162,11 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    `sparse_fused` in train, `sparse_matvec` in score, no dense kernel.
    Prints each driver's `timings_s`, the model's and scores' MiB, entity
    counts, the store's save/load seconds, and device memory before and at
-   the peak of each driver.
+   the peak of each driver. The train run's journal, read by `cli.obs
+   journal --validate`, must be valid with `setup`, `fit_start`,
+   `sweep_config` and `fit_finish` once and `coordinate_update` three
+   times; its `profile.json`, read by `telemetry.read_profile(kind="fit")`,
+   must hold the summary's `fit_timing` and name the card.
 5c. examples/run_glmix.sh's data (its generator run as a script, then the
    port's libsvm_to_avro) and its train step with SIMPLE variances, on
    the card and on the CPU: the two saved models under
@@ -183,16 +187,18 @@ The optimizers' other modes, checkpoint-restart and the legacy driver:
    (= fn evals); FULL variances at D = 512 (margins on the plain route), and
    on phase 3e's fixed effect at D = 201 (margins through X w): seconds and
    peak memory, finite and positive.
-3k. On phase 3e's files: the three DSL coordinates through cli.train with
+3k. On part 0 of phase 3e's files (2,000,000 rows, cut from both parts
+   for the time limit): the three DSL coordinates through cli.train with
    --checkpoint-directory, one sweep and then a resume to the second,
-   against an uninterrupted two-sweep run; then GameEstimator.fit with two
+   against an uninterrupted two-sweep run; then, on both parts,
+   GameEstimator.fit with two
    sweeps killed at the fixed effect of sweep 2 and resumed by a new
    estimator on a new read of the files, against an uninterrupted fit. The
    models must agree within rtol 1e-6, atol 1e-7 (the JAX package's bound;
    the row says whether bit-equal); each checkpoint save's seconds, the
    load's on resume and the checkpoint's MiB. Then the fixed effect alone
-   with ELASTIC_NET (alpha 0.5, weight E2E_ROWS / 200) through cli.train:
-   nonzeros and sparse_fused launches.
+   with ELASTIC_NET (alpha 0.5, weight rows / 200) through cli.train on
+   part 0: nonzeros and sparse_fused launches.
 5k. The card's estimator checkpoint loaded on the CPU (bit-equal to the
    card's models), and the estimator resumed from it on the CPU on a CPU
    read of the files (bit-equal).
@@ -202,6 +208,18 @@ The optimizers' other modes, checkpoint-restart and the legacy driver:
    walls, stage seconds, iterations and validation AUC for each weight, the
    best weight, sparse_fused and sparse_matvec launches; then the sweep by
    TRON with SIMPLE variances on 3e's layout (#4, #5, #6 and #6 squared).
+3j. The training driver's telemetry (after 3g): 3c's cli.train on part 0
+   of 3e's files (2,000,000 rows; every user, movie and column of 3e's,
+   held against 3c's run) with 3g's validation file and a checkpoint
+   directory, twice: (A) PHOTON_TRACE=1 PHOTON_PIPELINE=1, each step's
+   model write staged on a thread behind its validation, (B)
+   PHOTON_PIPELINE=0, untraced. The saved models and state.json's
+   checksums bit-equal; both journals valid (`cli.obs journal --validate`)
+   with the same lifecycle; A's `cli.obs trace --min-coverage 90` exits 0,
+   with one `ckpt_write` span a step on the writer thread; B stages no
+   write and writes no trace; `sparse_fused` and `sparse_matvec` in both,
+   no dense kernel. Prints each run's wall, `timings_s` and each step's
+   save seconds, the span count and trace MiB.
 5g. cli.glm_driver at a9a's size (examples/generate_dataset.py: 32,561 +
    16,281 rows, 123 features), --format LIBSVM with a constraint string,
    then ELASTIC_NET (alpha 0.5), card against CPU under
@@ -225,7 +243,7 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    new read of the files); the scoring AUC within its "auc_atol" (the row
    prints the largest score difference beside it); sparse_fused in train
    and sparse_matvec in score, no dense kernel.
-3x-scale. On the host: a PHIDX store of 4,194,304 synthetic name\x01term
+3x-scale. On the host: a PHIDX store of 2,097,152 synthetic name\x01term
    keys in 8 partitions (build seconds, a get_index sweep of every key and
    a get_feature_name sweep of every id, in keys a second, MiB on disk);
    then PalDB at 262,144 keys in 4 partitions, the cut its pure-Python
@@ -1410,6 +1428,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         work = os.path.join(root, "slice")
         launches3k = walled("phases 3k, 5k, 3o (e2e)", checkpoint_phase, root, work)
         launches3g = walled("phase 3g", legacy_driver_e2e_phase, root, work, truth, n_users, n_movies)
+        launches3j = walled("phase 3j", telemetry_phase, root, work)
         launches3x = walled("phase 3x", offheap_phase, root, work)
         walled("phase 3x-scale", offheap_scale_phase, work)
         launches3m = walled("phase 3m", multihost_phase, work)
@@ -1453,7 +1472,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
     return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
-                    "3k": launches3k, "3g": launches3g, "3x": launches3x, "3t": launches3t,
+                    "3k": launches3k, "3g": launches3g, "3j": launches3j, "3x": launches3x, "3t": launches3t,
                     "3w": launches3w, "3v": launches3v, "3m": launches3m, "3q": launches3q,
                     "3mv": launches3mv}
 
@@ -2871,6 +2890,7 @@ def driver_e2e_phase(root: str, fit3f: dict) -> dict:
     from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
     from photon_ml_tpu_torch.data.index_map import IndexMap
     from photon_ml_tpu_torch.io import model_store, score_store
+    from photon_ml_tpu_torch.utils import telemetry
 
     tol = PORT_TOLERANCES["glmix"]
     work = os.path.join(root, "drivers")
@@ -2882,6 +2902,12 @@ def driver_e2e_phase(root: str, fit3f: dict) -> dict:
         "--coordinate-configurations", *E2E_COORDINATES, "--coordinate-descent-iterations", "1",
         "--output-mode", "BEST", "--logging-level", "WARNING"]))
     train_wall = time.perf_counter() - t0
+    # The run's journal and profile, read back as a user reads them.
+    journal_exit, journal_text = obs_main(["journal", os.path.join(out, "journal.jsonl"), "--validate"])
+    journal = {}
+    for etype in journal_types(os.path.join(out, "journal.jsonl")):
+        journal[etype] = journal.get(etype, 0) + 1
+    profile = telemetry.read_profile(os.path.join(out, "profile.json"), kind="fit")
     best = os.path.join(out, "models", "best")
     imaps = {"g": IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))}
     t0 = time.perf_counter()
@@ -2921,9 +2947,18 @@ def driver_e2e_phase(root: str, fit3f: dict) -> dict:
         read_scores_s=read_scores_s, score_err_vs_3f=score_err, score_atol=tol["score_atol"],
         auc=auc, auc_3f=fit3f["auc"], auc_atol=tol["auc_atol"],
         launches_train=sparse_t, dense_launches_train=dense_t, mem_gib_train=mem_t,
-        launches_score=sparse_s, dense_launches_score=dense_s, mem_gib_score=mem_s)
+        launches_score=sparse_s, dense_launches_score=dense_s, mem_gib_score=mem_s,
+        journal_validate_exit=journal_exit, journal=journal, profile_topology=profile["device_topology"],
+        profile_dispatch=profile["dispatch"], profile_bucket_shapes=profile["bucket_shapes"])
     log(json.dumps(row))
     failures = []
+    if journal_exit or journal != {"setup": 1, "fit_start": 1, "sweep_config": 1, "coordinate_update": 3,
+                                   "fit_finish": 1}:
+        failures.append(f"journal: exit {journal_exit}, {journal}: {journal_text}")
+    if profile["fit_timing"] != summary["fit_timing"] \
+            or profile["device_topology"]["device_kind"] != torch.cuda.get_device_name(0):
+        failures.append(f"profile: fit_timing {profile['fit_timing']} against {summary['fit_timing']}, "
+                        f"topology {profile['device_topology']}")
     if not vs_3f["global"]["bit_equal"]:
         failures.append(f"the saved fixed effect is not bit-equal to 3f's ({vs_3f['global']['err']:.3e})")
     for cid in E2E_RE:
@@ -3244,11 +3279,14 @@ def checkpoint_phase(root: str, work: str) -> dict:
     ckpt_mod.CoordinateDescentCheckpoint.save = timed_save
     ckpt_mod.CoordinateDescentCheckpoint.load = timed_load
     try:
-        # ---- 3k through cli.train: one sweep checkpointed, a resume to the
-        # second, against an uninterrupted two-sweep run.
+        # ---- 3k through cli.train, on part 0 of 3e's files: one sweep
+        # checkpointed, a resume to the second, against an uninterrupted
+        # two-sweep run.
+        part, part_rows = os.path.join(root, "part-0.avro"), E2E_ROWS // 2
+
         def train(out, iterations, extra=()):
             return counted(torch, lambda: train_cli.main([
-                "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+                "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", part,
                 "--root-output-directory", out, "--override-output-directory",
                 "--feature-shard-configurations", E2E_SHARD, "--coordinate-configurations",
                 *E2E_COORDINATES, "--coordinate-descent-iterations", str(iterations),
@@ -3274,7 +3312,7 @@ def checkpoint_phase(root: str, work: str) -> dict:
                 vs[cid] = dict(err=float("inf"), bit_equal=False, within=False)
             else:
                 vs[cid] = close_arrays(a.means, b.means)
-        row = dict(phase="3k", path="cli.train", rows=E2E_ROWS, runs=walls, resume_vs_straight=vs,
+        row = dict(phase="3k", path="cli.train", rows=part_rows, runs=walls, resume_vs_straight=vs,
                    load_s=loads[-1:], checkpoint_mib=dir_mib(ck_driver))
         log(json.dumps(row))
         if len(walls["sweep1"]["save_s"]) != 3 or len(walls["resume"]["save_s"]) != 3:
@@ -3385,20 +3423,22 @@ def checkpoint_phase(root: str, work: str) -> dict:
             failures.append(f"5k: the card's checkpoint on the CPU: {row}")
         del ds_cpu, cpu_fit
 
-        # ---- 3k: the fixed effect alone with ELASTIC_NET through the driver.
+        # ---- 3k: the fixed effect alone with ELASTIC_NET through the driver,
+        # on part 0.
         out = os.path.join(work, "k-elastic-net")
         t0 = time.perf_counter()
         summary, sparse, dense, _ = counted(torch, lambda: train_cli.main([
-            "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+            "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", part,
             "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
             "--coordinate-configurations",
             "name=global,feature.shard=g,optimizer=LBFGS,tolerance=1e-6,max.iter=10,"
-            f"regularization=ELASTIC_NET,reg.alpha=0.5,reg.weights={E2E_ROWS // 200}",
+            f"regularization=ELASTIC_NET,reg.alpha=0.5,reg.weights={part_rows // 200}",
             "--output-mode", "BEST", "--logging-level", "WARNING"]))
         add(sparse)
         art = model_store.load_game_model(os.path.join(out, "models", "best"), imaps)
         means = art.coordinates["global"].means
-        row = dict(phase="3k", path="elastic_net", wall_s=time.perf_counter() - t0, reg_weight=E2E_ROWS // 200,
+        row = dict(phase="3k", path="elastic_net", rows=part_rows, wall_s=time.perf_counter() - t0,
+                   reg_weight=part_rows // 200,
                    alpha=0.5, nonzeros=int((means != 0).sum()), d=int(means.shape[0]),
                    sparse_fused=sparse["sparse_fused"], timings_s=summary["timings_s"])
         log(json.dumps(row))
@@ -3489,13 +3529,173 @@ def legacy_driver_e2e_phase(root: str, work: str, truth, n_users: int, n_movies:
     return launches
 
 
+# ----------------------------------------------------------------------- phase 3j
+#
+# The training driver's telemetry at full width: the run journal, the trace
+# and the run profile, and the checkpoint's staged model write, which
+# overlaps each step's model write with that step's validation.
+
+def obs_main(argv) -> tuple:
+    """`python -m photon_ml_tpu_torch.cli.obs argv` in process: (exit code,
+    standard output)."""
+    import contextlib
+    import io
+
+    from photon_ml_tpu_torch.cli import obs
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = obs.main(argv)
+    return code, out.getvalue()
+
+
+def journal_types(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line)["type"] for line in f if line.strip()]
+
+
+def model_counts(best: str) -> dict:
+    """A saved e2e model's entities by random effect and its shard's columns."""
+    import os
+
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.io import model_store
+
+    imap = IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))
+    art = model_store.load_game_model(best, {"g": imap})
+    return dict(entities={cid: len(art.coordinates[cid].entity_ids) for cid in E2E_RE}, columns=imap.size)
+
+
+def telemetry_phase(root: str, work: str) -> dict:
+    """Phase 3j: 3c's cli.train on part 0 of 3e's files (2,000,000 rows,
+    every user, movie and column of 3e's, checked against 3c's run), with
+    3g's validation file and a checkpoint directory, twice: (A) traced with
+    the staged write on (PHOTON_TRACE=1 PHOTON_PIPELINE=1), (B) untraced
+    with it off (PHOTON_PIPELINE=0). The saved models and state.json's
+    checksums must be bit-equal, both journals valid and alike, A's trace
+    cover 90% of its wall with one `ckpt_write` span a step on the writer
+    thread, B stage no write, and both launch the sparse kernels and no
+    dense one. Returns the launches of both runs by kernel."""
+    import os
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.game import checkpoint as ckpt_mod
+    from photon_ml_tpu_torch.io import model_store
+    from photon_ml_tpu_torch.utils import telemetry
+
+    part = os.path.join(root, "part-0.avro")
+    val_dir = os.path.join(work, "validation")
+    saves, staged = [], []
+    save0 = ckpt_mod.CoordinateDescentCheckpoint.save
+    begin0 = ckpt_mod.CoordinateDescentCheckpoint.begin_model_write
+
+    def timed_save(self, **kw):
+        t = time.perf_counter()
+        save0(self, **kw)
+        saves.append(dict(step=kw["completed_steps"], save_s=time.perf_counter() - t,
+                          staged=kw.get("staged") is not None))
+
+    def counted_begin(self, **kw):
+        staged.append(kw["completed_steps"])
+        return begin0(self, **kw)
+
+    runs, failures, launches = {}, [], {"sparse": {}, "dense": {}}
+    ckpt_mod.CoordinateDescentCheckpoint.save = timed_save
+    ckpt_mod.CoordinateDescentCheckpoint.begin_model_write = counted_begin
+    env0 = {k: os.environ.get(k) for k in ("PHOTON_TRACE", "PHOTON_PIPELINE")}
+    try:
+        for name, env in (("A", {"PHOTON_TRACE": "1", "PHOTON_PIPELINE": "1"}),
+                          ("B", {"PHOTON_TRACE": "0", "PHOTON_PIPELINE": "0"})):
+            os.environ.update(env)
+            out, ck = os.path.join(work, f"j-{name}"), os.path.join(work, f"j-{name}-ckpt")
+            n_saves, n_staged = len(saves), len(staged)
+            t0 = time.perf_counter()
+            summary, sparse, dense, mem = counted(torch, lambda: train_cli.main([
+                "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", part,
+                "--validation-data-directories", val_dir, "--root-output-directory", out,
+                "--feature-shard-configurations", E2E_SHARD, "--coordinate-configurations",
+                *E2E_COORDINATES, "--coordinate-descent-iterations", "1", "--validation-evaluators",
+                "AUC", "--checkpoint-directory", ck, "--output-mode", "BEST",
+                "--logging-level", "WARNING"]))
+            wall = time.perf_counter() - t0
+            for k, v in sparse.items():
+                launches["sparse"][k] = launches["sparse"].get(k, 0) + v
+            for k, v in dense.items():
+                launches["dense"][k] = launches["dense"].get(k, 0) + v
+            code, text = obs_main(["journal", os.path.join(out, "journal.jsonl"), "--validate"])
+            profile = telemetry.read_profile(os.path.join(out, "profile.json"), kind="fit")
+            with open(os.path.join(ck, "config-0", "state.json")) as f:
+                state = json.load(f)
+            runs[name] = dict(
+                phase="3j", run=name, env=env, rows=summary["num_samples"], wall_s=wall,
+                timings_s=summary["timings_s"], fit_s=summary["timings_s"]["train explicit configurations"],
+                saves=saves[n_saves:], staged_steps=staged[n_staged:], launches=sparse, dense_launches=dense,
+                peak_gib=mem["peak"], journal_validate_exit=code, journal=journal_types(
+                    os.path.join(out, "journal.jsonl")), **model_counts(os.path.join(out, "models", "best")),
+                auc=summary["best_evaluation"]["AUC"], pipeline=profile["dispatch"]["pipeline"],
+                checksums=state["checksums"], card=card_line())
+    finally:
+        ckpt_mod.CoordinateDescentCheckpoint.save = save0
+        ckpt_mod.CoordinateDescentCheckpoint.begin_model_write = begin0
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    a, b = runs["A"], runs["B"]
+    trace_path = os.path.join(work, "j-A", "trace.json")
+    with open(trace_path) as f:
+        doc = json.load(f)
+    threads = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"] if e["ph"] == "M"}
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    writes = [threads.get(e["tid"]) for e in spans if e["name"] == "ckpt_write"]
+    coverage_code, coverage_text = obs_main(["trace", trace_path, "--min-coverage", "90"])
+    a.update(spans=len(spans), trace_mib=os.path.getsize(trace_path) / 2**20, ckpt_write_threads=writes,
+             trace_summary=coverage_text.splitlines()[:2], trace_exit=coverage_code)
+    b["trace_written"] = os.path.exists(os.path.join(work, "j-B", "trace.json"))
+    counts_3e = model_counts(os.path.join(root, "drivers", "train", "models", "best"))
+    imaps = {"g": IndexMap.load(os.path.join(work, "j-A", "models", "best", "feature-indexes", "g.json"))}
+    models = {k: model_store.load_game_model(os.path.join(work, f"j-{k}", "models", "best"), imaps)
+              for k in ("A", "B")}
+    bits = same_model(models["A"], models["B"])
+    for row in (a, b):
+        log(json.dumps(row))
+    log(json.dumps(dict(phase="3j", run="A vs B", fit_s=[a["fit_s"], b["fit_s"]], wall_s=[a["wall_s"], b["wall_s"]],
+                        save_s=[[s["save_s"] for s in r["saves"]] for r in (a, b)], models_bit_equal=bits,
+                        counts=dict(entities=a["entities"], columns=a["columns"]), counts_3e=counts_3e)))
+    lifecycle = ["setup", "fit_start", "sweep_config"] + ["coordinate_update", "checkpoint"] * 3 + ["fit_finish"]
+    if dict(entities=a["entities"], columns=a["columns"]) != counts_3e:
+        failures.append(f"part 0 lacks an entity or column of 3e's files: {a['entities']}, {a['columns']} "
+                        f"against {counts_3e}")
+    if not all(v["bit_equal"] for v in bits.values()) or a["checksums"] != b["checksums"]:
+        failures.append(f"the staged write moved bits: {bits}, checksums equal {a['checksums'] == b['checksums']}")
+    if a["journal_validate_exit"] or b["journal_validate_exit"] or a["journal"] != lifecycle \
+            or b["journal"] != lifecycle:
+        failures.append(f"journals: exits {a['journal_validate_exit']}/{b['journal_validate_exit']}, "
+                        f"{a['journal']} / {b['journal']}")
+    if coverage_code or writes != ["photon-ckpt-write"] * 3 or a["staged_steps"] != [1, 2, 3] \
+            or b["staged_steps"] or b["trace_written"] or not a["pipeline"] or b["pipeline"]:
+        failures.append(f"trace exit {coverage_code}, ckpt_write threads {writes}, staged steps "
+                        f"{a['staged_steps']} / {b['staged_steps']}, B traced {b['trace_written']}")
+    for r in (a, b):
+        if not r["launches"]["sparse_fused"] or not r["launches"]["sparse_matvec"] \
+                or any(r["dense_launches"].values()):
+            failures.append(f"{r['run']}: launches {r['launches']} / {r['dense_launches']}")
+    if failures:
+        raise SystemExit("phase 3j failed: " + "; ".join(failures))
+    return launches
+
+
 # ---------------------------------------------------------- phases 3x, 3x-scale, 3t
 #
 # The off-heap index stores (cli.build_index, --offheap-indexmap-dir) and the
 # train driver's hyperparameter tuning, on phase 3e's files.
 
 OFFHEAP_STORES = (("phidx", 1), ("phidx", 8), ("paldb", 4))  # format, partitions
-SCALE_KEYS = 1 << 22  # 4,194,304 synthetic name\x01term keys (PHIDX)
+SCALE_KEYS = 1 << 21  # 2,097,152 synthetic name\x01term keys (PHIDX); cut from 4,194,304 for the time limit
 SCALE_PALDB_KEYS = 1 << 18  # PalDB's writer and reader are pure Python: cut to 262,144
 TUNING_TRIALS = 4
 EXPLICIT_WEIGHTS = {"global": 1.0, "per-user": 10.0, "per-movie": 10.0}  # E2E_COORDINATES' reg.weights
@@ -5317,7 +5517,8 @@ def main(argv=None) -> int:
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3g, 3x, 3m, 3t, 3w, 3v, 3q, 3mv",
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3g, 3j, 3x, 3m, 3t, 3w, 3v, 3q, "
+                                    "3mv",
                                     e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
@@ -5342,10 +5543,11 @@ def main(argv=None) -> int:
         dict(name=k, route="cuda", source=source, replaces=replaces[k],
              launches=(launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k]
                        + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k] + launches3o[k]
-                       + e2e_launches["3w"]["dense"][k]),
+                       + e2e_launches["3w"]["dense"][k] + e2e_launches["3j"]["dense"][k]),
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
                                 "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
                                 "5c": driver_launches["dense"][k], "3o": launches3o[k],
+                                "3j": e2e_launches["3j"]["dense"][k],
                                 "3w": e2e_launches["3w"]["dense"][k], "3v": e2e_launches["3v"]["path"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k]},
@@ -5365,13 +5567,15 @@ def main(argv=None) -> int:
                        + small_launches["sparse"][k] + e2e_launches["3c"]["sparse"][k]
                        + driver_launches["sparse"][k] + e2e_launches["3k"][k] + e2e_launches["3g"][k]
                        + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]
-                       + e2e_launches["3w"]["sparse"][k] + e2e_launches["3m"]["sparse"][k]),
+                       + e2e_launches["3w"]["sparse"][k] + e2e_launches["3m"]["sparse"][k]
+                       + e2e_launches["3j"]["sparse"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
                                 "3e-d": e2e_launches["3e-d"][k],
                                 "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
                                 "3c": e2e_launches["3c"]["sparse"][k], "5c": driver_launches["sparse"][k],
                                 "3k+5k+3o": e2e_launches["3k"][k], "3g": e2e_launches["3g"][k],
-                                "5g": legacy_launches[k], "3x": e2e_launches["3x"][k],
+                                "5g": legacy_launches[k], "3j": e2e_launches["3j"]["sparse"][k],
+                                "3x": e2e_launches["3x"][k],
                                 "3t": e2e_launches["3t"][k], "3w": e2e_launches["3w"]["sparse"][k],
                                 "3v": e2e_launches["3v"]["path"][k], "3m": e2e_launches["3m"]["sparse"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
@@ -5393,7 +5597,7 @@ def main(argv=None) -> int:
         dict(name=k, route="cuda", source="photon_ml_tpu_torch/csrc/exact_sum.cu",
              replaces=DIST_REPLACES[k], launches=dist_launches[k],
              launches_by_phase={"3d+4d": dist_launches[k], "3e-d": e2e_launches["3e-d"][k],
-                                "3w": e2e_launches["3w"]["dense"][k],
+                                "3w": e2e_launches["3w"]["dense"][k], "3j": e2e_launches["3j"]["dense"][k],
                                 "3v": e2e_launches["3v"]["path"][k], "3q": e2e_launches["3q"][k],
                                 "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k]},

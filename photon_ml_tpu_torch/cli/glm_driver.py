@@ -16,8 +16,7 @@ Output layout, the JAX driver's:
     <out>/models/<rw>/                         the model store's layout
     <out>/feature-index.json
     <out>/driver-summary.json
-
-The JAX driver's run journal (lifecycle events) is not ported yet.
+    <out>/journal.jsonl                        `fit_start`, `fit_finish`
 
 Usage: python -m photon_ml_tpu_torch.cli.glm_driver --help
 """
@@ -61,7 +60,15 @@ from photon_ml_tpu_torch.optimize.config import (
 )
 from photon_ml_tpu_torch.optimize.constraints import bounds_arrays, create_constraint_feature_map
 from photon_ml_tpu_torch.types import NormalizationType, OptimizerType, RegularizationType, TaskType
-from photon_ml_tpu_torch.utils.observability import Timed, TimingRegistry
+from photon_ml_tpu_torch.utils import telemetry
+from photon_ml_tpu_torch.utils.observability import (
+    EventEmitter,
+    Timed,
+    TimingRegistry,
+    TrainingFinishEvent,
+    TrainingStartEvent,
+    journal_listener,
+)
 
 logger = logging.getLogger("photon_ml_tpu_torch.cli.glm_driver")
 
@@ -217,11 +224,18 @@ def run(args) -> Dict[str, object]:
             raise FileExistsError(f"{out_dir} exists; pass --delete-output-dirs-if-exist")
         shutil.rmtree(out_dir)
     os.makedirs(out_dir)
-    return _run_stages(args, _State(), out_dir, device)
+    emitter = EventEmitter()
+    journal = telemetry.RunJournal(os.path.join(out_dir, "journal.jsonl"))
+    emitter.register(journal_listener(journal))
+    try:
+        return _run_stages(args, _State(), out_dir, device, emitter)
+    finally:
+        journal.close()  # on every exit path
 
 
-def _run_stages(args, state: _State, out_dir: str, device) -> Dict[str, object]:
+def _run_stages(args, state: _State, out_dir: str, device, emitter: EventEmitter) -> Dict[str, object]:
     timings = TimingRegistry()
+    emitter.send(TrainingStartEvent(num_samples=-1))
 
     # INIT -> PREPROCESSED (Driver.preprocess: read, summarize, normalize).
     state.assert_stage(DriverStage.INIT)
@@ -324,6 +338,7 @@ def _run_stages(args, state: _State, out_dir: str, device) -> Dict[str, object]:
     summary["timings_s"] = dict(timings.seconds)
     with open(os.path.join(out_dir, "driver-summary.json"), "w") as f:
         json.dump(summary, f, indent=2, default=str)
+    emitter.send(TrainingFinishEvent(num_configs=len(sweep.models)))
     logger.info("final models written to %s", text_dir)
     return summary
 

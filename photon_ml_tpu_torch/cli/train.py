@@ -16,7 +16,18 @@ Output layout (ModelProcessingUtils.saveGameModelToHDFS):
     <root>/models/tuned-<i>/...          (TUNED | ALL)
     <root>/models/<dir>/feature-indexes/<shard>.json
     <root>/training-summary.json         (with `timings_s` by section)
+    <root>/profile.json                  (the last fit's run profile)
+    <root>/journal.jsonl                 (the run journal)
+    <root>/trace.json                    (under PHOTON_TRACE=1)
     <root>/photon-ml-tpu.log
+
+The journal holds the job's lifecycle, one typed line an event: `setup`,
+then the estimator's `fit_start`, `sweep_config`, `coordinate_update`,
+`checkpoint` and `fit_finish`, or `failure` when the job raises. With
+PHOTON_TRACE=1 the job's spans (the timed sections, the fit, each
+coordinate update, each file's decode, each staged checkpoint write) are
+written as Chrome trace-event JSON. `python -m photon_ml_tpu_torch.cli.obs`
+reads all three files.
 
 The option names are the JAX driver's, so its command lines parse
 unchanged. `--device` (default cuda) picks the device; asking for cuda
@@ -24,9 +35,9 @@ with no card raises. Tuning trials are fits on the device; the Bayesian
 search's GP runs on the CPU (hyperparameter/gp.py). `--multihost N` runs
 the fit on N ranks, one worker process each, under a supervisor that
 relaunches the survivors of a rank loss (cli/train_multihost.py; its
-workers come back here with `--mh-worker`). `--profile` is not ported yet
-and raises NotImplementedError, naming its ROADMAP item, before any work
-starts.
+workers come back here with `--mh-worker` and keep journals of their own).
+`--profile` (a planner's input) is not ported yet and raises
+NotImplementedError, naming its ROADMAP item, before any work starts.
 
 Usage: python -m photon_ml_tpu_torch.cli.train --help
 """
@@ -74,7 +85,16 @@ from photon_ml_tpu_torch.types import (
     VarianceComputationType,
 )
 from photon_ml_tpu_torch.utils.date_range import paths_for_date_range, resolve_range
-from photon_ml_tpu_torch.utils.observability import PhotonLogger, Timed, TimingRegistry
+from photon_ml_tpu_torch.utils import telemetry
+from photon_ml_tpu_torch.utils.observability import (
+    EventEmitter,
+    PhotonFailureEvent,
+    PhotonLogger,
+    PhotonSetupEvent,
+    Timed,
+    TimingRegistry,
+    journal_listener,
+)
 
 logger = logging.getLogger("photon_ml_tpu_torch.cli.train")
 
@@ -309,7 +329,9 @@ def _tune(args, estimator, coordinate_configs, train, validation,
     return tuned, trials
 
 
-def run(args) -> Dict[str, object]:
+def run(args, event_emitter: Optional[EventEmitter] = None) -> Dict[str, object]:
+    """The training job; its lifecycle events go to `event_emitter` (a new
+    one by default) and, through it, into `<root>/journal.jsonl`."""
     logging.basicConfig(
         level=getattr(logging, args.logging_level.upper(), logging.INFO),
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
@@ -331,15 +353,38 @@ def run(args) -> Dict[str, object]:
         # GameTrainingDriver.scala:487).
         shutil.rmtree(models_root)
     os.makedirs(out_root, exist_ok=True)
-    with PhotonLogger(os.path.join(out_root, "photon-ml-tpu.log"), level=args.logging_level):
-        try:
-            return _run_job(args, coordinate_configs, device, out_root, models_root)
-        except Exception:
-            logger.exception("training job failed")
-            raise
+    job_logger = PhotonLogger(os.path.join(out_root, "photon-ml-tpu.log"), level=args.logging_level)
+    if event_emitter is None:
+        event_emitter = EventEmitter()
+    journal = telemetry.RunJournal(os.path.join(out_root, "journal.jsonl"))
+    event_emitter.register(journal_listener(journal))
+    # Only the ambient slots this run fills are emptied at its end: a
+    # caller's journal or tracer outlives the run.
+    journal_owned = telemetry.current_journal() is None
+    if journal_owned:
+        telemetry.install_journal(journal)
+    tracer_owned = telemetry.current_tracer() is None
+    tracer = telemetry.start_tracing_if_enabled()
+    event_emitter.send(PhotonSetupEvent(args=str(vars(args))))
+    try:
+        return _run_job(args, coordinate_configs, device, out_root, models_root, event_emitter)
+    except Exception as exc:
+        logger.exception("training job failed")
+        event_emitter.send(PhotonFailureEvent(error=repr(exc)))
+        raise
+    finally:
+        if tracer is not None and tracer_owned:
+            tracer.export(os.path.join(out_root, "trace.json"))
+            telemetry.uninstall_tracer()
+            logger.info("trace written to %s", os.path.join(out_root, "trace.json"))
+        if journal_owned:
+            telemetry.uninstall_journal()
+        journal.close()
+        job_logger.close()
 
 
-def _run_job(args, coordinate_configs, device, out_root: str, models_root: str) -> Dict[str, object]:
+def _run_job(args, coordinate_configs, device, out_root: str, models_root: str,
+             event_emitter: EventEmitter) -> Dict[str, object]:
     timings = TimingRegistry()
     update_sequence = ([c.strip() for c in args.coordinate_update_sequence.split(",")]
                        if args.coordinate_update_sequence else list(coordinate_configs))
@@ -393,6 +438,7 @@ def _run_job(args, coordinate_configs, device, out_root: str, models_root: str) 
                            if imap.intercept_index is not None},
         seed=args.random_seed,
         checkpoint_dir=args.checkpoint_directory,
+        event_emitter=event_emitter,
     )
 
     # Warm start / partial retrain (GameTrainingDriver.scala:370-409).
@@ -470,6 +516,10 @@ def _run_job(args, coordinate_configs, device, out_root: str, models_root: str) 
     summary["fit_timing"] = dict(estimator.fit_timing)
     with open(os.path.join(out_root, "training-summary.json"), "w") as f:
         json.dump(summary, f, indent=2, default=str)
+    # The last fit's run profile (after tuning, the last trial's).
+    profile_path = telemetry.write_profile(os.path.join(out_root, "profile.json"),
+                                           estimator.run_profile())
+    logger.info("run profile written to %s", profile_path)
     logger.info("timing summary:\n%s", timings.summary())
     return summary
 

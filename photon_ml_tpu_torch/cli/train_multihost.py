@@ -15,7 +15,8 @@ dataset one read of the sorted files gives (`exchange_ingest`); takes its
 rows, which follow the first random effect's entities
 (`parallel/mesh.shard_game_dataset` with ingest's `tag_codes`); builds the
 coordinates; and runs `run_coordinate_descent` with a
-`MultihostCheckpoint`. Rank 0 then saves the model (read back from the
+`MultihostCheckpoint`, journaling a `checkpoint` line a committed step
+into its own journal (the reference's worker journals none). Rank 0 then saves the model (read back from the
 checkpoint), its index maps and `multihost-fit-summary.json` between the
 barriers `fit-complete` and `artifact-saved`.
 
@@ -193,6 +194,15 @@ def worker_device(device: str, num_hosts: int, host_id: int) -> Tuple[str, str]:
     return "cuda:0", "gloo"
 
 
+def _journal_checkpoints(etype: str, **fields) -> None:
+    """The worker's coordinate-descent hook: each committed step as a
+    `checkpoint` line of the worker's journal."""
+    from photon_ml_tpu_torch.utils import telemetry
+
+    if etype == "checkpoint":
+        telemetry.emit_event("checkpoint", **fields)
+
+
 def run_worker(args) -> int:
     """One rank of the process group. Returns the process's exit code: 0
     on success, `EXIT_HOST_LOSS` when a peer's loss was detected (the
@@ -367,7 +377,7 @@ def _fit(args, hm, host_dir: str, record: Dict[str, object]) -> None:
     result = run_coordinate_descent(coords, args.coordinate_descent_iterations,
                                     reg_weights=reg_weights, seed=args.random_seed,
                                     checkpoint_dir=args.checkpoint_directory,
-                                    checkpoint_factory=checkpoint)
+                                    checkpoint_factory=checkpoint, on_event=_journal_checkpoints)
     sync()
     fit_s = time.perf_counter() - t0
     ckpt = checkpoints[0]

@@ -196,8 +196,17 @@ BUNDLE_PROVENANCE_KEYS = (
 
 # The run journal (utils/telemetry.RunJournal): the keys of every line, and
 # the schema of each event type the port emits (the reference's schemas).
+# The reference's control-plane events (plan, autopilot, shadow, tenant,
+# tier, reshard, delta) belong to layers the port has not got.
 JOURNAL_LINE_KEYS = ("ts", "type")
 JOURNAL_EVENT_SCHEMAS = {
+    # The training lifecycle (utils/observability.journal_listener).
+    "setup": ("args",),
+    "fit_start": ("num_samples",),
+    "sweep_config": ("index", "total"),
+    "coordinate_update": ("iteration", "coordinate", "seconds", "accepted"),
+    "fit_finish": ("num_configs", "best_metric"),
+    "failure": ("error",),
     "health_transition": ("from_state", "to_state", "reasons"),
     "bundle_swap": ("version", "outcome"),
     "fault_retry": ("label", "counter", "attempt", "error"),
@@ -251,7 +260,7 @@ SWEEP_TRIAL_KEYS = (
 )
 
 # The persisted run profile (utils/telemetry.build_profile): the keys of
-# every profile, and of a serve run's.
+# every profile, and of a fit's and a serve run's.
 PROFILE_REQUIRED_KEYS = (
     "kind",
     "wall_s",
@@ -262,6 +271,7 @@ PROFILE_REQUIRED_KEYS = (
     "roofline",
     "metrics",
 )
+PROFILE_FIT_KEYS = (*PROFILE_REQUIRED_KEYS, "fit_timing", "ingest")
 PROFILE_SERVE_KEYS = (*PROFILE_REQUIRED_KEYS, "serving")
 
 # The runtime-plan block serving-summary.json and profile.json carry. The

@@ -34,10 +34,20 @@ does; a rerun of the same fit resumes there.
 and a shard-group factory (`_sweep_group_builder`: the prepared data cloned
 onto one device) into a `hyperparameter.sweep.SweepExecutor`.
 
-Not ported yet: groups of more than one device (ROADMAP item 9), the run
-profile with the planner, telemetry spans and the event emitter, the
-prepare thread pool (which moves only when host work runs) and the
-bucketed pack's placement keys (the port has no such pack).
+Telemetry: `fit` runs under a root `fit` span (utils/telemetry.py), and with
+an `event_emitter` (utils/observability.py) it sends `fit_start`, a
+`sweep_config` per configuration, coordinate descent's `coordinate_update`
+and `checkpoint` events, and `fit_finish` with the best primary metric: the
+record `cli.train` journals. `run_profile()` is the last fit's run profile
+(`telemetry.write_profile`). `pipeline` (None: PHOTON_PIPELINE, else on
+with more than one core) gates coordinate descent's staged checkpoint
+write, the port's one host overlap.
+
+Not ported yet: groups of more than one device (ROADMAP item 9), the
+planner and the profile's `plan` block (item 10e), the prepare thread pool
+(which moves only when host work runs) and the bucketed pack (the port
+builds its sparse layouts on the device; the profile's `pack_path` is
+"none").
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 import torch
 
 from photon_ml_tpu_torch.contracts import PREPARE_STAGES
+from photon_ml_tpu_torch.data import sparse_layout
 from photon_ml_tpu_torch.data.containers import SparseFeatures
 from photon_ml_tpu_torch.data.game_dataset import (
     EntityBlocks,
@@ -87,6 +98,16 @@ from photon_ml_tpu_torch.transformers.game_transformer import (
     prepare_coordinate_data,
 )
 from photon_ml_tpu_torch.types import NormalizationType, TaskType
+from photon_ml_tpu_torch.utils import telemetry
+from photon_ml_tpu_torch.utils.knobs import pipeline_enabled
+from photon_ml_tpu_torch.utils.observability import (
+    CheckpointEvent,
+    CoordinateUpdateEvent,
+    EventEmitter,
+    SweepConfigEvent,
+    TrainingFinishEvent,
+    TrainingStartEvent,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -134,6 +155,8 @@ class GameEstimator:
         intercept_indices: Optional[Mapping[str, int]] = None,
         seed: int = 0,
         checkpoint_dir: Optional[str] = None,
+        pipeline: Optional[bool] = None,
+        event_emitter: Optional[EventEmitter] = None,
     ):
         self.task = task
         self.data_configs = dict(coordinate_data_configs)
@@ -152,6 +175,11 @@ class GameEstimator:
         self.seed = seed
         # Each configuration checkpoints under <checkpoint_dir>/config-<i>/.
         self.checkpoint_dir = checkpoint_dir
+        # The host overlap: None reads PHOTON_PIPELINE (else on with more
+        # than one core); True/False forces. It moves only when a write runs.
+        self.pipeline = pipeline
+        # The lifecycle bus; None keeps fit() silent.
+        self.event_emitter = event_emitter
         # Prepare-stage walls, accumulated over prepare and coordinate builds.
         self.times = StageTimes()
         self._prepared: Optional[Dict[str, _PreparedCoordinate]] = None
@@ -317,7 +345,35 @@ class GameEstimator:
     ) -> List[GameResult]:
         """One GameModel per configuration, each warm-started from the one
         before; `initial_model` starts the first and must hold every locked
-        coordinate's model."""
+        coordinate's model. The fit runs under a root `fit` span and sends
+        its lifecycle events to the `event_emitter`."""
+        emit = self.event_emitter.send if self.event_emitter is not None else None
+        with telemetry.span("fit", num_configs=len(opt_configs)):
+            if emit is not None:
+                emit(TrainingStartEvent(num_samples=int(data.num_samples)))
+            results = self._fit(data, validation_data, opt_configs, initial_model=initial_model)
+            if emit is not None:
+                best = select_best_result(results)[1].evaluation if results else None
+                emit(TrainingFinishEvent(num_configs=len(results), best_metric=(
+                    None if best is None else float(best.primary_value))))
+            return results
+
+    def _on_cd_event(self, etype: str, **fields) -> None:
+        """Coordinate descent's hook, sent on as typed events (a listener's
+        failure is isolated by `EventEmitter.send`)."""
+        if etype == "coordinate":
+            self.event_emitter.send(CoordinateUpdateEvent(**fields))
+        elif etype == "checkpoint":
+            self.event_emitter.send(CheckpointEvent(**fields))
+
+    def _fit(
+        self,
+        data: GameDataset,
+        validation_data: Optional[GameDataset],
+        opt_configs: Sequence[GameOptimizationConfiguration],
+        *,
+        initial_model: Optional[GameModel] = None,
+    ) -> List[GameResult]:
         if not opt_configs:
             raise ValueError("at least one optimization configuration required")
         dev = data.device
@@ -344,13 +400,20 @@ class GameEstimator:
         prev_model = initial_model
         diverged_steps = 0
         default_cfg = CoordinateOptimizationConfig()
+        pipelined = pipeline_enabled(self.pipeline)
+        layouts: Set[str] = set()
         for ci, cfgs in enumerate(opt_configs):
+            if self.event_emitter is not None:
+                self.event_emitter.send(SweepConfigEvent(index=ci, total=len(opt_configs)))
             t_coord = time.perf_counter()
             coordinates = {
                 cid: self._coordinate_for(data, cid, prepared[cid], cfgs.get(cid, default_cfg))
                 for cid in self.update_sequence
             }
             self.fit_timing["prepare_s"] += time.perf_counter() - t_coord
+            layouts.update(_layout_name(c) for c in coordinates.values()
+                           if isinstance(getattr(c, "training_features", None),
+                                         sparse_layout.SparseLayout))
             t_solve = time.perf_counter()
             validation_scorer = None
             if validation_data is not None:
@@ -368,6 +431,8 @@ class GameEstimator:
                 seed=self.seed + ci,
                 checkpoint_dir=(None if self.checkpoint_dir is None
                                 else f"{self.checkpoint_dir}/config-{ci}"),
+                prefetch=pipelined,
+                on_event=self._on_cd_event if self.event_emitter is not None else None,
             )
             evaluation = None
             if suite is not None:
@@ -387,7 +452,54 @@ class GameEstimator:
         self.fit_timing["re_host_s"] = 0.0
         self.fit_timing["re_path"] = self.times.get_note("re_path") or "none"
         self.fit_timing["diverged_steps"] = diverged_steps
+        self._fit_dispatch = {
+            "pipeline": pipelined,
+            "layout": (layouts.pop() if len(layouts) == 1 else "mixed") if layouts else "none",
+        }
         return results
+
+    # ---------------------------------------------------------- run profile
+
+    def run_profile(self) -> Dict[str, object]:
+        """The last fit's run profile, the reference's sections: the
+        prepare stages, `prepare_s` and `solve_s`; the dispatch decisions
+        (`pack_path` "none", as the port has no bucketed pack; `re_path`;
+        `sharding`, one process with each random effect's rows on one
+        device; `pipeline`; `layout`, the sparse layout the fit's fixed
+        effects trained on, "none" without one); each random effect's
+        `[num_entities, capacity]` a bucket; the device topology;
+        `fit_timing`; the dataset's ingest timing where it was read from
+        files. Write it with `telemetry.write_profile`."""
+        if not hasattr(self, "fit_timing"):
+            raise RuntimeError("run_profile() needs a completed fit()")
+        ft = dict(self.fit_timing)
+        stages = {k: round(float(ft[k]), 4) for k in (*PREPARE_STAGES, "other")}
+        stages["prepare_s"] = round(float(ft["prepare_s"]), 4)
+        stages["solve_s"] = round(float(ft["solve_s"]), 4)
+        bucket_shapes: Dict[str, object] = {}
+        for cid, prep in (self._prepared or {}).items():
+            if prep.re_dataset is not None:
+                bucket_shapes[cid] = [[b.num_entities, b.capacity] for b in prep.re_dataset.buckets]
+        dispatch = {
+            "pack_path": "none",
+            "re_path": ft["re_path"],
+            "sharding": {
+                "entity_sharded": False,
+                "axis_size": 1,
+                "rows_per_shard": {cid: int(prep.re_dataset.num_entities) + 1
+                                   for cid, prep in (self._prepared or {}).items()
+                                   if prep.re_dataset is not None},
+                "collective_bytes_per_sweep": 0,
+                "collective_bytes_total": 0,
+            },
+            **self._fit_dispatch,
+        }
+        data = self._prepared_dataset
+        return telemetry.build_profile(
+            "fit", wall_s=float(ft["prepare_s"]) + float(ft["solve_s"]), stages=stages,
+            dispatch=dispatch, bucket_shapes=bucket_shapes, fit_timing=ft,
+            ingest=dict(getattr(data, "ingest_timing", None) or {}),
+            topology=telemetry.device_topology(data.device))
 
     # -------------------------------------------------------------- sweeps
 
@@ -515,6 +627,12 @@ class GameEstimator:
             return coords
 
         return build
+
+
+def _layout_name(coordinate) -> str:
+    """The sparse layout a fixed effect trains on: its CSR row tiles, with
+    the CSC copy where one was built."""
+    return "csr_tiles+csc" if coordinate.training_features.has_csc else "csr_tiles"
 
 
 def select_best_result(results: Sequence[GameResult]) -> Tuple[int, GameResult]:

@@ -49,10 +49,17 @@ and checked on load; a missing, unreadable, torn or foreign file raises
 `CheckpointIntegrityError` (on ranks, naming the rank that wrote a missing
 shard).
 
+Background write: `begin_model_write` starts one step's model write on a
+thread (under a `ckpt_write` span parented to the caller's), so the caller
+can run the step's validation meanwhile; `save(staged=...)` joins it before
+state.json is replaced, and a background write whose retries were spent is
+redone synchronously, so the commit protocol is unchanged. On ranks the
+write holds a collective and stays on the main thread.
+
 Faults: every atomic write fires the `checkpoint_write` site, and a model
 write or the state.json commit runs under the bounded `retry`
 (utils/faults.py); a read retries transient failures but not a missing
-file. The background model write and the delta records are not ported.
+file. The delta records are not ported.
 """
 
 from __future__ import annotations
@@ -60,11 +67,14 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import logging
 import os
 import shutil
 import tempfile
+import threading
 import time
 import zlib
+from concurrent.futures import Future
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -72,7 +82,9 @@ import torch
 
 from photon_ml_tpu_torch.evaluation.suite import EvaluationResults, EvaluatorType
 from photon_ml_tpu_torch.game.model import Coefficients, FixedEffectModel, RandomEffectModel
-from photon_ml_tpu_torch.utils import faults
+from photon_ml_tpu_torch.utils import faults, telemetry
+
+logger = logging.getLogger(__name__)
 
 STATE_FILE = "state.json"
 STEPS_DIR = "steps"
@@ -324,6 +336,28 @@ class CoordinateDescentCheckpoint:
         self._best_files = {}
         self._checksums = {}
 
+    def begin_model_write(self, *, completed_steps: int, cid: str, model) -> tuple:
+        """Start step `completed_steps`'s write of `cid`'s model on a
+        background thread; returns the handle `(steps, cid, rel, future,
+        thread)` for `save(staged=...)`, which joins it before the commit.
+        The model is not changed once accepted, so the thread reads
+        consistent arrays."""
+        rel = os.path.join(STEPS_DIR, str(completed_steps), f"{cid}.npz")
+        fut: Future = Future()
+        handoff = telemetry.span_handoff()
+
+        def run():
+            try:
+                with telemetry.adopt_span(handoff), telemetry.span(
+                        "ckpt_write", step=completed_steps, coordinate=cid):
+                    fut.set_result(self._write_model_files(rel, model))
+            except BaseException as exc:  # noqa: BLE001 - joined in save()
+                fut.set_exception(exc)
+
+        thread = threading.Thread(target=run, daemon=True, name="photon-ckpt-write")
+        thread.start()
+        return (completed_steps, cid, rel, fut, thread)
+
     def save(
         self,
         *,
@@ -335,14 +369,35 @@ class CoordinateDescentCheckpoint:
         best_is_current: bool,
         best_results: Optional[EvaluationResults],
         validation_history,
+        staged: Optional[tuple] = None,
     ) -> None:
         """Commit one coordinate update. `trained_cid` is the coordinate
         updated this step (None for a rejected update); a coordinate with no
         file yet (a warm start's model at the first save) is written too.
         When `best_is_current`, the best snapshot re-references the current
-        files."""
+        files. `staged` is a `begin_model_write` handle: its thread is
+        joined first, and its files stand for that coordinate's write; if
+        its write failed after its retries, the model is written here
+        again, under the same retries."""
         step_rel = os.path.join(STEPS_DIR, str(completed_steps))
+        staged_cid = None
+        if staged is not None:
+            s_steps, s_cid, _, s_fut, s_thread = staged
+            s_thread.join()
+            if s_steps == completed_steps and s_cid == trained_cid:
+                try:
+                    s_rel_files, s_checksums = s_fut.result()
+                except Exception:
+                    logger.warning("background checkpoint write of %r failed; rewriting "
+                                   "synchronously", s_cid, exc_info=True)
+                    faults.COUNTERS.increment("fallback_sync_ckpt_writes")
+                else:
+                    self._checksums.update(s_checksums)
+                    self._model_files[s_cid] = s_rel_files
+                    staged_cid = s_cid
         for cid, model in models.items():
+            if cid == staged_cid:
+                continue
             if cid == trained_cid or cid not in self._model_files:
                 rel_files, checksums = self._write_model_files(
                     os.path.join(step_rel, f"{cid}.npz"), model)
@@ -465,6 +520,13 @@ class RankCheckpoint(CoordinateDescentCheckpoint):
         # More keys of state.json's `multihost` record.
         self.record: Dict[str, object] = {}
 
+    def begin_model_write(self, *, completed_steps: int, cid: str, model) -> tuple:
+        """Refused: a rank's write moves its rows to their block's writer in
+        a collective, which must run on the main thread in rank order."""
+        raise NotImplementedError(
+            "the background model write is not available on ranks: the row-block write holds "
+            "a collective, which runs on the main thread in rank order")
+
     def _write_model_files(self, rel: str, model):
         mesh, cid = self.mesh, os.path.basename(rel)[: -len(".npz")]
         if isinstance(model, RandomEffectModel):
@@ -475,8 +537,9 @@ class RankCheckpoint(CoordinateDescentCheckpoint):
             self._new += [(r, j) for j, r in enumerate(rels)]
             t0 = time.perf_counter()
             n_entities = self.coordinates[cid].re_dataset.num_entities
-            ck = _save_row_block(os.path.join(self.directory, rels[k]), k, n, start, matrix, var,
-                                 n_entities)
+            with telemetry.span("ckpt_write_shard", file=rels[k]):
+                ck = _save_row_block(os.path.join(self.directory, rels[k]), k, n, start, matrix,
+                                     var, n_entities)
             self._step_s["write_s"] = self._step_s.get("write_s", 0.0) + time.perf_counter() - t0
             return rels, {rels[k]: ck}
         self._new.append((rel, 0))

@@ -48,12 +48,22 @@ coordinate c is (summed scores - c's previous scores), three elementwise ops:
     process, and only the supervisor's relaunch of the survivors
     (parallel/hostmesh.py) recovers, from the checkpoint.
 
+  * `on_event(etype, **fields)` is the lifecycle hook: ("coordinate",
+    iteration, coordinate, seconds, accepted) after every update and
+    ("checkpoint", step, coordinate) after every durable save; the
+    estimator forwards them as typed events into the run journal;
+  * `prefetch` is the host overlap's switch (the estimator's `pipeline`).
+    The reference also starts the next coordinate's shard upload with it;
+    the port's shards live on their device from ingest on, so here it
+    gates only the staged checkpoint write: when an accepted update is
+    checkpointed and validated, its model write runs on a thread
+    (`begin_model_write`) while the validation evaluates, and the save
+    joins it before the commit. The models and files do not change.
+
 Each update runs under a `coordinate_update` span (utils/telemetry.py,
 with `accepted` set) and records its wall in the `coordinate_update_s`
-histogram; each durable save journals a `checkpoint` event. The in-process
-mesh-loss recovery (the reference's `mesh_rebuilder`), prefetch and the
-background checkpoint write are not ported: a rank holds the only copy of
-its rows.
+histogram. The in-process mesh-loss recovery (the reference's
+`mesh_rebuilder`) is not ported: a rank holds the only copy of its rows.
 """
 
 from __future__ import annotations
@@ -164,6 +174,8 @@ def run_coordinate_descent(
     checkpoint_dir: Optional[str] = None,
     stale_checkpoint: str = "error",
     checkpoint_factory=None,
+    prefetch: bool = False,
+    on_event=None,
 ) -> CoordinateDescentResult:
     """`coordinates`: ordered id -> Fixed/RandomEffectCoordinate.
     `validation_scorer(cid, model) -> scores` scores one coordinate's model
@@ -172,7 +184,9 @@ def run_coordinate_descent(
     there; `stale_checkpoint` ("error" or "discard") is the policy for a
     checkpoint of another configuration; `checkpoint_factory(checkpoint_dir)`
     builds the checkpoint (default: `CoordinateDescentCheckpoint`, or a
-    `RankCheckpoint` on ranks)."""
+    `RankCheckpoint` on ranks). `prefetch` stages each validated step's
+    model write on a thread, and `on_event` is the lifecycle hook (see the
+    module docstring)."""
     if stale_checkpoint not in ("error", "discard"):
         raise ValueError(f"stale_checkpoint must be 'error' or 'discard', got {stale_checkpoint!r}")
     locked = locked_coordinates or set()
@@ -318,8 +332,18 @@ def run_coordinate_descent(
                 )
             timing[f"{cid}/iter{it}"] = time.perf_counter() - t0
             telemetry.METRICS.observe("coordinate_update_s", timing[f"{cid}/iter{it}"])
+            if on_event is not None:
+                on_event("coordinate", iteration=it, coordinate=cid,
+                         seconds=timing[f"{cid}/iter{it}"], accepted=accepted)
 
-            if accepted and validation_scorer is not None and validation_suite is not None:
+            # The step's model write overlaps its validation below; save()
+            # joins it before the commit.
+            validates = validation_scorer is not None and validation_suite is not None
+            staged = None
+            if accepted and ckpt is not None and prefetch and validates:
+                staged = ckpt.begin_model_write(completed_steps=step + 1, cid=cid, model=model)
+
+            if accepted and validates:
                 val_scores[cid] = validation_scorer(cid, model)
                 total = validation_offsets
                 for s in val_scores.values():
@@ -341,8 +365,9 @@ def run_coordinate_descent(
                 ckpt.save(completed_steps=step + 1, seed=seed, config_key=ckpt_config_key,
                           models=models, trained_cid=cid if accepted else None,
                           best_is_current=best_updated, best_results=best_results,
-                          validation_history=validation_history)
-                telemetry.emit_event("checkpoint", step=step + 1, coordinate=cid)
+                          validation_history=validation_history, staged=staged)
+                if on_event is not None:
+                    on_event("checkpoint", step=step + 1, coordinate=cid)
 
     final = GameModel(dict(models))
     best = GameModel(dict(best_models)) if best_results is not None else final

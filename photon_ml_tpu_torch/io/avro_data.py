@@ -35,6 +35,7 @@ from photon_ml_tpu_torch.device import DeviceLike
 from photon_ml_tpu_torch.io import avro as avro_io
 from photon_ml_tpu_torch.io import avro_fast, schemas
 from photon_ml_tpu_torch.timing import StageTimes
+from photon_ml_tpu_torch.utils import telemetry
 
 # InputColumnsNames defaults (photon-api data/InputColumnsNames.scala:65-73).
 RESPONSE = "response"
@@ -161,8 +162,9 @@ def read_game_dataset(
         shards, labels, offsets, weights, id_tags, built = _read_python_chunked(
             files, shard_configs, index_maps, id_tag_fields, columns, times)
         tag_codes = {}
-    ds = GameDataset.build(shards, labels, offsets=offsets, weights=weights, id_tags=id_tags,
-                           tag_codes=tag_codes, device=device)
+    with telemetry.span("upload"):  # the host arrays onto `device`
+        ds = GameDataset.build(shards, labels, offsets=offsets, weights=weights, id_tags=id_tags,
+                               tag_codes=tag_codes, device=device)
     ds.ingest_timing = ingest_timing(times, time.perf_counter() - t_ingest)
     return ds, built
 

@@ -13,7 +13,8 @@ read does, and a file whose every block is bad raises. Each file's read
 and decode runs under the `decode` fault site with bounded retry of
 transient failures, the whole file re-read on each attempt; once the
 retries are spent the read raises, naming the file (the reference falls
-back to its Python codec there).
+back to its Python codec there). Each file's read is a `decode_file` trace
+span, parented to the reading thread's span.
 
 Files decode on a thread pool (ctypes releases the GIL, and each file's
 decode threads over its blocks) and the assembler consumes them in file
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -41,7 +43,7 @@ from photon_ml_tpu_torch.data.index_map import DELIMITER, IndexMap
 from photon_ml_tpu_torch.io import avro as avro_io
 from photon_ml_tpu_torch.native import avro_reader
 from photon_ml_tpu_torch.timing import StageTimes
-from photon_ml_tpu_torch.utils import faults
+from photon_ml_tpu_torch.utils import faults, telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -203,11 +205,14 @@ class _IngestAssembler:
         return labels, offsets, weights, bag_indptr, bag_gkeys, bag_vals
 
 
-def decode_file(c: CompiledFile, n_threads: int, quarantine: bool) -> avro_reader.DecodedFile:
+def decode_file(c: CompiledFile, n_threads: int, quarantine: bool,
+                handoff=None) -> avro_reader.DecodedFile:
     """One file's read and native decode under the `decode` fault site,
     retried on transient failures (the whole file re-read each attempt, so
-    a torn read never leaks into a retry). A corrupt block raises at once,
-    or is quarantined and counted; spent retries raise, naming the file."""
+    a torn read never leaks into a retry), inside a `decode_file` span
+    parented through `handoff` (`telemetry.span_handoff()` of the reading
+    thread). A corrupt block raises at once, or is quarantined and
+    counted; spent retries raise, naming the file."""
 
     def attempt() -> avro_reader.DecodedFile:
         faults.fault_point("decode")
@@ -218,7 +223,9 @@ def decode_file(c: CompiledFile, n_threads: int, quarantine: bool) -> avro_reade
             n_threads=n_threads, path=c.path, quarantine=quarantine)
 
     try:
-        out = faults.retry(attempt, label=f"avro decode {c.path}")
+        with telemetry.adopt_span(handoff), telemetry.span(
+                "decode_file", file=os.path.basename(c.path)):
+            out = faults.retry(attempt, label=f"avro decode {c.path}")
     except ValueError:
         raise  # a file the decoder rejects: it names the file already
     except Exception as exc:
@@ -235,11 +242,12 @@ def _decode_all(compiled: Sequence[CompiledFile], asm: _IngestAssembler, times: 
     """Decode every file into the assembler, in file order; returns whether
     the decode was streamed (several files on a thread pool)."""
     budget = avro_reader.default_threads()
+    handoff = telemetry.span_handoff()
 
     def decode(c: CompiledFile, n_threads: int) -> avro_reader.DecodedFile:
         t0 = time.perf_counter()
         try:
-            return decode_file(c, n_threads, quarantine)
+            return decode_file(c, n_threads, quarantine, handoff)
         finally:
             times.record("decode", time.perf_counter() - t0)
 

@@ -4,7 +4,8 @@
 A `StageTimes` is made by the caller for one operation (one
 `read_game_dataset` call, one estimator's prepare stages) and passed down
 explicitly: `stage(name)` times a
-block into it, `record` adds seconds measured elsewhere (a decode worker
+block into it (and records it as a trace span of the same name),
+`record` adds seconds measured elsewhere (a decode worker
 thread records its own wall), and `note` keeps a string annotation (which
 route ran). It is thread-safe, so worker threads of one call record into
 it directly; nothing here is process-wide.
@@ -19,6 +20,8 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
+from photon_ml_tpu_torch.utils import telemetry
+
 
 class StageTimes:
     def __init__(self) -> None:
@@ -32,16 +35,17 @@ class StageTimes:
 
     @contextmanager
     def stage(self, name: str, device: Optional[torch.device] = None) -> Iterator[None]:
-        """`with times.stage("ell"):` adds the block's wall clock to `name`.
-        With a CUDA `device`, the clock stops once the device has finished
-        the block's work."""
+        """`with times.stage("ell"):` adds the block's wall clock to `name`
+        and opens a span of that name. With a CUDA `device`, the clock stops
+        and the span closes once the device has finished the block's work."""
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if device is not None and device.type == "cuda":
-                torch.cuda.synchronize(device)
-            self.record(name, time.perf_counter() - t0)
+        with telemetry.span(name):
+            try:
+                yield
+            finally:
+                if device is not None and device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                self.record(name, time.perf_counter() - t0)
 
     def note(self, name: str, value: str) -> None:
         with self._lock:

@@ -13,7 +13,9 @@ executor's knobs (`PHOTON_SOLVE_RETRIES`, `PHOTON_SWEEP_*`) are the
 reference's; `PHOTON_SWEEP_SCAN` is not registered, because the port has no
 scan-dispatched bucket sweep. The multi-host supervisor's
 (`PHOTON_HOST_HEARTBEAT_MS`, `PHOTON_HOST_LOSS_RETRIES`) are the
-reference's too.
+reference's too. `PHOTON_PIPELINE` is the reference's host-overlap switch,
+read by `pipeline_enabled`; in the port it gates the staged checkpoint
+write (game/coordinate_descent.py), the only host overlap the port has.
 """
 
 from __future__ import annotations
@@ -126,6 +128,10 @@ _register("PHOTON_HOST_HEARTBEAT_MS", int, 500,
 _register("PHOTON_HOST_LOSS_RETRIES", int, 1,
           "Whole-host losses a multi-host supervisor absorbs before giving up (each costs one "
           "relaunch on the survivor set and one repeated sweep).")
+_register("PHOTON_PIPELINE", str, "",
+          "Host data-plane overlap: 1 forces threaded decode/pack/upload overlap, "
+          "0 forces synchronous; empty = auto (on when >1 effective core).",
+          choices=("", *_TRUE, *_FALSE))
 _register("PHOTON_TRACE", bool, False,
           "Span tracing (utils/telemetry.py): 1 records spans and exports Chrome "
           "trace-event JSON from cli.serve; 0 keeps span() a no-op.")
@@ -148,3 +154,22 @@ def knob_is_set(name: str) -> bool:
     """True when the knob is set to a non-empty value in the environment."""
     _knob(name)
     return os.environ.get(name, "").strip() != ""
+
+
+def pipeline_enabled(override: Optional[bool] = None) -> bool:
+    """Whether host work overlaps on threads: an explicit `override` (the
+    estimator's `pipeline=`) wins, then PHOTON_PIPELINE (0/false/off/no
+    disables, 1/true/on/yes forces), else on when this process may run on
+    more than one core (a second thread on one core only contends)."""
+    if override is not None:
+        return bool(override)
+    env = str(get_knob("PHOTON_PIPELINE")).strip().lower()
+    if env in _FALSE:
+        return False
+    if env in _TRUE:
+        return True
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):  # not Linux
+        cores = os.cpu_count() or 1
+    return cores > 1

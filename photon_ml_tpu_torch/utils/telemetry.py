@@ -20,8 +20,9 @@ Port of `photon_ml_tpu/utils/telemetry.py` for the layers the port has:
   `emit_event` writes into the installed journal (a no-op without one) and
   `validate_journal` checks a file afterwards.
 * **Run profile.** `build_profile` / `write_profile` assemble and write a
-  serve run's `profile.json` with the reference's keys; `device_topology`
-  reads `torch.cuda`.
+  fit's or a serve run's `profile.json` with the reference's keys, and
+  `read_profile` reads one back; both refuse a profile that lacks a key of
+  its kind. `device_topology` reads `torch.cuda`.
 
 Nothing here starts a thread or touches the card when imported.
 """
@@ -36,11 +37,12 @@ import math
 import os
 import threading
 import time
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 from photon_ml_tpu_torch.contracts import (
     JOURNAL_EVENT_SCHEMAS,
     JOURNAL_LINE_KEYS,
+    PROFILE_FIT_KEYS,
     PROFILE_REQUIRED_KEYS,
     PROFILE_SERVE_KEYS,
 )
@@ -53,6 +55,7 @@ logger = logging.getLogger(__name__)
 # coordinate descent use).
 METRIC_DESCRIPTIONS = {
     "retries": "bounded-backoff retries of transient failures (faults.retry)",
+    "fallback_sync_ckpt_writes": "staged checkpoint writes degraded to sync",
     "injected_faults": "faults fired by the deterministic injector",
     "quarantined_blocks": "corrupt Avro blocks quarantined on read",
     "serving_degraded_batches": "batches degraded to per-request dispatch",
@@ -317,7 +320,7 @@ class LatencyStats:
 
 
 def trace_from_env() -> bool:
-    """The PHOTON_TRACE knob: cli.serve starts a tracer when it is on."""
+    """The PHOTON_TRACE knob: the drivers start a tracer when it is on."""
     return bool(get_knob("PHOTON_TRACE"))
 
 
@@ -603,12 +606,13 @@ def validate_journal(path: str) -> Tuple[int, List[str]]:
             except ValueError as exc:
                 errors.append(f"line {lineno}: not JSON ({exc})")
                 continue
-            if "ts" not in doc:
-                errors.append(f"line {lineno}: missing ts")
-                continue
             error = _check_event(doc.get("type"),
                                  {k: v for k, v in doc.items() if k not in JOURNAL_LINE_KEYS})
-            if error is not None:
+            if error is not None and doc.get("type") not in JOURNAL_EVENT_SCHEMAS:
+                errors.append(f"line {lineno}: {error}")
+            elif "ts" not in doc:
+                errors.append(f"line {lineno}: missing ts")
+            elif error is not None:
                 errors.append(f"line {lineno}: {error}")
             else:
                 n_ok += 1
@@ -636,26 +640,47 @@ def device_topology(device=None) -> Dict[str, object]:
 
 def build_profile(kind: str, *, wall_s: float, stages: Mapping[str, float],
                   dispatch: Mapping[str, object], bucket_shapes: Mapping[str, object],
-                  serving: Mapping[str, object], topology: Mapping[str, object],
-                  metrics: Optional[Mapping[str, object]] = None) -> Dict[str, object]:
-    """A serve run's profile (the port writes no fit profile yet: the
-    training drivers' `--profile` is ROADMAP item 10)."""
-    if kind != "serve":
-        raise ValueError(f"profile kind {kind!r}: the port writes serve profiles only "
-                         "(fit profiles are ROADMAP item 10)")
-    return {"kind": kind, "wall_s": round(float(wall_s), 4), "stages": dict(stages),
-            "dispatch": dict(dispatch), "bucket_shapes": dict(bucket_shapes),
-            "device_topology": dict(topology),
-            "roofline": {"hbm_gb_per_s": HBM_ROOFLINE_GB_S.get(topology.get("device_kind"))},
-            "metrics": dict(metrics if metrics is not None else METRICS.snapshot()),
-            "serving": dict(serving)}
+                  fit_timing: Optional[Mapping[str, object]] = None,
+                  ingest: Optional[Mapping[str, object]] = None,
+                  serving: Optional[Mapping[str, object]] = None,
+                  metrics: Optional[Mapping[str, object]] = None,
+                  topology: Optional[Mapping[str, object]] = None) -> Dict[str, object]:
+    """A run profile of `kind` "fit" or "serve"; the kind's own sections
+    are required (a fit's `fit_timing`, a serve run's `serving`). The
+    roofline is the card's own memory rate, None off a known card."""
+    if kind not in ("fit", "serve"):
+        raise ValueError(f"profile kind must be 'fit' or 'serve', not {kind!r}")
+    topo = dict(topology if topology is not None else device_topology())
+    profile: Dict[str, object] = {
+        "kind": kind, "wall_s": round(float(wall_s), 4), "stages": dict(stages),
+        "dispatch": dict(dispatch), "bucket_shapes": dict(bucket_shapes),
+        "device_topology": topo,
+        "roofline": {"hbm_gb_per_s": HBM_ROOFLINE_GB_S.get(topo.get("device_kind"))},
+        "metrics": dict(metrics if metrics is not None else METRICS.snapshot())}
+    if kind == "fit":
+        if fit_timing is None:
+            raise ValueError("fit profiles need fit_timing")
+        profile["fit_timing"] = dict(fit_timing)
+        profile["ingest"] = dict(ingest or {})
+    else:
+        if serving is None:
+            raise ValueError("serve profiles need the serving metrics block")
+        profile["serving"] = dict(serving)
+    return profile
+
+
+def _profile_schema(kind: str) -> Sequence[str]:
+    if kind == "fit":
+        return PROFILE_FIT_KEYS
+    if kind == "serve":
+        return PROFILE_SERVE_KEYS
+    return PROFILE_REQUIRED_KEYS
 
 
 def write_profile(path: str, profile: Mapping[str, object]) -> str:
     """Check the profile's keys against its kind's contract, then write it
     atomically."""
-    schema = PROFILE_SERVE_KEYS if profile.get("kind") == "serve" else PROFILE_REQUIRED_KEYS
-    missing = [k for k in schema if k not in profile]
+    missing = [k for k in _profile_schema(str(profile.get("kind"))) if k not in profile]
     if missing:
         raise ValueError(f"refusing to write a profile missing contract keys {missing}")
     tmp = path + ".tmp"
@@ -663,3 +688,18 @@ def write_profile(path: str, profile: Mapping[str, object]) -> str:
         json.dump(profile, f, indent=2, default=str)
     os.replace(tmp, path)
     return path
+
+
+def read_profile(path: str, kind: Optional[str] = None) -> Dict[str, object]:
+    """A profile read back: one of another kind than `kind`, or one that
+    lacks a key of its kind, raises."""
+    with open(path) as f:
+        profile = json.load(f)
+    found_kind = profile.get("kind")
+    if kind is not None and found_kind != kind:
+        raise ValueError(f"profile at {path} has kind {found_kind!r}, expected {kind!r}")
+    missing = [k for k in _profile_schema(str(found_kind)) if k not in profile]
+    if missing:
+        raise ValueError(f"profile at {path} is missing contract keys {missing} "
+                         f"(got {sorted(profile)}) — the run-profile contract is broken")
+    return profile

@@ -64,7 +64,7 @@ def test_every_port_module_imports_with_jax_blocked():
                  "hyperparameter.tuner", "utils.knobs", "utils.faults", "utils.watchdog",
                  "utils.telemetry", "serving", "serving.bundle", "serving.engine", "serving.batcher",
                  "serving.lifecycle", "cli.serve", "hyperparameter.sweep", "cli.tune",
-                 "parallel.hostmesh", "cli.train_multihost", "cli.serve_multihost"):
+                 "parallel.hostmesh", "cli.train_multihost", "cli.serve_multihost", "cli.obs"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = _BLOCK_JAX + textwrap.dedent(
         """

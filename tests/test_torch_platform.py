@@ -311,9 +311,14 @@ def test_spans_parent_across_a_thread_handoff_and_export(tmp_path):
 
 
 def test_a_port_journal_passes_the_reference_validator(tmp_path):
-    """One line of each event type the port emits (the serving path, the
-    sweep executor, the checkpoint and the multi-host layers)."""
-    fields = {"health_transition": dict(from_state="READY", to_state="DEGRADED", reasons=["circuit_open"]),
+    """One line of each event type the port emits (the training lifecycle,
+    the serving path, the sweep executor, the checkpoint and the multi-host
+    layers)."""
+    fields = {"setup": dict(args="{'device': 'cpu'}"), "fit_start": dict(num_samples=-1),
+              "sweep_config": dict(index=0, total=2),
+              "coordinate_update": dict(iteration=0, coordinate="global", seconds=0.25, accepted=True),
+              "fit_finish": dict(num_configs=2, best_metric=None), "failure": dict(error="ValueError()"),
+              "health_transition": dict(from_state="READY", to_state="DEGRADED", reasons=["circuit_open"]),
               "bundle_swap": dict(version=1, outcome="committed"),
               "fault_retry": dict(label="x", counter="retries", attempt=1, error="InjectedFault()"),
               "fault_injected": dict(site="score", invocation=3), "watchdog_trip": dict(label="x"),
@@ -350,7 +355,8 @@ def test_a_serve_profile_passes_the_reference_reader(tmp_path):
                                       serving={"completed": 3}, topology=telemetry.device_topology("cpu"))
     path = telemetry.write_profile(str(tmp_path / "profile.json"), profile)
     assert jax_telemetry.read_profile(path, kind="serve")["device_topology"]["platform"] == "cpu"
-    with pytest.raises(ValueError, match="item 10"):
+    assert telemetry.read_profile(path, kind="serve") == jax_telemetry.read_profile(path, kind="serve")
+    with pytest.raises(ValueError, match="fit_timing"):  # a fit profile needs its own section
         telemetry.build_profile("fit", wall_s=1.0, stages={}, dispatch={}, bucket_shapes={}, serving={},
                                 topology={})
     with pytest.raises(ValueError, match="missing contract keys"):
@@ -363,6 +369,7 @@ def test_a_serve_profile_passes_the_reference_reader(tmp_path):
 @pytest.mark.parametrize("name", ["SERVING_METRIC_KEYS", "SERVING_SHARDING_KEYS", "SERVING_CLEAN_ZERO_KEYS",
                                   "ROBUSTNESS_CLEAN_ZERO_KEYS", "SERVING_SUMMARY_KEYS", "BUNDLE_PROVENANCE_KEYS",
                                   "JOURNAL_LINE_KEYS", "PROFILE_REQUIRED_KEYS", "PROFILE_SERVE_KEYS",
+                                  "PROFILE_FIT_KEYS",
                                   "PLAN_BLOCK_KEYS"])
 def test_contract_tuples_are_the_reference_tuples(name):
     assert getattr(contracts, name) == getattr(jax_contracts, name)

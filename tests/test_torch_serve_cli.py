@@ -85,6 +85,10 @@ def _by_uid(scores_dir: Path) -> dict:
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
+    # Set up before the per-test hygiene: start from no plan and zero counts,
+    # whatever an earlier test file in this process left.
+    faults.clear()
+    telemetry.METRICS.reset()
     root = tmp_path_factory.mktemp("serve")
     data = root / "data"
     subprocess.run([sys.executable, str(REPO / "examples" / "generate_dataset.py"), str(data),
