@@ -148,6 +148,44 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    PORT_TOLERANCES["card_vs_cpu_glmix"], each random effect on its
    objective (with its projection, normalization and mask), the fixed
    effect's and per-user's variances within its "variance_rtol".
+3r. Continuous refresh (game/incremental.py, serving/delta.py), after 3f,
+   its launches counted from 0 around both parts. 3r-loop: bench.py's
+   continuous_loop certificate (bench.py:1419-1646) on one card (the
+   reference ran it on 8 devices; the row-sharded store is ROADMAP item
+   9c): 16,384 entities x 12 rows, a dense fixed effect of width 8 (L-BFGS
+   10 iterations, L2 1) and a per-entity random effect of width 12
+   (min_bucket 8, 40 iterations, L2 1), logistic; a full fit, an engine
+   (max_batch 64) warmed on 128 requests, both paths warmed, then under a
+   replay thread through the batcher an incremental fit of 128 delta rows
+   over 6 churned and 2 new entities, its delta bundle and apply_delta,
+   against a full refit and a full restage under the same replay. Prints
+   every CONTINUOUS_SECTION_KEYS key (n_devices 1) and the stages. Gates:
+   mode delta, the unchanged entities bit-equal, 0 failed requests and
+   some answered, generation 1, the engine's answers bit-equal to a cold
+   engine of the new state, no recompile after warm-up. Then an in-place
+   edit of one entity's rows, whose refresh must carry the fixed effect's
+   tensor and every other entity bit for bit; a second delta with
+   `shard_upload` armed, which must roll back under replay (0 failed, the
+   generation unchanged, delta_rollbacks 1); and the same incremental fit
+   on the CPU at 1/16 of the entities (a cut; bf16-exact fixed-effect
+   data), which must give the card's plan, the fixed effect within
+   PORT_TOLERANCES["card_vs_cpu_glmix"]["fe_coef_atol"] and the random
+   effect within its "re_objective_rtol" on the objective. 3r-e2e: 3e's
+   ingested dataset and its three coordinates (both random effects keep
+   3e's active-row caps, so the plan re-solves each whole coordinate,
+   warm-started; printed): a full fit (one sweep) and an engine of it,
+   then two rounds, each a 40,000-row Avro file (1% of the rows; users
+   from 2,000 of 3e's plus 16 new ones, movies uniform, labelled by 3e's
+   truth) read through 3e's index maps, merged, refit incrementally at
+   max_delta_fraction 1.0 (uniform movies churn nearly every movie, so the
+   default 0.5 would say "full": the default's mode is printed) and
+   flipped into the live engine under replay of 3e's rows, against a full
+   refit and restage of the merged rows. Prints each round's stages
+   (read, merge, fingerprint copy and hash, plan, build, offsets, solve by
+   coordinate, delta build, apply), data_to_served_s, the baseline and
+   device memory. Gates: 0 failed requests, generation 2, the engine
+   bit-equal to a cold engine of the final state on 4,096 requests; #1
+   (3r-loop), #4 and #5 (3r-e2e) launched.
 3c. The drivers at full width on phase 3e's Avro files (kept until 3c
    ends): `photon_ml_tpu_torch.cli.train.main` with the e2e cell's
    coordinates as DSL strings (one sweep, output mode BEST), then
@@ -243,7 +281,7 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    new read of the files); the scoring AUC within its "auc_atol" (the row
    prints the largest score difference beside it); sparse_fused in train
    and sparse_matvec in score, no dense kernel.
-3x-scale. On the host: a PHIDX store of 2,097,152 synthetic name\x01term
+3x-scale. On the host: a PHIDX store of 1,048,576 synthetic name\x01term
    keys in 8 partitions (build seconds, a get_index sweep of every key and
    a get_feature_name sweep of every id, in keys a second, MiB on disk);
    then PalDB at 262,144 keys in 4 partitions, the cut its pure-Python
@@ -395,7 +433,7 @@ print which backend each used.
    CPU process, under PORT_TOLERANCES["card_vs_cpu_glmix"].
 
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
-3s, 4s, 3e, 3f, 5f's card fits, 3c's two drivers, 5c's card runs, each run
+3s, 4s, 3e, 3f, 3r, 5f's card fits, 3c's two drivers, 5c's card runs, each run
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
 sweep and its cli.tune run, 3v's engine path, 3q's reads and 3mv's
 emulation in this process, each worker of 3mv's runs from its start,
@@ -1164,12 +1202,14 @@ def write_e2e_files(root: str, a: dict, parts: int = 2) -> float:
     return sum(os.path.getsize(os.path.join(root, f)) for f in os.listdir(root)) / 1e6
 
 
-def read_e2e(root: str, device):
+def read_e2e(root: str, device, index_maps=None, with_maps: bool = False):
+    """3e's files (or one file like them) as a dataset on `device`; with
+    `index_maps`, read through those maps; `with_maps` returns them too."""
     from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig, read_game_dataset
 
-    ds, _ = read_game_dataset(root, {"g": FeatureShardConfig(("features",), True)},
-                              id_tag_fields=E2E_TAGS, device=device)
-    return ds
+    ds, maps = read_game_dataset(root, {"g": FeatureShardConfig(("features",), True)},
+                                 index_maps=index_maps, id_tag_fields=E2E_TAGS, device=device)
+    return (ds, maps) if with_maps else ds
 
 
 def e2e_re_config(cid: str, mask_ratio=None):
@@ -1266,8 +1306,479 @@ def small_e2e_fit(ds, mask_ratio=None) -> dict:
                     else red.owned_entities.cpu()) for c, red in reds.items()})
 
 
+# ---------------------------------------------------------------- phase 3r
+# Continuous refresh (game/incremental.py, serving/delta.py). 3r-loop is the
+# reference bench's certificate at its shape (bench.py:1419-1646) on one card;
+# 3r-e2e refreshes 3e's cell at full width. Both flip a live engine under a
+# replay thread.
+
+R_ENTITIES = 16_384  # 3r-loop: the bench's 2,048 entities a device x 8 devices
+R_ROWS_PER_ENTITY = 12
+R_CPU_CUT = 16  # 3r-loop's card-vs-CPU check runs at 1/16 of the entities
+R_E2E_BATCH = 40_000  # 3r-e2e: rows a round (1% of 3e's)
+R_E2E_POOL = 2_000  # 3e's users a round's rows come from, plus R_E2E_NEW new ones
+R_E2E_NEW = 16
+R_E2E_ROUNDS = 2
+R_E2E_CHECK = 4_096  # requests held against a cold engine of the final state
+
+
+class Replay:
+    """`reqs` sent one at a time through `batcher` from a thread, with a
+    short pause between them (the bench's throttle, so the refresh it races
+    keeps the host), until the block ends; counts answers and failures."""
+
+    def __init__(self, batcher, reqs, pause_s: float = 0.002):
+        self.batcher, self.reqs, self.pause_s = batcher, reqs, pause_s
+        self.answered, self.failures = 0, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="photon-refresh-replay")
+
+    def _run(self):
+        j = 0
+        while not self._stop.is_set():
+            try:
+                self.batcher.submit(self.reqs[j % len(self.reqs)], block=True).result(timeout=120)
+                self.answered += 1
+            except Exception as exc:  # noqa: BLE001 - counted, the gate reads it
+                self.failures.append(repr(exc))
+            j += 1
+            time.sleep(self.pause_s)
+
+    def __enter__(self):
+        self._thread.start()
+        time.sleep(0.1)
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=300)
+        if self._thread.is_alive():
+            raise SystemExit("phase 3r: the replay thread did not stop")
+        return False
+
+
+def refresh_loop_configs():
+    """The bench's continuous_loop configuration: a dense fixed effect "g"
+    (L-BFGS 10 iterations, L2 1) and a per-entity random effect on "re"
+    (min_bucket 8; 40 iterations, L2 1)."""
+    from photon_ml_tpu_torch.data.game_dataset import FixedEffectDataConfig, RandomEffectDataConfig
+    from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
+
+    data = {"fixed": FixedEffectDataConfig("g"),
+            "per-entity": RandomEffectDataConfig("eid", "re", min_bucket=8)}
+    opt = {"fixed": CoordinateOptimizationConfig(optimizer=OptimizerConfig(max_iterations=10),
+                                                 regularization=L2, reg_weight=1.0),
+           "per-entity": CoordinateOptimizationConfig(optimizer=OptimizerConfig(max_iterations=40),
+                                                      regularization=L2, reg_weight=1.0)}
+    return data, opt
+
+
+def refresh_loop_data(n_ent: int, dev, bf16_exact: bool = False):
+    """The bench's draws (seed 61) at `n_ent` entities: the base rows (12 an
+    entity), 128 requests, and the delta batch of 128 rows over 6 churned
+    and 2 new entities (ids past the base's, so they append). `bf16_exact`
+    rounds the fixed effect's shard through bf16, so the card's bf16 copy
+    of it loses nothing (the card-vs-CPU check)."""
+    import torch
+
+    from photon_ml_tpu_torch.data.game_dataset import GameDataset
+    from photon_ml_tpu_torch.serving import ScoreRequest
+
+    rng = np.random.default_rng(61)
+    d_fe, d_re = 8, 12
+
+    def make_batch(n, pool):
+        ent = np.resize(np.asarray(pool, np.int64), n)
+        g = rng.normal(size=(n, d_fe)).astype(np.float32)
+        if bf16_exact:
+            g = torch.from_numpy(g).to(torch.bfloat16).float().numpy()
+        arrays = dict(g=g,
+                      re=rng.normal(size=(n, d_re)).astype(np.float32),
+                      y=(rng.uniform(size=n) < 0.5).astype(np.float32), eid=ent)
+        return arrays, GameDataset.build({"g": arrays["g"], "re": arrays["re"]}, arrays["y"],
+                                         id_tags={"eid": ent}, device=dev)
+
+    base = make_batch(n_ent * R_ROWS_PER_ENTITY, np.arange(n_ent))
+    n_req = 128
+    Xf = rng.normal(size=(n_req, d_fe)).astype(np.float32)
+    Xr = rng.normal(size=(n_req, d_re)).astype(np.float32)
+    reqs = [ScoreRequest(features={"g": Xf[i], "re": Xr[i]}, entity_ids={"eid": int(v)}, uid=str(i))
+            for i, v in enumerate(rng.integers(0, n_ent, size=n_req))]
+    churn = rng.choice(n_ent, size=6, replace=False)
+    fresh = np.arange(n_ent, n_ent + 2)
+    delta = make_batch(128, np.concatenate([churn, fresh]))
+    return base, reqs, delta
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+def refresh_loop_phase(dev) -> dict:
+    """3r-loop: the bench's continuous_loop certificate on one card, its
+    every CONTINUOUS_SECTION_KEYS key, then a carried-coordinate round, the
+    rollback drill and the card-vs-CPU fit at 1/16 of the entities."""
+    import torch
+
+    from photon_ml_tpu_torch.contracts import CONTINUOUS_SECTION_KEYS, PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.game_dataset import (
+        GameDataset,
+        build_random_effect_dataset,
+        concat_datasets,
+    )
+    from photon_ml_tpu_torch.game import incremental
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.serving import ServingBundle, ServingEngine
+    from photon_ml_tpu_torch.serving.delta import apply_delta, build_delta_bundle
+    from photon_ml_tpu_torch.transformers.game_transformer import coordinate_margins, prepare_coordinate_data
+    from photon_ml_tpu_torch.types import TaskType
+    from photon_ml_tpu_torch.utils import faults
+
+    task = TaskType.LOGISTIC_REGRESSION
+    data_configs, opt_configs = refresh_loop_configs()
+    failures = []
+    faults.clear()
+    (base_np, base), reqs, (delta_np, delta_ds) = refresh_loop_data(R_ENTITIES, dev)
+    specs_of = lambda st: incremental.scoring_specs(data_configs, st.entity_indices)
+    bundle_of = lambda st: ServingBundle.from_model(st.model, specs_of(st), task, device=dev)
+
+    # ---- round 0: a full fit and a warmed engine
+    t0 = time.perf_counter()
+    state = incremental.full_fit(base, data_configs, opt_configs, task)
+    torch.cuda.synchronize()
+    full_fit_s = time.perf_counter() - t0
+    engine = ServingEngine(bundle_of(state), max_batch=64)
+    engine.warmup()
+    engine.score_batch(reqs)
+    merged = concat_datasets(base, delta_ds)
+    # Both paths warmed before the clocks, as the bench warms them.
+    incremental.incremental_fit(merged, data_configs, opt_configs, task, prev=state)
+    warm = incremental.full_fit(merged, data_configs, opt_configs, task)
+    bundle_of(warm).release()
+    del warm
+    torch.cuda.synchronize()
+
+    with engine, engine.batcher(max_wait_ms=0.5) as batcher:
+        with Replay(batcher, reqs) as replay:
+            t_data = time.perf_counter()
+            result = incremental.incremental_fit(merged, data_configs, opt_configs, task, prev=state)
+            t_build = time.perf_counter()
+            delta = build_delta_bundle(state, result.state, source="3r-loop", mode=result.plan.mode,
+                                       delta_rows=result.plan.delta_rows,
+                                       total_rows=result.plan.total_rows)
+            t_apply = time.perf_counter()
+            info = apply_delta(engine, delta)
+            delta_apply_s = time.perf_counter() - t_apply
+            data_to_served_s = time.perf_counter() - t_data
+            # The baseline under the same replay: a full refit and a full restage.
+            t_base = time.perf_counter()
+            cold_state = incremental.full_fit(merged, data_configs, opt_configs, task)
+            bundle_of(cold_state).release()
+            torch.cuda.synchronize()
+            full_refresh_baseline_s = time.perf_counter() - t_base
+            del cold_state
+        answered, failed = replay.answered, list(replay.failures)
+        recompiles = engine.recompiles_after_warmup
+        live = [r.score for r in engine.score_batch(reqs)]
+        changed = set(result.plan.changed_entities.get("per-entity", ()))
+        prev_idx = state.entity_indices["per-entity"]
+        new_idx = result.state.entity_indices["per-entity"]
+        pm = state.model["per-entity"].coefficients_matrix
+        nm = result.state.model["per-entity"].coefficients_matrix
+        keep = [k for k in prev_idx if k not in changed]
+        unchanged_bitwise = same_bits(pm[[prev_idx[k] for k in keep]], nm[[new_idx[k] for k in keep]])
+        with ServingEngine(bundle_of(result.state), max_batch=64) as cold:
+            cold_scores = [r.score for r in cold.score_batch(reqs)]
+            cold.bundle.release()
+
+        # ---- the rollback drill: a second round's delta with shard_upload armed
+        state1 = result.state
+        rng = np.random.default_rng(62)
+        pool = np.concatenate([rng.choice(R_ENTITIES, size=6, replace=False),
+                               np.arange(R_ENTITIES + 2, R_ENTITIES + 4)])
+        ent = np.resize(pool, 128)
+        drill_ds = GameDataset.build({"g": rng.normal(size=(128, 8)).astype(np.float32),
+                                      "re": rng.normal(size=(128, 12)).astype(np.float32)},
+                                     (rng.uniform(size=128) < 0.5).astype(np.float32),
+                                     id_tags={"eid": ent}, device=dev)
+        merged2 = concat_datasets(merged, drill_ds)
+        res2 = incremental.incremental_fit(merged2, data_configs, opt_configs, task, prev=state1)
+        delta2 = build_delta_bundle(state1, res2.state, source="3r-drill", mode=res2.plan.mode)
+        rollbacks_before = faults.COUNTERS.get("delta_rollbacks")
+        with Replay(batcher, reqs) as drill:
+            try:
+                with faults.inject("shard_upload:9999"):
+                    apply_delta(engine, delta2)
+                raised = None
+            except faults.InjectedFault as exc:
+                raised = exc
+        drill_row = dict(raised=repr(raised), answered=drill.answered, failed=len(drill.failures),
+                         generation=engine.bundle_version,
+                         delta_rollbacks=faults.COUNTERS.get("delta_rollbacks") - rollbacks_before,
+                         scores_unchanged=[r.score for r in engine.score_batch(reqs)] == live)
+        if raised is None or drill.failures or drill.answered == 0 or engine.bundle_version != 1 \
+                or drill_row["delta_rollbacks"] != 1 or not drill_row["scores_unchanged"]:
+            failures.append(f"the shard_upload drill did not roll back cleanly: {drill_row}")
+    engine.bundle.release()
+
+    record = dict(zip(CONTINUOUS_SECTION_KEYS, (
+        1, int(result.plan.total_rows), int(result.plan.delta_rows), result.plan.delta_fraction,
+        list(result.plan.changed_coordinates), full_fit_s, result.seconds, delta_apply_s,
+        data_to_served_s, full_refresh_baseline_s, full_refresh_baseline_s / max(data_to_served_s, 1e-9),
+        bool(unchanged_bitwise), answered, len(failed), int(info["version"]))))
+    log(json.dumps(dict(phase="3r-loop", **record, mode=result.plan.mode,
+                        entities=R_ENTITIES, rows=base.num_samples,
+                        changed_entities=len(changed), new_entities=len(result.plan.new_entities.get(
+                            "per-entity", ())),
+                        stages_s=dict(result.stage_s, delta_build=t_apply - t_build,
+                                      apply={k: info[f"{k}_s"] for k in ("upload", "prewarm", "flip")}),
+                        delta=delta.manifest(), recompiles_after_warmup=recompiles,
+                        bit_equal_to_cold_engine=live == cold_scores, drill=drill_row,
+                        max_rel_diff=result.max_rel_diff)))
+    if result.plan.mode != "delta" or not unchanged_bitwise or failed or answered == 0 \
+            or info["version"] != 1 or live != cold_scores or recompiles != 0:
+        failures.append(f"the certificate failed: mode {result.plan.mode}, unchanged bit-equal "
+                        f"{unchanged_bitwise}, {len(failed)} failed of {answered} answered, generation "
+                        f"{info['version']}, bit-equal to a cold engine {live == cold_scores}, "
+                        f"recompiles {recompiles}")
+
+    # ---- a carried coordinate: one entity's rows edited in place, the
+    # fixed effect's inputs untouched, so its tensor is carried.
+    target = int(base_np["eid"][0])
+    edited = dict(base_np, re=base_np["re"].copy())
+    edited["re"][base_np["eid"] == target] *= 1.5
+    edited_ds = GameDataset.build({"g": edited["g"], "re": edited["re"]}, edited["y"],
+                                  id_tags={"eid": edited["eid"]}, device=dev)
+    carry = incremental.incremental_fit(edited_ds, data_configs, opt_configs, task, prev=state)
+    fe_carried = same_bits(carry.state.model["fixed"].coefficients.means,
+                           state.model["fixed"].coefficients.means)
+    row = state.entity_indices["per-entity"][target]
+    others = torch.ones(pm.shape[0], dtype=torch.bool, device=pm.device)
+    others[row] = False
+    re_carried = same_bits(carry.state.model["per-entity"].coefficients_matrix[others], pm[others])
+    log(json.dumps(dict(phase="3r-loop-carry", mode=carry.plan.mode,
+                        changed=list(carry.plan.changed_coordinates),
+                        carried=list(carry.carried_coordinates), fixed_bit_equal=fe_carried,
+                        other_entities_bit_equal=re_carried, seconds=carry.seconds)))
+    if carry.plan.changed_coordinates != ("per-entity",) or not fe_carried or not re_carried:
+        failures.append("an in-place random-effect edit did not carry the fixed effect and the other "
+                        "entities bit for bit")
+
+    # ---- card vs CPU, at 1/16 of the entities
+    tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
+    fits = {}
+    for where in (dev, torch.device("cpu")):
+        (_, b), _, (_, d) = refresh_loop_data(R_ENTITIES // R_CPU_CUT, where, bf16_exact=True)
+        st = incremental.full_fit(b, data_configs, opt_configs, task)
+        m = concat_datasets(b, d)
+        fits[where.type] = (m, incremental.incremental_fit(m, data_configs, opt_configs, task, prev=st))
+    (_, card), (m_cpu, cpu) = fits["cuda" if dev.type == "cuda" else "cpu"], fits["cpu"]
+    plan_fields = lambda p: (p.mode, p.changed_coordinates, p.changed_entities, p.new_entities,
+                             p.delta_rows, p.total_rows)
+    fe_err = float((card.state.model["fixed"].coefficients.means.cpu()
+                    - cpu.state.model["fixed"].coefficients.means).abs().max())
+    red = build_random_effect_dataset(m_cpu, data_configs["per-entity"])
+    spec = incremental.scoring_specs(data_configs, cpu.state.entity_indices)["fixed"]
+    offsets = m_cpu.offsets + coordinate_margins(spec, cpu.state.model["fixed"],
+                                                 prepare_coordinate_data(spec, m_cpu))
+    re_gap = re_objective_gap(m_cpu, red, offsets, LOGISTIC, 1.0,
+                              card.state.model["per-entity"].coefficients_matrix.cpu(),
+                              cpu.state.model["per-entity"].coefficients_matrix)
+    same_plan = plan_fields(card.plan) == plan_fields(cpu.plan)
+    log(json.dumps(dict(phase="3r-loop-cpu", entities=R_ENTITIES // R_CPU_CUT, same_plan=same_plan,
+                        mode=cpu.plan.mode, fe_coef_err=fe_err, re_objective_gap=re_gap, tol=tol)))
+    if not same_plan or fe_err > tol["fe_coef_atol"] or re_gap > tol["re_objective_rtol"]:
+        failures.append(f"card vs CPU: same plan {same_plan}, fixed effect {fe_err:.3e}, random "
+                        f"effect objective gap {re_gap:.3e} (tolerance {tol})")
+    if failures:
+        raise SystemExit("phase 3r-loop failed: " + "; ".join(failures))
+    return record
+
+
+def e2e_batch_arrays(rows: int, seed: int, pool: np.ndarray, n_movies: int, truth, user_effect: dict):
+    """One refresh round's rows in e2e_arrays' form (its draws, in its
+    order): users from `pool`, movies uniform, 8 uniform ids a row, labels
+    by 3e's `truth` (`user_effect` gives the new users' effects)."""
+    rng = np.random.default_rng(seed)
+    users = rng.choice(pool, size=rows)
+    movies = rng.integers(0, n_movies, size=rows)
+    indptr = np.arange(rows + 1, dtype=np.int64) * E2E_K
+    ids = rng.integers(0, E2E_D, size=rows * E2E_K).astype(np.int32)
+    vals = rng.normal(size=rows * E2E_K)
+    w_true, user_eff, movie_eff = truth
+    u_eff = np.array([user_effect[u] if u in user_effect else user_eff[u] for u in users.tolist()])
+    margin = (vals * w_true[ids]).reshape(rows, E2E_K).sum(axis=1) + u_eff * 0.7 + movie_eff[movies] * 0.7
+    labels = (rng.uniform(size=rows) < 1 / (1 + np.exp(-margin))).astype(np.float64)
+    return dict(users=users, movies=movies, indptr=indptr, ids=ids, vals=vals, labels=labels)
+
+
+def e2e_requests(ds, n: int, seed: int):
+    """`n` of `ds`'s rows as serving requests: the row's ELL entries and its
+    user and movie ids."""
+    from photon_ml_tpu_torch.serving import ScoreRequest
+
+    rows = np.random.default_rng(seed).choice(ds.num_samples, size=n, replace=False)
+    sf = ds.shards["g"]
+    idx, val = sf.indices[rows].cpu().numpy(), sf.values[rows].cpu().numpy()
+    tags = {t: ds.id_tags[t][rows] for t in E2E_TAGS}
+    return [ScoreRequest(features={"g": (idx[i], val[i])},
+                         entity_ids={t: str(tags[t][i]) for t in E2E_TAGS}, uid=str(int(r)))
+            for i, r in enumerate(rows)]
+
+
+def refresh_e2e_phase(ds, maps, truth, n_users: int, n_movies: int, dev) -> dict:
+    """3r-e2e: 3e's cell refreshed twice at full width into a live engine
+    under replay (the module docstring); each round's batch is an Avro file
+    read through 3e's index maps."""
+    import os
+    import tempfile
+
+    import torch
+
+    from photon_ml_tpu_torch.data.game_dataset import FixedEffectDataConfig, concat_datasets
+    from photon_ml_tpu_torch.game import incremental
+    from photon_ml_tpu_torch.serving import ServingBundle, ServingEngine
+    from photon_ml_tpu_torch.serving.delta import apply_delta, build_delta_bundle
+    from photon_ml_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    fe, re = e2e_configs()
+    data_configs = {"global": FixedEffectDataConfig("g"),
+                    **{cid: e2e_re_config(cid) for cid in E2E_RE}}
+    opt_configs = {"global": fe, "per-user": re, "per-movie": re}
+    specs_of = lambda st: incremental.scoring_specs(data_configs, st.entity_indices)
+    failures = []
+    # 3e's rows and shard "g" alone (3f registered its projected shards on
+    # the dataset), sharing its tensors and its layout of "g".
+    key = ("sparse_layout", "g")
+    ds = dataclasses.replace(ds, shards={"g": ds.shards["g"]},
+                             cache={key: ds.cache[key]} if key in ds.cache else {})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = incremental.full_fit(ds, data_configs, opt_configs, task)
+    torch.cuda.synchronize()
+    full_fit_s = time.perf_counter() - t0
+    engine = ServingEngine(ServingBundle.from_model(state.model, specs_of(state), task, device=dev))
+    engine.warmup()
+    reqs = e2e_requests(ds, R_E2E_CHECK, seed=71)
+    log(json.dumps(dict(phase="3r-e2e-setup", rows=ds.num_samples, full_fit_s=full_fit_s,
+                        fast_path_eligible={c: incremental._entity_fast_path_eligible(
+                            data_configs[c], None) for c in E2E_RE},
+                        engine_buckets=list(engine.buckets),
+                        mem_gib=torch.cuda.memory_allocated() / 2**30)))
+    dataset = ds
+    rounds = []
+    batches = tempfile.TemporaryDirectory(prefix="photon-refresh-")
+    with batches, engine, engine.batcher(max_wait_ms=0.5) as batcher:
+        for r in range(1, R_E2E_ROUNDS + 1):
+            rng = np.random.default_rng(300 + r)
+            new_users = np.arange(n_users + R_E2E_NEW * (r - 1), n_users + R_E2E_NEW * r)
+            pool = np.concatenate([rng.choice(n_users, size=R_E2E_POOL, replace=False), new_users])
+            a = e2e_batch_arrays(R_E2E_BATCH, 400 + r, pool, n_movies, truth,
+                                 dict(zip(new_users.tolist(), rng.normal(size=R_E2E_NEW))))
+            batch_dir = os.path.join(batches.name, f"round-{r}")
+            os.makedirs(batch_dir)
+            write_e2e_files(batch_dir, a, parts=1)
+            torch.cuda.reset_peak_memory_stats()
+            with Replay(batcher, reqs) as replay:
+                # The freshness clock: the batch's file in hand -> new generation live.
+                t_data = time.perf_counter()
+                batch = read_e2e(batch_dir, dev, index_maps=maps)
+                torch.cuda.synchronize()
+                read_s = time.perf_counter() - t_data
+                merged = concat_datasets(dataset, batch, keep_last=("g",))
+                torch.cuda.synchronize()
+                merge_s = time.perf_counter() - t_data - read_s
+                # The bench's 1% batch churns nearly every movie (uniform), so
+                # the reference's 0.5 escape hatch would send it to a full
+                # refit; the delta path runs at max_delta_fraction 1.0, and
+                # the default's mode is printed beside it.
+                result = incremental.incremental_fit(merged, data_configs, opt_configs, task,
+                                                     prev=state, max_delta_fraction=1.0)
+                t_build = time.perf_counter()
+                delta = build_delta_bundle(state, result.state, source=f"3r-e2e-{r}",
+                                           mode=result.plan.mode, delta_rows=result.plan.delta_rows,
+                                           total_rows=result.plan.total_rows)
+                delta_build_s = time.perf_counter() - t_build
+                info = apply_delta(engine, delta)
+                data_to_served_s = time.perf_counter() - t_data
+                t_base = time.perf_counter()
+                cold_state = incremental.full_fit(merged, data_configs, opt_configs, task)
+                ServingBundle.from_model(cold_state.model, specs_of(cold_state), task,
+                                         device=dev).release()
+                torch.cuda.synchronize()
+                baseline_s = time.perf_counter() - t_base
+                del cold_state
+            default_mode = incremental.plan_delta_fit(state.fingerprints, result.state.fingerprints).mode
+            row = dict(phase="3r-e2e", round=r, rows=merged.num_samples, batch_rows=R_E2E_BATCH,
+                       mode=result.plan.mode, default_knob_mode=default_mode,
+                       delta_rows=result.plan.delta_rows, delta_fraction=result.plan.delta_fraction,
+                       changed_entities={c: len(v) for c, v in result.plan.changed_entities.items()},
+                       new_entities={c: len(v) for c, v in result.plan.new_entities.items()},
+                       stages_s=dict(read=read_s, merge=merge_s, **result.stage_s,
+                                     delta_build=delta_build_s,
+                                     apply={k: info[f"{k}_s"] for k in ("upload", "prewarm", "flip")}),
+                       incremental_fit_s=result.seconds, data_to_served_s=data_to_served_s,
+                       full_refresh_baseline_s=baseline_s,
+                       speedup_vs_full=baseline_s / data_to_served_s, delta=delta.manifest(),
+                       generation=info["version"], answered=replay.answered,
+                       failed=len(replay.failures), max_rel_diff=result.max_rel_diff,
+                       mem_gib=torch.cuda.memory_allocated() / 2**30,
+                       peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+            log(json.dumps(row))
+            rounds.append(row)
+            if replay.failures or replay.answered == 0:
+                failures.append(f"round {r}: {len(replay.failures)} failed of {replay.answered} "
+                                f"answered ({replay.failures[:2]})")
+            state, dataset = result.state, merged
+            del batch, merged, result, delta
+        live = [s.score for s in engine.score_batch(reqs)]
+        generation = engine.bundle_version
+        recompiles = engine.recompiles_after_warmup
+    engine.bundle.release()
+    with ServingEngine(ServingBundle.from_model(state.model, specs_of(state), task, device=dev)) as cold:
+        cold_scores = [s.score for s in cold.score_batch(reqs)]
+        cold.bundle.release()
+    log(json.dumps(dict(phase="3r-e2e-final", generation=generation, recompiles_after_warmup=recompiles,
+                        requests=len(reqs), bit_equal_to_cold_engine=live == cold_scores)))
+    if generation != R_E2E_ROUNDS or live != cold_scores:
+        failures.append(f"generation {generation} (want {R_E2E_ROUNDS}); bit-equal to a cold engine of "
+                        f"the final state: {live == cold_scores}")
+    if failures:
+        raise SystemExit("phase 3r-e2e failed: " + "; ".join(failures))
+    return dict(rounds=rounds, full_fit_s=full_fit_s)
+
+
+def refresh_phase(ds, maps, truth, n_users: int, n_movies: int, dev) -> dict:
+    """Phase 3r (3r-loop, then 3r-e2e on 3e's ingested dataset), its
+    kernels' launches counted from 0 around it; #1 (3r-loop's dense fixed
+    effect), #4 and #5 (3r-e2e's sparse fixed effect, its offsets and
+    margins) must each launch."""
+    import torch
+
+    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+
+    sk.reset_launch_counts()
+    glm_kernels.reset_launch_counts()  # phase 3r starts here
+    walled("phase 3r-loop", refresh_loop_phase, dev)
+    walled("phase 3r-e2e", refresh_e2e_phase, ds, maps, truth, n_users, n_movies, dev)
+    launches = {"dense": dict(glm_kernels.LAUNCHES), "sparse": dict(sk.LAUNCHES)}  # 3r ends here
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps(dict(phase="3r-launches", **launches)))
+    missing = [k for k, n in (("value_grad", launches["dense"]["value_grad"]),
+                              ("sparse_fused", launches["sparse"]["sparse_fused"]),
+                              ("sparse_matvec", launches["sparse"]["sparse_matvec"])) if n == 0]
+    if missing:
+        raise SystemExit(f"phase 3r: {missing} never launched ({launches})")
+    return launches
+
+
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
-    """Phases 2e, 3e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3o's e2e part, 3g, 3x,
+    """Phases 2e, 3e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3o's e2e part, 3g, 3x,
     3x-scale, 3m, 3t, 3w, 3v, 3q, 3mv and 5e (`dense`: phase 3's arrays and model, for 3v). Returns
     (phase 2e rows by kernel, the sparse launches by kernel of each path)."""
     import os
@@ -1298,7 +1809,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     truth, n_users, n_movies = a["truth"], a["n_users"], a["n_movies"]
     del a
     t0 = time.perf_counter()
-    ds = read_e2e(root, dev)
+    ds, e2e_maps = read_e2e(root, dev, with_maps=True)
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     timing = ds.ingest_timing
@@ -1418,7 +1929,11 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     fit3f["artifact"] = model_bridge.artifact_from_game_model(
         fit3f.pop("model"), fit3f.pop("specs"), TaskType.LOGISTIC_REGRESSION)
     fit3f["bridge_s"] = time.perf_counter() - t0
-    del ds, shard, phase3e
+    del phase3e
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches3r = walled("phase 3r", refresh_phase, ds, e2e_maps, truth, n_users, n_movies, dev)
+    del ds, shard
     torch.cuda.empty_cache()
     try:
         launches3c = driver_e2e_phase(root, fit3f)
@@ -1474,7 +1989,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
                     "3k": launches3k, "3g": launches3g, "3j": launches3j, "3x": launches3x, "3t": launches3t,
                     "3w": launches3w, "3v": launches3v, "3m": launches3m, "3q": launches3q,
-                    "3mv": launches3mv}
+                    "3mv": launches3mv, "3r": launches3r}
 
 
 # ---------------------------------------------------------------- phases 3e-d and 5e-d
@@ -3695,7 +4210,7 @@ def telemetry_phase(root: str, work: str) -> dict:
 # train driver's hyperparameter tuning, on phase 3e's files.
 
 OFFHEAP_STORES = (("phidx", 1), ("phidx", 8), ("paldb", 4))  # format, partitions
-SCALE_KEYS = 1 << 21  # 2,097,152 synthetic name\x01term keys (PHIDX); cut from 4,194,304 for the time limit
+SCALE_KEYS = 1 << 20  # 1,048,576 synthetic name\x01term keys (PHIDX); cut from 4,194,304 for the time limit (PR 17: 2,097,152)
 SCALE_PALDB_KEYS = 1 << 18  # PalDB's writer and reader are pure Python: cut to 262,144
 TUNING_TRIALS = 4
 EXPLICIT_WEIGHTS = {"global": 1.0, "per-user": 10.0, "per-movie": 10.0}  # E2E_COORDINATES' reg.weights
@@ -5517,8 +6032,8 @@ def main(argv=None) -> int:
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3c, 3k, 5k, 3g, 3j, 3x, 3m, 3t, 3w, 3v, 3q, "
-                                    "3mv",
+    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3g, 3j, 3x, 3m, 3t, 3w, 3v, "
+                                    "3q, 3mv",
                                     e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
@@ -5543,14 +6058,16 @@ def main(argv=None) -> int:
         dict(name=k, route="cuda", source=source, replaces=replaces[k],
              launches=(launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k]
                        + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k] + launches3o[k]
-                       + e2e_launches["3w"]["dense"][k] + e2e_launches["3j"]["dense"][k]),
+                       + e2e_launches["3w"]["dense"][k] + e2e_launches["3j"]["dense"][k]
+                       + e2e_launches["3r"]["dense"][k]),
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
                                 "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
                                 "5c": driver_launches["dense"][k], "3o": launches3o[k],
                                 "3j": e2e_launches["3j"]["dense"][k],
                                 "3w": e2e_launches["3w"]["dense"][k], "3v": e2e_launches["3v"]["path"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
-                                "3mv-emulation": e2e_launches["3mv"]["emulation"][k]},
+                                "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
+                                "3r": e2e_launches["3r"]["dense"][k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
@@ -5568,7 +6085,7 @@ def main(argv=None) -> int:
                        + driver_launches["sparse"][k] + e2e_launches["3k"][k] + e2e_launches["3g"][k]
                        + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]
                        + e2e_launches["3w"]["sparse"][k] + e2e_launches["3m"]["sparse"][k]
-                       + e2e_launches["3j"]["sparse"][k]),
+                       + e2e_launches["3j"]["sparse"][k] + e2e_launches["3r"]["sparse"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
                                 "3e-d": e2e_launches["3e-d"][k],
                                 "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
@@ -5579,7 +6096,8 @@ def main(argv=None) -> int:
                                 "3t": e2e_launches["3t"][k], "3w": e2e_launches["3w"]["sparse"][k],
                                 "3v": e2e_launches["3v"]["path"][k], "3m": e2e_launches["3m"]["sparse"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
-                                "3mv-emulation": e2e_launches["3mv"]["emulation"][k]},
+                                "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
+                                "3r": e2e_launches["3r"]["sparse"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
@@ -5600,7 +6118,8 @@ def main(argv=None) -> int:
                                 "3w": e2e_launches["3w"]["dense"][k], "3j": e2e_launches["3j"]["dense"][k],
                                 "3v": e2e_launches["3v"]["path"][k], "3q": e2e_launches["3q"][k],
                                 "3mv": e2e_launches["3mv"]["workers"][k],
-                                "3mv-emulation": e2e_launches["3mv"]["emulation"][k]},
+                                "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
+                                "3r": e2e_launches["3r"]["dense"][k]},
              rank_sum_launches=sum(rank_sums.values()), rank_sum_launches_by_phase=rank_sums,
              **dist_rows[k])
         for k in DIST_REPLACES

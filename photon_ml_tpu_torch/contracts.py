@@ -194,10 +194,44 @@ BUNDLE_PROVENANCE_KEYS = (
     "last_delta_ts",
 )
 
+# The delta-bundle manifest (serving/delta.DeltaBundle.manifest zips these):
+# what an incremental fit shipped to serving; cli/refresh persists it.
+DELTA_BUNDLE_KEYS = (
+    "source",
+    "mode",
+    "coordinates",
+    "delta_rows",
+    "total_rows",
+    "bytes",
+)
+
+# The continuous-refresh certificate (the reference bench's continuous_loop
+# section; chip_smoke.py's phase 3r-loop prints every key): a full fit, a
+# streamed delta batch, an incremental fit flipped into a live engine
+# under replay, against a full refit and full restage of the same rows.
+CONTINUOUS_SECTION_KEYS = (
+    "n_devices",
+    "total_rows",
+    "delta_rows",
+    "delta_fraction",
+    "changed_coordinates",
+    "full_fit_s",
+    "incremental_fit_s",
+    "delta_apply_s",
+    "data_to_served_s",
+    "full_refresh_baseline_s",
+    "speedup_vs_full",
+    "unchanged_entities_bitwise",
+    "answered_during_refresh",
+    "failed_requests",
+    "generation",
+)
+
 # The run journal (utils/telemetry.RunJournal): the keys of every line, and
 # the schema of each event type the port emits (the reference's schemas).
 # The reference's control-plane events (plan, autopilot, shadow, tenant,
-# tier, reshard, delta) belong to layers the port has not got.
+# tier, and reshard's but the delta flip's `reshard_commit`) belong to
+# layers the port has not got.
 JOURNAL_LINE_KEYS = ("ts", "type")
 JOURNAL_EVENT_SCHEMAS = {
     # The training lifecycle (utils/observability.journal_listener).
@@ -224,6 +258,15 @@ JOURNAL_EVENT_SCHEMAS = {
     "host_loss": ("host", "missed_beats", "num_hosts", "source"),
     "host_join": ("host", "num_hosts", "restaged_rows"),
     "multihost_barrier": ("name", "host", "num_hosts", "seconds"),
+    # Incremental refresh (game/incremental.py, serving/delta.py, cli/refresh.py).
+    "delta_fit_start": ("mode", "changed_coordinates", "delta_rows", "total_rows"),
+    "delta_fit_finish": ("mode", "changed_coordinates", "carried_coordinates", "seconds",
+                         "max_rel_diff"),
+    "delta_apply": ("version", "coordinates", "rows", "bytes", "source"),
+    "delta_rollback": ("version", "reason"),
+    # The generation flip of a delta apply (the reference journals it from
+    # its reshard primitive, which the delta apply runs).
+    "reshard_commit": ("old_shards", "new_shards", "version", "restaged_bytes"),
 }
 
 # The sweep record chip_smoke.py's phase 3w prints (the reference bench's

@@ -16,6 +16,9 @@ matrix in that space, its variances, and a per-entity normalization's
 the reference's jax.random bits, so a random projection crosses over as its
 matrix. `sparse_features_from_numpy` takes the JAX package's
 `SparseFeatures` as its numpy planes into the port's.
+`fit_state_from_numpy` carries a JAX refresh state (`FitState`: the model,
+its entity indices, the fingerprints recomputed here) across, so a port
+refresh round continues from a JAX fit.
 """
 
 from __future__ import annotations
@@ -148,6 +151,31 @@ def game_model_from_numpy(
         else:
             raise TypeError(f"{cid}: unsupported coordinate arrays {type(arrays).__name__}")
     return GameModel(models), specs
+
+
+def fit_state_from_numpy(
+    coordinates: Mapping[str, CoordinateArrays],
+    task: TaskType,
+    dataset,
+    data_configs: Mapping[str, object],
+    *,
+    device: DeviceLike = "cuda",
+):
+    """The port's refresh state (`game.incremental.FitState`) of a fit the
+    JAX package made, so a port refresh round continues from it: the
+    models and each random effect's entity index as `game_model_from_numpy`
+    carries them (`coordinates` in the order of `data_configs`), and the
+    data fingerprints recomputed by the port from `dataset` (the port's
+    copy of the rows that fit trained on). The digests hash the same bytes
+    as the reference's, so on the same planes in the same dtypes they equal
+    the JAX fit's byte for byte."""
+    from photon_ml_tpu_torch.data.fingerprints import fingerprint_dataset
+    from photon_ml_tpu_torch.game.incremental import FitState
+
+    model, _ = game_model_from_numpy(coordinates, task, device=device)
+    indices = {cid: dict(a.entity_index) if isinstance(a, RandomEffectArrays) else None
+               for cid, a in coordinates.items()}
+    return FitState(model, fingerprint_dataset(dataset, data_configs), indices)
 
 
 def sparse_features_from_numpy(

@@ -38,7 +38,9 @@ projects each random effect's shard (game/projector.py) after its layout
 is built.
 `concat_datasets` appends datasets' rows (the multi-host ingest assembles
 every rank's files with it), merging the id-tag tables, so the files read
-one by one and concatenated give one read of them all.
+one by one and concatenated give one read of them all; a refresh round
+(game/incremental.py) merges its delta batch onto the previous rows with
+it, and carves the changed entities' rows out with `take_rows`.
 Not ported: the async packing and upload of the JAX data plane.
 """
 
@@ -255,6 +257,27 @@ def concat_datasets(*parts: GameDataset, keep_last: Sequence[str] = ()) -> GameD
         weights=column(lambda p: p.weights),
         id_tags={tag: table[codes] for tag, (codes, table) in tag_codes.items()},
         tag_codes=tag_codes, dtype=first.labels.dtype, device=first.device)
+
+
+def take_rows(dataset: GameDataset, rows) -> GameDataset:
+    """The samples `rows` of `dataset`, in the order given, as a dataset on
+    the same device (the JAX package's `take_rows`). Every plane is gathered
+    on the device; each id tag and its factorized codes take the same rows,
+    and each tag keeps its value table (values the subset no longer uses
+    stay in it, as an ingest table may hold them)."""
+    rows_np = np.asarray(rows, np.int64)
+    idx = torch.as_tensor(rows_np).to(dataset.device)
+    shards: Dict[str, object] = {}
+    for name, feats in dataset.shards.items():
+        if isinstance(feats, SparseFeatures):
+            shards[name] = SparseFeatures(feats.indices[idx], feats.values[idx], feats.dim)
+        else:
+            shards[name] = feats[idx]
+    return GameDataset.build(
+        shards, dataset.labels[idx], offsets=dataset.offsets[idx], weights=dataset.weights[idx],
+        id_tags={k: v[rows_np] for k, v in dataset.id_tags.items()},
+        tag_codes={k: (c[rows_np], t) for k, (c, t) in dataset.tag_codes.items()},
+        dtype=dataset.labels.dtype, device=dataset.device)
 
 
 def _sparse_shard(name: str, X: SparseFeatures, n: int, dev: torch.device) -> SparseFeatures:

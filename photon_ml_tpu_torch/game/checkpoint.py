@@ -56,6 +56,10 @@ state.json is replaced, and a background write whose retries were spent is
 redone synchronously, so the commit protocol is unchanged. On ranks the
 write holds a collective and stays on the main thread.
 
+Refresh audit: `append_delta_record` / `read_delta_records` keep each
+incremental fit's record in `delta_records.jsonl` beside the checkpoint
+(the reference's file and keys).
+
 Faults: every atomic write fires the `checkpoint_write` site, and a model
 write or the state.json commit runs under the bounded `retry`
 (utils/faults.py); a read retries transient failures but not a missing
@@ -609,3 +613,35 @@ class RankCheckpoint(CoordinateDescentCheckpoint):
             writers = (json.load(f).get("multihost") or {}).get("shard_hosts", {})
         self._writers = {r: int(w) for r, w in writers.items()}
         return out
+
+
+# --------------------------------------------------- delta-fit audit records
+
+DELTA_RECORDS_FILE = "delta_records.jsonl"
+
+
+def append_delta_record(directory: str, record: Mapping[str, object]) -> str:
+    """Append one incremental fit's audit record (its plan and the
+    characterized parity, game/incremental.incremental_fit) to the run's
+    `delta_records.jsonl`: an atomic rewrite and rename under the
+    `checkpoint_write` site, so a crash mid-append leaves the previous file
+    whole. The reference's file and keys; `clear()` leaves it. Returns its
+    path."""
+    path = os.path.join(directory, DELTA_RECORDS_FILE)
+    lines = b""
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            lines = f.read()
+    lines += json.dumps(dict(record), sort_keys=True).encode() + b"\n"
+    _atomic_write(path, lines)
+    return path
+
+
+def read_delta_records(directory: str) -> List[Dict[str, object]]:
+    """The run's incremental-fit audit trail, oldest first ([] before the
+    first delta fit)."""
+    path = os.path.join(directory, DELTA_RECORDS_FILE)
+    if not os.path.exists(path):
+        return []
+    with open(path, "rb") as f:
+        return [json.loads(line) for line in f.read().splitlines() if line]

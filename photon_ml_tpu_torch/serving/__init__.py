@@ -7,8 +7,9 @@ per power-of-two batch size (a CUDA graph on the card), `batcher.py`
 coalesces single requests into deadline micro-batches, and `lifecycle.py`
 keeps it serving under faults: typed shedding and deadlines, the circuit
 breaker with fixed-effect-only answers, the health state machine and
-versioned hot-swap. `delta.py`, `tenancy.py`, `shadow.py` and `reshard.py`
-are not ported (ROADMAP items 9 and 10).
+versioned hot-swap; `delta.py` flips a live engine onto an incremental
+fit's delta bundle through the same generation change. `tenancy.py`,
+`shadow.py` and `reshard.py` are not ported (ROADMAP items 9c and 10d).
 """
 
 from photon_ml_tpu_torch.serving.batcher import MicroBatcher

@@ -62,8 +62,8 @@ Tensor = torch.Tensor
 # Request features for one shard: a dense (dim,) row, or (indices, values).
 ShardFeatures = Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]
 
-_SHARDED_STORE = "the row-sharded serving store is ROADMAP item 9 (not ported)"
-_TWO_TIER_STORE = "the two-tier serving store is ROADMAP item 9 (not ported)"
+_SHARDED_STORE = "the row-sharded serving store is ROADMAP item 9c (not ported)"
+_TWO_TIER_STORE = "the two-tier serving store is ROADMAP item 9c (not ported)"
 
 
 @dataclasses.dataclass
@@ -174,6 +174,9 @@ class ServingCoordinate:
     shard_health: Optional[ShardHealth] = None
     # E + 1 where the matrix is padded past it to whole row blocks.
     logical_rows: Optional[int] = None
+    # S where the bundle was staged with `row_blocks=S` (its placement
+    # changes only with a restage; serving/delta.py refuses to move rows).
+    row_blocks: Optional[int] = None
 
     @property
     def is_random_effect(self) -> bool:
@@ -372,7 +375,7 @@ class ServingBundle:
                     cid, spec.shard, params, norm=spec.norm,
                     random_effect_type=spec.random_effect_type,
                     entity_index=dict(spec.entity_index or {}),
-                    shard_health=health, logical_rows=logical)
+                    shard_health=health, logical_rows=logical, row_blocks=row_blocks)
             else:
                 raise TypeError(f"unknown model type {type(m)} for {cid!r}")
         if dev.type == "cuda":

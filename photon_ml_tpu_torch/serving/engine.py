@@ -603,5 +603,6 @@ class ServingEngine:
         out.update(self.breaker.snapshot())
         out["bundle_swaps"] = manager.swaps if manager is not None else 0
         out["bundle_swap_rollbacks"] = manager.rollbacks if manager is not None else 0
+        out["bundle_deltas"] = manager.deltas if manager is not None else 0
         out["stage_walls_s"] = dict(sorted(self.stages.seconds.items()))
         return out

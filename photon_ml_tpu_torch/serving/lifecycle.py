@@ -22,7 +22,12 @@ Port of `photon_ml_tpu/serving/lifecycle.py`:
   bucket program for the new generation (on the card: new CUDA graphs), the
   `swap_commit` fault site, the atomic flip between batches, the drain of
   in-flight batches and the release of the old generation. A failure before
-  the flip rolls back: the old bundle never stopped serving.
+  the flip rolls back: the old bundle never stopped serving. The delta
+  apply (serving/delta.py) runs the same sequence (`_stage_and_commit`,
+  the reference's reshard primitive with kind "delta"): staging under
+  `shard_upload`, then the `reshard_commit` site, its flip journalled as
+  `reshard_commit` (one shard to one, as the reference's), its rollback
+  counted in `delta_rollbacks` and journalled as `delta_rollback`.
 """
 
 from __future__ import annotations
@@ -303,16 +308,25 @@ SWAP_DRAIN_TIMEOUT_S = 30.0
 
 
 class BundleManager:
-    """Versioned, atomic, rollback-safe hot-swap of a ServingEngine's
-    bundle. Swaps are serialized. The budget check charges both generations'
-    device bytes and the engine's static bucket buffers of the new
-    generation (allocated beside the two during the pre-warm)."""
+    """Versioned, atomic, rollback-safe generation changes of a
+    ServingEngine: `swap` (a whole next bundle) and the delta apply
+    (serving/delta.apply_delta) run the one sequence `_stage_and_commit`
+    under one mutex, so generation changes are serialized. The swap's budget
+    check charges both generations' device bytes and the engine's static
+    bucket buffers of the new generation (allocated beside the two during
+    the pre-warm)."""
 
     def __init__(self, engine):
         self.engine = engine
         self._swap_lock = threading.Lock()
         self._swaps = 0
         self._rollbacks = 0
+        self._deltas = 0
+
+    @property
+    def mutex(self) -> threading.Lock:
+        """The generation-change mutex (swaps and delta applies)."""
+        return self._swap_lock
 
     @property
     def swaps(self) -> int:
@@ -322,14 +336,20 @@ class BundleManager:
     def rollbacks(self) -> int:
         return self._rollbacks
 
+    @property
+    def deltas(self) -> int:
+        """Delta bundles committed."""
+        return self._deltas
+
     def swap(self, next_bundle, *, expected_bytes: Optional[int] = None,
              hbm_budget_bytes: Optional[int] = None) -> Dict[str, object]:
         """Replace the engine's bundle with `next_bundle` (a ServingBundle,
         or a zero-argument builder returning one: then the budget check runs
         before anything is allocated, on `expected_bytes`) under live
-        traffic. Returns the new version, the staging seconds and the bucket
-        programs the pre-warm built; any failure before the flip rolls back
-        and re-raises."""
+        traffic. Staging fires the `swap_stage` site (retried), the flip the
+        `swap_commit` site. Returns the new version, the staging seconds and
+        the bucket programs the pre-warm built; any failure before the flip
+        rolls back and re-raises."""
         with self._swap_lock:
             engine = self.engine
             old_state = engine._state
@@ -346,62 +366,101 @@ class BundleManager:
                     f"staging {need} bytes beside the active bundle's {have} bytes + {warm} bytes "
                     f"of bucket buffers exceeds the {budget}-byte device-memory budget; swap "
                     "refused before staging")
-            staged = None
-            try:
-                t0 = time.perf_counter()
 
-                def _stage():
+            def stage():
+                def attempt():
                     faults.fault_point("swap_stage")
                     return builder() if builder is not None else next_bundle
 
-                staged = faults.retry(_stage, label="bundle swap staging")
+                staged = faults.retry(attempt, label="bundle swap staging")
                 if staged.released:
                     raise SwapIncompatible("next bundle is already released")
-                new_state = engine._build_state(staged, version=old_state.version + 1)
-                self._check_compatible(old_state, new_state)
-                got = staged.device_bytes()
+                return staged
+
+            def check_budget(new_state) -> None:
+                got = new_state.bundle.device_bytes()
                 warm_new = engine.warmup_buffer_bytes(new_state)
                 if budget is not None and have + got + max(warm, warm_new) > budget:
                     raise HbmBudgetExceeded(
                         f"staged bundle is {got} bytes; with the active bundle's {have} bytes + "
                         f"{max(warm, warm_new)} bytes of bucket buffers that exceeds the "
                         f"{budget}-byte device-memory budget")
-                # Build every bucket program of the new generation now, so
-                # the flip builds nothing on live traffic; those builds are
-                # warmup, not hot-path recompiles.
-                compiles_before = engine.compiles
-                engine._warm_state(new_state)
-                staging_compiles = engine.compiles - compiles_before
-                faults.fault_point("swap_commit")
-                stage_s = time.perf_counter() - t0
-            except BaseException:
-                self._rollbacks += 1
-                faults.COUNTERS.increment("serving_swap_rollbacks")
-                telemetry.emit_event("bundle_swap", version=old_state.version + 1,
-                                     outcome="rolled_back")
-                logger.warning("bundle swap to version %d rolled back; version %d keeps serving",
-                               old_state.version + 1, old_state.version)
-                if staged is not None and staged is not old_state.bundle:
-                    staged.release()
-                raise
-            engine._commit_state(new_state, baseline_bump=staging_compiles)
+
+            return self._stage_and_commit(old_state, stage, kind="swap", check=check_budget)
+
+    def _stage_and_commit(self, old_state, stage, *, kind: str, check=None,
+                          drain_timeout_s: float = SWAP_DRAIN_TIMEOUT_S) -> Dict[str, object]:
+        """The one staging, flip and rollback sequence of a generation
+        change (the reference's `_stage_and_commit`); the caller holds
+        `mutex`. `stage()` returns the next bundle, staged beside the live
+        one (never writing a tensor the live generation reads); then the
+        compatibility check (and `check(new_state)`), the pre-warm of every
+        bucket program of the new generation (on the card: new CUDA graphs;
+        their builds are warmup, not hot-path recompiles), the commit site
+        (`swap_commit` for kind "swap", `reshard_commit` for "delta"), the
+        atomic flip between batches, the drain of the old generation's
+        in-flight batches and its release. Any failure before the flip rolls
+        back (counted and journalled by kind) and re-raises: the old
+        generation never stopped serving."""
+        engine = self.engine
+        staged = None
+        t0 = time.perf_counter()
+        try:
+            staged = stage()
+            t_staged = time.perf_counter()
+            new_state = engine._build_state(staged, version=old_state.version + 1)
+            self._check_compatible(old_state, new_state)
+            if check is not None:
+                check(new_state)
+            compiles_before = engine.compiles
+            engine._warm_state(new_state)
+            staging_compiles = engine.compiles - compiles_before
+            t_warm = time.perf_counter()
+            faults.fault_point("swap_commit" if kind == "swap" else "reshard_commit")
+            stage_s = time.perf_counter() - t0
+        except BaseException as exc:
+            self._roll_back(kind, old_state.version, exc)
+            if staged is not None and staged is not old_state.bundle:
+                staged.release()
+            raise
+        engine._commit_state(new_state, baseline_bump=staging_compiles)
+        if kind == "swap":
             self._swaps += 1
             faults.COUNTERS.increment("serving_swaps")
             telemetry.emit_event("bundle_swap", version=new_state.version, outcome="committed")
-            telemetry.METRICS.set_gauge("serving_bundle_generation", new_state.version)
-            drained = engine._drain_state(old_state, timeout_s=SWAP_DRAIN_TIMEOUT_S)
-            if not drained:
-                logger.warning("old bundle version %d still has in-flight batches after %.1fs; "
-                               "leaving it allocated", old_state.version, SWAP_DRAIN_TIMEOUT_S)
-            else:
-                old_state.programs.clear()  # its captured graphs and static buffers
-                old_state.bundle.release()
-            logger.info("bundle hot-swap committed: version %d -> %d (staged in %.3fs)",
-                        old_state.version, new_state.version, stage_s)
-            return {"version": new_state.version, "previous_version": old_state.version,
-                    "stage_s": stage_s, "staging_compiles": staging_compiles,
-                    "old_released": drained,
-                    "staged_bytes": int(staged.upload_bytes)}
+        else:
+            self._deltas += 1
+            new_state.bundle.provenance["generation"] = new_state.version
+            telemetry.emit_event("reshard_commit", old_shards=1, new_shards=1,
+                                 version=new_state.version,
+                                 restaged_bytes=int(staged.upload_bytes))
+        telemetry.METRICS.set_gauge("serving_bundle_generation", new_state.version)
+        drained = engine._drain_state(old_state, timeout_s=drain_timeout_s)
+        if not drained:
+            logger.warning("old bundle version %d still has in-flight batches after %.1fs; "
+                           "leaving it allocated", old_state.version, drain_timeout_s)
+        else:
+            old_state.programs.clear()  # its captured graphs and static buffers
+            old_state.bundle.release()
+        flip_s = time.perf_counter() - t0 - stage_s
+        logger.info("bundle %s committed: version %d -> %d (staged in %.3fs)", kind,
+                    old_state.version, new_state.version, stage_s)
+        return {"version": new_state.version, "previous_version": old_state.version,
+                "stage_s": stage_s, "staging_compiles": staging_compiles,
+                "old_released": drained, "staged_bytes": int(staged.upload_bytes),
+                "committed": True, "upload_s": t_staged - t0, "prewarm_s": t_warm - t_staged,
+                "flip_s": flip_s}
+
+    def _roll_back(self, kind: str, version: int, exc: BaseException) -> None:
+        if kind == "swap":
+            self._rollbacks += 1
+            faults.COUNTERS.increment("serving_swap_rollbacks")
+            telemetry.emit_event("bundle_swap", version=version + 1, outcome="rolled_back")
+        else:
+            faults.COUNTERS.increment("delta_rollbacks")
+            telemetry.emit_event("delta_rollback", version=version, reason=repr(exc))
+        logger.warning("bundle %s to version %d rolled back (%r); version %d keeps serving", kind,
+                       version + 1, exc, version)
 
     @staticmethod
     def _check_compatible(old_state, new_state) -> None:

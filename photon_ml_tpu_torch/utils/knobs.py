@@ -16,6 +16,10 @@ scan-dispatched bucket sweep. The multi-host supervisor's
 reference's too. `PHOTON_PIPELINE` is the reference's host-overlap switch,
 read by `pipeline_enabled`; in the port it gates the staged checkpoint
 write (game/coordinate_descent.py), the only host overlap the port has.
+The refresh knobs (`PHOTON_REFRESH_BATCH_ROWS`,
+`PHOTON_REFRESH_MAX_DELTA_FRACTION`) are the reference's; the reference
+reads them through its planner, which the port has not got, so
+game/incremental.py and cli/refresh.py read them here directly.
 """
 
 from __future__ import annotations
@@ -132,6 +136,14 @@ _register("PHOTON_PIPELINE", str, "",
           "Host data-plane overlap: 1 forces threaded decode/pack/upload overlap, "
           "0 forces synchronous; empty = auto (on when >1 effective core).",
           choices=("", *_TRUE, *_FALSE))
+_register("PHOTON_REFRESH_BATCH_ROWS", int, 4096,
+          "Continuous-refresh loop (cli/refresh): target rows per streamed delta batch before "
+          "triggering an incremental fit + delta swap; smaller batches trade solve efficiency for "
+          "data->served freshness.")
+_register("PHOTON_REFRESH_MAX_DELTA_FRACTION", float, 0.5,
+          "Incremental fit escape hatch (game/incremental.py): when a delta batch churns more than "
+          "this fraction of the merged dataset's rows, the delta path forces a warm-started FULL "
+          "refit — past that point re-solving per changed entity costs more than one fused solve.")
 _register("PHOTON_TRACE", bool, False,
           "Span tracing (utils/telemetry.py): 1 records spans and exports Chrome "
           "trace-event JSON from cli.serve; 0 keeps span() a no-op.")

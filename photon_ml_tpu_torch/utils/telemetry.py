@@ -76,6 +76,11 @@ METRIC_DESCRIPTIONS = {
     "serving_bundle_generation": "live bundle generation after a hot-swap",
     "coordinate_update_s": "wall seconds per coordinate-descent update",
     "mesh_losses": "mesh-loss faults recovered at a sweep boundary",
+    "delta_applies": "delta-bundle generation flips committed to a live "
+    "engine",
+    "delta_rollbacks": "delta-bundle applies rolled back to the old "
+    "generation",
+    "delta_rows_staged": "changed/added RE rows staged by delta applies",
     "host_losses": "whole-host losses detected in the multi-host process "
     "group (heartbeat or wedged collective)",
     "host_heartbeat_misses": "per-host heartbeat beats missed by a peer "

@@ -64,7 +64,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "hyperparameter.tuner", "utils.knobs", "utils.faults", "utils.watchdog",
                  "utils.telemetry", "serving", "serving.bundle", "serving.engine", "serving.batcher",
                  "serving.lifecycle", "cli.serve", "hyperparameter.sweep", "cli.tune",
-                 "parallel.hostmesh", "cli.train_multihost", "cli.serve_multihost", "cli.obs"):
+                 "parallel.hostmesh", "cli.train_multihost", "cli.serve_multihost", "cli.obs",
+                 "data.fingerprints", "game.incremental", "serving.delta", "cli.refresh"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = _BLOCK_JAX + textwrap.dedent(
         """
@@ -232,7 +233,7 @@ def test_cuda_is_the_default_and_is_never_swapped_for_the_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("driver", ["train", "score", "libsvm_to_avro", "glm_driver", "build_index",
-                                    "name_and_term", "tune"])
+                                    "name_and_term", "tune", "refresh"])
 def test_each_driver_prints_its_help_with_jax_blocked(driver):
     script = _BLOCK_JAX + textwrap.dedent(
         """

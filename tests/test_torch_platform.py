@@ -312,8 +312,8 @@ def test_spans_parent_across_a_thread_handoff_and_export(tmp_path):
 
 def test_a_port_journal_passes_the_reference_validator(tmp_path):
     """One line of each event type the port emits (the training lifecycle,
-    the serving path, the sweep executor, the checkpoint and the multi-host
-    layers)."""
+    the serving path, the sweep executor, the checkpoint, the multi-host
+    layers and refresh)."""
     fields = {"setup": dict(args="{'device': 'cpu'}"), "fit_start": dict(num_samples=-1),
               "sweep_config": dict(index=0, total=2),
               "coordinate_update": dict(iteration=0, coordinate="global", seconds=0.25, accepted=True),
@@ -332,7 +332,15 @@ def test_a_port_journal_passes_the_reference_validator(tmp_path):
                                 source="raised"),
               "host_loss": dict(host=2, missed_beats=0, num_hosts=4, source="supervisor"),
               "host_join": dict(host=2, num_hosts=4, restaged_rows=96),
-              "multihost_barrier": dict(name="fit-complete", host=0, num_hosts=4, seconds=0.25)}
+              "multihost_barrier": dict(name="fit-complete", host=0, num_hosts=4, seconds=0.25),
+              "delta_fit_start": dict(mode="delta", changed_coordinates=["per-user"], delta_rows=12,
+                                      total_rows=76),
+              "delta_fit_finish": dict(mode="delta", changed_coordinates=["per-user"],
+                                       carried_coordinates=["global"], seconds=0.25, max_rel_diff=0.5),
+              "delta_apply": dict(version=1, coordinates=["per-user"], rows=3, bytes=48,
+                                  source="round-0"),
+              "delta_rollback": dict(version=0, reason="InjectedFault()"),
+              "reshard_commit": dict(old_shards=1, new_shards=1, version=1, restaged_bytes=48)}
     assert set(fields) == set(contracts.JOURNAL_EVENT_SCHEMAS)
     for etype, schema in contracts.JOURNAL_EVENT_SCHEMAS.items():
         assert schema == jax_contracts.JOURNAL_EVENT_SCHEMAS[etype]
@@ -370,6 +378,6 @@ def test_a_serve_profile_passes_the_reference_reader(tmp_path):
                                   "ROBUSTNESS_CLEAN_ZERO_KEYS", "SERVING_SUMMARY_KEYS", "BUNDLE_PROVENANCE_KEYS",
                                   "JOURNAL_LINE_KEYS", "PROFILE_REQUIRED_KEYS", "PROFILE_SERVE_KEYS",
                                   "PROFILE_FIT_KEYS",
-                                  "PLAN_BLOCK_KEYS"])
+                                  "PLAN_BLOCK_KEYS", "DELTA_BUNDLE_KEYS", "CONTINUOUS_SECTION_KEYS"])
 def test_contract_tuples_are_the_reference_tuples(name):
     assert getattr(contracts, name) == getattr(jax_contracts, name)
