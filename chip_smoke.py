@@ -281,10 +281,11 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    new read of the files); the scoring AUC within its "auc_atol" (the row
    prints the largest score difference beside it); sparse_fused in train
    and sparse_matvec in score, no dense kernel.
-3x-scale. On the host: a PHIDX store of 1,048,576 synthetic name\x01term
+3x-scale. On the host: a PHIDX store of 524,288 synthetic name\x01term
    keys in 8 partitions (build seconds, a get_index sweep of every key and
    a get_feature_name sweep of every id, in keys a second, MiB on disk);
-   then PalDB at 262,144 keys in 4 partitions, the cut its pure-Python
+   then PalDB at 131,072 keys in 4 partitions (both halved for 3n's
+   time), the cut its pure-Python
    writer and loader force. Every id must come back once, and names must
    round-trip.
 3m. Multi-host training (cli/train_multihost.py, parallel/hostmesh.py,
@@ -312,7 +313,7 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    runs 3m alone, `tools/chip_smoke_nccl.py` over NCCL on 4 cards.
 3t. cli.train on the training files with 3g's 1,000,000-row validation
    file, output mode ALL and --hyper-parameter-tuning RANDOM then
-   BAYESIAN, 4 trials each (--random-seed 0): each trial's weights,
+   BAYESIAN, 3 trials each (4 before 3n; --random-seed 0): each trial's weights,
    validation AUC, fit seconds and launches, and the seconds of the
    searcher's proposals with each GP fit's (the GP runs on the CPU). RANDOM's
    weights must be the port's searcher's proposals for the seed, computed on
@@ -356,7 +357,8 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    in odd triples and all 65,536 at bucket 256, bit-equal to each other and
    within PORT_TOLERANCES["convert_scores"] of the offline scores; phase
    3's model bit-equal to GameTransformer at every bucket; cli.serve on
-   100,000 rows of the validation file and 1,000 with unseen ids (0 failed,
+   50,000 rows of the validation file and 1,000 with unseen ids (cut from
+   100,000 for 3n's time; 0 failed,
    health CLOSED, every clean-run counter 0, the journal valid); the
    device's idle share over one replay window (torch.profiler); and the
    drills: score:p0.05 (bit-equal answers, degraded batches counted), a
@@ -373,9 +375,10 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    the native route onto the card, against a read of the clean file: the
    clean rows less that block's, the same ELL planes and tags, and
    `quarantined_blocks` 1.
-3mv. Multi-host serving (cli/serve_multihost.py) on 3c's model and 50,152
-   of 3v's requests (its first 12 blocks of 4,096 rows and its 1,000
-   unseen ids; cut from 101,000 for the run's time limit): `cli.serve
+3mv. Multi-host serving (cli/serve_multihost.py) on 3c's model and 17,384
+   of 3v's requests (its first 4 blocks of 4,096 rows and its 1,000
+   unseen ids; cut from 101,000 for the run's time limit, and from 12
+   blocks for 3n's): `cli.serve
    --multihost 2` (each worker cuts every
    random-effect matrix into 4 row blocks and owns every other one), both
    worker processes sharing the card; uninterrupted, then with worker 1
@@ -394,6 +397,32 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    worker attempt (its summary's count, or a killed worker's last
    progress marker's). `tools/
    chip_smoke_serve_multihost.py` runs 3q and 3mv alone.
+3n. Multi-tenant serving and shadow deployment (serving/tenancy.py,
+   serving/shadow.py) on 3c's model and 4,352 of 3v's requests: four
+   tenants of one co-batch signature (3c's model and three variants of it,
+   its coefficients scaled by a seeded draw and written by the port's model
+   store) and a fifth, 3c's model in the two-tier store (2,048 hot rows a
+   random effect), which dispatches solo. Gates: every answer bit-equal to
+   the tenant's solo engine, co-batches dispatched; the co-batch graph's
+   replay against a solo bucket's (CUDA-event medians); a member's swap
+   under live traffic (each answer the old or the new generation's bits,
+   then the new's; no capture after warm-up); chaos armed for one tenant
+   (lookup and score faults, a flood past its quota) leaving the clean
+   tenants at 0 failed, 0 degraded labelled counters and their bits; an
+   admission over `hbm_budget_bytes` demoting the coldest tenant to the
+   host tier with no hot rows, bit-equal there and after `restore`, then
+   demoted by hand with 2,048 hot rows, bit-equal while its promotions run
+   and after `restore` (demotion and restore seconds, hot and cold hits,
+   promotions); the
+   shadow rejecting a challenger whose fixed effect is a seeded draw (AUC
+   on the validation labels), promoting one with the champion's weights
+   through the generation flip, and counting armed mirror and join faults
+   as champion-only serving, the champion with 0 failed and its bits each
+   time; `cli.serve --tenant` x3 on 8,192 requests, `cli.serve --shadow
+   --labels` on 2,048 JSON lines and one `cli.refresh --shadow-gate` round
+   at 3r-loop's shape (must commit). The serving path must launch none of
+   the six kernels; the refresh round's training launches are counted
+   apart ("3n-refresh"). `tools/chip_smoke_tenancy.py` runs 3n alone.
 
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
 parallel/), each rank a process started by parallel/launch.py that loads
@@ -437,6 +466,7 @@ The kernels' launch counts are set to 0 just before each path (phases 3-4,
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
 sweep and its cli.tune run, 3v's engine path, 3q's reads and 3mv's
 emulation in this process, each worker of 3mv's runs from its start,
+3n's serving path and its refresh round,
 and 3d, 4d, 3e-d and 3m's uninterrupted fit in each rank, whose counts
 are rank 0's) and read just after; the `kernels` line gives them by
 phase (`launches_by_phase`; "3mv" sums 3mv's workers over every attempt,
@@ -1779,7 +1809,7 @@ def refresh_phase(ds, maps, truth, n_users: int, n_movies: int, dev) -> dict:
 
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     """Phases 2e, 3e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3o's e2e part, 3g, 3x,
-    3x-scale, 3m, 3t, 3w, 3v, 3q, 3mv and 5e (`dense`: phase 3's arrays and model, for 3v). Returns
+    3x-scale, 3m, 3t, 3w, 3v, 3q, 3mv, 3n and 5e (`dense`: phase 3's arrays and model, for 3v). Returns
     (phase 2e rows by kernel, the sparse launches by kernel of each path)."""
     import os
     import tempfile
@@ -1953,6 +1983,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
                             dev)
         launches3q = walled("phase 3q", quarantine_phase, root, work, dev)
         launches3mv = walled("phase 3mv", serve_multihost_phase, root, work, dev)
+        launches3n = walled("phase 3n", tenancy_phase, root, work, dev)
     finally:
         e2e_dir.cleanup()
 
@@ -1989,7 +2020,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
                     "3k": launches3k, "3g": launches3g, "3j": launches3j, "3x": launches3x, "3t": launches3t,
                     "3w": launches3w, "3v": launches3v, "3m": launches3m, "3q": launches3q,
-                    "3mv": launches3mv, "3r": launches3r}
+                    "3mv": launches3mv, "3r": launches3r, "3n": launches3n}
 
 
 # ---------------------------------------------------------------- phases 3e-d and 5e-d
@@ -2304,7 +2335,7 @@ def e2e_across_cards(data: dict, ds, phase3e: dict, failures: list) -> None:
     check_3e_d(outs, f"nccl, {world} cards", ds, phase3e, failures)
 
 
-SERVE_REPLAY_ROWS = 100_000  # 3v: rows of 3g's validation file cli.serve replays
+SERVE_REPLAY_ROWS = 50_000  # 3v: rows of 3g's validation file cli.serve replays (cut from 100,000 for 3n's time)
 SERVE_UNSEEN = 1_000  # and requests with ids no model row has
 SERVE_PARITY_ROWS = 65_536  # rows scored at bucket 256 and held against offline scoring
 SERVE_SMALL_ROWS = 4_096  # rows scored singly, in pairs and in odd triples
@@ -2496,7 +2527,7 @@ def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dens
         failures.append(f"phase 3's model is not bit-equal to GameTransformer at every bucket: {d_by_bucket}")
     del d_bundle, d_reqs, d_model
 
-    # ---- the driver: cli.serve on 100,000 rows of 3g's validation file + unseen ids ---------
+    # ---- the driver: cli.serve on 50,000 rows of 3g's validation file + unseen ids ----------
     replay_dir = os.path.join(work, "serve-requests")
     write_serve_requests(replay_dir, val)
     n, m = SERVE_REPLAY_ROWS, SERVE_UNSEEN
@@ -2676,11 +2707,11 @@ Q_BLOCK = 2  # 3q: the block of 3e's part-0.avro it breaks
 MHV_HOSTS = 2  # 3mv: cli.serve --multihost 2, both workers on the card
 MHV_BLOCKS = 4  # its --multihost-devices-per-host (the flag's default): row blocks a matrix
 MHV_KILLED = 1  # the worker each drill SIGKILLs once its first window is durable
-# 3mv's requests: the first 12 blocks of 3v's part-0.avro (49,152 of its
-# 100,000 rows, 6 windows) and all of its part-1.avro (the 1,000 unseen
-# ids). Cut from 3v's 101,000 for the script's time limit (the whole stream
-# took 3mv 128.8 s on the card).
-MHV_SEEN_BLOCKS = 12
+# 3mv's requests: the first 4 blocks of 3v's part-0.avro (16,384 of its
+# 50,000 rows, 2 windows) and all of its part-1.avro (the 1,000 unseen
+# ids). Cut from 3v's stream for the script's time limit (the whole 101,000
+# took 3mv 128.8 s on the card; cut from 12 blocks for 3n's time).
+MHV_SEEN_BLOCKS = 4
 
 
 def copy_blocks(src: str, dst: str, n_blocks: int) -> int:
@@ -2811,7 +2842,7 @@ def merged_answers(per_host: dict) -> dict:
 
 def serve_multihost_phase(root: str, work: str, dev) -> dict:
     """Phase 3mv: `cli.serve --multihost 2` (4 row blocks a matrix) on 3c's
-    model and 50,152 of 3v's requests (MHV_SEEN_BLOCKS), both workers
+    model and 17,384 of 3v's requests (MHV_SEEN_BLOCKS), both workers
     sharing the card:
     uninterrupted, with worker 1 SIGKILLed once its first window is durable
     and no retry budget, and the same kill with a budget of one (worker 1
@@ -3038,6 +3069,506 @@ def serve_multihost_phase(root: str, work: str, dev) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"workers": path_launches, "emulation": emulation_launches}
+
+
+# ---------------------------------------------------------------- phase 3n
+# Multi-tenant serving and shadow deployment on 3c's model directory (the
+# e2e model: FE over "g", per-user 27,586 and per-movie 5,405 rows, 201
+# wide) with 3v's request stream as the traffic.
+
+TEN_ROWS = 4_096  # 3n: requests of 3v's part-0.avro a tenant (its first block)
+TEN_UNSEEN = 256  # and of its part-1.avro (ids no model row has)
+TEN_VARIANTS = 3  # 3c's model with its coefficients scaled by a seeded draw, written by the model store
+TEN_HOT_ROWS = 2_048  # the demoted tenant's hot rows a random effect (of 27,586 and 5,405)
+TEN_SHADOW_ROWS = 1_024  # requests a shadow drill mirrors
+TEN_SHADOW_WINDOW = 128  # joined rows a shadow window (PHOTON_SHADOW_MIN_WINDOWS, 3, agree for a verdict)
+TEN_CLI_BLOCKS = 2  # cli.serve --tenant x3: the first 8,192 of 3v's requests
+TEN_CLI_SHADOW_ROWS = 2_048  # cli.serve --shadow --labels: JSON lines
+
+
+def tenant_variant_dirs(best: str, work: str, seed: int) -> list:
+    """TEN_VARIANTS model directories: 3c's artifact with every coefficient
+    scaled by (1 + 0.05 N(0, 1)) from a seeded draw, written by the port's
+    model store beside a copy of 3c's feature indexes."""
+    import os
+    import shutil
+
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.io import model_store
+
+    imaps = {"g": IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))}
+    art = model_store.load_game_model(best, imaps)
+    dirs = []
+    for k in range(TEN_VARIANTS):
+        rng = np.random.default_rng(seed + k)
+        coords = {cid: dataclasses.replace(c, means=(c.means * (1.0 + 0.05 * rng.standard_normal(c.means.shape)))
+                                           .astype(np.float32))
+                  for cid, c in art.coordinates.items()}
+        out = os.path.join(work, "tenants", f"v{k}")
+        model_store.save_game_model(out, model_store.GameModelArtifact(art.task, coords, art.opt_configs), imaps)
+        shutil.copytree(os.path.join(best, "feature-indexes"), os.path.join(out, "feature-indexes"))
+        dirs.append(out)
+    return dirs
+
+
+def tenancy_phase(root: str, work: str, dev) -> dict:
+    """Phase 3n: four tenants of one co-batch signature (3c's model and
+    TEN_VARIANTS variants) and a fifth outside it (3c's model demoted to the
+    two-tier store, which answers solo) on one TenantRegistry. Gates, each
+    on the card: co-batched answers bit-equal to each tenant's solo engine
+    with co-batches dispatched; chaos armed for one tenant (lookup and score
+    faults through its gate, a flood past its quota) leaving the clean
+    tenants with no failed request, no degraded labelled counter and their
+    bits; an admission over `hbm_budget_bytes` demoting the coldest tenant
+    to the host tier (no hot rows) which answers bit-equal, and again after
+    `restore`, then bit-equal while promotions run once it is demoted by
+    hand with TEN_HOT_ROWS hot rows, and after a second `restore`; a member's swap mid-stream
+    bit-equal to solo serving of each generation with no capture after
+    warm-up. Shadow: a degraded challenger rejected, the champion's
+    weights promoted through the generation flip, mirror and join faults
+    counted as champion-only serving; the champion never fails a request
+    and keeps its bits. Then `cli.serve --tenant` x3, `cli.serve --shadow
+    --labels` and one `cli.refresh --shadow-gate` round at 3r-loop's shape.
+    The serving path's launches are counted from 0 and must all be 0; the
+    refresh round's training launches are counted apart. Returns both."""
+    import contextlib
+    import itertools
+    import logging
+    import os
+    import threading as _threading
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import refresh as refresh_cli
+    from photon_ml_tpu_torch.cli import serve as serve_cli
+    from photon_ml_tpu_torch.contracts import (
+        ROBUSTNESS_CLEAN_ZERO_KEYS,
+        SERVING_SUMMARY_KEYS,
+        SHADOW_BLOCK_KEYS,
+        TENANT_BLOCK_KEYS,
+    )
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.io import model_store
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig
+    from photon_ml_tpu_torch.serving import (
+        Overloaded,
+        ServingBundle,
+        ServingEngine,
+        ShadowController,
+        TenantRegistry,
+        demote_bundle_to_host_tier,
+        load_bundle,
+        request_from_record,
+    )
+    from photon_ml_tpu_torch.utils import faults, telemetry
+
+    best = os.path.join(root, "drivers", "train", "models", "best")
+    shards = {"g": FeatureShardConfig(("features",), True)}
+    replay_dir = os.path.join(work, "serve-requests")
+    card = card_line() if dev.type == "cuda" else "cpu"
+    failures = []
+    t_phase = time.perf_counter()
+    port_log = logging.getLogger("photon_ml_tpu_torch")
+    log_level = port_log.level
+    port_log.setLevel(logging.ERROR)  # each injected fault and retry logs a warning
+
+    # ---- set-up: the variants, the bundles, the requests ------------------------------
+    t0 = time.perf_counter()
+    variant_dirs = tenant_variant_dirs(best, work, seed=83)
+    write_s = time.perf_counter() - t0
+    recs = list(itertools.islice(avro_io.iter_container(os.path.join(replay_dir, "part-0.avro")), TEN_ROWS))
+    recs += list(itertools.islice(avro_io.iter_container(os.path.join(replay_dir, "part-1.avro")), TEN_UNSEEN))
+    recs = [r for _, r in recs]
+    labels = np.asarray([float(r["label"]) for r in recs], np.float32)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_serving_launches()  # the serving path starts here
+    telemetry.METRICS.reset()
+    t0 = time.perf_counter()
+    names = ["base"] + [f"v{k}" for k in range(TEN_VARIANTS)]
+    bundles = {"base": load_bundle(best, device=dev)}
+    for k, d in enumerate(variant_dirs):
+        bundles[f"v{k}"] = load_bundle(d, device=dev)
+    load_s = time.perf_counter() - t0
+    reqs = [request_from_record(bundles["base"], r, shards) for r in recs]
+    for i, r in enumerate(reqs):
+        r.uid = str(i)
+    tenant_bytes = bundles["base"].device_bytes()
+
+    def solo(bundle, batch=256):
+        with ServingEngine(bundle) as eng:
+            return np.concatenate([np.asarray([x.score for x in eng.score_batch(reqs[i:i + batch])], np.float32)
+                                   for i in range(0, len(reqs), batch)])
+
+    t0 = time.perf_counter()
+    ref = {n: solo(bundles[n]) for n in names}
+    ref_s = time.perf_counter() - t0
+
+    def view(b):
+        """A bundle sharing `b`'s device planes: a registry may release it
+        (a demotion, a promotion) while `b` serves on."""
+        return dataclasses.replace(b, coordinates=dict(b.coordinates), provenance=dict(b.provenance))
+
+    def replay(reg, tenants, idx=None):
+        idx = range(len(reqs)) if idx is None else idx
+        futs = [(n, i, reg.submit(n, reqs[i], block=True)) for i in idx for n in tenants]
+        out = {n: np.zeros(len(reqs), np.float32) for n in tenants}
+        failed = 0
+        for n, i, f in futs:
+            try:
+                out[n][i] = f.result(timeout=120).score
+            except Exception:  # counted: the gates want none
+                failed += 1
+        return out, failed
+
+    # ---- co-batched answers against solo engines ----------------------------------------
+    reg = TenantRegistry()
+    t0 = time.perf_counter()
+    for n in names:
+        reg.admit(n, view(bundles[n]))  # the swap below releases v0's
+    tiered = demote_bundle_to_host_tier(bundles["base"], hot_rows=TEN_HOT_ROWS)
+    reg.admit("tiered", tiered)
+    admit_s = time.perf_counter() - t0
+    warm_captures = reg.metrics()["cobatch_compiles"]
+    t0 = time.perf_counter()
+    got, failed = replay(reg, names + ["tiered"])
+    cobatch_wall = time.perf_counter() - t0
+    m = reg.metrics()
+    bits = {n: bool((got[n] == ref[n]).all()) for n in names}
+    bits["tiered"] = bool((got["tiered"] == ref["base"]).all())
+    group = next(k for k in reg._programs if len(k[1]) == len(names) and k[2] == 256)
+    co_prog = reg._programs[group]
+    solo_prog = reg.tenant("base").engine._state.programs
+    co_ms = time_ms(torch, lambda: co_prog.graph.replay())
+    solo_ms = {b: time_ms(torch, lambda b=b: solo_prog[b].graph.replay()) for b in (64, 256)}
+    tiered_m = reg.tenant("tiered").batcher.metrics()
+    n_co = sum(m["tenants"][n]["cobatched_requests"] for n in names)
+    row = dict(phase="3n-cobatch", tenants=len(names) + 1, requests_a_tenant=len(reqs), failed=failed,
+               bit_equal_to_solo=bits, cobatch_dispatches=m["cobatch_dispatches"], cobatched_requests=n_co,
+               replays_a_request_cobatched=m["cobatch_dispatches"] / max(1, n_co),
+               replays_a_request_solo=tiered_m["batches"] / max(1, tiered_m["completed"]),
+               cobatch_graph_ms_4x256=co_ms, solo_graph_ms={str(b): v for b, v in solo_ms.items()},
+               replay_wall_s=cobatch_wall, requests_a_s=(len(names) + 1) * len(reqs) / cobatch_wall,
+               captures=warm_captures, captures_after_warmup=m["cobatch_compiles_after_warmup"],
+               admit_s=admit_s, load_s=load_s, variants_write_s=write_s, solo_refs_s=ref_s,
+               tenant_device_mib=tenant_bytes / 2**20, tiered_device_mib=tiered.device_bytes() / 2**20,
+               tiered_hot_hits=tiered_m["hot_tier_hits"], tiered_cold_hits=tiered_m["cold_tier_hits"],
+               tiered_promotions=tiered_m["promotions"], card=card)
+    log(json.dumps(row))
+    if failed or not all(bits.values()) or m["cobatch_dispatches"] == 0 or m["cobatch_compiles_after_warmup"]:
+        failures.append(f"co-batch gate: {row}")
+
+    # ---- a member's swap mid-stream ------------------------------------------------------
+    stop = _threading.Event()
+    seen = dict(answered=0, failed=0, old=0, new=0, neither=0)
+    new_ref = ref["v2"]
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            k = i % len(reqs)
+            try:
+                s = np.float32(reg.submit("v0", reqs[k], block=True).result(timeout=120).score)
+                seen["answered"] += 1
+                seen["old" if s == ref["v0"][k] else "new" if s == new_ref[k] else "neither"] += 1
+            except Exception:  # counted: the gate wants none
+                seen["failed"] += 1
+            i += 1
+
+    t = _threading.Thread(target=traffic, name="chip-smoke-tenancy-traffic")
+    t.start()
+    try:
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        info = reg.tenant("v0").engine.bundle_manager.swap(view(bundles["v2"]))
+        swap_s = time.perf_counter() - t0
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        t.join(timeout=300)
+    after, failed_after = replay(reg, ["v0", "base"], idx=range(1024))
+    m = reg.metrics()
+    row = dict(phase="3n-swap", **seen, swap_s=swap_s, version=info["version"],
+               staging_captures=info["staging_compiles"], failed_after=failed_after,
+               after_bit_equal_to_new=bool((after["v0"][:1024] == new_ref[:1024]).all()),
+               base_bit_equal=bool((after["base"][:1024] == ref["base"][:1024]).all()),
+               captures=m["cobatch_compiles"], captures_after_warmup=m["cobatch_compiles_after_warmup"],
+               engine_recompiles_after_warmup={n: reg.tenant(n).engine.recompiles_after_warmup
+                                               for n in reg.tenant_names})
+    log(json.dumps(row))
+    if seen["failed"] or seen["neither"] or not seen["answered"] or failed_after \
+            or not row["after_bit_equal_to_new"] or not row["base_bit_equal"] \
+            or m["cobatch_compiles_after_warmup"] or any(row["engine_recompiles_after_warmup"].values()):
+        failures.append(f"swap gate: {row}")
+    reg.close()
+    tiered.release()
+
+    # ---- chaos confined to one tenant ------------------------------------------------------
+    telemetry.METRICS.reset()
+    reg = TenantRegistry()
+    reg.admit("noisy", bundles["base"], max_pending=8)
+    reg.admit("clean0", bundles["v0"], inject_faults=False)
+    reg.admit("clean1", bundles["v1"], inject_faults=False)
+    noisy = {"submitted": 0, "shed_at_submit": 0, "answered": 0, "failed": 0}
+    with faults.inject("lookup:p0.3,score:p0.3", seed=5):
+        futs = []
+        for i in range(2048):
+            for n in ("clean0", "clean1"):
+                futs.append((n, i, reg.submit(n, reqs[i], block=True)))
+            try:
+                noisy_f = reg.submit("noisy", reqs[i])
+                noisy["submitted"] += 1
+                futs.append(("noisy", i, noisy_f))
+            except Overloaded:
+                noisy["shed_at_submit"] += 1
+        clean_bits, clean_failed = {"clean0": True, "clean1": True}, 0
+        for n, i, f in futs:
+            try:
+                s = np.float32(f.result(timeout=120).score)
+            except Exception:  # counted per tenant
+                if n == "noisy":
+                    noisy["failed"] += 1
+                else:
+                    clean_failed += 1
+                continue
+            if n == "noisy":
+                noisy["answered"] += 1
+            else:
+                clean_bits[n] &= bool(s == ref["v0" if n == "clean0" else "v1"][i])
+    m = reg.metrics()
+    labelled = {c: telemetry.METRICS.labeled_counters(c) for c in
+                ("serving_degraded_batches", "serving_shed_requests", "serving_fe_only_requests",
+                 "serving_deadline_misses", "watchdog_trips")}
+    clean_labelled = {c: {k: v for k, v in d.items() if "clean" in k} for c, d in labelled.items()}
+    row = dict(phase="3n-chaos", noisy=noisy, noisy_block={k: m["tenants"]["noisy"][k] for k in
+                                                           ("completed", "failed", "shed", "degraded_batches",
+                                                            "fe_only_answers")},
+               clean_failed=clean_failed, clean_bit_equal=clean_bits,
+               clean_blocks={n: {k: m["tenants"][n][k] for k in ("failed", "shed", "degraded_batches",
+                                                                  "fe_only_answers")} for n in ("clean0", "clean1")},
+               labelled=labelled)
+    log(json.dumps(row))
+    if clean_failed or not all(clean_bits.values()) or any(v for d in clean_labelled.values() for v in d.values()) \
+            or any(v for n in ("clean0", "clean1") for v in row["clean_blocks"][n].values()) \
+            or not (noisy["shed_at_submit"] + m["tenants"]["noisy"]["degraded_batches"]):
+        failures.append(f"chaos gate: {row}")
+    reg.close()
+
+    # ---- an admission over the budget demotes the coldest tenant --------------------------
+    # The valve keeps no hot rows (every random-effect row from the host
+    # tier); promotions run after `demote(hot_rows=TEN_HOT_ROWS)` by hand.
+    budget = 3 * tenant_bytes + tenant_bytes // 2
+    reg = TenantRegistry(hbm_budget_bytes=budget)
+    for n in ("base", "v0", "v1"):
+        reg.admit(n, view(bundles[n]))
+    for n in ("v0", "v1"):  # base is the coldest
+        reg.submit(n, reqs[0], block=True).result(timeout=120)
+    t0 = time.perf_counter()
+    reg.admit("v2", view(bundles["v2"]))
+    admit_demote_s = time.perf_counter() - t0
+    demoted = sorted(n for n in reg.tenant_names if reg.tenant(n).demoted)
+    base_t = reg.tenant("base")
+    demoted_bytes = base_t.device_bytes()
+    cold, failed = replay(reg, ["base", "v2"])
+    valve = base_t.batcher.metrics()
+    t0 = time.perf_counter()
+    repinned = reg.restore("base")
+    restore_s = time.perf_counter() - t0
+    back, failed1 = replay(reg, ["base"])
+    t0 = time.perf_counter()
+    reg.demote("base", hot_rows=TEN_HOT_ROWS)
+    demote_s = time.perf_counter() - t0
+    stores = base_t.bundle.stores()
+    got, failed2 = replay(reg, ["base"])
+    hits = base_t.batcher.metrics()
+    for s in stores:
+        s.drain()
+    again, failed3 = replay(reg, ["base"], idx=range(1024))
+    hits2 = base_t.batcher.metrics()
+    reg.restore("base")
+    back2, failed4 = replay(reg, ["base"])
+    m = reg.metrics()
+    row = dict(phase="3n-pressure", budget_bytes=budget, tenant_bytes=tenant_bytes, demoted=demoted,
+               demoted_device_bytes=demoted_bytes, hot_rows=TEN_HOT_ROWS,
+               entities={c.cid: c.unseen_row for c in bundles["base"].coordinates.values() if c.is_random_effect},
+               admit_with_demotion_s=admit_demote_s, restore_s=restore_s, repinned_bytes=repinned,
+               demote_hot_s=demote_s, failed=failed + failed1 + failed2 + failed3 + failed4,
+               valve_bit_equal=bool((cold["base"] == ref["base"]).all()),
+               valve_hot_hits=valve["hot_tier_hits"], valve_cold_hits=valve["cold_tier_hits"],
+               restored_bit_equal=bool((back["base"] == ref["base"]).all()),
+               newcomer_bit_equal=bool((cold["v2"] == ref["v2"]).all()),
+               hot_rows_bit_equal=bool((got["base"] == ref["base"]).all()),
+               after_promotions_bit_equal=bool((again["base"][:1024] == ref["base"][:1024]).all()),
+               restored_again_bit_equal=bool((back2["base"] == ref["base"]).all()),
+               hot_hits=hits["hot_tier_hits"], cold_hits=hits["cold_tier_hits"], promotions=hits["promotions"],
+               evictions=hits["evictions"], hot_hits_after_drain=hits2["hot_tier_hits"] - hits["hot_tier_hits"],
+               cold_hits_after_drain=hits2["cold_tier_hits"] - hits["cold_tier_hits"],
+               captures_after_warmup=m["cobatch_compiles_after_warmup"])
+    log(json.dumps(row))
+    if demoted != ["base"] or row["failed"] or not all(row[k] for k in row if k.endswith("_bit_equal")) \
+            or not hits["promotions"] or m["tenants"]["base"]["demoted"] or m["cobatch_compiles_after_warmup"]:
+        failures.append(f"pressure gate: {row}")
+    reg.close()
+
+    # ---- shadow: reject a degraded challenger, promote the champion's weights, faults -------
+    imaps = {"g": IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))}
+    art = model_store.load_game_model(best, imaps)
+    rng = np.random.default_rng(89)
+    degraded = model_store.GameModelArtifact(art.task, {
+        cid: dataclasses.replace(c, means=(rng.standard_normal(c.means.shape) * float(np.std(c.means)))
+                                 .astype(np.float32)) if cid == "global" else c
+        for cid, c in art.coordinates.items()}, art.opt_configs)
+    shadow_rows = {}
+    # The promote drill last: it flips the champion onto its challenger.
+    for drill, challenger, spec in (("reject", lambda: ServingBundle.from_artifact(degraded, device=dev,
+                                                                                   index_maps=imaps), None),
+                                    ("faults", lambda: load_bundle(best, device=dev),
+                                     "shadow_mirror:p0.25,label_join:p0.25"),
+                                    ("promote", lambda: load_bundle(best, device=dev), None)):
+        reg = TenantRegistry()
+        reg.admit("champion", view(bundles["base"]))
+        t0 = time.perf_counter()
+        ctl = ShadowController(reg, "champion", drill, challenger, window_size=TEN_SHADOW_WINDOW,
+                               auto_actuate=drill != "promote")
+        futs = []
+        with faults.inject(spec, seed=7) if spec else contextlib.nullcontext():
+            for i in range(TEN_SHADOW_ROWS):
+                fut = reg.submit("champion", reqs[i], block=True)
+                futs.append(fut)
+                if ctl.mirror(reqs[i], fut):
+                    ctl.record_label(reqs[i].uid, float(labels[i]))
+            champ = np.asarray([f.result(timeout=120).score for f in futs], np.float32)
+        verdict = ctl.wait_for_verdict(timeout_s=120.0) if drill != "faults" else ctl.drain(timeout_s=120.0)
+        verdict_s = time.perf_counter() - t0
+        promote_s = None
+        if drill == "promote" and verdict == "promote":
+            t1 = time.perf_counter()
+            ctl.promote()
+            promote_s = time.perf_counter() - t1
+        block = ctl.summary()
+        ctl.close()
+        after = np.asarray([reg.submit("champion", reqs[i], block=True).result(timeout=120).score
+                            for i in range(256)], np.float32)
+        m = reg.metrics()
+        row = dict(phase="3n-shadow", drill=drill, verdict=verdict, windows=block["windows"],
+                   verdict_s=verdict_s, promote_s=promote_s, status=block["status"],
+                   champion_metric=block["champion_metric"], challenger_metric=block["challenger_metric"],
+                   mirrored=block["mirrored_requests"], mirror_failures=block["mirror_failures"],
+                   label_join_failures=block["label_join_failures"], generation=block["generation"],
+                   champion_failed=m["tenants"]["champion"]["failed"],
+                   champion_bit_equal=bool((champ == ref["base"][:TEN_SHADOW_ROWS]).all()
+                                           and (after == ref["base"][:256]).all()),
+                   score_drift_p50=block["score_drift_p50"], tenants_after=reg.tenant_names,
+                   captures_after_warmup=m["cobatch_compiles_after_warmup"])
+        log(json.dumps(row))
+        shadow_rows[drill] = row
+        ok = row["champion_failed"] == 0 and row["champion_bit_equal"] and tuple(block) == SHADOW_BLOCK_KEYS \
+            and reg.tenant_names == ["champion"] and not m["cobatch_compiles_after_warmup"]
+        if drill == "reject":
+            ok = ok and verdict == "reject" and block["status"] == "rejected" and block["generation"] == 0 \
+                and block["champion_metric"] - block["challenger_metric"] > 0.02
+        elif drill == "promote":
+            ok = ok and verdict == "promote" and block["status"] == "promoted" and block["generation"] == 1
+        else:
+            ok = ok and block["mirror_failures"] > 0 and block["label_join_failures"] > 0
+        if not ok:
+            failures.append(f"shadow {drill} gate: {row}")
+        reg.close()
+    for b in bundles.values():
+        b.release()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else None
+
+    # ---- the drivers --------------------------------------------------------------------
+    cli_dir = os.path.join(work, "tenancy-requests")
+    os.makedirs(cli_dir)
+    n_cli = copy_blocks(os.path.join(replay_dir, "part-0.avro"), os.path.join(cli_dir, "part-0.avro"),
+                        TEN_CLI_BLOCKS)
+    out_t = os.path.join(work, "serve-tenants")
+    telemetry.METRICS.reset()  # the drills' counters: each summary's robustness counters start at 0
+    t0 = time.perf_counter()
+    tenants_summary = serve_cli.main(["--requests", cli_dir, "--root-output-directory", out_t,
+                                      "--feature-shard-configurations", E2E_SHARD, "--logging-level", "WARNING",
+                                      "--tenant", f"base={best}", "--tenant", f"v0={variant_dirs[0]}",
+                                      "--tenant", f"v1={variant_dirs[1]}"])
+    tenants_wall = time.perf_counter() - t0
+    json_path = os.path.join(work, "shadow-requests.jsonl")
+    labels_path = os.path.join(work, "shadow-labels.jsonl")
+    with open(json_path, "w") as fr, open(labels_path, "w") as fl:
+        for i in range(TEN_CLI_SHADOW_ROWS):
+            idx, vals = reqs[i].features["g"]
+            fr.write(json.dumps({"uid": str(i), "ids": dict(reqs[i].entity_ids),
+                                 "features": {"g": {"indices": np.asarray(idx).tolist(),
+                                                    "values": np.asarray(vals, np.float64).tolist()}}}) + "\n")
+            fl.write(json.dumps({"uid": str(i), "label": float(labels[i])}) + "\n")
+    out_s = os.path.join(work, "serve-shadow")
+    telemetry.METRICS.reset()
+    t0 = time.perf_counter()
+    shadow_summary = serve_cli.main(["--model-input-directory", best, "--requests", json_path,
+                                     "--root-output-directory", out_s, "--shadow", f"cand={variant_dirs[0]}",
+                                     "--labels", labels_path, "--shadow-window", str(TEN_SHADOW_WINDOW),
+                                     "--logging-level", "WARNING"])
+    shadow_wall = time.perf_counter() - t0
+    path_launches = serving_launches()  # the serving path ends here
+    out_r = os.path.join(work, "refresh-gate")
+    reset_serving_launches()  # the refresh round's training, counted apart
+    t0 = time.perf_counter()
+    refresh_cli.main(["--root-output-directory", out_r, "--synthetic", "--rounds", "1", "--entities",
+                      str(R_ENTITIES), "--base-rows", str(R_ENTITIES * R_ROWS_PER_ENTITY), "--batch-rows", "128",
+                      "--churn-entities", "6", "--new-entities-per-round", "2", "--shadow-gate",
+                      "--probe-rows", "512", "--seed", "61", "--logging-level", "WARNING"])
+    refresh_wall = time.perf_counter() - t0
+    refresh_launches = serving_launches()
+    with open(os.path.join(out_r, "refresh-summary.json")) as f:
+        (rnd,) = json.load(f)["rounds"]
+    port_log.setLevel(log_level)
+
+    def clean(summary, shed_mirrors=0):
+        robust = {k: summary["robustness_counters"][k] for k in ROBUSTNESS_CLEAN_ZERO_KEYS}
+        robust["shadow_mirror_failures"] -= shed_mirrors
+        return sorted(summary) == sorted(SERVING_SUMMARY_KEYS) and summary["failed_requests"] == 0 \
+            and not any(robust.values())
+
+    # At the default quota the champion's submit waits for a slot and the
+    # mirror's does not: a lagging challenger sheds mirrors, counted as
+    # mirror failures by both packages. Every mirror failure must be such
+    # a shed; the champion sheds none.
+    shed_mirrors = int(shadow_summary["robustness_counters"].get("serving_shed_requests", 0))
+
+    row = dict(phase="3n-cli", tenants_requests=tenants_summary["num_requests"], tenants_rows=n_cli,
+               tenants_failed=tenants_summary["failed_requests"], tenants_wall_s=tenants_wall,
+               tenants_clean=clean(tenants_summary),
+               tenant_blocks_ok=all(tuple(b) == TENANT_BLOCK_KEYS for b in tenants_summary["tenants"].values()),
+               cobatch_dispatches=tenants_summary["serving"]["cobatch_dispatches"],
+               cobatched_requests={n: b["cobatched_requests"] for n, b in tenants_summary["tenants"].items()},
+               shadow_requests=shadow_summary["num_requests"], shadow_failed=shadow_summary["failed_requests"],
+               shadow_wall_s=shadow_wall, shadow_clean=clean(shadow_summary, shed_mirrors),
+               shadow_shed_mirrors=shed_mirrors, shadow=shadow_summary["shadow"],
+               refresh_wall_s=refresh_wall, refresh_round={k: rnd[k] for k in ("mode", "committed", "generation",
+                                                                               "shadow_verdict", "data_to_served_s")},
+               refresh_shadow=rnd["shadow"], refresh_launches=refresh_launches)
+    log(json.dumps(row))
+    if not (row["tenants_clean"] and row["tenant_blocks_ok"] and row["tenants_requests"] == n_cli
+            and row["cobatch_dispatches"] > 0):
+        failures.append(f"cli.serve --tenant: {row}")
+    if not (row["shadow_clean"] and tuple(shadow_summary["shadow"]) == SHADOW_BLOCK_KEYS
+            and shadow_summary["shadow"]["mirrored_requests"] > 0
+            and shadow_summary["shadow"]["mirror_failures"] == shed_mirrors
+            and shadow_summary["tenants"]["champion"]["shed"] == 0):
+        failures.append(f"cli.serve --shadow: {row}")
+    if not (rnd["committed"] and rnd["shadow_verdict"] == "promote"):
+        failures.append(f"cli.refresh --shadow-gate: {row}")
+    if any(path_launches.values()):
+        failures.append(f"the serving path launched a kernel: {path_launches}")
+    log(json.dumps(dict(phase="3n", wall_s=time.perf_counter() - t_phase, launches=path_launches,
+                        refresh_launches=refresh_launches, peak_mem_gib=peak_gib,
+                        mem_allocated_gib=torch.cuda.memory_allocated() / 2**30 if dev.type == "cuda" else None,
+                        ok=not failures)))
+    if failures:
+        raise SystemExit("phase 3n failed: " + "; ".join(failures))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"path": path_launches, "refresh": refresh_launches}
 
 
 def small_estimator_fits(where: str, a: dict, n_train: int) -> dict:
@@ -4210,9 +4741,9 @@ def telemetry_phase(root: str, work: str) -> dict:
 # train driver's hyperparameter tuning, on phase 3e's files.
 
 OFFHEAP_STORES = (("phidx", 1), ("phidx", 8), ("paldb", 4))  # format, partitions
-SCALE_KEYS = 1 << 20  # 1,048,576 synthetic name\x01term keys (PHIDX); cut from 4,194,304 for the time limit (PR 17: 2,097,152)
-SCALE_PALDB_KEYS = 1 << 18  # PalDB's writer and reader are pure Python: cut to 262,144
-TUNING_TRIALS = 4
+SCALE_KEYS = 1 << 19  # 524,288 synthetic name\x01term keys (PHIDX); cut from 4,194,304 for the time limit (by halves, for 3j, 3r and 3n)
+SCALE_PALDB_KEYS = 1 << 17  # PalDB's writer and reader are pure Python: cut to 131,072 (from 262,144 for 3n's time)
+TUNING_TRIALS = 3  # a mode (cut from 4, with 3x-scale and 3mv, for 3n's time)
 EXPLICIT_WEIGHTS = {"global": 1.0, "per-user": 10.0, "per-movie": 10.0}  # E2E_COORDINATES' reg.weights
 
 
@@ -6033,7 +6564,7 @@ def main(argv=None) -> int:
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
     e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3g, 3j, 3x, 3m, 3t, 3w, 3v, "
-                                    "3q, 3mv",
+                                    "3q, 3mv, 3n",
                                     e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
@@ -6059,7 +6590,7 @@ def main(argv=None) -> int:
              launches=(launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k]
                        + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k] + launches3o[k]
                        + e2e_launches["3w"]["dense"][k] + e2e_launches["3j"]["dense"][k]
-                       + e2e_launches["3r"]["dense"][k]),
+                       + e2e_launches["3r"]["dense"][k] + e2e_launches["3n"]["refresh"][k]),
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
                                 "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
                                 "5c": driver_launches["dense"][k], "3o": launches3o[k],
@@ -6067,7 +6598,8 @@ def main(argv=None) -> int:
                                 "3w": e2e_launches["3w"]["dense"][k], "3v": e2e_launches["3v"]["path"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
-                                "3r": e2e_launches["3r"]["dense"][k]},
+                                "3r": e2e_launches["3r"]["dense"][k], "3n": e2e_launches["3n"]["path"][k],
+                                "3n-refresh": e2e_launches["3n"]["refresh"][k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
@@ -6085,7 +6617,8 @@ def main(argv=None) -> int:
                        + driver_launches["sparse"][k] + e2e_launches["3k"][k] + e2e_launches["3g"][k]
                        + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]
                        + e2e_launches["3w"]["sparse"][k] + e2e_launches["3m"]["sparse"][k]
-                       + e2e_launches["3j"]["sparse"][k] + e2e_launches["3r"]["sparse"][k]),
+                       + e2e_launches["3j"]["sparse"][k] + e2e_launches["3r"]["sparse"][k]
+                       + e2e_launches["3n"]["refresh"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
                                 "3e-d": e2e_launches["3e-d"][k],
                                 "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
@@ -6097,7 +6630,8 @@ def main(argv=None) -> int:
                                 "3v": e2e_launches["3v"]["path"][k], "3m": e2e_launches["3m"]["sparse"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
-                                "3r": e2e_launches["3r"]["sparse"][k]},
+                                "3r": e2e_launches["3r"]["sparse"][k], "3n": e2e_launches["3n"]["path"][k],
+                                "3n-refresh": e2e_launches["3n"]["refresh"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
@@ -6119,7 +6653,8 @@ def main(argv=None) -> int:
                                 "3v": e2e_launches["3v"]["path"][k], "3q": e2e_launches["3q"][k],
                                 "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
-                                "3r": e2e_launches["3r"]["dense"][k]},
+                                "3r": e2e_launches["3r"]["dense"][k], "3n": e2e_launches["3n"]["path"][k],
+                                "3n-refresh": e2e_launches["3n"]["refresh"][k]},
              rank_sum_launches=sum(rank_sums.values()), rank_sum_launches_by_phase=rank_sums,
              **dist_rows[k])
         for k in DIST_REPLACES

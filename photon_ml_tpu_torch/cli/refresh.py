@@ -28,8 +28,17 @@ card raises), and each round's `stages_s` in the summary (merge,
 fingerprint copy and hash, plan, coordinate and layout build, offsets,
 solve by coordinate, delta build, and the apply's upload, pre-warm and
 flip). The summary has no `plan` block (the planner is ROADMAP item 10e).
-`--shadow-gate` needs serving/shadow.py (item 10d) and raises before any
-fit.
+
+`--shadow-gate` lands each round's fit as a shadow tenant first: the live
+engine is tenant "live" of a `TenantRegistry`, `--probe-rows` labelled
+probe requests (fresh rows from the training distribution, entities of the
+base pool) are mirrored into the challenger, and the round's delta commits
+(`apply_delta_for_tenant`) only on a `promote` verdict over two windows; a
+reject, or no verdict in time, journals `delta_rollback` and leaves the
+live generation as it was. Its labels follow a noisy linear rule on the
+fixed features instead of coin flips, as the reference's do, so the gate
+compares quality; each round's record gains `shadow` and
+`shadow_verdict`.
 
 Usage: python -m photon_ml_tpu_torch.cli.refresh --help
 """
@@ -55,11 +64,11 @@ from photon_ml_tpu_torch.data.game_dataset import (
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
 from photon_ml_tpu_torch.game import incremental
 from photon_ml_tpu_torch.optimize.config import L2, CoordinateOptimizationConfig, OptimizerConfig
-from photon_ml_tpu_torch.serving.bundle import ServingBundle
-from photon_ml_tpu_torch.serving.delta import apply_delta, build_delta_bundle
+from photon_ml_tpu_torch.serving.bundle import ScoreRequest, ServingBundle
+from photon_ml_tpu_torch.serving.delta import apply_delta, apply_delta_for_tenant, build_delta_bundle
 from photon_ml_tpu_torch.serving.engine import ServingEngine
 from photon_ml_tpu_torch.types import TaskType
-from photon_ml_tpu_torch.utils import telemetry
+from photon_ml_tpu_torch.utils import faults, telemetry
 from photon_ml_tpu_torch.utils.knobs import get_knob
 
 logger = logging.getLogger("photon_ml_tpu_torch.cli.refresh")
@@ -89,10 +98,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="existing entities each delta batch touches")
     p.add_argument("--training-task", type=TaskType.parse, default=TaskType.LOGISTIC_REGRESSION)
     p.add_argument("--shadow-gate", action="store_true",
-                   help="land each round's delta as a shadow tenant first (not ported: ROADMAP "
-                        "item 10d; raises)")
+                   help="land each round's delta as a shadow tenant first and commit it only on a "
+                        "clean online verdict (a regression journals delta_rollback and leaves the "
+                        "live generation untouched)")
     p.add_argument("--probe-rows", type=int, default=48,
-                   help="labelled probe requests per round (only with --shadow-gate)")
+                   help="labelled probe requests mirrored through the shadow per round (two "
+                        "evaluation windows; only used with --shadow-gate)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda with no card raises")
@@ -101,14 +112,76 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _synthetic_batch(rng, n: int, entities: np.ndarray, d_fe: int, d_re: int,
-                     device: DeviceLike) -> GameDataset:
+                     device: DeviceLike, w_true: Optional[np.ndarray] = None) -> GameDataset:
     """One data batch over the given entity pool (rows cycle the pool, so
-    every listed entity appears): the reference's draws, in its order."""
+    every listed entity appears): the reference's draws, in its order. With
+    `w_true` the labels follow a noisy linear rule on the fixed features
+    (the shadow gate compares quality, which needs a signal)."""
     ent = np.resize(entities, n)
     Xg = rng.normal(size=(n, d_fe)).astype(np.float32)
     Xre = rng.normal(size=(n, d_re)).astype(np.float32)
-    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    if w_true is None:
+        y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    else:
+        y = (Xg @ w_true + 0.25 * rng.normal(size=n) > 0.0).astype(np.float32)
     return GameDataset.build({"g": Xg, "re": Xre}, y, id_tags={"eid": ent}, device=device)
+
+
+def _probe_requests(rng, n: int, entities: int, d_fe: int, d_re: int, w_true: np.ndarray,
+                    round_idx: int):
+    """A gated round's labelled probe traffic: fresh rows of the training
+    distribution, entities cycling the base pool (both models answer
+    warm); the reference's draws."""
+    ent = np.resize(np.arange(entities, dtype=np.int64), n)
+    Xg = rng.normal(size=(n, d_fe)).astype(np.float32)
+    Xre = rng.normal(size=(n, d_re)).astype(np.float32)
+    y = (Xg @ w_true + 0.25 * rng.normal(size=n) > 0.0).astype(np.float32)
+    reqs = [ScoreRequest(features={"g": Xg[i], "re": Xre[i]}, entity_ids={"eid": int(ent[i])},
+                         uid=f"probe-r{round_idx}-{i}") for i in range(n)]
+    return reqs, y
+
+
+def _shadow_gate_round(registry, r: int, result, delta, data_configs, task: TaskType, *,
+                       entities: int, d_fe: int, d_re: int, w_true: np.ndarray, probe_rows: int,
+                       seed: int, device):
+    """Land one round's fit as a shadow before committing its delta (the
+    module docstring). Returns (the apply's record or None, the shadow
+    block, the verdict)."""
+    from photon_ml_tpu_torch.serving.shadow import ShadowController
+
+    chall_bundle = ServingBundle.from_model(
+        result.state.model, incremental.scoring_specs(data_configs, result.state.entity_indices),
+        task, device=device)
+    window = max(4, probe_rows // 2)
+    controller = ShadowController(registry, "live", f"delta-r{r}", chall_bundle, auto_actuate=False,
+                                  window_size=window, min_windows=2, cooldown_s=0.0,
+                                  mirror_fraction=1.0)
+    probe_rng = np.random.default_rng(seed + 7919 * (r + 1))
+    reqs, labels = _probe_requests(probe_rng, 2 * window, entities, d_fe, d_re, w_true, r)
+    try:
+        futures = []
+        for req, label in zip(reqs, labels):
+            fut = registry.submit("live", req, block=True)
+            futures.append(fut)
+            if controller.mirror(req, fut):
+                controller.record_label(req.uid, float(label))
+        for fut in futures:
+            fut.result(timeout=60.0)
+        verdict = controller.wait_for_verdict(timeout_s=120.0)
+        shadow_block = controller.summary()
+    finally:
+        # A rejected shadow is gone already; a promote-ready one leaves
+        # without a verdict counter (the delta below is the actuation).
+        controller.close()
+    if verdict == "promote":
+        return apply_delta_for_tenant(registry, "live", delta), shadow_block, verdict
+    reason = ("shadow gate: challenger regressed on probe traffic" if verdict == "reject"
+              else "shadow gate: no clean verdict before timeout")
+    live_version = int(registry.tenant("live").engine._state.version)
+    telemetry.emit_event("delta_rollback", version=live_version, reason=reason)
+    faults.COUNTERS.increment("delta_rollbacks")
+    logger.warning("round %d delta rejected by shadow gate: %s", r, reason)
+    return None, shadow_block, verdict or "no-verdict"
 
 
 def _sync(device: torch.device) -> None:
@@ -119,7 +192,8 @@ def _sync(device: torch.device) -> None:
 def run_refresh_loop(out_root: str, *, rounds: int, base_rows: int, batch_rows: Optional[int],
                      entities: int, new_entities_per_round: int, churn_entities: int,
                      task: TaskType, seed: int, d_fe: int = 6, d_re: int = 4,
-                     device: DeviceLike = "cuda") -> Dict[str, object]:
+                     device: DeviceLike = "cuda", shadow_gate: bool = False,
+                     probe_rows: int = 48) -> Dict[str, object]:
     """The synthetic loop; returns (and writes) the refresh summary."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -135,14 +209,26 @@ def run_refresh_loop(out_root: str, *, rounds: int, base_rows: int, batch_rows: 
     ckpt_dir = os.path.join(out_root, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
 
+    # A gated run needs labels with a signal (_synthetic_batch); the ungated
+    # stream keeps its coin flips.
+    w_true = np.linspace(1.5, -1.5, d_fe).astype(np.float32) if shadow_gate else None
     t_full = time.perf_counter()
-    dataset = _synthetic_batch(rng, base_rows, np.arange(entities, dtype=np.int64), d_fe, d_re, dev)
+    dataset = _synthetic_batch(rng, base_rows, np.arange(entities, dtype=np.int64), d_fe, d_re, dev,
+                               w_true=w_true)
     state = incremental.full_fit(dataset, data_configs, opt_configs, task, seed=seed)
     _sync(dev)
     full_fit_s = time.perf_counter() - t_full
     specs = incremental.scoring_specs(data_configs, state.entity_indices)
-    engine = ServingEngine(ServingBundle.from_model(state.model, specs, task, device=dev),
-                           max_batch=16)
+    bundle0 = ServingBundle.from_model(state.model, specs, task, device=dev)
+    registry = None
+    if shadow_gate:
+        from photon_ml_tpu_torch.serving.tenancy import TenantRegistry
+
+        registry = TenantRegistry(max_batch=16)
+        registry.admit("live", bundle0)
+        engine = registry.tenant("live").engine
+    else:
+        engine = ServingEngine(bundle0, max_batch=16)
     next_entity = entities
     round_records: List[Dict[str, object]] = []
     try:
@@ -152,7 +238,7 @@ def run_refresh_loop(out_root: str, *, rounds: int, base_rows: int, batch_rows: 
             next_entity += new_entities_per_round
             pool = np.concatenate([churn, fresh]).astype(np.int64)
             t_data = time.perf_counter()
-            batch = _synthetic_batch(rng, batch_rows, pool, d_fe, d_re, dev)
+            batch = _synthetic_batch(rng, batch_rows, pool, d_fe, d_re, dev, w_true=w_true)
             dataset = concat_datasets(dataset, batch)
             _sync(dev)
             merge_s = time.perf_counter() - t_data
@@ -163,10 +249,18 @@ def run_refresh_loop(out_root: str, *, rounds: int, base_rows: int, batch_rows: 
                                        mode=result.plan.mode, delta_rows=result.plan.delta_rows,
                                        total_rows=result.plan.total_rows)
             delta_build_s = time.perf_counter() - t_build
-            info = apply_delta(engine, delta)
+            shadow_block = verdict = None
+            if shadow_gate:
+                info, shadow_block, verdict = _shadow_gate_round(
+                    registry, r, result, delta, data_configs, task, entities=entities, d_fe=d_fe,
+                    d_re=d_re, w_true=w_true, probe_rows=probe_rows, seed=seed, device=dev)
+            else:
+                info = apply_delta(engine, delta)
             data_to_served_s = time.perf_counter() - t_data
-            committed = bool(info["committed"])
+            committed = info is not None and bool(info["committed"])
             if committed:
+                # A rejected round keeps the data, not the weights: the next
+                # delta is fit from the last state the gate let through.
                 state = result.state
             record = {
                 "round": r,
@@ -174,13 +268,16 @@ def run_refresh_loop(out_root: str, *, rounds: int, base_rows: int, batch_rows: 
                 "delta": delta.manifest(),
                 "incremental_fit_s": round(result.seconds, 4),
                 "max_rel_diff": result.max_rel_diff,
-                "generation": int(info["version"]),
+                "generation": int(info["version"]) if info is not None else int(engine._state.version),
                 "committed": committed,
                 "data_to_served_s": round(data_to_served_s, 4),
                 "stages_s": {"merge": merge_s, **result.stage_s, "delta_build": delta_build_s,
-                             "apply": {k: info.get(f"{k}_s", 0.0)
+                             "apply": {k: (info or {}).get(f"{k}_s", 0.0)
                                        for k in ("upload", "prewarm", "flip")}},
             }
+            if shadow_block is not None:
+                record["shadow"] = shadow_block
+                record["shadow_verdict"] = verdict
             round_records.append(record)
             logger.info("round %d: mode=%s delta_rows=%d/%d generation=%d committed=%s "
                         "data->served %.3fs", r, result.plan.mode, result.plan.delta_rows,
@@ -188,8 +285,11 @@ def run_refresh_loop(out_root: str, *, rounds: int, base_rows: int, batch_rows: 
         provenance = dict(engine.bundle.provenance)
         metrics = engine.metrics()
     finally:
-        engine.close()
-        engine.bundle.release()
+        if registry is not None:
+            registry.close(release_bundles=True)
+        else:
+            engine.close()
+            engine.bundle.release()
     summary = {
         "rounds": round_records,
         "full_fit_s": round(full_fit_s, 4),
@@ -206,9 +306,6 @@ def run_refresh_loop(out_root: str, *, rounds: int, base_rows: int, batch_rows: 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=getattr(logging, args.logging_level.upper(), logging.INFO))
-    if args.shadow_gate:
-        raise NotImplementedError("--shadow-gate needs serving/shadow.ShadowController and "
-                                  "serving/tenancy.TenantRegistry: ROADMAP item 10d (not ported)")
     if not args.synthetic:
         raise SystemExit("only --synthetic data is supported; production refresh loops drive "
                          "game.incremental + serving.delta directly against their ingest (see the "
@@ -222,7 +319,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             out_root, rounds=args.rounds, base_rows=args.base_rows, batch_rows=args.batch_rows,
             entities=args.entities, new_entities_per_round=args.new_entities_per_round,
             churn_entities=args.churn_entities, task=args.training_task, seed=args.seed,
-            device=args.device)
+            device=args.device, shadow_gate=args.shadow_gate, probe_rows=args.probe_rows)
     finally:
         telemetry.uninstall_journal()
         journal.close()

@@ -1,15 +1,27 @@
 """Online serving driver: pin a model once, replay a request stream.
 
-Port of the single-tenant path of `photon_ml_tpu/cli/serve.py` (`run`,
-`_run_with_bundle`): load a model directory written by either package's
+Port of `photon_ml_tpu/cli/serve.py`. The single-tenant path (`run`,
+`_run_with_bundle`) loads a model directory written by either package's
 `cli.train` onto the device (`--device`, default cuda; cuda with no card
-raises), build the engine's bucket programs (CUDA graphs on the card),
-stream the requests through the deadline micro-batcher in windows of
-REPLAY_WINDOW, and write one ScoringResultAvro part per window under
+raises), builds the engine's bucket programs (CUDA graphs on the card),
+streams the requests through the deadline micro-batcher in windows of
+REPLAY_WINDOW, and writes one ScoringResultAvro part per window under
 `<root>/scores`, `serving-summary.json` (every SERVING_SUMMARY_KEYS key:
 `plan` is the reference's inactive block, the port has no planner;
 `tenants`, `shadow` and `autopilot` are empty), `journal.jsonl`,
 `profile.json`, and `trace.json` when PHOTON_TRACE is on.
+
+`--tenant NAME=MODEL_DIR` (repeatable) pins every tenant's model on the
+card behind a `TenantRegistry` and assigns the stream round robin, each
+record encoded against its tenant's bundle; scores land under
+`scores/<tenant>/` and the summary's `tenants` block has one
+TENANT_BLOCK_KEYS block a tenant. `--shadow NAME=MODEL_DIR` serves the
+model directory as the champion and the challenger as a shadow tenant
+that receives a copy of every request with a uid (co-batched with the
+champion; only the champion's scores are written); `--labels` joins
+{"uid", "label", "weight"} lines into the online evaluation windows
+(`--shadow-window` rows each) that drive the promote or reject verdict,
+and the summary's `shadow` block (SHADOW_BLOCK_KEYS) records it.
 
 Requests are JSON lines (`.json`/`.jsonl`: {"uid", "offset", "ids":
 {re_type: id}, "features": {shard: {feature_key: value} | {"indices",
@@ -25,9 +37,11 @@ stream.
 `--multihost N` runs N share-nothing serving workers over the same model
 and request stream, each owning a partition of every random effect's rows,
 and merges their answers (cli/serve_multihost.py); `main` dispatches it,
-and `run` is the single-process path. `--tenant`, `--shadow`, `--labels`,
-`--autopilot` and `--profile` (ROADMAP item 10) and `--reshard-to` (item
-9) raise before anything is staged.
+and `run` is the single-process path. Under `--multihost`, `--shadow` and
+`--labels` are not read, as in the reference's driver. The reference's
+refusals of flag combinations come first, in its order and words; then
+`--autopilot` and `--profile` (ROADMAP item 10e) and `--reshard-to` (item
+9c) raise. All of it before anything is staged.
 
 Usage: python -m photon_ml_tpu_torch.cli.serve --help
 """
@@ -57,12 +71,9 @@ REPLAY_WINDOW = 8192
 
 # Flags of parts the port has not got, and the ROADMAP item that brings each.
 UNPORTED = {
-    "tenant": "--tenant (multi-tenant serving) is ROADMAP item 10",
-    "shadow": "--shadow (shadow deployment) is ROADMAP item 10",
-    "labels": "--labels (online evaluation of a shadow) is ROADMAP item 10",
-    "autopilot": "--autopilot (closed-loop autoscaling) is ROADMAP item 10",
-    "profile": "--profile (the adaptive runtime planner) is ROADMAP item 10",
-    "reshard_to": "--reshard-to (live resharding of the serving store) is ROADMAP item 9",
+    "autopilot": "--autopilot (closed-loop autoscaling) is ROADMAP item 10e",
+    "profile": "--profile (the adaptive runtime planner) is ROADMAP item 10e",
+    "reshard_to": "--reshard-to (live resharding of the serving store) is ROADMAP item 9c",
 }
 
 
@@ -116,9 +127,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mh-num-hosts", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--mh-attempt", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--mh-resume-window", type=int, default=0, help=argparse.SUPPRESS)
-    for flag, kind in (("--tenant", "append"), ("--shadow", None), ("--labels", None),
-                       ("--autopilot", "store_true"), ("--profile", None), ("--reshard-to", int)):
-        if kind in ("append", "store_true"):
+    p.add_argument("--tenant", action="append", default=None, metavar="NAME=MODEL_DIR",
+                   help="multi-tenant serving (repeatable, in place of --model-input-directory): "
+                        "every tenant's model pinned on the card behind one registry, with "
+                        "per-tenant quotas, deadlines and failure domains and weighted-fair "
+                        "co-batching; the stream is assigned round robin")
+    p.add_argument("--shadow", default=None, metavar="NAME=MODEL_DIR",
+                   help="shadow deployment (single-tenant mode only): a challenger admitted as a "
+                        "shadow tenant, mirrored the champion's traffic and co-batched with it; its "
+                        "answers are never returned, and online evaluation windows (see --labels) "
+                        "drive a journalled promote/reject verdict")
+    p.add_argument("--labels", default=None, metavar="PATH",
+                   help="label stream of the shadow's online evaluation: .json/.jsonl lines of "
+                        "{\"uid\", \"label\", \"weight\"?} joined by uid; without it the shadow "
+                        "mirrors but no verdict can fire")
+    p.add_argument("--shadow-window", type=int, default=64,
+                   help="joined rows per shadow evaluation window (default 64); a verdict needs "
+                        "PHOTON_SHADOW_MIN_WINDOWS consecutive windows agreeing")
+    for flag, kind in (("--autopilot", "store_true"), ("--profile", None), ("--reshard-to", int)):
+        if kind == "store_true":
             p.add_argument(flag, action=kind, default=None, help=argparse.SUPPRESS)
         else:
             p.add_argument(flag, type=kind, default=None, help=argparse.SUPPRESS)
@@ -140,19 +167,38 @@ def _encode_json_request(bundle: ServingBundle, doc: dict) -> ScoreRequest:
                                  uid=None if doc.get("uid") is None else str(doc["uid"]))
 
 
-def _iter_json_requests(path: str, bundle: ServingBundle, malformed: List[int]) -> Iterator[ScoreRequest]:
+def _iter_json_docs(path: str, malformed: List[int]) -> Iterator[dict]:
+    """Parsed request documents; a malformed line costs one record."""
     with open(path) as f:
         for lineno, line in enumerate(f, 1):
             line = line.strip()
             if not line:
                 continue
             try:
-                req = _encode_json_request(bundle, json.loads(line))
+                yield json.loads(line)
             except Exception as exc:  # one malformed line costs one record
                 malformed[0] += 1
                 logger.warning("skipping malformed request at %s:%d: %s", path, lineno, exc)
-                continue
-            yield req
+
+
+def _iter_json_requests(path: str, bundle: ServingBundle, malformed: List[int]) -> Iterator[ScoreRequest]:
+    for doc in _iter_json_docs(path, malformed):
+        try:
+            req = _encode_json_request(bundle, doc)
+        except Exception as exc:  # one malformed line costs one record
+            malformed[0] += 1
+            logger.warning("skipping malformed request in %s: %s", path, exc)
+            continue
+        yield req
+
+
+def _iter_avro_records(path: str) -> Iterator[dict]:
+    """Raw replay records (a corrupt block quarantined), for paths that
+    encode each record against a bundle of their choice."""
+    from photon_ml_tpu_torch.io import avro as avro_io
+
+    for _, rec in avro_io.iter_directory(path, quarantine=True):
+        yield rec
 
 
 def _iter_avro_requests(path: str, bundle: ServingBundle, shard_configs,
@@ -187,20 +233,53 @@ def _write_score_part(scores_dir: str, k: int, results, model_id: str) -> str:
     return part
 
 
-def run(args) -> Dict[str, object]:
-    logging.basicConfig(level=getattr(logging, args.logging_level.upper(), logging.INFO),
-                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    # Refusals and argument checks come before anything is staged.
-    if getattr(args, "multihost", 0) or getattr(args, "mh_serve_worker", False):
-        raise ValueError("--multihost serving dispatches in serve.main(); run() is the "
-                         "single-process path")
-    refuse_unported(args)
-    if not args.model_input_directory:
-        raise ValueError("--model-input-directory is required")
+def _validate(args) -> List[tuple]:
+    """The reference's refusals, in its order and words, then the port's
+    refusals of parts it has not got; returns the parsed --tenant specs."""
     is_json = args.requests.endswith((".json", ".jsonl"))
     if not is_json and not args.feature_shard_configurations:
         raise ValueError("Avro request replay needs --feature-shard-configurations (the bag -> "
                          "shard mapping offline ingest uses)")
+    if getattr(args, "multihost", 0) or getattr(args, "mh_serve_worker", False):
+        raise ValueError("--multihost serving dispatches in serve.main(); run() is the "
+                         "single-process path")
+    tenants = args.tenant
+    if bool(tenants) == bool(args.model_input_directory):
+        raise ValueError("pass exactly one of --model-input-directory (single-tenant) or --tenant "
+                         "NAME=MODEL_DIR (repeatable, multi-tenant)")
+    if tenants and args.reshard_to is not None:
+        raise ValueError("--reshard-to is a single-tenant drill; it cannot be combined with --tenant")
+    if args.shadow:
+        if tenants:
+            raise ValueError("--shadow mirrors one champion's traffic; it cannot be combined with "
+                             "--tenant")
+        if args.reshard_to is not None:
+            raise ValueError("--shadow and --reshard-to both drive generation flips; run them "
+                             "separately")
+    if args.autopilot:
+        if not tenants:
+            raise ValueError("--autopilot supervises a multi-tenant fleet; combine it with --tenant")
+        if args.reshard_to is not None:
+            raise ValueError("--autopilot owns the reshard actuator; it cannot be combined with the "
+                             "--reshard-to drill")
+    specs: List[tuple] = []
+    for spec in tenants or []:
+        name, sep, model_dir = spec.partition("=")
+        if not sep or not name or not model_dir:
+            raise ValueError(f"--tenant {spec!r}: expected NAME=MODEL_DIR")
+        if name in dict(specs):
+            raise ValueError(f"duplicate tenant name {name!r}")
+        specs.append((name, model_dir))
+    refuse_unported(args)
+    return specs
+
+
+def run(args) -> Dict[str, object]:
+    logging.basicConfig(level=getattr(logging, args.logging_level.upper(), logging.INFO),
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    # Refusals and argument checks come before anything is staged.
+    tenant_specs = _validate(args)
+    is_json = args.requests.endswith((".json", ".jsonl"))
     device = resolve_device(args.device)
     from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
     from photon_ml_tpu_torch.native import avro_writer
@@ -225,6 +304,10 @@ def run(args) -> Dict[str, object]:
     tracer_owned = telemetry.current_tracer() is None
     tracer = telemetry.start_tracing_if_enabled()
     try:
+        if tenant_specs:
+            return _run_multi_tenant(args, tenant_specs, index_maps, shard_configs, is_json, device)
+        if args.shadow:
+            return _run_with_shadow(args, index_maps, shard_configs, is_json, device)
         bundle = load_bundle(args.model_input_directory, device=device, index_maps=index_maps)
         logger.info("bundle pinned: %d coordinate(s), %.1f MB staged in %.3fs",
                     len(bundle.coordinates), bundle.upload_bytes / 1e6, bundle.upload_s)
@@ -311,6 +394,226 @@ def _run_with_bundle(args, bundle: ServingBundle, shard_configs, is_json: bool) 
         topology=telemetry.device_topology(bundle.device))
     profile["plan"] = summary["plan"]
     telemetry.write_profile(os.path.join(out_root, "profile.json"), profile)
+    return summary
+
+
+def _summary(n_requests: int, n_failed: int, malformed: int, metrics, health, provenance,
+             shadow: dict) -> Dict[str, object]:
+    from photon_ml_tpu_torch.contracts import PLAN_BLOCK_KEYS, ROBUSTNESS_CLEAN_ZERO_KEYS
+    from photon_ml_tpu_torch.utils import faults
+
+    return {
+        "num_requests": n_requests,
+        "failed_requests": n_failed,
+        "malformed_records": malformed,
+        "serving": metrics,
+        "health": health,
+        "robustness_counters": {**{k: 0 for k in ROBUSTNESS_CLEAN_ZERO_KEYS}, **faults.counters()},
+        "plan": dict(zip(PLAN_BLOCK_KEYS, (False, "off", None, []))),
+        "tenants": metrics["tenants"],
+        "provenance": provenance,
+        "shadow": shadow,
+        "autopilot": {},
+    }
+
+
+def _write_registry_outputs(out_root: str, summary: dict, registry, names: List[str],
+                            warmup_s: float, replay_s: float, device) -> None:
+    from photon_ml_tpu_torch.utils import telemetry
+
+    with open(os.path.join(out_root, "serving-summary.json"), "w") as f:
+        json.dump(summary, f, indent=2, default=str)
+    profile = telemetry.build_profile(
+        "serve", wall_s=warmup_s + replay_s, stages={"warmup_s": warmup_s, "replay_s": replay_s},
+        dispatch={"max_batch": registry.max_batch, "max_wait_ms": registry.max_wait_s * 1e3,
+                  "tenants": names},
+        bucket_shapes={"registry_buckets": list(registry.buckets)}, serving=summary["serving"],
+        topology=telemetry.device_topology(device))
+    profile["plan"] = summary["plan"]
+    telemetry.write_profile(os.path.join(out_root, "profile.json"), profile)
+
+
+def _encode(bundle: ServingBundle, raw, is_json: bool, shard_configs) -> ScoreRequest:
+    return _encode_json_request(bundle, raw) if is_json else request_from_record(bundle, raw,
+                                                                                 shard_configs)
+
+
+def _run_multi_tenant(args, tenant_specs, index_maps, shard_configs, is_json: bool,
+                      device) -> Dict[str, object]:
+    """`--tenant NAME=MODEL_DIR`, repeatable: every tenant's bundle on the
+    card behind one TenantRegistry, the stream assigned round robin (each
+    record encoded against its tenant's bundle), scores under
+    scores/<tenant>/, one TENANT_BLOCK_KEYS block a tenant in the summary."""
+    from photon_ml_tpu_torch.serving.tenancy import TenantRegistry
+    from photon_ml_tpu_torch.utils import telemetry
+
+    out_root = args.root_output_directory
+    t_warm = time.perf_counter()
+    registry = TenantRegistry(max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
+    names: List[str] = []
+    malformed = [0]
+    try:
+        for name, model_dir in tenant_specs:
+            registry.admit(name, lambda d=model_dir: load_bundle(d, device=device, index_maps=index_maps),
+                           max_pending=args.max_pending, deadline_ms=args.deadline_ms)
+            names.append(name)
+            logger.info("tenant %r pinned: %.1f MB", name,
+                        registry.tenant(name).bundle.upload_bytes / 1e6)
+        warmup_s = time.perf_counter() - t_warm
+        raw_stream = _iter_json_docs(args.requests, malformed) if is_json \
+            else _iter_avro_records(args.requests)
+        scores_root = os.path.join(out_root, "scores")
+        model_id = args.model_id or "game-model"
+        n_requests = n_failed = assigned = 0
+        t_replay = time.perf_counter()
+        with telemetry.span("serve_replay", tenants=names):
+            for k in itertools.count():
+                window = []  # (tenant, request)
+                for raw in itertools.islice(raw_stream, REPLAY_WINDOW):
+                    name = names[assigned % len(names)]
+                    assigned += 1
+                    try:
+                        window.append((name, _encode(registry.tenant(name).bundle, raw, is_json,
+                                                     shard_configs)))
+                    except Exception as exc:  # one malformed record costs one record
+                        malformed[0] += 1
+                        logger.warning("skipping malformed request for tenant %r: %s", name, exc)
+                if not window:
+                    break
+                futures = [(name, registry.submit(name, r, block=True)) for name, r in window]
+                by_tenant: Dict[str, list] = {}
+                for i, (name, fut) in enumerate(futures):
+                    try:
+                        by_tenant.setdefault(name, []).append((n_requests + i, fut.result()))
+                    except Exception as exc:  # one failed request costs one record
+                        n_failed += 1
+                        logger.warning("tenant %r request %d failed: %s", name, n_requests + i, exc)
+                for name, results in by_tenant.items():
+                    os.makedirs(os.path.join(scores_root, name), exist_ok=True)
+                    _write_score_part(os.path.join(scores_root, name), k, results, model_id)
+                n_requests += len(window)
+        replay_s = time.perf_counter() - t_replay
+        metrics = registry.metrics()
+        health = {n: registry.tenant(n).engine.health.snapshot() for n in names}
+        provenance = {n: dict(registry.tenant(n).bundle.provenance) for n in names}
+    finally:
+        registry.close(release_bundles=True)
+    logger.info("replayed %d request(s) across %d tenant(s), %d failed, %d malformed skipped",
+                n_requests, len(names), n_failed, malformed[0])
+    summary = _summary(n_requests, n_failed, malformed[0], metrics, health, provenance, {})
+    _write_registry_outputs(out_root, summary, registry, names, warmup_s, replay_s, device)
+    return summary
+
+
+def _load_labels(path: str) -> dict:
+    """uid -> (label, weight) from .json/.jsonl lines; a malformed line
+    costs one label."""
+    labels: dict = {}
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                doc = json.loads(line)
+                labels[str(doc["uid"])] = (float(doc["label"]), float(doc.get("weight", 1.0)))
+            except Exception as exc:  # one malformed line costs one label
+                logger.warning("skipping malformed label at %s:%d: %s", path, lineno, exc)
+    return labels
+
+
+def _run_with_shadow(args, index_maps, shard_configs, is_json: bool, device) -> Dict[str, object]:
+    """`--shadow NAME=MODEL_DIR`: the model directory serves as tenant
+    "champion" and the challenger rides as a shadow tenant fed a copy of
+    every request with a uid (its answers are never returned: only the
+    champion's scores are written); `--labels` joins labels into the
+    windows that drive the verdict. Champion and challenger share the
+    feature space: one encoding serves both."""
+    from photon_ml_tpu_torch.serving.shadow import ShadowController
+    from photon_ml_tpu_torch.serving.tenancy import TenantRegistry
+    from photon_ml_tpu_torch.utils import telemetry
+
+    shadow_name, sep, shadow_dir = args.shadow.partition("=")
+    if not sep or not shadow_name or not shadow_dir:
+        raise ValueError(f"--shadow {args.shadow!r}: expected NAME=MODEL_DIR")
+    champion = "champion"
+    if shadow_name == champion:
+        raise ValueError(f"--shadow name {shadow_name!r} collides with the champion tenant name")
+    labels = _load_labels(args.labels) if args.labels else {}
+    out_root = args.root_output_directory
+    t_warm = time.perf_counter()
+    registry = TenantRegistry(max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
+    controller = None
+    malformed = [0]
+    try:
+        registry.admit(champion, lambda: load_bundle(args.model_input_directory, device=device,
+                                                     index_maps=index_maps),
+                       max_pending=args.max_pending, deadline_ms=args.deadline_ms)
+        controller = ShadowController(registry, champion, shadow_name,
+                                      lambda: load_bundle(shadow_dir, device=device,
+                                                          index_maps=index_maps),
+                                      window_size=args.shadow_window, max_pending=args.max_pending,
+                                      deadline_ms=args.deadline_ms)
+        warmup_s = time.perf_counter() - t_warm
+        logger.info("champion pinned; challenger %r riding shadow (window=%d, %d label(s))",
+                    shadow_name, args.shadow_window, len(labels))
+        raw_stream = _iter_json_docs(args.requests, malformed) if is_json \
+            else _iter_avro_records(args.requests)
+        scores_dir = os.path.join(out_root, "scores")
+        os.makedirs(scores_dir, exist_ok=True)
+        model_id = args.model_id or "game-model"
+        n_requests = n_failed = 0
+        t_replay = time.perf_counter()
+        with telemetry.span("serve_replay", shadow=shadow_name):
+            for k in itertools.count():
+                # Encoded against the champion's current bundle: after a
+                # promotion, the promoted challenger's.
+                bundle = registry.tenant(champion).bundle
+                window = []
+                for raw in itertools.islice(raw_stream, REPLAY_WINDOW):
+                    try:
+                        window.append(_encode(bundle, raw, is_json, shard_configs))
+                    except Exception as exc:  # one malformed record costs one record
+                        malformed[0] += 1
+                        logger.warning("skipping malformed request: %s", exc)
+                if not window:
+                    break
+                futures = []
+                for req in window:
+                    fut = registry.submit(champion, req, block=True)
+                    futures.append(fut)
+                    # After the champion's submit, so the pair lands in one
+                    # round; False is champion-only, never an error.
+                    if controller.mirror(req, fut) and req.uid in labels:
+                        lab, w = labels[req.uid]
+                        controller.record_label(req.uid, lab, weight=w)
+                results = []
+                for i, fut in enumerate(futures):
+                    try:
+                        results.append((n_requests + i, fut.result()))
+                    except Exception as exc:  # one failed request costs one record
+                        n_failed += 1
+                        logger.warning("request %d failed: %s", n_requests + i, exc)
+                if results:
+                    _write_score_part(scores_dir, k, results, model_id)
+                n_requests += len(window)
+        replay_s = time.perf_counter() - t_replay
+        if labels:
+            controller.drain(timeout_s=120.0)
+        shadow_block = controller.summary()
+        controller.close()
+        metrics = registry.metrics()
+        health = registry.tenant(champion).engine.health.snapshot()
+        provenance = dict(registry.tenant(champion).bundle.provenance)
+    finally:
+        if controller is not None:
+            controller.close()
+        registry.close(release_bundles=True)
+    logger.info("replayed %d request(s), %d failed, %d malformed skipped; shadow %r finished %s",
+                n_requests, n_failed, malformed[0], shadow_name, shadow_block["status"])
+    summary = _summary(n_requests, n_failed, malformed[0], metrics, health, provenance, shadow_block)
+    _write_registry_outputs(out_root, summary, registry, [champion, shadow_name], warmup_s, replay_s,
+                            device)
     return summary
 
 

@@ -227,11 +227,59 @@ CONTINUOUS_SECTION_KEYS = (
     "generation",
 )
 
+# One tenant's block of the multi-tenant metrics (serving/tenancy.
+# TenantRegistry.metrics, the serving summary's `tenants`), and its `tier`
+# sub-block. The port has no precision ladder (ROADMAP item 10f): every
+# tenant reports tier "f32", 0 quantized coordinates and no error.
+TENANT_BLOCK_KEYS = (
+    "completed",
+    "failed",
+    "shed",
+    "deadline_missed",
+    "fe_only_answers",
+    "degraded_batches",
+    "cobatched_requests",
+    "p50_ms",
+    "p95_ms",
+    "p99_ms",
+    "state",
+    "degraded_reasons",
+    "circuit_state",
+    "demoted",
+    "device_bytes",
+    "watchdog_trips",
+    "tier",
+)
+TIER_BLOCK_KEYS = (
+    "tier",
+    "quantized_coords",
+    "demotions",
+    "restores",
+    "rollbacks",
+    "quant_error_max",
+)
+
+# The serving summary's `shadow` block (serving/shadow.ShadowController.summary).
+SHADOW_BLOCK_KEYS = (
+    "champion",
+    "challenger",
+    "status",
+    "windows",
+    "mirrored_requests",
+    "mirror_failures",
+    "label_join_failures",
+    "champion_metric",
+    "challenger_metric",
+    "evaluator",
+    "score_drift_p50",
+    "generation",
+)
+
 # The run journal (utils/telemetry.RunJournal): the keys of every line, and
 # the schema of each event type the port emits (the reference's schemas).
-# The reference's control-plane events (plan, autopilot, shadow, tenant,
-# tier, and reshard's but the delta flip's `reshard_commit`) belong to
-# layers the port has not got.
+# The reference's control-plane events (plan, autopilot, tier, and
+# reshard's but the delta flip's `reshard_commit`) belong to layers the
+# port has not got.
 JOURNAL_LINE_KEYS = ("ts", "type")
 JOURNAL_EVENT_SCHEMAS = {
     # The training lifecycle (utils/observability.journal_listener).
@@ -267,6 +315,19 @@ JOURNAL_EVENT_SCHEMAS = {
     # The generation flip of a delta apply (the reference journals it from
     # its reshard primitive, which the delta apply runs).
     "reshard_commit": ("old_shards", "new_shards", "version", "restaged_bytes"),
+    # Multi-tenant serving (serving/tenancy.TenantRegistry).
+    "tenant_admit": ("tenant", "device_bytes", "demoted_tenants"),
+    "tenant_evict": ("tenant", "reason", "freed_bytes", "hot_rows"),
+    "tenant_restore": ("tenant", "reason", "device_bytes"),
+    "tenant_degraded": ("tenant", "reasons"),
+    # Shadow deployment and online evaluation (serving/shadow.py).
+    "shadow_start": ("champion", "challenger", "window_size", "min_windows", "mirror_fraction"),
+    "shadow_window": ("champion", "challenger", "window", "rows", "champion_metric",
+                      "challenger_metric", "evaluator", "healthy"),
+    "shadow_verdict": ("champion", "challenger", "decision", "windows", "champion_metric",
+                       "challenger_metric", "evaluator", "reason"),
+    "shadow_promote": ("champion", "challenger", "version"),
+    "shadow_rollback": ("champion", "challenger", "reason"),
 }
 
 # The sweep record chip_smoke.py's phase 3w prints (the reference bench's

@@ -7,8 +7,10 @@ RMSE and the pointwise losses) and grouped ones ("AUC:<idTag>",
 is the batched metric over it, averaged over the groups. An
 `EvaluationSuite` computes every metric for a score vector with one
 device-to-host copy; `EvaluationResults` compares by the primary
-evaluator. The online `StreamingWindowEvaluator` belongs to serving and is
-not ported yet.
+evaluator. `StreamingWindowEvaluator` runs the same metric functions over
+windows whose labels arrive with the scores (the shadow controller's
+online evaluation, serving/shadow.py), and `regression` is the signed,
+direction-aware gap its tolerance is held to.
 
 A suite over a dataset sharded over ranks takes its `sharding`: it then
 holds the labels and weights of all rows, assembled once, and evaluates the
@@ -93,6 +95,14 @@ def better_than(evaluator: EvaluatorType, a: float, b: Optional[float]) -> bool:
     if b is None:
         return True
     return a > b if evaluator.name in _LARGER_IS_BETTER else a < b
+
+
+def regression(evaluator: EvaluatorType, challenger: float, champion: float) -> float:
+    """How much worse `challenger` is than `champion` (positive: worse),
+    whichever direction the evaluator improves in."""
+    if evaluator.name in _LARGER_IS_BETTER:
+        return champion - challenger
+    return challenger - champion
 
 
 class GroupedIndex(NamedTuple):
@@ -206,3 +216,37 @@ class EvaluationSuite:
         ]).cpu()
         results = {str(et): float(v) for et, v in zip(self.evaluator_types, vals)}
         return EvaluationResults(primary=self.primary, results=results)
+
+
+class StreamingWindowEvaluator:
+    """Online windowed evaluation over the metric functions an
+    `EvaluationSuite` uses (`resolve_metric_fn`), every metric of a window
+    fetched in one device-to-host copy, so an online tolerance means what it
+    means offline. Labels arrive with each window. Grouped evaluators are
+    refused: their gathers assume one fixed sample order, which a stream
+    has not got."""
+
+    def __init__(self, evaluator_types: Sequence[EvaluatorType], *,
+                 primary: Optional[EvaluatorType] = None):
+        if not evaluator_types:
+            raise ValueError("StreamingWindowEvaluator requires at least one evaluator")
+        grouped = [str(et) for et in evaluator_types if et.is_grouped]
+        if grouped:
+            raise ValueError(f"StreamingWindowEvaluator does not support grouped evaluators (got "
+                             f"{grouped}); grouped gathers assume a fixed validation sample order")
+        self.evaluator_types = list(evaluator_types)
+        self.primary = primary or self.evaluator_types[0]
+
+    def evaluate_window(self, scores, labels, weights=None) -> EvaluationResults:
+        """Every metric over one window (scores, labels and weights as
+        tensors or arrays), as `EvaluationSuite.evaluate` computes them."""
+        labels = torch.as_tensor(labels)
+        if int(labels.shape[0]) == 0:
+            raise ValueError("empty evaluation window: a windowed metric over zero rows is "
+                             "undefined; the caller must skip or carry the window")
+        scores = torch.as_tensor(scores, device=labels.device)
+        w = torch.ones_like(labels) if weights is None else torch.as_tensor(weights, device=labels.device)
+        vals = torch.stack([resolve_metric_fn(et)(scores, labels, w).to(torch.float32)
+                            for et in self.evaluator_types]).cpu()
+        return EvaluationResults(primary=self.primary,
+                                 results={str(et): float(v) for et, v in zip(self.evaluator_types, vals)})

@@ -106,6 +106,31 @@ def random_effect_margins(
     return out
 
 
+def gathered_row_margins(features: Tensor, w_rows: Tensor, norm) -> Tensor:
+    """Dense margins from per-sample coefficient rows already gathered
+    (B, D): normalization folded per row, then `row_sum`. The same bits as
+    `random_effect_margins`' dense branch over the same rows (folding before
+    or after the gather is the same elementwise work), which is what keeps
+    the serving engine's two-tier kind and the tenancy co-batch bit-equal to
+    the single-tier matrix. A per-entity normalization is refused: its
+    tables are indexed by entity."""
+    from photon_ml_tpu_torch.ops.normalization import PerEntityNormalization
+
+    if isinstance(norm, PerEntityNormalization) and not norm.is_identity:
+        raise NotImplementedError("gathered-row margins with per-entity normalization: its "
+                                  "factor/shift tables are entity-indexed; use the replicated path")
+    shift = None
+    if norm is not None and not norm.is_identity:
+        w_rows = norm.effective_coefficients(w_rows)
+        if norm.shifts is not None:
+            shift = -row_sum(w_rows * norm.shifts)
+    X = features if features.dtype == w_rows.dtype else features.to(w_rows.dtype)
+    out = row_sum(X * w_rows)
+    if shift is not None:
+        out = out + shift
+    return out
+
+
 @dataclasses.dataclass
 class GameModel:
     """coordinate id -> model."""

@@ -1,6 +1,6 @@
-"""Online serving: a GAME model pinned on one device, answering requests.
+"""Online serving: GAME models pinned on one device, answering requests.
 
-Port of `photon_ml_tpu/serving/` for one device and one tenant:
+Port of `photon_ml_tpu/serving/` for one device:
 `bundle.py` stages a model directory (or an in-memory model) onto the
 device once, `engine.py` scores request batches through one bucket program
 per power-of-two batch size (a CUDA graph on the card), `batcher.py`
@@ -8,8 +8,13 @@ coalesces single requests into deadline micro-batches, and `lifecycle.py`
 keeps it serving under faults: typed shedding and deadlines, the circuit
 breaker with fixed-effect-only answers, the health state machine and
 versioned hot-swap; `delta.py` flips a live engine onto an incremental
-fit's delta bundle through the same generation change. `tenancy.py`,
-`shadow.py` and `reshard.py` are not ported (ROADMAP items 9c and 10d).
+fit's delta bundle through the same generation change. `tenancy.py`
+serves several named tenants on the card (`TenantRegistry`: quotas,
+deadlines, weighted-fair co-batching bit-equal to solo dispatch, per-tenant
+failure domains, demotion of cold tenants to the host tier, the
+`TwoTierEntityStore` of `bundle.py`), and `shadow.py` evaluates a
+challenger online beside the champion and promotes or rejects it.
+`reshard.py` is not ported (ROADMAP item 9c).
 """
 
 from photon_ml_tpu_torch.serving.batcher import MicroBatcher
@@ -18,10 +23,15 @@ from photon_ml_tpu_torch.serving.bundle import (
     ServingBundle,
     ServingCoordinate,
     ShardHealth,
+    TwoTierEntityStore,
+    demote_bundle_to_host_tier,
     load_bundle,
+    promote_bundle_from_host_tier,
     request_from_record,
 )
 from photon_ml_tpu_torch.serving.engine import ScoreResult, ServingEngine
+from photon_ml_tpu_torch.serving.shadow import ShadowController
+from photon_ml_tpu_torch.serving.tenancy import Tenant, TenantRegistry
 from photon_ml_tpu_torch.serving.lifecycle import (
     BatcherUnhealthy,
     BundleManager,
@@ -53,8 +63,14 @@ __all__ = [
     "ServingCoordinate",
     "ServingEngine",
     "ServingState",
+    "ShadowController",
     "ShardHealth",
     "SwapIncompatible",
+    "Tenant",
+    "TenantRegistry",
+    "TwoTierEntityStore",
+    "demote_bundle_to_host_tier",
     "load_bundle",
+    "promote_bundle_from_host_tier",
     "request_from_record",
 ]

@@ -24,8 +24,13 @@ installed; the port has no planner).
   raise `BatcherUnhealthy`, the engine stays DEGRADED, and `close()` still
   joins.
 
-The flush thread is `photon-serving-flush`; `close()` (or the engine's)
-answers what is pending and joins it.
+The flush thread is `photon-serving-flush` (or `thread_name`, such as a
+tenant's `photon-tenant-<name>-flush`); `close()` (or the engine's) answers
+what is pending and joins it. `metric_labels` (a tenant's {"tenant":
+name}) label every robustness counter the batcher bumps and everything its
+flush thread fires, so each tenant's counts are its own sub-counts beside
+the process-wide totals. The `admit` site is behind the engine's
+`inject_faults` gate.
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ class MicroBatcher:
 
     def __init__(self, engine: ServingEngine, *, max_batch: Optional[int] = None,
                  max_wait_ms: Optional[float] = None, max_pending: Optional[int] = None,
-                 default_deadline_ms: Optional[float] = None):
+                 default_deadline_ms: Optional[float] = None, thread_name: Optional[str] = None,
+                 metric_labels: Optional[Dict[str, str]] = None):
         self.engine = engine
         self.max_batch = int(engine.max_batch if max_batch is None else max_batch)
         if self.max_batch < 1:
@@ -90,8 +96,10 @@ class MicroBatcher:
         self._degraded = 0
         self._t_first_submit: Optional[float] = None
         self._t_last_done: Optional[float] = None
+        self._metric_labels = (tuple(sorted((k, str(v)) for k, v in metric_labels.items()))
+                               if metric_labels else None)
         self._thread = threading.Thread(target=self._flush_loop,
-                                        name="photon-serving-flush", daemon=True)
+                                        name=thread_name or "photon-serving-flush", daemon=True)
         self._thread.start()
 
     # ------------------------------------------------------------ lifecycle
@@ -144,16 +152,17 @@ class MicroBatcher:
                     # After the closed/unhealthy checks, once per submit.
                     first_pass = False
                     try:
-                        faults.fault_point("admit")
+                        if self.engine.inject_faults:
+                            faults.fault_point("admit")
                     except faults.InjectedFault as exc:
                         self._shed += 1
-                        faults.COUNTERS.increment("serving_shed_requests")
+                        faults.COUNTERS.increment("serving_shed_requests", labels=self._metric_labels)
                         raise Overloaded(f"admission fault injected: {exc}") from exc
                 if len(self._pending) < self.max_pending:
                     break
                 if not block:
                     self._shed += 1
-                    faults.COUNTERS.increment("serving_shed_requests")
+                    faults.COUNTERS.increment("serving_shed_requests", labels=self._metric_labels)
                     raise Overloaded(f"pending queue full ({self.max_pending} requests); shed by "
                                      "admission control")
                 self._cv.wait()
@@ -173,7 +182,13 @@ class MicroBatcher:
 
     def _flush_loop(self) -> None:
         try:
-            self._flush_loop_inner()
+            if self._metric_labels is not None:
+                # For the thread's life: what the dispatch path fires from
+                # here (a watchdog trip too) lands in the labels' sub-counts.
+                with telemetry.metric_label_scope(**dict(self._metric_labels)):
+                    self._flush_loop_inner()
+            else:
+                self._flush_loop_inner()
         except BaseException as exc:  # the thread's last guard: fail what is pending
             self._die(exc)
             with self._cv:
@@ -194,7 +209,7 @@ class MicroBatcher:
             self._unhealthy = exc
             self._cv.notify_all()  # wake blocked submitters
         logger.error("serving flush thread died: %r", exc)
-        faults.COUNTERS.increment("serving_flush_thread_failures")
+        faults.COUNTERS.increment("serving_flush_thread_failures", labels=self._metric_labels)
         self.engine._on_batcher_unhealthy(exc)
 
     def _flush_loop_inner(self) -> None:
@@ -230,7 +245,7 @@ class MicroBatcher:
                         self._service_tail_s *= 0.5
                 self._cv.notify_all()  # room in the queue: wake submitters
             for fut in expired:
-                faults.COUNTERS.increment("serving_deadline_misses")
+                faults.COUNTERS.increment("serving_deadline_misses", labels=self._metric_labels)
                 fut.set_exception(DeadlineExceeded("request expired in queue before batch assembly"))
             if batch:
                 try:
@@ -297,7 +312,7 @@ class MicroBatcher:
             # the whole batch FE-only (re-probing a wedged device once per
             # request would stall the queue).
             breaker.on_failure(permit)
-            faults.COUNTERS.increment("serving_degraded_batches")
+            faults.COUNTERS.increment("serving_degraded_batches", labels=self._metric_labels)
             with self._cv:
                 self._degraded += 1
             logger.warning("batch of %d hit the dispatch watchdog; answering FE-only", len(requests))
@@ -307,7 +322,7 @@ class MicroBatcher:
             # One bad request fails a pack as a device blip fails a
             # dispatch: return the permit and dispatch each request alone.
             breaker.on_abandon(permit)
-            faults.COUNTERS.increment("serving_degraded_batches")
+            faults.COUNTERS.increment("serving_degraded_batches", labels=self._metric_labels)
             with self._cv:
                 self._degraded += 1
             logger.warning("batch of %d degraded to per-request dispatch: %s", len(requests), exc)
@@ -360,7 +375,7 @@ class MicroBatcher:
             return
         with self._cv:
             self._fe_only += len(batch)
-        faults.COUNTERS.increment("serving_fe_only_requests", len(batch))
+        faults.COUNTERS.increment("serving_fe_only_requests", len(batch), labels=self._metric_labels)
         now = time.monotonic()
         for (_, fut, t0, _), res in zip(batch, results):
             self._complete(fut, res, now - t0)

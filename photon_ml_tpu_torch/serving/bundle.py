@@ -1,7 +1,7 @@
 """Serving bundles: a GAME model staged into device memory once.
 
-Port of `photon_ml_tpu/serving/bundle.py`, single device and single tier.
-A `ServingBundle` is the state an online engine keeps pinned across
+Port of `photon_ml_tpu/serving/bundle.py`, single device. A
+`ServingBundle` is the state an online engine keeps pinned across
 requests:
 
   * per fixed-effect coordinate: the weight vector, one tensor;
@@ -27,10 +27,22 @@ zero-padded to S blocks, `unseen_row` still the logical pinned zero row.
 Each block is a shard of `ShardHealth`, which a multi-host serving worker
 marks lost where another host owns it (cli/serve_multihost.py).
 
-Not ported (ROADMAP item 9c): the row-sharded store over devices (`mesh=`,
-`PHOTON_SERVING_ENTITY_SHARD`, a matrix already row-sharded), the two-tier
-store (`hot_rows=`, `PHOTON_SERVING_HOT_ROWS`), host-tier demotion and the
-precision ladder's quantized planes; each raises where it is asked for.
+`hot_rows=` (or PHOTON_SERVING_HOT_ROWS) stages a random effect in the
+two-tier store (`TwoTierEntityStore`): a `(capacity + 1, dim)` hot plane on
+the device, the full matrix in host RAM, rows promoted into the plane on
+a `photon-serving-promote` thread. Unlike the reference, which builds a
+new device matrix for every promotion, the port writes promotions into
+the plane in place (a captured graph reads one address), under the device
+mutex, and counts each write in the store's `epoch`, against which a batch
+re-resolves its slots before it replays (serving/engine.py).
+`demote_bundle_to_host_tier` / `promote_bundle_from_host_tier` move a whole
+bundle's random effects to the host tier and back, bit-equal (the
+multi-tenant registry's pressure valve, serving/tenancy.py).
+
+Not ported: the row-sharded store over devices (`mesh=`,
+`PHOTON_SERVING_ENTITY_SHARD`, a matrix already row-sharded: ROADMAP item
+9c) and the precision ladder's quantized planes (item 10f); each raises
+where it is asked for.
 """
 
 from __future__ import annotations
@@ -52,7 +64,7 @@ from photon_ml_tpu_torch.game.model import FixedEffectModel, GameModel, RandomEf
 from photon_ml_tpu_torch.io.model_store import GameModelArtifact
 from photon_ml_tpu_torch.transformers.game_transformer import CoordinateScoringSpec
 from photon_ml_tpu_torch.types import TaskType
-from photon_ml_tpu_torch.utils import faults
+from photon_ml_tpu_torch.utils import faults, telemetry
 from photon_ml_tpu_torch.utils.knobs import get_knob
 
 logger = logging.getLogger(__name__)
@@ -63,7 +75,7 @@ Tensor = torch.Tensor
 ShardFeatures = Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]
 
 _SHARDED_STORE = "the row-sharded serving store is ROADMAP item 9c (not ported)"
-_TWO_TIER_STORE = "the two-tier serving store is ROADMAP item 9c (not ported)"
+_PRECISION_LADDER = "the precision ladder is ROADMAP item 10f (not ported)"
 
 
 @dataclasses.dataclass
@@ -161,6 +173,213 @@ class ShardHealth:
         return mask
 
 
+class TwoTierEntityStore:
+    """Two-tier random-effect rows: a hot set on the device and the cold
+    tier in host RAM, with promotion in the background.
+
+    The hot plane is `(capacity + 1, dim)` on `device`; slot `capacity` is
+    the pinned zero row (unknown entities and padding gather it). The cold
+    tier is the full `(E + 1, dim)` float32 matrix in host RAM. `lookup`
+    resolves each logical row to its hot slot or, on a miss, copies the
+    row out of the cold tier into the batch's override buffer (so the
+    answer is the single-tier answer bit for bit) and queues the row for
+    promotion, which evicts the least recently used slot. A row past the
+    last entity falls through to the pinned zero slot.
+
+    Promotions write into the plane in place (a captured graph reads one
+    address) on the short-lived `photon-serving-promote` thread, holding
+    the device mutex (`bind_device_mutex`: the engine's) and then the
+    store lock, and bump `epoch` with every write; a batch that resolved
+    its slots at an older epoch resolves them again under the device mutex
+    before it replays. `drain()` waits for queued promotions, `close()`
+    stops and joins the thread."""
+
+    def __init__(self, cold_matrix: np.ndarray, hot_rows: int, device: DeviceLike = "cpu"):
+        self._cold = np.ascontiguousarray(cold_matrix, dtype=np.float32)
+        self.n_rows = int(self._cold.shape[0])  # logical E + 1
+        self.dim = int(self._cold.shape[1])
+        cap = max(0, min(int(hot_rows), self.n_rows - 1))
+        self.capacity = cap
+        self.zero_slot = cap
+        self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self._device_mutex: threading.Lock = threading.Lock()
+        preload = list(range(cap))  # the first rows, as the reference preloads
+        hot = np.zeros((cap + 1, self.dim), np.float32)
+        if preload:
+            hot[: len(preload)] = self._cold[preload]
+        self.hot = _upload(torch.from_numpy(hot), self.device)
+        self._slot_of_row: Dict[int, int] = {r: s for s, r in enumerate(preload)}
+        self._row_of_slot: List[Optional[int]] = list(preload) + [None] * (cap - len(preload))
+        self._tick = 0
+        self._last_used = [0] * cap
+        self._pending: Dict[int, bool] = {}
+        self._worker: Optional[threading.Thread] = None
+        self._closed = False
+        self.epoch = 0
+        self.hot_hits = 0
+        self.cold_hits = 0
+        self.promotions = 0
+        self.evictions = 0
+        self.promote_failures = 0
+
+    def bind_device_mutex(self, mutex: threading.Lock) -> None:
+        """The mutex that serializes this device's dispatches (the serving
+        engine's): promotions write the plane under it."""
+        self._device_mutex = mutex
+
+    @property
+    def cold_matrix(self) -> np.ndarray:
+        """The full host-RAM coefficient matrix."""
+        return self._cold
+
+    @property
+    def hot_nbytes(self) -> int:
+        """Device bytes of the hot plane (what a device-memory budget
+        charges; the cold tier is host RAM)."""
+        return (self.capacity + 1) * self.dim * 4
+
+    @property
+    def hot_fraction(self) -> float:
+        return self.capacity / max(1, self.n_rows - 1)
+
+    def lookup(self, rows: np.ndarray, bucket: int, *, touch: bool = True
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """Logical rows -> (hot slots, override rows, override flags, the
+        epoch they hold at), padded to `bucket`. A cold hit carries its row
+        in the override buffer and is queued for promotion. `touch=False`
+        (a batch resolving again after a promotion) only reads: no hit
+        counted, no recency moved, no promotion queued."""
+        n = len(rows)
+        slots = np.full(bucket, self.zero_slot, np.int64)
+        ovr = np.zeros((bucket, self.dim), np.float32)
+        flags = np.zeros(bucket, bool)
+        with self._lock:
+            self._tick += touch
+            tick = self._tick
+            for i in range(n):
+                r = int(rows[i])
+                if r >= self.n_rows - 1:
+                    continue  # unseen: the pinned zero slot
+                s = self._slot_of_row.get(r)
+                if s is not None:
+                    slots[i] = s
+                    if touch:
+                        self._last_used[s] = tick
+                        self.hot_hits += 1
+                else:
+                    ovr[i] = self._cold[r]
+                    flags[i] = True
+                    if touch:
+                        self.cold_hits += 1
+                        if self.capacity and not self._closed:
+                            self._pending.setdefault(r, True)
+            epoch = self.epoch
+            if touch and self._pending and not self._closed:
+                self._maybe_start_worker_locked()
+        return slots, ovr, flags, epoch
+
+    def _maybe_start_worker_locked(self) -> None:
+        if self._worker is None or not self._worker.is_alive():
+            self._span_h = telemetry.span_handoff()
+            self._worker = threading.Thread(target=self._promote_pending,
+                                            name="photon-serving-promote", daemon=True)
+            self._worker.start()
+
+    def _promote_pending(self) -> None:
+        with telemetry.adopt_span(getattr(self, "_span_h", None)):
+            while self._promote_round():
+                pass
+
+    def _promote_round(self) -> bool:
+        """One batch of queued promotions, written in place under the device
+        mutex; False when nothing is left (or the store closed)."""
+        with self._device_mutex, self._lock:
+            if self._closed or not self._pending:
+                return False
+            batch = list(self._pending)[: max(1, self.capacity)]
+            idx: List[int] = []
+            srcs: List[int] = []
+            for r in batch:
+                self._pending.pop(r, None)
+                if r in self._slot_of_row:
+                    continue
+                s = int(np.argmin(self._last_used))
+                old = self._row_of_slot[s]
+                if old is not None:
+                    del self._slot_of_row[old]
+                    self.evictions += 1
+                self._row_of_slot[s] = r
+                self._slot_of_row[r] = s
+                self._last_used[s] = self._tick
+                self.promotions += 1
+                idx.append(s)
+                srcs.append(r)
+            if not idx:
+                return True
+            # Any write (and any eviction) moves the epoch: a batch resolved
+            # before it resolves again before it replays.
+            self.epoch += 1
+            # The reference's LRU choice can give one slot to several rows of
+            # a round (every slot last used at the same tick): the slot holds
+            # the last of them, the one the index maps it to, so only that
+            # write is made (a scatter with repeated indices has no defined
+            # winner).
+            last = {s: r for s, r in zip(idx, srcs)}
+            try:
+                faults.fault_point("promote")
+                with telemetry.span("promote_rows", rows=len(last)):
+                    self.hot[torch.as_tensor(list(last), device=self.device)] = torch.from_numpy(
+                        self._cold[list(last.values())]).to(self.device)
+                    if self.hot.is_cuda:
+                        torch.cuda.synchronize(self.device)
+            except BaseException as exc:
+                # Roll the index back: these rows keep resolving through the
+                # cold tier, never to a slot that was not written.
+                for s, r in zip(idx, srcs):
+                    self._slot_of_row.pop(r, None)
+                    self._row_of_slot[s] = None
+                    self.promotions -= 1
+                self.promote_failures += len(idx)
+                faults.COUNTERS.increment("promote_failures", len(idx))
+                if faults.is_device_error(exc):
+                    logger.warning("promotion of %d row(s) failed (%s); rows stay cold", len(idx), exc)
+                    return True
+                self._closed = True
+                return False
+            return True
+
+    def drain(self, timeout_s: float = 30.0) -> None:
+        """Block until every queued promotion is written."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self._lock:
+                busy = bool(self._pending) and not self._closed
+                if busy:
+                    self._maybe_start_worker_locked()
+                w = self._worker
+            if w is not None and w.is_alive():
+                w.join(timeout=0.2)
+            elif not busy:
+                return
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            self._pending.clear()
+            w = self._worker
+        if w is not None and w is not threading.current_thread():
+            w.join(timeout=10)
+
+    def metrics(self) -> Dict[str, object]:
+        with self._lock:
+            return {"hot_rows": self.capacity, "hot_fraction": round(self.hot_fraction, 6),
+                    "hot_tier_hits": self.hot_hits, "cold_tier_hits": self.cold_hits,
+                    "promotions": self.promotions, "evictions": self.evictions,
+                    "promote_failures": self.promote_failures,
+                    "pending_promotions": len(self._pending)}
+
+
 @dataclasses.dataclass
 class ServingCoordinate:
     """One coordinate's device-resident serving state."""
@@ -177,6 +396,8 @@ class ServingCoordinate:
     # S where the bundle was staged with `row_blocks=S` (its placement
     # changes only with a restage; serving/delta.py refuses to move rows).
     row_blocks: Optional[int] = None
+    # The two-tier store: `params` is then its hot plane.
+    store: Optional[TwoTierEntityStore] = None
 
     @property
     def is_random_effect(self) -> bool:
@@ -194,6 +415,10 @@ class ServingCoordinate:
         return rows - 1
 
     def device_nbytes(self) -> int:
+        """Device bytes of this coordinate (a two-tier store's hot plane:
+        its cold tier is host RAM)."""
+        if self.store is not None:
+            return self.store.hot_nbytes
         return int(self.params.numel()) * self.params.element_size()
 
     def lookup_rows(self, entity_ids: Sequence[object]) -> Tuple[np.ndarray, int]:
@@ -237,15 +462,25 @@ class ServingBundle:
     def coordinate_ids(self) -> List[str]:
         return list(self.coordinates.keys())
 
-    def release(self) -> None:
+    def release(self, close_stores: bool = True) -> None:
         """Drop this bundle's device state (a retired hot-swap generation);
-        the memory is freed when the last reference goes. Idempotent."""
+        the memory is freed when the last reference goes. Two-tier stores
+        stop their promotion thread, unless `close_stores=False` (stores
+        carried into a successor bundle, which owns them now). Idempotent."""
+        if close_stores:
+            for c in self.coordinates.values():
+                if c.store is not None:
+                    c.store.close()
         self.coordinates = {}
         self.index_maps = None
         self.released = True
 
     def device_bytes(self) -> int:
+        """Device-resident model bytes (two-tier coordinates: the hot plane)."""
         return sum(c.device_nbytes() for c in self.coordinates.values())
+
+    def stores(self) -> List[TwoTierEntityStore]:
+        return [c.store for c in self.coordinates.values() if c.store is not None]
 
     def mark_shard_lost(self, cid: str, shard_index: int) -> Tuple[int, int]:
         """Mark one coefficient shard LOST: requests whose entity row falls
@@ -254,7 +489,7 @@ class ServingBundle:
         c = self.coordinates[cid]
         if c.shard_health is None:
             raise ValueError(f"coordinate {cid!r} has no device-resident shard tracking "
-                             "(a fixed-effect coordinate)")
+                             "(a fixed-effect or two-tier coordinate)")
         c.shard_health.mark_lost(shard_index)
         logger.warning("serving shard lost: %s shard %d (rows %s); its entities answer from the "
                        "pinned zero row until restaged", cid, shard_index,
@@ -328,11 +563,14 @@ class ServingBundle:
         random effect is refused (serving scores in the original space:
         export through `model_bridge.artifact_from_game_model`, which
         back-projects, then `from_artifact`). `row_blocks=S` stages each
-        random-effect matrix as S row blocks (the module docstring)."""
+        random-effect matrix as S row blocks (the module docstring);
+        `hot_rows` (an int, or {cid: int}) stages random effects in the
+        two-tier store with that many hot rows."""
         if mesh is not None:
             raise NotImplementedError(f"mesh=: {_SHARDED_STORE}")
-        if hot_rows is not None:
-            raise NotImplementedError(f"hot_rows=: {_TWO_TIER_STORE}")
+        if hot_rows is not None and row_blocks is not None:
+            raise ValueError("hot_rows and row_blocks are exclusive: a two-tier store keeps the "
+                             "matrix in host RAM, not in row blocks on the device")
         if row_blocks is not None and int(row_blocks) < 1:
             raise ValueError(f"row_blocks must be at least 1, got {row_blocks}")
         dev = resolve_device(device)
@@ -359,6 +597,22 @@ class ServingBundle:
                         f"{len(spec.entity_index or {})} entities (a rank's row shard); "
                         f"{_SHARDED_STORE}")
                 logical = int(matrix.shape[0])
+                hr = hot_rows.get(cid) if isinstance(hot_rows, Mapping) else hot_rows
+                if hr is not None:
+                    from photon_ml_tpu_torch.ops.normalization import PerEntityNormalization
+
+                    if isinstance(spec.norm, PerEntityNormalization):
+                        raise ValueError(f"coordinate {cid!r}: per-entity normalization tables "
+                                         "are entity-sized and not tiered; stage single-tier")
+                    host = matrix.detach().float().cpu().numpy()
+                    store = _stage_shard(f"{cid} (two-tier hot set)",
+                                         lambda: TwoTierEntityStore(host, int(hr), dev))
+                    coords[cid] = ServingCoordinate(
+                        cid, spec.shard, store.hot, norm=spec.norm,
+                        random_effect_type=spec.random_effect_type,
+                        entity_index=dict(spec.entity_index or {}), logical_rows=logical,
+                        store=store)
+                    continue
                 if row_blocks is None:
                     health = ShardHealth(1, logical)
                 else:
@@ -400,6 +654,76 @@ class ServingBundle:
                               row_blocks=row_blocks)
 
 
+def serving_hot_rows() -> Optional[int]:
+    """The two-tier hot-set size PHOTON_SERVING_HOT_ROWS asks for, or None."""
+    rows = int(get_knob("PHOTON_SERVING_HOT_ROWS"))
+    return rows if rows > 0 else None
+
+
+def demote_bundle_to_host_tier(bundle: ServingBundle, hot_rows: int = 0) -> ServingBundle:
+    """`bundle` with every single-tier random effect moved to a
+    TwoTierEntityStore (`hot_rows` rows on the device; 0: none, every
+    lookup rides the override buffers) and the full matrix in host RAM.
+    Answers stay bit-equal: the override row is the matrix row. Fixed
+    effects and stores already two-tier carry over by reference. A bundle
+    staged in row blocks (a multi-host worker's placement) is refused."""
+    coords: Dict[str, ServingCoordinate] = {}
+    for cid, c in bundle.coordinates.items():
+        if not c.is_random_effect or c.store is not None:
+            coords[cid] = c
+            continue
+        if c.row_blocks is not None:
+            raise ValueError(f"coordinate {cid!r} is staged in row blocks; demotion to the host "
+                             "tier only applies to single-tier matrices")
+        logical = c.unseen_row + 1
+        host = c.params[:logical].detach().cpu().numpy()
+        store = TwoTierEntityStore(host, int(hot_rows), bundle.device)
+        coords[cid] = ServingCoordinate(cid, c.shard, store.hot, norm=c.norm,
+                                        random_effect_type=c.random_effect_type,
+                                        entity_index=c.entity_index, logical_rows=logical,
+                                        store=store)
+    if bundle.device.type == "cuda":
+        torch.cuda.synchronize(bundle.device)
+    return ServingBundle(task=bundle.task, coordinates=coords, device=bundle.device,
+                         index_maps=bundle.index_maps,
+                         upload_bytes=sum(c.device_nbytes() for c in coords.values()),
+                         provenance=dict(bundle.provenance))
+
+
+def promote_bundle_from_host_tier(bundle: ServingBundle) -> ServingBundle:
+    """The inverse of `demote_bundle_to_host_tier`: every two-tier
+    coordinate as a single-tier matrix on the device, copied from its cold
+    tier (the original float32 rows, so bit-equal). Other coordinates carry
+    over by reference; the old bundle still owns its stores."""
+    coords: Dict[str, ServingCoordinate] = {}
+    for cid, c in bundle.coordinates.items():
+        if c.store is None:
+            coords[cid] = c
+            continue
+        full = _upload(torch.from_numpy(c.store.cold_matrix), bundle.device)
+        logical = int(full.shape[0])
+        coords[cid] = ServingCoordinate(cid, c.shard, full, norm=c.norm,
+                                        random_effect_type=c.random_effect_type,
+                                        entity_index=c.entity_index,
+                                        shard_health=ShardHealth(1, logical), logical_rows=logical)
+    if bundle.device.type == "cuda":
+        torch.cuda.synchronize(bundle.device)
+    return ServingBundle(task=bundle.task, coordinates=coords, device=bundle.device,
+                         index_maps=bundle.index_maps,
+                         upload_bytes=sum(c.device_nbytes() for c in coords.values()),
+                         provenance=dict(bundle.provenance))
+
+
+def quantize_bundle_rows(*args, **kwargs):
+    """The precision ladder's quantized planes (not ported)."""
+    raise NotImplementedError(f"quantize_bundle_rows: {_PRECISION_LADDER}")
+
+
+def restore_bundle_precision(*args, **kwargs):
+    """The precision ladder's restore (not ported)."""
+    raise NotImplementedError(f"restore_bundle_precision: {_PRECISION_LADDER}")
+
+
 def load_bundle(model_dir: str, *, device: DeviceLike = "cuda",
                 index_maps: Optional[Mapping[str, IndexMap]] = None, mesh=None,
                 hot_rows: Optional[Union[int, Mapping[str, int]]] = None,
@@ -407,15 +731,15 @@ def load_bundle(model_dir: str, *, device: DeviceLike = "cuda",
     """Load a model directory (the training driver's layout) into a bundle
     on `device`. Index maps default to the JSON maps saved beside the model
     (`<model_dir>/feature-indexes/<shard>.json`), as in cli.score.
-    `row_blocks` as in `from_model`. PHOTON_SERVING_ENTITY_SHARD and
-    PHOTON_SERVING_HOT_ROWS select stores the port has not got, and raise
-    when set."""
+    `row_blocks` as in `from_model`; `hot_rows` defaults to
+    PHOTON_SERVING_HOT_ROWS (`serving_hot_rows`). PHOTON_SERVING_ENTITY_SHARD
+    selects a store the port has not got, and raises when set."""
     from photon_ml_tpu_torch.io import model_store
 
     if get_knob("PHOTON_SERVING_ENTITY_SHARD"):
         raise NotImplementedError(f"PHOTON_SERVING_ENTITY_SHARD is set: {_SHARDED_STORE}")
-    if int(get_knob("PHOTON_SERVING_HOT_ROWS")) > 0:
-        raise NotImplementedError(f"PHOTON_SERVING_HOT_ROWS is set: {_TWO_TIER_STORE}")
+    if hot_rows is None and row_blocks is None:
+        hot_rows = serving_hot_rows()
     if index_maps is None:
         index_dir = os.path.join(model_dir, "feature-indexes")
         index_maps = {os.path.splitext(os.path.basename(p))[0]: IndexMap.load(p)

@@ -30,12 +30,15 @@ the device, so the upload is proportional to the churn. An unchanged index
 stores no map.
 
 What each of the reference's branches is here: the replicated single-tier
-branch is the one ported. A bundle staged with `row_blocks=S` (the
-reference's mesh blocks on one card) follows the reference's mesh rules:
-growth must fit the blocks' padding, and a delta that re-sorts carried rows
-is refused (placement changes through a restage, not a delta). The
-two-tier store is ROADMAP item 9c (its bundle cannot be built), and
-`apply_delta_for_tenant` waits for `TenantRegistry` (item 10d).
+branch and the two-tier branch (the cold matrix rebuilt in host RAM, carry
+and scatter there, and a new store of the same capacity staged; the old
+store closes with its generation, a staged one on a rollback) are ported.
+A bundle staged with `row_blocks=S` (the reference's mesh blocks on one
+card) follows the reference's mesh rules: growth must fit the blocks'
+padding, and a delta that re-sorts carried rows is refused (placement
+changes through a restage, not a delta). `apply_delta_for_tenant` flips one
+tenant of a `TenantRegistry`; its co-batch programs are captured in the
+same pre-warm, before the commit.
 
 Provenance: a committed apply updates the live bundle's lineage block in
 place (origin "incremental", deltas_applied + 1, last_delta_source/ts) and
@@ -60,6 +63,7 @@ from photon_ml_tpu_torch.serving.bundle import (
     ServingBundle,
     ServingCoordinate,
     ShardHealth,
+    TwoTierEntityStore,
     _stage_shard,
 )
 from photon_ml_tpu_torch.utils import faults, telemetry
@@ -183,6 +187,22 @@ def _apply_re_delta(c: ServingCoordinate, d: CoordinateDelta, device: torch.devi
     and the delta rows, in a new tensor (the module docstring)."""
     old = c.params
     rows = torch.as_tensor(d.rows)
+    if c.store is not None:
+        # Two-tier: the cold matrix is host RAM, so carry and scatter there
+        # and stage a new store beside the live one.
+        old_cold = c.store.cold_matrix
+        new_cold = np.zeros((d.logical_rows, old_cold.shape[1]), np.float32)
+        if d.carry_old is None:
+            n = min(int(old_cold.shape[0]), d.logical_rows)
+            new_cold[:n] = old_cold[:n]
+        else:
+            new_cold[d.carry_new] = old_cold[d.carry_old]
+        new_cold[d.rows] = d.values
+        store = _stage_shard(f"{d.cid} (delta two-tier rebuild)",
+                             lambda: TwoTierEntityStore(new_cold, c.store.capacity, device))
+        return ServingCoordinate(d.cid, c.shard, store.hot, norm=c.norm,
+                                 random_effect_type=c.random_effect_type, entity_index=d.entity_index,
+                                 logical_rows=d.logical_rows, store=store)
     if c.row_blocks is not None:
         # The reference's mesh rules: growth must fit the blocks' padding and
         # carried rows keep their places (placement changes by a restage).
@@ -246,15 +266,21 @@ def apply_delta(engine, delta: DeltaBundle, *, drain_timeout_s: float = 30.0) ->
         def stage() -> ServingBundle:
             t0 = time.perf_counter()
             new_coords = dict(old_bundle.coordinates)
-            for cid, d in delta.coordinates.items():
-                c = old_bundle.coordinates[cid]
-                with telemetry.span("delta_stage", coordinate=cid):
-                    if d.is_random_effect:
-                        new_coords[cid] = _apply_re_delta(c, d, dev)
-                    else:
-                        params = _stage_shard(f"{cid} (delta fixed-effect plane)",
-                                              lambda p=d.plane: torch.from_numpy(p).to(dev).clone())
-                        new_coords[cid] = ServingCoordinate(cid, c.shard, params, norm=c.norm)
+            try:
+                for cid, d in delta.coordinates.items():
+                    c = old_bundle.coordinates[cid]
+                    with telemetry.span("delta_stage", coordinate=cid):
+                        if d.is_random_effect:
+                            new_coords[cid] = _apply_re_delta(c, d, dev)
+                        else:
+                            params = _stage_shard(f"{cid} (delta fixed-effect plane)",
+                                                  lambda p=d.plane: torch.from_numpy(p).to(dev).clone())
+                            new_coords[cid] = ServingCoordinate(cid, c.shard, params, norm=c.norm)
+            except BaseException:
+                for cid, c in new_coords.items():  # stores this staging made
+                    if c.store is not None and c is not old_bundle.coordinates[cid]:
+                        c.store.close()
+                raise
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             return ServingBundle(task=old_bundle.task, coordinates=new_coords, device=dev,
@@ -285,7 +311,8 @@ def apply_delta(engine, delta: DeltaBundle, *, drain_timeout_s: float = 30.0) ->
 
 def apply_delta_for_tenant(registry, name: str, delta: DeltaBundle, *,
                            drain_timeout_s: float = 30.0) -> Dict[str, object]:
-    """Per-tenant refresh: one tenant's engine flipped onto a delta. The
-    port has no `TenantRegistry` yet (ROADMAP item 10d)."""
-    raise NotImplementedError("apply_delta_for_tenant needs serving/tenancy.TenantRegistry, "
-                              "ROADMAP item 10d (not ported)")
+    """Per-tenant refresh: flip one tenant's engine onto a delta bundle.
+    Tenant engines share the card's device mutex, so the flip serializes
+    with every other tenant's dispatch, and it touches no other tenant's
+    generation."""
+    return apply_delta(registry.tenant(name).engine, delta, drain_timeout_s=drain_timeout_s)

@@ -26,22 +26,33 @@ Port of `photon_ml_tpu/serving/engine.py`, single device:
     row and scores with the fixed effects (+ offset) only.
   * Every batch runs on one `_EngineState` snapshot; `BundleManager.swap`
     flips it between batches and drains the old one. The device mutex
-    serializes uploads, graph replays, fetches, captures and in-place
-    restages (a captured graph reads the planes at fixed addresses).
+    serializes uploads, graph replays, fetches, captures, in-place
+    restages and two-tier promotions (a captured graph reads the planes at
+    fixed addresses). `device_mutex=` shares one mutex across engines (the
+    multi-tenant registry's tenants on one card).
   * `score_batch_fe_only` is the circuit-open tier: every random-effect
     row at the pinned zero row, on the same program, with no fault site.
 
-Fault sites: `lookup` (entity-row resolution) and `score` (the dispatch).
-The engine raises; retry, per-request fallback and circuit routing live in
-the batcher. The watchdog guards live-traffic dispatches only.
+Fault sites: `lookup` (entity-row resolution) and `score` (the dispatch),
+both behind the engine's `inject_faults` gate (a chaos drill confines an
+armed plan to one tenant's engine). The engine raises; retry, per-request
+fallback and circuit routing live in the batcher. The watchdog guards
+live-traffic dispatches only.
 
-Kinds: "fe" (weight vector) and "re" (single-tier matrix). The reference's
-row-sharded, two-tier and quantized kinds are ROADMAP items 9 and 10.
+Kinds: "fe" (weight vector), "re" (single-tier matrix) and "re2" (the
+two-tier store: rows resolve against the hot plane, and cold hits are
+overridden by the rows the pack copied out of host RAM, two more static
+buffers of the program; the override row is the matrix row, so the margin
+is the single-tier one). A two-tier batch resolves its slots at the store's
+`epoch`; under the device mutex, before it replays, a batch whose epoch has
+moved (a promotion wrote the plane in place) resolves them again. The
+reference's row-sharded and quantized kinds are ROADMAP items 9c and 10f.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -49,7 +60,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.game.model import random_effect_margins
+from photon_ml_tpu_torch.game.model import gathered_row_margins, random_effect_margins
 from photon_ml_tpu_torch.ops.losses import mean_for_task
 from photon_ml_tpu_torch.serving.bundle import ScoreRequest, ServingBundle, ServingCoordinate
 from photon_ml_tpu_torch.serving.lifecycle import (
@@ -87,10 +98,12 @@ class ScoreResult:
 
 
 def _score_program(offsets: Tensor, feats: Dict[str, Tensor], rows: Tuple[Optional[Tensor], ...],
-                   params: Tuple[Tensor, ...], norms: tuple, *, kinds: Tuple[str, ...],
-                   shards: Tuple[str, ...], task: TaskType) -> Tuple[Tensor, Tensor]:
+                   params: Tuple[Tensor, ...], norms: tuple, overrides: tuple = (), *,
+                   kinds: Tuple[str, ...], shards: Tuple[str, ...],
+                   task: TaskType) -> Tuple[Tensor, Tensor]:
     """The bucket program: offsets plus each coordinate's margins, in
-    coordinate order (as GameTransformer.transform sums them), and the mean."""
+    coordinate order (as GameTransformer.transform sums them), and the mean.
+    `overrides[k]` is a two-tier coordinate's (values, flags)."""
     total = offsets
     for k, kind in enumerate(kinds):
         f = feats[shards[k]]
@@ -98,9 +111,31 @@ def _score_program(offsets: Tensor, feats: Dict[str, Tensor], rows: Tuple[Option
             total = total + dense_margins(f, params[k], norms[k])
         elif kind == "re":
             total = total + random_effect_margins(f, rows[k], params[k], norms[k])
+        elif kind == "re2":
+            vals, flags = overrides[k]
+            w = torch.where(flags[:, None], vals, params[k][rows[k]])
+            total = total + gathered_row_margins(f, w, norms[k])
         else:
-            raise ValueError(f"coordinate kind {kind!r} is not ported (the port serves 'fe' and 're')")
+            raise ValueError(f"coordinate kind {kind!r} is not ported (the port serves 'fe', 're' "
+                             "and 're2')")
     return total, mean_for_task(task, total)
+
+
+def capture_graph(program, device: torch.device) -> Tuple["torch.cuda.CUDAGraph", Tensor]:
+    """Capture `program` (no arguments; reads static buffers) as a CUDA
+    graph on a side stream, after one eager run there (lazy allocations and
+    library set-up stay out of the capture); returns the graph and its
+    output. A failed capture raises: there is no eager path on the card.
+    The caller holds the device mutex."""
+    side = torch.cuda.Stream(device=device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        program()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        out = program()
+    return graph, out
 
 
 def _bucket_sizes(max_batch: int) -> Tuple[int, ...]:
@@ -125,42 +160,42 @@ class _BucketProgram:
         self.offsets = torch.zeros(bucket, dtype=f32, device=device)
         self.feats = {s: torch.zeros((bucket, d), dtype=f32, device=device)
                       for s, d in state.shard_dims.items()}
-        self.rows = {c.cid: torch.full((bucket,), c.unseen_row, dtype=i64, device=device)
+        # A row vector starts at the pinned zero row (a two-tier store's
+        # zero slot): the capture's eager run gathers in bounds.
+        self.rows = {c.cid: torch.full((bucket,), c.store.zero_slot if c.store is not None
+                                       else c.unseen_row, dtype=i64, device=device)
                      for c in state.coords if c.is_random_effect}
+        tiered = [c for c in state.coords if c.store is not None]
+        self.ovr = {c.cid: torch.zeros((bucket, c.dim), dtype=f32, device=device) for c in tiered}
+        self.ovr_flags = {c.cid: torch.zeros(bucket, dtype=torch.bool, device=device) for c in tiered}
         self.host_offsets = torch.zeros(bucket, dtype=f32, pin_memory=cuda)
         self.host_feats = {s: torch.zeros((bucket, d), dtype=f32, pin_memory=cuda)
                            for s, d in state.shard_dims.items()}
         self.host_rows = {cid: torch.zeros(bucket, dtype=i64, pin_memory=cuda) for cid in self.rows}
+        self.host_ovr = {cid: torch.zeros(tuple(t.shape), dtype=f32, pin_memory=cuda)
+                         for cid, t in self.ovr.items()}
+        self.host_ovr_flags = {cid: torch.zeros(bucket, dtype=torch.bool, pin_memory=cuda)
+                               for cid in self.ovr}
         self.host_out = torch.zeros((2, bucket), dtype=f32, pin_memory=cuda)
         params = tuple(c.params for c in state.coords)
         norms = tuple(c.norm for c in state.coords)
         rows = tuple(self.rows.get(c.cid) for c in state.coords)
+        overrides = tuple((self.ovr[c.cid], self.ovr_flags[c.cid]) if c.cid in self.ovr else None
+                          for c in state.coords)
 
         def program() -> Tensor:
-            total, means = _score_program(self.offsets, self.feats, rows, params, norms,
+            total, means = _score_program(self.offsets, self.feats, rows, params, norms, overrides,
                                           kinds=state.kinds, shards=state.coord_shards, task=task)
             return torch.stack((total, means))
 
         self._program = program
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.out: Optional[Tensor] = None
-        if cuda:
-            # One eager run on the side stream first (lazy allocations and
-            # library set-up stay out of the capture); a failed capture
-            # raises.
-            side = torch.cuda.Stream(device=device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                program()
-            side.synchronize()
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
-                self.out = program()
+        self.graph, self.out = capture_graph(program, device) if cuda else (None, None)
 
     def nbytes(self) -> int:
         """Device bytes of the static buffers (inputs and the output)."""
         b = self.bucket
-        return 4 * b + sum(4 * t.numel() for t in self.feats.values()) + 8 * b * len(self.rows) + 8 * b
+        return (4 * b + sum(4 * t.numel() for t in self.feats.values()) + 8 * b * len(self.rows) + 8 * b
+                + sum(4 * t.numel() + b for t in self.ovr.values()))
 
     def run(self, packed: dict, stream: Optional["torch.cuda.Stream"]) -> Tuple[np.ndarray, np.ndarray]:
         """Stage `packed` into the static buffers, run, fetch (margin, mean)."""
@@ -169,25 +204,31 @@ class _BucketProgram:
             buf.numpy()[:] = packed["buffers"][s]
         for cid, buf in self.host_rows.items():
             buf.numpy()[:] = packed["rows_by_cid"][cid]
+        for cid, buf in self.host_ovr.items():
+            vals, flags = packed["overrides_by_cid"][cid]
+            buf.numpy()[:] = vals
+            self.host_ovr_flags[cid].numpy()[:] = flags
+        pairs = [(self.offsets, self.host_offsets)]
+        pairs += [(buf, self.host_feats[s]) for s, buf in self.feats.items()]
+        pairs += [(buf, self.host_rows[cid]) for cid, buf in self.rows.items()]
+        pairs += [(buf, self.host_ovr[cid]) for cid, buf in self.ovr.items()]
+        pairs += [(buf, self.host_ovr_flags[cid]) for cid, buf in self.ovr_flags.items()]
         if self.graph is None:
-            self.offsets.copy_(self.host_offsets)
-            for s, buf in self.feats.items():
-                buf.copy_(self.host_feats[s])
-            for cid, buf in self.rows.items():
-                buf.copy_(self.host_rows[cid])
+            for dst, src in pairs:
+                dst.copy_(src)
             self.host_out.copy_(self._program())
         else:
             with torch.cuda.stream(stream):
-                self.offsets.copy_(self.host_offsets, non_blocking=True)
-                for s, buf in self.feats.items():
-                    buf.copy_(self.host_feats[s], non_blocking=True)
-                for cid, buf in self.rows.items():
-                    buf.copy_(self.host_rows[cid], non_blocking=True)
+                for dst, src in pairs:
+                    dst.copy_(src, non_blocking=True)
                 self.graph.replay()
                 self.host_out.copy_(self.out, non_blocking=True)
             stream.synchronize()
         out = self.host_out.numpy().copy()  # the next dispatch reuses host_out
         return out[0], out[1]
+
+
+_GENERATIONS = itertools.count()
 
 
 @dataclasses.dataclass
@@ -204,6 +245,9 @@ class _EngineState:
     version: int = 0
     active: int = 0
     programs: Dict[int, _BucketProgram] = dataclasses.field(default_factory=dict)
+    # Unique in the process: a version repeats after a rollback or in a new
+    # engine, a generation never does (the co-batch programs' key).
+    generation: int = dataclasses.field(default_factory=lambda: next(_GENERATIONS))
 
 
 class ServingEngine:
@@ -215,7 +259,8 @@ class ServingEngine:
 
     def __init__(self, bundle: ServingBundle, *, max_batch: Optional[int] = None,
                  circuit_threshold: int = 5, circuit_probe_interval_s: float = 1.0,
-                 watchdog_ms_override: Optional[float] = None):
+                 watchdog_ms_override: Optional[float] = None, inject_faults: bool = True,
+                 device_mutex: Optional[threading.Lock] = None):
         max_batch = DEFAULT_MAX_BATCH if max_batch is None else int(max_batch)
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -227,7 +272,15 @@ class ServingEngine:
         # A Condition, so the swap drain can wait for a state's in-flight
         # count to reach zero.
         self._lock = threading.Condition()
-        self._device_mutex = threading.Lock()
+        # Shared across the engines of one card by the multi-tenant registry.
+        self._device_mutex = device_mutex if device_mutex is not None else threading.Lock()
+        # False excludes this engine's dispatches from an armed fault plan.
+        self.inject_faults = bool(inject_faults)
+        # Set by the multi-tenant registry: called with a generation's next
+        # state before its commit (the co-batch captures; a raise rolls the
+        # change back) and with the retired state after the drain.
+        self._prewarm_hook = None
+        self._retire_hook = None
         self._stream = torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
         self._state = self._build_state(bundle, version=0)
         self.health = HealthStateMachine()
@@ -277,7 +330,7 @@ class ServingEngine:
 
     @property
     def reshard_orchestrator(self):
-        raise NotImplementedError("live resharding of the serving store is ROADMAP item 9 "
+        raise NotImplementedError("live resharding of the serving store is ROADMAP item 9c "
                                   "(not ported)")
 
     def batcher(self, **kwargs) -> "MicroBatcher":  # noqa: F821
@@ -343,8 +396,12 @@ class ServingEngine:
         if bundle.device != self.device:
             raise ValueError(f"bundle on {bundle.device} cannot serve on the engine's {self.device}")
         coords = [bundle.coordinates[cid] for cid in bundle.coordinate_ids]
+        for c in coords:
+            if c.store is not None:
+                c.store.bind_device_mutex(self._device_mutex)
         return _EngineState(bundle=bundle, coords=coords,
-                            kinds=tuple("re" if c.is_random_effect else "fe" for c in coords),
+                            kinds=tuple(("re2" if c.store is not None else "re")
+                                        if c.is_random_effect else "fe" for c in coords),
                             coord_shards=tuple(c.shard for c in coords),
                             shard_dims=bundle.shard_dims(), version=version)
 
@@ -474,15 +531,23 @@ class ServingEngine:
                     else:
                         buf[i, :] = payload
         with stage_timer("serve_lookup"):
-            if inject:
+            if inject and self.inject_faults:
                 faults.fault_point("lookup")
             re_coords = [c for c in state.coords if c.is_random_effect]
             cold_flags = np.zeros((n, len(re_coords)), bool)
             lost_flags = np.zeros((n, len(re_coords)), bool)
             rows_by_cid: Dict[str, np.ndarray] = {}
+            # Two-tier coordinates: (override values, flags), the logical
+            # rows and the store epoch the slots were resolved at.
+            overrides_by_cid: Dict[str, tuple] = {}
+            tiered: Dict[str, tuple] = {}
             for k, c in enumerate(re_coords):
-                padded = np.full(bucket, c.unseen_row, np.int32)
+                store = c.store
+                padded = np.full(bucket, c.unseen_row if store is None else store.zero_slot, np.int64)
                 rows_by_cid[c.cid] = padded
+                if store is not None:
+                    overrides_by_cid[c.cid] = (np.zeros((bucket, c.dim), np.float32),
+                                               np.zeros(bucket, bool))
                 if fe_only:
                     continue  # every slot at the pinned zero row: +0.0 exactly
                 rows, _ = c.lookup_rows([r.entity_ids.get(c.random_effect_type) for r in requests])
@@ -499,8 +564,15 @@ class ServingEngine:
                         with self._lock:
                             self._shard_loss_fallbacks += n_lost
                 cold_flags[:, k] = rows == c.unseen_row
-                padded[:n] = rows
+                if store is not None:
+                    slots, ovr, flags, epoch = store.lookup(rows, bucket)
+                    rows_by_cid[c.cid] = slots
+                    overrides_by_cid[c.cid] = (ovr, flags)
+                    tiered[c.cid] = (rows, epoch)
+                else:
+                    padded[:n] = rows
         return {"bucket": bucket, "buffers": buffers, "offsets": offsets, "rows_by_cid": rows_by_cid,
+                "overrides_by_cid": overrides_by_cid, "tiered": tiered,
                 "cold_flags": cold_flags, "lost_flags": lost_flags}
 
     def _dispatch(self, packed: dict, state: _EngineState, *, inject: bool = True
@@ -508,7 +580,7 @@ class ServingEngine:
         """Upload, run the bucket program, fetch both outputs, under the
         watchdog on live traffic."""
         with stage_timer("serve_score"):
-            if inject:
+            if inject and self.inject_faults:
                 faults.fault_point("score")
             wd_ms = self._watchdog_ms if inject else 0.0
             with self._watchdog.guard(wd_ms, f"serving dispatch (bucket {packed['bucket']})"):
@@ -522,6 +594,14 @@ class ServingEngine:
 
     def _dispatch_device(self, packed: dict, state: _EngineState) -> Tuple[np.ndarray, np.ndarray]:
         with self._device_mutex:
+            # Promotions write a two-tier plane in place under this mutex: a
+            # batch resolved at an older epoch resolves its slots again.
+            for c in state.coords:
+                got = packed["tiered"].get(c.cid)
+                if got is not None and got[1] != c.store.epoch:
+                    slots, ovr, flags, _ = c.store.lookup(got[0], packed["bucket"], touch=False)
+                    packed["rows_by_cid"][c.cid] = slots
+                    packed["overrides_by_cid"][c.cid] = (ovr, flags)
             program = state.programs.get(packed["bucket"])
             if program is None:
                 program = _BucketProgram(state, packed["bucket"], self.task, self.device)
@@ -539,7 +619,8 @@ class ServingEngine:
         st = state if state is not None else self._state
         n_re = sum(1 for c in st.coords if c.is_random_effect)
         width = sum(st.shard_dims.values())
-        return sum(4 * b + 4 * b * width + 8 * b * n_re + 8 * b for b in self.buckets)
+        ovr = sum(c.dim * 4 + 1 for c in st.coords if c.store is not None)
+        return sum(4 * b + 4 * b * width + 8 * b * n_re + 8 * b + b * ovr for b in self.buckets)
 
     def _sharding_metrics(self, state: _EngineState) -> Dict[str, object]:
         """The reference's sharding block for a single-tier bundle on one
@@ -548,13 +629,16 @@ class ServingEngine:
         from photon_ml_tpu_torch.contracts import SERVING_SHARDING_KEYS
 
         health = [c.shard_health for c in state.coords if c.shard_health is not None]
+        stores = [c.store for c in state.coords if c.store is not None]
         axis = max((h.n_shards for h in health), default=1)
-        rows_per_shard = max((h.rows_per_shard for h in health), default=0)
+        rows_per_shard = max([h.rows_per_shard for h in health] + [s.capacity + 1 for s in stores],
+                             default=0)
+        hot_fraction = min([1.0] + [s.hot_fraction for s in stores])
         shards_lost = sum(len(h.lost) for h in health)
         with self._lock:
             fallbacks = self._shard_loss_fallbacks
-        return dict(zip(SERVING_SHARDING_KEYS,
-                        (False, axis, rows_per_shard, 1.0, 0, shards_lost, fallbacks)))
+        return dict(zip(SERVING_SHARDING_KEYS, (False, axis, rows_per_shard, round(hot_fraction, 6),
+                                                0, shards_lost, fallbacks)))
 
     @property
     def compiles(self) -> int:
@@ -597,6 +681,15 @@ class ServingEngine:
                 "engine_qps": (self._requests / elapsed) if elapsed > 0 else None,
             }
         out["sharding"] = self._sharding_metrics(st)
+        # The two-tier stores' counters (0 on a single-tier bundle).
+        tier = dict.fromkeys(("hot_tier_hits", "cold_tier_hits", "promotions", "evictions",
+                              "promote_failures", "pending_promotions"), 0)
+        for c in st.coords:
+            if c.store is not None:
+                sm = c.store.metrics()
+                for key in tier:
+                    tier[key] += int(sm[key])
+        out.update(tier)
         health = self.health.snapshot()
         out["state"] = health["state"]
         out["degraded_reasons"] = health["degraded_reasons"]

@@ -52,12 +52,21 @@ logger = logging.getLogger(__name__)
 
 class Overloaded(RuntimeError):
     """Admission control rejected the request: the pending queue is full (or
-    an armed `admit` fault shed it)."""
+    an armed `admit` fault shed it). `tenant` names the tenant on the
+    multi-tenant registry's path, None on a single-tenant batcher's."""
+
+    def __init__(self, *args, tenant: Optional[str] = None):
+        super().__init__(*args)
+        self.tenant = tenant
 
 
 class DeadlineExceeded(TimeoutError):
     """The request's deadline budget expired while it waited in queue; it
-    was failed before it took a device slot."""
+    was failed before it took a device slot. `tenant` as in Overloaded."""
+
+    def __init__(self, *args, tenant: Optional[str] = None):
+        super().__init__(*args)
+        self.tenant = tenant
 
 
 class BatcherUnhealthy(RuntimeError):
@@ -302,6 +311,12 @@ def device_memory_budget_bytes(device: torch.device) -> Optional[int]:
     return None
 
 
+def _bundle_device_bytes(bundle) -> int:
+    """A bundle's device bytes for a device-memory budget: every pinned
+    plane, and a two-tier coordinate's hot plane, not its host matrix."""
+    return int(bundle.device_bytes())
+
+
 # How long a swap waits for in-flight batches of the old generation before
 # it leaves that generation allocated.
 SWAP_DRAIN_TIMEOUT_S = 30.0
@@ -358,8 +373,8 @@ class BundleManager:
                       else device_memory_budget_bytes(engine.device))
             need = expected_bytes
             if need is None and builder is None:
-                need = next_bundle.device_bytes() or None
-            have = old_state.bundle.device_bytes()
+                need = _bundle_device_bytes(next_bundle) or None
+            have = _bundle_device_bytes(old_state.bundle)
             warm = engine.warmup_buffer_bytes()
             if budget is not None and need is not None and have + need + warm > budget:
                 raise HbmBudgetExceeded(
@@ -378,7 +393,7 @@ class BundleManager:
                 return staged
 
             def check_budget(new_state) -> None:
-                got = new_state.bundle.device_bytes()
+                got = _bundle_device_bytes(new_state.bundle)
                 warm_new = engine.warmup_buffer_bytes(new_state)
                 if budget is not None and have + got + max(warm, warm_new) > budget:
                     raise HbmBudgetExceeded(
@@ -401,34 +416,53 @@ class BundleManager:
         atomic flip between batches, the drain of the old generation's
         in-flight batches and its release. Any failure before the flip rolls
         back (counted and journalled by kind) and re-raises: the old
-        generation never stopped serving."""
+        generation never stopped serving. Kinds "demote" and "restore" (the
+        multi-tenant registry's host-tier moves, which change the program
+        family) skip the compatibility check, fire no commit site and count
+        no rollback. A tenant engine's co-batch captures (its
+        `_prewarm_hook`) run after the pre-warm, before the commit; its
+        `_retire_hook` gets the state that will never serve again: the
+        retired one after the drain, or the staged one on a rollback. Stores
+        are closed by identity: a staged bundle's new ones on a rollback,
+        the retired bundle's that the new one does not carry after the
+        drain."""
         engine = self.engine
-        staged = None
+        staged = new_state = None
         t0 = time.perf_counter()
+        old_stores = {id(s) for s in old_state.bundle.stores()}
         try:
             staged = stage()
             t_staged = time.perf_counter()
             new_state = engine._build_state(staged, version=old_state.version + 1)
-            self._check_compatible(old_state, new_state)
+            if kind in ("swap", "delta"):
+                self._check_compatible(old_state, new_state)
             if check is not None:
                 check(new_state)
             compiles_before = engine.compiles
             engine._warm_state(new_state)
             staging_compiles = engine.compiles - compiles_before
+            if engine._prewarm_hook is not None:
+                engine._prewarm_hook(new_state)
             t_warm = time.perf_counter()
-            faults.fault_point("swap_commit" if kind == "swap" else "reshard_commit")
+            if kind in ("swap", "delta"):
+                faults.fault_point("swap_commit" if kind == "swap" else "reshard_commit")
             stage_s = time.perf_counter() - t0
         except BaseException as exc:
             self._roll_back(kind, old_state.version, exc)
+            if new_state is not None and engine._retire_hook is not None:
+                engine._retire_hook(new_state)
             if staged is not None and staged is not old_state.bundle:
-                staged.release()
+                for store in staged.stores():
+                    if id(store) not in old_stores:
+                        store.close()
+                staged.release(close_stores=False)
             raise
         engine._commit_state(new_state, baseline_bump=staging_compiles)
         if kind == "swap":
             self._swaps += 1
             faults.COUNTERS.increment("serving_swaps")
             telemetry.emit_event("bundle_swap", version=new_state.version, outcome="committed")
-        else:
+        elif kind == "delta":
             self._deltas += 1
             new_state.bundle.provenance["generation"] = new_state.version
             telemetry.emit_event("reshard_commit", old_shards=1, new_shards=1,
@@ -441,7 +475,13 @@ class BundleManager:
                            "leaving it allocated", old_state.version, drain_timeout_s)
         else:
             old_state.programs.clear()  # its captured graphs and static buffers
-            old_state.bundle.release()
+            if engine._retire_hook is not None:
+                engine._retire_hook(old_state)
+            kept = {id(s) for s in new_state.bundle.stores()}
+            for store in old_state.bundle.stores():
+                if id(store) not in kept:
+                    store.close()
+            old_state.bundle.release(close_stores=False)
         flip_s = time.perf_counter() - t0 - stage_s
         logger.info("bundle %s committed: version %d -> %d (staged in %.3fs)", kind,
                     old_state.version, new_state.version, stage_s)
@@ -456,7 +496,7 @@ class BundleManager:
             self._rollbacks += 1
             faults.COUNTERS.increment("serving_swap_rollbacks")
             telemetry.emit_event("bundle_swap", version=version + 1, outcome="rolled_back")
-        else:
+        elif kind == "delta":
             faults.COUNTERS.increment("delta_rollbacks")
             telemetry.emit_event("delta_rollback", version=version, reason=repr(exc))
         logger.warning("bundle %s to version %d rolled back (%r); version %d keeps serving", kind,

@@ -6,9 +6,13 @@ parsing (empty or unset means the default; a malformed value logs a
 warning and reads as the default). `get_knob` on a name not registered here
 raises, so a knob cannot be read without landing in this table.
 
-`PHOTON_SERVING_ENTITY_SHARD` and `PHOTON_SERVING_HOT_ROWS` are registered
-so that `serving.bundle.load_bundle` can refuse them: the row-sharded and
-two-tier stores they select are ROADMAP item 9. The solver's and the sweep
+`PHOTON_SERVING_HOT_ROWS` stages each random effect in the two-tier store
+(`serving.bundle.load_bundle`); `PHOTON_SERVING_ENTITY_SHARD` is registered
+so that `load_bundle` can refuse it: the row-sharded store it selects is
+ROADMAP item 9c. The multi-tenant registry's (`PHOTON_TENANT_MAX_PENDING`,
+`PHOTON_TENANT_HBM_FRACTION`) and the shadow controller's
+(`PHOTON_SHADOW_*`) are the reference's; the precision ladder's
+`PHOTON_TIER_*` are not registered (item 10f), so reading one raises. The solver's and the sweep
 executor's knobs (`PHOTON_SOLVE_RETRIES`, `PHOTON_SWEEP_*`) are the
 reference's; `PHOTON_SWEEP_SCAN` is not registered, because the port has no
 scan-dispatched bucket sweep. The multi-host supervisor's
@@ -102,10 +106,29 @@ _register("PHOTON_SHARD_UPLOAD_RETRIES", int, 2,
           "failure surfaces (hot-swap rollback / shard stays degraded).")
 _register("PHOTON_SERVING_ENTITY_SHARD", bool, False,
           "Stage serving RE matrices row-sharded over all local devices "
-          "(not ported: ROADMAP item 9; load_bundle raises when set).")
+          "(not ported: ROADMAP item 9c; load_bundle raises when set).")
 _register("PHOTON_SERVING_HOT_ROWS", int, 0,
-          "Two-tier serving store hot-set size; 0 = single-tier "
-          "(not ported: ROADMAP item 9; load_bundle raises when set).")
+          "Two-tier serving store hot-set size (rows of each random effect kept on the "
+          "device, the full matrix in host RAM); 0 = single-tier.")
+_register("PHOTON_TENANT_MAX_PENDING", int, 64,
+          "Default per-tenant admission quota in the multi-tenant registry (bounded pending "
+          "requests per tenant; submits past it shed with a typed Overloaded naming the tenant).")
+_register("PHOTON_TENANT_HBM_FRACTION", float, 1.0,
+          "Fraction of the device-memory budget the multi-tenant fleet may pin; admission past it "
+          "demotes the coldest READY tenant's RE rows to the host tier (never fails the tenant) "
+          "before refusing.")
+_register("PHOTON_SHADOW_MIN_WINDOWS", int, 3,
+          "Shadow deployment (serving/shadow): consecutive evaluation windows that must agree "
+          "before a verdict fires; all healthy promotes, all regressed rejects, a mixed run holds.")
+_register("PHOTON_SHADOW_REGRESSION_TOL", float, 0.02,
+          "Shadow deployment: a window is regressed when the challenger's primary metric is worse "
+          "than the champion's by more than this (direction-aware: AUC down or RMSE up).")
+_register("PHOTON_SHADOW_COOLDOWN_S", float, 0.0,
+          "Shadow deployment: minimum seconds between shadow start and a verdict; 0 disables "
+          "the cooldown.")
+_register("PHOTON_SHADOW_MIRROR_FRACTION", float, 1.0,
+          "Shadow deployment: fraction of champion traffic mirrored to the challenger tenant "
+          "(deterministic credit accumulator, no RNG); 1.0 mirrors everything.")
 _register("PHOTON_SERVING_HBM_BUDGET_BYTES", int, 0,
           "Device-memory budget a bundle hot-swap must fit in; 0 = the card's total "
           "memory (no check on the CPU).")

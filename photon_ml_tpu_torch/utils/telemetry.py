@@ -85,6 +85,30 @@ METRIC_DESCRIPTIONS = {
     "group (heartbeat or wedged collective)",
     "host_heartbeat_misses": "per-host heartbeat beats missed by a peer "
     "before it was declared lost",
+    "promote_failures": "failed two-tier hot-set promotions",
+    "tenant_demotions": "cold tenants' RE rows demoted to the host tier "
+    "under HBM pressure",
+    "tenant_restores": "demoted tenants promoted back to full HBM "
+    "residency when headroom returned",
+    "tenant_cobatch_dispatches": "cross-tenant co-batched device dispatches",
+    "shadow_mirrored_requests": "champion requests mirrored to a shadow "
+    "challenger tenant",
+    "shadow_mirror_failures": "mirror submits degraded to champion-only "
+    "serving (never a failed client request)",
+    "label_join_failures": "online-evaluation label joins dropped (label "
+    "lost, champion path untouched)",
+    "shadow_windows": "shadow evaluation windows scored through the "
+    "jitted metric programs",
+    "shadow_promotions": "challengers promoted to champion via the "
+    "BundleManager generation flip",
+    "shadow_rollbacks": "challengers torn down on a regression verdict "
+    "or a failed promotion",
+    "shadow_score_drift": "per-request |champion - challenger| mean-score "
+    "drift observed at window evaluation",
+    "shadow_calibration_champion": "per-request |champion mean - label| "
+    "calibration error per evaluated window",
+    "shadow_calibration_challenger": "per-request |challenger mean - label| "
+    "calibration error per evaluated window",
 }
 
 _BUCKETS_PER_DECADE = 16
@@ -262,6 +286,10 @@ class MetricsRegistry:
             if hist is None:
                 hist = self._hists[name] = Histogram()
         hist.record(value)
+
+    def histogram(self, name: str) -> Optional[Histogram]:
+        with self._lock:
+            return self._hists.get(name)
 
     def counters(self) -> Dict[str, int]:
         with self._lock:

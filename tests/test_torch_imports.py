@@ -65,7 +65,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "utils.telemetry", "serving", "serving.bundle", "serving.engine", "serving.batcher",
                  "serving.lifecycle", "cli.serve", "hyperparameter.sweep", "cli.tune",
                  "parallel.hostmesh", "cli.train_multihost", "cli.serve_multihost", "cli.obs",
-                 "data.fingerprints", "game.incremental", "serving.delta", "cli.refresh"):
+                 "data.fingerprints", "game.incremental", "serving.delta", "cli.refresh",
+                 "serving.tenancy", "serving.shadow"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = _BLOCK_JAX + textwrap.dedent(
         """

@@ -17,8 +17,9 @@ journal), held against the JAX package on the same numpy inputs:
     engine of the new state, and the `shard_upload` and `reshard_commit`
     drills under traffic leave the old generation serving with no failed
     request;
-  * the two-tier store and a row-block bundle's growth or re-sort are
-    refused, and the per-tenant apply waits for item 10d.
+  * a two-tier bundle takes a delta bit-equal to a cold engine, a
+    row-block bundle's growth or re-sort is refused, and the per-tenant
+    apply flips one tenant of a registry.
 """
 
 from __future__ import annotations
@@ -566,13 +567,22 @@ def test_a_failed_apply_rolls_back_under_traffic(port_round, spec, monkeypatch, 
 
 
 def test_the_two_tier_store_and_row_block_moves_are_refused(port_round, rng):
-    """The two-tier store is item 9c; a row-block bundle follows the
-    reference's mesh rules: a re-sort or growth past the padding is refused
-    (the old generation keeps serving), a delta that fits commits bit-equal
-    to a cold engine with the same blocks."""
+    """The two-tier store is ported since: its delta (the cold matrix
+    rebuilt in host RAM, a new store of the same capacity) commits bit-equal
+    to a cold single-tier engine of the new state. A row-block bundle
+    follows the reference's mesh rules: a re-sort or growth past the padding
+    is refused (the old generation keeps serving), a delta that fits commits
+    bit-equal to a cold engine with the same blocks."""
     prev = port_round["prev"]
-    with pytest.raises(NotImplementedError, match="9c"):
-        _engine(prev, hot_rows={"per-e": 4})
+    with _engine(prev, hot_rows={"per-e": 4}) as eng:
+        old_store = eng.bundle.coordinates["per-e"].store
+        assert apply_delta(eng, port_round["delta"])["committed"]
+        store = eng.bundle.coordinates["per-e"].store
+        assert store is not old_store and store.capacity == 4 and old_store._closed
+        reqs = _requests()
+        with _engine(port_round["res"].state) as cold:
+            assert _scores(eng.score_batch(reqs)) == _scores(cold.score_batch(reqs))
+    eng.bundle.release()
     with _engine(prev, row_blocks=5) as eng:  # 15 rows: the growth fits, the re-sort does not
         with pytest.raises(ValueError, match="re-sorts carried entity rows"):
             apply_delta(eng, port_round["delta"])
@@ -604,5 +614,22 @@ def test_the_two_tier_store_and_row_block_moves_are_refused(port_round, rng):
 
 
 def test_the_per_tenant_apply_waits_for_tenancy(port_round):
-    with pytest.raises(NotImplementedError, match="10d"):
-        apply_delta_for_tenant(None, "fresh", port_round["delta"])
+    """Tenancy is ported: the per-tenant apply flips one tenant of a
+    registry onto the delta, bit-equal to a cold engine of the new state,
+    and leaves its neighbour's generation alone."""
+    from photon_ml_tpu_torch.serving.tenancy import TenantRegistry
+
+    prev, new = port_round["prev"], port_round["res"].state
+    with TenantRegistry(max_batch=16) as reg:
+        for name in ("fresh", "other"):
+            reg.admit(name, ServingBundle.from_model(
+                prev.model, incremental.scoring_specs(DATA_CONFIGS, prev.entity_indices), TASK,
+                device="cpu"))
+        info = apply_delta_for_tenant(reg, "fresh", port_round["delta"])
+        assert info["committed"] and reg.tenant("fresh").engine.bundle_version == 1
+        assert reg.tenant("other").engine.bundle_version == 0
+        reqs = _requests()
+        got = _scores([reg.submit("fresh", r, block=True).result() for r in reqs])
+        with _engine(new) as cold:
+            assert got == _scores(cold.score_batch(reqs))
+        assert reg.metrics()["cobatch_compiles_after_warmup"] == 0

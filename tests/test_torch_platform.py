@@ -313,7 +313,7 @@ def test_spans_parent_across_a_thread_handoff_and_export(tmp_path):
 def test_a_port_journal_passes_the_reference_validator(tmp_path):
     """One line of each event type the port emits (the training lifecycle,
     the serving path, the sweep executor, the checkpoint, the multi-host
-    layers and refresh)."""
+    layers, refresh, tenancy and the shadow)."""
     fields = {"setup": dict(args="{'device': 'cpu'}"), "fit_start": dict(num_samples=-1),
               "sweep_config": dict(index=0, total=2),
               "coordinate_update": dict(iteration=0, coordinate="global", seconds=0.25, accepted=True),
@@ -340,7 +340,21 @@ def test_a_port_journal_passes_the_reference_validator(tmp_path):
               "delta_apply": dict(version=1, coordinates=["per-user"], rows=3, bytes=48,
                                   source="round-0"),
               "delta_rollback": dict(version=0, reason="InjectedFault()"),
-              "reshard_commit": dict(old_shards=1, new_shards=1, version=1, restaged_bytes=48)}
+              "reshard_commit": dict(old_shards=1, new_shards=1, version=1, restaged_bytes=48),
+              "tenant_admit": dict(tenant="a", device_bytes=1024, demoted_tenants=["b"]),
+              "tenant_evict": dict(tenant="b", reason="hbm_pressure", freed_bytes=512, hot_rows=0),
+              "tenant_restore": dict(tenant="b", reason="manual", device_bytes=512),
+              "tenant_degraded": dict(tenant="a", reasons=["circuit_open"]),
+              "shadow_start": dict(champion="champion", challenger="cand", window_size=64,
+                                   min_windows=3, mirror_fraction=1.0),
+              "shadow_window": dict(champion="champion", challenger="cand", window=1, rows=64,
+                                    champion_metric=0.75, challenger_metric=0.5, evaluator="AUC",
+                                    healthy=False),
+              "shadow_verdict": dict(champion="champion", challenger="cand", decision="reject",
+                                     windows=3, champion_metric=0.75, challenger_metric=0.5,
+                                     evaluator="AUC", reason="last 3 window(s) all regressed"),
+              "shadow_promote": dict(champion="champion", challenger="cand", version=1),
+              "shadow_rollback": dict(champion="champion", challenger="cand", reason="regression")}
     assert set(fields) == set(contracts.JOURNAL_EVENT_SCHEMAS)
     for etype, schema in contracts.JOURNAL_EVENT_SCHEMAS.items():
         assert schema == jax_contracts.JOURNAL_EVENT_SCHEMAS[etype]
@@ -378,6 +392,7 @@ def test_a_serve_profile_passes_the_reference_reader(tmp_path):
                                   "ROBUSTNESS_CLEAN_ZERO_KEYS", "SERVING_SUMMARY_KEYS", "BUNDLE_PROVENANCE_KEYS",
                                   "JOURNAL_LINE_KEYS", "PROFILE_REQUIRED_KEYS", "PROFILE_SERVE_KEYS",
                                   "PROFILE_FIT_KEYS",
-                                  "PLAN_BLOCK_KEYS", "DELTA_BUNDLE_KEYS", "CONTINUOUS_SECTION_KEYS"])
+                                  "PLAN_BLOCK_KEYS", "DELTA_BUNDLE_KEYS", "CONTINUOUS_SECTION_KEYS",
+                                  "TENANT_BLOCK_KEYS", "TIER_BLOCK_KEYS", "SHADOW_BLOCK_KEYS"])
 def test_contract_tuples_are_the_reference_tuples(name):
     assert getattr(contracts, name) == getattr(jax_contracts, name)

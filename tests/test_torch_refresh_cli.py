@@ -5,8 +5,9 @@ so the rounds' modes, delta manifests, `committed` flags and generations,
 the delta records and the provenance block are the reference's; each
 package's `cli.obs journal --validate` accepts both journals; the summary
 keeps the reference's keys but `plan` (ROADMAP item 10e) and adds each
-round's `stages_s`; `--shadow-gate` (item 10d) and a run without
-`--synthetic` are refused as the reference words them."""
+round's `stages_s`; a run without `--synthetic` is refused as the
+reference words it, `--shadow-gate` or not (the gate itself runs in
+tests/test_torch_shadow.py)."""
 
 from __future__ import annotations
 
@@ -89,10 +90,13 @@ def test_both_obs_readers_accept_both_journals(runs, reader, capsys):
 
 
 def test_the_shadow_gate_and_real_data_are_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="10d"):
-        refresh.main(["--root-output-directory", str(tmp_path), *ARGS, "--device", "cpu",
-                      "--shadow-gate"])
-    assert not os.listdir(tmp_path)  # refused before any fit or file
+    # The shadow gate is ported; on real data it is refused with the run,
+    # in both packages, before any fit or file.
+    for main in (refresh.main, jax_refresh.main):
+        with pytest.raises(SystemExit, match="only --synthetic data is supported"):
+            main(["--root-output-directory", str(tmp_path), "--shadow-gate", "--logging-level",
+                  "WARNING"])
+    assert not os.listdir(tmp_path)
     with pytest.raises(SystemExit, match="only --synthetic data is supported"):
         refresh.main(["--root-output-directory", str(tmp_path), "--device", "cpu"])
     with pytest.raises(SystemExit, match="only --synthetic data is supported"):

@@ -16,8 +16,9 @@ JSON lines:
   * each package serves the model directory the other's cli.train wrote;
   * a malformed request line costs one record, and a corrupt Avro block
     its requests (quarantined and counted, as in the JAX cli.serve); each
-    refused flag raises naming its ROADMAP item, or the multi-host scope's
-    refusal, before anything is staged.
+    refused flag combination raises the reference's refusal, and each flag
+    of a part not ported names its ROADMAP item (or the multi-host scope's
+    refusal), before anything is staged.
 """
 
 from __future__ import annotations
@@ -189,32 +190,41 @@ def test_a_malformed_request_costs_one_record_and_tracing_writes_a_trace(served,
     assert telemetry.current_tracer() is None and telemetry.current_journal() is None
 
 
-# The parts the port has not got raise, naming their ROADMAP item. The
-# multi-host flags of item 9 are ported since: under them the supervisor
-# or a worker first refuses, as the JAX driver's `_validate_scope` does, a
-# command line outside the multi-host scope, and `run()` refuses them (they
-# dispatch in `main()`); tests/test_torch_serve_multihost.py runs them.
+# The reference's refusals of flag combinations come first, in its words
+# (`--tenant`, `--shadow` and `--labels` are ported: tests/test_torch_tenancy.py
+# and tests/test_torch_shadow.py run them); then the parts the port has not
+# got raise, naming their ROADMAP item. The multi-host flags of item 9 are
+# ported since: under them the supervisor or a worker first refuses, as the
+# JAX driver's `_validate_scope` does, a command line outside the
+# multi-host scope, and `run()` refuses them (they dispatch in `main()`);
+# tests/test_torch_serve_multihost.py runs them. A row with `--tenant`
+# names no model directory unless it lists one.
 _SCOPE = "--multihost serve scope"
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--tenant", "a=x"], NotImplementedError, "item 10"), (["--shadow", "b=x"], NotImplementedError, "item 10"),
-    (["--labels", "l.jsonl"], NotImplementedError, "item 10"), (["--autopilot"], NotImplementedError, "item 10"),
+    (["--tenant", "a=x", "--reshard-to", "2"], ValueError, "--reshard-to is a single-tenant drill"),
+    (["--shadow", "b=x", "--tenant", "a=x"], ValueError, "--shadow mirrors one champion's traffic"),
+    (["--shadow", "b=x", "--reshard-to", "2"], ValueError, "--shadow and --reshard-to both drive"),
+    (["--autopilot"], ValueError, "--autopilot supervises a multi-tenant fleet"),
+    (["--tenant", "a=x", "--model-input-directory", "m"], ValueError, "pass exactly one of"),
+    (["--tenant", "a=x", "--autopilot"], NotImplementedError, "item 10e"),
     (["--profile", "p.json"], NotImplementedError, "item 10"), (["--reshard-to", "2"], NotImplementedError, "item 9"),
     (["--multihost", "2", "--tenant", "a=x"], ValueError, f"{_SCOPE}: --tenant .multi-tenant. has no multi-host"),
     (["--multihost", "2", "--multihost-devices-per-host", "4", "--reshard-to", "2"], ValueError,
      f"{_SCOPE}: --reshard-to is a single-process drill"),
     (["--mh-serve-worker", "--tenant", "a=x"], ValueError, f"{_SCOPE}: --tenant"),
     (["--mh-serve-worker", "--mh-host-id", "1", "--reshard-to", "2"], ValueError, f"{_SCOPE}: --reshard-to"),
-    (["--multihost", "2", "--mh-num-hosts", "2", "--shadow", "b=x"], NotImplementedError, "item 10"),
+    (["--multihost", "2", "--mh-num-hosts", "2", "--autopilot"], NotImplementedError, "item 10"),
     (["--mh-serve-worker", "--mh-attempt", "1", "--profile", "p.json"], NotImplementedError, "item 10"),
     (["--multihost", "3", "--mh-resume-window", "3", "--multihost-devices-per-host", "0"], ValueError,
      "--multihost-devices-per-host 0")])
 def test_each_refused_flag_raises_before_staging(tmp_path, extra, error, match):
     out = tmp_path / "out"
+    model = [] if "--tenant" in extra else ["--model-input-directory", str(tmp_path / "no-model")]
     with pytest.raises(error, match=match):
-        serve_cli.main(["--model-input-directory", str(tmp_path / "no-model"), "--requests", "r.jsonl",
-                        "--root-output-directory", str(out), "--device", "cpu", *extra])
+        serve_cli.main([*model, "--requests", "r.jsonl", "--root-output-directory", str(out),
+                        "--device", "cpu", *extra])
     assert not out.exists()
 
 

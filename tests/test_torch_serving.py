@@ -409,7 +409,10 @@ class TestBundle:
         with pytest.raises(ValueError, match="projected space"):
             ServingBundle.from_model(model, specs, TASK, device="cpu")
 
-    @pytest.mark.parametrize("kw", [{"mesh": object()}, {"hot_rows": 4}, {"row_shard": True}])
+    # The two-tier store is ported (tests/test_torch_two_tier.py); its
+    # case here asks it for a rank's row shard, which is still item 9c.
+    @pytest.mark.parametrize("kw", [{"mesh": object()}, {"hot_rows": 4, "row_shard": True},
+                                    {"row_shard": True}])
     def test_unported_stores_raise_naming_item_9(self, rng, kw):
         model, specs, _, _ = _fixture(rng, n=2)
         if kw.pop("row_shard", False):  # a rank's store: fewer rows than the index has entities
@@ -421,8 +424,25 @@ class TestBundle:
 
     @pytest.mark.parametrize("knob,value", [("PHOTON_SERVING_ENTITY_SHARD", "1"),
                                             ("PHOTON_SERVING_HOT_ROWS", "16")])
-    def test_unported_store_knobs_raise_in_load_bundle(self, tmp_path, monkeypatch, knob, value):
+    def test_unported_store_knobs_raise_in_load_bundle(self, rng, tmp_path, monkeypatch, knob, value):
         monkeypatch.setenv(knob, value)
+        if knob == "PHOTON_SERVING_HOT_ROWS":
+            # Ported since: the knob stages the random effect two-tier (16
+            # hot rows, capped at the entity count) and the answers keep the
+            # single-tier bits.
+            model, specs, ds, reqs = _fixture(rng, n=9)
+            index_maps = {"g": IndexMap.from_feature_names([f"f{i}" for i in range(D_FE)]),
+                          "re": IndexMap.from_feature_names([f"r{i}" for i in range(D_RE)])}
+            mdir = _save_port_model(tmp_path / "model", model, specs, index_maps)
+            bundle = load_bundle(str(mdir), device="cpu")
+            store = bundle.coordinates["per-e"].store
+            assert store is not None and store.capacity == N_ENTITIES
+            with ServingEngine(bundle, max_batch=16) as eng:
+                monkeypatch.delenv(knob)
+                with ServingEngine(load_bundle(str(mdir), device="cpu"), max_batch=16) as single:
+                    assert (_scores(eng.score_batch(reqs)) == _scores(single.score_batch(reqs))).all()
+            bundle.release()
+            return
         with pytest.raises(NotImplementedError, match="item 9"):
             load_bundle(str(tmp_path), device="cpu")
 

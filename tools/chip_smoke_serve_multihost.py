@@ -6,7 +6,7 @@
 Builds the kernel libraries 3c's training launches (`csrc/sparse_glm.cu`,
 `csrc/glm_fused.cu`, `csrc/exact_sum.cu`) and the native Avro library, all
 started together; writes phase 3e's training files; trains 3c's model with
-3c's `cli.train` command line; writes 3v's 101,000 requests and serves them
+3c's `cli.train` command line; writes 3v's 51,000 requests and serves them
 in one process with 3v's `cli.serve` command line (3mv holds its answers
 against these scores); then calls
 `chip_smoke.quarantine_phase` and `chip_smoke.serve_multihost_phase`, which
