@@ -267,7 +267,7 @@ The optimizers' other modes, checkpoint-restart and the legacy driver:
 The off-heap index stores and hyperparameter tuning, on phase 3e's files
 (after 3g, before they are deleted):
 
-3x. cli.build_index on the training files three times (PHIDX with 1 and 8
+3x. cli.build_index on the training files twice (PHIDX with 8
    partitions, PalDB with 4; each through the port's own code), then phase
    3c's cli.train and cli.score command lines with --offheap-indexmap-dir
    for each store: build_index seconds, store MiB and both drivers'
@@ -281,11 +281,11 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    new read of the files); the scoring AUC within its "auc_atol" (the row
    prints the largest score difference beside it); sparse_fused in train
    and sparse_matvec in score, no dense kernel.
-3x-scale. On the host: a PHIDX store of 524,288 synthetic name\x01term
+3x-scale. On the host: a PHIDX store of 262,144 synthetic name\x01term
    keys in 8 partitions (build seconds, a get_index sweep of every key and
    a get_feature_name sweep of every id, in keys a second, MiB on disk);
-   then PalDB at 131,072 keys in 4 partitions (both halved for 3n's
-   time), the cut its pure-Python
+   then PalDB at 65,536 keys in 4 partitions (both halved for 3n's time
+   and again for 3p's), the cut its pure-Python
    writer and loader force. Every id must come back once, and names must
    round-trip.
 3m. Multi-host training (cli/train_multihost.py, parallel/hostmesh.py,
@@ -423,6 +423,26 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    at 3r-loop's shape (must commit). The serving path must launch none of
    the six kernels; the refresh round's training launches are counted
    apart ("3n-refresh"). `tools/chip_smoke_tenancy.py` runs 3n alone.
+3p. The runtime planner and the autopilot (planner/, autopilot/,
+   serving/reshard.py), after 3n: 3c's cli.train command line with
+   `--profile` 3c's own profile.json (3c's model bit for bit, its #4/#5
+   launches 3c's train's, an active plan block from the profile); a copy
+   of that profile with its device_kind edited, refused before the read;
+   PHOTON_PLAN=1's calibration probe (upload GB/s, dispatch round trip);
+   3v's cli.serve with `--profile` 3v's serve profile on 3v's first 8,192
+   requests (3v's scores bit for bit; the planned ceiling and wait
+   printed); the autopilot on 3n's fleet (3c's model and 3n's v0
+   co-batched, 3c's model two-tier with 256 hot rows, cut from 3n's 2,048
+   so rows evict and promotions repeat) driven by `tick()` through demote,
+   restore, rebalance, retune and the one-card reshard, each applied with
+   every answer of 1,024 requests a tenant bit-equal and 0 failed (its
+   tick's seconds printed), then an armed `autopilot_act` rolled back and
+   its rule quarantined; 3n's `cli.serve --tenant` x3 with `--autopilot`
+   and `--profile` (3n's scores bit for bit, the `autopilot` block), and
+   `cli.obs decisions` on its journal. The serving part must launch none
+   of the six kernels ("3p" in the kernels line holds the planned fit's
+   #4/#5). Paid for by cutting 3x's PHIDX store of 1 partition and halving
+   3x-scale's keys. `tools/chip_smoke_autopilot.py` runs 3p alone.
 
 Data-parallel GLMix on ranks of torch.distributed (photon_ml_tpu_torch/
 parallel/), each rank a process started by parallel/launch.py that loads
@@ -466,7 +486,7 @@ The kernels' launch counts are set to 0 just before each path (phases 3-4,
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
 sweep and its cli.tune run, 3v's engine path, 3q's reads and 3mv's
 emulation in this process, each worker of 3mv's runs from its start,
-3n's serving path and its refresh round,
+3n's serving path and its refresh round, 3p's planned fit and its serving part,
 and 3d, 4d, 3e-d and 3m's uninterrupted fit in each rank, whose counts
 are rank 0's) and read just after; the `kernels` line gives them by
 phase (`launches_by_phase`; "3mv" sums 3mv's workers over every attempt,
@@ -1809,7 +1829,7 @@ def refresh_phase(ds, maps, truth, n_users: int, n_movies: int, dev) -> dict:
 
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     """Phases 2e, 3e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3o's e2e part, 3g, 3x,
-    3x-scale, 3m, 3t, 3w, 3v, 3q, 3mv, 3n and 5e (`dense`: phase 3's arrays and model, for 3v). Returns
+    3x-scale, 3m, 3t, 3w, 3v, 3q, 3mv, 3n, 3p and 5e (`dense`: phase 3's arrays and model, for 3v). Returns
     (phase 2e rows by kernel, the sparse launches by kernel of each path)."""
     import os
     import tempfile
@@ -1984,6 +2004,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         launches3q = walled("phase 3q", quarantine_phase, root, work, dev)
         launches3mv = walled("phase 3mv", serve_multihost_phase, root, work, dev)
         launches3n = walled("phase 3n", tenancy_phase, root, work, dev)
+        launches3p = walled("phase 3p", planner_autopilot_phase, root, work, dev, launches3c["train"])
     finally:
         e2e_dir.cleanup()
 
@@ -2020,7 +2041,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
                     "3k": launches3k, "3g": launches3g, "3j": launches3j, "3x": launches3x, "3t": launches3t,
                     "3w": launches3w, "3v": launches3v, "3m": launches3m, "3q": launches3q,
-                    "3mv": launches3mv, "3r": launches3r, "3n": launches3n}
+                    "3mv": launches3mv, "3r": launches3r, "3n": launches3n, "3p": launches3p}
 
 
 # ---------------------------------------------------------------- phases 3e-d and 5e-d
@@ -3571,6 +3592,277 @@ def tenancy_phase(root: str, work: str, dev) -> dict:
     return {"path": path_launches, "refresh": refresh_launches}
 
 
+# ---------------------------------------------------------------- phase 3p
+# The runtime planner and the autopilot on one card (planner/, autopilot/,
+# serving/reshard.py): 3c's fit and 3v's replay planned from their own
+# profiles, and the control loop over 3n's fleet.
+
+P3_ROWS = 1_024  # 3p: requests of 3v's stream a tenant of the autopilot fleet
+P3_HOT_ROWS = 256  # the fleet's two-tier tenant's hot rows (3n's 2,048, cut: rows evict, so promotions repeat)
+P3_SERVE_BLOCKS = 2  # cli.serve --profile: the first 8,192 of 3v's requests
+
+
+def planner_autopilot_phase(root: str, work: str, dev, train_launches_3c: dict) -> dict:
+    """Phase 3p. Planned fit: 3c's cli.train command line with `--profile`
+    3c's own profile.json must save 3c's model bit for bit, launch #4 and #5
+    as often as 3c's train did, and record an active plan block from the
+    profile; a copy of the profile with its device_kind edited is refused
+    before the read; PHOTON_PLAN=1's calibration probe (upload GB/s, one
+    op's round trip) is printed. Planned serving: 3v's cli.serve command
+    line with `--profile` 3v's serve profile on 3v's first P3_SERVE_BLOCKS
+    blocks gives 3v's scores bit for bit (the planned ceiling and wait
+    printed). The autopilot on 3n's fleet (3c's model and 3n's variant v0,
+    co-batched, and 3c's model two-tier with P3_HOT_ROWS hot rows, solo):
+    `Autopilot.tick()` drives demote, restore, rebalance (from the two-tier
+    store's promotions), retune and the one-card reshard, one action a
+    tick: each applied, every answer of every tenant bit-equal to the
+    fleet's before any action, 0 failed; an armed `autopilot_act` rolls the
+    action back and quarantines its rule. Then 3n's `cli.serve --tenant` x3
+    with `--autopilot` and `--profile` (3n's profile): 3n's scores bit for
+    bit, the `autopilot` block, and `cli.obs decisions` on its journal. The
+    serving part's launches are counted from 0 and must all be 0. Returns
+    the planned fit's launches and the serving part's."""
+    import itertools
+    import logging
+    import os
+    import shutil
+
+    import torch
+
+    from photon_ml_tpu_torch import autopilot, planner
+    from photon_ml_tpu_torch.cli import serve as serve_cli
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.contracts import AUTOPILOT_BLOCK_KEYS
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.io import model_store, score_store
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig
+    from photon_ml_tpu_torch.serving import TenantRegistry, demote_bundle_to_host_tier, load_bundle, request_from_record
+    from photon_ml_tpu_torch.utils import faults, telemetry
+
+    c3 = os.path.join(root, "drivers", "train")
+    best = os.path.join(c3, "models", "best")
+    card = card_line() if dev.type == "cuda" else "cpu"
+    failures = []
+    t_phase = time.perf_counter()
+
+    # ---- the planned fit ---------------------------------------------------------------
+    def train_argv(out, profile):
+        return ["--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+                "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
+                "--coordinate-configurations", *E2E_COORDINATES, "--coordinate-descent-iterations", "1",
+                "--output-mode", "BEST", "--logging-level", "WARNING", "--profile", profile]
+
+    edited = os.path.join(work, "profile-edited.json")
+    with open(os.path.join(c3, "profile.json")) as f:
+        doc = json.load(f)
+    doc["device_topology"]["device_kind"] = "NVIDIA A100-SXM4-80GB"
+    with open(edited, "w") as f:
+        json.dump(doc, f)
+    refused_out = os.path.join(work, "planned-train-refused")
+    train_log = logging.getLogger("photon_ml_tpu_torch.cli.train")
+    train_log.disabled = True  # the refusal's traceback is the expected outcome
+    t0 = time.perf_counter()
+    try:
+        train_cli.main(train_argv(refused_out, edited))
+        refused = None
+    except planner.PlanTopologyError as exc:
+        refused = str(exc)
+    finally:
+        train_log.disabled = False
+    refuse_s = time.perf_counter() - t0
+    read_before_refusal = [t for t in journal_types(os.path.join(refused_out, "journal.jsonl"))
+                           if t not in ("setup", "failure")]
+    os.environ["PHOTON_PLAN"] = "1"
+    try:
+        probe = planner.calibration_probe(dev)
+        calibrated = planner.ensure_ambient_plan(device=dev)
+        calibration = calibrated.block()
+    finally:
+        planner.uninstall_plan()
+        del os.environ["PHOTON_PLAN"]
+    out = os.path.join(work, "planned-train")
+    t0 = time.perf_counter()
+    summary, sparse_t, dense_t, mem_t = counted(torch, lambda: train_cli.main(
+        train_argv(out, os.path.join(c3, "profile.json"))))
+    train_wall = time.perf_counter() - t0
+    imaps = {"g": IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))}
+    vs_3c = same_model(model_store.load_game_model(os.path.join(out, "models", "best"), imaps),
+                       model_store.load_game_model(best, imaps))
+    plan = summary["fit_timing"]["plan"]
+    row = dict(phase="3p-train", wall_s=train_wall, timings_s=summary["timings_s"], plan=plan,
+               model_vs_3c=vs_3c, launches=sparse_t, launches_3c=train_launches_3c, dense_launches=dense_t,
+               mem_gib=mem_t, refused=refused, refuse_s=refuse_s, read_before_refusal=read_before_refusal,
+               calibration_probe=probe, calibration_plan=calibration, card=card)
+    log(json.dumps(row))
+    if not all(v["bit_equal"] for v in vs_3c.values()) or sparse_t != train_launches_3c or any(dense_t.values()) \
+            or not (plan["active"] and plan["source"] == "profile") or planner.current_plan() is not None:
+        failures.append(f"planned fit: {row}")
+    if refused is None or "device_kind" not in refused or read_before_refusal \
+            or os.path.exists(os.path.join(refused_out, "models")):
+        failures.append(f"the edited profile was not refused before the read: {row}")
+    if not (probe["upload_gb_per_s"] > 0 and probe["dispatch_rtt_ms"] > 0 and calibration["source"] == "calibration"):
+        failures.append(f"calibration: {probe}, {calibration}")
+
+    # ---- planned serving -------------------------------------------------------------------
+    reset_serving_launches()  # the serving part starts here
+    replay_dir = os.path.join(work, "serve-requests")
+    sub_dir = os.path.join(work, "planned-serve-requests")
+    os.makedirs(sub_dir)
+    n_sub = copy_blocks(os.path.join(replay_dir, "part-0.avro"), os.path.join(sub_dir, "part-0.avro"),
+                        P3_SERVE_BLOCKS)
+    out_s = os.path.join(work, "planned-serve")
+    telemetry.METRICS.reset()
+    t0 = time.perf_counter()
+    ssum = serve_cli.main(serve_args(best, sub_dir, out_s, "--profile",
+                                     os.path.join(work, "serve", "profile.json")))
+    serve_wall = time.perf_counter() - t0
+    with open(os.path.join(out_s, "profile.json")) as f:
+        planned_dispatch = json.load(f)["dispatch"]
+    got = score_store.load_score_columns(os.path.join(out_s, "scores"))
+    ref = score_store.load_score_columns(os.path.join(work, "serve", "scores"))
+    ref_by_uid = dict(zip(ref.uids, ref.scores))
+    serve_bits = len(got) == n_sub and all(ref_by_uid[u] == s for u, s in zip(got.uids, got.scores))
+    decisions = {d["decision"]: (d["value"], d["source"]) for d in ssum["plan"]["decisions"]}
+    row = dict(phase="3p-serve", wall_s=serve_wall, requests=ssum["num_requests"], failed=ssum["failed_requests"],
+               planned=decisions, max_batch=planned_dispatch["max_batch"], max_wait_ms=planned_dispatch["max_wait_ms"],
+               p50_ms=ssum["serving"]["p50_ms"], p99_ms=ssum["serving"]["p99_ms"],
+               bit_equal_to_3v=serve_bits, card=card)
+    log(json.dumps(row))
+    if not serve_bits or ssum["failed_requests"] or set(decisions) != {"serving_max_batch", "serving_max_wait_ms"} \
+            or planned_dispatch["max_batch"] != decisions["serving_max_batch"][0]:
+        failures.append(f"planned serving: {row}")
+
+    # ---- the autopilot over 3n's fleet -----------------------------------------------------
+    shards = {"g": FeatureShardConfig(("features",), True)}
+    variant = os.path.join(work, "tenants", "v0")
+    recs = [r for _, r in itertools.islice(avro_io.iter_container(os.path.join(replay_dir, "part-0.avro")),
+                                           P3_ROWS)]
+    telemetry.METRICS.reset()
+    reg = TenantRegistry()
+    t0 = time.perf_counter()
+    reg.admit("base", load_bundle(best, device=dev))
+    reg.admit("v0", load_bundle(variant, device=dev))
+    base_bundle = load_bundle(best, device=dev)
+    reg.admit("tiered", demote_bundle_to_host_tier(base_bundle, hot_rows=P3_HOT_ROWS))
+    base_bundle.release(close_stores=False)
+    admit_s = time.perf_counter() - t0
+    reqs = [request_from_record(reg.tenant("base").bundle, r, shards) for r in recs]
+    names = ["base", "v0", "tiered"]
+
+    def replay():
+        futs = [(n, reg.submit(n, r, block=True)) for r in reqs for n in names]
+        out, failed = {n: [] for n in names}, 0
+        for n, f in futs:
+            try:
+                res = f.result(timeout=120)
+                out[n].append((res.score, res.mean))
+            except Exception:  # counted: the gates want none
+                failed += 1
+        return out, failed
+
+    t0 = time.perf_counter()
+    for _ in range(3):  # rows evict and come back: the promotions a rebalance plan reads
+        replay()
+        for s in reg.tenant("tiered").bundle.stores():
+            s.drain()
+    ref_fleet, failed0 = replay()
+    warm_s = time.perf_counter() - t0
+    actions = [("demote", "base", {"hot_rows": P3_HOT_ROWS}), ("restore", "base", {}),
+               ("rebalance", "tiered", {"cid": "per-user"}), ("retune", None, {"serving_max_wait_ms": 1.0}),
+               ("reshard", "v0", {"devices": 1}), ("fault", "v0", {"hot_rows": 0})]
+    rows, failed_total = [], failed0
+    for kind, tenant, params in actions:
+        act = "demote" if kind == "fault" else kind
+        rule = autopilot.ControlRule(
+            name=f"3p-{kind}", signal=lambda c, p: 1.0, fire_above=0.5, rearm_below=0.0,
+            decide=lambda c, p, s, act=act, tenant=tenant, params=params: autopilot.Action(
+                kind=act, tenant=tenant, params=params))
+        pilot = autopilot.Autopilot(reg, rules=[rule], start=False, cooldown_s=0.0,
+                                    probe_requests={n: reqs[0] for n in names})
+        t0 = time.perf_counter()
+        if kind == "fault":
+            with faults.inject("autopilot_act:1"):
+                pilot.tick()
+        else:
+            pilot.tick()
+        tick_s = time.perf_counter() - t0
+        pilot.close()
+        block = pilot.summary()
+        after, failed = replay()
+        failed_total += failed
+        m = {n: reg.tenant(n).engine.metrics() for n in names}
+        r = dict(action=kind, tenant=tenant, tick_s=tick_s, outcome=block["last_outcome"],
+                 rollbacks=block["rollbacks"], quarantined=block["quarantined"], failed=failed,
+                 bit_equal=after == ref_fleet,
+                 differing={n: sum(x != y for x, y in zip(after[n], ref_fleet[n])) for n in names}, demoted={n: reg.tenant(n).demoted for n in names},
+                 version={n: m[n]["bundle_version"] for n in names})
+        if kind == "rebalance":
+            store = reg.tenant("tiered").bundle.coordinates["per-user"].store
+            r.update(rebalances=m["tiered"]["bundle_rebalances"], preloaded_rows=len(store.preloaded_rows),
+                     hot_rows=store.capacity)
+        rows.append(r)
+        want = "rolled_back" if kind == "fault" else "applied"
+        ok = r["bit_equal"] and not failed and r["outcome"] == want
+        if kind == "fault":
+            ok = ok and block["quarantined"] == ["3p-fault"] and block["rollbacks"] == 1
+        elif kind == "rebalance":
+            ok = ok and r["rebalances"] == 1 and r["preloaded_rows"] > 0
+        elif kind == "retune":
+            ok = ok and reg.max_wait_s == 1.0e-3
+        elif kind == "reshard":
+            ok = ok and m["v0"]["bundle_reshards"] == 1
+        if not ok:
+            failures.append(f"autopilot {kind}: {r}")
+    planner.uninstall_plan()  # the retune's online decision
+    fleet = reg.metrics()
+    reg.close(release_bundles=True)
+    row = dict(phase="3p-autopilot", tenants=names, requests_a_tenant=len(reqs), admit_s=admit_s,
+               warm_s=warm_s, actions=rows, failed=failed_total,
+               captures_after_warmup=fleet["cobatch_compiles_after_warmup"], card=card)
+    log(json.dumps(row))
+    if failed_total or fleet["cobatch_compiles_after_warmup"]:
+        failures.append(f"autopilot fleet: {row}")
+
+    # ---- cli.serve --tenant x3 --autopilot --profile, then cli.obs decisions -------------
+    out_t = os.path.join(work, "serve-autopilot")
+    telemetry.METRICS.reset()
+    t0 = time.perf_counter()
+    asum = serve_cli.main(["--requests", os.path.join(work, "tenancy-requests"), "--root-output-directory", out_t,
+                           "--feature-shard-configurations", E2E_SHARD, "--logging-level", "WARNING",
+                           "--tenant", f"base={best}", "--tenant", f"v0={variant}",
+                           "--tenant", f"v1={os.path.join(work, 'tenants', 'v1')}", "--autopilot",
+                           "--profile", os.path.join(work, "serve-tenants", "profile.json")])
+    auto_wall = time.perf_counter() - t0
+    t_bits = {}
+    for n in ("base", "v0", "v1"):
+        a = score_store.load_score_columns(os.path.join(out_t, "scores", n))
+        b = score_store.load_score_columns(os.path.join(work, "serve-tenants", "scores", n))
+        t_bits[n] = list(a.uids) == list(b.uids) and bool(np.array_equal(a.scores, b.scores))
+    code, text = obs_main(["decisions", os.path.join(out_t, "journal.jsonl")])
+    path_launches = serving_launches()  # the serving part ends here
+    lines = text.splitlines()
+    row = dict(phase="3p-cli", wall_s=auto_wall, requests=asum["num_requests"], failed=asum["failed_requests"],
+               autopilot=asum["autopilot"], plan_source=asum["plan"]["source"], bit_equal_to_3n=t_bits,
+               decisions_exit=code, decisions_head=lines[:1], decision_rows=len(lines) - 1,
+               launches=path_launches)
+    log(json.dumps(row))
+    if asum["failed_requests"] or tuple(asum["autopilot"]) != AUTOPILOT_BLOCK_KEYS \
+            or asum["autopilot"]["status"] != "stopped" or asum["autopilot"]["rollbacks"] \
+            or not asum["autopilot"]["ticks"] or not all(t_bits.values()) or code != 0 or len(lines) < 3:
+        failures.append(f"cli.serve --autopilot: {row}")
+    if any(path_launches.values()):
+        failures.append(f"the serving part launched a kernel: {path_launches}")
+    log(json.dumps(dict(phase="3p", wall_s=time.perf_counter() - t_phase, train_launches=sparse_t,
+                        serving_launches=path_launches, ok=not failures)))
+    shutil.rmtree(os.path.join(work, "planned-train"), ignore_errors=True)
+    if failures:
+        raise SystemExit("phase 3p failed: " + "; ".join(failures))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"train": sparse_t, "train_dense": dense_t, "path": path_launches}
+
+
 def small_estimator_fits(where: str, a: dict, n_train: int) -> dict:
     """Phase 5f's two estimator fits on `where` from the same host arrays:
     the e2e coordinates on the sparse shard "g" (INDEX_MAP, STANDARDIZATION
@@ -4022,7 +4314,7 @@ def driver_e2e_phase(root: str, fit3f: dict) -> dict:
     if failures:
         raise SystemExit("phase 3c failed: " + "; ".join(failures))
     return {"sparse": {k: sparse_t[k] + sparse_s[k] for k in sparse_t},
-            "dense": {k: dense_t[k] + dense_s[k] for k in dense_t}}
+            "dense": {k: dense_t[k] + dense_s[k] for k in dense_t}, "train": sparse_t}
 
 
 GLMIX_SHARD = "name=globalShard,feature.bags=features,intercept=true"
@@ -4740,9 +5032,10 @@ def telemetry_phase(root: str, work: str) -> dict:
 # The off-heap index stores (cli.build_index, --offheap-indexmap-dir) and the
 # train driver's hyperparameter tuning, on phase 3e's files.
 
-OFFHEAP_STORES = (("phidx", 1), ("phidx", 8), ("paldb", 4))  # format, partitions
-SCALE_KEYS = 1 << 19  # 524,288 synthetic name\x01term keys (PHIDX); cut from 4,194,304 for the time limit (by halves, for 3j, 3r and 3n)
-SCALE_PALDB_KEYS = 1 << 17  # PalDB's writer and reader are pure Python: cut to 131,072 (from 262,144 for 3n's time)
+# format, partitions (PHIDX with 1 partition dropped for 3p's time: 8 partitions cover the format)
+OFFHEAP_STORES = (("phidx", 8), ("paldb", 4))
+SCALE_KEYS = 1 << 18  # 262,144 synthetic name\x01term keys (PHIDX); cut from 4,194,304 for the time limit (by halves, for 3j, 3r, 3n and 3p)
+SCALE_PALDB_KEYS = 1 << 16  # PalDB's writer and reader are pure Python: cut to 65,536 (from 131,072 for 3p's time)
 TUNING_TRIALS = 3  # a mode (cut from 4, with 3x-scale and 3mv, for 3n's time)
 EXPLICIT_WEIGHTS = {"global": 1.0, "per-user": 10.0, "per-movie": 10.0}  # E2E_COORDINATES' reg.weights
 
@@ -4824,8 +5117,8 @@ def offheap_re_gaps(root: str, c3_map, c3_model, models: dict) -> dict:
 
 
 def offheap_phase(root: str, work: str) -> dict:
-    """Phase 3x: cli.build_index on phase 3e's training files three times
-    (PHIDX with 1 and 8 partitions, PalDB with 4), then phase 3c's cli.train
+    """Phase 3x: cli.build_index on phase 3e's training files twice
+    (PHIDX with 8 partitions, PalDB with 4), then phase 3c's cli.train
     and cli.score command lines through each store. Each model must equal
     3c's by feature name within PORT_TOLERANCES["offheap_index"]: bit-equal
     where the store numbers the features as 3c's map does; else the fixed
@@ -6564,7 +6857,7 @@ def main(argv=None) -> int:
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
     e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3g, 3j, 3x, 3m, 3t, 3w, 3v, "
-                                    "3q, 3mv, 3n",
+                                    "3q, 3mv, 3n, 3p",
                                     e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
@@ -6590,7 +6883,8 @@ def main(argv=None) -> int:
              launches=(launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k]
                        + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k] + launches3o[k]
                        + e2e_launches["3w"]["dense"][k] + e2e_launches["3j"]["dense"][k]
-                       + e2e_launches["3r"]["dense"][k] + e2e_launches["3n"]["refresh"][k]),
+                       + e2e_launches["3r"]["dense"][k] + e2e_launches["3n"]["refresh"][k]
+                       + e2e_launches["3p"]["train_dense"][k]),
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
                                 "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
                                 "5c": driver_launches["dense"][k], "3o": launches3o[k],
@@ -6599,7 +6893,8 @@ def main(argv=None) -> int:
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
                                 "3r": e2e_launches["3r"]["dense"][k], "3n": e2e_launches["3n"]["path"][k],
-                                "3n-refresh": e2e_launches["3n"]["refresh"][k]},
+                                "3n-refresh": e2e_launches["3n"]["refresh"][k],
+                                "3p": e2e_launches["3p"]["train_dense"][k] + e2e_launches["3p"]["path"][k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
              bound_by=kernel_rows[k]["bound_by"], library_ms=kernel_rows[k]["library_ms"])
@@ -6618,7 +6913,7 @@ def main(argv=None) -> int:
                        + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]
                        + e2e_launches["3w"]["sparse"][k] + e2e_launches["3m"]["sparse"][k]
                        + e2e_launches["3j"]["sparse"][k] + e2e_launches["3r"]["sparse"][k]
-                       + e2e_launches["3n"]["refresh"][k]),
+                       + e2e_launches["3n"]["refresh"][k] + e2e_launches["3p"]["train"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
                                 "3e-d": e2e_launches["3e-d"][k],
                                 "3f": e2e_launches["3f"]["sparse"][k], "5f": small_launches["sparse"][k],
@@ -6631,7 +6926,8 @@ def main(argv=None) -> int:
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
                                 "3r": e2e_launches["3r"]["sparse"][k], "3n": e2e_launches["3n"]["path"][k],
-                                "3n-refresh": e2e_launches["3n"]["refresh"][k]},
+                                "3n-refresh": e2e_launches["3n"]["refresh"][k],
+                                "3p": e2e_launches["3p"]["train"][k] + e2e_launches["3p"]["path"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
              bound_ms=sparse_rows[k]["bound_ms"], bound_by=sparse_rows[k]["bound_by"],
@@ -6654,7 +6950,8 @@ def main(argv=None) -> int:
                                 "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
                                 "3r": e2e_launches["3r"]["dense"][k], "3n": e2e_launches["3n"]["path"][k],
-                                "3n-refresh": e2e_launches["3n"]["refresh"][k]},
+                                "3n-refresh": e2e_launches["3n"]["refresh"][k],
+                                "3p": e2e_launches["3p"]["path"][k]},
              rank_sum_launches=sum(rank_sums.values()), rank_sum_launches_by_phase=rank_sums,
              **dist_rows[k])
         for k in DIST_REPLACES

@@ -14,10 +14,9 @@ and exit codes, reading through the port's `utils/telemetry.py`:
   * `profile diff <a> <b>`: stage deltas, dispatch-decision, plan-block and
     topology changes between two profiles; exits 1 when either breaks its
     contract or the kinds differ.
-  * `decisions <journal.jsonl>`: the reference's control-plane timeline
-    (planner, autopilot, shadow and tier decisions). No driver of the port
-    writes those events yet, so it raises NotImplementedError before
-    reading, naming its ROADMAP item.
+  * `decisions <journal.jsonl>`: the control-plane timeline (plan,
+    autopilot, shadow and tier decisions, the autopilot's rollbacks and
+    quarantines under them); exits 1 when a line fails its schema.
 
 Load a trace itself in Perfetto (https://ui.perfetto.dev) or
 chrome://tracing; this CLI is the headless companion. It runs on the CPU
@@ -104,10 +103,93 @@ def cmd_journal(args) -> int:
     return 1 if args.validate and errors else 0
 
 
+# Event types rendered as timeline rows; the autopilot's rollback and
+# quarantine events ride along as indented annotations. The precision
+# ladder's (`tier_demote`, `tier_restore`) render from the reference's
+# journals; the port writes none until ROADMAP item 10f.
+_DECISION_TYPES = ("plan_decision", "autopilot_decision", "shadow_verdict", "tier_demote",
+                   "tier_restore")
+_ANNOTATION_TYPES = ("autopilot_rollback", "rule_quarantined")
+
+
+def _fmt_evidence(ev) -> str:
+    if not ev:
+        return ""
+    if isinstance(ev, dict):
+        parts = []
+        for k in sorted(ev):
+            v = ev[k]
+            parts.append(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={json.dumps(v, default=str)}")
+        return " ".join(parts)
+    return json.dumps(ev, default=str)
+
+
+def _decision_line(doc: dict) -> str:
+    etype = doc["type"]
+    if etype == "plan_decision":
+        return (f"plan      {doc.get('decision')} = {json.dumps(doc.get('value'), default=str)} "
+                f"[{doc.get('source')}] (fallback {json.dumps(doc.get('fallback'), default=str)})")
+    if etype == "autopilot_decision":
+        action = doc.get("action") or {}
+        what = (f"{action.get('kind')}" + (f" tenant={action.get('tenant')}" if action.get("tenant") else "")
+                if isinstance(action, dict) else "(no action)")
+        line = f"autopilot {doc.get('rule')}: {what} -> {doc.get('outcome')}"
+        ev = _fmt_evidence(doc.get("evidence"))
+        return line + (f"  | {ev}" if ev else "")
+    if etype == "shadow_verdict":
+        return (f"shadow    {doc.get('challenger')} vs {doc.get('champion')}: {doc.get('decision')} "
+                f"after {doc.get('windows')} window(s) ({doc.get('evaluator')}: "
+                f"{doc.get('challenger_metric')} vs {doc.get('champion_metric')}) — {doc.get('reason')}")
+    if etype in ("tier_demote", "tier_restore"):
+        arrow = "v" if etype == "tier_demote" else "^"
+        bytes_key = "freed_bytes" if etype == "tier_demote" else "repinned_bytes"
+        line = (f"tier {arrow}    tenant={doc.get('tenant')} {doc.get('from_tier')} -> "
+                f"{doc.get('to_tier')} [{doc.get('reason')}] ({bytes_key}={doc.get(bytes_key)})")
+        ev = _fmt_evidence(doc.get("evidence"))
+        return line + (f"  | {ev}" if ev else "")
+    if etype == "autopilot_rollback":
+        action = doc.get("action") or {}
+        kind = action.get("kind") if isinstance(action, dict) else action
+        return f"  ROLLBACK  {doc.get('rule')} ({kind}): {doc.get('reason')}"
+    return (f"  QUARANTINE {doc.get('rule')} after {doc.get('rollbacks')} rollback(s): "
+            f"{doc.get('reason')}")
+
+
 def cmd_decisions(args) -> int:
-    raise NotImplementedError(
-        "obs decisions (the planner, autopilot, shadow and tier timeline) is not ported yet "
-        "(ROADMAP Queue 1 item 10e)")
+    """The control-plane timeline: plan, autopilot, shadow and tier
+    decisions with the autopilot's rollbacks and quarantines, each at its
+    offset from the first; exits 1 when a journal line fails its schema."""
+    n_ok, errors = telemetry.validate_journal(args.path)
+    rows: List[dict] = []
+    with open(args.path) as f:
+        for raw in f:
+            raw = raw.strip()
+            if not raw:
+                continue
+            try:
+                doc = json.loads(raw)
+            except ValueError:
+                continue  # already reported by validate_journal
+            if doc.get("type") in _DECISION_TYPES + _ANNOTATION_TYPES:
+                rows.append(doc)
+    counts: dict = {}
+    for doc in rows:
+        counts[doc["type"]] = counts.get(doc["type"], 0) + 1
+    print(f"decisions: {len(rows)} control-plane event(s) "
+          f"({', '.join(f'{counts[t]} {t}' for t in sorted(counts)) or 'none'})")
+    t0 = rows[0].get("ts", 0.0) if rows else 0.0
+    for doc in rows:
+        try:
+            dt = float(doc.get("ts", t0)) - float(t0)
+        except (TypeError, ValueError):
+            dt = 0.0
+        print(f"  +{dt:9.3f}s  {_decision_line(doc)}")
+    if errors:
+        print(f"{len(errors)} schema-invalid journal line(s):")
+        for err in errors[:20]:
+            print(f"  INVALID: {err}")
+        return 1
+    return 0
 
 
 def cmd_profile(args) -> int:
@@ -219,8 +301,7 @@ def build_parser() -> argparse.ArgumentParser:
     j = sub.add_parser("journal", help="summarize/validate a run journal")
     j.add_argument("path")
     j.add_argument("--validate", action="store_true", help="exit 1 when any line fails its schema")
-    d = sub.add_parser("decisions", help="control-plane timeline: plan / autopilot / shadow decisions "
-                                         "(not ported yet: ROADMAP Queue 1 item 10e; raises)")
+    d = sub.add_parser("decisions", help="control-plane timeline: plan / autopilot / shadow decisions")
     d.add_argument("path")
     pr = sub.add_parser("profile", help="pretty-print a run profile, or `profile diff <a> <b>`")
     pr.add_argument("paths", nargs="+", metavar="ARG", help="<profile.json>  |  diff <a.json> <b.json>")

@@ -20,14 +20,16 @@ churn and new entities) from `--seed`, the same numpy draws in the same
 order as the reference's driver, so both packages' runs fit the same rows.
 Batch size is PHOTON_REFRESH_BATCH_ROWS unless `--batch-rows` says; churn
 past PHOTON_REFRESH_MAX_DELTA_FRACTION of the merged rows escapes to one
-warm-started full refit (game/incremental.plan_delta_fit). Both knobs are
-read from utils/knobs.py (the reference routes them through its planner).
+warm-started full refit (game/incremental.plan_delta_fit). Both are
+planned quantities (`refresh_batch_rows`, `refresh_max_delta_fraction`):
+the knob, else the installed plan's, else the default.
 
 What the port adds and refuses: `--device` (default cuda; cuda with no
 card raises), and each round's `stages_s` in the summary (merge,
 fingerprint copy and hash, plan, coordinate and layout build, offsets,
 solve by coordinate, delta build, and the apply's upload, pre-warm and
-flip). The summary has no `plan` block (the planner is ROADMAP item 10e).
+flip). The summary's `plan` block is the installed plan's (inactive
+without one), as the reference's.
 
 `--shadow-gate` lands each round's fit as a shadow tenant first: the live
 engine is tenant "live" of a `TenantRegistry`, `--probe-rows` labelled
@@ -55,6 +57,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import planner
 from photon_ml_tpu_torch.data.game_dataset import (
     FixedEffectDataConfig,
     GameDataset,
@@ -69,7 +72,6 @@ from photon_ml_tpu_torch.serving.delta import apply_delta, apply_delta_for_tenan
 from photon_ml_tpu_torch.serving.engine import ServingEngine
 from photon_ml_tpu_torch.types import TaskType
 from photon_ml_tpu_torch.utils import faults, telemetry
-from photon_ml_tpu_torch.utils.knobs import get_knob
 
 logger = logging.getLogger("photon_ml_tpu_torch.cli.refresh")
 
@@ -198,7 +200,7 @@ def run_refresh_loop(out_root: str, *, rounds: int, base_rows: int, batch_rows: 
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     if batch_rows is None:
-        batch_rows = int(get_knob("PHOTON_REFRESH_BATCH_ROWS"))
+        batch_rows = int(planner.planned_value("refresh_batch_rows"))
     data_configs = {
         "fixed": FixedEffectDataConfig("g"),
         "per-entity": RandomEffectDataConfig("eid", "re", min_bucket=4),
@@ -296,6 +298,7 @@ def run_refresh_loop(out_root: str, *, rounds: int, base_rows: int, batch_rows: 
         "batch_rows": int(batch_rows),
         "provenance": provenance,
         "bundle_deltas": metrics["bundle_deltas"],
+        "plan": planner.plan_block(),
         "device": str(dev),
     }
     with open(os.path.join(out_root, "refresh-summary.json"), "w") as f:

@@ -7,9 +7,16 @@ raises), builds the engine's bucket programs (CUDA graphs on the card),
 streams the requests through the deadline micro-batcher in windows of
 REPLAY_WINDOW, and writes one ScoringResultAvro part per window under
 `<root>/scores`, `serving-summary.json` (every SERVING_SUMMARY_KEYS key:
-`plan` is the reference's inactive block, the port has no planner;
-`tenants`, `shadow` and `autopilot` are empty), `journal.jsonl`,
-`profile.json`, and `trace.json` when PHOTON_TRACE is on.
+`plan` is the run's plan block; `tenants`, `shadow` and `autopilot` are
+empty), `journal.jsonl`, `profile.json`, and `trace.json` when
+PHOTON_TRACE is on.
+
+`--profile <profile.json>` (a serve profile an earlier run wrote) plans the
+bucket ceiling and the flush wait (photon_ml_tpu_torch/planner/): installed
+after the journal, before anything is staged, refused on another topology,
+uninstalled on every exit path. `--max-batch` and `--max-wait-ms` still
+win, and the plan block records them as source "knob". PHOTON_PLAN and
+PHOTON_PLAN_PROFILE work as in the reference.
 
 `--tenant NAME=MODEL_DIR` (repeatable) pins every tenant's model on the
 card behind a `TenantRegistry` and assigns the stream round robin, each
@@ -22,6 +29,10 @@ champion; only the champion's scores are written); `--labels` joins
 {"uid", "label", "weight"} lines into the online evaluation windows
 (`--shadow-window` rows each) that drive the promote or reject verdict,
 and the summary's `shadow` block (SHADOW_BLOCK_KEYS) records it.
+`--autopilot` (with `--tenant`) runs the `photon-autopilot` control loop
+(autopilot/) over the registry beside the replay, every decision
+journaled, and the summary's `autopilot` block (AUTOPILOT_BLOCK_KEYS)
+records it; a loop that died fails the run.
 
 Requests are JSON lines (`.json`/`.jsonl`: {"uid", "offset", "ids":
 {re_type: id}, "features": {shard: {feature_key: value} | {"indices",
@@ -38,10 +49,10 @@ stream.
 and request stream, each owning a partition of every random effect's rows,
 and merges their answers (cli/serve_multihost.py); `main` dispatches it,
 and `run` is the single-process path. Under `--multihost`, `--shadow` and
-`--labels` are not read, as in the reference's driver. The reference's
-refusals of flag combinations come first, in its order and words; then
-`--autopilot` and `--profile` (ROADMAP item 10e) and `--reshard-to` (item
-9c) raise. All of it before anything is staged.
+`--labels`, `--profile` and `--autopilot` are not read, as in the
+reference's driver. The reference's refusals of flag combinations come
+first, in its order and words; then `--reshard-to` (live resharding across
+cards, ROADMAP item 9c) raises. All of it before anything is staged.
 
 Usage: python -m photon_ml_tpu_torch.cli.serve --help
 """
@@ -59,6 +70,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from photon_ml_tpu_torch import planner
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.serving.bundle import ScoreRequest, ServingBundle, load_bundle, request_from_record
 from photon_ml_tpu_torch.serving.engine import ServingEngine
@@ -71,8 +83,6 @@ REPLAY_WINDOW = 8192
 
 # Flags of parts the port has not got, and the ROADMAP item that brings each.
 UNPORTED = {
-    "autopilot": "--autopilot (closed-loop autoscaling) is ROADMAP item 10e",
-    "profile": "--profile (the adaptive runtime planner) is ROADMAP item 10e",
     "reshard_to": "--reshard-to (live resharding of the serving store) is ROADMAP item 9c",
 }
 
@@ -144,12 +154,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shadow-window", type=int, default=64,
                    help="joined rows per shadow evaluation window (default 64); a verdict needs "
                         "PHOTON_SHADOW_MIN_WINDOWS consecutive windows agreeing")
-    for flag, kind in (("--autopilot", "store_true"), ("--profile", None), ("--reshard-to", int)):
-        if kind == "store_true":
-            p.add_argument(flag, action=kind, default=None, help=argparse.SUPPRESS)
-        else:
-            p.add_argument(flag, type=kind, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--profile", default=None,
+                   help="a persisted run profile (profile.json from a prior run) the adaptive "
+                        "planner consumes for the bucket ceiling and the flush wait; "
+                        "topology-checked loudly. Overrides PHOTON_PLAN_PROFILE")
+    p.add_argument("--autopilot", action="store_true",
+                   help="closed-loop autoscaling (multi-tenant mode only): run the photon-autopilot "
+                        "control loop over the registry during the replay (PHOTON_AUTOPILOT_* knobs); "
+                        "every decision is journaled; the summary gains an 'autopilot' block")
+    p.add_argument("--reshard-to", type=int, default=None, help=argparse.SUPPRESS)
     return p
+
+
+def _plan_overrides(args) -> Dict[str, object]:
+    """The planned quantities an explicit flag set: the plan block records
+    them as source "knob"."""
+    out: Dict[str, object] = {}
+    if args.max_batch is not None:
+        out["serving_max_batch"] = int(args.max_batch)
+    if args.max_wait_ms is not None:
+        out["serving_max_wait_ms"] = float(args.max_wait_ms)
+    return out
 
 
 def _encode_json_request(bundle: ServingBundle, doc: dict) -> ScoreRequest:
@@ -304,17 +329,20 @@ def run(args) -> Dict[str, object]:
     tracer_owned = telemetry.current_tracer() is None
     tracer = telemetry.start_tracing_if_enabled()
     try:
-        if tenant_specs:
-            return _run_multi_tenant(args, tenant_specs, index_maps, shard_configs, is_json, device)
-        if args.shadow:
-            return _run_with_shadow(args, index_maps, shard_configs, is_json, device)
-        bundle = load_bundle(args.model_input_directory, device=device, index_maps=index_maps)
-        logger.info("bundle pinned: %d coordinate(s), %.1f MB staged in %.3fs",
-                    len(bundle.coordinates), bundle.upload_bytes / 1e6, bundle.upload_s)
-        try:
-            return _run_with_bundle(args, bundle, shard_configs, is_json)
-        finally:
-            bundle.release()
+        # After the journal (plan_decision lines land in it), before staging.
+        with planner.owned_plan(args.profile, device=device):
+            if tenant_specs:
+                return _run_multi_tenant(args, tenant_specs, index_maps, shard_configs, is_json,
+                                         device)
+            if args.shadow:
+                return _run_with_shadow(args, index_maps, shard_configs, is_json, device)
+            bundle = load_bundle(args.model_input_directory, device=device, index_maps=index_maps)
+            logger.info("bundle pinned: %d coordinate(s), %.1f MB staged in %.3fs",
+                        len(bundle.coordinates), bundle.upload_bytes / 1e6, bundle.upload_s)
+            try:
+                return _run_with_bundle(args, bundle, shard_configs, is_json)
+            finally:
+                bundle.release()
     finally:
         if tracer is not None and tracer_owned:
             tracer.export(os.path.join(out_root, "trace.json"))
@@ -325,7 +353,7 @@ def run(args) -> Dict[str, object]:
 
 
 def _run_with_bundle(args, bundle: ServingBundle, shard_configs, is_json: bool) -> Dict[str, object]:
-    from photon_ml_tpu_torch.contracts import PLAN_BLOCK_KEYS, ROBUSTNESS_CLEAN_ZERO_KEYS
+    from photon_ml_tpu_torch.contracts import ROBUSTNESS_CLEAN_ZERO_KEYS
     from photon_ml_tpu_torch.utils import faults, telemetry
 
     malformed = [0]  # records dropped before submission
@@ -378,7 +406,7 @@ def _run_with_bundle(args, bundle: ServingBundle, shard_configs, is_json: bool) 
         "serving": metrics,
         "health": engine.health.snapshot(),
         "robustness_counters": {**{k: 0 for k in ROBUSTNESS_CLEAN_ZERO_KEYS}, **faults.counters()},
-        "plan": dict(zip(PLAN_BLOCK_KEYS, (False, "off", None, []))),
+        "plan": planner.plan_block(overrides=_plan_overrides(args)),
         "tenants": {},
         "provenance": dict(engine.bundle.provenance),
         "shadow": {},
@@ -397,9 +425,9 @@ def _run_with_bundle(args, bundle: ServingBundle, shard_configs, is_json: bool) 
     return summary
 
 
-def _summary(n_requests: int, n_failed: int, malformed: int, metrics, health, provenance,
-             shadow: dict) -> Dict[str, object]:
-    from photon_ml_tpu_torch.contracts import PLAN_BLOCK_KEYS, ROBUSTNESS_CLEAN_ZERO_KEYS
+def _summary(args, n_requests: int, n_failed: int, malformed: int, metrics, health, provenance,
+             shadow: dict, autopilot: dict) -> Dict[str, object]:
+    from photon_ml_tpu_torch.contracts import ROBUSTNESS_CLEAN_ZERO_KEYS
     from photon_ml_tpu_torch.utils import faults
 
     return {
@@ -409,11 +437,11 @@ def _summary(n_requests: int, n_failed: int, malformed: int, metrics, health, pr
         "serving": metrics,
         "health": health,
         "robustness_counters": {**{k: 0 for k in ROBUSTNESS_CLEAN_ZERO_KEYS}, **faults.counters()},
-        "plan": dict(zip(PLAN_BLOCK_KEYS, (False, "off", None, []))),
+        "plan": planner.plan_block(overrides=_plan_overrides(args)),
         "tenants": metrics["tenants"],
         "provenance": provenance,
         "shadow": shadow,
-        "autopilot": {},
+        "autopilot": autopilot,
     }
 
 
@@ -443,7 +471,9 @@ def _run_multi_tenant(args, tenant_specs, index_maps, shard_configs, is_json: bo
     """`--tenant NAME=MODEL_DIR`, repeatable: every tenant's bundle on the
     card behind one TenantRegistry, the stream assigned round robin (each
     record encoded against its tenant's bundle), scores under
-    scores/<tenant>/, one TENANT_BLOCK_KEYS block a tenant in the summary."""
+    scores/<tenant>/, one TENANT_BLOCK_KEYS block a tenant in the summary.
+    `--autopilot` runs the control loop over the registry from after the
+    admissions to the end of the replay."""
     from photon_ml_tpu_torch.serving.tenancy import TenantRegistry
     from photon_ml_tpu_torch.utils import telemetry
 
@@ -452,6 +482,8 @@ def _run_multi_tenant(args, tenant_specs, index_maps, shard_configs, is_json: bo
     registry = TenantRegistry(max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
     names: List[str] = []
     malformed = [0]
+    pilot = None
+    autopilot_block: dict = {}
     try:
         for name, model_dir in tenant_specs:
             registry.admit(name, lambda d=model_dir: load_bundle(d, device=device, index_maps=index_maps),
@@ -460,6 +492,11 @@ def _run_multi_tenant(args, tenant_specs, index_maps, shard_configs, is_json: bo
             logger.info("tenant %r pinned: %.1f MB", name,
                         registry.tenant(name).bundle.upload_bytes / 1e6)
         warmup_s = time.perf_counter() - t_warm
+        if args.autopilot:
+            from photon_ml_tpu_torch.autopilot import Autopilot
+
+            pilot = Autopilot(registry)
+            logger.info("autopilot armed: %d rule(s), tick %dms", len(pilot.rules), pilot.tick_ms)
         raw_stream = _iter_json_docs(args.requests, malformed) if is_json \
             else _iter_avro_records(args.requests)
         scores_root = os.path.join(out_root, "scores")
@@ -493,14 +530,23 @@ def _run_multi_tenant(args, tenant_specs, index_maps, shard_configs, is_json: bo
                     _write_score_part(os.path.join(scores_root, name), k, results, model_id)
                 n_requests += len(window)
         replay_s = time.perf_counter() - t_replay
+        if pilot is not None:
+            pilot.close()  # a loop that died raises here
+            autopilot_block = pilot.summary()
+            pilot = None
         metrics = registry.metrics()
         health = {n: registry.tenant(n).engine.health.snapshot() for n in names}
         provenance = {n: dict(registry.tenant(n).bundle.provenance) for n in names}
     finally:
-        registry.close(release_bundles=True)
+        try:
+            if pilot is not None:
+                pilot.close()
+        finally:
+            registry.close(release_bundles=True)
     logger.info("replayed %d request(s) across %d tenant(s), %d failed, %d malformed skipped",
                 n_requests, len(names), n_failed, malformed[0])
-    summary = _summary(n_requests, n_failed, malformed[0], metrics, health, provenance, {})
+    summary = _summary(args, n_requests, n_failed, malformed[0], metrics, health, provenance, {},
+                       autopilot_block)
     _write_registry_outputs(out_root, summary, registry, names, warmup_s, replay_s, device)
     return summary
 
@@ -611,7 +657,8 @@ def _run_with_shadow(args, index_maps, shard_configs, is_json: bool, device) -> 
         registry.close(release_bundles=True)
     logger.info("replayed %d request(s), %d failed, %d malformed skipped; shadow %r finished %s",
                 n_requests, n_failed, malformed[0], shadow_name, shadow_block["status"])
-    summary = _summary(n_requests, n_failed, malformed[0], metrics, health, provenance, shadow_block)
+    summary = _summary(args, n_requests, n_failed, malformed[0], metrics, health, provenance,
+                       shadow_block, {})
     _write_registry_outputs(out_root, summary, registry, [champion, shadow_name], warmup_s, replay_s,
                             device)
     return summary

@@ -68,9 +68,8 @@ def _host_dir(out_root: str, attempt: int, host_id: int) -> str:
 def _validate_scope(args) -> None:
     """Refuse, before any staging, every flag combination the multi-host
     serve path does not implement (the reference's refusals, word for
-    word); then the port's refusals of parts it has not got."""
-    from photon_ml_tpu_torch.cli.serve import refuse_unported
-
+    word). `--profile` and `--autopilot` are not read here, as in the
+    reference."""
     refusals = []
     if getattr(args, "tenant", None):
         refusals.append("--tenant (multi-tenant) has no multi-host form")
@@ -81,7 +80,6 @@ def _validate_scope(args) -> None:
         refusals.append("--model-input-directory is required")
     if refusals:
         raise ValueError("--multihost serve scope: " + "; ".join(refusals))
-    refuse_unported(args)
     if not args.requests.endswith((".json", ".jsonl")) and not args.feature_shard_configurations:
         raise ValueError("Avro request replay needs --feature-shard-configurations (the bag -> "
                          "shard mapping offline ingest uses)")

@@ -36,8 +36,12 @@ search's GP runs on the CPU (hyperparameter/gp.py). `--multihost N` runs
 the fit on N ranks, one worker process each, under a supervisor that
 relaunches the survivors of a rank loss (cli/train_multihost.py; its
 workers come back here with `--mh-worker` and keep journals of their own).
-`--profile` (a planner's input) is not ported yet and raises
-NotImplementedError, naming its ROADMAP item, before any work starts.
+`--profile <profile.json>` (a run profile an earlier run wrote) plans the
+run (photon_ml_tpu_torch/planner/): installed after the journal and before
+the read, refused on another topology, uninstalled on every exit path; a
+plan a caller installed stays. PHOTON_PLAN and PHOTON_PLAN_PROFILE work as
+in the reference. The summary's `fit_timing` and `profile.json` carry the
+`plan` block.
 
 Usage: python -m photon_ml_tpu_torch.cli.train --help
 """
@@ -57,6 +61,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from photon_ml_tpu_torch import planner
 from photon_ml_tpu_torch.cli.config import (
     CoordinateConfiguration,
     coordinate_config_to_string,
@@ -187,7 +192,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "EI (BAYESIAN); the trials of a round are fitted one by one")
     p.add_argument("--random-seed", type=int, default=0)
     p.add_argument("--profile", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 10); raises")
+                   help="a persisted run profile (profile.json from a prior run) the adaptive "
+                        "planner consumes (the Python ingest route's chunk rows); topology-checked "
+                        "loudly. Overrides PHOTON_PLAN_PROFILE")
     p.add_argument("--logging-level", default="INFO")
     p.add_argument("--application-name", default="photon-ml-tpu-training")
     p.add_argument("--multihost", type=int, default=0, metavar="N",
@@ -208,16 +215,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "--multihost: cpu, one card cuda:<i> shared by every rank, or cuda (a "
                         "card each where there are enough, else all on cuda:0)")
     return p
-
-
-def _refuse_unported(args, coordinate_configs: Dict[str, CoordinateConfiguration]) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for every option
-    of a part not ported yet; called before any work."""
-    def refuse(what: str, item: str) -> None:
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-    if args.profile:
-        refuse("--profile", "10")
 
 
 def _read_data(args, coordinate_configs: Dict[str, CoordinateConfiguration], device):
@@ -340,7 +337,6 @@ def run(args, event_emitter: Optional[EventEmitter] = None) -> Dict[str, object]
     for s in args.coordinate_configurations:
         cfg = parse_coordinate_config(s)
         coordinate_configs[cfg.name] = cfg
-    _refuse_unported(args, coordinate_configs)
     device = resolve_device(args.device)
 
     out_root = args.root_output_directory
@@ -367,7 +363,9 @@ def run(args, event_emitter: Optional[EventEmitter] = None) -> Dict[str, object]
     tracer = telemetry.start_tracing_if_enabled()
     event_emitter.send(PhotonSetupEvent(args=str(vars(args))))
     try:
-        return _run_job(args, coordinate_configs, device, out_root, models_root, event_emitter)
+        # After the journal (plan_decision lines land in it), before the read.
+        with planner.owned_plan(args.profile, device=device):
+            return _run_job(args, coordinate_configs, device, out_root, models_root, event_emitter)
     except Exception as exc:
         logger.exception("training job failed")
         event_emitter.send(PhotonFailureEvent(error=repr(exc)))

@@ -17,9 +17,10 @@ configuration.
        journal.jsonl, trace.json under PHOTON_TRACE
 
 The option names are the JAX driver's. `--device` (default cuda) picks the
-device; asking for cuda with no card raises. `--profile` (the adaptive
-planner, ROADMAP item 10) raises before any data is read: the port has no
-planner. Shard groups of more than one card are ROADMAP item 9 and raise.
+device; asking for cuda with no card raises. `--profile` plans the sweep's
+fits (photon_ml_tpu_torch/planner/), as in cli.train: installed after the
+journal and before the read, refused on another topology, uninstalled on
+every exit path. Shard groups of more than one card are ROADMAP item 9 and raise.
 `tuning-summary.json` carries the reference's keys plus `timings_s`.
 
 Usage: python -m photon_ml_tpu_torch.cli.tune --help
@@ -36,6 +37,7 @@ import sys
 import time
 from typing import Dict, List, Optional
 
+from photon_ml_tpu_torch import planner
 from photon_ml_tpu_torch.cli.config import parse_coordinate_config
 from photon_ml_tpu_torch.cli.train import TUNING_REG_WEIGHT_RANGE, _read_data, _tuning_dimensions
 from photon_ml_tpu_torch.data.validators import validate_game_dataset
@@ -93,7 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-groups", type=int, default=None,
                    help="override PHOTON_SWEEP_SHARD_GROUPS for this run")
     p.add_argument("--profile", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 10); raises")
+                   help="a persisted run profile the adaptive planner consumes for the sweep's "
+                        "fits; topology-checked loudly. Overrides PHOTON_PLAN_PROFILE")
     p.add_argument("--random-seed", type=int, default=0)
     p.add_argument("--logging-level", default="INFO")
     p.add_argument("--device", default="cuda",
@@ -109,9 +112,6 @@ def run(args) -> Dict[str, object]:
         level=getattr(logging, args.logging_level.upper(), logging.INFO),
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-    if args.profile:
-        raise NotImplementedError("--profile (the adaptive runtime planner) is not ported yet "
-                                  "(ROADMAP Queue 1 item 10)")
     device = resolve_device(args.device)
     out_root = args.root_output_directory
     models_root = os.path.join(out_root, "models")
@@ -130,7 +130,8 @@ def run(args) -> Dict[str, object]:
     tracer_owned = telemetry.current_tracer() is None
     tracer = telemetry.start_tracing_if_enabled()
     try:
-        return _run_job(args, device, out_root, models_root)
+        with planner.owned_plan(args.profile, device=device):
+            return _run_job(args, device, out_root, models_root)
     finally:
         if tracer is not None and tracer_owned:
             tracer.export(os.path.join(out_root, "trace.json"))

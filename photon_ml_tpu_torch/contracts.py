@@ -277,9 +277,9 @@ SHADOW_BLOCK_KEYS = (
 
 # The run journal (utils/telemetry.RunJournal): the keys of every line, and
 # the schema of each event type the port emits (the reference's schemas).
-# The reference's control-plane events (plan, autopilot, tier, and
-# reshard's but the delta flip's `reshard_commit`) belong to layers the
-# port has not got.
+# The reference's precision-ladder events (`tier_demote`, `tier_restore`)
+# and `mesh_loss`'s reshard cousins across cards belong to layers the port
+# has not got (ROADMAP items 10f and 9c).
 JOURNAL_LINE_KEYS = ("ts", "type")
 JOURNAL_EVENT_SCHEMAS = {
     # The training lifecycle (utils/observability.journal_listener).
@@ -312,9 +312,13 @@ JOURNAL_EVENT_SCHEMAS = {
                          "max_rel_diff"),
     "delta_apply": ("version", "coordinates", "rows", "bytes", "source"),
     "delta_rollback": ("version", "reason"),
-    # The generation flip of a delta apply (the reference journals it from
-    # its reshard primitive, which the delta apply runs).
+    # The generation flips of a delta apply and a hot-row rebalance
+    # (serving/lifecycle.py, serving/reshard.py).
+    "reshard_start": ("old_shards", "new_shards", "moved_rows", "moved_bytes"),
     "reshard_commit": ("old_shards", "new_shards", "version", "restaged_bytes"),
+    "reshard_rollback": ("old_shards", "new_shards", "reason"),
+    # The runtime planner (planner/plan.install_plan, apply_online_decision).
+    "plan_decision": ("decision", "value", "source", "fallback"),
     # Multi-tenant serving (serving/tenancy.TenantRegistry).
     "tenant_admit": ("tenant", "device_bytes", "demoted_tenants"),
     "tenant_evict": ("tenant", "reason", "freed_bytes", "hot_rows"),
@@ -328,6 +332,10 @@ JOURNAL_EVENT_SCHEMAS = {
                        "challenger_metric", "evaluator", "reason"),
     "shadow_promote": ("champion", "challenger", "version"),
     "shadow_rollback": ("champion", "challenger", "reason"),
+    # The closed-loop controller (autopilot/loop.py).
+    "autopilot_decision": ("rule", "action", "evidence", "outcome"),
+    "autopilot_rollback": ("rule", "action", "reason"),
+    "rule_quarantined": ("rule", "reason", "rollbacks"),
 }
 
 # The sweep record chip_smoke.py's phase 3w prints (the reference bench's
@@ -378,6 +386,25 @@ PROFILE_REQUIRED_KEYS = (
 PROFILE_FIT_KEYS = (*PROFILE_REQUIRED_KEYS, "fit_timing", "ingest")
 PROFILE_SERVE_KEYS = (*PROFILE_REQUIRED_KEYS, "serving")
 
-# The runtime-plan block serving-summary.json and profile.json carry. The
-# port has no planner: every run records the reference's inactive block.
+# The runtime-plan block fit_timing, serving-summary.json, profile.json and
+# refresh-summary.json carry (planner/plan.py), and each entry of its
+# `decisions` list.
 PLAN_BLOCK_KEYS = ("active", "source", "profile", "decisions")
+PLAN_DECISION_KEYS = ("decision", "value", "source", "evidence", "fallback")
+
+# The closed-loop controller's block (autopilot/loop.Autopilot.summary):
+# serving-summary.json's "autopilot" ({} on a run without --autopilot).
+AUTOPILOT_BLOCK_KEYS = (
+    "status",
+    "ticks",
+    "rules",
+    "decisions",
+    "actions",
+    "suppressed",
+    "rollbacks",
+    "quarantined",
+    "tick_ms",
+    "cooldown_s",
+    "action_budget",
+    "last_outcome",
+)

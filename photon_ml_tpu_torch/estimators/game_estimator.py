@@ -43,8 +43,14 @@ record `cli.train` journals. `run_profile()` is the last fit's run profile
 with more than one core) gates coordinate descent's staged checkpoint
 write, the port's one host overlap.
 
+The planner: `fit` installs a plan when PHOTON_PLAN / PHOTON_PLAN_PROFILE
+ask for one and none is installed (the drivers install theirs earlier, so
+the read is planned too), and uninstalls what it installed on every exit
+path; `fit_timing["plan"]` and the run profile's `plan` block record the
+active plan (inactive without one).
+
 Not ported yet: groups of more than one device (ROADMAP item 9), the
-planner and the profile's `plan` block (item 10e), the prepare thread pool
+prepare thread pool
 (which moves only when host work runs) and the bucketed pack (the port
 builds its sparse layouts on the device; the profile's `pack_path` is
 "none").
@@ -59,6 +65,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Set, Tuple
 
 import torch
 
+from photon_ml_tpu_torch import planner
 from photon_ml_tpu_torch.contracts import PREPARE_STAGES
 from photon_ml_tpu_torch.data import sparse_layout
 from photon_ml_tpu_torch.data.containers import SparseFeatures
@@ -348,7 +355,7 @@ class GameEstimator:
         coordinate's model. The fit runs under a root `fit` span and sends
         its lifecycle events to the `event_emitter`."""
         emit = self.event_emitter.send if self.event_emitter is not None else None
-        with telemetry.span("fit", num_configs=len(opt_configs)):
+        with planner.owned_plan(device=data.device), telemetry.span("fit", num_configs=len(opt_configs)):
             if emit is not None:
                 emit(TrainingStartEvent(num_samples=int(data.num_samples)))
             results = self._fit(data, validation_data, opt_configs, initial_model=initial_model)
@@ -452,6 +459,7 @@ class GameEstimator:
         self.fit_timing["re_host_s"] = 0.0
         self.fit_timing["re_path"] = self.times.get_note("re_path") or "none"
         self.fit_timing["diverged_steps"] = diverged_steps
+        self.fit_timing["plan"] = planner.plan_block()
         self._fit_dispatch = {
             "pipeline": pipelined,
             "layout": (layouts.pop() if len(layouts) == 1 else "mixed") if layouts else "none",
@@ -495,11 +503,15 @@ class GameEstimator:
             **self._fit_dispatch,
         }
         data = self._prepared_dataset
-        return telemetry.build_profile(
+        profile = telemetry.build_profile(
             "fit", wall_s=float(ft["prepare_s"]) + float(ft["solve_s"]), stages=stages,
             dispatch=dispatch, bucket_shapes=bucket_shapes, fit_timing=ft,
             ingest=dict(getattr(data, "ingest_timing", None) or {}),
             topology=telemetry.device_topology(data.device))
+        # The plan rides the profile too (not a contract key: a profile
+        # without it still loads).
+        profile["plan"] = dict(ft["plan"])
+        return profile
 
     # -------------------------------------------------------------- sweeps
 

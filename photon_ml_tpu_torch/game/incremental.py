@@ -31,9 +31,9 @@ selection, or with a normalization, re-solves its whole coordinate
 (warm-started) instead of taking the entity fast path: its row selection
 keys on global sample indices, which a carved sub-dataset renumbers.
 
-The mode's escape hatch reads `PHOTON_REFRESH_MAX_DELTA_FRACTION` (default
-0.5) straight from utils/knobs.py; the reference reads it through its
-planner (ROADMAP item 10e). `IncrementalFitResult.stage_s` (the port's
+The mode's escape hatch is the planner's `refresh_max_delta_fraction`
+(PHOTON_REFRESH_MAX_DELTA_FRACTION, else the plan's, else 0.5).
+`IncrementalFitResult.stage_s` (the port's
 own field) times the fit's stages apart, each stopping once the device
 has finished: `fingerprint_copy` and `fingerprint_hash`, `plan`,
 `build` (coordinates and random-effect layouts), `offsets` (the residual
@@ -52,6 +52,7 @@ from typing import Dict, Mapping, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import planner
 from photon_ml_tpu_torch.data.fingerprints import (
     DatasetFingerprints,
     diff_fingerprints,
@@ -75,7 +76,6 @@ from photon_ml_tpu_torch.transformers.game_transformer import (
 )
 from photon_ml_tpu_torch.types import TaskType
 from photon_ml_tpu_torch.utils import telemetry
-from photon_ml_tpu_torch.utils.knobs import get_knob
 
 logger = logging.getLogger(__name__)
 
@@ -131,7 +131,7 @@ def plan_delta_fit(prev: DatasetFingerprints, new: DatasetFingerprints, *,
         mode = "none"
     else:
         if max_delta_fraction is None:
-            max_delta_fraction = float(get_knob("PHOTON_REFRESH_MAX_DELTA_FRACTION"))
+            max_delta_fraction = float(planner.planned_value("refresh_max_delta_fraction"))
         frac = delta_rows / max(new.num_samples, 1)
         mode = "full" if frac > max_delta_fraction else "delta"
     return DeltaFitPlan(mode, changed, changed_entities, new_entities, int(delta_rows),

@@ -10,7 +10,8 @@ data, or supplied (then unseen features are dropped).
 The route is decided before anything is decoded: when every file's schema
 compiles to a native op program, the native decoder reads them
 (io/avro_fast.py, `ingest_path` "native" or "native-stream"); otherwise the
-Python codec does, in chunks of `PYTHON_CHUNK_ROWS` records ("python").
+Python codec does, in chunks of the planner's `ingest_chunk_rows` records
+(PHOTON_STREAM_CHUNK_ROWS, else the plan's, else 262,144: "python").
 Both routes read with quarantine, as the reference's ingest does: a corrupt
 block costs its rows, is counted in `quarantined_blocks`, and the read goes
 on; a file with no good block raises. Nothing falls back to another route.
@@ -44,10 +45,6 @@ OFFSET = "offset"
 WEIGHT = "weight"
 UID = "uid"
 META_DATA_MAP = "metadataMap"
-
-# Records per chunk of the Python route (the JAX package's planner chose
-# 262,144 for its r08 round). Chunk boundaries do not change results.
-PYTHON_CHUNK_ROWS = 262_144
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,9 +212,13 @@ def _read_python_chunked(
     cols: InputColumnNames,
     times: StageTimes,
 ):
-    """The Python codec's route, in chunks of PYTHON_CHUNK_ROWS records: each
-    chunk decodes, converts to columnar parts, and is freed, so decoded
-    records are resident one chunk at a time."""
+    """The Python codec's route, in chunks of the planned `ingest_chunk_rows`
+    records: each chunk decodes, converts to columnar parts, and is freed,
+    so decoded records are resident one chunk at a time. Chunk boundaries
+    do not change results, so the planner may move them."""
+    from photon_ml_tpu_torch import planner
+
+    chunk_rows = int(planner.planned_value("ingest_chunk_rows"))
 
     def _records():
         # Training ingest is row-shaped: a corrupt block costs its rows
@@ -244,7 +245,7 @@ def _read_python_chunked(
     stream = iter(_records())
     while True:
         with times.stage("decode"):
-            records = list(islice(stream, PYTHON_CHUNK_ROWS))
+            records = list(islice(stream, chunk_rows))
         if not records:
             break
         n_chunks += 1

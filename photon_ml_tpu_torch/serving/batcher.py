@@ -2,8 +2,8 @@
 
 Port of `photon_ml_tpu/serving/batcher.py`. The flush thread claims a
 batch when `max_batch` requests wait or the oldest has waited
-`max_wait_ms` (2.0 ms by default: the reference's value with no plan
-installed; the port has no planner).
+`max_wait_ms` (the planner's `serving_max_wait_ms`: 2.0 ms with no plan
+installed).
 
 * Admission: the pending queue holds at most `max_pending` requests; a
   submit against a full queue is shed with `Overloaded` (`block=True`
@@ -49,10 +49,6 @@ from photon_ml_tpu_torch.utils import faults, telemetry
 
 logger = logging.getLogger(__name__)
 
-# The flush wait when the caller names none: the reference's default with
-# no plan installed.
-DEFAULT_MAX_WAIT_MS = 2.0
-
 # One queued request: (request, future, submit time, absolute expiry or None).
 _Pending = Tuple[ScoreRequest, Future, float, Optional[float]]
 
@@ -66,6 +62,12 @@ class MicroBatcher:
                  max_wait_ms: Optional[float] = None, max_pending: Optional[int] = None,
                  default_deadline_ms: Optional[float] = None, thread_name: Optional[str] = None,
                  metric_labels: Optional[Dict[str, str]] = None):
+        # A planned quantity: an explicit argument wins, else the installed
+        # plan's serving_max_wait_ms, else the default.
+        if max_wait_ms is None:
+            from photon_ml_tpu_torch import planner
+
+            max_wait_ms = float(planner.planned_value("serving_max_wait_ms"))
         self.engine = engine
         self.max_batch = int(engine.max_batch if max_batch is None else max_batch)
         if self.max_batch < 1:
@@ -78,7 +80,7 @@ class MicroBatcher:
         if self.max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {self.max_pending}")
         self.default_deadline_ms = None if default_deadline_ms is None else float(default_deadline_ms)
-        self.max_wait_s = float(DEFAULT_MAX_WAIT_MS if max_wait_ms is None else max_wait_ms) / 1e3
+        self.max_wait_s = float(max_wait_ms) / 1e3
         self._pending: Deque[_Pending] = collections.deque()
         self._cv = threading.Condition()
         self._stop = False

@@ -126,13 +126,15 @@ class ShardHealth:
     """Per-shard health of one random-effect coordinate's resident rows: the
     whole matrix as one shard, or its row blocks (`row_blocks=`). A LOST
     shard's entities answer from the pinned zero row (FE-only) until it is
-    restaged."""
+    restaged. `loads` counts each shard's looked-up rows (cold starts
+    excluded), the load a reshard plan and the autopilot read."""
 
     def __init__(self, n_shards: int, rows_per_shard: int):
         self.n_shards = int(n_shards)
         self.rows_per_shard = int(rows_per_shard)
         self._lock = threading.Lock()
         self._lost: set = set()
+        self._loads = [0] * self.n_shards
 
     def _check(self, idx: int) -> int:
         idx = int(idx)
@@ -161,6 +163,24 @@ class ShardHealth:
     def any_lost(self) -> bool:
         with self._lock:
             return bool(self._lost)
+
+    @property
+    def loads(self) -> Tuple[int, ...]:
+        with self._lock:
+            return tuple(self._loads)
+
+    def record_loads(self, rows: np.ndarray, unseen_row: int) -> None:
+        """Count one lookup's rows into their shards' loads (rows at the
+        pinned zero row are cold starts, not load)."""
+        rows = np.asarray(rows, np.int64)
+        rows = rows[rows != int(unseen_row)]
+        if not len(rows):
+            return
+        counts = np.bincount(np.clip(rows // self.rows_per_shard, 0, self.n_shards - 1),
+                             minlength=self.n_shards)
+        with self._lock:
+            for i in range(self.n_shards):
+                self._loads[i] += int(counts[i])
 
     def lost_mask(self, rows: np.ndarray) -> np.ndarray:
         """Which of `rows` live in a LOST shard."""
@@ -192,9 +212,16 @@ class TwoTierEntityStore:
     store lock, and bump `epoch` with every write; a batch that resolved
     its slots at an older epoch resolves them again under the device mutex
     before it replays. `drain()` waits for queued promotions, `close()`
-    stops and joins the thread."""
+    stops and joins the thread.
 
-    def __init__(self, cold_matrix: np.ndarray, hot_rows: int, device: DeviceLike = "cpu"):
+    The hot set starts with the first `capacity` rows, or with
+    `preload_rows` (the hot-row rebalance's measured rows, serving/
+    reshard.py: deduplicated, the pinned row excluded, cut to capacity).
+    `promotion_stats()` counts each row's promotions, the hotness a
+    rebalance plan reads."""
+
+    def __init__(self, cold_matrix: np.ndarray, hot_rows: int, device: DeviceLike = "cpu",
+                 preload_rows: Optional[Sequence[int]] = None):
         self._cold = np.ascontiguousarray(cold_matrix, dtype=np.float32)
         self.n_rows = int(self._cold.shape[0])  # logical E + 1
         self.dim = int(self._cold.shape[1])
@@ -204,7 +231,19 @@ class TwoTierEntityStore:
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._device_mutex: threading.Lock = threading.Lock()
-        preload = list(range(cap))  # the first rows, as the reference preloads
+        if preload_rows is None:
+            preload = list(range(cap))  # the first rows, as the reference preloads
+        else:
+            seen: set = set()
+            preload = []
+            for r in preload_rows:
+                r = int(r)
+                if 0 <= r < self.n_rows - 1 and r not in seen:
+                    seen.add(r)
+                    preload.append(r)
+                if len(preload) >= cap:
+                    break
+        self.preloaded_rows: Tuple[int, ...] = tuple(preload)
         hot = np.zeros((cap + 1, self.dim), np.float32)
         if preload:
             hot[: len(preload)] = self._cold[preload]
@@ -222,6 +261,7 @@ class TwoTierEntityStore:
         self.promotions = 0
         self.evictions = 0
         self.promote_failures = 0
+        self._promote_count: Dict[int, int] = {}  # row -> its promotions
 
     def bind_device_mutex(self, mutex: threading.Lock) -> None:
         """The mutex that serializes this device's dispatches (the serving
@@ -232,6 +272,11 @@ class TwoTierEntityStore:
     def cold_matrix(self) -> np.ndarray:
         """The full host-RAM coefficient matrix."""
         return self._cold
+
+    def promotion_stats(self) -> Dict[int, int]:
+        """Promotions a logical row (the hot-row rebalance plan's input)."""
+        with self._lock:
+            return dict(self._promote_count)
 
     @property
     def hot_nbytes(self) -> int:
@@ -313,6 +358,7 @@ class TwoTierEntityStore:
                 self._slot_of_row[r] = s
                 self._last_used[s] = self._tick
                 self.promotions += 1
+                self._promote_count[r] = self._promote_count.get(r, 0) + 1
                 idx.append(s)
                 srcs.append(r)
             if not idx:
@@ -340,6 +386,11 @@ class TwoTierEntityStore:
                     self._slot_of_row.pop(r, None)
                     self._row_of_slot[s] = None
                     self.promotions -= 1
+                    n_p = self._promote_count.get(r, 0) - 1
+                    if n_p > 0:
+                        self._promote_count[r] = n_p
+                    else:
+                        self._promote_count.pop(r, None)
                 self.promote_failures += len(idx)
                 faults.COUNTERS.increment("promote_failures", len(idx))
                 if faults.is_device_error(exc):

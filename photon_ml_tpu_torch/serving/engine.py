@@ -4,7 +4,8 @@ over a pinned bundle.
 Port of `photon_ml_tpu/serving/engine.py`, single device:
 
   * The program set is bounded and declared up front: one program per
-    power-of-two bucket up to `max_batch` (256 by default). A batch of n
+    power-of-two bucket up to `max_batch` (the planner's
+    `serving_max_batch`: 256 with no plan installed). A batch of n
     requests pads to the smallest bucket >= n. `warmup()` builds every
     bucket's program; afterwards a request stream builds none
     (`recompiles_after_warmup`, 0).
@@ -76,10 +77,6 @@ from photon_ml_tpu_torch.utils.observability import TimingRegistry, stage_scope,
 from photon_ml_tpu_torch.utils.watchdog import Watchdog, watchdog_ms
 
 Tensor = torch.Tensor
-
-# The bucket ceiling when the caller names none: the reference's default
-# with no plan installed (the port has no planner).
-DEFAULT_MAX_BATCH = 256
 
 
 @dataclasses.dataclass
@@ -261,7 +258,14 @@ class ServingEngine:
                  circuit_threshold: int = 5, circuit_probe_interval_s: float = 1.0,
                  watchdog_ms_override: Optional[float] = None, inject_faults: bool = True,
                  device_mutex: Optional[threading.Lock] = None):
-        max_batch = DEFAULT_MAX_BATCH if max_batch is None else int(max_batch)
+        # A planned quantity: an explicit argument wins, else the installed
+        # plan's serving_max_batch, else the default. The bucket set is the
+        # power-of-two ladder up to it.
+        if max_batch is None:
+            from photon_ml_tpu_torch import planner
+
+            max_batch = int(planner.planned_value("serving_max_batch"))
+        max_batch = int(max_batch)
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.device = bundle.device
@@ -289,6 +293,7 @@ class ServingEngine:
             on_open=lambda: self.health.add_degraded("circuit_open"),
             on_close=lambda: self.health.clear_degraded("circuit_open"))
         self._bundle_manager: Optional[BundleManager] = None
+        self._reshard_orchestrator = None
         self._requests = 0
         self._batches = 0
         self._lookups = 0
@@ -330,8 +335,15 @@ class ServingEngine:
 
     @property
     def reshard_orchestrator(self):
-        raise NotImplementedError("live resharding of the serving store is ROADMAP item 9c "
-                                  "(not ported)")
+        """This engine's placement changes on one card (created on first
+        use; serving/reshard.py): the two-tier hot-row rebalance and the
+        one-shard restage. A reshard across cards raises (item 9c)."""
+        with self._lock:
+            if self._reshard_orchestrator is None:
+                from photon_ml_tpu_torch.serving.reshard import MeshReshardOrchestrator
+
+                self._reshard_orchestrator = MeshReshardOrchestrator(self)
+            return self._reshard_orchestrator
 
     def batcher(self, **kwargs) -> "MicroBatcher":  # noqa: F821
         """A MicroBatcher bound to this engine; `close()` joins it."""
@@ -552,6 +564,8 @@ class ServingEngine:
                     continue  # every slot at the pinned zero row: +0.0 exactly
                 rows, _ = c.lookup_rows([r.entity_ids.get(c.random_effect_type) for r in requests])
                 sh = c.shard_health
+                if sh is not None:
+                    sh.record_loads(rows, c.unseen_row)  # what a reshard plan reads
                 if sh is not None and sh.any_lost:
                     # Rows of a LOST shard answer from the pinned zero row;
                     # cold starts already there are not counted as losses.
@@ -697,5 +711,9 @@ class ServingEngine:
         out["bundle_swaps"] = manager.swaps if manager is not None else 0
         out["bundle_swap_rollbacks"] = manager.rollbacks if manager is not None else 0
         out["bundle_deltas"] = manager.deltas if manager is not None else 0
+        orch = self._reshard_orchestrator
+        out["bundle_reshards"] = orch.reshards if orch is not None else 0
+        out["bundle_rebalances"] = orch.rebalances if orch is not None else 0
+        out["bundle_reshard_rollbacks"] = orch.rollbacks if orch is not None else 0
         out["stage_walls_s"] = dict(sorted(self.stages.seconds.items()))
         return out

@@ -321,6 +321,10 @@ def _bundle_device_bytes(bundle) -> int:
 # it leaves that generation allocated.
 SWAP_DRAIN_TIMEOUT_S = 30.0
 
+# Generation changes that keep the program family and commit through the
+# reshard sequence's site and journal lines.
+_RESHARD_KINDS = ("delta", "reshard", "rebalance")
+
 
 class BundleManager:
     """Versioned, atomic, rollback-safe generation changes of a
@@ -412,8 +416,9 @@ class BundleManager:
         compatibility check (and `check(new_state)`), the pre-warm of every
         bucket program of the new generation (on the card: new CUDA graphs;
         their builds are warmup, not hot-path recompiles), the commit site
-        (`swap_commit` for kind "swap", `reshard_commit` for "delta"), the
-        atomic flip between batches, the drain of the old generation's
+        (`swap_commit` for kind "swap", `reshard_commit` for "delta",
+        "reshard" and "rebalance": serving/reshard.py's one-card moves),
+        the atomic flip between batches, the drain of the old generation's
         in-flight batches and its release. Any failure before the flip rolls
         back (counted and journalled by kind) and re-raises: the old
         generation never stopped serving. Kinds "demote" and "restore" (the
@@ -430,11 +435,12 @@ class BundleManager:
         staged = new_state = None
         t0 = time.perf_counter()
         old_stores = {id(s) for s in old_state.bundle.stores()}
+        checked = kind in ("swap", *_RESHARD_KINDS)
         try:
             staged = stage()
             t_staged = time.perf_counter()
             new_state = engine._build_state(staged, version=old_state.version + 1)
-            if kind in ("swap", "delta"):
+            if checked:
                 self._check_compatible(old_state, new_state)
             if check is not None:
                 check(new_state)
@@ -444,7 +450,7 @@ class BundleManager:
             if engine._prewarm_hook is not None:
                 engine._prewarm_hook(new_state)
             t_warm = time.perf_counter()
-            if kind in ("swap", "delta"):
+            if checked:
                 faults.fault_point("swap_commit" if kind == "swap" else "reshard_commit")
             stage_s = time.perf_counter() - t0
         except BaseException as exc:
@@ -462,8 +468,9 @@ class BundleManager:
             self._swaps += 1
             faults.COUNTERS.increment("serving_swaps")
             telemetry.emit_event("bundle_swap", version=new_state.version, outcome="committed")
-        elif kind == "delta":
-            self._deltas += 1
+        elif kind in _RESHARD_KINDS:
+            if kind == "delta":
+                self._deltas += 1
             new_state.bundle.provenance["generation"] = new_state.version
             telemetry.emit_event("reshard_commit", old_shards=1, new_shards=1,
                                  version=new_state.version,
@@ -499,6 +506,9 @@ class BundleManager:
         elif kind == "delta":
             faults.COUNTERS.increment("delta_rollbacks")
             telemetry.emit_event("delta_rollback", version=version, reason=repr(exc))
+        elif kind in _RESHARD_KINDS:
+            faults.COUNTERS.increment("reshard_rollbacks")
+            telemetry.emit_event("reshard_rollback", old_shards=1, new_shards=1, reason=repr(exc))
         logger.warning("bundle %s to version %d rolled back (%r); version %d keeps serving", kind,
                        version + 1, exc, version)
 

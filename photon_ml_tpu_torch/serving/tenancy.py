@@ -58,9 +58,11 @@ bounded retry; a failure rolls back and the tenant keeps serving its
 device-resident generation). Journal events: `tenant_admit`,
 `tenant_evict`, `tenant_restore` and `tenant_degraded`.
 
-Not ported: the precision ladder (`demote_tier`, `restore_tier`: ROADMAP
-item 10f). The reference reads `max_batch` and `max_wait_ms` from its
-planner (item 10e); the port uses the engine's and batcher's defaults.
+`max_batch` and `max_wait_ms` default to the planner's
+`serving_max_batch` and `serving_max_wait_ms`; `retune(max_wait_ms=)`
+moves the wait live (the autopilot's retune actuator), never the bucket
+ladder. Not ported: the precision ladder (`demote_tier`, `restore_tier`:
+ROADMAP item 10f).
 """
 
 from __future__ import annotations
@@ -78,7 +80,6 @@ import torch
 from photon_ml_tpu_torch.contracts import TENANT_BLOCK_KEYS, TIER_BLOCK_KEYS
 from photon_ml_tpu_torch.game.model import gathered_row_margins
 from photon_ml_tpu_torch.ops.losses import mean_for_task
-from photon_ml_tpu_torch.serving.batcher import DEFAULT_MAX_WAIT_MS
 from photon_ml_tpu_torch.serving.bundle import (
     ScoreRequest,
     ServingBundle,
@@ -86,7 +87,6 @@ from photon_ml_tpu_torch.serving.bundle import (
     promote_bundle_from_host_tier,
 )
 from photon_ml_tpu_torch.serving.engine import (
-    DEFAULT_MAX_BATCH,
     ScoreResult,
     ServingEngine,
     _bucket_sizes,
@@ -277,8 +277,14 @@ class TenantRegistry:
     def __init__(self, *, max_batch: Optional[int] = None, max_wait_ms: Optional[float] = None,
                  hbm_budget_bytes: Optional[int] = None,
                  watchdog_ms_override: Optional[float] = None):
-        max_batch = DEFAULT_MAX_BATCH if max_batch is None else int(max_batch)
-        max_wait_ms = DEFAULT_MAX_WAIT_MS if max_wait_ms is None else float(max_wait_ms)
+        # Both batching quantities are planned: explicit arguments win, else
+        # the installed plan's, else the defaults (the engine's and the
+        # batcher's deferral).
+        from photon_ml_tpu_torch import planner
+
+        max_batch = int(planner.planned_value("serving_max_batch") if max_batch is None else max_batch)
+        max_wait_ms = float(planner.planned_value("serving_max_wait_ms") if max_wait_ms is None
+                            else max_wait_ms)
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         self.max_batch = max_batch
@@ -485,8 +491,22 @@ class TenantRegistry:
     def demote_tier(self, name: str, *, to: Optional[str] = None, reason: str = "manual") -> int:
         raise NotImplementedError(f"demote_tier: {_PRECISION_LADDER}")
 
-    def restore_tier(self, name: str, *, reason: str = "manual") -> int:
+    def restore_tier(self, name: str, *, to: Optional[str] = None, reason: str = "manual") -> int:
         raise NotImplementedError(f"restore_tier: {_PRECISION_LADDER}")
+
+    def retune(self, *, max_wait_ms: Optional[float] = None) -> Dict[str, float]:
+        """Move the co-batched path's flush wait live (the autopilot's retune
+        actuator). Only the wait moves: the bucket ladder is captured state,
+        so no graph is captured. Returns the displaced value for a
+        rollback."""
+        with self._cv:
+            prev = {"max_wait_ms": self.max_wait_s * 1e3}
+            if max_wait_ms is not None:
+                if max_wait_ms < 0:
+                    raise ValueError("max_wait_ms must be >= 0")
+                self.max_wait_s = float(max_wait_ms) / 1e3
+                self._cv.notify_all()
+        return prev
 
     # ------------------------------------------------- co-batch programs
 
@@ -676,7 +696,9 @@ class TenantRegistry:
         if fut.done():
             return
         if error is None:
-            telemetry.METRICS.observe("serving_latency_ms", wall_ms)
+            # Labelled: the aggregate series and the tenant's own, whose p95
+            # the autopilot reads.
+            telemetry.METRICS.observe("serving_latency_ms", wall_ms, labels=(("tenant", t.name),))
             fut.set_result(result)
         else:
             fut.set_exception(error)
@@ -997,6 +1019,8 @@ class TenantRegistry:
                 continue
             resolved, _ = c.lookup_rows([item[0].entity_ids.get(c.random_effect_type)
                                          for item in t_items])
+            if c.shard_health is not None:
+                c.shard_health.record_loads(resolved, c.unseen_row)
             for i, r in enumerate(resolved):
                 out[i].append(int(r))
         return out

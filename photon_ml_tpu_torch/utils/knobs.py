@@ -21,9 +21,16 @@ reference's too. `PHOTON_PIPELINE` is the reference's host-overlap switch,
 read by `pipeline_enabled`; in the port it gates the staged checkpoint
 write (game/coordinate_descent.py), the only host overlap the port has.
 The refresh knobs (`PHOTON_REFRESH_BATCH_ROWS`,
-`PHOTON_REFRESH_MAX_DELTA_FRACTION`) are the reference's; the reference
-reads them through its planner, which the port has not got, so
-game/incremental.py and cli/refresh.py read them here directly.
+`PHOTON_REFRESH_MAX_DELTA_FRACTION`) and `PHOTON_STREAM_CHUNK_ROWS` are
+the reference's planned quantities' knobs: their sites read them through
+`planner.planned_value` (knob > plan > default). The planner's
+(`PHOTON_PLAN`, `PHOTON_PLAN_PROFILE`), the autopilot's
+(`PHOTON_AUTOPILOT_*`) and the one-card reshard's
+(`PHOTON_RESHARD_RETRIES`, `PHOTON_REBALANCE_MIN_PROMOTIONS`) are the
+reference's too.
+`PHOTON_SPARSE_LAYOUT`, `PHOTON_DEVICE_PACK`, `PHOTON_DEVICE_ASSEMBLY` and
+`PHOTON_HOST_THREADS` are not registered: the port has none of the
+quantities they set.
 """
 
 from __future__ import annotations
@@ -167,6 +174,36 @@ _register("PHOTON_REFRESH_MAX_DELTA_FRACTION", float, 0.5,
           "Incremental fit escape hatch (game/incremental.py): when a delta batch churns more than "
           "this fraction of the merged dataset's rows, the delta path forces a warm-started FULL "
           "refit — past that point re-solving per changed entity costs more than one fused solve.")
+_register("PHOTON_STREAM_CHUNK_ROWS", int, 262_144,
+          "Rows per streamed ingest chunk on the pure-Python codec path (bounds decoded-record "
+          "residency); the native path chunks per container file.")
+_register("PHOTON_RESHARD_RETRIES", int, 2,
+          "Extra attempts a failed per-shard upload gets during a live reshard or rebalance "
+          "before the whole change rolls back to the old generation.")
+_register("PHOTON_REBALANCE_MIN_PROMOTIONS", int, 2,
+          "Observed two-tier promotions a coefficient row needs before a hot-row rebalance plan "
+          "counts it as hot (serving/reshard.py).")
+_register("PHOTON_AUTOPILOT_MS", int, 500,
+          "Closed-loop autoscaling (photon_ml_tpu_torch/autopilot/): control-loop tick period in "
+          "milliseconds; each tick snapshots the sensors and evaluates every armed ControlRule "
+          "against fresh evidence.")
+_register("PHOTON_AUTOPILOT_MAX_ACTIONS", int, 4,
+          "Autopilot: bounded-actions budget, the most actuations the controller may apply within "
+          "one cooldown window; rules that fire past the budget are journaled as suppressed, never "
+          "applied.")
+_register("PHOTON_AUTOPILOT_COOLDOWN_S", float, 2.0,
+          "Autopilot: per-rule cooldown, the minimum seconds between two actuations of the same "
+          "rule (and the width of the global action-budget window), so the loop settles between "
+          "interventions instead of oscillating; 0 disables the cooldown.")
+_register("PHOTON_PLAN", str, "",
+          "Adaptive runtime planner (photon_ml_tpu_torch/planner/): 1 forces planning (from "
+          "PHOTON_PLAN_PROFILE, else a fast startup calibration), 0 disables it entirely; empty = "
+          "auto (plan only when a profile is supplied). Explicit PHOTON_* knobs always override "
+          "plan decisions.",
+          choices=("", *_TRUE, *_FALSE))
+_register("PHOTON_PLAN_PROFILE", str, "",
+          "Path to a persisted run profile (telemetry.write_profile / cli --profile) the planner "
+          "consumes; a profile from a mismatched device topology refuses loudly naming the field.")
 _register("PHOTON_TRACE", bool, False,
           "Span tracing (utils/telemetry.py): 1 records spans and exports Chrome "
           "trace-event JSON from cli.serve; 0 keeps span() a no-op.")

@@ -12,9 +12,11 @@ Port of `photon_ml_tpu/utils/telemetry.py` for the layers the port has:
   undeclared name raises). Histograms share fixed log-spaced bucket bounds
   (16 a decade over 1e-4..1e7), so snapshots merge by adding counts
   (`merge_histogram_snapshots`) and a quantile lands within one bucket
-  width of the exact one. Counters carry optional per-label sub-counts
-  (`metric_label_scope`). `utils/faults.COUNTERS` is a view of this
-  registry.
+  width of the exact one. Counters and histograms carry optional
+  per-label sub-series (`metric_label_scope`, or `labels=`): a labelled
+  observation lands in the aggregate histogram and in the label's own, over
+  the same bounds, so the autopilot reads per-tenant p95s. `utils/faults.
+  COUNTERS` is a view of this registry.
 * **Run journal.** `RunJournal` writes one JSON line per event, each
   validated against `contracts.JOURNAL_EVENT_SCHEMAS` before it is written;
   `emit_event` writes into the installed journal (a no-op without one) and
@@ -109,6 +111,17 @@ METRIC_DESCRIPTIONS = {
     "calibration error per evaluated window",
     "shadow_calibration_challenger": "per-request |challenger mean - label| "
     "calibration error per evaluated window",
+    "reshard_retries": "per-shard staging retries during a live reshard",
+    "reshard_rollbacks": "live mesh reshards rolled back to the old generation",
+    "rebalanced_rows": "hot coefficient rows re-placed by a rebalance plan",
+    "autopilot_actions": "control-rule actuations applied by the "
+    "autopilot loop (reshard, rebalance, demote/restore, retune)",
+    "autopilot_suppressed": "control-rule firings suppressed by "
+    "hysteresis, cooldown, quarantine, or the action budget",
+    "autopilot_rollbacks": "autopilot actions reverted because the "
+    "post-action contract probe regressed",
+    "autopilot_quarantines": "control rules benched after a rollback "
+    "until an operator reset",
 }
 
 _BUCKETS_PER_DECADE = 16
@@ -239,13 +252,15 @@ def label_key(labels: Tuple[Tuple[str, str], ...]) -> str:
 
 class MetricsRegistry:
     """Counters, gauges and histograms over the closed name table; a
-    labelled increment also counts into the label's sub-count."""
+    labelled increment also counts into the label's sub-count, a labelled
+    observation into the label's sub-histogram."""
 
     def __init__(self) -> None:
         self._counters: Dict[str, int] = {}
         self._labeled: Dict[str, Dict[str, int]] = {}
         self._gauges: Dict[str, float] = {}
         self._hists: Dict[str, Histogram] = {}
+        self._labeled_hists: Dict[str, Dict[str, Histogram]] = {}
         self._lock = threading.Lock()
 
     @staticmethod
@@ -279,17 +294,42 @@ class MetricsRegistry:
         with self._lock:
             self._gauges[name] = float(value)
 
-    def observe(self, name: str, value: float) -> None:
+    def observe(self, name: str, value: float,
+                labels: Optional[Tuple[Tuple[str, str], ...]] = None) -> None:
         self._check(name)
+        if labels is None:
+            labels = current_metric_labels()
         with self._lock:
             hist = self._hists.get(name)
             if hist is None:
                 hist = self._hists[name] = Histogram()
+            labeled = None
+            if labels:
+                sub = self._labeled_hists.setdefault(name, {})
+                key = label_key(labels)
+                labeled = sub.get(key)
+                if labeled is None:
+                    labeled = sub[key] = Histogram()
         hist.record(value)
+        if labeled is not None:
+            labeled.record(value)
 
     def histogram(self, name: str) -> Optional[Histogram]:
         with self._lock:
             return self._hists.get(name)
+
+    def labeled_histogram(self, name: str,
+                          labels: Tuple[Tuple[str, str], ...]) -> Optional[Histogram]:
+        """One label's live sub-histogram, or None if never observed."""
+        with self._lock:
+            return self._labeled_hists.get(name, {}).get(label_key(labels))
+
+    def labeled_histograms(self, name: str) -> Dict[str, Dict[str, object]]:
+        """Per-label snapshots of one histogram ({"tenant=a": {...}}); empty
+        when nothing labelled observed it."""
+        with self._lock:
+            sub = dict(self._labeled_hists.get(name, {}))
+        return {k: h.snapshot() for k, h in sorted(sub.items())}
 
     def counters(self) -> Dict[str, int]:
         with self._lock:
@@ -298,10 +338,13 @@ class MetricsRegistry:
     def snapshot(self) -> Dict[str, object]:
         with self._lock:
             hists = dict(self._hists)
+            labeled_hists = {k: dict(v) for k, v in sorted(self._labeled_hists.items())}
             out = {"counters": dict(self._counters),
                    "labeled_counters": {k: dict(v) for k, v in sorted(self._labeled.items())},
                    "gauges": dict(self._gauges)}
         out["histograms"] = {k: h.snapshot() for k, h in sorted(hists.items())}
+        out["labeled_histograms"] = {k: {lk: h.snapshot() for lk, h in sorted(v.items())}
+                                     for k, v in labeled_hists.items()}
         return out
 
     def reset(self) -> None:
@@ -310,6 +353,7 @@ class MetricsRegistry:
             self._labeled.clear()
             self._gauges.clear()
             self._hists.clear()
+            self._labeled_hists.clear()
 
 
 METRICS = MetricsRegistry()

@@ -459,7 +459,7 @@ UNPORTED = [
     (["--offheap-indexmap-dir", "idx"], None),
     (["--multihost", "2"], "item 9"),
     (["--mh-worker"], "item 9"),
-    (["--profile", "profile.json"], "item 10"),
+    (["--profile", "profile.json"], None),
     (["--variance-computation-type", "FULL"], None),
     (["--hyper-parameter-tuning", "RANDOM"], None),
 ]
@@ -593,12 +593,38 @@ def _tuning_option(glmix, tmp_path, mode: str):
         _assert_drivers_agree(models, summaries)
 
 
+def _profile_option(glmix, tmp_path):
+    """The fixture's port run's profile.json plans a second run: the model is
+    the unplanned one bit for bit, and the plan block is active, from the
+    profile, in the summary, the profile and the journal."""
+    from photon_ml_tpu_torch import planner
+
+    profile = glmix["root"] / "port" / "profile.json"
+    out = tmp_path / "planned"
+    summary = train_cli.main(_train_args(glmix["data"], out, ["--profile", str(profile), "--device", "cpu"]))
+    assert planner.current_plan() is None
+    imaps = {"globalShard": IndexMap.load(str(glmix["models"]["port"] / "feature-indexes" / "globalShard.json"))}
+    planned = model_store.load_game_model(str(out / "models" / "best"), imaps)
+    unplanned = model_store.load_game_model(str(glmix["models"]["port"]), imaps)
+    for cid in ("global", "per-member"):
+        np.testing.assert_array_equal(planned.coordinates[cid].means, unplanned.coordinates[cid].means)
+    plan = summary["fit_timing"]["plan"]
+    assert plan["active"] and plan["source"] == "profile" and plan["profile"] == str(profile)
+    assert [d["decision"] for d in plan["decisions"]] == ["ingest_chunk_rows"]
+    assert glmix["port_summary"]["fit_timing"]["plan"] == planner.inactive_block()
+    assert json.loads((out / "profile.json").read_text())["plan"] == plan
+    types = [json.loads(x)["type"] for x in open(out / "journal.jsonl")]
+    assert types[:2] == ["setup", "plan_decision"]
+
+
 def _ported_train_option(glmix, tmp_path, extra):
     data = glmix["data"]
     if extra[0] == "--offheap-indexmap-dir":
         _offheap_option(glmix, tmp_path, extra[1])
     elif extra[0] == "--hyper-parameter-tuning":
         _tuning_option(glmix, tmp_path, extra[1])
+    elif extra[0] == "--profile":
+        _profile_option(glmix, tmp_path)
     elif extra[0] == "--checkpoint-directory":
         # One run writes the checkpoint, a rerun resumes from its end; both
         # give the uninterrupted fit's model.

@@ -66,7 +66,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "serving.lifecycle", "cli.serve", "hyperparameter.sweep", "cli.tune",
                  "parallel.hostmesh", "cli.train_multihost", "cli.serve_multihost", "cli.obs",
                  "data.fingerprints", "game.incremental", "serving.delta", "cli.refresh",
-                 "serving.tenancy", "serving.shadow"):
+                 "serving.tenancy", "serving.shadow", "serving.reshard", "planner", "planner.plan",
+                 "planner.rules", "autopilot.sensors", "autopilot.rules", "autopilot.loop"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = _BLOCK_JAX + textwrap.dedent(
         """

@@ -2,8 +2,9 @@
 `cli.obs`, on the CPU: the same standard output and exit code for `trace`
 (with `--min-coverage`), `journal --validate`, `profile` and `profile diff`
 on files either package's `cli.train` wrote, and on broken ones (a journal
-with a bad line, a profile without a section, two profiles of other kinds);
-`decisions` raises, naming its ROADMAP item."""
+with a bad line, a profile without a section, two profiles of other kinds),
+and for `decisions` on the journals (tests/test_torch_autopilot.py runs it
+on planned and autopilot journals)."""
 
 from __future__ import annotations
 
@@ -53,6 +54,9 @@ CASES = [
     (("profile", "diff", "port/profile.json", "port/profile.json"), False),
     (("profile", "diff", "port/profile.json", "broken/profile.json"), True),
     (("profile", "diff", "port/profile.json", "broken/serve.json"), True),
+    (("decisions", "port/journal.jsonl"), False),
+    (("decisions", "jax/journal.jsonl"), False),
+    (("decisions", "broken/journal.jsonl"), True),
 ]
 
 
@@ -71,7 +75,3 @@ def test_a_broken_profile_raises_in_both(files):
         with pytest.raises(ValueError, match="dispatch"):
             main(["profile", path])
 
-
-def test_decisions_is_refused_before_reading(files):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10e"):
-        obs.main(["decisions", str(files["broken"] / "no-such-journal.jsonl")])

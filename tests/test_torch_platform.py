@@ -62,7 +62,7 @@ def test_knobs_have_the_reference_type_default_and_parsing(name, monkeypatch):
 
 def test_an_unregistered_knob_raises():
     with pytest.raises(KeyError):
-        knobs.get_knob("PHOTON_PLAN")
+        knobs.get_knob("PHOTON_TIER_LADDER")  # the precision ladder's: ROADMAP item 10f
     with pytest.raises(KeyError):
         knobs.knob_is_set("PHOTON_NOT_A_KNOB")
 
@@ -313,7 +313,8 @@ def test_spans_parent_across_a_thread_handoff_and_export(tmp_path):
 def test_a_port_journal_passes_the_reference_validator(tmp_path):
     """One line of each event type the port emits (the training lifecycle,
     the serving path, the sweep executor, the checkpoint, the multi-host
-    layers, refresh, tenancy and the shadow)."""
+    layers, refresh, tenancy, the shadow, the planner, the autopilot and the
+    one-card reshard)."""
     fields = {"setup": dict(args="{'device': 'cpu'}"), "fit_start": dict(num_samples=-1),
               "sweep_config": dict(index=0, total=2),
               "coordinate_update": dict(iteration=0, coordinate="global", seconds=0.25, accepted=True),
@@ -354,7 +355,16 @@ def test_a_port_journal_passes_the_reference_validator(tmp_path):
                                      windows=3, champion_metric=0.75, challenger_metric=0.5,
                                      evaluator="AUC", reason="last 3 window(s) all regressed"),
               "shadow_promote": dict(champion="champion", challenger="cand", version=1),
-              "shadow_rollback": dict(champion="champion", challenger="cand", reason="regression")}
+              "shadow_rollback": dict(champion="champion", challenger="cand", reason="regression"),
+              "reshard_start": dict(old_shards=1, new_shards=1, moved_rows=4, moved_bytes=64),
+              "reshard_rollback": dict(old_shards=1, new_shards=1, reason="InjectedFault()"),
+              "plan_decision": dict(decision="serving_max_batch", value=32, source="profile", fallback=256),
+              "autopilot_decision": dict(rule="hbm-demote", action={"kind": "demote", "tenant": "a",
+                                                                    "params": {"hot_rows": 0}},
+                                         evidence={"signal": 0.9}, outcome="applied"),
+              "autopilot_rollback": dict(rule="bad", action={"kind": "demote", "tenant": "a", "params": {}},
+                                         reason="bitwise spot-check failed for tenant 'a'"),
+              "rule_quarantined": dict(rule="bad", reason="bitwise spot-check failed", rollbacks=1)}
     assert set(fields) == set(contracts.JOURNAL_EVENT_SCHEMAS)
     for etype, schema in contracts.JOURNAL_EVENT_SCHEMAS.items():
         assert schema == jax_contracts.JOURNAL_EVENT_SCHEMAS[etype]
@@ -393,6 +403,7 @@ def test_a_serve_profile_passes_the_reference_reader(tmp_path):
                                   "JOURNAL_LINE_KEYS", "PROFILE_REQUIRED_KEYS", "PROFILE_SERVE_KEYS",
                                   "PROFILE_FIT_KEYS",
                                   "PLAN_BLOCK_KEYS", "DELTA_BUNDLE_KEYS", "CONTINUOUS_SECTION_KEYS",
-                                  "TENANT_BLOCK_KEYS", "TIER_BLOCK_KEYS", "SHADOW_BLOCK_KEYS"])
+                                  "TENANT_BLOCK_KEYS", "TIER_BLOCK_KEYS", "SHADOW_BLOCK_KEYS",
+                                  "PLAN_DECISION_KEYS", "AUTOPILOT_BLOCK_KEYS"])
 def test_contract_tuples_are_the_reference_tuples(name):
     assert getattr(contracts, name) == getattr(jax_contracts, name)

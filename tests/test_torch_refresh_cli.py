@@ -4,8 +4,8 @@ the same rows (the port draws the reference's numpy stream in its order),
 so the rounds' modes, delta manifests, `committed` flags and generations,
 the delta records and the provenance block are the reference's; each
 package's `cli.obs journal --validate` accepts both journals; the summary
-keeps the reference's keys but `plan` (ROADMAP item 10e) and adds each
-round's `stages_s`; a run without `--synthetic` is refused as the
+keeps the reference's keys (an unplanned run's inactive `plan` block
+among them) and adds each round's `stages_s`; a run without `--synthetic` is refused as the
 reference words it, `--shadow-gate` or not (the gate itself runs in
 tests/test_torch_shadow.py)."""
 
@@ -50,7 +50,8 @@ def test_the_rounds_are_the_reference_rounds(runs):
         # max_rel_diff): the round, mode, manifest, committed and generation.
         assert {k: got[k] for k, v in want.items() if not isinstance(v, float)} == \
             {k: v for k, v in want.items() if not isinstance(v, float)}
-    assert set(ref) - set(port) == {"plan"}
+    assert set(ref) - set(port) == set() and port["plan"] == ref["plan"] == {
+        "active": False, "source": "off", "profile": None, "decisions": []}
     assert set(port) - set(ref) == {"device"} and port["device"] == "cpu"
     assert port["bundle_deltas"] == ref["bundle_deltas"] == 2
     skip = {"last_delta_ts"}

@@ -208,15 +208,12 @@ _SCOPE = "--multihost serve scope"
     (["--shadow", "b=x", "--reshard-to", "2"], ValueError, "--shadow and --reshard-to both drive"),
     (["--autopilot"], ValueError, "--autopilot supervises a multi-tenant fleet"),
     (["--tenant", "a=x", "--model-input-directory", "m"], ValueError, "pass exactly one of"),
-    (["--tenant", "a=x", "--autopilot"], NotImplementedError, "item 10e"),
-    (["--profile", "p.json"], NotImplementedError, "item 10"), (["--reshard-to", "2"], NotImplementedError, "item 9"),
+    (["--reshard-to", "2"], NotImplementedError, "item 9"),
     (["--multihost", "2", "--tenant", "a=x"], ValueError, f"{_SCOPE}: --tenant .multi-tenant. has no multi-host"),
     (["--multihost", "2", "--multihost-devices-per-host", "4", "--reshard-to", "2"], ValueError,
      f"{_SCOPE}: --reshard-to is a single-process drill"),
     (["--mh-serve-worker", "--tenant", "a=x"], ValueError, f"{_SCOPE}: --tenant"),
     (["--mh-serve-worker", "--mh-host-id", "1", "--reshard-to", "2"], ValueError, f"{_SCOPE}: --reshard-to"),
-    (["--multihost", "2", "--mh-num-hosts", "2", "--autopilot"], NotImplementedError, "item 10"),
-    (["--mh-serve-worker", "--mh-attempt", "1", "--profile", "p.json"], NotImplementedError, "item 10"),
     (["--multihost", "3", "--mh-resume-window", "3", "--multihost-devices-per-host", "0"], ValueError,
      "--multihost-devices-per-host 0")])
 def test_each_refused_flag_raises_before_staging(tmp_path, extra, error, match):

@@ -59,11 +59,8 @@ COORDINATES = [
 RE_IDS = ("per-user", "per-movie")
 # JAX spans with no counterpart in the port: the host pipeline's background
 # jobs and the bucketed pack's stages (the port's shards live on their
-# device from ingest on, and it builds its sparse layouts there). The
-# planner (ROADMAP item 10e) opens no span.
+# device from ingest on, and it builds its sparse layouts there).
 JAX_ONLY_SPANS = {"async_upload", "async_pack", "background_pack", "pack", "pack_device", "pack_host"}
-# JAX journal events with no counterpart in the port yet (ROADMAP item 10e).
-JAX_ONLY_EVENTS = {"plan_decision"}
 
 
 def write_glmix_files(root: Path, n_train: int = 600, n_val: int = 200) -> Path:
@@ -133,7 +130,7 @@ def runs(tmp_path_factory):
 
 def test_the_journals_list_the_same_lifecycle(runs):
     port = journal_lines(runs["port"] / "journal.jsonl")
-    jax = [d for d in journal_lines(runs["jax"] / "journal.jsonl") if d["type"] not in JAX_ONLY_EVENTS]
+    jax = journal_lines(runs["jax"] / "journal.jsonl")
     assert [d["type"] for d in port] == [d["type"] for d in jax]
     assert [d["type"] for d in port] == ["setup", "fit_start", "sweep_config"] + \
         ["coordinate_update", "checkpoint"] * 3 + ["fit_finish"]
@@ -165,7 +162,7 @@ def test_a_job_that_fails_after_setup_journals_failure(runs, tmp_path, package):
         else:
             jax_train_cli.main(args)
     lines = journal_lines(tmp_path / "out" / "journal.jsonl")
-    assert [d["type"] for d in lines if d["type"] not in JAX_ONLY_EVENTS] == ["setup", "failure"]
+    assert [d["type"] for d in lines] == ["setup", "failure"]
     assert lines[-1]["error"]
     # The journal was closed and taken out of the ambient slot.
     assert telemetry.current_journal() is None and jax_telemetry.current_journal() is None
@@ -211,8 +208,9 @@ def test_each_profile_reads_back_through_both_packages(runs):
         profiles[k] = ours
     port, jax = profiles["port"], profiles["jax"]
     assert set(PROFILE_FIT_KEYS) <= set(port)
-    # The JAX profile also carries the planner's `plan` block (ROADMAP item 10e).
-    assert set(port) == set(jax) - {"plan"}
+    # Both carry the planner's `plan` block: inactive on an unplanned fit.
+    assert set(port) == set(jax) and port["plan"] == jax["plan"] == port["fit_timing"]["plan"]
+    assert port["plan"]["active"] is False
     assert set(port["dispatch"]) == set(jax["dispatch"])
     assert set(port["dispatch"]["sharding"]) == set(jax["dispatch"]["sharding"])
     assert port["dispatch"]["sharding"]["rows_per_shard"] == jax["dispatch"]["sharding"]["rows_per_shard"]

@@ -141,11 +141,27 @@ def test_the_winner_is_cli_train_at_its_weights(tuned):
 
 
 def test_profile_raises_before_any_read(tmp_path):
+    """`--profile` plans the sweep before the read: a profile of another
+    topology (the JAX tests' 8-device mesh) is refused before anything is
+    read; one of this run's topology installs its plan, and the failed read
+    uninstalls it."""
+    from photon_ml_tpu_torch import planner
+
+    for name, topology in (("jax", jax_telemetry.device_topology()), ("port", telemetry.device_topology(None))):
+        profile = telemetry.build_profile("serve", wall_s=1.0, stages={}, dispatch={"max_batch": 64},
+                                          bucket_shapes={}, serving={"batch_size_p95": 3}, topology=topology)
+        telemetry.write_profile(str(tmp_path / f"{name}.json"), profile)
     args = _tune_args(tmp_path / "no-such-data", tmp_path / "out",
-                      ["--profile", str(tmp_path / "profile.json"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 10"):
+                      ["--profile", str(tmp_path / "jax.json"), "--device", "cpu"])
+    with pytest.raises(planner.PlanTopologyError, match="'device_count'"):
         tune_cli.main(args)
-    assert not (tmp_path / "out").exists()
+    assert not (tmp_path / "out" / "models").exists()
+    args[args.index("--profile") + 1] = str(tmp_path / "port.json")
+    with pytest.raises(FileNotFoundError, match="no-such-data"):
+        tune_cli.main(args)
+    assert planner.current_plan() is None
+    lines = [json.loads(x)["type"] for x in open(tmp_path / "out" / "journal.jsonl")]
+    assert lines == ["plan_decision", "plan_decision"]
 
 
 def test_a_run_refuses_to_overwrite_models(tuned):
