@@ -357,8 +357,8 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    in odd triples and all 65,536 at bucket 256, bit-equal to each other and
    within PORT_TOLERANCES["convert_scores"] of the offline scores; phase
    3's model bit-equal to GameTransformer at every bucket; cli.serve on
-   50,000 rows of the validation file and 1,000 with unseen ids (cut from
-   100,000 for 3n's time; 0 failed,
+   25,000 rows of the validation file and 1,000 with unseen ids (cut from
+   100,000 for 3n's time, then from 50,000 for 3n-ladder's; 0 failed,
    health CLOSED, every clean-run counter 0, the journal valid); the
    device's idle share over one replay window (torch.profiler); and the
    drills: score:p0.05 (bit-equal answers, degraded batches counted), a
@@ -398,7 +398,8 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    progress marker's). `tools/
    chip_smoke_serve_multihost.py` runs 3q and 3mv alone.
 3n. Multi-tenant serving and shadow deployment (serving/tenancy.py,
-   serving/shadow.py) on 3c's model and 4,352 of 3v's requests: four
+   serving/shadow.py) on 3c's model and 2,304 of 3v's requests (cut from
+   4,352 for 3n-ladder's time): four
    tenants of one co-batch signature (3c's model and three variants of it,
    its coefficients scaled by a seeded draw and written by the port's model
    store) and a fifth, 3c's model in the two-tier store (2,048 hot rows a
@@ -423,6 +424,24 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    at 3r-loop's shape (must commit). The serving path must launch none of
    the six kernels; the refresh round's training launches are counted
    apart ("3n-refresh"). `tools/chip_smoke_tenancy.py` runs 3n alone.
+3n-ladder. The precision ladder (serving/bundle.py's quantized planes,
+   serving/engine.py's re_bf16 and re_i8 kinds, TenantRegistry.demote_tier
+   and restore_tier), after 3n: 3c's model beside two of 3n's variants
+   (co-batched) on 3n's requests, walked f32 -> bf16 -> f32 -> bf16 -> int8
+   -> f32; each transition's seconds, device bytes freed or re-pinned and
+   pre-warm captures; each quantized rung's worst |score - f32 score|,
+   gated at TIER_TOLERANCES[rung], the quantized tenant served solo; each
+   restore bit-equal to the f32 answers before the demotion, the variants
+   bit-equal throughout; an int8 bucket graph's replay against the f32
+   one's; a terminal `quantize_stage` fault leaving the f32 generation
+   serving bit-equal; 0 recompiles after warm-up and 0 failed. Then the
+   reference's squeeze cell (13 tenants of 64 entities x 32-wide rows under
+   a budget of one f32 tenant beside int8 ones), the ladder off (host-tier
+   demotions, bit-equal) and on (more tenants resident, every demoted
+   tenant quantized first, answers within their rung's tolerance, the
+   coldest restored to f32 bit-equal). Launches none of the six kernels.
+   Paid for by halving 3v's replay (25,000 rows) and 3n's requests (2,048
+   a tenant). `tools/chip_smoke_ladder.py` runs 3n-ladder alone.
 3p. The runtime planner and the autopilot (planner/, autopilot/,
    serving/reshard.py), after 3n: 3c's cli.train command line with
    `--profile` 3c's own profile.json (3c's model bit for bit, its #4/#5
@@ -486,7 +505,7 @@ The kernels' launch counts are set to 0 just before each path (phases 3-4,
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
 sweep and its cli.tune run, 3v's engine path, 3q's reads and 3mv's
 emulation in this process, each worker of 3mv's runs from its start,
-3n's serving path and its refresh round, 3p's planned fit and its serving part,
+3n's serving path and its refresh round, 3n-ladder's serving path, 3p's planned fit and its serving part,
 and 3d, 4d, 3e-d and 3m's uninterrupted fit in each rank, whose counts
 are rank 0's) and read just after; the `kernels` line gives them by
 phase (`launches_by_phase`; "3mv" sums 3mv's workers over every attempt,
@@ -2004,6 +2023,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         launches3q = walled("phase 3q", quarantine_phase, root, work, dev)
         launches3mv = walled("phase 3mv", serve_multihost_phase, root, work, dev)
         launches3n = walled("phase 3n", tenancy_phase, root, work, dev)
+        launches3nl = walled("phase 3n-ladder", ladder_phase, root, work, dev)
         launches3p = walled("phase 3p", planner_autopilot_phase, root, work, dev, launches3c["train"])
     finally:
         e2e_dir.cleanup()
@@ -2041,7 +2061,8 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
                     "3k": launches3k, "3g": launches3g, "3j": launches3j, "3x": launches3x, "3t": launches3t,
                     "3w": launches3w, "3v": launches3v, "3m": launches3m, "3q": launches3q,
-                    "3mv": launches3mv, "3r": launches3r, "3n": launches3n, "3p": launches3p}
+                    "3mv": launches3mv, "3r": launches3r, "3n": launches3n, "3n-ladder": launches3nl,
+                    "3p": launches3p}
 
 
 # ---------------------------------------------------------------- phases 3e-d and 5e-d
@@ -2356,7 +2377,7 @@ def e2e_across_cards(data: dict, ds, phase3e: dict, failures: list) -> None:
     check_3e_d(outs, f"nccl, {world} cards", ds, phase3e, failures)
 
 
-SERVE_REPLAY_ROWS = 50_000  # 3v: rows of 3g's validation file cli.serve replays (cut from 100,000 for 3n's time)
+SERVE_REPLAY_ROWS = 25_000  # 3v: rows of 3g's validation file cli.serve replays (cut from 100,000 for 3n's time, then from 50,000 for 3n-ladder's)
 SERVE_UNSEEN = 1_000  # and requests with ids no model row has
 SERVE_PARITY_ROWS = 65_536  # rows scored at bucket 256 and held against offline scoring
 SERVE_SMALL_ROWS = 4_096  # rows scored singly, in pairs and in odd triples
@@ -2548,7 +2569,7 @@ def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dens
         failures.append(f"phase 3's model is not bit-equal to GameTransformer at every bucket: {d_by_bucket}")
     del d_bundle, d_reqs, d_model
 
-    # ---- the driver: cli.serve on 50,000 rows of 3g's validation file + unseen ids ----------
+    # ---- the driver: cli.serve on 25,000 rows of 3g's validation file + unseen ids ----------
     replay_dir = os.path.join(work, "serve-requests")
     write_serve_requests(replay_dir, val)
     n, m = SERVE_REPLAY_ROWS, SERVE_UNSEEN
@@ -2729,7 +2750,7 @@ MHV_HOSTS = 2  # 3mv: cli.serve --multihost 2, both workers on the card
 MHV_BLOCKS = 4  # its --multihost-devices-per-host (the flag's default): row blocks a matrix
 MHV_KILLED = 1  # the worker each drill SIGKILLs once its first window is durable
 # 3mv's requests: the first 4 blocks of 3v's part-0.avro (16,384 of its
-# 50,000 rows, 2 windows) and all of its part-1.avro (the 1,000 unseen
+# 25,000 rows, 2 windows) and all of its part-1.avro (the 1,000 unseen
 # ids). Cut from 3v's stream for the script's time limit (the whole 101,000
 # took 3mv 128.8 s on the card; cut from 12 blocks for 3n's time).
 MHV_SEEN_BLOCKS = 4
@@ -3097,7 +3118,7 @@ def serve_multihost_phase(root: str, work: str, dev) -> dict:
 # e2e model: FE over "g", per-user 27,586 and per-movie 5,405 rows, 201
 # wide) with 3v's request stream as the traffic.
 
-TEN_ROWS = 4_096  # 3n: requests of 3v's part-0.avro a tenant (its first block)
+TEN_ROWS = 2_048  # 3n, 3n-ladder: requests of 3v's part-0.avro a tenant (half its first block: cut from 4,096 for 3n-ladder's time)
 TEN_UNSEEN = 256  # and of its part-1.avro (ids no model row has)
 TEN_VARIANTS = 3  # 3c's model with its coefficients scaled by a seeded draw, written by the model store
 TEN_HOT_ROWS = 2_048  # the demoted tenant's hot rows a random effect (of 27,586 and 5,405)
@@ -3590,6 +3611,329 @@ def tenancy_phase(root: str, work: str, dev) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return {"path": path_launches, "refresh": refresh_launches}
+
+
+# ---------------------------------------------------------------- phase 3n-ladder
+# The precision ladder on one card (serving/bundle.py quantize_bundle_rows,
+# serving/engine.py's re_bf16 / re_i8 kinds, TenantRegistry.demote_tier /
+# restore_tier): 3c's model walked down and back in 3n's fleet, then the
+# reference's squeeze cell (`bench.py:1209-1418`) with the ladder on and off.
+
+LAD_TENANTS = 13  # the squeeze: the reference cell's 13 tenants
+LAD_ENTITIES, LAD_D_FE, LAD_D_RE = 64, 12, 32  # of 64 entities x 32-wide rows, a 12-wide fixed effect
+LAD_REQUESTS = 16  # requests a squeeze tenant
+
+
+def ladder_squeeze_model(seed: int):
+    """One of the squeeze cell's tenants (the reference's `build_wide`): a
+    LAD_D_FE fixed effect and LAD_ENTITIES rows of LAD_D_RE, N(0, 0.4^2)."""
+    import torch
+
+    from photon_ml_tpu_torch.game.model import Coefficients, FixedEffectModel, GameModel, RandomEffectModel
+    from photon_ml_tpu_torch.transformers.game_transformer import CoordinateScoringSpec
+    from photon_ml_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=LAD_D_FE).astype(np.float32)
+    M = np.zeros((LAD_ENTITIES + 1, LAD_D_RE), np.float32)
+    M[:LAD_ENTITIES] = rng.normal(size=(LAD_ENTITIES, LAD_D_RE)) * 0.4
+    model = GameModel({"fixed": FixedEffectModel(Coefficients(torch.from_numpy(w)), task),
+                       "per-e": RandomEffectModel(torch.from_numpy(M), None, task)})
+    specs = {"fixed": CoordinateScoringSpec(shard="g"),
+             "per-e": CoordinateScoringSpec(shard="re", random_effect_type="eid",
+                                            entity_index={str(i): i for i in range(LAD_ENTITIES)})}
+    return model, specs, task
+
+
+def ladder_squeeze_requests(seed: int) -> list:
+    """The reference's `requests_wide`: LAD_REQUESTS requests, some ids
+    past the trained entities (cold starts)."""
+    from photon_ml_tpu_torch.serving import ScoreRequest
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(LAD_REQUESTS, LAD_D_FE)).astype(np.float32)
+    Xe = rng.normal(size=(LAD_REQUESTS, LAD_D_RE)).astype(np.float32)
+    ids = rng.integers(0, LAD_ENTITIES + 4, size=LAD_REQUESTS)
+    return [ScoreRequest(features={"g": X[i], "re": Xe[i]}, entity_ids={"eid": str(int(ids[i]))},
+                         offset=float(i) * 0.0625, uid=str(i)) for i in range(LAD_REQUESTS)]
+
+
+def within_tier(got, ref, tier: str) -> dict:
+    """The worst |got - ref| and the share of the TIER_TOLERANCES[tier]
+    allowance (atol + rtol |ref|) it uses: within the tolerance at <= 1."""
+    from photon_ml_tpu_torch.contracts import TIER_TOLERANCES
+
+    tol = TIER_TOLERANCES[tier]
+    d = np.abs(np.asarray(got, np.float64) - np.asarray(ref, np.float64))
+    allowed = tol["atol"] + tol["rtol"] * np.abs(np.asarray(ref, np.float64))
+    return {"max_abs_diff": float(d.max()), "tolerance_used": float((d / allowed).max()),
+            "within": bool((d <= allowed).all())}
+
+
+def ladder_phase(root: str, work: str, dev) -> dict:
+    """Phase 3n-ladder. 3c's model (its per-user and per-movie matrices 201
+    wide, 27,587 and 5,406 rows) in 3n's fleet beside two of 3n's variants
+    (co-batched), on 3n's requests: `demote_tier` to bf16, `restore_tier`
+    to f32, `demote_tier` to bf16 and to int8, `restore_tier` to f32 (two
+    steps). Each transition prints its seconds, the device bytes it freed or
+    re-pinned and its pre-warm captures (the tenant's bucket graphs and the
+    co-batch group's); each quantized rung the worst |score - f32 score| on
+    every request and the share of TIER_TOLERANCES[rung] it uses, and must
+    answer bit-equal to an f32 engine over the dequantized rows (the widen
+    and the scale multiply run inside the bucket graph) and solo; each
+    restore must answer bit-equal to the f32 answers before the demotion,
+    and the variants keep their bits throughout. The replay of an int8 bucket's graph against the
+    f32 one's (CUDA-event medians, bucket 256). A terminal `quantize_stage`
+    fault must leave the f32 generation serving, bit-equal, at its
+    version. Then the reference's squeeze: LAD_TENANTS tenants admitted
+    under a budget of one f32 tenant beside int8 ones, with the ladder off
+    (the valve demotes to the host tier; every answer bit-equal) and on
+    (the valve quantizes before it demotes: more tenants resident, every
+    demoted tenant already quantized, each answer within its rung's
+    tolerance), then the coldest walked back to bf16 (its answers within
+    TIER_TOLERANCES["bf16"] of its solo f32 ones) and to f32 bit-equal. Every
+    engine's `recompiles_after_warmup` and the registries' captures after
+    warm-up must be 0, with 0 failed requests, and the path must launch
+    none of the six kernels. Returns its launches."""
+    import itertools
+    import logging
+    import os
+
+    import torch
+
+    from photon_ml_tpu_torch.contracts import TIER_TOLERANCES
+    from photon_ml_tpu_torch.io import avro as avro_io
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig
+    from photon_ml_tpu_torch.serving import ServingBundle, ServingEngine, TenantRegistry, load_bundle, \
+        request_from_record
+    from photon_ml_tpu_torch.serving.bundle import quantize_bundle_rows
+    from photon_ml_tpu_torch.utils import faults, telemetry
+
+    best = os.path.join(root, "drivers", "train", "models", "best")
+    replay_dir = os.path.join(work, "serve-requests")
+    variant_dirs = [os.path.join(work, "tenants", f"v{k}") for k in range(2)]
+    card = card_line() if dev.type == "cuda" else "cpu"
+    failures = []
+    t_phase = time.perf_counter()
+    port_log = logging.getLogger("photon_ml_tpu_torch")
+    log_level = port_log.level
+    port_log.setLevel(logging.ERROR)  # the injected fault and its retries log warnings
+
+    recs = list(itertools.islice(avro_io.iter_container(os.path.join(replay_dir, "part-0.avro")), TEN_ROWS))
+    recs += list(itertools.islice(avro_io.iter_container(os.path.join(replay_dir, "part-1.avro")), TEN_UNSEEN))
+    reset_serving_launches()  # the serving path starts here
+    telemetry.METRICS.reset()  # the robustness counters too
+    t0 = time.perf_counter()
+    names = ("base", "v0", "v1")
+    bundles = dict(zip(names, [load_bundle(d, device=dev) for d in (best, *variant_dirs)]))
+    load_s = time.perf_counter() - t0
+    shards = {"g": FeatureShardConfig(("features",), True)}
+    reqs = [request_from_record(bundles["base"], r, shards) for _, r in recs]
+    widths = {c.cid: list(c.params.shape) for c in bundles["base"].coordinates.values()}
+
+    def replay(reg, tenants):
+        futs = [(n, i, reg.submit(n, r, block=True)) for i, r in enumerate(reqs) for n in tenants]
+        out = {n: np.zeros(len(reqs), np.float32) for n in tenants}
+        failed = 0
+        for n, i, f in futs:
+            try:
+                out[n][i] = f.result(timeout=120).score
+            except Exception:  # counted: the gates want none
+                failed += 1
+        return out, failed
+
+    def graph_ms(t, bucket=256):
+        return time_ms(torch, t.engine._state.programs[bucket].graph.replay) if dev.type == "cuda" else None
+
+    def dequantized_scores(bundle):
+        """An f32 engine's answers over `bundle` with each quantized plane
+        dequantized whole (widened, times its row scales)."""
+        coords = {cid: c if c.tier == "f32" else dataclasses.replace(
+            c, params=c.params.float() * c.scales[:, None] if c.scales is not None else c.params.float(),
+            tier="f32", scales=None, host_f32=None) for cid, c in bundle.coordinates.items()}
+        with ServingEngine(dataclasses.replace(bundle, coordinates=coords, provenance={})) as eng:
+            return np.concatenate([np.asarray([x.score for x in eng.score_batch(reqs[i:i + 256])], np.float32)
+                                   for i in range(0, len(reqs), 256)])
+
+    # ---- 3c's model down the ladder and back -------------------------------------------
+    reg = TenantRegistry()
+    t0 = time.perf_counter()
+    for n in names:
+        reg.admit(n, bundles[n])
+    admit_s = time.perf_counter() - t0
+    base = reg.tenant("base")
+    ref, failed = replay(reg, names)
+    f32_ms = graph_ms(base)
+    transitions, rung_ms = [], {"f32": f32_ms}
+
+    def step(method, **kw):
+        m = reg.metrics()
+        before = dict(tier=base.tier, compiles=base.engine.compiles, cobatch=m["cobatch_compiles"],
+                      bytes=base.device_bytes(), cobatched=m["tenants"]["base"]["cobatched_requests"])
+        t0 = time.perf_counter()
+        moved = getattr(reg, method)("base", reason="chip_smoke", **kw)
+        seconds = time.perf_counter() - t0
+        got, failed = replay(reg, names)
+        m = reg.metrics()
+        row = dict(transition=f"{before['tier']} -> {base.tier}", seconds=seconds,
+                   freed_bytes=before["bytes"] - base.device_bytes(), moved_bytes=moved,
+                   device_bytes=base.device_bytes(),
+                   prewarm_captures=base.engine.compiles - before["compiles"],
+                   cobatch_prewarm_captures=m["cobatch_compiles"] - before["cobatch"], failed=failed,
+                   quantized_coords=m["tenants"]["base"]["tier"]["quantized_coords"],
+                   quant_error_max=m["tenants"]["base"]["tier"]["quant_error_max"],
+                   variants_bit_equal=all(bool((got[n] == ref[n]).all()) for n in names[1:]),
+                   base_cobatched=m["tenants"]["base"]["cobatched_requests"] - before["cobatched"])
+        if base.tier == "f32":
+            row["bit_equal_to_f32"] = bool((got["base"] == ref["base"]).all())
+        else:
+            row.update(within_tier(got["base"], ref["base"], base.tier), tolerance=TIER_TOLERANCES[base.tier],
+                       bit_equal_to_dequantized=bool((got["base"] == dequantized_scores(base.bundle)).all()))
+            rung_ms[base.tier] = graph_ms(base)
+        transitions.append(row)
+        log(json.dumps(dict(phase="3n-ladder-step", **row, card=card)))
+        ok = not failed and row["variants_bit_equal"] and row["prewarm_captures"] > 0
+        ok = ok and (row["bit_equal_to_f32"] if base.tier == "f32" else row["bit_equal_to_dequantized"]
+                     and row["freed_bytes"] > 0 and not row["base_cobatched"])  # quantized: solo
+        if not ok:
+            failures.append(f"ladder step {row['transition']}: {row}")
+
+    cobatched_f32 = reg.metrics()["tenants"]["base"]["cobatched_requests"]
+    step("demote_tier")  # f32 -> bf16
+    step("restore_tier")  # bf16 -> f32
+    step("demote_tier")  # f32 -> bf16
+    step("demote_tier")  # bf16 -> int8
+    step("restore_tier")  # int8 -> bf16 -> f32
+    # A terminal quantize_stage fault: nothing commits, the f32 generation serves on.
+    version = base.engine._state.version
+    with faults.inject("quantize_stage:99"):
+        try:
+            reg.demote_tier("base", reason="chip_smoke")
+            fault = "not raised"
+        except faults.InjectedFault:
+            fault = "raised"
+    got, failed_f = replay(reg, names)
+    m = reg.metrics()
+    fault_row = dict(fault=fault, tier=base.tier, version_kept=base.engine._state.version == version,
+                     bit_equal=bool((got["base"] == ref["base"]).all()), failed=failed_f,
+                     tier_rollbacks=m["tenants"]["base"]["tier"]["rollbacks"])
+    recompiles = {n: reg.tenant(n).engine.recompiles_after_warmup for n in names}
+    row = dict(phase="3n-ladder", model=widths, requests=len(reqs), admit_s=admit_s, load_s=load_s,
+               transitions=[t["transition"] for t in transitions],
+               graph_ms_256={k: v for k, v in rung_ms.items()},
+               int8_over_f32_graph=(rung_ms["int8"] / rung_ms["f32"] if dev.type == "cuda" else None),
+               terminal_fault=fault_row, recompiles_after_warmup=recompiles,
+               cobatch_compiles_after_warmup=m["cobatch_compiles_after_warmup"],
+               failed_requests=failed + failed_f + sum(t["failed"] for t in transitions),
+               tenant_failed={n: b["failed"] for n, b in m["tenants"].items()},
+               tier_block=m["tenants"]["base"]["tier"], cobatched_at_f32=cobatched_f32,
+               counters={k: faults.COUNTERS.get(k) for k in ("tier_demotions", "tier_restores", "tier_rollbacks")},
+               card=card)
+    log(json.dumps(row))
+    if fault_row != dict(fault="raised", tier="f32", version_kept=True, bit_equal=True, failed=0,
+                         tier_rollbacks=1):
+        failures.append(f"terminal quantize_stage fault: {fault_row}")
+    if any(recompiles.values()) or m["cobatch_compiles_after_warmup"] or row["failed_requests"] \
+            or any(row["tenant_failed"].values()) or not cobatched_f32:
+        failures.append(f"ladder serving: {row}")
+    reg.close()
+    for b in bundles.values():
+        b.release()
+
+    # ---- the reference's squeeze, with the ladder off and on -----------------------------
+    names = [f"lad-{j}" for j in range(LAD_TENANTS)]
+    lad = {n: ladder_squeeze_model(800 + j) for j, n in enumerate(names)}
+    lad_reqs = {n: ladder_squeeze_requests(900 + j) for j, n in enumerate(names)}
+
+    def squeeze_bundle(n):
+        model, specs, task = lad[n]
+        return ServingBundle.from_model(model, specs, task, device=dev)
+
+    lad_ref = {}
+    for n in names:
+        with ServingEngine(squeeze_bundle(n), max_batch=16) as eng:
+            lad_ref[n] = np.asarray([r.score for r in eng.score_batch(lad_reqs[n])], np.float32)
+    probe = squeeze_bundle(names[0])
+    per_f32 = probe.device_bytes()
+    per_i8 = quantize_bundle_rows(probe, "int8")[0].device_bytes()
+    budget = per_f32 + (LAD_TENANTS - 1) * per_i8 + per_i8 // 2
+    squeeze = {}
+    prior = os.environ.get("PHOTON_TIER_LADDER")
+    try:
+        for ladder in (False, True):
+            os.environ["PHOTON_TIER_LADDER"] = "1" if ladder else "0"
+            telemetry.METRICS.reset()
+            reg = TenantRegistry(max_batch=16, max_wait_ms=1.0, hbm_budget_bytes=budget)
+            t0 = time.perf_counter()
+            for n in names:
+                reg.admit(n, squeeze_bundle(n), deadline_ms=2000.0, inject_faults=False)
+            admit_s = time.perf_counter() - t0
+            m = reg.metrics()
+            tiers = {n: m["tenants"][n]["tier"]["tier"] for n in names}
+            demoted = [n for n in names if m["tenants"][n]["demoted"]]
+            within = {}
+            for n in names:
+                got = np.asarray([reg.score(n, r).score for r in lad_reqs[n]], np.float32)
+                within[n] = bool((got == lad_ref[n]).all()) if tiers[n] == "f32" else \
+                    within_tier(got, lad_ref[n], tiers[n])["within"]
+            row = dict(ladder=ladder, budget_bytes=budget, per_f32_bytes=per_f32, per_int8_bytes=per_i8,
+                       resident=LAD_TENANTS - len(demoted), demoted={n: tiers[n] for n in demoted},
+                       tiers={t: sum(v == t for v in tiers.values()) for t in ("f32", "bf16", "int8")},
+                       admit_s=admit_s, answers_within=all(within.values()),
+                       transitions={k: faults.COUNTERS.get(k) for k in
+                                    ("tier_demotions", "tier_rollbacks", "tenant_demotions")})
+            if ladder:
+                # The reference's restore: retire part of the fleet, walk the
+                # coldest back to f32 (through bf16, within its tolerance),
+                # bit-equal to its solo f32 answers.
+                for n in names[5:10]:
+                    reg.remove(n, release_bundle=True)
+                t0 = time.perf_counter()
+                reg.restore_tier(names[0], to="bf16", reason="chip_smoke")
+                got = np.asarray([reg.score(names[0], r).score for r in lad_reqs[names[0]]], np.float32)
+                row["restored_bf16"] = within_tier(got, lad_ref[names[0]], "bf16")
+                reg.restore_tier(names[0], reason="chip_smoke")
+                row["restore_s"] = time.perf_counter() - t0
+                got = np.asarray([reg.score(names[0], r).score for r in lad_reqs[names[0]]], np.float32)
+                row["restored_bit_equal"] = bool((got == lad_ref[names[0]]).all()) \
+                    and reg.tenant(names[0]).tier == "f32" and not reg.tenant(names[0]).demoted
+            m = reg.metrics()
+            row.update(failed=sum(b["failed"] for b in m["tenants"].values()),
+                       captures_after_warmup=m["cobatch_compiles_after_warmup"],
+                       recompiles_after_warmup=sum(reg.tenant(n).engine.recompiles_after_warmup
+                                                   for n in reg.tenant_names))
+            reg.close(release_bundles=True)
+            squeeze[ladder] = row
+            log(json.dumps(dict(phase="3n-ladder-squeeze", **row)))
+    finally:
+        if prior is None:
+            os.environ.pop("PHOTON_TIER_LADDER", None)
+        else:
+            os.environ["PHOTON_TIER_LADDER"] = prior
+    off, on = squeeze[False], squeeze[True]
+    if off["tiers"]["f32"] != LAD_TENANTS or not off["demoted"] or not off["answers_within"]:
+        failures.append(f"squeeze, ladder off: {off}")
+    # Ladder on: more tenants resident, and no tenant went to the host tier
+    # while it could still step a rung down.
+    if not (on["resident"] > off["resident"] and on["transitions"]["tier_demotions"] > 0
+            and on["answers_within"] and on["restored_bf16"]["within"] and on["restored_bit_equal"]
+            and all(t != "f32" for t in on["demoted"].values())):
+        failures.append(f"squeeze, ladder on: {on}")
+    for row in (off, on):
+        if row["failed"] or row["captures_after_warmup"] or row["recompiles_after_warmup"]:
+            failures.append(f"squeeze serving: {row}")
+    launches = serving_launches()  # the serving path ends here
+    port_log.setLevel(log_level)
+    log(json.dumps(dict(phase="3n-ladder", wall_s=time.perf_counter() - t_phase, launches=launches,
+                        ok=not failures)))
+    if any(launches.values()):
+        failures.append(f"the ladder's serving path launched a kernel: {launches}")
+    if failures:
+        raise SystemExit("phase 3n-ladder failed: " + "; ".join(failures))
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------- phase 3p
@@ -6857,7 +7201,7 @@ def main(argv=None) -> int:
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
     e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3g, 3j, 3x, 3m, 3t, 3w, 3v, "
-                                    "3q, 3mv, 3n, 3p",
+                                    "3q, 3mv, 3n, 3n-ladder, 3p",
                                     e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
@@ -6894,6 +7238,7 @@ def main(argv=None) -> int:
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
                                 "3r": e2e_launches["3r"]["dense"][k], "3n": e2e_launches["3n"]["path"][k],
                                 "3n-refresh": e2e_launches["3n"]["refresh"][k],
+                                "3n-ladder": e2e_launches["3n-ladder"][k],
                                 "3p": e2e_launches["3p"]["train_dense"][k] + e2e_launches["3p"]["path"][k]},
              max_abs_err=kernel_rows[k]["max_abs_err"], ms=kernel_rows[k]["kernel_ms"],
              plain_ms=kernel_rows[k]["plain_ms"], bound_ms=kernel_rows[k]["bound_ms"],
@@ -6927,6 +7272,7 @@ def main(argv=None) -> int:
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
                                 "3r": e2e_launches["3r"]["sparse"][k], "3n": e2e_launches["3n"]["path"][k],
                                 "3n-refresh": e2e_launches["3n"]["refresh"][k],
+                                "3n-ladder": e2e_launches["3n-ladder"][k],
                                 "3p": e2e_launches["3p"]["train"][k] + e2e_launches["3p"]["path"][k]},
              max_abs_err=sparse_rows[k]["max_abs_err"],
              ms=sparse_rows[k]["kernel_ms"], plain_ms=sparse_rows[k]["plain_ms"],
@@ -6951,6 +7297,7 @@ def main(argv=None) -> int:
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
                                 "3r": e2e_launches["3r"]["dense"][k], "3n": e2e_launches["3n"]["path"][k],
                                 "3n-refresh": e2e_launches["3n"]["refresh"][k],
+                                "3n-ladder": e2e_launches["3n-ladder"][k],
                                 "3p": e2e_launches["3p"]["path"][k]},
              rank_sum_launches=sum(rank_sums.values()), rank_sum_launches_by_phase=rank_sums,
              **dist_rows[k])

@@ -19,12 +19,15 @@ reference's hygiene:
   bit, the latency within `probe_factor`, no new failed request): a
   regressing action is undone (`autopilot_rollback`, counter
   `autopilot_rollbacks`) and its rule quarantined (`rule_quarantined`,
-  `autopilot_quarantines`) until `reset_rule`.
+  `autopilot_quarantines`) until `reset_rule`. The precision ladder's
+  actions (`tier_demote`, `tier_restore`, through the registry's
+  `demote_tier` / `restore_tier`) are the one exception: their probe
+  scores are held to `contracts.TIER_TOLERANCES` of the coarser rung of
+  the step, not bit for bit.
 
 The `autopilot_act` fault site fires between a decision and its effect.
-The precision ladder's actions (`tier_demote`, `tier_restore`) raise
-(ROADMAP item 10f), so the loop rolls them back and quarantines their rule
-as it does any failed actuation.
+A `tier_demote` that the int8 error ceiling refuses relieves the pressure
+through the host tier instead, as the registry's pressure valve does.
 
 The port ends what the reference logs and survives (there is no
 fallback): the `photon-autopilot` worker dies on a tick that raises
@@ -46,7 +49,7 @@ import numpy as np
 
 from photon_ml_tpu_torch.autopilot.rules import Action, ControlRule, default_rules
 from photon_ml_tpu_torch.autopilot.sensors import SensorSnapshot, read_sensors
-from photon_ml_tpu_torch.contracts import AUTOPILOT_BLOCK_KEYS
+from photon_ml_tpu_torch.contracts import AUTOPILOT_BLOCK_KEYS, TIER_TOLERANCES
 from photon_ml_tpu_torch.utils import faults, telemetry
 from photon_ml_tpu_torch.utils.knobs import get_knob
 
@@ -71,8 +74,8 @@ class Autopilot:
     `tick_ms`; `start=False` leaves it inert for deterministic drive by
     `tick()`. Arguments left None take the PHOTON_AUTOPILOT_* knobs.
     `probe_requests` maps a tenant to a ScoreRequest whose answer must stay
-    bit for bit across any action (every actuator of the port is
-    bit-neutral); without it the probe checks failed requests only.
+    bit for bit across any action but a ladder step (held to its rung's
+    tolerance); without it the probe checks failed requests only.
     `sensor_fn` replaces `read_sensors` (scripted snapshots)."""
 
     def __init__(self, registry, *, rules: Optional[List[ControlRule]] = None,
@@ -231,7 +234,7 @@ class Autopilot:
                 self._rollback(rule, action, f"actuation failed: {exc}", None)
                 return
             post = self._probe()
-            regression = self._probe_regressed(pre, post)
+            regression = self._probe_regressed(pre, post, action)
             if regression is not None:
                 self._rollback(rule, action, regression, undo)
                 return
@@ -264,15 +267,29 @@ class Autopilot:
             self.registry.restore(name, reason="autopilot")
             return lambda: self.registry.demote(name, reason="autopilot-rollback")
         if kind == "tier_demote":
-            self.registry.demote_tier(action.tenant, to=action.params.get("to"), reason="autopilot")
-            return None
+            return self._apply_tier_demote(action)
         if kind == "tier_restore":
-            self.registry.restore_tier(action.tenant, to=str(action.params.get("to", "f32")),
-                                       reason="autopilot")
-            return None
+            name = action.tenant
+            prior = self.registry.tenant(name).tier
+            self.registry.restore_tier(name, to=str(action.params.get("to", "f32")), reason="autopilot")
+            return lambda: self.registry.demote_tier(name, to=prior, reason="autopilot-rollback")
         if kind == "retune":
             return self._apply_retune(action)
         raise ValueError(f"unknown action kind {kind!r}")
+
+    def _apply_tier_demote(self, action: Action) -> Callable[[], None]:
+        from photon_ml_tpu_torch.serving.tenancy import TierErrorCeilingExceeded
+
+        name = action.tenant
+        prior = self.registry.tenant(name).tier
+        try:
+            self.registry.demote_tier(name, to=action.params.get("to"), reason="autopilot")
+        except TierErrorCeilingExceeded:
+            # The rung would answer outside its tolerance: relieve the
+            # pressure through the bit-equal host tier, as the valve does.
+            self.registry.demote(name, reason="autopilot")
+            return lambda: self.registry.restore(name, reason="autopilot-rollback")
+        return lambda: self.registry.restore_tier(name, to=prior, reason="autopilot-rollback")
 
     def _apply_reshard(self, action: Action) -> Callable[[], None]:
         """Onto `devices` cards (None: every card of the registry's kind).
@@ -329,8 +346,10 @@ class Autopilot:
             probes[name] = {"scores": scores, "wall_s": min(walls)}
         return {"failed": failed, "probes": probes}
 
-    def _probe_regressed(self, pre: Dict[str, object], post: Dict[str, object]) -> Optional[str]:
+    def _probe_regressed(self, pre: Dict[str, object], post: Dict[str, object],
+                         action: Optional[Action] = None) -> Optional[str]:
         """None when the post-action probe holds the contract, else why not."""
+        tol = self._probe_tolerance(action)
         for name, n_pre in pre["failed"].items():
             n_post = post["failed"].get(name, n_pre)
             if n_post > n_pre:
@@ -339,13 +358,28 @@ class Autopilot:
             q = post["probes"].get(name)
             if q is None:
                 continue
-            if not np.array_equal(p["scores"], q["scores"]):
+            if tol is not None:
+                if not np.allclose(q["scores"], p["scores"], rtol=tol["rtol"], atol=tol["atol"]):
+                    return f"characterized spot-check failed for tenant {name!r}"
+            elif not np.array_equal(p["scores"], q["scores"]):
                 return f"bitwise spot-check failed for tenant {name!r}"
             bound = max(p["wall_s"] * self._probe_factor, p["wall_s"] + self._probe_floor_ms / 1e3)
             if q["wall_s"] > bound:
                 return (f"probe latency regressed for tenant {name!r} ({p['wall_s'] * 1e3:.2f}ms -> "
                         f"{q['wall_s'] * 1e3:.2f}ms)")
         return None
+
+    @staticmethod
+    def _probe_tolerance(action: Optional[Action]) -> Optional[Dict[str, float]]:
+        """The tolerance a ladder action's probe scores are held to (the
+        coarser of its from and to rungs: a restore's first probe answered
+        on the quantized generation), or None: bit for bit."""
+        if action is None or action.kind not in ("tier_demote", "tier_restore"):
+            return None
+        order = {"f32": 0, "bf16": 1, "int8": 2}
+        rungs = [str(action.params.get("to", "f32")), str(action.evidence.get("from_tier", "f32"))]
+        rung = max((r for r in rungs if r in order), key=lambda r: order[r], default="int8")
+        return TIER_TOLERANCES[rung]
 
     # ----------------------------------------------- rollback / quarantine
 

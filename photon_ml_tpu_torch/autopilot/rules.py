@@ -12,8 +12,10 @@ The five rules are the reference's, in its order (`default_rules`): the
 device-memory ladder (demote, restore), placement (shard grow, hot-row
 rebalance), then the wait retune, which writes through
 `planner.apply_online_decision` and so yields to an operator's knob.
-`hbm_demote_rule` leaves out the reference's PHOTON_TIER_LADDER branch:
-the precision ladder is ROADMAP item 10f, and its knob is not registered.
+With PHOTON_TIER_LADDER on, `hbm_demote_rule` steps the coldest
+quantizable tenant one precision rung down (past the planned
+`tier_bf16_pressure` to bf16, past `tier_int8_pressure` to int8) before it
+demotes any tenant to the host tier.
 """
 
 from __future__ import annotations
@@ -22,11 +24,11 @@ import dataclasses
 from typing import Callable, Dict, List, Optional
 
 from photon_ml_tpu_torch.autopilot.sensors import SensorSnapshot
+from photon_ml_tpu_torch.utils.knobs import get_knob
 
 __all__ = ["Action", "ControlRule", "default_rules"]
 
-# Action kinds the loop's dispatch understands (the ladder's two raise
-# until item 10f).
+# Action kinds the loop's dispatch understands.
 ACTION_KINDS = ("reshard", "rebalance", "demote", "restore", "retune", "tier_demote", "tier_restore")
 
 
@@ -164,12 +166,30 @@ def hbm_demote_rule(*, fire_above: float = 0.85, rearm_below: float = 0.6,
                     hot_rows: int = 0) -> ControlRule:
     """Device memory, downward: under budget pressure, demote the least
     recently active demotable tenant to the host tier (`hot_rows` rows a
-    random effect kept on the card)."""
+    random effect kept on the card). With PHOTON_TIER_LADDER on, the least
+    recently active quantizable tenant first steps one precision rung down
+    (bf16 once the pressure passes the planned `tier_bf16_pressure`, int8
+    past `tier_int8_pressure`); the host tier fires only when no step is
+    allowed at this pressure."""
 
     def signal(cur, prev):
         return cur.hbm_pressure
 
     def decide(cur, prev, sig):
+        if bool(get_knob("PHOTON_TIER_LADDER")):
+            from photon_ml_tpu_torch import planner
+
+            rung_at = {"bf16": float(planner.planned_value("tier_bf16_pressure")),
+                       "int8": float(planner.planned_value("tier_int8_pressure"))}
+            for t in sorted((t for t in cur.tenants.values() if t.can_quantize),
+                            key=lambda t: t.last_active):
+                to = "bf16" if t.tier == "f32" else "int8"
+                if sig < rung_at[to]:
+                    continue
+                return Action(kind="tier_demote", tenant=t.name, params={"to": to},
+                              evidence={"hbm_pressure": sig, "hbm_used": cur.hbm_used,
+                                        "hbm_budget": cur.hbm_budget, "victim_bytes": t.device_bytes,
+                                        "from_tier": t.tier, "rung_threshold": rung_at[to]})
         victims = [t for t in cur.tenants.values() if t.can_demote]
         if not victims:
             return None

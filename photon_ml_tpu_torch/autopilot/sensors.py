@@ -11,8 +11,9 @@ quantiles the retune rule reads.
 Snapshots are cumulative: loads, promotions and request counts only grow,
 and the loop hands each rule the previous snapshot beside the current one,
 so rules work on deltas. A rule handed `prev=None` (the first tick) must
-not fire. Until the precision ladder is ported (ROADMAP item 10f) every
-tenant's `tier` is "f32" and `can_quantize` is False.
+not fire. Each tenant's `tier` (its precision rung) and `can_quantize`
+(whether a ladder step down may pick it) are what the ladder-aware
+hbm-demote and hbm-restore rules read.
 """
 
 from __future__ import annotations
@@ -136,7 +137,7 @@ def read_sensors(registry) -> SensorSnapshot:
             name=t.name, demoted=t.demoted, can_demote=t.can_demote(), last_active=t.last_active,
             completed=t.completed, failed=t.failed, in_flight=t.in_flight, pending=len(t.queue),
             device_bytes=device_bytes, p95_ms=p95_by_label.get(label), p99_ms=p99_by_label.get(label),
-            coords=tuple(coords))
+            coords=tuple(coords), tier=t.tier, can_quantize=t.can_quantize())
     device = registry._device
     budget = registry._fleet_budget(device) if device is not None else None
     return SensorSnapshot(

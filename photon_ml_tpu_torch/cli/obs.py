@@ -105,8 +105,8 @@ def cmd_journal(args) -> int:
 
 # Event types rendered as timeline rows; the autopilot's rollback and
 # quarantine events ride along as indented annotations. The precision
-# ladder's (`tier_demote`, `tier_restore`) render from the reference's
-# journals; the port writes none until ROADMAP item 10f.
+# ladder's (`tier_demote`, `tier_restore`) come from the port's registry
+# (serving/tenancy.py) and the reference's alike.
 _DECISION_TYPES = ("plan_decision", "autopilot_decision", "shadow_verdict", "tier_demote",
                    "tier_restore")
 _ANNOTATION_TYPES = ("autopilot_rollback", "rule_quarantined")

@@ -229,8 +229,7 @@ CONTINUOUS_SECTION_KEYS = (
 
 # One tenant's block of the multi-tenant metrics (serving/tenancy.
 # TenantRegistry.metrics, the serving summary's `tenants`), and its `tier`
-# sub-block. The port has no precision ladder (ROADMAP item 10f): every
-# tenant reports tier "f32", 0 quantized coordinates and no error.
+# sub-block: the tenant's precision rung and its ladder history.
 TENANT_BLOCK_KEYS = (
     "completed",
     "failed",
@@ -259,6 +258,18 @@ TIER_BLOCK_KEYS = (
     "quant_error_max",
 )
 
+# The precision ladder's characterized parity (the reference's values, from
+# its cells of small weights and narrow rows): the tolerance a tenant's
+# answers served from quantized random-effect rows keep against its own f32
+# answers, by rung. bf16's error follows the sum of |x w| over a row, so wide
+# trained rows can pass it (ROADMAP, Queue 3). f32 is bitwise, and so is
+# every restore to f32 (built from the retained original rows).
+TIER_TOLERANCES = {
+    "f32": {"rtol": 0.0, "atol": 0.0},
+    "bf16": {"rtol": 1e-2, "atol": 1e-3},
+    "int8": {"rtol": 8e-2, "atol": 3e-2},
+}
+
 # The serving summary's `shadow` block (serving/shadow.ShadowController.summary).
 SHADOW_BLOCK_KEYS = (
     "champion",
@@ -277,9 +288,8 @@ SHADOW_BLOCK_KEYS = (
 
 # The run journal (utils/telemetry.RunJournal): the keys of every line, and
 # the schema of each event type the port emits (the reference's schemas).
-# The reference's precision-ladder events (`tier_demote`, `tier_restore`)
-# and `mesh_loss`'s reshard cousins across cards belong to layers the port
-# has not got (ROADMAP items 10f and 9c).
+# `mesh_loss`'s reshard cousins across cards belong to a layer the port has
+# not got (ROADMAP item 9c).
 JOURNAL_LINE_KEYS = ("ts", "type")
 JOURNAL_EVENT_SCHEMAS = {
     # The training lifecycle (utils/observability.journal_listener).
@@ -336,6 +346,9 @@ JOURNAL_EVENT_SCHEMAS = {
     "autopilot_decision": ("rule", "action", "evidence", "outcome"),
     "autopilot_rollback": ("rule", "action", "reason"),
     "rule_quarantined": ("rule", "reason", "rollbacks"),
+    # The precision ladder (serving/tenancy.TenantRegistry.demote_tier, restore_tier).
+    "tier_demote": ("tenant", "from_tier", "to_tier", "reason", "freed_bytes", "evidence"),
+    "tier_restore": ("tenant", "from_tier", "to_tier", "reason", "repinned_bytes", "evidence"),
 }
 
 # The sweep record chip_smoke.py's phase 3w prints (the reference bench's

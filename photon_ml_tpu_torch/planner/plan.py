@@ -18,11 +18,13 @@ The port plans the quantities it has: `ingest_chunk_rows` (the Python
 Avro route's chunk, io/avro_data.py), `serving_max_batch` and
 `serving_max_wait_ms` (the engine's bucket ceiling, the batcher's and the
 registry's flush wait), `refresh_batch_rows` and
-`refresh_max_delta_fraction` (cli/refresh.py, game/incremental.py). The
+`refresh_max_delta_fraction` (cli/refresh.py, game/incremental.py),
+`tier_bf16_pressure` and `tier_int8_pressure` (the pressures at which the
+autopilot's hbm-demote rule steps a tenant down the precision ladder). The
 reference's `pack_routing`, `assembly_routing`, `sparse_layout`,
-`prefetch_depth`, `scan_fusion_max`, `re_bucket_shapes`,
-`bench_score_reps` and the precision ladder's `tier_*` have no counterpart
-in the port (ROADMAP, Known differences); naming one raises.
+`prefetch_depth`, `scan_fusion_max`, `re_bucket_shapes` and
+`bench_score_reps` have no counterpart in the port (ROADMAP, Known
+differences); naming one raises.
 
 Every fit and serving run records the active plan as a `plan` block
 (contracts.PLAN_BLOCK_KEYS), and `install_plan` journals one
@@ -63,6 +65,8 @@ KNOB_FOR: Dict[str, str] = {
     "ingest_chunk_rows": "PHOTON_STREAM_CHUNK_ROWS",
     "refresh_batch_rows": "PHOTON_REFRESH_BATCH_ROWS",
     "refresh_max_delta_fraction": "PHOTON_REFRESH_MAX_DELTA_FRACTION",
+    "tier_bf16_pressure": "PHOTON_TIER_BF16_PRESSURE",
+    "tier_int8_pressure": "PHOTON_TIER_INT8_PRESSURE",
 }
 
 

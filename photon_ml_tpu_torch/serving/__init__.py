@@ -12,9 +12,11 @@ fit's delta bundle through the same generation change. `tenancy.py`
 serves several named tenants on the card (`TenantRegistry`: quotas,
 deadlines, weighted-fair co-batching bit-equal to solo dispatch, per-tenant
 failure domains, demotion of cold tenants to the host tier, the
-`TwoTierEntityStore` of `bundle.py`), and `shadow.py` evaluates a
-challenger online beside the champion and promotes or rejects it.
-`reshard.py` is not ported (ROADMAP item 9c).
+`TwoTierEntityStore` of `bundle.py`, and the precision ladder that
+quantizes a tenant's random-effect rows to bf16 or int8 and restores them),
+and `shadow.py` evaluates a challenger online beside the champion and
+promotes or rejects it. `reshard.py` moves placement on one card; across
+cards it is ROADMAP item 9c.
 """
 
 from photon_ml_tpu_torch.serving.batcher import MicroBatcher

@@ -266,7 +266,10 @@ class MicroBatcher:
     def _ripe_locked(self) -> bool:
         if not self._pending:
             return False
-        if len(self._pending) >= self.max_batch:
+        # A full batch counts live requests only: a cancelled one is dropped
+        # at the claim, and counting it would claim a short batch and strand
+        # the next live request for the whole wait.
+        if sum(not item[1].cancelled() for item in self._pending) >= self.max_batch:
             return True
         front = self._pending[0]
         now = time.monotonic()

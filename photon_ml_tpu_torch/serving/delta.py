@@ -184,7 +184,11 @@ def build_delta_bundle(prev: FitState, new: FitState, *, source: str, mode: str 
 
 def _apply_re_delta(c: ServingCoordinate, d: CoordinateDelta, device: torch.device) -> ServingCoordinate:
     """Stage one random effect's next generation from its resident matrix
-    and the delta rows, in a new tensor (the module docstring)."""
+    and the delta rows, in a new tensor (the module docstring). A quantized
+    coordinate is refused: its delta rows are float32."""
+    if c.tier != "f32":
+        raise ValueError(f"coordinate {d.cid!r} is quantized to {c.tier!r}; a delta applies "
+                         "float32 rows (restore_bundle_precision first)")
     old = c.params
     rows = torch.as_tensor(d.rows)
     if c.store is not None:

@@ -40,14 +40,19 @@ armed plan to one tenant's engine). The engine raises; retry, per-request
 fallback and circuit routing live in the batcher. The watchdog guards
 live-traffic dispatches only.
 
-Kinds: "fe" (weight vector), "re" (single-tier matrix) and "re2" (the
+Kinds: "fe" (weight vector), "re" (single-tier matrix), "re2" (the
 two-tier store: rows resolve against the hot plane, and cold hits are
 overridden by the rows the pack copied out of host RAM, two more static
 buffers of the program; the override row is the matrix row, so the margin
-is the single-tier one). A two-tier batch resolves its slots at the store's
-`epoch`; under the device mutex, before it replays, a batch whose epoch has
-moved (a promotion wrote the plane in place) resolves them again. The
-reference's row-sharded and quantized kinds are ROADMAP items 9c and 10f.
+is the single-tier one), and the precision ladder's "re_bf16" and "re_i8"
+(the gathered (B, dim) rows of a bf16 plane widened to float32, or of an
+int8 plane widened and multiplied by each row's scale, inside the bucket
+program: the matrix is never dequantized whole). A change of kind is a
+new program family, captured in the pre-warm of the generation change. A
+two-tier batch resolves its slots at the store's `epoch`; under the device
+mutex, before it replays, a batch whose epoch has moved (a promotion wrote
+the plane in place) resolves them again. The reference's row-sharded kind
+is ROADMAP item 9c.
 """
 
 from __future__ import annotations
@@ -100,7 +105,8 @@ def _score_program(offsets: Tensor, feats: Dict[str, Tensor], rows: Tuple[Option
                    task: TaskType) -> Tuple[Tensor, Tensor]:
     """The bucket program: offsets plus each coordinate's margins, in
     coordinate order (as GameTransformer.transform sums them), and the mean.
-    `overrides[k]` is a two-tier coordinate's (values, flags)."""
+    `overrides[k]` is a two-tier coordinate's (values, flags); `params[k]`
+    of an int8 coordinate is (plane, per-row scales)."""
     total = offsets
     for k, kind in enumerate(kinds):
         f = feats[shards[k]]
@@ -112,10 +118,26 @@ def _score_program(offsets: Tensor, feats: Dict[str, Tensor], rows: Tuple[Option
             vals, flags = overrides[k]
             w = torch.where(flags[:, None], vals, params[k][rows[k]])
             total = total + gathered_row_margins(f, w, norms[k])
+        elif kind == "re_bf16":
+            w = params[k][rows[k]].to(torch.float32)
+            total = total + gathered_row_margins(f, w, norms[k])
+        elif kind == "re_i8":
+            plane, scales = params[k]
+            w = plane[rows[k]].to(torch.float32) * scales[rows[k]][:, None]
+            total = total + gathered_row_margins(f, w, norms[k])
         else:
-            raise ValueError(f"coordinate kind {kind!r} is not ported (the port serves 'fe', 're' "
-                             "and 're2')")
+            raise ValueError(f"coordinate kind {kind!r} is not ported (the port serves 'fe', 're', "
+                             "'re2', 're_bf16' and 're_i8')")
     return total, mean_for_task(task, total)
+
+
+def _kind(c: ServingCoordinate) -> str:
+    """The bucket program's kind for one coordinate."""
+    if not c.is_random_effect:
+        return "fe"
+    if c.store is not None:
+        return "re2"
+    return {"f32": "re", "bf16": "re_bf16", "int8": "re_i8"}[c.tier]
 
 
 def capture_graph(program, device: torch.device) -> Tuple["torch.cuda.CUDAGraph", Tensor]:
@@ -174,7 +196,8 @@ class _BucketProgram:
         self.host_ovr_flags = {cid: torch.zeros(bucket, dtype=torch.bool, pin_memory=cuda)
                                for cid in self.ovr}
         self.host_out = torch.zeros((2, bucket), dtype=f32, pin_memory=cuda)
-        params = tuple(c.params for c in state.coords)
+        params = tuple((c.params, c.scales) if kind == "re_i8" else c.params
+                       for c, kind in zip(state.coords, state.kinds))
         norms = tuple(c.norm for c in state.coords)
         rows = tuple(self.rows.get(c.cid) for c in state.coords)
         overrides = tuple((self.ovr[c.cid], self.ovr_flags[c.cid]) if c.cid in self.ovr else None
@@ -411,9 +434,7 @@ class ServingEngine:
         for c in coords:
             if c.store is not None:
                 c.store.bind_device_mutex(self._device_mutex)
-        return _EngineState(bundle=bundle, coords=coords,
-                            kinds=tuple(("re2" if c.store is not None else "re")
-                                        if c.is_random_effect else "fe" for c in coords),
+        return _EngineState(bundle=bundle, coords=coords, kinds=tuple(_kind(c) for c in coords),
                             coord_shards=tuple(c.shard for c in coords),
                             shard_dims=bundle.shard_dims(), version=version)
 

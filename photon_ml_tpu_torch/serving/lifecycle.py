@@ -422,9 +422,10 @@ class BundleManager:
         in-flight batches and its release. Any failure before the flip rolls
         back (counted and journalled by kind) and re-raises: the old
         generation never stopped serving. Kinds "demote" and "restore" (the
-        multi-tenant registry's host-tier moves, which change the program
-        family) skip the compatibility check, fire no commit site and count
-        no rollback. A tenant engine's co-batch captures (its
+        multi-tenant registry's host-tier moves) and "tier_demote" and
+        "tier_restore" (its precision-ladder steps), which change the program
+        family, skip the compatibility check, fire no commit site and count
+        no rollback here (the registry counts a ladder step's). A tenant engine's co-batch captures (its
         `_prewarm_hook`) run after the pre-warm, before the commit; its
         `_retire_hook` gets the state that will never serve again: the
         retired one after the drain, or the staged one on a rollback. Stores

@@ -72,13 +72,17 @@ class ReshardPlan:
 def plan_reshard(bundle: ServingBundle, new_mesh=None) -> ReshardPlan:
     """The bundle-wide plan: every single-tier random effect (fixed effects
     and two-tier stores carry over untouched). A mesh of cards raises (item
-    9c), and so does a coordinate staged in row blocks."""
+    9c), and so does a coordinate staged in row blocks or quantized (the
+    restage copies float32 rows)."""
     if new_mesh is not None:
         raise NotImplementedError(f"plan_reshard: {_ACROSS_CARDS}")
     cids = []
     for c in bundle.coordinates.values():
         if not c.is_random_effect or c.store is not None or c.shard_health is None:
             continue
+        if c.tier != "f32":
+            raise ValueError(f"coordinate {c.cid!r} is quantized to {c.tier!r} — resharding "
+                             "requires full-precision rows (restore_bundle_precision first)")
         if c.row_blocks is not None or c.shard_health.n_shards != 1:
             raise ValueError(f"coordinate {c.cid!r} is staged in {c.shard_health.n_shards} row blocks "
                              "(a multi-host worker's placement); its placement changes by a restage")

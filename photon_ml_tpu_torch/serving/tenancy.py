@@ -51,18 +51,33 @@ free:
   (`HbmBudgetExceeded`) only when nothing fits after every demotion. The
   valve keeps no hot rows; `demote(name, hot_rows=n)` keeps n rows of each
   random effect on the card.
+* **The precision ladder.** `demote_tier` walks a tenant's random-effect
+  rows down f32 -> bf16 -> int8 -> host, one rung a call (or to the rung
+  `to=`), and `restore_tier` walks them back up; each quantized step is a
+  generation change through `BundleManager._stage_and_commit` (quantize,
+  pre-warm the new kind's programs, commit, drain), and the step to f32 is
+  bit-equal (built from the retained original rows). A quantized tenant
+  answers as float32 scoring over its dequantized rows (the error against
+  its f32 answers is what `contracts.TIER_TOLERANCES[rung]` characterizes),
+  and dispatches solo (no co-batch signature). An int8 step whose round-trip
+  error passes PHOTON_TIER_INT8_ERROR_CEILING raises
+  `TierErrorCeilingExceeded` before the commit. With PHOTON_TIER_LADDER on,
+  the pressure valve steps the coldest quantizable tenant one rung down
+  before it demotes any tenant to the host tier.
 
 Fault sites: `tenant_admit` (staging a tenant, bounded retry; a failure
-leaves the registry without it) and `tenant_evict` (the demotion build,
+leaves the registry without it), `tenant_evict` (the demotion build,
 bounded retry; a failure rolls back and the tenant keeps serving its
-device-resident generation). Journal events: `tenant_admit`,
-`tenant_evict`, `tenant_restore` and `tenant_degraded`.
+device-resident generation), `quantize_stage` and `tier_restore` (a ladder
+step's build, bounded retry; a failure rolls back, counted in
+`tier_rollbacks`, with the old generation serving). Journal events:
+`tenant_admit`, `tenant_evict`, `tenant_restore`, `tenant_degraded`,
+`tier_demote` and `tier_restore`.
 
 `max_batch` and `max_wait_ms` default to the planner's
 `serving_max_batch` and `serving_max_wait_ms`; `retune(max_wait_ms=)`
 moves the wait live (the autopilot's retune actuator), never the bucket
-ladder. Not ported: the precision ladder (`demote_tier`, `restore_tier`:
-ROADMAP item 10f).
+ladder.
 """
 
 from __future__ import annotations
@@ -81,10 +96,13 @@ from photon_ml_tpu_torch.contracts import TENANT_BLOCK_KEYS, TIER_BLOCK_KEYS
 from photon_ml_tpu_torch.game.model import gathered_row_margins
 from photon_ml_tpu_torch.ops.losses import mean_for_task
 from photon_ml_tpu_torch.serving.bundle import (
+    PRECISION_LADDER,
     ScoreRequest,
     ServingBundle,
     demote_bundle_to_host_tier,
     promote_bundle_from_host_tier,
+    quantize_bundle_rows,
+    restore_bundle_precision,
 )
 from photon_ml_tpu_torch.serving.engine import (
     ScoreResult,
@@ -112,7 +130,12 @@ Tensor = torch.Tensor
 # One queued request: (request, future, submit time, absolute expiry or None).
 _Pending = Tuple[ScoreRequest, Future, float, Optional[float]]
 
-_PRECISION_LADDER = "the precision ladder is ROADMAP item 10f (not ported)"
+
+class TierErrorCeilingExceeded(RuntimeError):
+    """An int8 quantization's measured round-trip error passed
+    PHOTON_TIER_INT8_ERROR_CEILING: the build is dropped before the commit
+    and the tenant stays on its rung (a ladder walker falls through to the
+    bit-equal host tier instead)."""
 
 
 def _cobatch_program(offsets: Tensor, tids: Tensor, feats: Sequence[Tensor], rows: tuple,
@@ -247,6 +270,15 @@ class Tenant:
         self.cobatch_degraded = 0
         self.latency = telemetry.LatencyStats()
         self._seen_reasons: Tuple[str, ...] = ()
+        # The precision ladder: the rung ("f32", "bf16", "int8"; a tenant
+        # demoted to the host tier keeps its last rung beside demoted=True),
+        # its transitions, and the worst round-trip error measured (None
+        # until the first quantization): the metrics' `tier` block.
+        self.tier = "f32"
+        self.tier_demotions = 0
+        self.tier_restores = 0
+        self.tier_rollbacks = 0
+        self.quant_error_max: Optional[float] = None
 
     @property
     def bundle(self) -> ServingBundle:
@@ -262,6 +294,17 @@ class Tenant:
         if self.demoted:
             return False
         return all(c.row_blocks is None for c in self.engine._state.coords)
+
+    def can_quantize(self) -> bool:
+        """Whether a ladder step down may pick this tenant: not demoted, not
+        on the last quantized rung, no coordinate staged in row blocks, and
+        a single-tier random-effect matrix left to shrink."""
+        if self.demoted or self.tier == PRECISION_LADDER[-1]:
+            return False
+        st = self.engine._state
+        if any(c.row_blocks is not None for c in st.coords):
+            return False
+        return any(kind in ("re", "re_bf16") for kind in st.kinds)
 
     def signature(self, state=None) -> Optional[tuple]:
         """The co-batch key of this tenant's (or `state`'s) generation, or
@@ -361,6 +404,11 @@ class TenantRegistry:
             raise ValueError(f"tenant {name!r} is staged on {staged.device}; the registry serves "
                              f"on {self._device}")
 
+        # With PHOTON_TIER_LADDER on, each relief step takes the coldest
+        # tenant that can step one precision rung down, before any tenant
+        # goes to the host tier (fleet-wide: an int8 tenant colder than it
+        # does not go to the host first).
+        ladder = bool(get_knob("PHOTON_TIER_LADDER"))
         demoted: List[str] = []
         need = _bundle_device_bytes(staged)
         budget = self._fleet_budget(staged.device)
@@ -368,7 +416,8 @@ class TenantRegistry:
             while budget is not None:
                 with self._cv:
                     have = sum(t.device_bytes() for t in self._tenants.values())
-                    victims = sorted((t for t in self._tenants.values() if t.can_demote()),
+                    victims = sorted((t for t in self._tenants.values()
+                                      if t.can_demote() or (ladder and t.can_quantize())),
                                      key=lambda t: (t.last_active, t.order))
                 if have + need <= budget:
                     break
@@ -377,8 +426,17 @@ class TenantRegistry:
                         f"admitting tenant {name!r} needs {need} bytes beside {have} resident "
                         f"bytes (budget {budget}); every demotable resident tenant is already on "
                         "the host tier")
-                self.demote(victims[0].name, reason="hbm_pressure")
-                demoted.append(victims[0].name)
+                victim = next((t for t in victims if ladder and t.can_quantize()), victims[0])
+                if ladder and victim.can_quantize():
+                    try:
+                        self.demote_tier(victim.name, reason="hbm_pressure")
+                    except TierErrorCeilingExceeded:
+                        # int8 would answer outside its tolerance: the
+                        # bit-equal host tier relieves this victim instead.
+                        self.demote(victim.name, reason="hbm_pressure")
+                else:
+                    self.demote(victim.name, reason="hbm_pressure")
+                demoted.append(victim.name)
         except BaseException:
             if builder is not None:
                 staged.release()
@@ -463,8 +521,9 @@ class TenantRegistry:
     def restore(self, name: str, *, reason: str = "manual") -> int:
         """Bring a demoted tenant's random effects back onto the device (the
         inverse of `demote`, bit-equal: the matrices are the cold tier's
-        rows), through the same pre-warm, flip and drain. Returns the device
-        bytes re-pinned (0 if not demoted)."""
+        rows, a quantized tenant's original ones), through the same
+        pre-warm, flip and drain; the tenant is on the f32 rung after it.
+        Returns the device bytes re-pinned (0 if not demoted)."""
         t = self._tenant(name)
         if not t.demoted:
             return 0
@@ -480,6 +539,7 @@ class TenantRegistry:
             with telemetry.metric_label_scope(tenant=name):
                 manager._stage_and_commit(old_state, stage, kind="restore")
             t.demoted = False
+            t.tier = "f32"
             faults.COUNTERS.increment("tenant_restores")
         repinned = _bundle_device_bytes(t.engine.bundle) - old_bytes
         telemetry.emit_event("tenant_restore", tenant=name, reason=reason,
@@ -489,10 +549,121 @@ class TenantRegistry:
         return int(repinned)
 
     def demote_tier(self, name: str, *, to: Optional[str] = None, reason: str = "manual") -> int:
-        raise NotImplementedError(f"demote_tier: {_PRECISION_LADDER}")
+        """Walk tenant `name` down the precision ladder, f32 -> bf16 -> int8
+        -> host: one rung, or to the rung `to` ("bf16", "int8", "host"). A
+        quantized step runs its build under the `quantize_stage` site with
+        bounded retry; a terminal failure leaves the old generation serving
+        (`tier_rollbacks`). An int8 step past PHOTON_TIER_INT8_ERROR_CEILING
+        raises `TierErrorCeilingExceeded` before the commit; walking past it
+        to "host" skips the refused rung. The host rung is `demote()`, built
+        from the original float32 rows. Returns the device bytes freed."""
+        t = self._tenant(name)
+        ladder = (*PRECISION_LADDER, "host")
+        if to is not None and to not in ladder[1:]:
+            raise ValueError(f"unknown precision rung {to!r} (ladder: {ladder[1:]})")
+        if t.demoted:
+            return 0
+        idx = ladder.index(t.tier)
+        tgt = idx + 1 if to is None else ladder.index(to)
+        freed = 0
+        for rung in ladder[idx + 1: tgt + 1]:
+            if rung == "host":
+                freed += self.demote(name, reason=reason)
+                continue
+            try:
+                freed += self._tier_step(t, rung, reason, down=True)
+            except TierErrorCeilingExceeded:
+                if tgt > ladder.index(rung):
+                    continue  # the host rung below is bit-equal: keep descending
+                raise
+        return int(freed)
 
-    def restore_tier(self, name: str, *, to: Optional[str] = None, reason: str = "manual") -> int:
-        raise NotImplementedError(f"restore_tier: {_PRECISION_LADDER}")
+    def restore_tier(self, name: str, *, to: str = "f32", reason: str = "manual") -> int:
+        """Walk tenant `name` back up toward the rung `to` (default f32):
+        host -> int8 -> bf16 -> f32, a rung a step, the host rung by
+        `restore()` (which lands on f32). A quantized step's build runs
+        under the `tier_restore` site with bounded retry; the step to f32 is
+        bit-equal, and int8 -> bf16 rounds the same original rows again.
+        Returns the device bytes re-pinned."""
+        t = self._tenant(name)
+        if to not in PRECISION_LADDER:
+            raise ValueError(f"unknown precision rung {to!r} (ladder: {PRECISION_LADDER})")
+        repinned = 0
+        if t.demoted:
+            repinned += self.restore(name, reason=reason)
+        tgt = PRECISION_LADDER.index(to)
+        while PRECISION_LADDER.index(t.tier) > tgt:
+            rung = PRECISION_LADDER[PRECISION_LADDER.index(t.tier) - 1]
+            repinned += self._tier_step(t, rung, reason, down=False)
+        return int(repinned)
+
+    def _tier_step(self, t: Tenant, rung: str, reason: str, *, down: bool) -> int:
+        """One committed rung, down (quantize) or up (toward f32), through
+        the engine's BundleManager under its mutex (a swap and a ladder step
+        order, never race): build, the int8 ceiling, pre-warm of the new
+        kind's programs, commit, drain. Returns the bytes freed (down) or
+        re-pinned (up)."""
+        from_tier = t.tier
+        site = "quantize_stage" if down else "tier_restore"
+        manager = t.engine.bundle_manager
+        errors: Dict[str, float] = {}
+        with manager.mutex:
+            old_state = t.engine._state
+            old_bytes = _bundle_device_bytes(old_state.bundle)
+
+            def build():
+                faults.fault_point(site)
+                if rung == "f32":
+                    return restore_bundle_precision(old_state.bundle), {}
+                return quantize_bundle_rows(old_state.bundle, rung)
+
+            def stage():
+                bundle, errs = faults.retry(build, label=f"tenant {t.name} {rung} "
+                                            + ("quantization" if down else "restore"))
+                err_max = max(errs.values(), default=0.0)
+                ceiling = float(get_knob("PHOTON_TIER_INT8_ERROR_CEILING"))
+                if down and rung == "int8" and err_max > ceiling:
+                    bundle.release(close_stores=False)
+                    raise TierErrorCeilingExceeded(
+                        f"tenant {t.name!r}: int8 round-trip error {err_max:.4g} exceeds the "
+                        f"PHOTON_TIER_INT8_ERROR_CEILING of {ceiling}; staying at {from_tier!r}")
+                for err in errs.values():
+                    telemetry.METRICS.observe("tier_quant_error", err)  # labelled by the tenant
+                errors.update(errs)
+                return bundle
+
+            with telemetry.metric_label_scope(tenant=t.name):
+                try:
+                    info = manager._stage_and_commit(old_state, stage,
+                                                     kind="tier_demote" if down else "tier_restore")
+                except BaseException:
+                    # Nothing committed: the old generation never stopped serving.
+                    t.tier_rollbacks += 1
+                    faults.COUNTERS.increment("tier_rollbacks")
+                    raise
+                t.tier = rung
+                if errors:
+                    t.quant_error_max = max(t.quant_error_max or 0.0, max(errors.values()))
+                if down:
+                    t.tier_demotions += 1
+                    faults.COUNTERS.increment("tier_demotions")
+                else:
+                    t.tier_restores += 1
+                    faults.COUNTERS.increment("tier_restores")
+            moved = info["staged_bytes"] - old_bytes  # the staged bundle's device bytes
+        if down:
+            telemetry.emit_event("tier_demote", tenant=t.name, from_tier=from_tier, to_tier=rung,
+                                 reason=reason, freed_bytes=int(-moved),
+                                 evidence={"quant_error_max": max(errors.values(), default=0.0),
+                                           "quantized_coordinates": len(errors)})
+        else:
+            telemetry.emit_event("tier_restore", tenant=t.name, from_tier=from_tier, to_tier=rung,
+                                 reason=reason, repinned_bytes=int(moved),
+                                 evidence={"quantized_coordinates": len(errors)})
+        logger.info("tenant %r stepped %s the precision ladder %s -> %s (%s): %.2f MB %s", t.name,
+                    "down" if down else "up", from_tier, rung, reason, abs(moved) / 1e6,
+                    "freed" if down else "re-pinned")
+        return int(-moved if down else moved)
 
     def retune(self, *, max_wait_ms: Optional[float] = None) -> Dict[str, float]:
         """Move the co-batched path's flush wait live (the autopilot's retune
@@ -771,7 +942,7 @@ class TenantRegistry:
         for t in self._tenants.values():
             if not t.queue:
                 continue
-            pending += len(t.queue)
+            pending += sum(not item[1].cancelled() for item in t.queue)  # live ones, as the batcher
             front = t.queue[0]
             if front[3] is not None and now >= front[3]:
                 return True  # an expired head: claim it to fail it promptly
@@ -1029,8 +1200,8 @@ class TenantRegistry:
 
     def metrics(self) -> Dict[str, object]:
         """Co-batch accounting and one TENANT_BLOCK_KEYS block per tenant
-        (every key present; the `tier` sub-block is the single f32 rung the
-        port has)."""
+        (every key present; the `tier` sub-block, TIER_BLOCK_KEYS, is the
+        tenant's rung and ladder history)."""
         with self._cv:
             tenants = list(self._tenants.values())
             cobatch = self._cobatch_dispatches
@@ -1071,7 +1242,9 @@ class TenantRegistry:
                 "demoted": t.demoted,
                 "device_bytes": t.device_bytes(),
                 "watchdog_trips": int(wd_labeled.get(f"tenant={t.name}", 0)),
-                "tier": dict(zip(TIER_BLOCK_KEYS, ("f32", 0, 0, 0, 0, None))),
+                "tier": dict(zip(TIER_BLOCK_KEYS, (
+                    t.tier, sum(k in ("re_bf16", "re_i8") for k in t.engine._state.kinds),
+                    t.tier_demotions, t.tier_restores, t.tier_rollbacks, t.quant_error_max))),
             }
             assert tuple(block) == TENANT_BLOCK_KEYS
             out["tenants"][t.name] = block

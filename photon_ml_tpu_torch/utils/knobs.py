@@ -11,9 +11,8 @@ raises, so a knob cannot be read without landing in this table.
 so that `load_bundle` can refuse it: the row-sharded store it selects is
 ROADMAP item 9c. The multi-tenant registry's (`PHOTON_TENANT_MAX_PENDING`,
 `PHOTON_TENANT_HBM_FRACTION`) and the shadow controller's
-(`PHOTON_SHADOW_*`) are the reference's; the precision ladder's
-`PHOTON_TIER_*` are not registered (item 10f), so reading one raises. The solver's and the sweep
-executor's knobs (`PHOTON_SOLVE_RETRIES`, `PHOTON_SWEEP_*`) are the
+(`PHOTON_SHADOW_*`) are the reference's, and so are the precision
+ladder's (`PHOTON_TIER_*`). The solver's and the sweep executor's knobs (`PHOTON_SOLVE_RETRIES`, `PHOTON_SWEEP_*`) are the
 reference's; `PHOTON_SWEEP_SCAN` is not registered, because the port has no
 scan-dispatched bucket sweep. The multi-host supervisor's
 (`PHOTON_HOST_HEARTBEAT_MS`, `PHOTON_HOST_LOSS_RETRIES`) are the
@@ -139,6 +138,29 @@ _register("PHOTON_SHADOW_MIRROR_FRACTION", float, 1.0,
 _register("PHOTON_SERVING_HBM_BUDGET_BYTES", int, 0,
           "Device-memory budget a bundle hot-swap must fit in; 0 = the card's total "
           "memory (no check on the CPU).")
+_register("PHOTON_TIER_LADDER", bool, False,
+          "Precision-tier graceful degradation: 1 makes the HBM pressure valve "
+          "and the autopilot's hbm-demote rule walk the f32 -> bf16 -> int8 -> "
+          "host ladder (quantize-in-place before host-tier demotion); 0 "
+          "(default) keeps the all-or-nothing host demotion and the bitwise "
+          "serving contract. Opt-in because a "
+          "quantized tenant answers under a CHARACTERIZED tolerance "
+          "(contracts.TIER_TOLERANCES), not bitwise.")
+_register("PHOTON_TIER_BF16_PRESSURE", float, 0.85,
+          "Precision ladder: HBM pressure (pinned bytes / fleet budget) above "
+          "which the autopilot's ladder-aware hbm-demote rule quantizes the "
+          "coldest f32 tenant's RE rows to bf16 (the first, cheapest rung).")
+_register("PHOTON_TIER_INT8_PRESSURE", float, 0.92,
+          "Precision ladder: HBM pressure above which a bf16 tenant steps down "
+          "to int8 rows (per-row symmetric scales); past int8 the only rung "
+          "left is the host tier. Must be >= PHOTON_TIER_BF16_PRESSURE "
+          "for the ladder to walk in order.")
+_register("PHOTON_TIER_INT8_ERROR_CEILING", float, 0.1,
+          "Precision ladder: refuse an int8 quantization whose measured worst "
+          "per-coordinate relative round-trip error exceeds this ceiling — the "
+          "tenant stays at bf16 and pressure relief falls through to the host "
+          "tier instead of serving answers outside the characterized "
+          "tolerance.")
 _register("PHOTON_SWEEP_TRIAL_STACK", str, "",
           "Trial-stacked hyperparameter sweep evaluation (hyperparameter/sweep.py: k "
           "reg-weight trials in chunks over resident data, one host fetch a chunk): 1 "

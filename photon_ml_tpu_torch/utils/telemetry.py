@@ -122,6 +122,15 @@ METRIC_DESCRIPTIONS = {
     "post-action contract probe regressed",
     "autopilot_quarantines": "control rules benched after a rollback "
     "until an operator reset",
+    "tier_demotions": "precision-ladder steps down (f32->bf16->int8->"
+    "host) committed on a serving tenant",
+    "tier_restores": "precision-ladder steps back up toward f32 "
+    "committed on a serving tenant",
+    "tier_rollbacks": "ladder transitions abandoned after retry "
+    "exhaustion, the old generation still serving",
+    "tier_quant_error": "per-coordinate worst relative round-trip error "
+    "measured at each quantization (labeled per tenant) — the "
+    "characterized-parity evidence behind contracts.TIER_TOLERANCES",
 }
 
 _BUCKETS_PER_DECADE = 16

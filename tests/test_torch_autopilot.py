@@ -10,7 +10,9 @@ its one-card actuators, against the JAX package's, on the CPU.
   * on a small port TenantRegistry with a two-tier tenant, each actuator
     (demote, restore, rebalance, retune, reshard onto one card) applies
     with every answer bit-equal before and after; the precision ladder's
-    actions and an armed `autopilot_act` roll back and quarantine;
+    actions apply (a step to bf16 answers as the quantized bundle's own
+    engine, a restore to f32 bit-equal to the answers before the demotion)
+    and an armed `autopilot_act` rolls back and quarantines;
   * the sensors read per-tenant latency from the labelled histograms;
   * a worker that dies fails `close()`;
   * `cli.serve --tenant x2 --autopilot --profile` writes the `autopilot`
@@ -36,7 +38,8 @@ from photon_ml_tpu_torch import autopilot, planner
 from photon_ml_tpu_torch.cli import obs
 from photon_ml_tpu_torch.cli import serve as serve_cli
 from photon_ml_tpu_torch.contracts import AUTOPILOT_BLOCK_KEYS
-from photon_ml_tpu_torch.serving import TenantRegistry
+from photon_ml_tpu_torch.serving import ServingEngine, TenantRegistry
+from photon_ml_tpu_torch.serving.bundle import quantize_bundle_rows
 from photon_ml_tpu_torch.utils import faults, telemetry
 
 from tests.test_torch_tenancy import _bundle, _docs, _reqs, _save, _write_requests
@@ -226,9 +229,13 @@ def _scores(reg, names, reqs):
 
 
 def _rule(kind, tenant, **params):
+    # A ladder step names its rung as the built-in rules do: the probe holds
+    # it to the coarser rung's tolerance.
+    evidence = {"from_tier": "bf16"} if kind == "tier_restore" else {}
     return autopilot.ControlRule(
         name=kind, signal=lambda c, p: 1.0, fire_above=0.5, rearm_below=0.0,
-        decide=lambda c, p, s: autopilot.Action(kind=kind, tenant=tenant, params=params))
+        decide=lambda c, p, s: autopilot.Action(kind=kind, tenant=tenant, params=params,
+                                                evidence=evidence))
 
 
 ACTIONS = {
@@ -238,6 +245,7 @@ ACTIONS = {
     "retune": (None, {"serving_max_wait_ms": 0.5}),
     "reshard": ("a", {"devices": 1}),
     "tier_demote": ("a", {"to": "bf16"}),
+    "tier_restore": ("a", {"to": "f32"}),
     "fault": ("a", {"hot_rows": 0}),
 }
 
@@ -252,8 +260,11 @@ def test_each_actuator_keeps_every_answer_bit_equal(case):
         for _ in range(3):  # rows promoted, evicted and promoted again: the rebalance's stats
             _scores(reg, ["b"], reqs)
             store.drain()
+        f32 = _scores(reg, ["a", "b"], reqs)
         if case == "restore":
             reg.demote("a")
+        elif case == "tier_restore":
+            reg.demote_tier("a", to="bf16")
         before = _scores(reg, ["a", "b"], reqs)
         tenant, params = ACTIONS[case]
         kind = "demote" if case == "fault" else case
@@ -270,9 +281,17 @@ def test_each_actuator_keeps_every_answer_bit_equal(case):
         metrics = {n: reg.tenant(n).engine.metrics() for n in ("a", "b")}
         reg_metrics = reg.metrics()
         demoted = reg.tenant("a").demoted
+        tier = reg.tenant("a").tier
         new_store = reg.tenant("b").engine.bundle.coordinates["per-e"].store
-    assert before == after  # every answer, bit for bit
-    if case in ("tier_demote", "fault"):
+    if case == "tier_demote":  # a ladder step: "a" answers from its bf16 rows, the others bit-equal
+        assert after["b"] == before["b"] and tier == "bf16" and after["a"] != before["a"]
+        with ServingEngine(quantize_bundle_rows(_bundle(0), "bf16")[0], max_batch=8) as eng:
+            assert after["a"] == [(r.score, r.mean) for r in eng.score_batch(reqs)]
+    elif case == "tier_restore":  # back on f32: bit-equal to the answers before the demotion
+        assert after == f32 and tier == "f32"
+    else:
+        assert before == after  # every answer, bit for bit
+    if case == "fault":
         assert summary["rollbacks"] == 1 and summary["quarantined"] == [kind]
         assert faults.COUNTERS.get("autopilot_quarantines") == 1 and not demoted
         return
@@ -289,6 +308,8 @@ def test_each_actuator_keeps_every_answer_bit_equal(case):
         assert faults.COUNTERS.get("rebalanced_rows") == len(new_store.preloaded_rows) > 0
     elif case == "retune":
         assert reg.max_wait_s == 0.5e-3 and planner.planned_value("serving_max_wait_ms") == 0.5
+    elif case in ("tier_demote", "tier_restore"):
+        assert faults.COUNTERS.get("tier_demotions" if case == "tier_demote" else "tier_restores") == 1
     else:
         assert metrics["a"]["bundle_reshards"] == 1 and metrics["a"]["bundle_version"] == 1
 
@@ -301,9 +322,9 @@ def test_reshard_across_cards_and_the_ladder_raise_naming_their_items():
             orch.reshard(2)
         with pytest.raises(ValueError, match="two-tier store"):
             orch.rebalance("per-e")
-        for fn in (reg.demote_tier, reg.restore_tier):
-            with pytest.raises(NotImplementedError, match="item 10f"):
-                fn("a")
+        # The precision ladder is ported: one rung down and back.
+        assert reg.demote_tier("a") > 0 and reg.tenant("a").tier == "bf16"
+        assert reg.restore_tier("a") > 0 and reg.tenant("a").tier == "f32"
         assert reg.tenant("a").engine.metrics()["bundle_reshard_rollbacks"] == 0
 
 
@@ -338,7 +359,7 @@ def test_the_sensors_read_each_tenants_labelled_latency():
     for name in ("a", "b"):
         t = snap.tenants[name]
         assert t.completed == 16 and t.p95_ms is not None and t.p99_ms >= t.p95_ms
-        assert t.tier == "f32" and not t.can_quantize
+        assert t.tier == "f32" and t.can_quantize == (name == "a")  # "b" is two-tier
     assert snap.tenants["a"].coords[0].total_load > 0 and not snap.tenants["a"].coords[0].two_tier
     assert snap.tenants["b"].coords[0].two_tier and snap.tenants["b"].coords[0].promotions > 0
     assert snap.hbm_budget is None and snap.hbm_pressure is None  # no budget on the CPU

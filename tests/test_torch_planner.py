@@ -36,9 +36,9 @@ from photon_ml_tpu_torch.utils import telemetry
 # The quantities the port plans; the rest of the reference's have no
 # counterpart (ROADMAP, Known differences).
 PLANNED = ("ingest_chunk_rows", "serving_max_batch", "serving_max_wait_ms", "refresh_batch_rows",
-           "refresh_max_delta_fraction")
+           "refresh_max_delta_fraction", "tier_bf16_pressure", "tier_int8_pressure")
 KNOBS = ("PHOTON_PLAN", "PHOTON_PLAN_PROFILE", "PHOTON_STREAM_CHUNK_ROWS", "PHOTON_REFRESH_BATCH_ROWS",
-         "PHOTON_REFRESH_MAX_DELTA_FRACTION")
+         "PHOTON_REFRESH_MAX_DELTA_FRACTION", "PHOTON_TIER_BF16_PRESSURE", "PHOTON_TIER_INT8_PRESSURE")
 
 
 @pytest.fixture(autouse=True)
@@ -110,7 +110,8 @@ def test_precedence_is_the_references(name, monkeypatch):
     for pkg in (planner, jax_planner):
         assert pkg.planned_value(name) == pkg.default_for(name)
     value = {"ingest_chunk_rows": 131_072, "serving_max_batch": 32, "serving_max_wait_ms": 0.5,
-             "refresh_batch_rows": 1024, "refresh_max_delta_fraction": 0.75}[name]
+             "refresh_batch_rows": 1024, "refresh_max_delta_fraction": 0.75,
+             "tier_bf16_pressure": 0.75, "tier_int8_pressure": 0.875}[name]
     got = [pkg.apply_online_decision(name, value, evidence={"why": "test"}) for pkg in (planner, jax_planner)]
     assert got[0].as_dict() == got[1].as_dict() and got[0].source == "autopilot"
     assert planner.planned_value(name) == jax_planner.planned_value(name) == value
@@ -131,9 +132,12 @@ def test_precedence_is_the_references(name, monkeypatch):
 
 
 def test_unknown_and_unplanned_quantities_raise():
-    for name in ("prefetch_depth", "sparse_layout", "tier_bf16_pressure", "no_such_quantity"):
+    for name in ("prefetch_depth", "sparse_layout", "no_such_quantity"):
         with pytest.raises(KeyError):
             planner.planned_value(name)
+    for name in ("tier_bf16_pressure", "tier_int8_pressure"):  # planned, with the reference's knobs
+        assert planner.KNOB_FOR[name] == jax_planner.KNOB_FOR[name]
+        assert planner.planned_value(name) == jax_planner.planned_value(name)
 
 
 def _write(path, profile):

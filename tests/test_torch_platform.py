@@ -62,9 +62,10 @@ def test_knobs_have_the_reference_type_default_and_parsing(name, monkeypatch):
 
 def test_an_unregistered_knob_raises():
     with pytest.raises(KeyError):
-        knobs.get_knob("PHOTON_TIER_LADDER")  # the precision ladder's: ROADMAP item 10f
+        knobs.get_knob("PHOTON_SWEEP_SCAN")  # the scan-dispatched bucket sweep the port has not got
     with pytest.raises(KeyError):
         knobs.knob_is_set("PHOTON_NOT_A_KNOB")
+    assert knobs.get_knob("PHOTON_TIER_LADDER") is False  # the precision ladder's: registered
 
 
 # --------------------------------------------------------------------- faults
@@ -313,8 +314,8 @@ def test_spans_parent_across_a_thread_handoff_and_export(tmp_path):
 def test_a_port_journal_passes_the_reference_validator(tmp_path):
     """One line of each event type the port emits (the training lifecycle,
     the serving path, the sweep executor, the checkpoint, the multi-host
-    layers, refresh, tenancy, the shadow, the planner, the autopilot and the
-    one-card reshard)."""
+    layers, refresh, tenancy, the shadow, the planner, the autopilot, the
+    one-card reshard and the precision ladder)."""
     fields = {"setup": dict(args="{'device': 'cpu'}"), "fit_start": dict(num_samples=-1),
               "sweep_config": dict(index=0, total=2),
               "coordinate_update": dict(iteration=0, coordinate="global", seconds=0.25, accepted=True),
@@ -364,7 +365,12 @@ def test_a_port_journal_passes_the_reference_validator(tmp_path):
                                          evidence={"signal": 0.9}, outcome="applied"),
               "autopilot_rollback": dict(rule="bad", action={"kind": "demote", "tenant": "a", "params": {}},
                                          reason="bitwise spot-check failed for tenant 'a'"),
-              "rule_quarantined": dict(rule="bad", reason="bitwise spot-check failed", rollbacks=1)}
+              "rule_quarantined": dict(rule="bad", reason="bitwise spot-check failed", rollbacks=1),
+              "tier_demote": dict(tenant="a", from_tier="f32", to_tier="bf16", reason="hbm_pressure",
+                                  freed_bytes=256, evidence={"quant_error_max": 0.0025,
+                                                             "quantized_coordinates": 1}),
+              "tier_restore": dict(tenant="a", from_tier="bf16", to_tier="f32", reason="manual",
+                                   repinned_bytes=256, evidence={"quantized_coordinates": 0})}
     assert set(fields) == set(contracts.JOURNAL_EVENT_SCHEMAS)
     for etype, schema in contracts.JOURNAL_EVENT_SCHEMAS.items():
         assert schema == jax_contracts.JOURNAL_EVENT_SCHEMAS[etype]

@@ -287,6 +287,25 @@ class TestBatcher:
         assert all(isinstance(r.score, float) for r in results)
         assert doomed.cancelled()
 
+    def test_a_cancelled_request_does_not_count_toward_a_full_batch(self, rng):
+        """Three live requests behind a cancelled one are not a full batch of
+        4: none flushes before the wait, and the fourth live request fills the
+        batch and flushes all four at once, none stranded for the wait."""
+        import concurrent.futures
+
+        model, specs, _, reqs = _fixture(rng, n=6)
+        with _engine(model, specs, 4) as eng:
+            with eng.batcher(max_wait_ms=60_000.0, max_batch=4) as b:
+                doomed = b.submit(reqs[0])
+                assert doomed.cancel()
+                live = [b.submit(r) for r in reqs[1:4]]
+                done, _ = concurrent.futures.wait(live, timeout=0.5)
+                assert not done  # 3 live requests wait for a 4th, or for the 60 s wait
+                live.append(b.submit(reqs[4]))
+                results = [f.result(timeout=5) for f in live]
+                assert b.metrics()["batches"] == 1
+        assert all(isinstance(r.score, float) for r in results)
+
     @pytest.mark.parametrize("max_batch", [8, 0, -1])
     def test_batcher_rejects_a_bad_max_batch(self, rng, max_batch):
         model, specs, _, _ = _fixture(rng, n=2)
@@ -449,7 +468,7 @@ class TestBundle:
     def test_unported_kind_raises(self, rng):
         model, specs, _, reqs = _fixture(rng, n=2)
         eng = _engine(model, specs, 2)
-        eng._state.kinds = ("fe", "re_i8")
+        eng._state.kinds = ("fe", "re_sh")  # the reference's row-sharded kind: item 9c
         with pytest.raises(ValueError, match="not ported"):
             eng.score_batch(reqs[:1])
         eng.close()
