@@ -348,13 +348,14 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
 3v. Online serving (photon_ml_tpu_torch/serving/, cli/serve.py) on phase
    3c's model directory (after 3t, on 3g's validation rows). First the
    offline references, their launches counted apart: GameTransformer on
-   the validation file (sparse_matvec), phase 3's dense model on 65,536 of
-   its rows, and the library row reduction's differing rows by bucket (the
+   the validation file (sparse_matvec), phase 3's dense model on 32,768 of
+   its rows (cut from 65,536 for 3v-sh's time), and the library row
+   reduction's differing rows by bucket (the
    bits before `game.model.row_sum`). Then, counted from 0: load_bundle
    (bytes, seconds), warmup (9 CUDA graphs for max_batch 256, seconds),
    each bucket's graph replay against the same program run eagerly
    (CUDA-event medians of 20); 4,096 e2e rows scored singly, in pairs and
-   in odd triples and all 65,536 at bucket 256, bit-equal to each other and
+   in odd triples and all 32,768 at bucket 256, bit-equal to each other and
    within PORT_TOLERANCES["convert_scores"] of the offline scores; phase
    3's model bit-equal to GameTransformer at every bucket; cli.serve on
    25,000 rows of the validation file and 1,000 with unseen ids (cut from
@@ -369,6 +370,30 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    recapture) and a hot-swap to the same directory under live traffic (0
    failed, bit-equal, 9 captures). The engine path must launch none of the
    six kernels.
+3v-sh. The row-sharded serving store (parallel/mesh.py's CardMesh and
+   RowShardedMatrix, serving/reshard.py) on 3c's model at full width (both
+   random effects, 27,587 and 5,406 rows of 201, row-sharded over a mesh of
+   4 shards: one a card over the first 4 cards where the machine has two
+   or more, else all 4 on card 0, printed as "cards 1, shards 4": the
+   gather, the plan and the orchestrator on CUDA without a cross-card
+   copy). Offline (launches counted apart): GameTransformer over 3g's
+   validation file with the sharded model, bit-equal to the replicated
+   one, and once more under an armed `collective` fault (retried once,
+   counted, bit-equal). Then, counted from 0, on 16,384 of 3v's requests
+   and 512 with unseen ids: the sharded engine bit-equal to the replicated
+   one at every bucket (its first 1,024 rows below bucket 64), 9 captures;
+   the largest bucket's gather ms and graph replay ms against the
+   replicated replay (CUDA-event medians of 20) and a 256-request batch's
+   host ms on both; the analytic gather bytes a batch
+   (`all_to_all_bytes_per_batch`) and the device bytes on each card; a lost
+   card of per-user (exactly its entities FE-only, bit-equal) restaged in
+   place; a live reshard of the replicated engine onto 4 shards, 2, and
+   back to replicated under traffic (moved rows and bytes, seconds, 9
+   pre-warm captures a step, bit-equal after each, 0 failed, no
+   recompile); an injected `reshard_stage` failure rolled back with the
+   old generation serving. The engine path must launch none of the six
+   kernels. tools/chip_smoke_entity_shard.py runs it alone (on a machine
+   with 4 cards, one shard a card).
 3q. Quarantined ingest on the card: a copy of 3e's part-0.avro with its
    third block broken (3e's files are null-codec: the block's last 40
    bytes, so its records run off its end after some decode) read through
@@ -1848,7 +1873,7 @@ def refresh_phase(ds, maps, truth, n_users: int, n_movies: int, dev) -> dict:
 
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     """Phases 2e, 3e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3o's e2e part, 3g, 3x,
-    3x-scale, 3m, 3t, 3w, 3v, 3q, 3mv, 3n, 3p and 5e (`dense`: phase 3's arrays and model, for 3v). Returns
+    3x-scale, 3m, 3t, 3w, 3v, 3v-sh, 3q, 3mv, 3n, 3p and 5e (`dense`: phase 3's arrays and model, for 3v). Returns
     (phase 2e rows by kernel, the sparse launches by kernel of each path)."""
     import os
     import tempfile
@@ -2020,6 +2045,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         launches3w = walled("phase 3w", sweep_phase, root, os.path.join(work, "validation"), work)
         launches3v = walled("phase 3v", serving_phase, root, work, truth, n_users, n_movies, dense,
                             dev)
+        launches3vsh = walled("phase 3v-sh", entity_shard_phase, root, work, dev)
         launches3q = walled("phase 3q", quarantine_phase, root, work, dev)
         launches3mv = walled("phase 3mv", serve_multihost_phase, root, work, dev)
         launches3n = walled("phase 3n", tenancy_phase, root, work, dev)
@@ -2060,7 +2086,8 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
     return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
                     "3k": launches3k, "3g": launches3g, "3j": launches3j, "3x": launches3x, "3t": launches3t,
-                    "3w": launches3w, "3v": launches3v, "3m": launches3m, "3q": launches3q,
+                    "3w": launches3w, "3v": launches3v, "3v-sh": launches3vsh, "3m": launches3m,
+                    "3q": launches3q,
                     "3mv": launches3mv, "3r": launches3r, "3n": launches3n, "3n-ladder": launches3nl,
                     "3p": launches3p}
 
@@ -2379,7 +2406,7 @@ def e2e_across_cards(data: dict, ds, phase3e: dict, failures: list) -> None:
 
 SERVE_REPLAY_ROWS = 25_000  # 3v: rows of 3g's validation file cli.serve replays (cut from 100,000 for 3n's time, then from 50,000 for 3n-ladder's)
 SERVE_UNSEEN = 1_000  # and requests with ids no model row has
-SERVE_PARITY_ROWS = 65_536  # rows scored at bucket 256 and held against offline scoring
+SERVE_PARITY_ROWS = 32_768  # rows scored at bucket 256 and held against offline scoring (cut from 65,536 for 3v-sh's time)
 SERVE_SMALL_ROWS = 4_096  # rows scored singly, in pairs and in odd triples
 
 
@@ -2740,6 +2767,267 @@ def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dens
                         offline_launches=offline_launches, ok=not failures)))
     if failures:
         raise SystemExit("phase 3v failed: " + "; ".join(failures))
+    return dict(path=path_launches, offline=offline_launches)
+
+
+# ---------------------------------------------------------------- phase 3v-sh
+
+SHARD_CARDS = 4  # 3v-sh: the first min(4, count) cards, or 4 shards on card 0 of a one-card machine
+SHARD_ROWS = 16_384  # 3v-sh: 3v's requests scored at each bucket of 64 and up
+SHARD_SMALL_ROWS = 1_024  # and the first of them at each bucket below 64
+SHARD_UNSEEN = 512  # and 3v's requests with ids no model row has
+
+
+def shard_mesh(torch, n: int):
+    """3v-sh's mesh of n shards: one a card over the first n cards where the
+    machine has two or more, else n shards on card 0 (card identities
+    0..n-1, the plan's and the orchestrator's code paths without a
+    cross-card copy)."""
+    from photon_ml_tpu_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count()
+    devs = [torch.device("cuda", i) for i in range(min(n, count))] if count >= 2 \
+        else [torch.device("cuda", 0)] * n
+    return make_mesh(devs)
+
+
+def bits(a) -> np.ndarray:
+    """A float32 array's bit patterns (-0.0 and 0.0 differ)."""
+    return np.ascontiguousarray(a, np.float32).view(np.int32)
+
+
+def entity_shard_phase(root: str, work: str, dev) -> dict:
+    """Phase 3v-sh: 3c's model with both random effects row-sharded over a
+    mesh of SHARD_CARDS shards (one a card, or all on card 0), on 3v's
+    requests. Offline first (its sparse launches counted apart): the
+    transformer over 3g's validation file, sharded against replicated, and
+    its gather's `collective` site retried once. Then, with the launch
+    counts at 0: the sharded engine bit-equal to the replicated one at
+    every bucket, the largest bucket's gather and replay against the
+    replicated replay, the bytes on each card, a lost card restaged, a live
+    reshard replicated -> 4 -> 2 -> replicated under traffic (bit-equal
+    after each step, 0 failed, no recompile), and an injected
+    `reshard_stage` failure rolled back. Returns the engine path's launches
+    (all zero) and the offline ones."""
+    import collections
+    import itertools
+    import logging
+    import os
+    import threading as _threading
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import serve as serve_cli
+    from photon_ml_tpu_torch.cli.config import parse_feature_shard_config
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.game.model import GameModel, RandomEffectModel
+    from photon_ml_tpu_torch.io import model_bridge, model_store
+    from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig, read_game_dataset
+    from photon_ml_tpu_torch.parallel.mesh import put_row_sharded
+    from photon_ml_tpu_torch.serving import ScoreRequest, ServingEngine, load_bundle
+    from photon_ml_tpu_torch.transformers.game_transformer import GameTransformer
+    from photon_ml_tpu_torch.utils import faults, telemetry
+
+    launches, reset = serving_launches, reset_serving_launches
+    best = os.path.join(root, "drivers", "train", "models", "best")
+    replay_dir = os.path.join(work, "serve-requests")
+    shard_configs = dict([parse_feature_shard_config(E2E_SHARD)])
+    failures = []
+    t_phase = time.perf_counter()
+    mesh4, mesh2 = shard_mesh(torch, SHARD_CARDS), shard_mesh(torch, 2)
+    cards = len(set(mesh4.devices))
+    log(f"phase 3v-sh: cards {cards}, shards {mesh4.size}")
+
+    def scores(results):
+        return np.asarray([r.score for r in results], np.float32)
+
+    # ---- offline: the transformer, sharded against replicated (counted apart) ------------
+    reset()
+    telemetry.METRICS.reset()
+    t0 = time.perf_counter()
+    imaps = {"g": IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))}
+    artifact = model_store.load_game_model(best, imaps)
+    ds, _ = read_game_dataset(os.path.join(work, "validation"), {"g": FeatureShardConfig(("features",), True)},
+                              index_maps=imaps, id_tag_fields=E2E_TAGS, device=dev)
+    model, specs = model_bridge.game_model_from_artifact(artifact, dev)
+    sharded = GameModel({cid: RandomEffectModel(put_row_sharded(m.coefficients_matrix, mesh4), None, m.task)
+                         if isinstance(m, RandomEffectModel) else m for cid, m in model.models.items()})
+    t_ref = GameTransformer(model, specs, artifact.task).transform(ds).scores.cpu().numpy()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    t_sh = GameTransformer(sharded, specs, artifact.task).transform(ds).scores.cpu().numpy()
+    sharded_s = time.perf_counter() - t1
+    with faults.inject("collective:1"):
+        t_retry = GameTransformer(sharded, specs, artifact.task).transform(ds).scores.cpu().numpy()
+    retries = faults.COUNTERS.get("collective_retries")
+    offline = dict(rows=len(t_ref), bit_equal=bool((bits(t_sh) == bits(t_ref)).all()),
+                   retried_bit_equal=bool((bits(t_retry) == bits(t_ref)).all()), collective_retries=retries,
+                   sharded_transform_s=sharded_s, setup_s=time.perf_counter() - t0)
+    del ds, model, sharded
+    torch.cuda.empty_cache()
+    offline_launches = launches()
+    log(json.dumps(dict(phase="3v-sh-transformer", **offline, launches=offline_launches)))
+    if not (offline["bit_equal"] and offline["retried_bit_equal"] and retries == 1):
+        failures.append(f"the sharded transformer: {offline}")
+
+    # ---- the engine path: launch counts at 0 ------------------------------------------------
+    reset()
+    telemetry.METRICS.reset()
+    port_log = logging.getLogger("photon_ml_tpu_torch")
+    log_level = port_log.level
+    t0 = time.perf_counter()
+    bundle_r = load_bundle(best, device=dev)
+    eng_r = ServingEngine(bundle_r)
+    reqs = list(itertools.islice(serve_cli._iter_avro_requests(
+        os.path.join(replay_dir, "part-0.avro"), bundle_r, shard_configs, [0]), SHARD_ROWS))
+    reqs += list(itertools.islice(serve_cli._iter_avro_requests(
+        os.path.join(replay_dir, "part-1.avro"), bundle_r, shard_configs, [0]), SHARD_UNSEEN))
+    eng_r.warmup()
+    ref = np.concatenate([scores(eng_r.score_batch(reqs[i:i + 256])) for i in range(0, len(reqs), 256)])
+    t1 = time.perf_counter()
+    bundle_s = load_bundle(best, device=dev, mesh=mesh4)
+    stage_s = time.perf_counter() - t1
+    eng_s = ServingEngine(bundle_s)
+    t1 = time.perf_counter()
+    captures = eng_s.warmup()
+    warm_s = time.perf_counter() - t1
+    by_bucket, rows_by_bucket = {}, {}
+    for b in eng_s.buckets:
+        n_rows = len(reqs) if b >= 64 else SHARD_SMALL_ROWS
+        got = np.concatenate([scores(eng_s.score_batch(reqs[i:i + b])) for i in range(0, n_rows, b)])
+        by_bucket[b], rows_by_bucket[b] = int((bits(got) != bits(ref[:n_rows])).sum()), n_rows
+    per_card = collections.Counter()
+    for c in bundle_s.coordinates.values():
+        for block in (c.params.blocks if c.mesh is not None else (c.params,)):
+            per_card[str(block.device)] += block.numel() * block.element_size()
+    prog_s, prog_r = eng_s._state.programs[256], eng_r._state.programs[256]
+    timing = dict(gather_ms=time_ms(torch, prog_s.gather), replay_ms=time_ms(torch, lambda: prog_s.graph.replay()),
+                  replicated_replay_ms=time_ms(torch, lambda: prog_r.graph.replay()))
+    for name, eng in (("sharded", eng_s), ("replicated", eng_r)):
+        eng.score_batch(reqs[:256])
+        t1 = time.perf_counter()
+        for i in range(20):
+            eng.score_batch(reqs[256 * i:256 * (i + 1)])
+        timing[f"{name}_batch_256_host_ms"] = (time.perf_counter() - t1) / 20 * 1e3
+    sharding = eng_s.metrics()["sharding"]
+    log(json.dumps(dict(phase="3v-sh-parity", cards=cards, shards=mesh4.size, rows=len(reqs),
+                        rows_checked=rows_by_bucket, rows_differing_by_bucket=by_bucket, captures=captures,
+                        stage_s=stage_s, warmup_s=warm_s, recompiles_after_warmup=eng_s.recompiles_after_warmup,
+                        sharding=sharding, device_bytes_by_card=dict(per_card),
+                        device_bytes_per_shard=bundle_s.device_bytes_per_shard(),
+                        device_bytes_replicated=bundle_r.device_bytes(), bucket_256=timing)))
+    if any(by_bucket.values()) or captures != 9 or eng_s.recompiles_after_warmup != 0 \
+            or not sharding["entity_sharded"] or sharding["axis_size"] != SHARD_CARDS:
+        failures.append(f"the sharded engine is not the replicated bits at every bucket: {by_bucket}")
+
+    # ---- a lost card: exactly its entities FE-only, then restaged -----------------------------
+    sub = reqs[:4096]
+    coord = eng_s.bundle.coordinates["per-user"]
+    host_rows = coord.params.blocks[1].cpu().numpy().copy()
+    compiles0 = eng_s.compiles
+    lo, hi = eng_s.mark_shard_lost("per-user", 1)
+    lost = [r for i in range(0, len(sub), 256) for r in eng_s.score_batch(sub[i:i + 256])]
+    cold = [ScoreRequest(features=r.features, entity_ids={**r.entity_ids, "userId": "-1"}, offset=r.offset)
+            for r in sub]
+    cold_ref = np.concatenate([scores(eng_r.score_batch(cold[i:i + 256])) for i in range(0, len(cold), 256)])
+    rows, _ = coord.lookup_rows([r.entity_ids.get("userId") for r in sub])
+    mask = (rows >= lo) & (rows < hi) & (rows != coord.unseen_row)
+    with eng_s._device_mutex:
+        coord.params.blocks[1].zero_()  # the card's rows are gone
+    t1 = time.perf_counter()
+    nbytes = eng_s.restage_shard("per-user", 1, rows=host_rows)
+    restage_s = time.perf_counter() - t1
+    back = np.concatenate([scores(eng_s.score_batch(sub[i:i + 256])) for i in range(0, len(sub), 256)])
+    loss = dict(card=str(coord.mesh.devices[1]), rows=[lo, hi], lost_answers=sum(r.n_lost for r in lost),
+                lost_requests=int(mask.sum()),
+                lost_bit_equal=bool((bits(scores(lost)) == bits(np.where(mask, cold_ref, ref[:len(sub)]))).all()),
+                restaged_bytes=nbytes, restage_s=restage_s,
+                restaged_bit_equal=bool((bits(back) == bits(ref[:len(sub)])).all()),
+                recaptures=eng_s.compiles - compiles0, health=eng_s.health.state.value)
+    eng_s.close()
+    bundle_s.release()
+    del bundle_s, eng_s, coord
+    torch.cuda.empty_cache()
+
+    # ---- live reshard under traffic: replicated -> 4 -> 2 -> replicated -----------------------
+    probe = reqs[:4096]
+    stop = _threading.Event()
+    traffic = dict(answered=0, failed=0, mismatched=0)
+    steps = []
+    with eng_r.batcher() as b:
+        def flow():
+            i = 0
+            while not stop.is_set():
+                k = i % 1024
+                try:
+                    r = b.submit(reqs[k], block=True).result(timeout=60)
+                    traffic["answered"] += 1
+                    traffic["mismatched"] += int(bits(np.float32(r.score)) != bits(ref[k]))
+                except Exception:  # counted: the drill wants none
+                    traffic["failed"] += 1
+                i += 1
+
+        t = _threading.Thread(target=flow, name="chip-smoke-shard-traffic")
+        t.start()
+        try:
+            for name, target in ((str(SHARD_CARDS), mesh4), ("2", mesh2), ("replicated", None)):
+                time.sleep(0.1)
+                answered0 = traffic["answered"]
+                info = eng_r.reshard_orchestrator.reshard(target)
+                got = np.concatenate([scores(eng_r.score_batch(probe[i:i + 256]))
+                                      for i in range(0, len(probe), 256)])
+                steps.append(dict(to=name, old_shards=info["old_shards"], new_shards=info["new_shards"],
+                                  moved_rows=info["moved_rows"], moved_bytes=info["moved_bytes"],
+                                  stage_s=info["stage_s"], upload_s=info["upload_s"],
+                                  prewarm_s=info["prewarm_s"], prewarm_captures=info["staging_compiles"],
+                                  answered_during=traffic["answered"] - answered0, version=info["version"],
+                                  bit_equal=bool((bits(got) == bits(ref[:len(probe)])).all()),
+                                  recompiles_after_warmup=eng_r.recompiles_after_warmup))
+            time.sleep(0.1)
+        finally:
+            stop.set()
+            t.join(timeout=120)
+    log(json.dumps(dict(phase="3v-sh-reshard", steps=steps, traffic=traffic)))
+    if traffic["failed"] or traffic["mismatched"] or not traffic["answered"] or len(steps) != 3 or not all(
+            s["bit_equal"] and s["prewarm_captures"] == 9 and s["recompiles_after_warmup"] == 0 for s in steps):
+        failures.append(f"the live reshard: {steps}, {traffic}")
+
+    # ---- an injected reshard_stage failure rolls back -------------------------------------------
+    port_log.setLevel(logging.ERROR)  # each injected fault and retry logs a warning
+    try:
+        version0 = eng_r.bundle_version
+        with faults.inject("reshard_stage:9999"):
+            try:
+                eng_r.reshard_orchestrator.reshard(mesh4)
+                rolled_back = False
+            except faults.InjectedFault:
+                rolled_back = True
+            during = np.concatenate([scores(eng_r.score_batch(probe[i:i + 256]))
+                                     for i in range(0, 1024, 256)])
+    finally:
+        port_log.setLevel(log_level)
+    rollback = dict(rolled_back=rolled_back, version_kept=eng_r.bundle_version == version0,
+                    bit_equal=bool((bits(during) == bits(ref[:1024])).all()),
+                    reshard_rollbacks=faults.COUNTERS.get("reshard_rollbacks"),
+                    reshard_retries=faults.COUNTERS.get("reshard_retries"),
+                    metrics_rollbacks=eng_r.metrics()["bundle_reshard_rollbacks"])
+    eng_r.close()
+    bundle_r.release()
+    path_launches = launches()
+    log(json.dumps(dict(phase="3v-sh-drills", shard_loss=loss, reshard_stage_fault=rollback)))
+    if not (loss["lost_answers"] == loss["lost_requests"] > 0 and loss["lost_bit_equal"]
+            and loss["restaged_bit_equal"] and loss["recaptures"] == 0 and loss["health"] == "READY"):
+        failures.append(f"the lost card: {loss}")
+    if not (rollback["rolled_back"] and rollback["version_kept"] and rollback["bit_equal"]
+            and rollback["reshard_rollbacks"] == 1 and rollback["metrics_rollbacks"] == 1):
+        failures.append(f"the reshard_stage rollback: {rollback}")
+    if any(path_launches.values()):
+        failures.append(f"the engine path launched a kernel: {path_launches}")
+    log(json.dumps(dict(phase="3v-sh", cards=cards, shards=mesh4.size, wall_s=time.perf_counter() - t_phase,
+                        launches=path_launches, offline_launches=offline_launches, card=card_line(),
+                        ok=not failures)))
+    if failures:
+        raise SystemExit("phase 3v-sh failed: " + "; ".join(failures))
     return dict(path=path_launches, offline=offline_launches)
 
 
@@ -7201,7 +7489,7 @@ def main(argv=None) -> int:
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
     e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3g, 3j, 3x, 3m, 3t, 3w, 3v, "
-                                    "3q, 3mv, 3n, 3n-ladder, 3p",
+                                    "3v-sh, 3q, 3mv, 3n, 3n-ladder, 3p",
                                     e2e_phases, args.seed, dev,
                                     bw, f32_rate, dict(arrays=arrays, phase3=phase3))
 
@@ -7234,6 +7522,7 @@ def main(argv=None) -> int:
                                 "5c": driver_launches["dense"][k], "3o": launches3o[k],
                                 "3j": e2e_launches["3j"]["dense"][k],
                                 "3w": e2e_launches["3w"]["dense"][k], "3v": e2e_launches["3v"]["path"][k],
+                                "3v-sh": e2e_launches["3v-sh"]["path"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
                                 "3r": e2e_launches["3r"]["dense"][k], "3n": e2e_launches["3n"]["path"][k],
@@ -7267,7 +7556,8 @@ def main(argv=None) -> int:
                                 "5g": legacy_launches[k], "3j": e2e_launches["3j"]["sparse"][k],
                                 "3x": e2e_launches["3x"][k],
                                 "3t": e2e_launches["3t"][k], "3w": e2e_launches["3w"]["sparse"][k],
-                                "3v": e2e_launches["3v"]["path"][k], "3m": e2e_launches["3m"]["sparse"][k],
+                                "3v": e2e_launches["3v"]["path"][k],
+                                "3v-sh": e2e_launches["3v-sh"]["path"][k], "3m": e2e_launches["3m"]["sparse"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
                                 "3r": e2e_launches["3r"]["sparse"][k], "3n": e2e_launches["3n"]["path"][k],
@@ -7292,7 +7582,8 @@ def main(argv=None) -> int:
              replaces=DIST_REPLACES[k], launches=dist_launches[k],
              launches_by_phase={"3d+4d": dist_launches[k], "3e-d": e2e_launches["3e-d"][k],
                                 "3w": e2e_launches["3w"]["dense"][k], "3j": e2e_launches["3j"]["dense"][k],
-                                "3v": e2e_launches["3v"]["path"][k], "3q": e2e_launches["3q"][k],
+                                "3v": e2e_launches["3v"]["path"][k],
+                                "3v-sh": e2e_launches["3v-sh"]["path"][k], "3q": e2e_launches["3q"][k],
                                 "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
                                 "3r": e2e_launches["3r"]["dense"][k], "3n": e2e_launches["3n"]["path"][k],

@@ -292,17 +292,22 @@ class Autopilot:
         return lambda: self.registry.restore_tier(name, to=prior, reason="autopilot-rollback")
 
     def _apply_reshard(self, action: Action) -> Callable[[], None]:
-        """Onto `devices` cards (None: every card of the registry's kind).
-        One card is the one-shard restage; two or more raise (item 9c)."""
-        import torch
+        """Onto `devices` cards (None: every card of the registry's kind,
+        `parallel.mesh.local_cards`): a mesh of the first n, or replicated
+        for one. The undo reshards back onto the mesh the tenant had (None:
+        replicated)."""
+        from photon_ml_tpu_torch.parallel.mesh import local_cards, make_mesh
 
-        orch = self.registry.tenant(action.tenant).engine.reshard_orchestrator
+        t = self.registry.tenant(action.tenant)
+        orch = t.engine.reshard_orchestrator
+        old_mesh = next((c.mesh for c in t.engine._state.bundle.coordinates.values()
+                         if getattr(c, "mesh", None) is not None), None)
         dev = self.registry._device
-        count = torch.cuda.device_count() if dev is not None and dev.type == "cuda" else 1
+        cards = local_cards(dev) if dev is not None else [None]
         n = action.params.get("devices")
-        n = count if n is None else max(1, min(int(n), count))
-        orch.reshard(n if n > 1 else None)
-        return lambda: orch.reshard(None)
+        n = len(cards) if n is None else max(1, min(int(n), len(cards)))
+        orch.reshard(make_mesh(cards[:n]) if n > 1 else None)
+        return lambda: orch.reshard(old_mesh)
 
     def _apply_retune(self, action: Action) -> Optional[Callable[[], None]]:
         from photon_ml_tpu_torch import planner

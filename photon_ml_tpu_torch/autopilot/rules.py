@@ -100,9 +100,8 @@ def shard_grow_rule(*, fire_above: float = 2048.0, rearm_below: float = 256.0,
                     devices: Optional[int] = None) -> ControlRule:
     """Shard grow from load: when one tenant's single-shard random effects
     absorb a heavy load delta, reshard its engine onto `devices` cards
-    (None: every card). On one card that is the one-shard restage; two or
-    more cards raise (ROADMAP item 9c), and the loop rolls the action back
-    and quarantines the rule."""
+    (None: every card): row-sharded over a mesh of two or more, or on one
+    card the one-shard restage."""
 
     def signal(cur, prev):
         deltas = _delta_loads(cur, prev)

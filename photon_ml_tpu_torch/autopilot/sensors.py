@@ -32,7 +32,7 @@ class CoordinateSensors:
 
     cid: str
     n_shards: int
-    sharded: bool  # row-sharded over cards (never, until item 9c)
+    sharded: bool  # row-sharded over the cards of a mesh
     two_tier: bool  # in a TwoTierEntityStore
     shard_loads: Tuple[int, ...]  # cumulative per-shard request rows
     promotions: int  # cumulative cold -> hot promotions (two-tier only)
@@ -125,7 +125,7 @@ def read_sensors(registry) -> SensorSnapshot:
                 continue
             sh, store = c.shard_health, c.store
             coords.append(CoordinateSensors(
-                cid=cid, n_shards=sh.n_shards if sh is not None else 1, sharded=False,
+                cid=cid, n_shards=sh.n_shards if sh is not None else 1, sharded=c.mesh is not None,
                 two_tier=store is not None, shard_loads=sh.loads if sh is not None else (),
                 promotions=sum(store.promotion_stats().values()) if store is not None else 0,
                 device_bytes=c.device_nbytes()))

@@ -45,14 +45,23 @@ summary's `robustness_counters` carries; under `--multihost`, a worker's
 count, since the supervisor reads no request), never the rest of the
 stream.
 
+`--reshard-to N` is the reference's live drill: once the second replay
+window is submitted, a `photon-reshard-cli` thread reshards the engine's
+random effects onto the first N cards of the process (`parallel.mesh.
+surviving_mesh`; 1: replicated) under the traffic; a failure rolls back
+with the old generation serving, is recorded under the summary's
+`reshard` block as `"error"`, and the replay goes on. Requests are encoded
+against the live generation. PHOTON_SERVING_ENTITY_SHARD stages the model
+row-sharded over every card of the process (`load_bundle`); the summary's
+`serving.sharding` block says how it is placed.
+
 `--multihost N` runs N share-nothing serving workers over the same model
 and request stream, each owning a partition of every random effect's rows,
 and merges their answers (cli/serve_multihost.py); `main` dispatches it,
 and `run` is the single-process path. Under `--multihost`, `--shadow` and
 `--labels`, `--profile` and `--autopilot` are not read, as in the
 reference's driver. The reference's refusals of flag combinations come
-first, in its order and words; then `--reshard-to` (live resharding across
-cards, ROADMAP item 9c) raises. All of it before anything is staged.
+first, in its order and words, all before anything is staged.
 
 Usage: python -m photon_ml_tpu_torch.cli.serve --help
 """
@@ -65,6 +74,7 @@ import json
 import logging
 import os
 import sys
+import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
@@ -80,19 +90,6 @@ logger = logging.getLogger("photon_ml_tpu_torch.cli.serve")
 # Requests go through the batcher a window at a time: memory stays
 # O(window), and each window's scores are one part file.
 REPLAY_WINDOW = 8192
-
-# Flags of parts the port has not got, and the ROADMAP item that brings each.
-UNPORTED = {
-    "reshard_to": "--reshard-to (live resharding of the serving store) is ROADMAP item 9c",
-}
-
-
-def refuse_unported(args) -> None:
-    """Raise for the first flag of a part the port has not got."""
-    for key, message in UNPORTED.items():
-        if getattr(args, key, None) not in (None, False):
-            raise NotImplementedError(message)
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -162,7 +159,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="closed-loop autoscaling (multi-tenant mode only): run the photon-autopilot "
                         "control loop over the registry during the replay (PHOTON_AUTOPILOT_* knobs); "
                         "every decision is journaled; the summary gains an 'autopilot' block")
-    p.add_argument("--reshard-to", type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--reshard-to", type=int, default=None,
+                   help="live mesh elasticity drill: once replay traffic is flowing, reshard the "
+                        "engine's coefficient layout to this many entity shards (1 = replicated) on a "
+                        "background worker; zero failed requests, rollback on any staging/commit "
+                        "failure; the summary gains a 'reshard' block")
     return p
 
 
@@ -259,8 +260,8 @@ def _write_score_part(scores_dir: str, k: int, results, model_id: str) -> str:
 
 
 def _validate(args) -> List[tuple]:
-    """The reference's refusals, in its order and words, then the port's
-    refusals of parts it has not got; returns the parsed --tenant specs."""
+    """The reference's refusals, in its order and words; returns the parsed
+    --tenant specs."""
     is_json = args.requests.endswith((".json", ".jsonl"))
     if not is_json and not args.feature_shard_configurations:
         raise ValueError("Avro request replay needs --feature-shard-configurations (the bag -> "
@@ -295,7 +296,6 @@ def _validate(args) -> List[tuple]:
         if name in dict(specs):
             raise ValueError(f"duplicate tenant name {name!r}")
         specs.append((name, model_dir))
-    refuse_unported(args)
     return specs
 
 
@@ -352,15 +352,41 @@ def run(args) -> Dict[str, object]:
         journal.close()
 
 
+def _encode_live(engine: ServingEngine, raw, is_json: bool, shard_configs) -> ScoreRequest:
+    """`raw` encoded against the engine's live generation: a reshard flips
+    the engine onto a new bundle and releases the one the replay started
+    on, so an encoding that a flip overtook is made again."""
+    while True:
+        version = engine.bundle_version
+        bundle = engine.bundle
+        try:
+            req = _encode(bundle, raw, is_json, shard_configs)
+        except Exception:
+            if engine.bundle_version != version:
+                continue
+            raise
+        if engine.bundle_version == version:
+            return req
+
+
 def _run_with_bundle(args, bundle: ServingBundle, shard_configs, is_json: bool) -> Dict[str, object]:
     from photon_ml_tpu_torch.contracts import ROBUSTNESS_CLEAN_ZERO_KEYS
     from photon_ml_tpu_torch.utils import faults, telemetry
 
     malformed = [0]  # records dropped before submission
-    stream = (_iter_json_requests(args.requests, bundle, malformed) if is_json
-              else _iter_avro_requests(args.requests, bundle, shard_configs, malformed))
     out_root = args.root_output_directory
     engine = ServingEngine(bundle, max_batch=args.max_batch)
+
+    def requests() -> Iterator[ScoreRequest]:
+        raws = _iter_json_docs(args.requests, malformed) if is_json else _iter_avro_records(args.requests)
+        for raw in raws:
+            try:
+                yield _encode_live(engine, raw, is_json, shard_configs)
+            except Exception as exc:  # one malformed record costs one record
+                malformed[0] += 1
+                logger.warning("skipping malformed request in %s: %s", args.requests, exc)
+
+    stream = requests()
     t_warm = time.perf_counter()
     with telemetry.span("serve_warmup"):
         compiles = engine.warmup()
@@ -372,31 +398,62 @@ def _run_with_bundle(args, bundle: ServingBundle, shard_configs, is_json: bool) 
     model_id = args.model_id or "game-model"
     n_requests = 0
     n_failed = 0
+    # The --reshard-to drill: started on a thread once the second window is
+    # submitted, so the flip happens under traffic; joined on every exit
+    # path inside the engine's context.
+    reshard_to = args.reshard_to
+    reshard_info: dict = {}
+    reshard_thread = None
+
+    def live_reshard() -> None:
+        from photon_ml_tpu_torch.parallel.mesh import surviving_mesh
+
+        try:
+            reshard_info.update(engine.reshard_orchestrator.reshard(
+                surviving_mesh(reshard_to, device=bundle.device)))
+            logger.info("live reshard committed: %s", reshard_info)
+        except Exception as exc:  # recorded; the replay goes on
+            reshard_info["error"] = repr(exc)
+            logger.warning("live reshard rolled back: %r", exc)
+
     t_replay = time.perf_counter()
-    with telemetry.span("serve_replay"), engine, engine.batcher(
-            max_wait_ms=args.max_wait_ms, max_pending=args.max_pending,
-            default_deadline_ms=args.deadline_ms) as batcher:
-        for k in itertools.count():
-            window = list(itertools.islice(stream, REPLAY_WINDOW))
-            if not window:
-                break
-            # A closed-loop client: block=True waits for room in the queue.
-            futures = [batcher.submit(r, block=True) for r in window]
-            results = []
-            for i, fut in enumerate(futures):
-                try:
-                    results.append((n_requests + i, fut.result()))
-                except Exception as exc:  # one failed request costs one record
-                    n_failed += 1
-                    logger.warning("request %r failed: %s",
-                                   window[i].uid if window[i].uid is not None else str(n_requests + i),
-                                   exc)
-            if results:
-                _write_score_part(scores_dir, k, results, model_id)
-            n_requests += len(window)
-        replay_s = time.perf_counter() - t_replay
-        metrics = batcher.metrics()
-        wait_ms = batcher.max_wait_s * 1e3
+    try:
+        with telemetry.span("serve_replay"), engine, engine.batcher(
+                max_wait_ms=args.max_wait_ms, max_pending=args.max_pending,
+                default_deadline_ms=args.deadline_ms) as batcher:
+            try:
+                for k in itertools.count():
+                    window = list(itertools.islice(stream, REPLAY_WINDOW))
+                    if not window:
+                        break
+                    if k == 1 and reshard_to is not None and reshard_thread is None:
+                        reshard_thread = threading.Thread(target=live_reshard, name="photon-reshard-cli")
+                        reshard_thread.start()
+                    # A closed-loop client: block=True waits for room in the queue.
+                    futures = [batcher.submit(r, block=True) for r in window]
+                    results = []
+                    for i, fut in enumerate(futures):
+                        try:
+                            results.append((n_requests + i, fut.result()))
+                        except Exception as exc:  # one failed request costs one record
+                            n_failed += 1
+                            logger.warning("request %r failed: %s",
+                                           window[i].uid if window[i].uid is not None
+                                           else str(n_requests + i), exc)
+                    if results:
+                        _write_score_part(scores_dir, k, results, model_id)
+                    n_requests += len(window)
+                if reshard_to is not None and reshard_thread is None:
+                    live_reshard()  # one window: the drill runs without traffic beside it
+            finally:
+                if reshard_thread is not None:
+                    reshard_thread.join()
+            replay_s = time.perf_counter() - t_replay
+            metrics = batcher.metrics()
+            wait_ms = batcher.max_wait_s * 1e3
+    finally:
+        if engine.bundle is not bundle:
+            engine.bundle.release()  # the live generation a reshard made
     logger.info("replayed %d request(s), %d failed, %d malformed record(s) skipped; scores in %s",
                 n_requests, n_failed, malformed[0], scores_dir)
     summary = {
@@ -412,6 +469,8 @@ def _run_with_bundle(args, bundle: ServingBundle, shard_configs, is_json: bool) 
         "shadow": {},
         "autopilot": {},
     }
+    if reshard_to is not None:
+        summary["reshard"] = reshard_info
     with open(os.path.join(out_root, "serving-summary.json"), "w") as f:
         json.dump(summary, f, indent=2, default=str)
     profile = telemetry.build_profile(

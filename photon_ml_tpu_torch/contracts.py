@@ -127,8 +127,9 @@ SERVING_METRIC_KEYS = (
     "recompiles_after_warmup",
 )
 
-# The sharding block inside serving metrics, in the order engine.metrics()
-# zips it; every key present on the port's single-tier replicated bundle.
+# The sharding block inside serving metrics (engine._sharding_metrics), in
+# the reference's order, on every bundle: replicated, two-tier, row blocks
+# on one card, or row-sharded over cards.
 SERVING_SHARDING_KEYS = (
     "entity_sharded",
     "axis_size",
@@ -288,8 +289,6 @@ SHADOW_BLOCK_KEYS = (
 
 # The run journal (utils/telemetry.RunJournal): the keys of every line, and
 # the schema of each event type the port emits (the reference's schemas).
-# `mesh_loss`'s reshard cousins across cards belong to a layer the port has
-# not got (ROADMAP item 9c).
 JOURNAL_LINE_KEYS = ("ts", "type")
 JOURNAL_EVENT_SCHEMAS = {
     # The training lifecycle (utils/observability.journal_listener).
@@ -322,8 +321,8 @@ JOURNAL_EVENT_SCHEMAS = {
                          "max_rel_diff"),
     "delta_apply": ("version", "coordinates", "rows", "bytes", "source"),
     "delta_rollback": ("version", "reason"),
-    # The generation flips of a delta apply and a hot-row rebalance
-    # (serving/lifecycle.py, serving/reshard.py).
+    # The generation flips of a delta apply, a hot-row rebalance and a
+    # reshard across cards (serving/lifecycle.py, serving/reshard.py).
     "reshard_start": ("old_shards", "new_shards", "moved_rows", "moved_bytes"),
     "reshard_commit": ("old_shards", "new_shards", "version", "restaged_bytes"),
     "reshard_rollback": ("old_shards", "new_shards", "reason"),

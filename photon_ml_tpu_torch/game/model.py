@@ -106,14 +106,16 @@ def random_effect_margins(
     return out
 
 
-def gathered_row_margins(features: Tensor, w_rows: Tensor, norm) -> Tensor:
-    """Dense margins from per-sample coefficient rows already gathered
-    (B, D): normalization folded per row, then `row_sum`. The same bits as
-    `random_effect_margins`' dense branch over the same rows (folding before
-    or after the gather is the same elementwise work), which is what keeps
-    the serving engine's two-tier kind and the tenancy co-batch bit-equal to
-    the single-tier matrix. A per-entity normalization is refused: its
-    tables are indexed by entity."""
+def gathered_row_margins(features: Features, w_rows: Tensor, norm) -> Tensor:
+    """Margins from per-sample coefficient rows already gathered (B, D):
+    normalization folded per row, then `row_sum` (over an ELL shard, of the
+    coefficients each row's entries name). The same bits as
+    `random_effect_margins` over the same rows (folding before or after the
+    gather is the same elementwise work), which is what keeps the serving
+    engine's two-tier and row-sharded kinds, the transformer's row-sharded
+    branch and the tenancy co-batch bit-equal to the single-tier matrix. A
+    per-entity normalization is refused: its tables are indexed by
+    entity."""
     from photon_ml_tpu_torch.ops.normalization import PerEntityNormalization
 
     if isinstance(norm, PerEntityNormalization) and not norm.is_identity:
@@ -124,8 +126,11 @@ def gathered_row_margins(features: Tensor, w_rows: Tensor, norm) -> Tensor:
         w_rows = norm.effective_coefficients(w_rows)
         if norm.shifts is not None:
             shift = -row_sum(w_rows * norm.shifts)
-    X = features if features.dtype == w_rows.dtype else features.to(w_rows.dtype)
-    out = row_sum(X * w_rows)
+    if isinstance(features, SparseFeatures):
+        out = row_sum(features.values.to(w_rows.dtype) * w_rows.gather(1, features.indices.long()))
+    else:
+        X = features if features.dtype == w_rows.dtype else features.to(w_rows.dtype)
+        out = row_sum(X * w_rows)
     if shift is not None:
         out = out + shift
     return out

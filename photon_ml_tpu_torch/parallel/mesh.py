@@ -1,4 +1,4 @@
-"""Ranks of torch.distributed: the mesh, its exact collectives, and who owns which rows.
+"""Ranks of torch.distributed and the cards of one process: meshes, exact collectives, row owners.
 
 Port of `photon_ml_tpu/parallel/mesh.py`: `make_mesh` (:61), the sample
 sharding of `shard_game_dataset` (:143) and the entity-lane sharding of
@@ -56,14 +56,27 @@ to the view and its scores back, where the JAX package lets XLA move the
 rows its gathers need (and its ring gather and scatter, mesh.py:358-477,
 move coefficient rows, which here stay on their owner). Shards may be
 uneven; the weight-0 padding of `pad_game_dataset` (:90) is not needed.
+
+The second half is the in-process mesh (the reference's `make_mesh`,
+`surviving_mesh`, `pad_rows_for_mesh`, `put_row_sharded`,
+`leading_axis_mesh`, `bcast_gather_rows` and its collective failure
+domain, :61-545): a `CardMesh` over cards one process owns, a
+`RowShardedMatrix` (a random effect's rows in one block a card), and the
+exact gather of rows from the cards that own them (`gather_rows_into`:
+each card gathers, the parts reach the home card and are copied into
+place, so the result is `matrix[rows]` bit for bit). The serving store
+(serving/bundle.py, engine.py, reshard.py) and the transformer's
+row-sharded branch use it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import datetime
 import os
+import threading
 import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -84,6 +97,7 @@ from photon_ml_tpu_torch.data.game_dataset import (
 )
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
 from photon_ml_tpu_torch.ops import cuda_build
+from photon_ml_tpu_torch.utils import faults
 
 Tensor = torch.Tensor
 
@@ -625,3 +639,269 @@ def shard_game_dataset(
     ds.sharding = RowSharding(mesh, torch.as_tensor(rows).to(mesh.device), n, owner, layout,
                               entity_owner, row_rank, codes)
     return ds
+
+
+# ------------------------------------------------------------ cards of one process
+# The in-process mesh: one process owning several cards (the reference's
+# `make_mesh`, `surviving_mesh`, `matrix_row_sharding`, `put_row_sharded`,
+# `leading_axis_mesh`, `pad_rows_for_mesh`, `bcast_gather_rows`, :61-545).
+# A random effect's coefficient matrix is row-sharded over such a mesh as a
+# `RowShardedMatrix`: S row blocks of ceil(rows / S) rows, block k on card k.
+# `DTensor` is not used: it needs a process group with one device a rank,
+# which a serving process that owns several cards is not.
+
+# The CPU's cards: a mesh "over every card" on the CPU has this many shards,
+# as many as the reference's tests' host platform devices
+# (tests/conftest.py, --xla_force_host_platform_device_count=8). The CPU
+# has no card: its shards are ordinals of one device, which is what lets
+# the CPU tests plan and move rows as the reference does over its devices.
+CPU_CARDS = 8
+
+
+def local_cards(device: DeviceLike = "cuda") -> List[torch.device]:
+    """Every card of `device`'s kind in this process: the CUDA cards, or
+    CPU_CARDS ordinals of the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")] * CPU_CARDS
+
+
+def card_of(device: DeviceLike) -> int:
+    """The card identity of a whole-device placement (a replicated matrix):
+    a CUDA card's index, 0 on the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return 0
+    return torch.cuda.current_device() if dev.index is None else int(dev.index)
+
+
+@dataclasses.dataclass(frozen=True)
+class CardMesh:
+    """A 1-D mesh over cards of one process: shard k lives on `devices[k]`
+    and is card `cards[k]`. Card identities are distinct: distinct CUDA
+    cards are their indices; shards that share a device (the CPU, or
+    several shards on one card) are their positions 0..S-1. A reshard plan
+    compares identities, as the reference's compares device objects."""
+
+    devices: Tuple[torch.device, ...]
+    cards: Tuple[int, ...]
+
+    def __post_init__(self):
+        if not self.devices or len(self.devices) != len(self.cards):
+            raise ValueError(f"a mesh needs one card identity a device: {self.devices}, {self.cards}")
+        if len(set(self.cards)) != len(self.cards):
+            raise ValueError(f"card identities repeat: {self.cards}")
+        if len({d.type for d in self.devices}) != 1:
+            raise ValueError(f"a mesh spans one device kind: {self.devices}")
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device_type(self) -> str:
+        return self.devices[0].type
+
+
+def make_mesh(devices: Optional[Sequence[DeviceLike]] = None, *, device: DeviceLike = "cuda") -> CardMesh:
+    """A mesh over `devices` (default: every card of `device`'s kind,
+    `local_cards`). A CUDA card that does not exist raises."""
+    devs = [resolve_device(d) for d in (local_cards(device) if devices is None else devices)]
+    if not devs:
+        raise ValueError("a mesh needs at least one card")
+    for i, d in enumerate(devs):
+        if d.type == "cuda":
+            if d.index is None:
+                devs[i] = d = torch.device("cuda", torch.cuda.current_device())
+            if d.index >= torch.cuda.device_count():
+                raise ValueError(f"{d} is not a card of this process "
+                                 f"({torch.cuda.device_count()} cards)")
+    idx = [d.index for d in devs]
+    if devs[0].type == "cuda" and len(set(idx)) == len(idx):
+        cards = tuple(idx)
+    else:
+        cards = tuple(range(len(devs)))
+    return CardMesh(tuple(devs), cards)
+
+
+def surviving_mesh(n_devices: int, *, device: DeviceLike = "cuda") -> Optional[CardMesh]:
+    """A mesh over the first `n_devices` cards of `device`'s kind (capped
+    at the cards there are); None for n <= 1, the replicated layout."""
+    cards = local_cards(device)
+    n = max(1, min(int(n_devices), len(cards)))
+    if n <= 1:
+        return None
+    return make_mesh(cards[:n])
+
+
+def pad_rows_for_mesh(n_rows: int, mesh: CardMesh) -> int:
+    """`n_rows` rounded up to a multiple of the mesh's shard count."""
+    return -(-int(n_rows) // mesh.size) * mesh.size
+
+
+class RowShardedMatrix:
+    """A (rows, dim) float32 matrix row-sharded over a CardMesh: block k,
+    rows [k * rows_per_shard, (k + 1) * rows_per_shard), on
+    `mesh.devices[k]`; rows past `logical_rows` (E + 1) are zeros. Its
+    `shape` is the padded one."""
+
+    def __init__(self, blocks: Sequence[Tensor], mesh: CardMesh, logical_rows: int):
+        blocks = tuple(blocks)
+        if len(blocks) != mesh.size or len({tuple(b.shape) for b in blocks}) != 1:
+            raise ValueError(f"{len(blocks)} blocks of shapes {[tuple(b.shape) for b in blocks]} "
+                             f"for a mesh of {mesh.size}")
+        for b, d in zip(blocks, mesh.devices):
+            if b.device != d:
+                raise ValueError(f"a block on {b.device} for a shard of {d}")
+        self.blocks = blocks
+        self.mesh = mesh
+        self.logical_rows = int(logical_rows)
+        self.rows_per_shard = int(blocks[0].shape[0])
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.rows_per_shard * self.mesh.size, int(self.blocks[0].shape[1]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0].dtype
+
+    def numel(self) -> int:
+        return sum(int(b.numel()) for b in self.blocks)
+
+    def element_size(self) -> int:
+        return self.blocks[0].element_size()
+
+    def host(self) -> np.ndarray:
+        """The padded matrix in host memory, block by block."""
+        return np.concatenate([b.detach().cpu().numpy() for b in self.blocks])
+
+
+def put_row_sharded(matrix, mesh: CardMesh, *, logical_rows: Optional[int] = None) -> RowShardedMatrix:
+    """A private row-sharded copy of `matrix` (a tensor, a host array or a
+    RowShardedMatrix) over `mesh`: rows padded with zeros to a mesh
+    multiple, each block copied to its card. `logical_rows` defaults to the
+    matrix's own (a RowShardedMatrix's, else its row count)."""
+    if isinstance(matrix, RowShardedMatrix):
+        logical = matrix.logical_rows if logical_rows is None else int(logical_rows)
+        if matrix.mesh == mesh:
+            return RowShardedMatrix([b.clone() for b in matrix.blocks], mesh, logical)
+        matrix = matrix.host()[:logical]
+    src = torch.as_tensor(matrix).detach()
+    logical = int(src.shape[0]) if logical_rows is None else int(logical_rows)
+    n_rows = pad_rows_for_mesh(max(int(src.shape[0]), logical), mesh)
+    per = n_rows // mesh.size
+    blocks = []
+    for k, dev in enumerate(mesh.devices):
+        block = torch.zeros((per, int(src.shape[1])), dtype=torch.float32, device=dev)
+        lo, hi = k * per, min((k + 1) * per, int(src.shape[0]))
+        if hi > lo:
+            block[: hi - lo].copy_(src[lo:hi])
+        blocks.append(block)
+    for dev in {d for d in mesh.devices if d.type == "cuda"}:
+        torch.cuda.synchronize(dev)
+    return RowShardedMatrix(blocks, mesh, logical)
+
+
+def leading_axis_mesh(array) -> Optional[CardMesh]:
+    """The mesh `array` is row-sharded over, if it is a RowShardedMatrix
+    (whose rows always divide over its shards), else None: the one
+    inspector behind the bundle's adoption of a sharded matrix and the
+    transformer's sharded branch."""
+    return array.mesh if isinstance(array, RowShardedMatrix) else None
+
+
+# The reference's collective failure domain (:208-246): a host-dispatched
+# collective runs under the `collective` fault site with bounded re-dispatch
+# (PHOTON_COLLECTIVE_RETRIES, counted in `collective_retries`). The gathers
+# are deterministic, so a re-dispatch reproduces the same bits. The serving
+# engine's bucket program gathers without the site (the reference traces
+# that gather under jit, where the site is never passed).
+_COLLECTIVE_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def collective_faults_suppressed():
+    """A scope in which `dispatch_collective` fires no fault site: a
+    degraded path must keep working while the primary is broken."""
+    prev = getattr(_COLLECTIVE_STATE, "suppressed", False)
+    _COLLECTIVE_STATE.suppressed = True
+    try:
+        yield
+    finally:
+        _COLLECTIVE_STATE.suppressed = prev
+
+
+def collective_retry_policy():
+    """1 + PHOTON_COLLECTIVE_RETRIES attempts under the standard backoff."""
+    from photon_ml_tpu_torch.utils.knobs import get_knob
+
+    return faults.bounded_policy(int(get_knob("PHOTON_COLLECTIVE_RETRIES")))
+
+
+def dispatch_collective(fn, *, label: str):
+    """Run one host-dispatched collective under the `collective` fault site
+    with bounded re-dispatch; exhausted retries propagate."""
+    if getattr(_COLLECTIVE_STATE, "suppressed", False):
+        return fn()
+
+    def attempt():
+        faults.fault_point("collective")
+        return fn()
+
+    return faults.retry(attempt, collective_retry_policy(), label=f"collective dispatch {label}",
+                        counter="collective_retries")
+
+
+def gather_rows_into(out: Tensor, matrix: RowShardedMatrix, rows: Tensor, *,
+                     host_rows: Optional[Tensor] = None,
+                     streams: Optional[Mapping[torch.device, "torch.cuda.Stream"]] = None) -> Tensor:
+    """out[i] = matrix[rows[i]], bit for bit, on `out`'s (home) device:
+    each card gathers every asked row's offset in its block (rows %
+    rows_per_shard), the parts reach the home card, and each is copied into
+    place where its card owns the row (a selection: no add, so -0.0 and
+    every other value keep their bits; a row no card owns, past the padding
+    or negative, keeps `out`'s value). `rows` lies on the home card. A
+    card other than the home one takes its indices from `host_rows` (a
+    pinned host copy) or from `rows`, and gathers and sends its part on
+    `streams[card]` (default: its current stream); the home card's current
+    stream waits on an event recorded after each send before it reads the
+    part. No fault site: the engine's bucket program calls this directly."""
+    home = out.device
+    per = matrix.rows_per_shard
+    owner = torch.div(rows, per, rounding_mode="floor")
+    local = rows - owner * per
+    for k, block in enumerate(matrix.blocks):
+        if block.device == home:
+            part = block[local]
+        else:
+            stream = streams[block.device] if streams else torch.cuda.current_stream(block.device)
+            with torch.cuda.stream(stream):
+                src = (host_rows if host_rows is not None else rows).to(block.device, non_blocking=True)
+                part = block[src.remainder(per)].to(home, non_blocking=True)
+                sent = torch.cuda.Event()
+                sent.record(stream)
+            torch.cuda.current_stream(home).wait_event(sent)
+        torch.where((owner == k)[:, None], part, out, out=out)
+    return out
+
+
+def bcast_gather_rows(matrix: RowShardedMatrix, rows: Tensor) -> Tensor:
+    """matrix[rows] for a row-sharded matrix, on `rows`' device, bit for
+    bit (`gather_rows_into`), dispatched under the `collective` fault site
+    (`dispatch_collective`): the transformer's and validation scoring's
+    gather."""
+
+    def gather() -> Tensor:
+        out = torch.zeros((int(rows.shape[0]), matrix.shape[1]), dtype=matrix.dtype, device=rows.device)
+        return gather_rows_into(out, matrix, rows)
+
+    return dispatch_collective(gather, label="bcast_gather_rows")
+
+
+def bcast_gather_wire_bytes(mesh: CardMesh, n_rows: int, dim: int) -> int:
+    """The reference's analytic wire bytes of one `bcast_gather_rows` call
+    of float32 rows (a ring all-reduce of the (n_rows, dim) block:
+    2 * (S - 1) * its bytes)."""
+    return 2 * (mesh.size - 1) * int(n_rows) * int(dim) * 4

@@ -1,8 +1,9 @@
-"""Online serving: GAME models pinned on one device, answering requests.
+"""Online serving: GAME models pinned on the cards of one process, answering requests.
 
-Port of `photon_ml_tpu/serving/` for one device:
+Port of `photon_ml_tpu/serving/`:
 `bundle.py` stages a model directory (or an in-memory model) onto the
-device once, `engine.py` scores request batches through one bucket program
+device once (its random effects replicated on the home card, two-tier,
+or row-sharded over the process's cards), `engine.py` scores request batches through one bucket program
 per power-of-two batch size (a CUDA graph on the card), `batcher.py`
 coalesces single requests into deadline micro-batches, and `lifecycle.py`
 keeps it serving under faults: typed shedding and deadlines, the circuit
@@ -15,8 +16,8 @@ failure domains, demotion of cold tenants to the host tier, the
 `TwoTierEntityStore` of `bundle.py`, and the precision ladder that
 quantizes a tenant's random-effect rows to bf16 or int8 and restores them),
 and `shadow.py` evaluates a challenger online beside the champion and
-promotes or rejects it. `reshard.py` moves placement on one card; across
-cards it is ROADMAP item 9c.
+promotes or rejects it. `reshard.py` moves placement live: a reshard
+onto a mesh of cards, back to one, or a two-tier hot-row rebalance.
 """
 
 from photon_ml_tpu_torch.serving.batcher import MicroBatcher
@@ -32,6 +33,12 @@ from photon_ml_tpu_torch.serving.bundle import (
     request_from_record,
 )
 from photon_ml_tpu_torch.serving.engine import ScoreResult, ServingEngine
+from photon_ml_tpu_torch.serving.reshard import (
+    MeshReshardOrchestrator,
+    ReshardPlan,
+    plan_rebalance,
+    plan_reshard,
+)
 from photon_ml_tpu_torch.serving.shadow import ShadowController
 from photon_ml_tpu_torch.serving.tenancy import Tenant, TenantRegistry
 from photon_ml_tpu_torch.serving.lifecycle import (
@@ -57,8 +64,10 @@ __all__ = [
     "DeviceHang",
     "HbmBudgetExceeded",
     "HealthStateMachine",
+    "MeshReshardOrchestrator",
     "MicroBatcher",
     "Overloaded",
+    "ReshardPlan",
     "ScoreRequest",
     "ScoreResult",
     "ServingBundle",
@@ -73,6 +82,8 @@ __all__ = [
     "TwoTierEntityStore",
     "demote_bundle_to_host_tier",
     "load_bundle",
+    "plan_rebalance",
+    "plan_reshard",
     "promote_bundle_from_host_tier",
     "request_from_record",
 ]

@@ -1,8 +1,7 @@
 """Serving bundles: a GAME model staged into device memory once.
 
-Port of `photon_ml_tpu/serving/bundle.py`, single device. A
-`ServingBundle` is the state an online engine keeps pinned across
-requests:
+Port of `photon_ml_tpu/serving/bundle.py`. A `ServingBundle` is the state
+an online engine keeps pinned across requests:
 
   * per fixed-effect coordinate: the weight vector, one tensor;
   * per random-effect coordinate: the dense `(n_entities + 1, dim)`
@@ -47,9 +46,23 @@ original float32 rows, which the quantized coordinate keeps in host RAM
 restore is bit-equal to the bundle before quantization. The engine widens
 the gathered rows inside its bucket programs (serving/engine.py).
 
-Not ported: the row-sharded store over devices (`mesh=`,
-`PHOTON_SERVING_ENTITY_SHARD`, a matrix already row-sharded: ROADMAP item
-9c); it raises where it is asked for.
+`mesh=` (a `parallel.mesh.CardMesh`), or PHOTON_SERVING_ENTITY_SHARD in
+`load_bundle` (`serving_entity_mesh`: every card of the process), stages
+each random-effect matrix row-sharded over the cards of one process, as
+the reference's does over its local devices: a `RowShardedMatrix` of S
+blocks of ceil((E + 1) / S) rows, block k on card k, zero rows past E + 1,
+`unseen_row` the logical pinned zero row. A model whose matrix is already
+a RowShardedMatrix keeps its mesh without a `mesh` argument. Each card's
+block is a shard of `ShardHealth` (a lost card answers its entities
+FE-only until `restage_shard` rewrites its block in place). The bundle's
+`device` is the home card, where the fixed effects live and the engine's
+bucket programs run (serving/engine.py gathers a batch's rows from the
+cards that own them). `device_bytes_per_shard` charges a sharded matrix
+at its bytes over S, the peak on one card a budget bounds. Refused, in the
+reference's words: `hot_rows` with a mesh, a per-entity normalization
+with either, and a sharded coordinate in the host tier or on a quantized
+rung (reshard first). A rank's row shard (`cli.train --multihost`: fewer
+rows than the entity index) is a different placement, and is refused.
 """
 
 from __future__ import annotations
@@ -69,6 +82,14 @@ from photon_ml_tpu_torch.data.index_map import INTERCEPT_KEY, IndexMap, feature_
 from photon_ml_tpu_torch.device import DeviceLike, resolve_device
 from photon_ml_tpu_torch.game.model import FixedEffectModel, GameModel, RandomEffectModel
 from photon_ml_tpu_torch.io.model_store import GameModelArtifact
+from photon_ml_tpu_torch.parallel.mesh import (
+    CardMesh,
+    RowShardedMatrix,
+    leading_axis_mesh,
+    local_cards,
+    make_mesh,
+    put_row_sharded,
+)
 from photon_ml_tpu_torch.transformers.game_transformer import CoordinateScoringSpec
 from photon_ml_tpu_torch.types import TaskType
 from photon_ml_tpu_torch.utils import faults, telemetry
@@ -80,8 +101,6 @@ Tensor = torch.Tensor
 
 # Request features for one shard: a dense (dim,) row, or (indices, values).
 ShardFeatures = Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]
-
-_SHARDED_STORE = "the row-sharded serving store is ROADMAP item 9c (not ported)"
 
 # The precision ladder's rungs, best fidelity first. The host tier is not a
 # rung here: it is the whole-bundle demotion (bit-equal) the ladder falls
@@ -135,7 +154,8 @@ def _upload(t: Tensor, device: torch.device) -> Tensor:
 
 class ShardHealth:
     """Per-shard health of one random-effect coordinate's resident rows: the
-    whole matrix as one shard, or its row blocks (`row_blocks=`). A LOST
+    whole matrix as one shard, its row blocks (`row_blocks=`), or its
+    cards (`mesh=`: `ShardHealth(n_cards, rows_per_shard)`). A LOST
     shard's entities answer from the pinned zero row (FE-only) until it is
     restaged. `loads` counts each shard's looked-up rows (cold starts
     excluded), the load a reshard plan and the autopilot read."""
@@ -448,7 +468,7 @@ class ServingCoordinate:
 
     cid: str
     shard: str
-    params: Tensor  # (dim,) fixed-effect weights or (E + 1, dim) RE matrix
+    params: Tensor  # (dim,) fixed-effect weights, an (E + 1, dim) RE matrix or a RowShardedMatrix
     norm: Optional[object] = None
     random_effect_type: Optional[str] = None
     entity_index: Optional[Mapping[object, int]] = None
@@ -467,6 +487,8 @@ class ServingCoordinate:
     tier: str = "f32"
     scales: Optional[Tensor] = None
     host_f32: Optional[np.ndarray] = None
+    # The cards `params` (a RowShardedMatrix) is row-sharded over.
+    mesh: Optional[CardMesh] = None
 
     @property
     def is_random_effect(self) -> bool:
@@ -493,6 +515,20 @@ class ServingCoordinate:
         if self.scales is not None:
             nb += int(self.scales.numel()) * self.scales.element_size()
         return nb
+
+    def device_nbytes_per_shard(self) -> int:
+        """Peak bytes on any one card: a row-sharded matrix divides over its
+        mesh; everything else is resident whole."""
+        nb = self.device_nbytes()
+        return nb // self.mesh.size if self.mesh is not None else nb
+
+    def shard_rows(self, idx: int) -> Tensor:
+        """The resident rows of shard `idx`: a card's block, or a row block
+        of the matrix on the one device."""
+        if self.mesh is not None:
+            return self.params.blocks[self.shard_health._check(idx)]
+        lo, hi = self.shard_health.row_range(idx)
+        return self.params[lo:hi]
 
     def lookup_rows(self, entity_ids: Sequence[object]) -> Tuple[np.ndarray, int]:
         """Entity ids -> coefficient rows (None or unknown -> the pinned
@@ -552,6 +588,11 @@ class ServingBundle:
         """Device-resident model bytes (two-tier coordinates: the hot plane)."""
         return sum(c.device_nbytes() for c in self.coordinates.values())
 
+    def device_bytes_per_shard(self) -> int:
+        """Peak model bytes on any one card, what a device-memory budget
+        bounds: a row-sharded matrix is charged per shard."""
+        return sum(c.device_nbytes_per_shard() for c in self.coordinates.values())
+
     def stores(self) -> List[TwoTierEntityStore]:
         return [c.store for c in self.coordinates.values() if c.store is not None]
 
@@ -582,17 +623,17 @@ class ServingBundle:
         if c.tier != "f32":
             raise ValueError(f"coordinate {cid!r} is quantized to {c.tier!r}; a restage writes "
                              "float32 rows (restore_bundle_precision first)")
-        lo, hi = c.shard_health.row_range(shard_index)
+        block = c.shard_rows(shard_index)
         if rows is None:
-            rows = c.params[lo:hi].cpu().numpy()
+            rows = block.cpu().numpy()
         rows = np.ascontiguousarray(rows, np.float32)
-        if rows.shape != (hi - lo, c.dim):
-            raise ValueError(f"restage rows shape {rows.shape} != shard shape {(hi - lo, c.dim)}")
+        if rows.shape != tuple(block.shape):
+            raise ValueError(f"restage rows shape {rows.shape} != shard shape {tuple(block.shape)}")
 
         def upload():
-            c.params[lo:hi].copy_(torch.from_numpy(rows))
-            if c.params.is_cuda:
-                torch.cuda.synchronize(c.params.device)
+            block.copy_(torch.from_numpy(rows))
+            if block.is_cuda:
+                torch.cuda.synchronize(block.device)
 
         _stage_shard(f"{cid} shard {shard_index} restage", upload)
         c.shard_health.mark_ok(shard_index)
@@ -638,18 +679,28 @@ class ServingBundle:
         """Stage an in-memory (model, specs) pair onto `device`. A projected
         random effect is refused (serving scores in the original space:
         export through `model_bridge.artifact_from_game_model`, which
-        back-projects, then `from_artifact`). `row_blocks=S` stages each
-        random-effect matrix as S row blocks (the module docstring);
-        `hot_rows` (an int, or {cid: int}) stages random effects in the
-        two-tier store with that many hot rows."""
-        if mesh is not None:
-            raise NotImplementedError(f"mesh=: {_SHARDED_STORE}")
+        back-projects, then `from_artifact`). `mesh` (a CardMesh) stages
+        each random-effect matrix row-sharded over its cards, and a matrix
+        that is already a RowShardedMatrix keeps its mesh without one;
+        `row_blocks=S` stages each as S row blocks on `device` (the module
+        docstring); `hot_rows` (an int, or {cid: int}) stages random
+        effects in the two-tier store with that many hot rows."""
+        from photon_ml_tpu_torch.ops.normalization import PerEntityNormalization
+
         if hot_rows is not None and row_blocks is not None:
             raise ValueError("hot_rows and row_blocks are exclusive: a two-tier store keeps the "
                              "matrix in host RAM, not in row blocks on the device")
         if row_blocks is not None and int(row_blocks) < 1:
             raise ValueError(f"row_blocks must be at least 1, got {row_blocks}")
         dev = resolve_device(device)
+        if mesh is not None:
+            if not isinstance(mesh, CardMesh):
+                raise TypeError(f"mesh must be a parallel.mesh.CardMesh, got {type(mesh).__name__}")
+            if row_blocks is not None:
+                raise ValueError("mesh and row_blocks are exclusive: row blocks on one device are a "
+                                 "multi-host worker's placement")
+            if mesh.device_type != dev.type:
+                raise ValueError(f"a mesh of {mesh.device_type} cards cannot serve a bundle on {dev}")
         t0 = time.perf_counter()
         coords: Dict[str, ServingCoordinate] = {}
         for cid in model.coordinate_ids:
@@ -666,20 +717,38 @@ class ServingBundle:
                         "in original space: export the artifact "
                         "(model_bridge.artifact_from_game_model) and build the bundle from it")
                 matrix = m.coefficients_matrix
-                if type(matrix).__name__ == "DTensor" or \
-                        matrix.shape[0] != len(spec.entity_index or {}) + 1:
-                    raise NotImplementedError(
-                        f"coordinate {cid!r}: the matrix holds {matrix.shape[0]} rows for "
-                        f"{len(spec.entity_index or {})} entities (a rank's row shard); "
-                        f"{_SHARDED_STORE}")
-                logical = int(matrix.shape[0])
+                n_index = len(spec.entity_index or {})
+                if isinstance(matrix, RowShardedMatrix):
+                    logical = matrix.logical_rows
+                elif type(matrix).__name__ == "DTensor" or matrix.shape[0] != n_index + 1:
+                    raise ValueError(
+                        f"coordinate {cid!r}: the matrix holds {matrix.shape[0]} rows for {n_index} "
+                        "entities, a rank's row shard (cli.train --multihost); a bundle stages a "
+                        "whole matrix, or one row-sharded over this process's cards (mesh=)")
+                else:
+                    logical = int(matrix.shape[0])
                 hr = hot_rows.get(cid) if isinstance(hot_rows, Mapping) else hot_rows
+                coord_mesh = mesh if mesh is not None else leading_axis_mesh(matrix)
+                if hr is not None and coord_mesh is not None:
+                    raise ValueError(
+                        f"coordinate {cid!r}: hot_rows and mesh staging are mutually exclusive (a "
+                        "two-tier hot set is already the small-memory option); the matrix is "
+                        f"{'explicitly' if mesh is not None else 'already'} mesh-sharded")
+                if (hr is not None or coord_mesh is not None) and \
+                        isinstance(spec.norm, PerEntityNormalization):
+                    raise ValueError(f"coordinate {cid!r}: per-entity normalization tables are "
+                                     "entity-sized and not sharded/tiered — stage single-tier")
+                if coord_mesh is not None:
+                    params = _stage_shard(f"{cid} (row-sharded matrix)",
+                                          lambda: put_row_sharded(matrix, coord_mesh, logical_rows=logical))
+                    coords[cid] = ServingCoordinate(
+                        cid, spec.shard, params, norm=spec.norm,
+                        random_effect_type=spec.random_effect_type,
+                        entity_index=dict(spec.entity_index or {}),
+                        shard_health=ShardHealth(coord_mesh.size, params.rows_per_shard),
+                        logical_rows=logical, mesh=coord_mesh)
+                    continue
                 if hr is not None:
-                    from photon_ml_tpu_torch.ops.normalization import PerEntityNormalization
-
-                    if isinstance(spec.norm, PerEntityNormalization):
-                        raise ValueError(f"coordinate {cid!r}: per-entity normalization tables "
-                                         "are entity-sized and not tiered; stage single-tier")
                     host = matrix.detach().float().cpu().numpy()
                     store = _stage_shard(f"{cid} (two-tier hot set)",
                                          lambda: TwoTierEntityStore(host, int(hr), dev))
@@ -730,6 +799,20 @@ class ServingBundle:
                               row_blocks=row_blocks)
 
 
+def serving_entity_mesh(device: DeviceLike = "cuda") -> Optional[CardMesh]:
+    """The serving mesh PHOTON_SERVING_ENTITY_SHARD asks for: every card of
+    `device`'s kind in the process (`parallel.mesh.local_cards`), or None
+    when the knob is off. With one card it stages replicated, with the
+    reference's warning."""
+    if not get_knob("PHOTON_SERVING_ENTITY_SHARD"):
+        return None
+    cards = local_cards(device)
+    if len(cards) < 2:
+        logger.warning("PHOTON_SERVING_ENTITY_SHARD set with a single device; staging replicated")
+        return None
+    return make_mesh(cards)
+
+
 def serving_hot_rows() -> Optional[int]:
     """The two-tier hot-set size PHOTON_SERVING_HOT_ROWS asks for, or None."""
     rows = int(get_knob("PHOTON_SERVING_HOT_ROWS"))
@@ -744,12 +827,15 @@ def demote_bundle_to_host_tier(bundle: ServingBundle, hot_rows: int = 0) -> Serv
     coordinate's store is built from its retained original rows, so it
     answers as before its quantization). Fixed effects and stores already
     two-tier carry over by reference. A bundle staged in row blocks (a
-    multi-host worker's placement) is refused."""
+    multi-host worker's placement) or row-sharded over cards is refused."""
     coords: Dict[str, ServingCoordinate] = {}
     for cid, c in bundle.coordinates.items():
         if not c.is_random_effect or c.store is not None:
             coords[cid] = c
             continue
+        if c.mesh is not None:
+            raise ValueError(f"coordinate {cid!r} is entity-sharded over a mesh; demotion to the "
+                             "host tier only applies to replicated single-tier matrices")
         if c.row_blocks is not None:
             raise ValueError(f"coordinate {cid!r} is staged in row blocks; demotion to the host "
                              "tier only applies to single-tier matrices")
@@ -823,13 +909,21 @@ def quantize_bundle_rows(bundle: ServingBundle, tier: str) -> Tuple[ServingBundl
     lossy plane, so walking bf16 -> int8 rounds once. Fixed effects and
     two-tier stores carry over by reference (the latter already stopped
     pinning their matrix, the rung below int8); a coordinate already on
-    `tier` too. A coordinate staged in row blocks is refused."""
+    `tier` too. A coordinate staged in row blocks or row-sharded over
+    cards is refused."""
     if tier not in PRECISION_LADDER[1:]:
         raise ValueError(f"quantized tier must be one of {PRECISION_LADDER[1:]}, got {tier!r}")
     coords: Dict[str, ServingCoordinate] = {}
     errors: Dict[str, float] = {}
     for cid, c in bundle.coordinates.items():
-        if not c.is_random_effect or c.store is not None or c.tier == tier:
+        if not c.is_random_effect or c.store is not None:
+            coords[cid] = c
+            continue
+        if c.mesh is not None:
+            raise ValueError(f"coordinate {cid!r} is entity-sharded over a mesh; precision-tier "
+                             "quantization only applies to replicated single-tier matrices "
+                             "(reshard first)")
+        if c.tier == tier:
             coords[cid] = c
             continue
         if c.row_blocks is not None:
@@ -881,13 +975,13 @@ def load_bundle(model_dir: str, *, device: DeviceLike = "cuda",
     """Load a model directory (the training driver's layout) into a bundle
     on `device`. Index maps default to the JSON maps saved beside the model
     (`<model_dir>/feature-indexes/<shard>.json`), as in cli.score.
-    `row_blocks` as in `from_model`; `hot_rows` defaults to
-    PHOTON_SERVING_HOT_ROWS (`serving_hot_rows`). PHOTON_SERVING_ENTITY_SHARD
-    selects a store the port has not got, and raises when set."""
+    `row_blocks` as in `from_model`; `mesh` defaults to
+    PHOTON_SERVING_ENTITY_SHARD's (`serving_entity_mesh`), `hot_rows` to
+    PHOTON_SERVING_HOT_ROWS (`serving_hot_rows`)."""
     from photon_ml_tpu_torch.io import model_store
 
-    if get_knob("PHOTON_SERVING_ENTITY_SHARD"):
-        raise NotImplementedError(f"PHOTON_SERVING_ENTITY_SHARD is set: {_SHARDED_STORE}")
+    if mesh is None and row_blocks is None:
+        mesh = serving_entity_mesh(device)
     if hot_rows is None and row_blocks is None:
         hot_rows = serving_hot_rows()
     if index_maps is None:

@@ -33,10 +33,13 @@ What each of the reference's branches is here: the replicated single-tier
 branch and the two-tier branch (the cold matrix rebuilt in host RAM, carry
 and scatter there, and a new store of the same capacity staged; the old
 store closes with its generation, a staged one on a rollback) are ported.
-A bundle staged with `row_blocks=S` (the reference's mesh blocks on one
-card) follows the reference's mesh rules: growth must fit the blocks'
-padding, and a delta that re-sorts carried rows is refused (placement
-changes through a restage, not a delta). `apply_delta_for_tenant` flips one
+A coordinate row-sharded over cards (the reference's mesh branch,
+delta.py:236-275), and one staged with `row_blocks=S` (the reference's
+mesh blocks on one card), follow the reference's mesh rules: growth must
+fit the existing padding, and a delta that re-sorts carried rows is
+refused (placement changes through reshard() or a restage, not a delta);
+the changed rows of each shard are written into a copy of its block on
+its card. `apply_delta_for_tenant` flips one
 tenant of a `TenantRegistry`; its co-batch programs are captured in the
 same pre-warm, before the commit.
 
@@ -59,6 +62,7 @@ import torch
 from photon_ml_tpu_torch.contracts import DELTA_BUNDLE_KEYS
 from photon_ml_tpu_torch.game.incremental import FitState, grow_random_effect_model
 from photon_ml_tpu_torch.game.model import FixedEffectModel, RandomEffectModel
+from photon_ml_tpu_torch.parallel.mesh import RowShardedMatrix
 from photon_ml_tpu_torch.serving.bundle import (
     ServingBundle,
     ServingCoordinate,
@@ -207,9 +211,10 @@ def _apply_re_delta(c: ServingCoordinate, d: CoordinateDelta, device: torch.devi
         return ServingCoordinate(d.cid, c.shard, store.hot, norm=c.norm,
                                  random_effect_type=c.random_effect_type, entity_index=d.entity_index,
                                  logical_rows=d.logical_rows, store=store)
-    if c.row_blocks is not None:
+    if c.row_blocks is not None or c.mesh is not None:
         # The reference's mesh rules: growth must fit the blocks' padding and
-        # carried rows keep their places (placement changes by a restage).
+        # carried rows keep their places (placement changes by a reshard or
+        # a restage).
         physical = int(old.shape[0])
         if d.logical_rows > physical:
             raise ValueError(f"coordinate {d.cid!r}: delta grows logical rows to {d.logical_rows} "
@@ -219,14 +224,22 @@ def _apply_re_delta(c: ServingCoordinate, d: CoordinateDelta, device: torch.devi
             raise ValueError(f"coordinate {d.cid!r}: delta re-sorts carried entity rows; an "
                              "entity-sharded matrix's row placement changes through reshard(), "
                              "not a delta apply")
-        params = old.clone()
-        shard_of = d.rows // c.shard_health.rows_per_shard
+        per = c.shard_health.rows_per_shard
+        if c.mesh is not None:
+            blocks = [b.clone() for b in old.blocks]
+            params = RowShardedMatrix(blocks, c.mesh, d.logical_rows)
+        else:
+            params = old.clone()
+            blocks = [params[k * per:(k + 1) * per] for k in range(c.shard_health.n_shards)]
+        shard_of = d.rows // per
         for k in np.unique(shard_of):
             m = np.nonzero(shard_of == k)[0]
 
-            def write(r=rows[m], v=torch.from_numpy(d.values[m])):
-                params[r.to(device)] = v.to(device)
-                return params
+            def write(b=blocks[int(k)], r=rows[m] - int(k) * per, v=torch.from_numpy(d.values[m])):
+                b[r.to(b.device)] = v.to(b.device)
+                if b.is_cuda:
+                    torch.cuda.synchronize(b.device)
+                return b
 
             _stage_shard(f"{d.cid} shard {int(k)} (delta rows)", write)
         return dataclasses.replace(c, params=params, entity_index=d.entity_index,

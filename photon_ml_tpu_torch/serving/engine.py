@@ -1,7 +1,7 @@
 """Online scoring engine: one bucket program per power-of-two batch size
 over a pinned bundle.
 
-Port of `photon_ml_tpu/serving/engine.py`, single device:
+Port of `photon_ml_tpu/serving/engine.py`:
 
   * The program set is bounded and declared up front: one program per
     power-of-two bucket up to `max_batch` (the planner's
@@ -51,8 +51,23 @@ program: the matrix is never dequantized whole). A change of kind is a
 new program family, captured in the pre-warm of the generation change. A
 two-tier batch resolves its slots at the store's `epoch`; under the device
 mutex, before it replays, a batch whose epoch has moved (a promotion wrote
-the plane in place) resolves them again. The reference's row-sharded kind
-is ROADMAP item 9c.
+the plane in place) resolves them again.
+
+"re_sh", the row-sharded matrix over the cards of one process (the
+reference's kind, engine.py:147-170: its psum broadcast-gather inside the
+pjit program). The design on the card: each dispatch runs the gather
+eagerly before the replay, and the home card's graph reads a static
+(bucket, dim) buffer of gathered rows (`parallel.mesh.gather_rows_into`):
+every card that owns rows gathers them from its block on a stream of its
+own (its indices copied there from the pinned host buffer), sends its
+part to the home card, and records an event that the home stream waits on
+before it copies the part into place, so the replay never reads a row
+that has not arrived. The graph itself stays on the home card (a capture
+does not span cards). Rows move, never add, so the answers are the
+replicated engine's bits. This gather fires no fault site: the
+reference's runs inside the traced program, where the `collective` site
+is never passed (the transformer's gather fires it). Shards that sit on
+the home card gather on its stream.
 """
 
 from __future__ import annotations
@@ -68,6 +83,7 @@ import torch
 
 from photon_ml_tpu_torch.game.model import gathered_row_margins, random_effect_margins
 from photon_ml_tpu_torch.ops.losses import mean_for_task
+from photon_ml_tpu_torch.parallel.mesh import bcast_gather_wire_bytes, gather_rows_into
 from photon_ml_tpu_torch.serving.bundle import ScoreRequest, ServingBundle, ServingCoordinate
 from photon_ml_tpu_torch.serving.lifecycle import (
     BundleManager,
@@ -106,7 +122,8 @@ def _score_program(offsets: Tensor, feats: Dict[str, Tensor], rows: Tuple[Option
     """The bucket program: offsets plus each coordinate's margins, in
     coordinate order (as GameTransformer.transform sums them), and the mean.
     `overrides[k]` is a two-tier coordinate's (values, flags); `params[k]`
-    of an int8 coordinate is (plane, per-row scales)."""
+    of an int8 coordinate is (plane, per-row scales), and of a row-sharded
+    one the (B, dim) rows the dispatch gathered from its cards."""
     total = offsets
     for k, kind in enumerate(kinds):
         f = feats[shards[k]]
@@ -114,6 +131,8 @@ def _score_program(offsets: Tensor, feats: Dict[str, Tensor], rows: Tuple[Option
             total = total + dense_margins(f, params[k], norms[k])
         elif kind == "re":
             total = total + random_effect_margins(f, rows[k], params[k], norms[k])
+        elif kind == "re_sh":
+            total = total + gathered_row_margins(f, params[k], norms[k])
         elif kind == "re2":
             vals, flags = overrides[k]
             w = torch.where(flags[:, None], vals, params[k][rows[k]])
@@ -126,8 +145,8 @@ def _score_program(offsets: Tensor, feats: Dict[str, Tensor], rows: Tuple[Option
             w = plane[rows[k]].to(torch.float32) * scales[rows[k]][:, None]
             total = total + gathered_row_margins(f, w, norms[k])
         else:
-            raise ValueError(f"coordinate kind {kind!r} is not ported (the port serves 'fe', 're', "
-                             "'re2', 're_bf16' and 're_i8')")
+            raise ValueError(f"unknown coordinate kind {kind!r} (the port serves 'fe', 're', "
+                             "'re_sh', 're2', 're_bf16' and 're_i8')")
     return total, mean_for_task(task, total)
 
 
@@ -137,6 +156,8 @@ def _kind(c: ServingCoordinate) -> str:
         return "fe"
     if c.store is not None:
         return "re2"
+    if c.mesh is not None:
+        return "re_sh"
     return {"f32": "re", "bf16": "re_bf16", "int8": "re_i8"}[c.tier]
 
 
@@ -186,6 +207,13 @@ class _BucketProgram:
                      for c in state.coords if c.is_random_effect}
         tiered = [c for c in state.coords if c.store is not None]
         self.ovr = {c.cid: torch.zeros((bucket, c.dim), dtype=f32, device=device) for c in tiered}
+        # A row-sharded coordinate's rows, gathered from its cards before
+        # each replay, and a stream on each other card that gathers there.
+        self.sharded = {c.cid: c.params for c in state.coords if c.mesh is not None}
+        self.gathered = {cid: torch.zeros((bucket, m.shape[1]), dtype=f32, device=device)
+                         for cid, m in self.sharded.items()}
+        self.card_streams = {d: torch.cuda.Stream(device=d) for m in self.sharded.values()
+                             for d in m.mesh.devices if d != self.offsets.device} if cuda else {}
         self.ovr_flags = {c.cid: torch.zeros(bucket, dtype=torch.bool, device=device) for c in tiered}
         self.host_offsets = torch.zeros(bucket, dtype=f32, pin_memory=cuda)
         self.host_feats = {s: torch.zeros((bucket, d), dtype=f32, pin_memory=cuda)
@@ -196,7 +224,8 @@ class _BucketProgram:
         self.host_ovr_flags = {cid: torch.zeros(bucket, dtype=torch.bool, pin_memory=cuda)
                                for cid in self.ovr}
         self.host_out = torch.zeros((2, bucket), dtype=f32, pin_memory=cuda)
-        params = tuple((c.params, c.scales) if kind == "re_i8" else c.params
+        params = tuple((c.params, c.scales) if kind == "re_i8" else
+                       self.gathered[c.cid] if kind == "re_sh" else c.params
                        for c, kind in zip(state.coords, state.kinds))
         norms = tuple(c.norm for c in state.coords)
         rows = tuple(self.rows.get(c.cid) for c in state.coords)
@@ -215,7 +244,16 @@ class _BucketProgram:
         """Device bytes of the static buffers (inputs and the output)."""
         b = self.bucket
         return (4 * b + sum(4 * t.numel() for t in self.feats.values()) + 8 * b * len(self.rows) + 8 * b
-                + sum(4 * t.numel() + b for t in self.ovr.values()))
+                + sum(4 * t.numel() + b for t in self.ovr.values())
+                + sum(4 * t.numel() for t in self.gathered.values()))
+
+    def gather(self) -> None:
+        """Gather each row-sharded coordinate's rows from its cards into its
+        static buffer (on the card: on the current stream, which waits on
+        every card's send)."""
+        for cid, matrix in self.sharded.items():
+            gather_rows_into(self.gathered[cid], matrix, self.rows[cid], host_rows=self.host_rows[cid],
+                             streams=self.card_streams)
 
     def run(self, packed: dict, stream: Optional["torch.cuda.Stream"]) -> Tuple[np.ndarray, np.ndarray]:
         """Stage `packed` into the static buffers, run, fetch (margin, mean)."""
@@ -236,11 +274,13 @@ class _BucketProgram:
         if self.graph is None:
             for dst, src in pairs:
                 dst.copy_(src)
+            self.gather()
             self.host_out.copy_(self._program())
         else:
             with torch.cuda.stream(stream):
                 for dst, src in pairs:
                     dst.copy_(src, non_blocking=True)
+                self.gather()
                 self.graph.replay()
                 self.host_out.copy_(self.out, non_blocking=True)
             stream.synchronize()
@@ -358,9 +398,9 @@ class ServingEngine:
 
     @property
     def reshard_orchestrator(self):
-        """This engine's placement changes on one card (created on first
-        use; serving/reshard.py): the two-tier hot-row rebalance and the
-        one-shard restage. A reshard across cards raises (item 9c)."""
+        """This engine's placement changes (created on first use; serving/
+        reshard.py): a reshard onto a mesh of cards or back to one, and the
+        two-tier hot-row rebalance."""
         with self._lock:
             if self._reshard_orchestrator is None:
                 from photon_ml_tpu_torch.serving.reshard import MeshReshardOrchestrator
@@ -655,25 +695,32 @@ class ServingEngine:
         n_re = sum(1 for c in st.coords if c.is_random_effect)
         width = sum(st.shard_dims.values())
         ovr = sum(c.dim * 4 + 1 for c in st.coords if c.store is not None)
-        return sum(4 * b + 4 * b * width + 8 * b * n_re + 8 * b + b * ovr for b in self.buckets)
+        gathered = sum(c.dim * 4 for c in st.coords if c.mesh is not None)
+        return sum(4 * b + 4 * b * width + 8 * b * n_re + 8 * b + b * ovr + b * gathered
+                   for b in self.buckets)
 
     def _sharding_metrics(self, state: _EngineState) -> Dict[str, object]:
-        """The reference's sharding block for a single-tier bundle on one
-        device (contracts.SERVING_SHARDING_KEYS order): row blocks count as
-        its shards, and nothing moves between devices."""
+        """The reference's sharding block (contracts.SERVING_SHARDING_KEYS
+        order): whether a random effect is row-sharded over cards, the
+        widest mesh (row blocks on one device count as its shards), the
+        peak rows a shard, the two-tier hot fraction, the analytic bytes a
+        max_batch bucket's gathers move between cards
+        (`bcast_gather_wire_bytes`), lost shards and their fallbacks."""
         from photon_ml_tpu_torch.contracts import SERVING_SHARDING_KEYS
 
         health = [c.shard_health for c in state.coords if c.shard_health is not None]
         stores = [c.store for c in state.coords if c.store is not None]
+        meshed = [c for c in state.coords if c.mesh is not None]
         axis = max((h.n_shards for h in health), default=1)
         rows_per_shard = max([h.rows_per_shard for h in health] + [s.capacity + 1 for s in stores],
                              default=0)
         hot_fraction = min([1.0] + [s.hot_fraction for s in stores])
+        wire = sum(bcast_gather_wire_bytes(c.mesh, self.max_batch, c.dim) for c in meshed)
         shards_lost = sum(len(h.lost) for h in health)
         with self._lock:
             fallbacks = self._shard_loss_fallbacks
-        return dict(zip(SERVING_SHARDING_KEYS, (False, axis, rows_per_shard, round(hot_fraction, 6),
-                                                0, shards_lost, fallbacks)))
+        return dict(zip(SERVING_SHARDING_KEYS, (bool(meshed), axis, rows_per_shard,
+                                                round(hot_fraction, 6), wire, shards_lost, fallbacks)))
 
     @property
     def compiles(self) -> int:

@@ -312,9 +312,10 @@ def device_memory_budget_bytes(device: torch.device) -> Optional[int]:
 
 
 def _bundle_device_bytes(bundle) -> int:
-    """A bundle's device bytes for a device-memory budget: every pinned
-    plane, and a two-tier coordinate's hot plane, not its host matrix."""
-    return int(bundle.device_bytes())
+    """A bundle's device bytes for a device-memory budget, the peak on one
+    card: every pinned plane, a two-tier coordinate's hot plane (not its
+    host matrix), a row-sharded matrix's bytes over its shards."""
+    return int(bundle.device_bytes_per_shard())
 
 
 # How long a swap waits for in-flight batches of the old generation before
@@ -408,7 +409,8 @@ class BundleManager:
             return self._stage_and_commit(old_state, stage, kind="swap", check=check_budget)
 
     def _stage_and_commit(self, old_state, stage, *, kind: str, check=None,
-                          drain_timeout_s: float = SWAP_DRAIN_TIMEOUT_S) -> Dict[str, object]:
+                          drain_timeout_s: float = SWAP_DRAIN_TIMEOUT_S,
+                          shards: Tuple[int, int] = (1, 1)) -> Dict[str, object]:
         """The one staging, flip and rollback sequence of a generation
         change (the reference's `_stage_and_commit`); the caller holds
         `mutex`. `stage()` returns the next bundle, staged beside the live
@@ -417,7 +419,8 @@ class BundleManager:
         bucket program of the new generation (on the card: new CUDA graphs;
         their builds are warmup, not hot-path recompiles), the commit site
         (`swap_commit` for kind "swap", `reshard_commit` for "delta",
-        "reshard" and "rebalance": serving/reshard.py's one-card moves),
+        "reshard" and "rebalance": serving/reshard.py's moves, whose
+        journal lines carry `shards`, the (old, new) shard counts),
         the atomic flip between batches, the drain of the old generation's
         in-flight batches and its release. Any failure before the flip rolls
         back (counted and journalled by kind) and re-raises: the old
@@ -442,7 +445,7 @@ class BundleManager:
             t_staged = time.perf_counter()
             new_state = engine._build_state(staged, version=old_state.version + 1)
             if checked:
-                self._check_compatible(old_state, new_state)
+                self._check_compatible(old_state, new_state, reshard=kind == "reshard")
             if check is not None:
                 check(new_state)
             compiles_before = engine.compiles
@@ -455,7 +458,7 @@ class BundleManager:
                 faults.fault_point("swap_commit" if kind == "swap" else "reshard_commit")
             stage_s = time.perf_counter() - t0
         except BaseException as exc:
-            self._roll_back(kind, old_state.version, exc)
+            self._roll_back(kind, old_state.version, exc, shards)
             if new_state is not None and engine._retire_hook is not None:
                 engine._retire_hook(new_state)
             if staged is not None and staged is not old_state.bundle:
@@ -473,7 +476,7 @@ class BundleManager:
             if kind == "delta":
                 self._deltas += 1
             new_state.bundle.provenance["generation"] = new_state.version
-            telemetry.emit_event("reshard_commit", old_shards=1, new_shards=1,
+            telemetry.emit_event("reshard_commit", old_shards=shards[0], new_shards=shards[1],
                                  version=new_state.version,
                                  restaged_bytes=int(staged.upload_bytes))
         telemetry.METRICS.set_gauge("serving_bundle_generation", new_state.version)
@@ -499,7 +502,8 @@ class BundleManager:
                 "committed": True, "upload_s": t_staged - t0, "prewarm_s": t_warm - t_staged,
                 "flip_s": flip_s}
 
-    def _roll_back(self, kind: str, version: int, exc: BaseException) -> None:
+    def _roll_back(self, kind: str, version: int, exc: BaseException,
+                   shards: Tuple[int, int] = (1, 1)) -> None:
         if kind == "swap":
             self._rollbacks += 1
             faults.COUNTERS.increment("serving_swap_rollbacks")
@@ -509,15 +513,20 @@ class BundleManager:
             telemetry.emit_event("delta_rollback", version=version, reason=repr(exc))
         elif kind in _RESHARD_KINDS:
             faults.COUNTERS.increment("reshard_rollbacks")
-            telemetry.emit_event("reshard_rollback", old_shards=1, new_shards=1, reason=repr(exc))
+            telemetry.emit_event("reshard_rollback", old_shards=shards[0], new_shards=shards[1],
+                                 reason=repr(exc))
         logger.warning("bundle %s to version %d rolled back (%r); version %d keeps serving", kind,
                        version + 1, exc, version)
 
     @staticmethod
-    def _check_compatible(old_state, new_state) -> None:
+    def _check_compatible(old_state, new_state, *, reshard: bool = False) -> None:
         """The program family keys on coordinate order, kinds, shards and
-        feature widths; entity counts may differ."""
-        if old_state.kinds != new_state.kinds or \
+        feature widths; entity counts may differ. A reshard may change a
+        coordinate between replicated and row-sharded ("re" and "re_sh"),
+        which is its point, and no other kind."""
+        kinds = [(o, n) for o, n in zip(old_state.kinds, new_state.kinds) if o != n]
+        moved = reshard and all({o, n} == {"re", "re_sh"} for o, n in kinds)
+        if (kinds and not moved) or len(old_state.kinds) != len(new_state.kinds) or \
                 [c.cid for c in old_state.coords] != [c.cid for c in new_state.coords]:
             raise SwapIncompatible("next bundle's coordinate ids/kinds differ from the serving engine's")
         if old_state.coord_shards != new_state.coord_shards:

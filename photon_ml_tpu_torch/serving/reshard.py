@@ -1,32 +1,43 @@
-"""Live placement changes of a READY serving engine on one card.
+"""Live placement changes of a READY serving engine: reshard under traffic.
 
-Port of the one-card half of `photon_ml_tpu/serving/reshard.py`: the
-actuators the autopilot drives on one card.
+Port of `photon_ml_tpu/serving/reshard.py`: take an engine's random-effect
+matrices from one layout to another over the cards of one process (shrink
+onto fewer cards, regrow, collapse to replicated on the home card), or
+re-place a two-tier store's hot rows, without failing a request.
 
-* `plan_rebalance` / `MeshReshardOrchestrator.rebalance(cid)`: a two-tier
-  coordinate's `TwoTierEntityStore` counts each row's promotions
-  (`promotion_stats()`); the rows promoted at least
-  PHOTON_REBALANCE_MIN_PROMOTIONS times, hottest first, cut to the hot
-  set's capacity, become the preload of a NEW store over the same host
-  rows. The new generation is staged beside the live one (the
-  `reshard_stage` site, PHOTON_RESHARD_RETRIES bounded retries), its bucket
-  programs pre-warmed (on the card: new CUDA graphs, the registry's
-  co-batch hook included), and flipped through the port's one sequence,
-  `BundleManager._stage_and_commit` (kind "rebalance": the `reshard_commit`
-  site, `reshard_start` / `reshard_commit` journal lines, or
-  `reshard_rollback` and `reshard_rollbacks` on a failure, with the old
-  generation serving throughout). The new store starts clean (epoch 0, its
-  own promotion thread); the old one closes after the drain.
-  Bit-neutral: hot or cold placement never changes an answer.
-* `reshard(None)` restages every single-tier random effect of a one-shard
-  bundle as one shard, in a new buffer on its device, as the reference's
-  does on one device (`plan_reshard`: no row moves, 0 bytes across the
-  wire), through the same sequence (kind "reshard").
+* PLAN: `plan_reshard` / `plan_coordinate_reshard` give each coordinate's
+  row movement between its current shards and the new mesh's
+  (`ShardSegment`, `CoordinateReshardPlan`, `ReshardPlan`, the reference's
+  dataclasses): the contiguous row segments tiling each new shard's block,
+  each from an old shard, and whether it moves (its old and new cards
+  differ: a plan compares card identities, `parallel.mesh.CardMesh.cards`,
+  as the reference's compares device objects). Only logical rows move;
+  padding (rows at or past E + 1) never does. `moved_rows`/`moved_bytes`
+  are what the journal records.
+* STAGE: each new shard's block is built on its card beside the live
+  generation (`_stage_resharded_params`), under the `reshard_stage` fault
+  site with PHOTON_RESHARD_RETRIES bounded retries (`reshard_retries`): a
+  segment whose card changes is copied card to card, every other one on
+  its card, and the padding stays zeros. The live blocks are only read.
+* PRE-WARM, COMMIT, FLIP: the port's one sequence,
+  `BundleManager._stage_and_commit` (kind "reshard": the compatibility
+  check, which lets a coordinate change between "re" and "re_sh", every
+  bucket program of the new generation pre-warmed, the `reshard_commit`
+  site, `reshard_start`/`reshard_commit` journal lines with the shard
+  counts, the atomic flip, the drain, the old generation's release). Any
+  failure before the flip rolls back (`reshard_rollback`,
+  `reshard_rollbacks`) with the old generation serving throughout.
 
-Not ported (ROADMAP item 9c): a reshard onto two or more cards
-(`reshard(new_mesh)` with a mesh, `plan_reshard` across cards): they
-raise. Bundles staged in row blocks (a multi-host worker's placement) are
-refused, as the delta apply refuses to move their rows.
+`plan_rebalance` / `MeshReshardOrchestrator.rebalance(cid)`: a two-tier
+coordinate's `TwoTierEntityStore` counts each row's promotions; the rows
+promoted at least PHOTON_REBALANCE_MIN_PROMOTIONS times, hottest first, cut
+to the hot set's capacity, become the preload of a NEW store over the same
+host rows, staged and flipped through the same sequence (kind
+"rebalance"). Bit-neutral: placement never changes an answer.
+
+Refused: a quantized coordinate (restore its precision first), and one
+staged in row blocks on one device (a multi-host worker's placement, which
+changes by a restage, as the delta apply refuses to move its rows).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from photon_ml_tpu_torch.parallel.mesh import CardMesh, RowShardedMatrix, card_of, pad_rows_for_mesh
 from photon_ml_tpu_torch.serving.bundle import (
     ServingBundle,
     ServingCoordinate,
@@ -48,8 +60,6 @@ from photon_ml_tpu_torch.utils.knobs import get_knob
 
 logger = logging.getLogger(__name__)
 
-_ACROSS_CARDS = "a reshard onto two or more cards is ROADMAP item 9c (not ported)"
-
 
 def _reshard_policy():
     """1 + PHOTON_RESHARD_RETRIES attempts under the standard backoff."""
@@ -57,40 +67,137 @@ def _reshard_policy():
 
 
 @dataclasses.dataclass(frozen=True)
+class ShardSegment:
+    """Rows [row_lo, row_hi) of a new shard's block, from old shard
+    `source_shard` (-1: padding that exists only in the new layout).
+    `moves`: the old and new cards differ."""
+
+    row_lo: int
+    row_hi: int
+    source_shard: int
+    moves: bool
+
+    @property
+    def rows(self) -> int:
+        return self.row_hi - self.row_lo
+
+
+@dataclasses.dataclass(frozen=True)
+class CoordinateReshardPlan:
+    """One random-effect coordinate's row movement."""
+
+    cid: str
+    old_shards: int
+    new_shards: int
+    logical_rows: int  # E + 1, the pinned zero row included
+    padded_rows: int  # rows of the new layout (a mesh multiple)
+    dim: int
+    # Per new shard: the ordered segments tiling its row block.
+    segments: Tuple[Tuple[ShardSegment, ...], ...]
+    moved_rows: int
+    moved_bytes: int
+    # Each old shard's request load (ShardHealth.loads).
+    shard_loads: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
 class ReshardPlan:
-    """A reshard's row movement. On one card the shard-tracked random
-    effects (`coordinates`) are restaged as one shard each on the device
-    that holds them: no row moves."""
+    old_shards: int
+    new_shards: int
+    coordinates: Tuple[CoordinateReshardPlan, ...]
 
-    coordinates: Tuple[str, ...]
-    old_shards: int = 1
-    new_shards: int = 1
-    moved_rows: int = 0
-    moved_bytes: int = 0
+    @property
+    def moved_rows(self) -> int:
+        return sum(c.moved_rows for c in self.coordinates)
+
+    @property
+    def moved_bytes(self) -> int:
+        return sum(c.moved_bytes for c in self.coordinates)
 
 
-def plan_reshard(bundle: ServingBundle, new_mesh=None) -> ReshardPlan:
-    """The bundle-wide plan: every single-tier random effect (fixed effects
-    and two-tier stores carry over untouched). A mesh of cards raises (item
-    9c), and so does a coordinate staged in row blocks or quantized (the
-    restage copies float32 rows)."""
-    if new_mesh is not None:
-        raise NotImplementedError(f"plan_reshard: {_ACROSS_CARDS}")
-    cids = []
-    for c in bundle.coordinates.values():
-        if not c.is_random_effect or c.store is not None or c.shard_health is None:
-            continue
-        if c.tier != "f32":
-            raise ValueError(f"coordinate {c.cid!r} is quantized to {c.tier!r} — resharding "
-                             "requires full-precision rows (restore_bundle_precision first)")
-        if c.row_blocks is not None or c.shard_health.n_shards != 1:
-            raise ValueError(f"coordinate {c.cid!r} is staged in {c.shard_health.n_shards} row blocks "
-                             "(a multi-host worker's placement); its placement changes by a restage")
-        cids.append(c.cid)
-    if not cids:
+def _target(new_mesh: Optional[CardMesh]) -> Optional[CardMesh]:
+    """A mesh of one shard is the replicated layout."""
+    if new_mesh is not None and not isinstance(new_mesh, CardMesh):
+        raise TypeError(f"new_mesh must be a parallel.mesh.CardMesh or None, got {type(new_mesh).__name__}")
+    return new_mesh if new_mesh is not None and new_mesh.size > 1 else None
+
+
+def _coord_cards(coord: ServingCoordinate) -> Tuple[int, ...]:
+    """The card identity of each shard of a coordinate's current layout."""
+    if coord.mesh is not None:
+        return coord.mesh.cards
+    return (card_of(coord.params.device),)
+
+
+def plan_coordinate_reshard(coord: ServingCoordinate, new_mesh: Optional[CardMesh], *,
+                            home=None) -> CoordinateReshardPlan:
+    """One coordinate's row movement from its current shards to `new_mesh`
+    (None: replicated on `home`, default the card the coordinate's first
+    shard is on). A row moves when the card owning it in the new layout
+    differs from the card holding it now; padding never moves."""
+    if coord.shard_health is None:
+        raise ValueError(f"coordinate {coord.cid!r} has no device-resident shard tracking "
+                         "(fixed-effect or two-tier coordinate)")
+    if coord.tier != "f32":
+        raise ValueError(f"coordinate {coord.cid!r} is quantized to {coord.tier!r} — resharding "
+                         "requires full-precision rows (restore_bundle_precision first)")
+    if coord.row_blocks is not None:
+        raise ValueError(f"coordinate {coord.cid!r} is staged in {coord.shard_health.n_shards} row "
+                         "blocks (a multi-host worker's placement); its placement changes by a restage")
+    new_mesh = _target(new_mesh)
+    old_cards = _coord_cards(coord)
+    if new_mesh is None:
+        if home is None:
+            home = coord.mesh.devices[0] if coord.mesh is not None else coord.params.device
+        new_cards: Tuple[int, ...] = (card_of(home),)
+    else:
+        new_cards = new_mesh.cards
+    n_old, n_new = len(old_cards), len(new_cards)
+    logical = coord.unseen_row + 1
+    rows_per_old = coord.shard_health.rows_per_shard
+    padded = pad_rows_for_mesh(logical, new_mesh) if new_mesh is not None else logical
+    rows_per_new = padded // n_new
+    old_rows_total = n_old * rows_per_old
+    segments: List[Tuple[ShardSegment, ...]] = []
+    moved = 0
+    for k in range(n_new):
+        lo, hi = k * rows_per_new, (k + 1) * rows_per_new
+        segs: List[ShardSegment] = []
+        r = lo
+        while r < hi:
+            if r >= old_rows_total:
+                segs.append(ShardSegment(r, hi, -1, False))
+                break
+            j = r // rows_per_old
+            seg_hi = min(hi, (j + 1) * rows_per_old, old_rows_total)
+            moves = old_cards[j] != new_cards[k]
+            segs.append(ShardSegment(r, seg_hi, j, moves))
+            if moves:  # only logical rows move: old-layout padding is zeros
+                moved += max(0, min(seg_hi, logical) - min(r, logical))
+            r = seg_hi
+        segments.append(tuple(segs))
+    return CoordinateReshardPlan(cid=coord.cid, old_shards=n_old, new_shards=n_new, logical_rows=logical,
+                                 padded_rows=padded, dim=coord.dim, segments=tuple(segments),
+                                 moved_rows=moved, moved_bytes=moved * coord.dim * 4,
+                                 shard_loads=coord.shard_health.loads)
+
+
+def plan_reshard(bundle: ServingBundle, new_mesh: Optional[CardMesh]) -> ReshardPlan:
+    """The bundle-wide plan: every shard-tracked random effect (replicated
+    or row-sharded) replans onto `new_mesh` (None: replicated on the
+    bundle's card); fixed effects and two-tier stores carry over. A mesh of
+    another device kind than the bundle's is refused."""
+    new_mesh = _target(new_mesh)
+    if new_mesh is not None and new_mesh.device_type != bundle.device.type:
+        raise ValueError(f"a mesh of {new_mesh.device_type} cards cannot serve a bundle on {bundle.device}")
+    plans = [plan_coordinate_reshard(c, new_mesh, home=bundle.device)
+             for c in bundle.coordinates.values()
+             if c.is_random_effect and c.store is None and c.shard_health is not None]
+    if not plans:
         raise ValueError("bundle has no shard-tracked random-effect coordinate to reshard "
                          "(two-tier stores rebalance instead; see rebalance())")
-    return ReshardPlan(coordinates=tuple(cids))
+    return ReshardPlan(old_shards=max(p.old_shards for p in plans), new_shards=plans[0].new_shards,
+                       coordinates=tuple(plans))
 
 
 def plan_rebalance(coord: ServingCoordinate, *, min_promotions: Optional[int] = None) -> Tuple[int, ...]:
@@ -108,10 +215,50 @@ def plan_rebalance(coord: ServingCoordinate, *, min_promotions: Optional[int] = 
     return tuple(hot[: store.capacity])
 
 
+def _stage_resharded_params(coord: ServingCoordinate, cplan: CoordinateReshardPlan,
+                            new_mesh: Optional[CardMesh], home: torch.device):
+    """One coordinate's matrix in the new layout, beside the live one: each
+    new shard's block built on its card under the `reshard_stage` site
+    (bounded retries), its segments copied from the old blocks (card to
+    card where `moves`, on the card otherwise), rows past the logical E + 1
+    left zero. Returns a RowShardedMatrix, or the (E + 1, dim) replicated
+    matrix on `home`."""
+    old_blocks = coord.params.blocks if coord.mesh is not None else (coord.params,)
+    rows_per_old = coord.shard_health.rows_per_shard
+    devices = new_mesh.devices if new_mesh is not None else (home,)
+    rows_per_new = cplan.padded_rows // cplan.new_shards
+    logical = cplan.logical_rows
+    blocks = []
+    for k, dev in enumerate(devices):
+        lo = k * rows_per_new
+
+        def attempt(k=k, dev=dev, lo=lo):
+            faults.fault_point("reshard_stage")
+            block = torch.zeros((rows_per_new, cplan.dim), dtype=torch.float32, device=dev)
+            for seg in cplan.segments[k]:
+                hi = min(seg.row_hi, logical)
+                if seg.source_shard < 0 or hi <= seg.row_lo:
+                    continue  # padding: zeros in both layouts
+                base = seg.source_shard * rows_per_old
+                block[seg.row_lo - lo: hi - lo].copy_(
+                    old_blocks[seg.source_shard][seg.row_lo - base: hi - base])
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return block
+
+        with telemetry.span("reshard_stage", coordinate=cplan.cid, shard=k):
+            blocks.append(faults.retry(attempt, _reshard_policy(),
+                                       label=f"reshard staging {cplan.cid} shard {k}",
+                                       counter="reshard_retries"))
+    if new_mesh is None:
+        return blocks[0]
+    return RowShardedMatrix(blocks, new_mesh, logical)
+
+
 class MeshReshardOrchestrator:
     """One engine's placement changes (`engine.reshard_orchestrator`), each a
     generation change through the engine's BundleManager under its mutex,
-    so a swap, a delta and a rebalance order instead of racing."""
+    so a swap, a delta, a reshard and a rebalance order instead of racing."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -131,22 +278,25 @@ class MeshReshardOrchestrator:
     def rollbacks(self) -> int:
         return self._rollbacks
 
-    def _run(self, old_state, stage, *, kind: str, drain_timeout_s: float) -> Dict[str, object]:
+    def _run(self, old_state, stage, *, kind: str, drain_timeout_s: float,
+             shards: Tuple[int, int] = (1, 1)) -> Dict[str, object]:
         manager = self.engine.bundle_manager
         try:
             return manager._stage_and_commit(old_state, stage, kind=kind,
-                                             drain_timeout_s=drain_timeout_s)
+                                             drain_timeout_s=drain_timeout_s, shards=shards)
         except BaseException:
             self._rollbacks += 1
             raise
 
-    def reshard(self, new_mesh=None, *, drain_timeout_s: float = 30.0,
+    def reshard(self, new_mesh: Optional[CardMesh] = None, *, drain_timeout_s: float = 30.0,
                 plan: Optional[ReshardPlan] = None) -> Dict[str, object]:
-        """Restage the engine's single-tier random effects as one shard each
-        on its device under live traffic (`new_mesh=None`); a mesh of two or
-        more cards raises (ROADMAP item 9c)."""
-        if new_mesh is not None:
-            raise NotImplementedError(f"reshard: {_ACROSS_CARDS}")
+        """Move the engine's shard-tracked random effects onto `new_mesh`
+        (None, or a mesh of one card: replicated on the engine's card)
+        under live traffic: plan, `reshard_start`, stage each new block
+        beside the live generation, then the generation-change sequence
+        (module docstring). Returns its record with the plan's shard counts
+        and moved rows and bytes."""
+        new_mesh = _target(new_mesh)
         engine = self.engine
         manager = engine.bundle_manager
         with manager.mutex:
@@ -157,39 +307,29 @@ class MeshReshardOrchestrator:
             telemetry.emit_event("reshard_start", old_shards=plan.old_shards,
                                  new_shards=plan.new_shards, moved_rows=plan.moved_rows,
                                  moved_bytes=plan.moved_bytes)
+            plan_by_cid = {p.cid: p for p in plan.coordinates}
             dev = old_bundle.device
 
             def stage() -> ServingBundle:
                 new_coords: Dict[str, ServingCoordinate] = {}
                 for cid in old_bundle.coordinate_ids:
                     c = old_bundle.coordinates[cid]
-                    if cid not in plan.coordinates:
+                    cplan = plan_by_cid.get(cid)
+                    if cplan is None:
                         new_coords[cid] = c  # one object serves both generations
                         continue
-                    logical = c.unseen_row + 1
-
-                    def attempt(rows=c.params[:logical], cid=cid):
-                        # A new buffer beside the live one (a device copy: no
-                        # row changes device).
-                        faults.fault_point("reshard_stage")
-                        with telemetry.span("reshard_stage", coordinate=cid, shard=0):
-                            buf = rows.clone()
-                            if dev.type == "cuda":
-                                torch.cuda.synchronize(dev)
-                            return buf
-
-                    params = faults.retry(attempt, _reshard_policy(),
-                                          label=f"reshard staging {cid} shard 0",
-                                          counter="reshard_retries")
+                    params = _stage_resharded_params(c, cplan, new_mesh, dev)
                     new_coords[cid] = ServingCoordinate(
                         cid, c.shard, params, norm=c.norm, random_effect_type=c.random_effect_type,
-                        entity_index=c.entity_index, logical_rows=logical,
-                        shard_health=ShardHealth(1, logical))
+                        entity_index=c.entity_index, logical_rows=cplan.logical_rows,
+                        shard_health=ShardHealth(cplan.new_shards, cplan.padded_rows // cplan.new_shards),
+                        mesh=new_mesh)
                 return ServingBundle(task=old_bundle.task, coordinates=new_coords, device=dev,
                                      index_maps=old_bundle.index_maps, upload_bytes=plan.moved_bytes,
                                      provenance=dict(old_bundle.provenance))
 
-            info = self._run(old_state, stage, kind="reshard", drain_timeout_s=drain_timeout_s)
+            info = self._run(old_state, stage, kind="reshard", drain_timeout_s=drain_timeout_s,
+                             shards=(plan.old_shards, plan.new_shards))
             self._reshards += 1
             info.update(old_shards=plan.old_shards, new_shards=plan.new_shards,
                         moved_rows=plan.moved_rows, moved_bytes=plan.moved_bytes,

@@ -19,7 +19,8 @@ free:
   with `torch.where`), through the engine's own margin functions
   (`dense_margins`, `gathered_row_margins`), so a co-batched answer is its
   solo answer bit for bit. A tenant outside every signature (normalized,
-  two-tier, a lost shard) dispatches solo through its own micro-batcher.
+  two-tier, row-sharded over cards, a lost shard) dispatches solo through
+  its own micro-batcher.
 * **Co-batch programs on the card are CUDA graphs.** A graph reads fixed
   addresses, so it is captured for one generation of each member: its key
   is (signature, each member's name and state generation, bucket). A
@@ -42,8 +43,8 @@ free:
   degrades only the tenant that owns it to its solo path; a whole-dispatch
   failure degrades every slice to its own tenant's batcher.
 * **Device-memory pressure.** Admission charges every tenant's device bytes
-  (`_bundle_device_bytes`: a two-tier store's hot plane, not its host
-  matrix) against `PHOTON_TENANT_HBM_FRACTION` of the card's budget. While
+  (`_bundle_device_bytes`, the peak on one card: a two-tier store's hot
+  plane, not its host matrix; a row-sharded matrix per card) against `PHOTON_TENANT_HBM_FRACTION` of the card's budget. While
   a newcomer does not fit, the coldest (least recently active) tenant's
   random effects are demoted to the host tier
   (`bundle.demote_bundle_to_host_tier`): it keeps answering bit-equal, it
@@ -232,8 +233,9 @@ class _CobatchProgram:
 
 def _signature(task, state) -> Optional[tuple]:
     """The co-batch key of one engine state, or None when it must dispatch
-    solo: every coordinate "fe" or "re" (single-tier), no normalization,
-    no lost shard."""
+    solo: every coordinate "fe" or "re" (single-tier on the card: a
+    coordinate row-sharded over cards, "re_sh", gathers differently), no
+    normalization, no lost shard."""
     for k, c in enumerate(state.coords):
         if state.kinds[k] not in ("fe", "re") or c.norm is not None:
             return None
@@ -289,20 +291,21 @@ class Tenant:
 
     def can_demote(self) -> bool:
         """Whether the pressure valve may pick this tenant: not demoted yet,
-        and no coordinate staged in row blocks (a placement, which the host
-        tier would not keep)."""
+        and no coordinate staged in row blocks or row-sharded over cards (a
+        placement, which the host tier would not keep)."""
         if self.demoted:
             return False
-        return all(c.row_blocks is None for c in self.engine._state.coords)
+        return all(c.row_blocks is None and c.mesh is None for c in self.engine._state.coords)
 
     def can_quantize(self) -> bool:
         """Whether a ladder step down may pick this tenant: not demoted, not
-        on the last quantized rung, no coordinate staged in row blocks, and
-        a single-tier random-effect matrix left to shrink."""
+        on the last quantized rung, no coordinate staged in row blocks or
+        row-sharded over cards, and a single-tier random-effect matrix left
+        to shrink."""
         if self.demoted or self.tier == PRECISION_LADDER[-1]:
             return False
         st = self.engine._state
-        if any(c.row_blocks is not None for c in st.coords):
+        if any(c.row_blocks is not None or c.mesh is not None for c in st.coords):
             return False
         return any(kind in ("re", "re_bf16") for kind in st.kinds)
 

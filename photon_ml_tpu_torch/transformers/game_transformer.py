@@ -12,7 +12,14 @@ scores in its projected space, as it trained; an unseen entity's entries
 project to zeros) and gather coefficient rows (over a sparse shard, the
 coefficients each row's ELL entries name, from the planes themselves).
 That preparation (`prepare_coordinate_data`) is done once per (coordinate,
-dataset) and reused by every scoring of it. On a dataset
+dataset) and reused by every scoring of it. A random effect whose matrix
+is row-sharded over the cards of the process (a `parallel.mesh.
+RowShardedMatrix`, the reference's branch at game_transformer.py:196-260)
+scores in chunks of _BCAST_SCORING_MAX_ROWS samples: each chunk's rows are
+gathered from their cards (`parallel.mesh.bcast_gather_rows`, under the
+`collective` fault site) and reduced by `gathered_row_margins`, the
+replicated branch's bits; the reference's ring gather, for larger sample
+axes, serves training. On a dataset
 sharded over ranks, `transform` scores this rank's rows with the (replicated
 or assembled) model; `dataset.sharding.gather` brings the scores of all rows
 together where they are needed.
@@ -34,15 +41,21 @@ from photon_ml_tpu_torch.game.model import (
     FixedEffectModel,
     GameModel,
     RandomEffectModel,
+    gathered_row_margins,
     random_effect_margins,
     row_sum,
 )
 from photon_ml_tpu_torch.ops import objective, sparse_kernels
 from photon_ml_tpu_torch.ops.losses import mean_for_task
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+from photon_ml_tpu_torch.parallel.mesh import bcast_gather_rows, leading_axis_mesh
 from photon_ml_tpu_torch.types import TaskType
 
 Tensor = torch.Tensor
+
+# Samples a row-sharded matrix's gather brings to the scoring card at once
+# (the reference's bound on its broadcast-gather scoring).
+_BCAST_SCORING_MAX_ROWS = 4096
 
 
 @dataclasses.dataclass
@@ -131,8 +144,17 @@ def coordinate_margins(spec: CoordinateScoringSpec, model, prepared: PreparedCoo
     if spec.is_random_effect:
         if not isinstance(model, RandomEffectModel):
             raise TypeError(f"random-effect spec needs a RandomEffectModel, got {type(model)}")
-        return random_effect_margins(prepared.features, prepared.entity_rows,
-                                     model.coefficients_matrix, spec.norm)
+        matrix = model.coefficients_matrix
+        if leading_axis_mesh(matrix) is None:
+            return random_effect_margins(prepared.features, prepared.entity_rows, matrix, spec.norm)
+        feats, rows = prepared.features, prepared.entity_rows
+        chunks = []
+        for lo in range(0, int(rows.shape[0]), _BCAST_SCORING_MAX_ROWS):
+            hi = lo + _BCAST_SCORING_MAX_ROWS
+            f = SparseFeatures(feats.indices[lo:hi], feats.values[lo:hi], feats.dim) \
+                if isinstance(feats, SparseFeatures) else feats[lo:hi]
+            chunks.append(gathered_row_margins(f, bcast_gather_rows(matrix, rows[lo:hi]), spec.norm))
+        return torch.cat(chunks) if chunks else rows.new_zeros(0, dtype=torch.float32)
     if not isinstance(model, FixedEffectModel):
         raise TypeError(f"fixed-effect spec needs a FixedEffectModel, got {type(model)}")
     return fixed_effect_margins(prepared.features, model.coefficients.means, spec.norm)

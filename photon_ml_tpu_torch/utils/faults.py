@@ -11,7 +11,12 @@ Port of `photon_ml_tpu/utils/faults.py`:
   environment. An armed `fault_point` raises `InjectedFault`. The site
   registry is the reference's whole table, so a plan naming any of its
   sites parses here as there; the serving tier fires `lookup`, `score`,
-  `admit`, `swap_stage`, `swap_commit` and `shard_upload`; coordinate
+  `admit`, `swap_stage`, `swap_commit` and `shard_upload`, its reshard
+  `reshard_stage` and `reshard_commit`; a host-dispatched gather over the
+  cards of one process (parallel/mesh.dispatch_collective: the
+  transformer's over a row-sharded matrix) fires `collective` once per
+  attempt, retried PHOTON_COLLECTIVE_RETRIES times and counted in
+  `collective_retries`; coordinate
   descent fires `solve` once per attempt of an update and `mesh_loss` once
   per update; the checkpoint fires `checkpoint_write` and `resume_load`;
   the native ingest fires `decode` once per attempt of a file's read; the

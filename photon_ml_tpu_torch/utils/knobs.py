@@ -7,9 +7,10 @@ warning and reads as the default). `get_knob` on a name not registered here
 raises, so a knob cannot be read without landing in this table.
 
 `PHOTON_SERVING_HOT_ROWS` stages each random effect in the two-tier store
-(`serving.bundle.load_bundle`); `PHOTON_SERVING_ENTITY_SHARD` is registered
-so that `load_bundle` can refuse it: the row-sharded store it selects is
-ROADMAP item 9c. The multi-tenant registry's (`PHOTON_TENANT_MAX_PENDING`,
+(`serving.bundle.load_bundle`), `PHOTON_SERVING_ENTITY_SHARD` row-sharded
+over every card of the process (`serving.bundle.serving_entity_mesh`), and
+`PHOTON_COLLECTIVE_RETRIES` bounds the re-dispatch of a host-dispatched
+gather over those cards (`parallel.mesh.dispatch_collective`). The multi-tenant registry's (`PHOTON_TENANT_MAX_PENDING`,
 `PHOTON_TENANT_HBM_FRACTION`) and the shadow controller's
 (`PHOTON_SHADOW_*`) are the reference's, and so are the precision
 ladder's (`PHOTON_TIER_*`). The solver's and the sweep executor's knobs (`PHOTON_SOLVE_RETRIES`, `PHOTON_SWEEP_*`) are the
@@ -112,7 +113,10 @@ _register("PHOTON_SHARD_UPLOAD_RETRIES", int, 2,
           "failure surfaces (hot-swap rollback / shard stays degraded).")
 _register("PHOTON_SERVING_ENTITY_SHARD", bool, False,
           "Stage serving RE matrices row-sharded over all local devices "
-          "(not ported: ROADMAP item 9c; load_bundle raises when set).")
+          "(no-op with one device).")
+_register("PHOTON_COLLECTIVE_RETRIES", int, 1,
+          "Extra re-dispatches a failed mesh collective program gets before "
+          "the sweep degrades to the bitwise-equal per-bucket loop.")
 _register("PHOTON_SERVING_HOT_ROWS", int, 0,
           "Two-tier serving store hot-set size (rows of each random effect kept on the "
           "device, the full matrix in host RAM); 0 = single-tier.")

@@ -68,6 +68,7 @@ METRIC_DESCRIPTIONS = {
     "serving_swaps": "bundle hot-swaps committed",
     "serving_swap_rollbacks": "bundle hot-swaps rolled back",
     "serving_flush_thread_failures": "micro-batcher flush-thread deaths",
+    "collective_retries": "mesh collective program re-dispatches",
     "shard_upload_retries": "per-shard serving staging retries",
     "watchdog_trips": "device dispatches past the watchdog deadline",
     "shard_loss_fallbacks": "requests answered pinned-zero for a lost shard",

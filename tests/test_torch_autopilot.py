@@ -8,7 +8,8 @@ its one-card actuators, against the JAX package's, on the CPU.
     `reset_rule`) and the same `autopilot` block; `shard_grow_rule` takes
     `devices=1` in both (the JAX tests run on an 8-device mesh);
   * on a small port TenantRegistry with a two-tier tenant, each actuator
-    (demote, restore, rebalance, retune, reshard onto one card) applies
+    (demote, restore, rebalance, retune, reshard onto one card and onto
+    two CPU cards) applies
     with every answer bit-equal before and after; the precision ladder's
     actions apply (a step to bf16 answers as the quantized bundle's own
     engine, a restore to f32 bit-equal to the answers before the demotion)
@@ -38,6 +39,7 @@ from photon_ml_tpu_torch import autopilot, planner
 from photon_ml_tpu_torch.cli import obs
 from photon_ml_tpu_torch.cli import serve as serve_cli
 from photon_ml_tpu_torch.contracts import AUTOPILOT_BLOCK_KEYS
+from photon_ml_tpu_torch.parallel.mesh import surviving_mesh
 from photon_ml_tpu_torch.serving import ServingEngine, TenantRegistry
 from photon_ml_tpu_torch.serving.bundle import quantize_bundle_rows
 from photon_ml_tpu_torch.utils import faults, telemetry
@@ -244,6 +246,7 @@ ACTIONS = {
     "rebalance": ("b", {"cid": "per-e"}),
     "retune": (None, {"serving_max_wait_ms": 0.5}),
     "reshard": ("a", {"devices": 1}),
+    "reshard_cards": ("a", {"devices": 2}),
     "tier_demote": ("a", {"to": "bf16"}),
     "tier_restore": ("a", {"to": "f32"}),
     "fault": ("a", {"hot_rows": 0}),
@@ -267,7 +270,7 @@ def test_each_actuator_keeps_every_answer_bit_equal(case):
             reg.demote_tier("a", to="bf16")
         before = _scores(reg, ["a", "b"], reqs)
         tenant, params = ACTIONS[case]
-        kind = "demote" if case == "fault" else case
+        kind = {"fault": "demote", "reshard_cards": "reshard"}.get(case, case)
         pilot = autopilot.Autopilot(reg, rules=[_rule(kind, tenant, **params)], start=False,
                                     cooldown_s=0.0, probe_requests={"a": reqs[0], "b": reqs[1]})
         if case == "fault":
@@ -283,6 +286,8 @@ def test_each_actuator_keeps_every_answer_bit_equal(case):
         demoted = reg.tenant("a").demoted
         tier = reg.tenant("a").tier
         new_store = reg.tenant("b").engine.bundle.coordinates["per-e"].store
+        mesh = reg.tenant("a").engine.bundle.coordinates["per-e"].mesh
+    assert (mesh is not None and mesh.size == 2) == (case == "reshard_cards")
     if case == "tier_demote":  # a ladder step: "a" answers from its bf16 rows, the others bit-equal
         assert after["b"] == before["b"] and tier == "bf16" and after["a"] != before["a"]
         with ServingEngine(quantize_bundle_rows(_bundle(0), "bf16")[0], max_batch=8) as eng:
@@ -315,11 +320,16 @@ def test_each_actuator_keeps_every_answer_bit_equal(case):
 
 
 def test_reshard_across_cards_and_the_ladder_raise_naming_their_items():
+    # A reshard across cards is ported: onto two CPU cards and back, the
+    # answers bit-equal, the sharded tenant solo (no co-batch signature).
+    reqs = _reqs(_docs(5, 16))
     with TenantRegistry(max_batch=4) as reg:
         reg.admit("a", _bundle(0))
         orch = reg.tenant("a").engine.reshard_orchestrator
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            orch.reshard(2)
+        before = _scores(reg, ["a"], reqs)
+        assert orch.reshard(surviving_mesh(2, device="cpu"))["new_shards"] == 2
+        assert reg.tenant("a").signature() is None and _scores(reg, ["a"], reqs) == before
+        assert orch.reshard(None)["new_shards"] == 1 and _scores(reg, ["a"], reqs) == before
         with pytest.raises(ValueError, match="two-tier store"):
             orch.rebalance("per-e")
         # The precision ladder is ported: one rung down and back.

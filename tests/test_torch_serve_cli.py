@@ -16,9 +16,12 @@ JSON lines:
   * each package serves the model directory the other's cli.train wrote;
   * a malformed request line costs one record, and a corrupt Avro block
     its requests (quarantined and counted, as in the JAX cli.serve); each
-    refused flag combination raises the reference's refusal, and each flag
-    of a part not ported names its ROADMAP item (or the multi-host scope's
-    refusal), before anything is staged.
+    refused flag combination raises the reference's refusal (or the
+    multi-host scope's), before anything is staged;
+  * `--reshard-to N` reshards the engine live under the replay onto N CPU
+    cards (or back to replicated from a store PHOTON_SERVING_ENTITY_SHARD
+    staged over every card), with no failed request and the replicated
+    replay's bits, and records the reshard block.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from photon_ml_tpu_torch.cli import train as train_cli
 from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
 from photon_ml_tpu_torch.data.index_map import INTERCEPT_KEY, feature_key
 from photon_ml_tpu_torch.io import avro, score_store
+from photon_ml_tpu_torch.parallel.mesh import CPU_CARDS
 from photon_ml_tpu_torch.utils import faults, telemetry
 
 pytestmark = pytest.mark.serving
@@ -192,8 +196,8 @@ def test_a_malformed_request_costs_one_record_and_tracing_writes_a_trace(served,
 
 # The reference's refusals of flag combinations come first, in its words
 # (`--tenant`, `--shadow` and `--labels` are ported: tests/test_torch_tenancy.py
-# and tests/test_torch_shadow.py run them); then the parts the port has not
-# got raise, naming their ROADMAP item. The multi-host flags of item 9 are
+# and tests/test_torch_shadow.py run them; `--reshard-to` alone runs the live
+# drill: test_reshard_to_runs_the_live_drill). The multi-host flags are
 # ported since: under them the supervisor or a worker first refuses, as the
 # JAX driver's `_validate_scope` does, a command line outside the
 # multi-host scope, and `run()` refuses them (they dispatch in `main()`);
@@ -208,7 +212,6 @@ _SCOPE = "--multihost serve scope"
     (["--shadow", "b=x", "--reshard-to", "2"], ValueError, "--shadow and --reshard-to both drive"),
     (["--autopilot"], ValueError, "--autopilot supervises a multi-tenant fleet"),
     (["--tenant", "a=x", "--model-input-directory", "m"], ValueError, "pass exactly one of"),
-    (["--reshard-to", "2"], NotImplementedError, "item 9"),
     (["--multihost", "2", "--tenant", "a=x"], ValueError, f"{_SCOPE}: --tenant .multi-tenant. has no multi-host"),
     (["--multihost", "2", "--multihost-devices-per-host", "4", "--reshard-to", "2"], ValueError,
      f"{_SCOPE}: --reshard-to is a single-process drill"),
@@ -238,6 +241,35 @@ def test_run_is_the_single_process_path(tmp_path, extra):
     with pytest.raises(ValueError, match=f"{_SCOPE}: --model-input-directory is required"):
         serve_cli.main(["--requests", "r.jsonl", "--root-output-directory", str(tmp_path / "out"), *extra])
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("to,entity_shard", [("2", None), ("1", "1")])
+def test_reshard_to_runs_the_live_drill(served, tmp_path, monkeypatch, to, entity_shard):
+    """The reference's drill on CPU cards: replicated -> 2 cards, and a
+    store row-sharded over every CPU card by PHOTON_SERVING_ENTITY_SHARD ->
+    replicated, flipped under the replay (windows of 64 requests: the drill
+    starts with the second), every answer the replicated replay's bits."""
+    if entity_shard is not None:
+        monkeypatch.setenv("PHOTON_SERVING_ENTITY_SHARD", entity_shard)
+    monkeypatch.setattr(serve_cli, "REPLAY_WINDOW", 64)
+    out = tmp_path / "out"
+    summary = serve_cli.main(_serve_args(served["models"]["port"], served["data"] / "test.avro", out)
+                             + ["--device", "cpu", "--reshard-to", to])
+    assert sorted(summary) == sorted((*jax_contracts.SERVING_SUMMARY_KEYS, "reshard"))
+    assert summary["num_requests"] == 400 and summary["failed_requests"] == 0
+    assert summary["malformed_records"] == 0
+    block = summary["reshard"]
+    assert "error" not in block and block["committed"] and block["version"] == 1
+    assert block["new_shards"] == int(to)
+    assert block["old_shards"] == (CPU_CARDS if entity_shard else 1)
+    assert block["moved_rows"] > 0 and block["moved_bytes"] % (4 * block["moved_rows"]) == 0
+    assert summary["serving"]["sharding"]["entity_sharded"] is (to != "1")
+    assert summary["serving"]["recompiles_after_warmup"] == 0
+    assert summary["robustness_counters"]["reshard_rollbacks"] == 0
+    assert _by_uid(out / "scores") == _by_uid(served["out"]["avro"] / "scores")
+    assert telemetry.validate_journal(str(out / "journal.jsonl"))[1] == []
+    types = [json.loads(line)["type"] for line in (out / "journal.jsonl").read_text().splitlines()]
+    assert "reshard_start" in types and "reshard_commit" in types
 
 
 def test_a_corrupt_request_block_costs_its_requests_as_in_the_jax_serve(served, tmp_path):

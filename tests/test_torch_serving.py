@@ -46,6 +46,7 @@ from photon_ml_tpu_torch.game.model import (
 )
 from photon_ml_tpu_torch.io import model_bridge, model_store
 from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig
+from photon_ml_tpu_torch.parallel.mesh import CPU_CARDS, make_mesh, surviving_mesh
 from photon_ml_tpu_torch.serving import ScoreRequest, ServingBundle, ServingEngine, load_bundle
 from photon_ml_tpu_torch.serving.bundle import request_from_record
 from photon_ml_tpu_torch.transformers.game_transformer import CoordinateScoringSpec, GameTransformer
@@ -428,54 +429,71 @@ class TestBundle:
         with pytest.raises(ValueError, match="projected space"):
             ServingBundle.from_model(model, specs, TASK, device="cpu")
 
-    # The two-tier store is ported (tests/test_torch_two_tier.py); its
-    # case here asks it for a rank's row shard, which is still item 9c.
-    @pytest.mark.parametrize("kw", [{"mesh": object()}, {"hot_rows": 4, "row_shard": True},
+    # The two-tier store is ported (tests/test_torch_two_tier.py), and the
+    # row-sharded store over cards since: `mesh=` (two CPU cards) stages and
+    # serves bit-equal to the replicated engine. A rank's row shard (fewer
+    # rows than the index has entities) is a different placement, refused
+    # with or without hot_rows.
+    @pytest.mark.parametrize("kw", [{"mesh": 2}, {"hot_rows": 4, "row_shard": True},
                                     {"row_shard": True}])
     def test_unported_stores_raise_naming_item_9(self, rng, kw):
-        model, specs, _, _ = _fixture(rng, n=2)
+        model, specs, ds, reqs = _fixture(rng, n=9)
+        if "mesh" in kw:
+            mesh = make_mesh(["cpu"] * kw["mesh"])
+            with ServingEngine(ServingBundle.from_model(model, specs, TASK, device="cpu", mesh=mesh),
+                               max_batch=4) as eng:
+                assert eng.bundle.coordinates["per-e"].mesh == mesh
+                assert (_scores(eng.score_batch(reqs)) == _ref(model, specs, ds)).all()
+            return
         if kw.pop("row_shard", False):  # a rank's store: fewer rows than the index has entities
             m = model["per-e"]
             model = GameModel({"fixed": model["fixed"],
                                "per-e": RandomEffectModel(m.coefficients_matrix[2:], None, TASK)})
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="a rank's row shard"):
             ServingBundle.from_model(model, specs, TASK, device="cpu", **kw)
 
     @pytest.mark.parametrize("knob,value", [("PHOTON_SERVING_ENTITY_SHARD", "1"),
                                             ("PHOTON_SERVING_HOT_ROWS", "16")])
     def test_unported_store_knobs_raise_in_load_bundle(self, rng, tmp_path, monkeypatch, knob, value):
+        # Both knobs are ported: PHOTON_SERVING_HOT_ROWS stages the random
+        # effect two-tier (16 hot rows, capped at the entity count),
+        # PHOTON_SERVING_ENTITY_SHARD row-sharded over every card (on the
+        # CPU, parallel.mesh.CPU_CARDS of them); the answers keep the
+        # single-tier bits.
         monkeypatch.setenv(knob, value)
+        model, specs, ds, reqs = _fixture(rng, n=9)
+        index_maps = {"g": IndexMap.from_feature_names([f"f{i}" for i in range(D_FE)]),
+                      "re": IndexMap.from_feature_names([f"r{i}" for i in range(D_RE)])}
+        mdir = _save_port_model(tmp_path / "model", model, specs, index_maps)
+        bundle = load_bundle(str(mdir), device="cpu")
+        coord = bundle.coordinates["per-e"]
         if knob == "PHOTON_SERVING_HOT_ROWS":
-            # Ported since: the knob stages the random effect two-tier (16
-            # hot rows, capped at the entity count) and the answers keep the
-            # single-tier bits.
-            model, specs, ds, reqs = _fixture(rng, n=9)
-            index_maps = {"g": IndexMap.from_feature_names([f"f{i}" for i in range(D_FE)]),
-                          "re": IndexMap.from_feature_names([f"r{i}" for i in range(D_RE)])}
-            mdir = _save_port_model(tmp_path / "model", model, specs, index_maps)
-            bundle = load_bundle(str(mdir), device="cpu")
-            store = bundle.coordinates["per-e"].store
-            assert store is not None and store.capacity == N_ENTITIES
-            with ServingEngine(bundle, max_batch=16) as eng:
-                monkeypatch.delenv(knob)
-                with ServingEngine(load_bundle(str(mdir), device="cpu"), max_batch=16) as single:
-                    assert (_scores(eng.score_batch(reqs)) == _scores(single.score_batch(reqs))).all()
-            bundle.release()
-            return
-        with pytest.raises(NotImplementedError, match="item 9"):
-            load_bundle(str(tmp_path), device="cpu")
+            assert coord.store is not None and coord.store.capacity == N_ENTITIES
+        else:
+            assert coord.mesh == make_mesh(device="cpu") and coord.mesh.size == CPU_CARDS
+        with ServingEngine(bundle, max_batch=16) as eng:
+            monkeypatch.delenv(knob)
+            with ServingEngine(load_bundle(str(mdir), device="cpu"), max_batch=16) as single:
+                assert (_scores(eng.score_batch(reqs)) == _scores(single.score_batch(reqs))).all()
+        bundle.release()
 
     def test_unported_kind_raises(self, rng):
-        model, specs, _, reqs = _fixture(rng, n=2)
-        eng = _engine(model, specs, 2)
-        eng._state.kinds = ("fe", "re_sh")  # the reference's row-sharded kind: item 9c
-        with pytest.raises(ValueError, match="not ported"):
-            eng.score_batch(reqs[:1])
-        eng.close()
-        # The orchestrator is ported for one card (serving/reshard.py); a
-        # reshard onto a mesh of cards is still item 9c.
-        with pytest.raises(NotImplementedError, match="item 9"):
-            eng.reshard_orchestrator.reshard(object())
+        # The reference's row-sharded kind ("re_sh") is ported: an engine on
+        # a bundle row-sharded over two CPU cards serves it, reshards live
+        # onto four and back to replicated, every answer bit-equal; an
+        # unknown kind still raises.
+        model, specs, ds, reqs = _fixture(rng, n=9)
+        ref = _ref(model, specs, ds)
+        bundle = ServingBundle.from_model(model, specs, TASK, device="cpu", mesh=make_mesh(["cpu"] * 2))
+        with ServingEngine(bundle, max_batch=4) as eng:
+            assert eng._state.kinds == ("fe", "re_sh")
+            for target in (surviving_mesh(4, device="cpu"), None):
+                info = eng.reshard_orchestrator.reshard(target)
+                assert info["committed"] and (_scores(eng.score_batch(reqs)) == ref).all()
+            assert eng._state.kinds == ("fe", "re") and eng.metrics()["bundle_reshards"] == 2
+            eng._state.kinds = ("fe", "re_unknown")
+            with pytest.raises(ValueError, match="unknown coordinate kind"):
+                eng.score_batch(reqs[:1])
 
     def test_cuda_without_a_card_raises(self, rng, monkeypatch):
         model, specs, _, _ = _fixture(rng, n=2)
