@@ -336,15 +336,32 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
    trial reads diverged_steps 1, its model bit-equal to the clean one's);
    a NaN reg weight in serial, stacked and shard-group mode (the zeros
    fixed effect and the same count everywhere); shard groups of one card
-   each (one group on a one-card machine; a group of several cards is
-   ROADMAP item 9) bit-equal to serial. 3w-e2e: cli.tune at full width (3e's training files, 3g's
+   each (one group on a one-card machine) bit-equal to serial. 3w-e2e:
+   cli.tune at full width (3e's training files, 3g's
    validation file, 3c's coordinates; BAYESIAN, 8 trials in rounds of 4,
    --random-seed 0): read seconds, each trial's seconds, value and
    launches, stack_decisions, each GP proposal's seconds, winner_refit_s,
    the save seconds and the summary's keys; then cli.train at the winner's
    weights, whose saved model must be bit-equal to models/tuned-best once
    both are loaded; then two cold points stacked and serial in process on
-   3f's estimator (== values, bit-equal models).
+   3f's estimator (== values, bit-equal models). 3w-sg: on the same data
+   and estimator, a shard group of SG_SHARDS (4) shards, one a card on a
+   machine of several, else all on card 0 with card identities 0..3 (as
+   3v-sh), built by `_sweep_group_builder` and run by the executor's
+   shard-group worker: both random effects' stores (SIMPLE variances on)
+   row-sharded over it, the sample data replicated, the fixed effect on
+   the home card. Two rounds of two points (cold, then warm) against the
+   serial executor: == values and bit-equal models (coefficients and
+   variances), the kernels' launches a trial equal to serial's, and
+   `collective` armed once (collective_retries 1, the same bits); and each
+   random effect's largest bucket solved whole and with the lanes of 4
+   slices, of one-lane and of 3-lane slices at odd offsets live in place
+   (the group's solve), with 0 lanes differing (the same slices solved
+   alone are printed beside, not gated). Printed:
+   rows a shard, store bytes a card, collective_bytes_per_sweep, each
+   trial's seconds in both. `tools/chip_smoke_sweep.py` on 4 cards also
+   runs `cli.tune --sweep-mode shard_group --shard-groups 2` (two groups of
+   two cards) against `--sweep-mode serial`: models/tuned-best bit-equal.
 3v. Online serving (photon_ml_tpu_torch/serving/, cli/serve.py) on phase
    3c's model directory (after 3t, on 3g's validation rows). First the
    offline references, their launches counted apart: GameTransformer on
@@ -528,7 +545,7 @@ print which backend each used.
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
 3s, 4s, 3e, 3f, 3r, 5f's card fits, 3c's two drivers, 5c's card runs, each run
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
-sweep and its cli.tune run, 3v's engine path, 3q's reads and 3mv's
+sweep and its cli.tune run, 3w-sg's group trials, 3v's engine path, 3q's reads and 3mv's
 emulation in this process, each worker of 3mv's runs from its start,
 3n's serving path and its refresh round, 3n-ladder's serving path, 3p's planned fit and its serving part,
 and 3d, 4d, 3e-d and 3m's uninterrupted fit in each rank, whose counts
@@ -1996,7 +2013,8 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         re_active_passive={c: (coords[c].re_dataset.num_active_samples,
                                coords[c].re_dataset.num_passive_samples) for c in E2E_RE},
         re_entities={c: coords[c].re_dataset.num_entities for c in E2E_RE},
-        train_auc=auc, launches=launches, dense_launches=dense_launches, peak_mem_gib=peak_gib,
+        train_auc=auc, launches=launches, dense_launches=dense_launches,
+        peak_mem_gib=peak_gib,
         layout_mib=layout.nbytes() / 2**20,
         ell_mib=(shard.indices.numel() * 4 + shard.values.numel() * 4) / 2**20)))
     if not bool(torch.isfinite(scores).all()) or scores.shape != (E2E_ROWS,):
@@ -2084,7 +2102,8 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
             failures.append(f"seed {s}: the card's small e2e fit disagrees with the CPU's")
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
-    return rows2e, {"3e": launches, "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
+    return rows2e, {"3e": launches,
+                    "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
                     "3k": launches3k, "3g": launches3g, "3j": launches3j, "3x": launches3x, "3t": launches3t,
                     "3w": launches3w, "3v": launches3v, "3v-sh": launches3vsh, "3m": launches3m,
                     "3q": launches3q,
@@ -5668,7 +5687,7 @@ def telemetry_phase(root: str, work: str) -> dict:
 OFFHEAP_STORES = (("phidx", 8), ("paldb", 4))
 SCALE_KEYS = 1 << 18  # 262,144 synthetic name\x01term keys (PHIDX); cut from 4,194,304 for the time limit (by halves, for 3j, 3r, 3n and 3p)
 SCALE_PALDB_KEYS = 1 << 16  # PalDB's writer and reader are pure Python: cut to 65,536 (from 131,072 for 3p's time)
-TUNING_TRIALS = 3  # a mode (cut from 4, with 3x-scale and 3mv, for 3n's time)
+TUNING_TRIALS = 2  # a mode (cut from 4, with 3x-scale and 3mv, for 3n's time; from 3 for 3w-sg's)
 EXPLICIT_WEIGHTS = {"global": 1.0, "per-user": 10.0, "per-movie": 10.0}  # E2E_COORDINATES' reg.weights
 
 
@@ -6453,7 +6472,8 @@ def sweep_e2e_phase(root: str, val_dir: str, work: str, dev):
     of 4), then cli.train at the winner's weights (bit-equal to
     models/tuned-best once both are loaded), then two cold points stacked
     and serial in process on 3f's estimator and a new read of the data.
-    Returns the cli.tune run's (sparse, dense) launches, counted from 0."""
+    Phase 3w-sg follows on the same data and estimator. Returns the cli.tune
+    run's (sparse, dense) launches, counted from 0, and 3w-sg's."""
     import os
     import re
 
@@ -6554,23 +6574,329 @@ def sweep_e2e_phase(root: str, val_dir: str, work: str, dev):
         failures.append(f"models/tuned-best is not cli.train's model at the winner's weights: {vs_train}")
     if not (full_width["values_equal"] and full_width["models_bit_equal"]):
         failures.append(f"full-width stacked trials differ from serial ones: {full_width}")
-    del ds, val, est, runs
-    gc.collect()
-    torch.cuda.empty_cache()
     if failures:
         raise SystemExit("phase 3w-e2e failed: " + "; ".join(failures))
-    return sparse, dense
+    del runs
+    sg = walled("phase 3w-sg", sweep_group_phase, ds, val, est, base, dev)
+    del ds, val, est
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sparse, dense, sg
+
+
+def re_lane_check(coord, offsets, cfg) -> dict:
+    """A random effect's largest bucket solved whole, then with the live
+    lanes of each of 4 slices, of one-lane slices (its first 8 lanes) and
+    of 3-lane slices at odd offsets (1, 5, 9, 13) in place
+    (parallel/mesh.py `lanes_in_place`, as a shard group's card solves
+    them): the live lanes whose coefficients differ from the whole bucket's
+    (0 is the gate). Beside it, not gated, the same slices solved alone
+    (each cut out of the block), which shows what the in-place solve is
+    for: a library's batched product picks its kernel from the batch."""
+    import torch
+
+    from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures, ell_block_to_dense
+    from photon_ml_tpu_torch.data.game_dataset import gather_block_data
+    from photon_ml_tpu_torch.optimize import problem
+    from photon_ml_tpu_torch.parallel.mesh import lanes_in_place
+
+    red = coord.re_dataset
+    bi = max(range(len(red.buckets)), key=lambda i: red.buckets[i].num_entities * red.buckets[i].capacity)
+    bucket = red.buckets[bi]
+
+    def block_of(blocks):
+        blk = gather_block_data(coord.dataset, red.feature_shard, blocks, offsets, red.feature_mask)
+        if isinstance(blk.features, SparseFeatures):
+            blk = LabeledData(ell_block_to_dense(blk.features), blk.labels, blk.offsets, blk.weights)
+        return blk
+
+    blk = block_of(bucket)
+    E = int(blk.features.shape[0])
+    w0 = torch.zeros((E, coord.dim), dtype=blk.labels.dtype, device=blk.labels.device)
+
+    def solve(b, lo, hi):
+        return problem.solve(coord.loss, b, cfg, w0[lo:hi].clone(), None, use_kernel=False).coefficients
+
+    def alone(lo, hi):
+        part = LabeledData(*(t[lo:hi].clone() for t in (blk.features, blk.labels, blk.offsets, blk.weights)))
+        return solve(part, lo, hi)
+
+    def in_place(lo, hi):
+        return solve(block_of(lanes_in_place(bucket, lo, hi, red.num_entities)), 0, E)[lo:hi]
+
+    whole = solve(blk, 0, E)
+    per = -(-E // 4)
+    cuts = {"four_slices": [(lo, min(E, lo + per)) for lo in range(0, E, per)],
+            "one_lane_slices": [(i, i + 1) for i in range(min(E, 8))],
+            "three_lane_slices": [(lo, lo + 3) for lo in (1, 5, 9, 13) if lo + 3 <= E]}
+    differ = lambda how, ranges: int((torch.cat([how(lo, hi) for lo, hi in ranges])
+                                      != torch.cat([whole[lo:hi] for lo, hi in ranges])).any(1).sum())
+    return dict(bucket=bi, entities=E, capacity=bucket.capacity, dim=coord.dim,
+                in_place={k: differ(in_place, r) for k, r in cuts.items()},
+                alone={k: differ(alone, r) for k, r in cuts.items()})
+
+
+SG_SHARDS = 4  # 3w-sg: a group of the first 4 cards, or of 4 shards on card 0 of a one-card machine
+SG_POINTS = (np.array([[1.0, 10.0, 10.0], [0.3, 30.0, 3.0]]),  # 3w-sg: two rounds of two points,
+             np.array([[3.0, 5.0, 20.0], [0.5, 10.0, 1.0]]))   # the second warm from the first's incumbent
+
+
+def sweep_group_phase(ds, val, est, base, dev) -> dict:
+    """Phase 3w-sg: a shard group of several cards at full width. The group
+    is `_sweep_group_builder` over SG_SHARDS shards (`shard_mesh`: one a
+    card on a machine of several, else all on card 0 with card identities
+    0..3), put in place of the executor's groups, so its trials run through
+    the shard-group worker with each random effect's store row-sharded over
+    it; SIMPLE variances on both random effects. Gates: every trial's value
+    == the serial executor's and every model (coefficients, variances) bit
+    for bit, cold and warm; the kernels' launches a trial equal to serial's;
+    `collective` armed once gives collective_retries 1 and the same bits.
+    Returns the group's trials' launches (sparse, dense), counted from 0."""
+    import dataclasses as _dc
+
+    import torch
+
+    from photon_ml_tpu_torch.types import VarianceComputationType
+    from photon_ml_tpu_torch.utils import faults
+
+    failures = []
+    t_phase = time.perf_counter()
+    simple = VarianceComputationType.SIMPLE
+    base = {cid: cfg if cid == "global" else _dc.replace(cfg, variance_computation=simple)
+            for cid, cfg in base.items()}
+    mesh = shard_mesh(torch, SG_SHARDS)
+    devs = list(mesh.devices)
+
+    def group_executor(**kw):
+        ex = est.sweep_executor(ds, val, base, mode="shard_group", **kw)
+        ex._group_contexts = [dict(index=0, devices=devs, coordinates=ex.group_builder(devs))]
+        return ex
+
+    serial = est.sweep_executor(ds, val, base, mode="serial")
+    group = group_executor()
+    rounds, walls = [], {"serial": [], "group": []}
+    with trial_launches() as rec_serial:
+        for pts in SG_POINTS:
+            rounds.append([serial.evaluate_batch(pts), serial.last_trial_models])
+    walls["serial"] = [t.seconds for t in serial.trials]
+    with trial_launches() as rec_group:
+        (_, sg_sparse, sg_dense, mem) = counted(torch, lambda: [
+            rounds[i].extend([group.evaluate_batch(pts), group.last_trial_models])
+            for i, pts in enumerate(SG_POINTS)])
+    walls["group"] = [t.seconds for t in group.trials]
+    same_values = all(r[0] == r[2] for r in rounds)
+    same_models = all(sweep_models_equal(r[1], r[3]) for r in rounds)
+    coords = group._group_contexts[0]["coordinates"]
+    sharding = {cid: c.sharding_info() for cid, c in coords.items() if hasattr(c, "sharding_info")}
+    # The bucket solve itself: the largest bucket of each random effect whole
+    # and in slices down to one lane, on the offsets of the dataset.
+    lanes = {cid: re_lane_check(serial.coordinates[cid], serial.coordinates[cid].dataset.offsets,
+                                base[cid]) for cid in sharding}
+    store_bytes = {cid: 2 * info["rows_per_shard"] * coords[cid].dim * 4 for cid, info in sharding.items()}
+    variances = all(t[cid]["v"] is not None for r in rounds for t in r[3] for cid in sharding)
+
+    # The `collective` drill: one cold trial, the first gather of the group struck once.
+    pt = SG_POINTS[0][:1]
+    clean = est.sweep_executor(ds, val, base, mode="serial", warm_start=False)
+    v_clean = clean.evaluate_batch(pt)
+    struck = group_executor(warm_start=False)
+    retries0 = faults.COUNTERS.get("collective_retries")
+    with faults.inject("collective:1") as inj:
+        v_struck = struck.evaluate_batch(pt)
+    drill = dict(fired=inj.injected.get("collective", 0),
+                 collective_retries=faults.COUNTERS.get("collective_retries") - retries0,
+                 values_equal=v_clean == v_struck,
+                 models_bit_equal=sweep_models_equal(clean.last_trial_models, struck.last_trial_models))
+    row = dict(phase="3w-sg", cards=len(set(devs)), shards=mesh.size, devices=[str(d) for d in devs],
+               points=[p.tolist() for p in SG_POINTS],
+               values={"serial": [r[0] for r in rounds], "group": [r[2] for r in rounds]},
+               values_equal=same_values, models_bit_equal=same_models, variances=variances,
+               launches_per_trial={"serial": rec_serial.fits, "group": rec_group.fits},
+               sharding=sharding, store_bytes_a_card=store_bytes, lanes_differing=lanes,
+               trial_s=walls, collective_drill=drill, launches=sg_sparse, dense_launches=sg_dense,
+               mem_gib=mem, wall_s=time.perf_counter() - t_phase, card=card_line())
+    log(json.dumps(row))
+    if not (same_values and same_models and variances):
+        failures.append(f"group trials differ from serial ones (values {same_values}, models "
+                        f"{same_models}, variances {variances})")
+    if rec_group.fits != rec_serial.fits or not all(f["sparse_fused"] for f in rec_group.fits):
+        failures.append(f"launches a trial differ: serial {rec_serial.fits}, group {rec_group.fits}")
+    if any(v for row in lanes.values() for v in row["in_place"].values()):
+        failures.append(f"a bucket solve's lanes differ between the whole bucket and its slices in "
+                        f"place: {lanes}")
+    if not all(info["entity_sharded"] and info["axis_size"] == SG_SHARDS for info in sharding.values()):
+        failures.append(f"the group's random effects are not row-sharded over {SG_SHARDS}: {sharding}")
+    if (drill["fired"], drill["collective_retries"]) != (1, 1) or not drill["values_equal"] \
+            or not drill["models_bit_equal"]:
+        failures.append(f"the collective drill: {drill}")
+    if any(t.diverged_steps for t in group.trials):
+        failures.append("a group trial diverged")
+    if failures:
+        raise SystemExit("phase 3w-sg failed: " + "; ".join(failures))
+    if SG_TRACE_DIR is not None:
+        trace_group_trial(serial, group_executor(warm_start=False), SG_POINTS[0][:1], SG_TRACE_DIR)
+    return {"sparse": sg_sparse, "dense": sg_dense}
+
+
+SG_TRACE_DIR = None  # a directory: 3w-sg then traces one cold trial there (tools/chip_smoke_sweep.py)
+
+
+def trace_group_trial(serial, group, pt, out_dir: str) -> dict:
+    """Where one cold trial's time goes, serial and in the group (after
+    3w-sg's gates, outside its counts): the host seconds of the trial's
+    spans, each summed over its calls (the coordinates' train and score,
+    the ring gather and scatter, the broadcast gather of `score`, the
+    offsets sent to the cards, and each card's slice solves, summed by
+    card since the cards' threads overlap), then the group's trial once
+    more (its coordinate descent, on this thread) under torch.profiler,
+    whose operators by self CPU time and by device time go to
+    `out_dir`/group_ops.txt (the top 8 by device time in the log line).
+    Logs and returns the spans."""
+    import collections
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from photon_ml_tpu_torch.game import coordinate as gcoord
+
+    os.makedirs(out_dir, exist_ok=True)
+    lock = threading.Lock()
+    spans, calls = collections.defaultdict(float), collections.Counter()
+    targets = [(gcoord.FixedEffectCoordinate, "train", "fe.train"),
+               (gcoord.FixedEffectCoordinate, "score", "fe.score"),
+               (gcoord.RandomEffectCoordinate, "train", "re.train"),
+               (gcoord.RandomEffectCoordinate, "score", "re.score"),
+               (gcoord, "ring_gather_rows", "ring_gather"), (gcoord, "ring_scatter_rows", "ring_scatter"),
+               (gcoord, "bcast_gather_rows", "bcast_gather"), (gcoord, "card_offsets", "card_offsets")]
+
+    def timed(fn, label):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    spans[label] += time.perf_counter() - t
+                    calls[label] += 1
+        return wrapper
+
+    def solve_timed(fn):
+        def wrapper(self, bucket, k, w0, offsets, cfg, dev):
+            t = time.perf_counter()
+            try:
+                return fn(self, bucket, k, w0, offsets, cfg, dev)
+            finally:
+                with lock:
+                    spans[f"solve@{dev}"] += time.perf_counter() - t
+                    calls[f"solve@{dev}"] += 1
+        return wrapper
+
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+    saved.append((gcoord.RandomEffectCoordinate, "_solve_slice", gcoord.RandomEffectCoordinate._solve_slice))
+    out = {}
+    try:
+        for obj, name, label in targets:
+            setattr(obj, name, timed(getattr(obj, name), label))
+        gcoord.RandomEffectCoordinate._solve_slice = solve_timed(saved[-1][2])
+        for label, ex in (("serial", serial), ("group", group)):
+            spans.clear()
+            calls.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ex.evaluate_batch(pt)
+            torch.cuda.synchronize()
+            out[label] = dict(trial_s=time.perf_counter() - t, spans_s=dict(spans), calls=dict(calls))
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    # The trial's coordinate descent again, on this thread (the profiler's
+    # operator rows are this thread's; the device rows are every card's).
+    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+
+    ctx = group._groups()[0]
+    home = ctx["devices"][0]
+    with torch.cuda.device(home), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_coordinate_descent(ctx["coordinates"], group.num_iterations,
+                               reg_weights=group._rw_map(pt[0]), seed=group.seed)
+        for d in dict.fromkeys(ctx["devices"]):
+            torch.cuda.synchronize(d)
+    ka = prof.key_averages()
+    with open(os.path.join(out_dir, "group_ops.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_cpu_time_total", row_limit=40) + "\n")
+        f.write(ka.table(sort_by="self_cuda_time_total", row_limit=40) + "\n")
+    dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+    top = sorted(ka, key=dev_us, reverse=True)[:8]
+    out["profiled"] = dict(self_cpu_s=sum(e.self_cpu_time_total for e in ka) / 1e6,
+                           self_device_s=sum(dev_us(e) for e in ka) / 1e6, ops=len(ka),
+                           top_device_ms={e.key: [dev_us(e) / 1e3, e.count] for e in top})
+    log(json.dumps(dict(phase="3w-sg-trace", **out, card=card_line())))
+    return out
+
+
+SG_CLI_GROUPS, SG_CLI_TRIALS, SG_CLI_BATCH = 2, 4, 2  # 3w-sg-cli: RANDOM, 4 trials in rounds of 2
+
+
+def sweep_groups_cli_phase(root: str, val_dir: str, work: str) -> dict:
+    """Phase 3w-sg-cli (4 or more cards; tools/chip_smoke_sweep.py): cli.tune
+    at 3w-e2e's width with `--sweep-mode shard_group --shard-groups 2` (two
+    groups of two cards: each random effect row-sharded over its group's
+    cards) against `--sweep-mode serial`: the same trial values and
+    models/tuned-best bit-equal once both are loaded."""
+    import os
+
+    import torch
+
+    from photon_ml_tpu_torch.cli import tune as tune_cli
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.io import model_store
+
+    runs = {}
+    for mode, extra in (("serial", []), ("shard_group", ["--shard-groups", str(SG_CLI_GROUPS)])):
+        out = os.path.join(work, f"tune-{mode}")
+        t0 = time.perf_counter()
+        summary = tune_cli.main([
+            "--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", root,
+            "--validation-data-directories", val_dir, "--validation-evaluators", "AUC",
+            "--root-output-directory", out, "--feature-shard-configurations", E2E_SHARD,
+            "--coordinate-configurations", *E2E_COORDINATES, "--coordinate-descent-iterations", "1",
+            "--tuning-mode", "RANDOM", "--tuning-iter", str(SG_CLI_TRIALS), "--tuning-batch-size",
+            str(SG_CLI_BATCH), "--random-seed", "0", "--sweep-mode", mode, "--logging-level", "WARNING",
+            *extra])
+        torch.cuda.synchronize()
+        best = os.path.join(out, "models", "tuned-best")
+        runs[mode] = (summary, model_store.load_game_model(
+            best, {"g": IndexMap.load(os.path.join(best, "feature-indexes", "g.json"))}),
+            time.perf_counter() - t0)
+    (s_sum, s_model, s_wall), (g_sum, g_model, g_wall) = runs["serial"], runs["shard_group"]
+    vs = same_model(g_model, s_model)
+    row = dict(phase="3w-sg-cli", cards=torch.cuda.device_count(), shard_groups=SG_CLI_GROUPS,
+               modes={"serial": s_sum["modes"], "shard_group": g_sum["modes"]},
+               values={"serial": [t["value"] for t in s_sum["trials"]],
+                       "shard_group": [t["value"] for t in g_sum["trials"]]},
+               trial_s={"serial": [t["seconds"] for t in s_sum["trials"]],
+                        "shard_group": [t["seconds"] for t in g_sum["trials"]]},
+               sweep_wall_s={"serial": s_sum["sweep_wall_s"], "shard_group": g_sum["sweep_wall_s"]},
+               wall_s={"serial": s_wall, "shard_group": g_wall}, tuned_best_vs_serial=vs, card=card_line())
+    log(json.dumps(row))
+    if g_sum["modes"] != ["shard_group"] or row["values"]["serial"] != row["values"]["shard_group"] \
+            or not all(v["bit_equal"] for v in vs.values()):
+        raise SystemExit(f"phase 3w-sg-cli failed: {row}")
+    return row
 
 
 def sweep_phase(root: str, val_dir: str, work: str) -> dict:
-    """Phase 3w: the bench-shape sweep with its drills, then the e2e sweep.
-    Returns each counted path's launches by kernel, summed: {"dense", "sparse"}."""
+    """Phase 3w: the bench-shape sweep with its drills, then the e2e sweep
+    and 3w-sg. Returns each counted path's launches by kernel, summed:
+    {"dense", "sparse"}, and 3w-sg's apart: {"sg": {"dense", "sparse"}}."""
     import torch
 
     dev = torch.device("cuda")
     bench_dense = sweep_bench_phase(dev)
-    e2e_sparse, e2e_dense = sweep_e2e_phase(root, val_dir, work, dev)
-    return {"dense": {k: bench_dense[k] + e2e_dense[k] for k in bench_dense}, "sparse": e2e_sparse}
+    e2e_sparse, e2e_dense, sg = sweep_e2e_phase(root, val_dir, work, dev)
+    return {"dense": {k: bench_dense[k] + e2e_dense[k] for k in bench_dense}, "sparse": e2e_sparse,
+            "sg": sg}
 
 
 A9A_TRAIN, A9A_TEST = 32561, 16281  # a9a's published split (123 features)
@@ -7514,14 +7840,17 @@ def main(argv=None) -> int:
         dict(name=k, route="cuda", source=source, replaces=replaces[k],
              launches=(launches[k] + e2e_launches["3f"]["dense"][k] + small_launches["dense"][k]
                        + e2e_launches["3c"]["dense"][k] + driver_launches["dense"][k] + launches3o[k]
-                       + e2e_launches["3w"]["dense"][k] + e2e_launches["3j"]["dense"][k]
+                       + e2e_launches["3w"]["dense"][k] + e2e_launches["3w"]["sg"]["dense"][k]
+                       + e2e_launches["3j"]["dense"][k]
                        + e2e_launches["3r"]["dense"][k] + e2e_launches["3n"]["refresh"][k]
                        + e2e_launches["3p"]["train_dense"][k]),
              launches_by_phase={"3+4": launches[k], "3f": e2e_launches["3f"]["dense"][k],
                                 "5f": small_launches["dense"][k], "3c": e2e_launches["3c"]["dense"][k],
                                 "5c": driver_launches["dense"][k], "3o": launches3o[k],
                                 "3j": e2e_launches["3j"]["dense"][k],
-                                "3w": e2e_launches["3w"]["dense"][k], "3v": e2e_launches["3v"]["path"][k],
+                                "3w": e2e_launches["3w"]["dense"][k],
+                                "3w-sg": e2e_launches["3w"]["sg"]["dense"][k],
+                                "3v": e2e_launches["3v"]["path"][k],
                                 "3v-sh": e2e_launches["3v-sh"]["path"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],
                                 "3mv-emulation": e2e_launches["3mv"]["emulation"][k],
@@ -7545,7 +7874,8 @@ def main(argv=None) -> int:
                        + small_launches["sparse"][k] + e2e_launches["3c"]["sparse"][k]
                        + driver_launches["sparse"][k] + e2e_launches["3k"][k] + e2e_launches["3g"][k]
                        + legacy_launches[k] + e2e_launches["3x"][k] + e2e_launches["3t"][k]
-                       + e2e_launches["3w"]["sparse"][k] + e2e_launches["3m"]["sparse"][k]
+                       + e2e_launches["3w"]["sparse"][k] + e2e_launches["3w"]["sg"]["sparse"][k]
+                       + e2e_launches["3m"]["sparse"][k]
                        + e2e_launches["3j"]["sparse"][k] + e2e_launches["3r"]["sparse"][k]
                        + e2e_launches["3n"]["refresh"][k] + e2e_launches["3p"]["train"][k]),
              launches_by_phase={"3s+4s": sparse_launches[k], "3e": e2e_launches["3e"][k],
@@ -7556,6 +7886,7 @@ def main(argv=None) -> int:
                                 "5g": legacy_launches[k], "3j": e2e_launches["3j"]["sparse"][k],
                                 "3x": e2e_launches["3x"][k],
                                 "3t": e2e_launches["3t"][k], "3w": e2e_launches["3w"]["sparse"][k],
+                                "3w-sg": e2e_launches["3w"]["sg"]["sparse"][k],
                                 "3v": e2e_launches["3v"]["path"][k],
                                 "3v-sh": e2e_launches["3v-sh"]["path"][k], "3m": e2e_launches["3m"]["sparse"][k],
                                 "3q": e2e_launches["3q"][k], "3mv": e2e_launches["3mv"]["workers"][k],

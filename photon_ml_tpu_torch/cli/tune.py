@@ -20,7 +20,10 @@ The option names are the JAX driver's. `--device` (default cuda) picks the
 device; asking for cuda with no card raises. `--profile` plans the sweep's
 fits (photon_ml_tpu_torch/planner/), as in cli.train: installed after the
 journal and before the read, refused on another topology, uninstalled on
-every exit path. Shard groups of more than one card are ROADMAP item 9 and raise.
+every exit path. `--sweep-mode shard_group --shard-groups g` splits the cards
+(the CUDA cards; with `--device cpu`, the CPU's 8 ordinals) into g groups;
+a group of several cards row-shards each random effect over them, with the
+serial mode's bits.
 `tuning-summary.json` carries the reference's keys plus `timings_s`.
 
 Usage: python -m photon_ml_tpu_torch.cli.tune --help

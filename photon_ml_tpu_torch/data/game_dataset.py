@@ -327,7 +327,13 @@ class RandomEffectDataset:
     `view`: on a rank whose rows follow another random effect, the rows
     this one trains and scores (parallel/mesh.py `RowView`); the bucket
     gathers and `sample_entity_rows` index the view's rows. None: the
-    dataset's own rows."""
+    dataset's own rows.
+    `card_mesh`: the CardMesh a sweep's shard group of several cards
+    spreads this random effect over (parallel/mesh.py
+    `shard_random_effect_dataset`): its buckets are then
+    `ShardedEntityBlocks`, one slice a shard, and `card_replicas` holds the
+    sample data each distinct card gathers its slices from. None: one
+    device."""
 
     config: RandomEffectDataConfig
     entity_index: Dict[object, int]
@@ -338,6 +344,8 @@ class RandomEffectDataset:
     feature_mask: Optional[Tensor] = None
     owned_entities: Optional[Tensor] = None
     view: Optional["RowView"] = None
+    card_mesh: Optional["CardMesh"] = None
+    card_replicas: Optional[Dict[torch.device, "CardReplica"]] = None
 
     @property
     def num_entities(self) -> int:

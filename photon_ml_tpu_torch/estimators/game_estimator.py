@@ -32,7 +32,8 @@ does; a rerun of the same fit resumes there.
 
 `sweep_executor` wires the prepared coordinates, the validation scorers
 and a shard-group factory (`_sweep_group_builder`: the prepared data cloned
-onto one device) into a `hyperparameter.sweep.SweepExecutor`.
+onto a group's home card, each random effect row-sharded over the group's
+cards when it has several) into a `hyperparameter.sweep.SweepExecutor`.
 
 Telemetry: `fit` runs under a root `fit` span (utils/telemetry.py), and with
 an `event_emitter` (utils/observability.py) it sends `fit_start`, a
@@ -49,9 +50,8 @@ the read is planned too), and uninstalls what it installed on every exit
 path; `fit_timing["plan"]` and the run profile's `plan` block record the
 active plan (inactive without one).
 
-Not ported yet: groups of more than one device (ROADMAP item 9), the
-prepare thread pool
-(which moves only when host work runs) and the bucketed pack (the port
+Not ported yet: the prepare thread pool (which moves only when host work
+runs) and the bucketed pack (the port
 builds its sparse layouts on the device; the profile's `pack_path` is
 "none").
 """
@@ -95,6 +95,7 @@ from photon_ml_tpu_torch.ops.normalization import (
     project_normalization,
 )
 from photon_ml_tpu_torch.optimize.config import CoordinateOptimizationConfig, static_config_key
+from photon_ml_tpu_torch.parallel.mesh import make_mesh, shard_random_effect_dataset
 from photon_ml_tpu_torch.timing import StageTimes
 from photon_ml_tpu_torch.transformers.game_transformer import (
     CoordinateScoringSpec,
@@ -591,19 +592,24 @@ class GameEstimator:
     def _sweep_group_builder(self, data: GameDataset, base_config: GameOptimizationConfiguration):
         """Shard-group coordinate factory: `build(devices)` clones the
         prepared dataset, the random effects' buckets and the normalization
-        onto a one-device group (each tensor moved to that device by name,
-        never to the current device), so a trial's serial fit runs there
-        with the same programs. A group of more than one device raises."""
+        onto a group (each tensor moved to a card by name, never to the
+        current device), so a trial's serial fit runs there with the same
+        programs. The sample data lands on the group's home card,
+        `devices[0]`, where the fixed effects solve (the reference solves
+        them replicated on every device of the group; one copy computes the
+        same bits). A group of several devices row-shards each random
+        effect over a CardMesh of them (JAX game_estimator.py:993-1110): the
+        sample data is replicated onto every distinct card and each
+        bucket's entity axis is cut into one slice a shard
+        (parallel/mesh.py `shard_random_effect_dataset`)."""
 
         def build(devices):
-            if len(devices) != 1:
-                raise NotImplementedError(
-                    "shard groups of more than one device (the entity-sharded sweep inside "
-                    "a group) are not ported yet (ROADMAP Queue 1 item 9)")
-            dev = torch.device(devices[0])
+            devs = [torch.device(d) for d in devices]
+            dev = devs[0]
             prepared = self._prepared
             if prepared is None:
                 raise RuntimeError("prepare() must run before group builds")
+            mesh = make_mesh(devs) if len(devs) > 1 else None
             put = lambda a: None if a is None else a.to(dev)
 
             def put_feat(f):
@@ -627,12 +633,16 @@ class GameEstimator:
                 if red is not None:
                     red = dataclasses.replace(
                         red,
-                        buckets=[EntityBlocks(put(b.gather), put(b.mask), put(b.entity_rows))
-                                 for b in red.buckets],
                         sample_entity_rows=put(red.sample_entity_rows),
                         feature_mask=put(red.feature_mask),
                         owned_entities=put(red.owned_entities),
                     )
+                    if mesh is None:
+                        red = dataclasses.replace(red, buckets=[
+                            EntityBlocks(put(b.gather), put(b.mask), put(b.entity_rows))
+                            for b in red.buckets])
+                    else:
+                        red = shard_random_effect_dataset(red, mesh, ds_g)
                 norm = None if prep.norm is None else prep.norm.to(dev)
                 prep_g = dataclasses.replace(prep, norm=norm, re_dataset=red)
                 coords[cid] = self._new_coordinate(ds_g, prep_g, base_config[cid])

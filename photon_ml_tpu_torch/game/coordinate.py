@@ -47,6 +47,24 @@ coefficient and variance matrices, `local_model` cuts a rank's store out of
 them (a resume from a checkpoint), and `row_block` moves the store's rows
 to the contiguous row block this rank writes into the elastic checkpoint.
 
+Over the cards of a sweep's shard group (a random-effect dataset from
+parallel/mesh.py `shard_random_effect_dataset`, `entity_mesh` set), the
+coefficient and variance stores are RowShardedMatrix blocks, one a card
+(the counterpart of the JAX package's coordinate.py:736-957): for each
+bucket the warm starts of every shard's slice of lanes are gathered to its
+card (`ring_gather_rows`), each card solves its slices, and the solutions
+are scattered back to the cards that own their rows (`ring_scatter_rows`).
+One host thread a distinct card drives its slices, since the solve reads
+its convergence on the host every iteration. A library's batched product
+picks its kernel from the batch, so a slice solved alone could give a
+lane other bits than the whole bucket does: each slice is solved at the
+whole bucket's shape with its own lanes live and the others dummies
+(parallel/mesh.py `lanes_in_place`), so every entity gets the bits of
+the one-device coordinate. A card other than the dataset's receives
+only the offsets of the rows its blocks read. `score` gathers the store onto the home
+card (`bcast_gather_rows`) and runs the one-device margin algebra, so the
+residuals carry the one-device bits too.
+
 The sweep executor (hyperparameter/sweep.py) fits its trials through
 `train`/`score` as coordinate descent does; the reference's stacked-trial
 hooks have no counterpart here. The `solve` fault site and its retry live
@@ -59,8 +77,10 @@ key).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -88,6 +108,18 @@ from photon_ml_tpu_torch.ops.normalization import NormalizationContext, PerEntit
 from photon_ml_tpu_torch.optimize import problem
 from photon_ml_tpu_torch.optimize.common import OptResult
 from photon_ml_tpu_torch.optimize.config import CoordinateOptimizationConfig
+from photon_ml_tpu_torch.parallel.mesh import (
+    RowShardedMatrix,
+    bcast_gather_rows,
+    card_offsets,
+    pad_rows_for_mesh,
+    put_row_sharded,
+    ring_gather_rows,
+    ring_gather_wire_bytes,
+    ring_scatter_rows,
+    ring_scatter_wire_bytes,
+    sharded_zeros,
+)
 from photon_ml_tpu_torch.transformers.game_transformer import fixed_effect_margins
 from photon_ml_tpu_torch.types import TaskType, VarianceComputationType
 
@@ -219,11 +251,24 @@ class RandomEffectCoordinate:
         # shard, a PerEntityNormalization (one row per entity).
         self.norm = _norm_on(norm, dataset.device)
         self.dim = dataset.shards[re_dataset.feature_shard].shape[-1]
+        mesh = re_dataset.card_mesh
+        if mesh is not None:
+            if isinstance(self.norm, PerEntityNormalization) and not self.norm.is_identity:
+                raise NotImplementedError("sharded scoring with per-entity normalization: use "
+                                          "the replicated path")
+            self._card_norms = {dev: _norm_on(self.norm, dev) for dev in re_dataset.card_replicas}
+
+    @property
+    def entity_mesh(self):
+        """The CardMesh this coordinate's store is row-sharded over (a shard
+        group of several cards), else None."""
+        return self.re_dataset.card_mesh
 
     @property
     def entity_sharded(self) -> bool:
-        """True on ranks: the store holds this rank's entities alone."""
-        return self.dataset.mesh is not None
+        """True on ranks (the store holds this rank's entities alone) and
+        over a card mesh (the store is row-sharded over its cards)."""
+        return self.dataset.mesh is not None or self.entity_mesh is not None
 
     def _lane_norm(self, entity_rows: Tensor) -> Optional[NormalizationContext]:
         if isinstance(self.norm, PerEntityNormalization):
@@ -243,6 +288,8 @@ class RandomEffectCoordinate:
         row view they are exchanged to it first. `reg_weight` overrides the
         config's."""
         ds, red = self.dataset, self.re_dataset
+        if red.card_mesh is not None:
+            return self._train_on_cards(offsets, initial_model, _with_weight(self.config, reg_weight))
         rows_ds = ds
         if red.view is not None:
             offsets = ds.mesh.exchange(offsets, red.view.to_view)
@@ -276,24 +323,135 @@ class RandomEffectCoordinate:
         matrix[e_total] = 0.0
         if var_matrix is not None:
             var_matrix[e_total] = 0.0
-        stats = {
+        return RandomEffectModel(matrix, var_matrix, self.task), self._stats(bucket_iters)
+
+    def _stats(self, bucket_iters: List[Tensor]) -> dict:
+        return {
             "buckets": [
-                dict(capacity=b.capacity, entities=b.num_entities,
+                dict(capacity=b.capacity, entities=getattr(b, "real_entities", b.num_entities),
                      mean_iterations=float(its.float().mean()))
-                for b, its in zip(red.buckets, bucket_iters)
+                for b, its in zip(self.re_dataset.buckets, bucket_iters)
             ],
             "total_iterations": int(sum(int(its.sum()) for its in bucket_iters)),
         }
-        return RandomEffectModel(matrix, var_matrix, self.task), stats
+
+    def _train_on_cards(self, offsets: Tensor, initial_model: Optional[RandomEffectModel],
+                        cfg: CoordinateOptimizationConfig) -> Tuple[RandomEffectModel, dict]:
+        """`train` over the card mesh: a padded RowShardedMatrix store (the
+        initial model resharded onto it), and per bucket the warm starts
+        gathered to the slices, each card's slices solved on that card by
+        its own thread, and coefficients and variances scattered back."""
+        red, mesh, home = self.re_dataset, self.re_dataset.card_mesh, self.dataset.device
+        e_total = red.num_entities
+        if initial_model is not None:
+            m0 = initial_model.coefficients_matrix
+            rows = m0.logical_rows if isinstance(m0, RowShardedMatrix) else int(m0.shape[0])
+            if rows != e_total + 1:
+                raise ValueError(f"the initial matrix has {rows} rows; this coordinate's store has "
+                                 f"{e_total} entities and the pinned row")
+            matrix = put_row_sharded(m0, mesh, logical_rows=e_total + 1)
+        else:
+            matrix = sharded_zeros(mesh, e_total + 1, self.dim)
+        want_var = cfg.variance_computation != VarianceComputationType.NONE
+        var_matrix = sharded_zeros(mesh, e_total + 1, self.dim) if want_var else None
+        offs = {dev: card_offsets(offsets, rep) for dev, rep in red.card_replicas.items()}
+        by_card: Dict[torch.device, List[int]] = {}
+        for k, dev in enumerate(mesh.devices):
+            by_card.setdefault(dev, []).append(k)
+        bucket_iters = []
+        pool = ThreadPoolExecutor(len(by_card), thread_name_prefix="photon-re-card") \
+            if len(by_card) > 1 else None
+        try:
+            for b in red.buckets:
+                rows = [s.entity_rows for s in b.slices]
+                w0 = ring_gather_rows(matrix, rows)
+                out: List[Optional[tuple]] = [None] * mesh.size
+
+                def solve_card(dev, shards, b=b, w0=w0, out=out):
+                    card = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+                    with card:
+                        for k in shards:
+                            out[k] = self._solve_slice(b, k, w0[k], offs[dev], cfg, dev)
+
+                if pool is None:
+                    for dev, shards in by_card.items():
+                        solve_card(dev, shards)
+                else:
+                    for f in [pool.submit(solve_card, dev, shards) for dev, shards in by_card.items()]:
+                        f.result()
+                ring_scatter_rows(matrix, rows, [o[0] for o in out])
+                if var_matrix is not None:
+                    ring_scatter_rows(var_matrix, rows, [o[1] for o in out])
+                bucket_iters.append(torch.cat([o[2].to(home) for o in out]))
+        finally:
+            if pool is not None:
+                pool.shutdown()
+        # The pinned row back to zero in both stores (the padding wrote it).
+        per = matrix.rows_per_shard
+        for m in (matrix, var_matrix):
+            if m is not None:
+                m.blocks[e_total // per][e_total % per] = 0.0
+        return RandomEffectModel(matrix, var_matrix, self.task), self._stats(bucket_iters)
+
+    def _solve_slice(self, bucket, k: int, w0: Tensor, offsets: Tensor,
+                     cfg: CoordinateOptimizationConfig, dev: torch.device):
+        """(coefficients, variances or None, iterations of its live lanes)
+        of shard k's slice of `bucket`, on its card: the bucket solved at
+        its own shape with the slice's lanes live (`placed[k]`, warm starts
+        at their positions, zeros elsewhere), so each lane gets the bits of
+        the one-device solve; the slice's padding lanes keep their warm
+        starts (the pinned row) and get zero variances."""
+        rep, red = self.re_dataset.card_replicas[dev], self.re_dataset
+        first, count = bucket.lanes[k]
+        block = gather_block_data(rep.dataset, red.feature_shard, bucket.placed[k], offsets,
+                                  rep.feature_mask)
+        if isinstance(block.features, SparseFeatures):
+            block = dataclasses.replace(block, features=ell_block_to_dense(block.features))
+        W0 = torch.zeros((bucket.real_entities, self.dim), dtype=w0.dtype, device=dev)
+        W0[first:first + count] = w0[:count]
+        norm = self._card_norms[dev]
+        res = problem.solve(self.loss, block, cfg, W0, norm, use_kernel=False)
+        live = slice(first, first + count)
+        coef = torch.cat([res.coefficients[live], w0[count:]])
+        var = problem.compute_variances(self.loss, block, cfg, res.coefficients, norm)
+        if var is not None:
+            var = torch.cat([var[live], torch.zeros_like(w0[count:])])
+        return coef, var, res.iterations[live]
+
+    def sweep_collective_bytes(self) -> int:
+        """The reference's analytic wire bytes of one sweep's ring
+        collectives (each bucket: a gather of the warm starts, a scatter of
+        the coefficients and, with variances, one of the variances); 0 off
+        a card mesh."""
+        mesh = self.entity_mesh
+        if mesh is None:
+            return 0
+        n_rows = pad_rows_for_mesh(self.re_dataset.num_entities + 1, mesh)
+        scatters = 2 if self.config.variance_computation != VarianceComputationType.NONE else 1
+        return sum(ring_gather_wire_bytes(mesh, n_rows, self.dim)
+                   + scatters * ring_scatter_wire_bytes(mesh, b.num_entities, self.dim)
+                   for b in self.re_dataset.buckets)
+
+    def sharding_info(self) -> dict:
+        """The sharding this coordinate trains under, with the reference's
+        keys (JAX coordinate.py:1070-1089)."""
+        mesh, n_rows = self.entity_mesh, self.re_dataset.num_entities + 1
+        if mesh is None:
+            return {"entity_sharded": False, "axis_size": 1, "rows_per_shard": int(n_rows),
+                    "collective_bytes_per_sweep": 0}
+        return {"entity_sharded": True, "axis_size": int(mesh.size),
+                "rows_per_shard": int(pad_rows_for_mesh(n_rows, mesh) // mesh.size),
+                "collective_bytes_per_sweep": self.sweep_collective_bytes()}
 
     def gather_model(self, model: RandomEffectModel) -> RandomEffectModel:
         """The model of all ranks: every rank's store rows, coefficients and
         variances, placed at its entities' rows of one (E + 1, D) matrix each
         (each row has one owner, so the assembly is exact; one collective).
-        Without a mesh, the model itself."""
+        Without ranks, the model itself, its rows on the home card over a
+        card mesh."""
         mesh, red = self.dataset.mesh, self.re_dataset
         if mesh is None:
-            return model
+            return model if self.entity_mesh is None else model.on_device(self.dataset.device)
         rows = _with_variances(model)[:-1]
         placed = mesh.owned_to_global(rows, red.owned_entities, red.num_entities + 1)
         return _split_variances(placed, model)
@@ -335,10 +493,15 @@ class RandomEffectCoordinate:
         computed on the view and exchanged back)."""
         red = self.re_dataset
         rows_ds = self.dataset if red.view is None else red.view.dataset
+        matrix = model.coefficients_matrix
+        if isinstance(matrix, RowShardedMatrix):
+            # The whole store on the home card, then the one-device algebra.
+            matrix = bcast_gather_rows(matrix, torch.arange(
+                matrix.logical_rows, device=self.dataset.device))
         margins = random_effect_margins(
             rows_ds.shards[red.feature_shard],
             red.sample_entity_rows,
-            model.coefficients_matrix,
+            matrix,
             self.norm,
             library_row_sum,
         )

@@ -46,7 +46,12 @@ coordinate c is (summed scores - c's previous scores), three elementwise ops:
     `MeshLoss`, which propagates after counting `mesh_losses` (the
     reference's `max_mesh_losses=0`): on ranks a lost device is a lost
     process, and only the supervisor's relaunch of the survivors
-    (parallel/hostmesh.py) recovers, from the checkpoint.
+    (parallel/hostmesh.py) recovers, from the checkpoint. A device-shaped
+    failure that gets past the collective retries of a coordinate over a
+    card group (`entity_mesh`) raises `MeshLoss` too (the reference's
+    escalation); the reference's degraded tier, a scan group falling back
+    to the bucket loop, has no counterpart, since the port runs the bucket
+    loop only.
 
   * `on_event(etype, **fields)` is the lifecycle hook: ("coordinate",
     iteration, coordinate, seconds, accepted) after every update and
@@ -104,10 +109,12 @@ def _all_finite(model, scores: torch.Tensor, mesh, vote: bool = True) -> bool:
     false whatever its arrays hold). Variances are not vetted: SIMPLE
     variances are inf by design where a column's Hessian diagonal is 0."""
     coeffs = getattr(model, "coefficients", None)
-    arrays = (scores, coeffs.means if coeffs is not None else model.coefficients_matrix)
+    matrix = coeffs.means if coeffs is not None else model.coefficients_matrix
+    # A shard group's store is checked block by block, on its cards.
+    arrays = (scores, *getattr(matrix, "blocks", (matrix,)))
     ok = torch.ones((), dtype=torch.bool, device=scores.device)
     for a in arrays:
-        ok = ok & torch.isfinite(a).all()
+        ok = ok & torch.isfinite(a).all().to(scores.device)
     ok = vote and bool(ok)
     return ok if mesh is None else mesh.all_true(ok)
 
@@ -310,8 +317,20 @@ def run_coordinate_descent(
                         kwargs["generator"] = torch.Generator(
                             device=base_offsets.device).manual_seed(
                                 (int(seed) * 0x9E3779B1 + step) % (1 << 32))
-                    cand, cand_stats = coord.train(offsets, models.get(cid), **kwargs)
-                    cand_scores = coord.score(cand)
+                    try:
+                        cand, cand_stats = coord.train(offsets, models.get(cid), **kwargs)
+                        cand_scores = coord.score(cand)
+                    except faults.MeshLoss:
+                        raise
+                    except BaseException as exc:
+                        # A device-shaped failure that got past a card group's
+                        # collective retries: the group is lost (JAX :548-562).
+                        if getattr(coord, "entity_mesh", None) is not None \
+                                and faults.is_device_error(exc):
+                            raise faults.MeshLoss(
+                                f"device-shaped failure on the entity-sharded coordinate "
+                                f"{cid!r} at iteration {it}: {exc!r}") from exc
+                        raise
                     if _all_finite(cand, cand_scores, mesh, vote):
                         model, stats, new_scores = cand, cand_stats, cand_scores
                         break

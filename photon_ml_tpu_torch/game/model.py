@@ -5,6 +5,9 @@ effect is one coefficient vector; a random effect is one dense
 (num_entities + 1, D) coefficient matrix whose last row is pinned to zero
 and scores entities unseen at training time; a GameModel maps coordinate ids
 to models. Scoring sums per-coordinate margins over one shared sample axis.
+A shard group's random effect holds its matrices as RowShardedMatrix
+blocks over the group's cards; `RandomEffectModel.on_device` gives their
+exact (E + 1, D) rows on one device.
 On a rank (parallel/mesh.py) that axis is the rank's own rows, and a random
 effect's model is the rank's store, its own entities' rows and the pinned
 row: the counterpart of the JAX package's `random_effect_margins_sharded`
@@ -46,6 +49,21 @@ class RandomEffectModel:
     coefficients_matrix: Tensor  # (E + 1, D); on a rank (entities owned + 1, D)
     variances_matrix: Optional[Tensor]
     task: TaskType
+
+    def on_device(self, device) -> "RandomEffectModel":
+        """This model with (E + 1, D) tensors on `device`: a
+        RowShardedMatrix (a shard group's store, parallel/mesh.py) gives its
+        logical rows, copied block by block from its cards (exact), a
+        tensor is moved."""
+        from photon_ml_tpu_torch.parallel.mesh import RowShardedMatrix
+
+        def rows(m):
+            if m is None or not isinstance(m, RowShardedMatrix):
+                return None if m is None else m.to(device)
+            return torch.cat([b.to(device) for b in m.blocks])[:m.logical_rows]
+
+        return RandomEffectModel(rows(self.coefficients_matrix), rows(self.variances_matrix),
+                                 self.task)
 
 
 def row_sum(P: Tensor) -> Tensor:

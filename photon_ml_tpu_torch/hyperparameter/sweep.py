@@ -21,11 +21,15 @@ regularization weights as trials, three ways:
   bitwise contract. Stacked trials are bit-equal to serial ones, cold and
   warm (tests/test_torch_sweep.py); unlike the reference's program, they
   pass through the `solve` fault site and its retry as serial ones do.
-* **shard_group**: the trials go round-robin over device groups, one
-  worker thread a group, each running the serial loop on its own copy of
-  the coordinates (`group_builder`); the group that is exactly the default
-  device reuses the main coordinates. On the CPU, g groups all sit on the
-  CPU. Groups of more than one card are ROADMAP item 9 and raise.
+* **shard_group**: the cards (`parallel.mesh.local_cards`: the CUDA cards,
+  or the CPU's CPU_CARDS ordinals, as the reference's tests have 8 host
+  devices) are split into groups, the trials go round-robin over them, one
+  worker thread a group with its home card (its first) current, each
+  running the serial loop on its own copy of the coordinates
+  (`group_builder`); the first group, when it is exactly the default
+  device, reuses the main coordinates. A group of several cards row-shards
+  each random effect's store over them (game/coordinate.py) and gives the
+  serial loop's bits.
 
 Each trial's value is the validation suite's primary metric over the
 validation offsets plus the trial scorers' margins, summed in update order,
@@ -56,6 +60,7 @@ from photon_ml_tpu_torch.game.model import (
     GameModel,
     RandomEffectModel,
 )
+from photon_ml_tpu_torch.parallel.mesh import local_cards
 from photon_ml_tpu_torch.types import VarianceComputationType
 from photon_ml_tpu_torch.utils import telemetry
 from photon_ml_tpu_torch.utils.knobs import _FALSE as _STACK_OFF
@@ -215,6 +220,9 @@ class SweepExecutor:
 
     def _model_to_arrays(self, cid: str, model) -> Arrays:
         if self._is_re(cid):
+            if not isinstance(model.coefficients_matrix, Tensor):
+                # A shard group's row-sharded store, as rows on its home card.
+                model = model.on_device(model.coefficients_matrix.mesh.devices[0])
             return {"m": model.coefficients_matrix, "v": model.variances_matrix}
         return {"w": model.coefficients.means, "var": model.coefficients.variances}
 
@@ -255,6 +263,7 @@ class SweepExecutor:
     # ----------------------------------------------------------- mode choice
 
     def _stackable(self) -> bool:
+        # `entity_sharded` is true on ranks and over a card mesh (`entity_mesh`).
         return not any(getattr(c, "entity_sharded", False) for c in self.coordinates.values())
 
     def _num_cards(self) -> int:
@@ -441,15 +450,10 @@ class SweepExecutor:
         g = self.shard_groups
         if g is None:
             g = int(get_knob("PHOTON_SWEEP_SHARD_GROUPS"))
-        if self._device.type == "cuda":
-            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-            if g <= 0:
-                g = len(devices)
-            g = max(1, min(g, len(devices)))
-        else:
-            # The CPU is one device that every group may share.
-            g = max(1, g)
-            devices = [self._device] * g
+        devices = local_cards(self._device)
+        if g <= 0:
+            g = len(devices)
+        g = max(1, min(g, len(devices)))
         # Balanced split: the first len(devices) % g groups take one more.
         base, extra = divmod(len(devices), g)
         contexts = []
@@ -470,6 +474,17 @@ class SweepExecutor:
         self._group_contexts = contexts
         return contexts
 
+    def _place_warm(self, warm, devices):
+        """Warm-start arrays for a group, on its home card: one device's
+        group trains from them there, and a group of several cards reshards
+        a random effect's matrix onto its mesh in `train` (JAX
+        sweep.py:857-875 replicates them over the group)."""
+        if warm is None:
+            return None
+        home = devices[0]
+        return {cid: {name: None if a is None else a.to(home) for name, a in arrays.items()}
+                for cid, arrays in warm.items()}
+
     def _evaluate_shard_group(self, points, warm):
         contexts = self._groups()
         g, k = len(contexts), points.shape[0]
@@ -478,9 +493,7 @@ class SweepExecutor:
 
         def worker(ctx, trial_idxs):
             dev = ctx["devices"][0]
-            placed = None if warm is None else {
-                cid: {name: None if a is None else a.to(dev) for name, a in arrays.items()}
-                for cid, arrays in warm.items()}
+            placed = self._place_warm(warm, ctx["devices"])
             initial = self._arrays_to_game_model(placed) if placed is not None else None
             for i in trial_idxs:
                 t0 = time.perf_counter()
@@ -491,8 +504,9 @@ class SweepExecutor:
                                                 reg_weights=self._rw_map(points[i]),
                                                 seed=self.seed)
                     if dev.type == "cuda":
-                        # The trial's wall ends when its card has finished.
-                        torch.cuda.synchronize(dev)
+                        # The trial's wall ends when its cards have finished.
+                        for d in dict.fromkeys(ctx["devices"]):
+                            torch.cuda.synchronize(d)
                 results[i] = (cd, time.perf_counter() - t0)
 
         span_h = telemetry.span_handoff()

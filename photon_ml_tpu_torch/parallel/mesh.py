@@ -66,7 +66,12 @@ exact gather of rows from the cards that own them (`gather_rows_into`:
 each card gathers, the parts reach the home card and are copied into
 place, so the result is `matrix[rows]` bit for bit). The serving store
 (serving/bundle.py, engine.py, reshard.py) and the transformer's
-row-sharded branch use it.
+row-sharded branch use it. A sweep's shard group of several cards trains
+on it too: `shard_random_effect_dataset` cuts each bucket's entity axis into
+one slice a shard, and `ring_gather_rows` / `ring_scatter_rows` move the
+warm starts to the slices and the solutions back to the cards that own
+their rows (the reference's ring collectives, :358-476, as exact
+selections and card-to-card copies).
 """
 
 from __future__ import annotations
@@ -905,3 +910,201 @@ def bcast_gather_wire_bytes(mesh: CardMesh, n_rows: int, dim: int) -> int:
     of float32 rows (a ring all-reduce of the (n_rows, dim) block:
     2 * (S - 1) * its bytes)."""
     return 2 * (mesh.size - 1) * int(n_rows) * int(dim) * 4
+
+
+def sharded_zeros(mesh: CardMesh, logical_rows: int, dim: int) -> RowShardedMatrix:
+    """A zero (logical_rows, dim) float32 RowShardedMatrix over `mesh`,
+    each block made on its card."""
+    per = pad_rows_for_mesh(logical_rows, mesh) // mesh.size
+    return RowShardedMatrix([torch.zeros((per, int(dim)), dtype=torch.float32, device=d)
+                             for d in mesh.devices], mesh, logical_rows)
+
+
+def _owned_parts(matrix: RowShardedMatrix, rows: Tensor):
+    """(block index, positions in `rows`, rows within that block) for every
+    block that owns some of `rows`, as host index tensors."""
+    per = matrix.rows_per_shard
+    r = rows.detach().to("cpu", torch.int64)
+    owner = torch.div(r, per, rounding_mode="floor")
+    parts = []
+    for j in range(matrix.mesh.size):
+        pos = torch.nonzero(owner == j).flatten()
+        if pos.numel():
+            parts.append((j, pos, r[pos] - j * per))
+    return parts
+
+
+def ring_gather_rows(matrix: RowShardedMatrix, rows_by_shard: Sequence[Tensor]) -> List[Tensor]:
+    """out[k][i] = matrix[rows_by_shard[k][i]] on shard k's card: each
+    shard's slice asks for rows, and every card that owns some of them
+    selects them in its block and copies them to the asking card, where
+    they are written in place (an exact selection, no add: -0.0 and every
+    other value keep their bits). Dispatched under the `collective` fault
+    site; a retry repeats the selection, so it gives the same bits."""
+
+    def gather() -> List[Tensor]:
+        out = []
+        for k, rows in enumerate(rows_by_shard):
+            dev = matrix.mesh.devices[k]
+            part = torch.zeros((int(rows.shape[0]), matrix.shape[1]), dtype=matrix.dtype, device=dev)
+            for j, pos, local in _owned_parts(matrix, rows):
+                block = matrix.blocks[j]
+                part[pos.to(dev)] = block[local.to(block.device)].to(dev)
+            out.append(part)
+        return out
+
+    return dispatch_collective(gather, label="ring_gather_rows")
+
+
+def ring_scatter_rows(matrix: RowShardedMatrix, rows_by_shard: Sequence[Tensor],
+                      values_by_shard: Sequence[Tensor]) -> RowShardedMatrix:
+    """matrix[rows_by_shard[k]] = values_by_shard[k] for every shard k, in
+    place: each slice's rows are copied to the card that owns them and
+    written into its block. Rows written twice must carry equal values (the
+    padding entities all write the pinned row, JAX mesh.py:459-476).
+    Dispatched under the `collective` fault site; a retry writes the same
+    values again."""
+
+    def scatter() -> RowShardedMatrix:
+        for rows, values in zip(rows_by_shard, values_by_shard):
+            for j, pos, local in _owned_parts(matrix, rows):
+                block = matrix.blocks[j]
+                block[local.to(block.device)] = values[pos.to(values.device)].to(block.device)
+        return matrix
+
+    return dispatch_collective(scatter, label="ring_scatter_rows")
+
+
+def ring_gather_wire_bytes(mesh: CardMesh, n_rows_padded: int, dim: int, itemsize: int = 4) -> int:
+    """The reference's analytic wire bytes of one `ring_gather_rows` call:
+    each of the S shards passes its (n_rows_padded / S, dim) block around
+    the ring, S * the matrix's bytes."""
+    return int(mesh.size) * int(n_rows_padded) * int(dim) * int(itemsize)
+
+
+def ring_scatter_wire_bytes(mesh: CardMesh, n_updates_padded: int, dim: int, itemsize: int = 4) -> int:
+    """The reference's analytic wire bytes of one `ring_scatter_rows` call:
+    the (int32 rows, (., dim) values) payload rotates S steps."""
+    return int(mesh.size) * int(n_updates_padded) * (4 + int(dim) * int(itemsize))
+
+
+def lanes_in_place(blocks: EntityBlocks, lo: int, hi: int, pinned: int) -> EntityBlocks:
+    """`blocks` with its shape kept and every lane outside [lo, hi) made a
+    dummy (it gathers row 0 under mask 0 and writes the pinned row). A
+    batched solve of it gives lanes lo..hi-1 the bits of the whole bucket's
+    solve: its products and sums run at the whole bucket's shapes, so a
+    library picks the same kernel, and a lane's path reads its own lane
+    alone (its dummies' gradient is 0 from a zero start)."""
+    live = torch.zeros(blocks.num_entities, dtype=torch.bool, device=blocks.gather.device)
+    live[lo:hi] = True
+    return EntityBlocks(torch.where(live[:, None], blocks.gather, 0),
+                        torch.where(live[:, None], blocks.mask, 0.0),
+                        torch.where(live, blocks.entity_rows, pinned))
+
+
+class ShardedEntityBlocks:
+    """One bucket over a CardMesh: its entities padded to a multiple of the
+    shard count and cut into contiguous slices, `slices[k]` (an
+    EntityBlocks) on `mesh.devices[k]`, whose rows the ring collectives
+    move. Shard k solves `placed[k]` on its card: the bucket at its own
+    shape with lanes `lanes[k]` = (first, count) live (`lanes_in_place`),
+    the first `count` lanes of its slice; the slice's other lanes are the
+    mesh's padding. `real_entities` is the bucket's own count."""
+
+    def __init__(self, slices: Sequence[EntityBlocks], placed: Sequence[EntityBlocks],
+                 lanes: Sequence[Tuple[int, int]], real_entities: int):
+        self.slices = tuple(slices)
+        self.placed = tuple(placed)
+        self.lanes = tuple(lanes)
+        self.real_entities = int(real_entities)
+
+    @property
+    def num_entities(self) -> int:
+        """The padded count."""
+        return sum(s.num_entities for s in self.slices)
+
+    @property
+    def capacity(self) -> int:
+        return self.slices[0].capacity
+
+
+@dataclasses.dataclass
+class CardReplica:
+    """What one card of a group reads to gather its slices' blocks: the
+    sample data (the random effect's feature shard, labels and weights) and
+    the Pearson feature mask, on that card. `rows`: on a card other than
+    the dataset's, the sample rows its blocks gather (on the dataset's
+    device), the only offsets a train sends it (`card_offsets`); None on
+    the dataset's card, which reads the offsets themselves."""
+
+    dataset: GameDataset
+    feature_mask: Optional[Tensor]
+    rows: Optional[Tensor] = None
+
+
+def card_offsets(offsets: Tensor, replica: CardReplica) -> Tensor:
+    """The residual offsets as `replica`'s card reads them: `offsets`
+    themselves on the dataset's card, else a vector on that card holding
+    them at the rows its blocks gather (copied exactly) and zeros at rows
+    no block reads."""
+    if replica.rows is None:
+        return offsets
+    dev = replica.dataset.labels.device
+    out = torch.zeros(offsets.shape, dtype=offsets.dtype, device=dev)
+    out[replica.rows.to(dev)] = offsets[replica.rows].to(dev)
+    return out
+
+
+def shard_random_effect_dataset(red: RandomEffectDataset, mesh: CardMesh, dataset: GameDataset, *,
+                                replicate_sample_rows: bool = True) -> RandomEffectDataset:
+    """`red` (built over `dataset`) with each bucket's entity axis over
+    `mesh` (JAX mesh.py:547-620): the entity count padded to a multiple of
+    the shard count with dummy entities that gather row 0 under mask 0 and
+    write the pinned row, then cut into one contiguous slice a shard, each
+    on its shard's card with its in-place block (`ShardedEntityBlocks`).
+    The sample data stays replicated: every distinct card of the mesh gets
+    the random effect's feature shard, the labels, the weights and the
+    feature mask (`card_replicas`; the dataset's own card keeps the
+    dataset), and `sample_entity_rows` stays whole on the dataset's card,
+    where the coordinate scores. `replicate_sample_rows` False (the
+    reference's batch-sharded sample rows, for sample-sharded scoring) has
+    no counterpart: a group scores on its home card."""
+    if not replicate_sample_rows:
+        raise ValueError("a card group scores on its home card: its sample rows stay replicated "
+                         "(replicate_sample_rows=True)")
+    if red.owned_entities is not None or red.view is not None:
+        raise ValueError("a random effect of one rank's rows cannot be sharded over cards")
+    S, pinned = mesh.size, red.num_entities
+    buckets = []
+    reads: Dict[torch.device, List[Tensor]] = {}
+    for b in red.buckets:
+        e = b.num_entities
+        rem = (-e) % S
+        gather = torch.nn.functional.pad(b.gather, (0, 0, 0, rem))
+        mask = torch.nn.functional.pad(b.mask, (0, 0, 0, rem))
+        rows = torch.nn.functional.pad(b.entity_rows, (0, rem), value=pinned)
+        per = (e + rem) // S
+        slices, placed, lanes = [], [], []
+        for k, d in enumerate(mesh.devices):
+            lo, hi = k * per, (k + 1) * per
+            slices.append(EntityBlocks(gather[lo:hi].to(d), mask[lo:hi].to(d), rows[lo:hi].to(d)))
+            lanes.append((lo, max(0, min(hi, e) - lo)))
+            p = lanes_in_place(b, lo, min(hi, e), pinned)
+            reads.setdefault(d, []).append(p.gather.flatten())
+            placed.append(EntityBlocks(p.gather.to(d), p.mask.to(d), p.entity_rows.to(d)))
+        buckets.append(ShardedEntityBlocks(slices, placed, lanes, e))
+    feats = dataset.shards[red.feature_shard]
+    replicas = {}
+    for dev in dict.fromkeys(mesh.devices):
+        if dev == dataset.device:
+            replicas[dev] = CardReplica(dataset, red.feature_mask)
+            continue
+        put = lambda a: None if a is None else a.to(dev)
+        shard = (dataclasses.replace(feats, indices=put(feats.indices), values=put(feats.values))
+                 if isinstance(feats, SparseFeatures) else put(feats))
+        ds = GameDataset(shards={red.feature_shard: shard}, labels=put(dataset.labels),
+                         offsets=put(dataset.offsets), weights=put(dataset.weights),
+                         id_tags=dataset.id_tags)
+        rows = torch.unique(torch.cat([r.to(dataset.device) for r in reads[dev]]))
+        replicas[dev] = CardReplica(ds, put(red.feature_mask), rows)
+    return dataclasses.replace(red, buckets=buckets, card_mesh=mesh, card_replicas=replicas)

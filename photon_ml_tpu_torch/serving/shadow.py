@@ -218,6 +218,7 @@ class ShadowController:
                 dropped = self._pending.pop(uid, None) is not None
                 if dropped and role == "challenger":
                     self._mirror_failures += 1
+                self._cond.notify_all()
             if dropped and role == "challenger":
                 faults.COUNTERS.increment("shadow_mirror_failures")
             return
@@ -228,6 +229,7 @@ class ShadowController:
                 return
             ent[role] = result
             self._maybe_complete_locked(uid)
+            self._cond.notify_all()  # a drain may be waiting on this pair
 
     def _maybe_complete_locked(self, uid: str) -> None:
         ent = self._pending.get(uid)
@@ -336,15 +338,20 @@ class ShadowController:
         return None  # mixed evidence: the hysteresis band holds
 
     def drain(self, timeout_s: float = 60.0) -> Optional[str]:
-        """Wait (at most `timeout_s`) until the worker has evaluated every
-        full window already joined and, when that gives a verdict, acted on
-        it. Returns the verdict, or None when the backlog ran out without
-        one."""
+        """Wait (at most `timeout_s`) until every mirrored pair still in
+        flight has both its answers, and the worker has evaluated every
+        full window joined and, when that gives a verdict, acted on it.
+        Returns the verdict, or None when the backlog ran out without one.
+        A challenger's answers can come after all of the champion's (its
+        batches lag under load), so the joins are waited for first; the
+        reference's drain looks at the joined rows alone and can snapshot
+        before the last windows join."""
         deadline = time.monotonic() + timeout_s
         with self._cond:
             while not self._verdict_event.is_set() and self._error is None:
                 if not self._evaluating and (self._closed or self._status != "observing"
-                                             or len(self._rows) < self._window_size):
+                                             or (len(self._rows) < self._window_size
+                                                 and not self._joins_in_flight_locked())):
                     break
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
@@ -353,6 +360,11 @@ class ShadowController:
             if self._error is not None:
                 raise RuntimeError("shadow decision worker died") from self._error
             return self._verdict
+
+    def _joins_in_flight_locked(self) -> bool:
+        """True while a mirrored pair waits for an answer (a pair with both
+        answers and no label is not in flight: its label may never come)."""
+        return any(e["champion"] is None or e["challenger"] is None for e in self._pending.values())
 
     def wait_for_verdict(self, timeout_s: Optional[float] = None) -> Optional[str]:
         """Block until a verdict fires (or the worker dies); the decision,

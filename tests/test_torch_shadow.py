@@ -252,6 +252,55 @@ def test_the_verdicts_are_the_references_and_the_champion_is_untouched(scale, ve
     assert port["metrics"]["cobatch_compiles_after_warmup"] == 0
 
 
+def test_drain_waits_for_the_challengers_answers_still_in_flight(monkeypatch):
+    """The challenger's answers are held back until the drain waits on the
+    controller's condition: the drain still sees the windows they complete,
+    so the summary taken after it carries the verdict (a drain that looked
+    at the joined rows alone returned before them)."""
+    import threading
+    from concurrent.futures import Future
+
+    reqs = _reqs(_docs(46, 16))
+    labels = (np.asarray(_solo(1, reqs)) > 0.0).astype(np.float32)
+    main = threading.current_thread()
+    with TenantRegistry(max_batch=32, max_wait_ms=2.0) as reg:
+        reg.admit("champ", _bundle(1))
+        held = []
+        submit = reg.submit
+
+        def held_submit(name, req, block=True):
+            fut = submit(name, req, block=block)
+            if name != "cand":
+                return fut
+            late = Future()
+            held.append((fut, late))
+            return late
+
+        monkeypatch.setattr(reg, "submit", held_submit)
+        controller = ShadowController(reg, "champ", "cand", _bundle(1), window_size=8,
+                                      min_windows=2, cooldown_s=0.0)
+        wait = controller._cond.wait
+
+        def release_then_wait(*args, **kwargs):
+            if threading.current_thread() is main:
+                while held:
+                    fut, late = held.pop(0)
+                    late.set_result(fut.result(timeout=60))
+            return wait(*args, **kwargs)
+
+        try:
+            got = _drive(reg, controller, reqs, labels)
+            assert len(held) == 16 and controller.summary()["windows"] == 0
+            monkeypatch.setattr(controller._cond, "wait", release_then_wait)
+            assert controller.drain(timeout_s=60.0) == "promote"
+            block = controller.summary()
+        finally:
+            controller.close()
+    assert got == _solo(1, reqs)
+    assert block["windows"] == 2 and block["status"] == "promoted"
+    assert block["mirror_failures"] == block["label_join_failures"] == 0
+
+
 def test_mirror_and_join_faults_serve_the_champion_only():
     reqs = _reqs(_docs(43, 24))
     ref = _solo(1, reqs)

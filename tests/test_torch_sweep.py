@@ -13,9 +13,9 @@ Then the port against the JAX package on the same numpy data and points:
 trial values within PORT_TOLERANCES["glmix"]["auc_atol"], winner
 coefficients within its "coef_atol", RANDOM sweeps proposing the same
 points, and warm starts from a model carried over by `convert.py`. And the
-refusals: a group of more than one device (ROADMAP item 9), forced
-stacking over an entity-sharded store, the trial hooks of a sharded random
-effect.
+refusals: forced stacking over an entity-sharded store, the trial hooks of
+a sharded random effect. Shard groups of several cards are
+tests/test_torch_shard_groups.py.
 """
 
 from __future__ import annotations
@@ -236,8 +236,10 @@ class TestStackedParity:
 class TestShardGroups:
     @pytest.mark.parametrize("groups", [None, 1, 2, 3])
     def test_single_device_groups_bitwise(self, sweep_problem, groups):
-        """On the CPU every group is one CPU device; group 0 reuses the main
-        coordinates and the others run on the builder's copies."""
+        """On the CPU the groups split its 8 card ordinals (None: one group a
+        card); a group of one card that is the default device reuses the
+        main coordinates, the others run on the builder's copies, and a
+        group of several cards row-shards the random effect over them."""
         _, ex_serial = _executor(sweep_problem, "serial")
         _, ex_group = _executor(sweep_problem, "shard_group", shard_groups=groups)
         assert ex_serial.evaluate_batch(_POINTS) == ex_group.evaluate_batch(_POINTS)
@@ -245,18 +247,12 @@ class TestShardGroups:
         assert ex_serial.evaluate_batch(_POINTS2) == ex_group.evaluate_batch(_POINTS2)
         _assert_models_equal(ex_serial.last_trial_models, ex_group.last_trial_models, "group warm")
         contexts = ex_group._groups()
-        assert len(contexts) == max(1, groups or 1)
-        assert contexts[0]["coordinates"] is ex_group.coordinates
-        for ctx in contexts[1:]:
-            assert ctx["coordinates"] is not ex_group.coordinates
-
-    def test_multi_device_group_raises_naming_item_9(self, sweep_problem):
-        train, _ = sweep_problem
-        est, _ = _executor(sweep_problem, "shard_group")
-        build = est._sweep_group_builder(train, {"fixed": _opt_config(_PortPkg),
-                                                 "re": _opt_config(_PortPkg)})
-        with pytest.raises(NotImplementedError, match="item 9"):
-            build([CPU, CPU])
+        assert len(contexts) == (groups or pmesh.CPU_CARDS)
+        assert sum(len(c["devices"]) for c in contexts) == pmesh.CPU_CARDS
+        for ctx in contexts:
+            single = len(ctx["devices"]) == 1
+            assert (ctx["coordinates"] is ex_group.coordinates) == (single and ctx["index"] == 0)
+            assert (ctx["coordinates"]["re"].entity_mesh is None) == single
 
     def test_group_copy_names_its_device(self, sweep_problem):
         train, _ = sweep_problem
