@@ -542,6 +542,12 @@ print which backend each used.
 5d. Phase 5's small GLMix on three seeds: 4 ranks on the card against one
    CPU process, under PORT_TOLERANCES["card_vs_cpu_glmix"].
 
+lint. photon-lint over the port (photon_ml_tpu_torch/analysis/), in this
+   process, over the tree this script ships in: the package, this script,
+   tools/ and tests/test_torch_*.py. Any finding fails the run; the line
+   gives the files linted, the findings (0) and the seconds. It launches
+   no kernel.
+
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
 3s, 4s, 3e, 3f, 3r, 5f's card fits, 3c's two drivers, 5c's card runs, each run
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
@@ -1571,6 +1577,8 @@ def refresh_loop_phase(dev) -> dict:
     del warm
     torch.cuda.synchronize()
 
+    # photon-lint: disable=planner-constant — the phase pins the batcher's wait, as bench.py's
+    # continuous_loop section does: a measurement's setting, not a runtime default
     with engine, engine.batcher(max_wait_ms=0.5) as batcher:
         with Replay(batcher, reqs) as replay:
             t_data = time.perf_counter()
@@ -1782,6 +1790,8 @@ def refresh_e2e_phase(ds, maps, truth, n_users: int, n_movies: int, dev) -> dict
     dataset = ds
     rounds = []
     batches = tempfile.TemporaryDirectory(prefix="photon-refresh-")
+    # photon-lint: disable=planner-constant — the phase pins the batcher's wait, as bench.py's
+    # continuous_loop section does: a measurement's setting, not a runtime default
     with batches, engine, engine.batcher(max_wait_ms=0.5) as batcher:
         for r in range(1, R_E2E_ROUNDS + 1):
             rng = np.random.default_rng(300 + r)
@@ -2669,6 +2679,8 @@ def serving_phase(root: str, work: str, truth, n_users: int, n_movies: int, dens
     os.environ["PHOTON_RETRY_MAX_ATTEMPTS"] = "1"
     try:
         with faults.inject("score:1000"):
+            # photon-lint: disable=planner-constant — the drill pins the batcher's wait: it checks answers
+            # under an armed fault, not the wait
             with engine.batcher(max_wait_ms=0.5) as b:
                 answers, errors = {}, 0
                 for i in range(32):
@@ -3219,6 +3231,7 @@ def serve_multihost_phase(root: str, work: str, dev) -> dict:
     from photon_ml_tpu_torch.io import score_store
     from photon_ml_tpu_torch.serving import ServingEngine, load_bundle
     from photon_ml_tpu_torch.utils import telemetry
+    from photon_ml_tpu_torch.utils.knobs import get_knob, knob_is_set
 
     best = os.path.join(root, "drivers", "train", "models", "best")
     replay_dir = os.path.join(work, "serve-mh-requests")
@@ -3250,7 +3263,7 @@ def serve_multihost_phase(root: str, work: str, dev) -> dict:
         argv = serve_args(best, replay_dir, out, "--multihost", str(MHV_HOSTS),
                           "--multihost-devices-per-host", str(MHV_BLOCKS),
                           *(["--device", "cpu"] if dev.type == "cpu" else []))
-        before = os.environ.get("PHOTON_HOST_LOSS_RETRIES")
+        before = str(get_knob("PHOTON_HOST_LOSS_RETRIES")) if knob_is_set("PHOTON_HOST_LOSS_RETRIES") else None
         os.environ["PHOTON_HOST_LOSS_RETRIES"] = str(retries)
         done, errors = [], []
 
@@ -3260,7 +3273,7 @@ def serve_multihost_phase(root: str, work: str, dev) -> dict:
             except BaseException as exc:  # re-raised below
                 errors.append(exc)
 
-        sup = threading.Thread(target=supervise)
+        sup = threading.Thread(target=supervise, name="mhv-supervisor")
         killed_at = None
         t0 = time.perf_counter()
         try:
@@ -3495,6 +3508,7 @@ def tenancy_phase(root: str, work: str, dev) -> dict:
         SERVING_SUMMARY_KEYS,
         SHADOW_BLOCK_KEYS,
         TENANT_BLOCK_KEYS,
+        TENANT_CLEAN_ZERO_KEYS,
     )
     from photon_ml_tpu_torch.data.index_map import IndexMap
     from photon_ml_tpu_torch.io import avro as avro_io
@@ -3691,11 +3705,10 @@ def tenancy_phase(root: str, work: str, dev) -> dict:
                  "serving_deadline_misses", "watchdog_trips")}
     clean_labelled = {c: {k: v for k, v in d.items() if "clean" in k} for c, d in labelled.items()}
     row = dict(phase="3n-chaos", noisy=noisy, noisy_block={k: m["tenants"]["noisy"][k] for k in
-                                                           ("completed", "failed", "shed", "degraded_batches",
-                                                            "fe_only_answers")},
+                                                           ("completed", *TENANT_CLEAN_ZERO_KEYS)},
                clean_failed=clean_failed, clean_bit_equal=clean_bits,
-               clean_blocks={n: {k: m["tenants"][n][k] for k in ("failed", "shed", "degraded_batches",
-                                                                  "fe_only_answers")} for n in ("clean0", "clean1")},
+               clean_blocks={n: {k: m["tenants"][n][k] for k in TENANT_CLEAN_ZERO_KEYS}
+                             for n in ("clean0", "clean1")},
                labelled=labelled)
     log(json.dumps(row))
     if clean_failed or not all(clean_bits.values()) or any(v for d in clean_labelled.values() for v in d.values()) \
@@ -3893,8 +3906,7 @@ def tenancy_phase(root: str, work: str, dev) -> dict:
                shadow_requests=shadow_summary["num_requests"], shadow_failed=shadow_summary["failed_requests"],
                shadow_wall_s=shadow_wall, shadow_clean=clean(shadow_summary, shed_mirrors),
                shadow_shed_mirrors=shed_mirrors, shadow=shadow_summary["shadow"],
-               refresh_wall_s=refresh_wall, refresh_round={k: rnd[k] for k in ("mode", "committed", "generation",
-                                                                               "shadow_verdict", "data_to_served_s")},
+               refresh_wall_s=refresh_wall, refresh_round={k: v for k, v in rnd.items() if not isinstance(v, dict)},
                refresh_shadow=rnd["shadow"], refresh_launches=refresh_launches)
     log(json.dumps(row))
     if not (row["tenants_clean"] and row["tenant_blocks_ok"] and row["tenants_requests"] == n_cli
@@ -4009,19 +4021,22 @@ def ladder_phase(root: str, work: str, dev) -> dict:
 
     import torch
 
-    from photon_ml_tpu_torch.contracts import TIER_TOLERANCES
+    from photon_ml_tpu_torch.contracts import ROBUSTNESS_CLEAN_ZERO_KEYS, TIER_TOLERANCES
     from photon_ml_tpu_torch.io import avro as avro_io
     from photon_ml_tpu_torch.io.avro_data import FeatureShardConfig
     from photon_ml_tpu_torch.serving import ServingBundle, ServingEngine, TenantRegistry, load_bundle, \
         request_from_record
     from photon_ml_tpu_torch.serving.bundle import quantize_bundle_rows
     from photon_ml_tpu_torch.utils import faults, telemetry
+    from photon_ml_tpu_torch.utils.knobs import get_knob, knob_is_set
 
     best = os.path.join(root, "drivers", "train", "models", "best")
     replay_dir = os.path.join(work, "serve-requests")
     variant_dirs = [os.path.join(work, "tenants", f"v{k}") for k in range(2)]
     card = card_line() if dev.type == "cuda" else "cpu"
     failures = []
+    # The ladder's counters: tier_demotions, tier_restores, tier_rollbacks.
+    tier_counters = tuple(k for k in ROBUSTNESS_CLEAN_ZERO_KEYS if k.startswith("tier_"))
     t_phase = time.perf_counter()
     port_log = logging.getLogger("photon_ml_tpu_torch")
     log_level = port_log.level
@@ -4135,7 +4150,7 @@ def ladder_phase(root: str, work: str, dev) -> dict:
                failed_requests=failed + failed_f + sum(t["failed"] for t in transitions),
                tenant_failed={n: b["failed"] for n, b in m["tenants"].items()},
                tier_block=m["tenants"]["base"]["tier"], cobatched_at_f32=cobatched_f32,
-               counters={k: faults.COUNTERS.get(k) for k in ("tier_demotions", "tier_restores", "tier_rollbacks")},
+               counters={k: faults.COUNTERS.get(k) for k in tier_counters},
                card=card)
     log(json.dumps(row))
     if fault_row != dict(fault="raised", tier="f32", version_kept=True, bit_equal=True, failed=0,
@@ -4166,11 +4181,13 @@ def ladder_phase(root: str, work: str, dev) -> dict:
     per_i8 = quantize_bundle_rows(probe, "int8")[0].device_bytes()
     budget = per_f32 + (LAD_TENANTS - 1) * per_i8 + per_i8 // 2
     squeeze = {}
-    prior = os.environ.get("PHOTON_TIER_LADDER")
+    prior = str(int(get_knob("PHOTON_TIER_LADDER"))) if knob_is_set("PHOTON_TIER_LADDER") else None
     try:
         for ladder in (False, True):
             os.environ["PHOTON_TIER_LADDER"] = "1" if ladder else "0"
             telemetry.METRICS.reset()
+            # photon-lint: disable=planner-constant — the squeeze cell pins the reference's wait (bench.py's
+            # precision-ladder squeeze): a measurement's setting, not a runtime default
             reg = TenantRegistry(max_batch=16, max_wait_ms=1.0, hbm_budget_bytes=budget)
             t0 = time.perf_counter()
             for n in names:
@@ -4188,8 +4205,7 @@ def ladder_phase(root: str, work: str, dev) -> dict:
                        resident=LAD_TENANTS - len(demoted), demoted={n: tiers[n] for n in demoted},
                        tiers={t: sum(v == t for v in tiers.values()) for t in ("f32", "bf16", "int8")},
                        admit_s=admit_s, answers_within=all(within.values()),
-                       transitions={k: faults.COUNTERS.get(k) for k in
-                                    ("tier_demotions", "tier_rollbacks", "tenant_demotions")})
+                       transitions={k: faults.COUNTERS.get(k) for k in ("tenant_demotions", *tier_counters)})
             if ladder:
                 # The reference's restore: retire part of the fleet, walk the
                 # coldest back to f32 (through bf16, within its tolerance),
@@ -4241,6 +4257,29 @@ def ladder_phase(root: str, work: str, dev) -> dict:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------- phase lint
+# photon-lint over the port's tree (photon_ml_tpu_torch/analysis/).
+
+
+def lint_phase() -> dict:
+    """Phase lint: the port's nine static checks over the tree this script
+    ships in, in process; raises on any finding. Returns its line."""
+    import os
+
+    from photon_ml_tpu_torch.analysis import discover, run_on
+
+    t0 = time.perf_counter()
+    files, ctx = discover(os.path.dirname(os.path.abspath(__file__)))
+    findings = run_on(files, ctx)
+    row = dict(phase="lint", files=len(files), findings=len(findings),
+               seconds=time.perf_counter() - t0, card=card_line())
+    log(json.dumps(row))
+    if findings:
+        raise SystemExit("phase lint: photon-lint findings on the port's tree:\n"
+                         + "\n".join(f.render() for f in findings))
+    return row
 
 
 # ---------------------------------------------------------------- phase 3p
@@ -6038,7 +6077,7 @@ def multihost_phase(work: str, device: str = "cuda:0") -> dict:
         except BaseException as exc:  # re-raised below
             errors.append(exc)
 
-    sup = threading.Thread(target=supervise)
+    sup = threading.Thread(target=supervise, name="mh-supervisor")
     t0 = time.perf_counter()
     sup.start()
     state = os.path.join(drill_dir, "ckpt", "state.json")
@@ -7578,9 +7617,9 @@ def main(argv=None) -> int:
         path = native_build.build_library()
         builds[path.name] = (path, time.perf_counter() - t, "")
 
-    threads = [threading.Thread(target=build, args=(src,))
+    threads = [threading.Thread(target=build, args=(src,), name=f"build-{src.name}")
                for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE)]
-    threads.append(threading.Thread(target=build_native))
+    threads.append(threading.Thread(target=build_native, name="build-native"))
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -7831,6 +7870,9 @@ def main(argv=None) -> int:
     # ---- phases 2d-5d: data-parallel GLMix on ranks --------------------------------
     dist_rows, dist_launches = walled("phases 2d-5d", distributed_phases, args.seed, dev, arrays,
                                       kernel_rows, phase3)
+
+    # ---- phase lint: photon-lint over the port's tree --------------------------------
+    lint_phase()
 
     # ---- the record lines -------------------------------------------------------
     source = "photon_ml_tpu_torch/csrc/glm_fused.cu"

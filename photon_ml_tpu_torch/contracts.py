@@ -250,6 +250,8 @@ TENANT_BLOCK_KEYS = (
     "watchdog_trips",
     "tier",
 )
+# A tenant block's counts that are zero for a tenant no fault was aimed at.
+TENANT_CLEAN_ZERO_KEYS = ("failed", "shed", "degraded_batches", "fe_only_answers")
 TIER_BLOCK_KEYS = (
     "tier",
     "quantized_coords",

@@ -454,8 +454,10 @@ class BundleManager:
             if engine._prewarm_hook is not None:
                 engine._prewarm_hook(new_state)
             t_warm = time.perf_counter()
-            if checked:
-                faults.fault_point("swap_commit" if kind == "swap" else "reshard_commit")
+            if kind == "swap":
+                faults.fault_point("swap_commit")
+            elif checked:
+                faults.fault_point("reshard_commit")
             stage_s = time.perf_counter() - t0
         except BaseException as exc:
             self._roll_back(kind, old_state.version, exc, shards)

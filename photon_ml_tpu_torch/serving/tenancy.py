@@ -607,7 +607,6 @@ class TenantRegistry:
         kind's programs, commit, drain. Returns the bytes freed (down) or
         re-pinned (up)."""
         from_tier = t.tier
-        site = "quantize_stage" if down else "tier_restore"
         manager = t.engine.bundle_manager
         errors: Dict[str, float] = {}
         with manager.mutex:
@@ -615,7 +614,10 @@ class TenantRegistry:
             old_bytes = _bundle_device_bytes(old_state.bundle)
 
             def build():
-                faults.fault_point(site)
+                if down:
+                    faults.fault_point("quantize_stage")
+                else:
+                    faults.fault_point("tier_restore")
                 if rung == "f32":
                     return restore_bundle_precision(old_state.bundle), {}
                 return quantize_bundle_rows(old_state.bundle, rung)

@@ -57,7 +57,11 @@ logger = logging.getLogger(__name__)
 # The reference's site registry, verbatim: every site a plan may name.
 SITE_DESCRIPTIONS = {
     "decode": "Avro block decode in the ingest data plane",
+    # photon-lint: disable=fault-site-sync — the registry stays the reference's verbatim (a plan
+    # naming it parses in both packages); the port has no host CSR->ELL pack to plant it in.
     "pack": "host-side CSR->ELL pack (background pack pool)",
+    # photon-lint: disable=fault-site-sync — the registry stays the reference's verbatim; the port
+    # builds its layouts on the card and has no AsyncUploader job to plant it in.
     "upload": "host->device shard upload (AsyncUploader jobs)",
     "solve": "per-coordinate device solve in coordinate descent",
     "checkpoint_write": "durable checkpoint writes (state.json + model npz)",
@@ -391,3 +395,43 @@ def solve_retry_attempts() -> int:
     fault-free result bit for bit; a deterministic divergence reproduces on
     retry and falls through to last-good after one extra solve."""
     return max(0, int(get_knob("PHOTON_SOLVE_RETRIES")))
+
+
+# ------------------------------------------------------------------ CLI
+
+
+def main(argv=None) -> int:
+    """`python -m photon_ml_tpu_torch.utils.faults --list-sites`: print the
+    registered fault sites (site, what the ambient PHOTON_FAULTS plan arms
+    at it, description), as the reference's command does."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m photon_ml_tpu_torch.utils.faults",
+                                description="Inspect the deterministic fault-injection registry.")
+    p.add_argument("--list-sites", action="store_true",
+                   help="print every registered fault site and any armed plan")
+    args = p.parse_args(argv)
+    if not args.list_sites:
+        p.print_help()
+        return 2
+    inj = active_injector()
+    armed = dict(inj.plan.sites) if inj is not None else {}
+    width = max(len(s) for s in KNOWN_SITES)
+    print(f"{'site'.ljust(width)}  armed  description")
+    for site in KNOWN_SITES:
+        spec = armed.get(site)
+        bits = []
+        if spec is not None:
+            if spec.first_n:
+                bits.append(f"first {spec.first_n}")
+            if spec.indices:
+                bits.append("@" + "+".join(str(i) for i in sorted(spec.indices)))
+            if spec.probability:
+                bits.append(f"p={spec.probability}")
+        tag = ",".join(bits) or "-"
+        print(f"{site.ljust(width)}  {tag:5s}  {SITE_DESCRIPTIONS[site]}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -271,3 +271,35 @@ def pipeline_enabled(override: Optional[bool] = None) -> bool:
     except (AttributeError, OSError):  # not Linux
         cores = os.cpu_count() or 1
     return cores > 1
+
+
+def readme_table() -> str:
+    """The port's README knob table, generated from this registry (the
+    port's knob-registry check holds README.md's marked port section to
+    it; regenerate with `--table` after registering a knob)."""
+    rows = ["| Knob | Type | Default | What it does |", "| --- | --- | --- | --- |"]
+    for name in sorted(KNOBS):
+        k = KNOBS[name]
+        default = "`(empty)`" if k.default == "" else f"`{k.default}`"
+        rows.append(f"| `{name}` | {k.type.__name__} | {default} | {k.doc} |")
+    return "\n".join(rows)
+
+
+def main(argv=None) -> int:
+    """`python -m photon_ml_tpu_torch.utils.knobs --table`: print the
+    registry as the README markdown table."""
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m photon_ml_tpu_torch.utils.knobs",
+                                description="Inspect the port's typed PHOTON_* knob registry.")
+    p.add_argument("--table", action="store_true", help="print the registry as the README markdown table")
+    args = p.parse_args(argv)
+    if not args.table:
+        p.print_help()
+        return 2
+    print(readme_table())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

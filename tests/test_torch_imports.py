@@ -67,7 +67,11 @@ def test_every_port_module_imports_with_jax_blocked():
                  "parallel.hostmesh", "cli.train_multihost", "cli.serve_multihost", "cli.obs",
                  "data.fingerprints", "game.incremental", "serving.delta", "cli.refresh",
                  "serving.tenancy", "serving.shadow", "serving.reshard", "planner", "planner.plan",
-                 "planner.rules", "autopilot.sensors", "autopilot.rules", "autopilot.loop"):
+                 "planner.rules", "autopilot.sensors", "autopilot.rules", "autopilot.loop",
+                 "analysis", "analysis.core", "analysis.__main__", "analysis.knob_registry",
+                 "analysis.fault_site_sync", "analysis.jit_purity", "analysis.thread_lifecycle",
+                 "analysis.donation_aliasing", "analysis.contract_key_drift",
+                 "analysis.metric_name_sync", "analysis.planner_constant", "analysis.tolerance_pin"):
         assert f"photon_ml_tpu_torch.{name}" in modules
     script = _BLOCK_JAX + textwrap.dedent(
         """
@@ -85,6 +89,26 @@ def test_every_port_module_imports_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(modules)}" in proc.stdout
+
+
+def test_the_port_lint_runs_with_jax_blocked():
+    """photon-lint over the port runs, not just imports, where jax and the
+    JAX package cannot be imported: a bad fixture gives findings (exit 1)
+    and a good one none (exit 0)."""
+    script = _BLOCK_JAX + textwrap.dedent(
+        """
+        from photon_ml_tpu_torch.analysis.__main__ import main
+        fixtures = sys.argv[1]
+        assert main([fixtures + "/donation_aliasing/bad"]) == 1
+        assert main([fixtures + "/jit_purity/good"]) == 0
+        print("linted")
+        """
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", script, str(REPO / "tests" / "torch_lint" / "analysis_fixtures")],
+                          capture_output=True, text=True, cwd=str(REPO), env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "linted" in proc.stdout
 
 
 def test_the_legacy_driver_and_a_checkpointed_fit_run_with_jax_blocked(tmp_path):

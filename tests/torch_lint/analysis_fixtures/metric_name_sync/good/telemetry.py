@@ -1,0 +1,6 @@
+"""A miniature metric registry."""
+
+METRIC_DESCRIPTIONS = {
+    "retries": "transient failures retried by faults.retry",
+    "collective_retries": "mesh collective re-dispatches",
+}

@@ -47,9 +47,9 @@ def main(argv=None) -> int:
         print("chip_smoke_sweep: needs a CUDA card", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=cuda_build.build_library, args=(src,))
+    threads = [threading.Thread(target=cuda_build.build_library, args=(src,), name=f"build-{src.name}")
                for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE)]
-    threads.append(threading.Thread(target=native_build.build_library))
+    threads.append(threading.Thread(target=native_build.build_library, name="build-native"))
     for t in threads:
         t.start()
     for t in threads:

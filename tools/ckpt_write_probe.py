@@ -54,7 +54,7 @@ def main(argv=None) -> int:
         return float(s)  # the host reads the metric, as the suite does
 
     def one_thread(fn):
-        t = threading.Thread(target=fn)
+        t = threading.Thread(target=fn, name="probe-thread")
         t0 = time.perf_counter()
         t.start()
         t.join()
