@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; there is no fallback anywhere):
 
 1. Build the CUDA kernels (`photon_ml_tpu_torch/csrc/glm_fused.cu`,
-   `csrc/sparse_glm.cu` and `csrc/exact_sum.cu`, one nvcc each) and the
+   `csrc/sparse_glm.cu`, `csrc/exact_sum.cu` and `csrc/ell_block.cu`, one
+   nvcc each) and the
    native Avro library
    (`photon_ml_tpu_torch/native/*.cc`, one g++, with deflate where the host
    has zlib), all started together, from the sources in this checkout;
@@ -92,11 +93,18 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    configs (bench.py:4757-4789): the fixed effect (L-BFGS, 10 iterations,
    tol 1e-6, L2 1.0) and per-user and per-movie random effects on "g"
    (5 iterations, tol 1e-5, L2 10.0, min_bucket 8, active_upper_bound
-   256/512; each bucket's ELL block made dense on the card for the batched
-   solve), after a warm-up sweep: per-coordinate seconds, bucket shapes,
-   the sparse launches (sparse_fused = the fixed effect's objective
-   passes, sparse_matvec nonzero, dense kernels 0), peak memory and the
-   training AUC (above 0.5); then one profiled sweep (3e-b).
+   256/512; each bucket solved on its (E, S, K) ELL block, whose transposes
+   are csrc/ell_block.cu's kernel), after a warm-up sweep: per-coordinate
+   seconds, bucket shapes, the sparse launches (sparse_fused = the fixed
+   effect's objective passes, sparse_matvec and ell_rmatvec nonzero, dense
+   kernels 0), peak memory and the training AUC (above 0.5); then one
+   profiled sweep (3e-b). Then the ELL kernel on per-user's largest chunk
+   (`ell_kernel_check`): X^T u and (X o X)^T u twice (bit-identical),
+   against the plain version on float64 copies under
+   PORT_TOLERANCES["sparse_kernel_vs_plain"] and bit for bit against the
+   float32 plain version on the CPU, timed beside the plain version, one
+   index_add_ call, the batched torch route (torch.segment_reduce) and the
+   dense route's einsum on the block made dense, and the bound.
 3e-d. 3e's cell on ranks (parallel/): 3e's files read once by the port's
    reader onto the host, handed to 4 gloo ranks sharing the card as shared
    memory; rows follow the per-user entities, per-movie trains on a row
@@ -120,7 +128,8 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    evaluator), each random effect on its objective, and every rank's masks
    bit-equal to the CPU's rows of its entities.
 5e. A small fit from files (12,000 rows: 80 users, 16 movies) on the card
-   and on the CPU, two seeds, under PORT_TOLERANCES["card_vs_cpu_glmix"]:
+   and on the CPU, one seed (two until 3e-w), under
+   PORT_TOLERANCES["card_vs_cpu_glmix"]:
    fixed-effect coefficients, AUC, and each random effect held on its
    objective as in phases 5 and 5s.
 3f. Phase 3e's cell through the estimator, as bench.py trains it
@@ -137,6 +146,18 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    it, each entity's objective within PORT_TOLERANCES["card_vs_cpu_glmix"]
    ["re_objective_rtol"] of 3e's; the row says which held), and the card's
    layouts and slot tables bit-equal to a CPU build from the same tag codes.
+3e-w. 3e's cell over a wide shard: the e2e generator with 8 ids a row over
+   16,384 instead of 200 (dim 16,385 with the intercept), 4,000,000 rows
+   built in memory (no Avro write), fit once by 3f's estimator (INDEX_MAP,
+   one coordinate-descent iteration). Each random effect's largest chunk
+   made dense would take tens of GB. Prints each random effect's D_proj,
+   buckets, the largest chunk's ELL MiB beside its dense MiB, the sweep by
+   coordinate, peak memory, the launches (#4-#6 and ell_rmatvec) and the
+   training AUC; a second fit must give every coefficient's bits again;
+   the ELL kernel on per-user's largest chunk as in 3e (without the dense
+   einsum); then a small fit at the same width (12,000 rows, 80 users, 16
+   movies) on the card and on the CPU within PORT_TOLERANCES["glmix"]
+   (5e-w).
 5f. Two small estimator fits from arrays (12,000 training rows of the e2e
    generator, 80 users and 16 movies, and 2,000 validation rows, a fifth
    of them of users never seen), on the card and on the CPU: the e2e
@@ -174,18 +195,19 @@ io/avro_data.read_game_dataset onto the card as one sparse shard "g" (the
    ingested dataset and its three coordinates (both random effects keep
    3e's active-row caps, so the plan re-solves each whole coordinate,
    warm-started; printed): a full fit (one sweep) and an engine of it,
-   then two rounds, each a 40,000-row Avro file (1% of the rows; users
-   from 2,000 of 3e's plus 16 new ones, movies uniform, labelled by 3e's
-   truth) read through 3e's index maps, merged, refit incrementally at
-   max_delta_fraction 1.0 (uniform movies churn nearly every movie, so the
-   default 0.5 would say "full": the default's mode is printed) and
+   then one round (two until 3e-w), a 40,000-row Avro file (1% of the
+   rows; users from 2,000 of 3e's plus 16 new ones, movies uniform,
+   labelled by 3e's truth) read through 3e's index maps, merged, refit
+   incrementally at max_delta_fraction 1.0 (uniform movies churn nearly
+   every movie, so the default 0.5 would say "full": the default's mode
+   is printed) and
    flipped into the live engine under replay of 3e's rows, against a full
    refit and restage of the merged rows. Prints each round's stages
    (read, merge, fingerprint copy and hash, plan, build, offsets, solve by
    coordinate, delta build, apply), data_to_served_s, the baseline and
-   device memory. Gates: 0 failed requests, generation 2, the engine
-   bit-equal to a cold engine of the final state on 4,096 requests; #1
-   (3r-loop), #4 and #5 (3r-e2e) launched.
+   device memory. Gates: 0 failed requests, generation R_E2E_ROUNDS, the
+   engine bit-equal to a cold engine of the final state on 4,096
+   requests; #1 (3r-loop), #4 and #5 (3r-e2e) launched.
 3c. The drivers at full width on phase 3e's Avro files (kept until 3c
    ends): `photon_ml_tpu_torch.cli.train.main` with the e2e cell's
    coordinates as DSL strings (one sweep, output mode BEST), then
@@ -291,7 +313,9 @@ The off-heap index stores and hyperparameter tuning, on phase 3e's files
 3m. Multi-host training (cli/train_multihost.py, parallel/hostmesh.py,
    the checkpoint on ranks): 3e's 4,000,000 rows regenerated and written
    as 8 part files in row order, a PHIDX store of them (cli.build_index),
-   and 3c's coordinates with IDENTITY projectors, two sweeps,
+   and 3c's coordinates with IDENTITY projectors and the random effects
+   at tolerance 0 (every lane takes its 5 iterations, so a stop that the
+   ranks' last bits tip cannot part the two fits), two sweeps,
    checkpointed. One process's cli.train on the card first; then
    `cli.train --multihost 4 --device cuda:0`, four worker processes
    sharing the card over gloo (each decodes its 2 files, the row planes
@@ -549,7 +573,7 @@ lint. photon-lint over the port (photon_ml_tpu_torch/analysis/), in this
    no kernel.
 
 The kernels' launch counts are set to 0 just before each path (phases 3-4,
-3s, 4s, 3e, 3f, 3r, 5f's card fits, 3c's two drivers, 5c's card runs, each run
+3s, 4s, 3e, 3f, 3e-w, 3r, 5f's card fits, 3c's two drivers, 5c's card runs, each run
 of 3o, 3k, 3g and 5g's card runs, each driver of 3x and 3t, 3w's bench
 sweep and its cli.tune run, 3w-sg's group trials, 3v's engine path, 3q's reads and 3mv's
 emulation in this process, each worker of 3mv's runs from its start,
@@ -593,6 +617,9 @@ SPARSE_REPLACES = {"sparse_fused": "photon_ml_tpu/ops/pallas_sparse.py:690",
 # Kernel #3: #1/#2 on each rank's rows and one exact cross-rank sum.
 DIST_REPLACES = {"sharded_value_grad": "photon_ml_tpu/ops/pallas_glm.py:705",
                  "sharded_hvp": "photon_ml_tpu/ops/pallas_glm.py:746"}
+# The ELL transposes of a random effect's block: no TPU kernel; the reference's
+# SparseFeatures.rmatvec (XLA's scatter-add), vmapped per lane.
+ELL_REPLACES = "photon_ml_tpu/data/containers.py:73"
 
 # Data-sheet rates (memory bytes/s, float32 FMA-pipe operations/s) by card,
 # matched on the name nvidia-smi and torch report. SXM is the H100 default.
@@ -1276,22 +1303,23 @@ E2E_TAGS = ["userId", "movieId"]
 E2E_RE = {"per-user": ("userId", 256), "per-movie": ("movieId", 512)}  # tag, active_upper_bound
 
 
-def e2e_arrays(rows: int, seed: int = 23, n_users=None, n_movies=None, truth=None):
+def e2e_arrays(rows: int, seed: int = 23, n_users=None, n_movies=None, truth=None, dim: int = E2E_D):
     """bench.py's e2e generator (bench.py:4662-4685), in numpy: per-user and
-    per-movie structure in the labels, 8 uniform ids a row over dim 200.
-    The entity counts default to the bench's (rows // 145, rows // 740).
-    `truth` (the `truth` of another draw: weights, user and movie effects)
-    labels new rows by that draw's model, for a validation file."""
+    per-movie structure in the labels, 8 uniform ids a row over dim 200
+    (`dim`: phase 3e-w's wide shard). The entity counts default to the
+    bench's (rows // 145, rows // 740). `truth` (the `truth` of another
+    draw: weights, user and movie effects) labels new rows by that draw's
+    model, for a validation file."""
     n_users = max(200, rows // 145) if n_users is None else n_users
     n_movies = max(50, rows // 740) if n_movies is None else n_movies
     rng = np.random.default_rng(seed)
     users = rng.integers(0, n_users, size=rows)
     movies = rng.integers(0, n_movies, size=rows)
     indptr = np.arange(rows + 1, dtype=np.int64) * E2E_K
-    ids = rng.integers(0, E2E_D, size=rows * E2E_K).astype(np.int32)
+    ids = rng.integers(0, dim, size=rows * E2E_K).astype(np.int32)
     vals = rng.normal(size=rows * E2E_K)
     if truth is None:
-        w_true = rng.normal(size=E2E_D) * 0.3
+        w_true = rng.normal(size=dim) * 0.3
         truth = (w_true, rng.normal(size=n_users), rng.normal(size=n_movies))
     w_true, user_eff, movie_eff = truth
     margin = ((vals * w_true[ids]).reshape(rows, E2E_K).sum(axis=1)
@@ -1423,6 +1451,236 @@ def small_e2e_fit(ds, mask_ratio=None) -> dict:
                     else red.owned_entities.cpu()) for c, red in reds.items()})
 
 
+def ell_kernel_check(blk, dev, seed: int, bw: float, f32_rate: float, phase: str, dense: bool):
+    """The ELL transposes' kernel (ops/ell_kernels.py, csrc/ell_block.cu) on
+    one random-effect block of the main path (`blk`: gather_block_data's
+    LabeledData, whose features carry the transpose plan): X^T u and
+    (X o X)^T u, u random on the block's live rows (weight != 0) and 0
+    elsewhere, as every u of the objective is. Each is called twice
+    (bit-identical), held against the plain version on float64 copies under
+    PORT_TOLERANCES["sparse_kernel_vs_plain"] and, bit for bit, against the
+    float32 plain version on the CPU (scatter_add_ there adds in the
+    kernel's (k, s) order); timed beside the plain version on the card
+    (atomic order), one index_add_ call over the entries' terms (library_ms;
+    the port never calls it), the batched torch route the kernel stands in
+    for (the plan's entries gathered in order, torch.segment_reduce, the
+    sums written to their cells; two calls bit-identical or not) and, with
+    `dense`, the einsum of the dense route it replaced, on the block made
+    dense. The bound: each live entry's 4-byte index and value and each row's
+    u read once, the (E, D) output written once. Returns (rows by kernel
+    name, failures)."""
+    import torch
+
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.containers import SparseFeatures, ell_block_to_dense
+    from photon_ml_tpu_torch.ops import ell_kernels
+
+    tol = PORT_TOLERANCES["sparse_kernel_vs_plain"]["scale_rel"]
+    block, plan = blk.features, blk.features.plan
+    E, S, K = plan.shape
+    D = block.dim
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn(E, S, generator=gen, device=dev) * (blk.weights != 0)
+    cpu_block = SparseFeatures(block.indices.cpu(), block.values.cpu(), D)
+    block64 = SparseFeatures(block.indices, block.values.double(), D)
+    cells = (torch.arange(E, device=dev)[:, None, None] * D + block.indices.long()).reshape(-1)
+    order, ptr, run_out = plan.order.long(), plan.run_ptr.long(), plan.run_out
+    dense_x = ell_block_to_dense(block) if dense else None
+    entries = int(plan.order.numel())
+    rows, failures = {}, []
+    for square in (False, True):
+        name = "ell_rmatvec_square" if square else "ell_rmatvec"
+        v = block.values * block.values if square else block.values
+        terms = (v * u[..., None]).reshape(-1)
+        out = torch.zeros(E * D, device=dev)
+
+        def run_torch_route():
+            x = v.reshape(-1)[order] * u.reshape(-1)[order // K]
+            res = torch.zeros(E * D, device=dev)
+            res[run_out] = torch.segment_reduce(x, "sum", offsets=ptr, unsafe=True)
+            return res.view(E, D)
+
+        run_k = lambda: ell_kernels.rmatvec(block, u, square=square)
+        run_p = lambda: ell_kernels.rmatvec_plain(block, u, square)
+        got, again = run_k(), run_k()
+        ref = ell_kernels.rmatvec_plain(block64, u.double(), square)
+        cpu_plain = ell_kernels.rmatvec_plain(cpu_block, u.cpu(), square)
+        route_a, route_b = run_torch_route(), run_torch_route()
+        torch.cuda.synchronize()
+        max_abs, rel = compare((got,), (ref,))
+        same = torch.equal(got, again)
+        cpu_bits = torch.equal(got.cpu(), cpu_plain)
+        t_bytes = (entries * 8 + E * S * 4 + E * D * 4) / bw * 1e3
+        t_ops = (3 if square else 2) * entries / f32_rate * 1e3
+        row = dict(phase=phase, kernel=name, lanes=E, rows_a_lane=S, k=K, dim=D, entries=entries,
+                   live_rows=int((blk.weights != 0).sum()), runs=plan.runs, plan_mib=plan.nbytes() / 2**20,
+                   max_abs_err=max_abs, scale_rel_err=rel, tol_scale_rel=tol, bit_identical=same,
+                   bit_equal_to_cpu_plain=cpu_bits,
+                   torch_route_bit_identical=torch.equal(route_a, route_b),
+                   torch_route_scale_rel_err=compare((route_a,), (ref,))[1])
+        k_ms = [time_ms(torch, turn) for turn in (run_k, run_torch_route, run_torch_route, run_k)]
+        row.update(kernel_ms=min(k_ms[0], k_ms[3]), torch_route_ms=min(k_ms[1], k_ms[2]), turns_ms=k_ms,
+                   plain_ms=time_ms(torch, run_p),
+                   library_ms=time_ms(torch, lambda: out.zero_().index_add_(0, cells, terms)),
+                   bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        if dense:
+            dx = dense_x * dense_x if square else dense_x
+            row["dense_einsum_ms"] = time_ms(torch, lambda: torch.einsum("es,esd->ed", u, dx))
+            row["dense_block_gib"] = dense_x.numel() * 4 / 2**30
+            del dx
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        log(json.dumps(row))
+        rows[name] = row
+        if not (rel <= tol and same and cpu_bits):
+            failures.append(f"{phase} {name}: rel err {rel:.3e} (limit {tol}), two calls equal {same}, "
+                            f"bit-equal to the CPU's plain version {cpu_bits}")
+    return rows, failures
+
+
+# ---------------------------------------------------------------- phase 3e-w
+#
+# 3e's cell over a wide shard: bench.py's e2e generator with 8 ids a row over
+# 16,384 (the sparse fixed effect's width, phases 2s-4s) instead of 200,
+# built in memory (no Avro write), at E2E_ROWS rows, through GameEstimator
+# with INDEX_MAP. A random effect's largest chunk made dense would take tens
+# of GB; the coordinate solves it on its (E, S, K) ELL block.
+
+WIDE_D = 16_384
+
+
+def wide_e2e_dataset(rows: int, dev, seed: int = 23, **kw):
+    """e2e_arrays at dim WIDE_D as a GameDataset on `dev`: shard "g" (the 8
+    ids, duplicates summed, and the intercept: dim WIDE_D + 1), userId and
+    movieId tags."""
+    from photon_ml_tpu_torch.data.containers import pack_csr_to_ell
+    from photon_ml_tpu_torch.data.game_dataset import GameDataset
+
+    a = e2e_arrays(rows, seed=seed, dim=WIDE_D, **kw)
+    sf = pack_csr_to_ell(a["indptr"], a["ids"], a["vals"], WIDE_D + 1, extra_col=(WIDE_D, 1.0))
+    return GameDataset.build({"g": sf}, a["labels"], id_tags={"userId": a["users"], "movieId": a["movies"]},
+                             device=dev)
+
+
+def wide_fit(ds, cfgs):
+    """The e2e estimator (INDEX_MAP) fit once on `ds`: (estimator, result,
+    scores, AUC)."""
+    from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
+    from photon_ml_tpu_torch.transformers.game_transformer import GameTransformer
+    from photon_ml_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    est = e2e_estimator(task)
+    res = est.fit(ds, None, [cfgs])[0]
+    specs = est.scoring_specs()
+    scores = GameTransformer(res.model, specs, task).transform(ds, est.training_prepared()).scores
+    return est, res, scores, float(area_under_roc_curve(scores, ds.labels))
+
+
+def wide_e2e_phase(seed: int, dev, bw: float, f32_rate: float) -> dict:
+    """Phase 3e-w: the fit (counted), each random effect's D_proj and its
+    largest chunk's ELL bytes beside the dense bytes it would take, peak
+    memory, the sweep by coordinate, the launches, AUC; a second fit whose
+    random effects must be bit-identical to the first's; the ELL kernel on
+    per-user's largest chunk (`ell_kernel_check`); then a small fit (12,000
+    rows, 80 users, 16 movies, same width) on the card and on the CPU within
+    PORT_TOLERANCES["glmix"]. Returns the launches by kernel and the kernel
+    check's rows."""
+    import torch
+
+    from photon_ml_tpu_torch.contracts import PORT_TOLERANCES
+    from photon_ml_tpu_torch.data.game_dataset import gather_block_data
+    from photon_ml_tpu_torch.ops import ell_kernels, glm_kernels
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+
+    fe_cfg, re_cfg = e2e_configs()
+    cfgs = {"global": fe_cfg, **{c: re_cfg for c in E2E_RE}}
+    t0 = time.perf_counter()
+    ds = wide_e2e_dataset(E2E_ROWS, dev)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    glm_kernels.reset_launch_counts()
+    ell_kernels.reset_launch_counts()  # phase 3e-w starts here
+    t0 = time.perf_counter()
+    est, res, scores, auc = wide_fit(ds, cfgs)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, dense_launches = dict(sk.LAUNCHES), dict(glm_kernels.LAUNCHES)
+    ell_launches = dict(ell_kernels.LAUNCHES)  # phase 3e-w ends here
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ft = dict(est.fit_timing)
+    coords = {}
+    for cid in E2E_RE:
+        prep = est._prepared[cid]
+        red, feats = prep.re_dataset, ds.shards[prep.shard]
+        big = max(red.buckets, key=lambda b: b.num_entities * b.capacity)
+        cells, k = big.num_entities * big.capacity, int(feats.indices.shape[-1])
+        d_proj = prep.projector.projected_dim
+        coords[cid] = dict(d_proj=d_proj, entities=red.num_entities,
+                           buckets=[[b.num_entities, b.capacity] for b in red.buckets],
+                           largest_chunk_cells=cells, largest_chunk_ell_mib=cells * k * 8 / 2**20,
+                           largest_chunk_dense_mib=cells * d_proj * 4 / 2**20)
+    # A second fit on the same estimator (prepare's views reused): every
+    # random effect's solve again, which must give the same bits.
+    t0 = time.perf_counter()
+    refit = est.fit(ds, None, [cfgs])[0]
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    rerun_equal = {c: torch.equal(refit.model[c].coefficients_matrix, res.model[c].coefficients_matrix)
+                   for c in E2E_RE}
+    rerun_equal["global"] = torch.equal(refit.model["global"].coefficients.means,
+                                        res.model["global"].coefficients.means)
+    log(json.dumps(dict(
+        phase="3e-w", rows=E2E_ROWS, dim=WIDE_D + 1, data_s=data_s, fit_wall_s=fit_s,
+        prepare_s=ft["prepare_s"], solve_s=ft["solve_s"], sweep_by_coordinate=res.timing,
+        refit_wall_s=refit_s, refit_sweep_by_coordinate=refit.timing, coordinates=coords, train_auc=auc,
+        launches=launches, ell_launches=ell_launches, dense_launches=dense_launches, peak_mem_gib=peak_gib,
+        rerun_bit_identical=rerun_equal, card=card_line())))
+    failures = []
+    if not all(rerun_equal.values()):
+        failures.append(f"a second fit differs: {rerun_equal}")
+    if not ell_launches["ell_rmatvec"] or not launches["sparse_fused"] or any(dense_launches.values()):
+        failures.append(f"launches {ell_launches} {launches}, dense {dense_launches}")
+    if not bool(torch.isfinite(scores).all()) or scores.shape != (E2E_ROWS,) or not auc > 0.5:
+        failures.append(f"scores not finite (N,) values, or training AUC {auc} not above 0.5")
+    # The kernel on per-user's largest chunk, as the coordinate gathers it.
+    prep = est._prepared["per-user"]
+    big = max(prep.re_dataset.buckets, key=lambda b: b.num_entities * b.capacity)
+    del refit, scores
+    torch.cuda.empty_cache()
+    rows, bad = ell_kernel_check(gather_block_data(ds, prep.shard, big), dev, seed + 35, bw, f32_rate,
+                                 "3e-w", dense=False)
+    failures += bad
+    del est, res, ds, prep, big
+    gc.collect()
+    torch.cuda.empty_cache()
+    # A small fit at the same width, card against CPU.
+    tol = PORT_TOLERANCES["glmix"]
+    fits = {}
+    for where in ("cuda", "cpu"):
+        d = wide_e2e_dataset(12000, torch.device(where), seed=seed + 45, n_users=80, n_movies=16)
+        e, r, sc, a = wide_fit(d, cfgs)
+        fits[where] = dict(fe=r.model["global"].coefficients.means.cpu(), scores=sc.cpu(), auc=a,
+                           re={c: r.model[c].coefficients_matrix.cpu() for c in E2E_RE},
+                           d_proj={c: e._prepared[c].projector.projected_dim for c in E2E_RE})
+    card, cpu = fits["cuda"], fits["cpu"]
+    row = dict(phase="5e-w", fe_coef_err=float((card["fe"] - cpu["fe"]).abs().max()),
+               re_coef_err={c: float((card["re"][c] - cpu["re"][c]).abs().max()) for c in E2E_RE},
+               score_err=float((card["scores"] - cpu["scores"]).abs().max()),
+               auc_card=card["auc"], auc_cpu=cpu["auc"], d_proj=card["d_proj"], tol=tol)
+    row["ok"] = (card["d_proj"] == cpu["d_proj"] and row["fe_coef_err"] <= tol["coef_atol"]
+                 and max(row["re_coef_err"].values()) <= tol["coef_atol"]
+                 and row["score_err"] <= tol["score_atol"]
+                 and abs(card["auc"] - cpu["auc"]) <= tol["auc_atol"])
+    log(json.dumps(row))
+    if not row["ok"]:
+        failures.append("the card's small wide fit is not within PORT_TOLERANCES['glmix'] of the CPU's")
+    if failures:
+        raise SystemExit("phase 3e-w failed: " + "; ".join(failures))
+    return {"sparse": launches, "ell": ell_launches, "rows": rows}
+
+
 # ---------------------------------------------------------------- phase 3r
 # Continuous refresh (game/incremental.py, serving/delta.py). 3r-loop is the
 # reference bench's certificate at its shape (bench.py:1419-1646) on one card;
@@ -1435,7 +1693,7 @@ R_CPU_CUT = 16  # 3r-loop's card-vs-CPU check runs at 1/16 of the entities
 R_E2E_BATCH = 40_000  # 3r-e2e: rows a round (1% of 3e's)
 R_E2E_POOL = 2_000  # 3e's users a round's rows come from, plus R_E2E_NEW new ones
 R_E2E_NEW = 16
-R_E2E_ROUNDS = 2
+R_E2E_ROUNDS = 1  # cut from 2 for 3e-w's time
 R_E2E_CHECK = 4_096  # requests held against a cold engine of the final state
 
 
@@ -1748,9 +2006,9 @@ def e2e_requests(ds, n: int, seed: int):
 
 
 def refresh_e2e_phase(ds, maps, truth, n_users: int, n_movies: int, dev) -> dict:
-    """3r-e2e: 3e's cell refreshed twice at full width into a live engine
-    under replay (the module docstring); each round's batch is an Avro file
-    read through 3e's index maps."""
+    """3r-e2e: 3e's cell refreshed R_E2E_ROUNDS times at full width into a
+    live engine under replay (the module docstring); each round's batch is
+    an Avro file read through 3e's index maps."""
     import os
     import tempfile
 
@@ -1901,7 +2159,7 @@ def refresh_phase(ds, maps, truth, n_users: int, n_movies: int, dev) -> dict:
 def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     """Phases 2e, 3e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3o's e2e part, 3g, 3x,
     3x-scale, 3m, 3t, 3w, 3v, 3v-sh, 3q, 3mv, 3n, 3p and 5e (`dense`: phase 3's arrays and model, for 3v). Returns
-    (phase 2e rows by kernel, the sparse launches by kernel of each path)."""
+    (phase 2e rows by kernel, 3e's ELL kernel rows, the launches by kernel of each path)."""
     import os
     import tempfile
 
@@ -1911,8 +2169,9 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     from photon_ml_tpu_torch.data.containers import SparseFeatures
     from photon_ml_tpu_torch.data.sparse_layout import from_ell
     from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+    from photon_ml_tpu_torch.data.game_dataset import gather_block_data
     from photon_ml_tpu_torch.io import model_bridge
-    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import ell_kernels, glm_kernels
     from photon_ml_tpu_torch.ops import sparse_kernels as sk
     from photon_ml_tpu_torch.ops.losses import LOGISTIC
     from photon_ml_tpu_torch.types import TaskType
@@ -1999,6 +2258,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launch_counts()
+    ell_kernels.reset_launch_counts()
     glm_kernels.reset_launch_counts()  # phase 3e starts here
     t0 = time.perf_counter()
     result = run_coordinate_descent(coords, 1)
@@ -2009,6 +2269,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     scores, auc = phase3e["scores"], phase3e["auc"]
     score_auc_s = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)  # phase 3e ends here
+    ell_launches = dict(ell_kernels.LAUNCHES)
     dense_launches = dict(glm_kernels.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     fe_res = result.train_stats["global"]
@@ -2023,7 +2284,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
         re_active_passive={c: (coords[c].re_dataset.num_active_samples,
                                coords[c].re_dataset.num_passive_samples) for c in E2E_RE},
         re_entities={c: coords[c].re_dataset.num_entities for c in E2E_RE},
-        train_auc=auc, launches=launches, dense_launches=dense_launches,
+        train_auc=auc, launches=launches, ell_launches=ell_launches, dense_launches=dense_launches,
         peak_mem_gib=peak_gib,
         layout_mib=layout.nbytes() / 2**20,
         ell_mib=(shard.indices.numel() * 4 + shard.values.numel() * 4) / 2**20)))
@@ -2032,15 +2293,23 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     if launches["sparse_fused"] != int(fe_res.fn_evals) or launches["sparse_fused"] == 0:
         raise SystemExit(f"phase 3e: {launches['sparse_fused']} sparse_fused launches for "
                          f"{int(fe_res.fn_evals)} fixed-effect objective evaluations")
-    if launches["sparse_matvec"] == 0 or any(dense_launches.values()):
-        raise SystemExit(f"phase 3e: no sparse_matvec launch, or a dense kernel ran "
-                         f"({launches}, {dense_launches})")
+    if launches["sparse_matvec"] == 0 or not ell_launches["ell_rmatvec"] or any(dense_launches.values()):
+        raise SystemExit(f"phase 3e: no sparse_matvec or ell_rmatvec launch, or a dense kernel ran "
+                         f"({launches}, {ell_launches}, {dense_launches})")
     if not auc > 0.5:
         raise SystemExit(f"phase 3e: training AUC {auc} is not above 0.5")
     # Where the sweep's device time goes (after the counted run).
     log(json.dumps(dict(phase="3e-b", **profile_sweep(coords, sweep_s))))
+    # The ELL transposes' kernel on per-user's largest chunk, beside the
+    # dense route's einsum on the same block made dense.
+    red = coords["per-user"].re_dataset
+    big = max(red.buckets, key=lambda b: b.num_entities * b.capacity)
+    ell_rows, failures = ell_kernel_check(gather_block_data(ds, "g", big), dev, seed + 34, bw, f32_rate,
+                                          "3e", dense=True)
+    if failures:
+        raise SystemExit("phase 3e failed: " + "; ".join(failures))
     phase3e["launches"] = launches
-    del coords, result, scores, layout
+    del coords, result, scores, layout, red, big
     torch.cuda.empty_cache()
     launches3ed = walled("phases 3e-d, 5e-d", e2e_rank_phases, root, seed, ds, phase3e)
     del phase3e["scores"], phase3e["re_offsets"]
@@ -2086,7 +2355,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
     ref_tol = PORT_TOLERANCES["card_vs_cpu_glmix"]
     limit = ref_tol["re_objective_rtol"]
     failures = []
-    for s in (seed + 41, seed + 42):
+    for s in (seed + 41,):  # a second seed, seed + 42, cut for 3e-w's time
         small = e2e_arrays(12000, seed=s, n_users=80, n_movies=16)  # ~150 and ~750 rows an entity
         with tempfile.TemporaryDirectory(prefix="photon-e2e-small-") as root:
             write_e2e_files(root, small)
@@ -2112,7 +2381,7 @@ def e2e_phases(seed: int, dev, bw: float, f32_rate: float, dense: dict):
             failures.append(f"seed {s}: the card's small e2e fit disagrees with the CPU's")
     if failures:
         raise SystemExit("phase 5e failed: " + "; ".join(failures))
-    return rows2e, {"3e": launches,
+    return rows2e, ell_rows, {"3e": launches, "3e-ell": ell_launches,
                     "3e-d": launches3ed, "3f": launches3f, "3c": launches3c,
                     "3k": launches3k, "3g": launches3g, "3j": launches3j, "3x": launches3x, "3t": launches3t,
                     "3w": launches3w, "3v": launches3v, "3v-sh": launches3vsh, "3m": launches3m,
@@ -4730,7 +4999,7 @@ def estimator_e2e_phase(ds, phase3e: dict):
     from photon_ml_tpu_torch.data.game_dataset import entity_layout
     from photon_ml_tpu_torch.evaluation.metrics import area_under_roc_curve
     from photon_ml_tpu_torch.game.projector import IndexMapProjector
-    from photon_ml_tpu_torch.ops import glm_kernels
+    from photon_ml_tpu_torch.ops import ell_kernels, glm_kernels
     from photon_ml_tpu_torch.ops import sparse_kernels as sk
     from photon_ml_tpu_torch.ops.losses import LOGISTIC
     from photon_ml_tpu_torch.transformers.game_transformer import GameTransformer
@@ -4743,6 +5012,7 @@ def estimator_e2e_phase(ds, phase3e: dict):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sk.reset_launch_counts()
+    ell_kernels.reset_launch_counts()
     glm_kernels.reset_launch_counts()  # phase 3f starts here
     t0 = time.perf_counter()
     est = e2e_estimator(task)
@@ -4755,6 +5025,7 @@ def estimator_e2e_phase(ds, phase3e: dict):
     auc = float(area_under_roc_curve(scores, ds.labels))
     score_auc_s = time.perf_counter() - t0
     launches = dict(sk.LAUNCHES)  # phase 3f ends here
+    ell_launches = dict(ell_kernels.LAUNCHES)
     dense_launches = dict(glm_kernels.LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     ft = dict(est.fit_timing)
@@ -4783,7 +5054,8 @@ def estimator_e2e_phase(ds, phase3e: dict):
         phase="3f", rows=E2E_ROWS, fit_wall_s=fit_s, score_auc_s=score_auc_s,
         fit_timing={k: v for k, v in ft.items()}, stage_sum_s=sum(ft[k] for k in PREPARE_STAGES),
         sweep_by_coordinate=res.timing, coordinates=coords, train_auc=auc, auc_3e=phase3e["auc"],
-        launches=launches, launches_3e=phase3e["launches"], dense_launches=dense_launches,
+        launches=launches, launches_3e=phase3e["launches"], ell_launches=ell_launches,
+        dense_launches=dense_launches,
         peak_mem_gib=peak_gib, new_shards=sorted(set(ds.shards) - shards_before))))
     failures = []
     if ft["re_path"] != "device" or ft["re_host_s"] != 0.0 or not ft["re_device_s"] > 0:
@@ -4795,9 +5067,10 @@ def estimator_e2e_phase(ds, phase3e: dict):
         failures.append(f"the fixed effect is not bit-equal to phase 3e's (max diff {d:.3e})")
     if abs(auc - phase3e["auc"]) > 1e-4:
         failures.append(f"training AUC {auc} is not within 1e-4 of phase 3e's {phase3e['auc']}")
-    if launches["sparse_fused"] != phase3e["launches"]["sparse_fused"] or any(dense_launches.values()):
-        failures.append(f"launches {launches} / dense {dense_launches} against phase 3e's "
-                        f"{phase3e['launches']}")
+    if (launches["sparse_fused"] != phase3e["launches"]["sparse_fused"] or any(dense_launches.values())
+            or not ell_launches["ell_rmatvec"]):
+        failures.append(f"launches {launches} / ell {ell_launches} / dense {dense_launches} against "
+                        f"phase 3e's {phase3e['launches']}")
     if not bool(torch.isfinite(scores).all()) or scores.shape != (E2E_ROWS,):
         failures.append("scores are not finite (N,) values")
     # The random effects against phase 3e's (identity projection, same data
@@ -4838,7 +5111,7 @@ def estimator_e2e_phase(ds, phase3e: dict):
     if failures:
         raise SystemExit("phase 3f failed: " + "; ".join(failures))
     fit = dict(model=res.model, specs=est.scoring_specs(), scores=scores.cpu(), auc=auc)
-    return {"sparse": launches, "dense": dense_launches}, fit
+    return {"sparse": launches, "dense": dense_launches, "ell": ell_launches}, fit
 
 
 # ------------------------------------------------------------- phases 3c and 5c
@@ -5957,12 +6230,20 @@ MH_PARTS = 8  # 3m: 3e's rows as 8 part files in row order (2 a rank)
 MH_KILL_AT_STEP = 3  # 3m's drill: a worker is killed once state.json shows this step committed
 MH_KILLED = 2  # the worker the drill kills
 # 3c's coordinates with the IDENTITY projector the multi-host scope requires.
-MH_COORDINATES = [c + ",projector=IDENTITY" if "random.effect" in c else c for c in E2E_COORDINATES]
+# 3c's coordinates with IDENTITY projectors, and the random effects at
+# tolerance 0, so each lane takes the bench's 5 iterations in one process
+# and on the ranks alike. At 1e-5 a warm-started lane stops once a step
+# gains under 1e-5 of its objective, which the ranks' last bits can tip
+# either way, leaving one run's lane iterations short of the other's
+# (ROADMAP, stopping noise).
+MH_COORDINATES = [c.replace("tolerance=1e-5", "tolerance=0.0") + ",projector=IDENTITY"
+                  if "random.effect" in c else c for c in E2E_COORDINATES]
 
 
 def multihost_args(data: str, index: str, out: str, *extra) -> list:
-    """3m's cli.train command line: 3c's coordinates (IDENTITY projectors),
-    two sweeps, through the PHIDX store, checkpointed under `out`/ckpt."""
+    """3m's cli.train command line: 3c's coordinates (IDENTITY projectors,
+    the random effects at tolerance 0: MH_COORDINATES), two sweeps,
+    through the PHIDX store, checkpointed under `out`/ckpt."""
     import os
 
     return ["--training-task", "LOGISTIC_REGRESSION", "--input-data-directories", data,
@@ -6629,12 +6910,14 @@ def re_lane_check(coord, offsets, cfg) -> dict:
     of 3-lane slices at odd offsets (1, 5, 9, 13) in place
     (parallel/mesh.py `lanes_in_place`, as a shard group's card solves
     them): the live lanes whose coefficients differ from the whole bucket's
-    (0 is the gate). Beside it, not gated, the same slices solved alone
-    (each cut out of the block), which shows what the in-place solve is
-    for: a library's batched product picks its kernel from the batch."""
+    (0 is the gate). Every solve runs on the route the coordinate takes: a
+    sparse shard's block stays an ELL block. Beside it, not gated, the same
+    slices solved alone (each cut out of the block), which shows what the
+    in-place solve is for: a library's batched product picks its kernel
+    from the batch."""
     import torch
 
-    from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures, ell_block_to_dense
+    from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures
     from photon_ml_tpu_torch.data.game_dataset import gather_block_data
     from photon_ml_tpu_torch.optimize import problem
     from photon_ml_tpu_torch.parallel.mesh import lanes_in_place
@@ -6644,10 +6927,7 @@ def re_lane_check(coord, offsets, cfg) -> dict:
     bucket = red.buckets[bi]
 
     def block_of(blocks):
-        blk = gather_block_data(coord.dataset, red.feature_shard, blocks, offsets, red.feature_mask)
-        if isinstance(blk.features, SparseFeatures):
-            blk = LabeledData(ell_block_to_dense(blk.features), blk.labels, blk.offsets, blk.weights)
-        return blk
+        return gather_block_data(coord.dataset, red.feature_shard, blocks, offsets, red.feature_mask)
 
     blk = block_of(bucket)
     E = int(blk.features.shape[0])
@@ -6657,7 +6937,9 @@ def re_lane_check(coord, offsets, cfg) -> dict:
         return problem.solve(coord.loss, b, cfg, w0[lo:hi].clone(), None, use_kernel=False).coefficients
 
     def alone(lo, hi):
-        part = LabeledData(*(t[lo:hi].clone() for t in (blk.features, blk.labels, blk.offsets, blk.weights)))
+        feats = blk.features
+        feats = feats.lanes(lo, hi) if isinstance(feats, SparseFeatures) else feats[lo:hi].clone()
+        part = LabeledData(feats, *(t[lo:hi].clone() for t in (blk.labels, blk.offsets, blk.weights)))
         return solve(part, lo, hi)
 
     def in_place(lo, hi):
@@ -7589,7 +7871,7 @@ def main(argv=None) -> int:
     )
     from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
     from photon_ml_tpu_torch.native import build as native_build
-    from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
+    from photon_ml_tpu_torch.ops import cuda_build, ell_kernels, glm_kernels, sparse_kernels
     from photon_ml_tpu_torch.ops.losses import LOGISTIC, POISSON, SMOOTHED_HINGE, SQUARED
     from photon_ml_tpu_torch.parallel import mesh as pmesh
     from photon_ml_tpu_torch.types import TaskType
@@ -7618,7 +7900,7 @@ def main(argv=None) -> int:
         builds[path.name] = (path, time.perf_counter() - t, "")
 
     threads = [threading.Thread(target=build, args=(src,), name=f"build-{src.name}")
-               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE)]
+               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE, ell_kernels.SOURCE)]
     threads.append(threading.Thread(target=build_native, name="build-native"))
     t0 = time.perf_counter()
     for t in threads:
@@ -7853,10 +8135,12 @@ def main(argv=None) -> int:
     sparse_rows, sparse_launches = walled("phases 2s-5s", sparse_phases, args.seed, dev, bw, f32_rate)
 
     # ---- phases 2e-5e, 3f and 3c: the e2e cell from Avro files ----------------------
-    e2e_rows, e2e_launches = walled("phases 2e-5e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3g, 3j, 3x, 3m, 3t, 3w, 3v, "
-                                    "3v-sh, 3q, 3mv, 3n, 3n-ladder, 3p",
-                                    e2e_phases, args.seed, dev,
-                                    bw, f32_rate, dict(arrays=arrays, phase3=phase3))
+    e2e_rows, e2e_ell_rows, e2e_launches = walled(
+        "phases 2e-5e, 3e-d, 5e-d, 3f, 3r, 3c, 3k, 5k, 3g, 3j, 3x, 3m, 3t, 3w, 3v, 3v-sh, 3q, 3mv, 3n, "
+        "3n-ladder, 3p", e2e_phases, args.seed, dev, bw, f32_rate, dict(arrays=arrays, phase3=phase3))
+
+    # ---- phase 3e-w: 3e's cell over a 16,384-wide shard ------------------------------
+    wide = walled("phase 3e-w", wide_e2e_phase, args.seed, dev, bw, f32_rate)
 
     # ---- phase 5f: small estimator fits, card vs CPU --------------------------------
     small_launches = walled("phase 5f", estimator_small_phase, args.seed + 51)
@@ -7967,6 +8251,20 @@ def main(argv=None) -> int:
              **dist_rows[k])
         for k in DIST_REPLACES
     ]
+    # The ELL transposes of a random effect's block (port only): launched in
+    # 3e, 3f and 3e-w (each counted from 0); times on 3e's per-user chunk,
+    # 3e-w's beside.
+    ell_by_phase = {"3e": e2e_launches["3e-ell"]["ell_rmatvec"],
+                    "3f": e2e_launches["3f"]["ell"]["ell_rmatvec"], "3e-w": wide["ell"]["ell_rmatvec"]}
+    fields = ("max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    row3e = e2e_ell_rows["ell_rmatvec"]
+    kernels.append(dict(
+        name="ell_rmatvec", route="cuda", source="photon_ml_tpu_torch/csrc/ell_block.cu",
+        replaces=ELL_REPLACES, launches=sum(ell_by_phase.values()), launches_by_phase=ell_by_phase,
+        max_abs_err=row3e["max_abs_err"], ms=row3e["kernel_ms"], plain_ms=row3e["plain_ms"],
+        bound_ms=row3e["bound_ms"], bound_by=row3e["bound_by"], library_ms=row3e["library_ms"],
+        dense_einsum_ms=row3e["dense_einsum_ms"], torch_route_ms=row3e["torch_route_ms"],
+        wide_shape={f: wide["rows"]["ell_rmatvec"][f] for f in fields + ("torch_route_ms",)}))
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

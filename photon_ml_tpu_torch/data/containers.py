@@ -9,12 +9,17 @@ features and (E, S) vectors.
 
 Sparse features are `SparseFeatures`, the padded ELL layout (N, K): row r
 holds features indices[r, k] with values values[r, k]; padding entries have
-value 0 and index 0. It is how a sparse shard is handed in and stored; the
-objective on the card runs on the sparse layout built from it
-(data/sparse_layout.py). Only the standard (N, K) plane layout is ported
+value 0 and index 0. It is how a sparse shard is handed in and stored; a
+fixed effect's objective on the card runs on the sparse layout built from
+it (data/sparse_layout.py). Only the standard (N, K) plane layout is ported
 (`ell_axis=-1`). A random-effect bucket of a sparse shard is an (E, S, K)
-block of the same planes, which `ell_block_to_dense` makes dense for the
-batched solve.
+block of the same planes, one lane an entity, and its solve runs on that
+block as the reference's does, lane by lane: X w is a gather and a sum over
+K on any device; X^T u and (X o X)^T u are ops/ell_kernels.py's kernel on
+the card, over the block's transpose plan (`ell_transpose_plan`, built once
+per block), and its plain version on the CPU. The block is made dense
+(`ell_block_to_dense`) only where the reference densifies it: FULL
+variances' Hessians, a chunk of lanes at a time.
 """
 
 from __future__ import annotations
@@ -45,43 +50,76 @@ def _plain_only(t: Tensor, what: str) -> None:
 class SparseFeatures:
     """Padded ELL sparse matrix: row r has features indices[r, k] -> values[r, k].
 
-    Duplicate indices within a row are summed by every consumer (they are
-    linear in the entries), so hand-built planes may carry them; the
-    squared product `sq_rmatvec` squares each entry as stored. The
-    products here are the plain versions (gather, and `index_add_` for the
-    transposes) and run on CPU tensors only."""
+    Planes (N, K) are a shard: their products here are the plain versions
+    (gather, and `index_add_` for the transposes) and run on CPU tensors
+    only; on the card a shard's products run on its sparse layout. Planes
+    (E, S, K) are a random-effect block, E problems of S rows: `matvec`
+    takes w (E, D) and runs on any device (a gather and a sum over K), and
+    the transposes give (E, D), by ops/ell_kernels.py (the kernel over
+    `plan` on the card, the plain version on the CPU).
 
-    indices: Tensor  # (N, K) int32 or int64
-    values: Tensor  # (N, K) float32
+    Duplicate indices within a row are summed by every product (they are
+    linear in the entries), as in the reference; the squared product
+    `sq_rmatvec` squares each entry as stored, so a feature named twice
+    gives a^2 + b^2."""
+
+    indices: Tensor  # (N, K) or (E, S, K), int32 or int64
+    values: Tensor  # same shape, float32
     dim: int
     # Set on the projected shard that game/projector.project_shard
     # registers: the reference keeps such a shard's planes as (K, N), and
     # the checkpoint fingerprint names its shape in that orientation.
     projected: bool = False
+    # A random-effect block's transpose plan (`ell_transpose_plan`), which
+    # the card's transposes run over; None on a shard and on the CPU.
+    plan: Optional["EllTransposePlan"] = None
 
     @property
-    def shape(self) -> Tuple[int, int]:
-        return (int(self.values.shape[0]), int(self.dim))
+    def shape(self) -> Tuple[int, ...]:
+        return (*(int(n) for n in self.values.shape[:-1]), int(self.dim))
 
     @property
     def device(self) -> torch.device:
         return self.values.device
 
     def matvec(self, w: Tensor) -> Tensor:
-        """x_r . w for every row: gather w at the indices, multiply, reduce."""
-        _plain_only(self.values, "matvec")
-        return torch.sum(w[self.indices.long()] * self.values.to(w.dtype), dim=-1)
+        """x_r . w for every row: gather w at the indices, multiply, reduce.
+        A block gathers each lane's row of w (E, D), on any device."""
+        if self.values.ndim == 2:
+            _plain_only(self.values, "matvec")
+            return torch.sum(w[self.indices.long()] * self.values.to(w.dtype), dim=-1)
+        lanes = self.values.shape[0]
+        gathered = torch.gather(w, 1, self.indices.long().reshape(lanes, -1))
+        return torch.sum(gathered.view(self.values.shape) * self.values.to(w.dtype), dim=-1)
 
     def rmatvec(self, u: Tensor) -> Tensor:
-        """X^T u by scatter-add (the transpose of `matvec`)."""
+        """X^T u by scatter-add (the transpose of `matvec`); per lane on a
+        block, u (E, S) -> (E, D)."""
+        if self.values.ndim != 2:
+            from photon_ml_tpu_torch.ops import ell_kernels
+
+            return ell_kernels.rmatvec(self, u)
         _plain_only(self.values, "rmatvec")
         return self._scatter(self.values.to(u.dtype) * u[:, None])
 
     def sq_rmatvec(self, u: Tensor) -> Tensor:
-        """sum_r u_r x_r^2 per feature (Hessian diagonals)."""
+        """sum_r u_r x_r^2 per feature (Hessian diagonals); per lane on a
+        block."""
+        if self.values.ndim != 2:
+            from photon_ml_tpu_torch.ops import ell_kernels
+
+            return ell_kernels.rmatvec(self, u, square=True)
         _plain_only(self.values, "sq_rmatvec")
         v = self.values.to(u.dtype)
         return self._scatter(v * v * u[:, None])
+
+    def lanes(self, lo: int, hi: int) -> "SparseFeatures":
+        """Lanes [lo, hi) of a block, with a transpose plan of their own on
+        the card (over every nonzero entry: it gives the bits of a plan over
+        the live rows, since u is 0 on the others)."""
+        idx, val = self.indices[lo:hi], self.values[lo:hi]
+        plan = ell_transpose_plan(idx, val, self.dim) if val.is_cuda else None
+        return SparseFeatures(idx, val, self.dim, plan=plan)
 
     def _scatter(self, per_entry: Tensor) -> Tensor:
         out = torch.zeros(self.dim, dtype=per_entry.dtype, device=per_entry.device)
@@ -90,34 +128,71 @@ class SparseFeatures:
 
 Features = Union[Tensor, SparseFeatures]
 
-# The largest dense block `ell_block_to_dense` builds, in bytes. A random-
-# effect chunk holds at most max_block_cells = 2^21 (entity, row) cells, so
-# at D = 201 its block is 2^21 x 201 x 4 B = 1.57 GiB; a wider shard needs
-# the projector (not ported yet), which maps each entity onto its own
-# features.
+
+@dataclasses.dataclass(frozen=True)
+class EllTransposePlan:
+    """A random-effect block's entries in (lane, feature) order, for its
+    transposes on the card (csrc/ell_block.cu): `order` holds the flat
+    positions (e * S + s) * K + k of the entries, sorted stably by lane *
+    dim + feature from (e, k, s) order, so a run of one cell is in (k, s)
+    order, the order in which the reference's scatter adds over its (E, K,
+    S) blocks; `run_ptr` the start of each run in `order` (runs + 1);
+    `run_out` each run's cell."""
+
+    order: Tensor  # (entries,) int32
+    run_ptr: Tensor  # (runs + 1,) int32
+    run_out: Tensor  # (runs,) int64
+    shape: Tuple[int, int, int]  # the block's (E, S, K)
+    dim: int
+
+    @property
+    def runs(self) -> int:
+        return int(self.run_out.numel())
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in (self.order, self.run_ptr, self.run_out))
+
+
+def ell_transpose_plan(indices: Tensor, values: Tensor, dim: int,
+                       live_rows: Optional[Tensor] = None) -> EllTransposePlan:
+    """The transpose plan of an (E, S, K) block, on its device: one stable
+    sort of the entries by (lane, feature) and the runs of equal keys. It
+    leaves out the entries that add nothing to a product: zero values, and,
+    with `live_rows` (E, S), every entry of a row that is not live (a row of
+    weight 0, where every u of the objective is 0). The block's structure
+    does not change over a solve, so the plan is built once per block."""
+    E, S, K = (int(n) for n in values.shape)
+    if values.numel() >= 1 << 31:
+        raise ValueError(f"a block of {values.numel()} entries is beyond the plan's int32 positions; "
+                         "lower max_block_cells")
+    keep = values != 0
+    if live_rows is not None:
+        keep &= live_rows[..., None]
+    # Entries enumerated in (e, k, s) order, named by their (e, s, k) position.
+    ek, s = torch.nonzero(keep.transpose(1, 2).reshape(E * K, S), as_tuple=True)
+    lane = torch.div(ek, K, rounding_mode="floor")
+    pos = (lane * S + s) * K + ek % K
+    keys = lane * dim + indices.reshape(-1)[pos].long()
+    keys, perm = torch.sort(keys, stable=True)
+    run_out, counts = torch.unique_consecutive(keys, return_counts=True)
+    run_ptr = torch.zeros(run_out.numel() + 1, dtype=torch.int32, device=values.device)
+    run_ptr[1:] = torch.cumsum(counts, 0)
+    return EllTransposePlan(pos[perm].to(torch.int32), run_ptr, run_out, (E, S, K), int(dim))
+
+
+# The largest dense block `ell_block_to_dense` builds, in bytes (FULL
+# variances densify a chunk of lanes of at most objective.HESSIAN_CHUNK_BYTES;
+# chip_smoke.py's float64 holds densify a bucket).
 MAX_DENSE_BLOCK_BYTES = 1 << 31
-
-
-def ell_has_duplicates(indices: Tensor, values: Tensor) -> bool:
-    """Does any row of ELL planes (..., K) name one feature twice among its
-    nonzero entries? (Padding and explicit zeros do not count.)"""
-    k = indices.shape[-1]
-    sentinel = -1 - torch.arange(k, device=indices.device)  # distinct per position
-    keyed = torch.where(values != 0, indices.long(), sentinel)
-    ordered = torch.sort(keyed, dim=-1).values
-    return bool((ordered[..., 1:] == ordered[..., :-1]).any())
 
 
 def ell_block_to_dense(block: SparseFeatures) -> Tensor:
     """An ELL block (..., S, K) as the dense (..., S, D) matrix it stands
     for, on its device.
 
-    The entries are added into zeros with `scatter_add_`, padding and zeros
-    as +0.0. The planes must not name a feature twice within a row among
-    their nonzero entries (planes from ingest and from `pack_csr_to_ell`
-    never do; `build_random_effect_dataset` checks a sparse shard once with
-    `ell_has_duplicates`). Then every cell receives at most one nonzero
-    addend and any number of exact zeros, so the result is exact and the
+    The entries are added into zeros one ELL position at a time (K
+    `scatter_add_` calls), so each call adds at most one entry to a cell and
+    a feature named twice in a row is summed in k order: the result is the
     same bits on every run, whatever order the device adds in. A block
     above MAX_DENSE_BLOCK_BYTES is refused."""
     idx, val = block.indices, block.values
@@ -128,8 +203,9 @@ def ell_block_to_dense(block: SparseFeatures) -> Tensor:
             f"a dense block of {lead} x {block.dim} would take {nbytes} bytes, above "
             f"MAX_DENSE_BLOCK_BYTES ({MAX_DENSE_BLOCK_BYTES}); lower max_block_cells")
     dense = torch.zeros((*lead, block.dim), dtype=val.dtype, device=val.device)
-    entries = torch.where(val != 0, val, torch.zeros((), dtype=val.dtype, device=val.device))
-    return dense.scatter_add_(-1, idx.long(), entries)
+    for k in range(val.shape[-1]):
+        dense.scatter_add_(-1, idx[..., k:k + 1].long(), val[..., k:k + 1])
+    return dense
 
 
 @dataclasses.dataclass(frozen=True)

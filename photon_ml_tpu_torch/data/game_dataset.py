@@ -6,7 +6,7 @@ features, labels, offsets, weights). A random-effect view is built once, on
 the dataset's device (data/device_assemble.py), as *entity blocks*: entities
 bucketed by padded size (power-of-two capacities from `min_bucket`), each
 bucket a (E, S) gather matrix into the sample axis plus a validity mask, so
-training gathers dense (E, S, D) blocks and solves all E problems at once.
+training gathers (E, S, D) blocks and solves all E problems at once.
 Rows past an entity's `active_upper_bound` are left out of training by a
 deterministic splitmix64 reservoir and still scored. The layout is the JAX
 package's exactly: same entities per bucket, same gather rows.
@@ -15,8 +15,9 @@ A shard is a dense (N, D) tensor or an ELL `SparseFeatures`; a sparse
 shard's layout (data/sparse_layout.py: CSR in row tiles, and CSC only above
 a single-stream width) is built on the device once, at first use, and
 cached on the dataset. A random effect over a sparse shard gathers an
-(E, S, K) ELL block per bucket chunk; its coordinate makes the block dense
-on the device (game/coordinate.py).
+(E, S, K) ELL block per bucket chunk instead, and its coordinate solves on
+that block (game/coordinate.py); on the card the block carries its
+transpose plan (`gather_block_data`).
 
 Every id tag is also held factorized, as `tag_codes` (per-sample codes into
 a sorted value table): a dataset read from Avro (io/avro_data.py) gets them
@@ -56,7 +57,7 @@ from photon_ml_tpu_torch.data.containers import (
     Features,
     LabeledData,
     SparseFeatures,
-    ell_has_duplicates,
+    ell_transpose_plan,
 )
 from photon_ml_tpu_torch.data import device_assemble
 from photon_ml_tpu_torch.data.sparse_layout import SparseLayout, from_ell
@@ -470,18 +471,11 @@ def build_random_effect_dataset(
     tag = config.random_effect_type
     if tag not in dataset.id_tags:
         raise ValueError(f"id tag {tag!r} not present in dataset")
-    feats = dataset.shards[config.feature_shard]
     if dataset.sharding is not None:
-        # Every rank checks its own rows, and every rank raises if one finds any.
-        if isinstance(feats, SparseFeatures) and not dataset.mesh.all_true(
-                not ell_has_duplicates(feats.indices, feats.values)):
-            _refuse_duplicates(config)
         return dataset.sharding.random_effect_dataset(dataset, config)
     times = StageTimes() if times is None else times
     dev = dataset.device
     with times.stage("re_build", dev):
-        if isinstance(feats, SparseFeatures) and ell_has_duplicates(feats.indices, feats.values):
-            _refuse_duplicates(config)
         with times.stage("re_device", dev):
             layout = entity_layout(dataset.tag_codes[tag], config, dev)
         times.note("re_path", "device")
@@ -499,12 +493,6 @@ def build_random_effect_dataset(
             num_passive_samples=dataset.num_samples - layout.num_active,
             feature_mask=feature_mask,
         )
-
-
-def _refuse_duplicates(config: RandomEffectDataConfig) -> None:
-    # The coordinate's dense blocks are exact only for distinct features.
-    raise ValueError(f"shard {config.feature_shard!r} names a feature twice within a row; "
-                     "merge duplicate entries first (pack_csr_to_ell)")
 
 
 def pearson_feature_masks(
@@ -604,8 +592,10 @@ def gather_block_data(
 ) -> LabeledData:
     """The (E, S, ...) LabeledData of one bucket; padding slots get weight
     0. A dense shard gives (E, S, D) features, a sparse one an (E, S, K) ELL
-    block (`SparseFeatures` with batch axes). Offsets default to the
-    dataset's; coordinate descent passes the residual-adjusted ones.
+    block (`SparseFeatures` with batch axes), which on the card carries its
+    transpose plan (`containers.ell_transpose_plan`, over the rows of
+    nonzero weight), built here once for the block's solve. Offsets default
+    to the dataset's; coordinate descent passes the residual-adjusted ones.
     `feature_mask` is the random effect's (E_total + 1, D) Pearson
     selection: each lane's row multiplies its features, so deselected
     features carry no signal (and, from a zero start under L2, keep a zero
@@ -613,12 +603,14 @@ def gather_block_data(
     offs = dataset.offsets if offsets is None else offsets
     g = blocks.gather
     feats = dataset.shards[shard]
+    weights = dataset.weights[g] * blocks.mask
     block_mask = None if feature_mask is None else feature_mask[blocks.entity_rows]  # (E, D)
     if isinstance(feats, SparseFeatures):
         idx, val = feats.indices[g], feats.values[g]
         if block_mask is not None:
             val = val * torch.gather(block_mask, 1, idx.long().flatten(1)).view_as(val)
-        feats = SparseFeatures(idx, val, feats.dim)
+        plan = ell_transpose_plan(idx, val, feats.dim, weights != 0) if val.is_cuda else None
+        feats = SparseFeatures(idx, val, feats.dim, plan=plan)
     else:
         feats = feats[g]
         if block_mask is not None:
@@ -627,5 +619,5 @@ def gather_block_data(
         features=feats,
         labels=dataset.labels[g],
         offsets=offs[g],
-        weights=dataset.weights[g] * blocks.mask,
+        weights=weights,
     )

@@ -21,9 +21,13 @@ Port of the single-device path of `photon_ml_tpu/game/coordinate.py`:
     one batched L-BFGS/TRON call over its (E, S, D) block, warm-started from
     the previous coefficient matrix rows, on the plain batched objective
     (the JAX package runs these vmapped solves on XLA, not on its kernels).
-    Over a sparse shard the bucket's (E, S, K) ELL block is made dense on
-    the device first (containers.ell_block_to_dense: exact and the same bits
-    on every run), and the same dense batched solve runs on it. A Pearson
+    Over a sparse shard the solve runs on the bucket's (E, S, K) ELL block,
+    as the reference's does, and the block is never made dense: X w is a
+    gather per lane, and the transposes are ops/ell_kernels.py's kernel on
+    the card, over the block's transpose plan (the entries sorted by (lane,
+    feature) once per block, in gather_block_data), which adds every cell in
+    a fixed order, so a rerun has the same bits. Only FULL variances densify
+    a chunk of lanes, as the reference does. A Pearson
     feature mask multiplies each lane's features in the gather; a
     per-entity normalization (a projected shard's) gives each lane its own
     (factors, shifts) row; SIMPLE variances are one more batched pass per
@@ -84,12 +88,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from photon_ml_tpu_torch.data.containers import (
-    Features,
-    LabeledData,
-    SparseFeatures,
-    ell_block_to_dense,
-)
+from photon_ml_tpu_torch.data.containers import Features, LabeledData, SparseFeatures
 from photon_ml_tpu_torch.data.game_dataset import (
     GameDataset,
     RandomEffectDataset,
@@ -309,8 +308,6 @@ class RandomEffectCoordinate:
         bucket_iters = []
         for blocks in red.buckets:
             block = gather_block_data(rows_ds, red.feature_shard, blocks, offsets, red.feature_mask)
-            if isinstance(block.features, SparseFeatures):
-                block = dataclasses.replace(block, features=ell_block_to_dense(block.features))
             w0 = matrix[blocks.entity_rows]
             norm = self._lane_norm(blocks.entity_rows)
             res = problem.solve(self.loss, block, cfg, w0, norm, use_kernel=False)
@@ -405,8 +402,6 @@ class RandomEffectCoordinate:
         first, count = bucket.lanes[k]
         block = gather_block_data(rep.dataset, red.feature_shard, bucket.placed[k], offsets,
                                   rep.feature_mask)
-        if isinstance(block.features, SparseFeatures):
-            block = dataclasses.replace(block, features=ell_block_to_dense(block.features))
         W0 = torch.zeros((bucket.real_entities, self.dim), dtype=w0.dtype, device=dev)
         W0[first:first + count] = w0[:count]
         norm = self._card_norms[dev]

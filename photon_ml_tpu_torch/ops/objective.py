@@ -8,15 +8,17 @@ Port of `photon_ml_tpu/ops/objective.py`:
     Hv = factor * (X^T r - (sum r) shifts) + l2 v,
          r = weight l''(z) (X (v*factor) - shifts.(v*factor))
 
-Features are a dense tensor, an ELL `SparseFeatures` (its plain CPU
-products) or a `SparseLayout` (ops/sparse_kernels.py: the CUDA kernels on
-the card, their plain versions on the CPU). Dense functions are
-rank-generic: `w` may carry leading batch axes (B, D) against features
-(B, N, D), which is how a random-effect bucket runs all its entity problems
-at once. The 2-D single-problem case can take the fused CUDA kernels
-(ops/glm_kernels.py for dense X, ops/sparse_kernels.py for a sparse
-layout), which return the raw sums; normalization and L2 are applied here,
-outside the kernel, exactly as in the JAX package.
+Features are a dense tensor, an ELL `SparseFeatures` or a `SparseLayout`
+(ops/sparse_kernels.py: the CUDA kernels on the card, their plain versions
+on the CPU). Functions are rank-generic: `w` may carry leading batch axes
+(B, D) against features (B, N, D) or a (B, N, K) ELL block, which is how
+a random-effect bucket runs all its entity problems at once; a block's
+products run per lane (data/containers.py: a gather for X w, and
+ops/ell_kernels.py for the transposes). The 2-D single-problem case can
+take the fused CUDA kernels (ops/glm_kernels.py for dense X,
+ops/sparse_kernels.py for a sparse layout), which return the raw sums;
+normalization and L2 are applied here, outside the kernel, exactly as in
+the JAX package.
 
 `use_kernel`: None = the fused kernel when the features are a sparse layout
 or a 2-D float32/bf16 CUDA tensor, else the composed path; False = the
@@ -263,8 +265,10 @@ def hessian_matrix(
     package densifies the whole shard); a sparse shard's margins go through
     `_matvec` (on a layout on the card, the X w kernel), a dense matrix's
     through each chunk as it is made (a bf16 X is never widened whole).
-    Batched lanes (w (B, D) over dense (B, S, D) blocks) form their
-    (B, D, D) products at once, so the caller bounds B."""
+    Batched lanes (w (B, D) over (B, S, D) blocks, or (B, S, K) ELL blocks,
+    whose margins run on the block and which are then made dense as the JAX
+    package densifies them) form their (B, D, D) products at once, so the
+    caller bounds B."""
     w_eff, shift = _eff(w, norm)
     shifts = None if norm is None else norm.shifts
 
@@ -287,8 +291,9 @@ def hessian_matrix(
             H += (X * c_rows[:, None]).T @ X
         (H,) = over_ranks(data.mesh, H)
     else:
-        X = data.features.to(w.dtype)
-        c = curvature(torch.einsum("...nd,...d->...n", X, w_eff))
+        c = curvature(_matvec(data.features, w_eff))
+        X = data.features
+        X = (ell_block_to_dense(X) if isinstance(X, SparseFeatures) else X).to(w.dtype)
         if shifts is not None:
             X = X - shifts[..., None, :]
         H = torch.einsum("...nd,...n,...ne->...de", X, c, X)

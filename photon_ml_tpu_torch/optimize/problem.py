@@ -4,10 +4,11 @@ Port of `solve` and `compute_variances` from `photon_ml_tpu/optimize/
 problem.py`. One solve serves both coordinate kinds: a fixed effect passes a
 single coefficient vector (D,) over (N, D) or sparse data and gets an
 unbatched result; a random-effect bucket passes (E, D) over (E, S, D)
-blocks and gets one lane per entity. The optimizer is the reference's
-choice: TRON, or L-BFGS — in OWLQN mode when the optimizer is OWLQN or the
-regularization is L1 or elastic net (l1 = the config's L1 weight), with the
-config's box constraints when it has them.
+blocks or (E, S, K) ELL blocks and gets one lane per entity. The
+optimizer is the reference's choice: TRON, or L-BFGS — in OWLQN mode when
+the optimizer is OWLQN or the regularization is L1 or elastic net (l1 =
+the config's L1 weight), with the config's box constraints when it has
+them.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from photon_ml_tpu_torch.data.containers import LabeledData
+from photon_ml_tpu_torch.data.containers import LabeledData, SparseFeatures
 from photon_ml_tpu_torch.ops import objective
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
@@ -127,8 +128,10 @@ def compute_variances(
     out = []
     for lo in range(0, E, step):
         hi = min(E, lo + step)
-        part = LabeledData(data.features[lo:hi], data.labels[lo:hi], data.offsets[lo:hi],
-                           data.weights[lo:hi])
+        # An ELL block's lanes stay ELL planes; `hessian_matrix` makes them dense.
+        feats = data.features
+        feats = feats.lanes(lo, hi) if isinstance(feats, SparseFeatures) else feats[lo:hi]
+        part = LabeledData(feats, data.labels[lo:hi], data.offsets[lo:hi], data.weights[lo:hi])
         lane_norm = None if norm is None else NormalizationContext(
             _lanes(norm.factors, lo, hi), _lanes(norm.shifts, lo, hi), norm.intercept_index)
         out.append(_diag_of_inverse(objective.hessian_matrix(loss, w[lo:hi], part, lane_norm, l2)))

@@ -266,11 +266,9 @@ def test_full_variances_single_problem_match_jax(features, chunked, normalized, 
 @pytest.mark.parametrize("sparse", [False, True], ids=["dense", "ell"])
 def test_full_variances_lanes_match_vmapped_jax(loss_name, chunked, sparse, monkeypatch):
     """E random-effect lanes: the JAX package vmaps `compute_variances` over
-    the lanes' blocks (dense, or ELL planes); the port solves a random effect
-    over an ELL shard on its dense blocks (`ell_block_to_dense`), and forms
-    the lanes' Hessians a chunk of lanes at a time."""
-    from photon_ml_tpu_torch.data.containers import ell_block_to_dense
-
+    the lanes' blocks (dense, or ELL planes); the port takes a random
+    effect's ELL block as the coordinate solves it, cuts its planes a chunk
+    of lanes at a time and makes each chunk dense for the lanes' Hessians."""
     loss, jloss = LOSSES[loss_name]
     X, y, off, wt = _lanes(loss_name, E=7, S=40, seed=13)
     E, S, d = X.shape
@@ -283,7 +281,7 @@ def test_full_variances_lanes_match_vmapped_jax(loss_name, chunked, sparse, monk
         rng = np.random.default_rng(4)
         idx = np.argsort(rng.uniform(size=(E, S, d)), axis=-1)[..., :4].astype(np.int32)
         val = np.take_along_axis(X, idx, axis=-1)
-        feats = ell_block_to_dense(SparseFeatures(torch.from_numpy(idx), torch.from_numpy(val), d))
+        feats = SparseFeatures(torch.from_numpy(idx), torch.from_numpy(val), d)
     else:
         feats = torch.from_numpy(X)
     block = LabeledData(feats, *(torch.from_numpy(a) for a in (y, off, wt)))

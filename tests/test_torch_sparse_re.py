@@ -1,6 +1,7 @@
 """Random effects over a sparse shard against the JAX package: the
 per-entity solve on an ELL shard (coefficients per entity, scores), the
-dense block a bucket's ELL block becomes against the plain ELL products,
+dense block a bucket's ELL block becomes (FULL variances) against the plain
+ELL products, duplicates in a shard,
 bit-identical reruns, the whole slice from Avro files (a fixed effect plus
 per-user and per-movie random effects on one sparse shard, then AUC), and
 a JAX model trained over a sparse shard carried into the port."""
@@ -134,23 +135,24 @@ def test_dense_block_matches_the_plain_ell_products():
 
 
 def test_sparse_random_effect_refuses_duplicates_and_an_oversize_block(monkeypatch):
+    """A shard that names a feature twice in a row is accepted, as the
+    reference accepts it: its block's products sum the entries (a^2 + b^2 in
+    the squared one), and the dense form FULL variances build sums them in
+    k order. `ell_block_to_dense` still refuses a block above
+    MAX_DENSE_BLOCK_BYTES, where it runs."""
     idx = torch.tensor([[3, 1, 3, 0], [2, 0, 0, 0]], dtype=torch.int32)
     val = torch.tensor([[1.0, 2.0, 0.5, 0.0], [1.0, 0.0, 0.0, 0.0]])
-    cfg = gd.RandomEffectDataConfig("userId", "g")
-
-    def build(v):
-        ds = gd.GameDataset.build({"g": SparseFeatures(idx, v, 5)}, np.zeros(2),
-                                  id_tags={"userId": np.array(["a", "a"])}, device="cpu")
-        return ds, gd.build_random_effect_dataset(ds, cfg)
-
-    with pytest.raises(ValueError, match="twice"):
-        build(val)
-    # A repeat among padding or explicit zeros is no duplicate.
-    val[0, 2] = 0.0
-    ds, red = build(val)
+    ds = gd.GameDataset.build({"g": SparseFeatures(idx, val, 5)}, np.zeros(2),
+                              id_tags={"userId": np.array(["a", "a"])}, device="cpu")
+    red = gd.build_random_effect_dataset(ds, gd.RandomEffectDataConfig("userId", "g"))
     ell = gd.gather_block_data(ds, "g", red.buckets[0]).features
+    jell = jax_containers.SparseFeatures(ell.indices.numpy()[0], ell.values.numpy()[0], 5)
+    u = torch.tensor([[0.5, -2.0] + [0.0] * (ell.values.shape[1] - 2)] * ell.values.shape[0])
+    assert ell.rmatvec(u)[0].tolist() == np.asarray(jell.rmatvec(jnp.asarray(u[0]))).tolist()
+    assert ell.sq_rmatvec(u)[0].tolist() == [0.0, 2.0, -2.0, 0.5 * (1.0 + 0.25), 0.0]
+    np.testing.assert_array_equal(ell.sq_rmatvec(u)[0].numpy(), np.asarray(jell.sq_rmatvec(jnp.asarray(u[0]))))
     dense = containers.ell_block_to_dense(ell)
-    assert dense[0, 0].tolist() == [0.0, 2.0, 0.0, 1.0, 0.0] and dense[0, 1].tolist() == [0.0, 0.0, 1.0, 0.0, 0.0]
+    assert dense[0, 0].tolist() == [0.0, 2.0, 0.0, 1.5, 0.0] and dense[0, 1].tolist() == [0.0, 0.0, 1.0, 0.0, 0.0]
     monkeypatch.setattr(containers, "MAX_DENSE_BLOCK_BYTES", dense.numel() * 4 - 1)
     with pytest.raises(ValueError, match="MAX_DENSE_BLOCK_BYTES"):
         containers.ell_block_to_dense(ell)
@@ -274,8 +276,6 @@ def test_re_solve_length_is_as_sensitive_in_the_reference():
         port, ref = [], []
         for b, jb in zip(red.buckets, jred.buckets):
             block = gd.gather_block_data(ds, "g", b, torch.from_numpy(offsets))
-            block = containers.LabeledData(containers.ell_block_to_dense(block.features), block.labels,
-                                           block.offsets, block.weights)
             w0 = torch.zeros(b.num_entities, D_IDS + 1)
             port.append(problem.solve(losses.LOGISTIC, block, re, w0, use_kernel=False).iterations.numpy())
             jblock = jax_gd.gather_block_data(jds, "g", jb, jds.offsets + offsets)

@@ -4,14 +4,14 @@
     PYTHONPATH=. python3 tools/chip_smoke_entity_shard.py
 
 Builds the kernel libraries 3c's training launches (`csrc/sparse_glm.cu`,
-`csrc/glm_fused.cu`, `csrc/exact_sum.cu`) and the native Avro library, all
-started together; writes phase 3e's training files; trains 3c's model with
-3c's `cli.train` command line; writes 3g's validation file and 3v's
-requests (both from the validation draw); then calls
-`chip_smoke.entity_shard_phase`, which fails on any gate it fails. On a
-machine with two or more cards its mesh is one shard a card over the first
-4; on one card, 4 shards on card 0. Prints the phase's launches and every
-card's name and power limit last. Needs a CUDA card.
+`csrc/glm_fused.cu`, `csrc/exact_sum.cu`, `csrc/ell_block.cu`) and the
+native Avro library, all started together; writes phase 3e's training
+files; trains 3c's model with 3c's `cli.train` command line; writes 3g's
+validation file and 3v's requests (both from the validation draw); then
+calls `chip_smoke.entity_shard_phase`, which fails on any gate it fails. On
+a machine with two or more cards its mesh is one shard a card over the
+first 4; on one card, 4 shards on card 0. Prints the phase's launches and
+every card's name and power limit last. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 import chip_smoke as cs
 from photon_ml_tpu_torch.cli import train as train_cli
 from photon_ml_tpu_torch.native import build as native_build
-from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
+from photon_ml_tpu_torch.ops import cuda_build, ell_kernels, glm_kernels, sparse_kernels
 from photon_ml_tpu_torch.parallel import mesh as pmesh
 
 
@@ -38,7 +38,7 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     threads = [threading.Thread(target=cuda_build.build_library, args=(src,), name=f"build-{src.name}")
-               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE)]
+               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE, ell_kernels.SOURCE)]
     threads.append(threading.Thread(target=native_build.build_library, name="build-native"))
     for t in threads:
         t.start()

@@ -4,13 +4,13 @@
     PYTHONPATH=. python3 tools/chip_smoke_multihost.py [--device cuda:0|cuda]
 
 Builds the kernel libraries the workers launch (`csrc/sparse_glm.cu`,
-`csrc/exact_sum.cu`, `csrc/glm_fused.cu`) and the native Avro library, all
-started together, then calls `chip_smoke.multihost_phase`: 3e's rows as 8
-part files, a PHIDX store, one process's `cli.train` on the card, then the
-4-worker run and the drill, every gate of the phase. `--device cuda:0`
-(the default) puts the four workers on one card over gloo; `--device
-cuda` gives each a card over NCCL where the machine has four. Needs a
-CUDA card.
+`csrc/exact_sum.cu`, `csrc/glm_fused.cu`, `csrc/ell_block.cu`) and the
+native Avro library, all started together, then calls
+`chip_smoke.multihost_phase`: 3e's rows as 8 part files, a PHIDX store, one
+process's `cli.train` on the card, then the 4-worker run and the drill,
+every gate of the phase. `--device cuda:0` (the default) puts the four
+workers on one card over gloo; `--device cuda` gives each a card over NCCL
+where the machine has four. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import torch
 
 import chip_smoke as cs
 from photon_ml_tpu_torch.native import build as native_build
-from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
+from photon_ml_tpu_torch.ops import cuda_build, ell_kernels, glm_kernels, sparse_kernels
 from photon_ml_tpu_torch.parallel import mesh as pmesh
 
 
@@ -38,7 +38,7 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     threads = [threading.Thread(target=cuda_build.build_library, args=(src,), name=f"build-{src.name}")
-               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE)]
+               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE, ell_kernels.SOURCE)]
     threads.append(threading.Thread(target=native_build.build_library, name="build-native"))
     for t in threads:
         t.start()

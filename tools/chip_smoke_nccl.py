@@ -29,7 +29,7 @@ import torch
 import chip_smoke as cs
 from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
 from photon_ml_tpu_torch.native import build as native_build
-from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
+from photon_ml_tpu_torch.ops import cuda_build, ell_kernels, glm_kernels, sparse_kernels
 from photon_ml_tpu_torch.parallel import mesh as pmesh
 
 
@@ -41,7 +41,7 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     print(f"torch {torch.__version__}, {torch.cuda.device_count()} cards:\n{smi.stdout.strip()}",
           flush=True)
-    for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE):
+    for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE, ell_kernels.SOURCE):
         cuda_build.build_library(src)
     native_build.build_library()
     seed = 0

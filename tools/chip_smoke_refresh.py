@@ -3,12 +3,13 @@
 
     PYTHONPATH=. python3 tools/chip_smoke_refresh.py
 
-Builds the two kernel libraries 3r launches (`csrc/glm_fused.cu` for
-3r-loop's dense fixed effect, `csrc/sparse_glm.cu` for 3r-e2e's sparse one)
-and the native Avro library, all started together; writes and reads phase
-3e's training files (4,000,000 rows) onto the card; then calls
-`chip_smoke.refresh_phase` (3r-loop, then 3r-e2e), which fails on any gate
-it fails. Prints the card's name and power limit last. Needs a CUDA card.
+Builds the kernel libraries 3r launches (`csrc/glm_fused.cu` for 3r-loop's
+dense fixed effect, `csrc/sparse_glm.cu` for 3r-e2e's sparse one,
+`csrc/ell_block.cu` for its random effects) and the native Avro library,
+all started together; writes and reads phase 3e's training files (4,000,000
+rows) onto the card; then calls `chip_smoke.refresh_phase` (3r-loop, then
+3r-e2e), which fails on any gate it fails. Prints the card's name and power
+limit last. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 import chip_smoke as cs
 from photon_ml_tpu_torch.native import build as native_build
-from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
+from photon_ml_tpu_torch.ops import cuda_build, ell_kernels, glm_kernels, sparse_kernels
 
 
 def main() -> int:
@@ -31,7 +32,7 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     threads = [threading.Thread(target=cuda_build.build_library, args=(src,), name=f"build-{src.name}")
-               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE)]
+               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, ell_kernels.SOURCE)]
     threads.append(threading.Thread(target=native_build.build_library, name="build-native"))
     for t in threads:
         t.start()

@@ -3,18 +3,17 @@
 
     PYTHONPATH=. python3 tools/chip_smoke_sweep.py
 
-Builds the two kernel libraries the phase launches and the native Avro
-library, all started together; writes phase 3e's training files and phase
-3g's 1,000,000-row validation file with chip_smoke.py's generator; then
-calls `chip_smoke.sweep_phase`, which fails on any check it fails (3w-bench,
+Builds the kernel libraries the phase launches and the native Avro library,
+all started together; writes phase 3e's training files and phase 3g's
+1,000,000-row validation file with chip_smoke.py's generator; then calls
+`chip_smoke.sweep_phase`, which fails on any check it fails (3w-bench,
 3w-drills, 3w-e2e and 3w-sg). With 4 or more cards it then runs
 `chip_smoke.sweep_groups_cli_phase` (3w-sg-cli: `cli.tune --sweep-mode
 shard_group --shard-groups 2` against `--sweep-mode serial`, tuned-best
 bit-equal). `--trace DIR` adds 3w-sg-trace: where one cold trial's time
 goes, serial and in the group (chip_smoke.py `trace_group_trial`);
-`--groups-only` runs 3w-sg-cli alone. About
-4 minutes on one card, most of it nvcc and the phase itself. Needs a CUDA
-card.
+`--groups-only` runs 3w-sg-cli alone. About 4 minutes on one card, most of
+it nvcc and the phase itself. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ import torch
 
 import chip_smoke as cs
 from photon_ml_tpu_torch.native import build as native_build
-from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
+from photon_ml_tpu_torch.ops import cuda_build, ell_kernels, glm_kernels, sparse_kernels
 
 
 def main(argv=None) -> int:
@@ -48,7 +47,7 @@ def main(argv=None) -> int:
         return 2
     t0 = time.perf_counter()
     threads = [threading.Thread(target=cuda_build.build_library, args=(src,), name=f"build-{src.name}")
-               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE)]
+               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, ell_kernels.SOURCE)]
     threads.append(threading.Thread(target=native_build.build_library, name="build-native"))
     for t in threads:
         t.start()

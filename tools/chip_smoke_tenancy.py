@@ -4,12 +4,13 @@
     PYTHONPATH=. python3 tools/chip_smoke_tenancy.py
 
 Builds the kernel libraries 3c's training and 3n's refresh round launch
-(`csrc/sparse_glm.cu`, `csrc/glm_fused.cu`, `csrc/exact_sum.cu`) and the
-native Avro library, all started together; writes phase 3e's training
-files; trains 3c's model with 3c's `cli.train` command line; writes 3v's
-requests (its validation draw); then calls `chip_smoke.tenancy_phase`,
-which fails on any gate it fails. Prints the phase's launches and the
-card's name and power limit last. Needs a CUDA card.
+(`csrc/sparse_glm.cu`, `csrc/glm_fused.cu`, `csrc/exact_sum.cu`,
+`csrc/ell_block.cu`) and the native Avro library, all started together;
+writes phase 3e's training files; trains 3c's model with 3c's `cli.train`
+command line; writes 3v's requests (its validation draw); then calls
+`chip_smoke.tenancy_phase`, which fails on any gate it fails. Prints the
+phase's launches and the card's name and power limit last. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 import chip_smoke as cs
 from photon_ml_tpu_torch.cli import train as train_cli
 from photon_ml_tpu_torch.native import build as native_build
-from photon_ml_tpu_torch.ops import cuda_build, glm_kernels, sparse_kernels
+from photon_ml_tpu_torch.ops import cuda_build, ell_kernels, glm_kernels, sparse_kernels
 from photon_ml_tpu_torch.parallel import mesh as pmesh
 
 
@@ -35,7 +36,7 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     threads = [threading.Thread(target=cuda_build.build_library, args=(src,), name=f"build-{src.name}")
-               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE)]
+               for src in (glm_kernels.SOURCE, sparse_kernels.SOURCE, pmesh.SOURCE, ell_kernels.SOURCE)]
     threads.append(threading.Thread(target=native_build.build_library, name="build-native"))
     for t in threads:
         t.start()
